@@ -2,23 +2,23 @@
 beom_tpu/cases/__init__.py.
 
 Each is a `make_case(**kw, device=...) -> (cfg, grid, forcing, state)`
-factory.  Only the double gyre is ported so far.
+factory.  The double gyre and the rigid-lid gyre are ported so far.
 """
 
-from beom_tpu_torch.cases import double_gyre
+from beom_tpu_torch.cases import double_gyre, rigid_lid
 
 REGISTRY = {
     "double_gyre": double_gyre.make_case,
+    "rigid_lid": rigid_lid.make_case,
 }
 
 # where each case that is not yet ported sits in ROADMAP.md's queue 1
 NOT_PORTED = {
-    "two_layer": "ROADMAP queue 1 item 9 (slice 2: the other fb-path cases)",
+    "two_layer": "ROADMAP queue 1 item 9 (slice 3: the other fb-path cases)",
     "coastal_wetdry":
-        "ROADMAP queue 1 item 9 (slice 2: the other fb-path cases)",
+        "ROADMAP queue 1 item 9 (slice 3: the other fb-path cases)",
     "shelf_forced":
-        "ROADMAP queue 1 item 9 (slice 2: the other fb-path cases)",
-    "rigid_lid": "ROADMAP queue 1 item 11 (slice 4: the projection schemes)",
+        "ROADMAP queue 1 item 9 (slice 3: the other fb-path cases)",
 }
 
 

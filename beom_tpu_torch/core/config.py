@@ -4,9 +4,10 @@ A frozen dataclass with the same field names and defaults, so one dict
 builds either package's `Config`.  Two fields take the port's own values:
 
   * backend: 'eager' runs the step op by op in PyTorch (the twin of the
-    JAX 'xla' path); 'fused' runs it through the hand-written CUDA kernel
-    of stencils/fused_fb.py (the twin of 'pallas').  On CPU tensors the
-    fused path runs the kernel's plain PyTorch version.
+    JAX 'xla' path); 'fused' runs it through the hand-written CUDA
+    kernels of stencils/fused_fb.py and stencils/fused_projection.py (the
+    twin of 'pallas').  On CPU tensors the fused path runs the kernels'
+    plain PyTorch versions.
   * steps_per_pass: model steps one step() call advances, on either
     backend.
 

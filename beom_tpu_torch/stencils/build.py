@@ -27,7 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-Xptxas", "-v")
 
 _LOADED: dict = {}
-BUILD_LOG: dict = {}     # source name -> (seconds, nvcc's output)
+BUILD_LOG: dict = {}     # source name -> (seconds to build, nvcc's output)
 
 
 def nvcc_path() -> str:
@@ -43,29 +43,47 @@ def nvcc_path() -> str:
         "the CUDA kernels cannot be built")
 
 
+def _lib_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def build_all(names) -> None:
+    """Compile every csrc/<name>.cu not yet cached, one nvcc each, all
+    running at once; raise if any fails."""
+    todo = [n for n in names if not _lib_path(n).is_file()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    t0 = time.perf_counter()
+    jobs = []
+    for name in todo:
+        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
+        jobs.append((name, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for name, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on csrc/{name}.cu (exit "
+                          f"{proc.returncode}):\n{out}")
+            continue
+        os.replace(tmp, _lib_path(name))
+        BUILD_LOG[name] = (time.perf_counter() - t0, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load(name: str) -> ctypes.CDLL:
     """The library built from csrc/<name>.cu, built if not yet cached."""
     if name in _LOADED:
         return _LOADED[name]
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}-{key}.so"
-    if not lib_path.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, lib_path)
-        BUILD_LOG[name] = (time.perf_counter() - t0,
-                           proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(str(lib_path))
+    build_all([name])
+    lib = ctypes.CDLL(str(_lib_path(name)))
     lib.beom_cuda_error_string.argtypes = [ctypes.c_int]
     lib.beom_cuda_error_string.restype = ctypes.c_char_p
     _LOADED[name] = lib

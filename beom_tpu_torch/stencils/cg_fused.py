@@ -1,0 +1,138 @@
+"""The whole Jacobi-preconditioned CG solve in one launch (K6) and its
+plain PyTorch version.
+
+The CUDA kernel `csrc/cg_fused.cu` replaces the TPU kernel
+beom_tpu/stencils/cg_vmem.py::_cg_kernel with precond='jacobi': the
+single-reduction Chronopoulos-Gear CG of solvers/elliptic.cg_solve, with
+its nullspace deflation for lam = 0, runs to convergence in one
+cooperative launch with grid-wide syncs.  The reference keeps the solver
+state in VMEM and so runs the kernel only up to about 1024^2 f32; here
+the state lives in device memory and the kernel runs at every size.
+
+`make_cg_solve(...)` returns solve(b, x0=None) -> CGResult.  CPU tensors
+take the plain version, `cg_solve_plain` (elliptic.cg_solve with the
+Jacobi preconditioner); CUDA tensors take the kernel or raise.  The
+multigrid preconditioner of the reference kernel is not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from beom_tpu_torch.core.config import Config
+from beom_tpu_torch.core.grid import Grid
+from beom_tpu_torch.solvers import elliptic
+from beom_tpu_torch.solvers.elliptic import CGResult
+from beom_tpu_torch.stepping.projection import MG_NOT_PORTED
+
+# kernel launches made by the solves; a run reads it to show that its
+# main path went through the kernel
+LAUNCHES = 0
+
+_ENTRY = {torch.float32: "beom_cg_fused_f32",
+          torch.float64: "beom_cg_fused_f64"}
+_NDOT = 6          # partial sums per CTA (csrc/cg_fused.cu NDOT)
+
+
+def cg_solve_plain(b, grid: Grid, cfg: Config, x0=None, lam=0.0,
+                   tol: Optional[float] = None,
+                   maxiter: Optional[int] = None) -> CGResult:
+    """The plain version of the kernel: elliptic.cg_solve with Jacobi."""
+    return elliptic.cg_solve(b, grid, cfg, x0=x0, lam=lam, tol=tol,
+                             maxiter=maxiter)
+
+
+def _entry(dtype):
+    from beom_tpu_torch.stencils import build
+
+    lib = build.load("cg_fused")
+    fn = getattr(lib, _ENTRY[dtype])
+    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    fn.argtypes = [P] * 13 + [I] + [P] * 2 + [I] * 4 + [D] * 5 + [P]
+    fn.restype = I
+    blocks = getattr(lib, _ENTRY[dtype].replace("fused", "fused_blocks"))
+    blocks.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    blocks.restype = I
+    return lib, fn, blocks
+
+
+def _grid_blocks(dtype) -> int:
+    """The number of CTAs a launch of the kernel uses on this card."""
+    from beom_tpu_torch.stencils import build
+
+    lib, _, blocks = _entry(dtype)
+    n = ctypes.c_int(0)
+    build.check(lib, blocks(ctypes.byref(n)), "cg_fused occupancy query")
+    return n.value
+
+
+def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
+                  precond: Optional[str] = None,
+                  tol: Optional[float] = None,
+                  maxiter: Optional[int] = None):
+    """solve(b, x0=None) -> CGResult, the whole Jacobi-preconditioned CG
+    in one kernel launch.  precond: the cfg.precond='auto' rule by default
+    (mg for the lam = 0 solve, which raises, jacobi otherwise); 'ssor' is
+    not offered in the kernel and becomes 'jacobi', as in the reference.
+    """
+    precond = cfg.precond if precond is None else precond
+    if precond == "auto":
+        precond = "mg" if lam == 0.0 else "jacobi"
+    if precond == "mg":
+        raise NotImplementedError(
+            f"the fused CG's mg preconditioner: {MG_NOT_PORTED}")
+    mask = grid.mask
+    dtype = mask.dtype
+    tol_eff = max(cfg.solver_tol if tol is None else tol,
+                  30.0 * float(torch.finfo(dtype).eps))
+    maxiter = cfg.solver_maxiter if maxiter is None else maxiter
+    on_cpu = mask.device.type == "cpu"
+    if not on_cpu:
+        if mask.device.type != "cuda":
+            raise NotImplementedError(
+                f"the fused CG runs on cuda or cpu, not {mask.device.type}")
+        if dtype not in _ENTRY:
+            raise ValueError(f"fused CG: dtype {dtype}")
+        Hu, Hv = elliptic.face_depths(grid)
+        _, inv_diag = elliptic.jacobi_diag(grid, cfg, lam)
+        statics = [t.contiguous() for t in (Hu, Hv, mask, inv_diag)]
+
+    def solve(b, x0=None) -> CGResult:
+        global LAUNCHES
+        if on_cpu:
+            if b.device.type != "cpu":
+                raise ValueError("fused CG: b is not on the grid's device")
+            return cg_solve_plain(b, grid, cfg, x0=x0, lam=lam, tol=tol,
+                                  maxiter=maxiter)
+        from beom_tpu_torch.stencils import build
+
+        x0 = torch.zeros_like(b) if x0 is None else x0
+        for a in (b, x0):
+            if a.device != mask.device or a.dtype != dtype \
+                    or not a.is_contiguous() or a.shape != mask.shape:
+                raise ValueError(
+                    "fused CG: b and x0 must be contiguous "
+                    f"{dtype} tensors of {tuple(mask.shape)} on "
+                    f"{mask.device}")
+        with torch.cuda.device(b.device):
+            lib, fn, _ = _entry(dtype)
+            work = [torch.empty_like(b) for _ in range(6)]  # x r u w p s
+            n_part = 2 * _NDOT * _grid_blocks(dtype)
+            partials = torch.empty(n_part, dtype=dtype, device=b.device)
+            iters = torch.empty(1, dtype=torch.int32, device=b.device)
+            resnorm = torch.empty(1, dtype=dtype, device=b.device)
+            code = fn(*[a.data_ptr() for a in [b, x0] + statics + work],
+                      partials.data_ptr(), n_part, iters.data_ptr(),
+                      resnorm.data_ptr(), cfg.ny, cfg.nx, maxiter,
+                      int(lam == 0.0), 1.0 / cfg.dx, 1.0 / cfg.dy, lam,
+                      tol_eff * tol_eff, float(torch.finfo(dtype).tiny),
+                      torch.cuda.current_stream(b.device).cuda_stream)
+            build.check(lib, code, "cg_fused kernel launch")
+            LAUNCHES += 1
+        return CGResult(x=work[0], iters=int(iters.item()),
+                        resnorm=resnorm[0])
+
+    return solve

@@ -1,7 +1,8 @@
 """Time-stepping schemes: the port's twin of beom_tpu/stepping/__init__.py.
 
 `get_step(cfg)` dispatches cfg.scheme to a step function
-step(state, grid, forcing, cfg) -> state.  Only 'fb' is ported so far.
+step(state, grid, forcing, cfg) -> state.  'fb', 'rigid_lid' and
+'implicit_fs' are ported; 'split' is not yet.
 """
 
 from __future__ import annotations
@@ -12,10 +13,9 @@ from beom_tpu_torch.core.config import Config
 
 # where each scheme that is not yet ported sits in ROADMAP.md's queue 1
 _NOT_PORTED = {
-    "split": "ROADMAP queue 1 item 10 (slice 3: stepping/split.py)",
-    "rigid_lid": "ROADMAP queue 1 item 11 (slice 4: stepping/projection.py)",
-    "implicit_fs": "ROADMAP queue 1 item 11 (slice 4: stepping/projection.py)",
+    "split": "ROADMAP queue 1 item 10 (slice 4: stepping/split.py)",
 }
+_PROJECTION = ("rigid_lid", "implicit_fs")
 
 
 def _not_ported(cfg: Config):
@@ -27,7 +27,7 @@ def _not_ported(cfg: Config):
 def prepare_state(state, cfg: Config):
     """Attach the warm-start carry (State.phi) for the projection schemes;
     a no-op for fb/split or when already attached."""
-    if (cfg.scheme in ("rigid_lid", "implicit_fs") and cfg.warm_start
+    if (cfg.scheme in _PROJECTION and cfg.warm_start
             and state.phi is None):
         z = torch.zeros(state.h.shape[1:], dtype=state.h.dtype,
                         device=state.h.device)
@@ -39,6 +39,11 @@ def get_step(cfg: Config):
     if cfg.scheme == "fb":
         from beom_tpu_torch.stepping.fb import fb_step
         return fb_step
+    if cfg.scheme in _PROJECTION:
+        from beom_tpu_torch.stepping import projection
+        # multigrid configurations raise here, before any step runs
+        projection.check_solver(cfg, projection.solve_lam(cfg))
+        return getattr(projection, f"{cfg.scheme}_step")
     if cfg.scheme in _NOT_PORTED:
         raise _not_ported(cfg)
     raise ValueError(f"unknown scheme {cfg.scheme!r}")
@@ -47,12 +52,18 @@ def get_step(cfg: Config):
 def make_stepper(grid, forcing, cfg: Config):
     """step(state) -> state advancing cfg.steps_per_pass model steps.
 
-    backend='fused' runs the hand-written fused step kernel
-    (stencils/fused_fb.py, its plain PyTorch version on CPU tensors);
-    backend='eager' runs fb_step op by op.
+    backend='fused' runs the hand-written kernels (their plain PyTorch
+    versions on CPU tensors): fb through the fused step of
+    stencils/fused_fb.py, rigid_lid / implicit_fs through the phase
+    kernels and the solver kernels of stencils/fused_projection.py.
+    backend='eager' runs the step op by op.
     """
     step = get_step(cfg)
     k = cfg.steps_per_pass
+    if cfg.backend == "fused" and cfg.scheme in _PROJECTION:
+        from beom_tpu_torch.stencils.fused_projection import (
+            make_fused_projection_stepper)
+        return make_fused_projection_stepper(grid, forcing, cfg)
     if cfg.backend == "fused":
         from beom_tpu_torch.stencils.fused_fb import make_fused_stepper
         return make_fused_stepper(grid, forcing, cfg)

@@ -36,9 +36,9 @@ def _pv_and_fluxes(h, u, v, grid: Grid, cfg: Config):
 
 
 def _common_tendencies(h_new, u, v, grid: Grid, forcing: Forcing,
-                       cfg: Config):
+                       cfg: Config, free_surface: bool = True):
     """Momentum tendencies independent of the FB-Coriolis sweep order."""
-    M = pressure.montgomery(h_new, grid, cfg)
+    M = pressure.montgomery(h_new, grid, cfg, free_surface=free_surface)
     phi = M if cfg.adv_scheme == "linear" else M + momentum.kinetic_energy(u, v)
     du = -ops.d_xp(phi, cfg.dx)
     dv = -ops.d_yp(phi, cfg.dy)
@@ -69,15 +69,18 @@ def continuity_update(state: State, grid: Grid, forcing: Forcing,
 
 
 def momentum_update(h1, state: State, grid: Grid, forcing: Forcing,
-                    cfg: Config):
+                    cfg: Config, free_surface: bool = True):
     """Steps 2-4 of FB: (u1, v1) from new thickness h1.
 
     Backward pressure M(h1), FB-Coriolis sweeps ordered by the parity of
-    state.n, implicit bottom drag.
+    state.n, implicit bottom drag.  `free_surface=False` drops the g*eta
+    surface-pressure term for the projection steps
+    (stepping/projection.py), which supply it through the elliptic solve.
     """
     u, v = state.u, state.v
     dt = cfg.dt
-    du_c, dv_c = _common_tendencies(h1, u, v, grid, forcing, cfg)
+    du_c, dv_c = _common_tendencies(h1, u, v, grid, forcing, cfg,
+                                    free_surface=free_surface)
     q, U, V = _pv_and_fluxes(h1, u, v, grid, cfg)
     cu, cv = drag.bottom_drag_coeff(h1, u, v, grid, cfg)
 

@@ -5,7 +5,8 @@
 
 Phases, each of which raises on failure (exit code != 0):
   1. device: a CUDA card must be present; prints its name and power limit
-  2. build: compiles the fused fb step kernel (K1) from csrc/ with nvcc
+  2. build: compiles every kernel under beom_tpu_torch/csrc/ with nvcc,
+     one process per source, all started together; K1's build lines
   3. K1 against its plain PyTorch version on the card, from a perturbed
      rest state: 256^2 f64 (20 steps, <= 1e-12 x field scale), f32 at
      256^2 and 2048^2 (1 step <= 4 ulp of field scale, 100 steps
@@ -17,6 +18,23 @@ Phases, each of which raises on failure (exit code != 0):
      100: finite diagnostics, max_speed > 0, K1 launched once per step,
      and final fields within 1e-5 relative of 400 eager steps
   5. times of K1 and of its plain version at 2048^2 f32
+  6. build lines of the projection kernels: K3a/K3b (projection.cu),
+     K4a (rb_sweep.cu), K6 (cg_fused.cu)
+  7. the projection kernels against their plain versions on the card,
+     on the perturbed rigid-lid gyre: K3a and K3b at 256^2 f64
+     (<= 1e-12 x scale), 256^2 and 2048^2 f32 (<= 4 ulp of field scale),
+     200x136 f64 and linear / no-slip, both sweep parities; one K4a pass
+     (k = 8) at 256^2 f64 and 2048^2 f32, forward and reverse, lam = 0
+     and > 0; K6 at 256^2 f64 and 2048^2 f32, lam = 0 and 1/(g dt^2),
+     cold and warm: the true residual, x against the plain CG, the
+     iteration counts, two launches bitwise equal
+  8. the projection path: run() on the 2048^2 f32 rigid-lid gyre with
+     backend='fused', (a) scheme='implicit_fs' (CG + Jacobi: K3a, K6,
+     K3b), 20 steps, and (b) solver='redblack' (K3a, K4a, K3b), 10 steps:
+     finite diagnostics, max_speed > 0, max|sum h - H| bounded, the
+     launch counts, and 3 fused steps against 3 eager steps
+  9. times at 2048^2 f32: K3a, K3b, a K4a pass and a K6 solve beside
+     their plain versions, and ms/step of (a) and (b) through run()
 
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.  It imports no jax.
@@ -34,21 +52,26 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BIG = 2048
+KERNELS = ("fb_step", "projection", "rb_sweep", "cg_fused")
+# (b)'s sweep budget: a multiple of the 8 sweeps per K4a pass, so that
+# the fused solve's passes do the eager solve's sweeps when neither
+# converges early
+RB_MAXITER = 480
 
 
 def phase(name):
     print(f"== {name}", flush=True)
 
 
-def perturbed_case(device, seed, **kw):
-    """The double gyre plus a seeded perturbation of h, u and v (from
-    rest, the first step leaves most terms at zero)."""
+def perturbed_case(device, seed, case="double_gyre", **kw):
+    """A case plus a seeded perturbation of h, u and v (from rest, the
+    first step leaves most terms at zero)."""
     import numpy as np
     import torch
 
     from beom_tpu_torch.cases import make_case
 
-    cfg, grid, forcing, st = make_case("double_gyre", device=device, **kw)
+    cfg, grid, forcing, st = make_case(case, device=device, **kw)
     rng = np.random.default_rng(seed)
 
     def noise(amp, m):
@@ -85,6 +108,269 @@ def compare(label, device, n_steps, tol, seed=0, **kw):
             raise AssertionError(f"{label} {f}: {err!r} > {bound!r}")
         worst = max(worst, err)
     return worst
+
+
+def print_build(build, name):
+    """nvcc's time and the register and spill lines of one source."""
+    if name not in build.BUILD_LOG:
+        print(f"   {name}: loaded from the build cache")
+        return
+    secs, log = build.BUILD_LOG[name]
+    print(f"   {name}: nvcc {secs:.2f} s")
+    for line in log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("   " + line.strip())
+
+
+def compare_fields(label, names, outs, refs, tol):
+    """max|kernel - plain| of each field against tol(plain field).
+    Returns the largest."""
+    worst = 0.0
+    for f, a, b in zip(names, outs, refs):
+        err = float((a - b).abs().max())
+        bound = tol(b)
+        print(f"   {label} {f}: max|kernel - plain| {err!r} "
+              f"(bound {bound!r}, scale {float(b.abs().max())!r})")
+        if not err <= bound:
+            raise AssertionError(f"{label} {f}: {err!r} > {bound!r}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_phases(label, device, tol, seed, **kw):
+    """K3a and K3b against their plain versions at both sweep parities.
+    Returns (worst K3a, worst K3b) differences."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    variant = {k: kw.pop(k) for k in ("adv_scheme", "slip") if k in kw}
+    cfg, grid, forcing, st = perturbed_case(device, seed, "rigid_lid", **kw)
+    cfg = dataclasses.replace(cfg, **variant)
+    statics = (grid, forcing)
+    rng = np.random.default_rng(seed + 100)
+    p = torch.tensor((0.1 * rng.standard_normal((cfg.ny, cfg.nx))).astype(
+        cfg.npdtype), device=device) * grid.mask
+    worst_a = worst_b = 0.0
+    for n in (0, 1):
+        a = fp.proj_a(st.h, st.u, st.v, statics, n, cfg)
+        torch.cuda.synchronize()
+        a_ref = fp.proj_a_plain(st.h, st.u, st.v, statics, n, cfg)
+        worst_a = max(worst_a, compare_fields(
+            f"{label} {cfg.scheme} n={n} K3a", ("u*", "v*", "div"), a,
+            a_ref, tol))
+        b = fp.proj_b(st.h, a_ref[0], a_ref[1], p, statics, st.t, cfg)
+        torch.cuda.synchronize()
+        b_ref = fp.proj_b_plain(st.h, a_ref[0], a_ref[1], p, statics, st.t,
+                                cfg)
+        worst_b = max(worst_b, compare_fields(
+            f"{label} {cfg.scheme} n={n} K3b", ("h1", "u1", "v1"), b,
+            b_ref, tol))
+    return worst_a, worst_b
+
+
+def check_rb(label, device, tol, seed, **kw):
+    """One k = 8 K4a pass against 8 plain sweeps, forward and reverse,
+    lam = 0 and 1/(g dt^2).  Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.solvers import elliptic
+    from beom_tpu_torch.stencils import redblack
+
+    cfg, grid, _, _ = perturbed_case(device, seed, "rigid_lid", **kw)
+    Hu, Hv = elliptic.face_depths(grid)
+    rng = np.random.default_rng(seed)
+
+    def field(amp):
+        a = amp * rng.standard_normal((cfg.ny, cfg.nx))
+        return torch.tensor(a.astype(cfg.npdtype), device=device) * grid.mask
+
+    x, b = field(1.0), field(1e-6)
+    worst = 0.0
+    for lam in (0.0, 1.0 / (cfg.g * cfg.dt ** 2)):
+        for reverse in (False, True):
+            kw_s = dict(lam=lam, k=8, omega=cfg.sor_omega, reverse=reverse)
+            out = redblack.rb_sweep(x, b, Hu, Hv, grid.mask, cfg.dx, cfg.dy,
+                                    **kw_s)
+            torch.cuda.synchronize()
+            ref = redblack.rb_sweep_plain(x, b, Hu, Hv, grid.mask, cfg.dx,
+                                          cfg.dy, **kw_s)
+            worst = max(worst, compare_fields(
+                f"{label} lam={lam:.4g} "
+                f"{'reverse' if reverse else 'forward'} K4a", ("x",),
+                [out], [ref], tol))
+    return worst
+
+
+def check_cg(label, device, x_rel, seed, **kw):
+    """K6 against the plain CG on the two solves of a projection step
+    from a perturbed state, cold and warm (from the cold solution).
+    x_rel(lam) bounds |x - x_plain| / scale.  The true residual is
+    recomputed in f64 with the plain laplacian_H; it is held to
+    20 tol_eff |b|, or to twice the plain CG's own where the plain CG
+    itself stops above that (f32 recurrences drift from the true
+    residual over thousands of iterations).  Returns the largest
+    difference."""
+    import torch
+
+    from beom_tpu_torch.core.grid import Grid
+    from beom_tpu_torch.solvers import elliptic
+    from beom_tpu_torch.stencils import cg_fused
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import projection
+
+    cfg, grid, forcing, st = perturbed_case(
+        device, seed, "rigid_lid", solver_maxiter=20000, **kw)
+    _, _, div = fp.proj_a_plain(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+    lam_h = 1.0 / (cfg.g * cfg.dt ** 2)
+    problems = [(0.0, projection.rigid_rhs(st.h, div, grid, cfg)),
+                (lam_h, projection.implicit_rhs(st.h, div, grid, cfg,
+                                                lam_h)[0])]
+    g64 = Grid(**{f: getattr(grid, f).double()
+                  for f in ("H", "mask", "mask_u", "mask_v", "mask_q",
+                            "f_q")})
+    cfg64 = dataclasses.replace(cfg, dtype="float64")
+    Hu64, Hv64 = elliptic.face_depths(g64)
+    m64 = g64.mask
+    tol_eff = max(cfg.solver_tol, 30.0 * float(torch.finfo(cfg.tdtype).eps))
+
+    def true_res(x, b64, lam):
+        r = (b64 - elliptic.laplacian_H(x.double(), Hu64, Hv64, g64, cfg64,
+                                        lam=lam)) * m64
+        return float(r.norm())
+
+    worst = 0.0
+    for lam, b in problems:
+        b64 = b.double() * m64
+        if lam == 0.0:      # the compatible system the solve deflates to
+            b64 = (b64 - m64 * (b64.sum() / m64.sum())) * m64
+        solve = cg_fused.make_cg_solve(grid, cfg, lam=lam, precond="jacobi")
+        x0 = None
+        for start in ("cold", "warm"):
+            res = solve(b, x0)
+            again = solve(b, x0)
+            ref = cg_fused.cg_solve_plain(b, grid, cfg, x0=x0, lam=lam)
+            tag = f"{label} lam={lam:.4g} {start} K6"
+            if not torch.equal(res.x, again.x):
+                raise AssertionError(f"{tag}: two launches differ")
+            rk, rp = true_res(res.x, b64, lam), true_res(ref.x, b64, lam)
+            bn = float(b64.norm())
+            bound = max(20.0 * tol_eff * bn, 2.0 * rp)
+            err = float((res.x - ref.x).abs().max())
+            scale = float(ref.x.abs().max())
+            print(f"   {tag}: iterations {res.iters} (plain {ref.iters}); "
+                  f"true residual {rk / bn!r} |b| (plain {rp / bn!r}, "
+                  f"bound {bound / bn!r}); max|x - plain| {err!r} = "
+                  f"{err / scale!r} x scale (bound {x_rel(lam)!r}); "
+                  "two launches bitwise equal")
+            if not rk <= bound:
+                raise AssertionError(f"{tag}: residual {rk!r} > {bound!r}")
+            if not err <= x_rel(lam) * scale:
+                raise AssertionError(f"{tag}: x off the plain CG")
+            if start == "cold":
+                cold_iters = res.iters
+            elif not (res.iters < cold_iters or res.iters == 0):
+                raise AssertionError(f"{tag}: the warm start did not cut "
+                                     "the iterations")
+            worst = max(worst, err)
+            x0 = res.x
+    return worst
+
+
+def run_projection(label, device, n_steps, diag_every, **kw):
+    """run() on the 2048^2 f32 rigid-lid gyre with backend='fused', with
+    every kernel count set to 0 just before and read just after.
+    Returns (case, final state, counts, wall seconds)."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import cg_fused, redblack
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    case = make_case("rigid_lid", nx=BIG, ny=BIG, device=device,
+                     backend="fused", diag_every=diag_every, **kw)
+    cfg, grid, forcing, st = case
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    fp.LAUNCHES.update(proj_a=0, proj_b=0)
+    cg_fused.LAUNCHES = redblack.LAUNCHES = redblack.PASSES = 0
+    t0 = time.perf_counter()
+    out = run(cfg, grid, forcing, st, n_steps, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fp.LAUNCHES, cg_fused=cg_fused.LAUNCHES,
+                  rb_sweep=redblack.LAUNCHES, passes=redblack.PASSES)
+    diags = [json.loads(x) for x in log.getvalue().splitlines()]
+    for d in diags:
+        print("   " + json.dumps(d))
+    steps = list(range(diag_every, n_steps + 1, diag_every))
+    if [d["n"] for d in diags] != steps:
+        raise AssertionError(f"{label}: diagnostics missing")
+    if not all(d["finite"] == 1.0 and all(np.isfinite(list(
+            v for k, v in d.items() if k != "kind"))) for d in diags):
+        raise AssertionError(f"{label}: non-finite diagnostics")
+    if not diags[-1]["max_speed"] > 0:
+        raise AssertionError(f"{label}: max_speed is 0: the run did nothing")
+    if out.h.shape != (1, BIG, BIG) or out.n != n_steps \
+            or out.phi is None:
+        raise AssertionError(f"{label}: wrong final state")
+    column = float(((out.h.sum(0) - grid.H) * grid.mask).abs().max())
+    print(f"   {label}: launches {counts}; max|sum h - H| {column!r} m; "
+          f"{n_steps} steps in {wall:.3f} s wall (first run, diagnostics "
+          "included)")
+    return case, out, counts, column
+
+
+def versus_eager(label, case, n_steps, atol_ulp):
+    """n_steps of the fused stepper against n_steps of the eager one,
+    within tests/unit/test_pallas.py's envelope atol_ulp x max(scale, 1).
+    Returns the eager ms/step."""
+    import torch
+
+    from beom_tpu_torch.stepping import make_stepper, prepare_state
+
+    cfg, grid, forcing, st = case
+    st = prepare_state(st, cfg)
+    fused = make_stepper(grid, forcing, cfg)
+    eager = make_stepper(grid, forcing, dataclasses.replace(
+        cfg, backend="eager"))
+    a = b = st
+    for _ in range(n_steps):
+        a = fused(a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        b = eager(b)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / n_steps * 1e3
+    for f in "huv":
+        x, y = getattr(a, f), getattr(b, f)
+        err = float((x - y).abs().max())
+        scale = float(y.abs().max())
+        print(f"   {label} vs {n_steps} eager steps, {f}: max|diff| {err!r} "
+              f"= {err / max(scale, 1e-30)!r} x scale (scale {scale!r}, "
+              f"bound {atol_ulp!r} x max(scale, 1))")
+        if not err <= atol_ulp * max(scale, 1.0):
+            raise AssertionError(f"{label} {f} off the eager path")
+    return eager_ms
+
+
+def time_pair(label, plain, kernel, n_plain, n_kernel, unit="call"):
+    """Times in the order plain, kernel, kernel, plain; returns the means
+    (kernel ms, plain ms)."""
+    runs = []
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn, n = (plain, n_plain) if which == "plain" else (kernel, n_kernel)
+        runs.append((which, time_ms(fn, n)))
+    for which, ms in runs:
+        print(f"   {label} {which}: {ms!r} ms/{unit}")
+    k = [ms for w, ms in runs if w == "kernel"]
+    p = [ms for w, ms in runs if w == "plain"]
+    return sum(k) / len(k), sum(p) / len(p)
 
 
 def time_ms(fn, n_iter):
@@ -128,14 +414,12 @@ def main() -> dict:
 
     phase("2 build")
     t0 = time.perf_counter()
-    build.load("fb_step")
-    print(f"   fb_step built and loaded in {time.perf_counter() - t0:.2f} s")
-    if "fb_step" in build.BUILD_LOG:
-        secs, log = build.BUILD_LOG["fb_step"]
-        print(f"   nvcc {secs:.2f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print("   " + line.strip())
+    build.build_all(KERNELS)
+    for name in KERNELS:
+        build.load(name)
+    print(f"   {', '.join(KERNELS)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    print_build(build, "fb_step")
 
     phase("3 K1 against its plain version")
 
@@ -239,12 +523,138 @@ def main() -> dict:
               f"({smi})")
     k1 = [ms for w, ms in runs if w == "K1"]
     plain = [ms for w, ms in runs if w == "plain"]
-    return {"kernels": [{
+    kernels = [{
         "name": "fb_step", "route": "cuda",
         "source": "beom_tpu_torch/csrc/fb_step.cu",
         "replaces": "beom_tpu/stencils/band.py:200",
         "launches": launches, "max_abs_err": max_err,
-        "ms": sum(k1) / len(k1), "plain_ms": sum(plain) / len(plain)}]}
+        "ms": sum(k1) / len(k1), "plain_ms": sum(plain) / len(plain)}]
+    kernels += projection_phases(dev, smi, rel, ulps)
+    return {"kernels": kernels}
+
+
+def projection_phases(dev, smi, rel, ulps):
+    """Phases 6 to 9; returns the kernels' JSON entries."""
+    import torch
+
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.solvers import elliptic
+    from beom_tpu_torch.stencils import build, cg_fused, redblack
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import projection
+
+    phase("6 build: the projection kernels")
+    for name in KERNELS[1:]:
+        print_build(build, name)
+
+    phase("7 the projection kernels against their plain versions")
+    err = {}
+    check_phases("256^2 f64", dev, rel(1e-12), 20, nx=256, ny=256,
+                 dtype="float64")
+    check_phases("256^2 f32", dev, ulps(4), 21, nx=256, ny=256,
+                 scheme="implicit_fs")
+    err["proj_a"], err["proj_b"] = check_phases(
+        f"{BIG}^2 f32", dev, ulps(4), 22, nx=BIG, ny=BIG)
+    worst = check_phases(f"{BIG}^2 f32", dev, ulps(4), 23, nx=BIG, ny=BIG,
+                         scheme="implicit_fs")
+    err["proj_a"] = max(err["proj_a"], worst[0])
+    err["proj_b"] = max(err["proj_b"], worst[1])
+    check_phases("200x136 f64", dev, rel(1e-12), 24, nx=200, ny=136,
+                 dtype="float64", scheme="implicit_fs")
+    check_phases("200x136 f64 linear no-slip", dev, rel(1e-12), 25, nx=200,
+                 ny=136, dtype="float64", adv_scheme="linear", slip="no")
+    check_rb("256^2 f64", dev, rel(1e-12), 26, nx=256, ny=256,
+             dtype="float64")
+    err["rb_sweep"] = check_rb(f"{BIG}^2 f32", dev, ulps(4), 27, nx=BIG,
+                               ny=BIG)
+    check_cg("256^2 f64", dev, lambda lam: 1e-6, 28, nx=256, ny=256,
+             dtype="float64")
+    # f32 bounds (PERF.md): 1e-3 x scale for the lam = 0 solve,
+    # 1e-4 x scale for the Helmholtz one
+    err["cg_fused"] = check_cg(f"{BIG}^2 f32", dev,
+                               lambda lam: 1e-3 if lam == 0.0 else 1e-4,
+                               29, nx=BIG, ny=BIG)
+
+    phase(f"8 the projection path: run() on the {BIG}^2 f32 rigid-lid gyre")
+    case_a, _, counts_a, col_a = run_projection(
+        "(a) implicit_fs, CG + Jacobi", dev, 20, 10, scheme="implicit_fs")
+    if not (counts_a["proj_a"] == counts_a["proj_b"] == counts_a["cg_fused"]
+            == 20 and counts_a["rb_sweep"] == 0):
+        raise AssertionError(f"(a) launch counts {counts_a}")
+    if not col_a < 1.0:          # the free surface: wind set-up, mm to cm
+        raise AssertionError(f"(a) max|sum h - H| {col_a!r} m")
+    eager_a = versus_eager("(a) 3 fused steps", case_a, 3, 1e-5)
+    case_b, _, counts_b, col_b = run_projection(
+        "(b) rigid_lid, red-black", dev, 10, 5, solver="redblack",
+        solver_maxiter=RB_MAXITER)
+    if not (counts_b["proj_a"] == counts_b["proj_b"] == 10
+            and counts_b["rb_sweep"] == counts_b["passes"] > 0
+            and counts_b["cg_fused"] == 0):
+        raise AssertionError(f"(b) launch counts {counts_b}")
+    if not col_b < 0.1:          # the rigid lid holds sum h = H
+        raise AssertionError(f"(b) max|sum h - H| {col_b!r} m")
+    eager_b = versus_eager("(b) 3 fused steps", case_b, 3, 1e-4)
+
+    phase(f"9 times at {BIG}^2 f32 ({smi})")
+    cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
+                                            ny=BIG, scheme="implicit_fs")
+    statics = (grid, forcing)
+    saved = (dict(fp.LAUNCHES), cg_fused.LAUNCHES, redblack.LAUNCHES)
+    ms = {}
+    u_s, v_s, div = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+    ms["proj_a"] = time_pair(
+        "K3a", lambda: fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg),
+        lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 10, 100)
+    lam = projection.solve_lam(cfg)
+    b, eta_n = projection.implicit_rhs(st.h, div, grid, cfg, lam)
+    solve = cg_fused.make_cg_solve(grid, cfg, lam=lam)
+    p = solve(b, eta_n).x
+    ms["proj_b"] = time_pair(
+        "K3b", lambda: fp.proj_b_plain(st.h, u_s, v_s, p, statics, st.t,
+                                       cfg),
+        lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg), 10, 100)
+    Hu, Hv = elliptic.face_depths(grid)
+    rhs = projection.rigid_rhs(st.h, div, grid, cfg)
+    kw = dict(k=8, omega=cfg.sor_omega)
+    ms["rb_sweep"] = time_pair(
+        "K4a pass (8 sweeps)",
+        lambda: redblack.rb_sweep_plain(p, rhs, Hu, Hv, grid.mask, cfg.dx,
+                                        cfg.dy, **kw),
+        lambda: redblack.rb_sweep(p, rhs, Hu, Hv, grid.mask, cfg.dx, cfg.dy,
+                                  **kw), 5, 50, unit="pass")
+    res = solve(b, eta_n)
+    ref = cg_fused.cg_solve_plain(b, grid, cfg, x0=eta_n, lam=lam)
+    print(f"   K6 solve of an implicit-FS step from eta^n: {res.iters} "
+          f"iterations (plain {ref.iters})")
+    ms["cg_fused"] = time_pair(
+        "K6 solve", lambda: cg_fused.cg_solve_plain(b, grid, cfg, x0=eta_n,
+                                                    lam=lam),
+        lambda: solve(b, eta_n), 3, 10, unit="solve")
+    fp.LAUNCHES.update(saved[0])
+    cg_fused.LAUNCHES, redblack.LAUNCHES = saved[1], saved[2]
+    for label, (cfg, grid, forcing, st), n_steps, eager_ms in (
+            ("(a) implicit_fs", case_a, 20, eager_a),
+            ("(b) rigid_lid red-black", case_b, 10, eager_b)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+        print(f"   {label}: run() {wall!r} ms/step over {n_steps} steps "
+              f"(diagnostics included); eager stepper {eager_ms!r} "
+              "ms/step over 3 steps")
+
+    sources = {"proj_a": ("projection.cu", "band.py:200"),
+               "proj_b": ("projection.cu", "band.py:200"),
+               "rb_sweep": ("rb_sweep.cu", "redblack_pallas.py:39"),
+               "cg_fused": ("cg_fused.cu", "cg_vmem.py:61")}
+    launches = {name: counts_a[name] + counts_b[name] for name in sources}
+    return [{"name": name, "route": "cuda",
+             "source": f"beom_tpu_torch/csrc/{src}",
+             "replaces": f"beom_tpu/stencils/{site}",
+             "launches": launches[name], "max_abs_err": err[name],
+             "ms": ms[name][0], "plain_ms": ms[name][1]}
+            for name, (src, site) in sources.items()]
 
 
 if __name__ == "__main__":

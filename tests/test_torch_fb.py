@@ -50,6 +50,27 @@ def test_fb_step_all_terms_parity(n):
         assert_close(getattr(out, f), getattr(jout, f), 1e-13, f)
 
 
+@pytest.mark.parametrize("n", [0, 1])
+@pytest.mark.parametrize("case", ["double_gyre", "two_layer"])
+def test_momentum_update_rigid_lid_parity(case, n):
+    """momentum_update(free_surface=False), the projection steps' momentum
+    (no g*eta term), at nz = 1 and at nz = 2 (rho 1026, 1027.5), where the
+    internal interface term survives: 1e-13 relative, both sweep
+    orders."""
+    (jcfg, jgrid, jforcing, jst), (cfg, grid, forcing, st) = \
+        perturbed_case(case, nx=32, ny=32, dtype="float64", seed=3)
+    st = st.replace(n=n)
+    ju, jv = jfb.momentum_update(jst.h, jst, jgrid, jforcing, jcfg,
+                                 free_surface=False, parity=n == 0)
+    u, v = fb.momentum_update(st.h, st, grid, forcing, cfg,
+                              free_surface=False)
+    assert_close(u, ju, 1e-13, "u")
+    assert_close(v, jv, 1e-13, "v")
+    # the surface term was really dropped: the free-surface update differs
+    uf, _ = fb.momentum_update(st.h, st, grid, forcing, cfg)
+    assert float((uf - u).abs().max()) > 1e-6 * float(u.abs().max())
+
+
 def test_fb_300_steps_vs_reference_and_oracle():
     """300 steps of the 32x32 double gyre at f64: within the
     tests/test_parity.py envelope of the oracle (h 1e-7, u/v 1e-10) and

@@ -1,6 +1,7 @@
-"""Guards of the port: it never imports jax; the fused kernel's config
-check raises on each term the kernel lacks; the parts not yet ported
-raise; and the CLI refuses --device cuda where there is no card."""
+"""Guards of the port: it never imports jax; the fused kernels' config
+checks raise on each term the kernels lack; the parts not yet ported
+(the other fb cases, split, multigrid) raise naming their ROADMAP item;
+and the CLI refuses --device cuda where there is no card."""
 
 import dataclasses
 import os
@@ -16,7 +17,9 @@ from beom_tpu_torch.cases import make_case
 from beom_tpu_torch.core.config import Config
 from beom_tpu_torch.run import main, run
 from beom_tpu_torch.stencils.fused_fb import check_config
-from beom_tpu_torch.stepping import get_step
+from beom_tpu_torch.stencils.fused_projection import (
+    check_config as projection_check, make_fused_projection_stepper)
+from beom_tpu_torch.stepping import get_step, projection
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -60,7 +63,7 @@ def test_kernel_config_check_raises(term):
 
 
 @pytest.mark.parametrize("name", ["two_layer", "coastal_wetdry",
-                                  "shelf_forced", "rigid_lid"])
+                                  "shelf_forced"])
 def test_unported_cases_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_case(name, device="cpu")
@@ -68,10 +71,46 @@ def test_unported_cases_raise(name):
         make_case("no_such_case", device="cpu")
 
 
-@pytest.mark.parametrize("scheme", ["split", "rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("scheme", ["split"])
 def test_unported_schemes_raise(scheme):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_step(Config(scheme=scheme))
+
+
+# projection configurations that need multigrid, which is not ported
+MULTIGRID = {
+    "solver=mg rigid_lid": dict(scheme="rigid_lid", solver="mg"),
+    "solver=mg implicit_fs": dict(scheme="implicit_fs", solver="mg"),
+    "precond=mg": dict(scheme="implicit_fs", precond="mg"),
+    "rigid_lid cg auto": dict(scheme="rigid_lid"),
+}
+
+
+@pytest.mark.parametrize("name", list(MULTIGRID))
+def test_multigrid_raises(name):
+    """get_step, the eager solve and the fused stepper all refuse."""
+    cfg, grid, forcing, st = make_case("rigid_lid", nx=16, ny=16,
+                                       device="cpu", **MULTIGRID[name])
+    match = "ROADMAP queue 1 item 12"
+    with pytest.raises(NotImplementedError, match=match):
+        get_step(cfg)
+    with pytest.raises(NotImplementedError, match=match):
+        projection._solve(st.h[0], grid, cfg, lam=projection.solve_lam(cfg))
+    with pytest.raises(NotImplementedError, match=match):
+        make_fused_projection_stepper(grid, forcing, cfg)
+
+
+@pytest.mark.parametrize("term", [t for t in UNSUPPORTED if t != "scheme"])
+def test_fused_projection_config_check_raises(term):
+    base = Config(scheme="implicit_fs", wind=True, nu2=300.0, r_bot=1e-3,
+                  beta=2e-11)
+    projection_check(base)
+    projection_check(dataclasses.replace(base, scheme="rigid_lid",
+                                         adv_scheme="linear", slip="no"))
+    with pytest.raises(NotImplementedError, match=term.split()[0]):
+        projection_check(dataclasses.replace(base, **UNSUPPORTED[term]))
+    with pytest.raises(ValueError, match="projection schemes"):
+        projection_check(Config())
 
 
 def test_mesh_raises():
