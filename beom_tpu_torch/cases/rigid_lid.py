@@ -4,12 +4,8 @@ Identical physics to the double gyre but scheme='rigid_lid': no external
 gravity wave, dt set by advective/Rossby dynamics (here 10x the FB
 external CFL), surface pressure from an elliptic solve each step.  Built
 in numpy exactly as the reference builds it, so the arrays are
-bit-identical, then moved to `device`.
-
-The reference's default solve (solver='cg', precond='auto') is the
-multigrid-preconditioned CG, which is not ported yet: step this case
-with precond='jacobi' or 'ssor', solver='redblack', or
-scheme='implicit_fs' (where 'auto' means Jacobi).
+bit-identical, then moved to `device`.  Its default solve
+(solver='cg', precond='auto') is the multigrid-preconditioned CG.
 """
 
 from __future__ import annotations

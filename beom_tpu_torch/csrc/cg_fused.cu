@@ -1,21 +1,25 @@
-// K6: the whole Jacobi-preconditioned conjugate-gradient solve of
-// solvers/elliptic.py::cg_solve in one persistent cooperative launch.
+// K6: the whole preconditioned conjugate-gradient solve of
+// solvers/elliptic.py::cg_solve in one persistent cooperative launch,
+// with the Jacobi preconditioner or one multigrid cycle per iteration.
 //
-// Replaces beom_tpu/stencils/cg_vmem.py::_cg_kernel with
-// precond='jacobi' (its in-kernel multigrid preconditioner is not
-// ported).  The reference runs that kernel only where the solver state
-// fits the TPU's VMEM (about 1024^2 f32) and the XLA loop elsewhere;
-// this kernel keeps its state in device memory and runs at every size.
+// Replaces beom_tpu/stencils/cg_vmem.py::_cg_kernel, precond='jacobi'
+// and precond='mg'.  The reference runs that kernel only where the solver
+// state fits the TPU's VMEM (about 1024^2 f32) and the XLA loop
+// elsewhere; this kernel keeps its state in device memory and runs at
+// every size.
 //
 // Bound: device-memory bytes and grid-wide synchronisation.  An
 // iteration reads ~13 and writes 6 grid fields (the five-point matvec,
 // the preconditioner, the vector updates) and its scalars need a
-// reduction over the whole grid.  The design: one CTA per resident slot
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor x the SM count, so
-// cudaLaunchCooperativeKernel can hold them all), grid-stride loops over
-// the points, and two grid syncs per iteration:
+// reduction over the whole grid.  The design: one CTA per resident slot,
+// at most two per SM (mgc::coop_blocks, so cudaLaunchCooperativeKernel
+// can hold them all), grid-stride loops over the points, and two grid
+// syncs per iteration, plus the cycle's with multigrid:
 //   phase 1: the vector updates of the Chronopoulos-Gear recurrence and
 //            u = inv_diag r mask (pointwise, each thread its own points);
+//            with multigrid, r mask goes to the cycle's level-0 input and
+//            the cycle (csrc/mg_cycle.cuh: the fused gamma schedule,
+//            demean off, plain half-sweeps at every level) writes u;
 //   sync;
 //   phase 2: w = A u (reads the neighbours of u) and the six dot
 //            products (r,u), (w,u), (r,r), (r,mask), (u,mask), (w,mask)
@@ -32,17 +36,18 @@
 // cg_solve; the matvec is laplacian_H's and the Jacobi inverse diagonal
 // arrives from the caller (jacobi_diag).  Sums run in another order than
 // torch.sum's, so x agrees with the plain version to the solver
-// tolerance, not bit for bit.
+// tolerance, not bit for bit.  The kernel is instantiated once per
+// preconditioner, so the Jacobi solve carries none of the cycle's code.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-namespace cg = cooperative_groups;
+#include "mg_cycle.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int NDOT = 6;
+namespace cg = mgc::cg;
+using mgc::grid_sum;
+using mgc::NDOT;
+using mgc::THREADS;
+using mgc::vmax;
 
 template <typename T>
 struct Params {
@@ -52,53 +57,16 @@ struct Params {
   T* resnorm;
   int ny, nx, maxiter, deflate;
   T inv_dx, inv_dy, lam, tol2, tiny;
+  // multigrid only: the cycle's tables, whose level-0 input is bc0 and
+  // whose level-0 output is u
+  mgc::Cycle<T> cyc;
+  T* bc0;
 };
-
-// jnp.maximum: NaN propagates
-template <typename T>
-__device__ __forceinline__ T vmax(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
 
 template <typename T>
 __device__ __forceinline__ T safe_div(T num, T den, T tiny) {
   const T mag = vmax(den < T(0) ? -den : den, tiny);
   return num / (den < T(0) ? -mag : mag);
-}
-
-// the block's sums of v[0..n) in a fixed tree; every thread gets them
-template <typename T, int N>
-__device__ void block_sum(T (&v)[N], T* sh) {
-  const int tid = threadIdx.x;
-  for (int j = 0; j < N; ++j) sh[j * THREADS + tid] = v[j];
-  __syncthreads();
-  for (int st = THREADS / 2; st > 0; st >>= 1) {
-    if (tid < st)
-      for (int j = 0; j < N; ++j)
-        sh[j * THREADS + tid] += sh[j * THREADS + tid + st];
-    __syncthreads();
-  }
-  for (int j = 0; j < N; ++j) v[j] = sh[j * THREADS];
-  __syncthreads();
-}
-
-// v holds this thread's partial sums: reduce them over the whole grid.
-// Every CTA computes the same totals in the same order.  Consecutive
-// calls alternate between two halves of `partials`: a CTA may still be
-// reading one call's partials when another writes the next call's, and
-// the grid sync inside the next call orders the one after it.
-template <typename T>
-__device__ void grid_sum(T (&v)[NDOT], T* sh, T* partials, int& round,
-                         cg::grid_group& grid) {
-  T* part = partials + (round++ & 1) * int(gridDim.x) * NDOT;
-  block_sum(v, sh);
-  if (threadIdx.x == 0)
-    for (int j = 0; j < NDOT; ++j) part[blockIdx.x * NDOT + j] = v[j];
-  grid.sync();
-  for (int j = 0; j < NDOT; ++j) v[j] = T(0);
-  for (int i = threadIdx.x; i < int(gridDim.x); i += THREADS)
-    for (int j = 0; j < NDOT; ++j) v[j] += __ldcg(&part[i * NDOT + j]);
-  block_sum(v, sh);
 }
 
 // (A q)_i = laplacian_H: d_xm(Hu d_xp q) + d_ym(Hv d_yp q) [- lam q], masked
@@ -121,7 +89,29 @@ __device__ __forceinline__ T apply_A(const Params<T>& p, const T* q, long i) {
   return out * p.mask[i];
 }
 
-template <typename T>
+// u[i] in phases 1 and 2.  With multigrid the cycle wrote it from other
+// CTAs (or from CTA 0 alone), so it is read from L2; every other work
+// vector is read by the thread that wrote it, through L1 (reading all of
+// them with __ldcg cost the Jacobi solve 26 % on the H100)
+template <typename T, bool MG>
+__device__ __forceinline__ T load_u(const T* u, long i) {
+  if constexpr (MG)
+    return __ldcg(&u[i]);
+  else
+    return u[i];
+}
+
+// u = precond(r) mask at point i, or, with multigrid, the cycle's input
+template <typename T, bool MG>
+__device__ __forceinline__ void precond_in(const Params<T>& p, long i, T ri,
+                                           T m) {
+  if constexpr (MG)
+    p.bc0[i] = ri * m;
+  else
+    p.u[i] = (p.inv_diag[i] * ri) * m;
+}
+
+template <typename T, bool MG>
 __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
   cg::grid_group grid = cg::this_grid();
   __shared__ T sh[NDOT * THREADS];
@@ -168,9 +158,10 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
     const T m = p.mask[i];
     const T ri = (b_defl(i) - apply_A(p, p.x, i)) * m;
     p.r[i] = ri;
-    p.u[i] = (p.inv_diag[i] * ri) * m;
+    precond_in<T, MG>(p, i, ri, m);
   }
   grid.sync();
+  if constexpr (MG) mgc::run_cycle(p.cyc, sh, p.partials, round, grid);
 
   T alpha = T(0), beta = T(0), gamma = T(0), rr = T(0);
   T rmean = T(0), umean = T(0);
@@ -180,8 +171,9 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
       // phase 1: the recurrence on the deflated (r, u)
       for (long i = first; i < n; i += stride) {
         const T m = p.mask[i];
-        const T ri = p.deflate ? (p.r[i] - rmean * m) * m : p.r[i] * m;
-        const T ui = p.deflate ? (p.u[i] - umean * m) * m : p.u[i] * m;
+        const T r0 = p.r[i], u0 = load_u<T, MG>(p.u, i);
+        const T ri = p.deflate ? (r0 - rmean * m) * m : r0 * m;
+        const T ui = p.deflate ? (u0 - umean * m) * m : u0 * m;
         const T pi = ui + beta * p.p[i];
         const T si = p.w[i] + beta * p.s[i];
         p.p[i] = pi;
@@ -189,9 +181,10 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
         p.x[i] = p.x[i] + alpha * pi;
         const T rn = ri - alpha * si;
         p.r[i] = rn;
-        p.u[i] = (p.inv_diag[i] * rn) * m;
+        precond_in<T, MG>(p, i, rn, m);
       }
       grid.sync();
+      if constexpr (MG) mgc::run_cycle(p.cyc, sh, p.partials, round, grid);
     }
     // phase 2: w = A u and the batched dots
     for (int j = 0; j < NDOT; ++j) v[j] = T(0);
@@ -199,7 +192,7 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
       const T wi = apply_A(p, p.u, i);
       p.w[i] = wi;
       const T ri = p.r[i];
-      const T ui = p.u[i];
+      const T ui = load_u<T, MG>(p.u, i);
       const T m = p.mask[i];
       v[0] += ri * ui;
       v[1] += wi * ui;
@@ -247,62 +240,59 @@ int cg_fused(const T* b, const T* x0, const T* Hu, const T* Hv,
              T* s, T* partials, int partials_len, int* iters, T* resnorm,
              int ny, int nx, int maxiter, int deflate, double inv_dx,
              double inv_dy, double lam, double tol2, double tiny,
+             const long long* mg_ptrs, const int* mg_dims, const T* mg_scal,
+             const int* mg_steps, int mg_nsteps, T* bc0, int use_mg,
              void* stream) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const void* kernel =
+      use_mg ? reinterpret_cast<const void*>(cg_kernel<T, true>)
+             : reinterpret_cast<const void*>(cg_kernel<T, false>);
+  int blocks = 0;
+  cudaError_t e = mgc::coop_blocks(kernel, &blocks);
   if (e != cudaSuccess) return int(e);
-  e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e != cudaSuccess) return int(e);
-  if (!coop) return int(cudaErrorNotSupported);
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return int(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cg_kernel<T>,
-                                                    THREADS, 0);
-  if (e != cudaSuccess) return int(e);
-  const int blocks = per_sm * sms;
-  if (blocks < 1) return int(cudaErrorLaunchOutOfResources);
   if (2 * blocks * NDOT > partials_len) return int(cudaErrorInvalidValue);
-  Params<T> p{b,        x0,      Hu,      Hv,     mask,  inv_diag,
-              x,        r,       u,       w,      pv,    s,
-              partials, iters,   resnorm, ny,     nx,    maxiter,
-              deflate,  T(inv_dx), T(inv_dy), T(lam), T(tol2), T(tiny)};
+  Params<T> p{b,        x0,        Hu,        Hv,      mask,    inv_diag,
+              x,        r,         u,         w,       pv,      s,
+              partials, iters,     resnorm,   ny,      nx,      maxiter,
+              deflate,  T(inv_dx), T(inv_dy), T(lam),  T(tol2), T(tiny),
+              {mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps, T(lam)},
+              bc0};
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(cg_kernel<T>),
-                                  dim3(blocks), dim3(THREADS), args, 0,
-                                  static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
+                                  0, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
 }
 
 // the number of CTAs a launch uses on the current device
 template <typename T>
-int grid_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cg_kernel<T>,
-                                                      THREADS, 0);
-  *blocks = per_sm * sms;
-  return int(e);
+int grid_blocks(int use_mg, int* blocks) {
+  return int(mgc::coop_blocks(
+      use_mg ? reinterpret_cast<const void*>(cg_kernel<T, true>)
+             : reinterpret_cast<const void*>(cg_kernel<T, false>),
+      blocks));
 }
 
 }  // namespace
 
-#define CG_FUSED_ENTRY(NAME, BLOCKS, T)                                      \
-  extern "C" int NAME(const T* b, const T* x0, const T* Hu, const T* Hv,     \
-                      const T* mask, const T* inv_diag, T* x, T* r, T* u,    \
-                      T* w, T* pv, T* s, T* partials, int partials_len,      \
-                      int* iters, T* resnorm, int ny, int nx, int maxiter,   \
-                      int deflate, double inv_dx, double inv_dy, double lam, \
-                      double tol2, double tiny, void* stream) {              \
-    return cg_fused<T>(b, x0, Hu, Hv, mask, inv_diag, x, r, u, w, pv, s,     \
-                       partials, partials_len, iters, resnorm, ny, nx,       \
-                       maxiter, deflate, inv_dx, inv_dy, lam, tol2, tiny,    \
-                       stream);                                              \
-  }                                                                          \
-  extern "C" int BLOCKS(int* blocks) { return grid_blocks<T>(blocks); }
+#define CG_FUSED_ENTRY(NAME, BLOCKS, T)                                       \
+  extern "C" int NAME(const T* b, const T* x0, const T* Hu, const T* Hv,      \
+                      const T* mask, const T* inv_diag, T* x, T* r, T* u,     \
+                      T* w, T* pv, T* s, T* partials, int partials_len,       \
+                      int* iters, T* resnorm, int ny, int nx, int maxiter,    \
+                      int deflate, double inv_dx, double inv_dy, double lam,  \
+                      double tol2, double tiny, const long long* mg_ptrs,     \
+                      const int* mg_dims, const T* mg_scal,                   \
+                      const int* mg_steps, int mg_nsteps, T* bc0, int use_mg, \
+                      void* stream) {                                         \
+    return cg_fused<T>(b, x0, Hu, Hv, mask, inv_diag, x, r, u, w, pv, s,      \
+                       partials, partials_len, iters, resnorm, ny, nx,        \
+                       maxiter, deflate, inv_dx, inv_dy, lam, tol2, tiny,     \
+                       mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps, bc0,   \
+                       use_mg, stream);                                       \
+  }                                                                           \
+  extern "C" int BLOCKS(int use_mg, int* blocks) {                            \
+    return grid_blocks<T>(use_mg, blocks);                                    \
+  }
 
 CG_FUSED_ENTRY(beom_cg_fused_f32, beom_cg_fused_blocks_f32, float)
 CG_FUSED_ENTRY(beom_cg_fused_f64, beom_cg_fused_blocks_f64, double)

@@ -2,9 +2,10 @@
 
 Each source under `beom_tpu_torch/csrc/` is compiled on first use into a
 shared library with a plain C interface, in `build/kernels/` at the root
-of the checkout, named by the hash of the source and the flags so an
-edited source is rebuilt.  Nothing is compiled when a module is imported,
-and a CUDA build with no nvcc raises.
+of the checkout, named by the hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt.
+Nothing is compiled when a module is imported, and a CUDA build with no
+nvcc raises.
 """
 
 from __future__ import annotations
@@ -44,9 +45,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    key = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 

@@ -14,10 +14,14 @@ A step decomposes as the reference's does:
   solve         : cfg.solver='redblack' -> passes of the blocked
                   red-black kernel (stencils/redblack.py, K4a);
                   'cg' with precond 'jacobi' (what 'auto' means for the
-                  implicit free surface) -> the fused CG kernel
-                  (stencils/cg_fused.py, K6); 'cg' with 'ssor' -> the
-                  plain elliptic.cg_solve (no kernel in the reference
-                  either); multigrid raises;
+                  implicit free surface) or 'mg' (what it means for the
+                  rigid lid) -> the fused CG kernel with that
+                  preconditioner (stencils/cg_fused.py, K6), at every
+                  size; 'cg' with 'ssor' -> the plain elliptic.cg_solve
+                  (no kernel in the reference either); 'mg' -> the
+                  standalone multigrid solver with its fused tier
+                  (solvers/multigrid.make_mg_solver, smoother='fused':
+                  K4a with its residual, K5, K4b);
   phase B (K3b) : gradient correction, per-layer continuity, finalize.
 
 `proj_a` and `proj_b` run their kernel on CUDA tensors and their plain
@@ -171,8 +175,8 @@ def proj_b(h, u_s, v_s, p, statics, t, cfg: Config):
 
 def make_solve(grid: Grid, cfg: Config, lam):
     """solve(b, x0=None) -> x, chosen as the reference's stepper chooses
-    it; multigrid raises NotImplementedError."""
-    projection.check_solver(cfg, lam)
+    it, with the fused CG at every size (the reference's VMEM cap is a
+    TPU limit, not part of the function)."""
     if cfg.solver == "redblack":
         from beom_tpu_torch.stencils.redblack import make_fused_rb_solve
         # the XLA path's fixed sweep budget: never more sweeps, usually
@@ -180,9 +184,13 @@ def make_solve(grid: Grid, cfg: Config, lam):
         return make_fused_rb_solve(
             grid, cfg, lam=lam, k=K_SWEEPS,
             max_passes=max(1, cfg.solver_maxiter // K_SWEEPS))
-    if projection.effective_precond(cfg, lam) == "jacobi":
+    if cfg.solver == "mg":
+        from beom_tpu_torch.solvers.multigrid import make_mg_solver
+        return make_mg_solver(grid, cfg, lam=lam, smoother="fused")
+    pre = projection.effective_precond(cfg, lam)
+    if pre in ("jacobi", "mg"):
         from beom_tpu_torch.stencils.cg_fused import make_cg_solve
-        fused_solve = make_cg_solve(grid, cfg, lam=lam, precond="jacobi")
+        fused_solve = make_cg_solve(grid, cfg, lam=lam, precond=pre)
 
         def solve(b, x0=None):
             return fused_solve(b, x0=x0).x

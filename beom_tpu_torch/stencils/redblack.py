@@ -1,21 +1,25 @@
-"""Blocked red-black SOR (K4a) and its plain PyTorch version.
+"""Blocked red-black SOR (K4a), the single-pass operator (K4b), and their
+plain PyTorch versions.
 
-The CUDA kernel `csrc/rb_sweep.cu` replaces the TPU kernel
-beom_tpu/stencils/redblack_pallas.py::_rb_kernel (make_level_sweep): k
-red-black sweeps in one pass over device memory.  Each tile is loaded
-with a halo of 2k + 1 cells on both axes, so a launch is exactly k
-strict red-black sweeps (the reference's bands lag at their seams); the
-plain version is k sweeps of solvers/elliptic.rb_sweeps.
+The CUDA kernels of `csrc/rb_sweep.cu` replace the TPU kernels of
+beom_tpu/stencils/redblack_pallas.py:
+  * K4a, `rb_sweep` (the reference's _rb_kernel, make_level_sweep): k
+    red-black sweeps in one pass over device memory, with residual=True
+    also r = b - A x of the result.  Each tile is loaded with a halo of
+    2k + 1 cells on both axes (2k + 2 with the residual), so a launch is
+    exactly k strict red-black sweeps and the residual is exact (the
+    reference's bands lag at their seams).  The plain version is k sweeps
+    of solvers/elliptic.rb_sweeps, then b - multigrid.operator(x);
+  * K4b, `apply_op` (make_apply_kernel): A x or b - A x in one pass; the
+    plain version is multigrid.operator.
 
 `make_fused_rb_solve` (the reference's make_pallas_rb_solve) runs
 passes of k sweeps until ||b - A x|| <= tol ||b||, at most `max_passes`,
 with one exact residual (laplacian_H) per pass read on the host: plain
 torch, as the reference's loop is XLA.
 
-On CPU tensors the sweep takes the plain version; on CUDA tensors it
-launches the kernel or raises.  The reference's fused-residual mode and
-its single-pass operator kernel serve multigrid only and are not ported
-yet.
+On CPU tensors each kernel takes its plain version; on CUDA tensors it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -25,83 +29,158 @@ from typing import Optional
 
 import torch
 
+from beom_tpu_torch.core import ops
 from beom_tpu_torch.core.config import Config
 from beom_tpu_torch.core.grid import Grid
 from beom_tpu_torch.solvers import elliptic
+from beom_tpu_torch.solvers.multigrid import operator
 
-# kernel launches made by rb_sweep, and passes run by the blocked solves'
-# loops; a run reads them to show that its main path went through the
-# kernel, one launch per pass
+# kernel launches made by rb_sweep (K4a) and apply_op (K4b), and passes
+# run by the blocked solves' loops; a run reads them to show that its
+# main path went through the kernels, one K4a launch per pass
 LAUNCHES = 0
+APPLY_LAUNCHES = 0
 PASSES = 0
 
-_ENTRY = {torch.float32: "beom_rb_sweep_f32",
-          torch.float64: "beom_rb_sweep_f64"}
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def operator_plain(x, Hu, Hv, mask, dx: float, dy: float, lam=0.0):
+    """A x, masked, in multigrid.operator's op order."""
+    return operator(x, Hu, ops.sxm(Hu), Hv, ops.sym(Hv), mask,
+                    1.0 / dx ** 2, 1.0 / dy ** 2, lam)
 
 
 def rb_sweep_plain(x, b, Hu, Hv, mask, dx: float, dy: float, *,
                    lam=0.0, k: int = 1, omega: float = 1.0,
-                   reverse: bool = False):
-    """k red-black sweeps: the plain PyTorch version of the kernel."""
-    return elliptic.rb_sweeps(x, b, Hu, Hv, mask, dx, dy, lam=lam,
-                              omega=omega, sweeps=k, reverse=reverse)
+                   reverse: bool = False, residual: bool = False):
+    """k red-black sweeps, and with `residual` (x, (b - A x) mask): the
+    plain PyTorch version of the kernel."""
+    x = elliptic.rb_sweeps(x, b, Hu, Hv, mask, dx, dy, lam=lam,
+                           omega=omega, sweeps=k, reverse=reverse)
+    if not residual:
+        return x
+    return x, (b - operator_plain(x, Hu, Hv, mask, dx, dy, lam)) * mask
 
 
-def _entry(dtype):
+def apply_op_plain(x, b, Hu, Hv, mask, dx: float, dy: float, *, lam=0.0,
+                   mode: str = "residual"):
+    """A x (mode 'matvec') or (b - A x) mask (mode 'residual')."""
+    ax = operator_plain(x, Hu, Hv, mask, dx, dy, lam)
+    return ax if mode == "matvec" else (b - ax) * mask
+
+
+def _entry(kind: str, dtype):
     from beom_tpu_torch.stencils import build
 
     lib = build.load("rb_sweep")
-    fn = getattr(lib, _ENTRY[dtype])
+    fn = getattr(lib, f"beom_{kind}_{_DTYPES[dtype]}")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [P] * 6 + [I] * 4 + [D] * 5 + [P]
+    if kind == "rb_sweep":
+        fn.argtypes = [P] * 7 + [I] * 4 + [D] * 5 + [P]
+    else:
+        fn.argtypes = [P] * 6 + [I] * 3 + [D] * 3 + [P]
     fn.restype = I
     return lib, fn
 
 
-def rb_sweep(x, b, Hu, Hv, mask, dx: float, dy: float, *, lam=0.0,
-             k: int = 1, omega: float = 1.0, reverse: bool = False):
-    """k red-black SOR sweeps of A x = b from x (black-red colour order
-    when `reverse`) in one launch; returns the new x."""
-    global LAUNCHES
-    if x.device.type == "cpu":
-        return rb_sweep_plain(x, b, Hu, Hv, mask, dx, dy, lam=lam, k=k,
-                              omega=omega, reverse=reverse)
+def _check_operands(what, x, tensors):
     if x.device.type != "cuda":
         raise NotImplementedError(
-            f"the red-black sweep runs on cuda or cpu, not {x.device.type}")
-    from beom_tpu_torch.stencils import build
-
-    ny, nx = mask.shape
-    for a in (x, b, Hu, Hv, mask):
+            f"{what} runs on cuda or cpu, not {x.device.type}")
+    ny, nx = tensors[-1].shape
+    for a in tensors:
         if a.device != x.device or a.dtype != x.dtype \
                 or not a.is_contiguous() or a.shape != (ny, nx):
             raise ValueError(
-                "red-black sweep: every operand must be a contiguous "
+                f"{what}: every operand must be a contiguous "
                 f"{x.dtype} tensor of ({ny}, {nx}) on {x.device}")
-    if x.dtype not in _ENTRY:
-        raise ValueError(f"red-black sweep: dtype {x.dtype}")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"{what}: dtype {x.dtype}")
+    return ny, nx
+
+
+def rb_sweep(x, b, Hu, Hv, mask, dx: float, dy: float, *, lam=0.0,
+             k: int = 1, omega: float = 1.0, reverse: bool = False,
+             residual: bool = False):
+    """k red-black SOR sweeps of A x = b from x (black-red colour order
+    when `reverse`) in one launch; returns the new x, or with `residual`
+    (x, (b - A x) mask)."""
+    global LAUNCHES
+    if x.device.type == "cpu":
+        return rb_sweep_plain(x, b, Hu, Hv, mask, dx, dy, lam=lam, k=k,
+                              omega=omega, reverse=reverse,
+                              residual=residual)
+    from beom_tpu_torch.stencils import build
+
+    ny, nx = _check_operands("red-black sweep", x, (x, b, Hu, Hv, mask))
     with torch.cuda.device(x.device):
-        lib, fn = _entry(x.dtype)
+        lib, fn = _entry("rb_sweep", x.dtype)
         out = torch.empty_like(x)
+        r = torch.empty_like(x) if residual else None
         code = fn(x.data_ptr(), b.data_ptr(), Hu.data_ptr(), Hv.data_ptr(),
-                  mask.data_ptr(), out.data_ptr(), ny, nx, k, int(reverse),
-                  1.0 / dx ** 2, 1.0 / dy ** 2, lam, omega, 1.0 - omega,
+                  mask.data_ptr(), out.data_ptr(),
+                  r.data_ptr() if residual else None, ny, nx, k,
+                  int(reverse), 1.0 / dx ** 2, 1.0 / dy ** 2, lam, omega,
+                  1.0 - omega,
                   torch.cuda.current_stream(x.device).cuda_stream)
         build.check(lib, code, "rb_sweep kernel launch")
         LAUNCHES += 1
+    return (out, r) if residual else out
+
+
+def apply_op(x, b, Hu, Hv, mask, dx: float, dy: float, *, lam=0.0,
+             mode: str = "residual"):
+    """A x (mode 'matvec'; b is not read) or (b - A x) mask (mode
+    'residual') in one launch."""
+    global APPLY_LAUNCHES
+    if mode not in ("residual", "matvec"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if x.device.type == "cpu":
+        return apply_op_plain(x, b, Hu, Hv, mask, dx, dy, lam=lam, mode=mode)
+    from beom_tpu_torch.stencils import build
+
+    matvec = mode == "matvec"
+    ops_in = (x, Hu, Hv, mask) if matvec else (x, b, Hu, Hv, mask)
+    ny, nx = _check_operands("operator pass", x, ops_in)
+    with torch.cuda.device(x.device):
+        lib, fn = _entry("apply_op", x.dtype)
+        out = torch.empty_like(x)
+        code = fn(x.data_ptr(), None if matvec else b.data_ptr(),
+                  Hu.data_ptr(), Hv.data_ptr(), mask.data_ptr(),
+                  out.data_ptr(), ny, nx, int(matvec), 1.0 / dx ** 2,
+                  1.0 / dy ** 2, lam,
+                  torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(lib, code, "apply_op kernel launch")
+        APPLY_LAUNCHES += 1
     return out
 
 
 def make_level_sweep(Hu, Hv, mask, dx: float, dy: float, *,
                      lam=0.0, k: int = 1, omega: float = 1.0,
-                     reverse: bool = False):
-    """sweep(x, b) -> x: k red-black sweeps in one pass on a periodic
-    (ny, nx) level given by its face depths and mask."""
+                     reverse: bool = False, residual: bool = False):
+    """sweep(x, b) -> x (or (x, r) with `residual`): k red-black sweeps in
+    one pass on a periodic (ny, nx) level given by its face depths and
+    mask."""
     def sweep(x, b):
         return rb_sweep(x, b, Hu, Hv, mask, dx, dy, lam=lam, k=k,
-                        omega=omega, reverse=reverse)
+                        omega=omega, reverse=reverse, residual=residual)
 
     return sweep
+
+
+def make_apply_kernel(Hu, Hv, mask, dx: float, dy: float, *, lam=0.0,
+                      mode: str = "residual"):
+    """The operator pass on one level: apply(x, b) -> (b - A x) mask for
+    mode 'residual', apply(x) -> A x for mode 'matvec'."""
+    if mode == "matvec":
+        def apply(x):
+            return apply_op(x, None, Hu, Hv, mask, dx, dy, lam=lam,
+                            mode=mode)
+    else:
+        def apply(x, b):
+            return apply_op(x, b, Hu, Hv, mask, dx, dy, lam=lam, mode=mode)
+    return apply
 
 
 def make_rb_solver(grid: Grid, cfg: Config, lam=0.0, k: int = 8,

@@ -41,8 +41,6 @@ def get_step(cfg: Config):
         return fb_step
     if cfg.scheme in _PROJECTION:
         from beom_tpu_torch.stepping import projection
-        # multigrid configurations raise here, before any step runs
-        projection.check_solver(cfg, projection.solve_lam(cfg))
         return getattr(projection, f"{cfg.scheme}_step")
     if cfg.scheme in _NOT_PORTED:
         raise _not_ported(cfg)

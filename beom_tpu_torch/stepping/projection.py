@@ -31,9 +31,9 @@ continuity, finalize).  The fused stepper (stencils/fused_projection.py)
 runs the same four parts, with phases A and B and the solve as kernels,
 and calls the helpers below for the rest.
 
-Multigrid (cfg.solver='mg', or an effective precond='mg', which
-precond='auto' becomes for the lam = 0 rigid-lid solve) is not ported
-yet and raises NotImplementedError.
+The solve follows cfg.solver: 'cg' with the effective preconditioner
+(precond='auto' is multigrid for the lam = 0 rigid lid, Jacobi for the
+Helmholtz solve), 'redblack', or 'mg' (standalone multigrid cycles).
 """
 
 from __future__ import annotations
@@ -45,12 +45,9 @@ from beom_tpu_torch.core.config import Config
 from beom_tpu_torch.core.grid import Grid, Forcing
 from beom_tpu_torch.core.state import State
 from beom_tpu_torch.physics import continuity
-from beom_tpu_torch.solvers import elliptic
+from beom_tpu_torch.solvers import elliptic, multigrid
 from beom_tpu_torch.solvers.elliptic import _local_dot
 from beom_tpu_torch.stepping import fb
-
-MG_NOT_PORTED = ("multigrid (solvers/multigrid.py) is not ported to "
-                 "beom_tpu_torch yet: ROADMAP queue 1 item 12")
 
 
 def solve_lam(cfg: Config) -> float:
@@ -68,24 +65,17 @@ def effective_precond(cfg: Config, lam) -> str:
     return cfg.precond
 
 
-def check_solver(cfg: Config, lam) -> None:
-    """Raise NotImplementedError where the solve would need multigrid."""
-    if cfg.solver == "mg":
-        raise NotImplementedError(f"solver='mg': {MG_NOT_PORTED}")
-    if cfg.solver == "cg" and effective_precond(cfg, lam) == "mg":
-        raise NotImplementedError(
-            f"solver='cg' with precond={cfg.precond!r} (the mg "
-            f"preconditioner at lam = {lam!r}; use precond='jacobi' or "
-            f"'ssor', or solver='redblack'): {MG_NOT_PORTED}")
-
-
 def _solve(b, grid: Grid, cfg: Config, lam=0.0, x0=None):
-    check_solver(cfg, lam)
     if cfg.solver == "redblack":
         return elliptic.redblack_solve(b, grid, cfg, x0=x0, lam=lam)
+    if cfg.solver == "mg":
+        return multigrid.mg_solve(b, grid, cfg, lam=lam, x0=x0)
     precond = None
-    if effective_precond(cfg, lam) == "ssor":
+    pre = effective_precond(cfg, lam)
+    if pre == "ssor":
         precond = elliptic.make_ssor_precond(grid, cfg, lam=lam)
+    elif pre == "mg":
+        precond = multigrid.make_mg_precond(grid, cfg, lam=lam)
     return elliptic.cg_solve(b, grid, cfg, x0=x0, lam=lam,
                              precond=precond).x
 

@@ -35,6 +35,27 @@ Phases, each of which raises on failure (exit code != 0):
      launch counts, and 3 fused steps against 3 eager steps
   9. times at 2048^2 f32: K3a, K3b, a K4a pass and a K6 solve beside
      their plain versions, and ms/step of (a) and (b) through run()
+ 10. build lines of the multigrid kernels: K4a's residual mode and K4b
+     (rb_sweep.cu), K5 (mg_coarse.cu), K6-mg (cg_fused.cu, both sharing
+     mg_cycle.cuh)
+ 11. the multigrid kernels against their plain versions at 256^2 f64,
+     2048^2 f32 and 200x136 f64, lam = 0 and > 0: K4a with its residual
+     (forward and reverse) and K4b (both modes) bit for bit; K5 on the
+     512^2 tail of the 2048^2 hierarchy and on the whole 200x136 one,
+     de-mean off (bit for bit) and on (bounded), two launches equal; K6
+     with the multigrid preconditioner against the plain PCG (iterations
+     within 1, x bounded, bitwise reproducible, a warm start from the
+     solution <= 1 iteration); the composed fused preconditioner against
+     the eager cycle with the same gamma schedule
+ 12. the multigrid paths: run() on the 2048^2 f32 rigid lid with (c) its
+     default solve (CG + multigrid: K3a, K6, K3b), 20 steps, and (d)
+     solver='mg' (K3a, K4b, K4a on levels 0 and 1, K5, K3b), 10 steps:
+     the launch counts against the cycles, finite diagnostics,
+     max|sum h - H| bounded, 3 fused steps against 3 eager ones
+ 13. times at 2048^2 f32: K4a with its residual, K4b, K5 (with and
+     without its one-CTA small levels), a K6-mg solve (per iteration), a
+     solver='mg' solve (per cycle) beside their plain versions, (c) and
+     (d) in ms/step through run(), and the grid syncs per cycle
 
 The line before the last is the kernels' JSON record; the last is
 {"ok": true, "device": {...}}.  It imports no jax.
@@ -52,7 +73,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BIG = 2048
-KERNELS = ("fb_step", "projection", "rb_sweep", "cg_fused")
+KERNELS = ("fb_step", "projection", "rb_sweep", "cg_fused", "mg_coarse")
 # (b)'s sweep budget: a multiple of the 8 sweeps per K4a pass, so that
 # the fused solve's passes do the eager solve's sweeps when neither
 # converges early
@@ -204,15 +225,16 @@ def check_rb(label, device, tol, seed, **kw):
     return worst
 
 
-def check_cg(label, device, x_rel, seed, **kw):
+def check_cg(label, device, x_rel, seed, precond="jacobi", **kw):
     """K6 against the plain CG on the two solves of a projection step
     from a perturbed state, cold and warm (from the cold solution).
     x_rel(lam) bounds |x - x_plain| / scale.  The true residual is
     recomputed in f64 with the plain laplacian_H; it is held to
     20 tol_eff |b|, or to twice the plain CG's own where the plain CG
     itself stops above that (f32 recurrences drift from the true
-    residual over thousands of iterations).  Returns the largest
-    difference."""
+    residual over thousands of iterations).  With precond='mg' the
+    iteration counts must agree within 1 and the warm start take at most
+    1 iteration.  Returns the largest difference."""
     import torch
 
     from beom_tpu_torch.core.grid import Grid
@@ -246,13 +268,14 @@ def check_cg(label, device, x_rel, seed, **kw):
         b64 = b.double() * m64
         if lam == 0.0:      # the compatible system the solve deflates to
             b64 = (b64 - m64 * (b64.sum() / m64.sum())) * m64
-        solve = cg_fused.make_cg_solve(grid, cfg, lam=lam, precond="jacobi")
+        solve = cg_fused.make_cg_solve(grid, cfg, lam=lam, precond=precond)
         x0 = None
         for start in ("cold", "warm"):
             res = solve(b, x0)
             again = solve(b, x0)
-            ref = cg_fused.cg_solve_plain(b, grid, cfg, x0=x0, lam=lam)
-            tag = f"{label} lam={lam:.4g} {start} K6"
+            ref = cg_fused.cg_solve_plain(b, grid, cfg, x0=x0, lam=lam,
+                                          precond=precond)
+            tag = f"{label} lam={lam:.4g} {start} K6 {precond}"
             if not torch.equal(res.x, again.x):
                 raise AssertionError(f"{tag}: two launches differ")
             rk, rp = true_res(res.x, b64, lam), true_res(ref.x, b64, lam)
@@ -269,8 +292,13 @@ def check_cg(label, device, x_rel, seed, **kw):
                 raise AssertionError(f"{tag}: residual {rk!r} > {bound!r}")
             if not err <= x_rel(lam) * scale:
                 raise AssertionError(f"{tag}: x off the plain CG")
+            if precond == "mg" and abs(res.iters - ref.iters) > 1:
+                raise AssertionError(f"{tag}: iterations off the plain CG")
             if start == "cold":
                 cold_iters = res.iters
+            elif precond == "mg" and res.iters > 1:
+                raise AssertionError(f"{tag}: the warm start took "
+                                     f"{res.iters} iterations")
             elif not (res.iters < cold_iters or res.iters == 0):
                 raise AssertionError(f"{tag}: the warm start did not cut "
                                      "the iterations")
@@ -288,7 +316,8 @@ def run_projection(label, device, n_steps, diag_every, **kw):
 
     from beom_tpu_torch.cases import make_case
     from beom_tpu_torch.run import run
-    from beom_tpu_torch.stencils import cg_fused, redblack
+    from beom_tpu_torch.solvers import multigrid
+    from beom_tpu_torch.stencils import cg_fused, mg_coarse, redblack
     from beom_tpu_torch.stencils import fused_projection as fp
 
     case = make_case("rigid_lid", nx=BIG, ny=BIG, device=device,
@@ -298,12 +327,15 @@ def run_projection(label, device, n_steps, diag_every, **kw):
     torch.cuda.synchronize()
     fp.LAUNCHES.update(proj_a=0, proj_b=0)
     cg_fused.LAUNCHES = redblack.LAUNCHES = redblack.PASSES = 0
+    redblack.APPLY_LAUNCHES = mg_coarse.LAUNCHES = multigrid.CYCLES = 0
     t0 = time.perf_counter()
     out = run(cfg, grid, forcing, st, n_steps, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(fp.LAUNCHES, cg_fused=cg_fused.LAUNCHES,
-                  rb_sweep=redblack.LAUNCHES, passes=redblack.PASSES)
+                  rb_sweep=redblack.LAUNCHES, passes=redblack.PASSES,
+                  apply_op=redblack.APPLY_LAUNCHES,
+                  mg_coarse=mg_coarse.LAUNCHES, cycles=multigrid.CYCLES)
     diags = [json.loads(x) for x in log.getvalue().splitlines()]
     for d in diags:
         print("   " + json.dumps(d))
@@ -530,6 +562,7 @@ def main() -> dict:
         "launches": launches, "max_abs_err": max_err,
         "ms": sum(k1) / len(k1), "plain_ms": sum(plain) / len(plain)}]
     kernels += projection_phases(dev, smi, rel, ulps)
+    kernels += multigrid_phases(dev, smi, rel, ulps)
     return {"kernels": kernels}
 
 
@@ -544,7 +577,7 @@ def projection_phases(dev, smi, rel, ulps):
     from beom_tpu_torch.stepping import projection
 
     phase("6 build: the projection kernels")
-    for name in KERNELS[1:]:
+    for name in ("projection", "rb_sweep", "cg_fused"):
         print_build(build, name)
 
     phase("7 the projection kernels against their plain versions")
@@ -655,6 +688,272 @@ def projection_phases(dev, smi, rel, ulps):
              "launches": launches[name], "max_abs_err": err[name],
              "ms": ms[name][0], "plain_ms": ms[name][1]}
             for name, (src, site) in sources.items()]
+
+
+def field_on(mask, rng, amp=1.0):
+    """A seeded wet field on the card, shaped and typed as mask."""
+    import torch
+
+    a = amp * rng.standard_normal(tuple(mask.shape))
+    return torch.tensor(a, dtype=mask.dtype, device=mask.device) * mask
+
+
+def check_level_kernels(label, device, tol, seed, **kw):
+    """K4a with its residual (k = 2, omega = 1, forward and reverse) and
+    K4b (both modes) on the model grid against their plain versions,
+    lam = 0 and 1/(g dt^2).  Returns the largest differences."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.solvers import multigrid as mg
+    from beom_tpu_torch.stencils import redblack
+
+    cfg, grid, _, _ = perturbed_case(device, seed, "rigid_lid", **kw)
+    rng = np.random.default_rng(seed)
+    worst_r = worst_b = 0.0
+    for lam in (0.0, 1.0 / (cfg.g * cfg.dt ** 2)):
+        lv = mg.build_levels(grid, cfg, lam, min_size=max(cfg.nx, cfg.ny))[0]
+        args = (lv.Hu, lv.Hv, lv.mask, lv.dx, lv.dy)
+        x, b = field_on(lv.mask, rng), field_on(lv.mask, rng, 1e-6)
+        for reverse in (False, True):
+            kw_s = dict(lam=lam, k=2, omega=1.0, reverse=reverse,
+                        residual=True)
+            out = redblack.rb_sweep(x, b, *args, **kw_s)
+            torch.cuda.synchronize()
+            ref = redblack.rb_sweep_plain(x, b, *args, **kw_s)
+            worst_r = max(worst_r, compare_fields(
+                f"{label} lam={lam:.4g} {'reverse' if reverse else 'forward'}"
+                " K4a+residual", ("x", "r"), out, ref, tol))
+        for mode in ("residual", "matvec"):
+            out = redblack.apply_op(x, b, *args, lam=lam, mode=mode)
+            torch.cuda.synchronize()
+            ref = redblack.apply_op_plain(x, b, *args, lam=lam, mode=mode)
+            worst_b = max(worst_b, compare_fields(
+                f"{label} lam={lam:.4g} K4b", (mode,), [out], [ref], tol))
+    return worst_r, worst_b
+
+
+def check_coarse(label, device, demean_rel, seed, **kw):
+    """K5 on the tail of the hierarchy that the fused tier gives it (the
+    first level <= 512^2 and below) against the eager cycle on that tail,
+    lam = 0 and 1/(g dt^2), de-mean off and on: 0.0 without the de-mean
+    (it is off, or lam > 0), demean_rel x scale with it; two launches
+    bitwise equal.  Returns the largest difference."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.solvers import multigrid as mg
+    from beom_tpu_torch.stencils import mg_coarse
+
+    cfg, grid, _, _ = perturbed_case(device, seed, "rigid_lid", **kw)
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+    for lam in (0.0, 1.0 / (cfg.g * cfg.dt ** 2)):
+        levels = mg.build_levels(grid, cfg, lam)
+        gamma = mg.fused_gamma_schedule(levels, 2)
+        for demean in (False, True):
+            j0, call = mg.make_fused_coarse(levels, lam, 2, 24, demean,
+                                            gamma=gamma)
+            tail = levels[j0:]
+            g_tail = gamma[j0:] or 1 if isinstance(gamma, tuple) else gamma
+            b = field_on(tail[0].mask, rng)
+            out, again = call(b), call(b)
+            torch.cuda.synchronize()
+            ref = mg_coarse.coarse_stack_plain(tail, b, lam, 2, 24, g_tail,
+                                               demean)
+            tag = (f"{label} lam={lam:.4g} demean={demean} K5 on levels "
+                   f"{j0}..{len(levels) - 1} {tuple(tail[0].mask.shape)}")
+            if not torch.equal(out, again):
+                raise AssertionError(f"{tag}: two launches differ")
+            rel_bound = demean_rel if (demean and lam == 0.0) else 0.0
+            worst = max(worst, compare_fields(
+                tag, ("x",), [out], [ref],
+                lambda r: rel_bound * float(r.abs().max())))
+    return worst
+
+
+def check_composed(label, device, tol, seed, **kw):
+    """make_mg_precond(smoother='fused') (K4a on the levels >= 256 rows
+    above the tail, K5 on the tail) against the eager cycle with the same
+    gamma schedule.  Returns the difference."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.solvers import multigrid as mg
+
+    cfg, grid, _, _ = perturbed_case(device, seed, "rigid_lid", **kw)
+    levels = mg.build_levels(grid, cfg, 0.0)
+    gamma = mg.fused_gamma_schedule(levels, 2)
+    fused = mg.make_mg_precond(grid, cfg, smoother="fused")
+    eager = mg.cycle_precond(levels, 0.0, 2, 24, gamma)
+    r = field_on(grid.mask, np.random.default_rng(seed))
+    out = fused(r)
+    torch.cuda.synchronize()
+    return compare_fields(f"{label} composed fused preconditioner",
+                          ("z",), [out], [eager(r)], tol)
+
+
+def multigrid_phases(dev, smi, rel, ulps):
+    """Phases 10 to 13; returns the kernels' JSON entries."""
+    import torch
+
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.solvers import multigrid as mg
+    from beom_tpu_torch.stencils import build, cg_fused, mg_coarse, redblack
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import projection
+
+    phase("10 build: the multigrid kernels")
+    for name in ("rb_sweep", "mg_coarse", "cg_fused"):
+        print_build(build, name)
+
+    phase("11 the multigrid kernels against their plain versions")
+    err = {}
+    check_level_kernels("256^2 f64", dev, rel(1e-12), 30, nx=256, ny=256,
+                        dtype="float64")
+    check_level_kernels("200x136 f64", dev, rel(1e-12), 31, nx=200, ny=136,
+                        dtype="float64")
+    err["rb_sweep_residual"], err["apply_op"] = check_level_kernels(
+        f"{BIG}^2 f32", dev, ulps(4), 32, nx=BIG, ny=BIG)
+    # de-mean bounds (PERF.md): 1e-12 x scale at f64, 1e-4 at f32
+    check_coarse("256^2 f64", dev, 1e-12, 33, nx=256, ny=256,
+                 dtype="float64")
+    check_coarse("200x136 f64", dev, 1e-12, 34, nx=200, ny=136,
+                 dtype="float64")
+    err["mg_coarse"] = check_coarse(f"{BIG}^2 f32", dev, 1e-4, 35, nx=BIG,
+                                    ny=BIG)
+    check_cg("256^2 f64", dev, lambda lam: 1e-6, 36, precond="mg", nx=256,
+             ny=256, dtype="float64")
+    check_cg("200x136 f64", dev, lambda lam: 1e-6, 37, precond="mg", nx=200,
+             ny=136, dtype="float64")
+    # f32 bounds (PERF.md): 1e-3 x scale for lam = 0, 1e-4 for lam > 0
+    err["cg_fused_mg"] = check_cg(f"{BIG}^2 f32", dev,
+                                  lambda lam: 1e-3 if lam == 0.0 else 1e-4,
+                                  38, precond="mg", nx=BIG, ny=BIG)
+    check_composed("256^2 f64", dev, rel(1e-12), 39, nx=256, ny=256,
+                   dtype="float64")
+    check_composed(f"{BIG}^2 f32", dev, rel(1e-5), 40, nx=BIG, ny=BIG)
+
+    phase(f"12 the multigrid paths: run() on the {BIG}^2 f32 rigid lid")
+    case_c, _, counts_c, col_c = run_projection(
+        "(c) rigid_lid, CG + multigrid (the default)", dev, 20, 10)
+    if not (counts_c["proj_a"] == counts_c["proj_b"] == counts_c["cg_fused"]
+            == 20 and counts_c["rb_sweep"] == counts_c["apply_op"]
+            == counts_c["mg_coarse"] == 0):
+        raise AssertionError(f"(c) launch counts {counts_c}")
+    if not col_c < 0.1:
+        raise AssertionError(f"(c) max|sum h - H| {col_c!r} m")
+    eager_c = versus_eager("(c) 3 fused steps", case_c, 3, 1e-5)
+    case_d, _, counts_d, col_d = run_projection(
+        "(d) rigid_lid, solver='mg'", dev, 10, 5, solver="mg")
+    n_cyc = counts_d["cycles"]
+    # per cycle: K4a forward + reverse on level 0 once and on level 1 in
+    # both K-cycle visits; K5 twice per level-1 visit (gamma_1 = 2); K4b
+    # once, plus once per solve for the initial residual
+    if not (counts_d["proj_a"] == counts_d["proj_b"] == 10 and n_cyc > 0
+            and counts_d["rb_sweep"] == 6 * n_cyc
+            and counts_d["mg_coarse"] == 4 * n_cyc
+            and counts_d["apply_op"] == n_cyc + 10
+            and counts_d["cg_fused"] == 0):
+        raise AssertionError(f"(d) launch counts {counts_d}")
+    if not col_d < 0.1:
+        raise AssertionError(f"(d) max|sum h - H| {col_d!r} m")
+    eager_d = versus_eager("(d) 3 fused steps", case_d, 3, 1e-4)
+
+    phase(f"13 times at {BIG}^2 f32 ({smi})")
+    cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
+                                            ny=BIG)
+    saved = (dict(fp.LAUNCHES), cg_fused.LAUNCHES, redblack.LAUNCHES,
+             redblack.APPLY_LAUNCHES, mg_coarse.LAUNCHES, mg.CYCLES)
+    _, _, div = fp.proj_a(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+    rhs = projection.rigid_rhs(st.h, div, grid, cfg)
+    levels = mg.build_levels(grid, cfg, 0.0)
+    gamma = mg.fused_gamma_schedule(levels, 2)
+    lv = levels[0]
+    args = (lv.Hu, lv.Hv, lv.mask, lv.dx, lv.dy)
+    x = torch.zeros_like(rhs)
+    kw = dict(k=2, omega=1.0, residual=True)
+    ms = {}
+    ms["rb_sweep_residual"] = time_pair(
+        "K4a pass (2 sweeps + residual)",
+        lambda: redblack.rb_sweep_plain(x, rhs, *args, **kw),
+        lambda: redblack.rb_sweep(x, rhs, *args, **kw), 10, 100,
+        unit="pass")
+    ms["apply_op"] = time_pair(
+        "K4b residual", lambda: redblack.apply_op_plain(x, rhs, *args),
+        lambda: redblack.apply_op(x, rhs, *args), 10, 100, unit="pass")
+    j0, call = mg.make_fused_coarse(levels, 0.0, 2, 24, True, gamma=gamma)
+    tail = levels[j0:]
+    b_tail = rhs
+    for coarser in levels[1:j0 + 1]:
+        b_tail = mg._restrict2(b_tail) * coarser.mask
+    ms["mg_coarse"] = time_pair(
+        f"K5 on the {tuple(tail[0].mask.shape)} tail",
+        lambda: mg_coarse.coarse_stack_plain(tail, b_tail, 0.0, 2, 24,
+                                             gamma[j0:], True),
+        lambda: call(b_tail), 3, 30, unit="visit")
+    no_solo = mg_coarse.make_coarse_stack_call(tail, 0.0, gamma=gamma[j0:],
+                                               demean=True, solo_points=0)
+    print(f"   K5 with every level on the whole grid (no one-CTA levels): "
+          f"{time_ms(lambda: no_solo(b_tail), 30)!r} ms/visit")
+    solve = cg_fused.make_cg_solve(grid, cfg, lam=0.0)
+    res = solve(rhs)
+    ref = cg_fused.cg_solve_plain(rhs, grid, cfg, lam=0.0, precond="mg")
+    ms["cg_fused_mg"] = time_pair(
+        "K6-mg cold solve",
+        lambda: cg_fused.cg_solve_plain(rhs, grid, cfg, lam=0.0,
+                                        precond="mg"),
+        lambda: solve(rhs), 1, 5, unit="solve")
+    k_ms, p_ms = ms["cg_fused_mg"]
+    print(f"   K6-mg: {res.iters} iterations (plain {ref.iters}); "
+          f"{k_ms / max(res.iters, 1)!r} ms/iteration (plain "
+          f"{p_ms / max(ref.iters, 1)!r})")
+    for tag, steps in (
+            ("K6-mg cycle", solve.steps),
+            ("K6-mg cycle without one-CTA levels",
+             mg_coarse.cycle_steps(levels, 0.0, 2, 24, gamma, False, 0)),
+            ("K5 visit", call.steps),
+            ("K5 visit without one-CTA levels", no_solo.steps)):
+        print(f"   {tag}: {len(steps)} steps, "
+              f"{mg_coarse.grid_syncs(steps)} grid syncs")
+    for smoother in ("eager", "fused"):
+        mg_solve = mg.make_mg_solver(grid, cfg, smoother=smoother)
+        c0 = mg.CYCLES
+        mg_solve(rhs)
+        n_c = mg.CYCLES - c0
+        t = time_ms(lambda: mg_solve(rhs), 1 if smoother == "eager" else 3)
+        print(f"   solver='mg' cold solve, smoother={smoother}: {n_c} cycles, "
+              f"{t!r} ms/solve, {t / max(n_c, 1)!r} ms/cycle")
+    fp.LAUNCHES.update(saved[0])
+    (cg_fused.LAUNCHES, redblack.LAUNCHES, redblack.APPLY_LAUNCHES,
+     mg_coarse.LAUNCHES, mg.CYCLES) = saved[1:]
+    for label, (cfg, grid, forcing, st), n_steps, eager_ms in (
+            ("(c) rigid_lid CG + multigrid", case_c, 20, eager_c),
+            ("(d) rigid_lid solver='mg'", case_d, 10, eager_d)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+        print(f"   {label}: run() {wall!r} ms/step over {n_steps} steps "
+              f"(diagnostics included); eager stepper {eager_ms!r} "
+              "ms/step over 3 steps")
+
+    entries = {
+        "rb_sweep_residual": ("rb_sweep.cu", "redblack_pallas.py:39",
+                              counts_d["rb_sweep"]),
+        "apply_op": ("rb_sweep.cu", "redblack_pallas.py:217",
+                     counts_d["apply_op"]),
+        "mg_coarse": ("mg_coarse.cu", "mg_pallas.py:55",
+                      counts_d["mg_coarse"]),
+        "cg_fused_mg": ("cg_fused.cu", "cg_vmem.py:61",
+                        counts_c["cg_fused"])}
+    return [{"name": name, "route": "cuda",
+             "source": f"beom_tpu_torch/csrc/{src}",
+             "replaces": f"beom_tpu/stencils/{site}", "launches": n,
+             "max_abs_err": err[name], "ms": ms[name][0],
+             "plain_ms": ms[name][1]}
+            for name, (src, site, n) in entries.items()]
 
 
 if __name__ == "__main__":

@@ -1,10 +1,12 @@
-"""K6, the fused Jacobi CG: its plain PyTorch version (what the wrapper
-runs on CPU tensors) against beom_tpu's whole-solve kernel
+"""K6, the fused CG: its plain PyTorch version (what the wrapper runs on
+CPU tensors) with Jacobi against beom_tpu's whole-solve kernel
 make_vmem_cg_solve(precond='jacobi') in interpret mode, with
 tests/unit/test_cg_vmem.py's bounds: the true residual within 20 x tol
 |b|, x within 1e-6 x scale, and a warm start from the solution cutting
-the iterations at least fourfold.  The CUDA kernel itself is held
-against the plain version on the card by tests/test_torch_cuda.py and
+the iterations at least fourfold; and the preconditioner the wrapper
+picks.  The multigrid preconditioner's parity is in
+tests/test_torch_mg_kernels.py.  The CUDA kernel itself is held against
+the plain version on the card by tests/test_torch_cuda.py and
 chip_smoke.py."""
 
 import jax.numpy as jnp
@@ -68,9 +70,24 @@ def test_warm_start_cuts_iterations(case):
     assert warm.iters <= max(cold.iters // 4, 1)
 
 
-def test_mg_preconditioner_raises(case):
+@pytest.mark.parametrize("precond,lam,uses_mg", [
+    ("auto", 0.0, True), ("auto", 1e-3, False), ("mg", 1e-3, True),
+    ("ssor", 0.0, False), ("jacobi", 0.0, False)])
+def test_precond_choice(case, precond, lam, uses_mg):
+    """'auto' is multigrid for lam = 0 and Jacobi otherwise; 'ssor' is
+    not offered in the kernel and becomes Jacobi, as in the reference.
+    solve.steps is the multigrid cycle the kernel walks, or empty."""
+    _, _, cfg, grid, b = case
+    solve = cg_fused.make_cg_solve(grid, cfg, lam=lam, precond=precond)
+    assert bool(solve.steps) == uses_mg
+    res = solve(torch.tensor(b))
+    ref = cg_fused.cg_solve_plain(torch.tensor(b), grid, cfg, lam=lam,
+                                  precond="mg" if uses_mg else "jacobi")
+    assert res.iters == ref.iters
+    np.testing.assert_array_equal(res.x.numpy(), ref.x.numpy())
+
+
+def test_unknown_precond_raises(case):
     _, _, cfg, grid, _ = case
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        cg_fused.make_cg_solve(grid, cfg, lam=0.0)        # auto -> mg
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 12"):
-        cg_fused.make_cg_solve(grid, cfg, lam=1e-3, precond="mg")
+    with pytest.raises(ValueError, match="precond"):
+        cg_fused.make_cg_solve(grid, cfg, precond="ilu")

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 K1 (fused fb step), K3a/K3b (projection phases), K4a (blocked red-black
-sweep) and K6 (fused Jacobi CG).
+sweep, with and without its residual), K4b (operator pass), K5 (coarse
+multigrid stack) and K6 (fused CG, Jacobi and multigrid); and run() of
+the rigid lid's two multigrid solves through them.
 
 Skips where torch.cuda.is_available() is false.  It imports no jax, so
 on a machine with a card and no jax it runs without tests/conftest.py:
@@ -16,8 +18,9 @@ import torch
 
 from beom_tpu_torch.cases import make_case
 from beom_tpu_torch.solvers import elliptic
+from beom_tpu_torch.solvers import multigrid as mg
 from beom_tpu_torch.stencils import (cg_fused, fused_fb, fused_projection,
-                                     redblack)
+                                     mg_coarse, redblack)
 
 
 @pytest.fixture
@@ -152,3 +155,126 @@ def test_projection_kernels_refuse_unsupported_term(cuda):
                                         precond="jacobi", cd_bot=2.5e-3)
     with pytest.raises(NotImplementedError, match="cd_bot"):
         fused_projection.proj_a(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+
+
+def _level_inputs(cuda, seed, lam=0.0):
+    """The 200x136 f64 rigid-lid hierarchy and a seeded wet x and b."""
+    cfg, grid, _, _ = make_case("rigid_lid", nx=200, ny=136, device=cuda,
+                                dtype="float64")
+    levels = mg.build_levels(grid, cfg, lam)
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    m = grid.mask
+
+    def field():
+        return torch.randn(m.shape, generator=g, dtype=m.dtype).to(cuda) * m
+
+    return cfg, grid, levels, field(), field()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("lam", [0.0, 1e-9])
+def test_rb_sweep_residual_matches_plain(cuda, lam, reverse):
+    """K4a with residual=True (k = 2, omega = 1, as the multigrid
+    smoother): x and r bit for bit."""
+    _, _, levels, x, b = _level_inputs(cuda, 14, lam)
+    lv = levels[0]
+    kw = dict(lam=lam, k=2, omega=1.0, reverse=reverse, residual=True)
+    out = redblack.rb_sweep(x, b, lv.Hu.contiguous(), lv.Hv.contiguous(),
+                            lv.mask, lv.dx, lv.dy, **kw)
+    ref = redblack.rb_sweep_plain(x, b, lv.Hu, lv.Hv, lv.mask, lv.dx,
+                                  lv.dy, **kw)
+    torch.cuda.synchronize()
+    for a, r in zip(out, ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["residual", "matvec"])
+def test_apply_op_matches_plain(cuda, mode):
+    """K4b, both modes, lam > 0: bit for bit."""
+    _, _, levels, x, b = _level_inputs(cuda, 15, 1e-9)
+    lv = levels[0]
+    before = redblack.APPLY_LAUNCHES
+    out = redblack.apply_op(x, b, lv.Hu.contiguous(), lv.Hv.contiguous(),
+                            lv.mask, lv.dx, lv.dy, lam=1e-9, mode=mode)
+    torch.cuda.synchronize()
+    assert redblack.APPLY_LAUNCHES == before + 1
+    ref = redblack.apply_op_plain(x, b, lv.Hu, lv.Hv, lv.mask, lv.dx, lv.dy,
+                                  lam=1e-9, mode=mode)
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solo_points", [0, mg_coarse.SOLO_POINTS, 1 << 30])
+@pytest.mark.parametrize("demean", [False, True])
+def test_coarse_stack_matches_plain(cuda, demean, solo_points):
+    """K5 on the whole ragged hierarchy (down to its odd 25x17 level),
+    with no level, the small ones and every level on one CTA: without the
+    de-mean bit for bit, with it 1e-12 x scale (its sums run in another
+    order); two launches bitwise equal."""
+    _, _, levels, _, b = _level_inputs(cuda, 16)
+    gamma = mg.fused_gamma_schedule(levels, 2)
+    call = mg_coarse.make_coarse_stack_call(levels, 0.0, gamma=gamma,
+                                            demean=demean,
+                                            solo_points=solo_points)
+    before = mg_coarse.LAUNCHES
+    out, again = call(b), call(b)
+    torch.cuda.synchronize()
+    assert mg_coarse.LAUNCHES == before + 2
+    assert torch.equal(out, again)
+    ref = mg_coarse.coarse_stack_plain(levels, b, 0.0, gamma=gamma,
+                                       demean=demean)
+    err = float((out - ref).abs().max())
+    assert err <= (1e-12 * float(ref.abs().max()) if demean else 0.0), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["neumann", "helmholtz"])
+def test_cg_mg_matches_plain(cuda, kind):
+    """K6 with the multigrid preconditioner at 200x136 f64: iterations
+    within 1 of the plain CG's, x within 1e-6 x scale, two launches
+    bitwise equal, a warm start from the solution at most 1 iteration."""
+    cfg, grid, _, _, b = _level_inputs(cuda, 17)
+    lam = 0.0 if kind == "neumann" else 1.0 / (cfg.g * cfg.dt ** 2)
+    solve = cg_fused.make_cg_solve(grid, cfg, lam=lam, precond="mg")
+    before = cg_fused.LAUNCHES
+    res, res2 = solve(b), solve(b)
+    assert cg_fused.LAUNCHES == before + 2
+    assert torch.equal(res.x, res2.x)
+    ref = cg_fused.cg_solve_plain(b, grid, cfg, lam=lam, precond="mg")
+    assert abs(res.iters - ref.iters) <= 1
+    scale = float(ref.x.abs().max())
+    assert float((res.x - ref.x).abs().max()) <= 1e-6 * scale
+    assert solve(b, x0=res.x).iters <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["cg", "mg"])
+def test_run_rigid_lid_multigrid(cuda, solver):
+    """run() on the 128^2 f32 rigid lid with its default solve (K3a, K6
+    with multigrid, K3b) and with solver='mg' (K3a, K5 for the whole
+    hierarchy, K3b; K4a and K4b run from 256 rows): the kernels' counts,
+    finite output."""
+    import io
+
+    from beom_tpu_torch.run import run
+
+    cfg, grid, forcing, st = make_case("rigid_lid", nx=128, ny=128,
+                                       device=cuda, backend="fused",
+                                       solver=solver, diag_every=5)
+    before = (fused_projection.LAUNCHES["proj_a"], cg_fused.LAUNCHES,
+              mg_coarse.LAUNCHES, redblack.LAUNCHES)
+    out = run(cfg, grid, forcing, st, 10, log=io.StringIO())
+    torch.cuda.synchronize()
+    after = (fused_projection.LAUNCHES["proj_a"], cg_fused.LAUNCHES,
+             mg_coarse.LAUNCHES, redblack.LAUNCHES)
+    delta = [a - b for a, b in zip(after, before)]
+    assert delta[0] == 10 and delta[3] == 0
+    if solver == "cg":
+        assert delta[1] == 10 and delta[2] == 0
+    else:
+        assert delta[1] == 0 and delta[2] > 0
+    assert bool(torch.isfinite(out.h).all()) and float(out.u.abs().max()) > 0
+    column = float(((out.h.sum(0) - grid.H) * grid.mask).abs().max())
+    assert column < 0.1

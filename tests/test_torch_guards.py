@@ -1,7 +1,8 @@
 """Guards of the port: it never imports jax; the fused kernels' config
 checks raise on each term the kernels lack; the parts not yet ported
-(the other fb cases, split, multigrid) raise naming their ROADMAP item;
-and the CLI refuses --device cuda where there is no card."""
+(the other fb cases, split) raise naming their ROADMAP item; the
+projection configurations that use multigrid build; and the CLI refuses
+--device cuda where there is no card."""
 
 import dataclasses
 import os
@@ -77,7 +78,7 @@ def test_unported_schemes_raise(scheme):
         get_step(Config(scheme=scheme))
 
 
-# projection configurations that need multigrid, which is not ported
+# projection configurations that use multigrid
 MULTIGRID = {
     "solver=mg rigid_lid": dict(scheme="rigid_lid", solver="mg"),
     "solver=mg implicit_fs": dict(scheme="implicit_fs", solver="mg"),
@@ -87,17 +88,22 @@ MULTIGRID = {
 
 
 @pytest.mark.parametrize("name", list(MULTIGRID))
-def test_multigrid_raises(name):
-    """get_step, the eager solve and the fused stepper all refuse."""
-    cfg, grid, forcing, st = make_case("rigid_lid", nx=16, ny=16,
+def test_multigrid_configurations_step(name):
+    """get_step, the eager solve and the fused stepper all take them: one
+    eager and one fused step at 32^2 agree within 1e-5 x max(scale, 1)
+    (the fused tier's gamma schedule differs from the eager W-cycle)."""
+    cfg, grid, forcing, st = make_case("rigid_lid", nx=32, ny=32,
                                        device="cpu", **MULTIGRID[name])
-    match = "ROADMAP queue 1 item 12"
-    with pytest.raises(NotImplementedError, match=match):
-        get_step(cfg)
-    with pytest.raises(NotImplementedError, match=match):
-        projection._solve(st.h[0], grid, cfg, lam=projection.solve_lam(cfg))
-    with pytest.raises(NotImplementedError, match=match):
-        make_fused_projection_stepper(grid, forcing, cfg)
+    lam = projection.solve_lam(cfg)
+    x = projection._solve(grid.H * grid.mask / grid.H.max() - 0.5, grid,
+                          cfg, lam=lam)
+    assert bool(torch.isfinite(x).all())
+    a = get_step(cfg)(st, grid, forcing, cfg)
+    b = make_fused_projection_stepper(grid, forcing, cfg)(st)
+    for f in "huv":
+        ref = getattr(a, f)
+        err = float((getattr(b, f) - ref).abs().max())
+        assert err <= 1e-5 * max(float(ref.abs().max()), 1.0), f
 
 
 @pytest.mark.parametrize("term", [t for t in UNSUPPORTED if t != "scheme"])

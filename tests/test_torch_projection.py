@@ -2,12 +2,11 @@
 steps against beom_tpu's XLA steps and the f64 NumPy oracle; the fused
 stepper (its plain versions on CPU tensors) against the eager one and
 against beom_tpu's Pallas projection stepper in interpret mode; and a
-projection run through run(), snapshots and convert.py.
-
-The multigrid preconditioner is not ported, so the rigid lid runs CG
-with precond='jacobi' (or red-black) where beom_tpu's default is
-precond='auto' (mg for lam = 0); the implicit free surface's 'auto' is
-Jacobi in both packages."""
+projection run through run(), snapshots and convert.py.  The rigid lid
+runs its default solve (CG + multigrid, beom_tpu's precond='auto' for
+lam = 0), solver='mg', CG + Jacobi and red-black; the implicit free
+surface's 'auto' is Jacobi in both packages.  The multigrid solves'
+parity at the solver level is in tests/test_torch_multigrid.py."""
 
 import dataclasses
 import io
@@ -32,6 +31,8 @@ from tests.torch_parity import assert_close, perturb, to_port
 
 CONFIGS = {
     "rigid_lid-cg": dict(precond="jacobi"),
+    "rigid_lid-cg-mg": {},
+    "rigid_lid-mg": dict(solver="mg"),
     "implicit_fs-cg": dict(scheme="implicit_fs"),
     "rigid_lid-redblack": dict(solver="redblack"),
     "implicit_fs-redblack": dict(scheme="implicit_fs", solver="redblack"),
@@ -106,11 +107,18 @@ def test_fused_stepper_equals_eager_on_cpu(name):
 
 @pytest.mark.parametrize("name,atol_ulp", [
     ("rigid_lid-cg", 1e-5), ("implicit_fs-cg", 1e-5),
-    ("rigid_lid-redblack", 1e-4)])
+    ("rigid_lid-redblack", 1e-4), ("rigid_lid-cg-mg", 1e-5),
+    ("rigid_lid-mg", 1e-5)])
 def test_fused_stepper_matches_pallas_interpret(name, atol_ulp):
     """tests/unit/test_pallas.py's projection comparison (128x96, by=48,
     3 steps, atol_ulp x max(scale, 1), f32), with the port's fused
-    stepper in place of the XLA one, from a perturbed state."""
+    stepper in place of the XLA one, from a perturbed state.  With the
+    default solve both run the whole multigrid-preconditioned CG as one
+    kernel (its plain version here); with solver='mg' the reference's
+    interpret tier runs the eager-smoothed W-cycle solver and the port
+    its fused tier (the fused gamma schedule, the coarse stack's plain
+    version), so the two iterate differently and meet at the
+    tolerance."""
     (jcfg, jgrid, jforcing, jst), (cfg, grid, forcing, st) = _cases(
         128, 96, seed=3, **CONFIGS[name])
     jstep = make_pallas_projection_stepper(jgrid, jforcing, jcfg, by=48,
@@ -125,6 +133,24 @@ def test_fused_stepper_matches_pallas_interpret(name, atol_ulp):
         np.testing.assert_allclose(getattr(st, f).numpy(), ref, rtol=0,
                                    atol=atol_ulp * max(scale, 1.0),
                                    err_msg=f)
+
+
+@pytest.mark.parametrize("backend", ["eager", "fused"])
+def test_run_rigid_lid_defaults(backend):
+    """make_case('rigid_lid') with its defaults (CG + multigrid) runs
+    through run() on CPU tensors: finite, moving, and the column held to
+    the f32 solve's tolerance."""
+    from beom_tpu_torch.cases import make_case
+
+    cfg, grid, forcing, st = make_case("rigid_lid", nx=64, ny=48,
+                                       device="cpu", backend=backend,
+                                       diag_every=5)
+    assert (cfg.solver, cfg.precond, cfg.dtype) == ("cg", "auto", "float32")
+    out = run(cfg, grid, forcing, st, 10, log=io.StringIO())
+    assert out.n == 10 and bool(np.isfinite(out.h.numpy()).all())
+    assert float(out.u.abs().max()) > 0
+    column = float(((out.h.sum(0) - grid.H) * grid.mask).abs().max())
+    assert column < 1e-3
 
 
 def test_fused_redblack_counts_one_launch_per_pass():
