@@ -9,13 +9,17 @@ package imports torch and numpy, never jax.
 Layout (module paths and names mirror beom_tpu's):
   core/      Config, Grid, Forcing, State; the C-grid operator algebra
   physics/   continuity, momentum, pressure, viscosity, drag, OBC, wet-dry
-  stepping/  the forward-backward and the rigid-lid / implicit-free-
-             surface projection steppers; make_stepper
-  solvers/   the elliptic solvers (CG, red-black SOR), single device
+  stepping/  the forward-backward, the split barotropic / baroclinic and
+             the rigid-lid / implicit-free-surface projection steppers;
+             make_stepper
+  solvers/   the elliptic solvers (CG, red-black SOR, multigrid), single
+             device
   stencils/  the kernels' wrappers beside their plain versions: the fused
-             fb step (K1), the projection phases (K3a, K3b), the blocked
-             red-black sweep (K4a), the fused Jacobi CG (K6)
-  cases/     the double gyre, the rigid-lid gyre
+             fb step (K1) and split step (K1s), the projection phases
+             (K3a, K3b), the red-black sweep and operator pass (K4a, K4b),
+             the coarse multigrid stack (K5), the fused CG (K6)
+  cases/     the double gyre, the two-layer gyre, the rigid-lid gyre, the
+             wetting-drying coast, the forced shelf
   diag/      energy/mass diagnostics, NaN guard
   io/        snapshots (the reference's npz layout), TOML + overrides
   run.py     the chunked run loop and CLI

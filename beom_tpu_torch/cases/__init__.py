@@ -2,32 +2,29 @@
 beom_tpu/cases/__init__.py.
 
 Each is a `make_case(**kw, device=...) -> (cfg, grid, forcing, state)`
-factory.  The double gyre and the rigid-lid gyre are ported so far.
+factory:
+
+  1. double_gyre      1-layer barotropic wind-driven double gyre
+  2. two_layer        2-layer baroclinic gyre (interfacial coupling)
+  3. rigid_lid        elliptic-solve pressure (projection stepping)
+  4. coastal_wetdry   irregular coast + wetting/drying slosh
+  5. shelf_forced     wind + tide forced 2-layer shelf with OBC / sponge
 """
 
-from beom_tpu_torch.cases import double_gyre, rigid_lid
+from beom_tpu_torch.cases import (coastal_wetdry, double_gyre, rigid_lid,
+                                  shelf_forced, two_layer)
 
 REGISTRY = {
     "double_gyre": double_gyre.make_case,
+    "two_layer": two_layer.make_case,
     "rigid_lid": rigid_lid.make_case,
-}
-
-# where each case that is not yet ported sits in ROADMAP.md's queue 1
-NOT_PORTED = {
-    "two_layer": "ROADMAP queue 1 item 9 (slice 3: the other fb-path cases)",
-    "coastal_wetdry":
-        "ROADMAP queue 1 item 9 (slice 3: the other fb-path cases)",
-    "shelf_forced":
-        "ROADMAP queue 1 item 9 (slice 3: the other fb-path cases)",
+    "coastal_wetdry": coastal_wetdry.make_case,
+    "shelf_forced": shelf_forced.make_case,
 }
 
 
 def make_case(name: str, **kw):
     """Look up a canonical case by name and build it."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"case {name!r} is not ported to beom_tpu_torch yet: "
-            f"{NOT_PORTED[name]}")
     try:
         factory = REGISTRY[name]
     except KeyError:

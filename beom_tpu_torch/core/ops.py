@@ -21,6 +21,7 @@ __all__ = [
     "sxp", "sxm", "syp", "sym",
     "d_xp", "d_xm", "d_yp", "d_ym",
     "a_xp", "a_xm", "a_yp", "a_ym",
+    "sum_k",
 ]
 
 _X, _Y = -1, -2
@@ -84,3 +85,16 @@ def a_yp(a):
 
 def a_ym(a):
     return 0.5 * (a + sym(a))
+
+
+# -- layer sum ------------------------------------------------------------
+
+def sum_k(a: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading (layer) axis, added layer by layer from the
+    surface down.  A reduction kernel picks its own order for nz > 2; the
+    written-out order is the same on every device, so the fused kernels
+    (csrc/fb_terms.cuh::sum_k) match it bit for bit at any nz."""
+    acc = a[0]
+    for k in range(1, a.shape[0]):
+        acc = acc + a[k]
+    return acc

@@ -1,0 +1,566 @@
+// Term code shared by the fused forward-backward step (fb_step.cu) and the
+// split step's kernels (split_step.cu): the operands of a step, the haloed
+// tile in shared memory, and one __device__ function for each term of
+// beom_tpu_torch/stepping/fb.py and the physics modules under it.
+//
+// A build is made for one combination of compile-time switches (-D flags,
+// set by stencils/fused_fb.py from the Config): the layer count, the term
+// switches and the tile.  A switch that is off costs no shared-memory
+// plane, no operand and no instruction.
+//
+// Arithmetic mirrors the eager port op for op, in its association, with the
+// scalars rounded from the host's doubles as PyTorch rounds a Python scalar
+// to the tensor's type, and --fmad=false at build time.  Each kernel is
+// then equal to its plain version on the card bit for bit.  Three rules of
+// PyTorch's own CUDA kernels are mirrored where they show:
+//   * clamp_min / clamp_max pass a NaN in the tensor on (vmax, vmin),
+//     torch.minimum passes a NaN on either side (tmin);
+//   * `tensor / python_scalar` multiplies by the reciprocal rounded in the
+//     tensor's type (rdx, rdy, 1 / nsub), and `python_scalar / tensor` is
+//     tensor.reciprocal() * scalar (Flather's sqrt(g / H));
+//   * a layer sum adds the layers in order from the surface (ops.sum_k).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#ifndef BEOM_NZ
+#define BEOM_NZ 1
+#endif
+#ifndef BEOM_WETDRY
+#define BEOM_WETDRY 0
+#endif
+#ifndef BEOM_OBC
+#define BEOM_OBC 0
+#endif
+#ifndef BEOM_SPONGE
+#define BEOM_SPONGE 0
+#endif
+#ifndef BEOM_NTIDE
+#define BEOM_NTIDE 0
+#endif
+#ifndef BEOM_NU4
+#define BEOM_NU4 0
+#endif
+#ifndef BEOM_CDBOT
+#define BEOM_CDBOT 0
+#endif
+#ifndef BEOM_RINT
+#define BEOM_RINT 0
+#endif
+#ifndef BEOM_NSUB
+#define BEOM_NSUB 8
+#endif
+#ifndef BEOM_SX
+#define BEOM_SX 64
+#endif
+#ifndef BEOM_SY
+#define BEOM_SY 32
+#endif
+#ifndef BEOM_TX
+#define BEOM_TX 32
+#endif
+#ifndef BEOM_TY
+#define BEOM_TY 16
+#endif
+
+namespace beom {
+
+constexpr int NZ = BEOM_NZ;
+constexpr bool WETDRY = BEOM_WETDRY;
+constexpr bool OBC = BEOM_OBC;
+constexpr bool SPONGE = BEOM_SPONGE;
+constexpr int NTIDE = BEOM_NTIDE;
+constexpr bool NU4 = BEOM_NU4;
+constexpr bool CDBOT = BEOM_CDBOT;
+constexpr bool RINT = BEOM_RINT && BEOM_NZ > 1;
+constexpr int TX = BEOM_TX;
+constexpr int TY = BEOM_TY;
+// the split step's subcycle: its substeps and its own tile
+constexpr int NSUB = BEOM_NSUB;
+constexpr int SX = BEOM_SX;
+constexpr int SY = BEOM_SY;
+constexpr int THREADS = 256;
+// first block index at which the continuity's h1 is valid: the limiter
+// reaches one cell further than the plain flux divergence
+constexpr int LO = WETDRY ? 2 : 1;
+
+// Operand slots of the C entry points; stencils/fused_fb.py fills them by
+// these names, in this order.
+enum Ptr {
+  I_H, I_U, I_V, I_HB, I_MASK, I_MASK_U, I_MASK_V, I_MASK_Q, I_FQ, I_TAUX,
+  I_TAUY, I_SPONGE, I_HEXT, I_OBC_U, I_OBC_V, I_OBC_H, I_TIDE_AMP,
+  I_TIDE_PHASE, N_PTR
+};
+enum Int { J_NY, J_NX, J_U_FIRST, J_SADOURNY, J_FREE_SLIP, J_VISC, J_WIND,
+           J_NSUB, N_INT };
+enum Dbl {
+  D_DT, D_DX, D_DY, D_G, D_NU2, D_NU4, D_RHO0, D_HMIN, D_HDRY, D_RBOT,
+  D_CDBOT, D_RINT, D_T1, D_GP0, D_OMEGA0 = D_GP0 + 8, N_DBL = D_OMEGA0 + 8
+};
+
+template <typename T>
+struct Params {
+  const T* in[N_PTR];
+  int ny, nx, u_first, sadourny, free_slip, visc, wind, nsub;
+  T dt, inv_dx, inv_dy, rdx, rdy, g, nu2, nu4, rho0, h_min, h_dry, thin,
+      r_bot, cd_bot, r_int, t1;
+  T gp[NZ];
+  T omega[NTIDE > 0 ? NTIDE : 1];
+  long plane;     // ny * nx
+};
+
+template <typename T>
+__host__ Params<T> make_params(const void* const* ptrs, const int* ints,
+                               const double* d) {
+  Params<T> p;
+  for (int i = 0; i < N_PTR; ++i) p.in[i] = static_cast<const T*>(ptrs[i]);
+  p.ny = ints[J_NY];
+  p.nx = ints[J_NX];
+  p.u_first = ints[J_U_FIRST];
+  p.sadourny = ints[J_SADOURNY];
+  p.free_slip = ints[J_FREE_SLIP];
+  p.visc = ints[J_VISC];
+  p.wind = ints[J_WIND];
+  p.nsub = ints[J_NSUB];
+  p.dt = T(d[D_DT]);
+  p.inv_dx = T(1.0 / d[D_DX]);
+  p.inv_dy = T(1.0 / d[D_DY]);
+  p.rdx = T(1) / T(d[D_DX]);
+  p.rdy = T(1) / T(d[D_DY]);
+  p.g = T(d[D_G]);
+  p.nu2 = T(d[D_NU2]);
+  p.nu4 = T(d[D_NU4]);
+  p.rho0 = T(d[D_RHO0]);
+  p.h_min = T(d[D_HMIN]);
+  p.h_dry = T(d[D_HDRY]);
+  p.thin = T(2.0 * d[D_HDRY]);
+  p.r_bot = T(d[D_RBOT]);
+  p.cd_bot = T(d[D_CDBOT]);
+  p.r_int = T(d[D_RINT]);
+  p.t1 = T(d[D_T1]);
+  for (int k = 0; k < NZ; ++k) p.gp[k] = T(d[D_GP0 + k]);
+  for (int c = 0; c < NTIDE; ++c) p.omega[c] = T(d[D_OMEGA0 + c]);
+  p.plane = long(p.ny) * p.nx;
+  return p;
+}
+
+__device__ __forceinline__ int wrap(int a, int n) {
+  a %= n;
+  return a < 0 ? a + n : a;
+}
+
+// torch.clamp_min(a, b) / clamp_max(a, b): a NaN in a propagates
+template <typename T>
+__device__ __forceinline__ T vmax(T a, T b) {
+  return (a > b || a != a) ? a : b;
+}
+template <typename T>
+__device__ __forceinline__ T vmin(T a, T b) {
+  return (a < b || a != a) ? a : b;
+}
+// torch.minimum(a, b): a NaN on either side propagates
+template <typename T>
+__device__ __forceinline__ T tmin(T a, T b) {
+  return (a != a) ? a : ((b != b) ? b : (a < b ? a : b));
+}
+__device__ __forceinline__ float tcos(float x) { return cosf(x); }
+__device__ __forceinline__ double tcos(double x) { return cos(x); }
+__device__ __forceinline__ float tsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double tsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float tabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double tabs(double x) { return fabs(x); }
+
+// loop over the region [lo, R - hi) of the block on both axes; RX, RY and
+// tid are in scope
+#define REGION_NS(lo, hi, ...)                                      \
+  {                                                                 \
+    constexpr int nx_ = RX - (lo) - (hi);                           \
+    constexpr int ny_ = RY - (lo) - (hi);                           \
+    for (int k_ = tid; k_ < nx_ * ny_; k_ += THREADS) {             \
+      const int s = ((lo) + k_ / nx_) * RX + (lo) + k_ % nx_;       \
+      __VA_ARGS__                                                   \
+    }                                                               \
+  }
+#define REGION(lo, hi, ...)       \
+  REGION_NS(lo, hi, __VA_ARGS__)  \
+  __syncthreads();
+
+// A haloed tile: shared-memory planes of NPT = RX * RY points, the layer k
+// of a field at + k * NPT, and the global offset of each point.
+template <typename T, int RX_, int NPT_>
+struct Tile {
+  static constexpr int RX = RX_;
+  static constexpr int NPT = NPT_;
+  const Params<T>& p;
+  const int* gidx;
+  const T *u, *v;            // (NZ planes) the velocities at time n
+  const T *mask, *mu, *mv, *mq;
+  const T* hn;               // (NZ planes) the thickness the terms see
+  const T *phi, *q;          // (NZ planes)
+  const T *lu, *lv;          // (NZ planes) lap(u), lap(v), with nu4
+  const T* ee;               // tidal elevation at t1, with obc
+
+  __device__ __forceinline__ T glob(int i, int s) const {
+    return p.in[i][gidx[s]];
+  }
+  __device__ __forceinline__ T glob(int i, int k, int s) const {
+    return p.in[i][k * p.plane + gidx[s]];
+  }
+
+  // viscosity.lap_u / lap_v of a plane w
+  __device__ __forceinline__ T lap_u(const T* w, int s) const {
+    const T gx1 = ((w[s + 1] - w[s]) * p.inv_dx) * mask[s + 1];
+    const T gx0 = ((w[s] - w[s - 1]) * p.inv_dx) * mask[s];
+    T gy0 = (w[s + RX] - w[s]) * p.inv_dy;
+    T gym = (w[s] - w[s - RX]) * p.inv_dy;
+    if (p.free_slip) {
+      gy0 = gy0 * mq[s];
+      gym = gym * mq[s - RX];
+    }
+    return ((gx1 - gx0) * p.inv_dx + (gy0 - gym) * p.inv_dy) * mu[s];
+  }
+  __device__ __forceinline__ T lap_v(const T* w, int s) const {
+    const T ey1 = ((w[s + RX] - w[s]) * p.inv_dy) * mask[s + RX];
+    const T ey0 = ((w[s] - w[s - RX]) * p.inv_dy) * mask[s];
+    T ex0 = (w[s + 1] - w[s]) * p.inv_dx;
+    T exm = (w[s] - w[s - 1]) * p.inv_dx;
+    if (p.free_slip) {
+      ex0 = ex0 * mq[s];
+      exm = exm * mq[s - 1];
+    }
+    return ((ey1 - ey0) * p.inv_dy + (ex0 - exm) * p.inv_dx) * mv[s];
+  }
+
+  __device__ __forceinline__ T hx(int k, int s) const {   // a_xp(hn)
+    return T(0.5) * (hn[k * NPT + s] + hn[k * NPT + s + 1]);
+  }
+  __device__ __forceinline__ T hy(int k, int s) const {   // a_yp(hn)
+    return T(0.5) * (hn[k * NPT + s] + hn[k * NPT + s + RX]);
+  }
+
+  // pressure.montgomery (+ momentum.kinetic_energy) and momentum.pv_corner
+  // of every layer at s, into the planes phi_out and q_out
+  __device__ __forceinline__ void phi_q(int s, bool free_surface, T* phi_out,
+                                        T* q_out) const {
+    const T half = T(0.5);
+    T z = T(0);
+    if (free_surface) {
+      T hs = hn[s];
+      for (int k = 1; k < NZ; ++k) hs = hs + hn[k * NPT + s];
+      z = hs - glob(I_HB, s);
+    }
+    T acc = p.gp[0] * z;
+    const T fq = glob(I_FQ, s);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      if (k > 0) {
+        z = z - hn[(k - 1) * NPT + s];
+        acc = acc + p.gp[k] * z;
+      }
+      const T* uk = u + k * NPT;
+      const T* vk = v + k * NPT;
+      T ph = acc;
+      if (p.sadourny) {
+        const T ke = half * (half * (uk[s] * uk[s] + uk[s - 1] * uk[s - 1]) +
+                             half * (vk[s] * vk[s] + vk[s - RX] * vk[s - RX]));
+        ph = ph + ke;
+        const T zeta = ((vk[s + 1] - vk[s]) * p.inv_dx -
+                        (uk[s + RX] - uk[s]) * p.inv_dy) * mq[s];
+        const T hq = vmax(half * (hy(k, s) + hy(k, s + 1)), p.h_min);
+        q_out[k * NPT + s] = (fq + zeta) / hq;
+      } else {
+        q_out[k * NPT + s] = fq;
+      }
+      phi_out[k * NPT + s] = ph;
+    }
+  }
+
+  // fb._common_tendencies at a u point of layer k
+  __device__ __forceinline__ T tend_u(int k, int s) const {
+    const T* uk = u + k * NPT;
+    T du = -((phi[k * NPT + s + 1] - phi[k * NPT + s]) * p.inv_dx);
+    if (p.visc || NU4) {
+      T dvis = T(0);
+      if (p.visc) dvis = p.nu2 * lap_u(uk, s);
+      if (NU4) dvis = dvis - p.nu4 * lap_u(lu + k * NPT, s);
+      du = du + dvis;
+    }
+    if (k == 0 && p.wind)
+      du = du + mu[s] * glob(I_TAUX, s) / (p.rho0 * vmax(hx(0, s), p.h_min));
+    if (RINT) {
+      T sh = T(0);
+      if (k > 0) sh = u[(k - 1) * NPT + s] - uk[s];
+      if (k < NZ - 1) {
+        const T below = u[(k + 1) * NPT + s] - uk[s];
+        sh = (k > 0) ? sh + below : below;
+      }
+      du = du + p.r_int * sh / vmax(hx(k, s), p.h_min);
+    }
+    if (SPONGE)
+      du = du + (-(T(0.5) * (glob(I_SPONGE, s) + glob(I_SPONGE, s + 1)))) *
+                    uk[s];
+    return du;
+  }
+  __device__ __forceinline__ T tend_v(int k, int s) const {
+    const T* vk = v + k * NPT;
+    T dv = -((phi[k * NPT + s + RX] - phi[k * NPT + s]) * p.inv_dy);
+    if (p.visc || NU4) {
+      T dvis = T(0);
+      if (p.visc) dvis = p.nu2 * lap_v(vk, s);
+      if (NU4) dvis = dvis - p.nu4 * lap_v(lv + k * NPT, s);
+      dv = dv + dvis;
+    }
+    if (k == 0 && p.wind)
+      dv = dv + mv[s] * glob(I_TAUY, s) / (p.rho0 * vmax(hy(0, s), p.h_min));
+    if (RINT) {
+      T sh = T(0);
+      if (k > 0) sh = v[(k - 1) * NPT + s] - vk[s];
+      if (k < NZ - 1) {
+        const T below = v[(k + 1) * NPT + s] - vk[s];
+        sh = (k > 0) ? sh + below : below;
+      }
+      dv = dv + p.r_int * sh / vmax(hy(k, s), p.h_min);
+    }
+    if (SPONGE)
+      dv = dv + (-(T(0.5) * (glob(I_SPONGE, s) + glob(I_SPONGE, s + RX)))) *
+                    vk[s];
+    return dv;
+  }
+
+  // the PV cross terms: a_ym(q a_xp(V)) at a u point from the plane w of
+  // v, and a_xm(q a_yp(U)) at a v point from the plane w of u
+  __device__ __forceinline__ T cor_u(int k, int s, const T* w) const {
+    const T half = T(0.5);
+    const T* qk = q + k * NPT;
+    const bool sad = p.sadourny;
+    const T V0 = sad ? hy(k, s) * w[s] : w[s];
+    const T V1 = sad ? hy(k, s + 1) * w[s + 1] : w[s + 1];
+    const T Vm0 = sad ? hy(k, s - RX) * w[s - RX] : w[s - RX];
+    const T Vm1 = sad ? hy(k, s - RX + 1) * w[s - RX + 1] : w[s - RX + 1];
+    return half * (qk[s] * (half * (V0 + V1)) +
+                   qk[s - RX] * (half * (Vm0 + Vm1)));
+  }
+  __device__ __forceinline__ T cor_v(int k, int s, const T* w) const {
+    const T half = T(0.5);
+    const T* qk = q + k * NPT;
+    const bool sad = p.sadourny;
+    const T U0 = sad ? hx(k, s) * w[s] : w[s];
+    const T U1 = sad ? hx(k, s + RX) * w[s + RX] : w[s + RX];
+    const T Um0 = sad ? hx(k, s - 1) * w[s - 1] : w[s - 1];
+    const T Um1 = sad ? hx(k, s - 1 + RX) * w[s - 1 + RX] : w[s - 1 + RX];
+    return half * (qk[s] * (half * (U0 + U1)) +
+                   qk[s - 1] * (half * (Um0 + Um1)));
+  }
+
+  // drag.bottom_drag_coeff of the bottom layer at a u / v point
+  __device__ __forceinline__ T drag_u(int s) const {
+    constexpr int kb = NZ - 1;
+    const T half = T(0.5);
+    const T hu = vmax(hx(kb, s), p.h_min);
+    if (!CDBOT) return p.r_bot / hu;
+    const T* ub = u + kb * NPT;
+    const T* vb = v + kb * NPT;
+    const T v4 = half * (half * (vb[s] + vb[s - RX]) +
+                         half * (vb[s + 1] + vb[s + 1 - RX]));
+    return (p.r_bot + p.cd_bot * tsqrt(ub[s] * ub[s] + v4 * v4)) / hu;
+  }
+  __device__ __forceinline__ T drag_v(int s) const {
+    constexpr int kb = NZ - 1;
+    const T half = T(0.5);
+    const T hv = vmax(hy(kb, s), p.h_min);
+    if (!CDBOT) return p.r_bot / hv;
+    const T* ub = u + kb * NPT;
+    const T* vb = v + kb * NPT;
+    const T u4 = half * (half * (ub[s] + ub[s - 1]) +
+                         half * (ub[s + RX] + ub[s + RX - 1]));
+    return (p.r_bot + p.cd_bot * tsqrt(vb[s] * vb[s] + u4 * u4)) / hv;
+  }
+};
+
+// continuity.mass_fluxes before the limiter, at one face
+template <typename T>
+__device__ __forceinline__ T face_flux(const Params<T>& p, T hc, T hp, T w,
+                                       T m) {
+  T hf = T(0.5) * (hc + hp);
+  if (WETDRY) {
+    const T up = (w > T(0)) ? hc : hp;
+    hf = (tmin(hc, hp) < p.thin) ? up : hf;
+    hf = vmax(hf, T(0));
+  }
+  return (m * hf) * w;
+}
+
+// wetdry.wet_mask at one cell and wetdry._gate at one face
+template <typename T>
+__device__ __forceinline__ T wet_of(const Params<T>& p, T h, T m) {
+  return ((h > p.h_dry) ? T(1) : T(0)) * m;
+}
+template <typename T>
+__device__ __forceinline__ T gate(T w, T wl, T wr, T fm) {
+  const T both = wl * wr;
+  const T only_l = wl * (T(1) - wr);
+  const T only_r = wr * (T(1) - wl);
+  return fm * ((both * w + only_l * vmax(w, T(0))) + only_r * vmin(w, T(0)));
+}
+
+// S0: the block's global offsets (periodic on both axes) and its planes
+// of h, u, v and the masks; returns after a __syncthreads()
+template <typename T, int RX, int RY, int W>
+__device__ __forceinline__ void load_offsets(const Params<T>& p, int* gidx) {
+  const int x0 = blockIdx.x * TX - W;
+  const int y0 = blockIdx.y * TY - W;
+  for (int s = threadIdx.x; s < RX * RY; s += THREADS)
+    gidx[s] = wrap(y0 + s / RX, p.ny) * p.nx + wrap(x0 + s % RX, p.nx);
+}
+
+// obc.eta_ext at t1 on the whole block (zeros without tides)
+template <typename T, int NPT>
+__device__ __forceinline__ void load_eta_ext(const Params<T>& p,
+                                             const int* gidx, T* ee) {
+  for (int s = threadIdx.x; s < NPT; s += THREADS) {
+    T e = T(0);
+    for (int c = 0; c < NTIDE; ++c) {
+      const long g = c * p.plane + gidx[s];
+      e = e + p.in[I_TIDE_AMP][g] *
+                  tcos(p.omega[c] * p.t1 - p.in[I_TIDE_PHASE][g]);
+    }
+    ee[s] = e;
+  }
+}
+
+// The layer continuity of every layer: h1 = (h + dt (-div F [+ sponge]))
+// mask [clamped to the exterior] on [LO, R - LO), from the planes h and the
+// advecting velocities ua, va.  fx, fy, sc are NZ scratch planes each, used
+// under wet/dry only.  `fb` adds the sponge and the exterior clamp of
+// fb.continuity_update.  Ends with a __syncthreads().
+template <typename T, int RX, int RY, typename TileT>
+__device__ __forceinline__ void continuity_stage(
+    const TileT& c, const T* h, const T* ua, const T* va, T* h1, T* fx, T* fy,
+    T* sc, bool fb) {
+  constexpr int NPT = RX * RY;
+  const Params<T>& p = c.p;
+  const int tid = threadIdx.x;
+  if (WETDRY) {
+    REGION(0, 1, {
+      for (int k = 0; k < NZ; ++k) {
+        const T* hk = h + k * NPT;
+        fx[k * NPT + s] =
+            face_flux(p, hk[s], hk[s + 1], ua[k * NPT + s], c.mu[s]);
+        fy[k * NPT + s] =
+            face_flux(p, hk[s], hk[s + RX], va[k * NPT + s], c.mv[s]);
+      }
+    })
+    REGION(1, 1, {
+      for (int k = 0; k < NZ; ++k) {
+        const T* f = fx + k * NPT;
+        const T* g = fy + k * NPT;
+        const T out =
+            (vmax(f[s], T(0)) + vmax(-f[s - 1], T(0))) * p.rdx +
+            (vmax(g[s], T(0)) + vmax(-g[s - RX], T(0))) * p.rdy;
+        const T avail = vmax(h[k * NPT + s] - p.h_min, T(0));
+        const T need = out * p.dt;
+        sc[k * NPT + s] =
+            (need > avail) ? avail / vmax(need, T(1e-30)) : T(1);
+      }
+    })
+  }
+  REGION(LO, LO, {
+    for (int k = 0; k < NZ; ++k) {
+      const T* hk = h + k * NPT;
+      T f0, fm, g0, gm;
+      if (WETDRY) {
+        const T* f = fx + k * NPT;
+        const T* g = fy + k * NPT;
+        const T* w = sc + k * NPT;
+        f0 = f[s] * ((f[s] > T(0)) ? w[s] : w[s + 1]);
+        fm = f[s - 1] * ((f[s - 1] > T(0)) ? w[s - 1] : w[s]);
+        g0 = g[s] * ((g[s] > T(0)) ? w[s] : w[s + RX]);
+        gm = g[s - RX] * ((g[s - RX] > T(0)) ? w[s - RX] : w[s]);
+      } else {
+        f0 = face_flux(p, hk[s], hk[s + 1], ua[k * NPT + s], c.mu[s]);
+        fm = face_flux(p, hk[s - 1], hk[s], ua[k * NPT + s - 1], c.mu[s - 1]);
+        g0 = face_flux(p, hk[s], hk[s + RX], va[k * NPT + s], c.mv[s]);
+        gm = face_flux(p, hk[s - RX], hk[s], va[k * NPT + s - RX],
+                       c.mv[s - RX]);
+      }
+      T dh = -((f0 - fm) * p.inv_dx + (g0 - gm) * p.inv_dy) * c.mask[s];
+      if (SPONGE && fb)
+        dh = dh + c.glob(I_SPONGE, s) * (c.glob(I_HEXT, k, s) - hk[s]);
+      T hv = (hk[s] + p.dt * dh) * c.mask[s];
+      if (OBC && fb) {
+        T tgt = c.glob(I_HEXT, k, s);
+        if (k == 0) tgt = tgt + c.ee[s];
+        hv = (c.glob(I_OBC_H, s) > T(0)) ? tgt : hv;
+      }
+      h1[k * NPT + s] = hv;
+    }
+  })
+}
+
+// fb.finalize at one point: the wet/dry gates and the Flather correction
+// of uo[], vo[] (every layer at s), given the new thickness planes h1
+// (valid at s, s + 1 and s + RX)
+template <typename T, int RX, int NPT, typename TileT>
+__device__ __forceinline__ void finalize_point(const TileT& c, const T* h1,
+                                               int s, T* uo, T* vo) {
+  const Params<T>& p = c.p;
+  const T half = T(0.5);
+  if (WETDRY) {
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      const T* hk = h1 + k * NPT;
+      const T wl = wet_of(p, hk[s], c.mask[s]);
+      const T wx = wet_of(p, hk[s + 1], c.mask[s + 1]);
+      const T wy = wet_of(p, hk[s + RX], c.mask[s + RX]);
+      uo[k] = gate(uo[k], wl, wx, c.mu[s]);
+      vo[k] = gate(vo[k], wl, wy, c.mv[s]);
+    }
+  }
+  if (OBC) {
+    T hs0 = h1[s], hsx = h1[s + 1], hsy = h1[s + RX];
+    T nu_ = T(0), du_ = T(0), nv_ = T(0), dv_ = T(0);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      const T* hk = h1 + k * NPT;
+      if (k > 0) {
+        hs0 = hs0 + hk[s];
+        hsx = hsx + hk[s + 1];
+        hsy = hsy + hk[s + RX];
+      }
+      const T hu = vmax(half * (hk[s] + hk[s + 1]), p.h_min);
+      const T hv = vmax(half * (hk[s] + hk[s + RX]), p.h_min);
+      nu_ = (k > 0) ? nu_ + hu * uo[k] : hu * uo[k];
+      du_ = (k > 0) ? du_ + hu : hu;
+      nv_ = (k > 0) ? nv_ + hv * vo[k] : hv * vo[k];
+      dv_ = (k > 0) ? dv_ + hv : hv;
+    }
+    const T ubar = nu_ / du_;
+    const T vbar = nv_ / dv_;
+    const T m0 = c.mask[s], mx = c.mask[s + 1], my = c.mask[s + RX];
+    const T e0 = (hs0 - c.glob(I_HB, s)) * m0;
+    const T ex = (hsx - c.glob(I_HB, s + 1)) * mx;
+    const T ey = (hsy - c.glob(I_HB, s + RX)) * my;
+    const T s0 = vmax(hs0, p.h_min);
+    const T Hu = vmax(half * (s0 + vmax(hsx, p.h_min)), p.h_min);
+    const T Hv = vmax(half * (s0 + vmax(hsy, p.h_min)), p.h_min);
+    // `cfg.g / Hu`: a Python scalar over a tensor is reciprocal() * scalar
+    const T cu = tsqrt((T(1) / Hu) * p.g);
+    const T cv = tsqrt((T(1) / Hv) * p.g);
+    const T eta_u = (half * (e0 + ex)) * T(2) / vmax(m0 + mx, T(1));
+    const T eta_v = (half * (e0 + ey)) * T(2) / vmax(m0 + my, T(1));
+    const T eext_u = half * (c.ee[s] + c.ee[s + 1]);
+    const T eext_v = half * (c.ee[s] + c.ee[s + RX]);
+    const T ou = c.glob(I_OBC_U, s);
+    const T ov = c.glob(I_OBC_V, s);
+    const T u_inc = tabs(ou) * ((ou * cu) * (eta_u - eext_u) - ubar);
+    const T v_inc = tabs(ov) * ((ov * cv) * (eta_v - eext_v) - vbar);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      uo[k] = uo[k] + u_inc;
+      vo[k] = vo[k] + v_inc;
+    }
+  }
+}
+
+}  // namespace beom

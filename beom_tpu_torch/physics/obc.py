@@ -1,5 +1,5 @@
 """Open boundaries: tides, Flather radiation, sponge nudging: the port's
-twin of beom_tpu/physics/obc.py (eager PyTorch only).
+twin of beom_tpu/physics/obc.py.
 
   * Tidal elevation eta_ext(t) = sum_c amp_c cos(w_c t - phi_c).
   * Flather radiation on flagged open faces sets the barotropic normal
@@ -47,15 +47,15 @@ def apply_flather(h, u, v, grid: Grid, forcing: Forcing, cfg: Config, t):
     """Post-step barotropic Flather correction on open faces."""
     if not cfg.obc:
         return u, v
-    eta = torch.sum(h, dim=0) - grid.H
+    eta = ops.sum_k(h) - grid.H
     e_ext = eta_ext(t, forcing, cfg, h.dtype)
-    hsum = torch.clamp_min(torch.sum(h, dim=0), cfg.h_min)
+    hsum = torch.clamp_min(ops.sum_k(h), cfg.h_min)
 
     # barotropic (thickness-weighted) velocities at faces
     hu = torch.clamp_min(ops.a_xp(h), cfg.h_min)
     hv = torch.clamp_min(ops.a_yp(h), cfg.h_min)
-    ubar = torch.sum(hu * u, dim=0) / torch.sum(hu, dim=0)
-    vbar = torch.sum(hv * v, dim=0) / torch.sum(hv, dim=0)
+    ubar = ops.sum_k(hu * u) / ops.sum_k(hu)
+    vbar = ops.sum_k(hv * v) / ops.sum_k(hv)
 
     Hu = torch.clamp_min(ops.a_xp(hsum), cfg.h_min)
     Hv = torch.clamp_min(ops.a_yp(hsum), cfg.h_min)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from beom_tpu_torch.core import ops
 from beom_tpu_torch.core.config import Config
 from beom_tpu_torch.core.grid import Grid
 
@@ -23,7 +24,7 @@ def montgomery(h: torch.Tensor, grid: Grid, cfg: Config,
     dropped (eta = 0) and only the internal interface terms remain.
     """
     if free_surface:
-        eta = torch.sum(h, dim=0) - grid.H
+        eta = ops.sum_k(h) - grid.H
     else:
         eta = torch.zeros(h.shape[1:], dtype=h.dtype, device=h.device)
     gp = cfg.gprime

@@ -1,5 +1,4 @@
-"""Wetting and drying masks: the port's twin of beom_tpu/physics/wetdry.py
-(eager PyTorch only).
+"""Wetting and drying masks: the port's twin of beom_tpu/physics/wetdry.py.
 
 A layer cell is wet when its thickness exceeds cfg.h_dry; land cells are
 never wet.  A velocity face between a wet and a dry cell only admits flow

@@ -4,8 +4,11 @@ Each source under `beom_tpu_torch/csrc/` is compiled on first use into a
 shared library with a plain C interface, in `build/kernels/` at the root
 of the checkout, named by the hash of the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source or header is rebuilt.
-Nothing is compiled when a module is imported, and a CUDA build with no
-nvcc raises.
+A source whose switches are compile-time is built once per combination:
+such a build is named by a spec `(name, defines)`, with `defines` a tuple
+of `KEY=value` strings passed as `-D` flags and spelled out in the
+library's file name.  Nothing is compiled when a module is imported, and a
+CUDA build with no nvcc raises.
 """
 
 from __future__ import annotations
@@ -44,52 +47,71 @@ def nvcc_path() -> str:
         "the CUDA kernels cannot be built")
 
 
-def _lib_path(name: str) -> Path:
+def _spec(item):
+    """(name, defines) of a build named by a bare source name or a spec."""
+    return (item, ()) if isinstance(item, str) else (item[0], tuple(item[1]))
+
+
+def label(item) -> str:
+    """The key of a build in BUILD_LOG: its name, then its defines."""
+    name, defines = _spec(item)
+    return name if not defines else f"{name}[{' '.join(defines)}]"
+
+
+def _lib_path(item) -> Path:
+    name, defines = _spec(item)
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + defines).encode())
     key = h.hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    tag = "".join("-" + d.removeprefix("BEOM_").replace("=", "").lower()
+                  for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}-{key}.so"
 
 
-def build_all(names) -> None:
-    """Compile every csrc/<name>.cu not yet cached, one nvcc each, all
-    running at once; raise if any fails."""
-    todo = [n for n in names if not _lib_path(n).is_file()]
+def build_all(items) -> None:
+    """Compile every build in `items` (source names or specs) not yet
+    cached, one nvcc each, all running at once; raise if any fails."""
+    todo = [i for i in dict.fromkeys(map(_spec, items))
+            if not _lib_path(i).is_file()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     t0 = time.perf_counter()
     jobs = []
-    for name in todo:
-        tmp = _lib_path(name).with_suffix(f".{os.getpid()}.tmp")
-        jobs.append((name, tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+    for item in todo:
+        name, defines = item
+        tmp = _lib_path(item).with_suffix(f".{os.getpid()}.tmp")
+        jobs.append((item, tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+             str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
-    for name, tmp, proc in jobs:
+    for item, tmp, proc in jobs:
         out, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"nvcc failed on csrc/{name}.cu (exit "
+            failed.append(f"nvcc failed on {label(item)} (exit "
                           f"{proc.returncode}):\n{out}")
             continue
-        os.replace(tmp, _lib_path(name))
-        BUILD_LOG[name] = (time.perf_counter() - t0, out)
+        os.replace(tmp, _lib_path(item))
+        BUILD_LOG[label(item)] = (time.perf_counter() - t0, out)
     if failed:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The library built from csrc/<name>.cu, built if not yet cached."""
-    if name in _LOADED:
-        return _LOADED[name]
-    build_all([name])
-    lib = ctypes.CDLL(str(_lib_path(name)))
+def load(item) -> ctypes.CDLL:
+    """The library of a build (a source name or a spec), built if not yet
+    cached."""
+    item = _spec(item)
+    if item in _LOADED:
+        return _LOADED[item]
+    build_all([item])
+    lib = ctypes.CDLL(str(_lib_path(item)))
     lib.beom_cuda_error_string.argtypes = [ctypes.c_int]
     lib.beom_cuda_error_string.restype = ctypes.c_char_p
-    _LOADED[name] = lib
+    _LOADED[item] = lib
     return lib
 
 

@@ -1,137 +1,391 @@
-"""The fused forward-backward step (K1) and its plain PyTorch version.
+"""The fused forward-backward step (K1), the fused split step (K1s) and
+their plain PyTorch versions.
 
-The CUDA kernel `csrc/fb_step.cu` replaces the TPU kernel
-beom_tpu/stencils/band.py::_band_kernel running the body of
-beom_tpu/stencils/fused_fb.py::make_pallas_stepper.  One launch advances
-one fb_step of (h, u, v); a pass of k = cfg.steps_per_pass steps is k
-launches, each with its own FB-Coriolis sweep order (n + i) % 2.
+The CUDA kernels replace the TPU kernel beom_tpu/stencils/band.py::
+_band_kernel running the bodies of beom_tpu/stencils/fused_fb.py::
+make_pallas_stepper: `csrc/fb_step.cu` its fb body, `csrc/split_step.cu`
+its split body.  Both take every case: any layer count and every term of
+the eager step (wet/dry, open boundary, sponge, tides, nu4, quadratic
+bottom drag, interfacial drag), sharing the term code of
+`csrc/fb_terms.cuh`.
 
-It is bounded by device-memory bytes: a stencil of ~150 flops per point
-against 14 fields moved, far below the H100's ratio of operations to
-bytes.  The design keeps every intermediate of the step in shared memory:
-one CTA per 2-D tile, loaded with a periodic halo on both axes that
-covers the step's dependence cone, so a point costs one read of each
-operand and one write of each result.  Masks and f_q are streamed as
-operands.
+  * scheme='fb': one launch of K1 advances one fb_step of (h, u, v).
+  * scheme='split': three launches advance one split_step: the slow phase
+    (tendencies, depth means), the barotropic subcycle (nsub substeps of
+    three 2-D fields inside shared memory) and the recomposition with the
+    continuity, the column rescale and fb.finalize.  `csrc/split_step.cu`
+    says why three and not one.
 
-`fused_fb_step` runs the kernel on CUDA tensors and the plain version,
+A pass of k = cfg.steps_per_pass steps is k such steps, each with its own
+FB-Coriolis sweep order (n + i) % 2 and its own time for the tides.
+
+All are bounded by device-memory bytes.  The layer count, the term
+switches and the tile are compile-time: a configuration's kernels are
+built at its first step, one library per combination, and a switch that
+is off costs neither shared memory nor an operand.  The tile is the
+largest of `_TILES` whose shared-memory planes fit a CTA (for the
+subcycle, whose halo is nsub, of `_SUB_TILES`; nsub is compile-time too);
+a configuration whose smallest tile does not fit raises with the byte
+count.
+
+`fused_fb_step` runs the kernels on CUDA tensors and the plain version,
 `fused_fb_step_plain`, on CPU tensors.  It never falls back from one to
-the other: on a CUDA tensor it launches the kernel or raises.
+the other: on a CUDA tensor it launches the kernels or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from beom_tpu_torch.core.config import Config
 from beom_tpu_torch.core.grid import Grid, Forcing
 from beom_tpu_torch.core.state import State, advance_time
+from beom_tpu_torch.physics import drag
 from beom_tpu_torch.stepping import fb as fb_mod
+from beom_tpu_torch.stepping import split as split_mod
+from beom_tpu_torch.stepping.split import SlowPhase
 
-# kernel launches made by fused_fb_step; a run reads it to show that its
-# main path went through the kernel
+# kernel launches: K1's by fused_fb_step, and those of the split step's
+# three kernels; a run reads them to show that its main path went through
+# the kernels
 LAUNCHES = 0
+SPLIT_LAUNCHES = {"slow": 0, "subcycle": 0, "recompose": 0}
 
-_ENTRY = {torch.float32: "beom_fb_step_f32", torch.float64: "beom_fb_step_f64"}
-_STATIC_NAMES = ("H", "mask", "mask_u", "mask_v", "mask_q", "f_q")
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+# operand slots, in the order of csrc/fb_terms.cuh's enums Ptr, Int and Dbl
+_GRID_NAMES = ("H", "mask", "mask_u", "mask_v", "mask_q", "f_q")
+_FORCING_NAMES = ("taux", "tauy", "sponge", "h_ext", "obc_u", "obc_v",
+                  "obc_h", "tide_amp", "tide_phase")
+_MAX_LAYERS = 8          # slots of gprime and of the tidal frequencies
+_MAX_SMEM = 232448       # bytes of shared memory a CTA can use on sm_90
+_TILES = ((32, 16), (32, 8), (16, 8), (8, 8))
+_SUB_TILES = ((64, 32), (32, 32), (32, 16), (16, 16), (16, 8))
+# the kernels of each source, in the order of its beom_smem_bytes
+_TILED = {"fb_step": ("fb_step",),
+          "split_step": ("split_slow", "split_recompose", "split_subcycle")}
+_P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def check_config(cfg: Config) -> None:
-    """Raise NotImplementedError on any term the kernel lacks."""
-    unsupported = [name for name, on in (
-        ("wetdry", cfg.wetdry), ("obc", cfg.obc), ("sponge", cfg.sponge),
-        ("tides", bool(cfg.tides)), ("nu4", cfg.nu4 != 0.0),
-        ("cd_bot", cfg.cd_bot != 0.0), ("r_int", cfg.r_int != 0.0),
-        ("nz > 1", cfg.nz != 1), ("scheme != 'fb'", cfg.scheme != "fb"),
-    ) if on]
-    if unsupported:
+    """Raise on what the kernels cannot run: a scheme other than fb or
+    split, or more layers or tidal constituents than their operand slots.
+    Every term of the eager step is implemented."""
+    if cfg.scheme not in ("fb", "split"):
         raise NotImplementedError(
-            "the fused fb kernel does not implement: "
-            + ", ".join(unsupported))
+            f"the fused step implements scheme='fb' and 'split', not "
+            f"{cfg.scheme!r}: the projection schemes run through "
+            "stencils/fused_projection.py")
+    if cfg.nz > _MAX_LAYERS or len(cfg.tides) > _MAX_LAYERS:
+        raise NotImplementedError(
+            f"the fused step takes at most {_MAX_LAYERS} layers and tidal "
+            f"constituents (nz = {cfg.nz}, {len(cfg.tides)} constituents)")
+
+
+def smem_bytes(cfg: Config, tile, sub_tile, elem: int) -> dict:
+    """Dynamic shared memory of one CTA of each kernel at `tile` = (tx, ty)
+    (`sub_tile` for the subcycle, whose halo is nsub) and `elem` bytes per
+    value: the planes of csrc/fb_step.cu and csrc/split_step.cu times the
+    haloed tile, plus the table of offsets where the kernel has one."""
+    nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
+    lo = 2 if wd else 1
+
+    def block(t, w, planes, offsets=4):
+        npt = (t[0] + 2 * w) * (t[1] + 2 * w)
+        return npt * (planes * elem + offsets)
+
+    return {
+        "fb_step": block(tile, lo + 3, 7 * nz + 4 + 2 * nz * nu4 + obc),
+        "split_slow": block(tile, 2, 5 * nz + 4 + 2 * nz * nu4),
+        "split_recompose": block(tile, lo + 1,
+                                 4 * nz + 3 + 3 * nz * wd + obc),
+        "split_subcycle": block(sub_tile, cfg.nsub, 10, offsets=0),
+    }
+
+
+def _pick(tiles, need, what):
+    """The first of `tiles` whose need(tile) bytes fit a CTA."""
+    for tile in tiles:
+        if need(tile) <= _MAX_SMEM:
+            return tile
+    raise NotImplementedError(
+        f"{what} needs {need(tiles[-1])} bytes of shared memory at its "
+        f"smallest tile {tiles[-1]}, above the {_MAX_SMEM} a CTA can use")
+
+
+def build_spec(cfg: Config, dtype=None):
+    """(source, defines) of the build that runs cfg: fb_step.cu or
+    split_step.cu with the compile-time switches and the tile."""
+    check_config(cfg)
+    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
+    name = "fb_step" if cfg.scheme == "fb" else "split_step"
+    tiled = [k for k in _TILED[name] if k != "split_subcycle"]
+    what = f"the fused {cfg.scheme} step of nz = {cfg.nz} layers"
+    tile = _pick(_TILES, lambda t: max(
+        smem_bytes(cfg, t, t, elem)[k] for k in tiled), what)
+    defines = (f"BEOM_NZ={cfg.nz}", f"BEOM_WETDRY={int(cfg.wetdry)}",
+               f"BEOM_OBC={int(cfg.obc)}", f"BEOM_SPONGE={int(cfg.sponge)}",
+               f"BEOM_NTIDE={len(cfg.tides) if cfg.obc else 0}",
+               f"BEOM_NU4={int(cfg.nu4 != 0.0)}",
+               f"BEOM_CDBOT={int(cfg.cd_bot != 0.0)}",
+               f"BEOM_RINT={int(cfg.r_int != 0.0 and cfg.nz > 1)}",
+               f"BEOM_TX={tile[0]}", f"BEOM_TY={tile[1]}")
+    if name == "split_step":
+        sub = _pick(_SUB_TILES, lambda t: smem_bytes(
+            cfg, tile, t, elem)["split_subcycle"],
+            f"the subcycle of nsub = {cfg.nsub} substeps")
+        defines += (f"BEOM_NSUB={cfg.nsub}", f"BEOM_SX={sub[0]}",
+                    f"BEOM_SY={sub[1]}")
+    return name, defines
 
 
 def fused_fb_step_plain(h, u, v, statics, n: int, t, cfg: Config, k: int):
-    """k eager fb_steps: the plain PyTorch version of the kernel.
+    """k eager steps of cfg.scheme (fb_step or split_step): the plain
+    PyTorch version of the kernels.
 
     statics = (grid, forcing).  Returns (h, u, v) after k steps.
     """
     grid, forcing = statics
+    step = split_mod.split_step if cfg.scheme == "split" else fb_mod.fb_step
     s = State(h=h, u=u, v=v, t=t, n=n)
     for _ in range(k):
-        s = fb_mod.fb_step(s, grid, forcing, cfg)
+        s = step(s, grid, forcing, cfg)
     return s.h, s.u, s.v
 
 
-def _kernel_args(statics):
+def _operands(statics):
     grid, forcing = statics
-    return [getattr(grid, name) for name in _STATIC_NAMES] + [
-        forcing.taux, forcing.tauy]
+    return ([getattr(grid, name) for name in _GRID_NAMES]
+            + [getattr(forcing, name) for name in _FORCING_NAMES])
 
 
-def _entry(dtype):
-    """The kernel's C entry point for `dtype`, built on first use."""
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _array(ctype, values):
+    return (ctype * len(values))(*values)
+
+
+def _pointers(tensors):
+    return _array(_P, [a.data_ptr() for a in tensors])
+
+
+@functools.lru_cache(maxsize=None)
+def _entries(cfg: Config, dtype):
+    """The library that runs cfg and its entry points by kernel name,
+    built on first use."""
     from beom_tpu_torch.stencils import build
 
-    lib = build.load("fb_step")
-    fn = getattr(lib, _ENTRY[dtype])
-    P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [P] * 14 + [I] * 7 + [D] * 8 + [P]
-    fn.restype = I
-    return lib, fn
+    name, defines = build_spec(cfg, dtype)
+    lib = build.load((name, defines))
+    value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
+    elem = torch.empty((), dtype=dtype).element_size()
+    want = smem_bytes(cfg, (value["BEOM_TX"], value["BEOM_TY"]),
+                      (value.get("BEOM_SX", 0), value.get("BEOM_SY", 0)),
+                      elem)
+    for i, kernel in enumerate(_TILED[name]):
+        have = lib.beom_smem_bytes(i, int(elem == 8))
+        if have != want[kernel]:
+            raise RuntimeError(
+                f"{kernel}: the kernel's shared memory ({have} bytes) is "
+                f"not what smem_bytes counts ({want[kernel]})")
+
+    # every argument is a pointer: the operand tables, the outputs, the
+    # stream
+    n_args = {"fb_step": 7, "split_slow": 5, "split_subcycle": 6,
+              "split_recompose": 9}
+    entries = {}
+    for kernel in _TILED[name]:
+        fn = getattr(lib, f"beom_{kernel}_{_SUFFIX[dtype]}")
+        fn.argtypes = [_P] * n_args[kernel]
+        fn.restype = _I
+        entries[kernel] = fn
+    return lib, entries
 
 
-def _launch(h, u, v, statics, parity: int, cfg: Config):
+def _scalars(cfg: Config, parity: int, t1):
+    """The int and double operand slots (csrc/fb_terms.cuh: Int, Dbl)."""
+    pad = [0.0] * _MAX_LAYERS
+    ints = [cfg.ny, cfg.nx, int(parity == 0),
+            int(cfg.adv_scheme == "sadourny_energy"),
+            int(cfg.slip == "free"), int(cfg.nu2 != 0.0), int(cfg.wind),
+            cfg.nsub]
+    dbls = [cfg.dt, cfg.dx, cfg.dy, cfg.g, cfg.nu2, cfg.nu4, cfg.rho0,
+            cfg.h_min, cfg.h_dry, cfg.r_bot, cfg.cd_bot, cfg.r_int,
+            float(t1)]
+    dbls += (list(cfg.gprime) + pad)[:_MAX_LAYERS]
+    dbls += (list(cfg.tides) + pad)[:_MAX_LAYERS]
+    return _array(_I, ints), _array(ctypes.c_double, dbls)
+
+
+def _check_operands(h, u, v, statics, cfg: Config):
+    if h.device.type != "cuda":
+        raise NotImplementedError(
+            f"the fused step runs on cuda or cpu, not {h.device.type}")
+    check_config(cfg)
+    if h.dtype not in _SUFFIX or h.dtype != cfg.tdtype:
+        raise ValueError(f"fused step: dtype {h.dtype} with cfg.dtype "
+                         f"{cfg.dtype}")
+    nc = max(len(cfg.tides), 1)
+    lead = {"h_ext": (cfg.nz,), "tide_amp": (nc,), "tide_phase": (nc,)}
+    names = ("h", "u", "v") + _GRID_NAMES + _FORCING_NAMES
+    for name, a in zip(names, [h, u, v] + _operands(statics)):
+        shape = lead.get(name, (cfg.nz,) if name in ("h", "u", "v") else ()) \
+            + (cfg.ny, cfg.nx)
+        if a.device != h.device or a.dtype != h.dtype \
+                or not a.is_contiguous() or tuple(a.shape) != shape:
+            raise ValueError(
+                f"fused step: {name} must be a contiguous {h.dtype} tensor "
+                f"of {shape} on {h.device}, not {a.dtype} "
+                f"{tuple(a.shape)} on {a.device}")
+
+
+def _launch_fb(h, u, v, statics, parity: int, t1, cfg: Config):
     global LAUNCHES
     from beom_tpu_torch.stencils import build
 
-    lib, fn = _entry(h.dtype)
+    lib, entry = _entries(cfg, h.dtype)
     outs = [torch.empty_like(h) for _ in range(3)]
-    ins = [h, u, v] + _kernel_args(statics)
-    code = fn(*[a.data_ptr() for a in ins + outs], cfg.ny, cfg.nx,
-              int(parity == 0), int(cfg.adv_scheme == "sadourny_energy"),
-              int(cfg.slip == "free"), int(cfg.nu2 != 0.0), int(cfg.wind),
-              cfg.dt, 1.0 / cfg.dx, 1.0 / cfg.dy, cfg.gprime[0], cfg.nu2,
-              cfg.rho0, cfg.h_min, cfg.r_bot,
-              torch.cuda.current_stream(h.device).cuda_stream)
+    ints, dbls = _scalars(cfg, parity, t1)
+    code = entry["fb_step"](
+        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        *[a.data_ptr() for a in outs], _stream(h.device))
     build.check(lib, code, "fb_step kernel launch")
     LAUNCHES += 1
     return outs
 
 
-def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int):
-    """Advance (h, u, v) by k fb steps from step n at time t.
+def _launch_slow(h, u, v, statics, cfg: Config):
+    """The slow phase: SlowPhase's 13 fields in its order, cu and cv as
+    the bottom layer's (ny, nx) plane."""
+    from beom_tpu_torch.stencils import build
 
-    CPU tensors take the plain version.  CUDA tensors take the kernel,
-    one launch per step; a config the kernel cannot run raises.
+    lib, entry = _entries(cfg, h.dtype)
+    plane = h[0]
+    outs = [torch.empty_like(h) for _ in range(4)] \
+        + [torch.empty_like(plane) for _ in range(9)]
+    ints, dbls = _scalars(cfg, 0, 0.0)
+    code = entry["split_slow"](
+        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _pointers(outs), _stream(h.device))
+    build.check(lib, code, "split_slow kernel launch")
+    SPLIT_LAUNCHES["slow"] += 1
+    return outs
+
+
+def _launch_subcycle(slow, h, u, v, statics, cfg: Config):
+    """(eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg) from _launch_slow's
+    fields."""
+    from beom_tpu_torch.stencils import build
+
+    lib, entry = _entries(cfg, h.dtype)
+    outs = [torch.empty_like(slow[-1]) for _ in range(5)]
+    ints, dbls = _scalars(cfg, 0, 0.0)
+    code = entry["split_subcycle"](
+        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _pointers(slow), _pointers(outs), _stream(h.device))
+    build.check(lib, code, "split_subcycle kernel launch")
+    SPLIT_LAUNCHES["subcycle"] += 1
+    return outs
+
+
+def _launch_recompose(slow, sub, h, u, v, statics, t1, cfg: Config):
+    from beom_tpu_torch.stencils import build
+
+    lib, entry = _entries(cfg, h.dtype)
+    outs = [torch.empty_like(h) for _ in range(3)]
+    ints, dbls = _scalars(cfg, 0, t1)
+    code = entry["split_recompose"](
+        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _pointers(slow), _pointers(sub), *[a.data_ptr() for a in outs],
+        _stream(h.device))
+    build.check(lib, code, "split_recompose kernel launch")
+    SPLIT_LAUNCHES["recompose"] += 1
+    return outs
+
+
+def _slow_fields(sp: SlowPhase, cfg: Config):
+    """SlowPhase as the kernels pass it: cu, cv as the bottom plane."""
+    return [a.contiguous() for a in sp[:11]] + [
+        sp.cu[cfg.nz - 1].contiguous(), sp.cv[cfg.nz - 1].contiguous()]
+
+
+def split_slow(h, u, v, statics, cfg: Config) -> SlowPhase:
+    """split.slow_phase: the kernel on CUDA tensors, the eager function on
+    CPU tensors."""
+    grid, forcing = statics
+    if h.device.type == "cpu":
+        return split_mod.slow_phase(State(h=h, u=u, v=v, t=0.0, n=0), grid,
+                                    forcing, cfg)
+    _check_operands(h, u, v, statics, cfg)
+    with torch.cuda.device(h.device):
+        f = _launch_slow(h, u, v, statics, cfg)
+    kb = cfg.nz - 1
+    return SlowPhase(*f[:11], cu=drag._on_layer(f[11], kb, cfg.nz),
+                     cv=drag._on_layer(f[12], kb, cfg.nz))
+
+
+def split_subcycle(sp: SlowPhase, h, u, v, statics, cfg: Config):
+    """split.subcycle_phase: (eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg)."""
+    grid, _ = statics
+    if h.device.type == "cpu":
+        return split_mod.subcycle_phase(sp, grid, cfg)
+    _check_operands(h, u, v, statics, cfg)
+    with torch.cuda.device(h.device):
+        return tuple(_launch_subcycle(_slow_fields(sp, cfg), h, u, v,
+                                      statics, cfg))
+
+
+def split_recompose(sp: SlowPhase, sub, h, u, v, statics, t, cfg: Config):
+    """split.recompose followed by fb.finalize: (h1, u1, v1) at t + dt."""
+    grid, forcing = statics
+    if h.device.type == "cpu":
+        h1, u1, v1 = split_mod.recompose(sp, *sub, h, grid, cfg)
+        s = fb_mod.finalize(h1, u1, v1, State(h=h, u=u, v=v, t=t, n=0),
+                            grid, forcing, cfg)
+        return s.h, s.u, s.v
+    _check_operands(h, u, v, statics, cfg)
+    t1 = advance_time(t, cfg.dt, cfg.npdtype)
+    with torch.cuda.device(h.device):
+        return tuple(_launch_recompose(
+            _slow_fields(sp, cfg), [a.contiguous() for a in sub], h, u, v,
+            statics, t1, cfg))
+
+
+def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int):
+    """Advance (h, u, v) by k steps of cfg.scheme ('fb' or 'split') from
+    step n at time t.
+
+    CPU tensors take the plain version.  CUDA tensors take the kernels:
+    one launch per fb step, three per split step; a configuration the
+    kernels cannot run raises.
     """
     if h.device.type == "cpu":
         return fused_fb_step_plain(h, u, v, statics, n, t, cfg, k)
-    if h.device.type != "cuda":
-        raise NotImplementedError(
-            f"the fused fb step runs on cuda or cpu, not {h.device.type}")
-    check_config(cfg)
-    for a in [h, u, v] + _kernel_args(statics):
-        if a.device != h.device or a.dtype != h.dtype \
-                or not a.is_contiguous() or a.shape[-2:] != (cfg.ny, cfg.nx):
-            raise ValueError(
-                "fused fb step: every operand must be a contiguous "
-                f"{h.dtype} tensor of (.., {cfg.ny}, {cfg.nx}) on {h.device}")
-    if h.dtype not in _ENTRY or h.dtype != cfg.tdtype:
-        raise ValueError(f"fused fb step: dtype {h.dtype} with cfg.dtype "
-                         f"{cfg.dtype}")
+    _check_operands(h, u, v, statics, cfg)
     with torch.cuda.device(h.device):
         for i in range(k):
-            h, u, v = _launch(h, u, v, statics, (n + i) % 2, cfg)
+            t1 = advance_time(t, cfg.dt, cfg.npdtype)
+            if cfg.scheme == "fb":
+                h, u, v = _launch_fb(h, u, v, statics, (n + i) % 2, t1, cfg)
+            else:
+                slow = _launch_slow(h, u, v, statics, cfg)
+                sub = _launch_subcycle(slow, h, u, v, statics, cfg)
+                h, u, v = _launch_recompose(slow, sub, h, u, v, statics, t1,
+                                            cfg)
+            t = t1
     return h, u, v
 
 
 def make_fused_stepper(grid: Grid, forcing: Forcing, cfg: Config):
-    """step(state) -> state advancing cfg.steps_per_pass steps in one
-    call of the fused step."""
+    """step(state) -> state advancing cfg.steps_per_pass steps of fb or
+    split in one call of the fused step."""
     k = cfg.steps_per_pass
     statics = (grid, forcing)
+    check_config(cfg)
 
     def step(state: State) -> State:
         h, u, v = fused_fb_step(state.h, state.u, state.v, statics,

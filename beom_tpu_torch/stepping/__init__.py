@@ -1,8 +1,8 @@
 """Time-stepping schemes: the port's twin of beom_tpu/stepping/__init__.py.
 
 `get_step(cfg)` dispatches cfg.scheme to a step function
-step(state, grid, forcing, cfg) -> state.  'fb', 'rigid_lid' and
-'implicit_fs' are ported; 'split' is not yet.
+step(state, grid, forcing, cfg) -> state for 'fb', 'split', 'rigid_lid'
+and 'implicit_fs'.
 """
 
 from __future__ import annotations
@@ -11,17 +11,7 @@ import torch
 
 from beom_tpu_torch.core.config import Config
 
-# where each scheme that is not yet ported sits in ROADMAP.md's queue 1
-_NOT_PORTED = {
-    "split": "ROADMAP queue 1 item 10 (slice 4: stepping/split.py)",
-}
 _PROJECTION = ("rigid_lid", "implicit_fs")
-
-
-def _not_ported(cfg: Config):
-    return NotImplementedError(
-        f"scheme={cfg.scheme!r} is not ported to beom_tpu_torch yet: "
-        f"{_NOT_PORTED[cfg.scheme]}")
 
 
 def prepare_state(state, cfg: Config):
@@ -42,8 +32,9 @@ def get_step(cfg: Config):
     if cfg.scheme in _PROJECTION:
         from beom_tpu_torch.stepping import projection
         return getattr(projection, f"{cfg.scheme}_step")
-    if cfg.scheme in _NOT_PORTED:
-        raise _not_ported(cfg)
+    if cfg.scheme == "split":
+        from beom_tpu_torch.stepping.split import split_step
+        return split_step
     raise ValueError(f"unknown scheme {cfg.scheme!r}")
 
 
@@ -51,7 +42,7 @@ def make_stepper(grid, forcing, cfg: Config):
     """step(state) -> state advancing cfg.steps_per_pass model steps.
 
     backend='fused' runs the hand-written kernels (their plain PyTorch
-    versions on CPU tensors): fb through the fused step of
+    versions on CPU tensors): fb and split through the fused steps of
     stencils/fused_fb.py, rigid_lid / implicit_fs through the phase
     kernels and the solver kernels of stencils/fused_projection.py.
     backend='eager' runs the step op by op.

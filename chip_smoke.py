@@ -57,8 +57,28 @@ Phases, each of which raises on failure (exit code != 0):
      solver='mg' solve (per cycle) beside their plain versions, (c) and
      (d) in ms/step through run(), and the grid syncs per cycle
 
-The line before the last is the kernels' JSON record; the last is
-{"ok": true, "device": {...}}.  It imports no jax.
+ 14. build lines of the fb and split builds of the other cases (fb_step.cu
+     and split_step.cu, one library per combination of compile-time
+     switches, all built in phase 2 beside the others)
+ 15. K1 on two_layer, coastal_wetdry and shelf_forced (both sweep parities,
+     steps_per_pass 1 and 4) and K1s, as its three kernels and as the
+     chained step, on double_gyre and two_layer (nsub 4 and 8) against
+     their plain versions at 200x136 f64 (<= 1e-12 x scale) and 2048^2 f32
+     (<= 4 ulp of scale), from a perturbed state with dry cells and the
+     open boundary inside the compared region
+ 16. the other paths at full width: run() with backend='fused' at 2048^2
+     f32, diagnostics on: two_layer fb; double_gyre split with nsub 4, 8
+     and 12; two_layer split nsub 8; coastal_wetdry and shelf_forced fb:
+     the launch counts, finite diagnostics, the mass drift of the closed
+     basins, h >= 0 under wet/dry, 3 fused steps against 3 eager ones
+ 17. times at 2048^2 f32: K1 per case and K1s's three kernels beside their
+     plain versions, the split step at nsub 4, 8, 12, and the device's
+     busy share under torch.profiler for two_layer fb and split nsub 8
+
+The line before the last is the kernels' JSON record, each kernel with its
+time, its plain version's, and the least time the card could take for the
+same work (`bound`); the last is {"ok": true, "device": {...}}.  It
+imports no jax.
 """
 
 from __future__ import annotations
@@ -74,6 +94,24 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BIG = 2048
 KERNELS = ("fb_step", "projection", "rb_sweep", "cg_fused", "mg_coarse")
+# the H100 SXM data sheet: device memory, and float32 outside the tensor
+# cores; a kernel's bound is the larger of its bytes and its operations
+# over these
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# the paths of phase 16: (case, Config overrides, steps)
+PATHS = (
+    ("two_layer", {}, 40),
+    ("double_gyre", dict(scheme="split", nsub=4), 20),
+    ("double_gyre", dict(scheme="split", nsub=8), 20),
+    ("double_gyre", dict(scheme="split", nsub=12), 20),
+    ("two_layer", dict(scheme="split", nsub=8), 20),
+    ("coastal_wetdry", {}, 20),
+    ("shelf_forced", {}, 20),
+)
+# the (case, nsub) pairs phase 15 holds K1s against its plain version on
+AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
+               ("two_layer", 8))
 # (b)'s sweep budget: a multiple of the 8 sweeps per K4a pass, so that
 # the fused solve's passes do the eager solve's sweeps when neither
 # converges early
@@ -82,6 +120,36 @@ RB_MAXITER = 480
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def kernel_entry(name, src, site, launches, err, ms, n_bytes, n_ops):
+    """One kernel of the JSON record.  ms = (kernel, plain).  bound_ms is
+    the larger of n_bytes (each input read once, each output written once)
+    over the memory rate and n_ops over the float32 rate.  None of these
+    kernels has a single PyTorch call that computes the same function."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    return {"name": name, "route": "cuda",
+            "source": f"beom_tpu_torch/csrc/{src}",
+            "replaces": f"beom_tpu/stencils/{site}", "launches": launches,
+            "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1],
+            "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
+
+
+def step_fields(cfg):
+    """Fields one fb or split step must move: h, u, v in and out, the
+    grid's six, and the forcing fields of the switches that are on."""
+    n = 6 * cfg.nz + 6 + 2 * cfg.wind + cfg.sponge
+    n += cfg.nz * (cfg.sponge or cfg.obc)
+    return n + cfg.obc * (3 + 2 * len(cfg.tides))
+
+
+def cycle_ops(steps, levels):
+    """Operations of one walk of a multigrid cycle's step list: about 10
+    per point of each step's level."""
+    return 10 * sum(levels[st[1]].mask.numel() for st in steps)
 
 
 def perturbed_case(device, seed, case="double_gyre", **kw):
@@ -446,12 +514,21 @@ def main() -> dict:
 
     phase("2 build")
     t0 = time.perf_counter()
-    build.build_all(KERNELS)
-    for name in KERNELS:
-        build.load(name)
-    print(f"   {', '.join(KERNELS)} built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
-    print_build(build, "fb_step")
+    from beom_tpu_torch.cases import make_case
+    specs = {fused_fb.build_spec(make_case(
+        name, nx=16, ny=16, device="cpu", dtype=dtype, **kw)[0])
+        for name, kw in [(n, k) for n, k, _ in PATHS]
+        + [("double_gyre", {})]
+        + [(n, dict(scheme="split", nsub=k)) for n, k in AGREE_SPLIT]
+        for dtype in ("float32", "float64")}
+    todo = [k for k in KERNELS if k != "fb_step"] + sorted(specs)
+    build.build_all(todo)
+    for item in todo:
+        build.load(item)
+    print(f"   {', '.join(KERNELS)} and split_step ({len(todo)} libraries) "
+          f"built and loaded in {time.perf_counter() - t0:.2f} s")
+    print_build(build, build.label(fused_fb.build_spec(make_case(
+        "double_gyre", nx=16, ny=16, device="cpu")[0])))
 
     phase("3 K1 against its plain version")
 
@@ -487,7 +564,6 @@ def main() -> dict:
     print("   steps_per_pass=4 is bitwise equal to 4 single steps")
 
     phase(f"4 main path: run() on the {BIG}^2 f32 double gyre")
-    from beom_tpu_torch.cases import make_case
     from beom_tpu_torch.diag import diagnostics
 
     cfg, grid, forcing, st = make_case(
@@ -555,14 +631,13 @@ def main() -> dict:
               f"({smi})")
     k1 = [ms for w, ms in runs if w == "K1"]
     plain = [ms for w, ms in runs if w == "plain"]
-    kernels = [{
-        "name": "fb_step", "route": "cuda",
-        "source": "beom_tpu_torch/csrc/fb_step.cu",
-        "replaces": "beom_tpu/stencils/band.py:200",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": sum(k1) / len(k1), "plain_ms": sum(plain) / len(plain)}]
+    kernels = [kernel_entry(
+        "fb_step", "fb_step.cu", "band.py:200", launches, max_err,
+        (sum(k1) / len(k1), sum(plain) / len(plain)),
+        step_fields(cfg) * pts * 4, 150 * pts)]
     kernels += projection_phases(dev, smi, rel, ulps)
     kernels += multigrid_phases(dev, smi, rel, ulps)
+    kernels += case_phases(dev, smi, rel, ulps)
     return {"kernels": kernels}
 
 
@@ -677,17 +752,20 @@ def projection_phases(dev, smi, rel, ulps):
               f"(diagnostics included); eager stepper {eager_ms!r} "
               "ms/step over 3 steps")
 
-    sources = {"proj_a": ("projection.cu", "band.py:200"),
-               "proj_b": ("projection.cu", "band.py:200"),
-               "rb_sweep": ("rb_sweep.cu", "redblack_pallas.py:39"),
-               "cg_fused": ("cg_fused.cu", "cg_vmem.py:61")}
+    # fields moved per point (the kernels' pointer operands) and a count
+    # of operations per point: K3a one momentum evaluation and the
+    # divergence, K3b the correction and the continuity, a K4a pass 8
+    # sweeps of ~12, K6 ~30 per iteration of this run's solve
+    pts = cfg.nx * cfg.ny
+    sources = {
+        "proj_a": ("projection.cu", "band.py:200", 13, 150),
+        "proj_b": ("projection.cu", "band.py:200", 10, 40),
+        "rb_sweep": ("rb_sweep.cu", "redblack_pallas.py:39", 6, 8 * 12),
+        "cg_fused": ("cg_fused.cu", "cg_vmem.py:61", 7, 30 * res.iters)}
     launches = {name: counts_a[name] + counts_b[name] for name in sources}
-    return [{"name": name, "route": "cuda",
-             "source": f"beom_tpu_torch/csrc/{src}",
-             "replaces": f"beom_tpu/stencils/{site}",
-             "launches": launches[name], "max_abs_err": err[name],
-             "ms": ms[name][0], "plain_ms": ms[name][1]}
-            for name, (src, site) in sources.items()]
+    return [kernel_entry(name, src, site, launches[name], err[name],
+                         ms[name], fields * pts * 4, ops * pts)
+            for name, (src, site, fields, ops) in sources.items()]
 
 
 def field_on(mask, rng, amp=1.0):
@@ -939,21 +1017,327 @@ def multigrid_phases(dev, smi, rel, ulps):
               f"(diagnostics included); eager stepper {eager_ms!r} "
               "ms/step over 3 steps")
 
+    # bytes: the operands of the call, each once (for the cycle kernels
+    # the six level fields of every level they walk, b and x); operations:
+    # ~12 per point and sweep, and the steps of this run's cycles
+    pts = cfg.nx * cfg.ny
+    tables = 6 * sum(lv.mask.numel() for lv in levels)
+    tail_tables = 6 * sum(lv.mask.numel() for lv in tail)
     entries = {
         "rb_sweep_residual": ("rb_sweep.cu", "redblack_pallas.py:39",
-                              counts_d["rb_sweep"]),
+                              counts_d["rb_sweep"], 7 * pts, 3 * 12 * pts),
         "apply_op": ("rb_sweep.cu", "redblack_pallas.py:217",
-                     counts_d["apply_op"]),
+                     counts_d["apply_op"], 6 * pts, 12 * pts),
         "mg_coarse": ("mg_coarse.cu", "mg_pallas.py:55",
-                      counts_d["mg_coarse"]),
+                      counts_d["mg_coarse"],
+                      tail_tables + 2 * tail[0].mask.numel(),
+                      cycle_ops(call.steps, tail)),
         "cg_fused_mg": ("cg_fused.cu", "cg_vmem.py:61",
-                        counts_c["cg_fused"])}
-    return [{"name": name, "route": "cuda",
-             "source": f"beom_tpu_torch/csrc/{src}",
-             "replaces": f"beom_tpu/stencils/{site}", "launches": n,
-             "max_abs_err": err[name], "ms": ms[name][0],
-             "plain_ms": ms[name][1]}
-            for name, (src, site, n) in entries.items()]
+                        counts_c["cg_fused"], tables + 3 * pts,
+                        res.iters * (cycle_ops(solve.steps, levels)
+                                     + 30 * pts))}
+    return [kernel_entry(name, src, site, n, err[name], ms[name],
+                         fields * 4, ops)
+            for name, (src, site, n, fields, ops) in entries.items()]
+
+
+def split_phases_compare(label, device, tol, seed, case, **kw):
+    """K1s on one perturbed case: each of the three kernels against its
+    eager phase from the same inputs, then the chained step over 3 steps
+    against 3 eager split_steps.  Returns the largest differences by
+    kernel."""
+    import torch
+
+    from beom_tpu_torch.core.state import State
+    from beom_tpu_torch.stencils import fused_fb
+    from beom_tpu_torch.stepping import fb, split
+
+    cfg, grid, forcing, st = perturbed_case(device, seed, case,
+                                            scheme="split", **kw)
+    statics = (grid, forcing)
+    tag = f"{label} {case} nsub={cfg.nsub}"
+    sp_ref = split.slow_phase(st, grid, forcing, cfg)
+    sp = fused_fb.split_slow(st.h, st.u, st.v, statics, cfg)
+    torch.cuda.synchronize()
+    worst = {"slow": compare_fields(f"{tag} slow", sp_ref._fields, sp,
+                                    sp_ref, tol)}
+    sub_ref = split.subcycle_phase(sp_ref, grid, cfg)
+    sub = fused_fb.split_subcycle(sp_ref, st.h, st.u, st.v, statics, cfg)
+    torch.cuda.synchronize()
+    worst["subcycle"] = compare_fields(
+        f"{tag} subcycle", ("eta_f", "ubar_f", "vbar_f", "ubar_avg",
+                            "vbar_avg"), sub, sub_ref, tol)
+    out = fused_fb.split_recompose(sp_ref, sub_ref, st.h, st.u, st.v,
+                                   statics, st.t, cfg)
+    torch.cuda.synchronize()
+    h1, u1, v1 = split.recompose(sp_ref, *sub_ref, st.h, grid, cfg)
+    ref = fb.finalize(h1, u1, v1, State(h=st.h, u=st.u, v=st.v, t=st.t, n=0),
+                      grid, forcing, cfg)
+    worst["recompose"] = compare_fields(f"{tag} recompose", "huv", out,
+                                        (ref.h, ref.u, ref.v), tol)
+    args = (st.h, st.u, st.v, statics, st.n, st.t, cfg, 3)
+    out = fused_fb.fused_fb_step(*args)
+    torch.cuda.synchronize()
+    chained = compare_fields(f"{tag} 3 steps", "huv", out,
+                             fused_fb.fused_fb_step_plain(*args), tol)
+    return {k: max(v, chained) for k, v in worst.items()}
+
+
+def fb_case_compare(label, device, tol, seed, case, **kw):
+    """K1 on one perturbed case: one step at each sweep parity and a
+    4-step pass against the plain version, and steps_per_pass = 4 bitwise
+    equal to 4 single steps.  Returns the largest difference."""
+    import torch
+
+    from beom_tpu_torch.stencils import fused_fb
+    from beom_tpu_torch.stepping import make_stepper
+
+    cfg, grid, forcing, st = perturbed_case(device, seed, case, **kw)
+    statics = (grid, forcing)
+    if case == "coastal_wetdry" and not bool((st.h < cfg.h_dry).logical_and(
+            grid.mask > 0).any()):
+        raise AssertionError(f"{label} {case}: no dry cell in the state")
+    if cfg.obc and not bool((forcing.obc_v != 0).any()):
+        raise AssertionError(f"{label} {case}: no open face in the state")
+    worst = 0.0
+    for n, k in ((0, 1), (1, 1), (0, 4)):
+        args = (st.h, st.u, st.v, statics, n, st.t, cfg, k)
+        out = fused_fb.fused_fb_step(*args)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_fields(
+            f"{label} {case} n={n} k={k}", "huv", out,
+            fused_fb.fused_fb_step_plain(*args), tol))
+    four = make_stepper(grid, forcing, dataclasses.replace(
+        cfg, backend="fused", steps_per_pass=4))(st)
+    one = make_stepper(grid, forcing, dataclasses.replace(
+        cfg, backend="fused"))
+    single = st
+    for _ in range(4):
+        single = one(single)
+    for f in "huv":
+        if not torch.equal(getattr(four, f), getattr(single, f)):
+            raise AssertionError(f"{label} {case}: steps_per_pass=4 != 4 "
+                                 f"steps in {f}")
+    return worst
+
+
+def run_path(device, case, kw, n_steps):
+    """run() on one case at 2048^2 f32 with backend='fused', the step
+    kernels' counts set to 0 just before and read just after; checks the
+    counts, the diagnostics, the mass of a closed basin, h >= 0 under
+    wet/dry, and 3 fused steps against 3 eager ones.  Returns the case and
+    the counts."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import fused_fb
+
+    label = f"{case} {kw.get('scheme', 'fb')}" + (
+        f" nsub={kw['nsub']}" if "nsub" in kw else "")
+    every = n_steps // 2
+    built = make_case(case, nx=BIG, ny=BIG, device=device, backend="fused",
+                      diag_every=every, **kw)
+    cfg, grid, forcing, st = built
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    fused_fb.LAUNCHES = 0
+    fused_fb.SPLIT_LAUNCHES.update(slow=0, subcycle=0, recompose=0)
+    t0 = time.perf_counter()
+    out = run(cfg, grid, forcing, st, n_steps, log=log)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(fused_fb.SPLIT_LAUNCHES, fb_step=fused_fb.LAUNCHES)
+    diags = [json.loads(x) for x in log.getvalue().splitlines()]
+    for d in diags:
+        print("   " + json.dumps(d))
+    split = cfg.scheme == "split"
+    want = dict(slow=n_steps * split, subcycle=n_steps * split,
+                recompose=n_steps * split, fb_step=n_steps * (not split))
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts}, not {want}")
+    if [d["n"] for d in diags] != [every, 2 * every]:
+        raise AssertionError(f"{label}: diagnostics missing")
+    if not all(d["finite"] == 1.0 and all(np.isfinite(list(
+            v for k, v in d.items() if k != "kind"))) for d in diags):
+        raise AssertionError(f"{label}: non-finite diagnostics")
+    if not diags[-1]["max_speed"] > 0:
+        raise AssertionError(f"{label}: max_speed is 0: the run did nothing")
+    if out.h.shape != (cfg.nz, BIG, BIG) or out.n != n_steps \
+            or not bool(torch.isfinite(out.h).all()):
+        raise AssertionError(f"{label}: wrong final state")
+    sum0 = float(st.h.double().sum())
+    drift = (float(out.h.double().sum()) - sum0) / sum0
+    eta = float(((out.h.sum(0) - grid.H) * grid.mask).abs().max())
+    h_min = float(out.h.min())
+    print(f"   {label}: launches {counts}; relative mass drift {drift!r} "
+          f"(f64 sum of h); max|sum h - H| {eta!r} m; min h {h_min!r} m; "
+          f"{n_steps} steps in {wall:.3f} s wall (first run, diagnostics "
+          "included)")
+    if not cfg.obc and not abs(drift) < 1e-6:
+        raise AssertionError(f"{label}: mass drift {drift!r}")
+    if not eta < 10.0:
+        raise AssertionError(f"{label}: max|sum h - H| {eta!r} m")
+    if cfg.wetdry and not h_min >= 0.0:
+        raise AssertionError(f"{label}: min h {h_min!r} < 0 under wet/dry")
+    eager_ms = versus_eager(f"{label}, 3 fused steps", built, 3, 1e-5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    print(f"   {label}: run() {ms!r} ms/step over {n_steps} steps "
+          f"(diagnostics included); eager stepper {eager_ms!r} ms/step over "
+          "3 steps")
+    return built, counts
+
+
+def busy_share(label, fn, n_steps):
+    """The device's busy share over one call of fn() under torch.profiler:
+    the kernels' device time over the wall time, and the largest rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(getattr(r, "self_device_time_total", 0)
+             or getattr(r, "self_cuda_time_total", 0), r.count, r.key)
+            for r in prof.key_averages()
+            if getattr(r, "device_type", None) == DeviceType.CUDA]
+    busy = sum(r[0] for r in rows)
+    if busy <= 0:
+        print(f"   {label}: the profiler saw no device time; the idle share "
+              "is not measured")
+        return
+    print(f"   {label}: {wall_us / n_steps / 1e3!r} ms/step under the "
+          f"profiler, device busy {busy / wall_us:.3f} of wall, idle "
+          f"{1 - busy / wall_us:.3f}")
+    for us, count, key in sorted(rows, reverse=True)[:5]:
+        print(f"      {us / 1e3:.3f} ms in {count} launches "
+              f"({us / busy:.3f} of device time): {key[:70]}")
+
+
+def case_phases(dev, smi, rel, ulps):
+    """Phases 14 to 17; returns the kernels' JSON entries."""
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import build, fused_fb
+    from beom_tpu_torch.stepping import split
+
+    phase("14 build: the fb and split builds of the other cases")
+    for item in sorted(k for k in build.BUILD_LOG if "[" in k):
+        print_build(build, item)
+
+    phase("15 K1 per case and K1s against their plain versions")
+    err = {}
+    for case in ("two_layer", "coastal_wetdry", "shelf_forced"):
+        fb_case_compare("200x136 f64", dev, rel(1e-12), 41, case, nx=200,
+                        ny=136, dtype="float64")
+        err[case, "fb"] = fb_case_compare(f"{BIG}^2 f32", dev, ulps(4), 42,
+                                          case, nx=BIG, ny=BIG)
+    for case, nsub in AGREE_SPLIT:
+        split_phases_compare("200x136 f64", dev, rel(1e-12), 43, case,
+                             nx=200, ny=136, dtype="float64", nsub=nsub)
+        worst = split_phases_compare(f"{BIG}^2 f32", dev, ulps(4), 44, case,
+                                     nx=BIG, ny=BIG, nsub=nsub)
+        for k, v in worst.items():
+            err[case, k] = max(err.get((case, k), 0.0), v)
+
+    phase(f"16 the other paths at full width: run() at {BIG}^2 f32")
+    launches = {}
+    for case, kw, n_steps in PATHS:
+        _, counts = run_path(dev, case, kw, n_steps)
+        for k, v in counts.items():
+            launches[case, k] = launches.get((case, k), 0) + v
+
+    phase(f"17 times at {BIG}^2 f32 ({smi})")
+    saved = (fused_fb.LAUNCHES, dict(fused_fb.SPLIT_LAUNCHES))
+    entries = []
+    pts = BIG * BIG
+    for case in ("two_layer", "coastal_wetdry", "shelf_forced"):
+        cfg, grid, forcing, st = perturbed_case(dev, 2, case, nx=BIG, ny=BIG)
+        args = (st.h, st.u, st.v, (grid, forcing), st.n, st.t, cfg, 1)
+        ms = time_pair(f"K1 {case}",
+                       lambda: fused_fb.fused_fb_step_plain(*args),
+                       lambda: fused_fb.fused_fb_step(*args), 10, 100,
+                       unit="step")
+        entries.append(kernel_entry(
+            f"fb_step_{case}", "fb_step.cu", "band.py:200",
+            launches[case, "fb_step"], err[case, "fb"], ms,
+            step_fields(cfg) * pts * 4, 150 * cfg.nz * pts))
+    for case in ("double_gyre", "two_layer"):
+        cfg, grid, forcing, st = perturbed_case(
+            dev, 2, case, nx=BIG, ny=BIG, scheme="split", nsub=8)
+        statics = (grid, forcing)
+        sp = split.slow_phase(st, grid, forcing, cfg)
+        sub = split.subcycle_phase(sp, grid, cfg)
+        slow_f = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
+        sub_f = fused_fb._launch_subcycle(slow_f, st.h, st.u, st.v, statics,
+                                          cfg)
+        nz = cfg.nz
+        # fields moved and operations per point of each kernel: the slow
+        # phase reads the step's operands and writes SlowPhase (4 nz + 9);
+        # the subcycle reads 7 of them and 3 masks and writes 5; the
+        # recomposition reads 4 nz + 2 of SlowPhase, the 5, h, H and 3
+        # masks and writes h, u, v
+        timed = {
+            "slow": (lambda: split.slow_phase(st, grid, forcing, cfg),
+                     lambda: fused_fb._launch_slow(st.h, st.u, st.v,
+                                                   statics, cfg),
+                     step_fields(cfg) - 3 * nz + 4 * nz + 9, 150 * nz),
+            "subcycle": (lambda: split.subcycle_phase(sp, grid, cfg),
+                         lambda: fused_fb._launch_subcycle(
+                             slow_f, st.h, st.u, st.v, statics, cfg),
+                         15, 20 * cfg.nsub),
+            "recompose": (lambda: _recompose_plain(sp, sub, st, grid,
+                                                   forcing, cfg),
+                          lambda: fused_fb._launch_recompose(
+                              slow_f, sub_f, st.h, st.u, st.v, statics,
+                              st.t, cfg),
+                          8 * nz + 11, 40 * nz)}
+        for k, (plain, kernel, fields, ops) in timed.items():
+            ms = time_pair(f"K1s {k} {case} nsub=8", plain, kernel, 10, 100)
+            suffix = "" if case == "double_gyre" else f"_{case}"
+            entries.append(kernel_entry(
+                f"split_{k}{suffix}", "split_step.cu", "band.py:200",
+                launches[case, k], err[case, k], ms, fields * pts * 4,
+                ops * pts))
+    for nsub in (4, 8, 12):
+        cfg, grid, forcing, st = perturbed_case(
+            dev, 2, "double_gyre", nx=BIG, ny=BIG, scheme="split", nsub=nsub)
+        args = (st.h, st.u, st.v, (grid, forcing), st.n, st.t, cfg, 1)
+        time_pair(f"split step double_gyre nsub={nsub}",
+                  lambda: fused_fb.fused_fb_step_plain(*args),
+                  lambda: fused_fb.fused_fb_step(*args), 5, 50, unit="step")
+    for case, kw in (("two_layer", {}),
+                     ("two_layer", dict(scheme="split", nsub=8))):
+        cfg, grid, forcing, st = make_case(
+            case, nx=BIG, ny=BIG, device=dev, backend="fused", diag_every=20,
+            **kw)
+        busy_share(f"{case} {cfg.scheme} through run()",
+                   lambda: run(cfg, grid, forcing, st, 40, log=io.StringIO()),
+                   40)
+    fused_fb.LAUNCHES = saved[0]
+    fused_fb.SPLIT_LAUNCHES.update(saved[1])
+    return entries
+
+
+def _recompose_plain(sp, sub, st, grid, forcing, cfg):
+    """split.recompose followed by fb.finalize, eager."""
+    from beom_tpu_torch.stepping import fb, split
+
+    h1, u1, v1 = split.recompose(sp, *sub, st.h, grid, cfg)
+    return fb.finalize(h1, u1, v1, st, grid, forcing, cfg)
 
 
 if __name__ == "__main__":

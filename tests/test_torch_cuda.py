@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
-K1 (fused fb step), K3a/K3b (projection phases), K4a (blocked red-black
+K1 (fused fb step, every case), K1s (the split step's three kernels),
+K3a/K3b (projection phases), K4a (blocked red-black
 sweep, with and without its residual), K4b (operator pass), K5 (coarse
 multigrid stack) and K6 (fused CG, Jacobi and multigrid); and run() of
 the rigid lid's two multigrid solves through them.
@@ -71,11 +72,87 @@ def test_kernel_matches_plain(cuda, dtype, n_steps, rel, variant):
         assert err <= rel * scale, (f, err, scale)
 
 
+# K1 and K1s per case; the shelf adds nu4 and interfacial drag so that
+# every compile-time switch is on in one build
+CASE_KW = {
+    "double_gyre": {},
+    "two_layer": {},
+    "coastal_wetdry": {},
+    "shelf_forced": dict(nu4=1e6, r_int=1e-4),
+}
+SIZES = [("float32", 128, 128, 4 * 2.0 ** -23),
+         ("float64", 200, 136, 1e-12)]
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_unsupported_term(cuda):
+@pytest.mark.parametrize("dtype,nx,ny,rel", SIZES)
+@pytest.mark.parametrize("name", list(CASE_KW))
+def test_fb_kernel_matches_plain_per_case(cuda, name, dtype, nx, ny, rel):
+    """K1 on each case at both sweep parities and over a 4-step pass:
+    4 ulp of the field's scale at f32, 1e-12 x scale at f64 (the kernel
+    mirrors the eager arithmetic, so 0.0 is what the card gives)."""
+    cfg, grid, forcing, st = _perturbed(cuda, 50, name, nx=nx, ny=ny,
+                                        dtype=dtype, **CASE_KW[name])
+    statics = (grid, forcing)
+    for n, k in ((0, 1), (1, 1), (0, 4)):
+        args = (st.h, st.u, st.v, statics, n, st.t, cfg, k)
+        before = fused_fb.LAUNCHES
+        out = fused_fb.fused_fb_step(*args)
+        torch.cuda.synchronize()
+        assert fused_fb.LAUNCHES == before + k
+        ref = fused_fb.fused_fb_step_plain(*args)
+        for f, a, b in zip("huv", out, ref):
+            err = float((a - b).abs().max())
+            assert err <= rel * float(b.abs().max()), (f, n, k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nx,ny,rel", SIZES)
+@pytest.mark.parametrize("name,nsub", [
+    ("double_gyre", 4), ("two_layer", 8), ("coastal_wetdry", 8),
+    ("shelf_forced", 12)])
+def test_split_kernels_match_plain(cuda, name, nsub, dtype, nx, ny, rel):
+    """K1s: each of the three kernels against its eager phase from the
+    same inputs, and the chained step over 3 steps, within the bounds of
+    K1; one launch of each kernel per step."""
+    from beom_tpu_torch.core.state import State
+    from beom_tpu_torch.stepping import fb, split
+
+    cfg, grid, forcing, st = _perturbed(
+        cuda, 51, name, nx=nx, ny=ny, dtype=dtype, scheme="split",
+        nsub=nsub, **CASE_KW[name])
+    statics = (grid, forcing)
+
+    def close(names, outs, refs):
+        for f, a, b in zip(names, outs, refs):
+            err = float((a - b).abs().max())
+            assert err <= rel * float(b.abs().max()), (f, err)
+
+    sp_ref = split.slow_phase(st, grid, forcing, cfg)
+    close(sp_ref._fields,
+          fused_fb.split_slow(st.h, st.u, st.v, statics, cfg), sp_ref)
+    sub_ref = split.subcycle_phase(sp_ref, grid, cfg)
+    close("eta ub vb ua va".split(), fused_fb.split_subcycle(
+        sp_ref, st.h, st.u, st.v, statics, cfg), sub_ref)
+    h1, u1, v1 = split.recompose(sp_ref, *sub_ref, st.h, grid, cfg)
+    s1 = fb.finalize(h1, u1, v1, State(h=st.h, u=st.u, v=st.v, t=st.t, n=0),
+                     grid, forcing, cfg)
+    close("huv", fused_fb.split_recompose(
+        sp_ref, sub_ref, st.h, st.u, st.v, statics, st.t, cfg),
+        (s1.h, s1.u, s1.v))
+    before = dict(fused_fb.SPLIT_LAUNCHES)
+    args = (st.h, st.u, st.v, statics, 0, st.t, cfg, 3)
+    out = fused_fb.fused_fb_step(*args)
+    torch.cuda.synchronize()
+    assert fused_fb.SPLIT_LAUNCHES == {k: v + 3 for k, v in before.items()}
+    close("huv", out, fused_fb.fused_fb_step_plain(*args))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_projection_scheme(cuda):
     cfg, grid, forcing, st = _perturbed(cuda, 9, nx=64, ny=48)
-    cfg = dataclasses.replace(cfg, cd_bot=2.5e-3)
-    with pytest.raises(NotImplementedError, match="cd_bot"):
+    cfg = dataclasses.replace(cfg, scheme="implicit_fs")
+    with pytest.raises(NotImplementedError, match="fused_projection"):
         fused_fb.fused_fb_step(st.h, st.u, st.v, (grid, forcing), st.n,
                                st.t, cfg, 1)
 

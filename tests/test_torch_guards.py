@@ -1,8 +1,9 @@
-"""Guards of the port: it never imports jax; the fused kernels' config
-checks raise on each term the kernels lack; the parts not yet ported
-(the other fb cases, split) raise naming their ROADMAP item; the
-projection configurations that use multigrid build; and the CLI refuses
---device cuda where there is no card."""
+"""Guards of the port: it never imports jax; the fused fb / split step
+takes every term and refuses only the projection schemes and what exceeds
+its operand slots; the projection phases' config check raises on each term
+those kernels lack; every case and scheme builds; an unknown case raises;
+the projection configurations that use multigrid build; and the CLI
+refuses --device cuda where there is no card."""
 
 import dataclasses
 import os
@@ -20,7 +21,7 @@ from beom_tpu_torch.run import main, run
 from beom_tpu_torch.stencils.fused_fb import check_config
 from beom_tpu_torch.stencils.fused_projection import (
     check_config as projection_check, make_fused_projection_stepper)
-from beom_tpu_torch.stepping import get_step, projection
+from beom_tpu_torch.stepping import get_step, prepare_state, projection
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -41,7 +42,9 @@ def test_no_module_imports_jax():
                    timeout=120)
 
 
-UNSUPPORTED = {
+# the terms the projection phases' kernels lack, and the fused fb / split
+# step has
+TERMS = {
     "wetdry": dict(wetdry=True),
     "obc": dict(obc=True),
     "sponge": dict(sponge=True),
@@ -52,30 +55,51 @@ UNSUPPORTED = {
     "nz > 1": dict(nz=2, rho=(1026.0, 1027.5)),
     "scheme": dict(scheme="split"),
 }
+BASE = Config(wind=True, nu2=300.0, r_bot=1e-3, beta=2e-11)
 
 
-@pytest.mark.parametrize("term", list(UNSUPPORTED))
-def test_kernel_config_check_raises(term):
-    base = Config(wind=True, nu2=300.0, r_bot=1e-3, beta=2e-11)
-    check_config(base)
-    check_config(dataclasses.replace(base, adv_scheme="linear", slip="no"))
-    with pytest.raises(NotImplementedError, match=term.split()[0]):
-        check_config(dataclasses.replace(base, **UNSUPPORTED[term]))
+@pytest.mark.parametrize("term", list(TERMS))
+def test_kernel_config_check_accepts(term):
+    """check_config refuses none of the terms of the eager step, alone or
+    all together, under fb and split."""
+    check_config(BASE)
+    check_config(dataclasses.replace(BASE, adv_scheme="linear", slip="no"))
+    check_config(dataclasses.replace(BASE, **TERMS[term]))
+    every = {k: v for t in TERMS.values() for k, v in t.items()}
+    check_config(dataclasses.replace(BASE, **every))
 
 
-@pytest.mark.parametrize("name", ["two_layer", "coastal_wetdry",
-                                  "shelf_forced"])
-def test_unported_cases_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_case(name, device="cpu")
+@pytest.mark.parametrize("kw,match", [
+    (dict(scheme="rigid_lid"), "fused_projection"),
+    (dict(scheme="implicit_fs"), "fused_projection"),
+    (dict(nz=9, rho=(1027.0,) * 9), "at most 8 layers"),
+    (dict(obc=True, tides=(1e-4,) * 9), "at most 8 layers"),
+])
+def test_kernel_config_check_raises(kw, match):
+    """What the fused step cannot run: the projection schemes, and more
+    layers or constituents than its operand slots."""
+    with pytest.raises(NotImplementedError, match=match):
+        check_config(dataclasses.replace(BASE, **kw))
+
+
+def test_unknown_case_raises():
     with pytest.raises(KeyError, match="unknown case"):
         make_case("no_such_case", device="cpu")
 
 
-@pytest.mark.parametrize("scheme", ["split"])
-def test_unported_schemes_raise(scheme):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_step(Config(scheme=scheme))
+@pytest.mark.parametrize("scheme", ["fb", "split", "rigid_lid",
+                                    "implicit_fs"])
+@pytest.mark.parametrize("name", ["double_gyre", "two_layer", "rigid_lid",
+                                  "coastal_wetdry", "shelf_forced"])
+def test_every_case_and_scheme_steps(name, scheme):
+    """make_case builds all five cases and get_step takes all four
+    schemes: one eager step of each pair stays finite."""
+    cfg, grid, forcing, st = make_case(name, nx=16, ny=16, device="cpu",
+                                       dtype="float64", scheme=scheme)
+    out = get_step(cfg)(prepare_state(st, cfg), grid, forcing, cfg)
+    assert out.n == 1
+    for f in "huv":
+        assert bool(torch.isfinite(getattr(out, f)).all()), f
 
 
 # projection configurations that use multigrid
@@ -106,7 +130,7 @@ def test_multigrid_configurations_step(name):
         assert err <= 1e-5 * max(float(ref.abs().max()), 1.0), f
 
 
-@pytest.mark.parametrize("term", [t for t in UNSUPPORTED if t != "scheme"])
+@pytest.mark.parametrize("term", [t for t in TERMS if t != "scheme"])
 def test_fused_projection_config_check_raises(term):
     base = Config(scheme="implicit_fs", wind=True, nu2=300.0, r_bot=1e-3,
                   beta=2e-11)
@@ -114,7 +138,7 @@ def test_fused_projection_config_check_raises(term):
     projection_check(dataclasses.replace(base, scheme="rigid_lid",
                                          adv_scheme="linear", slip="no"))
     with pytest.raises(NotImplementedError, match=term.split()[0]):
-        projection_check(dataclasses.replace(base, **UNSUPPORTED[term]))
+        projection_check(dataclasses.replace(base, **TERMS[term]))
     with pytest.raises(ValueError, match="projection schemes"):
         projection_check(Config())
 
