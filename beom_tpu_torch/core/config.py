@@ -11,8 +11,12 @@ builds either package's `Config`.  Two fields take the port's own values:
   * steps_per_pass: model steps one step() call advances, on either
     backend.
 
-The reference's two TPU-only rules (a halo-versus-band-height check and
-steps_per_pass <= 2 under a mesh) do not apply here.
+Under a mesh (mesh_y * mesh_x > 1, parallel/) halo_impl chooses how the
+eager distributed tier pads a shard's block with its neighbours' edges:
+'ppermute' by slices, copies between shards and concatenations, op by op;
+'rdma' through the halo-pad kernel (stencils/halo_pad.py, K8), one launch
+per shard.  The reference's two TPU-only rules (a halo-versus-band-height
+check and steps_per_pass <= 2 under a mesh) do not apply here.
 """
 
 from __future__ import annotations
@@ -114,7 +118,9 @@ class Config:
         if self.nx % self.mesh_x or self.ny % self.mesh_y:
             raise ValueError("nx/ny must divide evenly over the device mesh")
         if self.halo_impl not in ("ppermute", "rdma"):
-            raise ValueError(f"unknown halo_impl {self.halo_impl!r}")
+            raise ValueError(
+                f"unknown halo_impl {self.halo_impl!r} ('ppermute': eager "
+                "copies | 'rdma': the halo-pad kernel)")
         if self.solver not in ("cg", "redblack", "mg"):
             raise ValueError(f"unknown solver {self.solver!r}")
         if self.solver == "mg" and self.mesh_x * self.mesh_y > 1:

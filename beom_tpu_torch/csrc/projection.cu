@@ -1,100 +1,89 @@
 // K3a and K3b: the two phases of a rigid-lid / implicit-free-surface step
-// (stepping/projection.py) of a single layer, each fused into one launch.
+// (stepping/projection.py) of nz layers with every term of the eager step,
+// each fused into one launch.
 //
 // Replace beom_tpu/stencils/band.py::_band_kernel running the bodies
 // body_a and body_b of
 // beom_tpu/stencils/fused_projection.py::make_pallas_projection_stepper.
 //
 //   proj_a (K3a): the provisional momentum of fb.momentum_update with
-//     free_surface=False (from the old h; for one layer the Montgomery
-//     potential is then 0 and only K remains), then the barotropic
-//     transport U, V = a_xp(h) u*, a_yp(h) v* (masked) and its
+//     free_surface=False from the old thickness (the Montgomery potential
+//     without its surface term, K, PV, viscosity and biharmonic, wind,
+//     interfacial and bottom drag, sponge), then the barotropic transport
+//     U, V = sum_k a_xp(h_k) u*_k, sum_k a_yp(h_k) v*_k (masked) and its
 //     divergence div = (d_xm U + d_ym V) mask.
-//   proj_b (K3b): u1 = (u* - corr mask_u d_xp p) mask_u (v1 likewise),
-//     then continuity h1 = (h + dt dh(h, u1, v1)) mask; finalize is the
-//     identity for the terms these kernels take.
+//   proj_b (K3b): u1 = (u* - corr mask_u d_xp p) mask_u (v1 likewise, the
+//     same correction in every layer), the per-layer continuity
+//     h1 = (h + dt dh(h, u1, v1)) mask with the wet/dry limiter, then
+//     fb.finalize: the wet/dry gates and Flather with the tides at t + dt.
 //
-// Bound: device-memory bytes, as K1 (csrc/fb_step.cu): ~120 flops per
-// point against 10 fields read and 3 written (K3a), ~30 flops against 7
-// read and 3 written (K3b).  The design keeps every intermediate in
-// shared memory: one CTA per 2-D tile, loaded with a periodic halo on
-// both axes that covers the phase's dependence cone, so a point costs
-// one read of each operand and one write of each result.
+// The term code is that of the fused forward-backward step
+// (fb_terms.cuh), under the same compile-time switches: one build per
+// combination of layer count, terms and tile.
+//
+// Bound: device-memory bytes, as K1 (csrc/fb_step.cu).  K3a reads
+// 3 nz + 7 fields (plus the sponge) and writes 2 nz + 1; K3b reads
+// 3 nz + 4 (plus H and the open-boundary and tide operands) and writes
+// 3 nz.  Every intermediate stays in shared memory: one CTA per 2-D tile,
+// loaded with a periodic halo on both axes that covers the phase's
+// dependence cone, so a point costs one read of each operand and one
+// write of each result.  Phase A stores nothing it can recompute: like
+// K1 it keeps phi, q and the two sweeps as planes and evaluates the
+// tendencies where they are used.
 //
 // K3a's stages, as [lo, R - hi) on both axes of the R-point block (h is
 // loaded, so there is no continuity stage before the momentum):
-//   S1 hx, hy, phi = K (or 0), q, drag denominators  [1, R-1)
-//   S2 du_c, dv_c (pressure, viscosity, wind)        [1, R-2)
-//   S3 first Coriolis sweep (u* or v*)               [2, R-2)
-//   S4 second sweep                                  [3, R-3)
-//   S5 U, V, div on the interior                     [W, R-W), which
+//   S1 lap(u), lap(v) for nu4; phi = M + K, q        [1, R-1)
+//   S2 first Coriolis sweep with its tendencies, drag [2, R-2)
+//   S3 second sweep                                   [3, R-3)
+//   S4 U, V, div on the interior                      [W, R-W), which
 //      reads u*, v* one cell west and south: W = 4.
-// K3b's: S1 u1, v1 on [0, R-1); S2 h1 on the interior [1, R-1): W = 1.
-//
-// Arithmetic mirrors the eager port op for op (stepping/fb.py,
-// stepping/projection.py), the scalars rounded from the host's doubles,
-// and --fmad=false, so the plain versions are matched bit for bit.
+// K3b's: S1 u1, v1 on [0, R-1); S2 h1 on [LO, R-LO); S3 gates and Flather
+// on the interior, which reads h1 one cell east and north: W = LO + 1, or
+// 1 when neither wet/dry nor the open boundary is on (finalize is then the
+// identity).
 
-#include <cuda_runtime.h>
+#include "fb_terms.cuh"
 
 namespace {
 
-constexpr int TX = 32;
-constexpr int TY = 16;
-constexpr int THREADS = 256;
-
-__device__ __forceinline__ int wrap(int a, int n) {
-  a %= n;
-  return a < 0 ? a + n : a;
-}
-
-// jnp.maximum / torch.clamp_min: NaN propagates
-template <typename T>
-__device__ __forceinline__ T vmax(T a, T b) {
-  return (a > b || a != a) ? a : b;
-}
-
-// loop over the square region [lo, R - hi) of an RX x RY block on both
-// axes, then sync the CTA
-#define REGION(RX_, RY_, lo, hi, ...)                               \
-  {                                                                 \
-    constexpr int nx_ = (RX_) - (lo) - (hi);                        \
-    constexpr int ny_ = (RY_) - (lo) - (hi);                        \
-    for (int k = threadIdx.x; k < nx_ * ny_; k += THREADS) {        \
-      const int s = ((lo) + k / nx_) * (RX_) + (lo) + k % nx_;      \
-      __VA_ARGS__                                                   \
-    }                                                               \
-  }                                                                 \
-  __syncthreads();
+using namespace beom;
 
 // ---------------------------------------------------------------- K3a
-
 namespace pa {
 
 constexpr int W = 4;
 constexpr int RX = TX + 2 * W;
 constexpr int RY = TY + 2 * W;
 constexpr int NPT = RX * RY;
-
 enum Plane {
-  P_H, P_U, P_V, P_M, P_MU, P_MV, P_MQ, P_FQ, P_TX, P_TY,
-  P_HX, P_HY, P_PHI, P_Q, P_DENU, P_DENV, P_DUC, P_DVC, P_A1, P_A2,
-  N_PLANES
+  P_H = 0,
+  P_U = NZ,
+  P_V = 2 * NZ,
+  P_M = 3 * NZ,
+  P_MU,
+  P_MV,
+  P_MQ,
+  P_PHI,
+  P_Q = P_PHI + NZ,
+  P_A1 = P_Q + NZ,
+  P_A2 = P_A1 + NZ,
+  P_LU = P_A2 + NZ,
+  P_LV = P_LU + (NU4 ? NZ : 0),
+  N_PLANES = P_LV + (NU4 ? NZ : 0)
 };
 
 template <typename T>
-struct Params {
-  const T *h, *u, *v, *mask, *mask_u, *mask_v, *mask_q, *f_q, *taux, *tauy;
-  T *us, *vs, *div;
-  int ny, nx;
-  int u_first, sadourny, free_slip, visc, wind;
-  T dt, inv_dx, inv_dy, nu2, rho0, h_min, r_bot;
-};
+constexpr int smem_bytes() {
+  return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
+}
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) kernel(const Params<T> p) {
+__global__ void __launch_bounds__(THREADS)
+kernel(const Params<T> p, T* out_us, T* out_vs, T* out_div) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
+  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
@@ -102,321 +91,282 @@ __global__ void __launch_bounds__(THREADS) kernel(const Params<T> p) {
   T* mu = sm + P_MU * NPT;
   T* mv = sm + P_MV * NPT;
   T* mq = sm + P_MQ * NPT;
-  T* fq = sm + P_FQ * NPT;
-  T* tx = sm + P_TX * NPT;
-  T* ty = sm + P_TY * NPT;
-  T* hx = sm + P_HX * NPT;
-  T* hy = sm + P_HY * NPT;
   T* phi = sm + P_PHI * NPT;
   T* q = sm + P_Q * NPT;
-  T* denu = sm + P_DENU * NPT;
-  T* denv = sm + P_DENV * NPT;
-  T* duc = sm + P_DUC * NPT;
-  T* dvc = sm + P_DVC * NPT;
   T* a1 = sm + P_A1 * NPT;
   T* a2 = sm + P_A2 * NPT;
+  T* lu = sm + P_LU * NPT;
+  T* lv = sm + P_LV * NPT;
+  const int tid = threadIdx.x;
 
-  const T half = T(0.5);
-  const T one = T(1.0);
-  const int x0 = blockIdx.x * TX - W;
-  const int y0 = blockIdx.y * TY - W;
-
-  // S0: the haloed block, periodic on both axes
-  for (int s = threadIdx.x; s < NPT; s += THREADS) {
-    const int gj = wrap(y0 + s / RX, p.ny);
-    const int gi = wrap(x0 + s % RX, p.nx);
-    const long g = long(gj) * p.nx + gi;
-    h[s] = p.h[g];
-    u[s] = p.u[g];
-    v[s] = p.v[g];
-    mask[s] = p.mask[g];
-    mu[s] = p.mask_u[g];
-    mv[s] = p.mask_v[g];
-    mq[s] = p.mask_q[g];
-    fq[s] = p.f_q[g];
-    tx[s] = p.taux[g];
-    ty[s] = p.tauy[g];
+  load_offsets<T, RX, RY, W>(p, gidx);
+  __syncthreads();
+  for (int s = tid; s < NPT; s += THREADS) {
+    const int g = gidx[s];
+    for (int k = 0; k < NZ; ++k) {
+      h[k * NPT + s] = p.in[I_H][k * p.plane + g];
+      u[k * NPT + s] = p.in[I_U][k * p.plane + g];
+      v[k * NPT + s] = p.in[I_V][k * p.plane + g];
+    }
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+    mq[s] = p.in[I_MASK_Q][g];
   }
   __syncthreads();
 
-  // S1: face thicknesses, phi = M (0 without the surface term) + K, PV,
-  // implicit-drag denominators
-  REGION(RX, RY, 1, 1, {
-    const T hxs = half * (h[s] + h[s + 1]);
-    const T hys = half * (h[s] + h[s + RX]);
-    hx[s] = hxs;
-    hy[s] = hys;
-    T ph = T(0);
-    if (p.sadourny) {
-      const T ke = half * (half * (u[s] * u[s] + u[s - 1] * u[s - 1]) +
-                           half * (v[s] * v[s] + v[s - RX] * v[s - RX]));
-      ph = ph + ke;
-      const T zeta = ((v[s + 1] - v[s]) * p.inv_dx -
-                      (u[s + RX] - u[s]) * p.inv_dy) * mq[s];
-      const T hq = vmax(
-          half * (hys + half * (h[s + 1] + h[s + 1 + RX])), p.h_min);
-      q[s] = (fq[s] + zeta) / hq;
-    } else {
-      q[s] = fq[s];
-    }
-    phi[s] = ph;
-    denu[s] = one + p.dt * (p.r_bot / vmax(hxs, p.h_min));
-    denv[s] = one + p.dt * (p.r_bot / vmax(hys, p.h_min));
-  })
+  const Tile<T, RX, NPT> c{p, gidx, u, v, mask, mu, mv, mq, h,
+                           phi, q, lu, lv, nullptr};
 
-  // S2: -grad(phi) + nu2 lap + wind, at u and v points
-  REGION(RX, RY, 1, 2, {
-    T du = -((phi[s + 1] - phi[s]) * p.inv_dx);
-    T dv = -((phi[s + RX] - phi[s]) * p.inv_dy);
-    if (p.visc) {
-      const T gx1 = ((u[s + 1] - u[s]) * p.inv_dx) * mask[s + 1];
-      const T gx0 = ((u[s] - u[s - 1]) * p.inv_dx) * mask[s];
-      T gy0 = (u[s + RX] - u[s]) * p.inv_dy;
-      T gym = (u[s] - u[s - RX]) * p.inv_dy;
-      const T ey1 = ((v[s + RX] - v[s]) * p.inv_dy) * mask[s + RX];
-      const T ey0 = ((v[s] - v[s - RX]) * p.inv_dy) * mask[s];
-      T ex0 = (v[s + 1] - v[s]) * p.inv_dx;
-      T exm = (v[s] - v[s - 1]) * p.inv_dx;
-      if (p.free_slip) {
-        gy0 = gy0 * mq[s];
-        gym = gym * mq[s - RX];
-        ex0 = ex0 * mq[s];
-        exm = exm * mq[s - 1];
+  // S1: lap planes for the biharmonic; phi = M (no surface term) + K, PV
+  if (NU4) {
+    REGION_NS(1, 1, {
+      for (int k = 0; k < NZ; ++k) {
+        lu[k * NPT + s] = c.lap_u(u + k * NPT, s);
+        lv[k * NPT + s] = c.lap_v(v + k * NPT, s);
       }
-      const T lu = ((gx1 - gx0) * p.inv_dx + (gy0 - gym) * p.inv_dy) * mu[s];
-      const T lv = ((ey1 - ey0) * p.inv_dy + (ex0 - exm) * p.inv_dx) * mv[s];
-      du = du + p.nu2 * lu;
-      dv = dv + p.nu2 * lv;
+    })
+  }
+  REGION(1, 1, { c.phi_q(s, false, phi, q); })
+
+  // S2: the first FB-Coriolis sweep, u on even steps, v on odd ones
+  REGION(2, 2, {
+    for (int k = 0; k < NZ; ++k) {
+      T a;
+      if (p.u_first) {
+        a = u[k * NPT + s] +
+            p.dt * (c.tend_u(k, s) + c.cor_u(k, s, v + k * NPT));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_u(s));
+        a = a * mu[s];
+      } else {
+        a = v[k * NPT + s] +
+            p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, u + k * NPT)));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_v(s));
+        a = a * mv[s];
+      }
+      a1[k * NPT + s] = a;
     }
-    if (p.wind) {
-      du = du + mu[s] * tx[s] / (p.rho0 * vmax(hx[s], p.h_min));
-      dv = dv + mv[s] * ty[s] / (p.rho0 * vmax(hy[s], p.h_min));
-    }
-    duc[s] = du;
-    dvc[s] = dv;
   })
 
-  // S3: the first FB-Coriolis sweep, u on even steps, v on odd ones
-  if (p.u_first) {
-    REGION(RX, RY, 2, 2, {
-      const T V0 = p.sadourny ? hy[s] * v[s] : v[s];
-      const T V1 = p.sadourny ? hy[s + 1] * v[s + 1] : v[s + 1];
-      const T Vm0 = p.sadourny ? hy[s - RX] * v[s - RX] : v[s - RX];
-      const T Vm1 = p.sadourny ? hy[s - RX + 1] * v[s - RX + 1]
-                               : v[s - RX + 1];
-      const T duq = half * (q[s] * (half * (V0 + V1)) +
-                            q[s - RX] * (half * (Vm0 + Vm1)));
-      a1[s] = ((u[s] + p.dt * (duc[s] + duq)) / denu[s]) * mu[s];
-    })
-  } else {
-    REGION(RX, RY, 2, 2, {
-      const T U0 = p.sadourny ? hx[s] * u[s] : u[s];
-      const T U1 = p.sadourny ? hx[s + RX] * u[s + RX] : u[s + RX];
-      const T Um0 = p.sadourny ? hx[s - 1] * u[s - 1] : u[s - 1];
-      const T Um1 = p.sadourny ? hx[s - 1 + RX] * u[s - 1 + RX]
-                               : u[s - 1 + RX];
-      const T dvq = -(half * (q[s] * (half * (U0 + U1)) +
-                              q[s - 1] * (half * (Um0 + Um1))));
-      a1[s] = ((v[s] + p.dt * (dvc[s] + dvq)) / denv[s]) * mv[s];
-    })
-  }
+  // S3: the second sweep, from the first one's result
+  REGION(3, 3, {
+    for (int k = 0; k < NZ; ++k) {
+      T b;
+      if (p.u_first) {
+        b = v[k * NPT + s] +
+            p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, a1 + k * NPT)));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_v(s));
+        b = b * mv[s];
+      } else {
+        b = u[k * NPT + s] +
+            p.dt * (c.tend_u(k, s) + c.cor_u(k, s, a1 + k * NPT));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_u(s));
+        b = b * mu[s];
+      }
+      a2[k * NPT + s] = b;
+    }
+  })
 
-  // S4: the second sweep, from the first one's result
-  if (p.u_first) {
-    REGION(RX, RY, 3, 3, {
-      const T U0 = p.sadourny ? hx[s] * a1[s] : a1[s];
-      const T U1 = p.sadourny ? hx[s + RX] * a1[s + RX] : a1[s + RX];
-      const T Um0 = p.sadourny ? hx[s - 1] * a1[s - 1] : a1[s - 1];
-      const T Um1 = p.sadourny ? hx[s - 1 + RX] * a1[s - 1 + RX]
-                               : a1[s - 1 + RX];
-      const T dvq = -(half * (q[s] * (half * (U0 + U1)) +
-                              q[s - 1] * (half * (Um0 + Um1))));
-      a2[s] = ((v[s] + p.dt * (dvc[s] + dvq)) / denv[s]) * mv[s];
-    })
-  } else {
-    REGION(RX, RY, 3, 3, {
-      const T V0 = p.sadourny ? hy[s] * a1[s] : a1[s];
-      const T V1 = p.sadourny ? hy[s + 1] * a1[s + 1] : a1[s + 1];
-      const T Vm0 = p.sadourny ? hy[s - RX] * a1[s - RX] : a1[s - RX];
-      const T Vm1 = p.sadourny ? hy[s - RX + 1] * a1[s - RX + 1]
-                               : a1[s - RX + 1];
-      const T duq = half * (q[s] * (half * (V0 + V1)) +
-                            q[s - RX] * (half * (Vm0 + Vm1)));
-      a2[s] = ((u[s] + p.dt * (duc[s] + duq)) / denu[s]) * mu[s];
-    })
-  }
-
-  // S5: transport divergence on the interior; write u*, v*, div
+  // S4: transport divergence on the interior; write u*, v*, div
   const T* us = p.u_first ? a1 : a2;
   const T* vs = p.u_first ? a2 : a1;
-  for (int k = threadIdx.x; k < TX * TY; k += THREADS) {
-    const int jj = k / TX;
-    const int ii = k % TX;
+  for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+    const int jj = k_ / TX;
+    const int ii = k_ % TX;
     const int gj = blockIdx.y * TY + jj;
     const int gi = blockIdx.x * TX + ii;
     if (gj >= p.ny || gi >= p.nx) continue;
     const int s = (W + jj) * RX + W + ii;
-    const T U = (hx[s] * us[s]) * mu[s];
-    const T Uw = (hx[s - 1] * us[s - 1]) * mu[s - 1];
-    const T V = (hy[s] * vs[s]) * mv[s];
-    const T Vs = (hy[s - RX] * vs[s - RX]) * mv[s - RX];
     const long g = long(gj) * p.nx + gi;
-    p.us[g] = us[s];
-    p.vs[g] = vs[s];
-    p.div[g] = ((U - Uw) * p.inv_dx + (V - Vs) * p.inv_dy) * mask[s];
+    T U, Uw, V, Vs;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      const T* uk = us + k * NPT;
+      const T* vk = vs + k * NPT;
+      const T a = c.hx(k, s) * uk[s];
+      const T aw = c.hx(k, s - 1) * uk[s - 1];
+      const T b = c.hy(k, s) * vk[s];
+      const T bs = c.hy(k, s - RX) * vk[s - RX];
+      U = (k > 0) ? U + a : a;
+      Uw = (k > 0) ? Uw + aw : aw;
+      V = (k > 0) ? V + b : b;
+      Vs = (k > 0) ? Vs + bs : bs;
+      out_us[k * p.plane + g] = uk[s];
+      out_vs[k * p.plane + g] = vk[s];
+    }
+    U = U * mu[s];
+    Uw = Uw * mu[s - 1];
+    V = V * mv[s];
+    Vs = Vs * mv[s - RX];
+    out_div[g] = ((U - Uw) * p.inv_dx + (V - Vs) * p.inv_dy) * mask[s];
   }
 }
 
 }  // namespace pa
 
 // ---------------------------------------------------------------- K3b
-
 namespace pb {
 
-constexpr int W = 1;
+constexpr int W = (WETDRY || OBC) ? LO + 1 : 1;
 constexpr int RX = TX + 2 * W;
 constexpr int RY = TY + 2 * W;
 constexpr int NPT = RX * RY;
-
-enum Plane { P_H, P_US, P_VS, P_P, P_M, P_MU, P_MV, P_U1, P_V1, N_PLANES };
-
-template <typename T>
-struct Params {
-  const T *h, *us, *vs, *pr, *mask, *mask_u, *mask_v;
-  T *h1, *u1, *v1;
-  int ny, nx;
-  T dt, inv_dx, inv_dy, corr;
+enum Plane {
+  P_H = 0,
+  P_UA = NZ,
+  P_VA = 2 * NZ,
+  P_P = 3 * NZ,
+  P_M,
+  P_MU,
+  P_MV,
+  P_H1,
+  P_FX = P_H1 + NZ,
+  P_FY = P_FX + (WETDRY ? NZ : 0),
+  P_SC = P_FY + (WETDRY ? NZ : 0),
+  P_EE = P_SC + (WETDRY ? NZ : 0),
+  N_PLANES = P_EE + (OBC ? 1 : 0)
 };
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS) kernel(const Params<T> p) {
+constexpr int smem_bytes() {
+  return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+kernel(const Params<T> p, const T* pres, T corr, T* out_h, T* out_u,
+       T* out_v) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
+  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
   T* h = sm + P_H * NPT;
-  T* us = sm + P_US * NPT;
-  T* vs = sm + P_VS * NPT;
+  T* ua = sm + P_UA * NPT;
+  T* va = sm + P_VA * NPT;
   T* pr = sm + P_P * NPT;
   T* mask = sm + P_M * NPT;
   T* mu = sm + P_MU * NPT;
   T* mv = sm + P_MV * NPT;
-  T* u1 = sm + P_U1 * NPT;
-  T* v1 = sm + P_V1 * NPT;
+  T* h1 = sm + P_H1 * NPT;
+  T* fx = sm + P_FX * NPT;
+  T* fy = sm + P_FY * NPT;
+  T* sc = sm + P_SC * NPT;
+  T* ee = sm + P_EE * NPT;
+  const int tid = threadIdx.x;
 
-  const T half = T(0.5);
-  const int x0 = blockIdx.x * TX - W;
-  const int y0 = blockIdx.y * TY - W;
-
-  for (int s = threadIdx.x; s < NPT; s += THREADS) {
-    const int gj = wrap(y0 + s / RX, p.ny);
-    const int gi = wrap(x0 + s % RX, p.nx);
-    const long g = long(gj) * p.nx + gi;
-    h[s] = p.h[g];
-    us[s] = p.us[g];
-    vs[s] = p.vs[g];
-    pr[s] = p.pr[g];
-    mask[s] = p.mask[g];
-    mu[s] = p.mask_u[g];
-    mv[s] = p.mask_v[g];
+  load_offsets<T, RX, RY, W>(p, gidx);
+  __syncthreads();
+  for (int s = tid; s < NPT; s += THREADS) {
+    const int g = gidx[s];
+    for (int k = 0; k < NZ; ++k) {
+      h[k * NPT + s] = p.in[I_H][k * p.plane + g];
+      ua[k * NPT + s] = p.in[I_U][k * p.plane + g];
+      va[k * NPT + s] = p.in[I_V][k * p.plane + g];
+    }
+    pr[s] = pres[g];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
   }
+  if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
   __syncthreads();
 
-  // S1: the barotropic correction, the same in every layer
-  REGION(RX, RY, 0, 1, {
+  // S1: the barotropic correction, the same in every layer, in place
+  REGION(0, 1, {
     const T dpx = mu[s] * ((pr[s + 1] - pr[s]) * p.inv_dx);
     const T dpy = mv[s] * ((pr[s + RX] - pr[s]) * p.inv_dy);
-    u1[s] = (us[s] - p.corr * dpx) * mu[s];
-    v1[s] = (vs[s] - p.corr * dpy) * mv[s];
+    for (int k = 0; k < NZ; ++k) {
+      ua[k * NPT + s] = (ua[k * NPT + s] - corr * dpx) * mu[s];
+      va[k * NPT + s] = (va[k * NPT + s] - corr * dpy) * mv[s];
+    }
   })
 
-  // S2: continuity with the corrected velocities; write h1, u1, v1
-  for (int k = threadIdx.x; k < TX * TY; k += THREADS) {
-    const int jj = k / TX;
-    const int ii = k % TX;
+  // S2: the layer continuity with the corrected velocities
+  const Tile<T, RX, NPT> c{p, gidx, ua, va, mask, mu, mv, nullptr, h1,
+                           nullptr, nullptr, nullptr, nullptr, ee};
+  continuity_stage<T, RX, RY>(c, h, ua, va, h1, fx, fy, sc, false);
+
+  // S3: the gates and Flather on the interior; write h1, u1, v1
+  for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+    const int jj = k_ / TX;
+    const int ii = k_ % TX;
     const int gj = blockIdx.y * TY + jj;
     const int gi = blockIdx.x * TX + ii;
     if (gj >= p.ny || gi >= p.nx) continue;
     const int s = (W + jj) * RX + W + ii;
-    const T fx = mu[s] * (half * (h[s] + h[s + 1])) * u1[s];
-    const T fxm = mu[s - 1] * (half * (h[s - 1] + h[s])) * u1[s - 1];
-    const T fy = mv[s] * (half * (h[s] + h[s + RX])) * v1[s];
-    const T fym = mv[s - RX] * (half * (h[s - RX] + h[s])) * v1[s - RX];
-    const T dh = -((fx - fxm) * p.inv_dx + (fy - fym) * p.inv_dy) * mask[s];
     const long g = long(gj) * p.nx + gi;
-    p.h1[g] = (h[s] + p.dt * dh) * mask[s];
-    p.u1[g] = u1[s];
-    p.v1[g] = v1[s];
+    T uo[NZ], vo[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      uo[k] = ua[k * NPT + s];
+      vo[k] = va[k * NPT + s];
+    }
+    finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      out_h[k * p.plane + g] = h1[k * NPT + s];
+      out_u[k * p.plane + g] = uo[k];
+      out_v[k * p.plane + g] = vo[k];
+    }
   }
 }
 
 }  // namespace pb
 
-#undef REGION
-
-template <typename K, typename P>
-int launch(K kernel, const P& p, int n_planes, size_t elem, int rx, int ry,
-           cudaStream_t stream) {
-  const int smem = int(n_planes * rx * ry * elem);
+template <typename T>
+int proj_a(const void* const* ptrs, const int* ints, const double* dbls,
+           void* us, void* vs, void* div, void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  constexpr int smem = pa::smem_bytes<T>();
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      pa::kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
   const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
-  kernel<<<grid, THREADS, smem, stream>>>(p);
+  pa::kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<T*>(us), static_cast<T*>(vs), static_cast<T*>(div));
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int proj_a(const T* h, const T* u, const T* v, const T* mask,
-           const T* mask_u, const T* mask_v, const T* mask_q, const T* f_q,
-           const T* taux, const T* tauy, T* us, T* vs, T* div, int ny,
-           int nx, int u_first, int sadourny, int free_slip, int visc,
-           int wind, double dt, double inv_dx, double inv_dy, double nu2,
-           double rho0, double h_min, double r_bot, void* stream) {
-  pa::Params<T> p{h,      u,    v,      mask,     mask_u,    mask_v, mask_q,
-                  f_q,    taux, tauy,   us,       vs,        div,    ny,
-                  nx,     u_first, sadourny, free_slip, visc, wind,
-                  T(dt),  T(inv_dx), T(inv_dy), T(nu2), T(rho0), T(h_min),
-                  T(r_bot)};
-  return launch(pa::kernel<T>, p, pa::N_PLANES, sizeof(T), pa::RX, pa::RY,
-                static_cast<cudaStream_t>(stream));
-}
-
-template <typename T>
-int proj_b(const T* h, const T* us, const T* vs, const T* pr, const T* mask,
-           const T* mask_u, const T* mask_v, T* h1, T* u1, T* v1, int ny,
-           int nx, double dt, double inv_dx, double inv_dy, double corr,
+int proj_b(const void* const* ptrs, const int* ints, const double* dbls,
+           const void* pres, double corr, void* h1, void* u1, void* v1,
            void* stream) {
-  pb::Params<T> p{h,  us, vs, pr,    mask,      mask_u,    mask_v, h1,
-                  u1, v1, ny, nx, T(dt), T(inv_dx), T(inv_dy), T(corr)};
-  return launch(pb::kernel<T>, p, pb::N_PLANES, sizeof(T), pb::RX, pb::RY,
-                static_cast<cudaStream_t>(stream));
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  constexpr int smem = pb::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      pb::kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  pb::kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const T*>(pres), T(corr), static_cast<T*>(h1),
+      static_cast<T*>(u1), static_cast<T*>(v1));
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
-#define PROJ_ENTRY(NAME_A, NAME_B, T)                                        \
-  extern "C" int NAME_A(                                                     \
-      const T* h, const T* u, const T* v, const T* mask, const T* mask_u,    \
-      const T* mask_v, const T* mask_q, const T* f_q, const T* taux,         \
-      const T* tauy, T* us, T* vs, T* div, int ny, int nx, int u_first,      \
-      int sadourny, int free_slip, int visc, int wind, double dt,            \
-      double inv_dx, double inv_dy, double nu2, double rho0, double h_min,   \
-      double r_bot, void* stream) {                                          \
-    return proj_a<T>(h, u, v, mask, mask_u, mask_v, mask_q, f_q, taux, tauy, \
-                     us, vs, div, ny, nx, u_first, sadourny, free_slip,      \
-                     visc, wind, dt, inv_dx, inv_dy, nu2, rho0, h_min,       \
-                     r_bot, stream);                                         \
+#define PROJ_ENTRIES(SUFFIX, T)                                              \
+  extern "C" int beom_proj_a_##SUFFIX(                                       \
+      const void* const* ptrs, const int* ints, const double* dbls,          \
+      void* us, void* vs, void* div, void* stream) {                         \
+    return proj_a<T>(ptrs, ints, dbls, us, vs, div, stream);                 \
   }                                                                          \
-  extern "C" int NAME_B(const T* h, const T* us, const T* vs, const T* pr,   \
-                        const T* mask, const T* mask_u, const T* mask_v,     \
-                        T* h1, T* u1, T* v1, int ny, int nx, double dt,      \
-                        double inv_dx, double inv_dy, double corr,           \
-                        void* stream) {                                      \
-    return proj_b<T>(h, us, vs, pr, mask, mask_u, mask_v, h1, u1, v1, ny,    \
-                     nx, dt, inv_dx, inv_dy, corr, stream);                  \
+  extern "C" int beom_proj_b_##SUFFIX(                                       \
+      const void* const* ptrs, const int* ints, const double* dbls,          \
+      const void* pres, double corr, void* h1, void* u1, void* v1,           \
+      void* stream) {                                                        \
+    return proj_b<T>(ptrs, ints, dbls, pres, corr, h1, u1, v1, stream);      \
   }
 
-PROJ_ENTRY(beom_proj_a_f32, beom_proj_b_f32, float)
-PROJ_ENTRY(beom_proj_a_f64, beom_proj_b_f64, double)
+PROJ_ENTRIES(f32, float)
+PROJ_ENTRIES(f64, double)
+
+// dynamic shared memory of one CTA of proj_a (0) and proj_b (1), for the
+// wrapper's choice of tile
+extern "C" int beom_smem_bytes(int which, int is_f64) {
+  if (which == 0)
+    return is_f64 ? pa::smem_bytes<double>() : pa::smem_bytes<float>();
+  return is_f64 ? pb::smem_bytes<double>() : pb::smem_bytes<float>();
+}
 
 extern "C" const char* beom_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -4,6 +4,8 @@ The npz layout is the reference's (h, u, v, t, n and, for the projection
 schemes, phi and phi_prev), with n stored as int32, so a snapshot moves
 between the two packages both ways.  A snapshot is a restart file.
 
+A sharded State (parallel/mesh.py) is written as the same global npz.
+
 Directory layout: <run_dir>/snap_<step:09d>.npz, plus last_good.npz kept
 for failure recovery.
 """
@@ -17,10 +19,12 @@ import numpy as np
 import torch
 
 from beom_tpu_torch.core.state import State
+from beom_tpu_torch.parallel.mesh import gather
 
 
-def _np(a: torch.Tensor) -> np.ndarray:
-    return a.detach().cpu().numpy()
+def _np(a) -> np.ndarray:
+    """A field as a global numpy array; a sharded field is gathered."""
+    return gather(a).detach().cpu().numpy()
 
 
 def save_state(path, state: State) -> None:

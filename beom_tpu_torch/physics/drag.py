@@ -31,9 +31,8 @@ def _on_layer(x, k: int, nz: int):
     """(nz, ny, nx) holding the 2-D field x in layer k, zeros elsewhere."""
     if nz == 1:
         return x[None]
-    out = torch.zeros((nz,) + x.shape, dtype=x.dtype, device=x.device)
-    out[k] = x
-    return out
+    zero = torch.zeros_like(x)
+    return torch.stack([x if j == k else zero for j in range(nz)], dim=0)
 
 
 def bottom_drag_coeff(h, u, v, grid: Grid, cfg: Config):

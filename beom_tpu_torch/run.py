@@ -9,7 +9,17 @@ plus single-step calls for the remainder; the host sees a handful of
 diagnostic scalars per chunk, plus snapshot fields at cfg.snap_every.  On
 a non-finite state the run aborts, keeping last_good.npz for restart.
 
+With cfg.mesh_y * cfg.mesh_x > 1 the state is sharded over a mesh
+(parallel/mesh.py) and stepped by parallel/dist.make_dist_stepper; every
+shard lies on the grid's device.  Diagnostics and snapshots are those of
+the gathered state, as the reference takes them of the global array (so
+they equal the single-device run's bit for bit; parallel/diag.py has the
+per-shard reductions for a caller that must not gather), and the sharded
+state is returned.
+
     python -m beom_tpu_torch.run double_gyre -n 400 --set steps_per_pass=4
+    python -m beom_tpu_torch.run double_gyre -n 400 --set backend=fused \
+        --set mesh_y=2 --set mesh_x=4 --set nx=2048 --set ny=2048
 """
 
 from __future__ import annotations
@@ -43,10 +53,6 @@ def run(cfg: Config, grid: Grid, forcing: Forcing, state: State,
     defaults to the diagnostics/snapshot cadence (or 100).
     """
     log = sys.stdout if log is None else log
-    if cfg.mesh_x * cfg.mesh_y > 1:
-        raise NotImplementedError(
-            "a device mesh (mesh_x * mesh_y > 1) is not ported to "
-            "beom_tpu_torch yet: ROADMAP queue 1 item 14 (slice 5)")
     cadences = [c for c in (cfg.diag_every, cfg.snap_every) if c > 0]
     if chunk is None:
         chunk = min(cadences) if cadences else 100
@@ -57,12 +63,25 @@ def run(cfg: Config, grid: Grid, forcing: Forcing, state: State,
         if resume := snapshots.latest_snapshot(run_dir):
             state = snapshots.load_state(resume, device=grid.H.device)
             print(f"# resumed from {resume} at step {state.n}", file=log)
+    # resume before sharding, so a mesh run steps properly placed shards
     state = prepare_state(state, cfg)
 
     spp = cfg.steps_per_pass
-    pstep = make_stepper(grid, forcing, cfg)       # advances spp steps
-    pstep1 = pstep if spp == 1 else make_stepper(
-        grid, forcing, dataclasses.replace(cfg, steps_per_pass=1))
+    cfg1 = dataclasses.replace(cfg, steps_per_pass=1)
+    if cfg.mesh_x * cfg.mesh_y > 1:
+        from beom_tpu_torch.parallel.dist import make_dist_stepper
+        from beom_tpu_torch.parallel.mesh import (gather_state, make_mesh,
+                                                  shard_state)
+        mesh = make_mesh(cfg.mesh_y, cfg.mesh_x, devices=[grid.H.device])
+        state = shard_state(state, mesh)
+        pstep = make_dist_stepper(grid, forcing, cfg, mesh)
+        pstep1 = pstep if spp == 1 else make_dist_stepper(
+            grid, forcing, cfg1, mesh)
+    else:
+        def gather_state(s):
+            return s
+        pstep = make_stepper(grid, forcing, cfg)   # advances spp steps
+        pstep1 = pstep if spp == 1 else make_stepper(grid, forcing, cfg1)
 
     def advance(s, k):
         # k model steps = k // spp passes + a 1-step tail per remainder
@@ -78,7 +97,7 @@ def run(cfg: Config, grid: Grid, forcing: Forcing, state: State,
         k = min(chunk, n_steps - done)
         state = advance(state, k)
         done += k
-        d = diagnostics(state, grid, cfg)
+        d = diagnostics(gather_state(state), grid, cfg)
         if cfg.diag_every > 0:
             print(json.dumps({"kind": "diag", **d}), file=log, flush=True)
         if d["finite"] != 1.0:

@@ -18,11 +18,12 @@ negative semi-definite on the wet subspace; closed walls are natural
     loop, the plain version of the blocked sweep kernel
     (stencils/redblack.py).
 
-Single device only.  The reference's `dot`/`dots`/`matvec`/`inv_diag`
-hooks of cg_solve and `pad1`/`crop1`/`red` hooks of make_ssor_precond
-exist for its distributed tier (parallel/dist.py); they are left out
-here and come with the port's distributed slice (ROADMAP queue 1
-item 14).
+The `dot`/`dots`/`matvec`/`inv_diag` hooks of cg_solve and the
+`pad1`/`crop1`/`red` hooks of make_ssor_precond serve the distributed
+tier (parallel/dist.py), which passes the mesh reductions, the
+halo-pipelined operator and the halo exchange; their defaults are the
+single-device operations, and the solver code itself does not know the
+topology.
 """
 
 from __future__ import annotations
@@ -98,10 +99,18 @@ def _rb_inv_diag(Hu, Hv, rdx2: float, rdy2: float, lam):
 
 
 def make_ssor_precond(grid: Grid, cfg: Config, lam=0.0,
-                      sweeps: Optional[int] = None):
+                      sweeps: Optional[int] = None,
+                      pad1: Optional[Callable] = None,
+                      crop1: Optional[Callable] = None,
+                      red=None):
     """Symmetric Gauss-Seidel (red-black ordered) preconditioner
     z = M^{-1} r: `sweeps` forward (red, black) + backward (black, red)
     passes from x = 0, omega = 1 so M is symmetric positive (CG-safe).
+
+    pad1/crop1 (default identity: the periodic rolls wrap by themselves)
+    are the distributed 1-halo exchange hooks, and `grid` then arrives
+    1-halo padded; `red` overrides the checkerboard (the distributed path
+    needs the global colouring).
     """
     sweeps = cfg.precond_sweeps if sweeps is None else sweeps
     Hu, Hv = face_depths(grid)
@@ -110,12 +119,24 @@ def make_ssor_precond(grid: Grid, cfg: Config, lam=0.0,
     Hu_w = ops.sxm(Hu)
     Hv_s = ops.sym(Hv)
     mask = grid.mask
-    red = _checkerboard(mask.shape, mask.dtype, mask.device) * mask
+    if pad1 is None:
+        def pad1(a):
+            return a
+
+        def crop1(a):
+            return a
+    else:
+        # crop the pointwise factors to the local block
+        Hu, Hv, Hu_w, Hv_s = crop1(Hu), crop1(Hv), crop1(Hu_w), crop1(Hv_s)
+        inv_diag, mask = crop1(inv_diag), crop1(mask)
+    if red is None:
+        red = _checkerboard(mask.shape, mask.dtype, mask.device) * mask
     black = (1.0 - red) * mask
 
     def halfsweep(x, b, colour):
-        nb = (Hu * ops.sxp(x) + Hu_w * ops.sxm(x)) * rdx2 \
-           + (Hv * ops.syp(x) + Hv_s * ops.sym(x)) * rdy2
+        xp = pad1(x)
+        nb = (Hu * crop1(ops.sxp(xp)) + Hu_w * crop1(ops.sxm(xp))) * rdx2 \
+           + (Hv * crop1(ops.syp(xp)) + Hv_s * crop1(ops.sym(xp))) * rdy2
         x_gs = (b - nb) * inv_diag
         return torch.where(colour > 0, x_gs, x) * mask
 
@@ -133,8 +154,11 @@ def make_ssor_precond(grid: Grid, cfg: Config, lam=0.0,
 
 
 def cg_solve(b, grid: Grid, cfg: Config, x0=None, lam=0.0,
-             tol: Optional[float] = None,
+             dot: Callable = _local_dot, tol: Optional[float] = None,
              maxiter: Optional[int] = None,
+             matvec: Optional[Callable] = None,
+             inv_diag=None,
+             dots: Optional[Callable] = None,
              precond: Optional[Callable] = None) -> CGResult:
     """Preconditioned conjugate gradients on A x = b, A = div(H grad) - lam,
     in the single-reduction Chronopoulos-Gear form: the two CG dot
@@ -152,24 +176,38 @@ def cg_solve(b, grid: Grid, cfg: Config, x0=None, lam=0.0,
     precond: z = M^{-1} r callback (make_ssor_precond), default the
     Jacobi inv_diag multiply.  Must be symmetric positive definite on
     the wet subspace.
+
+    Distributed use (parallel/dist.py): `dots` = the batched sum with one
+    mesh reduction, so an iteration costs exactly one; `dot` for the
+    set-up scalars; `matvec` = the halo-exchanged A; `inv_diag` computed
+    on the padded grid; `precond` with its exchange hooks.
     """
     tol = cfg.solver_tol if tol is None else tol
     # f32 cannot reach f64-grade tolerances; clamp to ~30 eps so CG
     # stops at stagnation instead of burning maxiter and diverging
     tol = max(tol, 30.0 * float(torch.finfo(b.dtype).eps))
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter
-    dot, dots = _local_dot, _local_dots
+    if dots is None:
+        if dot is not _local_dot:
+            def dots(pairs):
+                return torch.stack([dot(a, c) for a, c in pairs])
+        else:
+            dots = _local_dots
 
     if precond is None:
-        _, inv_diag = jacobi_diag(grid, cfg, lam)
+        if inv_diag is None:
+            _, inv_diag = jacobi_diag(grid, cfg, lam)
 
         def precond(r):
             return inv_diag * r
 
-    Hu, Hv = face_depths(grid)
+    if matvec is None:
+        Hu, Hv = face_depths(grid)
 
-    def A(p):
-        return laplacian_H(p, Hu, Hv, grid, cfg, lam=lam)
+        def A(p):
+            return laplacian_H(p, Hu, Hv, grid, cfg, lam=lam)
+    else:
+        A = matvec
 
     mask = grid.mask
     eps = torch.finfo(b.dtype).tiny

@@ -27,8 +27,14 @@ The standalone solver returns the best iterate seen, taking any
 improvement of |r|^2 as the new best; the reference takes a new best only
 on a 25 % improvement and can return the initial guess under slow steady
 convergence.  Here the 0.75 factor only resets the patience counter.
-The distributed hierarchy and its exchange hooks come with the port's
-distributed slice.
+
+Under a mesh (parallel/dist.py) the hierarchy is shard-local
+(`build_dist_levels`: block-local face coarsening keeps every level on
+the same mesh) and the cycle takes the exchange hooks `pad` / `crop`
+(the halo exchange), `gsum` (the mesh sum) and `nbr` (the halo-pipelined
+neighbour sum); their defaults are the single-device operations.
+`make_dist_mg_precond` runs the cycle without the de-mean, so a CG
+iteration stays at one mesh reduction.
 """
 
 from __future__ import annotations
@@ -111,17 +117,25 @@ def _checkerboard(shape, dtype, device):
     return (((i + j) % 2) == 0).to(dtype)
 
 
-def _make_level(Hu, Hv, mask, dx: float, dy: float, lam) -> Level:
+def _make_level(Hu, Hv, mask, dx: float, dy: float, lam, Hu_w=None,
+                Hv_s=None, red=None, gsum=torch.sum) -> Level:
     """A level from its face transmissibilities (Hu at east faces, Hv at
-    north faces) and its cell mask."""
-    Hu_w, Hv_s = ops.sxm(Hu), ops.sym(Hv)
+    north faces) and its cell mask.  Hu_w / Hv_s (the west and south faces
+    at the cell) default to the periodic local shift; the distributed path
+    passes exchanged values, the global colouring as `red` and the mesh
+    sum as `gsum`."""
+    if Hu_w is None:
+        Hu_w = ops.sxm(Hu)
+    if Hv_s is None:
+        Hv_s = ops.sym(Hv)
     rdx2, rdy2 = 1.0 / dx ** 2, 1.0 / dy ** 2
     diag = -((Hu + Hu_w) * rdx2 + (Hv + Hv_s) * rdy2) - lam
     inv_diag = torch.where(diag != 0,
                            1.0 / torch.where(diag == 0, 1.0, diag),
                            0.0) * mask
-    red = _checkerboard(mask.shape, mask.dtype, mask.device) * mask
-    return Level(nwet=torch.clamp_min(torch.sum(mask), 1.0), mask=mask,
+    if red is None:
+        red = _checkerboard(mask.shape, mask.dtype, mask.device) * mask
+    return Level(nwet=torch.clamp_min(gsum(mask), 1.0), mask=mask,
                  Hu=Hu, Hv=Hv, Hu_w=Hu_w, Hv_s=Hv_s, inv_diag=inv_diag,
                  red=red, black=(1.0 - red) * mask, dx=float(dx),
                  dy=float(dy), rdx2=float(rdx2), rdy2=float(rdy2))
@@ -165,16 +179,68 @@ def operator(p, Hu, Hu_w, Hv, Hv_s, mask, rdx2: float, rdy2: float, lam):
     return out * mask
 
 
-def _apply_A(lv: Level, p, lam):
-    return operator(p, lv.Hu, lv.Hu_w, lv.Hv, lv.Hv_s, lv.mask, lv.rdx2,
-                    lv.rdy2, lam)
+def _id_pad(a, w):
+    """The single-device 'exchange': periodic rolls already wrap, so the
+    pad is the identity (and the crop is not called)."""
+    return a
 
 
-def _halfsweep(lv: Level, x, b, colour):
-    nb = (lv.Hu * ops.sxp(x) + lv.Hu_w * ops.sxm(x)) * lv.rdx2 \
-        + (lv.Hv * ops.syp(x) + lv.Hv_s * ops.sym(x)) * lv.rdy2
+def _nbr_shifts(p, pad, crop):
+    """(east, west, north, south) neighbour values of p under the exchange
+    hooks: local rolls when pad is the identity, a 1-halo exchange under a
+    mesh."""
+    if pad is _id_pad:
+        return ops.sxp(p), ops.sxm(p), ops.syp(p), ops.sym(p)
+    pp = pad(p, 1)
+    return (crop(ops.sxp(pp), 1), crop(ops.sxm(pp), 1),
+            crop(ops.syp(pp), 1), crop(ops.sym(pp), 1))
+
+
+def _apply_A(lv: Level, p, lam, pad=_id_pad, crop=None, nbr=None):
+    """A p.  nbr(lv, p) -> the off-diagonal neighbour sum overrides the
+    pad / crop exchange (the distributed path passes the halo-pipelined
+    form, parallel/dist._make_mg_nbr)."""
+    if nbr is not None:
+        out = nbr(lv, p) - ((lv.Hu + lv.Hu_w) * lv.rdx2
+                            + (lv.Hv + lv.Hv_s) * lv.rdy2) * p
+        if lam != 0.0:
+            out = out - lam * p
+        return out * lv.mask
+    if pad is _id_pad:
+        return operator(p, lv.Hu, lv.Hu_w, lv.Hv, lv.Hv_s, lv.mask, lv.rdx2,
+                        lv.rdy2, lam)
+    e, w, n_, s_ = _nbr_shifts(p, pad, crop)
+    out = (lv.Hu * e + lv.Hu_w * w - (lv.Hu + lv.Hu_w) * p) * lv.rdx2 \
+        + (lv.Hv * n_ + lv.Hv_s * s_ - (lv.Hv + lv.Hv_s) * p) * lv.rdy2
+    if lam != 0.0:
+        out = out - lam * p
+    return out * lv.mask
+
+
+def _halfsweep(lv: Level, x, b, colour, pad=_id_pad, crop=None, nbr=None):
+    if nbr is None:
+        e, w, n_, s_ = _nbr_shifts(x, pad, crop)
+        nb = (lv.Hu * e + lv.Hu_w * w) * lv.rdx2 \
+            + (lv.Hv * n_ + lv.Hv_s * s_) * lv.rdy2
+    else:
+        nb = nbr(lv, x)
     x_gs = (b - nb) * lv.inv_diag
     return torch.where(colour > 0, x_gs, x) * lv.mask
+
+
+def _restrict2_h(a, pad=_id_pad, crop=None):
+    """Hooked restriction: a width-2 exchange lets the full-weighting
+    stencil see the neighbour shards' edge values; the coarse result is
+    cropped back to the local block."""
+    if pad is _id_pad:
+        return _restrict2(a)
+    return crop(_restrict2(pad(a, 2)), 1)
+
+
+def _prolong2_h(a, pad=_id_pad, crop=None):
+    if pad is _id_pad:
+        return _prolong2(a)
+    return crop(_prolong2(pad(a, 1)), 2)
 
 
 def _gamma_at(gamma, k: int) -> int:
@@ -183,7 +249,8 @@ def _gamma_at(gamma, k: int) -> int:
 
 
 def _vcycle(levels, k, b, lam, nu, nu_coarse, demean=True, gamma=1,
-            smooth=None, coarse=None, krylov=0):
+            smooth=None, coarse=None, krylov=0, pad=_id_pad, crop=None,
+            gsum=torch.sum, nbr=None):
     """One cycle on levels[k:] from x0 = 0; returns the correction.
 
     gamma: recursions from level k to k+1, an int (1 = V, 2 = W) or a
@@ -193,7 +260,9 @@ def _vcycle(levels, k, b, lam, nu, nu_coarse, demean=True, gamma=1,
     level j0 the whole remaining cycle is call(b) -> x.  krylov > 0: the
     K-cycle, the coarse problem solved by `krylov` flexible-CG iterations
     preconditioned by the recursive cycle (nonlinear: for the standalone
-    solver only)."""
+    solver only).  pad / crop / gsum / nbr: the exchange hooks of the
+    distributed cycle."""
+    hooks = (pad, crop, nbr)
     lv = levels[k]
     if coarse is not None and k == coarse[0]:
         return coarse[1](b)
@@ -203,29 +272,29 @@ def _vcycle(levels, k, b, lam, nu, nu_coarse, demean=True, gamma=1,
         # symmetric, so the whole cycle is
         nf = nu_coarse // 2
         for _ in range(nf):
-            x = _halfsweep(lv, x, b, lv.red)
-            x = _halfsweep(lv, x, b, lv.black)
+            x = _halfsweep(lv, x, b, lv.red, *hooks)
+            x = _halfsweep(lv, x, b, lv.black, *hooks)
         for _ in range(nu_coarse - nf):
-            x = _halfsweep(lv, x, b, lv.black)
-            x = _halfsweep(lv, x, b, lv.red)
+            x = _halfsweep(lv, x, b, lv.black, *hooks)
+            x = _halfsweep(lv, x, b, lv.red, *hooks)
         return x
     sm = None if smooth is None else smooth[k]
     if sm is not None:
         x, r = sm[0](x, b)
     else:
         for _ in range(nu):
-            x = _halfsweep(lv, x, b, lv.red)
-            x = _halfsweep(lv, x, b, lv.black)
-        r = (b - _apply_A(lv, x, lam)) * lv.mask
+            x = _halfsweep(lv, x, b, lv.red, *hooks)
+            x = _halfsweep(lv, x, b, lv.black, *hooks)
+        r = (b - _apply_A(lv, x, lam, *hooks)) * lv.mask
     lc = levels[k + 1]
-    bc = _restrict2(r) * lc.mask
+    bc = _restrict2_h(r, pad, crop) * lc.mask
     if lam == 0.0 and demean:
         # keep the coarse pure-Neumann problem compatible
-        bc = (bc - lc.mask * (torch.sum(bc) / lc.nwet)) * lc.mask
+        bc = (bc - lc.mask * (gsum(bc) / lc.nwet)) * lc.mask
 
     def subcycle(rhs):
         return _vcycle(levels, k + 1, rhs, lam, nu, nu_coarse, demean,
-                       gamma, smooth, coarse, krylov)
+                       gamma, smooth, coarse, krylov, pad, crop, gsum, nbr)
 
     if krylov > 0 and (coarse is None or k + 1 < coarse[0]):
         eps = torch.finfo(bc.dtype).tiny
@@ -236,31 +305,31 @@ def _vcycle(levels, k, b, lam, nu, nu_coarse, demean=True, gamma=1,
 
         z = subcycle(bc)
         p, xc, rc = z, torch.zeros_like(bc), bc
-        rz = torch.sum(rc * z)
+        rz = gsum(rc * z)
         for i in range(krylov):
-            q = _apply_A(lc, p, lam)
-            alpha = sdiv(rz, torch.sum(p * q))
+            q = _apply_A(lc, p, lam, *hooks)
+            alpha = sdiv(rz, gsum(p * q))
             xc = xc + alpha * p
             rc = (rc - alpha * q) * lc.mask
             if i < krylov - 1:
                 z = subcycle(rc)
-                rz2 = torch.sum(rc * z)
+                rz2 = gsum(rc * z)
                 p = z + sdiv(rz2, rz) * p
                 rz = rz2
     else:
         xc = subcycle(bc)
         for _ in range(_gamma_at(gamma, k) - 1):
-            rc = (bc - _apply_A(lc, xc, lam)) * lc.mask
+            rc = (bc - _apply_A(lc, xc, lam, *hooks)) * lc.mask
             xc = xc + subcycle(rc)
     if lam == 0.0 and demean:
-        xc = (xc - lc.mask * (torch.sum(xc) / lc.nwet)) * lc.mask
-    x = (x + _prolong2(xc)) * lv.mask
+        xc = (xc - lc.mask * (gsum(xc) / lc.nwet)) * lc.mask
+    x = (x + _prolong2_h(xc, pad, crop)) * lv.mask
     if sm is not None:
         x = sm[1](x, b)
     else:
         for _ in range(nu):
-            x = _halfsweep(lv, x, b, lv.black)
-            x = _halfsweep(lv, x, b, lv.red)
+            x = _halfsweep(lv, x, b, lv.black, *hooks)
+            x = _halfsweep(lv, x, b, lv.red, *hooks)
     return x
 
 
@@ -346,6 +415,66 @@ def make_mg_precond(grid: Grid, cfg: Config, lam=0.0, nu: int = 2,
     elif smoother != "eager":
         raise ValueError(f"unknown smoother {smoother!r}")
     return cycle_precond(levels, lam, nu, nu_coarse, gamma, smooth, coarse)
+
+
+def build_dist_levels(grid_p1: Grid, cfg: Config, lam, pad, crop, gsum,
+                      red_fn, min_local: int = 8):
+    """The shard-local hierarchy of the distributed cycle.  grid_p1: the
+    1-halo padded static Grid of the local blocks (parallel/dist.py).
+    Face coarsening is block-local (local extents stay even), so every
+    level stays distributed over the same mesh; coarsening stops at
+    `min_local` cells per shard side and the coarsest level is smoothed
+    with exchanges like any other.
+
+    pad(a, w) / crop(a, w): the mesh halo exchange; gsum: the mesh sum;
+    red_fn(shape, dtype): the global checkerboard on local blocks of that
+    shape."""
+    mask_p = grid_p1.mask
+    Hu_p = mask_p * ops.sxp(mask_p) * ops.a_xp(grid_p1.H)
+    Hv_p = mask_p * ops.syp(mask_p) * ops.a_yp(grid_p1.H)
+    Hu, Hv = crop(Hu_p, 1), crop(Hv_p, 1)
+    Hu_w, Hv_s = crop(ops.sxm(Hu_p), 1), crop(ops.sym(Hv_p), 1)
+    mask = crop(mask_p, 1)
+    dx, dy = cfg.dx, cfg.dy
+
+    def level():
+        return _make_level(Hu, Hv, mask, dx, dy, lam, Hu_w=Hu_w, Hv_s=Hv_s,
+                           red=red_fn(mask.shape, mask.dtype) * mask,
+                           gsum=gsum)
+
+    levels = [level()]
+    ny_l, nx_l = mask.shape
+    while (ny_l % 2 == 0 and nx_l % 2 == 0
+           and ny_l // 2 >= min_local and nx_l // 2 >= min_local):
+        Hu, Hv = _coarsen_faces(Hu, Hv)
+        Hu_w = crop(ops.sxm(pad(Hu, 1)), 1)
+        Hv_s = crop(ops.sym(pad(Hv, 1)), 1)
+        mask = (_coarsen2(mask) > 0).to(mask.dtype)
+        dx, dy = 2.0 * dx, 2.0 * dy
+        ny_l, nx_l = ny_l // 2, nx_l // 2
+        levels.append(level())
+    return levels
+
+
+def make_dist_mg_precond(grid_p1: Grid, cfg: Config, lam, pad, crop, gsum,
+                         red_fn, nu: int = 2, nu_coarse: int = 24,
+                         min_local: int = 8, gamma: int = 2, nbr=None):
+    """Distributed z = M^{-1} r: the (nu, nu)-cycle (W by default).  With
+    `nbr` (parallel/dist._make_mg_nbr) the half-sweeps and the operator
+    use the halo-pipelined neighbour sum, thin-slice edge exchanges,
+    instead of a 1-halo pad per sweep; the transfers keep the width-2 / 1
+    exchanges, once per level visit.  The cycle runs without the de-mean:
+    CG's own deflation keeps the level-0 problem compatible, and dropping
+    the per-level means keeps the iteration at one mesh reduction."""
+    levels = build_dist_levels(grid_p1, cfg, lam, pad, crop, gsum, red_fn,
+                               min_local=min_local)
+
+    def apply(r):
+        return _vcycle(levels, 0, r * levels[0].mask, lam, nu, nu_coarse,
+                       demean=False, gamma=gamma, pad=pad, crop=crop,
+                       gsum=gsum, nbr=nbr)
+
+    return apply
 
 
 def track_best(rr2: float, best: float, ref: float, since: int):

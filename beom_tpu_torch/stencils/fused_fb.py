@@ -115,6 +115,18 @@ def _pick(tiles, need, what):
         f"smallest tile {tiles[-1]}, above the {_MAX_SMEM} a CTA can use")
 
 
+def term_defines(cfg: Config, tile):
+    """The compile-time switches of csrc/fb_terms.cuh for cfg, and the
+    tile."""
+    return (f"BEOM_NZ={cfg.nz}", f"BEOM_WETDRY={int(cfg.wetdry)}",
+            f"BEOM_OBC={int(cfg.obc)}", f"BEOM_SPONGE={int(cfg.sponge)}",
+            f"BEOM_NTIDE={len(cfg.tides) if cfg.obc else 0}",
+            f"BEOM_NU4={int(cfg.nu4 != 0.0)}",
+            f"BEOM_CDBOT={int(cfg.cd_bot != 0.0)}",
+            f"BEOM_RINT={int(cfg.r_int != 0.0 and cfg.nz > 1)}",
+            f"BEOM_TX={tile[0]}", f"BEOM_TY={tile[1]}")
+
+
 def build_spec(cfg: Config, dtype=None):
     """(source, defines) of the build that runs cfg: fb_step.cu or
     split_step.cu with the compile-time switches and the tile."""
@@ -125,13 +137,7 @@ def build_spec(cfg: Config, dtype=None):
     what = f"the fused {cfg.scheme} step of nz = {cfg.nz} layers"
     tile = _pick(_TILES, lambda t: max(
         smem_bytes(cfg, t, t, elem)[k] for k in tiled), what)
-    defines = (f"BEOM_NZ={cfg.nz}", f"BEOM_WETDRY={int(cfg.wetdry)}",
-               f"BEOM_OBC={int(cfg.obc)}", f"BEOM_SPONGE={int(cfg.sponge)}",
-               f"BEOM_NTIDE={len(cfg.tides) if cfg.obc else 0}",
-               f"BEOM_NU4={int(cfg.nu4 != 0.0)}",
-               f"BEOM_CDBOT={int(cfg.cd_bot != 0.0)}",
-               f"BEOM_RINT={int(cfg.r_int != 0.0 and cfg.nz > 1)}",
-               f"BEOM_TX={tile[0]}", f"BEOM_TY={tile[1]}")
+    defines = term_defines(cfg, tile)
     if name == "split_step":
         sub = _pick(_SUB_TILES, lambda t: smem_bytes(
             cfg, tile, t, elem)["split_subcycle"],
@@ -206,10 +212,12 @@ def _entries(cfg: Config, dtype):
     return lib, entries
 
 
-def _scalars(cfg: Config, parity: int, t1):
-    """The int and double operand slots (csrc/fb_terms.cuh: Int, Dbl)."""
+def _scalars(cfg: Config, parity: int, t1, ny=None, nx=None):
+    """The int and double operand slots (csrc/fb_terms.cuh: Int, Dbl);
+    (ny, nx) is the extent of the block stepped when it is not the whole
+    grid."""
     pad = [0.0] * _MAX_LAYERS
-    ints = [cfg.ny, cfg.nx, int(parity == 0),
+    ints = [ny or cfg.ny, nx or cfg.nx, int(parity == 0),
             int(cfg.adv_scheme == "sadourny_energy"),
             int(cfg.slip == "free"), int(cfg.nu2 != 0.0), int(cfg.wind),
             cfg.nsub]
@@ -221,20 +229,25 @@ def _scalars(cfg: Config, parity: int, t1):
     return _array(_I, ints), _array(ctypes.c_double, dbls)
 
 
-def _check_operands(h, u, v, statics, cfg: Config):
+def _check_operands(h, u, v, statics, cfg: Config, check=None,
+                    extent=None):
+    """Raise unless every operand is what the kernels take; `check` is the
+    caller's check of the Config (default: check_config), `extent` the
+    (ny, nx) of the block stepped (default: the whole grid)."""
     if h.device.type != "cuda":
         raise NotImplementedError(
             f"the fused step runs on cuda or cpu, not {h.device.type}")
-    check_config(cfg)
+    (check or check_config)(cfg)
     if h.dtype not in _SUFFIX or h.dtype != cfg.tdtype:
         raise ValueError(f"fused step: dtype {h.dtype} with cfg.dtype "
                          f"{cfg.dtype}")
     nc = max(len(cfg.tides), 1)
     lead = {"h_ext": (cfg.nz,), "tide_amp": (nc,), "tide_phase": (nc,)}
     names = ("h", "u", "v") + _GRID_NAMES + _FORCING_NAMES
+    ny, nx = extent or (cfg.ny, cfg.nx)
     for name, a in zip(names, [h, u, v] + _operands(statics)):
         shape = lead.get(name, (cfg.nz,) if name in ("h", "u", "v") else ()) \
-            + (cfg.ny, cfg.nx)
+            + (ny, nx)
         if a.device != h.device or a.dtype != h.dtype \
                 or not a.is_contiguous() or tuple(a.shape) != shape:
             raise ValueError(

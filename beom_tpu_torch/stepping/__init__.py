@@ -19,8 +19,7 @@ def prepare_state(state, cfg: Config):
     a no-op for fb/split or when already attached."""
     if (cfg.scheme in _PROJECTION and cfg.warm_start
             and state.phi is None):
-        z = torch.zeros(state.h.shape[1:], dtype=state.h.dtype,
-                        device=state.h.device)
+        z = torch.zeros_like(state.h[0])
         return state.replace(phi=z, phi_prev=z)
     return state
 

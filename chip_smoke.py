@@ -51,7 +51,8 @@ Phases, each of which raises on failure (exit code != 0):
      default solve (CG + multigrid: K3a, K6, K3b), 20 steps, and (d)
      solver='mg' (K3a, K4b, K4a on levels 0 and 1, K5, K3b), 10 steps:
      the launch counts against the cycles, finite diagnostics,
-     max|sum h - H| bounded, 3 fused steps against 3 eager ones
+     max|sum h - H| bounded, 2 fused steps against 2 eager ones (an eager
+     step takes 12 to 28 s with the machine's host)
  13. times at 2048^2 f32: K4a with its residual, K4b, K5 (with and
      without its one-CTA small levels), a K6-mg solve (per iteration), a
      solver='mg' solve (per cycle) beside their plain versions, (c) and
@@ -75,6 +76,43 @@ Phases, each of which raises on failure (exit code != 0):
      plain versions, the split step at nsub 4, 8, 12, and the device's
      busy share under torch.profiler for two_layer fb and split nsub 8
 
+ 18. build lines of the libraries this list adds (projection.cu per case,
+     shard_step.cu per fb case, halo_pad.cu); K3a / K3b with every term
+     against their plain versions at 200x136 f64 and 2048^2 f32 on
+     two_layer, coastal_wetdry (dry cells in the state) and shelf_forced
+     (open faces, the tide at t + dt), both parities; run() of 10 steps at
+     2048^2 f32, backend='fused', with rigid_lid and implicit_fs on
+     two_layer and shelf_forced and implicit_fs on coastal_wetdry (the
+     shelf's rigid lid 4 steps: there the fused tier's cycle stalls CG,
+     each step runs K6 to its 500 iterations and the stall guard redoes
+     the solve with the W-cycle through K4a, K4b and K5): the launch
+     counts, the solves the guard redid, 3 fused steps against 3 eager ones
+ 19. K8 (the halo pad) against pad2d by slices and concatenations on
+     meshes (2, 4), (1, 8), (8, 1), (1, 1), w = 1, 3, 5, 2-D and layered
+     fields, f32 and f64, on a 2048^2 and a 192x128 grid: bit for bit
+ 20. K7 (the shard step) against its plain version per shard and against
+     single-device K1 on the gathered field, on (4, 1), (2, 4) and (2, 2),
+     for all four fb cases, both parities, k = 1 and 2, at 192x128 f64 and
+     2048^2 f32
+ 21. the mesh path: run() on the 2048^2 f32 double gyre on a 2 x 4 mesh of
+     shards on the card, backend='fused', steps_per_pass=4, 400 steps,
+     diagnostics every 100: K7's launch counts, the diagnostics and the
+     final state equal to the single-device K1 run's; K8's path: run() on
+     the same case and mesh with backend='eager', halo_impl='rdma', 20
+     steps, K8's count set to 0 just before and read just after (3 pad2d
+     per step, one launch per shard), diagnostics and final state equal to
+     the single-device eager run's; then 3 steps of each scheme at 512^2
+     f32 on (2, 4) against the single-device eager step, and one rigid-lid
+     step with the distributed multigrid-preconditioned CG at 128^2 on
+     (2, 2)
+ 22. times: K7 per step at 2048^2 and 8192^2 f32 on (2, 4) beside K1 alone
+     on the same grids (two steps at 8192^2 held against K1), K8 per pad2d
+     at w = 5 on the 1024x512 shards of 2048^2, K3a / K3b per case, each
+     between CUDA events and, beside it, the kernel's own device time under
+     torch.profiler (these times are the host's launch cost as much as the
+     kernel's), and the profiler's busy share of the mesh run, K7's time
+     split into interior and edge launches
+
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
 same work (`bound`); the last is {"ok": true, "device": {...}}.  It
@@ -93,7 +131,25 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BIG = 2048
-KERNELS = ("fb_step", "projection", "rb_sweep", "cg_fused", "mg_coarse")
+KERNELS = ("fb_step", "projection", "rb_sweep", "cg_fused", "mg_coarse",
+           "halo_pad")
+FB_CASES = ("double_gyre", "two_layer", "coastal_wetdry", "shelf_forced")
+# the runs of phase 18: (case, scheme, Config overrides, steps, grid of the
+# eager twin, bound of the fused steps against the eager ones).  The rigid
+# lid takes its default solve (CG + multigrid).  On the shelf the fused
+# tier's cycle stalls that solve (in the reference too), so every step runs
+# K6 to its iteration limit and the stall guard redoes the solve with the
+# W-cycle.  At 2048^2 that solve stagnates at float32 as well (it converges
+# at float64 and at 1024^2), so the run there takes a limit of 100
+# iterations and fewer steps, and the three steps against the eager path
+# are taken at 1024^2 with the default limit, where the guard's solve
+# converges
+PROJECTION_PATHS = (
+    ("two_layer", "rigid_lid", {}, 10, BIG, 1e-5),
+    ("two_layer", "implicit_fs", {}, 10, BIG, 1e-5),
+    ("shelf_forced", "rigid_lid", dict(solver_maxiter=100), 4, 1024, 1e-5),
+    ("shelf_forced", "implicit_fs", {}, 10, BIG, 1e-5),
+    ("coastal_wetdry", "implicit_fs", {}, 10, BIG, 1e-5))
 # the H100 SXM data sheet: device memory, and float32 outside the tensor
 # cores; a kernel's bound is the larger of its bytes and its operations
 # over these
@@ -118,20 +174,27 @@ AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
 RB_MAXITER = 480
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    print(f"== {name} [{time.perf_counter() - _T0:.0f} s in]", flush=True)
 
 
-def kernel_entry(name, src, site, launches, err, ms, n_bytes, n_ops):
-    """One kernel of the JSON record.  ms = (kernel, plain).  bound_ms is
-    the larger of n_bytes (each input read once, each output written once)
-    over the memory rate and n_ops over the float32 rate.  None of these
-    kernels has a single PyTorch call that computes the same function."""
+def kernel_entry(name, src, site, launches, err, ms, n_bytes, n_ops,
+                 site_dir="stencils", device=None):
+    """One kernel of the JSON record.  ms = (kernel, plain), between CUDA
+    events; `device`, where it was measured, is the kernel's own time
+    under torch.profiler (`device_ms`).  bound_ms is the larger of n_bytes
+    (each input read once, each output written once) over the memory rate
+    and n_ops over the float32 rate.  None of these kernels has a single
+    PyTorch call that computes the same function."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / F32_OPS_PER_S * 1e3
-    return {"name": name, "route": "cuda",
+    extra = {} if device is None else {"device_ms": device}
+    return {**extra, "name": name, "route": "cuda",
             "source": f"beom_tpu_torch/csrc/{src}",
-            "replaces": f"beom_tpu/stencils/{site}", "launches": launches,
+            "replaces": f"beom_tpu/{site_dir}/{site}", "launches": launches,
             "max_abs_err": err, "ms": ms[0], "plain_ms": ms[1],
             "bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -235,8 +298,17 @@ def check_phases(label, device, tol, seed, **kw):
     from beom_tpu_torch.stencils import fused_projection as fp
 
     variant = {k: kw.pop(k) for k in ("adv_scheme", "slip") if k in kw}
-    cfg, grid, forcing, st = perturbed_case(device, seed, "rigid_lid", **kw)
+    case = kw.pop("case", "rigid_lid")
+    cfg, grid, forcing, st = perturbed_case(device, seed, case, **kw)
     cfg = dataclasses.replace(cfg, **variant)
+    if case != "rigid_lid":
+        label = f"{label} {case}"
+        st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))   # the tide is on
+    if case == "coastal_wetdry" and not bool((st.h < cfg.h_dry).logical_and(
+            grid.mask > 0).any()):
+        raise AssertionError(f"{label}: no dry cell in the state")
+    if cfg.obc and not bool((forcing.obc_v != 0).any()):
+        raise AssertionError(f"{label}: no open face in the state")
     statics = (grid, forcing)
     rng = np.random.default_rng(seed + 100)
     p = torch.tensor((0.1 * rng.standard_normal((cfg.ny, cfg.nx))).astype(
@@ -375,10 +447,11 @@ def check_cg(label, device, x_rel, seed, precond="jacobi", **kw):
     return worst
 
 
-def run_projection(label, device, n_steps, diag_every, **kw):
-    """run() on the 2048^2 f32 rigid-lid gyre with backend='fused', with
-    every kernel count set to 0 just before and read just after.
-    Returns (case, final state, counts, wall seconds)."""
+def run_projection(label, device, n_steps, diag_every, name="rigid_lid",
+                   **kw):
+    """run() on a 2048^2 f32 case (default: the rigid-lid gyre) with
+    backend='fused', with every kernel count set to 0 just before and read
+    just after.  Returns (case, final state, counts, wall seconds)."""
     import numpy as np
     import torch
 
@@ -388,12 +461,13 @@ def run_projection(label, device, n_steps, diag_every, **kw):
     from beom_tpu_torch.stencils import cg_fused, mg_coarse, redblack
     from beom_tpu_torch.stencils import fused_projection as fp
 
-    case = make_case("rigid_lid", nx=BIG, ny=BIG, device=device,
+    case = make_case(name, nx=BIG, ny=BIG, device=device,
                      backend="fused", diag_every=diag_every, **kw)
     cfg, grid, forcing, st = case
     log = io.StringIO()
     torch.cuda.synchronize()
     fp.LAUNCHES.update(proj_a=0, proj_b=0)
+    fp.COUNTS["stalled"] = 0
     cg_fused.LAUNCHES = redblack.LAUNCHES = redblack.PASSES = 0
     redblack.APPLY_LAUNCHES = mg_coarse.LAUNCHES = multigrid.CYCLES = 0
     t0 = time.perf_counter()
@@ -403,7 +477,8 @@ def run_projection(label, device, n_steps, diag_every, **kw):
     counts = dict(fp.LAUNCHES, cg_fused=cg_fused.LAUNCHES,
                   rb_sweep=redblack.LAUNCHES, passes=redblack.PASSES,
                   apply_op=redblack.APPLY_LAUNCHES,
-                  mg_coarse=mg_coarse.LAUNCHES, cycles=multigrid.CYCLES)
+                  mg_coarse=mg_coarse.LAUNCHES, cycles=multigrid.CYCLES,
+                  stalled=fp.COUNTS["stalled"])
     diags = [json.loads(x) for x in log.getvalue().splitlines()]
     for d in diags:
         print("   " + json.dumps(d))
@@ -415,8 +490,8 @@ def run_projection(label, device, n_steps, diag_every, **kw):
         raise AssertionError(f"{label}: non-finite diagnostics")
     if not diags[-1]["max_speed"] > 0:
         raise AssertionError(f"{label}: max_speed is 0: the run did nothing")
-    if out.h.shape != (1, BIG, BIG) or out.n != n_steps \
-            or out.phi is None:
+    if out.h.shape != (cfg.nz, BIG, BIG) or out.n != n_steps \
+            or out.phi is None or not bool(torch.isfinite(out.h).all()):
         raise AssertionError(f"{label}: wrong final state")
     column = float(((out.h.sum(0) - grid.H) * grid.mask).abs().max())
     print(f"   {label}: launches {counts}; max|sum h - H| {column!r} m; "
@@ -459,13 +534,15 @@ def versus_eager(label, case, n_steps, atol_ulp):
     return eager_ms
 
 
-def time_pair(label, plain, kernel, n_plain, n_kernel, unit="call"):
+def time_pair(label, plain, kernel, n_plain, n_kernel, unit="call",
+              warm_plain=True):
     """Times in the order plain, kernel, kernel, plain; returns the means
-    (kernel ms, plain ms)."""
+    (kernel ms, plain ms).  warm_plain=False times a plain version that
+    takes seconds per call without a call before the timed ones."""
     runs = []
     for which in ("plain", "kernel", "kernel", "plain"):
         fn, n = (plain, n_plain) if which == "plain" else (kernel, n_kernel)
-        runs.append((which, time_ms(fn, n)))
+        runs.append((which, time_ms(fn, n, which != "plain" or warm_plain)))
     for which, ms in runs:
         print(f"   {label} {which}: {ms!r} ms/{unit}")
     k = [ms for w, ms in runs if w == "kernel"]
@@ -473,11 +550,13 @@ def time_pair(label, plain, kernel, n_plain, n_kernel, unit="call"):
     return sum(k) / len(k), sum(p) / len(p)
 
 
-def time_ms(fn, n_iter):
-    """Mean ms per call over n_iter calls, with CUDA events."""
+def time_ms(fn, n_iter, warm=True):
+    """Mean ms per call over n_iter calls, with CUDA events, after one
+    call that is not timed (unless warm is false)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -521,12 +600,24 @@ def main() -> dict:
         + [("double_gyre", {})]
         + [(n, dict(scheme="split", nsub=k)) for n, k in AGREE_SPLIT]
         for dtype in ("float32", "float64")}
-    todo = [k for k in KERNELS if k != "fb_step"] + sorted(specs)
+    from beom_tpu_torch.stencils import dist_band, fused_projection
+    for dtype in ("float32", "float64"):
+        for name in FB_CASES:
+            specs.add(dist_band.build_spec(make_case(
+                name, nx=16, ny=16, device="cpu", dtype=dtype)[0]))
+        for name, scheme in [p[:2] for p in PROJECTION_PATHS] \
+                + [("rigid_lid", "rigid_lid")]:
+            specs.add(fused_projection.build_spec(make_case(
+                name, nx=16, ny=16, device="cpu", dtype=dtype,
+                scheme=scheme)[0]))
+    todo = [k for k in KERNELS if k not in ("fb_step", "projection")] \
+        + sorted(specs)
     build.build_all(todo)
     for item in todo:
         build.load(item)
-    print(f"   {', '.join(KERNELS)} and split_step ({len(todo)} libraries) "
-          f"built and loaded in {time.perf_counter() - t0:.2f} s")
+    print(f"   {', '.join(KERNELS)}, split_step and shard_step "
+          f"({len(todo)} libraries) built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
     print_build(build, build.label(fused_fb.build_spec(make_case(
         "double_gyre", nx=16, ny=16, device="cpu")[0])))
 
@@ -638,6 +729,8 @@ def main() -> dict:
     kernels += projection_phases(dev, smi, rel, ulps)
     kernels += multigrid_phases(dev, smi, rel, ulps)
     kernels += case_phases(dev, smi, rel, ulps)
+    kernels += projection_case_phases(dev, smi, rel, ulps)
+    kernels += mesh_phases(dev, smi, rel, ulps)
     return {"kernels": kernels}
 
 
@@ -652,7 +745,10 @@ def projection_phases(dev, smi, rel, ulps):
     from beom_tpu_torch.stepping import projection
 
     phase("6 build: the projection kernels")
-    for name in ("projection", "rb_sweep", "cg_fused"):
+    from beom_tpu_torch.cases import make_case
+    print_build(build, build.label(fp.build_spec(make_case(
+        "rigid_lid", nx=16, ny=16, device="cpu")[0])))
+    for name in ("rb_sweep", "cg_fused"):
         print_build(build, name)
 
     phase("7 the projection kernels against their plain versions")
@@ -721,6 +817,12 @@ def projection_phases(dev, smi, rel, ulps):
         "K3b", lambda: fp.proj_b_plain(st.h, u_s, v_s, p, statics, st.t,
                                        cfg),
         lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg), 10, 100)
+    dev_ms = device_ms(
+        "K3a / K3b on the gyre",
+        lambda: (fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
+                 fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg)), 50,
+        {"pa::kernel": 1, "pb::kernel": 1})
+    dev_ms = {"proj_a": dev_ms["pa::kernel"], "proj_b": dev_ms["pb::kernel"]}
     Hu, Hv = elliptic.face_depths(grid)
     rhs = projection.rigid_rhs(st.h, div, grid, cfg)
     kw = dict(k=8, omega=cfg.sor_omega)
@@ -764,7 +866,8 @@ def projection_phases(dev, smi, rel, ulps):
         "cg_fused": ("cg_fused.cu", "cg_vmem.py:61", 7, 30 * res.iters)}
     launches = {name: counts_a[name] + counts_b[name] for name in sources}
     return [kernel_entry(name, src, site, launches[name], err[name],
-                         ms[name], fields * pts * 4, ops * pts)
+                         ms[name], fields * pts * 4, ops * pts,
+                         device=dev_ms.get(name))
             for name, (src, site, fields, ops) in sources.items()]
 
 
@@ -921,7 +1024,7 @@ def multigrid_phases(dev, smi, rel, ulps):
         raise AssertionError(f"(c) launch counts {counts_c}")
     if not col_c < 0.1:
         raise AssertionError(f"(c) max|sum h - H| {col_c!r} m")
-    eager_c = versus_eager("(c) 3 fused steps", case_c, 3, 1e-5)
+    eager_c = versus_eager("(c) 2 fused steps", case_c, 2, 1e-5)
     case_d, _, counts_d, col_d = run_projection(
         "(d) rigid_lid, solver='mg'", dev, 10, 5, solver="mg")
     n_cyc = counts_d["cycles"]
@@ -936,7 +1039,7 @@ def multigrid_phases(dev, smi, rel, ulps):
         raise AssertionError(f"(d) launch counts {counts_d}")
     if not col_d < 0.1:
         raise AssertionError(f"(d) max|sum h - H| {col_d!r} m")
-    eager_d = versus_eager("(d) 3 fused steps", case_d, 3, 1e-4)
+    eager_d = versus_eager("(d) 2 fused steps", case_d, 2, 1e-4)
 
     phase(f"13 times at {BIG}^2 f32 ({smi})")
     cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
@@ -981,7 +1084,7 @@ def multigrid_phases(dev, smi, rel, ulps):
         "K6-mg cold solve",
         lambda: cg_fused.cg_solve_plain(rhs, grid, cfg, lam=0.0,
                                         precond="mg"),
-        lambda: solve(rhs), 1, 5, unit="solve")
+        lambda: solve(rhs), 1, 5, unit="solve", warm_plain=False)
     k_ms, p_ms = ms["cg_fused_mg"]
     print(f"   K6-mg: {res.iters} iterations (plain {ref.iters}); "
           f"{k_ms / max(res.iters, 1)!r} ms/iteration (plain "
@@ -996,10 +1099,13 @@ def multigrid_phases(dev, smi, rel, ulps):
               f"{mg_coarse.grid_syncs(steps)} grid syncs")
     for smoother in ("eager", "fused"):
         mg_solve = mg.make_mg_solver(grid, cfg, smoother=smoother)
+        # the eager solve takes a minute: one call, timed and counted
+        eager = smoother == "eager"
+        if not eager:
+            mg_solve(rhs)
         c0 = mg.CYCLES
-        mg_solve(rhs)
-        n_c = mg.CYCLES - c0
-        t = time_ms(lambda: mg_solve(rhs), 1 if smoother == "eager" else 3)
+        t = time_ms(lambda: mg_solve(rhs), 1 if eager else 3, warm=False)
+        n_c = (mg.CYCLES - c0) // (1 if eager else 3)
         print(f"   solver='mg' cold solve, smoother={smoother}: {n_c} cycles, "
               f"{t!r} ms/solve, {t / max(n_c, 1)!r} ms/cycle")
     fp.LAUNCHES.update(saved[0])
@@ -1015,7 +1121,7 @@ def multigrid_phases(dev, smi, rel, ulps):
         wall = (time.perf_counter() - t0) / n_steps * 1e3
         print(f"   {label}: run() {wall!r} ms/step over {n_steps} steps "
               f"(diagnostics included); eager stepper {eager_ms!r} "
-              "ms/step over 3 steps")
+              "ms/step over 2 steps")
 
     # bytes: the operands of the call, each once (for the cycle kernels
     # the six level fields of every level they walk, b and x); operations:
@@ -1193,11 +1299,54 @@ def run_path(device, case, kw, n_steps):
     return built, counts
 
 
-def busy_share(label, fn, n_steps):
-    """The device's busy share over one call of fn() under torch.profiler:
-    the kernels' device time over the wall time, and the largest rows."""
-    import torch
+def device_rows(prof):
+    """(device us, launches, name) of every kernel row of a profile."""
     from torch.autograd import DeviceType
+
+    return [(getattr(r, "self_device_time_total", 0)
+             or getattr(r, "self_cuda_time_total", 0), r.count, r.key)
+            for r in prof.key_averages()
+            if getattr(r, "device_type", None) == DeviceType.CUDA]
+
+
+def device_ms(label, fn, n_calls, names):
+    """The device's own time per call of fn(), by kernel: the mean time
+    torch.profiler gives a launch of the kernels whose name holds a key of
+    `names`, times that key's launches per call, in ms (None where the
+    profiler saw no launch; it may miss some, so the mean is over those it
+    saw).  Beside a time between CUDA events it separates the kernel from
+    the host that launches it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    out = {}
+    for name, per_call in names.items():
+        us = sum(r[0] for r in rows if name in r[2])
+        n = sum(r[1] for r in rows if name in r[2])
+        out[name] = us / n * per_call / 1e3 if n else None
+        print(f"   {label}, device time of {name}: {out[name]!r} ms/call "
+              f"({per_call} launches per call; torch.profiler saw {n} of "
+              f"{per_call * n_calls})")
+    return out
+
+
+def busy_share(label, fn, n_steps, by_grid=None):
+    """The device's busy share over one call of fn() under torch.profiler:
+    the kernels' device time over the wall time (summed over the streams,
+    so kernels that overlap count twice), and the largest rows.  by_grid
+    names a kernel whose time is also printed per launch grid, read from
+    the profiler's trace."""
+    import tempfile
+
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1208,10 +1357,7 @@ def busy_share(label, fn, n_steps):
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    rows = [(getattr(r, "self_device_time_total", 0)
-             or getattr(r, "self_cuda_time_total", 0), r.count, r.key)
-            for r in prof.key_averages()
-            if getattr(r, "device_type", None) == DeviceType.CUDA]
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows)
     if busy <= 0:
         print(f"   {label}: the profiler saw no device time; the idle share "
@@ -1223,6 +1369,19 @@ def busy_share(label, fn, n_steps):
     for us, count, key in sorted(rows, reverse=True)[:5]:
         print(f"      {us / 1e3:.3f} ms in {count} launches "
               f"({us / busy:.3f} of device time): {key[:70]}")
+    if by_grid:
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(f"{tmp}/trace.json")
+            events = json.loads(Path(f"{tmp}/trace.json").read_text())
+        grids = {}
+        for e in events["traceEvents"]:
+            if e.get("cat") == "kernel" and by_grid in e.get("name", ""):
+                g = tuple(e.get("args", {}).get("grid", ()))
+                n, us = grids.get(g, (0, 0.0))
+                grids[g] = (n + 1, us + e["dur"])
+        for g, (n, us) in sorted(grids.items()):
+            print(f"      {by_grid} with grid {g}: {us / 1e3:.3f} ms in {n} "
+                  f"launches ({us / busy:.3f} of device time)")
 
 
 def case_phases(dev, smi, rel, ulps):
@@ -1235,7 +1394,8 @@ def case_phases(dev, smi, rel, ulps):
     from beom_tpu_torch.stepping import split
 
     phase("14 build: the fb and split builds of the other cases")
-    for item in sorted(k for k in build.BUILD_LOG if "[" in k):
+    for item in sorted(k for k in build.BUILD_LOG
+                       if k.startswith(("fb_step[", "split_step["))):
         print_build(build, item)
 
     phase("15 K1 per case and K1s against their plain versions")
@@ -1330,6 +1490,400 @@ def case_phases(dev, smi, rel, ulps):
     fused_fb.LAUNCHES = saved[0]
     fused_fb.SPLIT_LAUNCHES.update(saved[1])
     return entries
+
+
+def phase_fields(cfg):
+    """(K3a, K3b) fields moved per point, each operand once: K3a reads h,
+    u, v, the four masks, f and the wind and sponge fields that are on and
+    writes u*, v*, div; K3b reads h, u*, v*, p, three masks and under the
+    open boundary H, the two face maps and the tides, and writes h, u,
+    v."""
+    nz = cfg.nz
+    a = 3 * nz + 5 + 2 * cfg.wind + cfg.sponge + 2 * nz + 1
+    b = 3 * nz + 4 + cfg.obc * (3 + 2 * len(cfg.tides)) + 3 * nz
+    return a, b
+
+
+def projection_case_phases(dev, smi, rel, ulps):
+    """Phase 18: K3a / K3b with every term; returns the JSON entries."""
+    import torch
+
+    from beom_tpu_torch.stencils import build, cg_fused
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    phase("18 K3a / K3b with every term: build lines, agreement, run()")
+    for item in sorted(k for k in build.BUILD_LOG if k.startswith(
+            ("projection[", "shard_step[", "halo_pad"))):
+        print_build(build, item)
+    err = {}
+    for case in FB_CASES[1:]:
+        for scheme in ("rigid_lid", "implicit_fs"):
+            check_phases("200x136 f64", dev, rel(1e-12), 60, case=case,
+                         nx=200, ny=136, dtype="float64", scheme=scheme)
+            worst = check_phases(f"{BIG}^2 f32", dev, ulps(4), 61, case=case,
+                                 nx=BIG, ny=BIG, scheme=scheme)
+            err[case] = tuple(max(a, b) for a, b in zip(
+                err.get(case, (0.0, 0.0)), worst))
+    launches = {}
+    for case, scheme, kw, n_run, n_twin, bound in PROJECTION_PATHS:
+        label = f"{case} {scheme}" + (f" {kw}" if kw else "")
+        built, _, counts, col = run_projection(label, dev, n_run, n_run // 2,
+                                               name=case, scheme=scheme, **kw)
+        # the guard redoes a stalled solve through K4a, K4b and K5: they
+        # run exactly when it did
+        stalled = counts["stalled"]
+        if not (counts["proj_a"] == counts["proj_b"] == counts["cg_fused"]
+                == n_run and (counts["rb_sweep"] > 0) == (stalled > 0)
+                and (counts["mg_coarse"] > 0) == (stalled > 0)):
+            raise AssertionError(f"{label}: launch counts {counts}")
+        if stalled != (n_run if (case, scheme) == (
+                "shelf_forced", "rigid_lid") else 0):
+            raise AssertionError(f"{label}: {stalled} solves stalled")
+        # the lid holds sum h = H where no open face prescribes the tide
+        if scheme == "rigid_lid" and not built[0].obc and not col < 0.1:
+            raise AssertionError(f"{label}: max|sum h - H| {col!r} m")
+        if n_twin != BIG:
+            from beom_tpu_torch.cases import make_case
+            built = make_case(case, nx=n_twin, ny=n_twin, device=dev,
+                              backend="fused", scheme=scheme)
+            label = f"{case} {scheme} at {n_twin}^2"
+        before = fp.COUNTS["stalled"]
+        versus_eager(f"{label}, 3 fused steps", built, 3, bound)
+        print(f"   {label}: the stall guard redid "
+              f"{fp.COUNTS['stalled'] - before} of 3 solves")
+        for k in ("proj_a", "proj_b"):
+            launches[case, k] = launches.get((case, k), 0) + counts[k]
+
+    print(f"   times at {BIG}^2 f32 ({smi})")
+    saved = (dict(fp.LAUNCHES), cg_fused.LAUNCHES)
+    entries = []
+    pts = BIG * BIG
+    for case in FB_CASES[1:]:
+        cfg, grid, forcing, st = perturbed_case(
+            dev, 2, case, nx=BIG, ny=BIG, scheme="implicit_fs")
+        statics = (grid, forcing)
+        u_s, v_s, _ = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+        p = (st.h.sum(0) - grid.H) * grid.mask
+        ms_a = time_pair(
+            f"K3a {case}",
+            lambda: fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg),
+            lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 10, 100)
+        ms_b = time_pair(
+            f"K3b {case}",
+            lambda: fp.proj_b_plain(st.h, u_s, v_s, p, statics, st.t, cfg),
+            lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg), 10,
+            100)
+        dev_ms = device_ms(
+            f"K3a / K3b {case}",
+            lambda: (fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
+                     fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg)), 50,
+            {"pa::kernel": 1, "pb::kernel": 1})
+        fa, fb_ = phase_fields(cfg)
+        entries.append(kernel_entry(
+            f"proj_a_{case}", "projection.cu", "band.py:200",
+            launches[case, "proj_a"], err[case][0], ms_a, fa * pts * 4,
+            150 * cfg.nz * pts, device=dev_ms["pa::kernel"]))
+        entries.append(kernel_entry(
+            f"proj_b_{case}", "projection.cu", "band.py:200",
+            launches[case, "proj_b"], err[case][1], ms_b, fb_ * pts * 4,
+            60 * cfg.nz * pts, device=dev_ms["pb::kernel"]))
+    fp.LAUNCHES.update(saved[0])
+    cg_fused.LAUNCHES = saved[1]
+    torch.cuda.synchronize()
+    return entries
+
+
+def equal_blocks(label, out, ref):
+    """Raise unless two sharded fields hold the same bits; returns the
+    largest difference measured (0.0)."""
+    import torch
+
+    worst = 0.0
+    for s, (a, b) in enumerate(zip(out.blocks, ref.blocks)):
+        if a.shape != b.shape:
+            raise AssertionError(f"{label}: shard {s} has another shape")
+        worst = max(worst, float((a - b).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: shard {s} differs")
+    return worst
+
+
+def check_halo_pad(dev, ny, nx):
+    """K8 against pad2d's plain version on one grid size: every mesh, width,
+    rank and type; one launch per shard.  Returns the largest difference
+    measured."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import halo_pad
+
+    g = torch.Generator(device="cpu").manual_seed(70)
+    n, worst = 0, 0.0
+    for shape in ((2, 4), (1, 8), (8, 1), (1, 1)):
+        m = pmesh.make_mesh(*shape, devices=[dev])
+        for dtype in (torch.float32, torch.float64):
+            for lead in ((), (2,)):
+                a = pmesh.shard(torch.randn(lead + (ny, nx), generator=g,
+                                            dtype=dtype).to(dev), m)
+                for w in (1, 3, 5):
+                    before = halo_pad.LAUNCHES
+                    out = halo_pad.halo_pad(a, w)
+                    torch.cuda.synchronize()
+                    if halo_pad.LAUNCHES != before + m.n:
+                        raise AssertionError("K8: not one launch per shard")
+                    worst = max(worst, equal_blocks(
+                        f"K8 {ny}x{nx} {shape} {dtype} w={w}", out,
+                        halo_pad.halo_pad_plain(a, w)))
+                    n += 1
+    print(f"   K8 {ny}x{nx}: {n} pads (4 meshes, f32 / f64, 2-D / layered, "
+          "w = 1, 3, 5) equal to pad2d's plain version bit for bit")
+    return worst
+
+
+def check_shard_step(label, dev, tol, seed, case, mesh_shape, **kw):
+    """K7 on one perturbed case and mesh: both parities and a 2-step pass
+    against its plain version per shard and against single-device K1 on
+    the gathered field.  Returns the largest difference."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+
+    cfg, grid, forcing, st = perturbed_case(dev, seed, case, **kw)
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    m = pmesh.make_mesh(*mesh_shape, devices=[dev])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    worst = 0.0
+    for n, k in ((0, 1), (1, 1), (0, 2)):
+        before = dict(dist_band.LAUNCHES)
+        out = dist_band.shard_step(*fields, pstat, n, st.t, cfg, k)
+        torch.cuda.synchronize()
+        if dist_band.LAUNCHES["edge"] != before["edge"] + k * m.n:
+            raise AssertionError(f"{label}: K7 edge launches")
+        ref = dist_band.shard_step_plain(*fields, pstat, n, st.t, cfg, k)
+        one = fused_fb.fused_fb_step(st.h, st.u, st.v, (grid, forcing), n,
+                                     st.t, cfg, k)
+        tag = f"{label} {case} {mesh_shape} n={n} k={k}"
+        got = [pmesh.gather(a) for a in out]
+        worst = max(worst, compare_fields(
+            f"{tag} vs plain", "huv", got, [pmesh.gather(a) for a in ref],
+            tol))
+        worst = max(worst, compare_fields(f"{tag} vs K1", "huv", got, one,
+                                          tol))
+    return worst
+
+
+def eager_mesh_leg(dev, case, n_steps, atol_rel, nx, mesh_shape, **kw):
+    """n_steps of the eager distributed stepper with halo_impl='rdma' on a
+    mesh of shards on the card against the single-device eager stepper.
+    Raises unless K8 was launched."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel.dist import make_dist_stepper
+    from beom_tpu_torch.stencils import halo_pad
+    from beom_tpu_torch.stepping import run_steps
+
+    cfg, grid, forcing, st = perturbed_case(dev, 71, case, nx=nx, ny=nx,
+                                            halo_impl="rdma", **kw)
+    m = pmesh.make_mesh(*mesh_shape, devices=[dev])
+    before = halo_pad.LAUNCHES
+    out = pmesh.gather_state(make_dist_stepper(
+        grid, forcing, cfg, m, n_inner=n_steps)(pmesh.shard_state(st, m)))
+    torch.cuda.synchronize()
+    pads = (halo_pad.LAUNCHES - before) // m.n
+    ref = run_steps(st, grid, forcing, cfg, n_steps)
+    label = f"eager mesh {mesh_shape} {case} {cfg.scheme} {nx}^2"
+    for f in "huv":
+        a, b = getattr(out, f), getattr(ref, f)
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        print(f"   {label} {f}: max|mesh - single device| {err!r} (bound "
+              f"{atol_rel!r} x max(scale {scale!r}, 1))")
+        if not err <= atol_rel * max(scale, 1.0):
+            raise AssertionError(f"{label} {f} off the single-device step")
+    if pads <= 0:
+        raise AssertionError(f"{label}: K8 was not launched")
+    print(f"   {label}: {pads} pad2d calls in {n_steps} steps "
+          f"({pads / n_steps!r} per step), each one K8 launch per shard")
+
+
+def mesh_phases(dev, smi, rel, ulps):
+    """Phases 19 to 22; returns the JSON entries of K7 and K8."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel.mesh import gather_state
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import dist_band, fused_fb, halo_pad
+
+    phase("19 K8 against pad2d")
+    err8 = max(check_halo_pad(dev, BIG, BIG), check_halo_pad(dev, 192, 128))
+
+    phase("20 K7 against its plain version and single-device K1")
+    err7 = 0.0
+    for case in FB_CASES:
+        for mesh_shape in ((4, 1), (2, 4), (2, 2)):
+            check_shard_step("192x128 f64", dev, rel(1e-12), 72, case,
+                             mesh_shape, nx=192, ny=128, dtype="float64")
+            err7 = max(err7, check_shard_step(
+                f"{BIG}^2 f32", dev, ulps(4), 73, case, mesh_shape, nx=BIG,
+                ny=BIG))
+
+    phase(f"21 the mesh path: run() on the {BIG}^2 f32 double gyre, 2 x 4 "
+          "shards")
+    n_steps = 400
+    cfg, grid, forcing, st = make_case(
+        "double_gyre", nx=BIG, ny=BIG, device=dev, backend="fused",
+        steps_per_pass=4, diag_every=100)
+    log1 = io.StringIO()
+    ref = run(cfg, grid, forcing, st, n_steps, log=log1)
+    mcfg = dataclasses.replace(cfg, mesh_y=2, mesh_x=4)
+    logn = io.StringIO()
+    torch.cuda.synchronize()
+    dist_band.LAUNCHES.update(interior=0, edge=0)
+    k1_before = fused_fb.LAUNCHES
+    t0 = time.perf_counter()
+    out = run(mcfg, grid, forcing, st, n_steps, log=logn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts7 = dict(dist_band.LAUNCHES)
+    for line in logn.getvalue().splitlines():
+        print("   " + line)
+    want = dict(interior=8 * n_steps, edge=8 * n_steps)
+    if counts7 != want or fused_fb.LAUNCHES != k1_before:
+        raise AssertionError(f"mesh path: K7 launches {counts7}, not {want}")
+    diags = [json.loads(x) for x in logn.getvalue().splitlines()]
+    if [d["n"] for d in diags] != [100, 200, 300, 400] or not all(
+            d["finite"] == 1.0 and all(np.isfinite(list(
+                v for k, v in d.items() if k != "kind"))) for d in diags):
+        raise AssertionError("mesh path: diagnostics missing or non-finite")
+    if not diags[-1]["max_speed"] > 0:
+        raise AssertionError("mesh path: max_speed is 0")
+    if logn.getvalue() != log1.getvalue():
+        raise AssertionError("mesh path: the diagnostics are not the "
+                             "single-device run's")
+    got = gather_state(out)
+    for f in "huv":
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            raise AssertionError(f"mesh path: {f} is not the single-device "
+                                 "K1 run's")
+    print(f"   K7 launches {counts7} in {n_steps} steps on 8 shards; "
+          "diagnostics and final state equal to the single-device K1 run's "
+          f"bit for bit; {wall:.3f} s wall (first run, diagnostics included)")
+
+    # K8's path: run() on the same case and mesh with the eager distributed
+    # tier and halo_impl='rdma', every pad2d of the steps one K8 launch per
+    # shard; fb pads h, u and v once per step and carries no reduction, so
+    # state and diagnostics equal the single-device eager run's
+    n_eager = 20
+    ecfg = dataclasses.replace(cfg, backend="eager", steps_per_pass=1,
+                               diag_every=10)
+    log1 = io.StringIO()
+    ref = run(ecfg, grid, forcing, st, n_eager, log=log1)
+    rcfg = dataclasses.replace(ecfg, mesh_y=2, mesh_x=4, halo_impl="rdma")
+    logn = io.StringIO()
+    torch.cuda.synchronize()
+    halo_pad.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = run(rcfg, grid, forcing, st, n_eager, log=logn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts8 = halo_pad.LAUNCHES
+    if counts8 != 3 * 8 * n_eager:
+        raise AssertionError(f"eager mesh path: K8 launches {counts8}, not "
+                             f"{3 * 8 * n_eager}")
+    if logn.getvalue() != log1.getvalue() or len(
+            logn.getvalue().splitlines()) != 2:
+        raise AssertionError("eager mesh path: the diagnostics are not the "
+                             "single-device eager run's")
+    got = gather_state(out)
+    for f in "huv":
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            raise AssertionError(f"eager mesh path: {f} is not the "
+                                 "single-device eager run's")
+    print(f"   run() with backend='eager', halo_impl='rdma' on 2 x 4 shards: "
+          f"K8 launches {counts8} in {n_eager} steps (3 pad2d per step, one "
+          "launch per shard); diagnostics and final state equal to the "
+          f"single-device eager run's bit for bit; {wall:.3f} s wall")
+
+    # the other schemes of the eager distributed tier through K8, smaller:
+    # fb and split carry no reduction, so 0.0; the projection steps' CG
+    # sums in mesh order
+    eager_mesh_leg(dev, "double_gyre", 3, 0.0, 512, (2, 4))
+    eager_mesh_leg(dev, "double_gyre", 3, 0.0, 512, (2, 4), scheme="split")
+    eager_mesh_leg(dev, "rigid_lid", 3, 1e-4, 512, (2, 4), precond="jacobi")
+    eager_mesh_leg(dev, "double_gyre", 3, 1e-4, 512, (2, 4),
+                   scheme="implicit_fs")
+    eager_mesh_leg(dev, "rigid_lid", 1, 1e-4, 128, (2, 2))
+
+    phase(f"22 times of the mesh kernels ({smi})")
+    saved = (dict(dist_band.LAUNCHES), halo_pad.LAUNCHES, fused_fb.LAUNCHES)
+    m = pmesh.make_mesh(2, 4, devices=[dev])
+    ms7 = None
+    for n_grid, n_k, n_p in ((BIG, 100, 10), (4 * BIG, 10, 2)):
+        cfg, grid, forcing, st = perturbed_case(dev, 2, nx=n_grid, ny=n_grid)
+        statics = (grid, forcing)
+        pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+        blocks = dist_band._static_blocks(pstat, m)
+        fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+
+        def k7(k=1):
+            return dist_band.shard_step(*fields, pstat, 0, st.t, cfg, k,
+                                        static_blocks=blocks)
+
+        def k1():
+            return fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t,
+                                          cfg, 1)
+        if n_grid != BIG:
+            two = [pmesh.gather(a) for a in k7(2)]
+            compare_fields(f"{n_grid}^2 f32 K7 (2, 4) x2 vs K1", "huv", two,
+                           fused_fb.fused_fb_step(st.h, st.u, st.v, statics,
+                                                  0, st.t, cfg, 2), ulps(4))
+        ms = time_pair(
+            f"K7 {n_grid}^2 f32 (2, 4)",
+            lambda: dist_band.shard_step_plain(*fields, pstat, 0, st.t, cfg,
+                                               1), k7, n_p, n_k, unit="step")
+        ms_k1 = time_ms(k1, n_k)
+        ms_4 = time_ms(lambda: k7(4), max(n_k // 4, 2)) / 4
+        print(f"   {n_grid}^2 f32: K7 on (2, 4) {ms[0]!r} ms/step ({ms_4!r} "
+              f"in 4-step passes), K1 alone {ms_k1!r} ms/step")
+        if n_grid == BIG:
+            ms7, cfg7 = ms, cfg
+            dev7 = device_ms(f"K7 {n_grid}^2 f32 (2, 4), one step", k7, 50,
+                             {"shard_step_kernel": 16})["shard_step_kernel"]
+            w = dist_band.shard_halo(cfg)
+            ly, lx = n_grid // 2, n_grid // 4
+            bytes7 = 4 * (6 * cfg.nz * n_grid * n_grid + 8 * (
+                step_fields(cfg) - 6 * cfg.nz) * (ly + 2 * w) * (lx + 2 * w))
+            h = fields[0]
+            ms8 = time_pair(
+                "K8 pad2d w=5 of (1, 1024, 512) shards on (2, 4)",
+                lambda: halo_pad.halo_pad_plain(h, 5),
+                lambda: halo_pad.halo_pad(h, 5), 20, 200)
+            bytes8 = 8 * 4 * (ly * lx + (ly + 10) * (lx + 10))
+            dev8 = device_ms("K8 pad2d of the same shards",
+                             lambda: halo_pad.halo_pad(h, 5), 50,
+                             {"halo_pad_kernel": 8})["halo_pad_kernel"]
+        del fields, pstat, blocks, st, grid, forcing
+        torch.cuda.empty_cache()
+    cfg, grid, forcing, st = make_case(
+        "double_gyre", nx=BIG, ny=BIG, device=dev, backend="fused",
+        steps_per_pass=4, diag_every=100, mesh_y=2, mesh_x=4)
+    busy_share("double_gyre fb on a 2 x 4 mesh through run()",
+               lambda: run(cfg, grid, forcing, st, 200, log=io.StringIO()),
+               200, by_grid="shard_step_kernel")
+    dist_band.LAUNCHES.update(saved[0])
+    halo_pad.LAUNCHES, fused_fb.LAUNCHES = saved[1], saved[2]
+    return [
+        kernel_entry("shard_step", "shard_step.cu", "dist_band.py:63",
+                     counts7["interior"] + counts7["edge"], err7, ms7, bytes7,
+                     150 * cfg7.nz * BIG * BIG, device=dev7),
+        kernel_entry("halo_pad", "halo_pad.cu", "rdma_halo.py:42", counts8,
+                     err8, ms8, bytes8, 0, site_dir="parallel", device=dev8)]
 
 
 def _recompose_plain(sp, sub, st, grid, forcing, cfg):

@@ -1,8 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 K1 (fused fb step, every case), K1s (the split step's three kernels),
-K3a/K3b (projection phases), K4a (blocked red-black
+K3a/K3b (projection phases, every case), K4a (blocked red-black
 sweep, with and without its residual), K4b (operator pass), K5 (coarse
-multigrid stack) and K6 (fused CG, Jacobi and multigrid); and run() of
+multigrid stack), K6 (fused CG, Jacobi and multigrid), K7 (the shard step
+on a mesh of shards on the one card) and K8 (the halo pad); and run() of
 the rigid lid's two multigrid solves through them.
 
 Skips where torch.cuda.is_available() is false.  It imports no jax, so
@@ -227,11 +228,194 @@ def test_cg_fused_matches_plain(cuda, kind):
 
 
 @pytest.mark.cuda
-def test_projection_kernels_refuse_unsupported_term(cuda):
-    cfg, grid, forcing, st = _perturbed(cuda, 13, "rigid_lid", nx=64, ny=48,
-                                        precond="jacobi", cd_bot=2.5e-3)
-    with pytest.raises(NotImplementedError, match="cd_bot"):
-        fused_projection.proj_a(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+@pytest.mark.parametrize("dtype,nx,ny,rel", SIZES)
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("name", ["two_layer", "coastal_wetdry",
+                                  "shelf_forced"])
+def test_projection_phases_match_plain_per_case(cuda, name, scheme, dtype,
+                                                nx, ny, rel):
+    """K3a and K3b with every term: two layers, wet/dry with dry cells in
+    the state, open faces with the tide at t + dt, nu4, quadratic and
+    interfacial drag; both parities.  The bounds are K1's (0.0 is what the
+    card gives)."""
+    kw = dict(CASE_KW[name], cd_bot=2.5e-3) if name == "shelf_forced" \
+        else CASE_KW[name]
+    cfg, grid, forcing, st = _perturbed(cuda, 52, name, nx=nx, ny=ny,
+                                        dtype=dtype, scheme=scheme, **kw)
+    if cfg.wetdry:
+        st = st.replace(h=torch.where(st.h < 0.3, 0.0, st.h))
+    statics = (grid, forcing)
+    t = cfg.npdtype.type(7 * cfg.dt)
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+        * grid.mask
+
+    def close(names, outs, refs):
+        for f, a, b in zip(names, outs, refs):
+            err = float((a - b).abs().max())
+            assert err <= rel * max(float(b.abs().max()), 1e-30), (f, err)
+
+    for n in (0, 1):
+        before = dict(fused_projection.LAUNCHES)
+        a = fused_projection.proj_a(st.h, st.u, st.v, statics, n, cfg)
+        a_ref = fused_projection.proj_a_plain(st.h, st.u, st.v, statics, n,
+                                              cfg)
+        b = fused_projection.proj_b(st.h, a_ref[0], a_ref[1], p, statics, t,
+                                    cfg)
+        b_ref = fused_projection.proj_b_plain(st.h, a_ref[0], a_ref[1], p,
+                                              statics, t, cfg)
+        torch.cuda.synchronize()
+        assert fused_projection.LAUNCHES == {
+            k: v + 1 for k, v in before.items()}
+        close(("us", "vs", "div"), a, a_ref)
+        close("huv", b, b_ref)
+
+
+MESHES = [(2, 4), (1, 8), (8, 1), (1, 1), (4, 1), (2, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mesh_shape", MESHES[:4])
+def test_halo_pad_matches_plain(cuda, mesh_shape, dtype):
+    """K8 against pad2d by slices and concatenations, 2-D and layered
+    fields, three widths: a copy, so bit for bit; one launch per shard."""
+    from beom_tpu_torch.parallel import halo, mesh as pmesh
+    from beom_tpu_torch.stencils import halo_pad
+
+    m = pmesh.make_mesh(*mesh_shape, devices=[cuda])
+    g = torch.Generator(device="cpu").manual_seed(53)
+    for lead in ((), (3,)):
+        a = torch.randn(lead + (192, 128), generator=g,
+                        dtype=getattr(torch, dtype)).to(cuda)
+        sa = pmesh.shard(a, m)
+        for w in (1, 3, 5):
+            before = halo_pad.LAUNCHES
+            out = halo_pad.halo_pad(sa, w)
+            torch.cuda.synchronize()
+            assert halo_pad.LAUNCHES == before + m.n
+            ref = halo_pad.halo_pad_plain(sa, w)
+            for x, y in zip(out.blocks, ref.blocks):
+                assert torch.equal(x, y)
+    with halo.impl("rdma"):
+        before = halo_pad.LAUNCHES
+        halo.pad2d(sa, 2)
+        assert halo_pad.LAUNCHES == before + m.n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nx,ny,rel", [
+    ("float32", 256, 256, 4 * 2.0 ** -23), ("float64", 192, 128, 1e-12)])
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 4), (2, 2)])
+@pytest.mark.parametrize("name", list(CASE_KW))
+def test_shard_step_matches_plain_and_single_device(cuda, name, mesh_shape,
+                                                    dtype, nx, ny, rel):
+    """K7 on every fb case, both parities and a 2-step pass: against its
+    plain version per shard and against single-device K1 on the gathered
+    field (the arithmetic per point is K1's: 0.0 is what the card gives)."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = _perturbed(cuda, 54, name, nx=nx, ny=ny,
+                                        dtype=dtype, **CASE_KW[name])
+    cfg = dataclasses.replace(cfg, mesh_y=mesh_shape[0],
+                              mesh_x=mesh_shape[1])
+    m = pmesh.make_mesh(*mesh_shape, devices=[cuda])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh, su, sv = (pmesh.shard(a, m) for a in (st.h, st.u, st.v))
+    for n, k in ((0, 1), (1, 1), (0, 2)):
+        before = dict(dist_band.LAUNCHES)
+        out = dist_band.shard_step(sh, su, sv, pstat, n, st.t, cfg, k)
+        torch.cuda.synchronize()
+        assert dist_band.LAUNCHES["edge"] == before["edge"] + k * m.n
+        ref = dist_band.shard_step_plain(sh, su, sv, pstat, n, st.t, cfg, k)
+        one = fused_fb.fused_fb_step(st.h, st.u, st.v, (grid, forcing), n,
+                                     st.t, cfg, k)
+        for f, a, b, c in zip("huv", out, ref, one):
+            a, b = pmesh.gather(a), pmesh.gather(b)
+            scale = float(c.abs().max())
+            assert float((a - b).abs().max()) <= rel * scale, (f, n, k)
+            assert float((a - c).abs().max()) <= rel * scale, (f, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["split", "rigid_lid"])
+def test_shard_step_refuses_other_schemes(cuda, scheme):
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, _ = make_case("double_gyre", nx=64, ny=64,
+                                      device=cuda, scheme=scheme)
+    m = pmesh.make_mesh(2, 2, devices=[cuda])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        dist_band.make_dist_fused_stepper(grid, forcing, cfg, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme,kw,pads", [
+    ("fb", dict(backend="fused", steps_per_pass=2), 0),
+    ("fb", dict(halo_impl="rdma"), 3),
+    ("split", dict(halo_impl="rdma", nsub=4), None)])
+def test_run_on_a_mesh_of_shards_on_the_card(cuda, scheme, kw, pads):
+    """run() with a 2 x 4 mesh on the one card, as the command line starts
+    it: the fused tier through K7 and the eager tier with halo_impl='rdma'
+    through K8 (fb: 3 pad2d per step, one launch per shard), against the
+    single-device run of the same backend: fb and split carry no
+    reduction, so state and diagnostics are equal bit for bit."""
+    import io
+
+    from beom_tpu_torch.parallel.mesh import gather_state
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import dist_band, halo_pad
+
+    n = 6
+    cfg, grid, forcing, st = make_case(
+        "double_gyre", nx=512, ny=512, device=cuda, scheme=scheme,
+        diag_every=3, **kw)
+    log1, logn = io.StringIO(), io.StringIO()
+    ref = run(dataclasses.replace(cfg, halo_impl="ppermute"), grid, forcing,
+              st, n, log=log1)
+    dist_band.LAUNCHES.update(interior=0, edge=0)
+    halo_pad.LAUNCHES = 0
+    out = gather_state(run(dataclasses.replace(cfg, mesh_y=2, mesh_x=4),
+                           grid, forcing, st, n, log=logn))
+    torch.cuda.synchronize()
+    if cfg.backend == "fused":
+        assert dist_band.LAUNCHES == dict(interior=8 * n, edge=8 * n)
+        assert halo_pad.LAUNCHES == 0
+    elif pads is not None:
+        assert halo_pad.LAUNCHES == pads * 8 * n
+    else:
+        assert halo_pad.LAUNCHES > 0 and halo_pad.LAUNCHES % 8 == 0
+    assert logn.getvalue() == log1.getvalue()
+    assert len(logn.getvalue().splitlines()) == 2
+    for f in "huv":
+        assert torch.equal(getattr(out, f), getattr(ref, f)), f
+
+
+@pytest.mark.cuda
+def test_stall_guard_on_the_card(cuda):
+    """The multigrid-preconditioned fused solve cut after 3 iterations is
+    redone by the stall guard with the W-cycle through the blocked
+    smoother and the coarse-stack kernel: the step is the eager step's
+    within the solver's noise, and a converging solve is left alone."""
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import make_stepper, prepare_state
+
+    cfg, grid, forcing, st = make_case(
+        "shelf_forced", nx=256, ny=256, device=cuda, dtype="float64",
+        scheme="rigid_lid", backend="fused", solver_maxiter=3)
+    st = prepare_state(st, cfg)
+    before = fp.COUNTS["stalled"]
+    a = make_stepper(grid, forcing, cfg)(st)
+    b = make_stepper(grid, forcing, dataclasses.replace(
+        cfg, backend="eager"))(st)
+    assert fp.COUNTS["stalled"] == before + 1
+    for f in "huv":
+        x, y = getattr(a, f), getattr(b, f)
+        assert float((x - y).abs().max()) <= 1e-12 * float(y.abs().max()), f
+    make_stepper(grid, forcing, dataclasses.replace(
+        cfg, solver_maxiter=500))(st)
+    assert fp.COUNTS["stalled"] == before + 1
 
 
 def _level_inputs(cuda, seed, lam=0.0):

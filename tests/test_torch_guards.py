@@ -42,8 +42,7 @@ def test_no_module_imports_jax():
                    timeout=120)
 
 
-# the terms the projection phases' kernels lack, and the fused fb / split
-# step has
+# the terms of the eager step, which every fused kernel takes
 TERMS = {
     "wetdry": dict(wetdry=True),
     "obc": dict(obc=True),
@@ -137,17 +136,54 @@ def test_fused_projection_config_check_raises(term):
     projection_check(base)
     projection_check(dataclasses.replace(base, scheme="rigid_lid",
                                          adv_scheme="linear", slip="no"))
-    with pytest.raises(NotImplementedError, match=term.split()[0]):
-        projection_check(dataclasses.replace(base, **TERMS[term]))
+    # the phase kernels take every term of the eager step; what is left to
+    # refuse is another scheme and more layers than operand slots
+    projection_check(dataclasses.replace(base, **TERMS[term]))
+    every = {k: v for t in TERMS.values() for k, v in t.items()
+             if k != "scheme"}
+    projection_check(dataclasses.replace(base, **every))
     with pytest.raises(ValueError, match="projection schemes"):
         projection_check(Config())
+    with pytest.raises(NotImplementedError, match="at most 8 layers"):
+        projection_check(dataclasses.replace(
+            base, nz=9, rho=tuple(1020.0 + k for k in range(9))))
 
 
 def test_mesh_raises():
+    """What a mesh run refuses: a mesh whose devices are missing, a scheme
+    the shard step does not take yet under backend='fused' (no silent
+    eager route), and a halo wider than a shard's block."""
+    from beom_tpu_torch.parallel.mesh import make_mesh
+
     cfg, grid, forcing, st = make_case("double_gyre", nx=16, ny=16,
                                        device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        run(dataclasses.replace(cfg, mesh_x=2), grid, forcing, st, 1)
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="need 8 devices, have 0"):
+            make_mesh(2, 4)
+    with pytest.raises(ValueError, match="need 4 devices, have 2"):
+        make_mesh(2, 2, devices=["cpu", "cpu"])
+    for scheme in ("split", "rigid_lid", "implicit_fs"):
+        with pytest.raises(NotImplementedError, match="under a mesh"):
+            run(dataclasses.replace(cfg, mesh_x=2, backend="fused",
+                                    scheme=scheme), grid, forcing, st, 1)
+    with pytest.raises(ValueError, match="exceeds local block"):
+        run(dataclasses.replace(cfg, mesh_x=4), grid, forcing, st, 1)
+
+
+def test_mesh_kernels_refuse_several_devices():
+    """The shard step and the halo pad read the neighbour shards' blocks
+    through raw pointers, so they take a mesh whose shards lie on one
+    device; a mesh over several devices raises and names its queue
+    item."""
+    from beom_tpu_torch.parallel.mesh import Mesh, make_mesh
+
+    one = make_mesh(2, 2, devices=["cpu"])
+    assert one.single_device("halo_pad") == torch.device("cpu")
+    two = Mesh([torch.device("cuda", 0), torch.device("cuda", 1)] * 2, 2, 2)
+    for what in ("halo_pad", "the shard step"):
+        with pytest.raises(NotImplementedError, match="item 14c") as err:
+            two.single_device(what)
+        assert what in str(err.value) and "cuda:1" in str(err.value)
 
 
 def test_cli_refuses_missing_card():

@@ -14,6 +14,7 @@ import io
 import jax
 import numpy as np
 import pytest
+import torch
 
 from beom_tpu.cases import make_case as jax_make_case
 from beom_tpu.oracle import oracle_for
@@ -205,3 +206,113 @@ def test_convert_carries_phi():
     st = get_step(cfg)(st, grid, forcing, cfg)
     for f in ("h", "u", "v", "phi", "phi_prev"):
         assert_close(getattr(st, f), getattr(jst, f), 1e-11, f)
+
+
+# the cases whose terms the phase kernels took last: two layers, wet/dry,
+# the open boundary with the sponge and the tide
+OTHER_CASES = ["two_layer", "coastal_wetdry", "shelf_forced"]
+
+
+def _other_case(case, scheme, seed=5, **kw):
+    jcfg, jgrid, jforcing, jst = jax_make_case(
+        case, nx=48, ny=32, dtype="float64", scheme=scheme, **TIGHT, **kw)
+    jst = j_prepare_state(perturb(jcfg, jgrid, jst, seed), jcfg)
+    return (jcfg, jgrid, jforcing, jst), to_port(jcfg, jgrid, jforcing, jst)
+
+
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("case", OTHER_CASES)
+def test_phase_plain_versions_match_reference_bodies(case, scheme):
+    """proj_a_plain and proj_b_plain against the bodies the TPU kernel
+    runs (beom_tpu's momentum_update with free_surface=False, the
+    transport divergence; the correction, continuity_rhs and finalize),
+    on every term: 1e-12 x each field's scale at f64, both parities."""
+    import jax.numpy as jnp
+
+    from beom_tpu.core import ops as jops
+    from beom_tpu.core.state import State as JState
+    from beom_tpu.physics import continuity as jcont
+    from beom_tpu.stepping import fb as jfb
+    from beom_tpu.stepping.projection import barotropic_transport
+
+    (jcfg, jgrid, jforcing, jst), (cfg, grid, forcing, st) = _other_case(
+        case, scheme)
+    statics = (grid, forcing)
+    p_np = np.random.default_rng(6).standard_normal(
+        (cfg.ny, cfg.nx)) * np.asarray(jgrid.mask)
+    corr = cfg.dt if scheme == "rigid_lid" else cfg.g * cfg.dt
+    t = cfg.npdtype.type(7 * cfg.dt)
+    for n in (0, 1):
+        js = jst.replace(n=jnp.asarray(n, jst.n.dtype),
+                         t=jnp.asarray(t, jst.t.dtype))
+        ju, jv = jfb.momentum_update(js.h, js, jgrid, jforcing, jcfg,
+                                     free_surface=False)
+        U, V = barotropic_transport(js.h, ju, jv, jgrid)
+        jdiv = (jops.d_xm(U, jcfg.dx) + jops.d_ym(V, jcfg.dy)) * jgrid.mask
+        us, vs, div = fused_projection.proj_a(st.h, st.u, st.v, statics, n,
+                                              cfg)
+        for f, a, b in (("us", us, ju), ("vs", vs, jv), ("div", div, jdiv)):
+            assert_close(a, b, 1e-12, f"{f} n={n}")
+
+        jp = jnp.asarray(p_np)
+        dpx = jgrid.mask_u * jops.d_xp(jp, jcfg.dx)
+        dpy = jgrid.mask_v * jops.d_yp(jp, jcfg.dy)
+        u1 = (ju - corr * dpx[None]) * jgrid.mask_u
+        v1 = (jv - corr * dpy[None]) * jgrid.mask_v
+        h1 = (js.h + jcfg.dt * jcont.continuity_rhs(js.h, u1, v1, jgrid,
+                                                    jcfg)) * jgrid.mask
+        jout = jfb.finalize(h1, u1, v1, JState(h=js.h, u=ju, v=jv, t=js.t,
+                                               n=js.n), jgrid, jforcing,
+                            jcfg)
+        out = fused_projection.proj_b(st.h, us, vs, torch.tensor(p_np),
+                                      statics, t, cfg)
+        for f, a in zip("huv", out):
+            assert_close(a, getattr(jout, f), 1e-12, f"{f} n={n}")
+
+
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("case", OTHER_CASES)
+def test_fused_steps_match_reference_on_every_case(case, scheme):
+    """3 steps of the fused stepper (the kernels' plain versions on CPU
+    tensors) on the cases the phase kernels used to refuse, against
+    beom_tpu's projection step at f64 with the tight solve: 1e-9 x each
+    field's scale (the solver tolerance through three steps), and bit for
+    bit the port's eager stepper."""
+    (jcfg, jgrid, jforcing, jst), (cfg, grid, forcing, st) = _other_case(
+        case, scheme, precond="jacobi")
+    jstep = jax.jit(lambda s: j_get_step(jcfg)(s, jgrid, jforcing, jcfg))
+    fused = make_stepper(grid, forcing, dataclasses.replace(
+        cfg, backend="fused"))
+    eager = make_stepper(grid, forcing, cfg)
+    a = b = st
+    for _ in range(3):
+        jst, a, b = jstep(jst), fused(a), eager(b)
+    assert a.n == int(jst.n) == 3
+    for f in ("h", "u", "v", "phi"):
+        assert_close(getattr(a, f), getattr(jst, f), 1e-9, f)
+        np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                      getattr(b, f).numpy(), err_msg=f)
+    assert float(a.u.abs().max()) > 0
+
+
+def test_phase_kernels_build_spec_per_case():
+    """The phase kernels are built once per combination of compile-time
+    switches, as the fused fb step is; the shared-memory count per kernel
+    chooses the tile."""
+    from beom_tpu_torch.cases import make_case
+
+    cfg, *_ = make_case("shelf_forced", nx=48, ny=32, device="cpu",
+                        scheme="implicit_fs", nu4=1e6, r_int=1e-4,
+                        cd_bot=2.5e-3, dtype="float64")
+    name, defines = fused_projection.build_spec(cfg)
+    assert name == "projection"
+    for d in ("BEOM_NZ=2", "BEOM_OBC=1", "BEOM_SPONGE=1", "BEOM_NTIDE=1",
+              "BEOM_NU4=1", "BEOM_CDBOT=1", "BEOM_RINT=1", "BEOM_WETDRY=1"):
+        assert d in defines, d
+    tile = tuple(int(d.split("=")[1]) for d in defines[-2:])
+    need = fused_projection.smem_bytes(cfg, tile, 8)
+    assert max(need.values()) <= 232448
+    gyre, *_ = make_case("rigid_lid", nx=48, ny=32, device="cpu")
+    # the rigid-lid gyre keeps its halo of 1 in phase B
+    assert fused_projection.smem_bytes(gyre, (32, 16), 4)["proj_b"] \
+        == 34 * 18 * (8 * 4 + 4)
