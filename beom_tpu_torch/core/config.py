@@ -155,3 +155,7 @@ class Config:
     def tdtype(self) -> torch.dtype:
         return getattr(torch, self.dtype)
 
+
+def default_config(**kw) -> Config:
+    """A Config with the defaults and the fields named in kw."""
+    return Config(**kw)

@@ -32,25 +32,6 @@ namespace {
 using namespace beom;
 using namespace beom::fbk;
 
-// every interior point inside the grid, written at its global offset
-template <typename T>
-struct GridStore {
-  T *h, *u, *v;
-  int ny, nx;
-  long plane;
-  __device__ __forceinline__ bool valid(int jj, int ii) const {
-    return blockIdx.y * TY + jj < ny && blockIdx.x * TX + ii < nx;
-  }
-  __device__ __forceinline__ void put(int jj, int ii, int k, T hv, T uv,
-                                      T vv) const {
-    const long g = k * plane + long(blockIdx.y * TY + jj) * nx +
-                   blockIdx.x * TX + ii;
-    h[g] = hv;
-    u[g] = uv;
-    v[g] = vv;
-  }
-};
-
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fb_step_kernel(const Params<T> p, T* out_h, T* out_u, T* out_v) {
@@ -81,7 +62,9 @@ fb_step_kernel(const Params<T> p, T* out_h, T* out_u, T* out_v) {
   __syncthreads();
 
   fb_stages<T>(p, sm, gidx,
-               GridStore<T>{out_h, out_u, out_v, p.ny, p.nx, p.plane});
+               Store3<T>{out_h, out_u, out_v,
+                         Out{int(blockIdx.y) * TY, int(blockIdx.x) * TX,
+                             p.ny, p.nx, p.plane}});
 }
 
 template <typename T>

@@ -1,10 +1,10 @@
 // The stages of one fused forward-backward step on a haloed tile in shared
 // memory, shared by the single-device step (fb_step.cu, K1) and the shard
 // step under a mesh (shard_step.cu, K7).  The two kernels differ in where a
-// tile's points come from and where its results go: each loads the planes
-// of h, u, v, the masks and the block's table of offsets into the statics
-// (stage S0) and hands `fb_stages` a Store that says which interior points
-// are written and where.
+// tile's points come from and where its results go (shard_addr.cuh): each
+// loads the planes of h, u, v, the masks and the block's table of offsets
+// into the statics (stage S0) and hands `fb_stages` a Store3 whose Out says
+// which interior points are written and where.
 //
 // Stage regions, as [lo, R - hi) on both axes of the R-point block, with
 // LO = 1, or 2 under wet/dry (the limiter's scale reaches one cell more):
@@ -20,7 +20,7 @@
 
 #pragma once
 
-#include "fb_terms.cuh"
+#include "shard_addr.cuh"
 
 namespace beom {
 namespace fbk {
@@ -53,6 +53,23 @@ template <typename T>
 constexpr int smem_bytes() {
   return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
 }
+
+// the step's h, u, v of a tile's interior points, written through an Out
+template <typename T>
+struct Store3 {
+  T *h, *u, *v;
+  Out o;
+  __device__ __forceinline__ bool valid(int jj, int ii) const {
+    return o.valid(jj, ii);
+  }
+  __device__ __forceinline__ void put(int jj, int ii, int k, T hv, T uv,
+                                      T vv) const {
+    const long g = k * o.plane + o.at(jj, ii);
+    h[g] = hv;
+    u[g] = uv;
+    v[g] = vv;
+  }
+};
 
 // S1 to S4 on the block whose planes of h, u, v and the masks (and ee under
 // the open boundary) are loaded.  store.valid(jj, ii) says whether the

@@ -23,7 +23,10 @@
 // single-device step's on the same points bit for bit.  The statics
 // (masks, H, f, wind, sponge, boundary maps, tides) are the shard's blocks
 // padded once at setup with a halo of W from the neighbours, so Flather,
-// the sponge and the exterior clamp see global positions.
+// the sponge and the exterior clamp see global positions.  The addressing
+// (the neighbour loader, the interior / frame split of the tiles) is
+// csrc/shard_addr.cuh's, shared with the split and projection kernels
+// under a mesh.
 
 #include "fb_step_body.cuh"
 
@@ -33,119 +36,35 @@ using namespace beom;
 using namespace beom::fbk;
 
 template <typename T>
-struct ShardArgs {
-  const T* dyn[3][9];   // h, u, v of the 3 x 3 neighbourhood, [dj+1][di+1]
-  T* out[3];
-  int ly, lx;           // the local block
-  int nbx, nby;         // tiles over the block
-  int bx0, bx1, by0, by1;   // the interior tiles: [bx0, bx1) x [by0, by1)
-  int edge;             // 0: the interior tiles; 1: all the others
-};
-
-// entry [dj][di] of a field's 3 x 3 neighbourhood, chosen with constant
-// indices so that the pointers stay in the kernel's parameter space
-template <typename T>
-__device__ __forceinline__ const T* neighbour(const T* const (&p)[9], int dj,
-                                              int di) {
-  const T* r0 = di == 0 ? p[0] : di == 1 ? p[1] : p[2];
-  const T* r1 = di == 0 ? p[3] : di == 1 ? p[4] : p[5];
-  const T* r2 = di == 0 ? p[6] : di == 1 ? p[7] : p[8];
-  return dj == 0 ? r0 : dj == 1 ? r1 : r2;
-}
-
-// the interior points inside the block, written at their local offset
-template <typename T>
-struct BlockStore {
-  T *h, *u, *v;
-  int ty, tx, ly, lx;
-  __device__ __forceinline__ bool valid(int jj, int ii) const {
-    return ty * TY + jj < ly && tx * TX + ii < lx;
-  }
-  __device__ __forceinline__ void put(int jj, int ii, int k, T hv, T uv,
-                                      T vv) const {
-    const long g = (long(k) * ly + ty * TY + jj) * lx + tx * TX + ii;
-    h[g] = hv;
-    u[g] = uv;
-    v[g] = vv;
-  }
-};
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_step_kernel(const Params<T> p, const ShardArgs<T> a) {
+shard_step_kernel(const Params<T> p, const NbrSrc<T, 3, W> src,
+                  const TileMap m, T* h1, T* u1, T* v1) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
   const int tid = threadIdx.x;
-
-  // which tile: the interior rectangle, or the frame of tiles around it in
-  // row-major order
   int tx, ty;
-  if (!a.edge) {
-    tx = a.bx0 + blockIdx.x;
-    ty = a.by0 + blockIdx.y;
-  } else {
-    int id = blockIdx.x;
-    const int low = a.by0 * a.nbx;
-    const int mid_w = a.bx0 + (a.nbx - a.bx1);
-    const int mid = (a.by1 - a.by0) * mid_w;
-    if (id < low) {
-      ty = id / a.nbx;
-      tx = id % a.nbx;
-    } else if (id < low + mid) {
-      id -= low;
-      ty = a.by0 + id / mid_w;
-      const int c = id % mid_w;
-      tx = c < a.bx0 ? c : a.bx1 + (c - a.bx0);
-    } else {
-      id -= low + mid;
-      ty = a.by1 + id / a.nbx;
-      tx = id % a.nbx;
-    }
-  }
+  m.tile(tx, ty);
 
-  // S0: the haloed block.  A point at local (y, x) with y in [-W, ly + W)
-  // comes from the block of the neighbour it falls into; the statics from
-  // the shard's own padded arrays, p.nx = lx + 2 W wide.  Points past the
-  // block's halo (ragged last tiles) are clamped: they feed no result.
+  // S0: the haloed block, each point from the block of the neighbour it
+  // falls into; the statics from the shard's own padded arrays
   const int x0 = tx * TX - W;
   const int y0 = ty * TY - W;
-  const long lplane = long(a.ly) * a.lx;
   for (int s = tid; s < NPT; s += THREADS) {
-    int y = y0 + s / RX;
-    int x = x0 + s % RX;
-    y = y < a.ly + W ? y : a.ly + W - 1;
-    x = x < a.lx + W ? x : a.lx + W - 1;
-    const int g = (y + W) * p.nx + (x + W);
-    gidx[s] = g;
-    int dj = 1, di = 1;
-    if (y < 0) {
-      dj = 0;
-      y += a.ly;
-    } else if (y >= a.ly) {
-      dj = 2;
-      y -= a.ly;
-    }
-    if (x < 0) {
-      di = 0;
-      x += a.lx;
-    } else if (x >= a.lx) {
-      di = 2;
-      x -= a.lx;
-    }
-    const long off = long(y) * a.lx + x;
-    const T* hn = neighbour<T>(a.dyn[0], dj, di);
-    const T* un = neighbour<T>(a.dyn[1], dj, di);
-    const T* vn = neighbour<T>(a.dyn[2], dj, di);
+    const Loc l = src.at(y0 + s / RX, x0 + s % RX);
+    gidx[s] = l.stat;
+    const T* hn = src.template ptr<0>(l);
+    const T* un = src.template ptr<1>(l);
+    const T* vn = src.template ptr<2>(l);
     for (int k = 0; k < NZ; ++k) {
-      sm[(P_H + k) * NPT + s] = hn[k * lplane + off];
-      sm[(P_U + k) * NPT + s] = un[k * lplane + off];
-      sm[(P_V + k) * NPT + s] = vn[k * lplane + off];
+      sm[(P_H + k) * NPT + s] = hn[k * src.plane];
+      sm[(P_U + k) * NPT + s] = un[k * src.plane];
+      sm[(P_V + k) * NPT + s] = vn[k * src.plane];
     }
-    sm[P_M * NPT + s] = p.in[I_MASK][g];
-    sm[P_MU * NPT + s] = p.in[I_MASK_U][g];
-    sm[P_MV * NPT + s] = p.in[I_MASK_V][g];
-    sm[P_MQ * NPT + s] = p.in[I_MASK_Q][g];
+    sm[P_M * NPT + s] = p.in[I_MASK][l.stat];
+    sm[P_MU * NPT + s] = p.in[I_MASK_U][l.stat];
+    sm[P_MV * NPT + s] = p.in[I_MASK_V][l.stat];
+    sm[P_MQ * NPT + s] = p.in[I_MASK_Q][l.stat];
   }
   __syncthreads();
   if (OBC) {
@@ -154,51 +73,32 @@ shard_step_kernel(const Params<T> p, const ShardArgs<T> a) {
   }
 
   fb_stages<T>(p, sm, gidx,
-               BlockStore<T>{a.out[0], a.out[1], a.out[2], ty, tx, a.ly,
-                             a.lx});
+               Store3<T>{h1, u1, v1,
+                         Out{ty * TY, tx * TX, src.ly, src.lx, src.plane}});
 }
 
 // ptrs: the operand table of fb_terms.cuh with the statics padded by W (its
 // h, u, v slots are unused); ints[J_NY], ints[J_NX] the padded extent.
 // dyn: 27 pointers, h then u then v of the 3 x 3 neighbourhood.  geom:
-// ly, lx, edge.
+// ly, lx, part (shard_addr.cuh's TileMap).
 template <typename T>
 int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
                const void* const* dyn, const int* geom, void* h1, void* u1,
                void* v1, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  ShardArgs<T> a;
-  for (int f = 0; f < 3; ++f)
-    for (int n = 0; n < 9; ++n)
-      a.dyn[f][n] = static_cast<const T*>(dyn[f * 9 + n]);
-  a.out[0] = static_cast<T*>(h1);
-  a.out[1] = static_cast<T*>(u1);
-  a.out[2] = static_cast<T*>(v1);
-  a.ly = geom[0];
-  a.lx = geom[1];
-  a.edge = geom[2];
-  if (p.ny != a.ly + 2 * W || p.nx != a.lx + 2 * W || a.ly < W || a.lx < W)
+  const int ly = geom[0], lx = geom[1];
+  const TileMap m = make_tiles(ly, lx, TX, TY, W, geom[2]);
+  if (!shard_geometry_ok(p, ly, lx, W, W, m))
     return int(cudaErrorInvalidValue);
-  a.nbx = (a.lx + TX - 1) / TX;
-  a.nby = (a.ly + TY - 1) / TY;
-  // tile t is interior iff t * T - W >= 0 and (t + 1) * T + W <= l
-  a.bx0 = (W + TX - 1) / TX;
-  a.bx1 = (a.lx - W) / TX;
-  a.by0 = (W + TY - 1) / TY;
-  a.by1 = (a.ly - W) / TY;
-  if (a.bx1 <= a.bx0 || a.by1 <= a.by0) a.bx0 = a.bx1 = a.by0 = a.by1 = 0;
-  const int n_in = (a.bx1 - a.bx0) * (a.by1 - a.by0);
-  const int n_edge = a.nbx * a.nby - n_in;
-  const dim3 grid = a.edge ? dim3(n_edge) : dim3(a.bx1 - a.bx0,
-                                                 a.by1 - a.by0);
-  if (grid.x == 0 || grid.y == 0) return int(cudaErrorInvalidValue);
   constexpr int smem = smem_bytes<T>();
   cudaError_t e = cudaFuncSetAttribute(
       shard_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  shard_step_kernel<T><<<grid, THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p, a);
+  shard_step_kernel<T><<<m.grid(), THREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      p, make_nbr<T, 3, W>(dyn, ly, lx), m, static_cast<T*>(h1),
+      static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }
 
@@ -220,10 +120,8 @@ extern "C" int beom_shard_step_f64(const void* const* ptrs, const int* ints,
   return shard_step<double>(ptrs, ints, dbls, dyn, geom, h1, u1, v1, stream);
 }
 
-// the halo of a shard's padded statics and the tile, for the wrapper
+// the halo of a shard's padded statics, for the wrapper
 extern "C" int beom_shard_halo() { return W; }
-extern "C" int beom_tile_x() { return TX; }
-extern "C" int beom_tile_y() { return TY; }
 
 // dynamic shared memory of one CTA, for the wrapper's choice of tile
 extern "C" int beom_smem_bytes(int which, int is_f64) {

@@ -20,9 +20,11 @@ cover the stencil radius of one step:
 The step code sees sharded fields (parallel/mesh.Sharded), which run it
 once per shard; only the collectives cross shards.  `make_dist_stepper`
 returns step_fn(state) -> state on a sharded State.  backend='fused' runs
-the shard step (stencils/dist_band.py, K7) for scheme='fb' and raises for
-the other schemes; halo_impl='rdma' runs every pad2d of the eager tier
-through the halo-pad kernel (stencils/halo_pad.py, K8).
+all four schemes through the shard kernels (stencils/dist_band.py, K7): fb
+and split wholly on the shards, rigid_lid and implicit_fs with the phase
+kernels around this module's solve_pressure; halo_impl='rdma' runs every
+pad2d of the eager tier through the halo-pad kernel (stencils/halo_pad.py,
+K8).
 """
 
 from __future__ import annotations
@@ -264,6 +266,29 @@ def _dist_solve(b, grid_l: Grid, grid_p1: Grid, cfg: Config, lam=0.0,
     return res.x
 
 
+def solve_pressure(state: State, divU, grid_l: Grid, grid_p1: Grid,
+                   cfg: Config):
+    """The projection step's elliptic solve on the mesh from div(U*): the
+    rigid lid's right-hand side with its anomaly de-meaned over the wet
+    cells (two mesh reductions), or the implicit free surface's Helmholtz
+    problem, solved by _dist_solve warm-started from the carry.  grid_l is
+    the local statics, grid_p1 the statics padded by 1."""
+    dt = cfg.dt
+    warm = warm_x0(state, cfg)
+    if cfg.scheme == "rigid_lid":
+        anom = (torch.sum(state.h, dim=0) - grid_l.H) * grid_l.mask
+        anom = anom - grid_l.mask * (halo.dist_dot(anom, grid_l.mask)
+                                     / halo.dist_dot(grid_l.mask,
+                                                     grid_l.mask))
+        rhs = (divU - anom / dt) / dt
+        return _dist_solve(rhs, grid_l, grid_p1, cfg, x0=warm)
+    eta_n = (torch.sum(state.h, dim=0) - grid_l.H) * grid_l.mask
+    lam = 1.0 / (cfg.g * dt * dt)
+    rhs = -lam * (eta_n - dt * divU)
+    return _dist_solve(rhs, grid_l, grid_p1, cfg, lam=lam,
+                       x0=eta_n if warm is None else warm)
+
+
 def _dist_projection_step(state: State, pgrid: Grid, pforcing: Forcing,
                           cfg: Config, w: int) -> State:
     """Distributed rigid-lid / implicit-FS step: stepping/projection.py
@@ -286,22 +311,8 @@ def _dist_projection_step(state: State, pgrid: Grid, pforcing: Forcing,
     divU_p = (ops.d_xm(Up, cfg.dx) + ops.d_ym(Vp, cfg.dy)) * pgrid.mask
     divU = halo.crop2d(divU_p, w)
 
-    warm = warm_x0(state, cfg)
-    if rigid:
-        anom = (torch.sum(state.h, dim=0) - grid_l.H) * grid_l.mask
-        anom = anom - grid_l.mask * (halo.dist_dot(anom, grid_l.mask)
-                                     / halo.dist_dot(grid_l.mask,
-                                                     grid_l.mask))
-        rhs = (divU - anom / dt) / dt
-        phi = _dist_solve(rhs, grid_l, grid_p1, cfg, x0=warm)
-        gfac = dt
-    else:
-        eta_n = (torch.sum(state.h, dim=0) - grid_l.H) * grid_l.mask
-        lam = 1.0 / (cfg.g * dt * dt)
-        rhs = -lam * (eta_n - dt * divU)
-        phi = _dist_solve(rhs, grid_l, grid_p1, cfg, lam=lam,
-                          x0=eta_n if warm is None else warm)
-        gfac = cfg.g * dt
+    phi = solve_pressure(state, divU, grid_l, grid_p1, cfg)
+    gfac = dt if rigid else cfg.g * dt
 
     # --- barotropic correction (1-halo gradient) ------------------------
     phi_p1 = halo.pad2d(phi, 1)
@@ -391,14 +402,18 @@ def make_dist_stepper(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh,
     """step_fn(state) -> state on a sharded State, advancing n_inner
     passes of cfg.steps_per_pass steps per call.
 
-    backend='fused' runs the shard step (K7) for scheme='fb'; for the
-    other schemes it raises, naming the ROADMAP item: there is no silent
-    eager route.  backend='eager' runs the halo-exchanging steps above,
+    backend='fused' runs the shard kernels (K7) for every scheme: fb and
+    split through make_dist_fused_stepper, rigid_lid and implicit_fs
+    through make_dist_fused_projection_stepper (the phase kernels around
+    solve_pressure).  backend='eager' runs the halo-exchanging steps above,
     every pad2d through cfg.halo_impl.
     """
     if cfg.backend == "fused":
-        from beom_tpu_torch.stencils.dist_band import make_dist_fused_stepper
-        pass_fn = make_dist_fused_stepper(grid, forcing, cfg, mesh)
+        from beom_tpu_torch.stencils import dist_band
+        make = dist_band.make_dist_fused_stepper
+        if cfg.scheme in ("rigid_lid", "implicit_fs"):
+            make = dist_band.make_dist_fused_projection_stepper
+        pass_fn = make(grid, forcing, cfg, mesh)
 
         def fused_fn(state):
             for _ in range(n_inner):

@@ -51,7 +51,7 @@ Phases, each of which raises on failure (exit code != 0):
      default solve (CG + multigrid: K3a, K6, K3b), 20 steps, and (d)
      solver='mg' (K3a, K4b, K4a on levels 0 and 1, K5, K3b), 10 steps:
      the launch counts against the cycles, finite diagnostics,
-     max|sum h - H| bounded, 2 fused steps against 2 eager ones (an eager
+     max|sum h - H| bounded, 1 fused step against 1 eager one (an eager
      step takes 12 to 28 s with the machine's host)
  13. times at 2048^2 f32: K4a with its residual, K4b, K5 (with and
      without its one-CTA small levels), a K6-mg solve (per iteration), a
@@ -86,7 +86,7 @@ Phases, each of which raises on failure (exit code != 0):
      shelf's rigid lid 4 steps: there the fused tier's cycle stalls CG,
      each step runs K6 to its 500 iterations and the stall guard redoes
      the solve with the W-cycle through K4a, K4b and K5): the launch
-     counts, the solves the guard redid, 3 fused steps against 3 eager ones
+     counts, the solves the guard redid, 2 fused steps against 2 eager ones
  19. K8 (the halo pad) against pad2d by slices and concatenations on
      meshes (2, 4), (1, 8), (8, 1), (1, 1), w = 1, 3, 5, 2-D and layered
      fields, f32 and f64, on a 2048^2 and a 192x128 grid: bit for bit
@@ -95,7 +95,7 @@ Phases, each of which raises on failure (exit code != 0):
      for all four fb cases, both parities, k = 1 and 2, at 192x128 f64 and
      2048^2 f32
  21. the mesh path: run() on the 2048^2 f32 double gyre on a 2 x 4 mesh of
-     shards on the card, backend='fused', steps_per_pass=4, 400 steps,
+     shards on the card, backend='fused', steps_per_pass=4, 200 steps,
      diagnostics every 100: K7's launch counts, the diagnostics and the
      final state equal to the single-device K1 run's; K8's path: run() on
      the same case and mesh with backend='eager', halo_impl='rdma', 20
@@ -112,6 +112,29 @@ Phases, each of which raises on failure (exit code != 0):
      torch.profiler (these times are the host's launch cost as much as the
      kernel's), and the profiler's busy share of the mesh run, K7's time
      split into interior and edge launches
+ 23. K7 around the split body (three kernels) and around the projection
+     phases against their plain versions per shard (192x128 f64 within
+     1e-12 x scale, 2048^2 f32 within 4 ulp of scale) and against the
+     single-device kernels (K1s; K3a / K3b) on the gathered field bit for
+     bit, on (4, 1), (2, 4) and (2, 2): split at nz 1 and 2, nsub 4, 8, 12,
+     with a 2-step pass; projection on the four fb cases with implicit_fs
+     and rigid_lid (Jacobi), both parities
+ 24. the new mesh paths through run() at 2048^2 f32 on a 2 x 4 mesh of
+     shards on the card, backend='fused': double_gyre split nsub 8, 100
+     steps, diagnostics every 50, 48 launches per step, state and
+     diagnostics equal to the single-device K1s run's bit for bit; the
+     rigid-lid gyre with scheme='implicit_fs', 10 steps, within 1e-5 x
+     max(scale, 1) of the single-device fused run (K3a, K6, K3b) and 1e-6 x
+     scale of the eager mesh run (the same solve); the rigid lid's default
+     solve (the distributed CG + multigrid) at 512^2 on (2, 2) from rest,
+     its first step within 1e-6 x scale of the eager mesh step (the same
+     solve) and 3 steps within 1e-5 x max(scale, 1) of the single-device
+     fused run (K6 with its own hierarchy)
+ 25. times at 2048^2 f32 on (2, 4): K7-split's three kernels and a whole
+     split step beside K1s's, K7-proj's two phases beside K3a / K3b, each
+     between CUDA events and on the device under torch.profiler, and the
+     implicit-FS mesh step's time split into phase A, glue + solve and
+     phase B
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
@@ -168,6 +191,11 @@ PATHS = (
 # the (case, nsub) pairs phase 15 holds K1s against its plain version on
 AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
                ("two_layer", 8))
+# the (case, nsub) pairs and the meshes phase 23 holds K7-split on: nz 1
+# and 2, nsub 4, 8, 12
+MESH_SPLIT = tuple((case, nsub) for case in ("double_gyre", "two_layer")
+                   for nsub in (4, 8, 12))
+MESH_SHAPES = ((4, 1), (2, 4), (2, 2))
 # (b)'s sweep budget: a multiple of the 8 sweeps per K4a pass, so that
 # the fused solve's passes do the eager solve's sweeps when neither
 # converges early
@@ -610,9 +638,12 @@ def main() -> dict:
             specs.add(fused_projection.build_spec(make_case(
                 name, nx=16, ny=16, device="cpu", dtype=dtype,
                 scheme=scheme)[0]))
+    specs |= scheme_mesh_specs()
     todo = [k for k in KERNELS if k not in ("fb_step", "projection")] \
         + sorted(specs)
-    build.build_all(todo)
+    # 16 nvcc processes at a time keep the host's memory in bounds
+    for i in range(0, len(todo), 16):
+        build.build_all(todo[i:i + 16])
     for item in todo:
         build.load(item)
     print(f"   {', '.join(KERNELS)}, split_step and shard_step "
@@ -731,6 +762,7 @@ def main() -> dict:
     kernels += case_phases(dev, smi, rel, ulps)
     kernels += projection_case_phases(dev, smi, rel, ulps)
     kernels += mesh_phases(dev, smi, rel, ulps)
+    kernels += scheme_mesh_phases(dev, smi, rel, ulps)
     return {"kernels": kernels}
 
 
@@ -821,8 +853,9 @@ def projection_phases(dev, smi, rel, ulps):
         "K3a / K3b on the gyre",
         lambda: (fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
                  fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg)), 50,
-        {"pa::kernel": 1, "pb::kernel": 1})
-    dev_ms = {"proj_a": dev_ms["pa::kernel"], "proj_b": dev_ms["pb::kernel"]}
+        {"proj_a_kernel": 1, "proj_b_kernel": 1})
+    dev_ms = {"proj_a": dev_ms["proj_a_kernel"],
+              "proj_b": dev_ms["proj_b_kernel"]}
     Hu, Hv = elliptic.face_depths(grid)
     rhs = projection.rigid_rhs(st.h, div, grid, cfg)
     kw = dict(k=8, omega=cfg.sor_omega)
@@ -1024,7 +1057,7 @@ def multigrid_phases(dev, smi, rel, ulps):
         raise AssertionError(f"(c) launch counts {counts_c}")
     if not col_c < 0.1:
         raise AssertionError(f"(c) max|sum h - H| {col_c!r} m")
-    eager_c = versus_eager("(c) 2 fused steps", case_c, 2, 1e-5)
+    eager_c = versus_eager("(c) 1 fused step", case_c, 1, 1e-5)
     case_d, _, counts_d, col_d = run_projection(
         "(d) rigid_lid, solver='mg'", dev, 10, 5, solver="mg")
     n_cyc = counts_d["cycles"]
@@ -1039,7 +1072,7 @@ def multigrid_phases(dev, smi, rel, ulps):
         raise AssertionError(f"(d) launch counts {counts_d}")
     if not col_d < 0.1:
         raise AssertionError(f"(d) max|sum h - H| {col_d!r} m")
-    eager_d = versus_eager("(d) 2 fused steps", case_d, 2, 1e-4)
+    eager_d = versus_eager("(d) 1 fused step", case_d, 1, 1e-4)
 
     phase(f"13 times at {BIG}^2 f32 ({smi})")
     cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
@@ -1548,9 +1581,9 @@ def projection_case_phases(dev, smi, rel, ulps):
                               backend="fused", scheme=scheme)
             label = f"{case} {scheme} at {n_twin}^2"
         before = fp.COUNTS["stalled"]
-        versus_eager(f"{label}, 3 fused steps", built, 3, bound)
+        versus_eager(f"{label}, 2 fused steps", built, 2, bound)
         print(f"   {label}: the stall guard redid "
-              f"{fp.COUNTS['stalled'] - before} of 3 solves")
+              f"{fp.COUNTS['stalled'] - before} of 2 solves")
         for k in ("proj_a", "proj_b"):
             launches[case, k] = launches.get((case, k), 0) + counts[k]
 
@@ -1577,16 +1610,16 @@ def projection_case_phases(dev, smi, rel, ulps):
             f"K3a / K3b {case}",
             lambda: (fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
                      fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg)), 50,
-            {"pa::kernel": 1, "pb::kernel": 1})
+            {"proj_a_kernel": 1, "proj_b_kernel": 1})
         fa, fb_ = phase_fields(cfg)
         entries.append(kernel_entry(
             f"proj_a_{case}", "projection.cu", "band.py:200",
             launches[case, "proj_a"], err[case][0], ms_a, fa * pts * 4,
-            150 * cfg.nz * pts, device=dev_ms["pa::kernel"]))
+            150 * cfg.nz * pts, device=dev_ms["proj_a_kernel"]))
         entries.append(kernel_entry(
             f"proj_b_{case}", "projection.cu", "band.py:200",
             launches[case, "proj_b"], err[case][1], ms_b, fb_ * pts * 4,
-            60 * cfg.nz * pts, device=dev_ms["pb::kernel"]))
+            60 * cfg.nz * pts, device=dev_ms["proj_b_kernel"]))
     fp.LAUNCHES.update(saved[0])
     cg_fused.LAUNCHES = saved[1]
     torch.cuda.synchronize()
@@ -1735,7 +1768,7 @@ def mesh_phases(dev, smi, rel, ulps):
 
     phase(f"21 the mesh path: run() on the {BIG}^2 f32 double gyre, 2 x 4 "
           "shards")
-    n_steps = 400
+    n_steps = 200
     cfg, grid, forcing, st = make_case(
         "double_gyre", nx=BIG, ny=BIG, device=dev, backend="fused",
         steps_per_pass=4, diag_every=100)
@@ -1744,7 +1777,7 @@ def mesh_phases(dev, smi, rel, ulps):
     mcfg = dataclasses.replace(cfg, mesh_y=2, mesh_x=4)
     logn = io.StringIO()
     torch.cuda.synchronize()
-    dist_band.LAUNCHES.update(interior=0, edge=0)
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
     k1_before = fused_fb.LAUNCHES
     t0 = time.perf_counter()
     out = run(mcfg, grid, forcing, st, n_steps, log=logn)
@@ -1753,11 +1786,12 @@ def mesh_phases(dev, smi, rel, ulps):
     counts7 = dict(dist_band.LAUNCHES)
     for line in logn.getvalue().splitlines():
         print("   " + line)
-    want = dict(interior=8 * n_steps, edge=8 * n_steps)
+    want = dict(dict.fromkeys(counts7, 0), interior=8 * n_steps,
+                edge=8 * n_steps)
     if counts7 != want or fused_fb.LAUNCHES != k1_before:
         raise AssertionError(f"mesh path: K7 launches {counts7}, not {want}")
     diags = [json.loads(x) for x in logn.getvalue().splitlines()]
-    if [d["n"] for d in diags] != [100, 200, 300, 400] or not all(
+    if [d["n"] for d in diags] != [100, 200] or not all(
             d["finite"] == 1.0 and all(np.isfinite(list(
                 v for k, v in d.items() if k != "kind"))) for d in diags):
         raise AssertionError("mesh path: diagnostics missing or non-finite")
@@ -1884,6 +1918,458 @@ def mesh_phases(dev, smi, rel, ulps):
                      150 * cfg7.nz * BIG * BIG, device=dev7),
         kernel_entry("halo_pad", "halo_pad.cu", "rdma_halo.py:42", counts8,
                      err8, ms8, bytes8, 0, site_dir="parallel", device=dev8)]
+
+
+def agree(label, outs, refs, tol):
+    """Raise unless every field of outs is within tol(ref) of refs (tol
+    None: equal bit for bit); prints one line, returns the largest
+    difference."""
+    worst, bound_at = 0.0, None
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        err = float((a - b).abs().max())
+        bound = 0.0 if tol is None else tol(b)
+        if tol is None and not bool((a == b).all()) or not err <= bound:
+            raise AssertionError(f"{label} field {i}: {err!r} > {bound!r}")
+        if err >= worst:
+            worst, bound_at = err, bound
+    print(f"   {label}: {len(outs)} fields, max|diff| {worst!r} "
+          f"(bound {'bit for bit' if tol is None else repr(bound_at)})")
+    return worst
+
+
+def check_shard_split(label, dev, tol, seed, case, mesh_shape, **kw):
+    """K7-split on one perturbed case and mesh: each of the three kernels
+    against its plain version per shard (within tol) and against the
+    single-device kernel of K1s on the gathered field (bit for bit), and a
+    2-step pass against two K1s steps.  Returns {kernel: worst}."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+
+    cfg, grid, forcing, st = perturbed_case(dev, seed, case, scheme="split",
+                                            **kw)
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    statics = (grid, forcing)
+    m = pmesh.make_mesh(*mesh_shape, devices=[dev])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    tag = f"{label} {case} nsub={cfg.nsub} {mesh_shape}"
+
+    def g(fields):
+        return [pmesh.gather(a) for a in fields]
+
+    slow = dist_band.shard_split_slow(*sh, pstat, cfg)
+    one_slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
+    sub = dist_band.shard_split_subcycle(slow, pstat, cfg)
+    one_sub = fused_fb._launch_subcycle(one_slow, st.h, st.u, st.v, statics,
+                                        cfg)
+    rec = dist_band.shard_split_recompose(slow, sub, sh[0], pstat, st.t, cfg)
+    t1 = st.t + cfg.npdtype.type(cfg.dt)
+    one_rec = fused_fb._launch_recompose(one_slow, one_sub, st.h, st.u, st.v,
+                                         statics, t1, cfg)
+    two = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2)
+    torch.cuda.synchronize()
+    worst = {
+        "slow": agree(f"{tag} slow vs plain", g(slow), g(
+            dist_band.split_slow_plain(*sh, pstat, cfg)), tol),
+        "subcycle": agree(f"{tag} subcycle vs plain", g(sub), g(
+            dist_band.split_subcycle_plain(slow, pstat, cfg)), tol),
+        "recompose": agree(f"{tag} recompose vs plain", g(rec), g(
+            dist_band.split_recompose_plain(slow, sub, sh[0], pstat, st.t,
+                                            cfg)), tol)}
+    agree(f"{tag} slow vs K1s", g(slow), one_slow, None)
+    agree(f"{tag} subcycle vs K1s", g(sub), one_sub, None)
+    agree(f"{tag} recompose vs K1s", g(rec), one_rec, None)
+    agree(f"{tag} 2-step pass vs K1s", g(two), fused_fb.fused_fb_step(
+        st.h, st.u, st.v, statics, 0, st.t, cfg, 2), None)
+    return worst
+
+
+def check_shard_projection(label, dev, tol, seed, case, scheme, mesh_shape,
+                           **kw):
+    """K7-proj on one perturbed case and mesh, both parities: phase A and
+    phase B against their plain versions per shard (within tol) and
+    against K3a / K3b on the gathered field (bit for bit).  Returns the
+    worst differences (A, B)."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    cfg, grid, forcing, st = perturbed_case(dev, seed, case, scheme=scheme,
+                                            **kw)
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    statics = (grid, forcing)
+    m = pmesh.make_mesh(*mesh_shape, devices=[dev])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    rng = np.random.default_rng(seed + 100)
+    p = torch.tensor((0.1 * rng.standard_normal((cfg.ny, cfg.nx))).astype(
+        cfg.npdtype), device=dev) * grid.mask
+    sp = pmesh.shard(p, m)
+    tag = f"{label} {case} {scheme} {mesh_shape}"
+    worst = [0.0, 0.0]
+    for n in (0, 1):
+        a = dist_band.shard_proj_a(*sh, pstat, n, cfg)
+        one_a = fp.proj_a(st.h, st.u, st.v, statics, n, cfg)
+        b = dist_band.shard_proj_b(sh[0], a[0], a[1], sp, pstat, st.t, cfg)
+        one_b = fp.proj_b(st.h, one_a[0], one_a[1], p, statics, st.t, cfg)
+        torch.cuda.synchronize()
+        ga = [pmesh.gather(x) for x in a]
+        gb = [pmesh.gather(x) for x in b]
+        worst[0] = max(worst[0], agree(f"{tag} n={n} A vs plain", ga, [
+            pmesh.gather(x) for x in dist_band.proj_a_plain(
+                *sh, pstat, n, cfg)], tol))
+        worst[1] = max(worst[1], agree(f"{tag} n={n} B vs plain", gb, [
+            pmesh.gather(x) for x in dist_band.proj_b_plain(
+                sh[0], a[0], a[1], sp, pstat, st.t, cfg)], tol))
+        agree(f"{tag} n={n} A vs K3a", ga, one_a, None)
+        agree(f"{tag} n={n} B vs K3b", gb, one_b, None)
+    return worst
+
+
+def state_diff(label, out, ref, bound_rel, floor=0.0):
+    """max|out - ref| of h, u, v against bound_rel x max(scale, floor);
+    raises if over."""
+    worst = 0.0
+    for f in "huv":
+        a, b = getattr(out, f), getattr(ref, f)
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        bound = bound_rel * max(scale, floor)
+        print(f"   {label} {f}: max|diff| {err!r} (scale {scale!r}, bound "
+              f"{bound!r})")
+        if not err <= bound:
+            raise AssertionError(f"{label} {f}: {err!r} > {bound!r}")
+        worst = max(worst, err)
+    return worst
+
+
+def scheme_mesh_specs():
+    """The builds phases 23 to 25 use: the shard kernels and the
+    single-device kernels they are held against, f32 and f64."""
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.stencils import dist_band, fused_fb, fused_projection
+
+    specs = set()
+    for dtype in ("float32", "float64"):
+        for case, nsub in MESH_SPLIT:
+            cfg = make_case(case, nx=16, ny=16, device="cpu", dtype=dtype,
+                            scheme="split", nsub=nsub)[0]
+            specs |= {fused_fb.build_spec(cfg), dist_band.build_spec(cfg)}
+        for case in FB_CASES + ("rigid_lid",):
+            cfg = make_case(case, nx=16, ny=16, device="cpu", dtype=dtype,
+                            scheme="implicit_fs")[0]
+            specs |= {fused_projection.build_spec(cfg),
+                      dist_band.build_spec(cfg)}
+    return specs
+
+
+def scheme_mesh_phases(dev, smi, rel, ulps):
+    """Phases 23 to 25: the split and projection schemes on a mesh of
+    shards; returns the JSON entries of K7-split and K7-proj."""
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.parallel import dist
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel.mesh import gather_state
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import prepare_state
+
+    phase("23 K7-split and K7-proj against their plain versions and the "
+          "single-device kernels")
+    err_split, err_proj = {}, [0.0, 0.0]
+    for case, nsub in MESH_SPLIT:
+        for mesh_shape in MESH_SHAPES:
+            check_shard_split("192x128 f64", dev, rel(1e-12), 80, case,
+                              mesh_shape, nx=192, ny=128, dtype="float64",
+                              nsub=nsub)
+            worst = check_shard_split(f"{BIG}^2 f32", dev, ulps(4), 81, case,
+                                      mesh_shape, nx=BIG, ny=BIG, nsub=nsub)
+            for k, v in worst.items():
+                err_split[k] = max(err_split.get(k, 0.0), v)
+    for case in FB_CASES:
+        for scheme, kw in (("implicit_fs", {}),
+                           ("rigid_lid", dict(precond="jacobi"))):
+            for mesh_shape in MESH_SHAPES:
+                check_shard_projection("192x128 f64", dev, rel(1e-12), 82,
+                                       case, scheme, mesh_shape, nx=192,
+                                       ny=128, dtype="float64", **kw)
+                worst = check_shard_projection(f"{BIG}^2 f32", dev, ulps(4),
+                                               83, case, scheme, mesh_shape,
+                                               nx=BIG, ny=BIG, **kw)
+                err_proj = [max(x, y) for x, y in zip(err_proj, worst)]
+
+    phase(f"24 the split and projection schemes on a 2 x 4 mesh of shards "
+          f"through run() at {BIG}^2 f32")
+    n_split = 100
+    cfg, grid, forcing, st = make_case(
+        "double_gyre", nx=BIG, ny=BIG, device=dev, backend="fused",
+        scheme="split", nsub=8, diag_every=50)
+    log1, logn = io.StringIO(), io.StringIO()
+    ref = run(cfg, grid, forcing, st, n_split, log=log1)
+    torch.cuda.synchronize()
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+    k1s_before = dict(fused_fb.SPLIT_LAUNCHES)
+    t0 = time.perf_counter()
+    out = run(dataclasses.replace(cfg, mesh_y=2, mesh_x=4), grid, forcing,
+              st, n_split, log=logn)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts_split = dict(dist_band.LAUNCHES)
+    for line in logn.getvalue().splitlines():
+        print("   " + line)
+    # per shard and step each kernel's edge launch and, where the block has
+    # interior tiles for its halo (all three at 2048^2), its interior one
+    tiles = dist_band._entry(cfg, torch.float32)[2]
+    want = dict.fromkeys(counts_split, 0)
+    for key, w in dist_band.kernel_halos(cfg).items():
+        want[f"split_{key}"] = 8 * n_split * (1 + dist_band.has_interior(
+            BIG // 2, BIG // 4, w, tiles[key]))
+    if counts_split != want or fused_fb.SPLIT_LAUNCHES != k1s_before:
+        raise AssertionError(f"split mesh path: launches {counts_split}, "
+                             f"not {want}")
+    diags = [json.loads(x) for x in logn.getvalue().splitlines()]
+    if [d["n"] for d in diags] != [50, 100] or not all(
+            d["finite"] == 1.0 for d in diags) \
+            or not diags[-1]["max_speed"] > 0:
+        raise AssertionError("split mesh path: diagnostics")
+    if logn.getvalue() != log1.getvalue():
+        raise AssertionError("split mesh path: the diagnostics are not the "
+                             "single-device K1s run's")
+    got = gather_state(out)
+    for f in "huv":
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            raise AssertionError(f"split mesh path: {f} is not the "
+                                 "single-device K1s run's")
+    print(f"   split nsub=8 on 2 x 4 shards: launches {counts_split} in "
+          f"{n_split} steps ({sum(counts_split.values()) / n_split!r} per "
+          "step); diagnostics and final state equal to the single-device "
+          f"K1s run's bit for bit; {wall:.3f} s wall (first run, "
+          "diagnostics included)")
+
+    n_proj = 10
+    cfg, grid, forcing, st = make_case(
+        "rigid_lid", nx=BIG, ny=BIG, device=dev, backend="fused",
+        scheme="implicit_fs", diag_every=5)
+    ref = run(cfg, grid, forcing, st, n_proj, log=io.StringIO())
+    mcfg = dataclasses.replace(cfg, mesh_y=2, mesh_x=4)
+    torch.cuda.synchronize()
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+    single_before = dict(fp.LAUNCHES)
+    t0 = time.perf_counter()
+    out = gather_state(run(mcfg, grid, forcing, st, n_proj,
+                           log=io.StringIO()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts_proj = dict(dist_band.LAUNCHES)
+    want = {k: 8 * n_proj if k in ("proj_a", "proj_b") else 0
+            for k in counts_proj}
+    if counts_proj != want or fp.LAUNCHES != single_before:
+        raise AssertionError(f"implicit FS mesh path: launches "
+                             f"{counts_proj}, not {want}")
+    eager = gather_state(run(dataclasses.replace(mcfg, backend="eager"),
+                             grid, forcing, st, n_proj, log=io.StringIO()))
+    state_diff("implicit FS 2 x 4 fused vs single-device fused", out, ref,
+               1e-5, 1.0)
+    state_diff("implicit FS 2 x 4 fused vs eager 2 x 4", out, eager, 1e-6)
+    print(f"   implicit FS on 2 x 4 shards: launches {counts_proj} in "
+          f"{n_proj} steps; {wall:.3f} s wall (first run, diagnostics "
+          "included)")
+
+    # the distributed multigrid-preconditioned CG is far slower on the eager
+    # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100): from
+    # rest at 512^2, the first fused step held against the eager mesh step
+    # (the same solve, _dist_solve, so equal within 1e-6 x scale), and
+    # three fused steps against the single-device fused steps (K6 with
+    # multigrid) within the solver tolerance
+    cfg, grid, forcing, st = make_case("rigid_lid", nx=512, ny=512,
+                                       device=dev, backend="fused")
+    st = prepare_state(st, cfg)
+    m = pmesh.make_mesh(2, 2, devices=[dev])
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    step = dist.make_dist_stepper(grid, forcing, cfg, m)
+    fused = step(pmesh.shard_state(st, m))
+    first = gather_state(fused)
+    fused = step(step(fused))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if dist_band.LAUNCHES["proj_a"] != 12 \
+            or dist_band.LAUNCHES["proj_b"] != 12:
+        raise AssertionError(f"rigid lid on 2 x 2: launches "
+                             f"{dist_band.LAUNCHES}")
+    eager = dist.make_dist_stepper(
+        grid, forcing, dataclasses.replace(cfg, backend="eager"), m)(
+        pmesh.shard_state(st, m))
+    state_diff("rigid lid CG + multigrid 512^2 2 x 2, 1 fused step vs the "
+               "eager mesh step", first, gather_state(eager), 1e-6)
+    one, single = st, fp.make_fused_projection_stepper(grid, forcing, cfg)
+    for _ in range(3):
+        one = single(one)
+    state_diff("rigid lid CG + multigrid 512^2 2 x 2, 3 fused steps vs "
+               "the single-device fused run", gather_state(fused), one, 1e-5,
+               1.0)
+    print(f"   rigid lid with the distributed CG + multigrid on 2 x 2: "
+          f"{wall:.3f} s for 3 steps")
+
+    phase(f"25 times of K7-split and K7-proj at {BIG}^2 f32 on 2 x 4 shards "
+          f"({smi})")
+    saved = (dict(dist_band.LAUNCHES), dict(fused_fb.SPLIT_LAUNCHES),
+             dict(fp.LAUNCHES))
+    m = pmesh.make_mesh(2, 4, devices=[dev])
+    pts = BIG * BIG
+    entries = []
+
+    cfg, grid, forcing, st = perturbed_case(dev, 2, nx=BIG, ny=BIG,
+                                            scheme="split", nsub=8)
+    statics = (grid, forcing)
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    slow = dist_band.shard_split_slow(*sh, pstat, cfg)
+    sub = dist_band.shard_split_subcycle(slow, pstat, cfg)
+    one_slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
+    one_sub = fused_fb._launch_subcycle(one_slow, st.h, st.u, st.v, statics,
+                                        cfg)
+    n_stat = step_fields(cfg) - 6 * cfg.nz
+    nz = cfg.nz
+    t1 = st.t + cfg.npdtype.type(cfg.dt)
+    # per kernel: (its wrapper, the plain version, K1s's kernel, the
+    # profiler's names of the shard and single-device kernels, the fields
+    # at the grid's size that it reads or writes, the statics it reads,
+    # operations per point); every field and static counts once over the
+    # global grid, as for the single-device kernel of the same function
+    # (the halo a shard reads is its neighbours' points, not bytes the
+    # function needs)
+    timed = {
+        "slow": (lambda: dist_band.shard_split_slow(*sh, pstat, cfg),
+                 lambda: dist_band.split_slow_plain(*sh, pstat, cfg),
+                 lambda: fused_fb._launch_slow(st.h, st.u, st.v, statics,
+                                               cfg),
+                 "shard_slow_kernel", "split_slow_kernel",
+                 7 * nz + 9, n_stat, 150 * nz),
+        "subcycle": (lambda: dist_band.shard_split_subcycle(slow, pstat, cfg),
+                     lambda: dist_band.split_subcycle_plain(slow, pstat,
+                                                            cfg),
+                     lambda: fused_fb._launch_subcycle(
+                         one_slow, st.h, st.u, st.v, statics, cfg),
+                     "shard_sub_kernel", "split_sub_kernel", 12, 3,
+                     20 * cfg.nsub),
+        "recompose": (lambda: dist_band.shard_split_recompose(
+                          slow, sub, sh[0], pstat, st.t, cfg),
+                      lambda: dist_band.split_recompose_plain(
+                          slow, sub, sh[0], pstat, st.t, cfg),
+                      lambda: fused_fb._launch_recompose(
+                          one_slow, one_sub, st.h, st.u, st.v, statics, t1,
+                          cfg),
+                      "shard_rec_kernel", "split_rec_kernel", 8 * nz + 7, 4,
+                      40 * nz)}
+    for k, (kernel, plain, single, name7, name1, dyn, stat, ops) in \
+            timed.items():
+        ms = time_pair(f"K7-split {k} nsub=8 (2, 4)", plain, kernel, 5, 50)
+        ms1 = time_ms(single, 100)
+        dev_ms = device_ms(f"K7-split {k} (2, 4) and K1s {k}",
+                           lambda: (kernel(), single()), 20,
+                           {name7: 16, name1: 1})
+        print(f"   {k}: K7-split {ms[0]!r} ms between events, "
+              f"{dev_ms[name7]!r} on the device; K1s {ms1!r} / "
+              f"{dev_ms[name1]!r}")
+        entries.append(kernel_entry(
+            f"shard_split_{k}", "shard_split.cu", "dist_band.py:63",
+            counts_split[f"split_{k}"], err_split[k], ms,
+            4 * (dyn + stat) * pts, ops * pts, device=dev_ms[name7]))
+    step_ms = time_pair(
+        "K7-split step nsub=8 (2, 4)",
+        lambda: dist_band.shard_step_plain(*sh, pstat, 0, st.t, cfg, 1),
+        lambda: dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 1), 3, 30,
+        unit="step")
+    k1s_ms = time_ms(lambda: fused_fb.fused_fb_step(
+        st.h, st.u, st.v, statics, 0, st.t, cfg, 1), 50)
+    print(f"   split step nsub=8: K7-split on (2, 4) {step_ms[0]!r} ms, "
+          f"K1s {k1s_ms!r} ms")
+    del slow, sub, one_slow, one_sub, sh, pstat
+    torch.cuda.empty_cache()
+
+    cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
+                                            ny=BIG, scheme="implicit_fs")
+    statics = (grid, forcing)
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    blocks = dist_band._static_blocks(pstat, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    u_s, v_s, div = dist_band.shard_proj_a(*sh, pstat, 0, cfg)
+    p = pmesh.shard((st.h.sum(0) - grid.H) * grid.mask, m)
+    one_a = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+    p1 = pmesh.gather(p)
+    fa, fb_ = phase_fields(cfg)
+    timed = {
+        "proj_a": (lambda: dist_band.shard_proj_a(
+                       *sh, pstat, 0, cfg, static_blocks=blocks),
+                   lambda: dist_band.proj_a_plain(*sh, pstat, 0, cfg),
+                   lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
+                   "shard_pa_kernel", "proj_a_kernel", 5 * nz + 1,
+                   fa - 5 * nz - 1, 150 * nz),
+        "proj_b": (lambda: dist_band.shard_proj_b(
+                       sh[0], u_s, v_s, p, pstat, st.t, cfg,
+                       static_blocks=blocks),
+                   lambda: dist_band.proj_b_plain(sh[0], u_s, v_s, p, pstat,
+                                                  st.t, cfg),
+                   lambda: fp.proj_b(st.h, one_a[0], one_a[1], p1, statics,
+                                     st.t, cfg),
+                   "shard_pb_kernel", "proj_b_kernel", 6 * nz + 1,
+                   fb_ - 6 * nz - 1, 60 * nz)}
+    for k, (kernel, plain, single, name7, name1, dyn, stat, ops) in \
+            timed.items():
+        ms = time_pair(f"K7-proj {k} implicit FS (2, 4)", plain, kernel, 5,
+                       50)
+        ms1 = time_ms(single, 100)
+        dev_ms = device_ms(f"K7-proj {k} (2, 4) and K3{k[-1]}",
+                           lambda: (kernel(), single()), 20,
+                           {name7: 8, name1: 1})
+        print(f"   {k}: K7-proj {ms[0]!r} ms between events, "
+              f"{dev_ms[name7]!r} on the device; K3{k[-1]} {ms1!r} / "
+              f"{dev_ms[name1]!r}")
+        entries.append(kernel_entry(
+            f"shard_{k}", "shard_projection.cu", "dist_band.py:63",
+            counts_proj[k], err_proj[k == "proj_b"], ms,
+            4 * (dyn + stat) * pts, ops * pts, device=dev_ms[name7]))
+
+    # the implicit-FS mesh step's time by part, between CUDA events on the
+    # current stream, which every part joins
+    pgrid1, _ = dist.pad_statics(grid, forcing, cfg, m, 1)
+    grid_l = dist._crop_tree(pgrid1, 1)
+    state = pmesh.shard_state(prepare_state(st, cfg), m)
+    parts = {"phase A": 0.0, "glue + solve": 0.0, "phase B": 0.0}
+    n_steps = 5
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        a = dist_band.shard_proj_a(state.h, state.u, state.v, pstat, state.n,
+                                   cfg, static_blocks=blocks)
+        ev[1].record()
+        phi = dist.solve_pressure(state, a[2], grid_l, pgrid1, cfg)
+        ev[2].record()
+        dist_band.shard_proj_b(state.h, a[0], a[1], phi, pstat, state.t, cfg,
+                               static_blocks=blocks)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for i, name in enumerate(parts):
+            parts[name] += ev[i].elapsed_time(ev[i + 1]) / n_steps
+    wall = (time.perf_counter() - t0) / n_steps * 1e3
+    print(f"   implicit FS step on (2, 4), from the same state: "
+          + ", ".join(f"{k} {v!r} ms" for k, v in parts.items())
+          + f"; {wall!r} ms/step wall")
+    dist_band.LAUNCHES.update(saved[0])
+    fused_fb.SPLIT_LAUNCHES.update(saved[1])
+    fp.LAUNCHES.update(saved[2])
+    return entries
 
 
 def _recompose_plain(sp, sub, st, grid, forcing, cfg):

@@ -3,8 +3,9 @@ K1 (fused fb step, every case), K1s (the split step's three kernels),
 K3a/K3b (projection phases, every case), K4a (blocked red-black
 sweep, with and without its residual), K4b (operator pass), K5 (coarse
 multigrid stack), K6 (fused CG, Jacobi and multigrid), K7 (the shard step
-on a mesh of shards on the one card) and K8 (the halo pad); and run() of
-the rigid lid's two multigrid solves through them.
+on a mesh of shards on the one card, around the fb and split bodies and
+the projection phases) and K8 (the halo pad); and run() of the rigid lid's
+two multigrid solves and of the mesh paths through them.
 
 Skips where torch.cuda.is_available() is false.  It imports no jax, so
 on a machine with a card and no jax it runs without tests/conftest.py:
@@ -340,27 +341,151 @@ def test_shard_step_matches_plain_and_single_device(cuda, name, mesh_shape,
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme", ["split", "rigid_lid"])
 def test_shard_step_refuses_other_schemes(cuda, scheme):
+    """The schemes the shard step once refused now build a fused mesh
+    stepper on the card and step through their kernels."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel.dist import make_dist_stepper
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = make_case("double_gyre", nx=64, ny=64,
+                                       device=cuda, scheme=scheme,
+                                       backend="fused", precond="jacobi")
+    m = pmesh.make_mesh(2, 2, devices=[cuda])
+    kinds = ("split_slow", "split_subcycle", "split_recompose") \
+        if scheme == "split" else ("proj_a", "proj_b")
+    before = dict(dist_band.LAUNCHES)
+    out = make_dist_stepper(grid, forcing, cfg, m)(pmesh.shard_state(st, m))
+    torch.cuda.synchronize()
+    assert out.n == 1
+    for k in kinds:
+        assert dist_band.LAUNCHES[k] > before[k], k
+    assert dist_band.build_spec(cfg)[0] == (
+        "shard_split" if scheme == "split" else "shard_projection")
+
+
+def _gathered_close(outs, refs, rel, what):
+    from beom_tpu_torch.parallel import mesh as pmesh
+
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        a, b = pmesh.gather(a), pmesh.gather(b)
+        err = float((a - b).abs().max())
+        assert err <= rel * max(float(b.abs().max()), 1e-30), (what, i, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nx,ny,rel", [
+    ("float32", 512, 256, 4 * 2.0 ** -23), ("float64", 192, 128, 1e-12)])
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 4), (2, 2)])
+@pytest.mark.parametrize("name,nsub", [
+    ("double_gyre", 4), ("two_layer", 8), ("coastal_wetdry", 8),
+    ("shelf_forced", 12)])
+def test_shard_split_matches_plain_and_single_device(cuda, name, nsub,
+                                                     mesh_shape, dtype, nx,
+                                                     ny, rel):
+    """K7 around the split body: each of the three kernels against its
+    plain version per shard and against the single-device kernel (K1s) on
+    the gathered field, and the chained 2-step pass against K1s; two
+    launches of each kernel per shard and step where a block has interior
+    tiles."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
-    cfg, grid, forcing, _ = make_case("double_gyre", nx=64, ny=64,
-                                      device=cuda, scheme=scheme)
-    m = pmesh.make_mesh(2, 2, devices=[cuda])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist_band.make_dist_fused_stepper(grid, forcing, cfg, m)
+    cfg, grid, forcing, st = _perturbed(cuda, 55, name, nx=nx, ny=ny,
+                                        dtype=dtype, scheme="split",
+                                        nsub=nsub, **CASE_KW[name])
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    statics = (grid, forcing)
+    m = pmesh.make_mesh(*mesh_shape, devices=[cuda])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    slow = dist_band.shard_split_slow(*sh, pstat, cfg)
+    one_slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
+    torch.cuda.synchronize()
+    _gathered_close(slow, dist_band.split_slow_plain(*sh, pstat, cfg), rel,
+                    "slow vs plain")
+    _gathered_close(slow, one_slow, rel, "slow vs K1s")
+    sub = dist_band.shard_split_subcycle(slow, pstat, cfg)
+    one_sub = fused_fb._launch_subcycle(one_slow, st.h, st.u, st.v, statics,
+                                        cfg)
+    torch.cuda.synchronize()
+    _gathered_close(sub, dist_band.split_subcycle_plain(slow, pstat, cfg),
+                    rel, "subcycle vs plain")
+    _gathered_close(sub, one_sub, rel, "subcycle vs K1s")
+    rec = dist_band.shard_split_recompose(slow, sub, sh[0], pstat, st.t, cfg)
+    t1 = st.t + cfg.npdtype.type(cfg.dt)
+    one_rec = fused_fb._launch_recompose(one_slow, one_sub, st.h, st.u, st.v,
+                                         statics, t1, cfg)
+    torch.cuda.synchronize()
+    _gathered_close(rec, dist_band.split_recompose_plain(
+        slow, sub, sh[0], pstat, st.t, cfg), rel, "recompose vs plain")
+    _gathered_close(rec, one_rec, rel, "recompose vs K1s")
+    before = dict(dist_band.LAUNCHES)
+    out = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2)
+    torch.cuda.synchronize()
+    for k in ("split_slow", "split_subcycle", "split_recompose"):
+        assert 2 * m.n <= dist_band.LAUNCHES[k] - before[k] <= 4 * m.n, k
+    _gathered_close(out, fused_fb.fused_fb_step(
+        st.h, st.u, st.v, statics, 0, st.t, cfg, 2), rel, "step vs K1s")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nx,ny,rel", [
+    ("float32", 512, 256, 4 * 2.0 ** -23), ("float64", 192, 128, 1e-12)])
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 4), (2, 2)])
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("name", list(CASE_KW))
+def test_shard_projection_matches_plain_and_single_device(
+        cuda, name, scheme, mesh_shape, dtype, nx, ny, rel):
+    """K7 around the projection bodies: phase A and phase B against their
+    plain versions per shard and against K3a / K3b on the gathered field,
+    both parities; one launch per shard and phase."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = _perturbed(cuda, 56, name, nx=nx, ny=ny,
+                                        dtype=dtype, scheme=scheme,
+                                        **CASE_KW[name])
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    statics = (grid, forcing)
+    m = pmesh.make_mesh(*mesh_shape, devices=[cuda])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+        * grid.mask
+    sp = pmesh.shard(p, m)
+    for n in (0, 1):
+        before = dict(dist_band.LAUNCHES)
+        a = dist_band.shard_proj_a(*sh, pstat, n, cfg)
+        one_a = fused_projection.proj_a(st.h, st.u, st.v, statics, n, cfg)
+        b = dist_band.shard_proj_b(sh[0], a[0], a[1], sp, pstat, st.t, cfg)
+        one_b = fused_projection.proj_b(st.h, one_a[0], one_a[1], p, statics,
+                                        st.t, cfg)
+        torch.cuda.synchronize()
+        assert dist_band.LAUNCHES["proj_a"] == before["proj_a"] + m.n
+        assert dist_band.LAUNCHES["proj_b"] == before["proj_b"] + m.n
+        _gathered_close(a, dist_band.proj_a_plain(*sh, pstat, n, cfg), rel,
+                        "A vs plain")
+        _gathered_close(a, one_a, rel, "A vs K3a")
+        _gathered_close(b, dist_band.proj_b_plain(sh[0], a[0], a[1], sp,
+                                                  pstat, st.t, cfg), rel,
+                        "B vs plain")
+        _gathered_close(b, one_b, rel, "B vs K3b")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme,kw,pads", [
     ("fb", dict(backend="fused", steps_per_pass=2), 0),
+    ("split", dict(backend="fused", nsub=4), 0),
     ("fb", dict(halo_impl="rdma"), 3),
     ("split", dict(halo_impl="rdma", nsub=4), None)])
 def test_run_on_a_mesh_of_shards_on_the_card(cuda, scheme, kw, pads):
     """run() with a 2 x 4 mesh on the one card, as the command line starts
-    it: the fused tier through K7 and the eager tier with halo_impl='rdma'
-    through K8 (fb: 3 pad2d per step, one launch per shard), against the
-    single-device run of the same backend: fb and split carry no
-    reduction, so state and diagnostics are equal bit for bit."""
+    it: the fused tier through K7 (fb: an interior and an edge launch per
+    shard and step; split: the same for each of its three kernels) and the
+    eager tier with halo_impl='rdma' through K8 (fb: 3 pad2d per step, one
+    launch per shard), against the single-device run of the same backend:
+    fb and split carry no reduction, so state and diagnostics are equal
+    bit for bit."""
     import io
 
     from beom_tpu_torch.parallel.mesh import gather_state
@@ -374,13 +499,23 @@ def test_run_on_a_mesh_of_shards_on_the_card(cuda, scheme, kw, pads):
     log1, logn = io.StringIO(), io.StringIO()
     ref = run(dataclasses.replace(cfg, halo_impl="ppermute"), grid, forcing,
               st, n, log=log1)
-    dist_band.LAUNCHES.update(interior=0, edge=0)
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
     halo_pad.LAUNCHES = 0
     out = gather_state(run(dataclasses.replace(cfg, mesh_y=2, mesh_x=4),
                            grid, forcing, st, n, log=logn))
     torch.cuda.synchronize()
     if cfg.backend == "fused":
-        assert dist_band.LAUNCHES == dict(interior=8 * n, edge=8 * n)
+        # per shard and step, each kernel's edge launch and, where the
+        # 256 x 128 block has interior tiles for its halo, its interior one
+        tiles = dist_band._entry(cfg, st.h.dtype)[2]
+        want = dict.fromkeys(dist_band.LAUNCHES, 0)
+        for key, w in dist_band.kernel_halos(cfg).items():
+            inner = dist_band.has_interior(256, 128, w, tiles[key])
+            if key == "fb":
+                want.update(interior=8 * n * inner, edge=8 * n)
+            else:
+                want[f"split_{key}"] = 8 * n * (1 + inner)
+        assert dist_band.LAUNCHES == want
         assert halo_pad.LAUNCHES == 0
     elif pads is not None:
         assert halo_pad.LAUNCHES == pads * 8 * n

@@ -3,8 +3,8 @@ blocks, where it runs its plain version: per shard equal to the
 single-device eager step for every fb case, and against beom_tpu's
 make_dist_pallas_stepper in interpret mode at the sizes of
 tests/dist/test_pallas_dist.py; the mesh route of run() with
-backend='fused'; and the guards for the schemes the shard step does not
-take yet."""
+backend='fused'; and the schemes it once refused, which now step through
+the split and projection shard kernels (tests/test_torch_dist_fused.py)."""
 
 import dataclasses
 import io
@@ -122,16 +122,22 @@ def test_run_fused_mesh_equals_single_device():
 @pytest.mark.parametrize("scheme,item", [
     ("split", "14a"), ("rigid_lid", "14b"), ("implicit_fs", "14b")])
 def test_fused_mesh_refuses_other_schemes(scheme, item):
-    """No silent eager route: backend='fused' under a mesh with a scheme
-    the shard step does not take yet raises, naming its ROADMAP item."""
+    """The schemes backend='fused' under a mesh once refused (ROADMAP items
+    14a and 14b, now done) build a fused mesh stepper and step a CPU mesh
+    once through the shard kernels' plain versions; build_spec names the
+    kernel's source."""
     _, (cfg, grid, forcing, st) = _port_case("double_gyre", nx=32, ny=32,
                                              scheme=scheme)
-    cfg = dataclasses.replace(cfg, backend="fused")
+    cfg = dataclasses.replace(cfg, backend="fused", precond="jacobi")
     mesh = make_mesh(2, 2, devices=["cpu"])
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        make_dist_stepper(grid, forcing, cfg, mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dist_band.build_spec(cfg)
+    out = make_dist_stepper(grid, forcing, cfg, mesh)(shard_state(st, mesh))
+    assert out.n == 1 and isinstance(out.h, Sharded)
+    ref = run_steps(st, grid, forcing, cfg, 1)
+    err = float((gather_state(out).u - ref.u).abs().max())
+    assert err <= 1e-8 * max(float(ref.u.abs().max()), 1.0), (item, err)
+    want = {"split": "shard_split", "rigid_lid": "shard_projection",
+            "implicit_fs": "shard_projection"}[scheme]
+    assert dist_band.build_spec(cfg)[0] == want
 
 
 def test_shard_step_build_spec_and_interior():

@@ -1,4 +1,5 @@
-"""Guards of the port: it never imports jax; the fused fb / split step
+"""Guards of the port: it never imports jax, and its root exports what
+beom_tpu's does and builds nothing; the fused fb / split step
 takes every term and refuses only the projection schemes and what exceeds
 its operand slots; the projection phases' config check raises on each term
 those kernels lack; every case and scheme builds; an unknown case raises;
@@ -40,6 +41,37 @@ def test_no_module_imports_jax():
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
                    timeout=120)
+
+
+def test_root_exports_and_imports_no_jax():
+    """The package root exports what beom_tpu's does (Config,
+    default_config, Grid, make_grid, State, init_state); importing it in a
+    fresh interpreter loads neither jax nor beom_tpu and builds no
+    kernel."""
+    kernels = os.path.join(REPO, "build", "kernels")
+
+    def built():
+        return sorted(os.listdir(kernels)) if os.path.isdir(kernels) else []
+
+    before = built()
+    code = (
+        "import sys\n"
+        "import beom_tpu_torch as b\n"
+        "names = ('Config', 'default_config', 'Grid', 'make_grid', "
+        "'State', 'init_state')\n"
+        "assert all(hasattr(b, n) for n in names)\n"
+        "assert b.default_config(nx=64).nx == 64\n"
+        "assert b.default_config() == b.Config()\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'beom_tpu')]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True,
+                   timeout=120)
+    assert built() == before
+    for name in ("Config", "default_config", "Grid", "make_grid", "State",
+                 "init_state"):
+        assert getattr(beom_tpu_torch, name).__module__.startswith(
+            "beom_tpu_torch.core")
 
 
 # the terms of the eager step, which every fused kernel takes
@@ -150,9 +182,8 @@ def test_fused_projection_config_check_raises(term):
 
 
 def test_mesh_raises():
-    """What a mesh run refuses: a mesh whose devices are missing, a scheme
-    the shard step does not take yet under backend='fused' (no silent
-    eager route), and a halo wider than a shard's block."""
+    """What a mesh run refuses: a mesh whose devices are missing, and a
+    halo wider than a shard's block."""
     from beom_tpu_torch.parallel.mesh import make_mesh
 
     cfg, grid, forcing, st = make_case("double_gyre", nx=16, ny=16,
@@ -162,10 +193,6 @@ def test_mesh_raises():
             make_mesh(2, 4)
     with pytest.raises(ValueError, match="need 4 devices, have 2"):
         make_mesh(2, 2, devices=["cpu", "cpu"])
-    for scheme in ("split", "rigid_lid", "implicit_fs"):
-        with pytest.raises(NotImplementedError, match="under a mesh"):
-            run(dataclasses.replace(cfg, mesh_x=2, backend="fused",
-                                    scheme=scheme), grid, forcing, st, 1)
     with pytest.raises(ValueError, match="exceeds local block"):
         run(dataclasses.replace(cfg, mesh_x=4), grid, forcing, st, 1)
 

@@ -1,0 +1,177 @@
+#!/usr/bin/env python3
+"""Times and code of the single-device stencil kernels and of the fb shard
+step on one NVIDIA GPU, for the checkout of beom_tpu_torch at ROOT.
+
+    python3 tools/kernel_times.py ROOT
+
+At 2048^2 f32 from chip_smoke.py's perturbed state: K1 (the fb step,
+double gyre), K1s's three kernels (split, nsub 8), K3a / K3b (implicit FS
+on the rigid-lid gyre) and K7 (the fb shard step on a 2 x 4 mesh of shards
+on the card), each as the mean time per call between CUDA events and as
+the device time of the call's kernels under torch.profiler (for K7 the sum
+over its 16 launches, which overlap on the card), both through
+chip_smoke.py's `time_ms` and `device_ms`.  Then, for every library the
+run built, each kernel's registers and spill bytes (nvcc's -Xptxas -v
+lines) and its count of SASS instructions (cuobjdump -sass).  It prints one
+JSON line.  To compare two commits, unpack both and run this for each,
+alternating (a, b, b, a) in one session on one card: the kernels are built
+from each checkout's sources into its own build/kernels/, and the helpers
+are always this checkout's chip_smoke.py.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+N = 2048
+HERE = Path(__file__).resolve().parents[1]
+
+
+def smoke():
+    """This checkout's chip_smoke.py, whatever ROOT holds."""
+    spec = importlib.util.spec_from_file_location(
+        "kernel_times_smoke", HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def demangle(names):
+    tool = shutil.which("c++filt")
+    if not tool or not names:
+        return list(names)
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60).stdout.splitlines()
+    return out if len(out) == len(names) else list(names)
+
+
+def ptxas_usage(log):
+    """{kernel: [registers, spill stores, spill loads]} from nvcc's
+    -Xptxas -v output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            usage[name] = [None, None, None]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            usage[name][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            usage[name][0] = int(m.group(1))
+    return usage
+
+
+def sass_counts(lib):
+    """{kernel: SASS instructions} of a built library, or {} without
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        return {}
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = 0
+        elif name and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            counts[name] += 1
+    return counts
+
+
+def code_report(build):
+    """Per library built in this process: its kernels' registers, spills
+    and SASS instructions, by demangled name."""
+    report = {}
+    for label, (_, log) in build.BUILD_LOG.items():
+        usage = ptxas_usage(log)
+        name, _, defines = label.partition("[")
+        spec = (name, tuple(defines.rstrip("]").split()))
+        sass = sass_counts(build._lib_path(spec))
+        keys = sorted(set(usage) | set(sass))
+        report[label] = {
+            pretty: usage.get(k, [None] * 3) + [sass.get(k)]
+            for k, pretty in zip(keys, demangle(keys))}
+    return report
+
+
+def main(root: str) -> dict:
+    root = str(Path(root).resolve())
+    sys.path.insert(0, root)
+    import torch
+
+    import beom_tpu_torch
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import build, dist_band, fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    if not beom_tpu_torch.__file__.startswith(root):
+        raise SystemExit(f"imported {beom_tpu_torch.__file__}, not {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: no CUDA card")
+    sm = smoke()
+    dev = torch.device("cuda")
+    out = {"root": root, "device": torch.cuda.get_device_name(0)}
+
+    def record(name, fn, n, launches=1):
+        # every kernel fn launches counts: the key "" matches them all
+        out[name] = [sm.time_ms(fn, n),
+                     sm.device_ms(name, fn, 20, {"": launches})[""]]
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N)
+    statics = (grid, forcing)
+    record("K1", lambda: fused_fb.fused_fb_step(
+        st.h, st.u, st.v, statics, 0, st.t, cfg, 1), 200)
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N,
+                                               scheme="split", nsub=8)
+    statics = (grid, forcing)
+    slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
+    sub = fused_fb._launch_subcycle(slow, st.h, st.u, st.v, statics, cfg)
+    t1 = st.t + cfg.npdtype.type(cfg.dt)
+    record("K1s slow", lambda: fused_fb._launch_slow(
+        st.h, st.u, st.v, statics, cfg), 100)
+    record("K1s subcycle", lambda: fused_fb._launch_subcycle(
+        slow, st.h, st.u, st.v, statics, cfg), 100)
+    record("K1s recompose", lambda: fused_fb._launch_recompose(
+        slow, sub, st.h, st.u, st.v, statics, t1, cfg), 100)
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
+                                               ny=N, scheme="implicit_fs")
+    statics = (grid, forcing)
+    u_s, v_s, _ = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+    p = (st.h.sum(0) - grid.H) * grid.mask
+    record("K3a", lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 100)
+    record("K3b", lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg),
+           100)
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N)
+    m = pmesh.make_mesh(2, 4, devices=[dev])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    blocks = dist_band._static_blocks(pstat, m)
+    fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    record("K7 fb step (2, 4)", lambda: dist_band.shard_step(
+        *fields, pstat, 0, st.t, cfg, 1, static_blocks=blocks), 100, 16)
+    out["code"] = code_report(build)
+    out["power"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    return out
+
+
+if __name__ == "__main__":
+    if len(sys.argv) != 2:
+        raise SystemExit(__doc__)
+    print(json.dumps(main(sys.argv[1])))
