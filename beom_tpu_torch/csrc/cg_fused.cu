@@ -11,15 +11,19 @@
 // Bound: device-memory bytes and grid-wide synchronisation.  An
 // iteration reads ~13 and writes 6 grid fields (the five-point matvec,
 // the preconditioner, the vector updates) and its scalars need a
-// reduction over the whole grid.  The design: one CTA per resident slot,
-// at most two per SM (mgc::coop_blocks, so cudaLaunchCooperativeKernel
-// can hold them all), grid-stride loops over the points, and two grid
-// syncs per iteration, plus the cycle's with multigrid:
+// reduction over the whole grid.  The design: one CTA per resident slot
+// (with Jacobi 256 threads, at most two per SM: mgc::coop_blocks; with
+// multigrid 512 threads and the card's opt-in shared memory, one per SM:
+// mgc::cycle_launch; so cudaLaunchCooperativeKernel can hold them all),
+// grid-stride loops over the points, and two grid syncs per iteration,
+// plus the cycle's with multigrid:
 //   phase 1: the vector updates of the Chronopoulos-Gear recurrence and
 //            u = inv_diag r mask (pointwise, each thread its own points);
 //            with multigrid, r mask goes to the cycle's level-0 input and
 //            the cycle (csrc/mg_cycle.cuh: the fused gamma schedule,
-//            demean off, plain half-sweeps at every level) writes u;
+//            demean off; two tiled passes per visit of a level above the
+//            shared-memory tier, the tier on one CTA; 78 grid syncs per
+//            cycle at 2048^2 f32) writes u;
 //   sync;
 //   phase 2: w = A u (reads the neighbours of u) and the six dot
 //            products (r,u), (w,u), (r,r), (r,mask), (u,mask), (w,mask)
@@ -37,7 +41,8 @@
 // arrives from the caller (jacobi_diag).  Sums run in another order than
 // torch.sum's, so x agrees with the plain version to the solver
 // tolerance, not bit for bit.  The kernel is instantiated once per
-// preconditioner, so the Jacobi solve carries none of the cycle's code.
+// preconditioner, so the Jacobi solve carries none of the cycle's code
+// and keeps its 256 threads and static shared memory.
 
 #include "mg_cycle.cuh"
 
@@ -47,6 +52,7 @@ namespace cg = mgc::cg;
 using mgc::grid_sum;
 using mgc::NDOT;
 using mgc::THREADS;
+using mgc::CYCLE_THREADS;
 using mgc::vmax;
 
 template <typename T>
@@ -112,12 +118,23 @@ __device__ __forceinline__ void precond_in(const Params<T>& p, long i, T ri,
 }
 
 template <typename T, bool MG>
-__global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
+__global__ void __launch_bounds__(MG ? CYCLE_THREADS : THREADS)
+    cg_kernel(const Params<T> p) {
+  constexpr int NT = MG ? CYCLE_THREADS : THREADS;
   cg::grid_group grid = cg::this_grid();
-  __shared__ T sh[NDOT * THREADS];
+  T* sh;
+  [[maybe_unused]] unsigned char* smem = nullptr;   // the cycle's
+  if constexpr (MG) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    smem = smem_raw;
+    sh = reinterpret_cast<T*>(smem_raw);
+  } else {
+    __shared__ T sh_static[NDOT * THREADS];
+    sh = sh_static;
+  }
   const long n = long(p.ny) * p.nx;
-  const long stride = long(gridDim.x) * THREADS;
-  const long first = long(blockIdx.x) * THREADS + threadIdx.x;
+  const long stride = long(gridDim.x) * NT;
+  const long first = long(blockIdx.x) * NT + threadIdx.x;
   T v[NDOT];
   int round = 0;
 
@@ -129,7 +146,7 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
     v[1] += (p.b[i] * m) * m;
     v[2] += p.x0[i] * m;
   }
-  grid_sum(v, sh, p.partials, round, grid);
+  grid_sum<T, NT>(v, sh, p.partials, round, grid);
   const T nwet = vmax(v[0], T(1));
   const T bmean = v[1] / nwet;
   const T xmean = v[2] / nwet;
@@ -150,7 +167,8 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
     const T bd = b_defl(i);
     v[0] += bd * bd;
   }
-  grid_sum(v, sh, p.partials, round, grid);   // its grid sync also orders x
+  // its grid sync also orders x
+  grid_sum<T, NT>(v, sh, p.partials, round, grid);
   const T threshold = p.tol2 * vmax(v[0], p.tiny);
 
   // r = (b - A x) mask, u = precond(r) mask
@@ -161,7 +179,8 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
     precond_in<T, MG>(p, i, ri, m);
   }
   grid.sync();
-  if constexpr (MG) mgc::run_cycle(p.cyc, sh, p.partials, round, grid);
+  if constexpr (MG)
+    mgc::run_cycle<T, NT>(p.cyc, smem, p.partials, round, grid);
 
   T alpha = T(0), beta = T(0), gamma = T(0), rr = T(0);
   T rmean = T(0), umean = T(0);
@@ -184,7 +203,8 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
         precond_in<T, MG>(p, i, rn, m);
       }
       grid.sync();
-      if constexpr (MG) mgc::run_cycle(p.cyc, sh, p.partials, round, grid);
+      if constexpr (MG)
+        mgc::run_cycle<T, NT>(p.cyc, smem, p.partials, round, grid);
     }
     // phase 2: w = A u and the batched dots
     for (int j = 0; j < NDOT; ++j) v[j] = T(0);
@@ -201,7 +221,7 @@ __global__ void __launch_bounds__(THREADS) cg_kernel(const Params<T> p) {
       v[4] += ui * m;
       v[5] += wi * m;
     }
-    grid_sum(v, sh, p.partials, round, grid);
+    grid_sum<T, NT>(v, sh, p.partials, round, grid);
     T gamma_n = v[0], delta = v[1], rr_n = v[2];
     if (p.deflate) {
       gamma_n = v[0] - v[3] * v[4] / nwet;
@@ -241,40 +261,54 @@ int cg_fused(const T* b, const T* x0, const T* Hu, const T* Hv,
              int ny, int nx, int maxiter, int deflate, double inv_dx,
              double inv_dy, double lam, double tol2, double tiny,
              const long long* mg_ptrs, const int* mg_dims, const T* mg_scal,
-             const int* mg_steps, int mg_nsteps, T* bc0, int use_mg,
+             const int* mg_steps, int mg_nsteps, int mg_nlev, int mg_nu,
+             int mg_tier, int mg_tier_bytes, T* bc0, int use_mg,
              void* stream) {
   const void* kernel =
       use_mg ? reinterpret_cast<const void*>(cg_kernel<T, true>)
              : reinterpret_cast<const void*>(cg_kernel<T, false>);
-  int blocks = 0;
-  cudaError_t e = mgc::coop_blocks(kernel, &blocks);
+  int blocks = 0, smem = 0, room = 0;
+  cudaError_t e = use_mg ? mgc::cycle_launch(kernel, &blocks, &smem)
+                         : mgc::coop_blocks(kernel, &blocks);
+  if (e == cudaSuccess && use_mg)
+    e = mgc::cycle_room<T>(smem, mg_nlev, mg_nu, mg_tier_bytes, &room);
   if (e != cudaSuccess) return int(e);
   if (2 * blocks * NDOT > partials_len) return int(cudaErrorInvalidValue);
   Params<T> p{b,        x0,        Hu,        Hv,      mask,    inv_diag,
               x,        r,         u,         w,       pv,      s,
               partials, iters,     resnorm,   ny,      nx,      maxiter,
               deflate,  T(inv_dx), T(inv_dy), T(lam),  T(tol2), T(tiny),
-              {mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps, T(lam)},
+              {mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps, mg_nlev,
+               mg_nu, mg_tier, room, T(lam)},
               bc0};
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(THREADS), args,
-                                  0, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
+                                  dim3(use_mg ? CYCLE_THREADS : THREADS),
+                                  args, size_t(smem),
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
 }
 
-// the number of CTAs a launch uses on the current device
+// the number of CTAs a launch uses on the current device (which = 0), or
+// the dynamic shared memory each has (which = 1; 0 with Jacobi)
 template <typename T>
-int grid_blocks(int use_mg, int* blocks) {
-  return int(mgc::coop_blocks(
-      use_mg ? reinterpret_cast<const void*>(cg_kernel<T, true>)
-             : reinterpret_cast<const void*>(cg_kernel<T, false>),
-      blocks));
+int grid_query(int use_mg, int which, int* out) {
+  int blocks = 0, smem = 0;
+  const cudaError_t e =
+      use_mg ? mgc::cycle_launch(
+                   reinterpret_cast<const void*>(cg_kernel<T, true>),
+                   &blocks, &smem)
+             : mgc::coop_blocks(
+                   reinterpret_cast<const void*>(cg_kernel<T, false>),
+                   &blocks);
+  *out = which ? smem : blocks;
+  return int(e);
 }
 
 }  // namespace
 
-#define CG_FUSED_ENTRY(NAME, BLOCKS, T)                                       \
+#define CG_FUSED_ENTRY(NAME, BLOCKS, SMEM, T)                                 \
   extern "C" int NAME(const T* b, const T* x0, const T* Hu, const T* Hv,      \
                       const T* mask, const T* inv_diag, T* x, T* r, T* u,     \
                       T* w, T* pv, T* s, T* partials, int partials_len,       \
@@ -282,20 +316,25 @@ int grid_blocks(int use_mg, int* blocks) {
                       int deflate, double inv_dx, double inv_dy, double lam,  \
                       double tol2, double tiny, const long long* mg_ptrs,     \
                       const int* mg_dims, const T* mg_scal,                   \
-                      const int* mg_steps, int mg_nsteps, T* bc0, int use_mg, \
-                      void* stream) {                                         \
+                      const int* mg_steps, int mg_nsteps, int mg_nlev,        \
+                      int mg_nu, int mg_tier, int mg_tier_bytes, T* bc0,      \
+                      int use_mg, void* stream) {                             \
     return cg_fused<T>(b, x0, Hu, Hv, mask, inv_diag, x, r, u, w, pv, s,      \
                        partials, partials_len, iters, resnorm, ny, nx,        \
                        maxiter, deflate, inv_dx, inv_dy, lam, tol2, tiny,     \
-                       mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps, bc0,   \
-                       use_mg, stream);                                       \
+                       mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps,        \
+                       mg_nlev, mg_nu, mg_tier, mg_tier_bytes, bc0, use_mg,   \
+                       stream);                                               \
   }                                                                           \
   extern "C" int BLOCKS(int use_mg, int* blocks) {                            \
-    return grid_blocks<T>(use_mg, blocks);                                    \
-  }
+    return grid_query<T>(use_mg, 0, blocks);                                  \
+  }                                                                           \
+  extern "C" int SMEM(int* bytes) { return grid_query<T>(1, 1, bytes); }
 
-CG_FUSED_ENTRY(beom_cg_fused_f32, beom_cg_fused_blocks_f32, float)
-CG_FUSED_ENTRY(beom_cg_fused_f64, beom_cg_fused_blocks_f64, double)
+CG_FUSED_ENTRY(beom_cg_fused_f32, beom_cg_fused_blocks_f32,
+               beom_cg_fused_smem_f32, float)
+CG_FUSED_ENTRY(beom_cg_fused_f64, beom_cg_fused_blocks_f64,
+               beom_cg_fused_smem_f64, double)
 
 extern "C" const char* beom_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -6,70 +6,86 @@
 // Replaces beom_tpu/stencils/mg_pallas.py::_coarse_kernel, built by
 // make_coarse_stack_call.  The reference keeps every level in VMEM and
 // does its transfers as matmuls against banded matrices (Mosaic lowers no
-// strided gathers); here the levels stay in device memory (the L2 holds
-// them: 512^2 f32 is 1 MB a field) and the transfers are direct stencils
-// with the same weights, 3/8 and 1/8.
+// strided gathers); here the transfers are direct stencils with the same
+// weights, 3/8 and 1/8.
 //
 // Bound: latency, not bytes.  A cycle is hundreds of dependent passes
-// over levels of 16^2 to 512^2 points; each needs every neighbour of the
-// pass before, so passes are separated by grid syncs.  The design:
-// the host's flattened step list (csrc/mg_cycle.cuh) walked by one
-// cooperative grid, and the smallest levels (16^2 at most, the host's
-// choice), which the W-cycle visits most often, run on one CTA with
-// __syncthreads in place of grid syncs.
+// over levels of 16^2 to 512^2 points, and a grid-wide sync between two
+// costs more than a pass over a small level.  The design (the walk of
+// csrc/mg_cycle.cuh): the levels small enough to fit one CTA's shared
+// memory together (64^2 and below at f32 on the H100, 32^2 at f64; the
+// reference's VMEM holds all of them) run on one CTA out of shared memory
+// with block barriers, one grid sync per visit of the tier; each visit of
+// a larger level is two tiled passes with their halo in shared memory.
+// 512 threads and the card's opt-in shared memory per CTA, one CTA per
+// SM.  A visit of the 512^2 tail of the 2048^2 hierarchy costs 33 grid
+// syncs (335 in the walk before the tier and the tiled passes).
 
 #include "mg_cycle.cuh"
 
 namespace {
 
-using mgc::THREADS;
+using mgc::CYCLE_THREADS;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(CYCLE_THREADS, 1)
     coarse_kernel(const mgc::Cycle<T> c, T* partials) {
   mgc::cg::grid_group grid = mgc::cg::this_grid();
-  __shared__ T sh[mgc::NDOT * THREADS];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   int round = 0;
-  mgc::run_cycle(c, sh, partials, round, grid);
+  mgc::run_cycle<T, CYCLE_THREADS>(c, smem_raw, partials, round, grid);
 }
 
 template <typename T>
 int mg_coarse(const long long* ptrs, const int* dims, const T* scal,
-              const int* steps, int nsteps, double lam, T* partials,
-              int partials_len, void* stream) {
-  int blocks = 0;
-  cudaError_t e = mgc::coop_blocks(
-      reinterpret_cast<const void*>(coarse_kernel<T>), &blocks);
+              const int* steps, int nsteps, int nlev, int nu, int tier,
+              int tier_bytes, double lam, T* partials, int partials_len,
+              void* stream) {
+  const void* kernel = reinterpret_cast<const void*>(coarse_kernel<T>);
+  int blocks = 0, smem = 0, room = 0;
+  cudaError_t e = mgc::cycle_launch(kernel, &blocks, &smem);
+  if (e == cudaSuccess)
+    e = mgc::cycle_room<T>(smem, nlev, nu, tier_bytes, &room);
   if (e != cudaSuccess) return int(e);
   if (2 * blocks * mgc::NDOT > partials_len) return int(cudaErrorInvalidValue);
-  mgc::Cycle<T> c{ptrs, dims, scal, steps, nsteps, T(lam)};
+  mgc::Cycle<T> c{ptrs, dims, scal, steps, nsteps, nlev, nu, tier, room,
+                  T(lam)};
   void* args[] = {&c, &partials};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(coarse_kernel<T>),
-                                  dim3(blocks), dim3(THREADS), args, 0,
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(CYCLE_THREADS),
+                                  args, size_t(smem),
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return int(e);
   return int(cudaGetLastError());
 }
 
+// the CTAs a launch uses on the current device, or the dynamic shared
+// memory each has
 template <typename T>
-int coarse_blocks(int* blocks) {
-  return int(mgc::coop_blocks(reinterpret_cast<const void*>(coarse_kernel<T>),
-                              blocks));
+int coarse_query(int which, int* out) {
+  int blocks = 0, smem = 0;
+  const cudaError_t e = mgc::cycle_launch(
+      reinterpret_cast<const void*>(coarse_kernel<T>), &blocks, &smem);
+  *out = which ? smem : blocks;
+  return int(e);
 }
 
 }  // namespace
 
-#define MG_COARSE_ENTRY(NAME, BLOCKS, T)                                    \
+#define MG_COARSE_ENTRY(NAME, BLOCKS, SMEM, T)                               \
   extern "C" int NAME(const long long* ptrs, const int* dims, const T* scal, \
-                      const int* steps, int nsteps, double lam, T* partials, \
-                      int partials_len, void* stream) {                     \
-    return mg_coarse<T>(ptrs, dims, scal, steps, nsteps, lam, partials,     \
-                        partials_len, stream);                              \
-  }                                                                         \
-  extern "C" int BLOCKS(int* blocks) { return coarse_blocks<T>(blocks); }
+                      const int* steps, int nsteps, int nlev, int nu,        \
+                      int tier, int tier_bytes, double lam, T* partials,     \
+                      int partials_len, void* stream) {                      \
+    return mg_coarse<T>(ptrs, dims, scal, steps, nsteps, nlev, nu, tier,     \
+                        tier_bytes, lam, partials, partials_len, stream);    \
+  }                                                                          \
+  extern "C" int BLOCKS(int* blocks) { return coarse_query<T>(0, blocks); }  \
+  extern "C" int SMEM(int* bytes) { return coarse_query<T>(1, bytes); }
 
-MG_COARSE_ENTRY(beom_mg_coarse_f32, beom_mg_coarse_blocks_f32, float)
-MG_COARSE_ENTRY(beom_mg_coarse_f64, beom_mg_coarse_blocks_f64, double)
+MG_COARSE_ENTRY(beom_mg_coarse_f32, beom_mg_coarse_blocks_f32,
+                beom_mg_coarse_smem_f32, float)
+MG_COARSE_ENTRY(beom_mg_coarse_f64, beom_mg_coarse_blocks_f64,
+                beom_mg_coarse_smem_f64, double)
 
 extern "C" const char* beom_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -7,8 +7,9 @@ Chronopoulos-Gear CG of solvers/elliptic.cg_solve, with its nullspace
 deflation for lam = 0, runs to convergence in one cooperative launch with
 grid-wide syncs, preconditioned by Jacobi or by one multigrid cycle per
 iteration (the fused gamma schedule, nu = 2, nu_coarse = 24, min_size 16,
-no de-mean, plain half-sweeps at every level, walked in the kernel as
-stencils/mg_coarse.py flattens it).  The reference keeps the solver state
+no de-mean, walked in the kernel as stencils/mg_coarse.py flattens it:
+two tiled passes per visit of a level above the shared-memory tier, the
+tier's levels on one CTA).  The reference keeps the solver state
 in VMEM and so runs the kernel only up to about 1024^2 f32; here the
 state lives in device memory and the kernel runs at every size.
 
@@ -71,12 +72,15 @@ def _entry(dtype):
     fn = getattr(lib, _ENTRY[dtype])
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     fn.argtypes = [P] * 13 + [I] + [P] * 2 + [I] * 4 + [D] * 5 + [P] * 4 \
-        + [I, P, I, P]
+        + [I] * 5 + [P, I, P]
     fn.restype = I
     blocks = getattr(lib, _ENTRY[dtype].replace("fused", "fused_blocks"))
     blocks.argtypes = [I, ctypes.POINTER(ctypes.c_int)]
     blocks.restype = I
-    return lib, fn, blocks
+    smem = getattr(lib, _ENTRY[dtype].replace("fused", "fused_smem"))
+    smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    smem.restype = I
+    return lib, fn, blocks, smem
 
 
 def _grid_blocks(dtype, use_mg: bool) -> int:
@@ -84,10 +88,21 @@ def _grid_blocks(dtype, use_mg: bool) -> int:
     multigrid instantiation) uses on this card."""
     from beom_tpu_torch.stencils import build
 
-    lib, _, blocks = _entry(dtype)
+    lib, _, blocks, _ = _entry(dtype)
     n = ctypes.c_int(0)
     build.check(lib, blocks(int(use_mg), ctypes.byref(n)),
                 "cg_fused occupancy query")
+    return n.value
+
+
+def _cycle_smem(dtype) -> int:
+    """The shared memory each CTA of the multigrid instantiation has on
+    this card."""
+    from beom_tpu_torch.stencils import build
+
+    lib, _, _, smem = _entry(dtype)
+    n = ctypes.c_int(0)
+    build.check(lib, smem(ctypes.byref(n)), "cg_fused shared-memory query")
     return n.value
 
 
@@ -99,9 +114,10 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
     kernel launch.  precond: the cfg.precond='auto' rule by default (mg
     for the lam = 0 solve, jacobi otherwise); 'ssor' is not offered in the
     kernel and becomes 'jacobi', as in the reference.  solve.steps is the
-    multigrid cycle's flattened step list (empty with Jacobi)."""
-    from beom_tpu_torch.stencils.mg_coarse import (BC, XC, CycleTables,
-                                                   cycle_steps)
+    multigrid cycle's flattened step list (empty with Jacobi), on the CPU
+    the H100's."""
+    from beom_tpu_torch.stencils.mg_coarse import (BC, H100_SMEM, XC,
+                                                   CycleTables, plan)
 
     precond = cfg.precond if precond is None else precond
     if precond == "auto":
@@ -117,24 +133,30 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
                   30.0 * float(torch.finfo(dtype).eps))
     maxiter = cfg.solver_maxiter if maxiter is None else maxiter
     on_cpu = mask.device.type == "cpu"
-    steps, levels = [], None
-    if use_mg:
-        levels, gamma = mg_levels(grid, cfg, lam)
-        steps = cycle_steps(levels, lam, MG_NU, MG_NU_COARSE, gamma,
-                            demean=False)
     if not on_cpu:
         if mask.device.type != "cuda":
             raise NotImplementedError(
                 f"the fused CG runs on cuda or cpu, not {mask.device.type}")
         if dtype not in _ENTRY:
             raise ValueError(f"fused CG: dtype {dtype}")
+    steps, levels = [], None
+    if use_mg:
+        levels, gamma = mg_levels(grid, cfg, lam)
+        if on_cpu:
+            smem = H100_SMEM
+        else:
+            with torch.cuda.device(mask.device):
+                smem = _cycle_smem(dtype)
+        tier, steps = plan(levels, lam, MG_NU, MG_NU_COARSE, gamma, False,
+                           smem)
+    if not on_cpu:
         Hu, Hv = elliptic.face_depths(grid)
         _, inv_diag = elliptic.jacobi_diag(grid, cfg, lam)
         statics = [t.contiguous() for t in (Hu, Hv, mask, inv_diag)]
         tables = None
         if use_mg:
             with torch.cuda.device(mask.device):
-                tables = CycleTables(levels, steps)
+                tables = CycleTables(levels, steps, MG_NU, tier)
 
     def solve(b, x0=None) -> CGResult:
         global LAUNCHES
@@ -155,13 +177,13 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
                     f"{dtype} tensors of {tuple(mask.shape)} on "
                     f"{mask.device}")
         with torch.cuda.device(b.device):
-            lib, fn, _ = _entry(dtype)
+            lib, fn, _, _ = _entry(dtype)
             work = [torch.empty_like(b) for _ in range(6)]  # x r u w p s
             if use_mg:      # the cycle reads r from BC, writes u in XC
                 work[2] = tables.field(0, XC)
                 mg_args = (*tables.args(), tables.field(0, BC).data_ptr(), 1)
             else:
-                mg_args = (None, None, None, None, 0, None, 0)
+                mg_args = (None, None, None, None, 0, 0, 0, 0, 0, None, 0)
             n_part = 2 * _NDOT * _grid_blocks(dtype, use_mg)
             partials = torch.empty(n_part, dtype=dtype, device=b.device)
             iters = torch.empty(1, dtype=torch.int32, device=b.device)

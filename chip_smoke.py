@@ -54,9 +54,10 @@ Phases, each of which raises on failure (exit code != 0):
      max|sum h - H| bounded, 1 fused step against 1 eager one (an eager
      step takes 12 to 28 s with the machine's host)
  13. times at 2048^2 f32: K4a with its residual, K4b, K5 (with and
-     without its one-CTA small levels), a K6-mg solve (per iteration), a
+     without its shared-memory tier), a K6-mg solve (per iteration), a
      solver='mg' solve (per cycle) beside their plain versions, (c) and
-     (d) in ms/step through run(), and the grid syncs per cycle
+     (d) in ms/step through run(), and the grid syncs per K6-mg cycle and
+     per K5 visit beside those of the walk before the tier
 
  14. build lines of the fb and split builds of the other cases (fb_step.cu
      and split_step.cu, one library per combination of compile-time
@@ -128,7 +129,7 @@ Phases, each of which raises on failure (exit code != 0):
      scale of the eager mesh run (the same solve); the rigid lid's default
      solve (the distributed CG + multigrid) at 512^2 on (2, 2) from rest,
      its first step within 1e-6 x scale of the eager mesh step (the same
-     solve) and 3 steps within 1e-5 x max(scale, 1) of the single-device
+     solve) and 2 steps within 1e-5 x max(scale, 1) of the single-device
      fused run (K6 with its own hierarchy)
  25. times at 2048^2 f32 on (2, 4): K7-split's three kernels and a whole
      split step beside K1s's, K7-proj's two phases beside K3a / K3b, each
@@ -237,10 +238,35 @@ def step_fields(cfg):
     return n + cfg.obc * (3 + 2 * len(cfg.tides))
 
 
-def cycle_ops(steps, levels):
+def cycle_ops(steps, levels, nu=2):
     """Operations of one walk of a multigrid cycle's step list: about 10
-    per point of each step's level."""
-    return 10 * sum(levels[st[1]].mask.numel() for st in steps)
+    per point and pass of each step's level, a tiled pass counted as the
+    plain passes it does (OP_PRE 2 nu half-sweeps, the residual and the
+    restriction; OP_POST the prolongation and 2 nu half-sweeps; OP_SWEEPS
+    its count of half-sweeps), the tier's loads and stores as none."""
+    from beom_tpu_torch.stencils import mg_coarse as mc
+
+    passes = {mc.OP_PRE: 2 * nu + 2, mc.OP_POST: 2 * nu + 1,
+              mc.OP_TIER_IN: 0, mc.OP_TIER_OUT: 0}
+    return 10 * sum(
+        (st[4] >> 2 if st[0] == mc.OP_SWEEPS else passes.get(st[0], 1))
+        * levels[st[1]].mask.numel() for st in steps)
+
+
+def walk_syncs_before(shapes, gamma, demean):
+    """Grid syncs of the cycle's walk before the shared-memory tier and the
+    tiled passes: one plain pass per step, a grid sync after each but
+    between two steps on levels of at most 16^2 points."""
+    from beom_tpu_torch.stencils import mg_coarse as mc
+
+    steps = []
+    for op, lev, a, b, c, _ in mc.cycle_steps(shapes, 0.0, 2, 24, gamma,
+                                              demean, 0)[1:-1]:
+        solo = int(shapes[lev][0] * shapes[lev][1] <= 16 * 16)
+        # a run of half-sweeps was one step each
+        n = c >> 2 if op == mc.OP_SWEEPS else 1
+        steps += [(op, lev, a, b, c, solo)] * n
+    return mc.grid_syncs(steps)
 
 
 def perturbed_case(device, seed, case="double_gyre", **kw):
@@ -1106,10 +1132,11 @@ def multigrid_phases(dev, smi, rel, ulps):
         lambda: mg_coarse.coarse_stack_plain(tail, b_tail, 0.0, 2, 24,
                                              gamma[j0:], True),
         lambda: call(b_tail), 3, 30, unit="visit")
-    no_solo = mg_coarse.make_coarse_stack_call(tail, 0.0, gamma=gamma[j0:],
-                                               demean=True, solo_points=0)
-    print(f"   K5 with every level on the whole grid (no one-CTA levels): "
-          f"{time_ms(lambda: no_solo(b_tail), 30)!r} ms/visit")
+    no_tier = mg_coarse.make_coarse_stack_call(tail, 0.0, gamma=gamma[j0:],
+                                               demean=True, tier=len(tail))
+    print(f"   K5 on the {tuple(tail[call.tier].mask.shape)} tier and "
+          f"above; with every level on the whole grid (no tier): "
+          f"{time_ms(lambda: no_tier(b_tail), 30)!r} ms/visit")
     solve = cg_fused.make_cg_solve(grid, cfg, lam=0.0)
     res = solve(rhs)
     ref = cg_fused.cg_solve_plain(rhs, grid, cfg, lam=0.0, precond="mg")
@@ -1122,14 +1149,20 @@ def multigrid_phases(dev, smi, rel, ulps):
     print(f"   K6-mg: {res.iters} iterations (plain {ref.iters}); "
           f"{k_ms / max(res.iters, 1)!r} ms/iteration (plain "
           f"{p_ms / max(ref.iters, 1)!r})")
-    for tag, steps in (
-            ("K6-mg cycle", solve.steps),
-            ("K6-mg cycle without one-CTA levels",
-             mg_coarse.cycle_steps(levels, 0.0, 2, 24, gamma, False, 0)),
-            ("K5 visit", call.steps),
-            ("K5 visit without one-CTA levels", no_solo.steps)):
+    shapes = mg_coarse.level_shapes(levels)
+    for tag, steps, before in (
+            ("K6-mg cycle", solve.steps,
+             walk_syncs_before(shapes, gamma, False)),
+            ("K6-mg cycle without the tier",
+             mg_coarse.cycle_steps(levels, 0.0, 2, 24, gamma, False), None),
+            ("K5 visit", call.steps,
+             walk_syncs_before(shapes[j0:], gamma[j0:], True)),
+            ("K5 visit without the tier", no_tier.steps, None)):
         print(f"   {tag}: {len(steps)} steps, "
-              f"{mg_coarse.grid_syncs(steps)} grid syncs")
+              f"{mg_coarse.grid_syncs(steps)} grid syncs"
+              + ("" if before is None else
+                 f" (the walk before the tier and the tiled passes: "
+                 f"{before})"))
     for smoother in ("eager", "fused"):
         mg_solve = mg.make_mg_solver(grid, cfg, smoother=smoother)
         # the eager solve takes a minute: one call, timed and counted
@@ -2187,7 +2220,7 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100): from
     # rest at 512^2, the first fused step held against the eager mesh step
     # (the same solve, _dist_solve, so equal within 1e-6 x scale), and
-    # three fused steps against the single-device fused steps (K6 with
+    # two fused steps against the single-device fused steps (K6 with
     # multigrid) within the solver tolerance
     cfg, grid, forcing, st = make_case("rigid_lid", nx=512, ny=512,
                                        device=dev, backend="fused")
@@ -2198,11 +2231,11 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     step = dist.make_dist_stepper(grid, forcing, cfg, m)
     fused = step(pmesh.shard_state(st, m))
     first = gather_state(fused)
-    fused = step(step(fused))
+    fused = step(fused)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if dist_band.LAUNCHES["proj_a"] != 12 \
-            or dist_band.LAUNCHES["proj_b"] != 12:
+    if dist_band.LAUNCHES["proj_a"] != 8 \
+            or dist_band.LAUNCHES["proj_b"] != 8:
         raise AssertionError(f"rigid lid on 2 x 2: launches "
                              f"{dist_band.LAUNCHES}")
     eager = dist.make_dist_stepper(
@@ -2211,13 +2244,13 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     state_diff("rigid lid CG + multigrid 512^2 2 x 2, 1 fused step vs the "
                "eager mesh step", first, gather_state(eager), 1e-6)
     one, single = st, fp.make_fused_projection_stepper(grid, forcing, cfg)
-    for _ in range(3):
+    for _ in range(2):
         one = single(one)
-    state_diff("rigid lid CG + multigrid 512^2 2 x 2, 3 fused steps vs "
+    state_diff("rigid lid CG + multigrid 512^2 2 x 2, 2 fused steps vs "
                "the single-device fused run", gather_state(fused), one, 1e-5,
                1.0)
     print(f"   rigid lid with the distributed CG + multigrid on 2 x 2: "
-          f"{wall:.3f} s for 3 steps")
+          f"{wall:.3f} s for 2 steps")
 
     phase(f"25 times of K7-split and K7-proj at {BIG}^2 f32 on 2 x 4 shards "
           f"({smi})")

@@ -602,18 +602,25 @@ def test_apply_op_matches_plain(cuda, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("solo_points", [0, mg_coarse.SOLO_POINTS, 1 << 30])
+@pytest.mark.parametrize("from_end", ["none", "default", 1, 2])
 @pytest.mark.parametrize("demean", [False, True])
-def test_coarse_stack_matches_plain(cuda, demean, solo_points):
+def test_coarse_stack_matches_plain(cuda, demean, from_end):
     """K5 on the whole ragged hierarchy (down to its odd 25x17 level),
-    with no level, the small ones and every level on one CTA: without the
-    de-mean bit for bit, with it 1e-12 x scale (its sums run in another
-    order); two launches bitwise equal."""
+    with the shared-memory tier over no level, the default (the largest
+    that fits), the coarsest level and the two coarsest (every tier that
+    fits at f64): without the de-mean bit for bit, with it 1e-12 x scale
+    (its sums run in another order); two launches bitwise equal."""
     _, _, levels, _, b = _level_inputs(cuda, 16)
     gamma = mg.fused_gamma_schedule(levels, 2)
+    if from_end == "none":
+        tier = len(levels)
+    elif from_end == "default":
+        tier = None
+    else:
+        tier = len(levels) - from_end
     call = mg_coarse.make_coarse_stack_call(levels, 0.0, gamma=gamma,
-                                            demean=demean,
-                                            solo_points=solo_points)
+                                            demean=demean, tier=tier)
+    assert call.tier == (2 if from_end == "default" else tier)
     before = mg_coarse.LAUNCHES
     out, again = call(b), call(b)
     torch.cuda.synchronize()
@@ -623,6 +630,15 @@ def test_coarse_stack_matches_plain(cuda, demean, solo_points):
                                        demean=demean)
     err = float((out - ref).abs().max())
     assert err <= (1e-12 * float(ref.abs().max()) if demean else 0.0), err
+
+
+@pytest.mark.cuda
+def test_coarse_stack_refuses_a_tier_too_large(cuda):
+    """A tier the card's shared memory cannot hold raises; nothing falls
+    back to another walk."""
+    _, _, levels, _, _ = _level_inputs(cuda, 16)
+    with pytest.raises(ValueError, match="does not fit"):
+        mg_coarse.make_coarse_stack_call(levels, 0.0, tier=0)
 
 
 @pytest.mark.cuda
@@ -643,6 +659,30 @@ def test_cg_mg_matches_plain(cuda, kind):
     scale = float(ref.x.abs().max())
     assert float((res.x - ref.x).abs().max()) <= 1e-6 * scale
     assert solve(b, x0=res.x).iters <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(136, 200), (256, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_cg_mg_matches_plain_per_dtype(cuda, dtype, shape):
+    """K6 with the multigrid preconditioner (the tier from 64^2 at f32,
+    32^2 at f64) on the ragged 200x136 grid and at 256^2, lam = 0:
+    iterations within 1 of the plain CG's, x within 1e-6 x scale at f64
+    and 1e-3 x scale at f32 (chip_smoke.py's bounds)."""
+    ny, nx = shape
+    cfg, grid, _, _ = make_case("rigid_lid", nx=nx, ny=ny, device=cuda,
+                                dtype=dtype)
+    g = torch.Generator(device="cpu").manual_seed(18)
+    b = torch.randn(grid.mask.shape, generator=g,
+                    dtype=grid.mask.dtype).to(cuda) * grid.mask
+    solve = cg_fused.make_cg_solve(grid, cfg, lam=0.0, precond="mg")
+    res = solve(b)
+    ref = cg_fused.cg_solve_plain(b, grid, cfg, lam=0.0, precond="mg")
+    torch.cuda.synchronize()
+    assert abs(res.iters - ref.iters) <= 1, (res.iters, ref.iters)
+    scale = float(ref.x.abs().max())
+    rel = 1e-6 if dtype == "float64" else 1e-3
+    assert float((res.x - ref.x).abs().max()) <= rel * scale
 
 
 @pytest.mark.cuda

@@ -24,8 +24,9 @@ from beom_tpu_torch.solvers import elliptic as el
 from beom_tpu_torch.solvers import multigrid as mg
 from beom_tpu_torch.stencils import cg_fused, mg_coarse, redblack
 from beom_tpu_torch.stencils.mg_coarse import (
-    BC, OP_ADD, OP_DEMEAN, OP_PROLONG, OP_RESID, OP_RESTRICT, OP_SWEEP,
-    OP_ZERO, R, RC, X, XC)
+    BC, OP_ADD, OP_DEMEAN, OP_POST, OP_PRE, OP_PROLONG, OP_RESID,
+    OP_RESTRICT, OP_SWEEP, OP_SWEEPS, OP_TIER_IN, OP_TIER_OUT, OP_ZERO, R,
+    RC, X, XC)
 
 from tests.torch_parity import assert_close, to_port
 
@@ -112,29 +113,71 @@ def test_sweep_residual_plain_matches_exact_cycle_ops(sq, kind, reverse):
         np.testing.assert_array_equal(r.numpy(), np.asarray(rj))
 
 
-def _interpret(levels, steps, b, lam):
+def _interpret(levels, steps, b, lam, nu=2):
     """Execute a flattened cycle with the eager operations, one step at a
-    time, as the CUDA kernels do."""
-    work = [{w: torch.zeros_like(lv.mask) for w in (BC, XC, RC, X, R)}
-            for lv in levels]
+    time, as the CUDA kernels do.  Work fields start as NaN, so a step
+    that reads a field no step wrote shows in the result; the tier has
+    fields of its own, made at OP_TIER_IN (its right-hand side copied in)
+    and read back at OP_TIER_OUT."""
+    def fresh(lvs):
+        return [{w: torch.full_like(lv.mask, float("nan"))
+                 for w in (BC, XC, RC, X, R)} for lv in lvs]
+
+    def sweep(lv, x, rhs, colours):
+        for _ in range(nu):
+            for colour in colours:
+                x = mg._halfsweep(lv, x, rhs, colour)
+        return x
+
+    work, tier = fresh(levels), None
     work[0][BC] = b
-    for op, k, a, bb, c, _ in steps:
-        lv, w = levels[k], work[k]
-        if op == OP_ZERO:
+    for op, k, a, bb, c, in_tier in steps:
+        if op == OP_TIER_IN:
+            tier = [None] * k + fresh(levels[k:])
+            tier[k][a] = work[k][a].clone()
+        store = tier if in_tier else work
+        lv, w = levels[k], store[k]
+        if op == OP_TIER_IN:
+            pass
+        elif op == OP_TIER_OUT:
+            work[k][a] = tier[k][a].clone()
+            tier = None
+        elif op == OP_ZERO:
             w[a] = torch.zeros_like(lv.mask)
         elif op == OP_SWEEP:
             x = torch.zeros_like(lv.mask) if c & 2 else w[a]
             w[a] = mg._halfsweep(lv, x, w[bb], lv.black if c & 1 else lv.red)
+        elif op == OP_SWEEPS:
+            for h in range(c >> 2):
+                x = torch.zeros_like(lv.mask) if h == 0 and c & 2 else w[a]
+                w[a] = mg._halfsweep(lv, x, w[bb],
+                                     lv.black if (c ^ h) & 1 else lv.red)
         elif op == OP_RESID:
             w[c] = (w[bb] - mg._apply_A(lv, w[a], lam)) * lv.mask
         elif op == OP_RESTRICT:
-            work[k + 1][bb] = mg._restrict2(w[a]) * levels[k + 1].mask
+            store[k + 1][bb] = mg._restrict2(w[a]) * levels[k + 1].mask
         elif op == OP_DEMEAN:
             w[a] = (w[a] - lv.mask * (torch.sum(w[a]) / lv.nwet)) * lv.mask
         elif op == OP_ADD:
             w[a] = w[a] + w[bb]
         elif op == OP_PROLONG:
-            w[a] = (w[a] + mg._prolong2(work[k + 1][bb])) * lv.mask
+            w[a] = (w[a] + mg._prolong2(store[k + 1][bb])) * lv.mask
+        elif op == OP_PRE:
+            if c:
+                w[bb] = (w[BC] - mg._apply_A(lv, w[XC], lam)) * lv.mask
+            x = sweep(lv, torch.zeros_like(lv.mask), w[bb],
+                      (lv.red, lv.black))
+            w[a] = x
+            r = (w[bb] - mg._apply_A(lv, x, lam)) * lv.mask
+            store[k + 1][BC] = mg._restrict2(r) * levels[k + 1].mask
+        elif op == OP_POST:
+            src = store[k + 1][XC]
+            if c:
+                src = src + store[k + 1][X]
+            x = (w[R] + mg._prolong2(src)) * lv.mask
+            w[a] = sweep(lv, x, w[bb], (lv.black, lv.red))
+        else:
+            raise AssertionError(f"unknown step op {op}")
     return work[0][XC]
 
 
@@ -145,24 +188,76 @@ def test_flattened_cycle_equals_eager(sq, ragged, which, gamma, demean,
                                       nu_coarse):
     """cycle_steps executed step by step equals _vcycle bit for bit (W, V,
     mixed schedules, de-mean on and off, an odd and a zero coarse sweep
-    count, the ragged hierarchy down to its odd 25x17 level)."""
+    count, the ragged hierarchy down to its odd 25x17 level), with the
+    tier the kernels take on an H100 at f64."""
     jcfg, jgrid, cfg, grid, b = sq if which == "sq" else ragged
     levels = mg.build_levels(grid, cfg, 0.0)
-    steps = mg_coarse.cycle_steps(levels, 0.0, 2, nu_coarse, gamma, demean)
+    tier = mg_coarse.tier_level(mg_coarse.level_shapes(levels), 8,
+                                mg_coarse.H100_SMEM)
+    assert 0 < tier < len(levels)
+    steps = mg_coarse.cycle_steps(levels, 0.0, 2, nu_coarse, gamma, demean,
+                                  tier)
     ref = mg._vcycle(levels, 0, torch.tensor(b), 0.0, 2, nu_coarse,
                      demean=demean, gamma=gamma)
     out = _interpret(levels, steps, torch.tensor(b), 0.0)
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
 
 
+@pytest.mark.parametrize("nu", [2, 1, 0])
+@pytest.mark.parametrize("gamma,demean", [
+    (2, True), ((2, 1), False), (3, False), ((1, 2), True)])
+@pytest.mark.parametrize("from_end", [0, 1, 2, "all"])
+@pytest.mark.parametrize("which", ["sq", "ragged"])
+def test_flattened_cycle_with_every_tier_equals_eager(
+        sq, ragged, which, from_end, gamma, demean, nu):
+    """The flattened cycle with the shared-memory tier over no level, the
+    coarsest, ..., every level (the whole cycle one tier visit), with and
+    without the fused passes' add and right-hand side, equals _vcycle bit
+    for bit."""
+    _, _, cfg, grid, b = sq if which == "sq" else ragged
+    levels = mg.build_levels(grid, cfg, 0.0)
+    tier = 0 if from_end == "all" else len(levels) - from_end
+    steps = mg_coarse.cycle_steps(levels, 0.0, nu, 5, gamma, demean, tier)
+    ops_seen = {st[0] for st in steps}
+    assert (OP_TIER_IN in ops_seen) == (tier < len(levels))
+    assert (OP_PRE in ops_seen) == (tier >= 1)
+    ref = mg._vcycle(levels, 0, torch.tensor(b), 0.0, nu, 5, demean=demean,
+                     gamma=gamma)
+    out = _interpret(levels, steps, torch.tensor(b), 0.0, nu)
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
 def test_grid_sync_count():
-    """The sync count of a flattened cycle: solo-to-solo steps are free,
-    every other step costs one, a de-mean that is not solo one more."""
+    """The sync count of a flattened cycle: tier-to-tier steps are free,
+    every other step costs one, a de-mean outside the tier one more."""
     S, OP = 1, OP_SWEEP
     steps = [(OP, 0, 0, 0, 0, 0), (OP_DEMEAN, 0, 0, 0, 0, 0),
              (OP, 1, 0, 0, 0, S), (OP, 1, 0, 0, 0, S),
              (OP_DEMEAN, 1, 0, 0, 0, S), (OP, 0, 0, 0, 0, 0)]
     assert mg_coarse.grid_syncs(steps) == 1 + 2 + 0 + 0 + 1 + 1
+
+
+# grid syncs per walk of the 2048^2 hierarchies' plans on an H100 (PERF.md
+# section 6): the K6-mg cycle (fused gamma schedule, no de-mean) and K5 on
+# the 512^2 tail (de-mean on), before this design 1139 and 335 at f32
+@pytest.mark.parametrize("itemsize,tier,k6,k5", [
+    (4, (64, 64), 78, 33), (8, (32, 32), 158, 73)])
+def test_grid_syncs_of_the_2048_plans(itemsize, tier, k6, k5):
+    shapes = [(2048 >> i,) * 2 for i in range(8)]
+    gamma = (2, 2, 2, 2, 2, 1, 1)
+    top = mg_coarse.tier_level(shapes, itemsize, mg_coarse.H100_SMEM)
+    assert shapes[top] == tier
+    assert (mg_coarse.tier_bytes(shapes, itemsize, top)
+            + mg_coarse.LEVEL_TABLE
+            + mg_coarse.NDOT * mg_coarse.THREADS * itemsize
+            <= mg_coarse.H100_SMEM)
+    steps = mg_coarse.cycle_steps(shapes, 0.0, 2, 24, gamma, False, top)
+    assert mg_coarse.grid_syncs(steps) == k6
+    tail = shapes[2:]
+    steps = mg_coarse.cycle_steps(
+        tail, 0.0, 2, 24, gamma[2:], True,
+        mg_coarse.tier_level(tail, itemsize, mg_coarse.H100_SMEM))
+    assert mg_coarse.grid_syncs(steps) == k5
 
 
 @pytest.mark.parametrize("demean", [True, False])
@@ -215,7 +310,8 @@ def test_cg_mg_plain_matches_vmem_kernel(sq, kind):
     levels, gamma = cg_fused.mg_levels(grid, cfg, lam)
     assert gamma == mg.fused_gamma_schedule(levels, 2)
     assert solve.steps == mg_coarse.cycle_steps(
-        levels, lam, 2, 24, gamma, demean=False)
+        levels, lam, 2, 24, gamma, False, mg_coarse.tier_level(
+            mg_coarse.level_shapes(levels), 8, mg_coarse.H100_SMEM))
 
 
 def test_cg_mg_warm_start(sq):

@@ -6,11 +6,16 @@ step on one NVIDIA GPU, for the checkout of beom_tpu_torch at ROOT.
 
 At 2048^2 f32 from chip_smoke.py's perturbed state: K1 (the fb step,
 double gyre), K1s's three kernels (split, nsub 8), K3a / K3b (implicit FS
-on the rigid-lid gyre) and K7 (the fb shard step on a 2 x 4 mesh of shards
-on the card), each as the mean time per call between CUDA events and as
-the device time of the call's kernels under torch.profiler (for K7 the sum
-over its 16 launches, which overlap on the card), both through
-chip_smoke.py's `time_ms` and `device_ms`.  Then, for every library the
+on the rigid-lid gyre), K7 (the fb shard step on a 2 x 4 mesh of shards
+on the card), K5 (a visit of the 512^2 tail, de-mean on, as solver='mg'
+runs it), K6 with multigrid (a cold solve of the rigid lid's first
+pressure equation) and K6 with Jacobi (an implicit-FS solve from eta^n),
+each as the mean time per call between CUDA events and as the device time
+of the call's kernels under torch.profiler (for K7 the sum over its 16
+launches, which overlap on the card), both through chip_smoke.py's
+`time_ms` and `device_ms`; and the ms per step of run() on the 2048^2 f32
+rigid lid with its default solve, path (c), and with solver='mg', path
+(d), after one step not timed.  Then, for every library the
 run built, each kernel's registers and spill bytes (nvcc's -Xptxas -v
 lines) and its count of SASS instructions (cuobjdump -sass).  It prints one
 JSON line.  To compare two commits, unpack both and run this for each,
@@ -22,11 +27,13 @@ are always this checkout's chip_smoke.py.
 from __future__ import annotations
 
 import importlib.util
+import io
 import json
 import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 N = 2048
@@ -112,9 +119,14 @@ def main(root: str) -> dict:
     import torch
 
     import beom_tpu_torch
+    from beom_tpu_torch.cases import make_case
     from beom_tpu_torch.parallel import mesh as pmesh
-    from beom_tpu_torch.stencils import build, dist_band, fused_fb
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.solvers import multigrid as mg
+    from beom_tpu_torch.stencils import (build, cg_fused, dist_band,
+                                         fused_fb)
     from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import projection
 
     if not beom_tpu_torch.__file__.startswith(root):
         raise SystemExit(f"imported {beom_tpu_torch.__file__}, not {root}")
@@ -163,6 +175,42 @@ def main(root: str) -> dict:
     fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
     record("K7 fb step (2, 4)", lambda: dist_band.shard_step(
         *fields, pstat, 0, st.t, cfg, 1, static_blocks=blocks), 100, 16)
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
+                                               ny=N)
+    _, _, div = fp.proj_a(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+    rhs = projection.rigid_rhs(st.h, div, grid, cfg)
+    levels = mg.build_levels(grid, cfg, 0.0)
+    gamma = mg.fused_gamma_schedule(levels, 2)
+    j0, visit = mg.make_fused_coarse(levels, 0.0, 2, 24, True, gamma=gamma)
+    b_tail = rhs
+    for coarser in levels[1:j0 + 1]:
+        b_tail = mg._restrict2(b_tail) * coarser.mask
+    record("K5 visit", lambda: visit(b_tail), 30)
+    solve = cg_fused.make_cg_solve(grid, cfg, lam=0.0)
+    out["K6-mg iterations"] = solve(rhs).iters
+    record("K6-mg cold solve", lambda: solve(rhs), 5)
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
+                                               ny=N, scheme="implicit_fs")
+    _, _, div = fp.proj_a(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+    lam = projection.solve_lam(cfg)
+    b, eta_n = projection.implicit_rhs(st.h, div, grid, cfg, lam)
+    jacobi = cg_fused.make_cg_solve(grid, cfg, lam=lam)
+    out["K6-Jacobi iterations"] = jacobi(b, eta_n).iters
+    record("K6-Jacobi solve", lambda: jacobi(b, eta_n), 10)
+
+    for name, kw, n_steps in (("(c) run() ms/step", {}, 10),
+                              ("(d) run() ms/step", {"solver": "mg"}, 5)):
+        cfg, grid, forcing, st = make_case("rigid_lid", nx=N, ny=N,
+                                           device=dev, backend="fused",
+                                           diag_every=n_steps, **kw)
+        st = run(cfg, grid, forcing, st, 1, log=io.StringIO())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / n_steps * 1e3
     out["code"] = code_report(build)
     out["power"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
