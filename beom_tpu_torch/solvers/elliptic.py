@@ -44,14 +44,20 @@ def face_depths(grid: Grid):
     return Hu, Hv
 
 
-def laplacian_H(p, Hu, Hv, grid: Grid, cfg: Config, lam=0.0):
-    """A p = div(H grad p) - lam p at wet centres (ny, nx)."""
-    gx = Hu * ops.d_xp(p, cfg.dx)       # at u faces
-    gy = Hv * ops.d_yp(p, cfg.dy)       # at v faces
-    out = (ops.d_xm(gx, cfg.dx) + ops.d_ym(gy, cfg.dy))
+def laplacian(p, Hu, Hv, mask, dx: float, dy: float, lam=0.0):
+    """A p = div(H grad p) - lam p at wet centres (ny, nx), from the face
+    depths, the mask and the spacing."""
+    gx = Hu * ops.d_xp(p, dx)           # at u faces
+    gy = Hv * ops.d_yp(p, dy)           # at v faces
+    out = (ops.d_xm(gx, dx) + ops.d_ym(gy, dy))
     if lam != 0.0:
         out = out - lam * p
-    return out * grid.mask
+    return out * mask
+
+
+def laplacian_H(p, Hu, Hv, grid: Grid, cfg: Config, lam=0.0):
+    """A p = div(H grad p) - lam p at wet centres (ny, nx)."""
+    return laplacian(p, Hu, Hv, grid.mask, cfg.dx, cfg.dy, lam=lam)
 
 
 def _local_dot(a, b):

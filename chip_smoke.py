@@ -23,18 +23,24 @@ Phases, each of which raises on failure (exit code != 0):
   7. the projection kernels against their plain versions on the card,
      on the perturbed rigid-lid gyre: K3a and K3b at 256^2 f64
      (<= 1e-12 x scale), 256^2 and 2048^2 f32 (<= 4 ulp of field scale),
-     200x136 f64 and linear / no-slip, both sweep parities; one K4a pass
-     (k = 8) at 256^2 f64 and 2048^2 f32, forward and reverse, lam = 0
-     and > 0; K6 at 256^2 f64 and 2048^2 f32, lam = 0 and 1/(g dt^2),
-     cold and warm: the true residual, x against the plain CG, the
-     iteration counts, two launches bitwise equal
+     200x136 f64 and linear / no-slip, both sweep parities; K4a bit for
+     bit at 256^2 f64, 200x136 f64, 201x137 f64 with every cell wet (the
+     periodic seams join cells of one colour) and 2048^2 f32, k = 1, 2, 8,
+     forward and reverse, with and without the multigrid residual, lam =
+     0 and > 0, and the blocked solve's pass (k = 0, 1, 2, 8: x and r bit
+     for bit, sum r^2 against torch.sum); K6 at 256^2 f64 and 2048^2 f32,
+     lam = 0 and 1/(g dt^2), cold and warm: the true residual, x against
+     the plain CG, the iteration counts, two launches bitwise equal
   8. the projection path: run() on the 2048^2 f32 rigid-lid gyre with
      backend='fused', (a) scheme='implicit_fs' (CG + Jacobi: K3a, K6,
-     K3b), 20 steps, and (b) solver='redblack' (K3a, K4a, K3b), 10 steps:
-     finite diagnostics, max_speed > 0, max|sum h - H| bounded, the
-     launch counts, and 3 fused steps against 3 eager steps
-  9. times at 2048^2 f32: K3a, K3b, a K4a pass and a K6 solve beside
-     their plain versions, and ms/step of (a) and (b) through run()
+     K3b), 20 steps, and (b) solver='redblack' (K3a, K4a's solve mode,
+     K3b), 10 steps: finite diagnostics, max_speed > 0, max|sum h - H|
+     bounded, the launch counts (on (b) one K4a launch per pass and per
+     solve, no eager operator), 3 fused steps against 3 eager steps, and
+     (b)'s solve against the plain per-pass loop (pass count, x)
+  9. times at 2048^2 f32: K3a, K3b, a K4a sweep pass and solve pass and a
+     K6 solve beside their plain versions, ms/step of (a) and (b) through
+     run(), and (b)'s busy share under torch.profiler
  10. build lines of the multigrid kernels: K4a's residual mode and K4b
      (rb_sweep.cu), K5 (mg_coarse.cu), K6-mg (cg_fused.cu, both sharing
      mg_cycle.cuh)
@@ -56,8 +62,9 @@ Phases, each of which raises on failure (exit code != 0):
  13. times at 2048^2 f32: K4a with its residual, K4b, K5 (with and
      without its shared-memory tier), a K6-mg solve (per iteration), a
      solver='mg' solve (per cycle) beside their plain versions, (c) and
-     (d) in ms/step through run(), and the grid syncs per K6-mg cycle and
-     per K5 visit beside those of the walk before the tier
+     (d) in ms/step through run(), (d)'s busy share under torch.profiler,
+     and the grid syncs per K6-mg cycle and per K5 visit beside those of
+     the walk before the tier
 
  14. build lines of the fb and split builds of the other cases (fb_step.cu
      and split_step.cu, one library per combination of compile-time
@@ -385,37 +392,66 @@ def check_phases(label, device, tol, seed, **kw):
     return worst_a, worst_b
 
 
-def check_rb(label, device, tol, seed, **kw):
-    """One k = 8 K4a pass against 8 plain sweeps, forward and reverse,
-    lam = 0 and 1/(g dt^2).  Returns the largest difference."""
+def check_rb(label, device, tol, sum_rel, seed, wet_seams=False, **kw):
+    """K4a against its plain version for k = 1, 2, 8, lam = 0 and
+    1/(g dt^2): the sweeps forward and reverse, alone and with the
+    multigrid residual (omega = 1), and the blocked solve's pass (k = 0,
+    the test alone, too): x and r within tol (bit for bit is 0.0), the
+    device's sum of r^2 within sum_rel of torch.sum's.  `wet_seams`: every
+    cell wet and the face depths of the case's depth made positive, so at
+    an odd size the periodic seams join wet cells of one colour.  Returns
+    the largest difference."""
     import numpy as np
     import torch
 
+    from beom_tpu_torch.core import ops
     from beom_tpu_torch.solvers import elliptic
     from beom_tpu_torch.stencils import redblack
 
     cfg, grid, _, _ = perturbed_case(device, seed, "rigid_lid", **kw)
     Hu, Hv = elliptic.face_depths(grid)
+    mask = grid.mask
+    if wet_seams:
+        H = torch.clamp_min(grid.H, 100.0)
+        Hu, Hv, mask = ops.a_xp(H), ops.a_yp(H), torch.ones_like(H)
+    args = (Hu.contiguous(), Hv.contiguous(), mask, cfg.dx, cfg.dy)
     rng = np.random.default_rng(seed)
 
     def field(amp):
         a = amp * rng.standard_normal((cfg.ny, cfg.nx))
-        return torch.tensor(a.astype(cfg.npdtype), device=device) * grid.mask
+        return torch.tensor(a.astype(cfg.npdtype), device=device) * mask
 
     x, b = field(1.0), field(1e-6)
     worst = 0.0
     for lam in (0.0, 1.0 / (cfg.g * cfg.dt ** 2)):
-        for reverse in (False, True):
-            kw_s = dict(lam=lam, k=8, omega=cfg.sor_omega, reverse=reverse)
-            out = redblack.rb_sweep(x, b, Hu, Hv, grid.mask, cfg.dx, cfg.dy,
-                                    **kw_s)
+        for k in (1, 2, 8):
+            for reverse in (False, True):
+                for residual, omega in ((False, cfg.sor_omega), (True, 1.0)):
+                    kw_s = dict(lam=lam, k=k, omega=omega, reverse=reverse,
+                                residual=residual)
+                    out = redblack.rb_sweep(x, b, *args, **kw_s)
+                    torch.cuda.synchronize()
+                    ref = redblack.rb_sweep_plain(x, b, *args, **kw_s)
+                    worst = max(worst, compare_fields(
+                        f"{label} lam={lam:.4g} k={k} "
+                        f"{'reverse' if reverse else 'forward'} K4a"
+                        + (" + residual" if residual else ""),
+                        ("x", "r") if residual else ("x",),
+                        out if residual else [out],
+                        ref if residual else [ref], tol))
+        for k in (0, 1, 2, 8):
+            kw_s = dict(lam=lam, k=k, omega=cfg.sor_omega)
+            out, r, s = redblack.rb_pass(x, b, *args, **kw_s)
             torch.cuda.synchronize()
-            ref = redblack.rb_sweep_plain(x, b, Hu, Hv, grid.mask, cfg.dx,
-                                          cfg.dy, **kw_s)
-            worst = max(worst, compare_fields(
-                f"{label} lam={lam:.4g} "
-                f"{'reverse' if reverse else 'forward'} K4a", ("x",),
-                [out], [ref], tol))
+            ref, r_ref, s_ref = redblack.rb_pass_plain(x, b, *args, **kw_s)
+            tag = f"{label} lam={lam:.4g} k={k} K4a solve pass"
+            worst = max(worst, compare_fields(tag, ("x", "r"), [out, r],
+                                              [ref, r_ref], tol))
+            s, s_ref = float(s), float(s_ref)
+            print(f"   {tag}: sum r^2 {s!r}, torch.sum {s_ref!r}, relative "
+                  f"{abs(s - s_ref) / s_ref!r} (bound {sum_rel!r})")
+            if not abs(s - s_ref) <= sum_rel * s_ref:
+                raise AssertionError(f"{tag}: sum r^2 off torch.sum")
     return worst
 
 
@@ -511,7 +547,7 @@ def run_projection(label, device, n_steps, diag_every, name="rigid_lid",
 
     from beom_tpu_torch.cases import make_case
     from beom_tpu_torch.run import run
-    from beom_tpu_torch.solvers import multigrid
+    from beom_tpu_torch.solvers import elliptic, multigrid
     from beom_tpu_torch.stencils import cg_fused, mg_coarse, redblack
     from beom_tpu_torch.stencils import fused_projection as fp
 
@@ -519,17 +555,31 @@ def run_projection(label, device, n_steps, diag_every, name="rigid_lid",
                      backend="fused", diag_every=diag_every, **kw)
     cfg, grid, forcing, st = case
     log = io.StringIO()
+    # the eager operator, counted: the fused paths call it in no pass
+    laplacian, calls = elliptic.laplacian, []
+
+    def counted(*a, **k):
+        calls.append(1)
+        return laplacian(*a, **k)
+
     torch.cuda.synchronize()
     fp.LAUNCHES.update(proj_a=0, proj_b=0)
     fp.COUNTS["stalled"] = 0
     cg_fused.LAUNCHES = redblack.LAUNCHES = redblack.PASSES = 0
+    redblack.IDLE = redblack.SOLVES = redblack.READS = 0
     redblack.APPLY_LAUNCHES = mg_coarse.LAUNCHES = multigrid.CYCLES = 0
-    t0 = time.perf_counter()
-    out = run(cfg, grid, forcing, st, n_steps, log=log)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    elliptic.laplacian = counted
+    try:
+        t0 = time.perf_counter()
+        out = run(cfg, grid, forcing, st, n_steps, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        elliptic.laplacian = laplacian
     counts = dict(fp.LAUNCHES, cg_fused=cg_fused.LAUNCHES,
                   rb_sweep=redblack.LAUNCHES, passes=redblack.PASSES,
+                  idle=redblack.IDLE, solves=redblack.SOLVES,
+                  reads=redblack.READS, laplacian=len(calls),
                   apply_op=redblack.APPLY_LAUNCHES,
                   mg_coarse=mg_coarse.LAUNCHES, cycles=multigrid.CYCLES,
                   stalled=fp.COUNTS["stalled"])
@@ -552,6 +602,74 @@ def run_projection(label, device, n_steps, diag_every, name="rigid_lid",
           f"{n_steps} steps in {wall:.3f} s wall (first run, diagnostics "
           "included)")
     return case, out, counts, column
+
+
+def solve_against_plain_loop(label, device, case):
+    """The blocked solve of the rigid lid's first step from a perturbed
+    state against the plain per-pass loop (rb_solve_plain) on the same
+    right-hand side: the same pass count and x bit for bit, or, where the
+    counts differ, both loops' sum of r^2 beside the threshold at the pass
+    where they part (the device sums in another order than torch.sum)."""
+    import torch
+
+    from beom_tpu_torch.solvers import elliptic
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stencils import redblack
+    from beom_tpu_torch.stepping import projection
+
+    cfg, grid, forcing, _ = case
+    _, _, _, st = perturbed_case(device, 3, "rigid_lid", nx=BIG, ny=BIG)
+    _, _, div = fp.proj_a_plain(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+    b = projection.rigid_rhs(st.h, div, grid, cfg)
+    kw = dict(k=fp.K_SWEEPS, max_passes=max(1, cfg.solver_maxiter
+                                             // fp.K_SWEEPS))
+    passes, reads = redblack.PASSES, redblack.READS
+    x = redblack.make_fused_rb_solve(grid, cfg, **kw)(b)
+    torch.cuda.synchronize()
+    n, reads = redblack.PASSES - passes, redblack.READS - reads
+    ref, n_ref = redblack.rb_solve_plain(b, grid, cfg, **kw)
+    print(f"   {label} solve from a perturbed state: {n} passes in "
+          f"{reads} host reads, plain loop {n_ref} passes (limit "
+          f"{kw['max_passes']})")
+    if n == n_ref:
+        if not torch.equal(x, ref):
+            raise AssertionError(f"{label}: x off the plain loop's")
+        return
+    # where the counts part, the two sums of the earlier stop
+    tol, Hu, Hv = redblack._solve_setup(grid, cfg, None)
+    mask = grid.mask
+    bm = b * mask
+    thr = redblack._threshold(bm, tol)
+    x_at, _ = redblack.rb_solve_plain(b, grid, cfg, k=kw["k"],
+                                      max_passes=min(n, n_ref))
+    _, _, s_dev = redblack.rb_pass(x_at, bm, Hu, Hv, mask, cfg.dx, cfg.dy,
+                                   k=0)
+    r = (bm - elliptic.laplacian_H(x_at, Hu, Hv, grid, cfg)) * mask
+    s_torch = float(torch.sum(r * r))
+    print(f"   {label}: after {min(n, n_ref)} passes sum r^2 {float(s_dev)!r}"
+          f" on the device, {s_torch!r} by torch.sum, threshold "
+          f"{float(thr)!r}")
+    if not (abs(n - n_ref) == 1
+            and abs(float(s_dev) - s_torch) <= 1e-5 * float(thr)
+            and abs(s_torch - float(thr)) <= 1e-5 * float(thr)):
+        raise AssertionError(f"{label}: pass count off the plain loop's "
+                             "away from the threshold")
+
+
+def rb_solve_pass(b, args, k, omega):
+    """pass(x) -> x: one working pass of the blocked solve's kernel on its
+    own state, as the solve launches it."""
+    import torch
+
+    from beom_tpu_torch.stencils import redblack
+
+    st = redblack.SolveState(b, k)
+    thr = torch.zeros((), dtype=b.dtype, device=b.device)
+
+    def run_pass(x):
+        return redblack.solve_pass(x, b, *args, st, thr, k=k, omega=omega,
+                                   first=True, max_passes=1)
+    return run_pass
 
 
 def versus_eager(label, case, n_steps, atol_ulp):
@@ -825,10 +943,18 @@ def projection_phases(dev, smi, rel, ulps):
                  dtype="float64", scheme="implicit_fs")
     check_phases("200x136 f64 linear no-slip", dev, rel(1e-12), 25, nx=200,
                  ny=136, dtype="float64", adv_scheme="linear", slip="no")
-    check_rb("256^2 f64", dev, rel(1e-12), 26, nx=256, ny=256,
+    # K4a bit for bit; sum r^2 against torch.sum: another order of the
+    # same terms, 1e-12 relative at f64, 1e-5 at f32 (the device sums in
+    # f64)
+    exact = lambda r: 0.0      # noqa: E731
+    check_rb("256^2 f64", dev, exact, 1e-12, 26, nx=256, ny=256,
              dtype="float64")
-    err["rb_sweep"] = check_rb(f"{BIG}^2 f32", dev, ulps(4), 27, nx=BIG,
-                               ny=BIG)
+    check_rb("200x136 f64", dev, exact, 1e-12, 41, nx=200, ny=136,
+             dtype="float64")
+    check_rb("201x137 f64 wet seams", dev, exact, 1e-12, 42, True, nx=201,
+             ny=137, dtype="float64")
+    err["rb_sweep"] = check_rb(f"{BIG}^2 f32", dev, exact, 1e-5, 27,
+                               nx=BIG, ny=BIG)
     check_cg("256^2 f64", dev, lambda lam: 1e-6, 28, nx=256, ny=256,
              dtype="float64")
     # f32 bounds (PERF.md): 1e-3 x scale for the lam = 0 solve,
@@ -849,13 +975,19 @@ def projection_phases(dev, smi, rel, ulps):
     case_b, _, counts_b, col_b = run_projection(
         "(b) rigid_lid, red-black", dev, 10, 5, solver="redblack",
         solver_maxiter=RB_MAXITER)
-    if not (counts_b["proj_a"] == counts_b["proj_b"] == 10
-            and counts_b["rb_sweep"] == counts_b["passes"] > 0
-            and counts_b["cg_fused"] == 0):
+    # one K4a launch per pass that did work, per pass launched after the
+    # test stopped a solve, and per solve (its test of the initial x); no
+    # eager operator
+    if not (counts_b["proj_a"] == counts_b["proj_b"] == counts_b["solves"]
+            == 10 and counts_b["passes"] > 0
+            and counts_b["rb_sweep"] == counts_b["passes"]
+            + counts_b["idle"] + counts_b["solves"]
+            and counts_b["laplacian"] == 0 and counts_b["cg_fused"] == 0):
         raise AssertionError(f"(b) launch counts {counts_b}")
     if not col_b < 0.1:          # the rigid lid holds sum h = H
         raise AssertionError(f"(b) max|sum h - H| {col_b!r} m")
     eager_b = versus_eager("(b) 3 fused steps", case_b, 3, 1e-4)
+    solve_against_plain_loop("(b)", dev, case_b)
 
     phase(f"9 times at {BIG}^2 f32 ({smi})")
     cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
@@ -883,14 +1015,21 @@ def projection_phases(dev, smi, rel, ulps):
     dev_ms = {"proj_a": dev_ms["proj_a_kernel"],
               "proj_b": dev_ms["proj_b_kernel"]}
     Hu, Hv = elliptic.face_depths(grid)
-    rhs = projection.rigid_rhs(st.h, div, grid, cfg)
+    rb_args = (Hu.contiguous(), Hv.contiguous(), grid.mask, cfg.dx, cfg.dy)
+    rhs = projection.rigid_rhs(st.h, div, grid, cfg) * grid.mask
     kw = dict(k=8, omega=cfg.sor_omega)
+    time_pair("K4a sweep pass (8 sweeps)",
+              lambda: redblack.rb_sweep_plain(p, rhs, *rb_args, **kw),
+              lambda: redblack.rb_sweep(p, rhs, *rb_args, **kw), 5, 50,
+              unit="pass")
+    solve_pass = rb_solve_pass(rhs, rb_args, **kw)
     ms["rb_sweep"] = time_pair(
-        "K4a pass (8 sweeps)",
-        lambda: redblack.rb_sweep_plain(p, rhs, Hu, Hv, grid.mask, cfg.dx,
-                                        cfg.dy, **kw),
-        lambda: redblack.rb_sweep(p, rhs, Hu, Hv, grid.mask, cfg.dx, cfg.dy,
-                                  **kw), 5, 50, unit="pass")
+        "K4a solve pass (8 sweeps, residual, sum)",
+        lambda: redblack.rb_pass_plain(p, rhs, *rb_args, **kw),
+        lambda: solve_pass(p), 5, 50, unit="pass")
+    dev_ms["rb_sweep"] = device_ms(
+        "K4a solve pass", lambda: solve_pass(p), 50,
+        {"rb_pass_kernel": 1})["rb_pass_kernel"]
     res = solve(b, eta_n)
     ref = cg_fused.cg_solve_plain(b, grid, cfg, x0=eta_n, lam=lam)
     print(f"   K6 solve of an implicit-FS step from eta^n: {res.iters} "
@@ -912,16 +1051,21 @@ def projection_phases(dev, smi, rel, ulps):
         print(f"   {label}: run() {wall!r} ms/step over {n_steps} steps "
               f"(diagnostics included); eager stepper {eager_ms!r} "
               "ms/step over 3 steps")
+    cfg, grid, forcing, st = case_b
+    busy_share("(b) rigid_lid red-black through run()",
+               lambda: run(cfg, grid, forcing, st, 5, log=io.StringIO()), 5)
 
     # fields moved per point (the kernels' pointer operands) and a count
     # of operations per point: K3a one momentum evaluation and the
-    # divergence, K3b the correction and the continuity, a K4a pass 8
-    # sweeps of ~12, K6 ~30 per iteration of this run's solve
+    # divergence, K3b the correction and the continuity, a K4a solve pass
+    # 8 sweeps of ~12 and the residual and its square ~20, K6 ~30 per
+    # iteration of this run's solve
     pts = cfg.nx * cfg.ny
     sources = {
         "proj_a": ("projection.cu", "band.py:200", 13, 150),
         "proj_b": ("projection.cu", "band.py:200", 10, 40),
-        "rb_sweep": ("rb_sweep.cu", "redblack_pallas.py:39", 6, 8 * 12),
+        "rb_sweep": ("rb_sweep.cu", "redblack_pallas.py:39", 6,
+                     8 * 12 + 20),
         "cg_fused": ("cg_fused.cu", "cg_vmem.py:61", 7, 30 * res.iters)}
     launches = {name: counts_a[name] + counts_b[name] for name in sources}
     return [kernel_entry(name, src, site, launches[name], err[name],
@@ -1188,6 +1332,9 @@ def multigrid_phases(dev, smi, rel, ulps):
         print(f"   {label}: run() {wall!r} ms/step over {n_steps} steps "
               f"(diagnostics included); eager stepper {eager_ms!r} "
               "ms/step over 2 steps")
+    cfg, grid, forcing, st = case_d
+    busy_share("(d) rigid_lid solver='mg' through run()",
+               lambda: run(cfg, grid, forcing, st, 3, log=io.StringIO()), 3)
 
     # bytes: the operands of the call, each once (for the cycle kernels
     # the six level fields of every level they walk, b and x); operations:

@@ -207,6 +207,98 @@ def test_rb_sweep_matches_plain(cuda, lam, reverse):
     assert float((out - ref).abs().max()) == 0.0
 
 
+def _wet_seams(device, ny, nx, seed, dtype=torch.float64):
+    """Face depths of seeded positive depths, an all-wet mask and seeded x
+    and b on a periodic (ny, nx) grid: at odd sizes the periodic seams
+    join wet cells of one colour."""
+    from beom_tpu_torch.core import ops
+
+    rng = np.random.default_rng(seed)
+
+    def field(amp, base=0.0):
+        a = base + amp * rng.standard_normal((ny, nx))
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    H = field(50.0, 400.0)
+    Hu, Hv = ops.a_xp(H).contiguous(), ops.a_yp(H).contiguous()
+    return Hu, Hv, torch.ones_like(H), field(1.0), field(1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("k", [1, 2, 8])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_rb_sweep_odd_size_wet_seams(cuda, reverse, k, residual):
+    """A K4a pass on a 201x137 f64 grid wet on both sides of both periodic
+    seams, where two cells of one colour are neighbours: bit for bit."""
+    Hu, Hv, m, x, b = _wet_seams(cuda, 137, 201, 17)
+    kw = dict(lam=1e-9, k=k, omega=1.0 if residual else 1.7,
+              reverse=reverse, residual=residual)
+    out = redblack.rb_sweep(x, b, Hu, Hv, m, 1e4, 9e3, **kw)
+    ref = redblack.rb_sweep_plain(x, b, Hu, Hv, m, 1e4, 9e3, **kw)
+    torch.cuda.synchronize()
+    for a, r in zip(out if residual else [out], ref if residual else [ref]):
+        assert float((a - r).abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 2, 8])
+@pytest.mark.parametrize("lam", [0.0, 1e-9])
+@pytest.mark.parametrize("shape,dtype,rel", [
+    ((137, 201), torch.float64, 1e-12),
+    ((256, 256), torch.float32, 1e-5),
+])
+def test_rb_pass_matches_plain(cuda, shape, dtype, rel, lam, k):
+    """The blocked solve's pass (k sweeps, r in laplacian_H's order, the
+    device's sum of r^2): x and r bit for bit, the sum within `rel` of
+    torch.sum's (another order of the same terms)."""
+    Hu, Hv, m, x, b = _wet_seams(cuda, *shape, 19, dtype)
+    kw = dict(lam=lam, k=k, omega=1.7)
+    before = redblack.LAUNCHES
+    out, r, s = redblack.rb_pass(x, b, Hu, Hv, m, 1e4, 9e3, **kw)
+    ref, r_ref, s_ref = redblack.rb_pass_plain(x, b, Hu, Hv, m, 1e4, 9e3,
+                                               **kw)
+    torch.cuda.synchronize()
+    assert redblack.LAUNCHES == before + 1
+    assert torch.equal(out, ref) and torch.equal(r, r_ref)
+    assert abs(float(s) - float(s_ref)) <= rel * float(s_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["converges", "max_passes", "converged"])
+@pytest.mark.parametrize("helmholtz", [False, True])
+def test_fused_rb_solve_matches_plain_loop(cuda, helmholtz, case):
+    """make_fused_rb_solve on a 200x136 f64 rigid lid, lam = 0 and
+    1/(g dt^2), b = A x for a perturbation x: the plain per-pass loop's x
+    bit for bit and its pass count, with the test read once per batch of
+    passes; one residual launch and the passes of the batches."""
+    cfg, grid, _, st = _perturbed(cuda, 12, "rigid_lid", nx=200, ny=136,
+                                  dtype="float64")
+    lam = 1.0 / (cfg.g * cfg.dt ** 2) if helmholtz else 0.0
+    Hu, Hv = elliptic.face_depths(grid)
+    b = elliptic.laplacian_H((st.h[0] - grid.H) * grid.mask, Hu, Hv, grid,
+                             cfg, lam=lam)
+    kw = dict(lam=lam, k=2, tol=1e-3, max_passes=3 if case == "max_passes"
+              else 400)
+    x0 = None
+    if case == "converged":
+        x0 = redblack.rb_solve_plain(b, grid, cfg, **kw)[0]
+    ref, n_ref = redblack.rb_solve_plain(b, grid, cfg, x0=x0, **kw)
+    solve = redblack.make_fused_rb_solve(grid, cfg, **kw)
+    before = (redblack.LAUNCHES, redblack.PASSES, redblack.IDLE,
+              redblack.SOLVES)
+    x = solve(b, x0)
+    torch.cuda.synchronize()
+    launches, passes, idle, solves = (
+        u - v for u, v in zip((redblack.LAUNCHES, redblack.PASSES,
+                               redblack.IDLE, redblack.SOLVES), before))
+    assert passes == n_ref and solves == 1
+    assert launches == 1 + passes + idle
+    assert torch.equal(x, ref)
+    assert (n_ref == 0) == (case == "converged")
+    assert (n_ref == 3) == (case == "max_passes")
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["neumann", "helmholtz"])
 def test_cg_fused_matches_plain(cuda, kind):

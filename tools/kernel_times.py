@@ -9,13 +9,17 @@ double gyre), K1s's three kernels (split, nsub 8), K3a / K3b (implicit FS
 on the rigid-lid gyre), K7 (the fb shard step on a 2 x 4 mesh of shards
 on the card), K5 (a visit of the 512^2 tail, de-mean on, as solver='mg'
 runs it), K6 with multigrid (a cold solve of the rigid lid's first
-pressure equation) and K6 with Jacobi (an implicit-FS solve from eta^n),
-each as the mean time per call between CUDA events and as the device time
-of the call's kernels under torch.profiler (for K7 the sum over its 16
-launches, which overlap on the card), both through chip_smoke.py's
-`time_ms` and `device_ms`; and the ms per step of run() on the 2048^2 f32
-rigid lid with its default solve, path (c), and with solver='mg', path
-(d), after one step not timed.  Then, for every library the
+pressure equation), K6 with Jacobi (an implicit-FS solve from eta^n), K4a
+as an 8-sweep pass, as the k = 2 pass with the residual on the 2048^2
+level (the multigrid pre-smoother) and, where the checkout has it, as the
+blocked solve's pass (8 sweeps, the residual and its sum), each as the
+mean time per call between CUDA events and as the device time of the
+call's kernels under torch.profiler (for K7 the sum over its 16 launches,
+which overlap on the card), both through chip_smoke.py's `time_ms` and
+`device_ms`; and the ms per step of run() on the 2048^2 f32 rigid lid with
+the red-black solve, path (b), its default solve, path (c), and
+solver='mg', path (d), after one step not timed.  Then, for every library
+the
 run built, each kernel's registers and spill bytes (nvcc's -Xptxas -v
 lines) and its count of SASS instructions (cuobjdump -sass).  It prints one
 JSON line.  To compare two commits, unpack both and run this for each,
@@ -123,8 +127,9 @@ def main(root: str) -> dict:
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.run import run
     from beom_tpu_torch.solvers import multigrid as mg
+    from beom_tpu_torch.solvers import elliptic
     from beom_tpu_torch.stencils import (build, cg_fused, dist_band,
-                                         fused_fb)
+                                         fused_fb, redblack)
     from beom_tpu_torch.stencils import fused_projection as fp
     from beom_tpu_torch.stepping import projection
 
@@ -191,6 +196,23 @@ def main(root: str) -> dict:
     out["K6-mg iterations"] = solve(rhs).iters
     record("K6-mg cold solve", lambda: solve(rhs), 5)
 
+    # K4a: the 8-sweep pass on the rigid lid's pressure equation, the
+    # pre-smoother's pass on level 0, the blocked solve's pass
+    Hu, Hv = [a.contiguous() for a in elliptic.face_depths(grid)]
+    rb_args = (Hu, Hv, grid.mask, cfg.dx, cfg.dy)
+    p0 = torch.zeros_like(rhs)
+    record("K4a 8-sweep pass", lambda: redblack.rb_sweep(
+        p0, rhs, *rb_args, k=8, omega=cfg.sor_omega), 50)
+    lv = levels[0]
+    lv_args = (lv.Hu.contiguous(), lv.Hv.contiguous(), lv.mask, lv.dx,
+               lv.dy)
+    record("K4a k=2 residual pass", lambda: redblack.rb_sweep(
+        p0, rhs, *lv_args, k=2, omega=1.0, residual=True), 100)
+    if hasattr(redblack, "solve_pass"):
+        solve_pass = sm.rb_solve_pass(rhs * grid.mask, rb_args, 8,
+                                      cfg.sor_omega)
+        record("K4a solve pass", lambda: solve_pass(p0), 50)
+
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
                                                ny=N, scheme="implicit_fs")
     _, _, div = fp.proj_a(st.h, st.u, st.v, (grid, forcing), 0, cfg)
@@ -200,8 +222,11 @@ def main(root: str) -> dict:
     out["K6-Jacobi iterations"] = jacobi(b, eta_n).iters
     record("K6-Jacobi solve", lambda: jacobi(b, eta_n), 10)
 
-    for name, kw, n_steps in (("(c) run() ms/step", {}, 10),
-                              ("(d) run() ms/step", {"solver": "mg"}, 5)):
+    for name, kw, n_steps in (
+            ("(b) run() ms/step", dict(solver="redblack",
+                                       solver_maxiter=sm.RB_MAXITER), 10),
+            ("(c) run() ms/step", {}, 10),
+            ("(d) run() ms/step", {"solver": "mg"}, 5)):
         cfg, grid, forcing, st = make_case("rigid_lid", nx=N, ny=N,
                                            device=dev, backend="fused",
                                            diag_every=n_steps, **kw)
