@@ -1,27 +1,23 @@
-// K6: the whole preconditioned conjugate-gradient solve of
-// solvers/elliptic.py::cg_solve in one persistent cooperative launch,
-// with the Jacobi preconditioner or one multigrid cycle per iteration.
+// K6 with the multigrid preconditioner: the whole preconditioned
+// conjugate-gradient solve of solvers/elliptic.py::cg_solve in one
+// persistent cooperative launch, with one multigrid cycle per iteration.
 //
-// Replaces beom_tpu/stencils/cg_vmem.py::_cg_kernel, precond='jacobi'
-// and precond='mg'.  The reference runs that kernel only where the solver
-// state fits the TPU's VMEM (about 1024^2 f32) and the XLA loop
-// elsewhere; this kernel keeps its state in device memory and runs at
-// every size.
+// Replaces beom_tpu/stencils/cg_vmem.py::_cg_kernel, precond='mg' (the
+// Jacobi preconditioner is csrc/cg_jacobi.cu).  The reference runs that
+// kernel only where the solver state fits the TPU's VMEM (about 1024^2
+// f32) and the XLA loop elsewhere; this kernel keeps its state in device
+// memory and runs at every size.
 //
-// Bound: device-memory bytes and grid-wide synchronisation.  An
-// iteration reads ~13 and writes 6 grid fields (the five-point matvec,
-// the preconditioner, the vector updates) and its scalars need a
-// reduction over the whole grid.  The design: one CTA per resident slot
-// (with Jacobi 256 threads, at most two per SM: mgc::coop_blocks; with
-// multigrid 512 threads and the card's opt-in shared memory, one per SM:
-// mgc::cycle_launch; so cudaLaunchCooperativeKernel can hold them all),
-// grid-stride loops over the points, and two grid syncs per iteration,
-// plus the cycle's with multigrid:
-//   phase 1: the vector updates of the Chronopoulos-Gear recurrence and
-//            u = inv_diag r mask (pointwise, each thread its own points);
-//            with multigrid, r mask goes to the cycle's level-0 input and
-//            the cycle (csrc/mg_cycle.cuh: the fused gamma schedule,
-//            demean off; two tiled passes per visit of a level above the
+// Bound: grid-wide synchronisation and the cycle's latency.  An
+// iteration's scalars need a reduction over the whole grid, and its cycle
+// is dozens of dependent passes.  The design: one CTA per SM (512 threads
+// and the card's opt-in shared memory: mgc::cycle_launch; so
+// cudaLaunchCooperativeKernel can hold them all), grid-stride loops over
+// the points, and two grid syncs per iteration plus the cycle's:
+//   phase 1: the vector updates of the Chronopoulos-Gear recurrence; r
+//            mask goes to the cycle's level-0 input and the cycle
+//            (csrc/mg_cycle.cuh: the fused gamma schedule, demean off;
+//            two tiled passes per visit of a level above the
 //            shared-memory tier, the tier on one CTA; 78 grid syncs per
 //            cycle at 2048^2 f32) writes u;
 //   sync;
@@ -37,13 +33,11 @@
 // phase 1, where they are read anyway.
 //
 // Scalar algebra, deflation, safe_div and the stopping test are those of
-// cg_solve; the matvec is laplacian_H's and the Jacobi inverse diagonal
-// arrives from the caller (jacobi_diag).  Sums run in another order than
+// cg_solve; the matvec is laplacian_H's.  Sums run in another order than
 // torch.sum's, so x agrees with the plain version to the solver
-// tolerance, not bit for bit.  The kernel is instantiated once per
-// preconditioner, so the Jacobi solve carries none of the cycle's code
-// and keeps its 256 threads and static shared memory.
+// tolerance, not bit for bit.
 
+#include "coop_stamps.cuh"
 #include "mg_cycle.cuh"
 
 namespace {
@@ -51,22 +45,22 @@ namespace {
 namespace cg = mgc::cg;
 using mgc::grid_sum;
 using mgc::NDOT;
-using mgc::THREADS;
 using mgc::CYCLE_THREADS;
 using mgc::vmax;
 
 template <typename T>
 struct Params {
-  const T *b, *x0, *Hu, *Hv, *mask, *inv_diag;
+  const T *b, *x0, *Hu, *Hv, *mask;
   T *x, *r, *u, *w, *p, *s, *partials;
   int* iters;
   T* resnorm;
   int ny, nx, maxiter, deflate;
   T inv_dx, inv_dy, lam, tol2, tiny;
-  // multigrid only: the cycle's tables, whose level-0 input is bc0 and
-  // whose level-0 output is u
+  // the cycle's tables, whose level-0 input is bc0 and whose level-0
+  // output is u
   mgc::Cycle<T> cyc;
   T* bc0;
+  unsigned long long* stamps;   // the timing mode (coop_stamps.cuh), or null
 };
 
 template <typename T>
@@ -95,43 +89,29 @@ __device__ __forceinline__ T apply_A(const Params<T>& p, const T* q, long i) {
   return out * p.mask[i];
 }
 
-// u[i] in phases 1 and 2.  With multigrid the cycle wrote it from other
-// CTAs (or from CTA 0 alone), so it is read from L2; every other work
-// vector is read by the thread that wrote it, through L1 (reading all of
-// them with __ldcg cost the Jacobi solve 26 % on the H100)
-template <typename T, bool MG>
+// u[i] in phases 1 and 2: the cycle wrote it from other CTAs (or from
+// CTA 0 alone), so it is read from L2; every other work vector is read by
+// the thread that wrote it, through L1
+template <typename T>
 __device__ __forceinline__ T load_u(const T* u, long i) {
-  if constexpr (MG)
-    return __ldcg(&u[i]);
-  else
-    return u[i];
+  return __ldcg(&u[i]);
 }
 
-// u = precond(r) mask at point i, or, with multigrid, the cycle's input
-template <typename T, bool MG>
+// the cycle's input at point i
+template <typename T>
 __device__ __forceinline__ void precond_in(const Params<T>& p, long i, T ri,
                                            T m) {
-  if constexpr (MG)
-    p.bc0[i] = ri * m;
-  else
-    p.u[i] = (p.inv_diag[i] * ri) * m;
+  p.bc0[i] = ri * m;
 }
 
-template <typename T, bool MG>
-__global__ void __launch_bounds__(MG ? CYCLE_THREADS : THREADS)
-    cg_kernel(const Params<T> p) {
-  constexpr int NT = MG ? CYCLE_THREADS : THREADS;
+template <typename T>
+__global__ void __launch_bounds__(CYCLE_THREADS) cg_kernel(const Params<T> p) {
+  constexpr int NT = CYCLE_THREADS;
+  stamp::entry(p.stamps);
   cg::grid_group grid = cg::this_grid();
-  T* sh;
-  [[maybe_unused]] unsigned char* smem = nullptr;   // the cycle's
-  if constexpr (MG) {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    smem = smem_raw;
-    sh = reinterpret_cast<T*>(smem_raw);
-  } else {
-    __shared__ T sh_static[NDOT * THREADS];
-    sh = sh_static;
-  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw;   // the cycle's
+  T* sh = reinterpret_cast<T*>(smem_raw);
   const long n = long(p.ny) * p.nx;
   const long stride = long(gridDim.x) * NT;
   const long first = long(blockIdx.x) * NT + threadIdx.x;
@@ -176,11 +156,11 @@ __global__ void __launch_bounds__(MG ? CYCLE_THREADS : THREADS)
     const T m = p.mask[i];
     const T ri = (b_defl(i) - apply_A(p, p.x, i)) * m;
     p.r[i] = ri;
-    precond_in<T, MG>(p, i, ri, m);
+    precond_in<T>(p, i, ri, m);
   }
   grid.sync();
-  if constexpr (MG)
-    mgc::run_cycle<T, NT>(p.cyc, smem, p.partials, round, grid);
+  mgc::run_cycle<T, NT>(p.cyc, smem, p.partials, round, grid);
+  stamp::setup(p.stamps);
 
   T alpha = T(0), beta = T(0), gamma = T(0), rr = T(0);
   T rmean = T(0), umean = T(0);
@@ -190,7 +170,7 @@ __global__ void __launch_bounds__(MG ? CYCLE_THREADS : THREADS)
       // phase 1: the recurrence on the deflated (r, u)
       for (long i = first; i < n; i += stride) {
         const T m = p.mask[i];
-        const T r0 = p.r[i], u0 = load_u<T, MG>(p.u, i);
+        const T r0 = p.r[i], u0 = load_u<T>(p.u, i);
         const T ri = p.deflate ? (r0 - rmean * m) * m : r0 * m;
         const T ui = p.deflate ? (u0 - umean * m) * m : u0 * m;
         const T pi = ui + beta * p.p[i];
@@ -200,11 +180,10 @@ __global__ void __launch_bounds__(MG ? CYCLE_THREADS : THREADS)
         p.x[i] = p.x[i] + alpha * pi;
         const T rn = ri - alpha * si;
         p.r[i] = rn;
-        precond_in<T, MG>(p, i, rn, m);
+        precond_in<T>(p, i, rn, m);
       }
       grid.sync();
-      if constexpr (MG)
-        mgc::run_cycle<T, NT>(p.cyc, smem, p.partials, round, grid);
+      mgc::run_cycle<T, NT>(p.cyc, smem, p.partials, round, grid);
     }
     // phase 2: w = A u and the batched dots
     for (int j = 0; j < NDOT; ++j) v[j] = T(0);
@@ -212,7 +191,7 @@ __global__ void __launch_bounds__(MG ? CYCLE_THREADS : THREADS)
       const T wi = apply_A(p, p.u, i);
       p.w[i] = wi;
       const T ri = p.r[i];
-      const T ui = load_u<T, MG>(p.u, i);
+      const T ui = load_u<T>(p.u, i);
       const T m = p.mask[i];
       v[0] += ri * ui;
       v[1] += wi * ui;
@@ -252,38 +231,35 @@ __global__ void __launch_bounds__(MG ? CYCLE_THREADS : THREADS)
     *p.iters = k;
     *p.resnorm = rr;
   }
+  stamp::leave(p.stamps);
 }
 
 template <typename T>
 int cg_fused(const T* b, const T* x0, const T* Hu, const T* Hv,
-             const T* mask, const T* inv_diag, T* x, T* r, T* u, T* w, T* pv,
-             T* s, T* partials, int partials_len, int* iters, T* resnorm,
-             int ny, int nx, int maxiter, int deflate, double inv_dx,
-             double inv_dy, double lam, double tol2, double tiny,
-             const long long* mg_ptrs, const int* mg_dims, const T* mg_scal,
-             const int* mg_steps, int mg_nsteps, int mg_nlev, int mg_nu,
-             int mg_tier, int mg_tier_bytes, T* bc0, int use_mg,
+             const T* mask, T* x, T* r, T* u, T* w, T* pv, T* s, T* partials,
+             int partials_len, int* iters, T* resnorm, int ny, int nx,
+             int maxiter, int deflate, double inv_dx, double inv_dy,
+             double lam, double tol2, double tiny, const long long* mg_ptrs,
+             const int* mg_dims, const T* mg_scal, const int* mg_steps,
+             int mg_nsteps, int mg_nlev, int mg_nu, int mg_tier,
+             int mg_tier_bytes, T* bc0, unsigned long long* stamps,
              void* stream) {
-  const void* kernel =
-      use_mg ? reinterpret_cast<const void*>(cg_kernel<T, true>)
-             : reinterpret_cast<const void*>(cg_kernel<T, false>);
+  const void* kernel = reinterpret_cast<const void*>(cg_kernel<T>);
   int blocks = 0, smem = 0, room = 0;
-  cudaError_t e = use_mg ? mgc::cycle_launch(kernel, &blocks, &smem)
-                         : mgc::coop_blocks(kernel, &blocks);
-  if (e == cudaSuccess && use_mg)
+  cudaError_t e = mgc::cycle_launch(kernel, &blocks, &smem);
+  if (e == cudaSuccess)
     e = mgc::cycle_room<T>(smem, mg_nlev, mg_nu, mg_tier_bytes, &room);
   if (e != cudaSuccess) return int(e);
   if (2 * blocks * NDOT > partials_len) return int(cudaErrorInvalidValue);
-  Params<T> p{b,        x0,        Hu,        Hv,      mask,    inv_diag,
-              x,        r,         u,         w,       pv,      s,
-              partials, iters,     resnorm,   ny,      nx,      maxiter,
-              deflate,  T(inv_dx), T(inv_dy), T(lam),  T(tol2), T(tiny),
+  Params<T> p{b,        x0,      Hu,      Hv,       mask,     x,
+              r,        u,       w,       pv,       s,        partials,
+              iters,    resnorm, ny,      nx,       maxiter,  deflate,
+              T(inv_dx), T(inv_dy), T(lam), T(tol2), T(tiny),
               {mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps, mg_nlev,
                mg_nu, mg_tier, room, T(lam)},
-              bc0};
+              bc0,      stamps};
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks),
-                                  dim3(use_mg ? CYCLE_THREADS : THREADS),
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(CYCLE_THREADS),
                                   args, size_t(smem),
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return int(e);
@@ -291,17 +267,12 @@ int cg_fused(const T* b, const T* x0, const T* Hu, const T* Hv,
 }
 
 // the number of CTAs a launch uses on the current device (which = 0), or
-// the dynamic shared memory each has (which = 1; 0 with Jacobi)
+// the dynamic shared memory each has (which = 1)
 template <typename T>
-int grid_query(int use_mg, int which, int* out) {
+int grid_query(int which, int* out) {
   int blocks = 0, smem = 0;
-  const cudaError_t e =
-      use_mg ? mgc::cycle_launch(
-                   reinterpret_cast<const void*>(cg_kernel<T, true>),
-                   &blocks, &smem)
-             : mgc::coop_blocks(
-                   reinterpret_cast<const void*>(cg_kernel<T, false>),
-                   &blocks);
+  const cudaError_t e = mgc::cycle_launch(
+      reinterpret_cast<const void*>(cg_kernel<T>), &blocks, &smem);
   *out = which ? smem : blocks;
   return int(e);
 }
@@ -310,26 +281,23 @@ int grid_query(int use_mg, int which, int* out) {
 
 #define CG_FUSED_ENTRY(NAME, BLOCKS, SMEM, T)                                 \
   extern "C" int NAME(const T* b, const T* x0, const T* Hu, const T* Hv,      \
-                      const T* mask, const T* inv_diag, T* x, T* r, T* u,     \
-                      T* w, T* pv, T* s, T* partials, int partials_len,       \
-                      int* iters, T* resnorm, int ny, int nx, int maxiter,    \
-                      int deflate, double inv_dx, double inv_dy, double lam,  \
-                      double tol2, double tiny, const long long* mg_ptrs,     \
+                      const T* mask, T* x, T* r, T* u, T* w, T* pv, T* s,     \
+                      T* partials, int partials_len, int* iters, T* resnorm,  \
+                      int ny, int nx, int maxiter, int deflate,               \
+                      double inv_dx, double inv_dy, double lam, double tol2,  \
+                      double tiny, const long long* mg_ptrs,                  \
                       const int* mg_dims, const T* mg_scal,                   \
                       const int* mg_steps, int mg_nsteps, int mg_nlev,        \
                       int mg_nu, int mg_tier, int mg_tier_bytes, T* bc0,      \
-                      int use_mg, void* stream) {                             \
-    return cg_fused<T>(b, x0, Hu, Hv, mask, inv_diag, x, r, u, w, pv, s,      \
-                       partials, partials_len, iters, resnorm, ny, nx,        \
-                       maxiter, deflate, inv_dx, inv_dy, lam, tol2, tiny,     \
-                       mg_ptrs, mg_dims, mg_scal, mg_steps, mg_nsteps,        \
-                       mg_nlev, mg_nu, mg_tier, mg_tier_bytes, bc0, use_mg,   \
-                       stream);                                               \
+                      unsigned long long* stamps, void* stream) {             \
+    return cg_fused<T>(b, x0, Hu, Hv, mask, x, r, u, w, pv, s, partials,      \
+                       partials_len, iters, resnorm, ny, nx, maxiter,         \
+                       deflate, inv_dx, inv_dy, lam, tol2, tiny, mg_ptrs,     \
+                       mg_dims, mg_scal, mg_steps, mg_nsteps, mg_nlev, mg_nu, \
+                       mg_tier, mg_tier_bytes, bc0, stamps, stream);          \
   }                                                                           \
-  extern "C" int BLOCKS(int use_mg, int* blocks) {                            \
-    return grid_query<T>(use_mg, 0, blocks);                                  \
-  }                                                                           \
-  extern "C" int SMEM(int* bytes) { return grid_query<T>(1, 1, bytes); }
+  extern "C" int BLOCKS(int* blocks) { return grid_query<T>(0, blocks); }     \
+  extern "C" int SMEM(int* bytes) { return grid_query<T>(1, bytes); }
 
 CG_FUSED_ENTRY(beom_cg_fused_f32, beom_cg_fused_blocks_f32,
                beom_cg_fused_smem_f32, float)

@@ -21,6 +21,7 @@
 // SM.  A visit of the 512^2 tail of the 2048^2 hierarchy costs 33 grid
 // syncs (335 in the walk before the tier and the tiled passes).
 
+#include "coop_stamps.cuh"
 #include "mg_cycle.cuh"
 
 namespace {
@@ -29,18 +30,21 @@ using mgc::CYCLE_THREADS;
 
 template <typename T>
 __global__ void __launch_bounds__(CYCLE_THREADS, 1)
-    coarse_kernel(const mgc::Cycle<T> c, T* partials) {
+    coarse_kernel(const mgc::Cycle<T> c, T* partials,
+                  unsigned long long* stamps) {
+  stamp::entry(stamps);
   mgc::cg::grid_group grid = mgc::cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   int round = 0;
   mgc::run_cycle<T, CYCLE_THREADS>(c, smem_raw, partials, round, grid);
+  stamp::leave(stamps);
 }
 
 template <typename T>
 int mg_coarse(const long long* ptrs, const int* dims, const T* scal,
               const int* steps, int nsteps, int nlev, int nu, int tier,
               int tier_bytes, double lam, T* partials, int partials_len,
-              void* stream) {
+              unsigned long long* stamps, void* stream) {
   const void* kernel = reinterpret_cast<const void*>(coarse_kernel<T>);
   int blocks = 0, smem = 0, room = 0;
   cudaError_t e = mgc::cycle_launch(kernel, &blocks, &smem);
@@ -50,7 +54,7 @@ int mg_coarse(const long long* ptrs, const int* dims, const T* scal,
   if (2 * blocks * mgc::NDOT > partials_len) return int(cudaErrorInvalidValue);
   mgc::Cycle<T> c{ptrs, dims, scal, steps, nsteps, nlev, nu, tier, room,
                   T(lam)};
-  void* args[] = {&c, &partials};
+  void* args[] = {&c, &partials, &stamps};
   e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(CYCLE_THREADS),
                                   args, size_t(smem),
                                   static_cast<cudaStream_t>(stream));
@@ -75,9 +79,11 @@ int coarse_query(int which, int* out) {
   extern "C" int NAME(const long long* ptrs, const int* dims, const T* scal, \
                       const int* steps, int nsteps, int nlev, int nu,        \
                       int tier, int tier_bytes, double lam, T* partials,     \
-                      int partials_len, void* stream) {                      \
+                      int partials_len, unsigned long long* stamps,          \
+                      void* stream) {                                        \
     return mg_coarse<T>(ptrs, dims, scal, steps, nsteps, nlev, nu, tier,     \
-                        tier_bytes, lam, partials, partials_len, stream);    \
+                        tier_bytes, lam, partials, partials_len, stamps,     \
+                        stream);                                             \
   }                                                                          \
   extern "C" int BLOCKS(int* blocks) { return coarse_query<T>(0, blocks); }  \
   extern "C" int SMEM(int* bytes) { return coarse_query<T>(1, bytes); }

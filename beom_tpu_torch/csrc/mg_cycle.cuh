@@ -67,10 +67,8 @@ namespace mgc {
 
 namespace cg = cooperative_groups;
 
-constexpr int THREADS = 256;          // K6-Jacobi's CTA (cg_fused.cu)
 constexpr int CYCLE_THREADS = 512;    // the cycle kernels' CTA
 constexpr int NDOT = 6;
-constexpr int MAX_CTAS_PER_SM = 2;
 
 // a level's row in the pointer table, and its planes in the tier
 constexpr int F_HU = 0, F_HV = 1, F_MASK = 2, F_INV = 3, F_BC = 4,
@@ -138,7 +136,7 @@ __device__ __forceinline__ T vmax(T a, T b) {
 }
 
 // the block's sums of v[0..N) in a fixed tree; every thread gets them
-template <typename T, int N, int NT = THREADS>
+template <typename T, int N, int NT>
 __device__ void block_sum(T (&v)[N], T* sh) {
   const int tid = threadIdx.x;
   for (int j = 0; j < N; ++j) sh[j * NT + tid] = v[j];
@@ -158,7 +156,7 @@ __device__ void block_sum(T (&v)[N], T* sh) {
 // calls alternate between two halves of `partials`: a CTA may still be
 // reading one call's partials when another writes the next call's, and
 // the grid sync inside the next call orders the one after it.
-template <typename T, int NT = THREADS>
+template <typename T, int NT>
 __device__ void grid_sum(T (&v)[NDOT], T* sh, T* partials, int& round,
                          cg::grid_group& grid) {
   T* part = partials + (round++ & 1) * int(gridDim.x) * NDOT;
@@ -731,28 +729,6 @@ constexpr int fixed_smem() {
   return NDOT * CYCLE_THREADS * int(sizeof(T)) + MAX_LEVELS * LEVEL_BYTES;
 }
 static_assert(sizeof(Level<double>) <= LEVEL_BYTES, "level table row");
-
-// the CTAs a cooperative launch of `kernel` with THREADS threads and no
-// dynamic shared memory uses: the resident ones, at most MAX_CTAS_PER_SM
-// per SM (K6-Jacobi)
-inline cudaError_t coop_blocks(const void* kernel, int* blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  *blocks = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, 0);
-  if (e == cudaSuccess) {
-    *blocks = (per_sm < MAX_CTAS_PER_SM ? per_sm : MAX_CTAS_PER_SM) * sms;
-    if (*blocks < 1) e = cudaErrorLaunchOutOfResources;
-  }
-  return e;
-}
 
 // the launch of a cycle kernel: CYCLE_THREADS threads and all the card's
 // opt-in shared memory per CTA (*smem bytes of it dynamic), as many CTAs

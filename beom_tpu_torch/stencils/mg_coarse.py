@@ -273,7 +273,7 @@ def _entry(dtype):
     name = f"beom_mg_coarse_{_DTYPES[dtype]}"
     fn = getattr(lib, name)
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    fn.argtypes = [P] * 4 + [I] * 5 + [D, P, I, P]
+    fn.argtypes = [P] * 4 + [I] * 5 + [D, P, I, P, P]
     fn.restype = I
     for query in ("blocks", "smem"):
         q = getattr(lib, name.replace("coarse", f"coarse_{query}"))
@@ -316,7 +316,7 @@ def make_coarse_stack_call(levels, lam, nu: int = 2, nu_coarse: int = 24,
         tier, steps = plan(levels, lam, nu, nu_coarse, gamma, demean,
                            H100_SMEM, tier)
 
-    def call(b):
+    def call(b, stamps=None):
         global LAUNCHES
         if b.device.type == "cpu":
             return coarse_stack_plain(levels, b, lam, nu, nu_coarse, gamma,
@@ -337,9 +337,12 @@ def make_coarse_stack_call(levels, lam, nu: int = 2, nu_coarse: int = 24,
             tables.field(0, BC).copy_(b)
             code = fn(*tables.args(), float(lam), partials.data_ptr(),
                       partials.numel(),
+                      None if stamps is None else stamps.arm(b.device),
                       torch.cuda.current_stream(b.device).cuda_stream)
             build.check(lib, code, "mg_coarse kernel launch")
             LAUNCHES += 1
+            if stamps is not None:
+                stamps.fill()
             return tables.field(0, XC).clone()
 
     call.steps, call.tier = steps, tier

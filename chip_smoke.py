@@ -19,7 +19,7 @@ Phases, each of which raises on failure (exit code != 0):
      and final fields within 1e-5 relative of 400 eager steps
   5. times of K1 and of its plain version at 2048^2 f32
   6. build lines of the projection kernels: K3a/K3b (projection.cu),
-     K4a (rb_sweep.cu), K6 (cg_fused.cu)
+     K4a (rb_sweep.cu), K6 with Jacobi (cg_jacobi.cu)
   7. the projection kernels against their plain versions on the card,
      on the perturbed rigid-lid gyre: K3a and K3b at 256^2 f64
      (<= 1e-12 x scale), 256^2 and 2048^2 f32 (<= 4 ulp of field scale),
@@ -28,9 +28,11 @@ Phases, each of which raises on failure (exit code != 0):
      periodic seams join cells of one colour) and 2048^2 f32, k = 1, 2, 8,
      forward and reverse, with and without the multigrid residual, lam =
      0 and > 0, and the blocked solve's pass (k = 0, 1, 2, 8: x and r bit
-     for bit, sum r^2 against torch.sum); K6 at 256^2 f64 and 2048^2 f32,
-     lam = 0 and 1/(g dt^2), cold and warm: the true residual, x against
-     the plain CG, the iteration counts, two launches bitwise equal
+     for bit, sum r^2 against torch.sum); K6 with Jacobi at 256^2 f64,
+     201x137 f64 wet everywhere, 200x136 f64 coastal_wetdry and 2048^2
+     f32, lam = 0 and 1/(g dt^2), cold and warm: the true residual, x
+     against the plain CG, the iteration counts within 1, two launches
+     bitwise equal
   8. the projection path: run() on the 2048^2 f32 rigid-lid gyre with
      backend='fused', (a) scheme='implicit_fs' (CG + Jacobi: K3a, K6,
      K3b), 20 steps, and (b) solver='redblack' (K3a, K4a's solve mode,
@@ -39,8 +41,11 @@ Phases, each of which raises on failure (exit code != 0):
      solve, no eager operator), 3 fused steps against 3 eager steps, and
      (b)'s solve against the plain per-pass loop (pass count, x)
   9. times at 2048^2 f32: K3a, K3b, a K4a sweep pass and solve pass and a
-     K6 solve beside their plain versions, ms/step of (a) and (b) through
-     run(), and (b)'s busy share under torch.profiler
+     K6 solve beside their plain versions; for K6 also the kernel's own
+     span from %globaltimer stamps (the launch's timing mode) beside the
+     events around the call and its time under torch.profiler, and us per
+     iteration; ms/step of (a) and (b) through run(), and (b)'s busy share
+     under torch.profiler
  10. build lines of the multigrid kernels: K4a's residual mode and K4b
      (rb_sweep.cu), K5 (mg_coarse.cu), K6-mg (cg_fused.cu, both sharing
      mg_cycle.cuh)
@@ -61,8 +66,9 @@ Phases, each of which raises on failure (exit code != 0):
      step takes 12 to 28 s with the machine's host)
  13. times at 2048^2 f32: K4a with its residual, K4b, K5 (with and
      without its shared-memory tier), a K6-mg solve (per iteration), a
-     solver='mg' solve (per cycle) beside their plain versions, (c) and
-     (d) in ms/step through run(), (d)'s busy share under torch.profiler,
+     solver='mg' solve (per cycle) beside their plain versions, K5's and
+     K6-mg's span by their stamps beside the events and the profiler, (c)
+     and (d) in ms/step through run(), (d)'s busy share under torch.profiler,
      and the grid syncs per K6-mg cycle and per K5 visit beside those of
      the walk before the tier
 
@@ -162,8 +168,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BIG = 2048
-KERNELS = ("fb_step", "projection", "rb_sweep", "cg_fused", "mg_coarse",
-           "halo_pad")
+KERNELS = ("fb_step", "projection", "rb_sweep", "cg_jacobi", "cg_fused",
+           "mg_coarse", "halo_pad")
 FB_CASES = ("double_gyre", "two_layer", "coastal_wetdry", "shelf_forced")
 # the runs of phase 18: (case, scheme, Config overrides, steps, grid of the
 # eager twin, bound of the fused steps against the eager ones).  The rigid
@@ -204,6 +210,10 @@ AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
 MESH_SPLIT = tuple((case, nsub) for case in ("double_gyre", "two_layer")
                    for nsub in (4, 8, 12))
 MESH_SHAPES = ((4, 1), (2, 4), (2, 2))
+# grid fields a K6-Jacobi iteration streams, on average (csrc/cg_jacobi.cu:
+# reads r, w, s, p, pm, Hu, Hv, writes r, w, s, p, and every other pass
+# reads and writes x)
+JACOBI_FIELDS = 12
 # (b)'s sweep budget: a multiple of the 8 sweeps per K4a pass, so that
 # the fused solve's passes do the eager solve's sweeps when neither
 # converges early
@@ -455,27 +465,34 @@ def check_rb(label, device, tol, sum_rel, seed, wet_seams=False, **kw):
     return worst
 
 
-def check_cg(label, device, x_rel, seed, precond="jacobi", **kw):
+def check_cg(label, device, x_rel, seed, precond="jacobi", case="rigid_lid",
+             wet=False, **kw):
     """K6 against the plain CG on the two solves of a projection step
-    from a perturbed state, cold and warm (from the cold solution).
-    x_rel(lam) bounds |x - x_plain| / scale.  The true residual is
-    recomputed in f64 with the plain laplacian_H; it is held to
-    20 tol_eff |b|, or to twice the plain CG's own where the plain CG
-    itself stops above that (f32 recurrences drift from the true
-    residual over thousands of iterations).  With precond='mg' the
-    iteration counts must agree within 1 and the warm start take at most
-    1 iteration.  Returns the largest difference."""
+    from a perturbed state of `case`, cold and warm (from the cold
+    solution).  `wet`: the solves on a grid wet everywhere (the case's
+    depth, at least 100 m), so at an odd size the periodic seams join wet
+    cells inside the operator.  x_rel(lam) bounds |x - x_plain| / scale.
+    The true residual is recomputed in f64 with the plain laplacian_H; it
+    is held to 20 tol_eff |b|, or to twice the plain CG's own where the
+    plain CG itself stops above that (f32 recurrences drift from the true
+    residual over thousands of iterations).  The iteration counts must
+    agree within 1; with precond='mg' the warm start takes at most 1
+    iteration.  Returns the largest difference."""
+    import numpy as np
     import torch
 
-    from beom_tpu_torch.core.grid import Grid
+    from beom_tpu_torch.core.grid import Grid, make_grid
     from beom_tpu_torch.solvers import elliptic
     from beom_tpu_torch.stencils import cg_fused
     from beom_tpu_torch.stencils import fused_projection as fp
     from beom_tpu_torch.stepping import projection
 
     cfg, grid, forcing, st = perturbed_case(
-        device, seed, "rigid_lid", solver_maxiter=20000, **kw)
+        device, seed, case, solver_maxiter=20000, **kw)
     _, _, div = fp.proj_a_plain(st.h, st.u, st.v, (grid, forcing), 0, cfg)
+    if wet:
+        grid = make_grid(cfg, np.maximum(grid.H.cpu().numpy(), 100.0),
+                         np.ones((cfg.ny, cfg.nx)), device=device)
     lam_h = 1.0 / (cfg.g * cfg.dt ** 2)
     problems = [(0.0, projection.rigid_rhs(st.h, div, grid, cfg)),
                 (lam_h, projection.implicit_rhs(st.h, div, grid, cfg,
@@ -522,7 +539,7 @@ def check_cg(label, device, x_rel, seed, precond="jacobi", **kw):
                 raise AssertionError(f"{tag}: residual {rk!r} > {bound!r}")
             if not err <= x_rel(lam) * scale:
                 raise AssertionError(f"{tag}: x off the plain CG")
-            if precond == "mg" and abs(res.iters - ref.iters) > 1:
+            if abs(res.iters - ref.iters) > 1:
                 raise AssertionError(f"{tag}: iterations off the plain CG")
             if start == "cold":
                 cold_iters = res.iters
@@ -924,7 +941,7 @@ def projection_phases(dev, smi, rel, ulps):
     from beom_tpu_torch.cases import make_case
     print_build(build, build.label(fp.build_spec(make_case(
         "rigid_lid", nx=16, ny=16, device="cpu")[0])))
-    for name in ("rb_sweep", "cg_fused"):
+    for name in ("rb_sweep", "cg_jacobi"):
         print_build(build, name)
 
     phase("7 the projection kernels against their plain versions")
@@ -957,6 +974,10 @@ def projection_phases(dev, smi, rel, ulps):
                                nx=BIG, ny=BIG)
     check_cg("256^2 f64", dev, lambda lam: 1e-6, 28, nx=256, ny=256,
              dtype="float64")
+    check_cg("201x137 f64 wet seams", dev, lambda lam: 1e-6, 43, wet=True,
+             nx=201, ny=137, dtype="float64")
+    check_cg("200x136 f64 coastal_wetdry", dev, lambda lam: 1e-6, 44,
+             case="coastal_wetdry", nx=200, ny=136, dtype="float64")
     # f32 bounds (PERF.md): 1e-3 x scale for the lam = 0 solve,
     # 1e-4 x scale for the Helmholtz one
     err["cg_fused"] = check_cg(f"{BIG}^2 f32", dev,
@@ -1038,6 +1059,12 @@ def projection_phases(dev, smi, rel, ulps):
         "K6 solve", lambda: cg_fused.cg_solve_plain(b, grid, cfg, x0=eta_n,
                                                     lam=lam),
         lambda: solve(b, eta_n), 3, 10, unit="solve")
+    span, dev_ms["cg_fused"] = coop_times(
+        "K6-Jacobi solve", lambda s: solve(b, eta_n, stamps=s),
+        "cg_jacobi_kernel")
+    print(f"   K6-Jacobi: {span / max(res.iters, 1) * 1e3!r} us/iteration "
+          f"by its span; {JACOBI_FIELDS} fields streamed per iteration, "
+          "1 grid sync")
     fp.LAUNCHES.update(saved[0])
     cg_fused.LAUNCHES, redblack.LAUNCHES = saved[1], saved[2]
     for label, (cfg, grid, forcing, st), n_steps, eager_ms in (
@@ -1055,8 +1082,9 @@ def projection_phases(dev, smi, rel, ulps):
     busy_share("(b) rigid_lid red-black through run()",
                lambda: run(cfg, grid, forcing, st, 5, log=io.StringIO()), 5)
 
-    # fields moved per point (the kernels' pointer operands) and a count
-    # of operations per point: K3a one momentum evaluation and the
+    # fields moved per point (the kernels' pointer operands, each once: K6
+    # reads b, x0, Hu, Hv, pm = inv_diag mask and writes x) and a count of
+    # operations per point: K3a one momentum evaluation and the
     # divergence, K3b the correction and the continuity, a K4a solve pass
     # 8 sweeps of ~12 and the residual and its square ~20, K6 ~30 per
     # iteration of this run's solve
@@ -1066,12 +1094,14 @@ def projection_phases(dev, smi, rel, ulps):
         "proj_b": ("projection.cu", "band.py:200", 10, 40),
         "rb_sweep": ("rb_sweep.cu", "redblack_pallas.py:39", 6,
                      8 * 12 + 20),
-        "cg_fused": ("cg_fused.cu", "cg_vmem.py:61", 7, 30 * res.iters)}
+        "cg_fused": ("cg_jacobi.cu", "cg_vmem.py:61", 6, 30 * res.iters)}
     launches = {name: counts_a[name] + counts_b[name] for name in sources}
-    return [kernel_entry(name, src, site, launches[name], err[name],
-                         ms[name], fields * pts * 4, ops * pts,
-                         device=dev_ms.get(name))
-            for name, (src, site, fields, ops) in sources.items()]
+    entries = [kernel_entry(name, src, site, launches[name], err[name],
+                            ms[name], fields * pts * 4, ops * pts,
+                            device=dev_ms.get(name))
+               for name, (src, site, fields, ops) in sources.items()]
+    entries[-1].update(span_ms=span)
+    return entries
 
 
 def field_on(mask, rng, amp=1.0):
@@ -1276,6 +1306,7 @@ def multigrid_phases(dev, smi, rel, ulps):
         lambda: mg_coarse.coarse_stack_plain(tail, b_tail, 0.0, 2, 24,
                                              gamma[j0:], True),
         lambda: call(b_tail), 3, 30, unit="visit")
+    coop_times("K5 visit", lambda s: call(b_tail, stamps=s), "coarse_kernel")
     no_tier = mg_coarse.make_coarse_stack_call(tail, 0.0, gamma=gamma[j0:],
                                                demean=True, tier=len(tail))
     print(f"   K5 on the {tuple(tail[call.tier].mask.shape)} tier and "
@@ -1289,6 +1320,8 @@ def multigrid_phases(dev, smi, rel, ulps):
         lambda: cg_fused.cg_solve_plain(rhs, grid, cfg, lam=0.0,
                                         precond="mg"),
         lambda: solve(rhs), 1, 5, unit="solve", warm_plain=False)
+    coop_times("K6-mg cold solve", lambda s: solve(rhs, stamps=s),
+               "cg_kernel")
     k_ms, p_ms = ms["cg_fused_mg"]
     print(f"   K6-mg: {res.iters} iterations (plain {ref.iters}); "
           f"{k_ms / max(res.iters, 1)!r} ms/iteration (plain "
@@ -1528,7 +1561,11 @@ def device_ms(label, fn, n_calls, names):
     `names`, times that key's launches per call, in ms (None where the
     profiler saw no launch; it may miss some, so the mean is over those it
     saw).  Beside a time between CUDA events it separates the kernel from
-    the host that launches it."""
+    the host that launches it.  A key must match only the kernel's rows:
+    one that also matches the call's other device work (a fill, a copy,
+    the read-back of `.item()`) averages the kernel with it.  The
+    profiler's kernel times themselves agree with the kernel's own
+    %globaltimer span (coop_times) for the cooperative kernels too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1549,6 +1586,32 @@ def device_ms(label, fn, n_calls, names):
               f"({per_call} launches per call; torch.profiler saw {n} of "
               f"{per_call * n_calls})")
     return out
+
+
+def coop_times(label, stamped, key, n=5):
+    """A persistent kernel's time three ways: between CUDA events around
+    the call (time_ms, mean of n calls), its own span from the earliest
+    CTA entry to the latest CTA exit (the launch's timing mode,
+    stencils/stamps.py; median of n launches) and its device time under
+    torch.profiler (device_ms; `key` names the kernel).  stamped(s) runs
+    the kernel with stamps=s (None: off).  Returns (span, profiler) in
+    ms."""
+    import statistics
+
+    from beom_tpu_torch.stencils.stamps import Stamps
+
+    events = time_ms(lambda: stamped(None), n)
+    runs = [Stamps() for _ in range(n)]
+    for r in runs:
+        stamped(r)
+    span = statistics.median(r.span for r in runs)
+    setup = [r.setup for r in runs if r.setup is not None]
+    prof = device_ms(label, lambda: stamped(None), n, {key: 1})[key]
+    print(f"   {label}: {events!r} ms between CUDA events around the call, "
+          f"{span!r} ms the kernel's span by its stamps"
+          + (f" (set-up {statistics.median(setup)!r})" if setup else "")
+          + f", {prof!r} ms under torch.profiler")
+    return span, prof
 
 
 def busy_share(label, fn, n_steps, by_grid=None):

@@ -14,14 +14,22 @@ as an 8-sweep pass, as the k = 2 pass with the residual on the 2048^2
 level (the multigrid pre-smoother) and, where the checkout has it, as the
 blocked solve's pass (8 sweeps, the residual and its sum), each as the
 mean time per call between CUDA events and as the device time of the
-call's kernels under torch.profiler (for K7 the sum over its 16 launches,
-which overlap on the card), both through chip_smoke.py's `time_ms` and
-`device_ms`; and the ms per step of run() on the 2048^2 f32 rigid lid with
-the red-black solve, path (b), its default solve, path (c), and
-solver='mg', path (d), after one step not timed.  Then, for every library
-the
-run built, each kernel's registers and spill bytes (nvcc's -Xptxas -v
-lines) and its count of SASS instructions (cuobjdump -sass).  It prints one
+kernel, named by the key `record` gives it, under torch.profiler (for K7
+the sum over its 16 launches, which overlap on the card), both through
+chip_smoke.py's `time_ms` and `device_ms`; for K5 and K6 also the
+device time of every row the call puts on the card over their count (the
+key "" of device_ms, which averages the kernel with the call's fills,
+copies and read-back) and, where the checkout has the launch's timing
+mode (stencils/stamps.py), the kernel's own span from its %globaltimer
+stamps (the median of five launches); a digest of K5's output and of
+K6-mg's x and resnorm (equal digests: bitwise equal results); K6 with
+Jacobi also at 2048^2 f64 and on the 200x136 coastal_wetdry at f32 and
+f64; and the ms per step of run() on the 2048^2 f32 rigid lid with
+implicit FS (CG + Jacobi), path (a), the red-black solve, path (b), its
+default solve, path (c), and solver='mg', path (d), after one step not
+timed.  Then, for every library the run built, each kernel's registers
+and spill bytes (nvcc's -Xptxas -v lines) and its count of SASS
+instructions (cuobjdump -sass).  It prints one
 JSON line.  To compare two commits, unpack both and run this for each,
 alternating (a, b, b, a) in one session on one card: the kernels are built
 from each checkout's sources into its own build/kernels/, and the helpers
@@ -30,11 +38,13 @@ are always this checkout's chip_smoke.py.
 
 from __future__ import annotations
 
+import hashlib
 import importlib.util
 import io
 import json
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -141,15 +151,53 @@ def main(root: str) -> dict:
     dev = torch.device("cuda")
     out = {"root": root, "device": torch.cuda.get_device_name(0)}
 
-    def record(name, fn, n, launches=1):
-        # every kernel fn launches counts: the key "" matches them all
+    def record(name, fn, n, key, launches=1):
+        # the device time of the kernels whose name holds `key`, not of
+        # the call's other device work (a fill, a copy, a read-back)
         out[name] = [sm.time_ms(fn, n),
-                     sm.device_ms(name, fn, 20, {"": launches})[""]]
+                     sm.device_ms(name, fn, 20, {key: launches})[key]]
+
+    def stamped(name, fn):
+        # the kernel's span by its stamps, the median of five launches in
+        # the timing mode, where the checkout has it
+        try:
+            from beom_tpu_torch.stencils.stamps import Stamps
+        except ImportError:
+            return
+        out[name + " span"] = statistics.median(
+            fn(Stamps()).span for _ in range(5))
+
+    def all_rows(name, fn):
+        # the device time of every row the call puts on the card (the
+        # kernel, its fills, copies and read-back) over their count: what
+        # the key "" of device_ms gave before each kernel was named
+        out[name + " all rows"] = sm.device_ms(name, fn, 20, {"": 1})[""]
+
+    def digest(*tensors):
+        # a hash of the tensors' bytes: equal digests, bitwise equal
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        return h.hexdigest()[:16]
+
+    def jacobi_times(name, n, case="rigid_lid", **kw):
+        # K6 with Jacobi on an implicit-FS solve from eta^n of `case`
+        cfg, grid, forcing, st = sm.perturbed_case(
+            dev, 2, case, scheme="implicit_fs", **kw)
+        _, _, div = fp.proj_a_plain(st.h, st.u, st.v, (grid, forcing), 0,
+                                    cfg)
+        lam = projection.solve_lam(cfg)
+        b, eta_n = projection.implicit_rhs(st.h, div, grid, cfg, lam)
+        jacobi = cg_fused.make_cg_solve(grid, cfg, lam=lam)
+        out[name + " iterations"] = jacobi(b, eta_n).iters
+        record(name, lambda: jacobi(b, eta_n), n, "cg_")
+        stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
+        return jacobi, b, eta_n
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N)
     statics = (grid, forcing)
     record("K1", lambda: fused_fb.fused_fb_step(
-        st.h, st.u, st.v, statics, 0, st.t, cfg, 1), 200)
+        st.h, st.u, st.v, statics, 0, st.t, cfg, 1), 200, "fb_step_kernel")
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N,
                                                scheme="split", nsub=8)
@@ -158,20 +206,22 @@ def main(root: str) -> dict:
     sub = fused_fb._launch_subcycle(slow, st.h, st.u, st.v, statics, cfg)
     t1 = st.t + cfg.npdtype.type(cfg.dt)
     record("K1s slow", lambda: fused_fb._launch_slow(
-        st.h, st.u, st.v, statics, cfg), 100)
+        st.h, st.u, st.v, statics, cfg), 100, "split_slow_kernel")
     record("K1s subcycle", lambda: fused_fb._launch_subcycle(
-        slow, st.h, st.u, st.v, statics, cfg), 100)
+        slow, st.h, st.u, st.v, statics, cfg), 100, "split_sub_kernel")
     record("K1s recompose", lambda: fused_fb._launch_recompose(
-        slow, sub, st.h, st.u, st.v, statics, t1, cfg), 100)
+        slow, sub, st.h, st.u, st.v, statics, t1, cfg), 100,
+        "split_rec_kernel")
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
                                                ny=N, scheme="implicit_fs")
     statics = (grid, forcing)
     u_s, v_s, _ = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
     p = (st.h.sum(0) - grid.H) * grid.mask
-    record("K3a", lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 100)
+    record("K3a", lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 100,
+           "proj_a_kernel")
     record("K3b", lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg),
-           100)
+           100, "proj_b_kernel")
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N)
     m = pmesh.make_mesh(2, 4, devices=[dev])
@@ -179,7 +229,8 @@ def main(root: str) -> dict:
     blocks = dist_band._static_blocks(pstat, m)
     fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
     record("K7 fb step (2, 4)", lambda: dist_band.shard_step(
-        *fields, pstat, 0, st.t, cfg, 1, static_blocks=blocks), 100, 16)
+        *fields, pstat, 0, st.t, cfg, 1, static_blocks=blocks), 100,
+        "shard_step_kernel", 16)
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
                                                ny=N)
@@ -191,10 +242,18 @@ def main(root: str) -> dict:
     b_tail = rhs
     for coarser in levels[1:j0 + 1]:
         b_tail = mg._restrict2(b_tail) * coarser.mask
-    record("K5 visit", lambda: visit(b_tail), 30)
+    out["K5 visit digest"] = digest(visit(b_tail))
+    record("K5 visit", lambda: visit(b_tail), 30, "coarse_kernel")
+    all_rows("K5 visit", lambda: visit(b_tail))
+    stamped("K5 visit", lambda s: (visit(b_tail, stamps=s), s)[1])
     solve = cg_fused.make_cg_solve(grid, cfg, lam=0.0)
-    out["K6-mg iterations"] = solve(rhs).iters
-    record("K6-mg cold solve", lambda: solve(rhs), 5)
+    res = solve(rhs)
+    out["K6-mg iterations"] = res.iters
+    out["K6-mg cold solve digest"] = digest(res.x, res.resnorm)
+    # "cg_": cg_kernel, and K6-Jacobi's cg_jacobi_kernel since it has one
+    record("K6-mg cold solve", lambda: solve(rhs), 5, "cg_")
+    all_rows("K6-mg cold solve", lambda: solve(rhs))
+    stamped("K6-mg cold solve", lambda s: (solve(rhs, stamps=s), s)[1])
 
     # K4a: the 8-sweep pass on the rigid lid's pressure equation, the
     # pre-smoother's pass on level 0, the blocked solve's pass
@@ -202,27 +261,27 @@ def main(root: str) -> dict:
     rb_args = (Hu, Hv, grid.mask, cfg.dx, cfg.dy)
     p0 = torch.zeros_like(rhs)
     record("K4a 8-sweep pass", lambda: redblack.rb_sweep(
-        p0, rhs, *rb_args, k=8, omega=cfg.sor_omega), 50)
+        p0, rhs, *rb_args, k=8, omega=cfg.sor_omega), 50, "rb_pass_kernel")
     lv = levels[0]
     lv_args = (lv.Hu.contiguous(), lv.Hv.contiguous(), lv.mask, lv.dx,
                lv.dy)
     record("K4a k=2 residual pass", lambda: redblack.rb_sweep(
-        p0, rhs, *lv_args, k=2, omega=1.0, residual=True), 100)
+        p0, rhs, *lv_args, k=2, omega=1.0, residual=True), 100,
+        "rb_pass_kernel")
     if hasattr(redblack, "solve_pass"):
         solve_pass = sm.rb_solve_pass(rhs * grid.mask, rb_args, 8,
                                       cfg.sor_omega)
-        record("K4a solve pass", lambda: solve_pass(p0), 50)
+        record("K4a solve pass", lambda: solve_pass(p0), 50, "rb_pass_kernel")
 
-    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
-                                               ny=N, scheme="implicit_fs")
-    _, _, div = fp.proj_a(st.h, st.u, st.v, (grid, forcing), 0, cfg)
-    lam = projection.solve_lam(cfg)
-    b, eta_n = projection.implicit_rhs(st.h, div, grid, cfg, lam)
-    jacobi = cg_fused.make_cg_solve(grid, cfg, lam=lam)
-    out["K6-Jacobi iterations"] = jacobi(b, eta_n).iters
-    record("K6-Jacobi solve", lambda: jacobi(b, eta_n), 10)
+    jacobi, b, eta_n = jacobi_times("K6-Jacobi solve", 10, nx=N, ny=N)
+    all_rows("K6-Jacobi solve", lambda: jacobi(b, eta_n))
+    jacobi_times("K6-Jacobi solve f64", 5, nx=N, ny=N, dtype="float64")
+    for dtype in ("float32", "float64"):
+        jacobi_times(f"K6-Jacobi solve 200x136 coastal_wetdry {dtype}", 50,
+                     "coastal_wetdry", nx=200, ny=136, dtype=dtype)
 
     for name, kw, n_steps in (
+            ("(a) run() ms/step", {"scheme": "implicit_fs"}, 10),
             ("(b) run() ms/step", dict(solver="redblack",
                                        solver_maxiter=sm.RB_MAXITER), 10),
             ("(c) run() ms/step", {}, 10),
