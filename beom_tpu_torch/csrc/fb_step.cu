@@ -1,8 +1,11 @@
-// K1: one free-surface forward-backward step (stepping/fb.py::fb_step) of
-// nz layers with every term of the eager step, fused into one launch.
+// K1: free-surface forward-backward steps (stepping/fb.py::fb_step) of nz
+// layers with every term of the eager step, fused: one step per launch (a
+// build with BEOM_KB = 1), or a pass of KB steps per launch.
 //
 // Replaces beom_tpu/stencils/band.py::_band_kernel running the fb body of
-// beom_tpu/stencils/fused_fb.py::make_pallas_stepper.
+// beom_tpu/stencils/fused_fb.py::make_pallas_stepper, which advances the
+// steps_per_pass steps of a pass in one trip through memory with a halo
+// that many times as wide: the pass kernel below.
 //
 // Bound: device-memory bytes.  A step reads 3 nz + 8 fields (plus the
 // sponge, open-boundary and tide operands of the switches that are on) and
@@ -24,6 +27,23 @@
 //
 // The stages after the load (S1 to S4) are those of csrc/fb_step_body.cuh,
 // which the shard step under a mesh (shard_step.cu) runs too.
+//
+// The pass kernel (BEOM_KB = KB > 1).  On the H100 the single step costs
+// its loads (~0.11 ms at 2048^2 f32 alone) and its stages (~0.12 ms alone)
+// nearly one after the other; the table of offsets costs nothing.  The pass
+// loads a block with a halo of KB W once, stages every static the switches
+// read beside h, u and v (16-byte cp.async copies where a block's rows are
+// aligned and lie inside the grid, point by point through row and column
+// offsets elsewhere), and runs the KB steps on it in shared memory, step i
+// on [i W, R - i W) (fb_step_body.cuh, namespace fbp), so that a pass pays
+// one load and one store of each field per KB steps.  Its loads hide
+// behind its stages, which set its time on the H100 (their instructions
+// and shared-memory reads at one CTA per SM: a 2-step launch at 2048^2 f32
+// 0.344 ms, its stages alone 0.291, 0.265 without their barriers; the
+// byte bound 0.070, tools/k1_probes.py --pass).  The tile, KB and the
+// CTA's threads are the wrapper's plan (stencils/fused_fb.py::plan): the
+// halo costs stage work that grows with KB, and a CTA uses one SM's shared
+// memory.
 
 #include "fb_step_body.cuh"
 
@@ -31,6 +51,8 @@ namespace {
 
 using namespace beom;
 using namespace beom::fbk;
+
+#if BEOM_KB == 1
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -81,7 +103,48 @@ int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
   return int(cudaGetLastError());
 }
 
+constexpr int kernel_smem(bool f64) {
+  return f64 ? smem_bytes<double>() : smem_bytes<float>();
+}
+
+#else
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+fb_pass_kernel(const Params<T> p, T* out_h, T* out_u, T* out_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const int y0 = int(blockIdx.y) * TY;
+  const int x0 = int(blockIdx.x) * TX;
+  fbp::load_block<T>(p, sm, y0 - fbp::HALO, x0 - fbp::HALO);
+  fbp::pass_steps<T, 0, 0, 1, 2, 3, 4>(
+      p, sm, Store3<T>{out_h, out_u, out_v, Out{y0, x0, p.ny, p.nx, p.plane}});
+}
+
+template <typename T>
+int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
+            void* h1, void* u1, void* v1, void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  constexpr int smem = fbp::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      fb_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  fb_pass_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
+  return int(cudaGetLastError());
+}
+
+constexpr int kernel_smem(bool f64) {
+  return f64 ? fbp::smem_bytes<double>() : fbp::smem_bytes<float>();
+}
+
+#endif
+
 }  // namespace
+
+// one launch: one step (BEOM_KB = 1), or a pass of KB steps with step i's
+// time in dbls[D_TS0 + i]
 
 extern "C" int beom_fb_step_f32(const void* const* ptrs, const int* ints,
                                 const double* dbls, void* h1, void* u1,
@@ -95,10 +158,10 @@ extern "C" int beom_fb_step_f64(const void* const* ptrs, const int* ints,
   return fb_step<double>(ptrs, ints, dbls, h1, u1, v1, stream);
 }
 
-// dynamic shared memory of one CTA of kernel `which` (only 0, fb_step), for
-// the wrapper's choice of tile
+// dynamic shared memory of one CTA of kernel `which` (only 0: the build's
+// step or pass kernel), for the wrapper's plan
 extern "C" int beom_smem_bytes(int which, int is_f64) {
-  return is_f64 ? smem_bytes<double>() : smem_bytes<float>();
+  return kernel_smem(is_f64);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

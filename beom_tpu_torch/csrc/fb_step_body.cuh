@@ -1,6 +1,8 @@
 // The stages of one fused forward-backward step on a haloed tile in shared
 // memory, shared by the single-device step (fb_step.cu, K1) and the shard
-// step under a mesh (shard_step.cu, K7).  The two kernels differ in where a
+// step under a mesh (shard_step.cu, K7); and the pass of KB steps on one
+// tile (namespace fbp, fb_step.cu's pass kernel), which runs the same
+// stages on the shrinking regions of a block with a halo of KB W.  The two kernels differ in where a
 // tile's points come from and where its results go (shard_addr.cuh): each
 // loads the planes of h, u, v, the masks and the block's table of offsets
 // into the statics (stage S0) and hands `fb_stages` a Store3 whose Out says
@@ -161,4 +163,336 @@ __device__ __forceinline__ void fb_stages(const Params<T>& p, T* sm,
 }
 
 }  // namespace fbk
+
+// The pass: KB fb steps of one TY x TX tile in one CTA.  The block holds the
+// tile with a halo of KB W points on both axes; step i runs S1 to S4 on the
+// block's region [i W, R - i W), so its new h, u, v are valid on
+// [(i + 1) W, R - (i + 1) W), and the last step's interior is the tile.
+// Every static the switches read is staged into a shared-memory plane once
+// per launch; h, u, v, h1 and a spare are five groups of NZ planes whose
+// roles rotate from step to step (after S1 the old h is free and takes the
+// new u, the spare the new v, so S4 reads the old u and v at neighbouring
+// points while it writes).
+namespace fbp {
+
+using fbk::W;
+constexpr int HALO = KB * W;
+constexpr int RX = TX + 2 * HALO;
+constexpr int RY = TY + 2 * HALO;
+constexpr int NPT = RX * RY;
+constexpr int NTD = OBC ? NTIDE : 0;
+
+// shared-memory planes: the five rotating groups, the step's intermediates
+// (fluxes and scales alias phi, q and a1 as in K1), then the statics
+enum Plane {
+  Q_DYN = 0,
+  Q_PHI = 5 * NZ,
+  Q_Q = Q_PHI + NZ,
+  Q_A1 = Q_Q + NZ,
+  Q_LU = Q_A1 + NZ,
+  Q_LV = Q_LU + (NU4 ? NZ : 0),
+  Q_EE = Q_LV + (NU4 ? NZ : 0),
+  Q_M = Q_EE + (OBC ? 1 : 0),
+  Q_MU,
+  Q_MV,
+  Q_MQ,
+  Q_HB,
+  Q_FQ,
+  Q_TAUX,
+  Q_TAUY = Q_TAUX + (WIND ? 1 : 0),
+  Q_SPONGE = Q_TAUY + (WIND ? 1 : 0),
+  Q_HEXT = Q_SPONGE + (SPONGE ? 1 : 0),
+  Q_OBCU = Q_HEXT + ((SPONGE || OBC) ? NZ : 0),
+  Q_OBCV = Q_OBCU + (OBC ? 1 : 0),
+  Q_OBCH = Q_OBCV + (OBC ? 1 : 0),
+  Q_AMP = Q_OBCH + (OBC ? 1 : 0),
+  Q_PHASE = Q_AMP + NTD,
+  N_PLANES = Q_PHASE + NTD
+};
+
+// the plane that stages operand slot i (fb_terms.cuh: Ptr)
+__host__ __device__ constexpr int plane_of(int i) {
+  return i == I_MASK     ? Q_M
+         : i == I_MASK_U ? Q_MU
+         : i == I_MASK_V ? Q_MV
+         : i == I_MASK_Q ? Q_MQ
+         : i == I_HB     ? Q_HB
+         : i == I_FQ     ? Q_FQ
+         : i == I_TAUX   ? Q_TAUX
+         : i == I_TAUY   ? Q_TAUY
+         : i == I_SPONGE ? Q_SPONGE
+         : i == I_HEXT   ? Q_HEXT
+         : i == I_OBC_U  ? Q_OBCU
+         : i == I_OBC_V  ? Q_OBCV
+         : i == I_OBC_H  ? Q_OBCH
+         : i == I_TIDE_AMP ? Q_AMP
+                           : Q_PHASE;
+}
+
+// the block's row and column offsets into the grid follow the planes
+template <typename T>
+constexpr int smem_bytes() {
+  return int(N_PLANES * NPT * sizeof(T) + (RX + RY) * sizeof(int));
+}
+
+// the statics as the stages read them: from their staged planes
+template <typename T>
+struct PlaneStat {
+  const T* sm;
+  __device__ __forceinline__ T get(const Params<T>&, int i, int s) const {
+    return sm[plane_of(i) * NPT + s];
+  }
+  __device__ __forceinline__ T get(const Params<T>&, int i, int k,
+                                   int s) const {
+    return sm[(plane_of(i) + k) * NPT + s];
+  }
+};
+
+// an asynchronous copy of BYTES (4, 8 or 16) from global to shared memory
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES)
+                 : "memory");
+#else
+  __builtin_memcpy(dst, src, BYTES);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait until at most N committed groups of copies are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// S0: layers [0, nl) of operand slot i into the planes from dst, every
+// block point.  A block that lies inside the grid on x, in a grid whose
+// rows start 16-byte aligned (its width and the operands' addresses), copies
+// its rows in 16-byte pieces; any other block point by point through the
+// offsets (periodic on both axes).
+template <typename T>
+__device__ __forceinline__ void stage(const Params<T>& p, int i, int nl,
+                                      T* dst, const int* roff,
+                                      const int* coff, int x0, bool vec) {
+  constexpr int VW = 16 / int(sizeof(T));
+  const T* src = p.in[i];
+  if (RX % VW == 0 && vec) {
+    constexpr int NV = RX / VW;
+    for (int e = threadIdx.x; e < nl * RY * NV; e += THREADS) {
+      const int k = e / (RY * NV);
+      const int r = (e / NV) % RY;
+      const int c = (e % NV) * VW;
+      cp_async<16>(dst + k * NPT + r * RX + c,
+                   src + k * p.plane + roff[r] + x0 + c);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < nl * NPT; e += THREADS) {
+    const int k = e / NPT;
+    const int s = e % NPT;
+    cp_async<int(sizeof(T))>(dst + e,
+                             src + k * p.plane + roff[s / RX] + coff[s % RX]);
+  }
+}
+
+// S0 of the pass: h, u, v into groups 0, 1, 2 and every static the
+// switches read into its plane, in two groups of copies: what step 0's S1
+// reads, then mask_q (unless the biharmonic's S1 reads it), H, f_q, the
+// wind and the Flather maps, which S2 to S4 read (pass_step waits for them
+// after S1, so that they arrive while S1 computes).  Returns after a
+// __syncthreads() that follows the first group.
+template <typename T>
+__device__ __forceinline__ void load_block(const Params<T>& p, T* sm,
+                                           int y0, int x0) {
+  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  int* coff = roff + RY;
+  for (int r = threadIdx.x; r < RY; r += THREADS)
+    roff[r] = wrap(y0 + r, p.ny) * p.nx;
+  for (int c = threadIdx.x; c < RX; c += THREADS)
+    coff[c] = wrap(x0 + c, p.nx);
+  __syncthreads();
+  constexpr int VW = 16 / int(sizeof(T));
+  const bool vec = p.aligned && x0 >= 0 && x0 + RX <= p.nx &&
+                   x0 % VW == 0 && p.nx % VW == 0;
+  stage(p, I_H, NZ, sm + 0 * NZ * NPT, roff, coff, x0, vec);
+  stage(p, I_U, NZ, sm + 1 * NZ * NPT, roff, coff, x0, vec);
+  stage(p, I_V, NZ, sm + 2 * NZ * NPT, roff, coff, x0, vec);
+  stage(p, I_MASK, 1, sm + Q_M * NPT, roff, coff, x0, vec);
+  stage(p, I_MASK_U, 1, sm + Q_MU * NPT, roff, coff, x0, vec);
+  stage(p, I_MASK_V, 1, sm + Q_MV * NPT, roff, coff, x0, vec);
+  if (NU4) stage(p, I_MASK_Q, 1, sm + Q_MQ * NPT, roff, coff, x0, vec);
+  if (SPONGE) stage(p, I_SPONGE, 1, sm + Q_SPONGE * NPT, roff, coff, x0, vec);
+  if (SPONGE || OBC)
+    stage(p, I_HEXT, NZ, sm + Q_HEXT * NPT, roff, coff, x0, vec);
+  if (OBC) {
+    stage(p, I_OBC_H, 1, sm + Q_OBCH * NPT, roff, coff, x0, vec);
+    stage(p, I_TIDE_AMP, NTD, sm + Q_AMP * NPT, roff, coff, x0, vec);
+    stage(p, I_TIDE_PHASE, NTD, sm + Q_PHASE * NPT, roff, coff, x0, vec);
+  }
+  cp_async_commit();
+  if (!NU4) stage(p, I_MASK_Q, 1, sm + Q_MQ * NPT, roff, coff, x0, vec);
+  stage(p, I_HB, 1, sm + Q_HB * NPT, roff, coff, x0, vec);
+  stage(p, I_FQ, 1, sm + Q_FQ * NPT, roff, coff, x0, vec);
+  if (WIND) {
+    stage(p, I_TAUX, 1, sm + Q_TAUX * NPT, roff, coff, x0, vec);
+    stage(p, I_TAUY, 1, sm + Q_TAUY * NPT, roff, coff, x0, vec);
+  }
+  if (OBC) {
+    stage(p, I_OBC_U, 1, sm + Q_OBCU * NPT, roff, coff, x0, vec);
+    stage(p, I_OBC_V, 1, sm + Q_OBCV * NPT, roff, coff, x0, vec);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+}
+
+// Step i of the pass (A = i W): S1 to S4 of fb_step on the region
+// [A, R - A) from the planes h, u, v, with the sweep order u_first and the
+// tides at t1.  The last step writes the tile's interior through `store`;
+// any other writes the new u and v into the planes nu and nv on
+// [A + W, R - A - W) (the new h is h1) and ends with a __syncthreads().
+template <typename T, int A, bool LAST, typename Store>
+__device__ __forceinline__ void pass_step(const Params<T>& p, T* sm,
+                                          int u_first, T t1, const T* h,
+                                          const T* u, const T* v, T* h1,
+                                          T* nu, T* nv, const Store& store) {
+  T* mask = sm + Q_M * NPT;
+  T* mu = sm + Q_MU * NPT;
+  T* mv = sm + Q_MV * NPT;
+  T* mq = sm + Q_MQ * NPT;
+  T* phi = sm + Q_PHI * NPT;
+  T* q = sm + Q_Q * NPT;
+  T* a1 = sm + Q_A1 * NPT;
+  T* lu = sm + Q_LU * NPT;
+  T* lv = sm + Q_LV * NPT;
+  T* ee = sm + Q_EE * NPT;
+  const int tid = threadIdx.x;
+  using TileT = Tile<T, RX, NPT, PlaneStat<T>>;
+  const TileT c{p, PlaneStat<T>{sm}, u, v, mask, mu, mv, mq, h1,
+                phi, q, lu, lv, ee};
+
+  // obc.eta_ext at this step's t1, as load_eta_ext
+  if (OBC) {
+    REGION(A, A, {
+      T e = T(0);
+      for (int cc = 0; cc < NTIDE; ++cc)
+        e = e + sm[(Q_AMP + cc) * NPT + s] *
+                    tcos(p.omega[cc] * t1 - sm[(Q_PHASE + cc) * NPT + s]);
+      ee[s] = e;
+    })
+  }
+
+  // S1: lap planes for the biharmonic, then the continuity
+  if (NU4) {
+    REGION_NS(A + 1, A + 1, {
+      for (int k = 0; k < NZ; ++k) {
+        lu[k * NPT + s] = c.lap_u(u + k * NPT, s);
+        lv[k * NPT + s] = c.lap_v(v + k * NPT, s);
+      }
+    })
+  }
+  continuity_stage<T, RX, RY, TileT, A>(c, h, u, v, h1, phi, q, a1, true);
+  if (A == 0) {       // S0's second group of copies
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  // S2: phi = M (+ K) and the PV from the new thickness
+  REGION(A + LO, A + LO + 1, { c.phi_q(s, true, phi, q); })
+
+  // S3: the first FB-Coriolis sweep, u on even steps, v on odd ones
+  REGION(A + LO + 1, A + LO + 2, {
+    for (int k = 0; k < NZ; ++k) {
+      T a;
+      if (u_first) {
+        a = u[k * NPT + s] +
+            p.dt * (c.tend_u(k, s) + c.cor_u(k, s, v + k * NPT));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_u(s));
+        a = a * mu[s];
+      } else {
+        a = v[k * NPT + s] +
+            p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, u + k * NPT)));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_v(s));
+        a = a * mv[s];
+      }
+      a1[k * NPT + s] = a;
+    }
+  })
+
+  // S4: the second sweep, the gates, Flather
+  auto second = [&](int s, T* uo, T* vo) {
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      if (u_first) {
+        T b = v[k * NPT + s] +
+              p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, a1 + k * NPT)));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_v(s));
+        uo[k] = a1[k * NPT + s];
+        vo[k] = b * mv[s];
+      } else {
+        T b = u[k * NPT + s] +
+              p.dt * (c.tend_u(k, s) + c.cor_u(k, s, a1 + k * NPT));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_u(s));
+        uo[k] = b * mu[s];
+        vo[k] = a1[k * NPT + s];
+      }
+    }
+    finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
+  };
+  if (LAST) {
+    for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+      const int jj = k_ / TX;
+      const int ii = k_ % TX;
+      if (!store.valid(jj, ii)) continue;
+      const int s = (HALO + jj) * RX + HALO + ii;
+      T uo[NZ], vo[NZ];
+      second(s, uo, vo);
+#pragma unroll
+      for (int k = 0; k < NZ; ++k)
+        store.put(jj, ii, k, h1[k * NPT + s], uo[k], vo[k]);
+    }
+  } else {
+    REGION(A + W, A + W, {
+      T uo[NZ], vo[NZ];
+      second(s, uo, vo);
+      for (int k = 0; k < NZ; ++k) {
+        nu[k * NPT + s] = uo[k];
+        nv[k * NPT + s] = vo[k];
+      }
+    })
+  }
+}
+
+// steps I.. of the pass, with the groups of planes that hold h, u, v, h1
+// and the spare at step I; step I alternates the sweep order of step 0
+template <typename T, int I, int GH, int GU, int GV, int GH1, int GSP,
+          typename Store>
+__device__ __forceinline__ void pass_steps(const Params<T>& p, T* sm,
+                                           const Store& store) {
+  if constexpr (I < KB) {
+    T* g = sm;
+    constexpr int G = NZ * NPT;
+    pass_step<T, I * W, I == KB - 1>(
+        p, sm, (I % 2 == 0) ? p.u_first : 1 - p.u_first, p.ts[I], g + GH * G,
+        g + GU * G, g + GV * G, g + GH1 * G, g + GH * G, g + GSP * G, store);
+    pass_steps<T, I + 1, GH1, GH, GSP, GU, GV>(p, sm, store);
+  }
+}
+
+}  // namespace fbp
 }  // namespace beom

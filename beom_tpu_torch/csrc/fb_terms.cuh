@@ -63,6 +63,17 @@
 #ifndef BEOM_TY
 #define BEOM_TY 16
 #endif
+#ifndef BEOM_THREADS
+#define BEOM_THREADS 256
+#endif
+// the fb pass kernel: its steps per launch, and whether the wind planes are
+// staged (the Config's wind)
+#ifndef BEOM_KB
+#define BEOM_KB 1
+#endif
+#ifndef BEOM_WIND
+#define BEOM_WIND 1
+#endif
 
 namespace beom {
 
@@ -80,7 +91,9 @@ constexpr int TY = BEOM_TY;
 constexpr int NSUB = BEOM_NSUB;
 constexpr int SX = BEOM_SX;
 constexpr int SY = BEOM_SY;
-constexpr int THREADS = 256;
+constexpr int THREADS = BEOM_THREADS;
+constexpr int KB = BEOM_KB;
+constexpr bool WIND = BEOM_WIND;
 // first block index at which the continuity's h1 is valid: the limiter
 // reaches one cell further than the plain flux divergence
 constexpr int LO = WETDRY ? 2 : 1;
@@ -93,20 +106,25 @@ enum Ptr {
   I_TIDE_PHASE, N_PTR
 };
 enum Int { J_NY, J_NX, J_U_FIRST, J_SADOURNY, J_FREE_SLIP, J_VISC, J_WIND,
-           J_NSUB, N_INT };
+           J_NSUB, J_ALIGNED, N_INT };
 enum Dbl {
   D_DT, D_DX, D_DY, D_G, D_NU2, D_NU4, D_RHO0, D_HMIN, D_HDRY, D_RBOT,
-  D_CDBOT, D_RINT, D_T1, D_GP0, D_OMEGA0 = D_GP0 + 8, N_DBL = D_OMEGA0 + 8
+  D_CDBOT, D_RINT, D_T1, D_GP0, D_OMEGA0 = D_GP0 + 8, D_TS0 = D_OMEGA0 + 8,
+  N_DBL = D_TS0 + 8
 };
+// steps a launch of the fb pass kernel may advance: the slots of Params::ts
+constexpr int MAX_KB = 8;
 
 template <typename T>
 struct Params {
   const T* in[N_PTR];
   int ny, nx, u_first, sadourny, free_slip, visc, wind, nsub;
+  int aligned;    // every operand starts 16-byte aligned
   T dt, inv_dx, inv_dy, rdx, rdy, g, nu2, nu4, rho0, h_min, h_dry, thin,
       r_bot, cd_bot, r_int, t1;
   T gp[NZ];
   T omega[NTIDE > 0 ? NTIDE : 1];
+  T ts[MAX_KB];   // the fb pass kernel's t1 of each of its steps
   long plane;     // ny * nx
 };
 
@@ -123,6 +141,7 @@ __host__ Params<T> make_params(const void* const* ptrs, const int* ints,
   p.visc = ints[J_VISC];
   p.wind = ints[J_WIND];
   p.nsub = ints[J_NSUB];
+  p.aligned = ints[J_ALIGNED];
   p.dt = T(d[D_DT]);
   p.inv_dx = T(1.0 / d[D_DX]);
   p.inv_dy = T(1.0 / d[D_DY]);
@@ -141,6 +160,7 @@ __host__ Params<T> make_params(const void* const* ptrs, const int* ints,
   p.t1 = T(d[D_T1]);
   for (int k = 0; k < NZ; ++k) p.gp[k] = T(d[D_GP0 + k]);
   for (int c = 0; c < NTIDE; ++c) p.omega[c] = T(d[D_OMEGA0 + c]);
+  for (int i = 0; i < MAX_KB; ++i) p.ts[i] = T(d[D_TS0 + i]);
   p.plane = long(p.ny) * p.nx;
   return p;
 }
@@ -186,14 +206,29 @@ __device__ __forceinline__ double tabs(double x) { return fabs(x); }
   REGION_NS(lo, hi, __VA_ARGS__)  \
   __syncthreads();
 
+// Where a tile reads the statics (the operand slots past I_V): through the
+// block's table of global offsets, one int per point
+template <typename T>
+struct GlobStat {
+  const int* gidx;
+  __device__ __forceinline__ T get(const Params<T>& p, int i, int s) const {
+    return p.in[i][gidx[s]];
+  }
+  __device__ __forceinline__ T get(const Params<T>& p, int i, int k,
+                                   int s) const {
+    return p.in[i][k * p.plane + gidx[s]];
+  }
+};
+
 // A haloed tile: shared-memory planes of NPT = RX * RY points, the layer k
-// of a field at + k * NPT, and the global offset of each point.
-template <typename T, int RX_, int NPT_>
+// of a field at + k * NPT, and where its statics are read (Stat: GlobStat,
+// or planes staged in shared memory).
+template <typename T, int RX_, int NPT_, typename Stat = GlobStat<T>>
 struct Tile {
   static constexpr int RX = RX_;
   static constexpr int NPT = NPT_;
   const Params<T>& p;
-  const int* gidx;
+  Stat st;
   const T *u, *v;            // (NZ planes) the velocities at time n
   const T *mask, *mu, *mv, *mq;
   const T* hn;               // (NZ planes) the thickness the terms see
@@ -202,10 +237,10 @@ struct Tile {
   const T* ee;               // tidal elevation at t1, with obc
 
   __device__ __forceinline__ T glob(int i, int s) const {
-    return p.in[i][gidx[s]];
+    return st.get(p, i, s);
   }
   __device__ __forceinline__ T glob(int i, int k, int s) const {
-    return p.in[i][k * p.plane + gidx[s]];
+    return st.get(p, i, k, s);
   }
 
   // viscosity.lap_u / lap_v of a plane w
@@ -430,11 +465,12 @@ __device__ __forceinline__ void load_eta_ext(const Params<T>& p,
 }
 
 // The layer continuity of every layer: h1 = (h + dt (-div F [+ sponge]))
-// mask [clamped to the exterior] on [LO, R - LO), from the planes h and the
-// advecting velocities ua, va.  fx, fy, sc are NZ scratch planes each, used
-// under wet/dry only.  `fb` adds the sponge and the exterior clamp of
-// fb.continuity_update.  Ends with a __syncthreads().
-template <typename T, int RX, int RY, typename TileT>
+// mask [clamped to the exterior] on [A + LO, R - A - LO), from the planes h
+// and the advecting velocities ua, va, valid on [A, R - A).  fx, fy, sc are
+// NZ scratch planes each, used under wet/dry only.  `fb` adds the sponge
+// and the exterior clamp of fb.continuity_update.  Ends with a
+// __syncthreads().
+template <typename T, int RX, int RY, typename TileT, int A = 0>
 __device__ __forceinline__ void continuity_stage(
     const TileT& c, const T* h, const T* ua, const T* va, T* h1, T* fx, T* fy,
     T* sc, bool fb) {
@@ -442,7 +478,7 @@ __device__ __forceinline__ void continuity_stage(
   const Params<T>& p = c.p;
   const int tid = threadIdx.x;
   if (WETDRY) {
-    REGION(0, 1, {
+    REGION(A, A + 1, {
       for (int k = 0; k < NZ; ++k) {
         const T* hk = h + k * NPT;
         fx[k * NPT + s] =
@@ -451,7 +487,7 @@ __device__ __forceinline__ void continuity_stage(
             face_flux(p, hk[s], hk[s + RX], va[k * NPT + s], c.mv[s]);
       }
     })
-    REGION(1, 1, {
+    REGION(A + 1, A + 1, {
       for (int k = 0; k < NZ; ++k) {
         const T* f = fx + k * NPT;
         const T* g = fy + k * NPT;
@@ -465,7 +501,7 @@ __device__ __forceinline__ void continuity_stage(
       }
     })
   }
-  REGION(LO, LO, {
+  REGION(A + LO, A + LO, {
     for (int k = 0; k < NZ; ++k) {
       const T* hk = h + k * NPT;
       T f0, fm, g0, gm;

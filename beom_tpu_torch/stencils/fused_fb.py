@@ -9,7 +9,10 @@ the eager step (wet/dry, open boundary, sponge, tides, nu4, quadratic
 bottom drag, interfacial drag), sharing the term code of
 `csrc/fb_terms.cuh`.
 
-  * scheme='fb': one launch of K1 advances one fb_step of (h, u, v).
+  * scheme='fb': a pass of k steps is ceil(k / kb) launches of K1: a
+    launch advances kb steps of (h, u, v) on blocks with a halo kb times
+    as wide (`plan`; the single-step build for kb = 1, the pass kernel
+    otherwise).
   * scheme='split': three launches advance one split_step: the slow phase
     (tendencies, depth means), the barotropic subcycle (nsub substeps of
     three 2-D fields inside shared memory) and the recomposition with the
@@ -18,8 +21,11 @@ bottom drag, interfacial drag), sharing the term code of
 
 A pass of k = cfg.steps_per_pass steps is k such steps, each with its own
 FB-Coriolis sweep order (n + i) % 2 and its own time for the tides.
+`fused_fb_step_tiled` runs the fb pass's blocked schedule on the host, for
+the tests.
 
-All are bounded by device-memory bytes.  The layer count, the term
+The single-step kernels are bounded by device-memory bytes, the fb pass
+kernel by its stages (csrc/fb_step.cu).  The layer count, the term
 switches and the tile are compile-time: a configuration's kernels are
 built at its first step, one library per combination, and a switch that
 is off costs neither shared memory nor an operand.  The tile is the
@@ -36,7 +42,9 @@ the other: on a CUDA tensor it launches the kernels or raises.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+import math
 
 import torch
 
@@ -48,10 +56,11 @@ from beom_tpu_torch.stepping import fb as fb_mod
 from beom_tpu_torch.stepping import split as split_mod
 from beom_tpu_torch.stepping.split import SlowPhase
 
-# kernel launches: K1's by fused_fb_step, and those of the split step's
-# three kernels; a run reads them to show that its main path went through
-# the kernels
+# kernel launches: K1's by fused_fb_step (PASS_LAUNCHES those of the pass
+# kernel among them), and those of the split step's three kernels; a run
+# reads them to show that its main path went through the kernels
 LAUNCHES = 0
+PASS_LAUNCHES = 0
 SPLIT_LAUNCHES = {"slow": 0, "subcycle": 0, "recompose": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -62,6 +71,24 @@ _FORCING_NAMES = ("taux", "tauy", "sponge", "h_ext", "obc_u", "obc_v",
 _MAX_LAYERS = 8          # slots of gprime and of the tidal frequencies
 _MAX_SMEM = 232448       # bytes of shared memory a CTA can use on sm_90
 _TILES = ((32, 16), (32, 8), (16, 8), (8, 8))
+# the fb pass kernel: the slots of its per-step times
+# (csrc/fb_terms.cuh: MAX_KB), the most steps a plan gives one launch, and
+# its tiles (tx a multiple of 4, so f32 rows start 16-byte aligned)
+_MAX_KB = 8
+_PLAN_KB = 4
+_PASS_TILES = tuple((tx, ty) for tx in (32, 48, 64, 96, 128)
+                    for ty in range(4, 65, 4))
+# the cost model of a plan, in units of one stage-point (one point of one
+# of S1 to S4): a point of one field staged costs _LOAD_COST of it (the
+# H100's single-step K1 at 2048^2 f32: stages alone 0.118 ms for 2790
+# stage-points per 32 x 16 tile, S0's loads of every operand alone 0.114
+# ms for 960 points x 11 fields per tile, tools/k1_probes.py); the pass
+# kernel's stage-point costs _PASS_FACTOR of the single step's (its
+# stages at one CTA per SM, the statics read from shared memory:
+# tools/k1_plans.py on the H100, 1.12 on the f32 gyre, 1.19-1.3 with
+# wet/dry, 1.35 with two layers)
+_LOAD_COST = 0.25
+_PASS_FACTOR = 1.25
 _SUB_TILES = ((64, 32), (32, 32), (32, 16), (16, 16), (16, 8))
 # the kernels of each source, in the order of its beom_smem_bytes
 _TILED = {"fb_step": ("fb_step",),
@@ -115,6 +142,129 @@ def _pick(tiles, need, what):
         f"smallest tile {tiles[-1]}, above the {_MAX_SMEM} a CTA can use")
 
 
+def halo_width(cfg: Config) -> int:
+    """W, the points one fb step reads beyond the points it writes on each
+    axis (csrc/fb_step_body.cuh): 4, or 5 under wet/dry."""
+    return 5 if cfg.wetdry else 4
+
+
+def pass_planes(cfg: Config) -> int:
+    """Shared-memory planes of the fb pass kernel (csrc/fb_step_body.cuh,
+    fbp::Plane): five rotating groups of nz and the step's three
+    intermediates, the statics the switches read."""
+    nz, obc = cfg.nz, cfg.obc
+    ntide = len(cfg.tides) if obc else 0
+    return (8 * nz + 2 * nz * (cfg.nu4 != 0.0) + obc + 6 + 2 * cfg.wind
+            + cfg.sponge + nz * (cfg.sponge or obc) + 3 * obc + 2 * ntide)
+
+
+def pass_smem(cfg: Config, kb: int, tile, elem: int) -> int:
+    """Dynamic shared memory of one CTA of the pass kernel of kb steps at
+    `tile`: its planes of the block with a halo of kb W, and the block's
+    row and column offsets."""
+    h = kb * halo_width(cfg)
+    rx, ry = tile[0] + 2 * h, tile[1] + 2 * h
+    return pass_planes(cfg) * rx * ry * elem + (rx + ry) * 4
+
+
+def stage_points(cfg: Config, kb: int, tile) -> int:
+    """Points the stages S1 to S4 compute in one launch of kb steps on one
+    block (the single-step kernel's block at kb = 1): step i on
+    [i W, R - i W), its last step's S4 on the tile."""
+    w, lo = halo_width(cfg), 2 if cfg.wetdry else 1
+    h = kb * w
+    rx, ry = tile[0] + 2 * h, tile[1] + 2 * h
+    total = 0
+    for i in range(kb):
+        a = i * w
+        cuts = [2 * lo, 2 * lo + 1, 2 * lo + 3]
+        if cfg.wetdry:
+            cuts += [1, 2]
+        total += sum((rx - 2 * a - c) * (ry - 2 * a - c) for c in cuts)
+        total += tile[0] * tile[1] if i == kb - 1 else \
+            (rx - 2 * a - 2 * w) * (ry - 2 * a - 2 * w)
+    return total
+
+
+def plan_cost(cfg: Config, kb: int, tile) -> float:
+    """The cost model of a launch plan per point and step, in stage-points:
+    the stages' work and the block's loads (every field once), over the
+    kb steps of the tile's points."""
+    h = kb * halo_width(cfg)
+    block = (tile[0] + 2 * h) * (tile[1] + 2 * h)
+    fields = 3 * cfg.nz + pass_planes(cfg) - 8 * cfg.nz \
+        - 2 * cfg.nz * (cfg.nu4 != 0.0) - cfg.obc
+    work = (stage_points(cfg, kb, tile) + _LOAD_COST * block * fields) \
+        / (kb * tile[0] * tile[1])
+    return work * (_PASS_FACTOR if kb > 1 else 1.0)
+
+
+def launch_steps(k: int, kb: int) -> list:
+    """Steps of each launch of a pass of k steps at kb steps per launch:
+    ceil(k / kb) launches, the last of k mod kb steps."""
+    return [kb] * (k // kb) + ([k % kb] if k % kb else [])
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How K1 runs the steps of one launch: kb steps in the pass kernel on
+    `tile` with `threads` per CTA, or at kb = 1 the single-step kernel at
+    its own tile; `smem` bytes of shared memory per CTA."""
+    kb: int
+    tile: tuple
+    threads: int
+    smem: int
+
+    def launches(self, k: int) -> list:
+        return launch_steps(k, self.kb)
+
+    def describe(self) -> str:
+        kernel = "the single-step kernel" if self.kb == 1 else \
+            f"the pass kernel (halo {self.kb} W)"
+        return (f"kb {self.kb}: {kernel}, tile {self.tile[0]} x "
+                f"{self.tile[1]}, {self.threads} threads, {self.smem} bytes "
+                "of shared memory per CTA")
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(cfg: Config, dtype, m: int):
+    """The build that advances m fb steps in one launch, or None where no
+    block with a halo of m W fits a CTA: at m = 1 the single-step kernel,
+    else the pass kernel at the tile of least plan_cost whose CTA fits one
+    SM's shared memory, with 1024 threads where one CTA fits an SM and 512
+    where two do."""
+    check_config(cfg)
+    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
+    if m == 1:
+        one = _pick(_TILES, lambda t: smem_bytes(cfg, t, t, elem)["fb_step"],
+                    f"the fused fb step of nz = {cfg.nz} layers")
+        return Plan(1, one, 256, smem_bytes(cfg, one, one, elem)["fb_step"])
+    fits = [t for t in _PASS_TILES if pass_smem(cfg, m, t, elem) <= _MAX_SMEM]
+    if not fits:
+        return None
+    tile = min(fits, key=lambda t: plan_cost(cfg, m, t))
+    need = pass_smem(cfg, m, tile, elem)
+    return Plan(m, tile, 512 if 2 * (need + 1024) <= 233472 else 1024, need)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(cfg: Config, dtype=None, k: int = None) -> Plan:
+    """The launch plan of a pass of k fb steps (default: steps_per_pass):
+    the kb <= k whose launches (Plan.launches) cost the least by plan_cost
+    at their builds' tiles."""
+    k = k or cfg.steps_per_pass
+
+    def cost(kb):
+        pl = launch_plan(cfg, dtype, kb)
+        if pl is None:
+            return math.inf
+        return sum(m * plan_cost(cfg, m, launch_plan(cfg, dtype, m).tile)
+                   for m in pl.launches(k))
+
+    return launch_plan(cfg, dtype, min(range(1, min(k, _PLAN_KB) + 1),
+                                       key=cost))
+
+
 def term_defines(cfg: Config, tile):
     """The compile-time switches of csrc/fb_terms.cuh for cfg, and the
     tile."""
@@ -127,10 +277,19 @@ def term_defines(cfg: Config, tile):
             f"BEOM_TX={tile[0]}", f"BEOM_TY={tile[1]}")
 
 
-def build_spec(cfg: Config, dtype=None):
+def build_spec(cfg: Config, dtype=None, kb: int = 1):
     """(source, defines) of the build that runs cfg: fb_step.cu or
-    split_step.cu with the compile-time switches and the tile."""
+    split_step.cu with the compile-time switches and the tile; with kb > 1
+    the fb pass kernel of kb steps at the plan's tile and threads."""
     check_config(cfg)
+    if kb > 1:
+        pl = launch_plan(cfg, dtype, kb)
+        if pl is None:
+            raise ValueError(f"no pass kernel of kb = {kb} steps fits a "
+                             "CTA")
+        return "fb_step", term_defines(cfg, pl.tile) + (
+            f"BEOM_KB={kb}", f"BEOM_THREADS={pl.threads}",
+            f"BEOM_WIND={int(cfg.wind)}")
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     name = "fb_step" if cfg.scheme == "fb" else "split_step"
     tiled = [k for k in _TILED[name] if k != "split_subcycle"]
@@ -145,6 +304,12 @@ def build_spec(cfg: Config, dtype=None):
         defines += (f"BEOM_NSUB={cfg.nsub}", f"BEOM_SX={sub[0]}",
                     f"BEOM_SY={sub[1]}")
     return name, defines
+
+
+def pass_specs(cfg: Config, k: int, dtype=None) -> set:
+    """The builds a pass of k fb steps launches."""
+    return {build_spec(cfg, dtype, m)
+            for m in set(plan(cfg, dtype, k).launches(k))}
 
 
 def fused_fb_step_plain(h, u, v, statics, n: int, t, cfg: Config, k: int):
@@ -180,18 +345,21 @@ def _pointers(tensors):
 
 
 @functools.lru_cache(maxsize=None)
-def _entries(cfg: Config, dtype):
-    """The library that runs cfg and its entry points by kernel name,
-    built on first use."""
+def _entries(cfg: Config, dtype, kb: int = 1):
+    """The library that runs cfg (kb > 1: the fb pass kernel of kb steps)
+    and its entry points by kernel name, built on first use."""
     from beom_tpu_torch.stencils import build
 
-    name, defines = build_spec(cfg, dtype)
+    name, defines = build_spec(cfg, dtype, kb)
     lib = build.load((name, defines))
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
     want = smem_bytes(cfg, (value["BEOM_TX"], value["BEOM_TY"]),
                       (value.get("BEOM_SX", 0), value.get("BEOM_SY", 0)),
                       elem)
+    if kb > 1:
+        want["fb_step"] = pass_smem(cfg, kb, (value["BEOM_TX"],
+                                              value["BEOM_TY"]), elem)
     for i, kernel in enumerate(_TILED[name]):
         have = lib.beom_smem_bytes(i, int(elem == 8))
         if have != want[kernel]:
@@ -212,20 +380,23 @@ def _entries(cfg: Config, dtype):
     return lib, entries
 
 
-def _scalars(cfg: Config, parity: int, t1, ny=None, nx=None):
+def _scalars(cfg: Config, parity: int, t1, ny=None, nx=None, ts=(),
+             aligned=False):
     """The int and double operand slots (csrc/fb_terms.cuh: Int, Dbl);
     (ny, nx) is the extent of the block stepped when it is not the whole
-    grid."""
+    grid; ts the time t1 of each step of an fb pass launch, `aligned`
+    whether its operands all start 16-byte aligned."""
     pad = [0.0] * _MAX_LAYERS
     ints = [ny or cfg.ny, nx or cfg.nx, int(parity == 0),
             int(cfg.adv_scheme == "sadourny_energy"),
             int(cfg.slip == "free"), int(cfg.nu2 != 0.0), int(cfg.wind),
-            cfg.nsub]
+            cfg.nsub, int(aligned)]
     dbls = [cfg.dt, cfg.dx, cfg.dy, cfg.g, cfg.nu2, cfg.nu4, cfg.rho0,
             cfg.h_min, cfg.h_dry, cfg.r_bot, cfg.cd_bot, cfg.r_int,
             float(t1)]
     dbls += (list(cfg.gprime) + pad)[:_MAX_LAYERS]
     dbls += (list(cfg.tides) + pad)[:_MAX_LAYERS]
+    dbls += ([float(x) for x in ts] + [0.0] * _MAX_KB)[:_MAX_KB]
     return _array(_I, ints), _array(ctypes.c_double, dbls)
 
 
@@ -256,18 +427,22 @@ def _check_operands(h, u, v, statics, cfg: Config, check=None,
                 f"{tuple(a.shape)} on {a.device}")
 
 
-def _launch_fb(h, u, v, statics, parity: int, t1, cfg: Config):
-    global LAUNCHES
+def _launch_fb(h, u, v, statics, parity: int, ts, cfg: Config):
+    """One launch of K1: len(ts) steps, step i to the time ts[i]."""
+    global LAUNCHES, PASS_LAUNCHES
     from beom_tpu_torch.stencils import build
 
-    lib, entry = _entries(cfg, h.dtype)
+    lib, entry = _entries(cfg, h.dtype, len(ts))
     outs = [torch.empty_like(h) for _ in range(3)]
-    ints, dbls = _scalars(cfg, parity, t1)
+    operands = [h, u, v] + _operands(statics)
+    aligned = all(a.data_ptr() % 16 == 0 for a in operands + outs)
+    ints, dbls = _scalars(cfg, parity, ts[0], ts=ts, aligned=aligned)
     code = entry["fb_step"](
-        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _pointers(operands), ints, dbls,
         *[a.data_ptr() for a in outs], _stream(h.device))
     build.check(lib, code, "fb_step kernel launch")
     LAUNCHES += 1
+    PASS_LAUNCHES += len(ts) > 1
     return outs
 
 
@@ -373,23 +548,81 @@ def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int):
     step n at time t.
 
     CPU tensors take the plain version.  CUDA tensors take the kernels:
-    one launch per fb step, three per split step; a configuration the
-    kernels cannot run raises.
+    ceil(k / kb) launches per pass of fb steps (`plan`), three per split
+    step; a configuration the kernels cannot run raises.
     """
     if h.device.type == "cpu":
         return fused_fb_step_plain(h, u, v, statics, n, t, cfg, k)
     _check_operands(h, u, v, statics, cfg)
     with torch.cuda.device(h.device):
-        for i in range(k):
+        if cfg.scheme == "fb":
+            for m in plan(cfg, h.dtype, k).launches(k):
+                ts = _times(t, cfg, m)
+                h, u, v = _launch_fb(h, u, v, statics, n % 2, ts, cfg)
+                n, t = n + m, ts[-1]
+            return h, u, v
+        for _ in range(k):
             t1 = advance_time(t, cfg.dt, cfg.npdtype)
-            if cfg.scheme == "fb":
-                h, u, v = _launch_fb(h, u, v, statics, (n + i) % 2, t1, cfg)
-            else:
-                slow = _launch_slow(h, u, v, statics, cfg)
-                sub = _launch_subcycle(slow, h, u, v, statics, cfg)
-                h, u, v = _launch_recompose(slow, sub, h, u, v, statics, t1,
-                                            cfg)
+            slow = _launch_slow(h, u, v, statics, cfg)
+            sub = _launch_subcycle(slow, h, u, v, statics, cfg)
+            h, u, v = _launch_recompose(slow, sub, h, u, v, statics, t1, cfg)
             t = t1
+    return h, u, v
+
+
+def _times(t, cfg: Config, m: int) -> list:
+    """The times t_1 .. t_m of m steps from t, as State.t runs."""
+    ts = []
+    for _ in range(m):
+        t = advance_time(t, cfg.dt, cfg.npdtype)
+        ts.append(t)
+    return ts
+
+
+def _cut(a, rows, cols):
+    """The (..., rows, cols) block of a, the indices taken periodically."""
+    return a.index_select(-2, rows).index_select(-1, cols)
+
+
+def fused_fb_step_tiled(h, u, v, statics, n: int, t, cfg: Config, k: int,
+                        kb=None, tile=None):
+    """The fb pass kernel's schedule on the host, for the tests: each launch
+    of a pass of k steps (`plan`'s, or kb steps per launch) of m steps cuts
+    the periodic fields, the Grid and the Forcing into blocks of the
+    launch's tile (`tile` overrides it) with a halo of m W, runs m eager fb
+    steps on each block as a grid of its own, and joins the blocks'
+    interiors.  Equal to fused_fb_step_plain bit for bit: what lies
+    outside a block's interior after m steps is wrong only within m W of
+    its edge, which pins W for every term."""
+    if cfg.scheme != "fb":
+        raise NotImplementedError("the pass kernel runs scheme='fb'")
+    grid, forcing = statics
+    ny, nx = cfg.ny, cfg.nx
+    dev = h.device
+    for m in launch_steps(k, kb or plan(cfg, h.dtype, k).kb):
+        tx, ty = tile or launch_plan(cfg, h.dtype, m).tile
+        hw = m * halo_width(cfg)
+        outs = [torch.empty_like(a) for a in (h, u, v)]
+        for y0 in range(0, ny, ty):
+            for x0 in range(0, nx, tx):
+                rows = torch.arange(y0 - hw, y0 + ty + hw, device=dev) % ny
+                cols = torch.arange(x0 - hw, x0 + tx + hw, device=dev) % nx
+                sub = dataclasses.replace(cfg, ny=len(rows), nx=len(cols))
+                g = Grid(**{f.name: _cut(getattr(grid, f.name), rows, cols)
+                            for f in dataclasses.fields(Grid)})
+                fo = Forcing(**{
+                    f.name: _cut(getattr(forcing, f.name), rows, cols)
+                    for f in dataclasses.fields(Forcing)})
+                s = State(h=_cut(h, rows, cols), u=_cut(u, rows, cols),
+                          v=_cut(v, rows, cols), t=t, n=n)
+                for _ in range(m):
+                    s = fb_mod.fb_step(s, g, fo, sub)
+                ye, xe = min(ty, ny - y0), min(tx, nx - x0)
+                for o, a in zip(outs, (s.h, s.u, s.v)):
+                    o[..., y0:y0 + ye, x0:x0 + xe] = \
+                        a[..., hw:hw + ye, hw:hw + xe]
+        h, u, v = outs
+        n, t = n + m, _times(t, cfg, m)[-1]
     return h, u, v
 
 

@@ -11,13 +11,19 @@ Phases, each of which raises on failure (exit code != 0):
      rest state: 256^2 f64 (20 steps, <= 1e-12 x field scale), f32 at
      256^2 and 2048^2 (1 step <= 4 ulp of field scale, 100 steps
      <= 1e-5 relative), 200x136 f64 (sizes not multiples of the tile),
-     linear / no-slip f64, and steps_per_pass=4 bitwise equal to 4
-     single steps
+     linear / no-slip f64; the plan of each (its launches per pass); one
+     launch of the pass kernel of kb steps (the plan's kb, and kb = 4)
+     bitwise equal to kb single-step launches from both parities at
+     256^2 and 2048^2 f32 and 256^2 f64, and steps_per_pass=4 bitwise
+     equal to 4 single steps
   4. main path: beom_tpu_torch.run.run on the 2048^2 f32 double gyre,
      backend='fused', steps_per_pass=4, 400 steps, diagnostics every
-     100: finite diagnostics, max_speed > 0, K1 launched once per step,
-     and final fields within 1e-5 relative of 400 eager steps
-  5. times of K1 and of its plain version at 2048^2 f32
+     100: finite diagnostics, max_speed > 0, K1 launched as the plan
+     says per pass (its pass kernel), final fields within 1e-5 relative
+     of 400 eager steps, and ms per step and grid-points/s of a second run
+  5. times at 2048^2 f32 of the 4-step pass (the plan's launches, and the
+     pass kernel of kb = 4 in one launch) beside four single-step
+     launches and the plain version
   6. build lines of the projection kernels: K3a/K3b (projection.cu),
      K4a (rb_sweep.cu), K6 with Jacobi (cg_jacobi.cu)
   7. the projection kernels against their plain versions on the card,
@@ -76,18 +82,23 @@ Phases, each of which raises on failure (exit code != 0):
      and split_step.cu, one library per combination of compile-time
      switches, all built in phase 2 beside the others)
  15. K1 on two_layer, coastal_wetdry and shelf_forced (both sweep parities,
-     steps_per_pass 1 and 4) and K1s, as its three kernels and as the
+     steps_per_pass 1 and 4; the pass kernel of kb = 2 where its block fits
+     a CTA, one launch bitwise 2 single-step launches) and K1s, as its
+     three kernels and as the
      chained step, on double_gyre and two_layer (nsub 4 and 8) against
      their plain versions at 200x136 f64 (<= 1e-12 x scale) and 2048^2 f32
      (<= 4 ulp of scale), from a perturbed state with dry cells and the
      open boundary inside the compared region
  16. the other paths at full width: run() with backend='fused' at 2048^2
      f32, diagnostics on: two_layer fb; double_gyre split with nsub 4, 8
-     and 12; two_layer split nsub 8; coastal_wetdry and shelf_forced fb:
+     and 12; two_layer split nsub 8; coastal_wetdry, shelf_forced and the
+     double gyre (steps_per_pass 1: the single-step kernel) fb:
      the launch counts, finite diagnostics, the mass drift of the closed
      basins, h >= 0 under wet/dry, 3 fused steps against 3 eager ones
- 17. times at 2048^2 f32: K1 per case and K1s's three kernels beside their
-     plain versions, the split step at nsub 4, 8, 12, and the device's
+ 17. times at 2048^2 f32: K1 per case (one step, and the 4-step pass by
+     the case's plan, printed, beside four single steps, the plain
+     version and the pass kernel of kb = 2) and K1s's three kernels beside
+     their plain versions, the split step at nsub 4, 8, 12, and the device's
      busy share under torch.profiler for two_layer fb and split nsub 8
 
  18. build lines of the libraries this list adds (projection.cu per case,
@@ -152,8 +163,8 @@ Phases, each of which raises on failure (exit code != 0):
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
-same work (`bound`); the last is {"ok": true, "device": {...}}.  It
-imports no jax.
+same work (`bound`; for the fb pass kernel, the kb steps of one launch);
+the last is {"ok": true, "device": {...}}.  It imports no jax.
 """
 
 from __future__ import annotations
@@ -201,6 +212,7 @@ PATHS = (
     ("two_layer", dict(scheme="split", nsub=8), 20),
     ("coastal_wetdry", {}, 20),
     ("shelf_forced", {}, 20),
+    ("double_gyre", {}, 20),
 )
 # the (case, nsub) pairs phase 15 holds K1s against its plain version on
 AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
@@ -331,6 +343,140 @@ def compare(label, device, n_steps, tol, seed=0, **kw):
             raise AssertionError(f"{label} {f}: {err!r} > {bound!r}")
         worst = max(worst, err)
     return worst
+
+
+def fb_pass_specs():
+    """The builds of K1 the fb phases launch beyond phase 2's plans: each
+    fb case's pass of 4 steps at f32 and f64 by its plan, the pass kernel
+    of kb = 2 where its block fits a CTA, and the gyre's of kb = 4."""
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.stencils import fused_fb
+
+    specs = set()
+    for name in FB_CASES:
+        for dtype in (torch.float32, torch.float64):
+            cfg = make_case(name, nx=16, ny=16, device="cpu",
+                            dtype=str(dtype).split(".")[1])[0]
+            specs |= fused_fb.pass_specs(cfg, 4, dtype)
+            for kb in (2, 4) if name == "double_gyre" else (2,):
+                if fused_fb.launch_plan(cfg, dtype, kb) is not None:
+                    specs.add(fused_fb.build_spec(cfg, dtype, kb))
+    return specs
+
+
+def pass_vs_singles(label, device, seed, case, kbs, **kw):
+    """One launch of K1's pass kernel of kb steps against kb single-step
+    launches, bit for bit, from both sweep parities, for the plan's kb of
+    a 4-step pass and each of `kbs` whose block fits a CTA; prints the
+    plan."""
+    import torch
+
+    from beom_tpu_torch.stencils import fused_fb
+
+    cfg, grid, forcing, st = perturbed_case(device, seed, case, **kw)
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    statics = (grid, forcing)
+    pl = fused_fb.plan(cfg, cfg.tdtype, 4)
+    print(f"   {label} {case}: plan of a 4-step pass: {pl.describe()}, "
+          f"launches {pl.launches(4)}")
+    for kb in sorted({pl.kb, *kbs} - {1}):
+        if fused_fb.launch_plan(cfg, cfg.tdtype, kb) is None:
+            continue
+        ts = fused_fb._times(st.t, cfg, kb)
+        for n in (0, 1):
+            out = fused_fb._launch_fb(st.h, st.u, st.v, statics, n % 2, ts,
+                                      cfg)
+            h, u, v = st.h, st.u, st.v
+            for i in range(kb):
+                h, u, v = fused_fb._launch_fb(h, u, v, statics, (n + i) % 2,
+                                              ts[i:i + 1], cfg)
+            torch.cuda.synchronize()
+            for f, a, b in zip("huv", out, (h, u, v)):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{label} {case}: the pass kernel of kb = {kb} "
+                        f"from n = {n} != {kb} single steps in {f}")
+        print(f"   {label} {case}: one launch of kb = {kb} steps bitwise "
+              f"equal to {kb} single-step launches from n = 0 and 1 "
+              f"({fused_fb.launch_plan(cfg, cfg.tdtype, kb).describe()})")
+
+
+def fb_times(case, cfg, statics, st, smi, launches, err):
+    """The 4-step pass of K1 at 2048^2 by the case's plan, beside four
+    single-step launches, the pass kernel of kb = 2 and (on the gyre) of kb
+    = 4 in one launch, and the plain version's 4 steps; the single step
+    beside its plain version.  Returns the JSON entries {"single": ...,
+    "pass": ... (None where the plan runs no pass kernel)}: `launches` =
+    (single-step, pass) launches of their paths."""
+    from beom_tpu_torch.stencils import fused_fb
+
+    pts = cfg.nx * cfg.ny
+    pl = fused_fb.plan(cfg, cfg.tdtype, 4)
+    h, u, v = st.h, st.u, st.v
+    ts = fused_fb._times(st.t, cfg, 4)
+    saved = fused_fb.LAUNCHES, fused_fb.PASS_LAUNCHES
+
+    def launches_of(steps):
+        def go():
+            a, b, c, done = h, u, v, 0
+            for m in steps:
+                a, b, c = fused_fb._launch_fb(a, b, c, statics, done % 2,
+                                              ts[done:done + m], cfg)
+                done += m
+            return a, b, c
+        return go
+
+    single, one_plain = time_pair(
+        f"K1 {case} one step",
+        lambda: fused_fb.fused_fb_step_plain(h, u, v, statics, 0, st.t, cfg,
+                                             1),
+        launches_of([1]), 10, 200, unit="step")
+    print(f"   K1 {case}: plan of a 4-step pass: {pl.describe()}, launches "
+          f"{pl.launches(4)} ({smi})")
+    runs = {"plan": pl.launches(4), "4 single steps": [1] * 4}
+    for kb in (2, 4) if case == "double_gyre" else (2,):
+        if fused_fb.launch_plan(cfg, cfg.tdtype, kb) is not None:
+            runs[f"pass kernel kb = {kb}"] = fused_fb.launch_steps(4, kb)
+    plain4 = time_ms(lambda: fused_fb.fused_fb_step_plain(
+        h, u, v, statics, 0, st.t, cfg, 4), 5)
+    order = list(runs) + list(reversed(runs))
+    got = {}
+    for name in order:
+        got.setdefault(name, []).append(time_ms(launches_of(runs[name]), 100))
+    for name in runs:
+        ms = got[name]
+        print(f"   K1 {case} 4-step pass, {name} {runs[name]}: {ms!r} ms "
+              f"({pts * 4 / (sum(ms) / len(ms)) * 1e3!r} grid-point steps/s)"
+              f"; plain version {plain4!r} ms ({smi})")
+    fused_fb.LAUNCHES, fused_fb.PASS_LAUNCHES = saved
+    suffix = "" if case == "double_gyre" else f"_{case}"
+    entries = {"single": kernel_entry(
+        "fb_step" + suffix, "fb_step.cu", "band.py:200", launches[0], err,
+        (single, one_plain), step_fields(cfg) * pts * cfg.npdtype.itemsize,
+        150 * cfg.nz * pts), "pass": None}
+    if pl.kb > 1:
+        # the pass kernel's function: kb steps, each operand read once and
+        # each result written once; its error against kb plain steps
+        import torch
+
+        got_kb = launches_of([pl.kb])()
+        torch.cuda.synchronize()
+        ref = fused_fb.fused_fb_step_plain(h, u, v, statics, 0, st.t, cfg,
+                                           pl.kb)
+        err = max(float((a - b).abs().max()) for a, b in zip(got_kb, ref))
+        fused_fb.LAUNCHES, fused_fb.PASS_LAUNCHES = saved
+        ms = got["plan"]
+        per_launch = sum(ms) / len(ms) / len(pl.launches(4))
+        plain_kb = time_ms(lambda: fused_fb.fused_fb_step_plain(
+            h, u, v, statics, 0, st.t, cfg, pl.kb), 5)
+        entries["pass"] = kernel_entry(
+            "fb_pass" + suffix, "fb_step.cu", "band.py:200", launches[1],
+            err, (per_launch, plain_kb),
+            step_fields(cfg) * pts * cfg.npdtype.itemsize,
+            150 * cfg.nz * pl.kb * pts)
+    return entries
 
 
 def print_build(build, name):
@@ -800,6 +946,7 @@ def main() -> dict:
                 name, nx=16, ny=16, device="cpu", dtype=dtype,
                 scheme=scheme)[0]))
     specs |= scheme_mesh_specs()
+    specs |= fb_pass_specs()
     todo = [k for k in KERNELS if k not in ("fb_step", "projection")] \
         + sorted(specs)
     # 16 nvcc processes at a time keep the host's memory in bounds
@@ -810,8 +957,11 @@ def main() -> dict:
     print(f"   {', '.join(KERNELS)}, split_step and shard_step "
           f"({len(todo)} libraries) built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
-    print_build(build, build.label(fused_fb.build_spec(make_case(
-        "double_gyre", nx=16, ny=16, device="cpu")[0])))
+    gyre = make_case("double_gyre", nx=16, ny=16, device="cpu",
+                     steps_per_pass=4)[0]
+    for kb in sorted({1, 4} | set(fused_fb.plan(gyre).launches(4))):
+        print_build(build, build.label(fused_fb.build_spec(
+            gyre, torch.float32, kb)))
 
     phase("3 K1 against its plain version")
 
@@ -832,6 +982,10 @@ def main() -> dict:
             dtype="float64")
     compare("200x136 f64 linear no-slip x20", dev, 20, rel(1e-12), nx=200,
             ny=136, dtype="float64", adv_scheme="linear", slip="no")
+    for label, kw in (("256^2 f32", dict(nx=256, ny=256)),
+                      (f"{BIG}^2 f32", dict(nx=BIG, ny=BIG)),
+                      ("256^2 f64", dict(nx=256, ny=256, dtype="float64"))):
+        pass_vs_singles(label, dev, 5, "double_gyre", (4,), **kw)
 
     cfg, grid, forcing, st = perturbed_case(dev, 1, nx=256, ny=256)
     four = make_stepper(grid, forcing, dataclasses.replace(
@@ -854,19 +1008,27 @@ def main() -> dict:
         steps_per_pass=4, diag_every=100)
     n_steps = 400
     log = io.StringIO()
+    main_plan = fused_fb.plan(cfg, torch.float32)
+    per_pass = main_plan.launches(cfg.steps_per_pass)
+    print(f"   plan: {main_plan.describe()}; launches per pass of "
+          f"{cfg.steps_per_pass} steps: {per_pass}")
     torch.cuda.synchronize()
-    fused_fb.LAUNCHES = 0
+    fused_fb.LAUNCHES = fused_fb.PASS_LAUNCHES = 0
     t0 = time.perf_counter()
     out = run(cfg, grid, forcing, st, n_steps, log=log)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fused_fb.LAUNCHES
+    launches, pass_launches = fused_fb.LAUNCHES, fused_fb.PASS_LAUNCHES
     diags = [json.loads(x) for x in log.getvalue().splitlines()]
     for d in diags:
         print("   " + json.dumps(d))
-    if launches != n_steps:
-        raise AssertionError(f"K1 launched {launches} times in {n_steps} "
-                             "steps of the main path")
+    want = n_steps // cfg.steps_per_pass * len(per_pass)
+    want_pass = n_steps // cfg.steps_per_pass * sum(m > 1 for m in per_pass)
+    if (launches, pass_launches) != (want, want_pass) or not want_pass:
+        raise AssertionError(
+            f"K1 launched {launches} times ({pass_launches} of the pass "
+            f"kernel) in {n_steps} steps of the main path, not {want} "
+            f"({want_pass})")
     if [d["n"] for d in diags] != [100, 200, 300, 400]:
         raise AssertionError("diagnostics missing")
     if not all(d["finite"] == 1.0 and all(np.isfinite(list(
@@ -880,9 +1042,19 @@ def main() -> dict:
     drift = (diags[-1]["mass"] - mass0) / mass0
     sum0 = float(st.h.double().sum())
     drift64 = (float(out.h.double().sum()) - sum0) / sum0
-    print(f"   K1 launches {launches}; relative mass drift {drift!r} "
-          f"(diagnostic), {drift64!r} (f64 sum of h); {n_steps} steps in "
-          f"{wall:.3f} s wall (diagnostics included)")
+    print(f"   K1 launches {launches} ({pass_launches} of the pass kernel, "
+          f"{len(per_pass)} per pass of {cfg.steps_per_pass} steps); "
+          f"relative mass drift {drift!r} (diagnostic), {drift64!r} (f64 sum "
+          f"of h); {n_steps} steps in {wall:.3f} s wall (first run, "
+          "diagnostics included)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+    torch.cuda.synchronize()
+    ms_step = (time.perf_counter() - t0) / n_steps * 1e3
+    print(f"   main path, second run: {ms_step!r} ms/step, "
+          f"{BIG * BIG / ms_step * 1e3!r} grid-points/s (diagnostics every "
+          f"100 steps included; {smi})")
     eager = make_stepper(grid, forcing, dataclasses.replace(
         cfg, backend="eager", steps_per_pass=1))
     ref = st
@@ -899,28 +1071,11 @@ def main() -> dict:
 
     phase(f"5 times at {BIG}^2 f32")
     cfg, grid, forcing, st = perturbed_case(dev, 2, nx=BIG, ny=BIG)
-    args = (st.h, st.u, st.v, (grid, forcing), st.n, st.t, cfg, 1)
-    n_calls = fused_fb.LAUNCHES
-    runs = []
-    for which in ("plain", "K1", "K1", "plain"):
-        fn = fused_fb.fused_fb_step_plain if which == "plain" \
-            else fused_fb.fused_fb_step
-        runs.append((which, time_ms(lambda: fn(*args),
-                                    20 if which == "plain" else 200)))
-    fused_fb.LAUNCHES = n_calls
-    pts = cfg.nx * cfg.ny
-    for which, ms in runs:
-        print(f"   {which}: {ms!r} ms/step, {pts / ms * 1e3!r} points/s "
-              f"({smi})")
-    k1 = [ms for w, ms in runs if w == "K1"]
-    plain = [ms for w, ms in runs if w == "plain"]
-    kernels = [kernel_entry(
-        "fb_step", "fb_step.cu", "band.py:200", launches, max_err,
-        (sum(k1) / len(k1), sum(plain) / len(plain)),
-        step_fields(cfg) * pts * 4, 150 * pts)]
+    kernels = [fb_times("double_gyre", cfg, (grid, forcing), st, smi,
+                        (None, pass_launches), max_err)["pass"]]
     kernels += projection_phases(dev, smi, rel, ulps)
     kernels += multigrid_phases(dev, smi, rel, ulps)
-    kernels += case_phases(dev, smi, rel, ulps)
+    kernels += case_phases(dev, smi, rel, ulps, max_err)
     kernels += projection_case_phases(dev, smi, rel, ulps)
     kernels += mesh_phases(dev, smi, rel, ulps)
     kernels += scheme_mesh_phases(dev, smi, rel, ulps)
@@ -1660,7 +1815,7 @@ def busy_share(label, fn, n_steps, by_grid=None):
                   f"launches ({us / busy:.3f} of device time)")
 
 
-def case_phases(dev, smi, rel, ulps):
+def case_phases(dev, smi, rel, ulps, gyre_err):
     """Phases 14 to 17; returns the kernels' JSON entries."""
     import torch
 
@@ -1675,12 +1830,16 @@ def case_phases(dev, smi, rel, ulps):
         print_build(build, item)
 
     phase("15 K1 per case and K1s against their plain versions")
-    err = {}
+    err = {("double_gyre", "fb"): gyre_err}
     for case in ("two_layer", "coastal_wetdry", "shelf_forced"):
         fb_case_compare("200x136 f64", dev, rel(1e-12), 41, case, nx=200,
                         ny=136, dtype="float64")
         err[case, "fb"] = fb_case_compare(f"{BIG}^2 f32", dev, ulps(4), 42,
                                           case, nx=BIG, ny=BIG)
+    for case in FB_CASES:
+        pass_vs_singles("200x136 f64", dev, 45, case, (2,), nx=200, ny=136,
+                        dtype="float64")
+        pass_vs_singles(f"{BIG}^2 f32", dev, 46, case, (2,), nx=BIG, ny=BIG)
     for case, nsub in AGREE_SPLIT:
         split_phases_compare("200x136 f64", dev, rel(1e-12), 43, case,
                              nx=200, ny=136, dtype="float64", nsub=nsub)
@@ -1700,17 +1859,11 @@ def case_phases(dev, smi, rel, ulps):
     saved = (fused_fb.LAUNCHES, dict(fused_fb.SPLIT_LAUNCHES))
     entries = []
     pts = BIG * BIG
-    for case in ("two_layer", "coastal_wetdry", "shelf_forced"):
+    for case in FB_CASES:
         cfg, grid, forcing, st = perturbed_case(dev, 2, case, nx=BIG, ny=BIG)
-        args = (st.h, st.u, st.v, (grid, forcing), st.n, st.t, cfg, 1)
-        ms = time_pair(f"K1 {case}",
-                       lambda: fused_fb.fused_fb_step_plain(*args),
-                       lambda: fused_fb.fused_fb_step(*args), 10, 100,
-                       unit="step")
-        entries.append(kernel_entry(
-            f"fb_step_{case}", "fb_step.cu", "band.py:200",
-            launches[case, "fb_step"], err[case, "fb"], ms,
-            step_fields(cfg) * pts * 4, 150 * cfg.nz * pts))
+        entries.append(fb_times(
+            case, cfg, (grid, forcing), st, smi,
+            (launches[case, "fb_step"], 0), err[case, "fb"])["single"])
     for case in ("double_gyre", "two_layer"):
         cfg, grid, forcing, st = perturbed_case(
             dev, 2, case, nx=BIG, ny=BIG, scheme="split", nsub=8)

@@ -66,7 +66,8 @@ def test_kernel_matches_plain(cuda, dtype, n_steps, rel, variant):
     before = fused_fb.LAUNCHES
     out = fused_fb.fused_fb_step(*args)
     torch.cuda.synchronize()
-    assert fused_fb.LAUNCHES == before + n_steps
+    assert fused_fb.LAUNCHES == before + len(
+        fused_fb.plan(cfg, cfg.tdtype, n_steps).launches(n_steps))
     ref = fused_fb.fused_fb_step_plain(*args)
     for f, a, b in zip("huv", out, ref):
         scale = float(b.abs().max())
@@ -90,9 +91,10 @@ SIZES = [("float32", 128, 128, 4 * 2.0 ** -23),
 @pytest.mark.parametrize("dtype,nx,ny,rel", SIZES)
 @pytest.mark.parametrize("name", list(CASE_KW))
 def test_fb_kernel_matches_plain_per_case(cuda, name, dtype, nx, ny, rel):
-    """K1 on each case at both sweep parities and over a 4-step pass:
-    4 ulp of the field's scale at f32, 1e-12 x scale at f64 (the kernel
-    mirrors the eager arithmetic, so 0.0 is what the card gives)."""
+    """K1 on each case at both sweep parities and over a 4-step pass (the
+    plan's launches: ceil(4 / kb)): 4 ulp of the field's scale at f32,
+    1e-12 x scale at f64 (the kernel mirrors the eager arithmetic, so 0.0
+    is what the card gives)."""
     cfg, grid, forcing, st = _perturbed(cuda, 50, name, nx=nx, ny=ny,
                                         dtype=dtype, **CASE_KW[name])
     statics = (grid, forcing)
@@ -101,11 +103,43 @@ def test_fb_kernel_matches_plain_per_case(cuda, name, dtype, nx, ny, rel):
         before = fused_fb.LAUNCHES
         out = fused_fb.fused_fb_step(*args)
         torch.cuda.synchronize()
-        assert fused_fb.LAUNCHES == before + k
+        assert fused_fb.LAUNCHES == before + len(
+            fused_fb.plan(cfg, cfg.tdtype, k).launches(k))
         ref = fused_fb.fused_fb_step_plain(*args)
         for f, a, b in zip("huv", out, ref):
             err = float((a - b).abs().max())
             assert err <= rel * float(b.abs().max()), (f, n, k, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,dtype,nx,ny", [
+    (name, dtype, nx, ny) for name in CASE_KW
+    for dtype, nx, ny in (("float32", 128, 128), ("float64", 200, 136))]
+    + [("double_gyre", "float32", 2048, 2048)])
+def test_fb_pass_equals_single_steps(cuda, name, dtype, nx, ny):
+    """One launch of the pass kernel of kb steps is bitwise kb launches of
+    the single-step kernel, for every kb whose block fits a CTA, from both
+    sweep parities (2048^2: the main path's case)."""
+    cfg, grid, forcing, st = _perturbed(cuda, 52, name, nx=nx, ny=ny,
+                                        dtype=dtype, **CASE_KW[name])
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))     # the tide is on
+    statics = (grid, forcing)
+    kbs = [m for m in range(2, 5)
+           if fused_fb.launch_plan(cfg, cfg.tdtype, m) is not None]
+    for kb in kbs:
+        ts = fused_fb._times(st.t, cfg, kb)
+        for n in (0, 1):
+            before = fused_fb.LAUNCHES
+            out = fused_fb._launch_fb(st.h, st.u, st.v, statics, n % 2, ts,
+                                      cfg)
+            assert fused_fb.LAUNCHES == before + 1
+            h, u, v = st.h, st.u, st.v
+            for i in range(kb):
+                h, u, v = fused_fb._launch_fb(h, u, v, statics, (n + i) % 2,
+                                              ts[i:i + 1], cfg)
+            torch.cuda.synchronize()
+            for f, a, b in zip("huv", out, (h, u, v)):
+                assert torch.equal(a, b), (f, kb, n)
 
 
 @pytest.mark.cuda

@@ -17,7 +17,7 @@ from beom_tpu_torch.stepping import make_stepper
 from tests.torch_parity import perturbed_case
 
 
-@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("k", [1, 2, 4])
 def test_plain_matches_pallas_interpret(k):
     """3 calls of k steps each: 1e-12 x max(scale, 1), as
     tests/unit/test_pallas.py bounds the Pallas kernel."""

@@ -5,7 +5,10 @@ step on one NVIDIA GPU, for the checkout of beom_tpu_torch at ROOT.
     python3 tools/kernel_times.py ROOT
 
 At 2048^2 f32 from chip_smoke.py's perturbed state: K1 (the fb step,
-double gyre), K1s's three kernels (split, nsub 8), K3a / K3b (implicit FS
+double gyre; one step on each of the four fb cases; the double gyre's
+4-step pass as the checkout runs it: four launches, or its plan's launches
+of the pass kernel, each launch of K1 counted under the key "fb_"),
+K1s's three kernels (split, nsub 8), K3a / K3b (implicit FS
 on the rigid-lid gyre), K7 (the fb shard step on a 2 x 4 mesh of shards
 on the card), K5 (a visit of the 512^2 tail, de-mean on, as solver='mg'
 runs it), K6 with multigrid (a cold solve of the rigid lid's first
@@ -27,7 +30,9 @@ Jacobi also at 2048^2 f64 and on the 200x136 coastal_wetdry at f32 and
 f64; and the ms per step of run() on the 2048^2 f32 rigid lid with
 implicit FS (CG + Jacobi), path (a), the red-black solve, path (b), its
 default solve, path (c), and solver='mg', path (d), after one step not
-timed.  Then, for every library the run built, each kernel's registers
+timed; and of the main path, run() on the 2048^2 f32 double gyre with
+steps_per_pass = 4, 400 steps, diagnostics every 100, after one run not
+timed, in ms per step and grid-points/s.  Then, for every library the run built, each kernel's registers
 and spill bytes (nvcc's -Xptxas -v lines) and its count of SASS
 instructions (cuobjdump -sass).  It prints one
 JSON line.  To compare two commits, unpack both and run this for each,
@@ -198,6 +203,18 @@ def main(root: str) -> dict:
     statics = (grid, forcing)
     record("K1", lambda: fused_fb.fused_fb_step(
         st.h, st.u, st.v, statics, 0, st.t, cfg, 1), 200, "fb_step_kernel")
+    # the 4-step pass: the launches it takes on this checkout
+    per_pass = len(fused_fb.plan(cfg, cfg.tdtype, 4).launches(4)) \
+        if hasattr(fused_fb, "plan") else 4
+    out["K1 4-step pass launches"] = per_pass
+    record("K1 4-step pass", lambda: fused_fb.fused_fb_step(
+        st.h, st.u, st.v, statics, 0, st.t, cfg, 4), 100, "fb_", per_pass)
+    for case in ("two_layer", "coastal_wetdry", "shelf_forced"):
+        c_cfg, c_grid, c_forcing, c_st = sm.perturbed_case(dev, 2, case,
+                                                           nx=N, ny=N)
+        record(f"K1 {case}", lambda: fused_fb.fused_fb_step(
+            c_st.h, c_st.u, c_st.v, (c_grid, c_forcing), 0, c_st.t, c_cfg,
+            1), 100, "fb_step_kernel")
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N,
                                                scheme="split", nsub=8)
@@ -295,6 +312,17 @@ def main(root: str) -> dict:
         run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
         torch.cuda.synchronize()
         out[name] = (time.perf_counter() - t0) / n_steps * 1e3
+    cfg, grid, forcing, st = make_case("double_gyre", nx=N, ny=N, device=dev,
+                                       backend="fused", steps_per_pass=4,
+                                       diag_every=100)
+    run(cfg, grid, forcing, st, 400, log=io.StringIO())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(cfg, grid, forcing, st, 400, log=io.StringIO())
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / 400 * 1e3
+    out["main path run() ms/step"] = ms
+    out["main path run() grid-points/s"] = N * N / ms * 1e3
     out["code"] = code_report(build)
     out["power"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
