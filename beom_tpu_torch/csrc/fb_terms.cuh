@@ -66,6 +66,17 @@
 #ifndef BEOM_THREADS
 #define BEOM_THREADS 256
 #endif
+// the split step's tail (subcycle + recomposition in one launch): its tile
+// width, and its strips per column and rows per strip (split_body.cuh)
+#ifndef BEOM_QX
+#define BEOM_QX 44
+#endif
+#ifndef BEOM_QS
+#define BEOM_QS 16
+#endif
+#ifndef BEOM_QP
+#define BEOM_QP 4
+#endif
 // the fb pass kernel: its steps per launch, and whether the wind planes are
 // staged (the Config's wind)
 #ifndef BEOM_KB
@@ -92,6 +103,9 @@ constexpr int NSUB = BEOM_NSUB;
 constexpr int SX = BEOM_SX;
 constexpr int SY = BEOM_SY;
 constexpr int THREADS = BEOM_THREADS;
+constexpr int QX = BEOM_QX;
+constexpr int QS = BEOM_QS;
+constexpr int QP = BEOM_QP;
 constexpr int KB = BEOM_KB;
 constexpr bool WIND = BEOM_WIND;
 // first block index at which the continuity's h1 is valid: the limiter
@@ -468,13 +482,15 @@ __device__ __forceinline__ void load_eta_ext(const Params<T>& p,
 // mask [clamped to the exterior] on [A + LO, R - A - LO), from the planes h
 // and the advecting velocities ua, va, valid on [A, R - A).  fx, fy, sc are
 // NZ scratch planes each, used under wet/dry only.  `fb` adds the sponge
-// and the exterior clamp of fb.continuity_update.  Ends with a
-// __syncthreads().
-template <typename T, int RX, int RY, typename TileT, int A = 0>
+// and the exterior clamp of fb.continuity_update.  NT is the CTA's thread
+// count.  Ends with a __syncthreads().
+template <typename T, int RX, int RY, typename TileT, int A = 0,
+          int NT = THREADS>
 __device__ __forceinline__ void continuity_stage(
     const TileT& c, const T* h, const T* ua, const T* va, T* h1, T* fx, T* fy,
     T* sc, bool fb) {
   constexpr int NPT = RX * RY;
+  constexpr int THREADS = NT;    // the stride of the REGION loops below
   const Params<T>& p = c.p;
   const int tid = threadIdx.x;
   if (WETDRY) {

@@ -1,12 +1,14 @@
-// The stage bodies of the split step's three kernels (slow phase, barotropic
-// subcycle, recomposition with fb.finalize), shared by the single-device
-// step (split_step.cu, K1s) and the step on the shards of a device mesh
-// (shard_split.cu, K7 around the split body).  Each body takes a source
-// (shard_addr.cuh: where the tile's haloed points come from) and an Out
-// (which interior points are written, and where); the arithmetic is the
-// same for both, so a shard's result equals the single-device kernel's on
-// the same points bit for bit.  split_step.cu says why three kernels and
-// not one.
+// The stage bodies of the split step's kernels: the slow phase, the
+// barotropic subcycle and the recomposition with fb.finalize, shared by the
+// single-device step (split_step.cu, K1s's route 3) and the step on the
+// shards of a device mesh (shard_split.cu, K7 around the split body); and
+// the tail of K1s's route 2 (namespace tail: the subcycle, the
+// recomposition and finalize in one launch, after the slow phase writes
+// only its tendencies).  Each of the three takes a source (shard_addr.cuh:
+// where the tile's haloed points come from) and an Out (which interior
+// points are written, and where); the arithmetic is the same for both, so
+// a shard's result equals the single-device kernel's on the same points
+// bit for bit.  split_step.cu says why two routes.
 
 #pragma once
 
@@ -22,6 +24,9 @@ enum Slow {
   S_ETA0, S_CU, S_CV, N_SLOW
 };
 enum Sub { B_ETA, B_UB, B_VB, B_UAVG, B_VAVG, N_SUB };
+// outputs of the slow phase of the two-launch step: the layer tendencies
+// du_s, dv_s (nz planes each), from which the tail rebuilds SlowPhase
+enum Tend { T_DUS, T_DVS, N_TEND };
 // the source fields of each kernel: the slow phase reads h, u, v; the
 // subcycle the slow phase's fields; the recomposition h, the slow phase's
 // and the subcycle's fields
@@ -63,11 +68,11 @@ constexpr int smem_bytes() {
 }
 
 // Stage regions: phi, q (and lap for nu4) on [1, R-1); the tendencies with
-// the PV cross terms on the interior [2, R-2).
-template <typename T, typename Src>
+// the PV cross terms on the interior [2, R-2).  NO = N_SLOW writes
+// SlowPhase's fields; NO = N_TEND writes only the layer tendencies.
+template <typename T, typename Src, int NO>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
-                                    const Ptrs<T, N_SLOW>& out,
-                                    const Out& o) {
+                                    const Ptrs<T, NO>& out, const Out& o) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
@@ -116,59 +121,76 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
   }
   REGION(1, 1, { c.phi_q(s, false, phi, q); })
 
-  for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
-    const int jj = k_ / TX;
-    const int ii = k_ % TX;
-    if (!o.valid(jj, ii)) continue;
-    const int s = (W + jj) * RX + W + ii;
-    const long g = o.at(jj, ii);
-    T hu[NZ], hv[NZ], dus[NZ], dvs[NZ];
-    T Hu, Hv, nu_, nv_, hs;
+  if constexpr (NO == N_TEND) {
+    for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+      const int jj = k_ / TX;
+      const int ii = k_ % TX;
+      if (!o.valid(jj, ii)) continue;
+      const int s = (W + jj) * RX + W + ii;
+      const long g = o.at(jj, ii);
 #pragma unroll
-    for (int k = 0; k < NZ; ++k) {
-      hu[k] = c.hx(k, s) * mu[s];
-      hv[k] = c.hy(k, s) * mv[s];
-      const T uu = hu[k] * u[k * NPT + s];
-      const T vv = hv[k] * v[k * NPT + s];
-      Hu = (k > 0) ? Hu + hu[k] : hu[k];
-      Hv = (k > 0) ? Hv + hv[k] : hv[k];
-      nu_ = (k > 0) ? nu_ + uu : uu;
-      nv_ = (k > 0) ? nv_ + vv : vv;
-      hs = (k > 0) ? hs + h[k * NPT + s] : h[k * NPT + s];
-      dus[k] = c.tend_u(k, s) + c.cor_u(k, s, v + k * NPT);
-      dvs[k] = c.tend_v(k, s) - c.cor_v(k, s, u + k * NPT);
+      for (int k = 0; k < NZ; ++k) {
+        out.p[T_DUS][k * o.plane + g] =
+            c.tend_u(k, s) + c.cor_u(k, s, v + k * NPT);
+        out.p[T_DVS][k * o.plane + g] =
+            c.tend_v(k, s) - c.cor_v(k, s, u + k * NPT);
+      }
     }
-    Hu = vmax(Hu, p.h_min);
-    Hv = vmax(Hv, p.h_min);
-    const T ubar = nu_ / Hu;
-    const T vbar = nv_ / Hv;
-    T du_bar, dv_bar;
+  } else {
+    for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+      const int jj = k_ / TX;
+      const int ii = k_ % TX;
+      if (!o.valid(jj, ii)) continue;
+      const int s = (W + jj) * RX + W + ii;
+      const long g = o.at(jj, ii);
+      T hu[NZ], hv[NZ], dus[NZ], dvs[NZ];
+      T Hu, Hv, nu_, nv_, hs;
 #pragma unroll
-    for (int k = 0; k < NZ; ++k) {
-      const T a = hu[k] * dus[k];
-      const T b = hv[k] * dvs[k];
-      du_bar = (k > 0) ? du_bar + a : a;
-      dv_bar = (k > 0) ? dv_bar + b : b;
-    }
-    du_bar = du_bar / Hu;
-    dv_bar = dv_bar / Hv;
+      for (int k = 0; k < NZ; ++k) {
+        hu[k] = c.hx(k, s) * mu[s];
+        hv[k] = c.hy(k, s) * mv[s];
+        const T uu = hu[k] * u[k * NPT + s];
+        const T vv = hv[k] * v[k * NPT + s];
+        Hu = (k > 0) ? Hu + hu[k] : hu[k];
+        Hv = (k > 0) ? Hv + hv[k] : hv[k];
+        nu_ = (k > 0) ? nu_ + uu : uu;
+        nv_ = (k > 0) ? nv_ + vv : vv;
+        hs = (k > 0) ? hs + h[k * NPT + s] : h[k * NPT + s];
+        dus[k] = c.tend_u(k, s) + c.cor_u(k, s, v + k * NPT);
+        dvs[k] = c.tend_v(k, s) - c.cor_v(k, s, u + k * NPT);
+      }
+      Hu = vmax(Hu, p.h_min);
+      Hv = vmax(Hv, p.h_min);
+      const T ubar = nu_ / Hu;
+      const T vbar = nv_ / Hv;
+      T du_bar, dv_bar;
 #pragma unroll
-    for (int k = 0; k < NZ; ++k) {
-      const long gk = k * o.plane + g;
-      out.p[S_UP][gk] = u[k * NPT + s] - ubar;
-      out.p[S_VP][gk] = v[k * NPT + s] - vbar;
-      out.p[S_DUP][gk] = dus[k] - du_bar;
-      out.p[S_DVP][gk] = dvs[k] - dv_bar;
+      for (int k = 0; k < NZ; ++k) {
+        const T a = hu[k] * dus[k];
+        const T b = hv[k] * dvs[k];
+        du_bar = (k > 0) ? du_bar + a : a;
+        dv_bar = (k > 0) ? dv_bar + b : b;
+      }
+      du_bar = du_bar / Hu;
+      dv_bar = dv_bar / Hv;
+#pragma unroll
+      for (int k = 0; k < NZ; ++k) {
+        const long gk = k * o.plane + g;
+        out.p[S_UP][gk] = u[k * NPT + s] - ubar;
+        out.p[S_VP][gk] = v[k * NPT + s] - vbar;
+        out.p[S_DUP][gk] = dus[k] - du_bar;
+        out.p[S_DVP][gk] = dvs[k] - dv_bar;
+      }
+      out.p[S_DUBAR][g] = du_bar;
+      out.p[S_DVBAR][g] = dv_bar;
+      out.p[S_UBAR][g] = ubar;
+      out.p[S_VBAR][g] = vbar;
+      out.p[S_HU][g] = Hu;
+      out.p[S_HV][g] = Hv;
+      out.p[S_ETA0][g] = (hs - c.glob(I_HB, s)) * mask[s];
+      out.p[S_CU][g] = c.drag_u(s);
+      out.p[S_CV][g] = c.drag_v(s);
     }
-    out.p[S_DUBAR][g] = du_bar;
-    out.p[S_DVBAR][g] = dv_bar;
-    out.p[S_UBAR][g] = ubar;
-    out.p[S_VBAR][g] = vbar;
-    out.p[S_HU][g] = Hu;
-    out.p[S_HV][g] = Hv;
-    out.p[S_ETA0][g] = (hs - c.glob(I_HB, s)) * mask[s];
-    out.p[S_CU][g] = c.drag_u(s);
-    out.p[S_CV][g] = c.drag_v(s);
   }
 }
 
@@ -435,6 +457,324 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
 }
 
 }  // namespace rec
+
+// ---------------------------------------------------------------------- tail
+// The subcycle, the recomposition and fb.finalize of one split step in one
+// launch, from h, u, v and the slow phase's layer tendencies (Tend).  A CTA
+// steps a tile of QX x QY points on a block with a halo of NSUB + LO + E:
+// after NSUB substeps eta_f, ubar_avg and vbar_avg are exact on the
+// recomposition's block [A, R - A) (A = NSUB, a halo of LO + E), whose
+// stages then read them from shared memory.  The continuity reaches LO
+// points; E = 1 where fb.finalize reads the new thickness one point east
+// and north (the wet/dry gates, Flather), else 0.  The block's rim is
+// spoilt one ring per substep, whatever it held (the substeps read
+// neighbours past the rim from the adjacent planes).
+//
+// A thread owns a strip of QP points of one column (column tid % RX, rows
+// QP (tid / RX) ..), and keeps their barotropic state (eta, ubar, vbar, the
+// running sums) and what a substep reads at its own point only (Hu, Hv,
+// du_bar, dv_bar) in registers.  Shared memory holds the three fields that
+// neighbours read, U = Hu ubar, V = Hv vbar and eta, and the masks; a
+// substep reads V and eta of the strip's own rows from registers, so it
+// costs the thread two shared-memory reads of neighbours per point (U to
+// the west, eta to the east) and one at each end of its strip.
+//
+// Phase A rebuilds SlowPhase at each point from h, u, v and du_s, dv_s, op
+// for op as slow::run computes it, so each value is bitwise the stored
+// one: Hu, Hv, ubar, vbar, eta0, du_bar, dv_bar on the block; up, vp, dup,
+// dvp and the bottom drag where the recomposition reads them.
+namespace tail {
+
+constexpr int HALO = NSUB + LO + ((WETDRY || OBC) ? 1 : 0);
+constexpr int RX = QX + 2 * HALO;
+constexpr int QT = RX * QS;            // threads: QS strips of each column
+constexpr int RY = QS * QP;
+constexpr int QY = RY - 2 * HALO;
+constexpr int NPT = RX * RY;
+constexpr int A = NSUB;
+constexpr int THREADS = QT;            // the stride of the REGION loops
+static_assert(QY > 0, "the tail's block holds no tile");
+static_assert(QT <= 1024, "the tail's CTA has more than 1024 threads");
+
+// shared-memory planes: the masks and eta throughout; U, V during the
+// substeps, and in their place after them the advecting velocities, h, h1
+// (and the limiter's fluxes and scales, the tidal elevation)
+enum Plane {
+  P_M, P_MU, P_MV, P_ETA, P_U, P_V,
+  P_UA = P_U,
+  P_VA = P_UA + NZ,
+  P_H = P_VA + NZ,
+  P_H1 = P_H + NZ,
+  P_FX = P_H1 + NZ,
+  P_FY = P_FX + (WETDRY ? NZ : 0),
+  P_SC = P_FY + (WETDRY ? NZ : 0),
+  P_EE = P_SC + (WETDRY ? NZ : 0),
+  N_PLANES = P_EE + (OBC ? 1 : 0)
+};
+
+// the planes, then the block's row and column offsets into the grid (one
+// more of each: the east and north neighbours of the block's last points)
+template <typename T>
+constexpr int smem_bytes() {
+  return int(N_PLANES * NPT * sizeof(T) + (RX + RY + 2) * sizeof(int));
+}
+
+// the statics through the block's row and column offsets
+template <typename T>
+struct RowColStat {
+  const int *roff, *coff;
+  __device__ __forceinline__ T get(const Params<T>& p, int i, int s) const {
+    return p.in[i][roff[s / RX] + coff[s % RX]];
+  }
+  __device__ __forceinline__ T get(const Params<T>& p, int i, int k,
+                                   int s) const {
+    return p.in[i][k * p.plane + roff[s / RX] + coff[s % RX]];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p,
+                                    const Ptrs<T, N_TEND>& tend, const Out& o,
+                                    T* out_h, T* out_u, T* out_v, T dte,
+                                    T inv_nsub) {
+  extern __shared__ unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  int* coff = roff + RY + 1;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* eta = sm + P_ETA * NPT;
+  T* U = sm + P_U * NPT;
+  T* V = sm + P_V * NPT;
+  T* ua = sm + P_UA * NPT;
+  T* va = sm + P_VA * NPT;
+  T* h = sm + P_H * NPT;
+  T* h1 = sm + P_H1 * NPT;
+  T* fx = sm + P_FX * NPT;
+  T* fy = sm + P_FY * NPT;
+  T* sc = sm + P_SC * NPT;
+  T* ee = sm + P_EE * NPT;
+  const int tid = threadIdx.x;
+  const int x = tid % RX;
+  const int y0 = (tid / RX) * QP;        // the strip's first row
+  const int s0 = y0 * RX + x;            // its first point; row r at s0 + r RX
+  for (int r = tid; r <= RY; r += QT) roff[r] = wrap(o.y0 - HALO + r, p.ny) * p.nx;
+  for (int c = tid; c <= RX; c += QT) coff[c] = wrap(o.x0 - HALO + c, p.nx);
+  __syncthreads();
+  const T* hin = p.in[I_H];
+  const T* uin = p.in[I_U];
+  const T* vin = p.in[I_V];
+  const int cx = coff[x];
+  const int cx1 = coff[x + 1];
+
+  // phase A: SlowPhase's barotropic fields at the strip's points, as
+  // slow::run computes them (hx, hy from h at the east and north points)
+  T ub[QP], vb[QP], et[QP], su[QP], sv[QP], Hu[QP], Hv[QP], dub[QP],
+      dvb[QP];
+#pragma unroll
+  for (int r = 0; r < QP; ++r) {
+    const int s = s0 + r * RX;
+    const int g = roff[y0 + r] + cx;
+    const int gx = roff[y0 + r] + cx1;
+    const int gy = roff[y0 + r + 1] + cx;
+    const T m_ = p.in[I_MASK][g];
+    const T mu_ = p.in[I_MASK_U][g];
+    const T mv_ = p.in[I_MASK_V][g];
+    T hU, hV, nu_, nv_, hs, du_, dv_;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      const long ko = k * p.plane;
+      const T h0 = hin[ko + g];
+      const T hu = (T(0.5) * (h0 + hin[ko + gx])) * mu_;
+      const T hv = (T(0.5) * (h0 + hin[ko + gy])) * mv_;
+      const T uu = hu * uin[ko + g];
+      const T vv = hv * vin[ko + g];
+      const T a = hu * tend.p[T_DUS][ko + g];
+      const T b = hv * tend.p[T_DVS][ko + g];
+      hU = (k > 0) ? hU + hu : hu;
+      hV = (k > 0) ? hV + hv : hv;
+      nu_ = (k > 0) ? nu_ + uu : uu;
+      nv_ = (k > 0) ? nv_ + vv : vv;
+      hs = (k > 0) ? hs + h0 : h0;
+      du_ = (k > 0) ? du_ + a : a;
+      dv_ = (k > 0) ? dv_ + b : b;
+      h[k * NPT + s] = h0;
+    }
+    hU = vmax(hU, p.h_min);
+    hV = vmax(hV, p.h_min);
+    ub[r] = nu_ / hU;
+    vb[r] = nv_ / hV;
+    dub[r] = du_ / hU;
+    dvb[r] = dv_ / hV;
+    et[r] = (hs - p.in[I_HB][g]) * m_;
+    Hu[r] = hU;
+    Hv[r] = hV;
+    su[r] = T(0);
+    sv[r] = T(0);
+    mask[s] = m_;
+    mu[s] = mu_;
+    mv[s] = mv_;
+    U[s] = hU * ub[r];
+    V[s] = hV * vb[r];
+  }
+  __syncthreads();
+
+  // the substeps, as sub::run
+  const T mg = -p.g;
+  for (int it = 0; it < NSUB; ++it) {
+#pragma unroll
+    for (int r = 0; r < QP; ++r) {
+      const int s = s0 + r * RX;
+      const T vs = (r > 0) ? Hv[r - 1] * vb[r - 1] : V[s - RX];
+      const T div = (Hu[r] * ub[r] - U[s - 1]) * p.inv_dx +
+                    (Hv[r] * vb[r] - vs) * p.inv_dy;
+      et[r] = (et[r] - dte * div) * mask[s];
+      eta[s] = et[r];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < QP; ++r) {
+      const int s = s0 + r * RX;
+      const T en = (r < QP - 1) ? et[r + 1] : eta[s + RX];
+      ub[r] = (ub[r] + dte * (mg * ((eta[s + 1] - et[r]) * p.inv_dx) +
+                              dub[r])) * mu[s];
+      vb[r] = (vb[r] + dte * (mg * ((en - et[r]) * p.inv_dy) + dvb[r])) *
+              mv[s];
+      su[r] = su[r] + ub[r];
+      sv[r] = sv[r] + vb[r];
+      U[s] = Hu[r] * ub[r];
+      if (r == QP - 1) V[s] = Hv[r] * vb[r];
+    }
+    __syncthreads();
+  }
+
+  // the advecting velocities on the recomposition's block, as rec::run
+  // loads them: (up + ubar_avg) mu, up = u - ubar rebuilt from h and u
+  auto in_block = [](int yy, int xx, int lo, int hi) {
+    return yy >= lo && yy < RY - hi && xx >= lo && xx < RX - hi;
+  };
+  T ubar[QP], vbar[QP];
+#pragma unroll
+  for (int r = 0; r < QP; ++r) {
+    const int s = s0 + r * RX;
+    if (!in_block(y0 + r, x, A, A)) continue;
+    const int g = roff[y0 + r] + cx;
+    T nu_, nv_;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      const T* hk = h + k * NPT;
+      const T uu = ((T(0.5) * (hk[s] + hk[s + 1])) * mu[s]) *
+                   uin[k * p.plane + g];
+      const T vv = ((T(0.5) * (hk[s] + hk[s + RX])) * mv[s]) *
+                   vin[k * p.plane + g];
+      nu_ = (k > 0) ? nu_ + uu : uu;
+      nv_ = (k > 0) ? nv_ + vv : vv;
+    }
+    ubar[r] = nu_ / Hu[r];
+    vbar[r] = nv_ / Hv[r];
+    const T ubar_a = su[r] * inv_nsub;
+    const T vbar_a = sv[r] * inv_nsub;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      ua[k * NPT + s] = ((uin[k * p.plane + g] - ubar[r]) + ubar_a) * mu[s];
+      va[k * NPT + s] = ((vin[k * p.plane + g] - vbar[r]) + vbar_a) * mv[s];
+    }
+  }
+  using TileT = Tile<T, RX, NPT, RowColStat<T>>;
+  const TileT c{p, RowColStat<T>{roff, coff}, ua, va, mask, mu, mv, nullptr,
+                h1, nullptr, nullptr, nullptr, nullptr, ee};
+  // obc.eta_ext at t1, as load_eta_ext
+  if (OBC) {
+    REGION_NS(A, A, {
+      T e = T(0);
+      for (int cc = 0; cc < NTIDE; ++cc) {
+        const long g = long(cc) * p.plane + roff[s / RX] + coff[s % RX];
+        e = e + p.in[I_TIDE_AMP][g] *
+                    tcos(p.omega[cc] * p.t1 - p.in[I_TIDE_PHASE][g]);
+      }
+      ee[s] = e;
+    })
+  }
+  __syncthreads();
+
+  continuity_stage<T, RX, RY, TileT, A, QT>(c, h, ua, va, h1, fx, fy, sc,
+                                            false);
+
+  // pin the column to the subcycled free surface
+  REGION(A + LO, A + LO, {
+    T col = h1[s];
+    for (int k = 1; k < NZ; ++k) col = col + h1[k * NPT + s];
+    col = vmax(col, p.h_min);
+    const T target = vmax(c.glob(I_HB, s) + eta[s], T(0)) * mask[s];
+    const T fac = (col > p.h_min) ? target / col : T(1);
+    for (int k = 0; k < NZ; ++k) h1[k * NPT + s] = h1[k * NPT + s] * fac;
+  })
+
+  // the layer velocities at the tile's points, as rec::run, then finalize
+  const T half = T(0.5);
+#pragma unroll
+  for (int r = 0; r < QP; ++r) {
+    const int s = s0 + r * RX;
+    const int jj = y0 + r - HALO;
+    const int ii = x - HALO;
+    if (jj < 0 || jj >= QY || ii < 0 || ii >= QX || !o.valid(jj, ii))
+      continue;
+    const int g = roff[y0 + r] + cx;
+    // drag.bottom_drag_coeff of the bottom layer, as Tile::drag_u / drag_v
+    constexpr int kb = NZ - 1;
+    const T* hb = h + kb * NPT;
+    const T hu_b = vmax(half * (hb[s] + hb[s + 1]), p.h_min);
+    const T hv_b = vmax(half * (hb[s] + hb[s + RX]), p.h_min);
+    T cu, cv;
+    if (!CDBOT) {
+      cu = p.r_bot / hu_b;
+      cv = p.r_bot / hv_b;
+    } else {
+      const T* ubt = uin + kb * p.plane;
+      const T* vbt = vin + kb * p.plane;
+      const int gs = roff[y0 + r - 1] + cx;     // south
+      const int ge = roff[y0 + r] + cx1;        // east
+      const int gse = roff[y0 + r - 1] + cx1;   // south-east
+      const int gw = roff[y0 + r] + coff[x - 1];
+      const int gn = roff[y0 + r + 1] + cx;
+      const int gnw = roff[y0 + r + 1] + coff[x - 1];
+      const T v4 = half * (half * (vbt[g] + vbt[gs]) +
+                           half * (vbt[ge] + vbt[gse]));
+      cu = (p.r_bot + p.cd_bot * tsqrt(ubt[g] * ubt[g] + v4 * v4)) / hu_b;
+      const T u4 = half * (half * (ubt[g] + ubt[gw]) +
+                           half * (ubt[gn] + ubt[gnw]));
+      cv = (p.r_bot + p.cd_bot * tsqrt(vbt[g] * vbt[g] + u4 * u4)) / hv_b;
+    }
+    T uo[NZ], vo[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      const long gk = k * p.plane + g;
+      const T up = uin[gk] - ubar[r];
+      const T vp = vin[gk] - vbar[r];
+      const T dup = tend.p[T_DUS][gk] - dub[r];
+      const T dvp = tend.p[T_DVS][gk] - dvb[r];
+      T a = (up + p.dt * dup) + ub[r];
+      T b = (vp + p.dt * dvp) + vb[r];
+      if (k == NZ - 1) {
+        a = a / (T(1) + p.dt * cu);
+        b = b / (T(1) + p.dt * cv);
+      }
+      uo[k] = a * mu[s];
+      vo[k] = b * mv[s];
+    }
+    finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
+    const long go = o.at(jj, ii);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      out_h[k * o.plane + go] = h1[k * NPT + s];
+      out_u[k * o.plane + go] = uo[k];
+      out_v[k * o.plane + go] = vo[k];
+    }
+  }
+}
+
+}  // namespace tail
 
 }  // namespace spk
 }  // namespace beom

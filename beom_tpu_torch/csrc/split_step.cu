@@ -1,33 +1,44 @@
 // K1s: one split barotropic / baroclinic step (stepping/split.py::
-// split_step) of nz layers, as three kernels: the slow phase, the
-// barotropic subcycle, and the recomposition with fb.finalize.
+// split_step) of nz layers, by one of two routes (stencils/fused_fb.py::
+// split_plan picks one per case):
+//   route 2, two launches: the slow phase's layer tendencies (split_tend:
+//     slow::run writing du_s, dv_s only), then the tail (split_tail:
+//     SlowPhase rebuilt from h, u, v and them, the barotropic subcycle, the
+//     recomposition and fb.finalize on blocks with a halo of nsub + LO +
+//     E, csrc/split_body.cuh namespace tail);
+//   route 3, three launches: the slow phase (all of SlowPhase), the
+//     subcycle and the recomposition with fb.finalize, each through device
+//     memory.
 //
 // Replaces beom_tpu/stencils/band.py::_band_kernel running the split body
 // of beom_tpu/stencils/fused_fb.py::make_pallas_stepper.
 //
-// Why three launches and not one.  The TPU kernel absorbs the subcycle in a
-// halo of 2 nsub rows on a full-width band of 128 rows (a halo in y only,
-// 12 % more rows at nsub = 8).  A CTA's tile is 32 x 16 points with a halo
-// on both axes: one fused launch would need a halo of nsub + 3 points, so
-// at nsub = 8 it would evaluate the whole slow phase, by far the most
-// expensive part, on 54 x 38 points for 32 x 16 results, four times over.
-// Here the slow phase and the recomposition run on tiles with halos of 2
-// and 2 (3 under wet/dry) points, and only the subcycle, a dozen
-// operations per point and substep on three 2-D fields, pays for the wide
-// halo, on larger tiles (64 x 32 points at f32) that hold nothing but its
-// ten 2-D planes, with nsub and that tile compile-time too.  The price is one trip of the SlowPhase fields
-// (4 nz + 9 planes) through device memory.  A cooperative launch with a
-// grid-wide barrier per substep was the other candidate: its 2 nsub
-// passes over the 2-D fields would each stream about a dozen planes from
-// device memory (2048^2 f32: 200 MB, four times the L2), against one read
-// of them here.
+// Why not one launch, as the TPU kernel's band does.  The slow phase is
+// the most expensive part per point, and a halo of nsub + 3 around a tile
+// would evaluate it on several times the tile's points.  Its loads and
+// stores set its time (on the H100 at 2048^2 f32: 0.175 ms, its loads
+// and stores alone 0.183, its stages alone 0.084; tools/k1s_probes.py), so
+// it runs on small tiles with a halo of 2 and writes as little as it can.
+// Route 3 writes SlowPhase (4 nz + 9 planes) and has the recomposition
+// read it back; route 2 writes 2 nz planes and has the tail rebuild the
+// rest from h, u, v at each point, op for op, so each value is bitwise the
+// stored one, and keeps the subcycle's outputs in shared memory.  The
+// tail's block holds only what neighbours read: route 2 pays for the
+// halo with stage work on blocks of 1.4 to 3 times the tile's points, and
+// where that exceeds what route 3's trips through memory cost (the shelf
+// at nsub 8: its planes allow only small tiles), the plan keeps route 3.
+// A cooperative launch with a grid-wide barrier per substep was the other
+// candidate: its 2 nsub passes over the 2-D fields would each stream about
+// a dozen planes from device memory (2048^2 f32: 200 MB, four times the
+// L2).
 //
-// Bound: device-memory bytes, for each of the three.  Arithmetic mirrors
-// the eager split_step op for op (fb_terms.cuh), so each kernel equals its
-// plain version (slow_phase, subcycle_phase, recompose + finalize) bit for
-// bit on the card.  The stage bodies are csrc/split_body.cuh's, which the
-// same three kernels on the shards of a device mesh (shard_split.cu) run
-// too; here a tile's points come from the whole grid with periodic wrap.
+// Bound: device-memory bytes, for each kernel.  Arithmetic mirrors the
+// eager split_step op for op (fb_terms.cuh), so each kernel equals its
+// plain version (slow_tendencies, slow_phase, subcycle_phase, recompose +
+// finalize, depth_means + fast_phase) bit for bit on the card.  The stage
+// bodies are csrc/split_body.cuh's, whose three route-3 bodies the same
+// kernels on the shards of a device mesh (shard_split.cu) run too; here a
+// tile's points come from the whole grid with periodic wrap.
 
 #include "split_body.cuh"
 
@@ -55,6 +66,21 @@ __global__ void __launch_bounds__(sub::THREADS_SUB)
 split_sub_kernel(const Params<T> p, const GridSrc<T, N_SLOW> src,
                  const Ptrs<T, N_SUB> out, T dte, T inv_nsub) {
   sub::run<T>(p, src, out, grid_out<T, SX, SY>(p), dte, inv_nsub);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+split_tend_kernel(const Params<T> p, const GridSrc<T, N_SLOW_IN> src,
+                  const Ptrs<T, N_TEND> out) {
+  slow::run<T>(p, src, out, grid_out<T, TX, TY>(p));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(tail::QT)
+split_tail_kernel(const Params<T> p, const Ptrs<T, N_TEND> tend, T* out_h,
+                  T* out_u, T* out_v, T dte, T inv_nsub) {
+  tail::run<T>(p, tend, grid_out<T, QX, tail::QY>(p), out_h, out_u, out_v,
+               dte, inv_nsub);
 }
 
 template <typename T>
@@ -142,6 +168,43 @@ int split_recompose(const void* const* ptrs, const int* ints,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+int split_tend(const void* const* ptrs, const int* ints, const double* dbls,
+               void* const* outs, void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  constexpr int smem = slow::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      split_tend_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  split_tend_kernel<T><<<grid, THREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      p, grid_src<T, N_SLOW_IN>(p, ptrs), pack<T, N_TEND>(outs));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int split_tail(const void* const* ptrs, const int* ints, const double* dbls,
+               void* const* tend, void* h1, void* u1, void* v1,
+               void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  if (p.nsub != NSUB) return int(cudaErrorInvalidValue);
+  constexpr int smem = tail::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      split_tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid((p.nx + QX - 1) / QX, (p.ny + tail::QY - 1) / tail::QY);
+  const T dte = T(dbls[D_DT] / NSUB);
+  const T inv_nsub = T(1) / T(NSUB);
+  split_tail_kernel<T><<<grid, tail::QT, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      p, pack<T, N_TEND>(tend), static_cast<T*>(h1), static_cast<T*>(u1),
+      static_cast<T*>(v1), dte, inv_nsub);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 #define SPLIT_ENTRIES(SUFFIX, T)                                             \
@@ -161,19 +224,32 @@ int split_recompose(const void* const* ptrs, const int* ints,
       void* v1, void* stream) {                                              \
     return split_recompose<T>(ptrs, ints, dbls, slow_fields, sub_fields, h1, \
                               u1, v1, stream);                               \
+  }                                                                          \
+  extern "C" int beom_split_tend_##SUFFIX(                                   \
+      const void* const* ptrs, const int* ints, const double* dbls,          \
+      void* const* outs, void* stream) {                                     \
+    return split_tend<T>(ptrs, ints, dbls, outs, stream);                    \
+  }                                                                          \
+  extern "C" int beom_split_tail_##SUFFIX(                                   \
+      const void* const* ptrs, const int* ints, const double* dbls,          \
+      void* const* tend, void* h1, void* u1, void* v1, void* stream) {       \
+    return split_tail<T>(ptrs, ints, dbls, tend, h1, u1, v1, stream);        \
   }
 
 SPLIT_ENTRIES(f32, float)
 SPLIT_ENTRIES(f64, double)
 
-// dynamic shared memory of one CTA of the slow (0), recompose (1) and
-// subcycle (2) kernels, for the wrapper's choice of tiles
+// dynamic shared memory of one CTA of the slow (0), recompose (1),
+// subcycle (2) and tail (3) kernels, for the wrapper's choice of tiles (the
+// slow phase of the two-launch step, split_tend, is the slow kernel's)
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   if (which == 0)
     return is_f64 ? slow::smem_bytes<double>() : slow::smem_bytes<float>();
   if (which == 1)
     return is_f64 ? rec::smem_bytes<double>() : rec::smem_bytes<float>();
-  return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
+  if (which == 2)
+    return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
+  return is_f64 ? tail::smem_bytes<double>() : tail::smem_bytes<float>();
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

@@ -13,16 +13,19 @@ bottom drag, interfacial drag), sharing the term code of
     launch advances kb steps of (h, u, v) on blocks with a halo kb times
     as wide (`plan`; the single-step build for kb = 1, the pass kernel
     otherwise).
-  * scheme='split': three launches advance one split_step: the slow phase
-    (tendencies, depth means), the barotropic subcycle (nsub substeps of
-    three 2-D fields inside shared memory) and the recomposition with the
-    continuity, the column rescale and fb.finalize.  `csrc/split_step.cu`
-    says why three and not one.
+  * scheme='split': one split_step is two launches (`split_plan`'s route
+    2): the slow phase's layer tendencies, then the tail, which rebuilds
+    the depth means from h, u, v and them and runs the barotropic subcycle
+    (nsub substeps of three 2-D fields inside shared memory), the
+    recomposition with the continuity, the column rescale and fb.finalize
+    on blocks with a halo of `tail_halo`; or three (route 3): the slow
+    phase (tendencies, depth means), the subcycle and the recomposition,
+    each through device memory.  `csrc/split_step.cu` says why.
 
 A pass of k = cfg.steps_per_pass steps is k such steps, each with its own
 FB-Coriolis sweep order (n + i) % 2 and its own time for the tides.
-`fused_fb_step_tiled` runs the fb pass's blocked schedule on the host, for
-the tests.
+`fused_fb_step_tiled` runs the fb pass's blocked schedule on the host, and
+`split_step_tiled` the split tail's, for the tests.
 
 The single-step kernels are bounded by device-memory bytes, the fb pass
 kernel by its stages (csrc/fb_step.cu).  The layer count, the term
@@ -61,7 +64,8 @@ from beom_tpu_torch.stepping.split import SlowPhase
 # reads them to show that its main path went through the kernels
 LAUNCHES = 0
 PASS_LAUNCHES = 0
-SPLIT_LAUNCHES = {"slow": 0, "subcycle": 0, "recompose": 0}
+SPLIT_LAUNCHES = {"slow": 0, "subcycle": 0, "recompose": 0, "tend": 0,
+                  "tail": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # operand slots, in the order of csrc/fb_terms.cuh's enums Ptr, Int and Dbl
@@ -92,7 +96,28 @@ _PASS_FACTOR = 1.25
 _SUB_TILES = ((64, 32), (32, 32), (32, 16), (16, 16), (16, 8))
 # the kernels of each source, in the order of its beom_smem_bytes
 _TILED = {"fb_step": ("fb_step",),
-          "split_step": ("split_slow", "split_recompose", "split_subcycle")}
+          "split_step": ("split_slow", "split_recompose", "split_subcycle",
+                         "split_tail")}
+# the split tail's blocks: widths RX = qx + 2 halo of whole warps, strips of
+# qp rows per column, at least 512 threads; registers per thread it needs
+# (its nine barotropic values per point, plus _TAIL_REGS of its own) within
+# the 65536 of an SM at one CTA per SM (csrc/split_body.cuh: namespace tail)
+_TAIL_WIDTHS = (32, 64, 96, 128)
+_TAIL_STRIPS = (4, 8, 12, 16, 24, 32)
+_TAIL_REGS = 24
+# the cost model of a tail geometry, fitted on the H100 (2048^2, the f32
+# gyre at nsub 4, 8, 12, two_layer, coastal_wetdry, shelf_forced at nsub
+# 8, the f64 gyre: tools/k1s_probes.py --tail): per tile point, the block's
+# points per tile point times (1 + _TAIL_STRIP / qp) for the strips' ends,
+# times (1024 / threads) ** _TAIL_THREADS; and the route: two launches
+# where the geometry's block has at most _TAIL_MAX_FACTOR points per tile
+# point and the case has no open boundary (the coast at nsub 12 f32, 3.5
+# points: the three kernels 0.717 ms, two launches 0.739; the shelf, whose
+# 19 planes allow only small tiles: nsub 4 f32, 2.3 points, 0.763 against
+# 0.733-0.799 by the geometry, nsub 8, 3.9 points, 0.847 against 1.11)
+_TAIL_STRIP = 0.5
+_TAIL_THREADS = 0.6
+_TAIL_MAX_FACTOR = 3.0
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -111,11 +136,12 @@ def check_config(cfg: Config) -> None:
             f"constituents (nz = {cfg.nz}, {len(cfg.tides)} constituents)")
 
 
-def smem_bytes(cfg: Config, tile, sub_tile, elem: int) -> dict:
+def smem_bytes(cfg: Config, tile, sub_tile, elem: int, tail=None) -> dict:
     """Dynamic shared memory of one CTA of each kernel at `tile` = (tx, ty)
-    (`sub_tile` for the subcycle, whose halo is nsub) and `elem` bytes per
-    value: the planes of csrc/fb_step.cu and csrc/split_step.cu times the
-    haloed tile, plus the table of offsets where the kernel has one."""
+    (`sub_tile` for the subcycle, whose halo is nsub; `tail` = (qx, qs, qp)
+    for the split tail) and `elem` bytes per value: the planes of
+    csrc/fb_step.cu and csrc/split_step.cu times the haloed tile, plus the
+    table of offsets where the kernel has one."""
     nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
     lo = 2 if wd else 1
 
@@ -129,7 +155,27 @@ def smem_bytes(cfg: Config, tile, sub_tile, elem: int) -> dict:
         "split_recompose": block(tile, lo + 1,
                                  4 * nz + 3 + 3 * nz * wd + obc),
         "split_subcycle": block(sub_tile, cfg.nsub, 10, offsets=0),
+        "split_tail": tail_smem(cfg, tail, elem) if tail else 0,
     }
+
+
+def tail_halo(cfg: Config) -> int:
+    """The split tail's halo, nsub + LO + E: after nsub substeps the
+    barotropic fields are exact on the recomposition's block, whose halo
+    is the continuity's LO (2 under wet/dry, else 1) and E = 1 where
+    fb.finalize reads the new thickness east and north (wet/dry, the open
+    boundary), else 0."""
+    return cfg.nsub + (2 if cfg.wetdry else 1) + int(cfg.wetdry or cfg.obc)
+
+
+def tail_smem(cfg: Config, tail, elem: int) -> int:
+    """Shared memory of one CTA of the split tail of geometry tail = (qx,
+    qs, qp): 4 + 4 nz (+ 3 nz wet/dry, + 1 open boundary) planes of its
+    block and its row and column offsets (csrc/split_body.cuh, tail)."""
+    qx, qs, qp = tail
+    rx, ry = qx + 2 * tail_halo(cfg), qs * qp
+    planes = 4 + 4 * cfg.nz + 3 * cfg.nz * cfg.wetdry + cfg.obc
+    return planes * rx * ry * elem + (rx + ry + 2) * 4
 
 
 def _pick(tiles, need, what):
@@ -265,6 +311,108 @@ def plan(cfg: Config, dtype=None, k: int = None) -> Plan:
                                        key=cost))
 
 
+@dataclasses.dataclass(frozen=True)
+class SplitPlan:
+    """How K1s runs a split step: route 2, two launches (the slow phase's
+    tendencies, then the tail on blocks of rx x ry points around tiles of
+    qx x qy, qs strips of qp rows per column, rx qs threads), or route 3,
+    the three kernels; `smem` the tail's bytes per CTA.  The tail's
+    geometry is built into the library either way."""
+    route: int
+    qx: int
+    qs: int
+    qp: int
+    halo: int
+    smem: int
+
+    @property
+    def rx(self) -> int:
+        return self.qx + 2 * self.halo
+
+    @property
+    def qy(self) -> int:
+        return self.qs * self.qp - 2 * self.halo
+
+    @property
+    def threads(self) -> int:
+        return self.rx * self.qs
+
+    @property
+    def tail(self) -> tuple:
+        return (self.qx, self.qs, self.qp)
+
+    def launches(self) -> int:
+        return 2 if self.route == 2 else 3
+
+    def describe(self) -> str:
+        if self.route == 3:
+            return "route 3: the slow phase, the subcycle, the recomposition"
+        return (f"route 2: the slow phase's tendencies, then the tail on "
+                f"{self.qx} x {self.qy} tiles (blocks of {self.rx} x "
+                f"{self.qs * self.qp}, halo {self.halo}), {self.threads} "
+                f"threads ({self.qs} strips of {self.qp} rows per column), "
+                f"{self.smem} bytes of shared memory per CTA")
+
+
+def tail_geometries(cfg: Config, dtype=None) -> list:
+    """Every tail geometry (qx, qs, qp) that builds and fits one CTA per
+    SM: rx a whole number of warps, 512 to 1024 threads, a tile of at
+    least 8 rows, its shared memory and its registers within the SM's."""
+    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
+    words = elem // 4
+    h = tail_halo(cfg)
+    out = []
+    for rx in _TAIL_WIDTHS:
+        for qs in _TAIL_STRIPS:
+            threads = rx * qs
+            if rx <= 2 * h or not 512 <= threads <= 1024:
+                continue
+            budget = min(255, 65536 // threads // 8 * 8)
+            for qp in range(1, 33):
+                tail = (rx - 2 * h, qs, qp)
+                if qs * qp - 2 * h >= 8 \
+                        and 9 * qp * words + _TAIL_REGS <= budget \
+                        and tail_smem(cfg, tail, elem) <= _MAX_SMEM:
+                    out.append(tail)
+    return out
+
+
+def tail_factor(cfg: Config, tail) -> float:
+    """Block points the tail computes per tile point: its halo's cost."""
+    qx, qs, qp = tail
+    h = tail_halo(cfg)
+    return (qx + 2 * h) * qs * qp / (qx * (qs * qp - 2 * h))
+
+
+def tail_cost(cfg: Config, tail) -> float:
+    """The cost model of a tail geometry per tile point (_TAIL_STRIP,
+    _TAIL_THREADS)."""
+    qx, qs, qp = tail
+    threads = (qx + 2 * tail_halo(cfg)) * qs
+    return tail_factor(cfg, tail) * (1 + _TAIL_STRIP / qp) \
+        * (1024 / threads) ** _TAIL_THREADS
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(cfg: Config, dtype=None) -> SplitPlan:
+    """The route of a split step and the tail's geometry: the geometry of
+    least tail_cost; route 2 where it fits with at most _TAIL_MAX_FACTOR
+    block points per tile point and there is no open boundary, else route
+    3 (with a geometry of 1 x 1 tiles that builds where none fits)."""
+    check_config(cfg)
+    dtype = dtype or cfg.tdtype
+    elem = torch.empty((), dtype=dtype).element_size()
+    h = tail_halo(cfg)
+    fits = tail_geometries(cfg, dtype)
+    if not fits:
+        return SplitPlan(3, 1, 1, 2 * h + 1, h,
+                         tail_smem(cfg, (1, 1, 2 * h + 1), elem))
+    tail = min(fits, key=lambda g: (tail_cost(cfg, g), -g[1]))
+    route = 2 if tail_factor(cfg, tail) <= _TAIL_MAX_FACTOR \
+        and not cfg.obc else 3
+    return SplitPlan(route, *tail, h, tail_smem(cfg, tail, elem))
+
+
 def term_defines(cfg: Config, tile):
     """The compile-time switches of csrc/fb_terms.cuh for cfg, and the
     tile."""
@@ -277,10 +425,11 @@ def term_defines(cfg: Config, tile):
             f"BEOM_TX={tile[0]}", f"BEOM_TY={tile[1]}")
 
 
-def build_spec(cfg: Config, dtype=None, kb: int = 1):
+def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None):
     """(source, defines) of the build that runs cfg: fb_step.cu or
-    split_step.cu with the compile-time switches and the tile; with kb > 1
-    the fb pass kernel of kb steps at the plan's tile and threads."""
+    split_step.cu with the compile-time switches and the tile (and the
+    split tail's geometry: split_plan's, or `tail`); with kb > 1 the fb pass
+    kernel of kb steps at the plan's tile and threads."""
     check_config(cfg)
     if kb > 1:
         pl = launch_plan(cfg, dtype, kb)
@@ -301,8 +450,10 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1):
         sub = _pick(_SUB_TILES, lambda t: smem_bytes(
             cfg, tile, t, elem)["split_subcycle"],
             f"the subcycle of nsub = {cfg.nsub} substeps")
+        qx, qs, qp = tail or split_plan(cfg, dtype).tail
         defines += (f"BEOM_NSUB={cfg.nsub}", f"BEOM_SX={sub[0]}",
-                    f"BEOM_SY={sub[1]}")
+                    f"BEOM_SY={sub[1]}", f"BEOM_QX={qx}", f"BEOM_QS={qs}",
+                    f"BEOM_QP={qp}")
     return name, defines
 
 
@@ -345,18 +496,21 @@ def _pointers(tensors):
 
 
 @functools.lru_cache(maxsize=None)
-def _entries(cfg: Config, dtype, kb: int = 1):
-    """The library that runs cfg (kb > 1: the fb pass kernel of kb steps)
-    and its entry points by kernel name, built on first use."""
+def _entries(cfg: Config, dtype, kb: int = 1, tail=None):
+    """The library that runs cfg (kb > 1: the fb pass kernel of kb steps;
+    `tail`: the split tail of that geometry) and its entry points by kernel
+    name, built on first use."""
     from beom_tpu_torch.stencils import build
 
-    name, defines = build_spec(cfg, dtype, kb)
+    name, defines = build_spec(cfg, dtype, kb, tail)
     lib = build.load((name, defines))
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
     want = smem_bytes(cfg, (value["BEOM_TX"], value["BEOM_TY"]),
                       (value.get("BEOM_SX", 0), value.get("BEOM_SY", 0)),
-                      elem)
+                      elem, (value.get("BEOM_QX"), value.get("BEOM_QS"),
+                             value.get("BEOM_QP"))
+                      if name == "split_step" else None)
     if kb > 1:
         want["fb_step"] = pass_smem(cfg, kb, (value["BEOM_TX"],
                                               value["BEOM_TY"]), elem)
@@ -370,9 +524,10 @@ def _entries(cfg: Config, dtype, kb: int = 1):
     # every argument is a pointer: the operand tables, the outputs, the
     # stream
     n_args = {"fb_step": 7, "split_slow": 5, "split_subcycle": 6,
-              "split_recompose": 9}
+              "split_recompose": 9, "split_tend": 5, "split_tail": 8}
     entries = {}
-    for kernel in _TILED[name]:
+    kernels = _TILED[name] + (("split_tend",) if name == "split_step" else ())
+    for kernel in kernels:
         fn = getattr(lib, f"beom_{kernel}_{_SUFFIX[dtype]}")
         fn.argtypes = [_P] * n_args[kernel]
         fn.restype = _I
@@ -495,6 +650,38 @@ def _launch_recompose(slow, sub, h, u, v, statics, t1, cfg: Config):
     return outs
 
 
+def _launch_tend(h, u, v, statics, cfg: Config, tail=None):
+    """The slow phase's layer tendencies (du_s, dv_s) of the two-launch
+    step."""
+    from beom_tpu_torch.stencils import build
+
+    lib, entry = _entries(cfg, h.dtype, 1, tail)
+    outs = [torch.empty_like(h) for _ in range(2)]
+    ints, dbls = _scalars(cfg, 0, 0.0)
+    code = entry["split_tend"](
+        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _pointers(outs), _stream(h.device))
+    build.check(lib, code, "split_tend kernel launch")
+    SPLIT_LAUNCHES["tend"] += 1
+    return outs
+
+
+def _launch_tail(tend, h, u, v, statics, t1, cfg: Config, tail=None):
+    """The tail of the two-launch step: (h, u, v) at t1 from the state and
+    its tendencies."""
+    from beom_tpu_torch.stencils import build
+
+    lib, entry = _entries(cfg, h.dtype, 1, tail)
+    outs = [torch.empty_like(h) for _ in range(3)]
+    ints, dbls = _scalars(cfg, 0, t1)
+    code = entry["split_tail"](
+        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _pointers(tend), *[a.data_ptr() for a in outs], _stream(h.device))
+    build.check(lib, code, "split_tail kernel launch")
+    SPLIT_LAUNCHES["tail"] += 1
+    return outs
+
+
 def _slow_fields(sp: SlowPhase, cfg: Config):
     """SlowPhase as the kernels pass it: cu, cv as the bottom plane."""
     return [a.contiguous() for a in sp[:11]] + [
@@ -543,13 +730,42 @@ def split_recompose(sp: SlowPhase, sub, h, u, v, statics, t, cfg: Config):
             statics, t1, cfg))
 
 
+def split_tend(h, u, v, statics, cfg: Config):
+    """split.slow_tendencies, (du_s, dv_s): the kernel on CUDA tensors, the
+    eager function on CPU tensors."""
+    grid, forcing = statics
+    if h.device.type == "cpu":
+        return split_mod.slow_tendencies(State(h=h, u=u, v=v, t=0.0, n=0),
+                                         grid, forcing, cfg)
+    _check_operands(h, u, v, statics, cfg)
+    with torch.cuda.device(h.device):
+        return tuple(_launch_tend(h, u, v, statics, cfg))
+
+
+def split_tail(tend, h, u, v, statics, t, cfg: Config):
+    """split.depth_means from (du_s, dv_s) = tend, then split.fast_phase:
+    (h1, u1, v1) at t + dt."""
+    grid, forcing = statics
+    if h.device.type == "cpu":
+        s = State(h=h, u=u, v=v, t=t, n=0)
+        s = split_mod.fast_phase(split_mod.depth_means(s, *tend, grid, cfg),
+                                 s, grid, forcing, cfg)
+        return s.h, s.u, s.v
+    _check_operands(h, u, v, statics, cfg)
+    t1 = advance_time(t, cfg.dt, cfg.npdtype)
+    with torch.cuda.device(h.device):
+        return tuple(_launch_tail([a.contiguous() for a in tend], h, u, v,
+                                  statics, t1, cfg))
+
+
 def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int):
     """Advance (h, u, v) by k steps of cfg.scheme ('fb' or 'split') from
     step n at time t.
 
     CPU tensors take the plain version.  CUDA tensors take the kernels:
-    ceil(k / kb) launches per pass of fb steps (`plan`), three per split
-    step; a configuration the kernels cannot run raises.
+    ceil(k / kb) launches per pass of fb steps (`plan`), two or three per
+    split step (`split_plan`); a configuration the kernels cannot run
+    raises.
     """
     if h.device.type == "cpu":
         return fused_fb_step_plain(h, u, v, statics, n, t, cfg, k)
@@ -561,11 +777,17 @@ def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int):
                 h, u, v = _launch_fb(h, u, v, statics, n % 2, ts, cfg)
                 n, t = n + m, ts[-1]
             return h, u, v
+        two = split_plan(cfg, h.dtype).route == 2
         for _ in range(k):
             t1 = advance_time(t, cfg.dt, cfg.npdtype)
-            slow = _launch_slow(h, u, v, statics, cfg)
-            sub = _launch_subcycle(slow, h, u, v, statics, cfg)
-            h, u, v = _launch_recompose(slow, sub, h, u, v, statics, t1, cfg)
+            if two:
+                tend = _launch_tend(h, u, v, statics, cfg)
+                h, u, v = _launch_tail(tend, h, u, v, statics, t1, cfg)
+            else:
+                slow = _launch_slow(h, u, v, statics, cfg)
+                sub = _launch_subcycle(slow, h, u, v, statics, cfg)
+                h, u, v = _launch_recompose(slow, sub, h, u, v, statics, t1,
+                                            cfg)
             t = t1
     return h, u, v
 
@@ -623,6 +845,61 @@ def fused_fb_step_tiled(h, u, v, statics, n: int, t, cfg: Config, k: int,
                         a[..., hw:hw + ye, hw:hw + xe]
         h, u, v = outs
         n, t = n + m, _times(t, cfg, m)[-1]
+    return h, u, v
+
+
+def _cut_nan(a, rows, cols):
+    """The (..., rows, cols) block of a, periodic, in a ring of NaN."""
+    return torch.nn.functional.pad(_cut(a, rows, cols), (1, 1, 1, 1),
+                                   value=float("nan"))
+
+
+def split_step_tiled(h, u, v, statics, n: int, t, cfg: Config, k: int,
+                     tile=None, halo=None):
+    """The split tail's schedule on the host, for the tests: each of k
+    steps takes the slow phase on the whole grid, then cuts h and SlowPhase,
+    the Grid and the Forcing into blocks of `tile` (default: split_plan's
+    (qx, qy)) with a halo of `halo` (default: tail_halo, nsub + LO + E),
+    each in a ring of NaN that stands for whatever lies past a CTA's block,
+    runs split.fast_phase (the subcycle, the recomposition, fb.finalize) on
+    each as a grid of its own, and joins the blocks' interiors.  Equal to
+    fused_fb_step_plain bit for bit at the default halo; a narrower one
+    lets the NaN into the interiors, which pins the width."""
+    if cfg.scheme != "split":
+        raise NotImplementedError("the split tail runs scheme='split'")
+    grid, forcing = statics
+    ny, nx = cfg.ny, cfg.nx
+    dev = h.device
+    if tile is None:
+        pl = split_plan(cfg, h.dtype)
+        tile = (pl.qx, pl.qy)
+    tx, ty = tile
+    hw = tail_halo(cfg) if halo is None else halo
+    for _ in range(k):
+        st = State(h=h, u=u, v=v, t=t, n=n)
+        sp = split_mod.slow_phase(st, grid, forcing, cfg)
+        outs = [torch.empty_like(a) for a in (h, u, v)]
+        for y0 in range(0, ny, ty):
+            for x0 in range(0, nx, tx):
+                rows = torch.arange(y0 - hw, y0 + ty + hw, device=dev) % ny
+                cols = torch.arange(x0 - hw, x0 + tx + hw, device=dev) % nx
+                cut = lambda a: _cut_nan(a, rows, cols)
+                sub = dataclasses.replace(cfg, ny=len(rows) + 2,
+                                          nx=len(cols) + 2)
+                g = Grid(**{f.name: cut(getattr(grid, f.name))
+                            for f in dataclasses.fields(Grid)})
+                fo = Forcing(**{f.name: cut(getattr(forcing, f.name))
+                                for f in dataclasses.fields(Forcing)})
+                s = split_mod.fast_phase(
+                    SlowPhase(*[cut(a) for a in sp]),
+                    State(h=cut(h), u=cut(u), v=cut(v), t=t, n=n), g, fo,
+                    sub)
+                ye, xe = min(ty, ny - y0), min(tx, nx - x0)
+                for o, a in zip(outs, (s.h, s.u, s.v)):
+                    o[..., y0:y0 + ye, x0:x0 + xe] = \
+                        a[..., hw + 1:hw + 1 + ye, hw + 1:hw + 1 + xe]
+        h, u, v = outs
+        n, t = n + 1, advance_time(t, cfg.dt, cfg.npdtype)
     return h, u, v
 
 

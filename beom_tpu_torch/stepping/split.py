@@ -52,8 +52,21 @@ class SlowPhase(NamedTuple):
     cv: torch.Tensor
 
 
-def slow_phase(state: State, grid: Grid, forcing: Forcing,
-               cfg: Config) -> SlowPhase:
+def slow_tendencies(state: State, grid: Grid, forcing: Forcing,
+                    cfg: Config):
+    """Step 1: the layer momentum tendencies G_k at time n without the
+    surface-pressure term, (du_s, dv_s)."""
+    h, u, v = state.h, state.u, state.v
+    du_c, dv_c = fb._common_tendencies(h, u, v, grid, forcing, cfg,
+                                       free_surface=False)
+    q, U, V = fb._pv_and_fluxes(h, u, v, grid, cfg)
+    return (du_c + ops.a_ym(q * ops.a_xp(V)),
+            dv_c - ops.a_xm(q * ops.a_yp(U)))
+
+
+def depth_means(state: State, du_s, dv_s, grid: Grid,
+                cfg: Config) -> SlowPhase:
+    """Step 2: SlowPhase from the state and the layer tendencies."""
     h, u, v = state.h, state.u, state.v
 
     hu = ops.a_xp(h) * grid.mask_u          # face thickness per layer
@@ -62,12 +75,6 @@ def slow_phase(state: State, grid: Grid, forcing: Forcing,
     Hv = torch.clamp_min(ops.sum_k(hv), cfg.h_min)
     ubar = ops.sum_k(hu * u) / Hu
     vbar = ops.sum_k(hv * v) / Hv
-
-    du_c, dv_c = fb._common_tendencies(h, u, v, grid, forcing, cfg,
-                                       free_surface=False)
-    q, U, V = fb._pv_and_fluxes(h, u, v, grid, cfg)
-    du_s = du_c + ops.a_ym(q * ops.a_xp(V))
-    dv_s = dv_c - ops.a_xm(q * ops.a_yp(U))
 
     du_bar = ops.sum_k(hu * du_s) / Hu
     dv_bar = ops.sum_k(hv * dv_s) / Hv
@@ -78,6 +85,12 @@ def slow_phase(state: State, grid: Grid, forcing: Forcing,
                      du_p=du_s - du_bar[None], dv_p=dv_s - dv_bar[None],
                      du_bar=du_bar, dv_bar=dv_bar, ubar=ubar, vbar=vbar,
                      Hu=Hu, Hv=Hv, eta0=eta0, cu=cu, cv=cv)
+
+
+def slow_phase(state: State, grid: Grid, forcing: Forcing,
+               cfg: Config) -> SlowPhase:
+    du_s, dv_s = slow_tendencies(state, grid, forcing, cfg)
+    return depth_means(state, du_s, dv_s, grid, cfg)
 
 
 def subcycle_phase(sp: SlowPhase, grid: Grid, cfg: Config,
@@ -139,10 +152,16 @@ def recompose(sp: SlowPhase, eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg,
     return h1, u1, v1
 
 
-def split_step(state: State, grid: Grid, forcing: Forcing,
+def fast_phase(sp: SlowPhase, state: State, grid: Grid, forcing: Forcing,
                cfg: Config) -> State:
-    sp = slow_phase(state, grid, forcing, cfg)
+    """Steps 3-5 and fb.finalize: the state at n + 1 from SlowPhase."""
     eta_f, ubar_f, vbar_f, ub_a, vb_a = subcycle_phase(sp, grid, cfg)
     h1, u1, v1 = recompose(sp, eta_f, ubar_f, vbar_f, ub_a, vb_a,
                            state.h, grid, cfg)
     return fb.finalize(h1, u1, v1, state, grid, forcing, cfg)
+
+
+def split_step(state: State, grid: Grid, forcing: Forcing,
+               cfg: Config) -> State:
+    return fast_phase(slow_phase(state, grid, forcing, cfg), state, grid,
+                      forcing, cfg)

@@ -85,21 +85,32 @@ Phases, each of which raises on failure (exit code != 0):
      steps_per_pass 1 and 4; the pass kernel of kb = 2 where its block fits
      a CTA, one launch bitwise 2 single-step launches) and K1s, as its
      three kernels and as the
-     chained step, on double_gyre and two_layer (nsub 4 and 8) against
+     chained step, on double_gyre and two_layer (nsub 4 and 8) and
+     shelf_forced (nsub 8) against
      their plain versions at 200x136 f64 (<= 1e-12 x scale) and 2048^2 f32
      (<= 4 ulp of scale), from a perturbed state with dry cells and the
-     open boundary inside the compared region
+     open boundary inside the compared region; K1s's two-launch route on
+     the same cases bit for bit at 201x137 f64 and f32 and 2048^2 f32: the slow phase's tendencies against slow_tendencies, the
+     tail against depth_means + fast_phase, 3 steps against 3 plain steps
+     and 3 steps of the three kernels (the plan's tail geometry, also
+     where the plan keeps the three kernels)
  16. the other paths at full width: run() with backend='fused' at 2048^2
      f32, diagnostics on: two_layer fb; double_gyre split with nsub 4, 8
-     and 12; two_layer split nsub 8; coastal_wetdry, shelf_forced and the
-     double gyre (steps_per_pass 1: the single-step kernel) fb:
-     the launch counts, finite diagnostics, the mass drift of the closed
-     basins, h >= 0 under wet/dry, 3 fused steps against 3 eager ones
+     and 12 and two_layer split nsub 8 (two launches per step),
+     shelf_forced split nsub 8 (three); coastal_wetdry, shelf_forced and
+     the double gyre (steps_per_pass 1: the single-step kernel) fb:
+     the launch counts by each path's split plan, finite diagnostics, the
+     mass drift of the closed basins, h >= 0 under wet/dry, 3 fused steps
+     against 3 eager ones
  17. times at 2048^2 f32: K1 per case (one step, and the 4-step pass by
      the case's plan, printed, beside four single steps, the plain
-     version and the pass kernel of kb = 2) and K1s's three kernels beside
-     their plain versions, the split step at nsub 4, 8, 12, and the device's
-     busy share under torch.profiler for two_layer fb and split nsub 8
+     version and the pass kernel of kb = 2) and K1s's kernels at nsub 8
+     beside their plain versions (the two launches on double_gyre and
+     two_layer, the three kernels on shelf_forced; the other route's
+     printed), the split step at nsub 4, 8, 12 and on two_layer at nsub 8
+     by its plan beside the three kernels and the function's bound, and
+     the device's busy share under torch.profiler for two_layer fb and
+     split nsub 8
 
  18. build lines of the libraries this list adds (projection.cu per case,
      shard_step.cu per fb case, halo_pad.cu); K3a / K3b with every term
@@ -142,7 +153,8 @@ Phases, each of which raises on failure (exit code != 0):
      1e-12 x scale, 2048^2 f32 within 4 ulp of scale) and against the
      single-device kernels (K1s; K3a / K3b) on the gathered field bit for
      bit, on (4, 1), (2, 4) and (2, 2): split at nz 1 and 2, nsub 4, 8, 12,
-     with a 2-step pass; projection on the four fb cases with implicit_fs
+     each kernel against K1s's three kernels and a 2-step pass against
+     K1s's step by its plan (two launches, or three); projection on the four fb cases with implicit_fs
      and rigid_lid (Jacobi), both parities
  24. the new mesh paths through run() at 2048^2 f32 on a 2 x 4 mesh of
      shards on the card, backend='fused': double_gyre split nsub 8, 100
@@ -210,13 +222,15 @@ PATHS = (
     ("double_gyre", dict(scheme="split", nsub=8), 20),
     ("double_gyre", dict(scheme="split", nsub=12), 20),
     ("two_layer", dict(scheme="split", nsub=8), 20),
+    ("shelf_forced", dict(scheme="split", nsub=8), 20),
     ("coastal_wetdry", {}, 20),
     ("shelf_forced", {}, 20),
     ("double_gyre", {}, 20),
 )
 # the (case, nsub) pairs phase 15 holds K1s against its plain version on
+# (the shelf at nsub 8 keeps the three kernels: split_plan)
 AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
-               ("two_layer", 8))
+               ("two_layer", 8), ("shelf_forced", 8))
 # the (case, nsub) pairs and the meshes phase 23 holds K7-split on: nz 1
 # and 2, nsub 4, 8, 12
 MESH_SPLIT = tuple((case, nsub) for case in ("double_gyre", "two_layer")
@@ -1590,6 +1604,54 @@ def split_phases_compare(label, device, tol, seed, case, **kw):
     return {k: max(v, chained) for k, v in worst.items()}
 
 
+def split_two_compare(label, device, seed, case, **kw):
+    """K1s's two-launch step on one perturbed case, bit for bit: the slow
+    phase's tendencies against split.slow_tendencies, the tail from them
+    against split.depth_means and split.fast_phase, and 3 steps of the two
+    launches against 3 plain split steps and 3 steps of the three kernels.
+    Returns the largest difference (0.0)."""
+    import torch
+
+    from beom_tpu_torch.stencils import fused_fb
+    from beom_tpu_torch.stepping import split
+
+    cfg, grid, forcing, st = perturbed_case(device, seed, case,
+                                            scheme="split", **kw)
+    statics = (grid, forcing)
+    pl = fused_fb.split_plan(cfg)
+    tag = f"{label} {case} nsub={cfg.nsub} route {pl.route} tail {pl.tail}"
+    if not fused_fb.tail_geometries(cfg):
+        print(f"   {tag}: no tail fits a CTA")
+        return 0.0
+    tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
+    ref = split.slow_tendencies(st, grid, forcing, cfg)
+    worst = agree(f"{tag} tendencies vs plain", tend, ref, None)
+    t1 = st.t + cfg.npdtype.type(cfg.dt)
+    out = fused_fb._launch_tail(ref, st.h, st.u, st.v, statics, t1, cfg)
+    s = split.fast_phase(split.depth_means(st, *ref, grid, cfg), st, grid,
+                         forcing, cfg)
+    worst = max(worst, agree(f"{tag} tail vs plain", out, (s.h, s.u, s.v),
+                             None))
+    h, u, v, t = st.h, st.u, st.v, st.t
+    three = (h, u, v)
+    for _ in range(3):
+        t1 = t + cfg.npdtype.type(cfg.dt)
+        tend = fused_fb._launch_tend(h, u, v, statics, cfg)
+        h, u, v = fused_fb._launch_tail(tend, h, u, v, statics, t1, cfg)
+        slow = fused_fb._launch_slow(*three, statics, cfg)
+        sub = fused_fb._launch_subcycle(slow, *three, statics, cfg)
+        three = fused_fb._launch_recompose(slow, sub, *three, statics, t1,
+                                           cfg)
+        t = t1
+    torch.cuda.synchronize()
+    plain = fused_fb.fused_fb_step_plain(st.h, st.u, st.v, statics, 0, st.t,
+                                         cfg, 3)
+    worst = max(worst, agree(f"{tag} 3 steps vs plain", (h, u, v), plain,
+                             None))
+    agree(f"{tag} 3 steps vs the three kernels", (h, u, v), three, None)
+    return worst
+
+
 def fb_case_compare(label, device, tol, seed, case, **kw):
     """K1 on one perturbed case: one step at each sweep parity and a
     4-step pass against the plain version, and steps_per_pass = 4 bitwise
@@ -1650,7 +1712,7 @@ def run_path(device, case, kw, n_steps):
     log = io.StringIO()
     torch.cuda.synchronize()
     fused_fb.LAUNCHES = 0
-    fused_fb.SPLIT_LAUNCHES.update(slow=0, subcycle=0, recompose=0)
+    fused_fb.SPLIT_LAUNCHES.update(dict.fromkeys(fused_fb.SPLIT_LAUNCHES, 0))
     t0 = time.perf_counter()
     out = run(cfg, grid, forcing, st, n_steps, log=log)
     torch.cuda.synchronize()
@@ -1660,8 +1722,12 @@ def run_path(device, case, kw, n_steps):
     for d in diags:
         print("   " + json.dumps(d))
     split = cfg.scheme == "split"
-    want = dict(slow=n_steps * split, subcycle=n_steps * split,
-                recompose=n_steps * split, fb_step=n_steps * (not split))
+    route = fused_fb.split_plan(cfg).route if split else 0
+    if split:
+        print(f"   {label}: {fused_fb.split_plan(cfg).describe()}")
+    want = dict(slow=n_steps * (route == 3), subcycle=n_steps * (route == 3),
+                recompose=n_steps * (route == 3), tend=n_steps * (route == 2),
+                tail=n_steps * (route == 2), fb_step=n_steps * (not split))
     if counts != want:
         raise AssertionError(f"{label}: launches {counts}, not {want}")
     if [d["n"] for d in diags] != [every, 2 * every]:
@@ -1847,6 +1913,13 @@ def case_phases(dev, smi, rel, ulps, gyre_err):
                                      nx=BIG, ny=BIG, nsub=nsub)
         for k, v in worst.items():
             err[case, k] = max(err.get((case, k), 0.0), v)
+        for label, size, dtype in (("201x137 f64", (201, 137), "float64"),
+                                   ("201x137 f32", (201, 137), "float32"),
+                                   (f"{BIG}^2 f32", (BIG, BIG), "float32")):
+            worst = split_two_compare(label, dev, 47, case, nx=size[0],
+                                      ny=size[1], dtype=dtype, nsub=nsub)
+            for k in ("tend", "tail"):
+                err[case, k] = max(err.get((case, k), 0.0), worst)
 
     phase(f"16 the other paths at full width: run() at {BIG}^2 f32")
     launches = {}
@@ -1864,7 +1937,10 @@ def case_phases(dev, smi, rel, ulps, gyre_err):
         entries.append(fb_times(
             case, cfg, (grid, forcing), st, smi,
             (launches[case, "fb_step"], 0), err[case, "fb"])["single"])
-    for case in ("double_gyre", "two_layer"):
+    # K1s's five kernels on the three split paths of phase 16 at nsub 8: the
+    # JSON entries of each path's route (the gyre's and two_layer's two
+    # launches, the shelf's three kernels), the other route's printed
+    for case in ("double_gyre", "two_layer", "shelf_forced"):
         cfg, grid, forcing, st = perturbed_case(
             dev, 2, case, nx=BIG, ny=BIG, scheme="split", nsub=8)
         statics = (grid, forcing)
@@ -1894,20 +1970,61 @@ def case_phases(dev, smi, rel, ulps, gyre_err):
                               slow_f, sub_f, st.h, st.u, st.v, statics,
                               st.t, cfg),
                           8 * nz + 11, 40 * nz)}
+        # the two-launch step: the slow phase's tendencies read h, u, v, the
+        # four masks, f, the wind and the sponge and write du_s, dv_s; the
+        # tail reads h, u, v, the tendencies, H, three masks and the open
+        # boundary's maps and tides and writes h, u, v
+        tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
+        t1 = st.t + cfg.npdtype.type(cfg.dt)
+        timed["tend"] = (
+            lambda: split.slow_tendencies(st, grid, forcing, cfg),
+            lambda: fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg),
+            5 * nz + 5 + 2 * cfg.wind + cfg.sponge, 150 * nz)
+        timed["tail"] = (
+            lambda: split.fast_phase(split.depth_means(st, *tend, grid, cfg),
+                                     st, grid, forcing, cfg),
+            lambda: fused_fb._launch_tail(tend, st.h, st.u, st.v, statics,
+                                          t1, cfg),
+            8 * nz + 4 + cfg.obc * (3 + 2 * len(cfg.tides)),
+            20 * cfg.nsub + 40 * nz + 30)
+        route = fused_fb.split_plan(cfg).route
         for k, (plain, kernel, fields, ops) in timed.items():
+            if (k in ("tend", "tail")) != (route == 2):
+                print(f"   K1s {k} {case} nsub=8 (not on this case's route):"
+                      f" {time_ms(kernel, 100)!r} ms")
+                continue
             ms = time_pair(f"K1s {k} {case} nsub=8", plain, kernel, 10, 100)
             suffix = "" if case == "double_gyre" else f"_{case}"
             entries.append(kernel_entry(
                 f"split_{k}{suffix}", "split_step.cu", "band.py:200",
                 launches[case, k], err[case, k], ms, fields * pts * 4,
                 ops * pts))
-    for nsub in (4, 8, 12):
+    for case, nsub in (("double_gyre", 4), ("double_gyre", 8),
+                       ("double_gyre", 12), ("two_layer", 8)):
         cfg, grid, forcing, st = perturbed_case(
-            dev, 2, "double_gyre", nx=BIG, ny=BIG, scheme="split", nsub=nsub)
-        args = (st.h, st.u, st.v, (grid, forcing), st.n, st.t, cfg, 1)
-        time_pair(f"split step double_gyre nsub={nsub}",
-                  lambda: fused_fb.fused_fb_step_plain(*args),
-                  lambda: fused_fb.fused_fb_step(*args), 5, 50, unit="step")
+            dev, 2, case, nx=BIG, ny=BIG, scheme="split", nsub=nsub)
+        statics = (grid, forcing)
+        args = (st.h, st.u, st.v, statics, st.n, st.t, cfg, 1)
+        t1 = st.t + cfg.npdtype.type(cfg.dt)
+
+        def three():
+            slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
+            sub = fused_fb._launch_subcycle(slow, st.h, st.u, st.v, statics,
+                                            cfg)
+            return fused_fb._launch_recompose(slow, sub, st.h, st.u, st.v,
+                                              statics, t1, cfg)
+
+        pl = fused_fb.split_plan(cfg)
+        ms = time_pair(f"split step {case} nsub={nsub} ({pl.launches()} "
+                       "launches)",
+                       lambda: fused_fb.fused_fb_step_plain(*args),
+                       lambda: fused_fb.fused_fb_step(*args), 5, 50,
+                       unit="step")
+        ms3 = time_ms(three, 50)
+        bound = step_fields(cfg) * pts * 4 / HBM_BYTES_PER_S * 1e3
+        print(f"   split step {case} nsub={nsub}: {ms[0]!r} ms by the plan "
+              f"({pl.describe()}), the three kernels {ms3!r} ms; the "
+              f"function's bound (each operand once) {bound!r} ms")
     for case, kw in (("two_layer", {}),
                      ("two_layer", dict(scheme="split", nsub=8))):
         cfg, grid, forcing, st = make_case(
@@ -2377,8 +2494,10 @@ def check_shard_split(label, dev, tol, seed, case, mesh_shape, **kw):
     agree(f"{tag} slow vs K1s", g(slow), one_slow, None)
     agree(f"{tag} subcycle vs K1s", g(sub), one_sub, None)
     agree(f"{tag} recompose vs K1s", g(rec), one_rec, None)
-    agree(f"{tag} 2-step pass vs K1s", g(two), fused_fb.fused_fb_step(
-        st.h, st.u, st.v, statics, 0, st.t, cfg, 2), None)
+    agree(f"{tag} 2-step pass vs K1s's step "
+          f"({fused_fb.split_plan(cfg).launches()} launches)", g(two),
+          fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg, 2),
+          None)
     return worst
 
 

@@ -174,8 +174,11 @@ def test_build_spec_of_case(name, scheme):
         got = {d.split("=")[0][5:]: int(d.split("=")[1]) for d in defines}
         want = dict(NZ=1, WETDRY=0, OBC=0, SPONGE=0, NTIDE=0, NU4=0, CDBOT=0,
                     RINT=0, TX=32, TY=16)
-        if scheme == "split":       # the subcycle's substeps and its tile
-            want.update(NSUB=8, SX=64 if dtype == "float32" else 32, SY=32)
+        if scheme == "split":       # the subcycle's substeps and its tile,
+            # and the geometry of the two-launch step's tail
+            pl = fused_fb.split_plan(dataclasses.replace(cfg, dtype=dtype))
+            want.update(NSUB=8, SX=64 if dtype == "float32" else 32, SY=32,
+                        QX=pl.qx, QS=pl.qs, QP=pl.qp)
         want.update(SWITCHES[name])
         assert got == want
 

@@ -180,8 +180,82 @@ def test_split_kernels_match_plain(cuda, name, nsub, dtype, nx, ny, rel):
     args = (st.h, st.u, st.v, statics, 0, st.t, cfg, 3)
     out = fused_fb.fused_fb_step(*args)
     torch.cuda.synchronize()
-    assert fused_fb.SPLIT_LAUNCHES == {k: v + 3 for k, v in before.items()}
+    route = ("tend", "tail") if fused_fb.split_plan(cfg).route == 2 \
+        else ("slow", "subcycle", "recompose")
+    assert fused_fb.SPLIT_LAUNCHES == {
+        k: v + 3 * (k in route) for k, v in before.items()}
     close("huv", out, fused_fb.fused_fb_step_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nx,ny,rel", SIZES + [
+    ("float32", 201, 137, 0.0), ("float64", 37, 29, 0.0)])
+@pytest.mark.parametrize("name,nsub", [
+    ("double_gyre", 4), ("double_gyre", 12), ("two_layer", 8),
+    ("coastal_wetdry", 8), ("shelf_forced", 8)])
+def test_split_two_launches_match_plain_and_three(cuda, name, nsub, dtype,
+                                                  nx, ny, rel):
+    """K1s's two-launch step (the slow phase's tendencies, then the tail):
+    the tendencies bit for bit the plain ones, and two steps bit for bit
+    the plain split step and the three kernels, at odd sizes too, at the
+    plan's tail geometry also where the plan keeps the three kernels; two
+    launches per step."""
+    from beom_tpu_torch.stepping import split
+
+    cfg, grid, forcing, st = _perturbed(
+        cuda, 52, name, nx=nx, ny=ny, dtype=dtype, scheme="split",
+        nsub=nsub, **CASE_KW[name])
+    statics = (grid, forcing)
+    assert fused_fb.tail_geometries(cfg)
+    tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
+    for a, b in zip(tend, split.slow_tendencies(st, grid, forcing, cfg)):
+        assert torch.equal(a, b)
+    h, u, v, t = st.h, st.u, st.v, st.t
+    three = (h, u, v)
+    before = dict(fused_fb.SPLIT_LAUNCHES)
+    for _ in range(2):
+        t1 = t + cfg.npdtype.type(cfg.dt)
+        tend = fused_fb._launch_tend(h, u, v, statics, cfg)
+        h, u, v = fused_fb._launch_tail(tend, h, u, v, statics, t1, cfg)
+        slow = fused_fb._launch_slow(*three, statics, cfg)
+        sub = fused_fb._launch_subcycle(slow, *three, statics, cfg)
+        three = fused_fb._launch_recompose(slow, sub, *three, statics, t1,
+                                           cfg)
+        t = t1
+    torch.cuda.synchronize()
+    assert fused_fb.SPLIT_LAUNCHES["tend"] == before["tend"] + 2
+    assert fused_fb.SPLIT_LAUNCHES["tail"] == before["tail"] + 2
+    ref = fused_fb.fused_fb_step_plain(st.h, st.u, st.v, statics, 0, st.t,
+                                       cfg, 2)
+    for f, a, b, c in zip("huv", (h, u, v), three, ref):
+        assert torch.equal(a, b), (f, float((a - b).abs().max()))
+        assert torch.equal(a, c), (f, float((a - c).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,nsub", [
+    ("double_gyre", 8), ("two_layer", 8), ("coastal_wetdry", 4)])
+def test_shard_split_equals_two_launch_step(cuda, name, nsub):
+    """K7-split's 2-step pass on (2, 4) shards bit for bit two steps of
+    the two-launch route on one device."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = _perturbed(cuda, 57, name, nx=512, ny=256,
+                                        scheme="split", nsub=nsub,
+                                        **CASE_KW[name])
+    assert fused_fb.split_plan(cfg).route == 2
+    statics = (grid, forcing)
+    m = pmesh.make_mesh(2, 4, devices=[cuda])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    before = fused_fb.SPLIT_LAUNCHES["tail"]
+    out = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2)
+    ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg, 2)
+    torch.cuda.synchronize()
+    assert fused_fb.SPLIT_LAUNCHES["tail"] == before + 2
+    for a, b in zip(out, ref):
+        assert torch.equal(pmesh.gather(a), b)
 
 
 @pytest.mark.cuda

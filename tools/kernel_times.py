@@ -2,7 +2,7 @@
 """Times and code of the single-device stencil kernels and of the fb shard
 step on one NVIDIA GPU, for the checkout of beom_tpu_torch at ROOT.
 
-    python3 tools/kernel_times.py ROOT
+    python3 tools/kernel_times.py ROOT [--split]
 
 At 2048^2 f32 from chip_smoke.py's perturbed state: K1 (the fb step,
 double gyre; one step on each of the four fb cases; the double gyre's
@@ -39,6 +39,14 @@ JSON line.  To compare two commits, unpack both and run this for each,
 alternating (a, b, b, a) in one session on one card: the kernels are built
 from each checkout's sources into its own build/kernels/, and the helpers
 are always this checkout's chip_smoke.py.
+
+K1s's split step is timed as each checkout runs it, one step at 2048^2
+f32 through fused_fb_step (the three kernels, or the two launches of the
+checkout's split plan, each launch counted under the key "split_") on the
+double gyre at nsub 4, 8 and 12 and on two_layer at nsub 8, with digests
+of each step's h, u, v (equal digests: bitwise equal results across the
+trees), and where the checkout has them the two-launch step's kernels
+alone.  With --split only K1s is timed, and the code report.
 """
 
 from __future__ import annotations
@@ -132,7 +140,7 @@ def code_report(build):
     return report
 
 
-def main(root: str) -> dict:
+def main(root: str, only_split: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -198,6 +206,36 @@ def main(root: str) -> dict:
         record(name, lambda: jacobi(b, eta_n), n, "cg_")
         stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
         return jacobi, b, eta_n
+
+    for case, nsub in (("double_gyre", 4), ("double_gyre", 8),
+                       ("double_gyre", 12), ("two_layer", 8)):
+        cfg, grid, forcing, st = sm.perturbed_case(
+            dev, 2, case, nx=N, ny=N, scheme="split", nsub=nsub)
+        statics = (grid, forcing)
+        step = lambda: fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0,
+                                              st.t, cfg, 1)
+        name = f"K1s step {case} nsub {nsub}"
+        launches = fused_fb.split_plan(cfg).launches() \
+            if hasattr(fused_fb, "split_plan") else 3
+        out[name + " launches"] = launches
+        out[name + " digest"] = digest(*step())
+        record(name, step, 100, "split_", launches)
+        if case == "double_gyre" and nsub == 8 \
+                and hasattr(fused_fb, "_launch_tail"):
+            tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
+            t1 = st.t + cfg.npdtype.type(cfg.dt)
+            record("K1s tend", lambda: fused_fb._launch_tend(
+                st.h, st.u, st.v, statics, cfg), 100, "split_tend_kernel")
+            record("K1s tail", lambda: fused_fb._launch_tail(
+                tend, st.h, st.u, st.v, statics, t1, cfg), 100,
+                "split_tail_kernel")
+    if only_split:
+        out["code"] = code_report(build)
+        out["power"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        return out
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N)
     statics = (grid, forcing)
@@ -332,6 +370,6 @@ def main(root: str) -> dict:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--split"]):
         raise SystemExit(__doc__)
-    print(json.dumps(main(sys.argv[1])))
+    print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"])))
