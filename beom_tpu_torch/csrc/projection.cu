@@ -44,6 +44,19 @@
 // identity).  The stage bodies are csrc/projection_body.cuh's, which the
 // phases on the shards of a device mesh (shard_projection.cu) run too;
 // here a tile's points come from the whole grid with periodic wrap.
+//
+// The phases run by default as the staged kernels proj_as and
+// proj_bs (projection_body.cuh: namespaces pas, pbs), on tiles of their
+// own geometry chosen per case by stencils/fused_projection.py::plan.  On
+// the H100 (tools/k3_probes.py) the single-step K3a was bound by its stages,
+// with its loads (gathers through a per-point offset table) adding to them
+// nearly in full, and K3b by its loads: the staged kernels copy every
+// operand a stage reads by cp.async, on tiles with fewer block points per
+// tile point, rebuild the staggered masks from the centre mask where the
+// grid's are make_grid's, cut each stage to the points the next one reads,
+// and compute the tide's elevation on the tile's points only.  proj_as
+// also writes, in its epilogue, the solve's right-hand side and warm start
+// (Epi), so the step needs no elementwise pass between K3a and the solve.
 
 #include "projection_body.cuh"
 
@@ -70,6 +83,19 @@ __global__ void __launch_bounds__(THREADS)
 proj_b_kernel(const Params<T> p, const GridSrc<T, N_IN_B> src, T corr,
               T* out_h, T* out_u, T* out_v) {
   pb::run<T>(p, src, grid_out(p), corr, out_h, out_u, out_v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(pas::THREADS, pas::MINB)
+proj_as_kernel(const Params<T> p, T* out_us, T* out_vs, const Epi<T> ep) {
+  pas::run<T>(p, out_us, out_vs, ep);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(pbs::THREADS, pbs::MINB)
+proj_bs_kernel(const Params<T> p, const T* pres, T corr, T* out_h, T* out_u,
+               T* out_v) {
+  pbs::run<T>(p, pres, corr, out_h, out_u, out_v);
 }
 
 // a source over the whole grid: h, u, v of the operand table, and p
@@ -121,6 +147,48 @@ int proj_b(const void* const* ptrs, const int* ints, const double* dbls,
   return int(cudaGetLastError());
 }
 
+// epi: div, eta, b, x0, phi, phi_prev (Epi; null: not written or read)
+template <typename T>
+int proj_as(const void* const* ptrs, const int* ints, const double* dbls,
+            void* us, void* vs, void* const* epi, double lam_neg,
+            void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  constexpr int smem = pas::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      proj_as_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  const Epi<T> ep{static_cast<T*>(epi[0]), static_cast<T*>(epi[1]),
+                  static_cast<T*>(epi[2]), static_cast<T*>(epi[3]),
+                  static_cast<const T*>(epi[4]),
+                  static_cast<const T*>(epi[5]), T(lam_neg)};
+  const dim3 grid((p.nx + pas::TX - 1) / pas::TX,
+                  (p.ny + pas::TY - 1) / pas::TY);
+  proj_as_kernel<T><<<grid, pas::THREADS, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<T*>(us), static_cast<T*>(vs), ep);
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int proj_bs(const void* const* ptrs, const int* ints, const double* dbls,
+            const void* pres, double corr, void* h1, void* u1, void* v1,
+            void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  constexpr int smem = pbs::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      proj_bs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid((p.nx + pbs::TX - 1) / pbs::TX,
+                  (p.ny + pbs::TY - 1) / pbs::TY);
+  proj_bs_kernel<T><<<grid, pbs::THREADS, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
+      p, static_cast<const T*>(pres), T(corr), static_cast<T*>(h1),
+      static_cast<T*>(u1), static_cast<T*>(v1));
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 #define PROJ_ENTRIES(SUFFIX, T)                                              \
@@ -134,17 +202,32 @@ int proj_b(const void* const* ptrs, const int* ints, const double* dbls,
       const void* pres, double corr, void* h1, void* u1, void* v1,           \
       void* stream) {                                                        \
     return proj_b<T>(ptrs, ints, dbls, pres, corr, h1, u1, v1, stream);      \
+  }                                                                          \
+  extern "C" int beom_proj_as_##SUFFIX(                                      \
+      const void* const* ptrs, const int* ints, const double* dbls,          \
+      void* us, void* vs, void* const* epi, double lam_neg, void* stream) {  \
+    return proj_as<T>(ptrs, ints, dbls, us, vs, epi, lam_neg, stream);       \
+  }                                                                          \
+  extern "C" int beom_proj_bs_##SUFFIX(                                      \
+      const void* const* ptrs, const int* ints, const double* dbls,          \
+      const void* pres, double corr, void* h1, void* u1, void* v1,           \
+      void* stream) {                                                        \
+    return proj_bs<T>(ptrs, ints, dbls, pres, corr, h1, u1, v1, stream);     \
   }
 
 PROJ_ENTRIES(f32, float)
 PROJ_ENTRIES(f64, double)
 
-// dynamic shared memory of one CTA of proj_a (0) and proj_b (1), for the
-// wrapper's choice of tile
+// dynamic shared memory of one CTA of proj_a (0), proj_b (1), proj_as (2)
+// and proj_bs (3), for the wrapper's check of its tile
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   if (which == 0)
     return is_f64 ? pa::smem_bytes<double>() : pa::smem_bytes<float>();
-  return is_f64 ? pb::smem_bytes<double>() : pb::smem_bytes<float>();
+  if (which == 1)
+    return is_f64 ? pb::smem_bytes<double>() : pb::smem_bytes<float>();
+  if (which == 2)
+    return is_f64 ? pas::smem_bytes<double>() : pas::smem_bytes<float>();
+  return is_f64 ? pbs::smem_bytes<double>() : pbs::smem_bytes<float>();
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

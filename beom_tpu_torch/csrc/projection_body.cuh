@@ -9,7 +9,33 @@
 
 #pragma once
 
+#include "fb_step_body.cuh"   // cp.async (namespace fbp)
 #include "shard_addr.cuh"
+
+// the staged phase kernels' geometry (pas, pbs below): each one's tile
+// and threads per CTA, and whether the staggered masks are rebuilt from
+// the centre mask (BEOM_DMASK, where the grid's masks are make_grid's)
+#ifndef BEOM_ATX
+#define BEOM_ATX 32
+#endif
+#ifndef BEOM_ATY
+#define BEOM_ATY 16
+#endif
+#ifndef BEOM_ANT
+#define BEOM_ANT 256
+#endif
+#ifndef BEOM_BTX
+#define BEOM_BTX 32
+#endif
+#ifndef BEOM_BTY
+#define BEOM_BTY 16
+#endif
+#ifndef BEOM_BNT
+#define BEOM_BNT 256
+#endif
+#ifndef BEOM_DMASK
+#define BEOM_DMASK 0
+#endif
 
 namespace beom {
 namespace prj {
@@ -285,6 +311,522 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
 }
 
 }  // namespace pb
+
+
+// ------------------------------------------- the staged phase kernels
+//
+// K3a and K3b as the single-device kernels run them by default: the same
+// stages and arithmetic as pa and pb, on tiles of their own geometry
+// (BEOM_ATX x BEOM_ATY with BEOM_ANT threads, BEOM_BTX x BEOM_BTY with
+// BEOM_BNT), every operand a stage reads copied into shared memory by
+// cp.async (rows in 16-byte pieces where the block lies inside the grid,
+// else point by point through the block's row and column offsets, periodic
+// on both axes), the staggered masks rebuilt from the centre mask under
+// BEOM_DMASK, and each stage computed only where the next one reads it.
+namespace stg {
+
+// layers [0, nl) of the field at src (layer stride `plane`) into the
+// planes from dst of an RX x RY block
+template <typename T, int RX, int RY, int NT>
+__device__ __forceinline__ void stage(const T* src, long plane, int nl,
+                                      T* dst, const int* roff,
+                                      const int* coff, int x0, bool vec) {
+  constexpr int NPT = RX * RY;
+  constexpr int VW = 16 / int(sizeof(T));
+  if (RX % VW == 0 && vec) {
+    constexpr int NV = RX / VW;
+    for (int e = threadIdx.x; e < nl * RY * NV; e += NT) {
+      const int k = e / (RY * NV);
+      const int r = (e / NV) % RY;
+      const int c = (e % NV) * VW;
+      fbp::cp_async<16>(dst + k * NPT + r * RX + c,
+                        src + k * plane + roff[r] + x0 + c);
+    }
+    return;
+  }
+  for (int e = threadIdx.x; e < nl * NPT; e += NT) {
+    const int k = e / NPT;
+    const int s = e % NPT;
+    fbp::cp_async<int(sizeof(T))>(
+        dst + e, src + k * plane + roff[s / RX] + coff[s % RX]);
+  }
+}
+
+// the block's row and column offsets into the grid (periodic); returns
+// whether its rows can be copied in 16-byte pieces.  Ends with a
+// __syncthreads().
+template <typename T, int RX, int RY, int NT>
+__device__ __forceinline__ bool offsets(const Params<T>& p, int* roff,
+                                        int* coff, int y0, int x0) {
+  for (int r = threadIdx.x; r < RY; r += NT)
+    roff[r] = wrap(y0 + r, p.ny) * p.nx;
+  for (int c = threadIdx.x; c < RX; c += NT) coff[c] = wrap(x0 + c, p.nx);
+  __syncthreads();
+  constexpr int VW = 16 / int(sizeof(T));
+  return p.aligned && x0 >= 0 && x0 + RX <= p.nx && x0 % VW == 0 &&
+         p.nx % VW == 0;
+}
+
+// mask_u, mask_v, mask_q of make_grid from the centre mask, on [0, R - 1)
+template <typename T, int RX, int RY, int NT>
+__device__ __forceinline__ void rebuild_masks(const T* m, T* mu, T* mv,
+                                              T* mq) {
+  constexpr int nx_ = RX - 1;
+  for (int k_ = threadIdx.x; k_ < nx_ * (RY - 1); k_ += NT) {
+    const int s = (k_ / nx_) * RX + k_ % nx_;
+    mu[s] = m[s] * m[s + 1];
+    mv[s] = m[s] * m[s + RX];
+    if (mq) mq[s] = ((m[s] * m[s + 1]) * m[s + RX]) * m[s + RX + 1];
+  }
+}
+
+}  // namespace stg
+
+// The epilogue of the staged K3a: what it writes at each point besides u*,
+// v* (a null pointer: not written).  div = div(U*); eta = (sum_k h - H)
+// mask, the implicit free surface's eta^n and the rigid lid's column
+// anomaly before its de-mean; b = lam_neg (eta - dt div), the implicit
+// free surface's right-hand side (stepping/projection.py: implicit_rhs);
+// x0 = 2 phi - phi_prev, the solve's warm start (warm_x0).
+template <typename T>
+struct Epi {
+  T *div, *eta, *b, *x0;
+  const T *phi, *phi_prev;
+  T lam_neg;
+};
+
+// ------------------------------------------------------ K3a, staged
+namespace pas {
+
+constexpr int W = 4;
+constexpr int TX = BEOM_ATX;
+constexpr int TY = BEOM_ATY;
+constexpr int THREADS = BEOM_ANT;
+// CTAs per SM the registers must allow: at most 64 registers a thread
+constexpr int MINB = THREADS >= 1024 ? 1 : 1024 / THREADS;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+// the input planes: the fields, the masks, the statics
+enum In {
+  Q_H = 0,
+  Q_U = NZ,
+  Q_V = 2 * NZ,
+  Q_M = 3 * NZ,
+  Q_MU,
+  Q_MV,
+  Q_MQ,
+  Q_FQ,
+  Q_TAUX,
+  Q_TAUY = Q_TAUX + (WIND ? 1 : 0),
+  Q_SPONGE = Q_TAUY + (WIND ? 1 : 0),
+  N_IN = Q_SPONGE + (SPONGE ? 1 : 0)
+};
+// the work planes after them; the transports the Coriolis sweeps read
+// (Sadourny's scheme): T1 that of the field the first sweep reads, T2 that
+// of its result
+enum Work {
+  Q_PHI = N_IN,
+  Q_Q = Q_PHI + NZ,
+  Q_A1 = Q_Q + NZ,
+  Q_A2 = Q_A1 + NZ,
+  Q_T1 = Q_A2 + NZ,
+  Q_T2 = Q_T1 + NZ,
+  Q_LU = Q_T2 + NZ,
+  Q_LV = Q_LU + (NU4 ? NZ : 0),
+  N_PLANES = Q_LV + (NU4 ? NZ : 0)
+};
+
+// the planes, then the block's row and column offsets
+template <typename T>
+constexpr int smem_bytes() {
+  return int(N_PLANES * NPT * sizeof(T) + (RX + RY) * sizeof(int));
+}
+
+// the statics the stages read (f, the wind, the sponge), from their planes
+template <typename T>
+struct Stat {
+  const T* sm;
+  __device__ __forceinline__ T get(const Params<T>&, int i, int s) const {
+    const int q = i == I_FQ     ? Q_FQ
+                  : i == I_TAUX ? Q_TAUX
+                  : i == I_TAUY ? Q_TAUY
+                                : Q_SPONGE;
+    return sm[q * NPT + s];
+  }
+  __device__ __forceinline__ T get(const Params<T>& p, int i, int,
+                                   int s) const {
+    return get(p, i, s);
+  }
+};
+
+// Tile::cor_u / cor_v from the transport plane t of the field (w itself
+// without Sadourny's scheme): the same products, made once per point
+template <typename T, typename TileT>
+__device__ __forceinline__ T cor_u_t(const TileT& c, int k, int s,
+                                     const T* t) {
+  const T half = T(0.5);
+  const T* qk = c.q + k * NPT;
+  return half * (qk[s] * (half * (t[s] + t[s + 1])) +
+                 qk[s - RX] * (half * (t[s - RX] + t[s - RX + 1])));
+}
+template <typename T, typename TileT>
+__device__ __forceinline__ T cor_v_t(const TileT& c, int k, int s,
+                                     const T* t) {
+  const T half = T(0.5);
+  const T* qk = c.q + k * NPT;
+  return half * (qk[s] * (half * (t[s] + t[s + RX])) +
+                 qk[s - 1] * (half * (t[s - 1] + t[s - 1 + RX])));
+}
+
+// S0 of the tile at (ty0, tx0): its row and column offsets into roff and
+// coff, and its copies into the input planes at `in`, in two groups: what
+// S1 reads, then the wind (S2, S3)
+template <typename T>
+__device__ __forceinline__ void stage_tile(const Params<T>& p, T* in,
+                                           int* roff, int* coff, int ty0,
+                                           int tx0) {
+  const int x0 = tx0 - W;
+  const bool vec = stg::offsets<T, RX, RY, THREADS>(p, roff, coff, ty0 - W,
+                                                   x0);
+  auto stage = [&](const T* src, int nl, T* dst) {
+    stg::stage<T, RX, RY, THREADS>(src, p.plane, nl, dst, roff, coff, x0,
+                                   vec);
+  };
+  stage(p.in[I_H], NZ, in + Q_H * NPT);
+  stage(p.in[I_U], NZ, in + Q_U * NPT);
+  stage(p.in[I_V], NZ, in + Q_V * NPT);
+  stage(p.in[I_MASK], 1, in + Q_M * NPT);
+  if (!BEOM_DMASK) {
+    stage(p.in[I_MASK_U], 1, in + Q_MU * NPT);
+    stage(p.in[I_MASK_V], 1, in + Q_MV * NPT);
+    stage(p.in[I_MASK_Q], 1, in + Q_MQ * NPT);
+  }
+  stage(p.in[I_FQ], 1, in + Q_FQ * NPT);
+  if (SPONGE) stage(p.in[I_SPONGE], 1, in + Q_SPONGE * NPT);
+  fbp::cp_async_commit();
+  if (WIND) {
+    stage(p.in[I_TAUX], 1, in + Q_TAUX * NPT);
+    stage(p.in[I_TAUY], 1, in + Q_TAUY * NPT);
+  }
+  fbp::cp_async_commit();
+}
+
+// S1 to S4 of the tile at (ty0, tx0) from the input planes at `in` (the
+// first group of its copies arrived; the wind's waited for after S1) and
+// the work planes of sm.  The stages, as [lo, R - hi) on both axes: S1
+// phi, q, the first sweep's transport (and the biharmonic's lap) on
+// [1, R - 2), S2 the first sweep and its result's transport on [2, R - 3),
+// S3 on [3, R - 4), S4 on the tile [4, R - 4), which reads S3 one point
+// west and south; the block's last row and column feed only S1's reads of
+// h one point north-east (hy at s + 1).
+template <typename T>
+__device__ __forceinline__ void stages(const Params<T>& p, T* in, T* sm,
+                                       int ty0, int tx0, T* out_us,
+                                       T* out_vs, const Epi<T>& ep) {
+  T* h = in + Q_H * NPT;
+  T* u = in + Q_U * NPT;
+  T* v = in + Q_V * NPT;
+  T* mask = in + Q_M * NPT;
+  T* mu = in + Q_MU * NPT;
+  T* mv = in + Q_MV * NPT;
+  T* mq = in + Q_MQ * NPT;
+  T* phi = sm + Q_PHI * NPT;
+  T* q = sm + Q_Q * NPT;
+  T* a1 = sm + Q_A1 * NPT;
+  T* a2 = sm + Q_A2 * NPT;
+  T* t1 = sm + Q_T1 * NPT;
+  T* t2 = sm + Q_T2 * NPT;
+  T* lu = sm + Q_LU * NPT;
+  T* lv = sm + Q_LV * NPT;
+  const int tid = threadIdx.x;
+  if (BEOM_DMASK) {
+    stg::rebuild_masks<T, RX, RY, THREADS>(mask, mu, mv, mq);
+    __syncthreads();
+  }
+
+  using TileT = Tile<T, RX, NPT, Stat<T>>;
+  const TileT c{p, Stat<T>{in}, u, v, mask, mu, mv, mq, h,
+                phi, q, lu, lv, nullptr};
+  const bool sad = p.sadourny;
+  const bool uf = p.u_first;
+
+  // S1: lap planes for the biharmonic; phi = M (no surface term) + K, PV;
+  // the transport of the field the first sweep's Coriolis term reads
+  if (NU4) {
+    REGION_NS(1, 2, {
+      for (int k = 0; k < NZ; ++k) {
+        lu[k * NPT + s] = c.lap_u(u + k * NPT, s);
+        lv[k * NPT + s] = c.lap_v(v + k * NPT, s);
+      }
+    })
+  }
+  REGION_NS(1, 2, {
+    c.phi_q(s, false, phi, q);
+    if (sad)
+      for (int k = 0; k < NZ; ++k)
+        t1[k * NPT + s] = uf ? c.hy(k, s) * v[k * NPT + s]
+                             : c.hx(k, s) * u[k * NPT + s];
+  })
+  fbp::cp_async_wait<0>();
+  __syncthreads();
+
+  // S2: the first FB-Coriolis sweep, u on even steps, v on odd ones, and
+  // its result's transport
+  REGION(2, 3, {
+    for (int k = 0; k < NZ; ++k) {
+      const T* tk = sad ? t1 + k * NPT : (uf ? v : u) + k * NPT;
+      T a;
+      if (uf) {
+        a = u[k * NPT + s] + p.dt * (c.tend_u(k, s) + cor_u_t(c, k, s, tk));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_u(s));
+        a = a * mu[s];
+      } else {
+        a = v[k * NPT + s] +
+            p.dt * (c.tend_v(k, s) + (-cor_v_t(c, k, s, tk)));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_v(s));
+        a = a * mv[s];
+      }
+      a1[k * NPT + s] = a;
+      if (sad) t2[k * NPT + s] = uf ? c.hx(k, s) * a : c.hy(k, s) * a;
+    }
+  })
+
+  // S3: the second sweep, from the first one's result
+  REGION(3, 4, {
+    for (int k = 0; k < NZ; ++k) {
+      const T* tk = (sad ? t2 : a1) + k * NPT;
+      T b;
+      if (uf) {
+        b = v[k * NPT + s] +
+            p.dt * (c.tend_v(k, s) + (-cor_v_t(c, k, s, tk)));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_v(s));
+        b = b * mv[s];
+      } else {
+        b = u[k * NPT + s] + p.dt * (c.tend_u(k, s) + cor_u_t(c, k, s, tk));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_u(s));
+        b = b * mu[s];
+      }
+      a2[k * NPT + s] = b;
+    }
+  })
+
+  // S4: the transport divergence on the tile, u*, v* and the epilogue
+  const T* us = uf ? a1 : a2;
+  const T* vs = uf ? a2 : a1;
+  for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+    const int jj = k_ / TX;
+    const int ii = k_ % TX;
+    if (ty0 + jj >= p.ny || tx0 + ii >= p.nx) continue;
+    const int s = (W + jj) * RX + W + ii;
+    const long g = long(ty0 + jj) * p.nx + tx0 + ii;
+    T U, Uw, V, Vs;
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      const T* uk = us + k * NPT;
+      const T* vk = vs + k * NPT;
+      const T* tk = t2 + k * NPT;    // the first sweep's transport
+      const T a = (sad && uf) ? tk[s] : c.hx(k, s) * uk[s];
+      const T aw = (sad && uf) ? tk[s - 1] : c.hx(k, s - 1) * uk[s - 1];
+      const T b = (sad && !uf) ? tk[s] : c.hy(k, s) * vk[s];
+      const T bs = (sad && !uf) ? tk[s - RX] : c.hy(k, s - RX) * vk[s - RX];
+      U = (k > 0) ? U + a : a;
+      Uw = (k > 0) ? Uw + aw : aw;
+      V = (k > 0) ? V + b : b;
+      Vs = (k > 0) ? Vs + bs : bs;
+      out_us[k * p.plane + g] = uk[s];
+      out_vs[k * p.plane + g] = vk[s];
+    }
+    U = U * mu[s];
+    Uw = Uw * mu[s - 1];
+    V = V * mv[s];
+    Vs = Vs * mv[s - RX];
+    const T dv = ((U - Uw) * p.inv_dx + (V - Vs) * p.inv_dy) * mask[s];
+    if (ep.div) ep.div[g] = dv;
+    if (ep.eta || ep.b) {
+      T hs = h[s];
+      for (int k = 1; k < NZ; ++k) hs = hs + h[k * NPT + s];
+      const T eta = (hs - p.in[I_HB][g]) * mask[s];
+      if (ep.eta) ep.eta[g] = eta;
+      if (ep.b) ep.b[g] = ep.lam_neg * (eta - p.dt * dv);
+    }
+    if (ep.x0) ep.x0[g] = T(2) * ep.phi[g] - ep.phi_prev[g];
+  }
+}
+
+// One CTA per tile
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p, T* out_us,
+                                    T* out_vs, const Epi<T>& ep) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  const int ty0 = int(blockIdx.y) * TY;
+  const int tx0 = int(blockIdx.x) * TX;
+  stage_tile(p, sm, roff, roff + RY, ty0, tx0);
+  fbp::cp_async_wait<1>();
+  __syncthreads();
+  stages(p, sm, sm, ty0, tx0, out_us, out_vs, ep);
+}
+
+}  // namespace pas
+
+// ------------------------------------------------------ K3b, staged
+namespace pbs {
+
+// the halo of pb on y; on x rounded up to 4, so that the block's rows start
+// 16-byte aligned where the tile's do
+constexpr int W = pb::W;
+constexpr int WX = 4;
+constexpr int TX = BEOM_BTX;
+constexpr int TY = BEOM_BTY;
+constexpr int THREADS = BEOM_BNT;
+constexpr int MINB = THREADS >= 1024 ? 1 : 1024 / THREADS;
+constexpr int RX = TX + 2 * WX;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+enum Plane {
+  Q_H = 0,
+  Q_UA = NZ,
+  Q_VA = 2 * NZ,
+  Q_P = 3 * NZ,
+  Q_M,
+  Q_MU,
+  Q_MV,
+  Q_H1,
+  Q_FX = Q_H1 + NZ,
+  Q_FY = Q_FX + (WETDRY ? NZ : 0),
+  Q_SC = Q_FY + (WETDRY ? NZ : 0),
+  Q_EE = Q_SC + (WETDRY ? NZ : 0),
+  N_PLANES = Q_EE + (OBC ? 1 : 0)
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return int(N_PLANES * NPT * sizeof(T) + (RX + RY) * sizeof(int));
+}
+
+// the statics finalize reads under the open boundary (H, the face maps),
+// from device memory through the block's offsets (staged, their three
+// planes cost the shelf a CTA per SM: 0.31 ms against 0.25 on the H100)
+template <typename T>
+struct Stat {
+  const int *roff, *coff;
+  __device__ __forceinline__ T get(const Params<T>& p, int i, int s) const {
+    return p.in[i][roff[s / RX] + coff[s % RX]];
+  }
+  __device__ __forceinline__ T get(const Params<T>& p, int i, int,
+                                   int s) const {
+    return get(p, i, s);
+  }
+};
+
+// The tile at block (by, bx): S1 the correction on [0, R - 1), S2 the
+// continuity (h1 on [LO, R - LO)), S3 finalize on the tile, reading h1 and
+// the tide's elevation one point east and north.
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p, const T* pres,
+                                    T corr, T* out_h, T* out_u, T* out_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  int* coff = roff + RY;
+  T* h = sm + Q_H * NPT;
+  T* ua = sm + Q_UA * NPT;
+  T* va = sm + Q_VA * NPT;
+  T* pr = sm + Q_P * NPT;
+  T* mask = sm + Q_M * NPT;
+  T* mu = sm + Q_MU * NPT;
+  T* mv = sm + Q_MV * NPT;
+  T* h1 = sm + Q_H1 * NPT;
+  T* fx = sm + Q_FX * NPT;
+  T* fy = sm + Q_FY * NPT;
+  T* sc = sm + Q_SC * NPT;
+  T* ee = sm + Q_EE * NPT;
+  const int tid = threadIdx.x;
+  const int ty0 = int(blockIdx.y) * TY;
+  const int tx0 = int(blockIdx.x) * TX;
+  const int x0 = tx0 - WX;
+  const bool vec = stg::offsets<T, RX, RY, THREADS>(p, roff, coff, ty0 - W,
+                                                   x0);
+  auto stage = [&](const T* src, int nl, T* dst) {
+    stg::stage<T, RX, RY, THREADS>(src, p.plane, nl, dst, roff, coff, x0,
+                                   vec);
+  };
+  stage(p.in[I_H], NZ, h);
+  stage(p.in[I_U], NZ, ua);
+  stage(p.in[I_V], NZ, va);
+  stage(pres, 1, pr);
+  stage(p.in[I_MASK], 1, mask);
+  if (!BEOM_DMASK) {
+    stage(p.in[I_MASK_U], 1, mu);
+    stage(p.in[I_MASK_V], 1, mv);
+  }
+  fbp::cp_async_commit();
+  // obc.eta_ext at t1 where finalize reads it, as load_eta_ext
+  if (OBC) {
+    for (int k_ = tid; k_ < (TX + 1) * (TY + 1); k_ += THREADS) {
+      const int r = W + k_ / (TX + 1);
+      const int cc = WX + k_ % (TX + 1);
+      const int g = roff[r] + coff[cc];
+      T e = T(0);
+      for (int c = 0; c < NTIDE; ++c) {
+        const long gc = c * p.plane + g;
+        e = e + p.in[I_TIDE_AMP][gc] *
+                    tcos(p.omega[c] * p.t1 - p.in[I_TIDE_PHASE][gc]);
+      }
+      ee[r * RX + cc] = e;
+    }
+  }
+  fbp::cp_async_wait<0>();
+  __syncthreads();
+  if (BEOM_DMASK) {
+    stg::rebuild_masks<T, RX, RY, THREADS>(mask, mu, mv,
+                                           static_cast<T*>(nullptr));
+    __syncthreads();
+  }
+
+  // S1: the barotropic correction, the same in every layer, in place
+  REGION(0, 1, {
+    const T dpx = mu[s] * ((pr[s + 1] - pr[s]) * p.inv_dx);
+    const T dpy = mv[s] * ((pr[s + RX] - pr[s]) * p.inv_dy);
+    for (int k = 0; k < NZ; ++k) {
+      ua[k * NPT + s] = (ua[k * NPT + s] - corr * dpx) * mu[s];
+      va[k * NPT + s] = (va[k * NPT + s] - corr * dpy) * mv[s];
+    }
+  })
+
+  // S2: the layer continuity with the corrected velocities
+  using TileT = Tile<T, RX, NPT, Stat<T>>;
+  const TileT c{p, Stat<T>{roff, coff}, ua, va, mask, mu, mv, nullptr, h1,
+                nullptr, nullptr, nullptr, nullptr, ee};
+  continuity_stage<T, RX, RY, TileT, 0, THREADS>(c, h, ua, va, h1, fx, fy,
+                                                 sc, false);
+
+  // S3: the gates and Flather on the tile; write h1, u1, v1
+  for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+    const int jj = k_ / TX;
+    const int ii = k_ % TX;
+    if (ty0 + jj >= p.ny || tx0 + ii >= p.nx) continue;
+    const int s = (W + jj) * RX + WX + ii;
+    const long g = long(ty0 + jj) * p.nx + tx0 + ii;
+    T uo[NZ], vo[NZ];
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      uo[k] = ua[k * NPT + s];
+      vo[k] = va[k * NPT + s];
+    }
+    finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
+#pragma unroll
+    for (int k = 0; k < NZ; ++k) {
+      out_h[k * p.plane + g] = h1[k * NPT + s];
+      out_u[k * p.plane + g] = uo[k];
+      out_v[k * p.plane + g] = vo[k];
+    }
+  }
+}
+
+}  // namespace pbs
 
 }  // namespace prj
 }  // namespace beom

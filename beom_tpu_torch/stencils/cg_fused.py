@@ -26,6 +26,7 @@ raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import numpy as np
@@ -87,6 +88,7 @@ def row_stride(w: int, itemsize: int) -> int:
     return vec * ((w + 2 * vec) // vec + 2)
 
 
+@functools.lru_cache(maxsize=None)
 def tile_plan(ny: int, nx: int, ctas: int, itemsize: int):
     """(nty, ntx): the Jacobi kernel's tiles, nty x ntx of balanced sizes
     (tile (ty, tx) owns rows [ty ny // nty, (ty + 1) ny // nty) and the
@@ -326,7 +328,9 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
     kernel and becomes 'jacobi', as in the reference.  solve.steps is the
     multigrid cycle's flattened step list (empty with Jacobi), on the CPU
     the H100's.  solve(..., stamps=stamps.Stamps()) is the launch's
-    opt-in timing mode (stencils/stamps.py)."""
+    opt-in timing mode (stencils/stamps.py); solve(..., count=False) does
+    not read the iteration count back (CGResult.iters None on CUDA), so
+    the call returns without waiting for the card."""
     from beom_tpu_torch.stencils.mg_coarse import (BC, H100_SMEM, XC,
                                                    CycleTables, plan)
 
@@ -384,7 +388,7 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
         # bytes and padded
         stride = -(-(mask.numel() + 16) // 64) * 64
 
-    def solve(b, x0=None, stamps=None) -> CGResult:
+    def solve(b, x0=None, stamps=None, count=True) -> CGResult:
         global LAUNCHES
         if on_cpu:
             if b.device.type != "cpu":
@@ -433,7 +437,9 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
             LAUNCHES += 1
             if stamps is not None:
                 stamps.fill()
-        return CGResult(x=x, iters=int(iters.item()), resnorm=resnorm[0])
+        # count=False: iters None, and no wait for the card
+        return CGResult(x=x, iters=int(iters.item()) if count else None,
+                        resnorm=resnorm[0])
 
     solve.steps = steps
     return solve

@@ -12,8 +12,9 @@ A step decomposes as the reference's does:
 
   phase A (K3a) : provisional momentum u*, v* without the surface term,
                   and the divergence of the barotropic transport;
-  glue (torch)  : the solve's right-hand side (for the rigid lid with
-                  one global de-mean), stepping/projection.py's helpers;
+  right-hand side and warm start : stepping/projection.py's helpers, in
+                  K3a's epilogue where the plan takes it (the rigid
+                  lid's global de-mean stays in torch);
   solve         : cfg.solver='redblack' -> passes of the blocked
                   red-black kernel (stencils/redblack.py, K4a);
                   'cg' with precond 'jacobi' (what 'auto' means for the
@@ -28,16 +29,33 @@ A step decomposes as the reference's does:
                   K4a with its residual, K5, K4b);
   phase B (K3b) : gradient correction, per-layer continuity, finalize.
 
+Each phase runs as one of two kernels of `csrc/projection.cu`, chosen per
+case and type by `plan`: the single-step kernels `proj_a` / `proj_b` on
+32 x 16 tiles (the stage bodies the shard kernels share), or the staged
+kernels `proj_as` / `proj_bs` on tiles of their own, every
+operand staged by cp.async, whose K3a also writes the solve's right-hand
+side and warm start in its epilogue (`Phases.a_rhs`: then no elementwise
+pass runs between phase A and the solve; the rigid lid's de-mean, a sum
+over the grid, stays two torch reductions and four passes).  `Phases`
+holds one grid's launches with what each rebuilt per call prepared once
+(the library, the statics' operand table and checks, the scalar slots);
+the fused stepper keeps one, and `proj_a` / `proj_b` prepare one per
+call.  The solve's iteration count is not read back in the step, so the
+host queues the next launches while the solve runs.
+
 `proj_a` and `proj_b` run their kernel on CUDA tensors and their plain
 versions, `proj_a_plain` and `proj_b_plain`, on CPU tensors.  They never
 fall back from one to the other: on a CUDA tensor each launches its
-kernel or raises.
+kernel or raises.  `proj_a_tiled` and `proj_b_tiled` run the staged
+kernels' tile schedules on the host, for the tests.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -46,9 +64,10 @@ from beom_tpu_torch.core.grid import Grid, Forcing
 from beom_tpu_torch.core.state import State, advance_time
 from beom_tpu_torch.stencils import fused_fb
 from beom_tpu_torch.stepping import fb, projection
+from beom_tpu_torch.solvers.elliptic import _local_dot
 
-# kernel launches made by proj_a and proj_b; a run reads them to show
-# that its main path went through the kernels
+# kernel launches of phase A and phase B (either kernel of each); a run
+# reads them to show that its main path went through the kernels
 LAUNCHES = {"proj_a": 0, "proj_b": 0}
 
 # solves that the stall guard of the multigrid-preconditioned CG redid
@@ -56,6 +75,21 @@ COUNTS = {"stalled": 0}
 
 K_SWEEPS = 8      # red-black sweeps per pass, as the reference's stepper
 _KERNELS = ("proj_a", "proj_b")     # in the order of beom_smem_bytes
+_STAGED = ("proj_as", "proj_bs")    # after them
+# the staged kernels' candidate geometries: (tile width, height, threads);
+# the width a multiple of 4, so that a block's rows start 16-byte aligned
+_GEOMETRIES = ((32, 16, 256), (64, 16, 512), (32, 32, 512), (64, 32, 512),
+               (64, 32, 1024), (128, 16, 512), (128, 32, 1024))
+# the cost model of a geometry per tile point: the block's points per tile
+# point, times (1 + _ROW / tx) for the rows' ends, times (1 + _ONE_CTA)
+# where one CTA alone fits an SM (its loads then overlap no other CTA's
+# stages); fitted on the H100 at 2048^2 f32 (tools/k3_probes.py --sweep,
+# four cases, seven geometries each: the geometry it picks is within 5 %
+# of the fastest for each kernel and case).  The threads per CTA did not
+# matter beyond that.
+_ROW = 8.0
+_ONE_CTA = 0.5
+_SM_SMEM = 233472        # shared memory of an SM, 1 KB reserved per CTA
 
 
 def check_config(cfg: Config) -> None:
@@ -87,15 +121,148 @@ def smem_bytes(cfg: Config, tile, elem: int) -> dict:
             "proj_b": block(wb, 4 * nz + 4 + 3 * nz * wd + obc)}
 
 
-def build_spec(cfg: Config, dtype=None):
+def build_spec(cfg: Config, dtype=None, phase_plan=None, dmask=False):
     """(source, defines) of the build of csrc/projection.cu that runs
-    cfg: the compile-time switches and the tile."""
+    cfg: the compile-time switches and the single-step kernels' tile (what
+    the shard kernels take too), and with a PhasePlan the staged kernels'
+    geometry and the masks' rebuild (`staged_defines`)."""
     check_config(cfg)
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     tile = fused_fb._pick(
         fused_fb._TILES, lambda t: max(smem_bytes(cfg, t, elem).values()),
         f"the projection phases of nz = {cfg.nz} layers")
-    return "projection", fused_fb.term_defines(cfg, tile)
+    defines = fused_fb.term_defines(cfg, tile)
+    if phase_plan is not None:
+        defines += staged_defines(phase_plan, cfg, dmask)
+    return "projection", defines
+
+
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """A staged phase kernel's tile (tx x ty points) and threads per CTA."""
+    tx: int
+    ty: int
+    threads: int
+
+    def describe(self) -> str:
+        return f"{self.tx} x {self.ty} tiles, {self.threads} threads"
+
+
+@dataclasses.dataclass(frozen=True)
+class PhasePlan:
+    """How a step's phases run: `a` and `b` the staged kernels' geometries,
+    or None for the single-step kernel; `rhs` whether K3a's epilogue writes
+    the solve's right-hand side and warm start."""
+    a: Optional[Geometry]
+    b: Optional[Geometry]
+    rhs: bool
+
+    def describe(self) -> str:
+        a = "K3a single-step (32 x 16)" if self.a is None else \
+            f"K3a staged, {self.a.describe()}"
+        b = "K3b single-step (32 x 16)" if self.b is None else \
+            f"K3b staged, {self.b.describe()}"
+        rhs = "the right-hand side in K3a's epilogue" if self.rhs else \
+            "the right-hand side in torch"
+        return f"{a}; {b}; {rhs}"
+
+
+def halo_b(cfg: Config) -> int:
+    """Phase B's halo: LO + 1 where finalize reads the new thickness east
+    and north (wet/dry, the open boundary), else 1."""
+    return (3 if cfg.wetdry else 2) if (cfg.wetdry or cfg.obc) else 1
+
+
+def staged_smem(cfg: Config, geo_a: Geometry, geo_b: Geometry,
+                elem: int) -> dict:
+    """Dynamic shared memory of one CTA of each staged kernel (csrc/
+    projection_body.cuh: pas::In and pas::Work, pbs::Plane) and its row
+    and column offsets."""
+    nz, nu4 = cfg.nz, cfg.nu4 != 0.0
+    rx, ry = geo_a.tx + 8, geo_a.ty + 8
+    planes_a = 3 * nz + 5 + 2 * cfg.wind + cfg.sponge + 6 * nz + 2 * nz * nu4
+    w = halo_b(cfg)
+    rxb, ryb = geo_b.tx + 8, geo_b.ty + 2 * w
+    planes_b = 4 * nz + 4 + 3 * nz * cfg.wetdry + cfg.obc
+    return {"proj_as": planes_a * rx * ry * elem + (rx + ry) * 4,
+            "proj_bs": planes_b * rxb * ryb * elem + (rxb + ryb) * 4}
+
+
+def ctas_per_sm(smem: int, threads: int) -> int:
+    """CTAs of `smem` bytes and `threads` threads one SM holds (their
+    registers within the kernels' cap: csrc/projection_body.cuh, MINB)."""
+    return min(_SM_SMEM // (smem + 1024), 2048 // threads)
+
+
+def geometry_cost(cfg: Config, geo: Geometry, kernel: str,
+                  elem: int) -> float:
+    """The cost model of a staged kernel ("proj_as" or "proj_bs") at geo,
+    per tile point (_ROW, _ONE_CTA); inf where no CTA fits an SM."""
+    smem = staged_smem(cfg, geo, geo, elem)[kernel]
+    if smem > fused_fb._MAX_SMEM:
+        return float("inf")
+    w = 4 if kernel == "proj_as" else halo_b(cfg)
+    ratio = (geo.tx + 8) * (geo.ty + 2 * w) / (geo.tx * geo.ty)
+    one = ctas_per_sm(smem, geo.threads) == 1
+    return ratio * (1 + _ROW / geo.tx) * (1 + _ONE_CTA * one)
+
+
+def candidates(cfg: Config, dtype=None) -> list:
+    """Every pair of staged geometries (K3a's and K3b's, taken in the order
+    of _GEOMETRIES) whose CTAs fit an SM, as PhasePlans: what
+    tools/k3_probes.py --sweep times."""
+    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
+    fit = lambda g, k: staged_smem(cfg, g, g, elem)[k] <= fused_fb._MAX_SMEM
+    geos = [Geometry(*g) for g in _GEOMETRIES]
+    ga = [g for g in geos if fit(g, "proj_as")]
+    gb = [g for g in geos if fit(g, "proj_bs")]
+    n = max(len(ga), len(gb))
+    return [PhasePlan(ga[min(i, len(ga) - 1)] if ga else None,
+                      gb[min(i, len(gb) - 1)] if gb else None,
+                      bool(ga) and cfg.nz <= 2) for i in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def plan(cfg: Config, dtype=None) -> PhasePlan:
+    """The phase kernels of cfg at `dtype`: each phase's staged kernel at
+    the geometry of least geometry_cost where one fits, else its
+    single-step kernel; the right-hand side in K3a's epilogue where K3a is
+    staged and the layer sum has at most two terms (any order of two
+    additions is the same, so the epilogue's sum is torch.sum's bit for
+    bit)."""
+    check_config(cfg)
+    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
+    geos = [Geometry(*g) for g in _GEOMETRIES]
+
+    def pick(kernel):
+        cost = {g: geometry_cost(cfg, g, kernel, elem) for g in geos}
+        best = min(geos, key=cost.get)
+        return None if cost[best] == float("inf") else best
+
+    a = pick("proj_as")
+    return PhasePlan(a, pick("proj_bs"), a is not None and cfg.nz <= 2)
+
+
+def staged_defines(pl: PhasePlan, cfg: Config, dmask: bool) -> tuple:
+    """The defines of the staged kernels' geometry (the single-step
+    geometry where the plan keeps a single-step kernel, so the build has
+    a valid one), the wind switch and the masks' rebuild."""
+    a = pl.a or Geometry(32, 16, 256)
+    b = pl.b or Geometry(32, 16, 256)
+    return (f"BEOM_ATX={a.tx}", f"BEOM_ATY={a.ty}", f"BEOM_ANT={a.threads}",
+            f"BEOM_BTX={b.tx}", f"BEOM_BTY={b.ty}", f"BEOM_BNT={b.threads}",
+            f"BEOM_WIND={int(cfg.wind)}", f"BEOM_DMASK={int(dmask)}")
+
+
+def derived_masks(grid: Grid) -> bool:
+    """Whether grid's staggered masks are make_grid's products of the
+    centre mask, which the staged kernels rebuild under BEOM_DMASK."""
+    m = grid.mask
+    sx, sy = torch.roll(m, -1, -1), torch.roll(m, -1, -2)
+    return (torch.equal(grid.mask_u, m * sx)
+            and torch.equal(grid.mask_v, m * sy)
+            and torch.equal(grid.mask_q, m * sx * sy
+                            * torch.roll(sy, -1, -1)))
 
 
 def proj_a_plain(h, u, v, statics, n: int, cfg: Config):
@@ -123,18 +290,27 @@ def _corr(cfg: Config) -> float:
     return cfg.dt if cfg.scheme == "rigid_lid" else cfg.g * cfg.dt
 
 
+# the double slot of the time t1 (csrc/fb_terms.cuh: Dbl::D_T1)
+_D_T1 = 12
+
+
 @functools.lru_cache(maxsize=None)
-def _entries(cfg: Config, dtype):
-    """The library that runs cfg and its two entry points, built on first
-    use."""
+def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
+    """The library that runs cfg by the plan `pl` (the masks rebuilt where
+    dmask) and its four entry points, built on first use."""
     from beom_tpu_torch.stencils import build
 
-    name, defines = build_spec(cfg, dtype)
+    name, defines = build_spec(cfg, dtype, pl, dmask)
     lib = build.load((name, defines))
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
     want = smem_bytes(cfg, (value["BEOM_TX"], value["BEOM_TY"]), elem)
-    for i, kernel in enumerate(_KERNELS):
+    want.update(staged_smem(
+        cfg, Geometry(value["BEOM_ATX"], value["BEOM_ATY"],
+                      value["BEOM_ANT"]),
+        Geometry(value["BEOM_BTX"], value["BEOM_BTY"], value["BEOM_BNT"]),
+        elem))
+    for i, kernel in enumerate(_KERNELS + _STAGED):
         have = lib.beom_smem_bytes(i, int(elem == 8))
         if have != want[kernel]:
             raise RuntimeError(
@@ -142,64 +318,283 @@ def _entries(cfg: Config, dtype):
                 f"not what smem_bytes counts ({want[kernel]})")
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     suffix = fused_fb._SUFFIX[dtype]
-    fa = getattr(lib, f"beom_proj_a_{suffix}")
-    fa.argtypes, fa.restype = [P] * 7, I
-    fb_ = getattr(lib, f"beom_proj_b_{suffix}")
-    fb_.argtypes, fb_.restype = [P] * 4 + [D] + [P] * 4, I
-    return lib, {"proj_a": fa, "proj_b": fb_}
+    fns = {}
+    for kernel, args in (("proj_a", [P] * 7), ("proj_b", [P] * 4 + [D]
+                                                + [P] * 4),
+                         ("proj_as", [P] * 6 + [D, P]),
+                         ("proj_bs", [P] * 4 + [D] + [P] * 4)):
+        fn = getattr(lib, f"beom_{kernel}_{suffix}")
+        fn.argtypes, fn.restype = args, I
+        fns[kernel] = fn
+    return lib, fns
 
 
-def _check_plane(what, a, h, cfg: Config):
-    if a.device != h.device or a.dtype != h.dtype \
-            or not a.is_contiguous() or tuple(a.shape) != (cfg.ny, cfg.nx):
+def _check_field(what, a, shape, dtype, device):
+    if a.device != device or a.dtype != dtype or not a.is_contiguous() \
+            or tuple(a.shape) != shape:
         raise ValueError(
-            f"{what} must be a contiguous {h.dtype} tensor of "
-            f"({cfg.ny}, {cfg.nx}) on {h.device}")
+            f"{what} must be a contiguous {dtype} tensor of {shape} on "
+            f"{device}, not {a.dtype} {tuple(a.shape)} on {a.device}")
+
+
+def _rhs_plain(h, div, grid: Grid, cfg: Config, lam, phi, phi_prev):
+    """(rhs, x0) of the solve from phase A's div, eagerly: rigid_rhs or
+    implicit_rhs, and warm_x0 (eta^n for the implicit free surface
+    without a warm start)."""
+    warm = projection.warm_x0(State(h=h, u=None, v=None, t=None, n=0,
+                                    phi=phi, phi_prev=phi_prev), cfg)
+    if cfg.scheme == "rigid_lid":
+        return projection.rigid_rhs(h, div, grid, cfg), warm
+    b, eta_n = projection.implicit_rhs(h, div, grid, cfg, lam)
+    return b, (eta_n if warm is None else warm)
+
+
+class Phases:
+    """Phases A and B of one grid, forcing and Config at one type, by a
+    PhasePlan (default: `plan`).  On CUDA tensors each is one launch, with
+    what a launch does not change made once: the library, the statics'
+    operand table and their checks, the scalar slots and the test of the
+    masks; on CPU tensors the plain versions."""
+
+    def __init__(self, grid: Grid, forcing: Forcing, cfg: Config,
+                 dtype=None, phase_plan: Optional[PhasePlan] = None):
+        check_config(cfg)
+        self.grid, self.forcing, self.cfg = grid, forcing, cfg
+        self.statics = (grid, forcing)
+        self.dtype = dtype or cfg.tdtype
+        self.plan = phase_plan or plan(cfg, self.dtype)
+        self.lam = projection.solve_lam(cfg)
+        self.rigid = cfg.scheme == "rigid_lid"
+        self.device = grid.mask.device
+        self.on_cpu = self.device.type == "cpu"
+        self._shape3, self._shape2 = (cfg.nz, cfg.ny, cfg.nx), (cfg.ny,
+                                                                cfg.nx)
+        self._mm = None
+        if self.on_cpu:
+            return
+        from beom_tpu_torch.stencils import build
+
+        z = torch.empty(self._shape3, dtype=self.dtype, device=self.device)
+        fused_fb._check_operands(z, z, z, self.statics, cfg,
+                                 check=check_config)
+        self.dmask = derived_masks(grid)
+        with torch.cuda.device(self.device):
+            self.lib, self.fn = _entries(cfg, self.dtype, self.plan,
+                                         self.dmask)
+        statics = fused_fb._operands(self.statics)
+        self._ptrs = (ctypes.c_void_p * (3 + len(statics)))(
+            0, 0, 0, *[a.data_ptr() for a in statics])
+        self._aligned = all(a.data_ptr() % 16 == 0 for a in statics)
+        self._sc = {(par, al): fused_fb._scalars(cfg, par, 0.0, aligned=al)
+                    for par in (0, 1) for al in (False, True)}
+        self._epi = (ctypes.c_void_p * 6)()
+        self._check = build.check
+
+    def kernel_keys(self) -> tuple:
+        """The names torch.profiler gives the plan's two kernels."""
+        return ("proj_a_kernel" if self.plan.a is None else "proj_as_kernel",
+                "proj_b_kernel" if self.plan.b is None else "proj_bs_kernel")
+
+    def _fields(self, what, tensors, shape):
+        for name, a in zip(what, tensors):
+            _check_field(name, a, shape, self.dtype, self.device)
+
+    def _stage_ptrs(self, h, u, v, *more):
+        """Set the operand table's h, u, v; whether every staged operand
+        starts 16-byte aligned."""
+        p = self._ptrs
+        p[0], p[1], p[2] = h.data_ptr(), u.data_ptr(), v.data_ptr()
+        return self._aligned and all(a.data_ptr() % 16 == 0
+                                     for a in (h, u, v) + more)
+
+    def _launch_a(self, h, u, v, n, div=True, eta=False, b=False, phi=None,
+                  phi_prev=None):
+        """One launch of phase A: (u*, v*, div, eta, b, x0), each output of
+        the epilogue None where not asked for (x0: where phi is None)."""
+        self._fields(("phase A: h", "phase A: u", "phase A: v"), (h, u, v),
+                     self._shape3)
+        if phi is not None:
+            self._fields(("phi", "phi_prev"), (phi, phi_prev), self._shape2)
+        with torch.cuda.device(self.device):
+            plane = lambda: torch.empty(self._shape2, dtype=self.dtype,
+                                        device=self.device)
+            us, vs = torch.empty_like(u), torch.empty_like(v)
+            ints, dbls = self._sc[n % 2, self._stage_ptrs(h, u, v)]
+            stream = torch.cuda.current_stream(self.device).cuda_stream
+            if self.plan.a is None:
+                outs = (plane(), None, None, None)
+                code = self.fn["proj_a"](self._ptrs, ints, dbls,
+                                         us.data_ptr(), vs.data_ptr(),
+                                         outs[0].data_ptr(), stream)
+            else:
+                outs = tuple(plane() if want else None for want in (
+                    div, eta, b, phi is not None))
+                e = self._epi
+                for i, a in enumerate(outs + (phi, phi_prev)):
+                    e[i] = None if a is None else a.data_ptr()
+                code = self.fn["proj_as"](self._ptrs, ints, dbls,
+                                          us.data_ptr(), vs.data_ptr(), e,
+                                          -self.lam, stream)
+            self._check(self.lib, code, "phase A kernel launch")
+            LAUNCHES["proj_a"] += 1
+        return (us, vs) + outs
+
+    def a(self, h, u, v, n: int):
+        """Phase A of step n: (u*, v*, div(U*)), the sweep order from the
+        host parity n % 2."""
+        if self.on_cpu:
+            return proj_a_plain(h, u, v, self.statics, n, self.cfg)
+        return self._launch_a(h, u, v, n)[:3]
+
+    def a_rhs(self, h, u, v, n: int, phi=None, phi_prev=None):
+        """Phase A of step n and what the solve takes: (u*, v*, rhs, x0),
+        the right-hand side of rigid_rhs or implicit_rhs and the warm start
+        of warm_x0 from the carries phi, phi_prev (eta^n for the implicit
+        free surface without one), in K3a's epilogue where the plan says
+        so, else in torch."""
+        cfg = self.cfg
+        if self.on_cpu or not self.plan.rhs:
+            u_s, v_s, div = self.a(h, u, v, n)
+            return (u_s, v_s) + _rhs_plain(h, div, self.grid, cfg, self.lam,
+                                           phi, phi_prev)
+        warm = phi if cfg.warm_start else None
+        two = warm is not None and phi_prev is not None
+        u_s, v_s, div, eta, b, x0 = self._launch_a(
+            h, u, v, n, div=self.rigid, eta=self.rigid or warm is None,
+            b=not self.rigid, phi=warm if two else None,
+            phi_prev=phi_prev if two else None)
+        if not two:
+            x0 = warm
+        if self.rigid:
+            return u_s, v_s, self._demean(div, eta), x0
+        return u_s, v_s, b, (eta if x0 is None else x0)
+
+    def _demean(self, div, anom):
+        """rigid_rhs from div and the column anomaly (sum_k h - H) mask: its
+        de-mean over wet cells and scaling, op for op."""
+        mask, dt = self.grid.mask, self.cfg.dt
+        if self._mm is None:
+            self._mm = _local_dot(mask, mask)
+        anom = anom - mask * (_local_dot(anom, mask) / self._mm)
+        return (div - anom / dt) / dt
+
+    def b(self, h, u_s, v_s, p, t):
+        """Phase B of the step from time t: (h1, u1, v1); the tides of
+        finalize are taken at t + dt."""
+        if self.on_cpu:
+            return proj_b_plain(h, u_s, v_s, p, self.statics, t, self.cfg)
+        self._fields(("phase B: h", "phase B: u*", "phase B: v*"),
+                     (h, u_s, v_s), self._shape3)
+        self._fields(("phase B: p",), (p,), self._shape2)
+        t1 = advance_time(t, self.cfg.dt, self.cfg.npdtype)
+        with torch.cuda.device(self.device):
+            outs = [torch.empty_like(h) for _ in range(3)]
+            ints, dbls = self._sc[0, self._stage_ptrs(h, u_s, v_s, p)]
+            dbls[_D_T1] = float(t1)
+            kernel = "proj_b" if self.plan.b is None else "proj_bs"
+            code = self.fn[kernel](
+                self._ptrs, ints, dbls, p.data_ptr(), _corr(self.cfg),
+                *[a.data_ptr() for a in outs],
+                torch.cuda.current_stream(self.device).cuda_stream)
+            self._check(self.lib, code, "phase B kernel launch")
+            LAUNCHES["proj_b"] += 1
+        return tuple(outs)
 
 
 def proj_a(h, u, v, statics, n: int, cfg: Config):
     """Phase A of step n: (u*, v*, div(U*)), one launch on CUDA tensors,
-    the sweep order from the host parity n % 2."""
+    the sweep order from the host parity n % 2.  It prepares a Phases per
+    call; a caller that launches again holds one."""
     if h.device.type == "cpu":
         return proj_a_plain(h, u, v, statics, n, cfg)
-    from beom_tpu_torch.stencils import build
-
-    fused_fb._check_operands(h, u, v, statics, cfg, check=check_config)
-    with torch.cuda.device(h.device):
-        lib, entry = _entries(cfg, h.dtype)
-        outs = [torch.empty_like(u), torch.empty_like(v),
-                torch.empty_like(h[0])]
-        ints, dbls = fused_fb._scalars(cfg, n % 2, 0.0)
-        code = entry["proj_a"](
-            fused_fb._pointers([h, u, v] + fused_fb._operands(statics)),
-            ints, dbls, *[a.data_ptr() for a in outs],
-            fused_fb._stream(h.device))
-        build.check(lib, code, "proj_a kernel launch")
-        LAUNCHES["proj_a"] += 1
-    return tuple(outs)
+    return Phases(*statics, cfg, h.dtype).a(h, u, v, n)
 
 
 def proj_b(h, u_s, v_s, p, statics, t, cfg: Config):
     """Phase B of the step from time t: (h1, u1, v1), one launch on CUDA
-    tensors; the tides of finalize are taken at t + dt."""
+    tensors; the tides of finalize are taken at t + dt.  It prepares a
+    Phases per call, as proj_a does."""
     if h.device.type == "cpu":
         return proj_b_plain(h, u_s, v_s, p, statics, t, cfg)
-    from beom_tpu_torch.stencils import build
+    return Phases(*statics, cfg, h.dtype).b(h, u_s, v_s, p, t)
 
-    fused_fb._check_operands(h, u_s, v_s, statics, cfg, check=check_config)
-    _check_plane("proj_b: p", p, h, cfg)
-    t1 = advance_time(t, cfg.dt, cfg.npdtype)
-    with torch.cuda.device(h.device):
-        lib, entry = _entries(cfg, h.dtype)
-        outs = [torch.empty_like(h) for _ in range(3)]
-        ints, dbls = fused_fb._scalars(cfg, 0, t1)
-        code = entry["proj_b"](
-            fused_fb._pointers([h, u_s, v_s] + fused_fb._operands(statics)),
-            ints, dbls, p.data_ptr(), _corr(cfg),
-            *[a.data_ptr() for a in outs], fused_fb._stream(h.device))
-        build.check(lib, code, "proj_b kernel launch")
-        LAUNCHES["proj_b"] += 1
+
+def _block(statics, cfg: Config, rows, cols, dmask: bool):
+    """(grid, forcing, cfg) of the block rows x cols (periodic) in a ring of
+    NaN that stands for whatever lies past a CTA's block, the staggered
+    masks rebuilt from the block's centre mask where dmask."""
+    grid, forcing = statics
+    cut = lambda a: fused_fb._cut_nan(a, rows, cols)
+    g = {f.name: cut(getattr(grid, f.name)) for f in dataclasses.fields(Grid)}
+    if dmask:
+        m = g["mask"]
+        sx, sy = torch.roll(m, -1, -1), torch.roll(m, -1, -2)
+        g.update(mask_u=m * sx, mask_v=m * sy,
+                 mask_q=m * sx * sy * torch.roll(sy, -1, -1))
+    fo = Forcing(**{f.name: cut(getattr(forcing, f.name))
+                    for f in dataclasses.fields(Forcing)})
+    return Grid(**g), fo, dataclasses.replace(cfg, ny=len(rows) + 2,
+                                              nx=len(cols) + 2)
+
+
+def _tiled(fn, fields, statics, cfg: Config, tile, halo, dmask):
+    """fn(block fields, block statics, block cfg) on every tile of the grid
+    with the halo (lo_y, hi_y, lo_x, hi_x), the blocks' interiors joined."""
+    ty, tx = tile[1], tile[0]
+    ly, hy, lx, hx = halo
+    ny, nx = cfg.ny, cfg.nx
+    dev = fields[0].device
+    outs = None
+    for y0 in range(0, ny, ty):
+        for x0 in range(0, nx, tx):
+            rows = torch.arange(y0 - ly, y0 + ty + hy, device=dev) % ny
+            cols = torch.arange(x0 - lx, x0 + tx + hx, device=dev) % nx
+            g, fo, sub = _block(statics, cfg, rows, cols, dmask)
+            res = fn([fused_fb._cut_nan(a, rows, cols) for a in fields],
+                     (g, fo), sub)
+            if outs is None:
+                outs = [torch.empty(r.shape[:-2] + (ny, nx), dtype=r.dtype,
+                                    device=dev) for r in res]
+            ye, xe = min(ty, ny - y0), min(tx, nx - x0)
+            for o, r in zip(outs, res):
+                o[..., y0:y0 + ye, x0:x0 + xe] = \
+                    r[..., ly + 1:ly + 1 + ye, lx + 1:lx + 1 + xe]
     return tuple(outs)
+
+
+def proj_a_tiled(h, u, v, statics, n: int, cfg: Config, tile=None,
+                 halo=(4, 3), dmask=None):
+    """The staged K3a's schedule on the host, for the tests: the fields and
+    statics cut into blocks of `tile` (default: the plan's) with halo =
+    (lo, hi) points below and above the tile on both axes, in a ring of
+    NaN (`_block`; the staggered masks rebuilt from the block's mask where
+    dmask, by default where the grid's are make_grid's), phase A on each
+    as a grid of its own, the interiors joined: (u*, v*, div).  Bit for
+    bit proj_a_plain at the kernel's halo (4, 3): its stages reach 4
+    points below a tile's points and 3 above (csrc/projection_body.cuh,
+    pas); a narrower one lets the NaN in."""
+    if tile is None:
+        g = plan(cfg, h.dtype).a
+        tile = (g.tx, g.ty)
+    dmask = derived_masks(statics[0]) if dmask is None else dmask
+    lo, hi = halo
+    return _tiled(lambda f, st, c: proj_a_plain(*f, st, n, c), (h, u, v),
+                  statics, cfg, tile, (lo, hi, lo, hi), dmask)
+
+
+def proj_b_tiled(h, u_s, v_s, p, statics, t, cfg: Config, tile=None,
+                 halo=None, dmask=None):
+    """The staged K3b's schedule on the host, as proj_a_tiled: halo =
+    (y, x) points around the tile (default: the kernel's, halo_b on y and
+    4 on x), phase B on each block: (h1, u1, v1)."""
+    if tile is None:
+        g = plan(cfg, h.dtype).b
+        tile = (g.tx, g.ty)
+    dmask = derived_masks(statics[0]) if dmask is None else dmask
+    hy, hx = halo or (halo_b(cfg), 4)
+    return _tiled(lambda f, st, c: proj_b_plain(*f, st, t, c),
+                  (h, u_s, v_s, p), statics, cfg, tile, (hy, hy, hx, hx),
+                  dmask)
 
 
 def make_solve(grid: Grid, cfg: Config, lam):
@@ -222,8 +617,10 @@ def make_solve(grid: Grid, cfg: Config, lam):
         fused_solve = make_cg_solve(grid, cfg, lam=lam, precond=pre)
 
         if pre == "jacobi":
+            # the step takes x alone: no read-back of the iteration count,
+            # so the host goes on queueing while the solve runs
             def solve(b, x0=None):
-                return fused_solve(b, x0=x0).x
+                return fused_solve(b, x0=x0, count=False).x
             return solve
         return _guarded(fused_solve, grid, cfg, lam)
 
@@ -269,24 +666,18 @@ def _guarded(fused_solve, grid: Grid, cfg: Config, lam):
 def make_fused_projection_stepper(grid: Grid, forcing: Forcing,
                                   cfg: Config):
     """step(state) -> state advancing one rigid-lid / implicit-FS step
-    through the phase kernels and the solver kernels."""
+    through the phase kernels and the solver kernels: phase A with the
+    solve's right-hand side and warm start (Phases.a_rhs), the solve,
+    phase B."""
     check_config(cfg)
-    rigid = cfg.scheme == "rigid_lid"
-    lam = projection.solve_lam(cfg)
-    solve = make_solve(grid, cfg, lam)
-    statics = (grid, forcing)
+    solve = make_solve(grid, cfg, projection.solve_lam(cfg))
+    ph = Phases(grid, forcing, cfg)
 
     def step(state: State) -> State:
-        u_s, v_s, div = proj_a(state.h, state.u, state.v, statics,
-                               state.n, cfg)
-        warm = projection.warm_x0(state, cfg)
-        if rigid:
-            rhs = projection.rigid_rhs(state.h, div, grid, cfg)
-            p = solve(rhs, x0=warm)
-        else:
-            b, eta_n = projection.implicit_rhs(state.h, div, grid, cfg, lam)
-            p = solve(b, x0=eta_n if warm is None else warm)
-        h1, u1, v1 = proj_b(state.h, u_s, v_s, p, statics, state.t, cfg)
+        u_s, v_s, rhs, x0 = ph.a_rhs(state.h, state.u, state.v, state.n,
+                                     state.phi, state.phi_prev)
+        p = solve(rhs, x0=x0)
+        h1, u1, v1 = ph.b(state.h, u_s, v_s, p, state.t)
         out = State(h=h1, u=u1, v=v1,
                     t=advance_time(state.t, cfg.dt, cfg.npdtype),
                     n=state.n + 1)

@@ -27,9 +27,13 @@ Phases, each of which raises on failure (exit code != 0):
   6. build lines of the projection kernels: K3a/K3b (projection.cu),
      K4a (rb_sweep.cu), K6 with Jacobi (cg_jacobi.cu)
   7. the projection kernels against their plain versions on the card,
-     on the perturbed rigid-lid gyre: K3a and K3b at 256^2 f64
-     (<= 1e-12 x scale), 256^2 and 2048^2 f32 (<= 4 ulp of field scale),
-     200x136 f64 and linear / no-slip, both sweep parities; K4a bit for
+     on the perturbed rigid-lid gyre: K3a and K3b as the plan runs them
+     (the staged kernels, fused_projection.plan, printed) and as the
+     single-step kernels, bit for bit, at 256^2 f64, 256^2 and 2048^2
+     f32, 200x136 f64 and linear / no-slip, both sweep parities, with
+     K3a's epilogue (the solve's right-hand side and warm start, with
+     both carries, phi alone and none) bit for bit the eager
+     composition; K4a bit for
      bit at 256^2 f64, 200x136 f64, 201x137 f64 with every cell wet (the
      periodic seams join cells of one colour) and 2048^2 f32, k = 1, 2, 8,
      forward and reverse, with and without the multigrid residual, lam =
@@ -46,12 +50,17 @@ Phases, each of which raises on failure (exit code != 0):
      bounded, the launch counts (on (b) one K4a launch per pass and per
      solve, no eager operator), 3 fused steps against 3 eager steps, and
      (b)'s solve against the plain per-pass loop (pass count, x)
-  9. times at 2048^2 f32: K3a, K3b, a K4a sweep pass and solve pass and a
-     K6 solve beside their plain versions; for K6 also the kernel's own
+  9. times at 2048^2 f32: K3a, K3b (the plan's, beside the single-step
+     kernels on the device, and K3a with its epilogue), a K4a sweep pass
+     and solve pass and a K6 solve beside their plain versions; the
+     host's us per launch of the stepper's held launches (Phases.a,
+     a_rhs, b); for K6 also the kernel's own
      span from %globaltimer stamps (the launch's timing mode) beside the
      events around the call and its time under torch.profiler, and us per
-     iteration; ms/step of (a) and (b) through run(), and (b)'s busy share
-     under torch.profiler
+     iteration; ms/step of (a) and (b) through run(), (b)'s busy share
+     under torch.profiler, and (a) and (b) by part (step_parts: the device
+     time of K3a, K3b, the solve and each glue kernel per step, the idle
+     share, the idle gaps by the parts around them)
  10. build lines of the multigrid kernels: K4a's residual mode and K4b
      (rb_sweep.cu), K5 (mg_coarse.cu), K6-mg (cg_fused.cu, both sharing
      mg_cycle.cuh)
@@ -114,7 +123,9 @@ Phases, each of which raises on failure (exit code != 0):
 
  18. build lines of the libraries this list adds (projection.cu per case,
      shard_step.cu per fb case, halo_pad.cu); K3a / K3b with every term
-     against their plain versions at 200x136 f64 and 2048^2 f32 on
+     (the plan's and the single-step kernels, and K3a's epilogue, as in
+     phase 7; each case's plan printed) bit for bit their plain versions
+     at 200x136 f64 and 2048^2 f32 on
      two_layer, coastal_wetdry (dry cells in the state) and shelf_forced
      (open faces, the tide at t + dt), both parities; run() of 10 steps at
      2048^2 f32, backend='fused', with rigid_lid and implicit_fs on
@@ -143,7 +154,8 @@ Phases, each of which raises on failure (exit code != 0):
      (2, 2)
  22. times: K7 per step at 2048^2 and 8192^2 f32 on (2, 4) beside K1 alone
      on the same grids (two steps at 8192^2 held against K1), K8 per pad2d
-     at w = 5 on the 1024x512 shards of 2048^2, K3a / K3b per case, each
+     at w = 5 on the 1024x512 shards of 2048^2, K3a / K3b per case (the
+     plan's, beside the single-step kernels on the device), each
      between CUDA events and, beside it, the kernel's own device time under
      torch.profiler (these times are the host's launch cost as much as the
      kernel's), and the profiler's busy share of the mesh run, K7's time
@@ -520,8 +532,21 @@ def compare_fields(label, names, outs, refs, tol):
     return worst
 
 
+def projection_spec(cfg):
+    """The build of projection.cu that runs cfg by its plan: the staged
+    kernels' geometry, the masks rebuilt (every case's grid is
+    make_grid's)."""
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    return fp.build_spec(cfg, cfg.tdtype, fp.plan(cfg, cfg.tdtype), True)
+
+
 def check_phases(label, device, tol, seed, **kw):
-    """K3a and K3b against their plain versions at both sweep parities.
+    """K3a and K3b, as the plan runs them (the staged kernels) and as the
+    single-step kernels, against their plain versions at both sweep
+    parities, bit for bit (tol bounds what is printed beside it); K3a's
+    epilogue (the solve's right-hand side and warm start, with both
+    carries, phi alone and none) bit for bit the eager composition.
     Returns (worst K3a, worst K3b) differences."""
     import numpy as np
     import torch
@@ -544,21 +569,40 @@ def check_phases(label, device, tol, seed, **kw):
     rng = np.random.default_rng(seed + 100)
     p = torch.tensor((0.1 * rng.standard_normal((cfg.ny, cfg.nx))).astype(
         cfg.npdtype), device=device) * grid.mask
+    exact = lambda r: 0.0      # noqa: E731
+    ph = fp.Phases(grid, forcing, cfg)
+    single = fp.Phases(grid, forcing, cfg,
+                       phase_plan=fp.PhasePlan(None, None, False))
+    print(f"   {label} {cfg.scheme} plan: {ph.plan.describe()}")
     worst_a = worst_b = 0.0
     for n in (0, 1):
-        a = fp.proj_a(st.h, st.u, st.v, statics, n, cfg)
-        torch.cuda.synchronize()
         a_ref = fp.proj_a_plain(st.h, st.u, st.v, statics, n, cfg)
-        worst_a = max(worst_a, compare_fields(
-            f"{label} {cfg.scheme} n={n} K3a", ("u*", "v*", "div"), a,
-            a_ref, tol))
-        b = fp.proj_b(st.h, a_ref[0], a_ref[1], p, statics, st.t, cfg)
-        torch.cuda.synchronize()
         b_ref = fp.proj_b_plain(st.h, a_ref[0], a_ref[1], p, statics, st.t,
                                 cfg)
-        worst_b = max(worst_b, compare_fields(
-            f"{label} {cfg.scheme} n={n} K3b", ("h1", "u1", "v1"), b,
-            b_ref, tol))
+        for tag, phs in (("", ph), (" single-step", single)):
+            a = phs.a(st.h, st.u, st.v, n)
+            b = phs.b(st.h, a_ref[0], a_ref[1], p, st.t)
+            torch.cuda.synchronize()
+            err_a = compare_fields(f"{label} {cfg.scheme} n={n} K3a{tag}",
+                                   ("u*", "v*", "div"), a, a_ref, tol)
+            err_b = compare_fields(f"{label} {cfg.scheme} n={n} K3b{tag}",
+                                   ("h1", "u1", "v1"), b, b_ref, tol)
+            compare_fields(f"{label} n={n} bit for bit", ("u*", "v*", "div",
+                                                          "h1", "u1", "v1"),
+                           a + b, a_ref + b_ref, exact)
+            if not tag:
+                worst_a, worst_b = max(worst_a, err_a), max(worst_b, err_b)
+        for carries in ((p, 0.5 * p), (p, None), (None, None)):
+            out = ph.a_rhs(st.h, st.u, st.v, n, *carries)
+            ref = a_ref[:2] + fp._rhs_plain(st.h, a_ref[2], grid, cfg,
+                                            ph.lam, *carries)
+            torch.cuda.synchronize()
+            names = ("u*", "v*", "rhs", "x0")[:4 - (ref[3] is None)]
+            if (out[3] is None) != (ref[3] is None):
+                raise AssertionError(f"{label}: the epilogue's x0")
+            compare_fields(f"{label} {cfg.scheme} n={n} K3a + rhs "
+                           f"(carries {sum(c is not None for c in carries)})",
+                           names, out, ref, exact)
     return worst_a, worst_b
 
 
@@ -956,7 +1000,7 @@ def main() -> dict:
                 name, nx=16, ny=16, device="cpu", dtype=dtype)[0]))
         for name, scheme in [p[:2] for p in PROJECTION_PATHS] \
                 + [("rigid_lid", "rigid_lid")]:
-            specs.add(fused_projection.build_spec(make_case(
+            specs.add(projection_spec(make_case(
                 name, nx=16, ny=16, device="cpu", dtype=dtype,
                 scheme=scheme)[0]))
     specs |= scheme_mesh_specs()
@@ -1185,10 +1229,14 @@ def projection_phases(dev, smi, rel, ulps):
     statics = (grid, forcing)
     saved = (dict(fp.LAUNCHES), cg_fused.LAUNCHES, redblack.LAUNCHES)
     ms = {}
-    u_s, v_s, div = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+    ph = fp.Phases(grid, forcing, cfg)
+    single = fp.Phases(grid, forcing, cfg,
+                       phase_plan=fp.PhasePlan(None, None, False))
+    print(f"   plan of the f32 gyre: {ph.plan.describe()}")
+    u_s, v_s, div = ph.a(st.h, st.u, st.v, 0)
     ms["proj_a"] = time_pair(
         "K3a", lambda: fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg),
-        lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 10, 100)
+        lambda: ph.a(st.h, st.u, st.v, 0), 10, 100)
     lam = projection.solve_lam(cfg)
     b, eta_n = projection.implicit_rhs(st.h, div, grid, cfg, lam)
     solve = cg_fused.make_cg_solve(grid, cfg, lam=lam)
@@ -1196,14 +1244,31 @@ def projection_phases(dev, smi, rel, ulps):
     ms["proj_b"] = time_pair(
         "K3b", lambda: fp.proj_b_plain(st.h, u_s, v_s, p, statics, st.t,
                                        cfg),
-        lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg), 10, 100)
+        lambda: ph.b(st.h, u_s, v_s, p, st.t), 10, 100)
+    keys = ph.kernel_keys()
     dev_ms = device_ms(
         "K3a / K3b on the gyre",
-        lambda: (fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
-                 fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg)), 50,
+        lambda: (ph.a(st.h, st.u, st.v, 0), ph.b(st.h, u_s, v_s, p, st.t)),
+        50, dict.fromkeys(keys, 1))
+    dev_ms = {"proj_a": dev_ms[keys[0]], "proj_b": dev_ms[keys[1]]}
+    print("   K3a with the right-hand side and warm start in its epilogue "
+          "(the step's phase A): "
+          f"{time_ms(lambda: ph.a_rhs(st.h, st.u, st.v, 0, p, eta_n), 100)!r}"
+          " ms between events")
+    single_ms = device_ms(
+        "the single-step K3a / K3b", lambda: (
+            single.a(st.h, st.u, st.v, 0),
+            single.b(st.h, u_s, v_s, p, st.t)), 50,
         {"proj_a_kernel": 1, "proj_b_kernel": 1})
-    dev_ms = {"proj_a": dev_ms["proj_a_kernel"],
-              "proj_b": dev_ms["proj_b_kernel"]}
+    print(f"   K3a / K3b on the device: {dev_ms['proj_a']!r} / "
+          f"{dev_ms['proj_b']!r} ms by the plan, {single_ms['proj_a_kernel']!r}"
+          f" / {single_ms['proj_b_kernel']!r} the single-step kernels")
+    host = {"Phases.a": host_us(lambda: ph.a(st.h, st.u, st.v, 0)),
+            "Phases.a_rhs": host_us(lambda: ph.a_rhs(st.h, st.u, st.v, 0, p,
+                                                     eta_n)),
+            "Phases.b": host_us(lambda: ph.b(st.h, u_s, v_s, p, st.t))}
+    print("   host us per launch (200 calls without a wait): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in host.items()))
     Hu, Hv = elliptic.face_depths(grid)
     rb_args = (Hu.contiguous(), Hv.contiguous(), grid.mask, cfg.dx, cfg.dy)
     rhs = projection.rigid_rhs(st.h, div, grid, cfg) * grid.mask
@@ -1250,6 +1315,14 @@ def projection_phases(dev, smi, rel, ulps):
     cfg, grid, forcing, st = case_b
     busy_share("(b) rigid_lid red-black through run()",
                lambda: run(cfg, grid, forcing, st, 5, log=io.StringIO()), 5)
+    # the step by part: 20 steps of (a), 10 of (b), their diagnostics as in
+    # phase 8
+    for label, (cfg, grid, forcing, st), n_steps, keys in (
+            ("(a) implicit_fs", case_a, 20, ("cg_",)),
+            ("(b) rigid_lid red-black", case_b, 10, ("rb_",))):
+        step_parts(f"{label} by part, run() {n_steps} steps", lambda: run(
+            cfg, grid, forcing, st, n_steps, log=io.StringIO()), n_steps,
+            keys)
 
     # fields moved per point (the kernels' pointer operands, each once: K6
     # reads b, x0, Hu, Hv, pm = inv_diag mask and writes x) and a count of
@@ -1259,8 +1332,9 @@ def projection_phases(dev, smi, rel, ulps):
     # iteration of this run's solve
     pts = cfg.nx * cfg.ny
     sources = {
-        "proj_a": ("projection.cu", "band.py:200", 13, 150),
-        "proj_b": ("projection.cu", "band.py:200", 10, 40),
+        "proj_a": ("projection.cu", "band.py:200", phase_fields(cfg)[0],
+                   150),
+        "proj_b": ("projection.cu", "band.py:200", phase_fields(cfg)[1], 40),
         "rb_sweep": ("rb_sweep.cu", "redblack_pallas.py:39", 6,
                      8 * 12 + 20),
         "cg_fused": ("cg_jacobi.cu", "cg_vmem.py:61", 6, 30 * res.iters)}
@@ -1881,6 +1955,112 @@ def busy_share(label, fn, n_steps, by_grid=None):
                   f"launches ({us / busy:.3f} of device time)")
 
 
+def part_of(name, solve_keys):
+    """The part of a projection step a device row belongs to: K3a, K3b,
+    the solve (a kernel whose name holds one of solve_keys), a copy or
+    fill, or glue (any other kernel: the right-hand side, the warm start,
+    the diagnostics)."""
+    if "proj_a" in name:
+        return "K3a"
+    if "proj_b" in name:
+        return "K3b"
+    if any(k in name for k in solve_keys):
+        return "solve"
+    low = name.lower()
+    if "memcpy" in low or "memset" in low:
+        return "copy"
+    return "glue"
+
+
+def glue_name(name):
+    """A glue kernel by the functor or reduction it runs."""
+    import re
+
+    found = re.findall(r"(\w*(?:Functor|Op|_kernel|reduce)\w*)", name)
+    return (found[-1] if found else name)[:60]
+
+
+def step_parts(label, fn, n_steps, solve_keys):
+    """A projection path's step by part, from one call of fn() (n_steps
+    steps of run()) under torch.profiler: per step the device time of K3a,
+    K3b, the solve and the other kernels (by name), the device's idle
+    share, and the idle gaps on the device by the parts that bound them (a
+    gap `solve -> K3b` is the host's time from the solve's end to K3b's
+    launch reaching the card).  Returns {part or gap: us per step}."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        events = json.loads(Path(f"{tmp}/trace.json").read_text())
+    dev = sorted((e for e in events["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "dur" in e), key=lambda e: e["ts"])
+    if not dev:
+        print(f"   {label}: the profiler saw no device time; the parts are "
+              "not measured")
+        return {}
+    out, glue = {}, {}
+    for e in dev:
+        part = part_of(e["name"], solve_keys)
+        out[part] = out.get(part, 0.0) + e["dur"] / n_steps
+        if part == "glue":
+            g = glue_name(e["name"])
+            n, us = glue.get(g, (0, 0.0))
+            glue[g] = (n + 1, us + e["dur"] / n_steps)
+    gaps = {}
+    for a, b in zip(dev, dev[1:]):
+        gap = b["ts"] - (a["ts"] + a["dur"])
+        if gap > 0:
+            key = (f"idle {part_of(a['name'], solve_keys)} -> "
+                   f"{part_of(b['name'], solve_keys)}")
+            gaps[key] = gaps.get(key, 0.0) + gap / n_steps
+    span = dev[-1]["ts"] + dev[-1]["dur"] - dev[0]["ts"]
+    busy = sum(v for k, v in out.items()) * n_steps
+    print(f"   {label}: {wall_us / n_steps / 1e3!r} ms/step wall under the "
+          f"profiler, the device's first to last row {span / n_steps / 1e3!r}"
+          f" ms/step, busy {busy / wall_us:.3f} of wall, idle "
+          f"{1 - busy / wall_us:.3f}")
+    print("      device us/step: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(out.items(), key=lambda x: -x[1])))
+    print("      glue us/step (launches/step): " + ", ".join(
+        f"{k} {us:.1f} ({n / n_steps:g})" for k, (n, us) in sorted(
+            glue.items(), key=lambda x: -x[1][1])))
+    print("      idle gaps us/step: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in sorted(gaps.items(),
+                                          key=lambda x: -x[1])))
+    out.update(gaps)
+    out["wall"] = wall_us / n_steps
+    out["idle share"] = 1 - busy / wall_us
+    return out
+
+
+def host_us(fn, n=200):
+    """The host's time per call of fn() in us: the mean of n calls between
+    two reads of the host's clock with no wait for the card in between
+    (the card runs behind; its queue does not fill in n calls)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def case_phases(dev, smi, rel, ulps, gyre_err):
     """Phases 14 to 17; returns the kernels' JSON entries."""
     import torch
@@ -2039,15 +2219,31 @@ def case_phases(dev, smi, rel, ulps, gyre_err):
 
 
 def phase_fields(cfg):
-    """(K3a, K3b) fields moved per point, each operand once: K3a reads h,
-    u, v, the four masks, f and the wind and sponge fields that are on and
-    writes u*, v*, div; K3b reads h, u*, v*, p, three masks and under the
-    open boundary H, the two face maps and the tides, and writes h, u,
-    v."""
+    """(K3a, K3b) fields moved per point, each of the function's operands
+    once.  The staggered masks and f are not among them: the reference's
+    band rebuilds them from the centre mask and the row
+    (band.py::band_grid_forcing), as the staged kernels rebuild the masks
+    on every case.  K3a reads h, u, v, the mask and the wind and sponge
+    fields that are on and writes u*, v*, div; K3b reads h, u*, v*, p, the
+    mask and under the open boundary H, the two face maps and the tides,
+    and writes h, u, v."""
     nz = cfg.nz
-    a = 3 * nz + 5 + 2 * cfg.wind + cfg.sponge + 2 * nz + 1
-    b = 3 * nz + 4 + cfg.obc * (3 + 2 * len(cfg.tides)) + 3 * nz
+    a = 3 * nz + 1 + 2 * cfg.wind + cfg.sponge + 2 * nz + 1
+    b = 3 * nz + 2 + cfg.obc * (3 + 2 * len(cfg.tides)) + 3 * nz
     return a, b
+
+
+def phase_launchers(fp, grid, forcing, cfg):
+    """(phase A, phase B) of a checkout's fused_projection as its stepper
+    launches them, a(h, u, v, n) and b(h, u*, v*, p, t): one Phases held
+    across calls where the checkout has it, else its proj_a / proj_b."""
+    if hasattr(fp, "Phases"):
+        ph = fp.Phases(grid, forcing, cfg)
+        return ph.a, ph.b
+    statics = (grid, forcing)
+    return (lambda h, u, v, n: fp.proj_a(h, u, v, statics, n, cfg),
+            lambda h, u_s, v_s, p, t: fp.proj_b(h, u_s, v_s, p, statics, t,
+                                                cfg))
 
 
 def projection_case_phases(dev, smi, rel, ulps):
@@ -2108,31 +2304,39 @@ def projection_case_phases(dev, smi, rel, ulps):
         cfg, grid, forcing, st = perturbed_case(
             dev, 2, case, nx=BIG, ny=BIG, scheme="implicit_fs")
         statics = (grid, forcing)
-        u_s, v_s, _ = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+        ph = fp.Phases(grid, forcing, cfg)
+        u_s, v_s, _ = ph.a(st.h, st.u, st.v, 0)
         p = (st.h.sum(0) - grid.H) * grid.mask
         ms_a = time_pair(
             f"K3a {case}",
             lambda: fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg),
-            lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 10, 100)
+            lambda: ph.a(st.h, st.u, st.v, 0), 10, 100)
         ms_b = time_pair(
             f"K3b {case}",
             lambda: fp.proj_b_plain(st.h, u_s, v_s, p, statics, st.t, cfg),
-            lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg), 10,
-            100)
+            lambda: ph.b(st.h, u_s, v_s, p, st.t), 10, 100)
+        keys = ph.kernel_keys()
+        print(f"   {case} plan: {ph.plan.describe()}")
         dev_ms = device_ms(
             f"K3a / K3b {case}",
-            lambda: (fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
-                     fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg)), 50,
+            lambda: (ph.a(st.h, st.u, st.v, 0),
+                     ph.b(st.h, u_s, v_s, p, st.t)), 50,
+            dict.fromkeys(keys, 1))
+        single = fp.Phases(grid, forcing, cfg,
+                           phase_plan=fp.PhasePlan(None, None, False))
+        device_ms(f"the single-step K3a / K3b {case}", lambda: (
+            single.a(st.h, st.u, st.v, 0),
+            single.b(st.h, u_s, v_s, p, st.t)), 50,
             {"proj_a_kernel": 1, "proj_b_kernel": 1})
         fa, fb_ = phase_fields(cfg)
         entries.append(kernel_entry(
             f"proj_a_{case}", "projection.cu", "band.py:200",
             launches[case, "proj_a"], err[case][0], ms_a, fa * pts * 4,
-            150 * cfg.nz * pts, device=dev_ms["proj_a_kernel"]))
+            150 * cfg.nz * pts, device=dev_ms[keys[0]]))
         entries.append(kernel_entry(
             f"proj_b_{case}", "projection.cu", "band.py:200",
             launches[case, "proj_b"], err[case][1], ms_b, fb_ * pts * 4,
-            60 * cfg.nz * pts, device=dev_ms["proj_b_kernel"]))
+            60 * cfg.nz * pts, device=dev_ms[keys[1]]))
     fp.LAUNCHES.update(saved[0])
     cg_fused.LAUNCHES = saved[1]
     torch.cuda.synchronize()
@@ -2813,30 +3017,30 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
 
     cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
                                             ny=BIG, scheme="implicit_fs")
-    statics = (grid, forcing)
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
     blocks = dist_band._static_blocks(pstat, m)
     sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
     u_s, v_s, div = dist_band.shard_proj_a(*sh, pstat, 0, cfg)
     p = pmesh.shard((st.h.sum(0) - grid.H) * grid.mask, m)
-    one_a = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+    ph = fp.Phases(grid, forcing, cfg)
+    one_a = ph.a(st.h, st.u, st.v, 0)
     p1 = pmesh.gather(p)
     fa, fb_ = phase_fields(cfg)
+    keys = ph.kernel_keys()
     timed = {
         "proj_a": (lambda: dist_band.shard_proj_a(
                        *sh, pstat, 0, cfg, static_blocks=blocks),
                    lambda: dist_band.proj_a_plain(*sh, pstat, 0, cfg),
-                   lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg),
-                   "shard_pa_kernel", "proj_a_kernel", 5 * nz + 1,
+                   lambda: ph.a(st.h, st.u, st.v, 0),
+                   "shard_pa_kernel", keys[0], 5 * nz + 1,
                    fa - 5 * nz - 1, 150 * nz),
         "proj_b": (lambda: dist_band.shard_proj_b(
                        sh[0], u_s, v_s, p, pstat, st.t, cfg,
                        static_blocks=blocks),
                    lambda: dist_band.proj_b_plain(sh[0], u_s, v_s, p, pstat,
                                                   st.t, cfg),
-                   lambda: fp.proj_b(st.h, one_a[0], one_a[1], p1, statics,
-                                     st.t, cfg),
-                   "shard_pb_kernel", "proj_b_kernel", 6 * nz + 1,
+                   lambda: ph.b(st.h, one_a[0], one_a[1], p1, st.t),
+                   "shard_pb_kernel", keys[1], 6 * nz + 1,
                    fb_ - 6 * nz - 1, 60 * nz)}
     for k, (kernel, plain, single, name7, name1, dyn, stat, ops) in \
             timed.items():

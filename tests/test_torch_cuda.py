@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card:
 K1 (fused fb step, every case), K1s (the split step's three kernels),
-K3a/K3b (projection phases, every case), K4a (blocked red-black
+K3a/K3b (projection phases, every case; the staged kernels at every
+candidate geometry, K3a's epilogue, the fused step without a read-back),
+K4a (blocked red-black
 sweep, with and without its residual), K4b (operator pass), K5 (coarse
 multigrid stack), K6 (fused CG, Jacobi and multigrid), K7 (the shard step
 on a mesh of shards on the one card, around the fb and split bodies and
@@ -540,6 +542,143 @@ def test_projection_phases_match_plain_per_case(cuda, name, scheme, dtype,
         close("huv", b, b_ref)
 
 
+PHASE_CASES = {"rigid_lid": {}, "two_layer": {}, "coastal_wetdry": {},
+               "shelf_forced": dict(nu4=1e6, r_int=1e-4, cd_bot=2.5e-3)}
+
+
+def _phase_case(cuda, name, scheme, dtype, nx=201, ny=137, seed=57):
+    """A perturbed case at t = 7 dt (the tide on), dry cells under wet/dry,
+    and a wet pressure field."""
+    cfg, grid, forcing, st = _perturbed(cuda, seed, name, nx=nx, ny=ny,
+                                        dtype=dtype, scheme=scheme,
+                                        **PHASE_CASES[name])
+    if cfg.wetdry:
+        st = st.replace(h=torch.where(st.h < 0.3, 0.0, st.h))
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(seed)) \
+        * grid.mask
+    return cfg, (grid, forcing), st, p
+
+
+def _equal(outs, refs, what):
+    for i, (a, b) in enumerate(zip(outs, refs)):
+        assert torch.equal(a, b), (what, i, float((a - b).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("name", list(PHASE_CASES))
+def test_staged_phases_match_plain(cuda, name, scheme, dtype):
+    """The plan's phase kernels (the staged K3a / K3b where it takes them)
+    and the single-step kernels, bit for bit the plain phases on a 201 x
+    137 grid, which no tile divides, at both sweep parities; one launch
+    of each phase per call."""
+    cfg, statics, st, p = _phase_case(cuda, name, scheme, dtype)
+    grid, forcing = statics
+    single = fused_projection.PhasePlan(None, None, False)
+    for ph in (fused_projection.Phases(grid, forcing, cfg),
+               fused_projection.Phases(grid, forcing, cfg,
+                                       phase_plan=single)):
+        for n in (0, 1):
+            before = dict(fused_projection.LAUNCHES)
+            a = ph.a(st.h, st.u, st.v, n)
+            a_ref = fused_projection.proj_a_plain(st.h, st.u, st.v, statics,
+                                                  n, cfg)
+            b = ph.b(st.h, a_ref[0], a_ref[1], p, st.t)
+            b_ref = fused_projection.proj_b_plain(st.h, a_ref[0], a_ref[1],
+                                                  p, statics, st.t, cfg)
+            torch.cuda.synchronize()
+            assert fused_projection.LAUNCHES == {
+                k: v + 1 for k, v in before.items()}
+            _equal(a, a_ref, (ph.plan, n, "A"))
+            _equal(b, b_ref, (ph.plan, n, "B"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("name", list(PHASE_CASES))
+def test_phase_a_rhs_matches_plain(cuda, name, scheme, dtype):
+    """K3a's epilogue: the solve's right-hand side (implicit_rhs, and
+    rigid_rhs from the epilogue's anomaly with its de-mean in torch) and
+    warm start (warm_x0; eta^n without carries), bit for bit the eager
+    composition, with both carries, with phi alone and with none."""
+    cfg, statics, st, p = _phase_case(cuda, name, scheme, dtype)
+    grid, forcing = statics
+    ph = fused_projection.Phases(grid, forcing, cfg)
+    assert ph.plan.rhs == (cfg.nz <= 2)
+    phi_prev = 0.5 * p
+    for carries in ((p, phi_prev), (p, None), (None, None)):
+        for n in (0, 1):
+            out = ph.a_rhs(st.h, st.u, st.v, n, *carries)
+            u_s, v_s, div = fused_projection.proj_a_plain(
+                st.h, st.u, st.v, statics, n, cfg)
+            ref = (u_s, v_s) + fused_projection._rhs_plain(
+                st.h, div, grid, cfg, ph.lam, *carries)
+            torch.cuda.synchronize()
+            if ref[3] is None:
+                assert out[3] is None
+                out, ref = out[:3], ref[:3]
+            _equal(out, ref, (carries[0] is None, carries[1] is None, n))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rigid_lid", "shelf_forced"])
+def test_staged_candidates_match_plain(cuda, name):
+    """Every candidate geometry of the staged kernels (what
+    tools/k3_probes.py --sweep times), bit for bit the plain phases at
+    f32, both parities."""
+    from beom_tpu_torch.stencils import build
+
+    cfg, statics, st, p = _phase_case(cuda, name, "implicit_fs", "float32")
+    grid, forcing = statics
+    plans = fused_projection.candidates(cfg, torch.float32)
+    dmask = fused_projection.derived_masks(grid)
+    build.build_all([fused_projection.build_spec(cfg, torch.float32, pl,
+                                                 dmask) for pl in plans])
+    for pl in plans:
+        ph = fused_projection.Phases(grid, forcing, cfg, phase_plan=pl)
+        for n in (0, 1):
+            a = ph.a(st.h, st.u, st.v, n)
+            a_ref = fused_projection.proj_a_plain(st.h, st.u, st.v, statics,
+                                                  n, cfg)
+            b = ph.b(st.h, a_ref[0], a_ref[1], p, st.t)
+            torch.cuda.synchronize()
+            _equal(a, a_ref, (pl, n, "A"))
+            _equal(b, fused_projection.proj_b_plain(
+                st.h, a_ref[0], a_ref[1], p, statics, st.t, cfg),
+                (pl, n, "B"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+def test_fused_projection_step_waits_for_nothing(cuda, scheme):
+    """The fused stepper's step with Jacobi CG: K3a (with the right-hand
+    side), the solve and K3b, with no read-back of the solve's count, bit
+    for bit the plain phases around the same solve."""
+    from beom_tpu_torch.stepping import make_stepper, prepare_state
+
+    cfg, statics, st, _ = _phase_case(cuda, "rigid_lid", scheme, "float32")
+    cfg = dataclasses.replace(cfg, backend="fused", precond="jacobi")
+    grid, forcing = statics
+    st = prepare_state(st, cfg)
+    step = make_stepper(grid, forcing, cfg)
+    out = step(st)
+    lam = 0.0 if scheme == "rigid_lid" else 1.0 / (cfg.g * cfg.dt ** 2)
+    u_s, v_s, div = fused_projection.proj_a_plain(st.h, st.u, st.v, statics,
+                                                  st.n, cfg)
+    rhs, x0 = fused_projection._rhs_plain(st.h, div, grid, cfg, lam, st.phi,
+                                          st.phi_prev)
+    solve = cg_fused.make_cg_solve(grid, cfg, lam=lam, precond="jacobi")
+    p = solve(rhs, x0=x0).x
+    ref = fused_projection.proj_b_plain(st.h, u_s, v_s, p, statics, st.t,
+                                        cfg)
+    torch.cuda.synchronize()
+    _equal((out.h, out.u, out.v, out.phi), ref + (p,), scheme)
+
+
 MESHES = [(2, 4), (1, 8), (8, 1), (1, 1), (4, 1), (2, 2)]
 
 
@@ -739,6 +878,39 @@ def test_shard_projection_matches_plain_and_single_device(
                                                   pstat, st.t, cfg), rel,
                         "B vs plain")
         _gathered_close(b, one_b, rel, "B vs K3b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+@pytest.mark.parametrize("name", list(CASE_KW))
+def test_shard_projection_equals_staged_phases(cuda, name, scheme):
+    """K7-proj's two phases on (2, 4) shards, gathered, bit for bit the
+    plan's staged K3a / K3b (the single-step bodies they share, and the
+    staged kernels, are each bit for bit the plain phases), both
+    parities, f32."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = _perturbed(cuda, 58, name, nx=512, ny=256,
+                                        scheme=scheme, **CASE_KW[name])
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    statics = (grid, forcing)
+    assert fused_projection.plan(cfg, cfg.tdtype).a is not None
+    m = pmesh.make_mesh(2, 4, devices=[cuda])
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+        * grid.mask
+    for n in (0, 1):
+        a = dist_band.shard_proj_a(*sh, pstat, n, cfg)
+        one_a = fused_projection.proj_a(st.h, st.u, st.v, statics, n, cfg)
+        b = dist_band.shard_proj_b(sh[0], a[0], a[1], pmesh.shard(p, m),
+                                   pstat, st.t, cfg)
+        one_b = fused_projection.proj_b(st.h, one_a[0], one_a[1], p, statics,
+                                        st.t, cfg)
+        torch.cuda.synchronize()
+        for x, y in zip(a + b, one_a + one_b):
+            assert torch.equal(pmesh.gather(x), y), (name, scheme, n)
 
 
 @pytest.mark.cuda

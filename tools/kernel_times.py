@@ -47,10 +47,31 @@ double gyre at nsub 4, 8 and 12 and on two_layer at nsub 8, with digests
 of each step's h, u, v (equal digests: bitwise equal results across the
 trees), and where the checkout has them the two-launch step's kernels
 alone.  With --split only K1s is timed, and the code report.
+
+    python3 tools/kernel_times.py ROOT --projection
+
+times only the projection step's phase kernels and paths, as the checkout
+runs them: K3a and K3b (as its stepper launches them, so the single-step
+kernels or the plan's staged ones; chip_smoke.phase_launchers) on the
+rigid-lid gyre, two_layer, coastal_wetdry and shelf_forced with the
+implicit free surface at 2048^2 f32 and f64, between CUDA events and on
+the device (keys "proj_a", "proj_b": either kernel of each phase), with
+digests of their outputs (equal digests: bitwise equal results across the
+trees) and the host's time per launch; and paths (a) (implicit FS, CG +
+Jacobi, 20 steps with diagnostics every 10) and (b) (red-black, 10 steps,
+every 5) through run() after a run not timed, in ms per step, with the
+device's idle share and the step by part under torch.profiler
+(chip_smoke.step_parts); then (a) at a steady state, 400 steps with
+diagnostics every 100, where run()'s set-up is a small share of the
+window ((b) is not: at 2048^2 f32 its sweep budget lets the state go
+non-finite by step 102); the host's ms for that set-up (make_stepper),
+and where the checkout caches the Jacobi tile plan also with that cache
+emptied ahead of each; and the code report.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import importlib.util
 import io
@@ -140,7 +161,117 @@ def code_report(build):
     return report
 
 
-def main(root: str, only_split: bool = False) -> dict:
+def projection_report(sm, dev, out, digest, record) -> None:
+    """The --projection report of the checkout imported."""
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import build, cg_fused
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    cases = ("rigid_lid", "two_layer", "coastal_wetdry", "shelf_forced")
+    # every projection build the report launches, built at once
+    specs = []
+    for dtype in ("float32", "float64"):
+        for case in cases:
+            cfg = make_case(case, nx=16, ny=16, device="cpu", dtype=dtype,
+                            scheme="implicit_fs")[0]
+            specs.append(fp.build_spec(cfg, cfg.tdtype, fp.plan(
+                cfg, cfg.tdtype), True) if hasattr(fp, "plan")
+                else fp.build_spec(cfg, cfg.tdtype))
+    build.build_all(specs + ["cg_jacobi", "rb_sweep"])
+    for dtype in ("float32", "float64"):
+        for case in cases:
+            cfg, grid, forcing, st = sm.perturbed_case(
+                dev, 2, case, nx=N, ny=N, scheme="implicit_fs", dtype=dtype)
+            st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+            p = (st.h.sum(0) - grid.H) * grid.mask
+            pa, pb = sm.phase_launchers(fp, grid, forcing, cfg)
+            a = pa(st.h, st.u, st.v, 0)
+            b = pb(st.h, a[0], a[1], p, st.t)
+            name = f"{case} {dtype}"
+            out[f"K3a {name} digest"] = digest(*a)
+            out[f"K3b {name} digest"] = digest(*b)
+            if hasattr(fp, "plan"):
+                out[f"{name} plan"] = fp.plan(cfg, cfg.tdtype).describe()
+            record(f"K3a {name}", lambda: pa(st.h, st.u, st.v, 0), 100,
+                   "proj_a")
+            record(f"K3b {name}", lambda: pb(st.h, a[0], a[1], p, st.t),
+                   100, "proj_b")
+            if case == "rigid_lid" and dtype == "float32":
+                out["host us proj_a"] = sm.host_us(
+                    lambda: pa(st.h, st.u, st.v, 0))
+                out["host us proj_b"] = sm.host_us(
+                    lambda: pb(st.h, a[0], a[1], p, st.t))
+            del a, b, pa, pb
+            torch.cuda.empty_cache()
+    for name, kw, n_steps, diag, n_long, diag_long, keys in (
+            ("(a)", {"scheme": "implicit_fs"}, 20, 10, 400, 100, ("cg_",)),
+            ("(b)", dict(solver="redblack", solver_maxiter=sm.RB_MAXITER),
+             10, 5, None, None, ("rb_",))):
+        cfg, grid, forcing, st = make_case("rigid_lid", nx=N, ny=N,
+                                           device=dev, backend="fused",
+                                           diag_every=diag, **kw)
+        st = run(cfg, grid, forcing, st, 2, log=io.StringIO())
+        out[f"{name} set-up ms"] = setup_ms(grid, forcing, cfg)
+        clear = getattr(cg_fused.tile_plan, "cache_clear", None)
+        if clear is not None:
+            out[f"{name} set-up ms, tile plan not cached"] = setup_ms(
+                grid, forcing, cfg, clear)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[f"{name} run() ms/step"] = \
+            (time.perf_counter() - t0) / n_steps * 1e3
+        out[f"{name} digest"] = digest(last.h, last.u, last.v)
+        parts = sm.step_parts(f"{name} by part", lambda: run(
+            cfg, grid, forcing, st, n_steps, log=io.StringIO()), n_steps,
+            keys)
+        out[f"{name} idle share"] = parts.get("idle share")
+        out[f"{name} parts us/step"] = {k: v for k, v in parts.items()
+                                        if k != "idle share"}
+        if n_long is None:
+            continue
+        # the steady state: a window long enough that the call's set-up
+        # is a small share of it, diagnostics as on the main path
+        cfg = dataclasses.replace(cfg, diag_every=diag_long)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run(cfg, grid, forcing, st, n_long, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[f"{name} run() {n_long} steps ms/step"] = \
+            (time.perf_counter() - t0) / n_long * 1e3
+        out[f"{name} {n_long} steps digest"] = digest(last.h, last.u, last.v)
+        parts = sm.step_parts(f"{name} by part, {n_long} steps", lambda: run(
+            cfg, grid, forcing, st, n_long, log=io.StringIO()), n_long, keys)
+        out[f"{name} {n_long} steps idle share"] = parts.get("idle share")
+        out[f"{name} {n_long} steps parts us/step"] = {
+            k: v for k, v in parts.items() if k != "idle share"}
+
+
+def setup_ms(grid, forcing, cfg, before=None) -> float:
+    """The host's ms for what run() makes once per call, its stepper
+    (make_stepper), the median of three; before() runs ahead of each."""
+    import torch
+
+    from beom_tpu_torch.stepping import make_stepper
+
+    times = []
+    for _ in range(3):
+        if before is not None:
+            before()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_stepper(grid, forcing, cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def main(root: str, only_split: bool = False,
+         only_projection: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -207,6 +338,15 @@ def main(root: str, only_split: bool = False) -> dict:
         stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
         return jacobi, b, eta_n
 
+    if only_projection:
+        projection_report(sm, dev, out, digest, record)
+        out["code"] = code_report(build)
+        out["power"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        return out
+
     for case, nsub in (("double_gyre", 4), ("double_gyre", 8),
                        ("double_gyre", 12), ("two_layer", 8)):
         cfg, grid, forcing, st = sm.perturbed_case(
@@ -270,13 +410,11 @@ def main(root: str, only_split: bool = False) -> dict:
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
                                                ny=N, scheme="implicit_fs")
-    statics = (grid, forcing)
-    u_s, v_s, _ = fp.proj_a(st.h, st.u, st.v, statics, 0, cfg)
+    pa, pb = sm.phase_launchers(fp, grid, forcing, cfg)
+    u_s, v_s, _ = pa(st.h, st.u, st.v, 0)
     p = (st.h.sum(0) - grid.H) * grid.mask
-    record("K3a", lambda: fp.proj_a(st.h, st.u, st.v, statics, 0, cfg), 100,
-           "proj_a_kernel")
-    record("K3b", lambda: fp.proj_b(st.h, u_s, v_s, p, statics, st.t, cfg),
-           100, "proj_b_kernel")
+    record("K3a", lambda: pa(st.h, st.u, st.v, 0), 100, "proj_a")
+    record("K3b", lambda: pb(st.h, u_s, v_s, p, st.t), 100, "proj_b")
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N)
     m = pmesh.make_mesh(2, 4, devices=[dev])
@@ -370,6 +508,8 @@ def main(root: str, only_split: bool = False) -> dict:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in ([], ["--split"]):
+    if len(sys.argv) not in (2, 3) \
+            or sys.argv[2:] not in ([], ["--split"], ["--projection"]):
         raise SystemExit(__doc__)
-    print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"])))
+    print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"],
+                          sys.argv[2:] == ["--projection"])))
