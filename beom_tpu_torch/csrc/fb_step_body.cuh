@@ -282,10 +282,14 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // S0: layers [0, nl) of operand slot i into the planes from dst, every
 // block point.  A block that lies inside the grid on x, in a grid whose
-// rows start 16-byte aligned (its width and the operands' addresses), copies
-// its rows in 16-byte pieces; any other block point by point through the
-// offsets (periodic on both axes).
-template <typename T>
+// rows start 16-byte aligned (its width and the operands' addresses),
+// copies its rows in 16-byte pieces from column x0 on; any other block
+// point by point through the offsets (periodic on both axes).  With SH
+// (the stacked shards of a mesh, shard_addr.cuh: Stack) a piece's offset
+// is its first column's: where x0 and the shards' width are multiples of
+// the piece, no piece straddles a shard's edge or the grid's, so every
+// block copies in pieces.
+template <typename T, bool SH = false>
 __device__ __forceinline__ void stage(const Params<T>& p, int i, int nl,
                                       T* dst, const int* roff,
                                       const int* coff, int x0, bool vec) {
@@ -298,7 +302,7 @@ __device__ __forceinline__ void stage(const Params<T>& p, int i, int nl,
       const int r = (e / NV) % RY;
       const int c = (e % NV) * VW;
       cp_async<16>(dst + k * NPT + r * RX + c,
-                   src + k * p.plane + roff[r] + x0 + c);
+                   src + k * p.plane + roff[r] + (SH ? coff[c] : x0 + c));
     }
     return;
   }
@@ -314,47 +318,52 @@ __device__ __forceinline__ void stage(const Params<T>& p, int i, int nl,
 // switches read into its plane, in two groups of copies: what step 0's S1
 // reads, then mask_q (unless the biharmonic's S1 reads it), H, f_q, the
 // wind and the Flather maps, which S2 to S4 read (pass_step waits for them
-// after S1, so that they arrive while S1 computes).  Returns after a
+// after S1, so that they arrive while S1 computes).  (y0, x0) is the
+// block's first point in the grid.  With SH every operand is stacked over
+// the shards of a mesh (shard_addr.cuh: Stack).  Returns after a
 // __syncthreads() that follows the first group.
-template <typename T>
+template <typename T, bool SH = false>
 __device__ __forceinline__ void load_block(const Params<T>& p, T* sm,
-                                           int y0, int x0) {
+                                           int y0, int x0,
+                                           const Stack& m = Stack{}) {
   int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
   int* coff = roff + RY;
   for (int r = threadIdx.x; r < RY; r += THREADS)
-    roff[r] = wrap(y0 + r, p.ny) * p.nx;
+    roff[r] = SH ? m.row(wrap(y0 + r, p.ny)) : wrap(y0 + r, p.ny) * p.nx;
   for (int c = threadIdx.x; c < RX; c += THREADS)
-    coff[c] = wrap(x0 + c, p.nx);
+    coff[c] = SH ? m.col(wrap(x0 + c, p.nx)) : wrap(x0 + c, p.nx);
   __syncthreads();
   constexpr int VW = 16 / int(sizeof(T));
-  const bool vec = p.aligned && x0 >= 0 && x0 + RX <= p.nx &&
-                   x0 % VW == 0 && p.nx % VW == 0;
-  stage(p, I_H, NZ, sm + 0 * NZ * NPT, roff, coff, x0, vec);
-  stage(p, I_U, NZ, sm + 1 * NZ * NPT, roff, coff, x0, vec);
-  stage(p, I_V, NZ, sm + 2 * NZ * NPT, roff, coff, x0, vec);
-  stage(p, I_MASK, 1, sm + Q_M * NPT, roff, coff, x0, vec);
-  stage(p, I_MASK_U, 1, sm + Q_MU * NPT, roff, coff, x0, vec);
-  stage(p, I_MASK_V, 1, sm + Q_MV * NPT, roff, coff, x0, vec);
-  if (NU4) stage(p, I_MASK_Q, 1, sm + Q_MQ * NPT, roff, coff, x0, vec);
-  if (SPONGE) stage(p, I_SPONGE, 1, sm + Q_SPONGE * NPT, roff, coff, x0, vec);
+  const bool vec =
+      SH ? p.aligned && x0 % VW == 0 && m.lx % VW == 0
+         : p.aligned && x0 >= 0 && x0 + RX <= p.nx && x0 % VW == 0 &&
+               p.nx % VW == 0;
+  stage<T, SH>(p, I_H, NZ, sm + 0 * NZ * NPT, roff, coff, x0, vec);
+  stage<T, SH>(p, I_U, NZ, sm + 1 * NZ * NPT, roff, coff, x0, vec);
+  stage<T, SH>(p, I_V, NZ, sm + 2 * NZ * NPT, roff, coff, x0, vec);
+  stage<T, SH>(p, I_MASK, 1, sm + Q_M * NPT, roff, coff, x0, vec);
+  stage<T, SH>(p, I_MASK_U, 1, sm + Q_MU * NPT, roff, coff, x0, vec);
+  stage<T, SH>(p, I_MASK_V, 1, sm + Q_MV * NPT, roff, coff, x0, vec);
+  if (NU4) stage<T, SH>(p, I_MASK_Q, 1, sm + Q_MQ * NPT, roff, coff, x0, vec);
+  if (SPONGE) stage<T, SH>(p, I_SPONGE, 1, sm + Q_SPONGE * NPT, roff, coff, x0, vec);
   if (SPONGE || OBC)
-    stage(p, I_HEXT, NZ, sm + Q_HEXT * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_HEXT, NZ, sm + Q_HEXT * NPT, roff, coff, x0, vec);
   if (OBC) {
-    stage(p, I_OBC_H, 1, sm + Q_OBCH * NPT, roff, coff, x0, vec);
-    stage(p, I_TIDE_AMP, NTD, sm + Q_AMP * NPT, roff, coff, x0, vec);
-    stage(p, I_TIDE_PHASE, NTD, sm + Q_PHASE * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_OBC_H, 1, sm + Q_OBCH * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_TIDE_AMP, NTD, sm + Q_AMP * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_TIDE_PHASE, NTD, sm + Q_PHASE * NPT, roff, coff, x0, vec);
   }
   cp_async_commit();
-  if (!NU4) stage(p, I_MASK_Q, 1, sm + Q_MQ * NPT, roff, coff, x0, vec);
-  stage(p, I_HB, 1, sm + Q_HB * NPT, roff, coff, x0, vec);
-  stage(p, I_FQ, 1, sm + Q_FQ * NPT, roff, coff, x0, vec);
+  if (!NU4) stage<T, SH>(p, I_MASK_Q, 1, sm + Q_MQ * NPT, roff, coff, x0, vec);
+  stage<T, SH>(p, I_HB, 1, sm + Q_HB * NPT, roff, coff, x0, vec);
+  stage<T, SH>(p, I_FQ, 1, sm + Q_FQ * NPT, roff, coff, x0, vec);
   if (WIND) {
-    stage(p, I_TAUX, 1, sm + Q_TAUX * NPT, roff, coff, x0, vec);
-    stage(p, I_TAUY, 1, sm + Q_TAUY * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_TAUX, 1, sm + Q_TAUX * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_TAUY, 1, sm + Q_TAUY * NPT, roff, coff, x0, vec);
   }
   if (OBC) {
-    stage(p, I_OBC_U, 1, sm + Q_OBCU * NPT, roff, coff, x0, vec);
-    stage(p, I_OBC_V, 1, sm + Q_OBCV * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_OBC_U, 1, sm + Q_OBCU * NPT, roff, coff, x0, vec);
+    stage<T, SH>(p, I_OBC_V, 1, sm + Q_OBCV * NPT, roff, coff, x0, vec);
   }
   cp_async_commit();
   cp_async_wait<1>();

@@ -1,42 +1,79 @@
-// K8: the halo pad of one shard of a device mesh: its block (L, ly, lx)
-// written into (L, ly + 2 w, lx + 2 w) with the w-wide halo taken from the
-// eight neighbour shards' blocks, in one launch and with no intermediate
-// copies: the function parallel/halo.py::pad2d computes with slices and
-// concatenations.
+// K8: the halo pad of every shard of a device mesh that lies on one card,
+// in one launch: each shard's block (L, ly, lx) written into (L, ly + 2 w,
+// lx + 2 w) with the w-wide halo taken from the eight neighbour shards'
+// blocks, the padded blocks one allocation of (S, L, ly + 2 w, lx + 2 w) in
+// mesh order: the function parallel/halo.py::pad2d computes with slices
+// and concatenations.
 //
 // Replaces beom_tpu/parallel/rdma_halo.py::_halo_kernel (rdma_pad2d).
 //
 // The TPU kernel pushes its edges to the neighbours in two phases (rows,
 // then full-height columns of the row-padded block) because a corner has
 // to travel two hops over the chip interconnect.  Here every block of the
-// mesh is addressable, so the pad is a gather: each output point reads its
-// source from the shard's own block or from the neighbour it falls into,
-// corners from the diagonal neighbour directly.  Along a mesh axis with
-// one shard the neighbour is the shard itself and the halo is its periodic
-// wrap.  The neighbours' blocks are complete before the launch: they are
-// ordered on the stream (one device) or by stream waits (several).
+// mesh is in the card's memory, so the pad is a gather: each output point
+// reads its source from the shard's own block or from the neighbour it
+// falls into, corners from the diagonal neighbour directly.  Along a mesh
+// axis with one shard the neighbour is the shard itself and the halo is its
+// periodic wrap.  The blocks are complete before the launch: one stream
+// orders them.
 //
-// Bound: device-memory bytes, L (ly lx + (ly + 2 w)(lx + 2 w)) values per
-// shard: a copy.  One thread per output value along x, so reads and writes
-// of a warp are contiguous; rows of the padded block start w values off
-// the block's rows, so the accesses stay one value wide (16-byte accesses
-// would need both aligned).
+// Bound: device-memory bytes, S L (ly lx + (ly + 2 w)(lx + 2 w)) values: a
+// copy.  One launch for every shard keeps the whole copy in flight (a
+// launch per shard left the card idle between eight small grids): its z
+// blocks are the shards, a CTA takes 256 columns of RB rows of a shard's
+// padded block, so a warp's reads and writes are contiguous and each
+// thread has RB loads in flight before its stores.  The rows of the padded
+// block start w values off the block's rows, so the accesses stay one
+// value wide (16-byte accesses would need both aligned).  The blocks are
+// addressed through a table of their pointers in the kernel's parameters,
+// so they need not share an allocation; a CTA looks up its shard's 3 x 3
+// neighbourhood once, with constant indices into the table, into shared
+// memory.  A mesh of more shards than the parameters hold passes the table
+// in device memory instead.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-struct Nbr {
-  const void* p[9];   // the 3 x 3 neighbourhood, [dj + 1][di + 1]
+constexpr int MAX_SHARDS = 64;
+
+struct Blocks {
+  const void* p[MAX_SHARDS];   // shard s = j mx + i in mesh order
 };
+
+constexpr int RB = 8;         // rows per CTA
 
 template <typename V>
 __global__ void __launch_bounds__(256)
-halo_pad_kernel(const Nbr nbr, V* out, int L, int ly, int lx, int w) {
+halo_pad_kernel(const Blocks blk, const void* const* table,
+                V* __restrict__ out, int L, int ly, int lx, int w, int my,
+                int mx) {
+  __shared__ const V* nb[9];    // the shard's 3 x 3 neighbourhood
+  const int s = blockIdx.z;
+  const int j = s / mx;
+  const int i = s - j * mx;
+  if (threadIdx.x < 9) {
+    int J = j + int(threadIdx.x) / 3 - 1;
+    int I = i + int(threadIdx.x) % 3 - 1;
+    J = J < 0 ? my - 1 : J == my ? 0 : J;
+    I = I < 0 ? mx - 1 : I == mx ? 0 : I;
+    const int want = J * mx + I;
+    const void* p = nullptr;
+    if (table) {
+      p = table[want];
+    } else {
+#pragma unroll
+      for (int k = 0; k < MAX_SHARDS; ++k)
+        if (k == want) p = blk.p[k];
+    }
+    nb[threadIdx.x] = static_cast<const V*>(p);
+  }
+  __syncthreads();
   const int PX = lx + 2 * w;
   const int PY = ly + 2 * w;
   const int X = blockIdx.x * blockDim.x + threadIdx.x;
   if (X >= PX) return;
+  // the column's source: the neighbour column di and the column in it
   int gx = X - w;
   int di = 1;
   if (gx < 0) {
@@ -46,55 +83,72 @@ halo_pad_kernel(const Nbr nbr, V* out, int L, int ly, int lx, int w) {
     gx -= lx;
     di = 2;
   }
-  // the column's three candidate sources, chosen with constant indices so
-  // that the pointers stay in the kernel's parameter space
-  const void* s0 = di == 0 ? nbr.p[0] : di == 1 ? nbr.p[1] : nbr.p[2];
-  const void* s1 = di == 0 ? nbr.p[3] : di == 1 ? nbr.p[4] : nbr.p[5];
-  const void* s2 = di == 0 ? nbr.p[6] : di == 1 ? nbr.p[7] : nbr.p[8];
-  const long rows = long(L) * PY;
-  for (long r = blockIdx.y; r < rows; r += gridDim.y) {
-    const int l = int(r / PY);
-    int gy = int(r % PY) - w;
-    int dj = 1;
-    if (gy < 0) {
-      gy += ly;
-      dj = 0;
-    } else if (gy >= ly) {
-      gy -= ly;
-      dj = 2;
+  const V* const src[3] = {nb[di], nb[3 + di], nb[6 + di]};
+  const int rows = L * PY;
+  V* dst = out + long(s) * rows * PX + X;
+  for (int r0 = blockIdx.y * RB; r0 < rows; r0 += gridDim.y * RB) {
+    V v[RB];
+#pragma unroll
+    for (int q = 0; q < RB; ++q) {
+      const int r = r0 + q;
+      if (r >= rows) break;
+      const int l = r / PY;
+      int gy = r - l * PY - w;
+      int dj = 1;
+      if (gy < 0) {
+        gy += ly;
+        dj = 0;
+      } else if (gy >= ly) {
+        gy -= ly;
+        dj = 2;
+      }
+      v[q] = src[dj][(long(l) * ly + gy) * lx + gx];
     }
-    const V* src =
-        static_cast<const V*>(dj == 0 ? s0 : dj == 1 ? s1 : s2);
-    out[r * PX + X] = src[(long(l) * ly + gy) * lx + gx];
+#pragma unroll
+    for (int q = 0; q < RB; ++q)
+      if (r0 + q < rows) dst[long(r0 + q) * PX] = v[q];
   }
 }
 
 template <typename V>
-int launch(const void* const* nbr9, void* out, int L, int ly, int lx, int w,
+int launch(const void* const* blocks, const void* const* table, void* out,
+           int L, int ly, int lx, int w, int my, int mx,
            cudaStream_t stream) {
-  Nbr nbr;
-  for (int i = 0; i < 9; ++i) nbr.p[i] = nbr9[i];
-  const long rows = long(L) * (ly + 2 * w);
+  Blocks b{};
+  if (!table)
+    for (int s = 0; s < my * mx; ++s) b.p[s] = blocks[s];
+  const long bands = (long(L) * (ly + 2 * w) + RB - 1) / RB;
   const dim3 grid((lx + 2 * w + 255) / 256,
-                  unsigned(rows < 32768 ? rows : 32768));
-  halo_pad_kernel<V><<<grid, 256, 0, stream>>>(nbr, static_cast<V*>(out), L,
-                                               ly, lx, w);
+                  unsigned(bands < 65535 ? bands : 65535), my * mx);
+  halo_pad_kernel<V><<<grid, 256, 0, stream>>>(
+      b, table, static_cast<V*>(out), L, ly, lx, w, my, mx);
   return int(cudaGetLastError());
 }
 
 }  // namespace
 
-// nbr9: the blocks of the 3 x 3 neighbourhood (the shard's own in the
-// middle); elem: bytes per value, 4 or 8
-extern "C" int beom_halo_pad(const void* const* nbr9, void* out, int L,
-                             int ly, int lx, int w, int elem, void* stream) {
-  if (w < 1 || w > ly || w > lx || L < 1) return int(cudaErrorInvalidValue);
+// blocks: the my x mx shards' blocks in mesh order, a host array of at
+// most MAX_SHARDS pointers, or null and table the same pointers in device
+// memory; out: (S, L, ly + 2 w, lx + 2 w); elem: bytes per value, 4 or 8
+extern "C" int beom_halo_pad(const void* const* blocks,
+                             const void* const* table, void* out, int L,
+                             int ly, int lx, int w, int my, int mx,
+                             int elem, void* stream) {
+  if (w < 1 || w > ly || w > lx || L < 1 || my < 1 || mx < 1 ||
+      (!table && (!blocks || my * mx > MAX_SHARDS)))
+    return int(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (elem == 4) return launch<unsigned int>(nbr9, out, L, ly, lx, w, s);
+  if (elem == 4)
+    return launch<unsigned int>(blocks, table, out, L, ly, lx, w, my, mx, s);
   if (elem == 8)
-    return launch<unsigned long long>(nbr9, out, L, ly, lx, w, s);
+    return launch<unsigned long long>(blocks, table, out, L, ly, lx, w, my,
+                                      mx, s);
   return int(cudaErrorInvalidValue);
 }
+
+// the most shards whose pointers the launch's parameters hold, for the
+// wrapper
+extern "C" int beom_max_shards() { return MAX_SHARDS; }
 
 extern "C" const char* beom_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

@@ -1,11 +1,14 @@
 // The stage bodies of the two phases of a rigid-lid / implicit-free-surface
-// step, shared by the single-device kernels (projection.cu, K3a and K3b)
-// and the phases on the shards of a device mesh (shard_projection.cu, K7
-// around the projection bodies).  Each body takes a source
-// (shard_addr.cuh: where the tile's haloed points come from) and an Out
-// (which interior points are written, and where); the arithmetic is the
-// same for both, so a shard's result equals the single-device kernel's on
-// the same points bit for bit.  projection.cu describes the stages.
+// step: the single-step bodies pa, pb (projection.cu's proj_a, proj_b),
+// each taking a source (shard_addr.cuh: where the tile's haloed points come
+// from) and an Out (which interior points are written, and where), and
+// the staged bodies pas, pbs, shared by the single-device kernels
+// (projection.cu, K3a and K3b) and the phases on the shards of a device
+// mesh (shard_projection.cu, K7 around the projection bodies), which read
+// through a block's row and column offsets of either layout.  The
+// arithmetic is the same for every layout, so a shard's result equals the
+// single-device kernel's on the same points bit for bit.  projection.cu
+// describes the stages.
 
 #pragma once
 
@@ -326,8 +329,9 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
 namespace stg {
 
 // layers [0, nl) of the field at src (layer stride `plane`) into the
-// planes from dst of an RX x RY block
-template <typename T, int RX, int RY, int NT>
+// planes from dst of an RX x RY block; with SH a 16-byte piece's offset is
+// its first column's (fbp::stage)
+template <typename T, int RX, int RY, int NT, bool SH = false>
 __device__ __forceinline__ void stage(const T* src, long plane, int nl,
                                       T* dst, const int* roff,
                                       const int* coff, int x0, bool vec) {
@@ -340,7 +344,7 @@ __device__ __forceinline__ void stage(const T* src, long plane, int nl,
       const int r = (e / NV) % RY;
       const int c = (e % NV) * VW;
       fbp::cp_async<16>(dst + k * NPT + r * RX + c,
-                        src + k * plane + roff[r] + x0 + c);
+                        src + k * plane + roff[r] + (SH ? coff[c] : x0 + c));
     }
     return;
   }
@@ -352,20 +356,27 @@ __device__ __forceinline__ void stage(const T* src, long plane, int nl,
   }
 }
 
-// the block's row and column offsets into the grid (periodic); returns
-// whether its rows can be copied in 16-byte pieces.  Ends with a
+// the block's row and column offsets into the grid (periodic), its first
+// point at (y0, x0); returns whether its rows can be copied in 16-byte
+// pieces.  With SH every operand is stacked over the shards of a mesh
+// (shard_addr.cuh: Stack), and every block whose x0 and the shards' width
+// are multiples of a piece copies in pieces (stage).  Ends with a
 // __syncthreads().
-template <typename T, int RX, int RY, int NT>
+template <typename T, int RX, int RY, int NT, bool SH = false>
 __device__ __forceinline__ bool offsets(const Params<T>& p, int* roff,
-                                        int* coff, int y0, int x0) {
+                                        int* coff, int y0, int x0,
+                                        const Stack& m = Stack{}) {
   for (int r = threadIdx.x; r < RY; r += NT)
-    roff[r] = wrap(y0 + r, p.ny) * p.nx;
-  for (int c = threadIdx.x; c < RX; c += NT) coff[c] = wrap(x0 + c, p.nx);
+    roff[r] = SH ? m.row(wrap(y0 + r, p.ny)) : wrap(y0 + r, p.ny) * p.nx;
+  for (int c = threadIdx.x; c < RX; c += NT)
+    coff[c] = SH ? m.col(wrap(x0 + c, p.nx)) : wrap(x0 + c, p.nx);
   __syncthreads();
   constexpr int VW = 16 / int(sizeof(T));
+  if (SH) return p.aligned && x0 % VW == 0 && m.lx % VW == 0;
   return p.aligned && x0 >= 0 && x0 + RX <= p.nx && x0 % VW == 0 &&
          p.nx % VW == 0;
 }
+
 
 // mask_u, mask_v, mask_q of make_grid from the centre mask, on [0, R - 1)
 template <typename T, int RX, int RY, int NT>
@@ -479,19 +490,21 @@ __device__ __forceinline__ T cor_v_t(const TileT& c, int k, int s,
                  qk[s - 1] * (half * (t[s - 1] + t[s - 1 + RX])));
 }
 
-// S0 of the tile at (ty0, tx0): its row and column offsets into roff and
-// coff, and its copies into the input planes at `in`, in two groups: what
-// S1 reads, then the wind (S2, S3)
-template <typename T>
+// S0 of the tile at (ty0, tx0) of the grid: its row and column offsets
+// into roff and coff, and its copies into the input planes at `in`, in two
+// groups: what S1 reads, then the wind (S2, S3).  With SH the operands are
+// stacked over the shards of a mesh.
+template <typename T, bool SH = false>
 __device__ __forceinline__ void stage_tile(const Params<T>& p, T* in,
                                            int* roff, int* coff, int ty0,
-                                           int tx0) {
+                                           int tx0,
+                                           const Stack& m = Stack{}) {
   const int x0 = tx0 - W;
-  const bool vec = stg::offsets<T, RX, RY, THREADS>(p, roff, coff, ty0 - W,
-                                                   x0);
+  const bool vec =
+      stg::offsets<T, RX, RY, THREADS, SH>(p, roff, coff, ty0 - W, x0, m);
   auto stage = [&](const T* src, int nl, T* dst) {
-    stg::stage<T, RX, RY, THREADS>(src, p.plane, nl, dst, roff, coff, x0,
-                                   vec);
+    stg::stage<T, RX, RY, THREADS, SH>(src, p.plane, nl, dst, roff, coff,
+                                       x0, vec);
   };
   stage(p.in[I_H], NZ, in + Q_H * NPT);
   stage(p.in[I_U], NZ, in + Q_U * NPT);
@@ -512,17 +525,18 @@ __device__ __forceinline__ void stage_tile(const Params<T>& p, T* in,
   fbp::cp_async_commit();
 }
 
-// S1 to S4 of the tile at (ty0, tx0) from the input planes at `in` (the
-// first group of its copies arrived; the wind's waited for after S1) and
-// the work planes of sm.  The stages, as [lo, R - hi) on both axes: S1
-// phi, q, the first sweep's transport (and the biharmonic's lap) on
-// [1, R - 2), S2 the first sweep and its result's transport on [2, R - 3),
-// S3 on [3, R - 4), S4 on the tile [4, R - 4), which reads S3 one point
-// west and south; the block's last row and column feed only S1's reads of
-// h one point north-east (hy at s + 1).
+// S1 to S4 of the tile at o (at ob + o.at(jj, ii) of every operand's
+// layout) from the input planes at `in` (the first group of its copies
+// arrived; the wind's waited for after S1) and the work planes of sm.  The
+// stages, as [lo, R - hi) on both axes: S1 phi, q, the first sweep's
+// transport (and the biharmonic's lap) on [1, R - 2), S2 the first sweep
+// and its result's transport on [2, R - 3), S3 on [3, R - 4), S4 on the
+// tile [4, R - 4), which reads S3 one point west and south; the block's
+// last row and column feed only S1's reads of h one point north-east (hy
+// at s + 1).
 template <typename T>
 __device__ __forceinline__ void stages(const Params<T>& p, T* in, T* sm,
-                                       int ty0, int tx0, T* out_us,
+                                       const Out& o, long ob, T* out_us,
                                        T* out_vs, const Epi<T>& ep) {
   T* h = in + Q_H * NPT;
   T* u = in + Q_U * NPT;
@@ -617,9 +631,9 @@ __device__ __forceinline__ void stages(const Params<T>& p, T* in, T* sm,
   for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
     const int jj = k_ / TX;
     const int ii = k_ % TX;
-    if (ty0 + jj >= p.ny || tx0 + ii >= p.nx) continue;
+    if (!o.valid(jj, ii)) continue;
     const int s = (W + jj) * RX + W + ii;
-    const long g = long(ty0 + jj) * p.nx + tx0 + ii;
+    const long g = ob + o.at(jj, ii);
     T U, Uw, V, Vs;
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
@@ -666,7 +680,24 @@ __device__ __forceinline__ void run(const Params<T>& p, T* out_us,
   stage_tile(p, sm, roff, roff + RY, ty0, tx0);
   fbp::cp_async_wait<1>();
   __syncthreads();
-  stages(p, sm, sm, ty0, tx0, out_us, out_vs, ep);
+  stages(p, sm, sm, Out{ty0, tx0, p.ny, p.nx, p.plane}, 0, out_us, out_vs,
+         ep);
+}
+
+// One CTA per tile of every shard of a mesh on one device (shard_addr.cuh:
+// ShardTile), every operand stacked
+template <typename T>
+__device__ __forceinline__ void run_shards(const Params<T>& p,
+                                           const Stack& m, T* out_us,
+                                           T* out_vs, const Epi<T>& ep) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  const ShardTile t = shard_tile(m, TX, TY);
+  stage_tile<T, true>(p, sm, roff, roff + RY, t.gy0, t.gx0, m);
+  fbp::cp_async_wait<1>();
+  __syncthreads();
+  stages(p, sm, sm, t.out(m, p.plane), t.base(m), out_us, out_vs, ep);
 }
 
 }  // namespace pas
@@ -721,12 +752,16 @@ struct Stat {
   }
 };
 
-// The tile at block (by, bx): S1 the correction on [0, R - 1), S2 the
-// continuity (h1 on [LO, R - LO)), S3 finalize on the tile, reading h1 and
-// the tide's elevation one point east and north.
-template <typename T>
-__device__ __forceinline__ void run(const Params<T>& p, const T* pres,
-                                    T corr, T* out_h, T* out_u, T* out_v) {
+// The tile at o (at ob + o.at(jj, ii) of every operand's layout), whose
+// first point in the grid is (ty0, tx0): S1 the correction on [0, R - 1),
+// S2 the continuity (h1 on [LO, R - LO)), S3 finalize on the tile, reading
+// h1 and the tide's elevation one point east and north.  With SH every
+// operand is stacked over the shards of a mesh (shard_addr.cuh: Stack).
+template <typename T, bool SH>
+__device__ __forceinline__ void run_at(const Params<T>& p, const T* pres,
+                                       T corr, T* out_h, T* out_u, T* out_v,
+                                       const Out& o, long ob, int ty0,
+                                       int tx0, const Stack& m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
@@ -744,14 +779,12 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
   T* sc = sm + Q_SC * NPT;
   T* ee = sm + Q_EE * NPT;
   const int tid = threadIdx.x;
-  const int ty0 = int(blockIdx.y) * TY;
-  const int tx0 = int(blockIdx.x) * TX;
   const int x0 = tx0 - WX;
-  const bool vec = stg::offsets<T, RX, RY, THREADS>(p, roff, coff, ty0 - W,
-                                                   x0);
+  const bool vec =
+      stg::offsets<T, RX, RY, THREADS, SH>(p, roff, coff, ty0 - W, x0, m);
   auto stage = [&](const T* src, int nl, T* dst) {
-    stg::stage<T, RX, RY, THREADS>(src, p.plane, nl, dst, roff, coff, x0,
-                                   vec);
+    stg::stage<T, RX, RY, THREADS, SH>(src, p.plane, nl, dst, roff, coff,
+                                       x0, vec);
   };
   stage(p.in[I_H], NZ, h);
   stage(p.in[I_U], NZ, ua);
@@ -807,9 +840,9 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
   for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
     const int jj = k_ / TX;
     const int ii = k_ % TX;
-    if (ty0 + jj >= p.ny || tx0 + ii >= p.nx) continue;
+    if (!o.valid(jj, ii)) continue;
     const int s = (W + jj) * RX + WX + ii;
-    const long g = long(ty0 + jj) * p.nx + tx0 + ii;
+    const long g = ob + o.at(jj, ii);
     T uo[NZ], vo[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
@@ -824,6 +857,28 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
       out_v[k * p.plane + g] = vo[k];
     }
   }
+}
+
+// One CTA per tile of one device's grid
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p, const T* pres,
+                                    T corr, T* out_h, T* out_u, T* out_v) {
+  const int ty0 = int(blockIdx.y) * TY;
+  const int tx0 = int(blockIdx.x) * TX;
+  run_at<T, false>(p, pres, corr, out_h, out_u, out_v,
+                   Out{ty0, tx0, p.ny, p.nx, p.plane}, 0, ty0, tx0, Stack{});
+}
+
+// One CTA per tile of every shard of a mesh on one device, every operand
+// stacked
+template <typename T>
+__device__ __forceinline__ void run_shards(const Params<T>& p,
+                                           const Stack& m, const T* pres,
+                                           T corr, T* out_h, T* out_u,
+                                           T* out_v) {
+  const ShardTile t = shard_tile(m, TX, TY);
+  run_at<T, true>(p, pres, corr, out_h, out_u, out_v, t.out(m, p.plane),
+                  t.base(m), t.gy0, t.gx0, m);
 }
 
 }  // namespace pbs

@@ -1,7 +1,7 @@
 // Where a tile's haloed points come from, for the kernels that run one
 // stage body on the whole grid of one device and on the shards of a device
-// mesh: the fb step (fb_step.cu, shard_step.cu), the split step's three
-// kernels (split_step.cu, shard_split.cu) and the projection phases
+// mesh: the fb step (fb_step.cu, shard_step.cu), the split step's kernels
+// (split_step.cu, shard_split.cu) and the projection phases
 // (projection.cu, shard_projection.cu).
 //
 // A stage body asks a source `src` for the location of the point (y, x) of
@@ -14,21 +14,23 @@
 // layout, and fields that are read only at the point itself come from
 // `src.own<I>()` at that offset.
 //
-//   GridSrc  one device: the whole grid, periodic on both axes; statics and
-//            fields share one layout.
-//   NbrSrc   one shard of a mesh: the local block (ly, lx) of each field,
-//            and the blocks of its 3 x 3 neighbourhood through their
-//            pointers.  A point beyond the block's edge is read from the
-//            neighbour block it falls into (a shard that is its own
-//            neighbour along a mesh axis reads its own periodic wrap); the
-//            statics are the shard's blocks padded once with PAD points of
-//            the neighbours', so the boundary maps, the sponge and the tides
-//            keep their global positions.
+//   GridSrc   one device: the whole grid, periodic on both axes; statics
+//             and fields share one layout.
+//   StackSrc  the shards of a mesh that lie on one device, in one launch:
+//             every field, the statics too, is one allocation of (L, S,
+//             ly, lx), layer k of shard s = j mx + i the block s of the
+//             grid's plane k (Stack), so the layer stride is the grid's, as
+//             on one device, and statics and fields still share one layout.
+//             A CTA's tile lies in one shard (ShardTile), and a point past
+//             the shard's edge is read from the neighbour shard it falls
+//             into (the shard itself along a mesh axis of one shard): the
+//             periodic grid, as on one device.
 //
-// TileMap splits a shard's tiles into the interior ones, whose haloed block
-// lies inside the shard's own block and needs nothing remote, and the frame
-// of tiles around them, which reads the neighbours (the launcher orders it
-// after their previous kernel by events).
+// The staged bodies (the fb pass, the split tail, the staged projection
+// phases) read through a block's row and column offsets instead.  In the
+// stacked layout a point's offset in a plane is still a row term plus a
+// column term, (J mx + I) ly lx + y lx + x for the point (y, x) of shard
+// (J, I): Stack::row and Stack::col fill the same tables.
 
 #pragma once
 
@@ -36,12 +38,10 @@
 
 namespace beom {
 
-// the location of one point of a haloed block: its offset into the statics,
-// and the neighbour block (dj, di in 0..2, 1 is the shard itself) and offset
-// in it that hold its dynamic fields
+// the location of one point of a haloed block: its offset into the statics
+// and into the dynamic fields
 struct Loc {
   int stat;
-  int dj, di;
   long off;
 };
 
@@ -55,11 +55,11 @@ struct GridSrc {
   // subcycle 2 % slower (tools/kernel_times.py on an H100)
   __device__ __forceinline__ Loc at(int y, int x) const {
     const long g = long(wrap(y, ny)) * nx + wrap(x, nx);
-    return Loc{int(g), 1, 1, g};
+    return Loc{int(g), g};
   }
   // the location of a point whose statics offset is known
   __device__ __forceinline__ Loc at(int stat, int, int) const {
-    return Loc{stat, 1, 1, stat};
+    return Loc{stat, stat};
   }
   template <int I>
   __device__ __forceinline__ const T* ptr(const Loc& l) const {
@@ -72,66 +72,6 @@ struct GridSrc {
   template <int I>
   __device__ __forceinline__ const T* own() const {
     return f[I];
-  }
-};
-
-// entry [dj][di] of a field's 3 x 3 neighbourhood, chosen with constant
-// indices so that the pointers stay in the kernel's parameter space
-template <typename T>
-__device__ __forceinline__ const T* neighbour(const T* const (&p)[9], int dj,
-                                              int di) {
-  const T* r0 = di == 0 ? p[0] : di == 1 ? p[1] : p[2];
-  const T* r1 = di == 0 ? p[3] : di == 1 ? p[4] : p[5];
-  const T* r2 = di == 0 ? p[6] : di == 1 ? p[7] : p[8];
-  return dj == 0 ? r0 : dj == 1 ? r1 : r2;
-}
-
-// PAD, the statics' halo, is the kernel's compile-time constant
-template <typename T, int NF, int PAD>
-struct NbrSrc {
-  const T* f[NF][9];    // per field, the 3 x 3 neighbourhood, [dj][di]
-  int ly, lx;           // the local block
-  long plane;           // ly * lx
-  // A point at local (y, x), y in [-PAD, ly + PAD): points past the
-  // statics' halo (ragged last tiles, beyond every kernel's own halo) are
-  // clamped; they feed no result.
-  __device__ __forceinline__ Loc at(int y, int x) const {
-    y = y < ly + PAD ? y : ly + PAD - 1;
-    x = x < lx + PAD ? x : lx + PAD - 1;
-    const int stat = (y + PAD) * (lx + 2 * PAD) + (x + PAD);
-    int dj = 1, di = 1;
-    if (y < 0) {
-      dj = 0;
-      y += ly;
-    } else if (y >= ly) {
-      dj = 2;
-      y -= ly;
-    }
-    if (x < 0) {
-      di = 0;
-      x += lx;
-    } else if (x >= lx) {
-      di = 2;
-      x -= lx;
-    }
-    return Loc{stat, dj, di, long(y) * lx + x};
-  }
-  __device__ __forceinline__ Loc at(int, int y, int x) const {
-    return at(y, x);
-  }
-  // layer 0 of field I at the point: the neighbour block is chosen once,
-  // and layer k is ptr[k * plane]
-  template <int I>
-  __device__ __forceinline__ const T* ptr(const Loc& l) const {
-    return neighbour<T>(f[I], l.dj, l.di) + l.off;
-  }
-  template <int I>
-  __device__ __forceinline__ T get(int k, const Loc& l) const {
-    return ptr<I>(l)[k * plane];
-  }
-  template <int I>
-  __device__ __forceinline__ const T* own() const {
-    return f[I][4];
   }
 };
 
@@ -149,85 +89,145 @@ struct Out {
   }
 };
 
-// The tiles of a shard's block for one launch: part 0 the interior
-// rectangle [bx0, bx1) x [by0, by1), part 1 the frame of tiles around it in
-// row-major order (every tile when the rectangle is empty), part 2 every
-// tile.
-struct TileMap {
-  int nbx, nby, bx0, bx1, by0, by1, part;
-
-  __device__ __forceinline__ void tile(int& tx, int& ty) const {
-    if (part == 0) {
-      tx = bx0 + blockIdx.x;
-      ty = by0 + blockIdx.y;
-      return;
-    }
-    int id = blockIdx.x;
-    const int low = by0 * nbx;
-    const int mid_w = bx0 + (nbx - bx1);
-    const int mid = (by1 - by0) * mid_w;
-    if (id < low) {
-      ty = id / nbx;
-      tx = id % nbx;
-    } else if (id < low + mid) {
-      id -= low;
-      ty = by0 + id / mid_w;
-      const int c = id % mid_w;
-      tx = c < bx0 ? c : bx1 + (c - bx0);
-    } else {
-      id -= low + mid;
-      ty = by1 + id / nbx;
-      tx = id % nbx;
-    }
+// The stacked layout of a mesh's fields on one device: shard (j, i) holds
+// the block of rows [j ly, (j + 1) ly) and columns [i lx, (i + 1) lx) of
+// the grid, and each plane of a field holds the shards' blocks one after
+// another in mesh order.
+struct Stack {
+  int ly, lx, my, mx;
+  int plane;            // ly * lx: a shard's block of one plane
+  // the row and column terms of the offset of grid row gy in [0, ny) and
+  // column gx in [0, nx)
+  __device__ __forceinline__ int row(int gy) const {
+    const int J = gy / ly;
+    return J * mx * plane + (gy - J * ly) * lx;
   }
-
-  // the launch grid; 0 blocks when the part is empty
-  __host__ dim3 grid() const {
-    if (part == 0) return dim3(bx1 - bx0, by1 - by0);
-    return dim3(nbx * nby - (bx1 - bx0) * (by1 - by0));
+  __device__ __forceinline__ int col(int gx) const {
+    const int I = gx / lx;
+    return I * plane + (gx - I * lx);
+  }
+  // tiles of TX x TY points per shard, on each axis
+  __host__ __device__ int tiles_x(int tx) const { return (lx + tx - 1) / tx; }
+  __host__ __device__ int tiles_y(int ty) const { return (ly + ty - 1) / ty; }
+  // the launch grid: the tiles of a shard times the shards, on each axis
+  __host__ dim3 grid(int tx, int ty) const {
+    return dim3(mx * tiles_x(tx), my * tiles_y(ty));
   }
 };
 
-// tile t of T points is interior iff t T - w >= 0 and (t + 1) T + w <= l
-__host__ inline TileMap make_tiles(int ly, int lx, int tx, int ty, int w,
-                                   int part) {
-  TileMap m;
-  m.nbx = (lx + tx - 1) / tx;
-  m.nby = (ly + ty - 1) / ty;
-  m.bx0 = (w + tx - 1) / tx;
-  m.bx1 = (lx - w) / tx;
-  m.by0 = (w + ty - 1) / ty;
-  m.by1 = (ly - w) / ty;
-  if (m.bx1 <= m.bx0 || m.by1 <= m.by0 || part == 2)
-    m.bx0 = m.bx1 = m.by0 = m.by1 = 0;
-  m.part = part;
-  return m;
+// The tile of this CTA in a launch over every shard of a device: block
+// (bx, by) is tile (bx mod nbx, by mod nby) of shard (by / nby, bx / nbx).
+struct ShardTile {
+  int j, i;             // the shard's mesh coordinates
+  int y0, x0;           // the tile's first point in the shard's block
+  int gy0, gx0;         // ... and in the grid
+  // the offset of the shard's block in a plane
+  __device__ __forceinline__ int base(const Stack& m) const {
+    return (j * m.mx + i) * m.plane;
+  }
+  // the tile's interior points in the shard's block, planes `plane` apart
+  // (the grid's ny nx), from base(m)
+  __device__ __forceinline__ Out out(const Stack& m, long plane) const {
+    return Out{y0, x0, m.ly, m.lx, plane};
+  }
+};
+
+__device__ __forceinline__ ShardTile shard_tile(const Stack& m, int tx,
+                                                int ty) {
+  const int nbx = m.tiles_x(tx);
+  const int nby = m.tiles_y(ty);
+  ShardTile t;
+  t.i = int(blockIdx.x) / nbx;
+  t.j = int(blockIdx.y) / nby;
+  t.x0 = (int(blockIdx.x) - t.i * nbx) * tx;
+  t.y0 = (int(blockIdx.y) - t.j * nby) * ty;
+  t.gy0 = t.j * m.ly + t.y0;
+  t.gx0 = t.i * m.lx + t.x0;
+  return t;
 }
 
-// Checks of a shard launch's geometry: the statics padded by pad around
-// the (ly, lx) block, a block that holds the kernel's halo w, a known part
-// and a launch with blocks in it.
-template <typename T>
-__host__ inline bool shard_geometry_ok(const Params<T>& p, int ly, int lx,
-                                       int pad, int w, const TileMap& m) {
-  const dim3 g = m.grid();
-  return p.ny == ly + 2 * pad && p.nx == lx + 2 * pad && ly >= pad &&
-         lx >= pad && pad >= w && m.part >= 0 && m.part <= 2 && g.x > 0 &&
-         g.y > 0;
-}
+// The stacked fields seen from the CTA's shard (j, i): a point at local
+// (y, x) lies in the shard of the 3 x 3 neighbourhood it falls into.
+// Points past the neighbour's block (ragged last tiles of blocks narrower
+// than a tile and its halo) are clamped to its edge: they feed no result.
+// Statics and fields share the offset, as in GridSrc.
+template <typename T, int NF>
+struct StackSrc {
+  const T* f[NF];
+  Stack m;
+  long plane;           // the grid's ny nx: the layer stride
+  int j, i;             // the CTA's shard
+  __device__ __forceinline__ Loc at(int y, int x) const {
+    int J = j, I = i;
+    if (y < 0) {
+      J = j == 0 ? m.my - 1 : j - 1;
+      y += m.ly;
+    } else if (y >= m.ly) {
+      J = j == m.my - 1 ? 0 : j + 1;
+      y -= m.ly;
+    }
+    if (x < 0) {
+      I = i == 0 ? m.mx - 1 : i - 1;
+      x += m.lx;
+    } else if (x >= m.lx) {
+      I = i == m.mx - 1 ? 0 : i + 1;
+      x -= m.lx;
+    }
+    y = y < 0 ? 0 : y < m.ly ? y : m.ly - 1;
+    x = x < 0 ? 0 : x < m.lx ? x : m.lx - 1;
+    const int g = (J * m.mx + I) * m.plane + y * m.lx + x;
+    return Loc{g, g};
+  }
+  __device__ __forceinline__ Loc at(int, int y, int x) const {
+    return at(y, x);
+  }
+  template <int I>
+  __device__ __forceinline__ const T* ptr(const Loc& l) const {
+    return f[I] + l.off;
+  }
+  template <int I>
+  __device__ __forceinline__ T get(int k, const Loc& l) const {
+    return f[I][k * plane + l.off];
+  }
+  // the field at the CTA's shard's block, read at Out offsets
+  template <int I>
+  __device__ __forceinline__ const T* own() const {
+    return f[I] + (j * m.mx + i) * m.plane;
+  }
+  // this source seen from the CTA's shard
+  __device__ __forceinline__ StackSrc from(const ShardTile& t) const {
+    StackSrc s = *this;
+    s.j = t.j;
+    s.i = t.i;
+    return s;
+  }
+};
 
-// an NbrSrc of the block (ly, lx) from nf x 9 pointers, field-major
-template <typename T, int NF, int PAD>
-__host__ inline NbrSrc<T, NF, PAD> make_nbr(const void* const* dyn, int ly,
-                                            int lx) {
-  NbrSrc<T, NF, PAD> s;
-  for (int f = 0; f < NF; ++f)
-    for (int n = 0; n < 9; ++n)
-      s.f[f][n] = static_cast<const T*>(dyn[f * 9 + n]);
-  s.ly = ly;
-  s.lx = lx;
-  s.plane = long(ly) * lx;
+// A StackSrc over the stacked fields `f`
+template <typename T, int NF>
+__host__ inline StackSrc<T, NF> make_stack_src(const void* const* f,
+                                               const Stack& m, long plane) {
+  StackSrc<T, NF> s;
+  for (int k = 0; k < NF; ++k) s.f[k] = static_cast<const T*>(f[k]);
+  s.m = m;
+  s.plane = plane;
+  s.j = s.i = 0;
   return s;
+}
+
+// The Stack of geom = ly, lx, my, mx, checked against the grid (the
+// Params' ny, nx); false where it does not tile the grid or a block
+// cannot hold a halo of w
+template <typename T>
+__host__ inline bool make_stack(const Params<T>& p, const int* geom, int w,
+                                Stack& m) {
+  m.ly = geom[0];
+  m.lx = geom[1];
+  m.my = geom[2];
+  m.mx = geom[3];
+  m.plane = m.ly * m.lx;
+  return m.ly >= w && m.lx >= w && m.my > 0 && m.mx > 0 &&
+         p.ny == m.ly * m.my && p.nx == m.lx * m.mx;
 }
 
 }  // namespace beom

@@ -1,36 +1,28 @@
 // K7 around the split body: one split barotropic / baroclinic step
-// (stepping/split.py::split_step) on one shard of a device mesh, as the
-// three kernels of the single-device split step (split_step.cu): the slow
-// phase, the barotropic subcycle and the recomposition with fb.finalize,
-// each on the shard's local block (nz, ly, lx).  A halo point beyond the
-// block's edge is the neighbour shard's, read from its block through its
-// pointer (csrc/shard_addr.cuh); a shard that is its own neighbour along a
-// mesh axis reads its own periodic wrap.
+// (stepping/split.py::split_step) on every shard of a device mesh that
+// lies on one card, by the routes of the single-device step (split_step.cu,
+// K1s), each kernel one launch over every shard:
+//   route 2, two launches: the slow phase's layer tendencies (tend), then
+//     the tail (the depth means rebuilt, the subcycle, the recomposition
+//     and fb.finalize on blocks with a halo of nsub + LO + E);
+//   route 3, three launches: the slow phase, the subcycle and the
+//     recomposition with fb.finalize, each through device memory.
 //
 // Replaces beom_tpu/stencils/dist_band.py::_dist_band_kernel running the
 // split body of beom_tpu/parallel/dist.py::make_dist_pallas_stepper.
 //
 // The TPU kernel runs the whole step in one launch over a y halo of
-// ceil8(8 + 2 nsub) rows, exchanged in-kernel.  Here each of the three
-// kernels reads the halo its own stages need, as on one device: the slow
-// phase 2 points of h, u, v; the subcycle nsub points of the slow phase's
-// 2-D fields (one ring of error per substep from an unknown rim); the
-// recomposition 2 (3 under wet/dry) points of h, the shear velocities and
-// the subcycle's mean velocities, and 1 of its free surface.  So every
-// field a later kernel reads across a block edge is written to a tensor of
-// its own that the neighbours read: the slow phase's 4 nz + 9 planes and
-// the subcycle's five.  Each kernel is two launches per shard and step, the
-// interior tiles (whose haloed block lies inside the shard's own block) and
-// the frame of tiles around them; the wrapper (stencils/dist_band.py)
-// orders a frame launch after the neighbours' previous kernel by CUDA
-// events, and no kernel waits on a flag.
+// ceil8(8 + 2 nsub) rows, exchanged in-kernel.  Here the shards share one
+// card, so a kernel's launch covers the tiles of every shard (shard_addr.cuh:
+// ShardTile) and one stream orders the kernels: a CTA reads what a
+// neighbour shard's CTAs wrote in the previous kernel.  Every operand is
+// one allocation of (L, S, ly, lx) in mesh order (Stack): the statics, the
+// step's h, u, v, the tendencies, and route 3's SlowPhase (4 nz + 9 planes)
+// and subcycle fields (5 planes).
 //
-// Bound: device-memory bytes, as K1s.  The stage bodies are K1s's
-// (csrc/split_body.cuh), so each kernel equals the single-device kernel on
-// the same points bit for bit.  The statics are the shard's blocks padded
-// once with PAD = max(2, nsub, LO + 1) points from the neighbours, the
-// widest halo of the three, so the boundary maps, the sponge and the tides
-// keep their global positions.
+// Bound: device-memory bytes for the slow phase, its stages for the tail,
+// as K1s.  The stage bodies are K1s's (csrc/split_body.cuh), so each kernel
+// equals the single-device kernel on the same points bit for bit.
 
 #include "split_body.cuh"
 
@@ -39,38 +31,60 @@ namespace {
 using namespace beom;
 using namespace beom::spk;
 
-constexpr int cmax(int a, int b) { return a > b ? a : b; }
-constexpr int PAD = cmax(cmax(slow::W, rec::W), sub::W);
+// the outputs of the CTA's shard: each stacked field from the shard's block
+template <typename T, int N>
+__device__ __forceinline__ Ptrs<T, N> at(Ptrs<T, N> o, int base) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) o.p[i] += base;
+  return o;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_slow_kernel(const Params<T> p, const NbrSrc<T, N_SLOW_IN, PAD> src,
-                  const TileMap m, const Ptrs<T, N_SLOW> out) {
-  int tx, ty;
-  m.tile(tx, ty);
-  slow::run<T>(p, src, out, Out{ty * TY, tx * TX, src.ly, src.lx,
-                                src.plane});
+shard_slow_kernel(const Params<T> p, const StackSrc<T, N_SLOW_IN> src,
+                  const Ptrs<T, N_SLOW> out) {
+  const ShardTile t = shard_tile(src.m, TX, TY);
+  slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
+               t.out(src.m, p.plane));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+shard_tend_kernel(const Params<T> p, const StackSrc<T, N_SLOW_IN> src,
+                  const Ptrs<T, N_TEND> out) {
+  const ShardTile t = shard_tile(src.m, TX, TY);
+  slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
+               t.out(src.m, p.plane));
 }
 
 template <typename T>
 __global__ void __launch_bounds__(sub::THREADS_SUB)
-shard_sub_kernel(const Params<T> p, const NbrSrc<T, N_SLOW, PAD> src,
-                 const TileMap m, const Ptrs<T, N_SUB> out, T dte,
-                 T inv_nsub) {
-  int tx, ty;
-  m.tile(tx, ty);
-  sub::run<T>(p, src, out, Out{ty * SY, tx * SX, src.ly, src.lx, src.plane},
+shard_sub_kernel(const Params<T> p, const StackSrc<T, N_SLOW> src,
+                 const Ptrs<T, N_SUB> out, T dte, T inv_nsub) {
+  const ShardTile t = shard_tile(src.m, SX, SY);
+  sub::run<T>(p, src.from(t), at(out, t.base(src.m)), t.out(src.m, p.plane),
               dte, inv_nsub);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_rec_kernel(const Params<T> p, const NbrSrc<T, N_REC_IN, PAD> src,
-                 const TileMap m, T* out_h, T* out_u, T* out_v) {
-  int tx, ty;
-  m.tile(tx, ty);
-  rec::run<T>(p, src, Out{ty * TY, tx * TX, src.ly, src.lx, src.plane},
-              out_h, out_u, out_v);
+shard_rec_kernel(const Params<T> p, const StackSrc<T, N_REC_IN> src,
+                 T* out_h, T* out_u, T* out_v) {
+  const ShardTile t = shard_tile(src.m, TX, TY);
+  const int b = t.base(src.m);
+  rec::run<T>(p, src.from(t), t.out(src.m, p.plane), out_h + b, out_u + b,
+              out_v + b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(tail::QT)
+shard_tail_kernel(const Params<T> p, const Stack m,
+                  const Ptrs<T, N_TEND> tend, T* out_h, T* out_u, T* out_v,
+                  T dte, T inv_nsub) {
+  const ShardTile t = shard_tile(m, QX, tail::QY);
+  const int b = t.base(m);
+  tail::run_at<T, true>(p, tend, t.out(m, p.plane), out_h + b, out_u + b,
+                        out_v + b, dte, inv_nsub, t.gy0, t.gx0, m);
 }
 
 template <typename T, int N>
@@ -80,76 +94,116 @@ Ptrs<T, N> pack(void* const* a) {
   return r;
 }
 
-// Every entry takes: ptrs, the operand table of fb_terms.cuh with the
-// statics padded by PAD (its h, u, v slots are unused), ints[J_NY] and
-// ints[J_NX] the padded extent; dyn, 9 pointers per source field (the
-// field's 3 x 3 neighbourhood, row-major from (-1, -1)), field-major in the
-// order of split_body.cuh's SlowIn, Slow or RecIn; geom = ly, lx, part
-// (shard_addr.cuh's TileMap).
+template <typename K>
+cudaError_t allow(K kernel, int smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// Every entry takes: ptrs, the operand table of fb_terms.cuh, every
+// operand stacked (L, S, ly, lx); ints[J_NY], ints[J_NX] the grid; geom =
+// ly, lx, my, mx; the stacked fields each kernel reads besides (SlowPhase's
+// 13, the subcycle's 5, the tendencies' 2) as pointer tables in the order
+// of split_body.cuh's enums; then its outputs, stacked.
 
 template <typename T>
 int shard_slow(const void* const* ptrs, const int* ints, const double* dbls,
-               const void* const* dyn, const int* geom, void* const* outs,
-               void* stream) {
+               const int* geom, void* const* outs, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  const int ly = geom[0], lx = geom[1];
-  const TileMap m = make_tiles(ly, lx, TX, TY, slow::W, geom[2]);
-  if (!shard_geometry_ok(p, ly, lx, PAD, slow::W, m))
-    return int(cudaErrorInvalidValue);
-  constexpr int smem = slow::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      shard_slow_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  Stack m;
+  cudaError_t e =
+      make_stack(p, geom, slow::W, m) ? cudaSuccess : cudaErrorInvalidValue;
+  if (e == cudaSuccess)
+    e = allow(shard_slow_kernel<T>, slow::smem_bytes<T>());
   if (e != cudaSuccess) return int(e);
-  shard_slow_kernel<T><<<m.grid(), THREADS, smem,
+  shard_slow_kernel<T><<<m.grid(TX, TY), THREADS, slow::smem_bytes<T>(),
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_nbr<T, N_SLOW_IN, PAD>(dyn, ly, lx), m,
+      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane),
       pack<T, N_SLOW>(outs));
   return int(cudaGetLastError());
 }
 
 template <typename T>
-int shard_subcycle(const void* const* ptrs, const int* ints,
-                   const double* dbls, const void* const* dyn,
-                   const int* geom, void* const* outs, void* stream) {
+int shard_tend(const void* const* ptrs, const int* ints, const double* dbls,
+               const int* geom, void* const* outs, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  const int ly = geom[0], lx = geom[1];
-  const TileMap m = make_tiles(ly, lx, SX, SY, sub::W, geom[2]);
-  if (p.nsub != NSUB || !shard_geometry_ok(p, ly, lx, PAD, sub::W, m))
-    return int(cudaErrorInvalidValue);
-  constexpr int smem = sub::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      shard_sub_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  Stack m;
+  cudaError_t e =
+      make_stack(p, geom, slow::W, m) ? cudaSuccess : cudaErrorInvalidValue;
+  if (e == cudaSuccess)
+    e = allow(shard_tend_kernel<T>, slow::smem_bytes<T>());
+  if (e != cudaSuccess) return int(e);
+  shard_tend_kernel<T><<<m.grid(TX, TY), THREADS, slow::smem_bytes<T>(),
+                         static_cast<cudaStream_t>(stream)>>>(
+      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane),
+      pack<T, N_TEND>(outs));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int shard_subcycle(const void* const* ptrs, const int* ints,
+                   const double* dbls, const int* geom,
+                   void* const* slow_fields, void* const* outs,
+                   void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Stack m;
+  cudaError_t e =
+      make_stack(p, geom, sub::W, m) ? cudaSuccess : cudaErrorInvalidValue;
+  if (e == cudaSuccess && p.nsub != NSUB) e = cudaErrorInvalidValue;
+  if (e == cudaSuccess)
+    e = allow(shard_sub_kernel<T>, sub::smem_bytes<T>());
   if (e != cudaSuccess) return int(e);
   const T dte = T(dbls[D_DT] / NSUB);
   const T inv_nsub = T(1) / T(NSUB);
-  shard_sub_kernel<T><<<m.grid(), sub::THREADS_SUB, smem,
+  shard_sub_kernel<T><<<m.grid(SX, SY), sub::THREADS_SUB,
+                        sub::smem_bytes<T>(),
                         static_cast<cudaStream_t>(stream)>>>(
-      p, make_nbr<T, N_SLOW, PAD>(dyn, ly, lx), m, pack<T, N_SUB>(outs), dte,
-      inv_nsub);
+      p, make_stack_src<T, N_SLOW>(slow_fields, m, p.plane),
+      pack<T, N_SUB>(outs), dte, inv_nsub);
   return int(cudaGetLastError());
 }
 
 template <typename T>
 int shard_recompose(const void* const* ptrs, const int* ints,
-                    const double* dbls, const void* const* dyn,
-                    const int* geom, void* h1, void* u1, void* v1,
-                    void* stream) {
+                    const double* dbls, const int* geom,
+                    void* const* slow_fields, void* const* sub_fields,
+                    void* h1, void* u1, void* v1, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  const int ly = geom[0], lx = geom[1];
-  const TileMap m = make_tiles(ly, lx, TX, TY, rec::W, geom[2]);
-  if (!shard_geometry_ok(p, ly, lx, PAD, rec::W, m))
-    return int(cudaErrorInvalidValue);
-  constexpr int smem = rec::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      shard_rec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  Stack m;
+  cudaError_t e =
+      make_stack(p, geom, rec::W, m) ? cudaSuccess : cudaErrorInvalidValue;
+  if (e == cudaSuccess)
+    e = allow(shard_rec_kernel<T>, rec::smem_bytes<T>());
   if (e != cudaSuccess) return int(e);
-  shard_rec_kernel<T><<<m.grid(), THREADS, smem,
+  const void* fields[N_REC_IN];
+  fields[R_H] = ptrs[I_H];
+  for (int i = 0; i < N_SLOW; ++i) fields[R_SP + i] = slow_fields[i];
+  for (int i = 0; i < N_SUB; ++i) fields[R_SB + i] = sub_fields[i];
+  shard_rec_kernel<T><<<m.grid(TX, TY), THREADS, rec::smem_bytes<T>(),
                         static_cast<cudaStream_t>(stream)>>>(
-      p, make_nbr<T, N_REC_IN, PAD>(dyn, ly, lx), m, static_cast<T*>(h1),
-      static_cast<T*>(u1), static_cast<T*>(v1));
+      p, make_stack_src<T, N_REC_IN>(fields, m, p.plane),
+      static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int shard_tail(const void* const* ptrs, const int* ints, const double* dbls,
+               const int* geom, void* const* tend, void* h1, void* u1,
+               void* v1, void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Stack m;
+  cudaError_t e =
+      make_stack(p, geom, tail::HALO, m) ? cudaSuccess : cudaErrorInvalidValue;
+  if (e == cudaSuccess && p.nsub != NSUB) e = cudaErrorInvalidValue;
+  constexpr int smem = tail::smem_bytes<T>();
+  if (e == cudaSuccess) e = allow(shard_tail_kernel<T>, smem);
+  if (e != cudaSuccess) return int(e);
+  const T dte = T(dbls[D_DT] / NSUB);
+  const T inv_nsub = T(1) / T(NSUB);
+  shard_tail_kernel<T><<<m.grid(QX, tail::QY), tail::QT, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      p, m, pack<T, N_TEND>(tend), static_cast<T*>(h1), static_cast<T*>(u1),
+      static_cast<T*>(v1), dte, inv_nsub);
   return int(cudaGetLastError());
 }
 
@@ -158,42 +212,58 @@ int shard_recompose(const void* const* ptrs, const int* ints,
 #define SHARD_SPLIT_ENTRIES(SUFFIX, T)                                        \
   extern "C" int beom_shard_split_slow_##SUFFIX(                              \
       const void* const* ptrs, const int* ints, const double* dbls,           \
-      const void* const* dyn, const int* geom, void* const* outs,             \
-      void* stream) {                                                         \
-    return shard_slow<T>(ptrs, ints, dbls, dyn, geom, outs, stream);          \
+      const int* geom, void* const* outs, void* stream) {                     \
+    return shard_slow<T>(ptrs, ints, dbls, geom, outs, stream);               \
+  }                                                                           \
+  extern "C" int beom_shard_split_tend_##SUFFIX(                              \
+      const void* const* ptrs, const int* ints, const double* dbls,           \
+      const int* geom, void* const* outs, void* stream) {                     \
+    return shard_tend<T>(ptrs, ints, dbls, geom, outs, stream);               \
   }                                                                           \
   extern "C" int beom_shard_split_subcycle_##SUFFIX(                          \
       const void* const* ptrs, const int* ints, const double* dbls,           \
-      const void* const* dyn, const int* geom, void* const* outs,             \
+      const int* geom, void* const* slow_fields, void* const* outs,           \
       void* stream) {                                                         \
-    return shard_subcycle<T>(ptrs, ints, dbls, dyn, geom, outs, stream);      \
+    return shard_subcycle<T>(ptrs, ints, dbls, geom, slow_fields, outs,       \
+                             stream);                                         \
   }                                                                           \
   extern "C" int beom_shard_split_recompose_##SUFFIX(                         \
       const void* const* ptrs, const int* ints, const double* dbls,           \
-      const void* const* dyn, const int* geom, void* h1, void* u1, void* v1,  \
+      const int* geom, void* const* slow_fields, void* const* sub_fields,     \
+      void* h1, void* u1, void* v1, void* stream) {                           \
+    return shard_recompose<T>(ptrs, ints, dbls, geom, slow_fields,            \
+                              sub_fields, h1, u1, v1, stream);                \
+  }                                                                           \
+  extern "C" int beom_shard_split_tail_##SUFFIX(                              \
+      const void* const* ptrs, const int* ints, const double* dbls,           \
+      const int* geom, void* const* tend, void* h1, void* u1, void* v1,       \
       void* stream) {                                                         \
-    return shard_recompose<T>(ptrs, ints, dbls, dyn, geom, h1, u1, v1,        \
-                              stream);                                        \
+    return shard_tail<T>(ptrs, ints, dbls, geom, tend, h1, u1, v1, stream);   \
   }
 
 SHARD_SPLIT_ENTRIES(f32, float)
 SHARD_SPLIT_ENTRIES(f64, double)
 
-// the halo of a shard's padded statics, and per kernel (slow 0, recompose
-// 1, subcycle 2) its own halo, for the wrapper
-extern "C" int beom_shard_halo() { return PAD; }
+// per kernel (slow 0, recompose 1, subcycle 2, tail 3) the halo it reads
+// around a tile, for the wrapper
 extern "C" int beom_kernel_halo(int which) {
-  return which == 0 ? slow::W : which == 1 ? rec::W : sub::W;
+  return which == 0   ? slow::W
+         : which == 1 ? rec::W
+         : which == 2 ? sub::W
+                      : tail::HALO;
 }
 
-// dynamic shared memory of one CTA of the slow (0), recompose (1) and
-// subcycle (2) kernels: the single-device kernels' (fused_fb.smem_bytes)
+// dynamic shared memory of one CTA of the slow (0), recompose (1),
+// subcycle (2) and tail (3) kernels: the single-device kernels'
+// (fused_fb.smem_bytes)
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   if (which == 0)
     return is_f64 ? slow::smem_bytes<double>() : slow::smem_bytes<float>();
   if (which == 1)
     return is_f64 ? rec::smem_bytes<double>() : rec::smem_bytes<float>();
-  return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
+  if (which == 2)
+    return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
+  return is_f64 ? tail::smem_bytes<double>() : tail::smem_bytes<float>();
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

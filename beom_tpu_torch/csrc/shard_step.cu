@@ -1,32 +1,28 @@
-// K7: one free-surface forward-backward step (stepping/fb.py::fb_step) on
-// one shard of a device mesh: the shard's local block (nz, ly, lx) of h, u
-// and v, whose halo points beyond the block's edge are the neighbour
-// shards' edge points, read from the neighbours' blocks through their
-// pointers (a shard that is its own neighbour along a mesh axis reads its
-// own periodic wrap).
+// K7: free-surface forward-backward steps (stepping/fb.py::fb_step) on
+// every shard of a device mesh that lies on one card, in one launch: one
+// step per launch (a build with BEOM_KB = 1), or a pass of KB steps per
+// launch, as K1 (fb_step.cu) runs them on the whole grid.
 //
 // Replaces beom_tpu/stencils/dist_band.py::_dist_band_kernel running the
-// fb body of beom_tpu/parallel/dist.py::make_dist_pallas_stepper.
+// fb body of beom_tpu/parallel/dist.py::make_dist_pallas_stepper, which
+// steps a shard's band with a halo exchanged in-kernel, KB steps per
+// exchange (its temporal blocking): the pass kernel below.
 //
-// What the TPU kernel does for overlap (sends started in the first grid
-// step, edge bands ordered last behind receive semaphores, a barrier
-// handshake between launches) becomes two launches per shard and step on
-// the shard's stream: the interior tiles, whose haloed blocks lie inside
-// the shard's own block and depend on nothing remote, and the edge tiles,
-// ordered by CUDA events after the neighbours' previous step
-// (stencils/dist_band.py).  No kernel waits on a flag written by another:
-// with several shards on one card a spinning CTA could hold the slot the
-// kernel it waits for needs.
+// The TPU kernel overlaps its halo exchange with the interior bands.  On
+// one card there is nothing to overlap: every shard's block is in the
+// card's memory.  So one launch covers the tiles of every shard (the grid's
+// x blocks are the shards' columns times their tiles, its y blocks the
+// rows), each CTA finds its shard and tile from its block index
+// (shard_addr.cuh: ShardTile), and one stream orders the launches.  Every
+// operand, h, u, v and the statics alike, is one allocation of (L, S, ly,
+// lx) in mesh order (Stack), so a neighbour shard's point is a row term
+// plus a column term away and Flather, the sponge and the exterior clamp
+// see the statics of their global positions.
 //
-// Bound: device-memory bytes, as K1 (csrc/fb_step.cu); the arithmetic per
-// point is K1's (csrc/fb_step_body.cuh), so a shard's result equals the
-// single-device step's on the same points bit for bit.  The statics
-// (masks, H, f, wind, sponge, boundary maps, tides) are the shard's blocks
-// padded once at setup with a halo of W from the neighbours, so Flather,
-// the sponge and the exterior clamp see global positions.  The addressing
-// (the neighbour loader, the interior / frame split of the tiles) is
-// csrc/shard_addr.cuh's, shared with the split and projection kernels
-// under a mesh.
+// Bound: device-memory bytes for the single step, the stages for the
+// pass, as K1.  The arithmetic per point is K1's (csrc/fb_step_body.cuh),
+// so a shard's result equals the single-device step's on the same points
+// bit for bit.
 
 #include "fb_step_body.cuh"
 
@@ -35,21 +31,22 @@ namespace {
 using namespace beom;
 using namespace beom::fbk;
 
+#if BEOM_KB == 1
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_step_kernel(const Params<T> p, const NbrSrc<T, 3, W> src,
-                  const TileMap m, T* h1, T* u1, T* v1) {
+shard_step_kernel(const Params<T> p, const StackSrc<T, 3> src_, T* h1,
+                  T* u1, T* v1) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
   const int tid = threadIdx.x;
-  int tx, ty;
-  m.tile(tx, ty);
+  const ShardTile t = shard_tile(src_.m, TX, TY);
+  const StackSrc<T, 3> src = src_.from(t);
 
-  // S0: the haloed block, each point from the block of the neighbour it
-  // falls into; the statics from the shard's own padded arrays
-  const int x0 = tx * TX - W;
-  const int y0 = ty * TY - W;
+  // S0: the haloed block, each point from the shard it falls into
+  const int x0 = t.x0 - W;
+  const int y0 = t.y0 - W;
   for (int s = tid; s < NPT; s += THREADS) {
     const Loc l = src.at(y0 + s / RX, x0 + s % RX);
     gidx[s] = l.stat;
@@ -72,60 +69,98 @@ shard_step_kernel(const Params<T> p, const NbrSrc<T, 3, W> src,
     __syncthreads();
   }
 
+  const int b = t.base(src.m);
   fb_stages<T>(p, sm, gidx,
-               Store3<T>{h1, u1, v1,
-                         Out{ty * TY, tx * TX, src.ly, src.lx, src.plane}});
+               Store3<T>{h1 + b, u1 + b, v1 + b, t.out(src.m, p.plane)});
 }
 
-// ptrs: the operand table of fb_terms.cuh with the statics padded by W (its
-// h, u, v slots are unused); ints[J_NY], ints[J_NX] the padded extent.
-// dyn: 27 pointers, h then u then v of the 3 x 3 neighbourhood.  geom:
-// ly, lx, part (shard_addr.cuh's TileMap).
 template <typename T>
 int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
-               const void* const* dyn, const int* geom, void* h1, void* u1,
-               void* v1, void* stream) {
+               const int* geom, void* h1, void* u1, void* v1, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  const int ly = geom[0], lx = geom[1];
-  const TileMap m = make_tiles(ly, lx, TX, TY, W, geom[2]);
-  if (!shard_geometry_ok(p, ly, lx, W, W, m))
-    return int(cudaErrorInvalidValue);
+  Stack m;
+  if (!make_stack(p, geom, W, m)) return int(cudaErrorInvalidValue);
   constexpr int smem = smem_bytes<T>();
   cudaError_t e = cudaFuncSetAttribute(
       shard_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  shard_step_kernel<T><<<m.grid(), THREADS, smem,
+  shard_step_kernel<T><<<m.grid(TX, TY), THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_nbr<T, 3, W>(dyn, ly, lx), m, static_cast<T*>(h1),
+      p, make_stack_src<T, 3>(ptrs, m, p.plane), static_cast<T*>(h1),
       static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }
 
+constexpr int kernel_smem(bool f64) {
+  return f64 ? smem_bytes<double>() : smem_bytes<float>();
+}
+
+#else
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1)
+shard_pass_kernel(const Params<T> p, const Stack m, T* h1, T* u1, T* v1) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  const ShardTile t = shard_tile(m, TX, TY);
+  fbp::load_block<T, true>(p, sm, t.gy0 - fbp::HALO, t.gx0 - fbp::HALO, m);
+  const int b = t.base(m);
+  fbp::pass_steps<T, 0, 0, 1, 2, 3, 4>(
+      p, sm, Store3<T>{h1 + b, u1 + b, v1 + b, t.out(m, p.plane)});
+}
+
+template <typename T>
+int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
+               const int* geom, void* h1, void* u1, void* v1, void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Stack m;
+  if (!make_stack(p, geom, fbp::HALO, m)) return int(cudaErrorInvalidValue);
+  constexpr int smem = fbp::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      shard_pass_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return int(e);
+  shard_pass_kernel<T><<<m.grid(TX, TY), THREADS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
+      p, m, static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
+  return int(cudaGetLastError());
+}
+
+constexpr int kernel_smem(bool f64) {
+  return f64 ? fbp::smem_bytes<double>() : fbp::smem_bytes<float>();
+}
+
+#endif
+
 }  // namespace
 
+// ptrs: the operand table of fb_terms.cuh, every operand stacked (L, S,
+// ly, lx); ints[J_NY], ints[J_NX] the grid; geom: ly, lx, my, mx.  One
+// launch: one step (BEOM_KB = 1), or a pass of KB steps with step i's time
+// in dbls[D_TS0 + i].  The outputs are stacked as h, u, v.
+
 extern "C" int beom_shard_step_f32(const void* const* ptrs, const int* ints,
-                                   const double* dbls,
-                                   const void* const* dyn, const int* geom,
+                                   const double* dbls, const int* geom,
                                    void* h1, void* u1, void* v1,
                                    void* stream) {
-  return shard_step<float>(ptrs, ints, dbls, dyn, geom, h1, u1, v1, stream);
+  return shard_step<float>(ptrs, ints, dbls, geom, h1, u1, v1, stream);
 }
 
 extern "C" int beom_shard_step_f64(const void* const* ptrs, const int* ints,
-                                   const double* dbls,
-                                   const void* const* dyn, const int* geom,
+                                   const double* dbls, const int* geom,
                                    void* h1, void* u1, void* v1,
                                    void* stream) {
-  return shard_step<double>(ptrs, ints, dbls, dyn, geom, h1, u1, v1, stream);
+  return shard_step<double>(ptrs, ints, dbls, geom, h1, u1, v1, stream);
 }
 
-// the halo of a shard's padded statics, for the wrapper
-extern "C" int beom_shard_halo() { return W; }
+// the halo a launch reads around a tile: KB W
+extern "C" int beom_shard_halo() { return KB * W; }
 
-// dynamic shared memory of one CTA, for the wrapper's choice of tile
+// dynamic shared memory of one CTA of the build's kernel, for the
+// wrapper's plan
 extern "C" int beom_smem_bytes(int which, int is_f64) {
-  return is_f64 ? smem_bytes<double>() : smem_bytes<float>();
+  return kernel_smem(is_f64);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

@@ -4,11 +4,13 @@
 // shards of a device mesh (shard_split.cu, K7 around the split body); and
 // the tail of K1s's route 2 (namespace tail: the subcycle, the
 // recomposition and finalize in one launch, after the slow phase writes
-// only its tendencies).  Each of the three takes a source (shard_addr.cuh:
-// where the tile's haloed points come from) and an Out (which interior
-// points are written, and where); the arithmetic is the same for both, so
-// a shard's result equals the single-device kernel's on the same points
-// bit for bit.  split_step.cu says why two routes.
+// only its tendencies; on the shards too).  Each of the three takes a
+// source (shard_addr.cuh: where the tile's haloed points come from) and an
+// Out (which interior points are written, and where), the tail reads
+// through a block's row and column offsets of either layout; the
+// arithmetic is the same for both, so a shard's result equals the
+// single-device kernel's on the same points bit for bit.  split_step.cu
+// says why two routes.
 
 #pragma once
 
@@ -532,11 +534,15 @@ struct RowColStat {
   }
 };
 
-template <typename T>
-__device__ __forceinline__ void run(const Params<T>& p,
-                                    const Ptrs<T, N_TEND>& tend, const Out& o,
-                                    T* out_h, T* out_u, T* out_v, T dte,
-                                    T inv_nsub) {
+// The tile at o, whose first point in the grid is (gy0, gx0).  With SH
+// every operand is stacked over the shards of a mesh (shard_addr.cuh:
+// Stack), and o is the tile in its shard's block.
+template <typename T, bool SH>
+__device__ __forceinline__ void run_at(const Params<T>& p,
+                                       const Ptrs<T, N_TEND>& tend,
+                                       const Out& o, T* out_h, T* out_u,
+                                       T* out_v, T dte, T inv_nsub, int gy0,
+                                       int gx0, const Stack& m) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
@@ -559,8 +565,14 @@ __device__ __forceinline__ void run(const Params<T>& p,
   const int x = tid % RX;
   const int y0 = (tid / RX) * QP;        // the strip's first row
   const int s0 = y0 * RX + x;            // its first point; row r at s0 + r RX
-  for (int r = tid; r <= RY; r += QT) roff[r] = wrap(o.y0 - HALO + r, p.ny) * p.nx;
-  for (int c = tid; c <= RX; c += QT) coff[c] = wrap(o.x0 - HALO + c, p.nx);
+  for (int r = tid; r <= RY; r += QT) {
+    const int gy = wrap(gy0 - HALO + r, p.ny);
+    roff[r] = SH ? m.row(gy) : gy * p.nx;
+  }
+  for (int c = tid; c <= RX; c += QT) {
+    const int gx = wrap(gx0 - HALO + c, p.nx);
+    coff[c] = SH ? m.col(gx) : gx;
+  }
   __syncthreads();
   const T* hin = p.in[I_H];
   const T* uin = p.in[I_U];
@@ -772,6 +784,16 @@ __device__ __forceinline__ void run(const Params<T>& p,
       out_v[k * o.plane + go] = vo[k];
     }
   }
+}
+
+// the tile at o of one device's grid
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p,
+                                    const Ptrs<T, N_TEND>& tend, const Out& o,
+                                    T* out_h, T* out_u, T* out_v, T dte,
+                                    T inv_nsub) {
+  run_at<T, false>(p, tend, o, out_h, out_u, out_v, dte, inv_nsub, o.y0,
+                   o.x0, Stack{});
 }
 
 }  // namespace tail

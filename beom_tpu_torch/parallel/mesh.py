@@ -3,10 +3,10 @@
 The model is the reference's: one controlling process and a mesh of
 NY x NX shards with axes ('y', 'x') matching the grid axes.  Fields
 (.., ny, nx) are cut into local blocks (.., ny / NY, nx / NX); layers
-always stay local.  Each shard has a `torch.device` and, on CUDA, a
-stream of its own.  Several shards may share one device: `make_mesh(2, 4,
-devices=[dev])` is the counterpart of the reference's virtual devices,
-and how the CPU tests and a one-card run drive an eight-shard mesh.
+always stay local.  Each shard has a `torch.device`.  Several shards may
+share one device: `make_mesh(2, 4, devices=[dev])` is the counterpart of
+the reference's virtual devices, and how the CPU tests and a one-card run
+drive an eight-shard mesh.
 
 A sharded field is the mesh's list of local blocks, in row-major order of
 the mesh, held in a `Sharded`.  `Sharded` maps every torch function,
@@ -19,7 +19,6 @@ collectives of parallel/halo.py, which are functions over the list.
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Optional, Sequence
 
 import torch
@@ -42,23 +41,16 @@ class Mesh:
         self.shape = {"y": mesh_y, "x": mesh_x}
         self.devices = [_with_index(torch.device(d)) for d in devices]
         self.n = mesh_y * mesh_x
-        self._streams = None
-
-    @property
-    def streams(self):
-        """One CUDA stream per shard, made at first use."""
-        if self._streams is None:
-            self._streams = [torch.cuda.Stream(device=d)
-                             for d in self.devices]
-        return self._streams
+        self._one_device = len(set(self.devices)) == 1
 
     def single_device(self, what: str) -> torch.device:
-        """The one device that holds every shard.  The kernels that read
-        the neighbour shards' blocks through raw pointers (the shard step,
-        the halo pad) need it: between several cards they would need peer
-        access, which comes with the multi-process bootstrap (ROADMAP
-        queue 1 item 14c)."""
-        if len(set(self.devices)) != 1:
+        """The one device that holds every shard.  The kernels that run
+        one launch for every shard of a card and read the neighbour
+        shards' blocks (the shard step, the halo pad) need it: between
+        several cards they would need a launch per card and peer access,
+        which come with the multi-process bootstrap (ROADMAP queue 1 item
+        14c)."""
+        if not self._one_device:
             raise NotImplementedError(
                 f"{what} takes a mesh whose shards lie on one device, not "
                 f"on {sorted(set(map(str, self.devices)))}: a mesh over "
@@ -76,13 +68,6 @@ class Mesh:
     def neighbour(self, s: int, dj: int, di: int) -> int:
         j, i = self.coords(s)
         return self.index(j + dj, i + di)
-
-    @functools.cached_property
-    def neighbourhoods(self):
-        """Per shard, the shards of its 3 x 3 neighbourhood, row-major from
-        (-1, -1), wrapping around the mesh."""
-        return [[self.neighbour(s, dj, di) for dj in (-1, 0, 1)
-                 for di in (-1, 0, 1)] for s in range(self.n)]
 
     def shift(self, a: "Sharded", axis_name: str, step: int) -> "Sharded":
         """The ring permutation along a mesh axis: the block of shard c

@@ -120,3 +120,16 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.beom_cuda_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def on_device(dev):
+    """A context in which the CUDA device `dev` is current, entered only
+    where it is not: a launch goes to the current device and takes dev's
+    stream, so a kernel of a mesh on another card needs the switch."""
+    import contextlib
+
+    import torch
+
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)

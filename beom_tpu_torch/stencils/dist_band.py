@@ -8,52 +8,54 @@ _dist_band_kernel with the bodies it runs in beom_tpu/parallel/dist.py:
 `csrc/shard_split.cu` its split body, `csrc/shard_projection.cu` body_a
 and body_b of make_dist_pallas_projection_stepper.  Each computes on every
 shard's local block (nz, ly, lx) what the single-device kernel computes on
-the grid (K1; K1s's slow phase, subcycle and recomposition; K3a, K3b),
-with the same stage code (`csrc/fb_step_body.cuh`, `split_body.cuh`,
+the grid (K1's step or pass; K1s's two or three kernels; K3a, K3b), with
+the same stage code (`csrc/fb_step_body.cuh`, `split_body.cuh`,
 `projection_body.cuh`), so a shard's result equals the single-device
-kernel's bit for bit.  A halo point beyond the block's edge is the
-neighbour shard's, read from its block through its pointer (the periodic
-wrap where a mesh axis has one shard); the statics are padded once at
-setup with the widest halo the scheme's kernels read, so the boundary
-maps, the sponge and the tides keep their global positions
-(`csrc/shard_addr.cuh`).  They are bounded by device-memory bytes.
+kernel's bit for bit.
 
-  fb     a step is one kernel, halo W = 4 (5 under wet/dry);
-  split  a step is three kernels: the slow phase (halo 2) writes the
-         SlowPhase fields (4 nz + 9 planes), the subcycle (halo nsub) reads
-         the neighbours' and writes five 2-D fields, the recomposition
-         (halo 2, 3 under wet/dry) reads the neighbours' h, SlowPhase and
-         subcycle fields; the statics are padded by the widest,
-         max(2, nsub, 3 under wet/dry);
-  fb and split kernels are two launches per shard on the shard's stream:
-         interior  the tiles whose haloed block lies inside the shard's own
-                   block: they depend on nothing remote and start at once;
-         edge      the frame of tiles around them, which read the
-                   neighbours' blocks, ordered by CUDA events after the
-                   neighbours' previous kernel (the next step's slow phase
-                   after their recomposition);
-  rigid_lid / implicit_fs  phase A (halo 4) and phase B (halo 1 to 3) on the
-         shards around the mesh's elliptic solve (parallel/dist.py's
-         _dist_solve, eager over the shards), one launch per shard and
-         phase: `shard_proj_a` says why no split is needed.
+Every shard of the mesh lies on one card, so there is no remote transfer
+to overlap: each kernel is one launch over the tiles of every shard, on
+the device's current stream, which orders a kernel after the previous one
+of its neighbours.  Every operand is one allocation of (L, S, ly, lx): layer
+k of shard s = j mx + i is the block s of the grid's plane k (`stack`), so
+the layer stride is the grid's and a point's offset is a row term plus a
+column term, whichever shard holds it (csrc/shard_addr.cuh: Stack).  The
+statics are stacked once per MeshKernels, the sharded fields a kernel
+returns are views of its stacked outputs, and fields that are not yet
+stacked are copied once into the layout.  A MeshKernels keeps what a
+launch does not change: the builds, the operand table of the statics, the
+scalar slots and the geometry.
 
-The kernels read the neighbours' blocks through raw pointers, so every
+  fb     a pass of k steps is `mesh_plan`'s launches: kb steps per launch
+         (the pass kernel, fused_fb.plan's kb, at most what a block's
+         neighbours hold: kb W <= ly, lx), the single-step kernel at kb = 1;
+  split  a step is fused_fb.split_plan's route: route 2, the slow phase's
+         tendencies then the tail (halo nsub + LO + E); route 3, the slow
+         phase, the subcycle and the recomposition;
+  rigid_lid / implicit_fs  phase A and phase B, each the kernel
+         fused_projection.plan takes on one device: the staged kernel at
+         its geometry, or the single-step one where no staged geometry
+         fits a CTA; around the mesh's elliptic solve (parallel/dist.py's
+         solve_pressure, eager over the shards).
+
+The kernels read every shard's block through the stacked layout, so every
 shard must lie on one CUDA device: a mesh over several devices raises
-(peer access between cards comes with the multi-process bootstrap).  No
-kernel waits on a flag written by another kernel.  Every kernel writes
-fresh tensors, all of a pass are kept until the pass ends, and the pass
-ends by joining the shards' streams into the current stream, so outside a
-pass the tensors follow PyTorch's usual stream rules.
+(one launch per device for the shards it holds, with peer access between
+cards, comes with the multi-process bootstrap).
 
-Each wrapper runs its kernel on CUDA blocks and its plain version (pad2d by
-the kernel's halo, the eager function on the padded blocks, crop2d) on CPU
-blocks; it never falls back from one to the other.
+Each wrapper runs its kernel on CUDA blocks, through the MeshKernels it is
+given (the fused mesh steppers launch through the same wrappers), and its
+plain version (pad2d by the kernel's halo, the eager function on the
+padded blocks, crop2d) on CPU blocks; it never falls back from one to the
+other.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -63,21 +65,27 @@ from beom_tpu_torch.core.state import State, advance_time
 from beom_tpu_torch.parallel import halo
 from beom_tpu_torch.parallel.mesh import Mesh, Sharded
 from beom_tpu_torch.physics import drag
-from beom_tpu_torch.stencils import fused_fb, fused_projection
+from beom_tpu_torch.stencils import build, fused_fb, fused_projection
 from beom_tpu_torch.stepping import fb as fb_mod
 from beom_tpu_torch.stepping import projection
 from beom_tpu_torch.stepping import split as split_mod
 
-# kernel launches by kind: the fb step's interior and edge launches, and
-# per kernel of the split step and the projection phases (interior and
-# edge together); a run reads them to show that its main path went through
-# the kernels
-LAUNCHES = {"interior": 0, "edge": 0, "split_slow": 0, "split_subcycle": 0,
-            "split_recompose": 0, "proj_a": 0, "proj_b": 0}
+# kernel launches, one per kernel for every shard of the device: the fb
+# launches (fb_pass those of the pass kernel among them), the split step's
+# kernels and the projection phases; a run reads them to show that its
+# main path went through the kernels
+LAUNCHES = {"fb": 0, "fb_pass": 0, "split_slow": 0, "split_subcycle": 0,
+            "split_recompose": 0, "split_tend": 0, "split_tail": 0,
+            "proj_a": 0, "proj_b": 0}
 
 _PROJECTION = ("rigid_lid", "implicit_fs")
 # the split kernels in the order of csrc/shard_split.cu's beom_smem_bytes
-_SPLIT = ("slow", "recompose", "subcycle")
+_SPLIT = ("slow", "recompose", "subcycle", "tail")
+# the phase kernels in the order of csrc/shard_projection.cu's: the
+# single-step ones, then the staged ones
+_PHASES = fused_projection._KERNELS + fused_projection._STAGED
+# the LAUNCHES kind of an entry point whose name is not its kind
+_KIND = {"step": "fb", "proj_as": "proj_a", "proj_bs": "proj_b"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -91,32 +99,21 @@ def check_config(cfg: Config) -> None:
 
 
 def kernel_halos(cfg: Config) -> dict:
-    """The halo each kernel of the scheme reads around a tile."""
+    """The halo each kernel of the scheme reads around a tile (the fb pass
+    kernel of kb steps reads kb times "fb")."""
     lo = 2 if cfg.wetdry else 1
     if cfg.scheme == "split":
-        return {"slow": 2, "subcycle": cfg.nsub, "recompose": lo + 1}
+        return {"slow": 2, "subcycle": cfg.nsub, "recompose": lo + 1,
+                "tail": fused_fb.tail_halo(cfg)}
     if cfg.scheme in _PROJECTION:
-        return {"proj_a": 4,
-                "proj_b": lo + 1 if (cfg.wetdry or cfg.obc) else 1}
+        return {"proj_a": 4, "proj_b": fused_projection.halo_b(cfg)}
     return {"fb": lo + 3}
 
 
 def shard_halo(cfg: Config) -> int:
-    """The halo the statics are padded to: the widest the scheme's
-    kernels read."""
+    """The halo the plain versions' statics are padded to, and the least a
+    shard's block must hold: the widest a kernel of the scheme reads."""
     return max(kernel_halos(cfg).values())
-
-
-def build_spec(cfg: Config, dtype=None):
-    """(source, defines) of the build that runs cfg on shards:
-    csrc/shard_step.cu, shard_split.cu or shard_projection.cu with the
-    switches and the tiles of the single-device kernels."""
-    check_config(cfg)
-    if cfg.scheme in _PROJECTION:
-        return "shard_projection", fused_projection.build_spec(cfg, dtype)[1]
-    _, defines = fused_fb.build_spec(cfg, dtype)
-    return ("shard_split" if cfg.scheme == "split" else "shard_step"), \
-        defines
 
 
 def pad_statics(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh):
@@ -230,371 +227,708 @@ def proj_b_plain(h, u_s, v_s, p, pstatics, t, cfg: Config):
     return tuple(halo.crop2d(a, w) for a in out)
 
 
-# ---------------------------------------------------------------- kernels
+def split_tend_plain(h, u, v, pstatics, cfg: Config):
+    """The slow phase's layer tendencies of the two-launch split step on
+    the shards: pad2d by its halo, split.slow_tendencies, crop2d.  Returns
+    (du_s, dv_s)."""
+    w = kernel_halos(cfg)["slow"]
+    grid, forcing = _statics_at(pstatics, cfg, w)
+    tend = split_mod.slow_tendencies(State(
+        h=halo.pad2d(h, w), u=halo.pad2d(u, w), v=halo.pad2d(v, w), t=0.0,
+        n=0), grid, forcing, cfg)
+    return [halo.crop2d(a, w) for a in tend]
 
-# the C entries' argument types: the statics table, ints, dbls, the
-# neighbour pointers and geom, then the kernel's own outputs (a pointer
-# table for the slow phase and the subcycle; phase B takes corr first)
-_ARGTYPES = {"fb": [_P] * 9, "slow": [_P] * 7, "subcycle": [_P] * 7,
-             "recompose": [_P] * 9, "proj_a": [_P] * 9,
-             "proj_b": [_P] * 5 + [ctypes.c_double] + [_P] * 4}
+
+def split_tail_plain(tend, h, u, v, pstatics, t, cfg: Config):
+    """The tail of the two-launch split step on the shards from time t:
+    pad2d of h, u, v and the tendencies by the tail's halo (nsub + LO +
+    E), split.depth_means and split.fast_phase on the padded blocks,
+    crop2d.  Returns (h1, u1, v1)."""
+    w = kernel_halos(cfg)["tail"]
+    grid, forcing = _statics_at(pstatics, cfg, w)
+    s = State(h=halo.pad2d(h, w), u=halo.pad2d(u, w), v=halo.pad2d(v, w),
+              t=t, n=0)
+    s = split_mod.fast_phase(
+        split_mod.depth_means(s, *[halo.pad2d(a, w) for a in tend], grid,
+                              cfg), s, grid, forcing, cfg)
+    return tuple(halo.crop2d(a, w) for a in (s.h, s.u, s.v))
+
+
+# ---------------------------------------------------------------- layout
+
+def stack(a: Sharded) -> torch.Tensor:
+    """The allocation (L.., S, ly, lx) whose slice s along axis -3 is
+    shard s's block of a: the one a's blocks are views of (no copy), else a
+    stacked copy of them."""
+    blocks = a.blocks
+    base = a.__dict__.get("stacked")
+    if base is not None:
+        # unstack's field: its blocks are still the slices of `base`
+        p, step = base.data_ptr(), base.stride(-3) * base.element_size()
+        if [b.data_ptr() for b in blocks] \
+                == list(range(p, p + base.shape[-3] * step, step)):
+            return base
+    b0 = blocks[0]
+    lead, (ly, lx) = tuple(b0.shape[:-2]), tuple(b0.shape[-2:])
+    n, plane = len(blocks), ly * lx
+    want = (n * plane,) * len(lead) + (lx, 1)
+    store = b0.untyped_storage().data_ptr()
+    if all(b.shape == b0.shape and b.dtype == b0.dtype
+           and b.device == b0.device and tuple(b.stride()) == want
+           and b.untyped_storage().data_ptr() == store
+           and b.storage_offset() == b0.storage_offset() + s * plane
+           for s, b in enumerate(blocks)):
+        return b0.as_strided(lead + (n, ly, lx), want[:-2] + (plane, lx, 1),
+                             b0.storage_offset())
+    return torch.stack(blocks, dim=-3)
+
+
+def unstack(a: torch.Tensor, mesh: Mesh) -> Sharded:
+    """The sharded field whose blocks are the slices of the stacked a (kept
+    as its `stacked`, which stack returns without a search)."""
+    if a.shape[-3] != mesh.n:
+        raise ValueError(f"a stacked field of {a.shape[-3]} blocks on a mesh "
+                         f"of {mesh.n} shards")
+    out = Sharded(a.unbind(-3), mesh)
+    out.stacked = a
+    return out
+
+
+def stack_global(a: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A global field (.., ny, nx) in the stacked layout (.., S, ly, lx)."""
+    NY, NX = mesh.shape["y"], mesh.shape["x"]
+    lead, (ny, nx) = tuple(a.shape[:-2]), tuple(a.shape[-2:])
+    ly, lx = ny // NY, nx // NX
+    return a.reshape(lead + (NY, ly, NX, lx)).transpose(-3, -2) \
+        .reshape(lead + (NY * NX, ly, lx)).contiguous()
+
+
+def stack_offsets(gy, gx, ly: int, lx: int, mx: int):
+    """The row and column terms of the stacked offsets of grid rows gy and
+    columns gx (in [0, ny), [0, nx)) in one plane: csrc/shard_addr.cuh's
+    Stack::row and Stack::col."""
+    J, I = gy // ly, gx // lx
+    plane = ly * lx
+    return J * mx * plane + (gy - J * ly) * lx, I * plane + (gx - I * lx)
+
+
+def stack_statics(grid: Grid, forcing: Forcing, mesh: Mesh):
+    """(grid, forcing) of the whole grid with every field stacked."""
+    def put(tree):
+        return type(tree)(**{
+            f.name: stack_global(getattr(tree, f.name), mesh)
+            for f in dataclasses.fields(tree)})
+    return put(grid), put(forcing)
+
+
+def _launch_tiled(fn, fields, statics, cfg: Config, mesh: Mesh, tile, halo,
+                  ring: bool = False, dmask: bool = False):
+    """A mesh-wide launch's schedule on the host, for the tests: for every
+    shard and each of its tiles of tile = (tx, ty) points (ShardTile's
+    order; ragged last tiles where they do not divide the block), the
+    haloed block, halo = (lo_y, hi_y, lo_x, hi_x) points around the tile,
+    gathered from the stacked fields and statics through the row and column
+    tables (stack_offsets; ring: in a ring of NaN that stands for whatever
+    lies past a CTA's block, the staggered masks rebuilt from the block's
+    mask where dmask); fn(block fields, block statics, block cfg) on it as
+    a grid of its own; the tile's interior points of each result written
+    into stacked outputs at the tile's place in its shard's block."""
+    NY, NX = mesh.shape["y"], mesh.shape["x"]
+    ny, nx = cfg.ny, cfg.nx
+    ly, lx = ny // NY, nx // NX
+    tx, ty = tile
+    lo_y, hi_y, lo_x, hi_x = halo
+    dev = fields[0].device
+    e = int(ring)
+
+    def cut(a, idx):
+        b = a.reshape(tuple(a.shape[:-3]) + (-1,))[..., idx]
+        if ring:
+            b = torch.nn.functional.pad(b, (1, 1, 1, 1), value=float("nan"))
+        return b
+
+    grid, forcing = statics
+    outs = None
+    for s in range(mesh.n):
+        j, i = divmod(s, NX)
+        for y0 in range(0, ly, ty):
+            for x0 in range(0, lx, tx):
+                gy = (j * ly + y0 - lo_y
+                      + torch.arange(ty + lo_y + hi_y, device=dev)) % ny
+                gx = (i * lx + x0 - lo_x
+                      + torch.arange(tx + lo_x + hi_x, device=dev)) % nx
+                roff, coff = stack_offsets(gy, gx, ly, lx, NX)
+                idx = roff[:, None] + coff[None, :]
+                g = {f.name: cut(getattr(grid, f.name), idx)
+                     for f in dataclasses.fields(Grid)}
+                if dmask:
+                    m = g["mask"]
+                    sx, sy = torch.roll(m, -1, -1), torch.roll(m, -1, -2)
+                    g.update(mask_u=m * sx, mask_v=m * sy,
+                             mask_q=m * sx * sy * torch.roll(sy, -1, -1))
+                fo = Forcing(**{f.name: cut(getattr(forcing, f.name), idx)
+                                for f in dataclasses.fields(Forcing)})
+                sub = dataclasses.replace(cfg, ny=idx.shape[0] + 2 * e,
+                                          nx=idx.shape[1] + 2 * e)
+                res = fn([cut(a, idx) for a in fields], (Grid(**g), fo), sub)
+                if outs is None:
+                    outs = [torch.full(tuple(r.shape[:-2]) + (mesh.n, ly, lx),
+                                       float("nan"), dtype=r.dtype,
+                                       device=dev) for r in res]
+                ye, xe = min(ty, ly - y0), min(tx, lx - x0)
+                for o, r in zip(outs, res):
+                    o[..., s, y0:y0 + ye, x0:x0 + xe] = \
+                        r[..., lo_y + e:lo_y + e + ye, lo_x + e:lo_x + e + xe]
+    return outs
+
+
+def fb_launch_tiled(h, u, v, statics, n: int, t, cfg: Config, mesh: Mesh,
+                    kb: int, tile):
+    """The fb pass kernel's launch of kb steps over every shard, on the host
+    (_launch_tiled): kb eager fb steps on each tile's block with a halo of
+    kb W.  h, u, v and statics (stack_statics) stacked; returns the
+    stacked (h, u, v)."""
+    w = kb * fused_fb.halo_width(cfg)
+
+    def fn(f, st, c):
+        s = State(h=f[0], u=f[1], v=f[2], t=t, n=n)
+        for _ in range(kb):
+            s = fb_mod.fb_step(s, *st, c)
+        return s.h, s.u, s.v
+    return _launch_tiled(fn, (h, u, v), statics, cfg, mesh, tile,
+                         (w, w, w, w))
+
+
+def split_launch_tiled(h, u, v, statics, t, cfg: Config, mesh: Mesh,
+                       tile, tail_tile):
+    """Route 2's two launches over every shard, on the host: the slow
+    phase's tendencies on tiles of `tile` (halo 2), then the tail on tiles
+    of `tail_tile` (halo tail_halo, in a ring of NaN): split.depth_means and
+    split.fast_phase on each block.  Stacked in and out; (h, u, v) at
+    t + dt."""
+    def tend(f, st, c):
+        return split_mod.slow_tendencies(
+            State(h=f[0], u=f[1], v=f[2], t=0.0, n=0), *st, c)
+
+    du, dv = _launch_tiled(tend, (h, u, v), statics, cfg, mesh, tile,
+                           (2, 2, 2, 2))
+
+    def tail(f, st, c):
+        s = State(h=f[0], u=f[1], v=f[2], t=t, n=0)
+        s = split_mod.fast_phase(split_mod.depth_means(s, f[3], f[4], st[0],
+                                                       c), s, *st, c)
+        return s.h, s.u, s.v
+
+    w = fused_fb.tail_halo(cfg)
+    return _launch_tiled(tail, (h, u, v, du, dv), statics, cfg, mesh,
+                         tail_tile, (w, w, w, w), ring=True)
+
+
+def proj_a_launch_tiled(h, u, v, statics, n: int, cfg: Config, mesh: Mesh,
+                        tile, dmask: bool, staged: bool = True):
+    """Phase A over every shard, on the host: proj_a_plain on each tile's
+    block; staged, 4 points below and 3 above the tile on both axes, in a
+    ring of NaN; single-step, 4 points around it.  Stacked in and out:
+    (u*, v*, div)."""
+    return _launch_tiled(
+        lambda f, st, c: fused_projection.proj_a_plain(*f, st, n, c),
+        (h, u, v), statics, cfg, mesh, tile,
+        (4, 3, 4, 3) if staged else (4, 4, 4, 4), ring=staged,
+        dmask=dmask and staged)
+
+
+def proj_b_launch_tiled(h, u_s, v_s, p, statics, t, cfg: Config,
+                        mesh: Mesh, tile, dmask: bool, staged: bool = True):
+    """Phase B over every shard, on the host: proj_b_plain on each tile's
+    block, halo_b points around the tile on y and, staged, 4 on x in a ring
+    of NaN; single-step, halo_b on x.  Stacked in and out: (h1, u1,
+    v1)."""
+    w = fused_projection.halo_b(cfg)
+    return _launch_tiled(
+        lambda f, st, c: fused_projection.proj_b_plain(*f, st, t, c),
+        (h, u_s, v_s, p), statics, cfg, mesh, tile,
+        (w, w, 4, 4) if staged else (w, w, w, w), ring=staged,
+        dmask=dmask and staged)
+
+
+# ---------------------------------------------------------------- plan
+
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """How the shard kernels run cfg at `dtype` on a mesh of (ly, lx)
+    blocks: the single-device kernels' plans (fused_fb.plan, split_plan,
+    fused_projection.plan), with the fb pass kernel's steps per launch at
+    most max_kb, the most whose halo kb W a neighbour's block holds."""
+    cfg: Config
+    dtype: torch.dtype
+    ly: int
+    lx: int
+
+    @property
+    def max_kb(self) -> int:
+        return max(1, min(self.ly, self.lx) // fused_fb.halo_width(self.cfg))
+
+    def kb(self, k: int) -> int:
+        """Steps per launch of a pass of k fb steps."""
+        return min(fused_fb.plan(self.cfg, self.dtype, k).kb, self.max_kb)
+
+    def fb_launches(self, k: int) -> list:
+        """Steps of each launch of a pass of k fb steps."""
+        return fused_fb.launch_steps(k, self.kb(k))
+
+    @property
+    def split(self) -> fused_fb.SplitPlan:
+        return fused_fb.split_plan(self.cfg, self.dtype)
+
+    @property
+    def phases(self) -> fused_projection.PhasePlan:
+        return fused_projection.plan(self.cfg, self.dtype)
+
+    def launches(self, k: int = None) -> dict:
+        """Launches of each kind for one call of the stepper (a pass of k
+        steps, default steps_per_pass; one projection step)."""
+        k = k or self.cfg.steps_per_pass
+        if self.cfg.scheme == "fb":
+            m = self.fb_launches(k)
+            return {"fb": len(m), "fb_pass": sum(x > 1 for x in m)}
+        if self.cfg.scheme == "split":
+            if self.split.route == 2:
+                return {"split_tend": k, "split_tail": k}
+            return {f"split_{x}": k for x in ("slow", "subcycle",
+                                              "recompose")}
+        return {"proj_a": 1, "proj_b": 1}
+
+    def describe(self) -> str:
+        lead = f"blocks of {self.ly} x {self.lx}, one launch per kernel " \
+               "for every shard"
+        if self.cfg.scheme == "fb":
+            k = self.cfg.steps_per_pass
+            pl = fused_fb.launch_plan(self.cfg, self.dtype, self.kb(k))
+            return f"{lead}; fb: {pl.describe()}; launches of a {k}-step " \
+                   f"pass: {self.fb_launches(k)}"
+        if self.cfg.scheme == "split":
+            return f"{lead}; split: {self.split.describe()}"
+        return f"{lead}; projection: {self.phases.describe()}"
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(cfg: Config, dtype):
-    """(library, entry points by kernel, tiles by kernel) of cfg's build,
-    built on first use and checked against the wrapper's halos and the
-    single-device kernels' shared memory."""
-    from beom_tpu_torch.stencils import build
-
-    name, defines = build_spec(cfg, dtype)
-    lib = build.load((name, defines))
-    if lib.beom_shard_halo() != shard_halo(cfg):
-        raise RuntimeError(f"{name}: the kernel's halo is not shard_halo's")
-    value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
-    tile = (value["BEOM_TX"], value["BEOM_TY"])
-    elem = torch.empty((), dtype=dtype).element_size()
-    halos = kernel_halos(cfg)
-    if name == "shard_step":
-        symbols, want = {"fb": "shard_step"}, {}
-        tiles = {"fb": tile}
-    elif name == "shard_split":
-        sub_tile = (value["BEOM_SX"], value["BEOM_SY"])
-        symbols = {k: f"shard_split_{k}" for k in _SPLIT}
-        want = fused_fb.smem_bytes(cfg, tile, sub_tile, elem)
-        want = {k: want[f"split_{k}"] for k in _SPLIT}
-        tiles = dict.fromkeys(_SPLIT, tile)
-        tiles["subcycle"] = sub_tile
-    else:
-        symbols = {k: f"shard_{k}" for k in fused_projection._KERNELS}
-        want = fused_projection.smem_bytes(cfg, tile, elem)
-        tiles = dict.fromkeys(fused_projection._KERNELS, tile)
-    entries = {}
-    for i, key in enumerate(symbols):
-        if key in want and (lib.beom_smem_bytes(i, int(elem == 8))
-                            != want[key]
-                            or lib.beom_kernel_halo(i) != halos[key]):
-            raise RuntimeError(f"{symbols[key]}: the kernel's shared memory "
-                               "or halo is not the wrapper's")
-        fn = getattr(lib, f"beom_{symbols[key]}_{fused_fb._SUFFIX[dtype]}")
-        fn.argtypes, fn.restype = _ARGTYPES[key], _I
-        entries[key] = fn
-    return lib, entries, tiles
+def _mesh_plan(cfg: Config, dtype, ly: int, lx: int) -> MeshPlan:
+    return MeshPlan(cfg, dtype, ly, lx)
 
 
-def has_interior(ly: int, lx: int, w: int, tile) -> bool:
-    """Whether a block of (ly, lx) points has a tile whose halo w lies
-    inside it (csrc/shard_addr.cuh's interior rectangle)."""
-    tx, ty = tile
-    return ((lx - w) // tx > (w + tx - 1) // tx
-            and (ly - w) // ty > (w + ty - 1) // ty)
-
-
-def _check_blocks(fields, cfg: Config, mesh: Mesh):
-    """(ly, lx) of the blocks; raise unless each shard holds blocks of
-    cfg's type and shape on its CUDA device and a block holds the widest
-    halo."""
-    h = fields[0]
-    ly, lx = check_mesh(cfg, mesh)
-    if h.dtype not in fused_fb._SUFFIX or h.dtype != cfg.tdtype:
-        raise ValueError(f"shard kernels: dtype {h.dtype} with cfg.dtype "
-                         f"{cfg.dtype}")
-    for s, dev in enumerate(mesh.devices):
-        if dev.type != "cuda":
-            raise NotImplementedError(
-                f"the shard kernels run on cuda or cpu, not {dev.type}")
-        for a in fields:
-            b = a.blocks[s]
-            shape = tuple(a.shape[:-2]) + (ly, lx)
-            if b.device != dev or b.dtype != h.dtype \
-                    or tuple(b.shape) != shape \
-                    or shape[:-2] not in ((), (cfg.nz,)):
-                raise ValueError(
-                    f"shard kernels: shard {s} must hold {h.dtype} blocks "
-                    f"of {(cfg.nz, ly, lx)} or {(ly, lx)} on {dev}, not "
-                    f"{b.dtype} {tuple(b.shape)} on {b.device}")
-    return ly, lx
+def mesh_plan(cfg: Config, dtype, mesh: Mesh) -> MeshPlan:
+    """The MeshPlan of cfg on `mesh` (check_mesh's blocks)."""
+    check_config(cfg)
+    return _mesh_plan(cfg, dtype or cfg.tdtype, *check_mesh(cfg, mesh))
 
 
 def check_mesh(cfg: Config, mesh: Mesh):
     """(ly, lx) of a shard's block; raise if it cannot hold the widest halo
-    the scheme's kernels read (for split, the subcycle's nsub)."""
-    ly, lx = cfg.ny // mesh.shape["y"], cfg.nx // mesh.shape["x"]
+    the scheme's kernels read (for split, the tail's nsub + LO + E)."""
+    NY, NX = mesh.shape["y"], mesh.shape["x"]
+    ly, lx = cfg.ny // NY, cfg.nx // NX
     w = shard_halo(cfg)
     if ly < w or lx < w:
         raise ValueError(
             f"local block of ({ly}, {lx}) points cannot hold the {w}-point "
             f"halo of the {cfg.scheme} shard kernels; use fewer shards or a "
             "larger grid")
+    if ly * NY != cfg.ny or lx * NX != cfg.nx:
+        raise ValueError(f"({cfg.ny}, {cfg.nx}) does not divide over the "
+                         f"({NY}, {NX}) mesh")
     return ly, lx
 
 
-def _static_blocks(pstatics, mesh: Mesh):
-    """Per shard, the padded statics in the order of the operand table,
-    contiguous."""
-    ops = fused_fb._operands(pstatics)
-    return [[a.blocks[s].contiguous() for a in ops] for s in range(mesh.n)]
+# ---------------------------------------------------------------- kernels
+
+def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False):
+    """(source, defines) of a build that runs cfg on shards: csrc/
+    shard_step.cu (the single-step kernel, or at kb > 1 the pass kernel of
+    kb steps), shard_split.cu or shard_projection.cu, with the switches,
+    tiles and geometries of the single-device kernels' builds (dmask: the
+    staged phases rebuild the staggered masks)."""
+    check_config(cfg)
+    if cfg.scheme in _PROJECTION:
+        return "shard_projection", fused_projection.build_spec(
+            cfg, dtype, fused_projection.plan(cfg, dtype), dmask)[1]
+    if cfg.scheme == "split":
+        return "shard_split", fused_fb.build_spec(cfg, dtype)[1]
+    return "shard_step", fused_fb.build_spec(cfg, dtype, kb)[1]
 
 
-class _Pass:
-    """Kernels on the shards' streams of one device, from an event after
-    what the device's current stream holds (the contiguous copies of the
-    inputs included) to the join of the streams into it.  `inputs` are the
-    sharded fields' blocks; every tensor the pass makes is kept until the
-    join."""
-
-    def __init__(self, fields):
-        self.mesh = mesh = fields[0].mesh
-        self.dev = mesh.single_device("the shard kernels")
-        self.streams = mesh.streams
-        self.raw = [st.cuda_stream for st in self.streams]
-        with torch.cuda.device(self.dev):
-            self.inputs = [[b.contiguous() for b in a.blocks]
-                           for a in fields]
-            start = torch.cuda.current_stream(self.dev).record_event()
-        for st in self.streams:
-            st.wait_event(start)
-        self.done = None
-        self.keep = [self.inputs]
-
-    def empty(self, like, n: int):
-        """n fresh per-shard blocks shaped as the blocks `like`."""
-        out = [[torch.empty_like(b) for b in like] for _ in range(n)]
-        self.keep.append(out)
-        return out
-
-    def tables(self, fields):
-        """Per shard, the 3 x 3 neighbourhood pointers of each field (a
-        list of per-shard blocks), field-major."""
-        ptr = [[b.data_ptr() for b in f] for f in fields]
-        return [fused_fb._array(_P, [p[nb] for p in ptr
-                                     for nb in self.mesh.neighbourhoods[s]])
-                for s in range(self.mesh.n)]
-
-    def phase(self, launch, interior: bool):
-        """One kernel on every shard: launch(s, part).  With `interior`,
-        the interior tiles (part 0) at once on each shard's stream, then
-        the frame (part 1); without, every tile (part 2).  The frame or the
-        whole launch waits on the neighbours' previous kernel of the
-        pass."""
-        mesh = self.mesh
-        if interior:
-            for s in range(mesh.n):
-                launch(s, 0)
-        done = []
-        for s in range(mesh.n):
-            if self.done is not None:
-                for nb in set(mesh.neighbourhoods[s]) - {s}:
-                    self.streams[s].wait_event(self.done[nb])
-            launch(s, 1 if interior else 2)
-            done.append(self.streams[s].record_event())
-        self.done = done
-
-    def join(self):
-        cur = torch.cuda.current_stream(self.dev)
-        for ev in self.done:
-            cur.wait_event(ev)
+def build_specs(cfg: Config, dtype, mesh: Mesh, dmask: bool = False) -> set:
+    """Every build a stepper of cfg on `mesh` launches (its passes of
+    steps_per_pass steps and, for run()'s remainder, of one)."""
+    if cfg.scheme != "fb":
+        return {build_spec(cfg, dtype, dmask=dmask)}
+    pl = mesh_plan(cfg, dtype, mesh)
+    steps = set(pl.fb_launches(cfg.steps_per_pass)) | {1}
+    return {build_spec(cfg, dtype, m) for m in steps}
 
 
-class _Shards:
-    """What the kernels of one call share: the entry points, the statics'
-    tables and the block geometry."""
+def _want_smem(cfg: Config, name: str, defines, elem: int, kb: int):
+    """Shared memory per CTA of each kernel of a build, by the index of its
+    beom_smem_bytes: the single-device kernels' counts."""
+    value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
+    tile = (value["BEOM_TX"], value["BEOM_TY"])
+    if name == "shard_step":
+        if kb > 1:
+            return [fused_fb.pass_smem(cfg, kb, tile, elem)]
+        return [fused_fb.smem_bytes(cfg, tile, tile, elem)["fb_step"]]
+    if name == "shard_split":
+        want = fused_fb.smem_bytes(
+            cfg, tile, (value["BEOM_SX"], value["BEOM_SY"]), elem,
+            (value["BEOM_QX"], value["BEOM_QS"], value["BEOM_QP"]))
+        return [want[f"split_{k}"] for k in _SPLIT]
+    geo = fused_projection.Geometry
+    want = fused_projection.smem_bytes(cfg, tile, elem)
+    want.update(fused_projection.staged_smem(
+        cfg, geo(value["BEOM_ATX"], value["BEOM_ATY"], value["BEOM_ANT"]),
+        geo(value["BEOM_BTX"], value["BEOM_BTY"], value["BEOM_BNT"]), elem))
+    return [want[k] for k in _PHASES]
 
-    def __init__(self, fields, pstatics, cfg: Config, static_blocks=None):
+
+# each entry's argument types: the operand table, ints, dbls, geom, then
+# its own (csrc/shard_*.cu)
+_ARGTYPES = {
+    "step": [_P] * 8,
+    "split_slow": [_P] * 6, "split_tend": [_P] * 6,
+    "split_subcycle": [_P] * 7, "split_recompose": [_P] * 10,
+    "split_tail": [_P] * 9,
+    "proj_a": [_P] * 8, "proj_as": [_P] * 8,
+    "proj_b": [_P] * 5 + [ctypes.c_double] + [_P] * 4,
+    "proj_bs": [_P] * 5 + [ctypes.c_double] + [_P] * 4}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False):
+    """(library, entry points by kernel) of the build that runs cfg (the fb
+    pass kernel of kb steps), built on first use and checked against the
+    single-device kernels' shared memory and the wrapper's halos."""
+    name, defines = build_spec(cfg, dtype, kb, dmask)
+    lib = build.load((name, defines))
+    elem = torch.empty((), dtype=dtype).element_size()
+    for i, want in enumerate(_want_smem(cfg, name, defines, elem, kb)):
+        have = lib.beom_smem_bytes(i, int(elem == 8))
+        if have != want:
+            raise RuntimeError(f"{name}: kernel {i}'s shared memory ({have} "
+                               f"bytes) is not the single-device kernel's "
+                               f"({want})")
+    halos = kernel_halos(cfg)
+    if name == "shard_step":
+        keys, ok = ("step",), lib.beom_shard_halo() == kb * halos["fb"]
+    elif name == "shard_split":
+        keys = tuple(f"split_{k}" for k in ("slow", "tend", "subcycle",
+                                             "recompose", "tail"))
+        ok = all(lib.beom_kernel_halo(i) == halos[k]
+                 for i, k in enumerate(_SPLIT))
+    else:
+        keys = _PHASES
+        ok = all(lib.beom_kernel_halo(i) == halos[k]
+                 for i, k in enumerate(("proj_a", "proj_b")))
+    if not ok:
+        raise RuntimeError(f"{name}: the kernels' halos are not the "
+                           "wrapper's")
+    fns = {}
+    for key in keys:
+        sym = {"step": "shard_step"}.get(key, f"shard_{key}")
+        fn = getattr(lib, f"beom_{sym}_{fused_fb._SUFFIX[dtype]}")
+        fn.argtypes, fn.restype = _ARGTYPES[key], _I
+        fns[key] = fn
+    return lib, fns
+
+
+def _global_masks(statics) -> bool:
+    """fused_projection.derived_masks of the whole grid's masks."""
+    from beom_tpu_torch.parallel.mesh import gather
+
+    grid = statics[0]
+    return fused_projection.derived_masks(Grid(**{
+        f.name: gather(getattr(grid, f.name))
+        for f in dataclasses.fields(Grid)}))
+
+
+class MeshKernels:
+    """The shard kernels of cfg on the shards of `mesh`, which lie on one
+    CUDA device: each kernel one launch for every shard, on the device's
+    current stream.  `statics` is (grid, forcing) of the whole grid, or of
+    the shards (unpadded sharded fields); they are stacked once, with the
+    operand table and scalar slots (fused_fb.Operands) and the geometry.
+    Every field a method takes or returns is stacked (`stack`)."""
+
+    def __init__(self, statics, cfg: Config, mesh: Mesh, dtype=None):
         check_config(cfg)
-        mesh = fields[0].mesh
-        self.ly, self.lx = _check_blocks(fields, cfg, mesh)
-        self.lib, self.fn, self.tiles = _entry(cfg, fields[0].dtype)
-        statics = static_blocks or _static_blocks(pstatics, mesh)
-        self.statics = statics
-        self.tables = [fused_fb._pointers([st[0]] * 3 + st)
-                       for st in statics]
-        self.geom = {p: fused_fb._array(_I, [self.ly, self.lx, p])
-                     for p in (0, 1, 2)}
-        self.pad = shard_halo(cfg)
-        self.halos = kernel_halos(cfg)
-        self.cfg = cfg
+        self.cfg, self.mesh = cfg, mesh
+        self.dev = mesh.single_device("the shard kernels")
+        if self.dev.type != "cuda":
+            raise NotImplementedError(
+                f"the shard kernels run on cuda or cpu, not {self.dev.type}")
+        self.dtype = dtype or cfg.tdtype
+        if self.dtype not in fused_fb._SUFFIX or self.dtype != cfg.tdtype:
+            raise ValueError(f"shard kernels: dtype {self.dtype} with "
+                             f"cfg.dtype {cfg.dtype}")
+        self.plan = mesh_plan(cfg, self.dtype, mesh)
+        self.ly, self.lx = self.plan.ly, self.plan.lx
+        self.dmask = cfg.scheme in _PROJECTION and _global_masks(statics)
+        with torch.cuda.device(self.dev):
+            self.ops = [stack_global(a, mesh) if isinstance(a, torch.Tensor)
+                        else stack(a) for a in fused_fb._operands(statics)]
+        for a in self.ops:
+            self._check("a static", a, a.shape[:-3])
+        self._ops = fused_fb.Operands(self.ops, cfg)
+        self.geom = (_I * 4)(self.ly, self.lx, mesh.shape["y"],
+                             mesh.shape["x"])
+        self._fn = {}
 
-    def scalars(self, parity: int, t1):
-        return fused_fb._scalars(self.cfg, parity, t1,
-                                 ny=self.ly + 2 * self.pad,
-                                 nx=self.lx + 2 * self.pad)
+    def _check(self, what, a, lead):
+        shape = tuple(lead) + (self.mesh.n, self.ly, self.lx)
+        if a.device != self.dev or a.dtype != self.dtype \
+                or not a.is_contiguous() or tuple(a.shape) != shape:
+            raise ValueError(
+                f"shard kernels: {what} must be a contiguous {self.dtype} "
+                f"tensor of {shape} on {self.dev}, not {a.dtype} "
+                f"{tuple(a.shape)} on {a.device}")
 
-    def interior(self, key: str) -> bool:
-        return has_interior(self.ly, self.lx, self.halos[key],
-                            self.tiles[key])
+    def fns(self, kb: int = 1):
+        """(library, entry points) of the build of kb fb steps per launch
+        (the scheme's build otherwise)."""
+        if kb not in self._fn:
+            self._fn[kb] = _entry(self.cfg, self.dtype, kb, self.dmask)
+        return self._fn[kb]
 
-    def run(self, P: _Pass, key: str, scal, ins, outs, *extra):
-        """Kernel `key` on every shard of the pass: fn(statics table, ints,
-        dbls, neighbour pointers of `ins`, geom, *extra, outputs, stream).
-        ins and outs are lists of per-shard blocks; the slow phase and the
-        subcycle take their outputs as a pointer table."""
-        from beom_tpu_torch.stencils import build
+    def _args(self, parity: int, fields, t1=0.0, ts=()):
+        """The operand table with h, u, v = fields[:3] (stacked, checked)
+        and the scalar slots: (ptrs, ints, dbls)."""
+        nz = (self.cfg.nz,)
+        for name, a in zip(("h", "u", "v"), fields[:3]):
+            self._check(name, a, nz)
+        return self._ops.set(parity, fields, t1, ts)
 
-        fn = self.fn[key]
-        dyn = P.tables(ins)
-        per_shard = list(zip(*outs))
-        if key in ("slow", "subcycle"):
-            out_args = [(fused_fb._pointers(o),) for o in per_shard]
-        else:
-            out_args = [tuple(b.data_ptr() for b in o) for o in per_shard]
-        kind = key if key in ("fb", "proj_a", "proj_b") else f"split_{key}"
+    def _call(self, kb: int, key: str, *args):
+        """Launch entry `key` of the build of kb steps (or the scheme's)
+        and count it under its LAUNCHES kind."""
+        lib, fn = self.fns(kb)
+        code = fn[key](*args,
+                       torch.cuda.current_stream(self.dev).cuda_stream)
+        if code:
+            build.check(lib, code, f"shard {key} kernel launch")
+        LAUNCHES[_KIND.get(key, key)] += 1
 
-        def launch(s, part):
-            code = fn(self.tables[s], scal[0], scal[1], dyn[s],
-                      self.geom[part], *extra, *out_args[s], P.raw[s])
-            if code:
-                build.check(self.lib, code, f"shard {kind} kernel launch")
-            if key == "fb":
-                LAUNCHES["edge" if part else "interior"] += 1
+    def _planes(self, n: int, lead=()):
+        return [torch.empty(tuple(lead) + (self.mesh.n, self.ly, self.lx),
+                            dtype=self.dtype, device=self.dev)
+                for _ in range(n)]
+
+    def fb(self, h, u, v, n: int, t, k: int, kb: int = None):
+        """k fb steps from step n at time t: the plan's launches (kb steps
+        per launch where given)."""
+        steps = fused_fb.launch_steps(k, kb) if kb else \
+            self.plan.fb_launches(k)
+        for m in steps:
+            ts = fused_fb._times(t, self.cfg, m)
+            outs = [torch.empty_like(a) for a in (h, u, v)]
+            args = self._args(n % 2, (h, u, v), ts[0], ts)
+            self._call(m, "step", *args, self.geom,
+                       *[a.data_ptr() for a in outs])
+            LAUNCHES["fb_pass"] += m > 1
+            h, u, v = outs
+            n, t = n + m, ts[-1]
+        return h, u, v
+
+    def tend(self, h, u, v):
+        """The slow phase's layer tendencies (du_s, dv_s)."""
+        outs = [torch.empty_like(h) for _ in range(2)]
+        self._call(1, "split_tend", *self._args(0, (h, u, v)), self.geom,
+                   fused_fb._pointers(outs))
+        return outs
+
+    def tail(self, tend, h, u, v, t1):
+        """The tail of the two-launch split step: (h, u, v) at t1."""
+        for name, a in zip(("du_s", "dv_s"), tend):
+            self._check(name, a, (self.cfg.nz,))
+        outs = [torch.empty_like(h) for _ in range(3)]
+        self._call(1, "split_tail", *self._args(0, (h, u, v) + tuple(tend),
+                                                t1), self.geom,
+                   fused_fb._pointers(tend), *[a.data_ptr() for a in outs])
+        return outs
+
+    def slow(self, h, u, v):
+        """The slow phase: SlowPhase's 13 fields, cu and cv as the bottom
+        plane."""
+        outs = [torch.empty_like(h) for _ in range(4)] + self._planes(9)
+        self._call(1, "split_slow", *self._args(0, (h, u, v)), self.geom,
+                   fused_fb._pointers(outs))
+        return outs
+
+    def _check_slow(self, slow):
+        nz = (self.cfg.nz,)
+        for i, a in enumerate(slow):
+            self._check(f"slow phase field {i}", a, nz if i < 4 else ())
+
+    def subcycle(self, slow, h, u, v):
+        """(eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg) from slow's 13
+        fields."""
+        self._check_slow(slow)
+        outs = self._planes(5)
+        self._call(1, "split_subcycle", *self._args(0, (h, u, v)),
+                   self.geom, fused_fb._pointers(slow),
+                   fused_fb._pointers(outs))
+        return outs
+
+    def recompose(self, slow, sub, h, u, v, t1):
+        """The recomposition and fb.finalize: (h, u, v) at t1."""
+        self._check_slow(slow)
+        for i, a in enumerate(sub):
+            self._check(f"subcycle field {i}", a, ())
+        outs = [torch.empty_like(h) for _ in range(3)]
+        self._call(1, "split_recompose", *self._args(0, (h, u, v), t1),
+                   self.geom, fused_fb._pointers(slow),
+                   fused_fb._pointers(sub), *[a.data_ptr() for a in outs])
+        return outs
+
+    def split(self, h, u, v, t, k: int):
+        """k split steps from time t by the plan's route."""
+        two = self.plan.split.route == 2
+        for _ in range(k):
+            t1 = advance_time(t, self.cfg.dt, self.cfg.npdtype)
+            if two:
+                h, u, v = self.tail(self.tend(h, u, v), h, u, v, t1)
             else:
-                LAUNCHES[kind] += 1
+                slow = self.slow(h, u, v)
+                sub = self.subcycle(slow, h, u, v)
+                h, u, v = self.recompose(slow, sub, h, u, v, t1)
+            t = t1
+        return h, u, v
 
-        P.phase(launch, key not in ("proj_a", "proj_b")
-                and self.interior(key))
+    def step(self, h, u, v, n: int, t, k: int):
+        """k steps of cfg.scheme ('fb' or 'split')."""
+        if self.cfg.scheme == "fb":
+            return self.fb(h, u, v, n, t, k)
+        return self.split(h, u, v, t, k)
+
+    def proj_a(self, h, u, v, n: int):
+        """Phase A of step n: (u*, v*, div)."""
+        us, vs = torch.empty_like(u), torch.empty_like(v)
+        div = self._planes(1)[0]
+        key = "proj_a" if self.plan.phases.a is None else "proj_as"
+        self._call(1, key, *self._args(n % 2, (h, u, v)), self.geom,
+                   us.data_ptr(), vs.data_ptr(), div.data_ptr())
+        return us, vs, div
+
+    def proj_b(self, h, u_s, v_s, p, t):
+        """Phase B of the step from time t: (h1, u1, v1)."""
+        self._check("p", p, ())
+        outs = [torch.empty_like(h) for _ in range(3)]
+        t1 = advance_time(t, self.cfg.dt, self.cfg.npdtype)
+        key = "proj_b" if self.plan.phases.b is None else "proj_bs"
+        self._call(1, key, *self._args(0, (h, u_s, v_s, p), t1),
+                   self.geom, p.data_ptr(), fused_projection._corr(self.cfg),
+                   *[a.data_ptr() for a in outs])
+        return tuple(outs)
 
 
-def _split_slow(S: _Shards, P: _Pass, f):
-    """The slow phase's 13 fields (per-shard blocks) from h, u, v."""
-    slow = P.empty(f[0], 4) + P.empty([b[0] for b in f[0]], 9)
-    S.run(P, "slow", S.scalars(0, 0.0), f, slow)
-    return slow
+def _run(K: Optional[MeshKernels], method: str, *args):
+    """K.method(*args) with K's device current (the launches take its
+    stream); K is the MeshKernels the caller holds for CUDA blocks."""
+    if K is None:
+        raise ValueError("CUDA blocks launch through the MeshKernels of "
+                         "their mesh: pass kernels=MeshKernels(...)")
+    with build.on_device(K.dev):
+        return getattr(K, method)(*args)
 
 
-def _split_subcycle(S: _Shards, P: _Pass, slow):
-    sub = P.empty(slow[-1], 5)
-    S.run(P, "subcycle", S.scalars(0, 0.0), slow, sub)
-    return sub
+# Each wrapper takes `kernels`: None for CPU blocks (the plain version,
+# from pstatics, pad_statics' (grid, forcing)), the MeshKernels of the
+# blocks' mesh for CUDA blocks (the kernels; pstatics is then not read).
 
-
-def _split_recompose(S: _Shards, P: _Pass, slow, sub, h, t1):
-    out = P.empty(h, 3)
-    S.run(P, "recompose", S.scalars(0, t1),
-          [h] + slow + sub, out)
-    return out
-
-
-def _sharded(blocks, mesh):
-    return [Sharded(b, mesh) for b in blocks]
-
-
-def shard_step(h, u, v, pstatics, n: int, t, cfg: Config, k: int,
-               static_blocks=None):
+def shard_step(h, u, v, pstatics, n: int, t, cfg: Config, k: int, *,
+               kernels: Optional[MeshKernels]):
     """Advance the sharded (h, u, v) by k steps of cfg.scheme ('fb' or
-    'split') from step n at time t.
-
-    CPU blocks take the plain version.  CUDA blocks take the kernels: per
-    shard and step two launches of each kernel (one where a block has no
-    interior tile); a configuration the kernels cannot run raises.
-    pstatics is pad_statics' (grid, forcing).
-    """
+    'split') from step n at time t: on CUDA blocks one launch per kernel
+    for every shard (`mesh_plan`)."""
     if h.device.type == "cpu":
         return shard_step_plain(h, u, v, pstatics, n, t, cfg, k)
     if cfg.scheme not in ("fb", "split"):
         raise ValueError("shard_step takes scheme='fb' or 'split'; the "
                          "projection schemes step through "
                          "make_dist_fused_projection_stepper")
-    S = _Shards((h, u, v), pstatics, cfg, static_blocks)
-    P = _Pass((h, u, v))
-    with torch.cuda.device(P.dev):
-        f = P.inputs
-        for i in range(k):
-            t1 = advance_time(t, cfg.dt, cfg.npdtype)
-            if cfg.scheme == "fb":
-                outs = P.empty(f[0], 3)
-                S.run(P, "fb", S.scalars((n + i) % 2, t1), f, outs)
-                f = outs
-            else:
-                slow = _split_slow(S, P, f)
-                sub = _split_subcycle(S, P, slow)
-                f = _split_recompose(S, P, slow, sub, f[0], t1)
-            t = t1
-        P.join()
-    return tuple(_sharded(f, h.mesh))
+    out = _run(kernels, "step", stack(h), stack(u),
+               stack(v), n, t, k)
+    return tuple(unstack(a, h.mesh) for a in out)
 
 
-def shard_split_slow(h, u, v, pstatics, cfg: Config):
+def shard_split_tend(h, u, v, pstatics, cfg: Config, *, kernels):
+    """The slow phase's layer tendencies of the two-launch split step on the
+    shards: (du_s, dv_s)."""
+    if h.device.type == "cpu":
+        return split_tend_plain(h, u, v, pstatics, cfg)
+    out = _run(kernels, "tend", stack(h), stack(u),
+               stack(v))
+    return [unstack(a, h.mesh) for a in out]
+
+
+def shard_split_tail(tend, h, u, v, pstatics, t, cfg: Config, *, kernels):
+    """The tail of the two-launch split step on the shards from time t:
+    (h1, u1, v1)."""
+    if h.device.type == "cpu":
+        return split_tail_plain(tend, h, u, v, pstatics, t, cfg)
+    out = _run(kernels, "tail", [stack(a) for a in tend],
+               stack(h), stack(u), stack(v),
+               advance_time(t, cfg.dt, cfg.npdtype))
+    return tuple(unstack(a, h.mesh) for a in out)
+
+
+def shard_split_slow(h, u, v, pstatics, cfg: Config, *, kernels):
     """The slow phase of the split step on the shards: SlowPhase's 13
-    fields as sharded fields (cu, cv as the bottom plane).  The kernel on
-    CUDA blocks, the plain version on CPU blocks."""
+    fields as sharded fields (cu, cv as the bottom plane)."""
     if h.device.type == "cpu":
         return split_slow_plain(h, u, v, pstatics, cfg)
-    S = _Shards((h, u, v), pstatics, cfg)
-    P = _Pass((h, u, v))
-    with torch.cuda.device(P.dev):
-        slow = _split_slow(S, P, P.inputs)
-        P.join()
-    return _sharded(slow, h.mesh)
+    out = _run(kernels, "slow", stack(h), stack(u),
+               stack(v))
+    return [unstack(a, h.mesh) for a in out]
 
 
-def shard_split_subcycle(slow, pstatics, cfg: Config):
+def shard_split_subcycle(slow, pstatics, cfg: Config, *, kernels):
     """The barotropic subcycle on the shards from the slow phase's 13
     sharded fields: (eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg)."""
     if slow[0].device.type == "cpu":
         return split_subcycle_plain(slow, pstatics, cfg)
-    S = _Shards(slow, pstatics, cfg)
-    P = _Pass(slow)
-    with torch.cuda.device(P.dev):
-        sub = _split_subcycle(S, P, P.inputs)
-        P.join()
-    return _sharded(sub, slow[0].mesh)
+    f = [stack(a) for a in slow]
+    out = _run(kernels, "subcycle", f, f[0], f[0], f[0])
+    return [unstack(a, slow[0].mesh) for a in out]
 
 
-def shard_split_recompose(slow, sub, h, pstatics, t, cfg: Config):
+def shard_split_recompose(slow, sub, h, pstatics, t, cfg: Config, *,
+                          kernels):
     """The recomposition with fb.finalize on the shards, from time t:
     (h1, u1, v1)."""
     if h.device.type == "cpu":
         return split_recompose_plain(slow, sub, h, pstatics, t, cfg)
-    fields = [h] + list(slow) + list(sub)
-    S = _Shards(fields, pstatics, cfg)
-    P = _Pass(fields)
-    with torch.cuda.device(P.dev):
-        f = P.inputs
-        out = _split_recompose(S, P, f[1:14], f[14:], f[0],
-                               advance_time(t, cfg.dt, cfg.npdtype))
-        P.join()
-    return tuple(_sharded(out, h.mesh))
+    hs = stack(h)
+    out = _run(kernels, "recompose",
+               [stack(a) for a in slow], [stack(a) for a in sub], hs, hs, hs,
+               advance_time(t, cfg.dt, cfg.npdtype))
+    return tuple(unstack(a, h.mesh) for a in out)
 
 
-def shard_proj_a(h, u, v, pstatics, n: int, cfg: Config,
-                 static_blocks=None):
-    """Phase A of the projection step n on the shards: (u*, v*, div).
-
-    CUDA blocks take the kernel, one launch per shard over every tile,
-    after one start event.  The interior / edge split of the fb and split
-    kernels buys nothing here: the elliptic solve between the phases joins
-    every shard, and the next step's phase A starts after phase B's join,
-    so no input of either phase is in flight when it launches.
-    """
+def shard_proj_a(h, u, v, pstatics, n: int, cfg: Config, *, kernels):
+    """Phase A of the projection step n on the shards: (u*, v*, div), one
+    launch for every shard on CUDA blocks."""
     if h.device.type == "cpu":
         return proj_a_plain(h, u, v, pstatics, n, cfg)
-    S = _Shards((h, u, v), pstatics, cfg, static_blocks)
-    P = _Pass((h, u, v))
-    with torch.cuda.device(P.dev):
-        f = P.inputs
-        outs = P.empty(f[0], 2) + P.empty([b[0] for b in f[0]], 1)
-        S.run(P, "proj_a", S.scalars(n % 2, 0.0), f, outs)
-        P.join()
-    return tuple(_sharded(outs, h.mesh))
+    out = _run(kernels, "proj_a", stack(h), stack(u),
+               stack(v), n)
+    return tuple(unstack(a, h.mesh) for a in out)
 
 
-def shard_proj_b(h, u_s, v_s, p, pstatics, t, cfg: Config,
-                 static_blocks=None):
+def shard_proj_b(h, u_s, v_s, p, pstatics, t, cfg: Config, *, kernels):
     """Phase B of the projection step from time t on the shards: (h1, u1,
-    v1) after the correction by grad p; one launch per shard, as
-    shard_proj_a."""
+    v1) after the correction by grad p; one launch for every shard."""
     if h.device.type == "cpu":
         return proj_b_plain(h, u_s, v_s, p, pstatics, t, cfg)
-    S = _Shards((h, u_s, v_s, p), pstatics, cfg, static_blocks)
-    P = _Pass((h, u_s, v_s, p))
-    with torch.cuda.device(P.dev):
-        f = P.inputs
-        outs = P.empty(f[0], 3)
-        t1 = advance_time(t, cfg.dt, cfg.npdtype)
-        S.run(P, "proj_b", S.scalars(0, t1), f, outs,
-              fused_projection._corr(cfg))
-        P.join()
-    return tuple(_sharded(outs, h.mesh))
+    out = _run(kernels, "proj_b", stack(h), stack(u_s),
+               stack(v_s), stack(p), t)
+    return tuple(unstack(a, h.mesh) for a in out)
 
 
 def _pass_time(t, cfg: Config, k: int):
@@ -603,23 +937,33 @@ def _pass_time(t, cfg: Config, k: int):
     return t
 
 
+def _held(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh):
+    """What a stepper's wrappers take: (pstatics, None) on CPU shards,
+    (None, MeshKernels) on CUDA shards."""
+    if mesh.devices[0].type == "cpu":
+        return pad_statics(grid, forcing, cfg, mesh), None
+    return None, MeshKernels((grid, forcing), cfg, mesh)
+
+
 def make_dist_fused_stepper(grid: Grid, forcing: Forcing, cfg: Config,
                             mesh: Mesh):
     """step(state) -> state advancing cfg.steps_per_pass fb or split
-    steps of a sharded State through the shard kernels."""
+    steps of a sharded State through shard_step (on CPU shards the plain
+    versions); step.plan is the MeshPlan it launches by, step.kernels its
+    MeshKernels."""
     check_config(cfg)
-    check_mesh(cfg, mesh)
     k = cfg.steps_per_pass
-    pstatics = pad_statics(grid, forcing, cfg, mesh)
-    blocks = None if mesh.devices[0].type == "cpu" \
-        else _static_blocks(pstatics, mesh)
+    plan = mesh_plan(cfg, None, mesh)
+    pstatics, K = _held(grid, forcing, cfg, mesh)
 
     def step(state: State) -> State:
         h, u, v = shard_step(state.h, state.u, state.v, pstatics, state.n,
-                             state.t, cfg, k, static_blocks=blocks)
+                             state.t, cfg, k, kernels=K)
         return State(h=h, u=u, v=v, t=_pass_time(state.t, cfg, k),
                      n=state.n + k)
 
+    step.plan = plan
+    step.kernels = K
     return step
 
 
@@ -635,23 +979,23 @@ def make_dist_fused_projection_stepper(grid: Grid, forcing: Forcing,
     from beom_tpu_torch.stepping import prepare_state
 
     check_config(cfg)
-    check_mesh(cfg, mesh)
-    pstatics = pad_statics(grid, forcing, cfg, mesh)
-    blocks = None if mesh.devices[0].type == "cpu" \
-        else _static_blocks(pstatics, mesh)
+    plan = mesh_plan(cfg, None, mesh)
+    pstatics, K = _held(grid, forcing, cfg, mesh)
     pgrid1, _ = dist.pad_statics(grid, forcing, cfg, mesh, 1)
     grid_l = dist._crop_tree(pgrid1, 1)
 
     def step(state: State) -> State:
         state = prepare_state(state, cfg)
         u_s, v_s, div = shard_proj_a(state.h, state.u, state.v, pstatics,
-                                     state.n, cfg, static_blocks=blocks)
+                                     state.n, cfg, kernels=K)
         with halo.impl(cfg.halo_impl):
             p = dist.solve_pressure(state, div, grid_l, pgrid1, cfg)
         h1, u1, v1 = shard_proj_b(state.h, u_s, v_s, p, pstatics, state.t,
-                                  cfg, static_blocks=blocks)
+                                  cfg, kernels=K)
         out = State(h=h1, u=u1, v=v1, t=_pass_time(state.t, cfg, 1),
                     n=state.n + 1)
         return projection.with_carry(out, state, p)
 
+    step.plan = plan
+    step.kernels = K
     return step

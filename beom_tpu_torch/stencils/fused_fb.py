@@ -555,6 +555,40 @@ def _scalars(cfg: Config, parity: int, t1, ny=None, nx=None, ts=(),
     return _array(_I, ints), _array(ctypes.c_double, dbls)
 
 
+# the double slots of t1 and of an fb pass's step times (csrc/fb_terms.cuh:
+# Dbl::D_T1, D_TS0)
+D_T1 = 12
+D_TS0 = D_T1 + 1 + 2 * _MAX_LAYERS
+
+
+class Operands:
+    """The operand table and scalar slots of a held launch: what a launch
+    does not change is made once (the statics' pointers, whether they all
+    start 16-byte aligned, the scalars of both parities aligned or not),
+    and `set` fills in the rest."""
+
+    def __init__(self, statics: list, cfg: Config):
+        self.ptrs = _array(_P, [0, 0, 0] + [a.data_ptr() for a in statics])
+        self._aligned = all(a.data_ptr() % 16 == 0 for a in statics)
+        self._sc = {(par, al): _scalars(cfg, par, 0.0, aligned=al)
+                    for par in (0, 1) for al in (False, True)}
+
+    def set(self, parity: int, fields, t1=None, ts=()):
+        """(ptrs, ints, dbls) with h, u, v = fields[:3] in the table, the
+        aligned switch over every field, and t1 and the step times in their
+        slots where given."""
+        p = self.ptrs
+        p[0], p[1], p[2] = (a.data_ptr() for a in fields[:3])
+        aligned = self._aligned and all(a.data_ptr() % 16 == 0
+                                        for a in fields)
+        ints, dbls = self._sc[parity, aligned]
+        if t1 is not None:
+            dbls[D_T1] = float(t1)
+        for i, x in enumerate(ts):
+            dbls[D_TS0 + i] = float(x)
+        return p, ints, dbls
+
+
 def _check_operands(h, u, v, statics, cfg: Config, check=None,
                     extent=None):
     """Raise unless every operand is what the kernels take; `check` is the

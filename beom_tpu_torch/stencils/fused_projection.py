@@ -290,10 +290,6 @@ def _corr(cfg: Config) -> float:
     return cfg.dt if cfg.scheme == "rigid_lid" else cfg.g * cfg.dt
 
 
-# the double slot of the time t1 (csrc/fb_terms.cuh: Dbl::D_T1)
-_D_T1 = 12
-
-
 @functools.lru_cache(maxsize=None)
 def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
     """The library that runs cfg by the plan `pl` (the masks rebuilt where
@@ -381,12 +377,7 @@ class Phases:
         with torch.cuda.device(self.device):
             self.lib, self.fn = _entries(cfg, self.dtype, self.plan,
                                          self.dmask)
-        statics = fused_fb._operands(self.statics)
-        self._ptrs = (ctypes.c_void_p * (3 + len(statics)))(
-            0, 0, 0, *[a.data_ptr() for a in statics])
-        self._aligned = all(a.data_ptr() % 16 == 0 for a in statics)
-        self._sc = {(par, al): fused_fb._scalars(cfg, par, 0.0, aligned=al)
-                    for par in (0, 1) for al in (False, True)}
+        self._ops = fused_fb.Operands(fused_fb._operands(self.statics), cfg)
         self._epi = (ctypes.c_void_p * 6)()
         self._check = build.check
 
@@ -398,14 +389,6 @@ class Phases:
     def _fields(self, what, tensors, shape):
         for name, a in zip(what, tensors):
             _check_field(name, a, shape, self.dtype, self.device)
-
-    def _stage_ptrs(self, h, u, v, *more):
-        """Set the operand table's h, u, v; whether every staged operand
-        starts 16-byte aligned."""
-        p = self._ptrs
-        p[0], p[1], p[2] = h.data_ptr(), u.data_ptr(), v.data_ptr()
-        return self._aligned and all(a.data_ptr() % 16 == 0
-                                     for a in (h, u, v) + more)
 
     def _launch_a(self, h, u, v, n, div=True, eta=False, b=False, phi=None,
                   phi_prev=None):
@@ -419,11 +402,11 @@ class Phases:
             plane = lambda: torch.empty(self._shape2, dtype=self.dtype,
                                         device=self.device)
             us, vs = torch.empty_like(u), torch.empty_like(v)
-            ints, dbls = self._sc[n % 2, self._stage_ptrs(h, u, v)]
+            ptrs, ints, dbls = self._ops.set(n % 2, (h, u, v))
             stream = torch.cuda.current_stream(self.device).cuda_stream
             if self.plan.a is None:
                 outs = (plane(), None, None, None)
-                code = self.fn["proj_a"](self._ptrs, ints, dbls,
+                code = self.fn["proj_a"](ptrs, ints, dbls,
                                          us.data_ptr(), vs.data_ptr(),
                                          outs[0].data_ptr(), stream)
             else:
@@ -432,7 +415,7 @@ class Phases:
                 e = self._epi
                 for i, a in enumerate(outs + (phi, phi_prev)):
                     e[i] = None if a is None else a.data_ptr()
-                code = self.fn["proj_as"](self._ptrs, ints, dbls,
+                code = self.fn["proj_as"](ptrs, ints, dbls,
                                           us.data_ptr(), vs.data_ptr(), e,
                                           -self.lam, stream)
             self._check(self.lib, code, "phase A kernel launch")
@@ -489,11 +472,10 @@ class Phases:
         t1 = advance_time(t, self.cfg.dt, self.cfg.npdtype)
         with torch.cuda.device(self.device):
             outs = [torch.empty_like(h) for _ in range(3)]
-            ints, dbls = self._sc[0, self._stage_ptrs(h, u_s, v_s, p)]
-            dbls[_D_T1] = float(t1)
+            args = self._ops.set(0, (h, u_s, v_s, p), t1)
             kernel = "proj_b" if self.plan.b is None else "proj_bs"
             code = self.fn[kernel](
-                self._ptrs, ints, dbls, p.data_ptr(), _corr(self.cfg),
+                *args, p.data_ptr(), _corr(self.cfg),
                 *[a.data_ptr() for a in outs],
                 torch.cuda.current_stream(self.device).cuda_stream)
             self._check(self.lib, code, "phase B kernel launch")

@@ -136,50 +136,59 @@ Phases, each of which raises on failure (exit code != 0):
      counts, the solves the guard redid, 2 fused steps against 2 eager ones
  19. K8 (the halo pad) against pad2d by slices and concatenations on
      meshes (2, 4), (1, 8), (8, 1), (1, 1), w = 1, 3, 5, 2-D and layered
-     fields, f32 and f64, on a 2048^2 and a 192x128 grid: bit for bit
- 20. K7 (the shard step) against its plain version per shard and against
+     fields, f32 and f64, on a 2048^2 and a 192x128 grid: bit for bit, one
+     launch for every shard
+ 20. K7-fb against its plain version per shard and bit for bit against
      single-device K1 on the gathered field, on (4, 1), (2, 4) and (2, 2),
-     for all four fb cases, both parities, k = 1 and 2, at 192x128 f64 and
-     2048^2 f32
+     for all four fb cases, both parities, k = 1 and 2 by the mesh plan
+     (its launches counted), and the pass kernel of kb = 2 and 3 (where
+     its block fits a CTA) bit for bit K1's pass kernel, at 192x128 f64
+     and 2048^2 f32
  21. the mesh path: run() on the 2048^2 f32 double gyre on a 2 x 4 mesh of
      shards on the card, backend='fused', steps_per_pass=4, 200 steps,
-     diagnostics every 100: K7's launch counts, the diagnostics and the
-     final state equal to the single-device K1 run's; K8's path: run() on
-     the same case and mesh with backend='eager', halo_impl='rdma', 20
-     steps, K8's count set to 0 just before and read just after (3 pad2d
-     per step, one launch per shard), diagnostics and final state equal to
-     the single-device eager run's; then 3 steps of each scheme at 512^2
-     f32 on (2, 4) against the single-device eager step, and one rigid-lid
-     step with the distributed multigrid-preconditioned CG at 128^2 on
-     (2, 2)
- 22. times: K7 per step at 2048^2 and 8192^2 f32 on (2, 4) beside K1 alone
-     on the same grids (two steps at 8192^2 held against K1), K8 per pad2d
-     at w = 5 on the 1024x512 shards of 2048^2, K3a / K3b per case (the
-     plan's, beside the single-step kernels on the device), each
-     between CUDA events and, beside it, the kernel's own device time under
-     torch.profiler (these times are the host's launch cost as much as the
-     kernel's), and the profiler's busy share of the mesh run, K7's time
-     split into interior and edge launches
- 23. K7 around the split body (three kernels) and around the projection
-     phases against their plain versions per shard (192x128 f64 within
+     diagnostics every 100: K7-fb's launches by the mesh plan (printed;
+     one launch per kernel for every shard), the diagnostics and the final
+     state equal to the single-device K1 run's; steps_per_pass 1 (the
+     single-step kernel, one launch per step), 20 steps, equal to the
+     single-device run; K8's path: run() on the same case and mesh with
+     backend='eager', halo_impl='rdma', 20 steps, K8's count set to 0 just
+     before and read just after (3 pad2d per step, one launch each),
+     diagnostics and final state equal to the single-device eager run's;
+     then 3 steps of each scheme at 512^2 f32 on (2, 4) against the
+     single-device eager step, and one rigid-lid step with the distributed
+     multigrid-preconditioned CG at 128^2 on (2, 2)
+ 22. times: K7-fb's single step, its pass kernel's launch and a 4-step
+     pass at 2048^2 and 8192^2 f32 on (2, 4) beside K1 (a 4-step pass at
+     8192^2 held against K1's), K8 per pad2d at w = 5 on the 1024x512
+     shards of 2048^2, each between CUDA events and on the device under
+     torch.profiler, and the profiler's busy share of the mesh run
+ 23. K7 around the split body (route 3's three kernels, route 2's
+     tendencies and tail) and around the projection phases (the staged
+     kernels) against their plain versions per shard (192x128 f64 within
      1e-12 x scale, 2048^2 f32 within 4 ulp of scale) and against the
      single-device kernels (K1s; K3a / K3b) on the gathered field bit for
-     bit, on (4, 1), (2, 4) and (2, 2): split at nz 1 and 2, nsub 4, 8, 12,
-     each kernel against K1s's three kernels and a 2-step pass against
-     K1s's step by its plan (two launches, or three); projection on the four fb cases with implicit_fs
-     and rigid_lid (Jacobi), both parities
+     bit, on (4, 1), (2, 4) and (2, 2): split at nz 1 and 2, nsub 4, 8,
+     12, and the shelf at nsub 8 (route 3), each kernel against K1s's and
+     a 2-step pass against K1s's step by the plan's route, its launches
+     counted; projection on the four fb cases with implicit_fs and
+     rigid_lid (Jacobi), both parities, one launch per phase; and the
+     single-step phases where no staged geometry fits a CTA (two_layer
+     split to 3 layers, coastal_wetdry to 5, f64, (2, 2)), bit for bit the
+     single-device K3a / K3b of the same plan
  24. the new mesh paths through run() at 2048^2 f32 on a 2 x 4 mesh of
      shards on the card, backend='fused': double_gyre split nsub 8, 100
-     steps, diagnostics every 50, 48 launches per step, state and
-     diagnostics equal to the single-device K1s run's bit for bit; the
-     rigid-lid gyre with scheme='implicit_fs', 10 steps, within 1e-5 x
-     max(scale, 1) of the single-device fused run (K3a, K6, K3b) and 1e-6 x
-     scale of the eager mesh run (the same solve); the rigid lid's default
-     solve (the distributed CG + multigrid) at 512^2 on (2, 2) from rest,
-     its first step within 1e-6 x scale of the eager mesh step (the same
-     solve) and 2 steps within 1e-5 x max(scale, 1) of the single-device
-     fused run (K6 with its own hierarchy)
- 25. times at 2048^2 f32 on (2, 4): K7-split's three kernels and a whole
+     steps, diagnostics every 50, two launches per step (route 2), state
+     and diagnostics equal to the single-device K1s run's bit for bit;
+     shelf_forced split nsub 8, 10 steps, three launches per step (route
+     3), equal to the single-device run; the rigid-lid gyre with
+     scheme='implicit_fs', 10 steps, one launch per phase and step, within
+     1e-5 x max(scale, 1) of the single-device fused run (K3a, K6, K3b)
+     and 1e-6 x scale of the eager mesh run (the same solve); the rigid
+     lid's default solve (the distributed CG + multigrid) at 512^2 on (2,
+     2) from rest, its first step within 1e-6 x scale of the eager mesh
+     step (the same solve) and 2 steps within 1e-5 x max(scale, 1) of the
+     single-device fused run (K6 with its own hierarchy)
+ 25. times at 2048^2 f32 on (2, 4): K7-split's five kernels and a whole
      split step beside K1s's, K7-proj's two phases beside K3a / K3b, each
      between CUDA events and on the device under torch.profiler, and the
      implicit-FS mesh step's time split into phase A, glue + solve and
@@ -244,10 +253,13 @@ PATHS = (
 AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
                ("two_layer", 8), ("shelf_forced", 8))
 # the (case, nsub) pairs and the meshes phase 23 holds K7-split on: nz 1
-# and 2, nsub 4, 8, 12
+# and 2, nsub 4, 8, 12 (route 2), and the shelf at nsub 8 (route 3)
 MESH_SPLIT = tuple((case, nsub) for case in ("double_gyre", "two_layer")
-                   for nsub in (4, 8, 12))
+                   for nsub in (4, 8, 12)) + (("shelf_forced", 8),)
 MESH_SHAPES = ((4, 1), (2, 4), (2, 2))
+# the grid of phase 24's rigid lid with the distributed CG + multigrid on
+# (2, 2): its eager mesh solve takes ~45 s per step at 512^2
+MG_MESH_N = 512
 # grid fields a K6-Jacobi iteration streams, on average (csrc/cg_jacobi.cu:
 # reads r, w, s, p, pm, Hu, Hv, writes r, w, s, p, and every other pass
 # reads and writes x)
@@ -530,6 +542,34 @@ def compare_fields(label, names, outs, refs, tol):
             raise AssertionError(f"{label} {f}: {err!r} > {bound!r}")
         worst = max(worst, err)
     return worst
+
+
+def shard_step_specs():
+    """The builds of K7-fb the mesh phases launch: each fb case's 4-step
+    pass on 2 x 4 shards of the 2048^2 grid by its mesh plan and the
+    single-step kernel, at f32 and f64, and the pass kernel of kb = 2 and
+    3 where its block fits a CTA."""
+    import dataclasses
+
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.parallel.mesh import make_mesh
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+
+    specs = set()
+    mesh = make_mesh(2, 4, devices=["cpu"])
+    for name in FB_CASES:
+        for dtype in (torch.float32, torch.float64):
+            cfg = dataclasses.replace(make_case(
+                name, nx=16, ny=16, device="cpu",
+                dtype=str(dtype).split(".")[1], steps_per_pass=4)[0],
+                nx=BIG, ny=BIG)
+            specs |= dist_band.build_specs(cfg, dtype, mesh)
+            for kb in (2, 3):
+                if fused_fb.launch_plan(cfg, dtype, kb) is not None:
+                    specs.add(dist_band.build_spec(cfg, dtype, kb))
+    return specs
 
 
 def projection_spec(cfg):
@@ -993,11 +1033,7 @@ def main() -> dict:
         + [("double_gyre", {})]
         + [(n, dict(scheme="split", nsub=k)) for n, k in AGREE_SPLIT]
         for dtype in ("float32", "float64")}
-    from beom_tpu_torch.stencils import dist_band, fused_projection
     for dtype in ("float32", "float64"):
-        for name in FB_CASES:
-            specs.add(dist_band.build_spec(make_case(
-                name, nx=16, ny=16, device="cpu", dtype=dtype)[0]))
         for name, scheme in [p[:2] for p in PROJECTION_PATHS] \
                 + [("rigid_lid", "rigid_lid")]:
             specs.add(projection_spec(make_case(
@@ -1005,6 +1041,7 @@ def main() -> dict:
                 scheme=scheme)[0]))
     specs |= scheme_mesh_specs()
     specs |= fb_pass_specs()
+    specs |= shard_step_specs()
     todo = [k for k in KERNELS if k not in ("fb_step", "projection")] \
         + sorted(specs)
     # 16 nvcc processes at a time keep the host's memory in bounds
@@ -1137,6 +1174,9 @@ def main() -> dict:
     kernels += projection_case_phases(dev, smi, rel, ulps)
     kernels += mesh_phases(dev, smi, rel, ulps)
     kernels += scheme_mesh_phases(dev, smi, rel, ulps)
+    idle = [k["name"] for k in kernels if not k["launches"] > 0]
+    if idle:
+        raise AssertionError(f"kernels not launched on their paths: {idle}")
     return {"kernels": kernels}
 
 
@@ -1866,12 +1906,18 @@ def device_ms(label, fn, n_calls, names):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n_calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
+    # the profiler has been seen to miss every launch of a kernel in a
+    # window (and some of them in others): up to three windows, until
+    # each key's kernel is seen
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        if all(any(name in r[2] and r[1] for r in rows) for name in names):
+            break
     out = {}
     for name, per_call in names.items():
         us = sum(r[0] for r in rows if name in r[2])
@@ -2360,8 +2406,8 @@ def equal_blocks(label, out, ref):
 
 def check_halo_pad(dev, ny, nx):
     """K8 against pad2d's plain version on one grid size: every mesh, width,
-    rank and type; one launch per shard.  Returns the largest difference
-    measured."""
+    rank and type; one launch for every shard.  Returns the largest
+    difference measured."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
@@ -2379,8 +2425,9 @@ def check_halo_pad(dev, ny, nx):
                     before = halo_pad.LAUNCHES
                     out = halo_pad.halo_pad(a, w)
                     torch.cuda.synchronize()
-                    if halo_pad.LAUNCHES != before + m.n:
-                        raise AssertionError("K8: not one launch per shard")
+                    if halo_pad.LAUNCHES != before + 1:
+                        raise AssertionError("K8: not one launch for every "
+                                             "shard")
                     worst = max(worst, equal_blocks(
                         f"K8 {ny}x{nx} {shape} {dtype} w={w}", out,
                         halo_pad.halo_pad_plain(a, w)))
@@ -2391,9 +2438,12 @@ def check_halo_pad(dev, ny, nx):
 
 
 def check_shard_step(label, dev, tol, seed, case, mesh_shape, **kw):
-    """K7 on one perturbed case and mesh: both parities and a 2-step pass
-    against its plain version per shard and against single-device K1 on
-    the gathered field.  Returns the largest difference."""
+    """K7-fb on one perturbed case and mesh: the single-step kernel at both
+    parities and a 2-step pass by the mesh plan against its plain version
+    per shard and bit for bit single-device K1 on the gathered field, with
+    the plan's launches; the pass kernel of kb = 2 and 3 (where its block
+    fits a CTA) bit for bit K1's pass kernel of the same kb.  Returns the
+    largest differences from the plain version (single step, pass)."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
@@ -2404,23 +2454,49 @@ def check_shard_step(label, dev, tol, seed, case, mesh_shape, **kw):
     m = pmesh.make_mesh(*mesh_shape, devices=[dev])
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
     fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
-    worst = 0.0
+    K = dist_band.MeshKernels((grid, forcing), cfg, m)
+    worst = [0.0, 0.0]
     for n, k in ((0, 1), (1, 1), (0, 2)):
-        before = dict(dist_band.LAUNCHES)
-        out = dist_band.shard_step(*fields, pstat, n, st.t, cfg, k)
+        before = dist_band.LAUNCHES["fb"]
+        out = dist_band.shard_step(*fields, pstat, n, st.t, cfg, k,
+                                   kernels=K)
         torch.cuda.synchronize()
-        if dist_band.LAUNCHES["edge"] != before["edge"] + k * m.n:
-            raise AssertionError(f"{label}: K7 edge launches")
+        steps = K.plan.fb_launches(k)
+        if dist_band.LAUNCHES["fb"] != before + len(steps):
+            raise AssertionError(f"{label}: K7-fb launches")
         ref = dist_band.shard_step_plain(*fields, pstat, n, st.t, cfg, k)
         one = fused_fb.fused_fb_step(st.h, st.u, st.v, (grid, forcing), n,
                                      st.t, cfg, k)
-        tag = f"{label} {case} {mesh_shape} n={n} k={k}"
+        tag = f"{label} {case} {mesh_shape} n={n} k={k} ({steps})"
         got = [pmesh.gather(a) for a in out]
-        worst = max(worst, compare_fields(
+        i = int(max(steps) > 1)
+        worst[i] = max(worst[i], compare_fields(
             f"{tag} vs plain", "huv", got, [pmesh.gather(a) for a in ref],
             tol))
-        worst = max(worst, compare_fields(f"{tag} vs K1", "huv", got, one,
-                                          tol))
+        agree(f"{tag} vs K1", got, one, None)
+    stacked = [dist_band.stack(a) for a in fields]
+    for kb in (2, 3):
+        if fused_fb.launch_plan(cfg, st.h.dtype, kb) is None \
+                or kb > K.plan.max_kb:
+            continue
+        for n in (0, 1):
+            before = dist_band.LAUNCHES["fb_pass"]
+            with torch.cuda.device(dev):
+                out = K.fb(*stacked, n, st.t, kb, kb=kb)
+            one = fused_fb._launch_fb(st.h, st.u, st.v, (grid, forcing),
+                                      n % 2, fused_fb._times(st.t, cfg, kb),
+                                      cfg)
+            torch.cuda.synchronize()
+            if dist_band.LAUNCHES["fb_pass"] != before + 1:
+                raise AssertionError(f"{label}: K7-fb pass launches")
+            got = [pmesh.gather(dist_band.unstack(a, m)) for a in out]
+            tag = f"{label} {case} {mesh_shape} n={n} pass kb={kb}"
+            worst[1] = max(worst[1], compare_fields(
+                f"{tag} vs plain", "huv", got,
+                fused_fb.fused_fb_step_plain(st.h, st.u, st.v,
+                                             (grid, forcing), n, st.t, cfg,
+                                             kb), tol))
+            agree(f"{tag} vs K1's pass", got, one, None)
     return worst
 
 
@@ -2442,7 +2518,7 @@ def eager_mesh_leg(dev, case, n_steps, atol_rel, nx, mesh_shape, **kw):
     out = pmesh.gather_state(make_dist_stepper(
         grid, forcing, cfg, m, n_inner=n_steps)(pmesh.shard_state(st, m)))
     torch.cuda.synchronize()
-    pads = (halo_pad.LAUNCHES - before) // m.n
+    pads = halo_pad.LAUNCHES - before
     ref = run_steps(st, grid, forcing, cfg, n_steps)
     label = f"eager mesh {mesh_shape} {case} {cfg.scheme} {nx}^2"
     for f in "huv":
@@ -2456,7 +2532,8 @@ def eager_mesh_leg(dev, case, n_steps, atol_rel, nx, mesh_shape, **kw):
     if pads <= 0:
         raise AssertionError(f"{label}: K8 was not launched")
     print(f"   {label}: {pads} pad2d calls in {n_steps} steps "
-          f"({pads / n_steps!r} per step), each one K8 launch per shard")
+          f"({pads / n_steps!r} per step), each one K8 launch for every "
+          "shard")
 
 
 def mesh_phases(dev, smi, rel, ulps):
@@ -2473,15 +2550,15 @@ def mesh_phases(dev, smi, rel, ulps):
     phase("19 K8 against pad2d")
     err8 = max(check_halo_pad(dev, BIG, BIG), check_halo_pad(dev, 192, 128))
 
-    phase("20 K7 against its plain version and single-device K1")
-    err7 = 0.0
+    phase("20 K7-fb against its plain version and single-device K1")
+    err7 = [0.0, 0.0]
     for case in FB_CASES:
         for mesh_shape in ((4, 1), (2, 4), (2, 2)):
             check_shard_step("192x128 f64", dev, rel(1e-12), 72, case,
                              mesh_shape, nx=192, ny=128, dtype="float64")
-            err7 = max(err7, check_shard_step(
+            err7 = [max(x, y) for x, y in zip(err7, check_shard_step(
                 f"{BIG}^2 f32", dev, ulps(4), 73, case, mesh_shape, nx=BIG,
-                ny=BIG))
+                ny=BIG))]
 
     phase(f"21 the mesh path: run() on the {BIG}^2 f32 double gyre, 2 x 4 "
           "shards")
@@ -2492,6 +2569,9 @@ def mesh_phases(dev, smi, rel, ulps):
     log1 = io.StringIO()
     ref = run(cfg, grid, forcing, st, n_steps, log=log1)
     mcfg = dataclasses.replace(cfg, mesh_y=2, mesh_x=4)
+    plan7 = dist_band.mesh_plan(mcfg, torch.float32,
+                                pmesh.make_mesh(2, 4, devices=[dev]))
+    print(f"   mesh plan: {plan7.describe()}")
     logn = io.StringIO()
     torch.cuda.synchronize()
     dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
@@ -2503,9 +2583,11 @@ def mesh_phases(dev, smi, rel, ulps):
     counts7 = dict(dist_band.LAUNCHES)
     for line in logn.getvalue().splitlines():
         print("   " + line)
-    want = dict(dict.fromkeys(counts7, 0), interior=8 * n_steps,
-                edge=8 * n_steps)
-    if counts7 != want or fused_fb.LAUNCHES != k1_before:
+    want = dict.fromkeys(counts7, 0)
+    for key, c in plan7.launches(4).items():
+        want[key] = c * n_steps // 4
+    if counts7 != want or fused_fb.LAUNCHES != k1_before \
+            or want["fb_pass"] == 0:
         raise AssertionError(f"mesh path: K7 launches {counts7}, not {want}")
     diags = [json.loads(x) for x in logn.getvalue().splitlines()]
     if [d["n"] for d in diags] != [100, 200] or not all(
@@ -2522,14 +2604,39 @@ def mesh_phases(dev, smi, rel, ulps):
         if not torch.equal(getattr(got, f), getattr(ref, f)):
             raise AssertionError(f"mesh path: {f} is not the single-device "
                                  "K1 run's")
-    print(f"   K7 launches {counts7} in {n_steps} steps on 8 shards; "
-          "diagnostics and final state equal to the single-device K1 run's "
-          f"bit for bit; {wall:.3f} s wall (first run, diagnostics included)")
+    print(f"   K7-fb launches {counts7} in {n_steps} steps on 8 shards, one "
+          "per kernel for every shard; diagnostics and final state equal to "
+          f"the single-device K1 run's bit for bit; {wall:.3f} s wall (first "
+          "run, diagnostics included)")
+
+    # the single-step kernel's path: steps_per_pass 1, K7-fb one launch per
+    # step, equal to the single-device run of K1's single-step kernel
+    n_one = 20
+    cfg1 = dataclasses.replace(cfg, steps_per_pass=1, diag_every=10)
+    ref = run(cfg1, grid, forcing, st, n_one, log=io.StringIO())
+    torch.cuda.synchronize()
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+    out = run(dataclasses.replace(cfg1, mesh_y=2, mesh_x=4), grid, forcing,
+              st, n_one, log=io.StringIO())
+    torch.cuda.synchronize()
+    counts7s = dict(dist_band.LAUNCHES)
+    if counts7s != dict(dict.fromkeys(counts7s, 0), fb=n_one):
+        raise AssertionError(f"single-step mesh path: K7 launches "
+                             f"{counts7s}")
+    got = gather_state(out)
+    for f in "huv":
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            raise AssertionError(f"single-step mesh path: {f} is not the "
+                                 "single-device run's")
+    print(f"   steps_per_pass 1 on 2 x 4 shards: K7-fb launches {counts7s} "
+          f"in {n_one} steps (the single-step kernel), final state equal to "
+          "the single-device run's bit for bit")
 
     # K8's path: run() on the same case and mesh with the eager distributed
-    # tier and halo_impl='rdma', every pad2d of the steps one K8 launch per
-    # shard; fb pads h, u and v once per step and carries no reduction, so
-    # state and diagnostics equal the single-device eager run's
+    # tier and halo_impl='rdma', every pad2d of the steps one K8 launch for
+    # every shard; fb pads h, u and v once per step and carries no
+    # reduction, so state and diagnostics equal the single-device eager
+    # run's
     n_eager = 20
     ecfg = dataclasses.replace(cfg, backend="eager", steps_per_pass=1,
                                diag_every=10)
@@ -2544,9 +2651,9 @@ def mesh_phases(dev, smi, rel, ulps):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts8 = halo_pad.LAUNCHES
-    if counts8 != 3 * 8 * n_eager:
+    if counts8 != 3 * n_eager:
         raise AssertionError(f"eager mesh path: K8 launches {counts8}, not "
-                             f"{3 * 8 * n_eager}")
+                             f"{3 * n_eager}")
     if logn.getvalue() != log1.getvalue() or len(
             logn.getvalue().splitlines()) != 2:
         raise AssertionError("eager mesh path: the diagnostics are not the "
@@ -2558,8 +2665,8 @@ def mesh_phases(dev, smi, rel, ulps):
                                  "single-device eager run's")
     print(f"   run() with backend='eager', halo_impl='rdma' on 2 x 4 shards: "
           f"K8 launches {counts8} in {n_eager} steps (3 pad2d per step, one "
-          "launch per shard); diagnostics and final state equal to the "
-          f"single-device eager run's bit for bit; {wall:.3f} s wall")
+          "launch each for every shard); diagnostics and final state equal "
+          f"to the single-device eager run's bit for bit; {wall:.3f} s wall")
 
     # the other schemes of the eager distributed tier through K8, smaller:
     # fb and split carry no reduction, so 0.0; the projection steps' CG
@@ -2574,65 +2681,88 @@ def mesh_phases(dev, smi, rel, ulps):
     phase(f"22 times of the mesh kernels ({smi})")
     saved = (dict(dist_band.LAUNCHES), halo_pad.LAUNCHES, fused_fb.LAUNCHES)
     m = pmesh.make_mesh(2, 4, devices=[dev])
-    ms7 = None
     for n_grid, n_k, n_p in ((BIG, 100, 10), (4 * BIG, 10, 2)):
-        cfg, grid, forcing, st = perturbed_case(dev, 2, nx=n_grid, ny=n_grid)
+        cfg, grid, forcing, st = perturbed_case(dev, 2, nx=n_grid, ny=n_grid,
+                                                steps_per_pass=4)
         statics = (grid, forcing)
         pstat = dist_band.pad_statics(grid, forcing, cfg, m)
-        blocks = dist_band._static_blocks(pstat, m)
         fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+        K = dist_band.MeshKernels(statics, cfg, m)
+        stacked = [dist_band.stack(a) for a in fields]
+        kb = K.plan.kb(4)
 
-        def k7(k=1):
-            return dist_band.shard_step(*fields, pstat, 0, st.t, cfg, k,
-                                        static_blocks=blocks)
+        def k7(k=1, kb_=None):
+            with torch.cuda.device(dev):
+                return K.fb(*stacked, 0, st.t, k, kb=kb_)
 
-        def k1():
+        def k1(k=1):
             return fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t,
-                                          cfg, 1)
+                                          cfg, k)
         if n_grid != BIG:
-            two = [pmesh.gather(a) for a in k7(2)]
-            compare_fields(f"{n_grid}^2 f32 K7 (2, 4) x2 vs K1", "huv", two,
-                           fused_fb.fused_fb_step(st.h, st.u, st.v, statics,
-                                                  0, st.t, cfg, 2), ulps(4))
-        ms = time_pair(
-            f"K7 {n_grid}^2 f32 (2, 4)",
+            two = [pmesh.gather(dist_band.unstack(a, m)) for a in k7(4)]
+            agree(f"{n_grid}^2 f32 K7-fb (2, 4) 4-step pass vs K1", two,
+                  k1(4), None)
+        ms_one = time_pair(
+            f"K7-fb {n_grid}^2 f32 (2, 4) one step",
             lambda: dist_band.shard_step_plain(*fields, pstat, 0, st.t, cfg,
-                                               1), k7, n_p, n_k, unit="step")
+                                               1), lambda: k7(1), n_p, n_k,
+            unit="step")
+        ms_pass = time_pair(
+            f"K7-fb {n_grid}^2 f32 (2, 4) launch of kb = {kb}",
+            lambda: dist_band.shard_step_plain(*fields, pstat, 0, st.t, cfg,
+                                               kb), lambda: k7(kb, kb),
+            max(n_p // kb, 1), n_k, unit="launch")
+        ms_4 = time_ms(lambda: k7(4), max(n_k // 4, 2))
         ms_k1 = time_ms(k1, n_k)
-        ms_4 = time_ms(lambda: k7(4), max(n_k // 4, 2)) / 4
-        print(f"   {n_grid}^2 f32: K7 on (2, 4) {ms[0]!r} ms/step ({ms_4!r} "
-              f"in 4-step passes), K1 alone {ms_k1!r} ms/step")
+        ms_k1_4 = time_ms(lambda: k1(4), max(n_k // 4, 2))
+        print(f"   {n_grid}^2 f32 on (2, 4): K7-fb one step {ms_one[0]!r} "
+              f"ms, a 4-step pass {ms_4!r} ({K.plan.fb_launches(4)}); K1 "
+              f"one step {ms_k1!r}, its 4-step pass {ms_k1_4!r} "
+              "(between events)")
         if n_grid == BIG:
-            ms7, cfg7 = ms, cfg
-            dev7 = device_ms(f"K7 {n_grid}^2 f32 (2, 4), one step", k7, 50,
-                             {"shard_step_kernel": 16})["shard_step_kernel"]
-            w = dist_band.shard_halo(cfg)
-            ly, lx = n_grid // 2, n_grid // 4
-            bytes7 = 4 * (6 * cfg.nz * n_grid * n_grid + 8 * (
-                step_fields(cfg) - 6 * cfg.nz) * (ly + 2 * w) * (lx + 2 * w))
+            ms7, ms7p, cfg7, kb7 = ms_one, ms_pass, cfg, kb
+            dev7 = device_ms(f"K7-fb {n_grid}^2 f32 (2, 4), one step",
+                             lambda: k7(1), 50,
+                             {"shard_step_kernel": 1})["shard_step_kernel"]
+            dev7p = device_ms(
+                f"K7-fb {n_grid}^2 f32 (2, 4), 4-step pass and K1's",
+                lambda: (k7(4), k1(4)), 20,
+                {"shard_pass_kernel": len(K.plan.fb_launches(4)),
+                 "fb_pass_kernel": len(fused_fb.plan(cfg).launches(4))})
+            print(f"   4-step pass on the device: K7-fb "
+                  f"{dev7p['shard_pass_kernel']!r} ms, K1 "
+                  f"{dev7p['fb_pass_kernel']!r} ms")
             h = fields[0]
             ms8 = time_pair(
                 "K8 pad2d w=5 of (1, 1024, 512) shards on (2, 4)",
                 lambda: halo_pad.halo_pad_plain(h, 5),
                 lambda: halo_pad.halo_pad(h, 5), 20, 200)
+            ly, lx = n_grid // 2, n_grid // 4
             bytes8 = 8 * 4 * (ly * lx + (ly + 10) * (lx + 10))
             dev8 = device_ms("K8 pad2d of the same shards",
                              lambda: halo_pad.halo_pad(h, 5), 50,
-                             {"halo_pad_kernel": 8})["halo_pad_kernel"]
-        del fields, pstat, blocks, st, grid, forcing
+                             {"halo_pad_kernel": 1})["halo_pad_kernel"]
+        del fields, pstat, st, grid, forcing, K, stacked
         torch.cuda.empty_cache()
     cfg, grid, forcing, st = make_case(
         "double_gyre", nx=BIG, ny=BIG, device=dev, backend="fused",
         steps_per_pass=4, diag_every=100, mesh_y=2, mesh_x=4)
     busy_share("double_gyre fb on a 2 x 4 mesh through run()",
                lambda: run(cfg, grid, forcing, st, 200, log=io.StringIO()),
-               200, by_grid="shard_step_kernel")
+               200, by_grid="shard_pass_kernel")
     dist_band.LAUNCHES.update(saved[0])
     halo_pad.LAUNCHES, fused_fb.LAUNCHES = saved[1], saved[2]
+    pts = BIG * BIG * cfg7.npdtype.itemsize
     return [
         kernel_entry("shard_step", "shard_step.cu", "dist_band.py:63",
-                     counts7["interior"] + counts7["edge"], err7, ms7, bytes7,
+                     counts7s["fb"], err7[0], ms7, step_fields(cfg7) * pts,
                      150 * cfg7.nz * BIG * BIG, device=dev7),
+        kernel_entry("shard_pass", "shard_step.cu", "dist_band.py:63",
+                     counts7["fb_pass"], err7[1], ms7p,
+                     step_fields(cfg7) * pts,
+                     150 * cfg7.nz * kb7 * BIG * BIG,
+                     device=dev7p["shard_pass_kernel"]
+                     / len(plan7.fb_launches(4))),
         kernel_entry("halo_pad", "halo_pad.cu", "rdma_halo.py:42", counts8,
                      err8, ms8, bytes8, 0, site_dir="parallel", device=dev8)]
 
@@ -2655,10 +2785,12 @@ def agree(label, outs, refs, tol):
 
 
 def check_shard_split(label, dev, tol, seed, case, mesh_shape, **kw):
-    """K7-split on one perturbed case and mesh: each of the three kernels
-    against its plain version per shard (within tol) and against the
-    single-device kernel of K1s on the gathered field (bit for bit), and a
-    2-step pass against two K1s steps.  Returns {kernel: worst}."""
+    """K7-split on one perturbed case and mesh: each of its five kernels
+    (route 3's three, route 2's tendencies and tail) against its plain
+    version per shard (within tol) and against the single-device kernel of
+    K1s on the gathered field (bit for bit), and a 2-step pass by the
+    plan's route against two K1s steps, with the plan's launches.  Returns
+    {kernel: worst}."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
@@ -2676,17 +2808,31 @@ def check_shard_split(label, dev, tol, seed, case, mesh_shape, **kw):
     def g(fields):
         return [pmesh.gather(a) for a in fields]
 
-    slow = dist_band.shard_split_slow(*sh, pstat, cfg)
+    K = dist_band.MeshKernels(statics, cfg, m)
+    slow = dist_band.shard_split_slow(*sh, pstat, cfg, kernels=K)
     one_slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
-    sub = dist_band.shard_split_subcycle(slow, pstat, cfg)
+    sub = dist_band.shard_split_subcycle(slow, pstat, cfg, kernels=K)
     one_sub = fused_fb._launch_subcycle(one_slow, st.h, st.u, st.v, statics,
                                         cfg)
-    rec = dist_band.shard_split_recompose(slow, sub, sh[0], pstat, st.t, cfg)
+    rec = dist_band.shard_split_recompose(slow, sub, sh[0], pstat, st.t, cfg,
+                                          kernels=K)
     t1 = st.t + cfg.npdtype.type(cfg.dt)
     one_rec = fused_fb._launch_recompose(one_slow, one_sub, st.h, st.u, st.v,
                                          statics, t1, cfg)
-    two = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2)
+    tend = dist_band.shard_split_tend(*sh, pstat, cfg, kernels=K)
+    one_tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
+    tail = dist_band.shard_split_tail(tend, *sh, pstat, st.t, cfg,
+                                      kernels=K)
+    one_tail = fused_fb._launch_tail(one_tend, st.h, st.u, st.v, statics,
+                                     t1, cfg)
+    before = dict(dist_band.LAUNCHES)
+    two = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2, kernels=K)
     torch.cuda.synchronize()
+    want = dist_band.mesh_plan(cfg, st.h.dtype, m).launches(2)
+    got = {k: dist_band.LAUNCHES[k] - before[k] for k in before
+           if dist_band.LAUNCHES[k] != before[k]}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, not {want}")
     worst = {
         "slow": agree(f"{tag} slow vs plain", g(slow), g(
             dist_band.split_slow_plain(*sh, pstat, cfg)), tol),
@@ -2694,23 +2840,56 @@ def check_shard_split(label, dev, tol, seed, case, mesh_shape, **kw):
             dist_band.split_subcycle_plain(slow, pstat, cfg)), tol),
         "recompose": agree(f"{tag} recompose vs plain", g(rec), g(
             dist_band.split_recompose_plain(slow, sub, sh[0], pstat, st.t,
-                                            cfg)), tol)}
+                                            cfg)), tol),
+        "tend": agree(f"{tag} tend vs plain", g(tend), g(
+            dist_band.split_tend_plain(*sh, pstat, cfg)), tol),
+        "tail": agree(f"{tag} tail vs plain", g(tail), g(
+            dist_band.split_tail_plain(tend, *sh, pstat, st.t, cfg)), tol)}
     agree(f"{tag} slow vs K1s", g(slow), one_slow, None)
     agree(f"{tag} subcycle vs K1s", g(sub), one_sub, None)
     agree(f"{tag} recompose vs K1s", g(rec), one_rec, None)
-    agree(f"{tag} 2-step pass vs K1s's step "
-          f"({fused_fb.split_plan(cfg).launches()} launches)", g(two),
+    agree(f"{tag} tend vs K1s", g(tend), one_tend, None)
+    agree(f"{tag} tail vs K1s", g(tail), one_tail, None)
+    agree(f"{tag} 2-step pass vs K1s's step (route "
+          f"{fused_fb.split_plan(cfg).route})", g(two),
           fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg, 2),
           None)
     return worst
 
 
+def layered(cfg, forcing, st, nz):
+    """cfg, forcing and st with the bottom layer split into equal layers,
+    each a little denser, up to nz layers: the same column, more
+    layers."""
+    import torch
+
+    parts, top = nz - cfg.nz + 1, cfg.nz - 1
+    rho = tuple(cfg.rho[:top]) + tuple(cfg.rho[top] + i
+                                       for i in range(parts))
+
+    def split(a, share):
+        return torch.cat([a[:top]] + [a[top:] / share] * parts)
+
+    h_ext = split(forcing.h_ext, parts)
+    return (dataclasses.replace(cfg, nz=nz, rho=rho),
+            dataclasses.replace(forcing, h_ext=h_ext),
+            st.replace(h=split(st.h, parts), u=split(st.u, 1),
+                       v=split(st.v, 1)))
+
+
+# (case, layers) of phase 23's K7-proj where no staged geometry fits a CTA
+# at f64, so the phases run the single-step bodies as on one device: phase
+# A at nz = 3, both phases with wet/dry at nz = 5
+SINGLE_STEP_PHASES = (("two_layer", 3), ("coastal_wetdry", 5))
+
+
 def check_shard_projection(label, dev, tol, seed, case, scheme, mesh_shape,
-                           **kw):
-    """K7-proj on one perturbed case and mesh, both parities: phase A and
-    phase B against their plain versions per shard (within tol) and
-    against K3a / K3b on the gathered field (bit for bit).  Returns the
-    worst differences (A, B)."""
+                           layers=None, **kw):
+    """K7-proj on one perturbed case (split to `layers` layers where
+    given) and mesh, both parities: phase A and phase B against their
+    plain versions per shard (within tol) and against K3a / K3b on the
+    gathered field (bit for bit).  Returns the worst differences (A,
+    B)."""
     import numpy as np
     import torch
 
@@ -2720,6 +2899,8 @@ def check_shard_projection(label, dev, tol, seed, case, scheme, mesh_shape,
 
     cfg, grid, forcing, st = perturbed_case(dev, seed, case, scheme=scheme,
                                             **kw)
+    if layers:
+        cfg, forcing, st = layered(cfg, forcing, st, layers)
     st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
     statics = (grid, forcing)
     m = pmesh.make_mesh(*mesh_shape, devices=[dev])
@@ -2729,14 +2910,22 @@ def check_shard_projection(label, dev, tol, seed, case, scheme, mesh_shape,
     p = torch.tensor((0.1 * rng.standard_normal((cfg.ny, cfg.nx))).astype(
         cfg.npdtype), device=dev) * grid.mask
     sp = pmesh.shard(p, m)
-    tag = f"{label} {case} {scheme} {mesh_shape}"
+    pl = fp.plan(cfg, cfg.tdtype)
+    tag = (f"{label} {case} nz={cfg.nz} {scheme} {mesh_shape} "
+           f"({pl.describe()})")
     worst = [0.0, 0.0]
+    K = dist_band.MeshKernels(statics, cfg, m)
     for n in (0, 1):
-        a = dist_band.shard_proj_a(*sh, pstat, n, cfg)
+        before = dict(dist_band.LAUNCHES)
+        a = dist_band.shard_proj_a(*sh, pstat, n, cfg, kernels=K)
         one_a = fp.proj_a(st.h, st.u, st.v, statics, n, cfg)
-        b = dist_band.shard_proj_b(sh[0], a[0], a[1], sp, pstat, st.t, cfg)
+        b = dist_band.shard_proj_b(sh[0], a[0], a[1], sp, pstat, st.t, cfg,
+                                   kernels=K)
         one_b = fp.proj_b(st.h, one_a[0], one_a[1], p, statics, st.t, cfg)
         torch.cuda.synchronize()
+        if {k: dist_band.LAUNCHES[k] - before[k] for k in before} != dict(
+                dict.fromkeys(before, 0), proj_a=1, proj_b=1):
+            raise AssertionError(f"{tag}: not one launch per phase")
         ga = [pmesh.gather(x) for x in a]
         gb = [pmesh.gather(x) for x in b]
         worst[0] = max(worst[0], agree(f"{tag} n={n} A vs plain", ga, [
@@ -2771,7 +2960,7 @@ def scheme_mesh_specs():
     """The builds phases 23 to 25 use: the shard kernels and the
     single-device kernels they are held against, f32 and f64."""
     from beom_tpu_torch.cases import make_case
-    from beom_tpu_torch.stencils import dist_band, fused_fb, fused_projection
+    from beom_tpu_torch.stencils import dist_band, fused_fb
 
     specs = set()
     for dtype in ("float32", "float64"):
@@ -2780,10 +2969,17 @@ def scheme_mesh_specs():
                             scheme="split", nsub=nsub)[0]
             specs |= {fused_fb.build_spec(cfg), dist_band.build_spec(cfg)}
         for case in FB_CASES + ("rigid_lid",):
-            cfg = make_case(case, nx=16, ny=16, device="cpu", dtype=dtype,
-                            scheme="implicit_fs")[0]
-            specs |= {fused_projection.build_spec(cfg),
-                      dist_band.build_spec(cfg)}
+            for scheme in ("implicit_fs", "rigid_lid"):
+                cfg = make_case(case, nx=16, ny=16, device="cpu",
+                                dtype=dtype, scheme=scheme)[0]
+                # every case's grid is make_grid's: the masks rebuilt
+                specs |= {projection_spec(cfg),
+                          dist_band.build_spec(cfg, dmask=True)}
+    for case, nz in SINGLE_STEP_PHASES:
+        cfg, _, forcing, st = make_case(case, nx=16, ny=16, device="cpu",
+                                        dtype="float64", scheme="rigid_lid")
+        cfg = layered(cfg, forcing, st, nz)[0]
+        specs |= {projection_spec(cfg), dist_band.build_spec(cfg, dmask=True)}
     return specs
 
 
@@ -2824,6 +3020,10 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
                                                83, case, scheme, mesh_shape,
                                                nx=BIG, ny=BIG, **kw)
                 err_proj = [max(x, y) for x, y in zip(err_proj, worst)]
+    for case, nz in SINGLE_STEP_PHASES:
+        check_shard_projection("192x128 f64", dev, rel(1e-12), 84, case,
+                               "rigid_lid", (2, 2), layers=nz, nx=192,
+                               ny=128, dtype="float64", precond="jacobi")
 
     phase(f"24 the split and projection schemes on a 2 x 4 mesh of shards "
           f"through run() at {BIG}^2 f32")
@@ -2844,14 +3044,14 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     counts_split = dict(dist_band.LAUNCHES)
     for line in logn.getvalue().splitlines():
         print("   " + line)
-    # per shard and step each kernel's edge launch and, where the block has
-    # interior tiles for its halo (all three at 2048^2), its interior one
-    tiles = dist_band._entry(cfg, torch.float32)[2]
+    # the plan's route: one launch of each of its kernels per step for
+    # every shard
     want = dict.fromkeys(counts_split, 0)
-    for key, w in dist_band.kernel_halos(cfg).items():
-        want[f"split_{key}"] = 8 * n_split * (1 + dist_band.has_interior(
-            BIG // 2, BIG // 4, w, tiles[key]))
-    if counts_split != want or fused_fb.SPLIT_LAUNCHES != k1s_before:
+    want.update({k: c * n_split for k, c in dist_band.mesh_plan(
+        cfg, torch.float32, pmesh.make_mesh(2, 4, devices=[dev])).launches(
+        1).items()})
+    if counts_split != want or fused_fb.SPLIT_LAUNCHES != k1s_before \
+            or want["split_tail"] == 0:
         raise AssertionError(f"split mesh path: launches {counts_split}, "
                              f"not {want}")
     diags = [json.loads(x) for x in logn.getvalue().splitlines()]
@@ -2873,6 +3073,33 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
           f"K1s run's bit for bit; {wall:.3f} s wall (first run, "
           "diagnostics included)")
 
+    # route 3 on the mesh: the shelf's split step (the open boundary keeps
+    # the three kernels), against the single-device run of K1s's three
+    n_shelf = 10
+    cfg, grid, forcing, st = make_case(
+        "shelf_forced", nx=BIG, ny=BIG, device=dev, backend="fused",
+        scheme="split", nsub=8, diag_every=5)
+    ref = run(cfg, grid, forcing, st, n_shelf, log=io.StringIO())
+    torch.cuda.synchronize()
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+    out = run(dataclasses.replace(cfg, mesh_y=2, mesh_x=4), grid, forcing,
+              st, n_shelf, log=io.StringIO())
+    torch.cuda.synchronize()
+    counts_split3 = dict(dist_band.LAUNCHES)
+    want = dict(dict.fromkeys(counts_split3, 0), split_slow=n_shelf,
+                split_subcycle=n_shelf, split_recompose=n_shelf)
+    if counts_split3 != want:
+        raise AssertionError(f"shelf split mesh path: launches "
+                             f"{counts_split3}, not {want}")
+    got = gather_state(out)
+    for f in "huv":
+        if not torch.equal(getattr(got, f), getattr(ref, f)):
+            raise AssertionError(f"shelf split mesh path: {f} is not the "
+                                 "single-device K1s run's")
+    print(f"   shelf_forced split nsub=8 on 2 x 4 shards (route 3): "
+          f"launches {counts_split3} in {n_shelf} steps; final state equal "
+          "to the single-device K1s run's bit for bit")
+
     n_proj = 10
     cfg, grid, forcing, st = make_case(
         "rigid_lid", nx=BIG, ny=BIG, device=dev, backend="fused",
@@ -2888,7 +3115,7 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts_proj = dict(dist_band.LAUNCHES)
-    want = {k: 8 * n_proj if k in ("proj_a", "proj_b") else 0
+    want = {k: n_proj if k in ("proj_a", "proj_b") else 0
             for k in counts_proj}
     if counts_proj != want or fp.LAUNCHES != single_before:
         raise AssertionError(f"implicit FS mesh path: launches "
@@ -2903,13 +3130,14 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
           "included)")
 
     # the distributed multigrid-preconditioned CG is far slower on the eager
-    # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100): from
-    # rest at 512^2, the first fused step held against the eager mesh step
-    # (the same solve, _dist_solve, so equal within 1e-6 x scale), and
-    # two fused steps against the single-device fused steps (K6 with
-    # multigrid) within the solver tolerance
-    cfg, grid, forcing, st = make_case("rigid_lid", nx=512, ny=512,
-                                       device=dev, backend="fused")
+    # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100, so
+    # the check runs at 256^2): from rest, the first fused step held against
+    # the eager mesh step (the same solve, _dist_solve, so equal within
+    # 1e-6 x scale), and two fused steps against the single-device fused
+    # steps (K6 with multigrid) within the solver tolerance
+    cfg, grid, forcing, st = make_case("rigid_lid", nx=MG_MESH_N,
+                                       ny=MG_MESH_N, device=dev,
+                                       backend="fused")
     st = prepare_state(st, cfg)
     m = pmesh.make_mesh(2, 2, devices=[dev])
     dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
@@ -2920,21 +3148,21 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     fused = step(fused)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if dist_band.LAUNCHES["proj_a"] != 8 \
-            or dist_band.LAUNCHES["proj_b"] != 8:
+    if dist_band.LAUNCHES["proj_a"] != 2 \
+            or dist_band.LAUNCHES["proj_b"] != 2:
         raise AssertionError(f"rigid lid on 2 x 2: launches "
                              f"{dist_band.LAUNCHES}")
     eager = dist.make_dist_stepper(
         grid, forcing, dataclasses.replace(cfg, backend="eager"), m)(
         pmesh.shard_state(st, m))
-    state_diff("rigid lid CG + multigrid 512^2 2 x 2, 1 fused step vs the "
-               "eager mesh step", first, gather_state(eager), 1e-6)
+    state_diff(f"rigid lid CG + multigrid {MG_MESH_N}^2 2 x 2, 1 fused step "
+               "vs the eager mesh step", first, gather_state(eager), 1e-6)
     one, single = st, fp.make_fused_projection_stepper(grid, forcing, cfg)
     for _ in range(2):
         one = single(one)
-    state_diff("rigid lid CG + multigrid 512^2 2 x 2, 2 fused steps vs "
-               "the single-device fused run", gather_state(fused), one, 1e-5,
-               1.0)
+    state_diff(f"rigid lid CG + multigrid {MG_MESH_N}^2 2 x 2, 2 fused steps "
+               "vs the single-device fused run", gather_state(fused), one,
+               1e-5, 1.0)
     print(f"   rigid lid with the distributed CG + multigrid on 2 x 2: "
           f"{wall:.3f} s for 2 steps")
 
@@ -2949,114 +3177,147 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     cfg, grid, forcing, st = perturbed_case(dev, 2, nx=BIG, ny=BIG,
                                             scheme="split", nsub=8)
     statics = (grid, forcing)
+    K = dist_band.MeshKernels(statics, cfg, m)
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
     sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
-    slow = dist_band.shard_split_slow(*sh, pstat, cfg)
-    sub = dist_band.shard_split_subcycle(slow, pstat, cfg)
+    f = [dist_band.stack(a) for a in sh]
+    t1 = st.t + cfg.npdtype.type(cfg.dt)
+    slow = K.slow(*f)
+    sub = K.subcycle(slow, *f)
+    tend = K.tend(*f)
+    sl = [dist_band.unstack(a, m) for a in slow]
+    sb = [dist_band.unstack(a, m) for a in sub]
+    td = [dist_band.unstack(a, m) for a in tend]
     one_slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
     one_sub = fused_fb._launch_subcycle(one_slow, st.h, st.u, st.v, statics,
                                         cfg)
-    n_stat = step_fields(cfg) - 6 * cfg.nz
+    one_tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
     nz = cfg.nz
-    t1 = st.t + cfg.npdtype.type(cfg.dt)
-    # per kernel: (its wrapper, the plain version, K1s's kernel, the
-    # profiler's names of the shard and single-device kernels, the fields
-    # at the grid's size that it reads or writes, the statics it reads,
-    # operations per point); every field and static counts once over the
-    # global grid, as for the single-device kernel of the same function
-    # (the halo a shard reads is its neighbours' points, not bytes the
-    # function needs)
+    # per kernel: (its launch for every shard, the plain version, K1s's
+    # kernel, the profiler's names of the shard and single-device kernels,
+    # fields moved per point and operations per point: K1s's, each operand
+    # once over the grid; the halo a shard reads is its neighbours' points,
+    # not bytes the function needs) and the run its launches come from
     timed = {
-        "slow": (lambda: dist_band.shard_split_slow(*sh, pstat, cfg),
+        "tend": (lambda: K.tend(*f),
+                 lambda: dist_band.split_tend_plain(*sh, pstat, cfg),
+                 lambda: fused_fb._launch_tend(st.h, st.u, st.v, statics,
+                                               cfg),
+                 "shard_tend_kernel", "split_tend_kernel",
+                 5 * nz + 5 + 2 * cfg.wind + cfg.sponge, 150 * nz,
+                 counts_split),
+        "tail": (lambda: K.tail(tend, *f, t1),
+                 lambda: dist_band.split_tail_plain(td, *sh, pstat, st.t,
+                                                    cfg),
+                 lambda: fused_fb._launch_tail(one_tend, st.h, st.u, st.v,
+                                               statics, t1, cfg),
+                 "shard_tail_kernel", "split_tail_kernel",
+                 8 * nz + 4 + cfg.obc * (3 + 2 * len(cfg.tides)),
+                 20 * cfg.nsub + 40 * nz + 30, counts_split),
+        "slow": (lambda: K.slow(*f),
                  lambda: dist_band.split_slow_plain(*sh, pstat, cfg),
                  lambda: fused_fb._launch_slow(st.h, st.u, st.v, statics,
                                                cfg),
                  "shard_slow_kernel", "split_slow_kernel",
-                 7 * nz + 9, n_stat, 150 * nz),
-        "subcycle": (lambda: dist_band.shard_split_subcycle(slow, pstat, cfg),
-                     lambda: dist_band.split_subcycle_plain(slow, pstat,
-                                                            cfg),
+                 step_fields(cfg) - 3 * nz + 4 * nz + 9, 150 * nz,
+                 counts_split3),
+        "subcycle": (lambda: K.subcycle(slow, *f),
+                     lambda: dist_band.split_subcycle_plain(sl, pstat, cfg),
                      lambda: fused_fb._launch_subcycle(
                          one_slow, st.h, st.u, st.v, statics, cfg),
-                     "shard_sub_kernel", "split_sub_kernel", 12, 3,
-                     20 * cfg.nsub),
-        "recompose": (lambda: dist_band.shard_split_recompose(
-                          slow, sub, sh[0], pstat, st.t, cfg),
+                     "shard_sub_kernel", "split_sub_kernel", 15,
+                     20 * cfg.nsub, counts_split3),
+        "recompose": (lambda: K.recompose(slow, sub, *f, t1),
                       lambda: dist_band.split_recompose_plain(
-                          slow, sub, sh[0], pstat, st.t, cfg),
+                          sl, sb, sh[0], pstat, st.t, cfg),
                       lambda: fused_fb._launch_recompose(
                           one_slow, one_sub, st.h, st.u, st.v, statics, t1,
                           cfg),
-                      "shard_rec_kernel", "split_rec_kernel", 8 * nz + 7, 4,
-                      40 * nz)}
-    for k, (kernel, plain, single, name7, name1, dyn, stat, ops) in \
+                      "shard_rec_kernel", "split_rec_kernel", 8 * nz + 11,
+                      40 * nz, counts_split3)}
+    for k, (kernel, plain, single, name7, name1, fields, ops, counts) in \
             timed.items():
-        ms = time_pair(f"K7-split {k} nsub=8 (2, 4)", plain, kernel, 5, 50)
-        ms1 = time_ms(single, 100)
-        dev_ms = device_ms(f"K7-split {k} (2, 4) and K1s {k}",
-                           lambda: (kernel(), single()), 20,
-                           {name7: 16, name1: 1})
+        with torch.cuda.device(dev):
+            ms = time_pair(f"K7-split {k} nsub=8 (2, 4)", plain, kernel, 5,
+                           50)
+            ms1 = time_ms(single, 100)
+            dev_ms = device_ms(f"K7-split {k} (2, 4) and K1s {k}",
+                               lambda: (kernel(), single()), 20,
+                               {name7: 1, name1: 1})
         print(f"   {k}: K7-split {ms[0]!r} ms between events, "
               f"{dev_ms[name7]!r} on the device; K1s {ms1!r} / "
               f"{dev_ms[name1]!r}")
         entries.append(kernel_entry(
             f"shard_split_{k}", "shard_split.cu", "dist_band.py:63",
-            counts_split[f"split_{k}"], err_split[k], ms,
-            4 * (dyn + stat) * pts, ops * pts, device=dev_ms[name7]))
-    step_ms = time_pair(
-        "K7-split step nsub=8 (2, 4)",
-        lambda: dist_band.shard_step_plain(*sh, pstat, 0, st.t, cfg, 1),
-        lambda: dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 1), 3, 30,
-        unit="step")
-    k1s_ms = time_ms(lambda: fused_fb.fused_fb_step(
-        st.h, st.u, st.v, statics, 0, st.t, cfg, 1), 50)
-    print(f"   split step nsub=8: K7-split on (2, 4) {step_ms[0]!r} ms, "
-          f"K1s {k1s_ms!r} ms")
-    del slow, sub, one_slow, one_sub, sh, pstat
+            counts[f"split_{k}"], err_split[k], ms, 4 * fields * pts,
+            ops * pts, device=dev_ms[name7]))
+    with torch.cuda.device(dev):
+        step_ms = time_pair(
+            "K7-split step nsub=8 (2, 4)",
+            lambda: dist_band.shard_step_plain(*sh, pstat, 0, st.t, cfg, 1),
+            lambda: K.split(*f, st.t, 1), 3, 30, unit="step")
+        k1s_ms = time_ms(lambda: fused_fb.fused_fb_step(
+            st.h, st.u, st.v, statics, 0, st.t, cfg, 1), 50)
+        dev_step = device_ms(
+            "K7-split step nsub=8 (2, 4) and K1s's", lambda: (
+                K.split(*f, st.t, 1), fused_fb.fused_fb_step(
+                    st.h, st.u, st.v, statics, 0, st.t, cfg, 1)), 20,
+            {"shard_tend_kernel": 1, "shard_tail_kernel": 1,
+             "split_tend_kernel": 1, "split_tail_kernel": 1})
+    print(f"   split step nsub=8: K7-split on (2, 4) {step_ms[0]!r} ms "
+          f"between events, "
+          f"{dev_step['shard_tend_kernel'] + dev_step['shard_tail_kernel']!r}"
+          f" on the device; K1s {k1s_ms!r} / "
+          f"{dev_step['split_tend_kernel'] + dev_step['split_tail_kernel']!r}")
+    del slow, sub, tend, sl, sb, td, one_slow, one_sub, one_tend, sh, f, K
+    del pstat
     torch.cuda.empty_cache()
 
     cfg, grid, forcing, st = perturbed_case(dev, 2, "rigid_lid", nx=BIG,
                                             ny=BIG, scheme="implicit_fs")
+    statics = (grid, forcing)
+    K = dist_band.MeshKernels(statics, cfg, m)
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
-    blocks = dist_band._static_blocks(pstat, m)
     sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
-    u_s, v_s, div = dist_band.shard_proj_a(*sh, pstat, 0, cfg)
-    p = pmesh.shard((st.h.sum(0) - grid.H) * grid.mask, m)
+    f = [dist_band.stack(a) for a in sh]
+    p = (st.h.sum(0) - grid.H) * grid.mask
+    ps = dist_band.stack_global(p, m)
+    with torch.cuda.device(dev):
+        us, vs, div = K.proj_a(*f, 0)
+    u_s, v_s = (dist_band.unstack(a, m) for a in (us, vs))
+    sp = dist_band.unstack(ps, m)
     ph = fp.Phases(grid, forcing, cfg)
     one_a = ph.a(st.h, st.u, st.v, 0)
-    p1 = pmesh.gather(p)
     fa, fb_ = phase_fields(cfg)
+    nz = cfg.nz
     keys = ph.kernel_keys()
+    print(f"   mesh plan: {K.plan.describe()}")
     timed = {
-        "proj_a": (lambda: dist_band.shard_proj_a(
-                       *sh, pstat, 0, cfg, static_blocks=blocks),
+        "proj_a": (lambda: K.proj_a(*f, 0),
                    lambda: dist_band.proj_a_plain(*sh, pstat, 0, cfg),
                    lambda: ph.a(st.h, st.u, st.v, 0),
-                   "shard_pa_kernel", keys[0], 5 * nz + 1,
-                   fa - 5 * nz - 1, 150 * nz),
-        "proj_b": (lambda: dist_band.shard_proj_b(
-                       sh[0], u_s, v_s, p, pstat, st.t, cfg,
-                       static_blocks=blocks),
-                   lambda: dist_band.proj_b_plain(sh[0], u_s, v_s, p, pstat,
-                                                  st.t, cfg),
-                   lambda: ph.b(st.h, one_a[0], one_a[1], p1, st.t),
-                   "shard_pb_kernel", keys[1], 6 * nz + 1,
-                   fb_ - 6 * nz - 1, 60 * nz)}
-    for k, (kernel, plain, single, name7, name1, dyn, stat, ops) in \
+                   "shard_pas_kernel", keys[0], fa, 150 * nz),
+        "proj_b": (lambda: K.proj_b(f[0], us, vs, ps, st.t),
+                   lambda: dist_band.proj_b_plain(sh[0], u_s, v_s, sp,
+                                                  pstat, st.t, cfg),
+                   lambda: ph.b(st.h, one_a[0], one_a[1], p, st.t),
+                   "shard_pbs_kernel", keys[1], fb_, 60 * nz)}
+    for k, (kernel, plain, single, name7, name1, fields, ops) in \
             timed.items():
-        ms = time_pair(f"K7-proj {k} implicit FS (2, 4)", plain, kernel, 5,
-                       50)
-        ms1 = time_ms(single, 100)
-        dev_ms = device_ms(f"K7-proj {k} (2, 4) and K3{k[-1]}",
-                           lambda: (kernel(), single()), 20,
-                           {name7: 8, name1: 1})
+        with torch.cuda.device(dev):
+            ms = time_pair(f"K7-proj {k} implicit FS (2, 4)", plain, kernel,
+                           5, 50)
+            ms1 = time_ms(single, 100)
+            dev_ms = device_ms(f"K7-proj {k} (2, 4) and K3{k[-1]}",
+                               lambda: (kernel(), single()), 20,
+                               {name7: 1, name1: 1})
         print(f"   {k}: K7-proj {ms[0]!r} ms between events, "
               f"{dev_ms[name7]!r} on the device; K3{k[-1]} {ms1!r} / "
               f"{dev_ms[name1]!r}")
         entries.append(kernel_entry(
             f"shard_{k}", "shard_projection.cu", "dist_band.py:63",
-            counts_proj[k], err_proj[k == "proj_b"], ms,
-            4 * (dyn + stat) * pts, ops * pts, device=dev_ms[name7]))
+            counts_proj[k], err_proj[k == "proj_b"], ms, 4 * fields * pts,
+            ops * pts, device=dev_ms[name7]))
 
     # the implicit-FS mesh step's time by part, between CUDA events on the
     # current stream, which every part joins
@@ -3071,12 +3332,12 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         a = dist_band.shard_proj_a(state.h, state.u, state.v, pstat, state.n,
-                                   cfg, static_blocks=blocks)
+                                   cfg, kernels=K)
         ev[1].record()
         phi = dist.solve_pressure(state, a[2], grid_l, pgrid1, cfg)
         ev[2].record()
         dist_band.shard_proj_b(state.h, a[0], a[1], phi, pstat, state.t, cfg,
-                               static_blocks=blocks)
+                               kernels=K)
         ev[3].record()
         torch.cuda.synchronize()
         for i, name in enumerate(parts):

@@ -252,7 +252,8 @@ def test_shard_split_equals_two_launch_step(cuda, name, nsub):
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
     sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
     before = fused_fb.SPLIT_LAUNCHES["tail"]
-    out = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2)
+    out = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2,
+                               kernels=dist_band.MeshKernels(statics, cfg, m))
     ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg, 2)
     torch.cuda.synchronize()
     assert fused_fb.SPLIT_LAUNCHES["tail"] == before + 2
@@ -684,10 +685,13 @@ MESHES = [(2, 4), (1, 8), (8, 1), (1, 1), (4, 1), (2, 2)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
-@pytest.mark.parametrize("mesh_shape", MESHES[:4])
+@pytest.mark.parametrize("mesh_shape", MESHES[:4] + [(12, 8)])
 def test_halo_pad_matches_plain(cuda, mesh_shape, dtype):
     """K8 against pad2d by slices and concatenations, 2-D and layered
-    fields, three widths: a copy, so bit for bit; one launch per shard."""
+    fields, three widths: a copy, so bit for bit; one launch for every
+    shard, the padded blocks views of one allocation; on (12, 8), more
+    shards than the launch's parameters hold, the pointer table in device
+    memory."""
     from beom_tpu_torch.parallel import halo, mesh as pmesh
     from beom_tpu_torch.stencils import halo_pad
 
@@ -701,14 +705,16 @@ def test_halo_pad_matches_plain(cuda, mesh_shape, dtype):
             before = halo_pad.LAUNCHES
             out = halo_pad.halo_pad(sa, w)
             torch.cuda.synchronize()
-            assert halo_pad.LAUNCHES == before + m.n
+            assert halo_pad.LAUNCHES == before + 1
             ref = halo_pad.halo_pad_plain(sa, w)
             for x, y in zip(out.blocks, ref.blocks):
                 assert torch.equal(x, y)
+            assert len({b.untyped_storage().data_ptr()
+                        for b in out.blocks}) == 1
     with halo.impl("rdma"):
         before = halo_pad.LAUNCHES
         halo.pad2d(sa, 2)
-        assert halo_pad.LAUNCHES == before + m.n
+        assert halo_pad.LAUNCHES == before + 1
 
 
 @pytest.mark.cuda
@@ -719,8 +725,9 @@ def test_halo_pad_matches_plain(cuda, mesh_shape, dtype):
 def test_shard_step_matches_plain_and_single_device(cuda, name, mesh_shape,
                                                     dtype, nx, ny, rel):
     """K7 on every fb case, both parities and a 2-step pass: against its
-    plain version per shard and against single-device K1 on the gathered
-    field (the arithmetic per point is K1's: 0.0 is what the card gives)."""
+    plain version per shard and bit for bit single-device K1 on the
+    gathered field (the arithmetic per point is K1's); the mesh plan's
+    launches, one for every shard."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
@@ -731,11 +738,14 @@ def test_shard_step_matches_plain_and_single_device(cuda, name, mesh_shape,
     m = pmesh.make_mesh(*mesh_shape, devices=[cuda])
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
     sh, su, sv = (pmesh.shard(a, m) for a in (st.h, st.u, st.v))
+    K = dist_band.MeshKernels((grid, forcing), cfg, m)
     for n, k in ((0, 1), (1, 1), (0, 2)):
         before = dict(dist_band.LAUNCHES)
-        out = dist_band.shard_step(sh, su, sv, pstat, n, st.t, cfg, k)
+        out = dist_band.shard_step(sh, su, sv, pstat, n, st.t, cfg, k,
+                                   kernels=K)
         torch.cuda.synchronize()
-        assert dist_band.LAUNCHES["edge"] == before["edge"] + k * m.n
+        launches = dist_band.mesh_plan(cfg, st.h.dtype, m).fb_launches(k)
+        assert dist_band.LAUNCHES["fb"] == before["fb"] + len(launches)
         ref = dist_band.shard_step_plain(sh, su, sv, pstat, n, st.t, cfg, k)
         one = fused_fb.fused_fb_step(st.h, st.u, st.v, (grid, forcing), n,
                                      st.t, cfg, k)
@@ -743,7 +753,48 @@ def test_shard_step_matches_plain_and_single_device(cuda, name, mesh_shape,
             a, b = pmesh.gather(a), pmesh.gather(b)
             scale = float(c.abs().max())
             assert float((a - b).abs().max()) <= rel * scale, (f, n, k)
-            assert float((a - c).abs().max()) <= rel * scale, (f, n, k)
+            assert torch.equal(a, c), (f, n, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mesh_shape", [(4, 1), (2, 4), (2, 2)])
+@pytest.mark.parametrize("name", list(CASE_KW))
+def test_shard_pass_equals_k1_pass(cuda, name, mesh_shape, dtype):
+    """K7's pass kernel of kb = 2 and 3 steps, one launch for every shard,
+    bit for bit K1's pass kernel of the same kb on one device (itself bit
+    for bit kb single steps), both parities, from a time at which the
+    tides are on; where no pass kernel's block fits a CTA (the f64 shelf),
+    the mesh plan keeps the single-step kernel."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = _perturbed(cuda, 59, name, nx=384, ny=256,
+                                        dtype=dtype, **CASE_KW[name])
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    m = pmesh.make_mesh(*mesh_shape, devices=[cuda])
+    K = dist_band.MeshKernels((grid, forcing), cfg, m)
+    fields = [dist_band.stack_global(a, m) for a in (st.h, st.u, st.v)]
+    fits = [kb for kb in (2, 3)
+            if fused_fb.launch_plan(cfg, st.h.dtype, kb) is not None]
+    if not fits:
+        assert K.plan.fb_launches(4) == [1, 1, 1, 1]
+    ran = 0
+    for kb in fits:
+        for n in (0, 1):
+            before = dist_band.LAUNCHES["fb_pass"]
+            with torch.cuda.device(cuda):
+                out = K.fb(*fields, n, st.t, kb, kb=kb)
+            one = fused_fb._launch_fb(st.h, st.u, st.v, (grid, forcing),
+                                      n % 2, fused_fb._times(st.t, cfg, kb),
+                                      cfg)
+            torch.cuda.synchronize()
+            assert dist_band.LAUNCHES["fb_pass"] == before + 1
+            for f, a, b in zip("huv", out, one):
+                assert torch.equal(pmesh.gather(dist_band.unstack(a, m)),
+                                   b), (f, kb, n)
+            ran += 1
+    assert ran == 2 * len(fits)
 
 
 @pytest.mark.cuda
@@ -759,8 +810,7 @@ def test_shard_step_refuses_other_schemes(cuda, scheme):
                                        device=cuda, scheme=scheme,
                                        backend="fused", precond="jacobi")
     m = pmesh.make_mesh(2, 2, devices=[cuda])
-    kinds = ("split_slow", "split_subcycle", "split_recompose") \
-        if scheme == "split" else ("proj_a", "proj_b")
+    kinds = dist_band.mesh_plan(cfg, cfg.tdtype, m).launches()
     before = dict(dist_band.LAUNCHES)
     out = make_dist_stepper(grid, forcing, cfg, m)(pmesh.shard_state(st, m))
     torch.cuda.synchronize()
@@ -772,10 +822,15 @@ def test_shard_step_refuses_other_schemes(cuda, scheme):
 
 
 def _gathered_close(outs, refs, rel, what):
+    """Every gathered field of outs within rel x scale of refs (0.0: bit
+    for bit)."""
     from beom_tpu_torch.parallel import mesh as pmesh
 
     for i, (a, b) in enumerate(zip(outs, refs)):
         a, b = pmesh.gather(a), pmesh.gather(b)
+        if rel == 0.0:
+            assert torch.equal(a, b), (what, i)
+            continue
         err = float((a - b).abs().max())
         assert err <= rel * max(float(b.abs().max()), 1e-30), (what, i, err)
 
@@ -790,11 +845,11 @@ def _gathered_close(outs, refs, rel, what):
 def test_shard_split_matches_plain_and_single_device(cuda, name, nsub,
                                                      mesh_shape, dtype, nx,
                                                      ny, rel):
-    """K7 around the split body: each of the three kernels against its
-    plain version per shard and against the single-device kernel (K1s) on
-    the gathered field, and the chained 2-step pass against K1s; two
-    launches of each kernel per shard and step where a block has interior
-    tiles."""
+    """K7 around the split body: each of the five kernels (route 3's
+    three, route 2's tendencies and tail) against its plain version per
+    shard and bit for bit the single-device kernel (K1s) on the gathered
+    field, and the chained 2-step pass bit for bit K1s's by the plan's
+    route, one launch of each of its kernels per step for every shard."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
@@ -806,34 +861,51 @@ def test_shard_split_matches_plain_and_single_device(cuda, name, nsub,
     m = pmesh.make_mesh(*mesh_shape, devices=[cuda])
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
     sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
-    slow = dist_band.shard_split_slow(*sh, pstat, cfg)
+    K = dist_band.MeshKernels(statics, cfg, m)
+    slow = dist_band.shard_split_slow(*sh, pstat, cfg, kernels=K)
     one_slow = fused_fb._launch_slow(st.h, st.u, st.v, statics, cfg)
     torch.cuda.synchronize()
     _gathered_close(slow, dist_band.split_slow_plain(*sh, pstat, cfg), rel,
                     "slow vs plain")
-    _gathered_close(slow, one_slow, rel, "slow vs K1s")
-    sub = dist_band.shard_split_subcycle(slow, pstat, cfg)
+    _gathered_close(slow, one_slow, 0.0, "slow vs K1s")
+    sub = dist_band.shard_split_subcycle(slow, pstat, cfg, kernels=K)
     one_sub = fused_fb._launch_subcycle(one_slow, st.h, st.u, st.v, statics,
                                         cfg)
     torch.cuda.synchronize()
     _gathered_close(sub, dist_band.split_subcycle_plain(slow, pstat, cfg),
                     rel, "subcycle vs plain")
-    _gathered_close(sub, one_sub, rel, "subcycle vs K1s")
-    rec = dist_band.shard_split_recompose(slow, sub, sh[0], pstat, st.t, cfg)
+    _gathered_close(sub, one_sub, 0.0, "subcycle vs K1s")
+    rec = dist_band.shard_split_recompose(slow, sub, sh[0], pstat, st.t, cfg,
+                                          kernels=K)
     t1 = st.t + cfg.npdtype.type(cfg.dt)
     one_rec = fused_fb._launch_recompose(one_slow, one_sub, st.h, st.u, st.v,
                                          statics, t1, cfg)
     torch.cuda.synchronize()
     _gathered_close(rec, dist_band.split_recompose_plain(
         slow, sub, sh[0], pstat, st.t, cfg), rel, "recompose vs plain")
-    _gathered_close(rec, one_rec, rel, "recompose vs K1s")
-    before = dict(dist_band.LAUNCHES)
-    out = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2)
+    _gathered_close(rec, one_rec, 0.0, "recompose vs K1s")
+    tend = dist_band.shard_split_tend(*sh, pstat, cfg, kernels=K)
+    one_tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
+    tail = dist_band.shard_split_tail(tend, *sh, pstat, st.t, cfg,
+                                      kernels=K)
+    one_tail = fused_fb._launch_tail(one_tend, st.h, st.u, st.v, statics,
+                                     t1, cfg)
     torch.cuda.synchronize()
-    for k in ("split_slow", "split_subcycle", "split_recompose"):
-        assert 2 * m.n <= dist_band.LAUNCHES[k] - before[k] <= 4 * m.n, k
+    _gathered_close(tend, dist_band.split_tend_plain(*sh, pstat, cfg), rel,
+                    "tend vs plain")
+    _gathered_close(tend, one_tend, 0.0, "tend vs K1s")
+    _gathered_close(tail, dist_band.split_tail_plain(tend, *sh, pstat, st.t,
+                                                     cfg), rel,
+                    "tail vs plain")
+    _gathered_close(tail, one_tail, 0.0, "tail vs K1s")
+    before = dict(dist_band.LAUNCHES)
+    out = dist_band.shard_step(*sh, pstat, 0, st.t, cfg, 2, kernels=K)
+    torch.cuda.synchronize()
+    want = dist_band.mesh_plan(cfg, st.h.dtype, m).launches(2)
+    assert {k: dist_band.LAUNCHES[k] - before[k] for k in before
+            if dist_band.LAUNCHES[k] != before[k]} == want
     _gathered_close(out, fused_fb.fused_fb_step(
-        st.h, st.u, st.v, statics, 0, st.t, cfg, 2), rel, "step vs K1s")
+        st.h, st.u, st.v, statics, 0, st.t, cfg, 2), 0.0, "step vs K1s")
 
 
 @pytest.mark.cuda
@@ -845,8 +917,8 @@ def test_shard_split_matches_plain_and_single_device(cuda, name, nsub,
 def test_shard_projection_matches_plain_and_single_device(
         cuda, name, scheme, mesh_shape, dtype, nx, ny, rel):
     """K7 around the projection bodies: phase A and phase B against their
-    plain versions per shard and against K3a / K3b on the gathered field,
-    both parities; one launch per shard and phase."""
+    plain versions per shard and bit for bit K3a / K3b on the gathered
+    field, both parities; one launch per phase for every shard."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
@@ -861,23 +933,25 @@ def test_shard_projection_matches_plain_and_single_device(
     p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
         * grid.mask
     sp = pmesh.shard(p, m)
+    K = dist_band.MeshKernels(statics, cfg, m)
     for n in (0, 1):
         before = dict(dist_band.LAUNCHES)
-        a = dist_band.shard_proj_a(*sh, pstat, n, cfg)
+        a = dist_band.shard_proj_a(*sh, pstat, n, cfg, kernels=K)
         one_a = fused_projection.proj_a(st.h, st.u, st.v, statics, n, cfg)
-        b = dist_band.shard_proj_b(sh[0], a[0], a[1], sp, pstat, st.t, cfg)
+        b = dist_band.shard_proj_b(sh[0], a[0], a[1], sp, pstat, st.t, cfg,
+                                   kernels=K)
         one_b = fused_projection.proj_b(st.h, one_a[0], one_a[1], p, statics,
                                         st.t, cfg)
         torch.cuda.synchronize()
-        assert dist_band.LAUNCHES["proj_a"] == before["proj_a"] + m.n
-        assert dist_band.LAUNCHES["proj_b"] == before["proj_b"] + m.n
+        assert dist_band.LAUNCHES["proj_a"] == before["proj_a"] + 1
+        assert dist_band.LAUNCHES["proj_b"] == before["proj_b"] + 1
         _gathered_close(a, dist_band.proj_a_plain(*sh, pstat, n, cfg), rel,
                         "A vs plain")
-        _gathered_close(a, one_a, rel, "A vs K3a")
+        _gathered_close(a, one_a, 0.0, "A vs K3a")
         _gathered_close(b, dist_band.proj_b_plain(sh[0], a[0], a[1], sp,
                                                   pstat, st.t, cfg), rel,
                         "B vs plain")
-        _gathered_close(b, one_b, rel, "B vs K3b")
+        _gathered_close(b, one_b, 0.0, "B vs K3b")
 
 
 @pytest.mark.cuda
@@ -885,9 +959,8 @@ def test_shard_projection_matches_plain_and_single_device(
 @pytest.mark.parametrize("name", list(CASE_KW))
 def test_shard_projection_equals_staged_phases(cuda, name, scheme):
     """K7-proj's two phases on (2, 4) shards, gathered, bit for bit the
-    plan's staged K3a / K3b (the single-step bodies they share, and the
-    staged kernels, are each bit for bit the plain phases), both
-    parities, f32."""
+    plan's staged K3a / K3b (whose stage bodies they run), both parities,
+    f32."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
@@ -901,16 +974,93 @@ def test_shard_projection_equals_staged_phases(cuda, name, scheme):
     sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
     p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
         * grid.mask
+    K = dist_band.MeshKernels(statics, cfg, m)
     for n in (0, 1):
-        a = dist_band.shard_proj_a(*sh, pstat, n, cfg)
+        a = dist_band.shard_proj_a(*sh, pstat, n, cfg, kernels=K)
         one_a = fused_projection.proj_a(st.h, st.u, st.v, statics, n, cfg)
         b = dist_band.shard_proj_b(sh[0], a[0], a[1], pmesh.shard(p, m),
-                                   pstat, st.t, cfg)
+                                   pstat, st.t, cfg, kernels=K)
         one_b = fused_projection.proj_b(st.h, one_a[0], one_a[1], p, statics,
                                         st.t, cfg)
         torch.cuda.synchronize()
         for x, y in zip(a + b, one_a + one_b):
             assert torch.equal(pmesh.gather(x), y), (name, scheme, n)
+
+
+def _layered(cfg, forcing, st, nz):
+    """cfg, forcing and st with the bottom layer split into equal layers,
+    each a little denser, up to nz layers: the same column, more
+    layers."""
+    parts, top = nz - cfg.nz + 1, cfg.nz - 1
+    rho = tuple(cfg.rho[:top]) + tuple(cfg.rho[top] + i
+                                       for i in range(parts))
+
+    def split(a, share):
+        return torch.cat([a[:top]] + [a[top:] / share] * parts)
+
+    h_ext = split(forcing.h_ext, parts)
+    return (dataclasses.replace(cfg, nz=nz, rho=rho),
+            dataclasses.replace(forcing, h_ext=h_ext),
+            st.replace(h=split(st.h, parts), u=split(st.u, 1),
+                       v=split(st.v, 1)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,nz", [("two_layer", 3),
+                                     ("coastal_wetdry", 5)])
+def test_shard_projection_single_step_phases(cuda, name, nz):
+    """Where no staged geometry fits a CTA (f64 with nz = 3: phase A; with
+    wet/dry and nz = 5: both phases), K7-proj runs the single-step bodies,
+    one launch per phase for every shard of (2, 2), bit for bit the
+    single-device K3a / K3b of the same plan, both parities; and the fused
+    mesh stepper steps through them."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel.dist import make_dist_stepper
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = _perturbed(cuda, 61, name, nx=192, ny=128,
+                                        dtype="float64", scheme="rigid_lid",
+                                        **CASE_KW[name])
+    cfg, forcing, st = _layered(cfg, forcing, st, nz)
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    pl = fused_projection.plan(cfg, torch.float64)
+    assert pl.a is None and (pl.b is None) == (name == "coastal_wetdry")
+    statics = (grid, forcing)
+    m = pmesh.make_mesh(2, 2, devices=[cuda])
+    K = dist_band.MeshKernels(statics, cfg, m)
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+        * grid.mask
+    sp = pmesh.shard(p, m)
+    for n in (0, 1):
+        before = dict(dist_band.LAUNCHES)
+        a = dist_band.shard_proj_a(*sh, pstat, n, cfg, kernels=K)
+        one_a = fused_projection.proj_a(st.h, st.u, st.v, statics, n, cfg)
+        b = dist_band.shard_proj_b(sh[0], a[0], a[1], sp, pstat, st.t, cfg,
+                                   kernels=K)
+        one_b = fused_projection.proj_b(st.h, one_a[0], one_a[1], p, statics,
+                                        st.t, cfg)
+        torch.cuda.synchronize()
+        assert dist_band.LAUNCHES["proj_a"] == before["proj_a"] + 1
+        assert dist_band.LAUNCHES["proj_b"] == before["proj_b"] + 1
+        _gathered_close(a, dist_band.proj_a_plain(*sh, pstat, n, cfg), 1e-12,
+                        "A vs plain")
+        _gathered_close(a, one_a, 0.0, "A vs K3a")
+        _gathered_close(b, dist_band.proj_b_plain(sh[0], a[0], a[1], sp,
+                                                  pstat, st.t, cfg), 1e-12,
+                        "B vs plain")
+        _gathered_close(b, one_b, 0.0, "B vs K3b")
+    fused = dataclasses.replace(cfg, backend="fused", precond="jacobi",
+                                mesh_y=2, mesh_x=2)
+    before = dict(dist_band.LAUNCHES)
+    out = make_dist_stepper(grid, forcing, fused, m)(
+        pmesh.shard_state(st, m))
+    torch.cuda.synchronize()
+    assert out.n == st.n + 1
+    assert dist_band.LAUNCHES["proj_a"] == before["proj_a"] + 1
+    assert all(bool(torch.isfinite(pmesh.gather(x)).all())
+               for x in (out.h, out.u, out.v))
 
 
 @pytest.mark.cuda
@@ -921,14 +1071,14 @@ def test_shard_projection_equals_staged_phases(cuda, name, scheme):
     ("split", dict(halo_impl="rdma", nsub=4), None)])
 def test_run_on_a_mesh_of_shards_on_the_card(cuda, scheme, kw, pads):
     """run() with a 2 x 4 mesh on the one card, as the command line starts
-    it: the fused tier through K7 (fb: an interior and an edge launch per
-    shard and step; split: the same for each of its three kernels) and the
-    eager tier with halo_impl='rdma' through K8 (fb: 3 pad2d per step, one
-    launch per shard), against the single-device run of the same backend:
-    fb and split carry no reduction, so state and diagnostics are equal
-    bit for bit."""
+    it: the fused tier through K7 (the mesh plan's launches, one per kernel
+    for every shard) and the eager tier with halo_impl='rdma' through K8
+    (fb: 3 pad2d per step, one launch each), against the single-device run
+    of the same backend: fb and split carry no reduction, so state and
+    diagnostics are equal bit for bit."""
     import io
 
+    from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.parallel.mesh import gather_state
     from beom_tpu_torch.run import run
     from beom_tpu_torch.stencils import dist_band, halo_pad
@@ -946,22 +1096,22 @@ def test_run_on_a_mesh_of_shards_on_the_card(cuda, scheme, kw, pads):
                            grid, forcing, st, n, log=logn))
     torch.cuda.synchronize()
     if cfg.backend == "fused":
-        # per shard and step, each kernel's edge launch and, where the
-        # 256 x 128 block has interior tiles for its halo, its interior one
-        tiles = dist_band._entry(cfg, st.h.dtype)[2]
+        # the plan's launches: run() steps each chunk of diag_every steps
+        # as its passes of steps_per_pass steps and single steps for the
+        # remainder
+        plan = dist_band.mesh_plan(cfg, st.h.dtype,
+                                   pmesh.make_mesh(2, 4, devices=[cuda]))
+        passes, rem = divmod(cfg.diag_every, cfg.steps_per_pass)
         want = dict.fromkeys(dist_band.LAUNCHES, 0)
-        for key, w in dist_band.kernel_halos(cfg).items():
-            inner = dist_band.has_interior(256, 128, w, tiles[key])
-            if key == "fb":
-                want.update(interior=8 * n * inner, edge=8 * n)
-            else:
-                want[f"split_{key}"] = 8 * n * (1 + inner)
+        for k, times in ((cfg.steps_per_pass, passes), (1, rem)):
+            for key, c in plan.launches(k).items():
+                want[key] += c * times * (n // cfg.diag_every)
         assert dist_band.LAUNCHES == want
         assert halo_pad.LAUNCHES == 0
     elif pads is not None:
-        assert halo_pad.LAUNCHES == pads * 8 * n
+        assert halo_pad.LAUNCHES == pads * n
     else:
-        assert halo_pad.LAUNCHES > 0 and halo_pad.LAUNCHES % 8 == 0
+        assert halo_pad.LAUNCHES > 0
     assert logn.getvalue() == log1.getvalue()
     assert len(logn.getvalue().splitlines()) == 2
     for f in "huv":

@@ -55,7 +55,8 @@ def test_shard_step_plain_equals_single_device_step(case, k):
     sh, su, sv = (shard(a, mesh) for a in (st.h, st.u, st.v))
     before = dict(dist_band.LAUNCHES)
     for n in (0, 1):
-        out = dist_band.shard_step(sh, su, sv, pstat, n, st.t, cfg, k)
+        out = dist_band.shard_step(sh, su, sv, pstat, n, st.t, cfg, k,
+                                   kernels=None)
         ref = fused_fb.fused_fb_step_plain(st.h, st.u, st.v,
                                            (grid, forcing), n, st.t, cfg, k)
         for f, a, b in zip("huv", out, ref):
@@ -142,14 +143,29 @@ def test_fused_mesh_refuses_other_schemes(scheme, item):
 
 def test_shard_step_build_spec_and_interior():
     """The shard step builds csrc/shard_step.cu with the switches and the
-    tile of the single-device fused step; a block too small for an
-    interior tile takes the edge launch alone."""
+    tile of the single-device fused step (at kb > 1 those of its pass
+    kernel); the mesh plan launches every shard of the card at once, with
+    the single-device plan's steps per launch where a block holds their
+    halo, fewer where it does not."""
     _, (cfg, *_) = _port_case("shelf_forced", nx=48, ny=32)
     name, defines = dist_band.build_spec(cfg)
     assert name == "shard_step"
     assert defines == fused_fb.build_spec(cfg)[1]
     assert "BEOM_OBC=1" in defines and "BEOM_NZ=2" in defines
-    assert dist_band.has_interior(4096, 2048, 4, (32, 16))
-    assert dist_band.has_interior(48, 128, 4, (32, 16))
-    assert not dist_band.has_interior(32, 128, 4, (32, 16))
-    assert not dist_band.has_interior(1024, 64, 5, (32, 16))
+    _, (gyre, *_) = _port_case("double_gyre", nx=48, ny=32)
+    gyre = dataclasses.replace(gyre, nx=2048, ny=2048, steps_per_pass=4,
+                               dtype="float32")
+    assert dist_band.build_spec(gyre, torch.float32, kb=2) \
+        == ("shard_step", fused_fb.build_spec(gyre, torch.float32, 2)[1])
+    one = fused_fb.plan(gyre, torch.float32, 4)
+    pl = dist_band.mesh_plan(gyre, torch.float32, make_mesh(2, 4,
+                                                            devices=["cpu"]))
+    assert (pl.ly, pl.lx) == (1024, 512)
+    assert pl.kb(4) == one.kb and pl.fb_launches(4) == one.launches(4)
+    assert pl.launches() == {"fb": len(one.launches(4)),
+                             "fb_pass": sum(m > 1 for m in one.launches(4))}
+    small = dist_band.mesh_plan(dataclasses.replace(gyre, nx=64, ny=56),
+                                torch.float32, make_mesh(4, 8,
+                                                         devices=["cpu"]))
+    assert (small.ly, small.lx, small.max_kb) == (14, 8, 2)
+    assert small.kb(4) == min(one.kb, 2)

@@ -52,18 +52,20 @@ def test_split_plain_equals_single_device_phases(case, nsub):
     sub_ref = split.subcycle_phase(sp, grid, cfg)
     rec_ref = fused_fb.split_recompose(sp, sub_ref, st.h, st.u, st.v,
                                        (grid, forcing), st.t, cfg)
-    assert dist_band.shard_halo(cfg) == max(nsub, 3 if cfg.wetdry else 2)
+    assert dist_band.shard_halo(cfg) == fused_fb.tail_halo(cfg) \
+        == nsub + (2 if cfg.wetdry else 1) + int(cfg.wetdry or cfg.obc)
     before = dict(dist_band.LAUNCHES)
     for mesh_shape in MESHES:
         mesh = make_mesh(*mesh_shape, devices=["cpu"])
         pstat = dist_band.pad_statics(grid, forcing, cfg, mesh)
         sh = [shard(a, mesh) for a in (st.h, st.u, st.v)]
-        slow = dist_band.shard_split_slow(*sh, pstat, cfg)
+        slow = dist_band.shard_split_slow(*sh, pstat, cfg, kernels=None)
         _equal(f"slow {mesh_shape}", slow, fused_fb._slow_fields(sp, cfg))
-        sub = dist_band.shard_split_subcycle(slow, pstat, cfg)
+        sub = dist_band.shard_split_subcycle(slow, pstat, cfg,
+                                               kernels=None)
         _equal(f"subcycle {mesh_shape}", sub, sub_ref)
         rec = dist_band.shard_split_recompose(slow, sub, sh[0], pstat, st.t,
-                                              cfg)
+                                              cfg, kernels=None)
         _equal(f"recompose {mesh_shape}", rec, rec_ref)
     assert dist_band.LAUNCHES == before       # CPU blocks launch nothing
 
@@ -87,12 +89,12 @@ def test_projection_plain_equals_single_device_phases(case, scheme):
         pstat = dist_band.pad_statics(grid, forcing, cfg, mesh)
         sh = [shard(a, mesh) for a in (st.h, st.u, st.v)]
         for n in (0, 1):
-            a = dist_band.shard_proj_a(*sh, pstat, n, cfg)
+            a = dist_band.shard_proj_a(*sh, pstat, n, cfg, kernels=None)
             a_ref = fused_projection.proj_a_plain(st.h, st.u, st.v, statics,
                                                   n, cfg)
             _equal(f"A {mesh_shape} n={n}", a, a_ref)
             b = dist_band.shard_proj_b(sh[0], a[0], a[1], shard(p, mesh),
-                                       pstat, st.t, cfg)
+                                       pstat, st.t, cfg, kernels=None)
             _equal(f"B {mesh_shape} n={n}", b, fused_projection.proj_b_plain(
                 st.h, a_ref[0], a_ref[1], p, statics, st.t, cfg))
 

@@ -67,6 +67,19 @@ window ((b) is not: at 2048^2 f32 its sweep budget lets the state go
 non-finite by step 102); the host's ms for that set-up (make_stepper),
 and where the checkout caches the Jacobi tile plan also with that cache
 emptied ahead of each; and the code report.
+
+    python3 tools/kernel_times.py ROOT --mesh
+
+times only the mesh's shard kernels, as the checkout launches them on a
+2 x 4 mesh of the 2048^2 f32 grid on the card (mesh_report): K7-fb's step
+and 4-step pass, K7-split's step at nsub 8, K7-proj's phases A and B and
+K8's pad2d of w = 5, between CUDA events and on the device (every launch
+of the call), with their launches and digests of the gathered outputs;
+beside them the single-device kernels whose stage bodies they share (K1's
+4-step pass, K1s's step at nsub 8, K3a, K3b) with digests;
+and run() of the mesh's fb and split paths and of the eager fb tier
+through K8, in ms per step with the device's busy share; and the code
+report.
 """
 
 from __future__ import annotations
@@ -251,6 +264,152 @@ def projection_report(sm, dev, out, digest, record) -> None:
             k: v for k, v in parts.items() if k != "idle share"}
 
 
+def mesh_report(sm, dev, out, digest, record) -> None:
+    """The --mesh report of the checkout imported: the shard kernels on a
+    2 x 4 mesh of the 2048^2 f32 grid on the one card, as each checkout
+    launches them, each call's device time summed over its launches (key
+    "shard_" or "halo_pad_kernel", launches per call from the checkout's
+    counters), with digests of the gathered outputs; the mesh paths
+    through run() in ms per step with the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import dist_band, halo_pad
+
+    from beom_tpu_torch.stencils import fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    m = pmesh.make_mesh(2, 4, devices=[dev])
+    new = hasattr(dist_band, "MeshKernels")
+
+    def kernels(statics, cfg):
+        # what a stepper keeps across calls: the change's MeshKernels, the
+        # parent's contiguous padded statics
+        if new:
+            return {"kernels": dist_band.MeshKernels(statics, cfg, m)}
+        pstat = dist_band.pad_statics(*statics, cfg, m)
+        return {"static_blocks": dist_band._static_blocks(pstat, m)}
+
+    def sharded(*tensors):
+        # the fields as each checkout's stepper hands them to its kernels:
+        # views of the stacked layout on the change
+        fields = [pmesh.shard(a, m) for a in tensors]
+        if new:
+            fields = [dist_band.unstack(dist_band.stack(a), m)
+                      for a in fields]
+        return fields
+
+    def count():
+        # every launch once (the change's "fb_pass" counts a subset of "fb")
+        return sum(v for k, v in dist_band.LAUNCHES.items()
+                   if k != "fb_pass") + halo_pad.LAUNCHES
+
+    def launches_of(fn):
+        before = count()
+        fn()
+        torch.cuda.synchronize()
+        return count() - before
+
+    def timed(name, fn, n, key):
+        n_launch = launches_of(fn)
+        out[name + " launches"] = n_launch
+        out[name + " digest"] = digest(*[pmesh.gather(a) for a in fn()])
+        record(name, fn, n, key, n_launch)
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N,
+                                               steps_per_pass=4)
+    st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+    kw = kernels((grid, forcing), cfg)
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    f = sharded(st.h, st.u, st.v)
+    # the single-device kernels the shard kernels share their bodies
+    # with, beside them: K1's 4-step pass, K1s's step, K3a / K3b
+    statics = (grid, forcing)
+    one = lambda k: fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0,
+                                           st.t, cfg, k)
+    n1 = len(fused_fb.plan(cfg, cfg.tdtype, 4).launches(4))
+    out["K1 4-step pass digest"] = digest(*one(4))
+    record("K1 4-step pass", lambda: one(4), 100, "fb_", n1)
+    timed("K7-fb step", lambda: dist_band.shard_step(
+        *f, pstat, 0, st.t, cfg, 1, **kw), 100, "shard_")
+    timed("K7-fb 4-step pass", lambda: dist_band.shard_step(
+        *f, pstat, 0, st.t, cfg, 4, **kw), 30, "shard_")
+    timed("K8 pad2d w=5", lambda: [halo_pad.halo_pad(f[0], 5)], 200,
+          "halo_pad_kernel")
+    del kw, pstat, f
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N,
+                                               scheme="split", nsub=8)
+    kw = kernels((grid, forcing), cfg)
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    f = sharded(st.h, st.u, st.v)
+    timed("K7-split step nsub 8", lambda: dist_band.shard_step(
+        *f, pstat, 0, st.t, cfg, 1, **kw), 50, "shard_")
+    step = lambda: fused_fb.fused_fb_step(st.h, st.u, st.v, (grid, forcing),
+                                          0, st.t, cfg, 1)
+    out["K1s step nsub 8 digest"] = digest(*step())
+    record("K1s step nsub 8", step, 100, "split_",
+           fused_fb.split_plan(cfg).launches())
+    del kw, pstat, f
+
+    cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
+                                               ny=N, scheme="implicit_fs")
+    kw = kernels((grid, forcing), cfg)
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    f = sharded(st.h, st.u, st.v)
+    p = sharded((st.h.sum(0) - grid.H) * grid.mask)[0]
+    a = dist_band.shard_proj_a(*f, pstat, 0, cfg, **kw)
+    timed("K7-proj A", lambda: dist_band.shard_proj_a(
+        *f, pstat, 0, cfg, **kw), 100, "shard_pa")
+    timed("K7-proj B", lambda: dist_band.shard_proj_b(
+        f[0], a[0], a[1], p, pstat, st.t, cfg, **kw), 100, "shard_pb")
+    pa, pb = sm.phase_launchers(fp, grid, forcing, cfg)
+    u_s, v_s, _ = pa(st.h, st.u, st.v, 0)
+    p1 = (st.h.sum(0) - grid.H) * grid.mask
+    out["K3a digest"] = digest(*pa(st.h, st.u, st.v, 0))
+    out["K3b digest"] = digest(*pb(st.h, u_s, v_s, p1, st.t))
+    record("K3a", lambda: pa(st.h, st.u, st.v, 0), 100, "proj_a")
+    record("K3b", lambda: pb(st.h, u_s, v_s, p1, st.t), 100, "proj_b")
+    del kw, pstat, f, a, p
+    torch.cuda.empty_cache()
+
+    def busy(fn):
+        # the device's busy share over one call of fn() (after one not
+        # profiled): kernel time over wall time
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return sum(r[0] for r in sm.device_rows(prof)) / 1e6 / wall
+
+    for name, kw, n_steps in (
+            ("mesh fb run() ms/step", dict(steps_per_pass=4), 200),
+            ("mesh split nsub 8 run() ms/step", dict(scheme="split",
+                                                     nsub=8), 100),
+            ("mesh eager fb rdma run() ms/step", dict(backend="eager",
+                                                      halo_impl="rdma"),
+             20)):
+        cfg, grid, forcing, st = make_case(
+            "double_gyre", nx=N, ny=N, device=dev,
+            **dict(dict(backend="fused", mesh_y=2, mesh_x=4,
+                        diag_every=n_steps // 2), **kw))
+        go = lambda: run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+        go()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        go()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / n_steps * 1e3
+        out[name.replace("ms/step", "busy share")] = busy(go)
+
+
 def setup_ms(grid, forcing, cfg, before=None) -> float:
     """The host's ms for what run() makes once per call, its stepper
     (make_stepper), the median of three; before() runs ahead of each."""
@@ -271,7 +430,7 @@ def setup_ms(grid, forcing, cfg, before=None) -> float:
 
 
 def main(root: str, only_split: bool = False,
-         only_projection: bool = False) -> dict:
+         only_projection: bool = False, only_mesh: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -337,6 +496,15 @@ def main(root: str, only_split: bool = False,
         record(name, lambda: jacobi(b, eta_n), n, "cg_")
         stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
         return jacobi, b, eta_n
+
+    if only_mesh:
+        mesh_report(sm, dev, out, digest, record)
+        out["code"] = code_report(build)
+        out["power"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        return out
 
     if only_projection:
         projection_report(sm, dev, out, digest, record)
@@ -419,11 +587,15 @@ def main(root: str, only_split: bool = False,
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, nx=N, ny=N)
     m = pmesh.make_mesh(2, 4, devices=[dev])
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
-    blocks = dist_band._static_blocks(pstat, m)
     fields = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    if hasattr(dist_band, "MeshKernels"):
+        kw = {"kernels": dist_band.MeshKernels((grid, forcing), cfg, m)}
+        n7 = 1
+    else:
+        kw = {"static_blocks": dist_band._static_blocks(pstat, m)}
+        n7 = 16
     record("K7 fb step (2, 4)", lambda: dist_band.shard_step(
-        *fields, pstat, 0, st.t, cfg, 1, static_blocks=blocks), 100,
-        "shard_step_kernel", 16)
+        *fields, pstat, 0, st.t, cfg, 1, **kw), 100, "shard_step_kernel", n7)
 
     cfg, grid, forcing, st = sm.perturbed_case(dev, 2, "rigid_lid", nx=N,
                                                ny=N)
@@ -508,8 +680,9 @@ def main(root: str, only_split: bool = False,
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (2, 3) \
-            or sys.argv[2:] not in ([], ["--split"], ["--projection"]):
+    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
+            [], ["--split"], ["--projection"], ["--mesh"]):
         raise SystemExit(__doc__)
     print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"],
-                          sys.argv[2:] == ["--projection"])))
+                          sys.argv[2:] == ["--projection"],
+                          sys.argv[2:] == ["--mesh"])))
