@@ -26,8 +26,18 @@ Layout (module paths and names mirror beom_tpu's):
   cases/     the double gyre, the two-layer gyre, the rigid-lid gyre, the
              wetting-drying coast, the forced shelf
   diag/      energy/mass diagnostics, NaN guard
-  io/        snapshots (the reference's npz layout), TOML + overrides
+  io/        snapshots (the reference's npz layout) and raw snapshots (its
+             headerless binary), TOML (load_toml, load_toml_case) +
+             overrides; native.py, the async snapshot writer (ctypes over
+             csrc/snapwriter.cpp, built with g++ into build/native/)
+  parallel/multihost.py  the multi-process bootstrap on torch.distributed
+             and gather_to_host
+  viz/       quicklook PNGs and diagnostic series (needs matplotlib, which
+             no other module imports)
   run.py     the chunked run loop and CLI
+  entry.py   entry() (one fused step of the 256^2 gyre) and
+             dryrun_multichip(n) (the reference's seven mesh legs on n
+             shards of one device)
   convert.py arrays across from and back to beom_tpu
 
 Importing the package builds no kernel: each is built at its first

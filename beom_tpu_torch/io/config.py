@@ -40,6 +40,17 @@ def from_dict(d: Mapping, base: Optional[Config] = None) -> Config:
     return dataclasses.replace(base, **kw)
 
 
+def load_toml(path, overrides: Iterable[str] = ()) -> Config:
+    """Config from a TOML file; `overrides` are 'key=value' strings.  With
+    `case = "<name>"` the file starts from that canonical case's Config."""
+    with open(path, "rb") as f:
+        d = dict(tomllib.load(f))
+    case = d.pop("case", None)
+    cfg = from_dict(d) if case is None else from_dict(
+        d, base=_case_config(case))
+    return apply_overrides(cfg, overrides)
+
+
 def parse_overrides(overrides: Iterable[str]) -> dict:
     """'key=value' strings -> coerced kwargs dict (keys unrestricted:
     case factories take non-Config parameters like L, H0, tau0)."""
@@ -58,6 +69,15 @@ def apply_overrides(cfg: Config, overrides: Iterable[str]) -> Config:
     if unknown:
         raise KeyError(f"unknown Config keys: {sorted(unknown)}")
     return dataclasses.replace(cfg, **kw) if kw else cfg
+
+
+def _case_config(name: str) -> Config:
+    """The Config of a canonical case.  The case is built on the CPU: only
+    its Config is kept, and building it on the card would allocate the
+    case's fields there for nothing."""
+    from beom_tpu_torch.cases import make_case
+    cfg, _, _, _ = make_case(name, device="cpu")
+    return cfg
 
 
 def load_toml_case(path, overrides: Iterable[str] = (), *, device):

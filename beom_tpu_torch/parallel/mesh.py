@@ -21,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from beom_tpu_torch.core.state import State
@@ -47,14 +48,13 @@ class Mesh:
         """The one device that holds every shard.  The kernels that run
         one launch for every shard of a card and read the neighbour
         shards' blocks (the shard step, the halo pad) need it: between
-        several cards they would need a launch per card and peer access,
-        which come with the multi-process bootstrap (ROADMAP queue 1 item
-        14c)."""
+        several cards they would need a launch per card and peer access
+        for the neighbours' edges (ROADMAP queue 1 item 6)."""
         if not self._one_device:
             raise NotImplementedError(
                 f"{what} takes a mesh whose shards lie on one device, not "
                 f"on {sorted(set(map(str, self.devices)))}: a mesh over "
-                "several devices is ROADMAP queue 1 item 14c (use "
+                "several devices is ROADMAP queue 1 item 6 (use "
                 "backend='eager' with halo_impl='ppermute')")
         return self.devices[0]
 
@@ -207,6 +207,12 @@ def gather(a, device=None) -> torch.Tensor:
     rows = [torch.cat([b.to(device) for b in a.blocks[j:j + NX]], dim=-1)
             for j in range(0, a.mesh.n, NX)]
     return torch.cat(rows, dim=-2)
+
+
+def host_array(a) -> np.ndarray:
+    """A field as a global numpy array on the host; a sharded field is
+    gathered."""
+    return gather(a).detach().cpu().numpy()
 
 
 def _map_fields(tree, fn):

@@ -113,6 +113,18 @@ def run(cfg: Config, grid: Grid, forcing: Forcing, state: State,
     return state
 
 
+def device_of(device=None) -> torch.device:
+    """The device an entry point of the port runs on: the card unless the
+    caller names another (device=None means cuda).  Raises when that is
+    cuda and no card is present: nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev}: torch.cuda.is_available() is false (pass "
+            "device='cpu' to run the kernels' plain versions)")
+    return dev
+
+
 def main(argv=None):
     import argparse
 
@@ -128,10 +140,7 @@ def main(argv=None):
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {args.device}: torch.cuda.is_available() is false")
+    device = device_of(args.device)
 
     from beom_tpu_torch.io import config as ioconfig
     if args.case.endswith(".toml"):

@@ -41,7 +41,7 @@ scalar slots and the geometry.
 The kernels read every shard's block through the stacked layout, so every
 shard must lie on one CUDA device: a mesh over several devices raises
 (one launch per device for the shards it holds, with peer access between
-cards, comes with the multi-process bootstrap).
+cards for the neighbours' edges, is ROADMAP queue 1 item 6).
 
 Each wrapper runs its kernel on CUDA blocks, through the MeshKernels it is
 given (the fused mesh steppers launch through the same wrappers), and its

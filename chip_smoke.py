@@ -193,6 +193,20 @@ Phases, each of which raises on failure (exit code != 0):
      between CUDA events and on the device under torch.profiler, and the
      implicit-FS mesh step's time split into phase A, glue + solve and
      phase B
+ 26. the I/O and entry modules on the card, at 2048^2 f32 unless said: raw
+     snapshots of the fused double gyre after 20 steps, written
+     synchronously and through the async writer (io/native.py) in one
+     `with`, byte-equal files of 3 nz ny nx 4 bytes, loaded back onto the
+     card bit for bit, the same for the state on 2 x 4 shards (gathered),
+     each write's seconds; a Config read by load_toml from a TOML file
+     (case, nx, ny, scheme, backend='fused', steps_per_pass=4) driving
+     run() for 20 steps (finite diagnostics, K1's launches by the plan);
+     entry(): one call is one K1 launch, bit for bit K1's plain version;
+     dryrun_multichip(8): the seven legs on a 2 x 4 mesh of shards on the
+     card, each leg's plan printed, K7's launches on legs 2-5 and 7 by
+     their plans (the counts set to 0 just before, read just after);
+     multihost: init(num_processes=1) a no-op, is_primary(),
+     gather_to_host of a 2 x 4-sharded field equal to mesh.gather
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
@@ -1042,6 +1056,7 @@ def main() -> dict:
     specs |= scheme_mesh_specs()
     specs |= fb_pass_specs()
     specs |= shard_step_specs()
+    specs |= module_specs()
     todo = [k for k in KERNELS if k not in ("fb_step", "projection")] \
         + sorted(specs)
     # 16 nvcc processes at a time keep the host's memory in bounds
@@ -1174,6 +1189,7 @@ def main() -> dict:
     kernels += projection_case_phases(dev, smi, rel, ulps)
     kernels += mesh_phases(dev, smi, rel, ulps)
     kernels += scheme_mesh_phases(dev, smi, rel, ulps)
+    modules_phase(dev, smi)
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     if idle:
         raise AssertionError(f"kernels not launched on their paths: {idle}")
@@ -3350,6 +3366,224 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     fused_fb.SPLIT_LAUNCHES.update(saved[1])
     fp.LAUNCHES.update(saved[2])
     return entries
+
+
+def module_specs():
+    """The builds phase 26 launches: the dry run's fused legs on 2 x 4
+    shards at f32 and the single-device kernels they are held against
+    (entry() and the TOML run take the main path's)."""
+    import torch
+
+    from beom_tpu_torch import entry
+    from beom_tpu_torch.parallel.mesh import make_mesh
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+
+    mesh = make_mesh(2, 4, devices=["cpu"])
+    specs = set()
+    for leg in entry.LEGS:
+        cfg = leg.build(2, 4, "cpu")[0]
+        if cfg.backend != "fused":
+            continue
+        # make_grid's masks: the staged phases rebuild them
+        specs |= dist_band.build_specs(cfg, torch.float32, mesh, dmask=True)
+        one = dataclasses.replace(cfg, mesh_y=1, mesh_x=1)
+        if cfg.scheme in ("rigid_lid", "implicit_fs"):
+            specs.add(projection_spec(one))
+        elif cfg.scheme == "split":
+            specs.add(fused_fb.build_spec(one, torch.float32))
+        else:
+            specs |= {fused_fb.build_spec(one, torch.float32, kb) for kb in
+                      fused_fb.plan(one, torch.float32).launches(
+                          one.steps_per_pass)}
+    return specs
+
+
+def modules_phase(dev, smi):
+    """Phase 26: raw snapshots and the async writer, load_toml, entry(),
+    dryrun_multichip(8) and multihost, on the card; raises on any
+    failure."""
+    import collections
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch import entry
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.io import config as ioconfig
+    from beom_tpu_torch.io import native, snapshots
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel import multihost
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+    from beom_tpu_torch.stepping import make_stepper
+
+    phase(f"26 the I/O and entry modules on the card ({smi})")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(dir=ROOT / "build")
+    d = Path(tmp.name)
+
+    # raw snapshots, synchronous and through the async writer
+    cfg, grid, forcing, st = make_case("double_gyre", nx=BIG, ny=BIG,
+                                       device=dev, backend="fused",
+                                       steps_per_pass=4)
+    step = make_stepper(grid, forcing, cfg)
+    out = st
+    for _ in range(5):
+        out = step(out)
+    if out.n != 20 or not bool(torch.isfinite(out.u).all()):
+        raise AssertionError("the gyre's 20 fused steps failed")
+    m = pmesh.make_mesh(2, 4, devices=[dev])
+    size = 3 * cfg.nz * cfg.ny * cfg.nx * 4
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    for label, state in (("one device", out),
+                         ("2 x 4 shards", pmesh.shard_state(out, m))):
+        a, b = d / f"{label[0]}_sync.bin", d / f"{label[0]}_async.bin"
+        with native.AsyncWriter() as w:
+            t_sync = timed(lambda: snapshots.save_raw(a, state, cfg))
+            t_submit = timed(lambda: snapshots.save_raw(b, state, cfg,
+                                                        writer=w))
+            t_flush = timed(w.flush)
+            if w.errors:
+                raise AssertionError(f"raw {label}: {w.errors} write errors")
+        if not (a.stat().st_size == b.stat().st_size == size):
+            raise AssertionError(f"raw {label}: sizes {a.stat().st_size}, "
+                                 f"{b.stat().st_size}, not {size}")
+        if a.read_bytes() != b.read_bytes():
+            raise AssertionError(f"raw {label}: the async file differs")
+        back = snapshots.load_raw(b, cfg, device=dev)
+        for f in "huv":
+            got = getattr(back, f)
+            if got.device.type != dev.type or not torch.equal(
+                    got, pmesh.gather(getattr(state, f))):
+                raise AssertionError(f"raw {label}: load_raw {f} differs")
+        print(f"   raw {label}: {size} bytes; save_raw synchronous "
+              f"{t_sync!r} s, through AsyncWriter {t_submit!r} s to submit "
+              f"+ {t_flush!r} s to flush; files byte-equal, loaded back "
+              f"onto the card bit for bit ({smi})")
+    if (d / "o_sync.bin").read_bytes() != (d / "2_sync.bin").read_bytes():
+        raise AssertionError("raw: the sharded state's file differs")
+
+    # load_toml: a Config from a TOML file drives run() for 20 steps
+    p = d / "gyre.toml"
+    p.write_text(f'case = "double_gyre"\nnx = {BIG}\nny = {BIG}\n'
+                 'scheme = "fb"\nbackend = "fused"\nsteps_per_pass = 4\n'
+                 'diag_every = 10\n')
+    tcfg = ioconfig.load_toml(p)
+    ccfg, grid, forcing, st = make_case(
+        "double_gyre", nx=tcfg.nx, ny=tcfg.ny, L=tcfg.dx * tcfg.nx,
+        dt=tcfg.dt, device=dev, backend=tcfg.backend,
+        steps_per_pass=tcfg.steps_per_pass, diag_every=tcfg.diag_every)
+    if ccfg != tcfg:
+        raise AssertionError(f"load_toml: {tcfg} is not the case's {ccfg}")
+    per_pass = fused_fb.plan(tcfg, torch.float32).launches(4)
+    log = io.StringIO()
+    fused_fb.LAUNCHES = fused_fb.PASS_LAUNCHES = 0
+    run(tcfg, grid, forcing, st, 20, log=log)
+    launches = (fused_fb.LAUNCHES, fused_fb.PASS_LAUNCHES)
+    # run()'s chunks of diag_every steps: its passes, then single steps
+    want = (0, 0)
+    for done in range(0, 20, tcfg.diag_every):
+        n_pass, rem = divmod(min(tcfg.diag_every, 20 - done), 4)
+        want = (want[0] + n_pass * len(per_pass) + rem,
+                want[1] + n_pass * sum(k > 1 for k in per_pass))
+    diags = [json.loads(x) for x in log.getvalue().splitlines()]
+    if [x["n"] for x in diags] != [10, 20] or not all(
+            x["finite"] == 1.0 and np.isfinite(
+                [v for k, v in x.items() if k != "kind"]).all()
+            for x in diags):
+        raise AssertionError(f"load_toml run: diagnostics {diags}")
+    if launches != want:
+        raise AssertionError(f"load_toml run: K1 launched {launches}, "
+                             f"plan {want}")
+    print(f"   load_toml: nx {tcfg.nx}, scheme {tcfg.scheme}, backend "
+          f"{tcfg.backend}, steps_per_pass {tcfg.steps_per_pass}; run() 20 "
+          f"steps, K1 launches {launches[0]} ({launches[1]} of the pass "
+          f"kernel; plan {per_pass} per pass of 4, single steps for the rest "
+          f"of each chunk of {tcfg.diag_every}); last diagnostics "
+          f"{json.dumps(diags[-1])}")
+
+    # entry(): one call is one K1 launch, bit for bit K1's plain version,
+    # from a perturbed state (at rest the first step's fluxes are zero)
+    fn, (st,) = entry.entry(dev)
+    ecfg, egrid, eforcing, _ = make_case("double_gyre", nx=256, ny=256,
+                                         backend="fused", device=dev)
+    st = entry.perturb(ecfg, egrid, st, 26)
+    fused_fb.LAUNCHES = fused_fb.PASS_LAUNCHES = 0
+    out = fn(st)
+    torch.cuda.synchronize()
+    if (fused_fb.LAUNCHES, fused_fb.PASS_LAUNCHES) != (1, 0):
+        raise AssertionError(f"entry(): {fused_fb.LAUNCHES} K1 launches")
+    ref = fused_fb.fused_fb_step_plain(st.h, st.u, st.v, (egrid, eforcing),
+                                       st.n, st.t, ecfg, 1)
+    for f, r in zip("huv", ref):
+        if not torch.equal(getattr(out, f), r):
+            raise AssertionError(
+                f"entry(): {f} off K1's plain version by "
+                f"{float((getattr(out, f) - r).abs().max())!r}")
+    print(f"   entry(): 1 launch of K1's single-step kernel on "
+          f"{tuple(st.h.shape)} from a perturbed state, bit for bit its "
+          "plain version")
+
+    # dryrun_multichip(8): the seven legs on 2 x 4 shards of the card
+    for k in dist_band.LAUNCHES:
+        dist_band.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    records = entry.dryrun_multichip(8, dev)
+    wall = time.perf_counter() - t0
+    total = dict(dist_band.LAUNCHES)
+    for rec in records:
+        leg, plan = rec["leg"], rec["plan"]
+        want = {} if plan is None else {
+            k: v * leg.n_inner for k, v in plan.launches().items() if v}
+        print(f"   {leg.label}: K7 launches {rec['launches']}"
+              + ("" if plan is None else f"; plan: {plan.describe()}"))
+        if rec["launches"] != want:
+            raise AssertionError(f"dry run {leg.label}: K7 launched "
+                                 f"{rec['launches']}, plan {want}")
+    summed = collections.Counter()
+    for rec in records:
+        summed.update(rec["launches"])
+    total = {k: v for k, v in total.items() if v}
+    if sum(r["plan"] is not None for r in records) != 5 \
+            or total != dict(summed):
+        raise AssertionError(f"dry run: K7 launches {total}, legs {summed}")
+    print(f"   dryrun_multichip(8): 7 legs OK in {wall:.2f} s; K7 launches "
+          f"{total}")
+
+    # the fused legs again, each from a perturbed state, against one
+    # device bit for bit: fb, tb2 and split end to end against K1 / K1s,
+    # the projection legs' phases at their mesh plan against K3a / K3b
+    m8 = pmesh.make_mesh(*entry.mesh_shape(8), devices=[dev])
+    for i, leg in enumerate(entry.LEGS):
+        if dict(leg.kw).get("backend") != "fused":
+            continue
+        rec = entry.run_leg(leg, m8, dev, seed=260 + i)
+        for what, got, ref in entry.one_device_twins(rec, seed=270 + i):
+            agree(f"{what} from a perturbed state, 2 x 4 shards vs one "
+                  "device", got, ref, None)
+
+    # multihost on one process
+    multihost.init(num_processes=1)
+    if torch.distributed.is_initialized() or not multihost.is_primary():
+        raise AssertionError("multihost: init(num_processes=1) did something")
+    field = pmesh.shard(torch.tensor(np.random.default_rng(26)
+                                     .standard_normal((2, 96, 128)),
+                                     dtype=torch.float32, device=dev), m)
+    got = multihost.gather_to_host(field)
+    if not (isinstance(got, np.ndarray) and np.array_equal(
+            got, pmesh.gather(field).cpu().numpy())):
+        raise AssertionError("multihost: gather_to_host != mesh.gather")
+    print("   multihost: init(num_processes=1) a no-op, is_primary() True, "
+          "gather_to_host of a 2 x 4-sharded field on the card equal to "
+          "mesh.gather")
+    tmp.cleanup()
 
 
 def _recompose_plain(sp, sub, st, grid, forcing, cfg):

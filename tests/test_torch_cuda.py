@@ -7,7 +7,10 @@ sweep, with and without its residual), K4b (operator pass), K5 (coarse
 multigrid stack), K6 (fused CG, Jacobi and multigrid), K7 (the shard step
 on a mesh of shards on the one card, around the fb and split bodies and
 the projection phases) and K8 (the halo pad); and run() of the rigid lid's
-two multigrid solves and of the mesh paths through them.
+two multigrid solves and of the mesh paths through them.  Also the
+I/O and entry modules on the card: raw snapshots through the async writer,
+entry() (one K1 launch, bit for bit its plain version) and
+dryrun_multichip(8) (K7's launches by each fused leg's plan).
 
 Skips where torch.cuda.is_available() is false.  It imports no jax, so
 on a machine with a card and no jax it runs without tests/conftest.py:
@@ -1305,3 +1308,76 @@ def test_run_rigid_lid_multigrid(cuda, solver):
     assert bool(torch.isfinite(out.h).all()) and float(out.u.abs().max()) > 0
     column = float(((out.h.sum(0) - grid.H) * grid.mask).abs().max())
     assert column < 0.1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_raw_snapshot_round_trip_through_async_writer(cuda, dtype, tmp_path):
+    """save_raw of a card state through the AsyncWriter (the host buffer
+    freed right after submit) and synchronously: byte-equal files, loaded
+    back onto the card bit for bit."""
+    from beom_tpu_torch.io import native, snapshots
+
+    cfg, grid, forcing, st = _perturbed(cuda, 14, nx=256, ny=192,
+                                        dtype=dtype)
+    a, b = tmp_path / "async.bin", tmp_path / "sync.bin"
+    with native.AsyncWriter() as w:
+        snapshots.save_raw(a, st, cfg, writer=w)
+    snapshots.save_raw(b, st, cfg)
+    assert a.read_bytes() == b.read_bytes()
+    assert a.stat().st_size == 3 * 256 * 192 * np.dtype(dtype).itemsize
+    back = snapshots.load_raw(a, cfg, device=cuda)
+    for f in "huv":
+        assert getattr(back, f).device.type == "cuda"
+        assert torch.equal(getattr(back, f), getattr(st, f)), f
+
+
+@pytest.mark.cuda
+def test_entry_launches_k1_once(cuda):
+    """entry()'s fn on the card: one launch of K1's single-step kernel,
+    bit for bit K1's plain version from the same state."""
+    from beom_tpu_torch import entry
+
+    fn, (st,) = entry.entry()
+    assert st.h.device.type == "cuda"
+    cfg, grid, forcing, _ = make_case("double_gyre", nx=256, ny=256,
+                                      backend="fused", device=cuda)
+    st = entry.perturb(cfg, grid, st, 14)
+    fused_fb.LAUNCHES = fused_fb.PASS_LAUNCHES = 0
+    out = fn(st)
+    torch.cuda.synchronize()
+    assert (fused_fb.LAUNCHES, fused_fb.PASS_LAUNCHES) == (1, 0)
+    ref = fused_fb.fused_fb_step_plain(st.h, st.u, st.v, (grid, forcing),
+                                       st.n, st.t, cfg, 1)
+    for f, r in zip("huv", ref):
+        assert torch.equal(getattr(out, f), r), f
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_on_card(cuda, capsys):
+    """The seven legs on 2 x 4 shards of the card: seven OK lines, K7
+    launched by each fused leg's mesh plan, none on the eager legs; then
+    each fused leg from a perturbed state, bit for bit one device
+    (entry.one_device_twins: fb, tb2 and split end to end against K1 /
+    K1s, the projection phases at the leg's mesh plan against K3a /
+    K3b)."""
+    from beom_tpu_torch import entry
+    from beom_tpu_torch.parallel.mesh import make_mesh
+
+    records = entry.dryrun_multichip(8)
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == 7 and all(x.endswith(" OK") for x in lines)
+    assert sum(r["plan"] is not None for r in records) == 5
+    for rec in records:
+        plan, n_inner = rec["plan"], rec["leg"].n_inner
+        want = {} if plan is None else {
+            k: v * n_inner for k, v in plan.launches().items() if v}
+        assert rec["launches"] == want, rec["leg"].label
+    mesh = make_mesh(2, 4, devices=[cuda])
+    for i, leg in enumerate(entry.LEGS):
+        if dict(leg.kw).get("backend") != "fused":
+            continue
+        rec = entry.run_leg(leg, mesh, cuda, seed=140 + i)
+        for what, got, ref in entry.one_device_twins(rec, seed=150 + i):
+            for j, (a, b) in enumerate(zip(got, ref)):
+                assert torch.equal(a, b), f"{what}: field {j}"
