@@ -53,7 +53,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
 }
 
 // the step's h, u, v of a tile's interior points, written through an Out
@@ -79,7 +79,7 @@ struct Store3 {
 // v) writes layer k of it.
 template <typename T, typename Store>
 __device__ __forceinline__ void fb_stages(const Params<T>& p, T* sm,
-                                          const int* gidx,
+                                          const Off* gidx,
                                           const Store& store) {
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
@@ -232,7 +232,7 @@ __host__ __device__ constexpr int plane_of(int i) {
 // the block's row and column offsets into the grid follow the planes
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + (RX + RY) * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), RX + RY);
 }
 
 // the statics as the stages read them: from their staged planes
@@ -291,10 +291,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // block copies in pieces.
 template <typename T, bool SH = false>
 __device__ __forceinline__ void stage(const Params<T>& p, int i, int nl,
-                                      T* dst, const int* roff,
-                                      const int* coff, int x0, bool vec) {
+                                      T* dst, const Off* roff,
+                                      const Off* coff, int x0, bool vec) {
   constexpr int VW = 16 / int(sizeof(T));
-  const T* src = p.in[i];
+  BasesArg<T> src = p.in[i];
   if (RX % VW == 0 && vec) {
     constexpr int NV = RX / VW;
     for (int e = threadIdx.x; e < nl * RY * NV; e += THREADS) {
@@ -302,15 +302,16 @@ __device__ __forceinline__ void stage(const Params<T>& p, int i, int nl,
       const int r = (e / NV) % RY;
       const int c = (e % NV) * VW;
       cp_async<16>(dst + k * NPT + r * RX + c,
-                   src + k * p.plane + roff[r] + (SH ? coff[c] : x0 + c));
+                   src + (k * p.plane + roff[r] +
+                          (SH ? coff[c] : Off(x0 + c))));
     }
     return;
   }
   for (int e = threadIdx.x; e < nl * NPT; e += THREADS) {
     const int k = e / NPT;
     const int s = e % NPT;
-    cp_async<int(sizeof(T))>(dst + e,
-                             src + k * p.plane + roff[s / RX] + coff[s % RX]);
+    cp_async<int(sizeof(T))>(
+        dst + e, src + (k * p.plane + roff[s / RX] + coff[s % RX]));
   }
 }
 
@@ -326,12 +327,12 @@ template <typename T, bool SH = false>
 __device__ __forceinline__ void load_block(const Params<T>& p, T* sm,
                                            int y0, int x0,
                                            const Stack& m = Stack{}) {
-  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
-  int* coff = roff + RY;
+  Off* roff = off_table(sm, N_PLANES * NPT);
+  Off* coff = roff + RY;
   for (int r = threadIdx.x; r < RY; r += THREADS)
-    roff[r] = SH ? m.row(wrap(y0 + r, p.ny)) : wrap(y0 + r, p.ny) * p.nx;
+    roff[r] = SH ? m.row(wrap(y0 + r, p.ny)) : Off(wrap(y0 + r, p.ny) * p.nx);
   for (int c = threadIdx.x; c < RX; c += THREADS)
-    coff[c] = SH ? m.col(wrap(x0 + c, p.nx)) : wrap(x0 + c, p.nx);
+    coff[c] = SH ? m.col(wrap(x0 + c, p.nx)) : Off(wrap(x0 + c, p.nx));
   __syncthreads();
   constexpr int VW = 16 / int(sizeof(T));
   const bool vec =

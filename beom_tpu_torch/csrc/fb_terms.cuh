@@ -85,6 +85,10 @@
 #ifndef BEOM_WIND
 #define BEOM_WIND 1
 #endif
+// the shard kernels of a mesh over several cards (shard_addr.cuh)
+#ifndef BEOM_CARDS
+#define BEOM_CARDS 0
+#endif
 
 namespace beom {
 
@@ -129,9 +133,86 @@ enum Dbl {
 // steps a launch of the fb pass kernel may advance: the slots of Params::ts
 constexpr int MAX_KB = 8;
 
+// Where a point of an operand lies: its offset, and the pointer it is
+// taken from.  On one device, and for the shards of a mesh that lie on one
+// card, an offset is an int and an operand one pointer.  Across cards
+// (a build with BEOM_CARDS = 1, shard_addr.cuh) an offset is card-local and
+// carries the card class of the point in its bits from CLASS_SHIFT: 3 rc +
+// cc for the card rc, cc in {0: this card, 1: the next, 2: the previous}
+// along y and x, so that a row term and a column term add into the class,
+// and an operand is the nine base pointers of its stacks on the card and
+// its neighbours (Bases).  An offset with no class bits is on the card.
+#if BEOM_CARDS
+constexpr int CLASS_SHIFT = 40;
+struct Off {
+  long long v;
+  Off() = default;
+  __host__ __device__ explicit constexpr Off(long long x) : v(x) {}
+};
+__device__ __forceinline__ Off operator+(Off a, Off b) {
+  return Off(a.v + b.v);
+}
+__device__ __forceinline__ Off operator+(long long k, Off a) {
+  return Off(k + a.v);
+}
+__device__ __forceinline__ Off operator+(Off a, long long k) {
+  return Off(a.v + k);
+}
+template <typename T>
+struct Bases {
+  const T* b[9];
+  // the point at o, in the stack of its class
+  __device__ __forceinline__ const T* operator+(Off o) const {
+    return b[o.v >> CLASS_SHIFT] + (o.v & ((1LL << CLASS_SHIFT) - 1));
+  }
+  __device__ __forceinline__ const T& operator[](Off o) const {
+    return *(*this + o);
+  }
+  // every stack d values on (a layer's offset)
+  __device__ __forceinline__ Bases operator+(long long d) const {
+    Bases r;
+#pragma unroll
+    for (int c = 0; c < 9; ++c) r.b[c] = b[c] + d;
+    return r;
+  }
+};
+// the card's own stack of an operand
+template <typename T>
+__device__ __forceinline__ const T* own_base(const Bases<T>& a) {
+  return a.b[0];
+}
+// how a stage function takes an operand: its nine bases in place
+template <typename T>
+using BasesArg = const Bases<T>&;
+#else
+using Off = int;
+template <typename T>
+using Bases = const T*;
+template <typename T>
+__device__ __forceinline__ const T* own_base(const T* a) {
+  return a;
+}
+// a pointer by value, in a register
+template <typename T>
+using BasesArg = const T*;
+#endif
+
+// The bytes of a CTA's shared memory: `planes` bytes of planes, then n
+// offsets (8-byte aligned across cards)
+__host__ __device__ constexpr int table_bytes(long planes, int n) {
+  return int((planes + alignof(Off) - 1) / alignof(Off) * alignof(Off) +
+             n * long(sizeof(Off)));
+}
+// the first offset of the table that follows the planes at sm
+template <typename T>
+__device__ __forceinline__ Off* off_table(T* sm, long planes) {
+  return reinterpret_cast<Off*>(reinterpret_cast<unsigned char*>(sm) +
+                                table_bytes(planes * long(sizeof(T)), 0));
+}
+
 template <typename T>
 struct Params {
-  const T* in[N_PTR];
+  Bases<T> in[N_PTR];
   int ny, nx, u_first, sadourny, free_slip, visc, wind, nsub;
   int aligned;    // every operand starts 16-byte aligned
   T dt, inv_dx, inv_dy, rdx, rdy, g, nu2, nu4, rho0, h_min, h_dry, thin,
@@ -146,7 +227,14 @@ template <typename T>
 __host__ Params<T> make_params(const void* const* ptrs, const int* ints,
                                const double* d) {
   Params<T> p;
+#if BEOM_CARDS
+  // ptrs: the operand tables of the nine classes, one after another
+  for (int c = 0; c < 9; ++c)
+    for (int i = 0; i < N_PTR; ++i)
+      p.in[i].b[c] = static_cast<const T*>(ptrs[c * N_PTR + i]);
+#else
   for (int i = 0; i < N_PTR; ++i) p.in[i] = static_cast<const T*>(ptrs[i]);
+#endif
   p.ny = ints[J_NY];
   p.nx = ints[J_NX];
   p.u_first = ints[J_U_FIRST];
@@ -221,10 +309,10 @@ __device__ __forceinline__ double tabs(double x) { return fabs(x); }
   __syncthreads();
 
 // Where a tile reads the statics (the operand slots past I_V): through the
-// block's table of global offsets, one int per point
+// block's table of global offsets, one per point
 template <typename T>
 struct GlobStat {
-  const int* gidx;
+  const Off* gidx;
   __device__ __forceinline__ T get(const Params<T>& p, int i, int s) const {
     return p.in[i][gidx[s]];
   }
@@ -466,11 +554,11 @@ __device__ __forceinline__ void load_offsets(const Params<T>& p, int* gidx) {
 // obc.eta_ext at t1 on the whole block (zeros without tides)
 template <typename T, int NPT>
 __device__ __forceinline__ void load_eta_ext(const Params<T>& p,
-                                             const int* gidx, T* ee) {
+                                             const Off* gidx, T* ee) {
   for (int s = threadIdx.x; s < NPT; s += THREADS) {
     T e = T(0);
     for (int c = 0; c < NTIDE; ++c) {
-      const long g = c * p.plane + gidx[s];
+      const auto g = c * p.plane + gidx[s];
       e = e + p.in[I_TIDE_AMP][g] *
                   tcos(p.omega[c] * p.t1 - p.in[I_TIDE_PHASE][g]);
     }

@@ -72,7 +72,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
 }
 
 template <typename T, typename Src>
@@ -81,7 +81,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     T* out_div) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
@@ -229,7 +229,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
 }
 
 template <typename T, typename Src>
@@ -238,7 +238,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     T* out_v) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* ua = sm + P_UA * NPT;
   T* va = sm + P_VA * NPT;
@@ -332,9 +332,9 @@ namespace stg {
 // planes from dst of an RX x RY block; with SH a 16-byte piece's offset is
 // its first column's (fbp::stage)
 template <typename T, int RX, int RY, int NT, bool SH = false>
-__device__ __forceinline__ void stage(const T* src, long plane, int nl,
-                                      T* dst, const int* roff,
-                                      const int* coff, int x0, bool vec) {
+__device__ __forceinline__ void stage(BasesArg<T> src, long plane, int nl,
+                                      T* dst, const Off* roff,
+                                      const Off* coff, int x0, bool vec) {
   constexpr int NPT = RX * RY;
   constexpr int VW = 16 / int(sizeof(T));
   if (RX % VW == 0 && vec) {
@@ -344,7 +344,8 @@ __device__ __forceinline__ void stage(const T* src, long plane, int nl,
       const int r = (e / NV) % RY;
       const int c = (e % NV) * VW;
       fbp::cp_async<16>(dst + k * NPT + r * RX + c,
-                        src + k * plane + roff[r] + (SH ? coff[c] : x0 + c));
+                        src + (k * plane + roff[r] +
+                               (SH ? coff[c] : Off(x0 + c))));
     }
     return;
   }
@@ -352,7 +353,7 @@ __device__ __forceinline__ void stage(const T* src, long plane, int nl,
     const int k = e / NPT;
     const int s = e % NPT;
     fbp::cp_async<int(sizeof(T))>(
-        dst + e, src + k * plane + roff[s / RX] + coff[s % RX]);
+        dst + e, src + (k * plane + roff[s / RX] + coff[s % RX]));
   }
 }
 
@@ -363,13 +364,13 @@ __device__ __forceinline__ void stage(const T* src, long plane, int nl,
 // are multiples of a piece copies in pieces (stage).  Ends with a
 // __syncthreads().
 template <typename T, int RX, int RY, int NT, bool SH = false>
-__device__ __forceinline__ bool offsets(const Params<T>& p, int* roff,
-                                        int* coff, int y0, int x0,
+__device__ __forceinline__ bool offsets(const Params<T>& p, Off* roff,
+                                        Off* coff, int y0, int x0,
                                         const Stack& m = Stack{}) {
   for (int r = threadIdx.x; r < RY; r += NT)
-    roff[r] = SH ? m.row(wrap(y0 + r, p.ny)) : wrap(y0 + r, p.ny) * p.nx;
+    roff[r] = SH ? m.row(wrap(y0 + r, p.ny)) : Off(wrap(y0 + r, p.ny) * p.nx);
   for (int c = threadIdx.x; c < RX; c += NT)
-    coff[c] = SH ? m.col(wrap(x0 + c, p.nx)) : wrap(x0 + c, p.nx);
+    coff[c] = SH ? m.col(wrap(x0 + c, p.nx)) : Off(wrap(x0 + c, p.nx));
   __syncthreads();
   constexpr int VW = 16 / int(sizeof(T));
   if (SH) return p.aligned && x0 % VW == 0 && m.lx % VW == 0;
@@ -451,7 +452,7 @@ enum Work {
 // the planes, then the block's row and column offsets
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + (RX + RY) * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), RX + RY);
 }
 
 // the statics the stages read (f, the wind, the sponge), from their planes
@@ -496,13 +497,13 @@ __device__ __forceinline__ T cor_v_t(const TileT& c, int k, int s,
 // stacked over the shards of a mesh.
 template <typename T, bool SH = false>
 __device__ __forceinline__ void stage_tile(const Params<T>& p, T* in,
-                                           int* roff, int* coff, int ty0,
+                                           Off* roff, Off* coff, int ty0,
                                            int tx0,
                                            const Stack& m = Stack{}) {
   const int x0 = tx0 - W;
   const bool vec =
       stg::offsets<T, RX, RY, THREADS, SH>(p, roff, coff, ty0 - W, x0, m);
-  auto stage = [&](const T* src, int nl, T* dst) {
+  auto stage = [&](BasesArg<T> src, int nl, T* dst) {
     stg::stage<T, RX, RY, THREADS, SH>(src, p.plane, nl, dst, roff, coff,
                                        x0, vec);
   };
@@ -660,7 +661,7 @@ __device__ __forceinline__ void stages(const Params<T>& p, T* in, T* sm,
     if (ep.eta || ep.b) {
       T hs = h[s];
       for (int k = 1; k < NZ; ++k) hs = hs + h[k * NPT + s];
-      const T eta = (hs - p.in[I_HB][g]) * mask[s];
+      const T eta = (hs - own_base(p.in[I_HB])[g]) * mask[s];
       if (ep.eta) ep.eta[g] = eta;
       if (ep.b) ep.b[g] = ep.lam_neg * (eta - p.dt * dv);
     }
@@ -674,7 +675,7 @@ __device__ __forceinline__ void run(const Params<T>& p, T* out_us,
                                     T* out_vs, const Epi<T>& ep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  Off* roff = off_table(sm, N_PLANES * NPT);
   const int ty0 = int(blockIdx.y) * TY;
   const int tx0 = int(blockIdx.x) * TX;
   stage_tile(p, sm, roff, roff + RY, ty0, tx0);
@@ -692,7 +693,7 @@ __device__ __forceinline__ void run_shards(const Params<T>& p,
                                            T* out_vs, const Epi<T>& ep) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  Off* roff = off_table(sm, N_PLANES * NPT);
   const ShardTile t = shard_tile(m, TX, TY);
   stage_tile<T, true>(p, sm, roff, roff + RY, t.gy0, t.gx0, m);
   fbp::cp_async_wait<1>();
@@ -734,7 +735,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + (RX + RY) * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), RX + RY);
 }
 
 // the statics finalize reads under the open boundary (H, the face maps),
@@ -742,7 +743,7 @@ constexpr int smem_bytes() {
 // planes cost the shelf a CTA per SM: 0.31 ms against 0.25 on the H100)
 template <typename T>
 struct Stat {
-  const int *roff, *coff;
+  const Off *roff, *coff;
   __device__ __forceinline__ T get(const Params<T>& p, int i, int s) const {
     return p.in[i][roff[s / RX] + coff[s % RX]];
   }
@@ -758,14 +759,15 @@ struct Stat {
 // h1 and the tide's elevation one point east and north.  With SH every
 // operand is stacked over the shards of a mesh (shard_addr.cuh: Stack).
 template <typename T, bool SH>
-__device__ __forceinline__ void run_at(const Params<T>& p, const T* pres,
-                                       T corr, T* out_h, T* out_u, T* out_v,
+__device__ __forceinline__ void run_at(const Params<T>& p,
+                                       BasesArg<T> pres, T corr, T* out_h,
+                                       T* out_u, T* out_v,
                                        const Out& o, long ob, int ty0,
                                        int tx0, const Stack& m) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
-  int* coff = roff + RY;
+  Off* roff = off_table(sm, N_PLANES * NPT);
+  Off* coff = roff + RY;
   T* h = sm + Q_H * NPT;
   T* ua = sm + Q_UA * NPT;
   T* va = sm + Q_VA * NPT;
@@ -782,7 +784,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p, const T* pres,
   const int x0 = tx0 - WX;
   const bool vec =
       stg::offsets<T, RX, RY, THREADS, SH>(p, roff, coff, ty0 - W, x0, m);
-  auto stage = [&](const T* src, int nl, T* dst) {
+  auto stage = [&](BasesArg<T> src, int nl, T* dst) {
     stg::stage<T, RX, RY, THREADS, SH>(src, p.plane, nl, dst, roff, coff,
                                        x0, vec);
   };
@@ -801,10 +803,10 @@ __device__ __forceinline__ void run_at(const Params<T>& p, const T* pres,
     for (int k_ = tid; k_ < (TX + 1) * (TY + 1); k_ += THREADS) {
       const int r = W + k_ / (TX + 1);
       const int cc = WX + k_ % (TX + 1);
-      const int g = roff[r] + coff[cc];
+      const Off g = roff[r] + coff[cc];
       T e = T(0);
       for (int c = 0; c < NTIDE; ++c) {
-        const long gc = c * p.plane + g;
+        const auto gc = c * p.plane + g;
         e = e + p.in[I_TIDE_AMP][gc] *
                     tcos(p.omega[c] * p.t1 - p.in[I_TIDE_PHASE][gc]);
       }
@@ -873,9 +875,9 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
 // stacked
 template <typename T>
 __device__ __forceinline__ void run_shards(const Params<T>& p,
-                                           const Stack& m, const T* pres,
-                                           T corr, T* out_h, T* out_u,
-                                           T* out_v) {
+                                           const Stack& m,
+                                           BasesArg<T> pres, T corr,
+                                           T* out_h, T* out_u, T* out_v) {
   const ShardTile t = shard_tile(m, TX, TY);
   run_at<T, true>(p, pres, corr, out_h, out_u, out_v, t.out(m, p.plane),
                   t.base(m), t.gy0, t.gx0, m);

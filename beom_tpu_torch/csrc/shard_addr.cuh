@@ -16,21 +16,33 @@
 //
 //   GridSrc   one device: the whole grid, periodic on both axes; statics
 //             and fields share one layout.
-//   StackSrc  the shards of a mesh that lie on one device, in one launch:
+//   StackSrc  the shards of a mesh that lie on one card, in one launch:
 //             every field, the statics too, is one allocation of (L, S,
 //             ly, lx), layer k of shard s = j mx + i the block s of the
-//             grid's plane k (Stack), so the layer stride is the grid's, as
-//             on one device, and statics and fields still share one layout.
-//             A CTA's tile lies in one shard (ShardTile), and a point past
-//             the shard's edge is read from the neighbour shard it falls
-//             into (the shard itself along a mesh axis of one shard): the
-//             periodic grid, as on one device.
+//             card's plane k (Stack), and statics and fields share one
+//             layout.  A CTA's tile lies in one shard (ShardTile), and a
+//             point past the shard's edge is read from the neighbour shard
+//             it falls into (the shard itself along a mesh axis of one
+//             shard): the periodic grid, as on one device.
 //
 // The staged bodies (the fb pass, the split tail, the staged projection
 // phases) read through a block's row and column offsets instead.  In the
 // stacked layout a point's offset in a plane is still a row term plus a
 // column term, (J mx + I) ly lx + y lx + x for the point (y, x) of shard
 // (J, I): Stack::row and Stack::col fill the same tables.
+//
+// A mesh over several cards (a build with BEOM_CARDS = 1) gives each card a
+// rectangle of my x mx shards, all of one shape, the cards a grid of cy x
+// cx; the card (a, b) holds the shards (a my + j, b mx + i) in its own
+// stack (L, my mx, ly, lx), launches over them alone, and reads a point of
+// a neighbour card's shard in that card's stack through its pointer (peer
+// access).  Offsets stay card-local, 32-bit products: Stack::row gives the
+// row term in the card that holds the row and its card class along y, col
+// the same along x, and their sum carries the class of the point
+// (fb_terms.cuh: Off), which picks one of an operand's nine bases (Bases:
+// the card's own stack and its eight neighbours', wrapping periodically; a
+// mesh axis of one card points at the card itself).  One card is the build
+// without the switch, whose offsets are ints and operands single pointers.
 
 #pragma once
 
@@ -40,11 +52,19 @@ namespace beom {
 
 // the location of one point of a haloed block: its offset into the statics
 // and into the dynamic fields
+#if BEOM_CARDS
+struct Loc {
+  Off stat;
+  Off off;
+};
+#else
 struct Loc {
   int stat;
   long off;
 };
+#endif
 
+#if !BEOM_CARDS
 template <typename T, int NF>
 struct GridSrc {
   const T* f[NF];
@@ -74,6 +94,7 @@ struct GridSrc {
     return f[I];
   }
 };
+#endif
 
 // Where a tile's interior points go: rows y0.., columns x0.. of an
 // (ny, nx) layout with layers plane apart; points outside it are not
@@ -89,15 +110,39 @@ struct Out {
   }
 };
 
-// The stacked layout of a mesh's fields on one device: shard (j, i) holds
+// The stacked layout of a card's fields: shard (j, i) of the card holds
 // the block of rows [j ly, (j + 1) ly) and columns [i lx, (i + 1) lx) of
-// the grid, and each plane of a field holds the shards' blocks one after
-// another in mesh order.
+// the card's part of the grid, and each plane of a field holds the card's
+// shards' blocks one after another in mesh order.  On one card the card's
+// part is the grid.
 struct Stack {
-  int ly, lx, my, mx;
+  int ly, lx, my, mx;   // the card's shards: my x mx blocks of ly x lx
   int plane;            // ly * lx: a shard's block of one plane
+#if BEOM_CARDS
+  int cy, cx;           // the cards on each axis
+  int a, b;             // this card's place among them
+  // the card class of the card c, d cards along an axis of n from this one
+  __device__ __forceinline__ static int cls(int d, int n) {
+    return d == 0 ? 0 : (d == 1 || d == 1 - n) ? 1 : 2;
+  }
   // the row and column terms of the offset of grid row gy in [0, ny) and
-  // column gx in [0, nx)
+  // column gx in [0, nx), in the card that holds them, with their classes
+  __device__ __forceinline__ Off row(int gy) const {
+    const int J = gy / ly;
+    const int C = J / my;
+    return Off((long long)(3 * cls(C - a, cy)) << CLASS_SHIFT |
+               ((J - C * my) * mx * plane + (gy - J * ly) * lx));
+  }
+  __device__ __forceinline__ Off col(int gx) const {
+    const int I = gx / lx;
+    const int C = I / mx;
+    return Off((long long)cls(C - b, cx) << CLASS_SHIFT |
+               ((I - C * mx) * plane + (gx - I * lx)));
+  }
+  // the card's first shard row and column in the mesh
+  __device__ __forceinline__ int j0() const { return a * my; }
+  __device__ __forceinline__ int i0() const { return b * mx; }
+#else
   __device__ __forceinline__ int row(int gy) const {
     const int J = gy / ly;
     return J * mx * plane + (gy - J * ly) * lx;
@@ -106,27 +151,32 @@ struct Stack {
     const int I = gx / lx;
     return I * plane + (gx - I * lx);
   }
+  __device__ __forceinline__ int j0() const { return 0; }
+  __device__ __forceinline__ int i0() const { return 0; }
+#endif
   // tiles of TX x TY points per shard, on each axis
   __host__ __device__ int tiles_x(int tx) const { return (lx + tx - 1) / tx; }
   __host__ __device__ int tiles_y(int ty) const { return (ly + ty - 1) / ty; }
-  // the launch grid: the tiles of a shard times the shards, on each axis
+  // the launch grid: the tiles of a shard times the card's shards, on each
+  // axis
   __host__ dim3 grid(int tx, int ty) const {
     return dim3(mx * tiles_x(tx), my * tiles_y(ty));
   }
 };
 
-// The tile of this CTA in a launch over every shard of a device: block
-// (bx, by) is tile (bx mod nbx, by mod nby) of shard (by / nby, bx / nbx).
+// The tile of this CTA in a launch over every shard of a card: block
+// (bx, by) is tile (bx mod nbx, by mod nby) of the card's shard (by / nby,
+// bx / nbx).
 struct ShardTile {
-  int j, i;             // the shard's mesh coordinates
+  int j, i;             // the shard's coordinates in the card
   int y0, x0;           // the tile's first point in the shard's block
   int gy0, gx0;         // ... and in the grid
-  // the offset of the shard's block in a plane
+  // the offset of the shard's block in a plane of the card's stack
   __device__ __forceinline__ int base(const Stack& m) const {
     return (j * m.mx + i) * m.plane;
   }
   // the tile's interior points in the shard's block, planes `plane` apart
-  // (the grid's ny nx), from base(m)
+  // (the card's my mx ly lx), from base(m)
   __device__ __forceinline__ Out out(const Stack& m, long plane) const {
     return Out{y0, x0, m.ly, m.lx, plane};
   }
@@ -141,8 +191,8 @@ __device__ __forceinline__ ShardTile shard_tile(const Stack& m, int tx,
   t.j = int(blockIdx.y) / nby;
   t.x0 = (int(blockIdx.x) - t.i * nbx) * tx;
   t.y0 = (int(blockIdx.y) - t.j * nby) * ty;
-  t.gy0 = t.j * m.ly + t.y0;
-  t.gx0 = t.i * m.lx + t.x0;
+  t.gy0 = (m.j0() + t.j) * m.ly + t.y0;
+  t.gx0 = (m.i0() + t.i) * m.lx + t.x0;
   return t;
 }
 
@@ -150,13 +200,70 @@ __device__ __forceinline__ ShardTile shard_tile(const Stack& m, int tx,
 // (y, x) lies in the shard of the 3 x 3 neighbourhood it falls into.
 // Points past the neighbour's block (ragged last tiles of blocks narrower
 // than a tile and its halo) are clamped to its edge: they feed no result.
-// Statics and fields share the offset, as in GridSrc.
+// Statics and fields share the offset, as in GridSrc.  Across cards the
+// fields are Bases, and a CTA keeps its shard beside a pointer to the
+// launch's source (StackSrc::View), which stays in the kernel's parameters.
 template <typename T, int NF>
 struct StackSrc {
-  const T* f[NF];
+  Bases<T> f[NF];
   Stack m;
-  long plane;           // the grid's ny nx: the layer stride
+  long plane;           // the card's my mx ly lx: the layer stride
   int j, i;             // the CTA's shard
+#if BEOM_CARDS
+  // the point (y, x) of the card's shard (j, i)
+  __device__ __forceinline__ Loc at(int j, int i, int y, int x) const {
+    const int GY = m.cy * m.my;
+    const int GX = m.cx * m.mx;
+    int J = m.j0() + j, I = m.i0() + i;
+    if (y < 0) {
+      J = J == 0 ? GY - 1 : J - 1;
+      y += m.ly;
+    } else if (y >= m.ly) {
+      J = J == GY - 1 ? 0 : J + 1;
+      y -= m.ly;
+    }
+    if (x < 0) {
+      I = I == 0 ? GX - 1 : I - 1;
+      x += m.lx;
+    } else if (x >= m.lx) {
+      I = I == GX - 1 ? 0 : I + 1;
+      x -= m.lx;
+    }
+    y = y < 0 ? 0 : y < m.ly ? y : m.ly - 1;
+    x = x < 0 ? 0 : x < m.lx ? x : m.lx - 1;
+    const Off o = m.row(J * m.ly + y) + m.col(I * m.lx + x);
+    return Loc{o, o};
+  }
+  struct View {
+    const StackSrc* s;
+    int j, i;
+    Stack m;
+    long plane;
+    __device__ __forceinline__ Loc at(int y, int x) const {
+      return s->at(j, i, y, x);
+    }
+    __device__ __forceinline__ Loc at(Off, int y, int x) const {
+      return at(y, x);
+    }
+    template <int I>
+    __device__ __forceinline__ const T* ptr(const Loc& l) const {
+      return s->f[I] + l.off;
+    }
+    template <int I>
+    __device__ __forceinline__ T get(int k, const Loc& l) const {
+      return s->f[I][k * plane + l.off];
+    }
+    template <int I>
+    __device__ __forceinline__ const T* own() const {
+      return own_base(s->f[I]) + (j * m.mx + i) * m.plane;
+    }
+  };
+  // this source seen from the CTA's shard; `this` must stay in the
+  // kernel's parameters (__grid_constant__)
+  __device__ __forceinline__ View from(const ShardTile& t) const {
+    return View{this, t.j, t.i, m, plane};
+  }
+#else
   __device__ __forceinline__ Loc at(int y, int x) const {
     int J = j, I = i;
     if (y < 0) {
@@ -201,33 +308,77 @@ struct StackSrc {
     s.i = t.i;
     return s;
   }
+#endif
 };
 
-// A StackSrc over the stacked fields `f`
+// The kernels' parameters that a CTA indexes by a point's card class: a
+// __grid_constant__ parameter across cards, so that they are read in
+// place, not copied per thread
+#if BEOM_CARDS
+#define BEOM_CLASSED __grid_constant__
+#else
+#define BEOM_CLASSED
+#endif
+
+// the card classes a host table of pointers holds: nine across cards
+constexpr int NCLS = BEOM_CARDS ? 9 : 1;
+
+// NF operands from a host table of pointers: f[c * stride + k] the stack
+// of operand k in the card of class c (c = 0 alone on one card)
+template <typename T, int NF>
+__host__ inline void set_bases(Bases<T> (&out)[NF], const void* const* f,
+                               int stride = NF) {
+  for (int k = 0; k < NF; ++k) {
+#if BEOM_CARDS
+    for (int c = 0; c < 9; ++c)
+      out[k].b[c] = static_cast<const T*>(f[c * stride + k]);
+#else
+    out[k] = static_cast<const T*>(f[k]);
+#endif
+  }
+}
+
+// A StackSrc over the stacked fields `f` (set_bases' table of that stride)
 template <typename T, int NF>
 __host__ inline StackSrc<T, NF> make_stack_src(const void* const* f,
-                                               const Stack& m, long plane) {
+                                               const Stack& m, long plane,
+                                               int stride = NF) {
   StackSrc<T, NF> s;
-  for (int k = 0; k < NF; ++k) s.f[k] = static_cast<const T*>(f[k]);
+  set_bases<T, NF>(s.f, f, stride);
   s.m = m;
   s.plane = plane;
   s.j = s.i = 0;
   return s;
 }
 
-// The Stack of geom = ly, lx, my, mx, checked against the grid (the
-// Params' ny, nx); false where it does not tile the grid or a block
-// cannot hold a halo of w
+// The Stack of geom = ly, lx, my, mx, cy, cx, a, b (the card's shards, the
+// cards, the card's place; one card: cy = cx = 1, a = b = 0), checked
+// against the grid (the Params' ny, nx); false where it does not tile the
+// grid or a block cannot hold a halo of w.  p's layer stride becomes the
+// card's plane.
 template <typename T>
-__host__ inline bool make_stack(const Params<T>& p, const int* geom, int w,
+__host__ inline bool make_stack(Params<T>& p, const int* geom, int w,
                                 Stack& m) {
   m.ly = geom[0];
   m.lx = geom[1];
   m.my = geom[2];
   m.mx = geom[3];
   m.plane = m.ly * m.lx;
-  return m.ly >= w && m.lx >= w && m.my > 0 && m.mx > 0 &&
-         p.ny == m.ly * m.my && p.nx == m.lx * m.mx;
+  const int cy = geom[4], cx = geom[5], a = geom[6], b = geom[7];
+#if BEOM_CARDS
+  m.cy = cy;
+  m.cx = cx;
+  m.a = a;
+  m.b = b;
+#else
+  if (cy != 1 || cx != 1 || a != 0 || b != 0) return false;
+#endif
+  const bool ok = m.ly >= w && m.lx >= w && m.my > 0 && m.mx > 0 &&
+                  cy > 0 && cx > 0 && a >= 0 && a < cy && b >= 0 &&
+                  b < cx && p.ny == m.ly * m.my * cy &&
+                  p.nx == m.lx * m.mx * cx;
+  p.plane = long(m.plane) * m.my * m.mx;
+  return ok;
 }
 
 }  // namespace beom

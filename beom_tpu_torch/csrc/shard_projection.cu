@@ -1,7 +1,7 @@
 // K7 around the projection bodies: the two phases of a rigid-lid /
-// implicit-free-surface step (stepping/projection.py) on every shard of a
-// device mesh that lies on one card, each phase one launch over every
-// shard:
+// implicit-free-surface step (stepping/projection.py) on the shards of a
+// device mesh that lie on one card, each phase one launch per card over
+// its shards:
 //
 //   phase A: the provisional momentum u*, v* without the surface term and
 //     the divergence of the barotropic transport, from h, u, v (halo 4);
@@ -23,7 +23,9 @@
 // order (Stack), so a block reads a neighbour shard's rows through its row
 // and column offsets as on one device.  The elliptic solve between the
 // phases is the mesh's own solver (stencils/dist_band.py); one stream
-// orders the phases and the solve.
+// orders the phases and the solve.  Across cards (BEOM_CARDS = 1) a card
+// reads its neighbour cards' points, p's too, through their stacks'
+// pointers (shard_addr.cuh), and events order the cards' streams.
 //
 // Bound: device-memory bytes, as K3a / K3b.  The stage bodies are theirs,
 // so each phase equals the single-device kernel on the same points bit for
@@ -36,12 +38,31 @@ namespace {
 using namespace beom;
 using namespace beom::prj;
 
+// phase B's p: its stack (across cards, a host table of the nine classes')
+template <typename T>
+struct Pres {
+  Bases<T> p;
+};
+template <typename T>
+Pres<T> pres_of(const void* pres) {
+  Pres<T> r;
+#if BEOM_CARDS
+  Bases<T> one[1];
+  set_bases<T, 1>(one, static_cast<const void* const*>(pres));
+  r.p = one[0];
+#else
+  r.p = static_cast<const T*>(pres);
+#endif
+  return r;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_pa_kernel(const Params<T> p, const StackSrc<T, N_IN_A> src_,
-                T* out_us, T* out_vs, T* out_div) {
+shard_pa_kernel(const BEOM_CLASSED Params<T> p,
+                const BEOM_CLASSED StackSrc<T, N_IN_A> src_, T* out_us,
+                T* out_vs, T* out_div) {
   const ShardTile t = shard_tile(src_.m, TX, TY);
-  const StackSrc<T, N_IN_A> src = src_.from(t);
+  const auto src = src_.from(t);
   const int b = t.base(src.m);
   pa::run<T>(p, src, t.out(src.m, p.plane), out_us + b, out_vs + b,
              out_div + b);
@@ -49,10 +70,11 @@ shard_pa_kernel(const Params<T> p, const StackSrc<T, N_IN_A> src_,
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_pb_kernel(const Params<T> p, const StackSrc<T, N_IN_B> src_, T corr,
+shard_pb_kernel(const BEOM_CLASSED Params<T> p,
+                const BEOM_CLASSED StackSrc<T, N_IN_B> src_, T corr,
                 T* out_h, T* out_u, T* out_v) {
   const ShardTile t = shard_tile(src_.m, TX, TY);
-  const StackSrc<T, N_IN_B> src = src_.from(t);
+  const auto src = src_.from(t);
   const int b = t.base(src.m);
   pb::run<T>(p, src, t.out(src.m, p.plane), corr, out_h + b, out_u + b,
              out_v + b);
@@ -60,16 +82,17 @@ shard_pb_kernel(const Params<T> p, const StackSrc<T, N_IN_B> src_, T corr,
 
 template <typename T>
 __global__ void __launch_bounds__(pas::THREADS, pas::MINB)
-shard_pas_kernel(const Params<T> p, const Stack m, T* out_us, T* out_vs,
-                 const Epi<T> ep) {
+shard_pas_kernel(const BEOM_CLASSED Params<T> p, const Stack m, T* out_us,
+                 T* out_vs, const Epi<T> ep) {
   pas::run_shards<T>(p, m, out_us, out_vs, ep);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(pbs::THREADS, pbs::MINB)
-shard_pbs_kernel(const Params<T> p, const Stack m, const T* pres, T corr,
-                 T* out_h, T* out_u, T* out_v) {
-  pbs::run_shards<T>(p, m, pres, corr, out_h, out_u, out_v);
+shard_pbs_kernel(const BEOM_CLASSED Params<T> p, const Stack m,
+                 const BEOM_CLASSED Pres<T> pres, T corr, T* out_h, T* out_u,
+                 T* out_v) {
+  pbs::run_shards<T>(p, m, pres.p, corr, out_h, out_u, out_v);
 }
 
 template <typename K>
@@ -80,16 +103,18 @@ cudaError_t allow(K kernel, int smem) {
 
 // Every entry takes: ptrs, the operand table of fb_terms.cuh, every
 // operand stacked (L, S, ly, lx) (h, u*, v* for phase B); ints[J_NY],
-// ints[J_NX] the grid; geom = ly, lx, my, mx; then phase A's outputs u*,
-// v*, div or phase B's p, the correction factor and the outputs h1, u1,
-// v1, all stacked.  shard_proj_a / _b launch the single-step bodies,
-// shard_proj_as / _bs the staged ones.
+// ints[J_NX] the grid; geom = ly, lx, my, mx, cy, cx, a, b (shard_addr.cuh:
+// make_stack); then phase A's outputs u*, v*, div or phase B's p, the
+// correction factor and the outputs h1, u1, v1, all stacked.  Across cards
+// ptrs holds the operand tables of the nine card classes one after another
+// and p is a host table of its nine stacks.  shard_proj_a / _b launch the
+// single-step bodies, shard_proj_as / _bs the staged ones.
 
 template <typename T>
 int shard_proj_a(const void* const* ptrs, const int* ints, const double* dbls,
                  const int* geom, void* us, void* vs, void* div,
                  void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, pa::W, m)) return int(cudaErrorInvalidValue);
   constexpr int smem = pa::smem_bytes<T>();
@@ -97,7 +122,8 @@ int shard_proj_a(const void* const* ptrs, const int* ints, const double* dbls,
   if (e != cudaSuccess) return int(e);
   shard_pa_kernel<T><<<m.grid(TX, TY), THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane), static_cast<T*>(us),
+      p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane, N_PTR),
+      static_cast<T*>(us),
       static_cast<T*>(vs), static_cast<T*>(div));
   return int(cudaGetLastError());
 }
@@ -106,13 +132,19 @@ template <typename T>
 int shard_proj_b(const void* const* ptrs, const int* ints, const double* dbls,
                  const int* geom, const void* pres, double corr, void* h1,
                  void* u1, void* v1, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, pb::W, m)) return int(cudaErrorInvalidValue);
   constexpr int smem = pb::smem_bytes<T>();
   const cudaError_t e = allow(shard_pb_kernel<T>, smem);
   if (e != cudaSuccess) return int(e);
-  const void* const f[N_IN_B] = {ptrs[0], ptrs[1], ptrs[2], pres};
+  // h, u*, v* from the operand table, p after them
+  const void* f[NCLS * N_IN_B];
+  for (int c = 0; c < NCLS; ++c) {
+    for (int k = 0; k < F_P; ++k) f[c * N_IN_B + k] = ptrs[c * N_PTR + k];
+    f[c * N_IN_B + F_P] =
+        BEOM_CARDS ? static_cast<const void* const*>(pres)[c] : pres;
+  }
   shard_pb_kernel<T><<<m.grid(TX, TY), THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       p, make_stack_src<T, N_IN_B>(f, m, p.plane), T(corr),
@@ -124,7 +156,7 @@ template <typename T>
 int shard_proj_as(const void* const* ptrs, const int* ints,
                   const double* dbls, const int* geom, void* us, void* vs,
                   void* div, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, pas::W, m)) return int(cudaErrorInvalidValue);
   constexpr int smem = pas::smem_bytes<T>();
@@ -142,7 +174,7 @@ template <typename T>
 int shard_proj_bs(const void* const* ptrs, const int* ints,
                   const double* dbls, const int* geom, const void* pres,
                   double corr, void* h1, void* u1, void* v1, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, pbs::WX, m)) return int(cudaErrorInvalidValue);
   constexpr int smem = pbs::smem_bytes<T>();
@@ -150,7 +182,7 @@ int shard_proj_bs(const void* const* ptrs, const int* ints,
   if (e != cudaSuccess) return int(e);
   shard_pbs_kernel<T><<<m.grid(pbs::TX, pbs::TY), pbs::THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      p, m, static_cast<const T*>(pres), T(corr), static_cast<T*>(h1),
+      p, m, pres_of<T>(pres), T(corr), static_cast<T*>(h1),
       static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // K7 around the split body: one split barotropic / baroclinic step
-// (stepping/split.py::split_step) on every shard of a device mesh that
-// lies on one card, by the routes of the single-device step (split_step.cu,
-// K1s), each kernel one launch over every shard:
+// (stepping/split.py::split_step) on the shards of a device mesh that lie
+// on one card, by the routes of the single-device step (split_step.cu,
+// K1s), each kernel one launch per card over its shards:
 //   route 2, two launches: the slow phase's layer tendencies (tend), then
 //     the tail (the depth means rebuilt, the subcycle, the recomposition
 //     and fb.finalize on blocks with a halo of nsub + LO + E);
@@ -19,6 +19,10 @@
 // one allocation of (L, S, ly, lx) in mesh order (Stack): the statics, the
 // step's h, u, v, the tendencies, and route 3's SlowPhase (4 nz + 9 planes)
 // and subcycle fields (5 planes).
+//
+// Across cards (BEOM_CARDS = 1) each card launches over its own shards and
+// reads a neighbour card's points through the nine stacks of each operand
+// (shard_addr.cuh), SlowPhase's, the subcycle's and the tendencies' too.
 //
 // Bound: device-memory bytes for the slow phase, its stages for the tail,
 // as K1s.  The stage bodies are K1s's (csrc/split_body.cuh), so each kernel
@@ -41,7 +45,8 @@ __device__ __forceinline__ Ptrs<T, N> at(Ptrs<T, N> o, int base) {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_slow_kernel(const Params<T> p, const StackSrc<T, N_SLOW_IN> src,
+shard_slow_kernel(const BEOM_CLASSED Params<T> p,
+                  const BEOM_CLASSED StackSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_SLOW> out) {
   const ShardTile t = shard_tile(src.m, TX, TY);
   slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
@@ -50,7 +55,8 @@ shard_slow_kernel(const Params<T> p, const StackSrc<T, N_SLOW_IN> src,
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_tend_kernel(const Params<T> p, const StackSrc<T, N_SLOW_IN> src,
+shard_tend_kernel(const BEOM_CLASSED Params<T> p,
+                  const BEOM_CLASSED StackSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_TEND> out) {
   const ShardTile t = shard_tile(src.m, TX, TY);
   slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
@@ -59,7 +65,8 @@ shard_tend_kernel(const Params<T> p, const StackSrc<T, N_SLOW_IN> src,
 
 template <typename T>
 __global__ void __launch_bounds__(sub::THREADS_SUB)
-shard_sub_kernel(const Params<T> p, const StackSrc<T, N_SLOW> src,
+shard_sub_kernel(const BEOM_CLASSED Params<T> p,
+                 const BEOM_CLASSED StackSrc<T, N_SLOW> src,
                  const Ptrs<T, N_SUB> out, T dte, T inv_nsub) {
   const ShardTile t = shard_tile(src.m, SX, SY);
   sub::run<T>(p, src.from(t), at(out, t.base(src.m)), t.out(src.m, p.plane),
@@ -68,7 +75,8 @@ shard_sub_kernel(const Params<T> p, const StackSrc<T, N_SLOW> src,
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_rec_kernel(const Params<T> p, const StackSrc<T, N_REC_IN> src,
+shard_rec_kernel(const BEOM_CLASSED Params<T> p,
+                 const BEOM_CLASSED StackSrc<T, N_REC_IN> src,
                  T* out_h, T* out_u, T* out_v) {
   const ShardTile t = shard_tile(src.m, TX, TY);
   const int b = t.base(src.m);
@@ -78,9 +86,9 @@ shard_rec_kernel(const Params<T> p, const StackSrc<T, N_REC_IN> src,
 
 template <typename T>
 __global__ void __launch_bounds__(tail::QT)
-shard_tail_kernel(const Params<T> p, const Stack m,
-                  const Ptrs<T, N_TEND> tend, T* out_h, T* out_u, T* out_v,
-                  T dte, T inv_nsub) {
+shard_tail_kernel(const BEOM_CLASSED Params<T> p, const Stack m,
+                  const BEOM_CLASSED Ins<T, N_TEND> tend, T* out_h, T* out_u,
+                  T* out_v, T dte, T inv_nsub) {
   const ShardTile t = shard_tile(m, QX, tail::QY);
   const int b = t.base(m);
   tail::run_at<T, true>(p, tend, t.out(m, p.plane), out_h + b, out_u + b,
@@ -94,6 +102,14 @@ Ptrs<T, N> pack(void* const* a) {
   return r;
 }
 
+// the stacked fields of a kernel's input table (set_bases' layout)
+template <typename T, int N>
+Ins<T, N> ins(const void* const* a) {
+  Ins<T, N> r;
+  set_bases<T, N>(r.p, a);
+  return r;
+}
+
 template <typename K>
 cudaError_t allow(K kernel, int smem) {
   return cudaFuncSetAttribute(
@@ -102,14 +118,16 @@ cudaError_t allow(K kernel, int smem) {
 
 // Every entry takes: ptrs, the operand table of fb_terms.cuh, every
 // operand stacked (L, S, ly, lx); ints[J_NY], ints[J_NX] the grid; geom =
-// ly, lx, my, mx; the stacked fields each kernel reads besides (SlowPhase's
-// 13, the subcycle's 5, the tendencies' 2) as pointer tables in the order
-// of split_body.cuh's enums; then its outputs, stacked.
+// ly, lx, my, mx, cy, cx, a, b (shard_addr.cuh: make_stack); the stacked
+// fields each kernel reads besides (SlowPhase's 13, the subcycle's 5, the
+// tendencies' 2) as pointer tables in the order of split_body.cuh's enums
+// (across cards, these tables and ptrs hold the nine card classes' one
+// after another); then its outputs, stacked.
 
 template <typename T>
 int shard_slow(const void* const* ptrs, const int* ints, const double* dbls,
                const int* geom, void* const* outs, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   cudaError_t e =
       make_stack(p, geom, slow::W, m) ? cudaSuccess : cudaErrorInvalidValue;
@@ -118,7 +136,7 @@ int shard_slow(const void* const* ptrs, const int* ints, const double* dbls,
   if (e != cudaSuccess) return int(e);
   shard_slow_kernel<T><<<m.grid(TX, TY), THREADS, slow::smem_bytes<T>(),
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane),
+      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_PTR),
       pack<T, N_SLOW>(outs));
   return int(cudaGetLastError());
 }
@@ -126,7 +144,7 @@ int shard_slow(const void* const* ptrs, const int* ints, const double* dbls,
 template <typename T>
 int shard_tend(const void* const* ptrs, const int* ints, const double* dbls,
                const int* geom, void* const* outs, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   cudaError_t e =
       make_stack(p, geom, slow::W, m) ? cudaSuccess : cudaErrorInvalidValue;
@@ -135,7 +153,7 @@ int shard_tend(const void* const* ptrs, const int* ints, const double* dbls,
   if (e != cudaSuccess) return int(e);
   shard_tend_kernel<T><<<m.grid(TX, TY), THREADS, slow::smem_bytes<T>(),
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane),
+      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_PTR),
       pack<T, N_TEND>(outs));
   return int(cudaGetLastError());
 }
@@ -145,7 +163,7 @@ int shard_subcycle(const void* const* ptrs, const int* ints,
                    const double* dbls, const int* geom,
                    void* const* slow_fields, void* const* outs,
                    void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   cudaError_t e =
       make_stack(p, geom, sub::W, m) ? cudaSuccess : cudaErrorInvalidValue;
@@ -168,17 +186,20 @@ int shard_recompose(const void* const* ptrs, const int* ints,
                     const double* dbls, const int* geom,
                     void* const* slow_fields, void* const* sub_fields,
                     void* h1, void* u1, void* v1, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   cudaError_t e =
       make_stack(p, geom, rec::W, m) ? cudaSuccess : cudaErrorInvalidValue;
   if (e == cudaSuccess)
     e = allow(shard_rec_kernel<T>, rec::smem_bytes<T>());
   if (e != cudaSuccess) return int(e);
-  const void* fields[N_REC_IN];
-  fields[R_H] = ptrs[I_H];
-  for (int i = 0; i < N_SLOW; ++i) fields[R_SP + i] = slow_fields[i];
-  for (int i = 0; i < N_SUB; ++i) fields[R_SB + i] = sub_fields[i];
+  const void* fields[NCLS * N_REC_IN];
+  for (int c = 0; c < NCLS; ++c) {
+    const void** f = fields + c * N_REC_IN;
+    f[R_H] = ptrs[c * N_PTR + I_H];
+    for (int i = 0; i < N_SLOW; ++i) f[R_SP + i] = slow_fields[c * N_SLOW + i];
+    for (int i = 0; i < N_SUB; ++i) f[R_SB + i] = sub_fields[c * N_SUB + i];
+  }
   shard_rec_kernel<T><<<m.grid(TX, TY), THREADS, rec::smem_bytes<T>(),
                         static_cast<cudaStream_t>(stream)>>>(
       p, make_stack_src<T, N_REC_IN>(fields, m, p.plane),
@@ -190,7 +211,7 @@ template <typename T>
 int shard_tail(const void* const* ptrs, const int* ints, const double* dbls,
                const int* geom, void* const* tend, void* h1, void* u1,
                void* v1, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   cudaError_t e =
       make_stack(p, geom, tail::HALO, m) ? cudaSuccess : cudaErrorInvalidValue;
@@ -202,7 +223,7 @@ int shard_tail(const void* const* ptrs, const int* ints, const double* dbls,
   const T inv_nsub = T(1) / T(NSUB);
   shard_tail_kernel<T><<<m.grid(QX, tail::QY), tail::QT, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      p, m, pack<T, N_TEND>(tend), static_cast<T*>(h1), static_cast<T*>(u1),
+      p, m, ins<T, N_TEND>(tend), static_cast<T*>(h1), static_cast<T*>(u1),
       static_cast<T*>(v1), dte, inv_nsub);
   return int(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
 // K7: free-surface forward-backward steps (stepping/fb.py::fb_step) on
-// every shard of a device mesh that lies on one card, in one launch: one
-// step per launch (a build with BEOM_KB = 1), or a pass of KB steps per
-// launch, as K1 (fb_step.cu) runs them on the whole grid.
+// the shards of a device mesh that lie on one card, in one launch per
+// card: one step per launch (a build with BEOM_KB = 1), or a pass of KB
+// steps per launch, as K1 (fb_step.cu) runs them on the whole grid.
 //
 // Replaces beom_tpu/stencils/dist_band.py::_dist_band_kernel running the
 // fb body of beom_tpu/parallel/dist.py::make_dist_pallas_stepper, which
@@ -17,7 +17,11 @@
 // operand, h, u, v and the statics alike, is one allocation of (L, S, ly,
 // lx) in mesh order (Stack), so a neighbour shard's point is a row term
 // plus a column term away and Flather, the sponge and the exterior clamp
-// see the statics of their global positions.
+// see the statics of their global positions.  A mesh over several cards
+// (BEOM_CARDS = 1) launches once per card over the card's shards and reads
+// a neighbour card's points in its stacks through their pointers, the
+// tables' terms card-local and their card class picking the stack
+// (shard_addr.cuh); events order the cards' streams.
 //
 // Bound: device-memory bytes for the single step, the stages for the
 // pass, as K1.  The arithmetic per point is K1's (csrc/fb_step_body.cuh),
@@ -35,14 +39,15 @@ using namespace beom::fbk;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-shard_step_kernel(const Params<T> p, const StackSrc<T, 3> src_, T* h1,
-                  T* u1, T* v1) {
+shard_step_kernel(const BEOM_CLASSED Params<T> p,
+                  const BEOM_CLASSED StackSrc<T, 3> src_, T* h1, T* u1,
+                  T* v1) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   const int tid = threadIdx.x;
   const ShardTile t = shard_tile(src_.m, TX, TY);
-  const StackSrc<T, 3> src = src_.from(t);
+  const auto src = src_.from(t);
 
   // S0: the haloed block, each point from the shard it falls into
   const int x0 = t.x0 - W;
@@ -77,7 +82,7 @@ shard_step_kernel(const Params<T> p, const StackSrc<T, 3> src_, T* h1,
 template <typename T>
 int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
                const int* geom, void* h1, void* u1, void* v1, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, W, m)) return int(cudaErrorInvalidValue);
   constexpr int smem = smem_bytes<T>();
@@ -87,7 +92,7 @@ int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
   if (e != cudaSuccess) return int(e);
   shard_step_kernel<T><<<m.grid(TX, TY), THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, 3>(ptrs, m, p.plane), static_cast<T*>(h1),
+      p, make_stack_src<T, 3>(ptrs, m, p.plane, N_PTR), static_cast<T*>(h1),
       static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }
@@ -100,7 +105,8 @@ constexpr int kernel_smem(bool f64) {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1)
-shard_pass_kernel(const Params<T> p, const Stack m, T* h1, T* u1, T* v1) {
+shard_pass_kernel(const BEOM_CLASSED Params<T> p, const Stack m, T* h1,
+                  T* u1, T* v1) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   const ShardTile t = shard_tile(m, TX, TY);
@@ -113,7 +119,7 @@ shard_pass_kernel(const Params<T> p, const Stack m, T* h1, T* u1, T* v1) {
 template <typename T>
 int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
                const int* geom, void* h1, void* u1, void* v1, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, fbp::HALO, m)) return int(cudaErrorInvalidValue);
   constexpr int smem = fbp::smem_bytes<T>();
@@ -136,9 +142,11 @@ constexpr int kernel_smem(bool f64) {
 }  // namespace
 
 // ptrs: the operand table of fb_terms.cuh, every operand stacked (L, S,
-// ly, lx); ints[J_NY], ints[J_NX] the grid; geom: ly, lx, my, mx.  One
-// launch: one step (BEOM_KB = 1), or a pass of KB steps with step i's time
-// in dbls[D_TS0 + i].  The outputs are stacked as h, u, v.
+// ly, lx; across cards the nine card classes' tables one after another);
+// ints[J_NY], ints[J_NX] the grid; geom: ly, lx, my, mx, cy, cx, a, b
+// (shard_addr.cuh: make_stack).  One launch: one step (BEOM_KB = 1), or a
+// pass of KB steps with step i's time in dbls[D_TS0 + i].  The outputs are
+// stacked as h, u, v.
 
 extern "C" int beom_shard_step_f32(const void* const* ptrs, const int* ints,
                                    const double* dbls, const int* geom,

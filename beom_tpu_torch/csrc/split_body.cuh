@@ -41,6 +41,12 @@ template <typename T, int N>
 struct Ptrs {
   T* p[N];
 };
+// the stacked fields a kernel reads around its block, besides the operand
+// table (Bases: across cards, the nine stacks of each)
+template <typename T, int N>
+struct Ins {
+  Bases<T> p[N];
+};
 
 // ---------------------------------------------------------------- slow phase
 namespace slow {
@@ -66,7 +72,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
 }
 
 // Stage regions: phi, q (and lap for nu4) on [1, R-1); the tendencies with
@@ -77,7 +83,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Ptrs<T, NO>& out, const Out& o) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
@@ -349,7 +355,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + NPT * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
 }
 
 // Stage regions: the advecting velocities on the whole block; the
@@ -363,7 +369,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     T* out_v) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* ua = sm + P_UA * NPT;
   T* va = sm + P_VA * NPT;
@@ -518,13 +524,13 @@ enum Plane {
 // more of each: the east and north neighbours of the block's last points)
 template <typename T>
 constexpr int smem_bytes() {
-  return int(N_PLANES * NPT * sizeof(T) + (RX + RY + 2) * sizeof(int));
+  return table_bytes(N_PLANES * NPT * sizeof(T), RX + RY + 2);
 }
 
 // the statics through the block's row and column offsets
 template <typename T>
 struct RowColStat {
-  const int *roff, *coff;
+  const Off *roff, *coff;
   __device__ __forceinline__ T get(const Params<T>& p, int i, int s) const {
     return p.in[i][roff[s / RX] + coff[s % RX]];
   }
@@ -537,16 +543,15 @@ struct RowColStat {
 // The tile at o, whose first point in the grid is (gy0, gx0).  With SH
 // every operand is stacked over the shards of a mesh (shard_addr.cuh:
 // Stack), and o is the tile in its shard's block.
-template <typename T, bool SH>
-__device__ __forceinline__ void run_at(const Params<T>& p,
-                                       const Ptrs<T, N_TEND>& tend,
+template <typename T, bool SH, typename Tend>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Tend& tend,
                                        const Out& o, T* out_h, T* out_u,
                                        T* out_v, T dte, T inv_nsub, int gy0,
                                        int gx0, const Stack& m) {
   extern __shared__ unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
-  int* roff = reinterpret_cast<int*>(sm + N_PLANES * NPT);
-  int* coff = roff + RY + 1;
+  Off* roff = off_table(sm, N_PLANES * NPT);
+  Off* coff = roff + RY + 1;
   T* mask = sm + P_M * NPT;
   T* mu = sm + P_MU * NPT;
   T* mv = sm + P_MV * NPT;
@@ -567,18 +572,18 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
   const int s0 = y0 * RX + x;            // its first point; row r at s0 + r RX
   for (int r = tid; r <= RY; r += QT) {
     const int gy = wrap(gy0 - HALO + r, p.ny);
-    roff[r] = SH ? m.row(gy) : gy * p.nx;
+    roff[r] = SH ? m.row(gy) : Off(gy * p.nx);
   }
   for (int c = tid; c <= RX; c += QT) {
     const int gx = wrap(gx0 - HALO + c, p.nx);
-    coff[c] = SH ? m.col(gx) : gx;
+    coff[c] = SH ? m.col(gx) : Off(gx);
   }
   __syncthreads();
-  const T* hin = p.in[I_H];
-  const T* uin = p.in[I_U];
-  const T* vin = p.in[I_V];
-  const int cx = coff[x];
-  const int cx1 = coff[x + 1];
+  BasesArg<T> hin = p.in[I_H];
+  BasesArg<T> uin = p.in[I_U];
+  BasesArg<T> vin = p.in[I_V];
+  const Off cx = coff[x];
+  const Off cx1 = coff[x + 1];
 
   // phase A: SlowPhase's barotropic fields at the strip's points, as
   // slow::run computes them (hx, hy from h at the east and north points)
@@ -587,9 +592,9 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
 #pragma unroll
   for (int r = 0; r < QP; ++r) {
     const int s = s0 + r * RX;
-    const int g = roff[y0 + r] + cx;
-    const int gx = roff[y0 + r] + cx1;
-    const int gy = roff[y0 + r + 1] + cx;
+    const Off g = roff[y0 + r] + cx;
+    const Off gx = roff[y0 + r] + cx1;
+    const Off gy = roff[y0 + r + 1] + cx;
     const T m_ = p.in[I_MASK][g];
     const T mu_ = p.in[I_MASK_U][g];
     const T mv_ = p.in[I_MASK_V][g];
@@ -671,7 +676,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
   for (int r = 0; r < QP; ++r) {
     const int s = s0 + r * RX;
     if (!in_block(y0 + r, x, A, A)) continue;
-    const int g = roff[y0 + r] + cx;
+    const Off g = roff[y0 + r] + cx;
     T nu_, nv_;
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
@@ -701,7 +706,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
     REGION_NS(A, A, {
       T e = T(0);
       for (int cc = 0; cc < NTIDE; ++cc) {
-        const long g = long(cc) * p.plane + roff[s / RX] + coff[s % RX];
+        const auto g = long(cc) * p.plane + roff[s / RX] + coff[s % RX];
         e = e + p.in[I_TIDE_AMP][g] *
                     tcos(p.omega[cc] * p.t1 - p.in[I_TIDE_PHASE][g]);
       }
@@ -732,7 +737,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
     const int ii = x - HALO;
     if (jj < 0 || jj >= QY || ii < 0 || ii >= QX || !o.valid(jj, ii))
       continue;
-    const int g = roff[y0 + r] + cx;
+    const Off g = roff[y0 + r] + cx;
     // drag.bottom_drag_coeff of the bottom layer, as Tile::drag_u / drag_v
     constexpr int kb = NZ - 1;
     const T* hb = h + kb * NPT;
@@ -743,14 +748,14 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
       cu = p.r_bot / hu_b;
       cv = p.r_bot / hv_b;
     } else {
-      const T* ubt = uin + kb * p.plane;
-      const T* vbt = vin + kb * p.plane;
-      const int gs = roff[y0 + r - 1] + cx;     // south
-      const int ge = roff[y0 + r] + cx1;        // east
-      const int gse = roff[y0 + r - 1] + cx1;   // south-east
-      const int gw = roff[y0 + r] + coff[x - 1];
-      const int gn = roff[y0 + r + 1] + cx;
-      const int gnw = roff[y0 + r + 1] + coff[x - 1];
+      const auto ubt = uin + kb * p.plane;
+      const auto vbt = vin + kb * p.plane;
+      const Off gs = roff[y0 + r - 1] + cx;     // south
+      const Off ge = roff[y0 + r] + cx1;        // east
+      const Off gse = roff[y0 + r - 1] + cx1;   // south-east
+      const Off gw = roff[y0 + r] + coff[x - 1];
+      const Off gn = roff[y0 + r + 1] + cx;
+      const Off gnw = roff[y0 + r + 1] + coff[x - 1];
       const T v4 = half * (half * (vbt[g] + vbt[gs]) +
                            half * (vbt[ge] + vbt[gse]));
       cu = (p.r_bot + p.cd_bot * tsqrt(ubt[g] * ubt[g] + v4 * v4)) / hu_b;
@@ -761,7 +766,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
     T uo[NZ], vo[NZ];
 #pragma unroll
     for (int k = 0; k < NZ; ++k) {
-      const long gk = k * p.plane + g;
+      const auto gk = k * p.plane + g;
       const T up = uin[gk] - ubar[r];
       const T vp = vin[gk] - vbar[r];
       const T dup = tend.p[T_DUS][gk] - dub[r];

@@ -9,12 +9,14 @@ kernel, on the CPU K1's plain version.
 step on a mesh of n shards: the eager tier (halo exchange op by op), the
 shard kernels (K7: the fb step, its pass of 2 steps, the split step, the
 projection phases around the mesh's elliptic solve) and the mesh solves.
-The port's mesh holds every shard on one device (parallel/mesh.py: one
-controlling process, several shards on one card), so "multichip" here
-means n shards through the mesh path on one card, not n cards.  The
-reference's in-kernel halo exchange ("pallas+rdma") is K7 reading the
-neighbour shards' rows in its stacked layout, so no leg needs the halo
-kernel (K8).  Every leg keeps the reference's grid size and settings.
+The shards spread over the visible cards as the reference spreads them
+over n devices: one rectangle of shards per card (card_placement; with
+one card, or a device named, every shard on it, so "multichip" there
+means n shards through the mesh path on one card).  The reference's
+in-kernel halo exchange ("pallas+rdma") is K7 reading the neighbour
+shards' rows in its stacked layout (across cards through their
+pointers), so no leg needs the halo kernel (K8).  Every leg keeps the
+reference's grid size and settings.
 
 `run_leg(..., seed=s)` starts a leg from its case's state perturbed by s,
 and `one_device_twins` pairs what a fused leg computed on the mesh with
@@ -55,6 +57,31 @@ def mesh_shape(n_devices: int):
     while n_devices % my:
         my -= 1
     return my, n_devices // my
+
+
+def card_grid(my: int, mx: int, n_cards: int):
+    """The grid (cy, cx) of cards an (my, mx) mesh spreads over: the most
+    cards, at most n_cards, that cut the mesh into equal rectangles (cy
+    divides my, cx divides mx), and of those the squarest rectangle."""
+    best = None
+    for cy in range(1, my + 1):
+        for cx in range(1, mx + 1):
+            if my % cy or mx % cx or cy * cx > n_cards:
+                continue
+            key = (cy * cx, -abs(my // cy - mx // cx), cx)
+            if best is None or key > best[0]:
+                best = (key, (cy, cx))
+    return best[1]
+
+
+def card_placement(my: int, mx: int, cards: list) -> list:
+    """The device of each shard of an (my, mx) mesh spread over `cards`:
+    card_grid's rectangles, card (a, b) of the grid on cards[a cx + b]
+    (the cards left over take none)."""
+    cy, cx = card_grid(my, mx, len(cards))
+    cmy, cmx = my // cy, mx // cx
+    return [cards[(j // cmy) * cx + i // cmx]
+            for j in range(my) for i in range(mx)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -194,14 +221,20 @@ def one_device_twins(rec, seed: int = 0) -> list:
 
 
 def dryrun_multichip(n_devices: int, device=None) -> list:
-    """The seven legs on an n-shard mesh on one device; prints a line per
-    leg and returns their records (run_leg)."""
+    """The seven legs on an n-shard mesh, spread over the visible cards as
+    the reference spreads it over n devices: one rectangle of shards per
+    card (card_placement; one card holds them all, and a named device
+    too); prints a line per leg and returns their records (run_leg)."""
     from beom_tpu_torch.parallel.mesh import make_mesh
     from beom_tpu_torch.run import device_of
 
     dev = device_of(device)
     my, mx = mesh_shape(n_devices)
-    mesh = make_mesh(my, mx, devices=[dev])
+    cards = [dev]
+    if device is None and dev.type == "cuda":
+        cards = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+    mesh = make_mesh(my, mx, devices=card_placement(my, mx, cards))
     records = []
     for leg in LEGS:
         rec = run_leg(leg, mesh, dev)

@@ -398,11 +398,12 @@ def _dist_split_step(state: State, pgrid: Grid, pforcing: Forcing,
 
 
 def make_dist_stepper(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh,
-                      n_inner: int = 1) -> Callable:
+                      n_inner: int = 1, cards=None) -> Callable:
     """step_fn(state) -> state on a sharded State, advancing n_inner
     passes of cfg.steps_per_pass steps per call.
 
-    backend='fused' runs the shard kernels (K7) for every scheme: fb and
+    backend='fused' runs the shard kernels (K7) for every scheme, one
+    launch per card of the mesh (`cards`: dist_band.MeshKernels'): fb and
     split through make_dist_fused_stepper, rigid_lid and implicit_fs
     through make_dist_fused_projection_stepper (the phase kernels around
     solve_pressure).  backend='eager' runs the halo-exchanging steps above,
@@ -413,7 +414,7 @@ def make_dist_stepper(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh,
         make = dist_band.make_dist_fused_stepper
         if cfg.scheme in ("rigid_lid", "implicit_fs"):
             make = dist_band.make_dist_fused_projection_stepper
-        pass_fn = make(grid, forcing, cfg, mesh)
+        pass_fn = make(grid, forcing, cfg, mesh, cards=cards)
 
         def fused_fn(state):
             for _ in range(n_inner):

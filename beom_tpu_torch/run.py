@@ -46,11 +46,16 @@ class InstabilityError(RuntimeError):
 
 def run(cfg: Config, grid: Grid, forcing: Forcing, state: State,
         n_steps: int, run_dir: Optional[str] = None,
-        log=None, chunk: Optional[int] = None) -> State:
+        log=None, chunk: Optional[int] = None, devices=None,
+        cards=None) -> State:
     """Advance `n_steps`, chunked for I/O; returns the final state.
 
     Diagnostics go to `log` (default: sys.stdout at call time); chunk
-    defaults to the diagnostics/snapshot cadence (or 100).
+    defaults to the diagnostics/snapshot cadence (or 100).  A mesh run
+    (mesh_y * mesh_x > 1) puts its shards on `devices` (one per shard, or
+    one for all; default the grid's device): on several cards the fused
+    backend launches its kernels once per card.  `cards` is for the tests
+    and the chip check: the fused kernels' cards (dist_band.MeshKernels).
     """
     log = sys.stdout if log is None else log
     cadences = [c for c in (cfg.diag_every, cfg.snap_every) if c > 0]
@@ -72,11 +77,12 @@ def run(cfg: Config, grid: Grid, forcing: Forcing, state: State,
         from beom_tpu_torch.parallel.dist import make_dist_stepper
         from beom_tpu_torch.parallel.mesh import (gather_state, make_mesh,
                                                   shard_state)
-        mesh = make_mesh(cfg.mesh_y, cfg.mesh_x, devices=[grid.H.device])
+        mesh = make_mesh(cfg.mesh_y, cfg.mesh_x,
+                         devices=devices or [grid.H.device])
         state = shard_state(state, mesh)
-        pstep = make_dist_stepper(grid, forcing, cfg, mesh)
+        pstep = make_dist_stepper(grid, forcing, cfg, mesh, cards=cards)
         pstep1 = pstep if spp == 1 else make_dist_stepper(
-            grid, forcing, cfg1, mesh)
+            grid, forcing, cfg1, mesh, cards=cards)
     else:
         def gather_state(s):
             return s

@@ -122,6 +122,21 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def enable_peers(pairs) -> None:
+    """Let each (reader, holder) pair of CUDA devices read the holder's
+    memory in place (cudaDeviceEnablePeerAccess, csrc/peers.cu; access
+    already on counts as success); raise on any other error."""
+    import torch
+
+    if not pairs:
+        return
+    lib = load("peers")
+    for reader, holder in pairs:
+        code = lib.beom_enable_peer(torch.device(reader).index,
+                                    torch.device(holder).index)
+        check(lib, code, f"peer access from {reader} to {holder}")
+
+
 def on_device(dev):
     """A context in which the CUDA device `dev` is current, entered only
     where it is not: a launch goes to the current device and takes dev's

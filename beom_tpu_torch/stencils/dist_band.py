@@ -13,18 +13,25 @@ the same stage code (`csrc/fb_step_body.cuh`, `split_body.cuh`,
 `projection_body.cuh`), so a shard's result equals the single-device
 kernel's bit for bit.
 
-Every shard of the mesh lies on one card, so there is no remote transfer
-to overlap: each kernel is one launch over the tiles of every shard, on
-the device's current stream, which orders a kernel after the previous one
-of its neighbours.  Every operand is one allocation of (L, S, ly, lx): layer
-k of shard s = j mx + i is the block s of the grid's plane k (`stack`), so
-the layer stride is the grid's and a point's offset is a row term plus a
-column term, whichever shard holds it (csrc/shard_addr.cuh: Stack).  The
-statics are stacked once per MeshKernels, the sharded fields a kernel
-returns are views of its stacked outputs, and fields that are not yet
-stacked are copied once into the layout.  A MeshKernels keeps what a
-launch does not change: the builds, the operand table of the statics, the
-scalar slots and the geometry.
+The shards of a device are its card (parallel/mesh.py: card_groups, a
+rectangle of the mesh, the same shape on every card), and each kernel is
+one launch per card over the tiles of its shards.  Every operand of a
+card is one allocation of (L, S_c, ly, lx): layer k of the card's shard q
+is its block in the card's plane k (`stack_part`), so a point's offset on
+the card is a row term plus a column term, whichever of the card's shards
+holds it (csrc/shard_addr.cuh: Stack).  On one card that is the whole mesh
+(`stack`), one stream orders a kernel after the previous one of its
+neighbours, and there is no remote transfer to overlap.  Across cards
+(the builds with BEOM_CARDS = 1) a point of a neighbour card's shard is
+read in that card's stacks through their pointers (peer access): the
+tables' terms stay card-local and carry the point's card class, which
+picks one of the nine stacks of an operand; each card launches on its own
+stream, ordered against its neighbours' by events (mesh.CardStreams).  The
+statics are stacked once per card and MeshKernels, the sharded fields a
+kernel returns are views of its stacked outputs, and fields that are not
+yet stacked are copied once into the layout.  A MeshKernels keeps what a
+launch does not change: the builds, the operand tables of the statics,
+the scalar slots and the geometry of each card.
 
   fb     a pass of k steps is `mesh_plan`'s launches: kb steps per launch
          (the pass kernel, fused_fb.plan's kb, at most what a block's
@@ -38,10 +45,10 @@ scalar slots and the geometry.
          fits a CTA; around the mesh's elliptic solve (parallel/dist.py's
          solve_pressure, eager over the shards).
 
-The kernels read every shard's block through the stacked layout, so every
-shard must lie on one CUDA device: a mesh over several devices raises
-(one launch per device for the shards it holds, with peer access between
-cards for the neighbours' edges, is ROADMAP queue 1 item 6).
+A mesh over several devices takes equal rectangles of shards per device;
+another placement, and a mesh that mixes CPU and CUDA shards, raises
+ValueError, and neighbour cards without peer access raise RuntimeError.
+No path stages a neighbour's edge through the host.
 
 Each wrapper runs its kernel on CUDA blocks, through the MeshKernels it is
 given (the fused mesh steppers launch through the same wrappers), and its
@@ -63,14 +70,16 @@ from beom_tpu_torch.core.config import Config
 from beom_tpu_torch.core.grid import Grid, Forcing
 from beom_tpu_torch.core.state import State, advance_time
 from beom_tpu_torch.parallel import halo
-from beom_tpu_torch.parallel.mesh import Mesh, Sharded
+from beom_tpu_torch.parallel.mesh import (Card, CardStreams, Mesh, Sharded,
+                                          _with_index, card_classes,
+                                          check_peers, device_type)
 from beom_tpu_torch.physics import drag
 from beom_tpu_torch.stencils import build, fused_fb, fused_projection
 from beom_tpu_torch.stepping import fb as fb_mod
 from beom_tpu_torch.stepping import projection
 from beom_tpu_torch.stepping import split as split_mod
 
-# kernel launches, one per kernel for every shard of the device: the fb
+# kernel launches, one per kernel and card for the card's shards: the fb
 # launches (fb_pass those of the pass kernel among them), the split step's
 # kernels and the projection phases; a run reads them to show that its
 # main path went through the kernels
@@ -256,12 +265,17 @@ def split_tail_plain(tend, h, u, v, pstatics, t, cfg: Config):
 
 # ---------------------------------------------------------------- layout
 
-def stack(a: Sharded) -> torch.Tensor:
-    """The allocation (L.., S, ly, lx) whose slice s along axis -3 is
-    shard s's block of a: the one a's blocks are views of (no copy), else a
-    stacked copy of them."""
-    blocks = a.blocks
-    base = a.__dict__.get("stacked")
+def whole_card(mesh: Mesh) -> Card:
+    """The one card of a mesh whose shards all lie on one device."""
+    NY, NX = mesh.shape["y"], mesh.shape["x"]
+    return Card(mesh.devices[0], tuple(range(mesh.n)), (0, 0), (NY, NX),
+                (0, 0))
+
+
+def _stacked(blocks, base) -> torch.Tensor:
+    """The allocation (L.., len(blocks), ly, lx) whose slice q along axis
+    -3 is blocks[q]: `base` where the blocks are still its slices, else
+    the one they are views of (no copy), else a stacked copy of them."""
     if base is not None:
         # unstack's field: its blocks are still the slices of `base`
         p, step = base.data_ptr(), base.stride(-3) * base.element_size()
@@ -276,11 +290,50 @@ def stack(a: Sharded) -> torch.Tensor:
     if all(b.shape == b0.shape and b.dtype == b0.dtype
            and b.device == b0.device and tuple(b.stride()) == want
            and b.untyped_storage().data_ptr() == store
-           and b.storage_offset() == b0.storage_offset() + s * plane
-           for s, b in enumerate(blocks)):
+           and b.storage_offset() == b0.storage_offset() + q * plane
+           for q, b in enumerate(blocks)):
         return b0.as_strided(lead + (n, ly, lx), want[:-2] + (plane, lx, 1),
                              b0.storage_offset())
     return torch.stack(blocks, dim=-3)
+
+
+# the key of `stacked` under which unstack keeps a whole mesh's allocation
+_WHOLE = "mesh"
+
+
+def stack_part(a: Sharded, shards) -> torch.Tensor:
+    """The allocation (L.., len(shards), ly, lx) whose slice q along axis
+    -3 is shard shards[q]'s block of a: the one those blocks are views of
+    (no copy), else a stacked copy of them."""
+    shards = tuple(shards)
+    return _stacked([a.blocks[s] for s in shards],
+                    a.__dict__.get("stacked", {}).get(shards))
+
+
+def stack(a: Sharded) -> torch.Tensor:
+    """The allocation (L.., S, ly, lx) whose slice s along axis -3 is
+    shard s's block of a: the one a's blocks are views of (no copy), else a
+    stacked copy of them."""
+    return _stacked(a.blocks, a.__dict__.get("stacked", {}).get(_WHOLE))
+
+
+def unstack_parts(parts, mesh: Mesh, cards) -> Sharded:
+    """The sharded field whose blocks are the slices of the cards' stacked
+    parts (part c holds cards[c]'s shards; kept as its `stacked`, which
+    stack_part returns without a search)."""
+    blocks = [None] * mesh.n
+    for part, card in zip(parts, cards):
+        if part.shape[-3] != len(card.shards):
+            raise ValueError(f"a stacked field of {part.shape[-3]} blocks "
+                             f"on a card of {len(card.shards)} shards")
+        for s, b in zip(card.shards, part.unbind(-3)):
+            blocks[s] = b
+    if any(b is None for b in blocks):
+        raise ValueError(f"the cards do not cover the mesh of {mesh.n} "
+                         "shards")
+    out = Sharded(blocks, mesh)
+    out.stacked = {card.shards: part for part, card in zip(parts, cards)}
+    return out
 
 
 def unstack(a: torch.Tensor, mesh: Mesh) -> Sharded:
@@ -290,17 +343,25 @@ def unstack(a: torch.Tensor, mesh: Mesh) -> Sharded:
         raise ValueError(f"a stacked field of {a.shape[-3]} blocks on a mesh "
                          f"of {mesh.n} shards")
     out = Sharded(a.unbind(-3), mesh)
-    out.stacked = a
+    out.stacked = {_WHOLE: a}
     return out
+
+
+def stack_card(a: torch.Tensor, mesh: Mesh, card: Card) -> torch.Tensor:
+    """A global field (.., ny, nx) in the stacked layout of a card (..,
+    cmy cmx, ly, lx): its rectangle of shards in their mesh order."""
+    NY, NX = mesh.shape["y"], mesh.shape["x"]
+    lead, (ny, nx) = tuple(a.shape[:-2]), tuple(a.shape[-2:])
+    ly, lx = ny // NY, nx // NX
+    (j0, i0), (cmy, cmx) = card.origin, card.shape
+    a = a[..., j0 * ly:(j0 + cmy) * ly, i0 * lx:(i0 + cmx) * lx]
+    return a.reshape(lead + (cmy, ly, cmx, lx)).transpose(-3, -2) \
+        .reshape(lead + (cmy * cmx, ly, lx)).contiguous()
 
 
 def stack_global(a: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """A global field (.., ny, nx) in the stacked layout (.., S, ly, lx)."""
-    NY, NX = mesh.shape["y"], mesh.shape["x"]
-    lead, (ny, nx) = tuple(a.shape[:-2]), tuple(a.shape[-2:])
-    ly, lx = ny // NY, nx // NX
-    return a.reshape(lead + (NY, ly, NX, lx)).transpose(-3, -2) \
-        .reshape(lead + (NY * NX, ly, lx)).contiguous()
+    return stack_card(a, mesh, whole_card(mesh))
 
 
 def stack_offsets(gy, gx, ly: int, lx: int, mx: int):
@@ -312,82 +373,137 @@ def stack_offsets(gy, gx, ly: int, lx: int, mx: int):
     return J * mx * plane + (gy - J * ly) * lx, I * plane + (gx - I * lx)
 
 
-def stack_statics(grid: Grid, forcing: Forcing, mesh: Mesh):
-    """(grid, forcing) of the whole grid with every field stacked."""
+def _cls(d, n: int):
+    """The card class code of the card d cards along an axis of n cards
+    (csrc/shard_addr.cuh: Stack::cls): 0 the card, 1 the next, 2 the
+    previous."""
+    return torch.where(d == 0, 0, torch.where((d == 1) | (d == 1 - n), 1, 2))
+
+
+def card_offsets(gy, gx, ly: int, lx: int, card: Card, ncards):
+    """Stack::row and Stack::col of a build across cards, for the card
+    `card` among ncards = (cy, cx): grid rows gy and columns gx (in [0,
+    ny), [0, nx)) as (row class, row term, column class, column term), the
+    terms card-local offsets in one plane of the card that holds them; the
+    point (gy, gx) lies in the stack of the card of class 3 rc + cc."""
+    (cmy, cmx), (a, b) = card.shape, card.place
+    plane = ly * lx
+    J, I = gy // ly, gx // lx
+    C, D = J // cmy, I // cmx
+    return (_cls(C - a, ncards[0]),
+            (J - C * cmy) * cmx * plane + (gy - J * ly) * lx,
+            _cls(D - b, ncards[1]), (I - D * cmx) * plane + (gx - I * lx))
+
+
+def stack_statics(grid: Grid, forcing: Forcing, mesh: Mesh,
+                  card: Card = None):
+    """(grid, forcing) of the whole grid with every field stacked (in the
+    layout of `card`, default the whole mesh)."""
+    card = card or whole_card(mesh)
+
     def put(tree):
         return type(tree)(**{
-            f.name: stack_global(getattr(tree, f.name), mesh)
+            f.name: stack_card(getattr(tree, f.name), mesh, card)
             for f in dataclasses.fields(tree)})
     return put(grid), put(forcing)
 
 
 def _launch_tiled(fn, fields, statics, cfg: Config, mesh: Mesh, tile, halo,
-                  ring: bool = False, dmask: bool = False):
-    """A mesh-wide launch's schedule on the host, for the tests: for every
-    shard and each of its tiles of tile = (tx, ty) points (ShardTile's
-    order; ragged last tiles where they do not divide the block), the
-    haloed block, halo = (lo_y, hi_y, lo_x, hi_x) points around the tile,
-    gathered from the stacked fields and statics through the row and column
-    tables (stack_offsets; ring: in a ring of NaN that stands for whatever
-    lies past a CTA's block, the staggered masks rebuilt from the block's
-    mask where dmask); fn(block fields, block statics, block cfg) on it as
-    a grid of its own; the tile's interior points of each result written
-    into stacked outputs at the tile's place in its shard's block."""
+                  ring: bool = False, dmask: bool = False, cards=None):
+    """A launch's schedule on the host, for the tests: for every card
+    (`cards`, default the whole mesh as one), every shard of the card and
+    each of its tiles of tile = (tx, ty) points (ShardTile's order; ragged
+    last tiles where they do not divide the block), the haloed block, halo =
+    (lo_y, hi_y, lo_x, hi_x) points around the tile, gathered through the
+    card's row and column tables (card_offsets) from the stacks of the
+    nine card classes (ring: in a ring of NaN that stands for whatever lies
+    past a CTA's block, the staggered masks rebuilt from the block's mask
+    where dmask); fn(block fields, block statics, block cfg) on it as a grid
+    of its own; the tile's interior points of each result written into the
+    card's stacked outputs at the tile's place in its shard's block.
+    Without `cards`, fields are stacked tensors and statics one (grid,
+    forcing), and the outputs stacked tensors; with them, each field is the
+    cards' parts, statics the cards' (grid, forcing), and each output the
+    cards' parts."""
+    one = cards is None
+    if one:
+        cards = [whole_card(mesh)]
+        fields = [[a] for a in fields]
+        statics = [statics]
+    classes = card_classes(cards)
+    ncards = (1 + max(c.place[0] for c in cards),
+              1 + max(c.place[1] for c in cards))
     NY, NX = mesh.shape["y"], mesh.shape["x"]
     ny, nx = cfg.ny, cfg.nx
     ly, lx = ny // NY, nx // NX
     tx, ty = tile
     lo_y, hi_y, lo_x, hi_x = halo
-    dev = fields[0].device
+    dev = fields[0][0].device
     e = int(ring)
-
-    def cut(a, idx):
-        b = a.reshape(tuple(a.shape[:-3]) + (-1,))[..., idx]
-        if ring:
-            b = torch.nn.functional.pad(b, (1, 1, 1, 1), value=float("nan"))
-        return b
-
-    grid, forcing = statics
     outs = None
-    for s in range(mesh.n):
-        j, i = divmod(s, NX)
-        for y0 in range(0, ly, ty):
-            for x0 in range(0, lx, tx):
-                gy = (j * ly + y0 - lo_y
-                      + torch.arange(ty + lo_y + hi_y, device=dev)) % ny
-                gx = (i * lx + x0 - lo_x
-                      + torch.arange(tx + lo_x + hi_x, device=dev)) % nx
-                roff, coff = stack_offsets(gy, gx, ly, lx, NX)
-                idx = roff[:, None] + coff[None, :]
-                g = {f.name: cut(getattr(grid, f.name), idx)
-                     for f in dataclasses.fields(Grid)}
-                if dmask:
-                    m = g["mask"]
-                    sx, sy = torch.roll(m, -1, -1), torch.roll(m, -1, -2)
-                    g.update(mask_u=m * sx, mask_v=m * sy,
-                             mask_q=m * sx * sy * torch.roll(sy, -1, -1))
-                fo = Forcing(**{f.name: cut(getattr(forcing, f.name), idx)
-                                for f in dataclasses.fields(Forcing)})
-                sub = dataclasses.replace(cfg, ny=idx.shape[0] + 2 * e,
-                                          nx=idx.shape[1] + 2 * e)
-                res = fn([cut(a, idx) for a in fields], (Grid(**g), fo), sub)
-                if outs is None:
-                    outs = [torch.full(tuple(r.shape[:-2]) + (mesh.n, ly, lx),
-                                       float("nan"), dtype=r.dtype,
-                                       device=dev) for r in res]
-                ye, xe = min(ty, ly - y0), min(tx, lx - x0)
-                for o, r in zip(outs, res):
-                    o[..., s, y0:y0 + ye, x0:x0 + xe] = \
-                        r[..., lo_y + e:lo_y + e + ye, lo_x + e:lo_x + e + xe]
-    return outs
+    for c, card in enumerate(cards):
+        nbs = classes[c]
+
+        def cut(parts, idx):
+            # the nine classes' stacks, flat per layer, read at idx
+            lead = tuple(parts[0].shape[:-3])
+            flat = torch.stack([parts[k].reshape(lead + (-1,)) for k in nbs])
+            b = flat[(idx[0],) + (slice(None),) * len(lead) + (idx[1],)]
+            b = b.movedim(tuple(range(2)), tuple(range(-2, 0))) \
+                if lead else b
+            if ring:
+                b = torch.nn.functional.pad(b, (1, 1, 1, 1),
+                                            value=float("nan"))
+            return b
+
+        def part(tree, name):
+            return [getattr(statics[k][tree], name) for k in range(len(cards))]
+
+        (cmy, cmx), (j0, i0) = card.shape, card.origin
+        for q in range(cmy * cmx):
+            j, i = j0 + q // cmx, i0 + q % cmx
+            for y0 in range(0, ly, ty):
+                for x0 in range(0, lx, tx):
+                    gy = (j * ly + y0 - lo_y
+                          + torch.arange(ty + lo_y + hi_y, device=dev)) % ny
+                    gx = (i * lx + x0 - lo_x
+                          + torch.arange(tx + lo_x + hi_x, device=dev)) % nx
+                    rc, roff, cc, coff = card_offsets(gy, gx, ly, lx, card,
+                                                      ncards)
+                    idx = (3 * rc[:, None] + cc[None, :],
+                           roff[:, None] + coff[None, :])
+                    g = {f.name: cut(part(0, f.name), idx)
+                         for f in dataclasses.fields(Grid)}
+                    if dmask:
+                        m = g["mask"]
+                        sx, sy = torch.roll(m, -1, -1), torch.roll(m, -1, -2)
+                        g.update(mask_u=m * sx, mask_v=m * sy,
+                                 mask_q=m * sx * sy * torch.roll(sy, -1, -1))
+                    fo = Forcing(**{f.name: cut(part(1, f.name), idx)
+                                    for f in dataclasses.fields(Forcing)})
+                    sub = dataclasses.replace(cfg, ny=idx[1].shape[0] + 2 * e,
+                                              nx=idx[1].shape[1] + 2 * e)
+                    res = fn([cut(a, idx) for a in fields],
+                             (Grid(**g), fo), sub)
+                    if outs is None:
+                        outs = [[torch.full(
+                            tuple(r.shape[:-2]) + (len(k.shards), ly, lx),
+                            float("nan"), dtype=r.dtype, device=dev)
+                            for k in cards] for r in res]
+                    ye, xe = min(ty, ly - y0), min(tx, lx - x0)
+                    for o, r in zip(outs, res):
+                        o[c][..., q, y0:y0 + ye, x0:x0 + xe] = \
+                            r[..., lo_y + e:lo_y + e + ye,
+                              lo_x + e:lo_x + e + xe]
+    return [o[0] for o in outs] if one else outs
 
 
 def fb_launch_tiled(h, u, v, statics, n: int, t, cfg: Config, mesh: Mesh,
-                    kb: int, tile):
+                    kb: int, tile, cards=None):
     """The fb pass kernel's launch of kb steps over every shard, on the host
     (_launch_tiled): kb eager fb steps on each tile's block with a halo of
-    kb W.  h, u, v and statics (stack_statics) stacked; returns the
-    stacked (h, u, v)."""
+    kb W.  h, u, v and statics (stack_statics) stacked (the cards' parts
+    with `cards`); returns the stacked (h, u, v)."""
     w = kb * fused_fb.halo_width(cfg)
 
     def fn(f, st, c):
@@ -396,11 +512,11 @@ def fb_launch_tiled(h, u, v, statics, n: int, t, cfg: Config, mesh: Mesh,
             s = fb_mod.fb_step(s, *st, c)
         return s.h, s.u, s.v
     return _launch_tiled(fn, (h, u, v), statics, cfg, mesh, tile,
-                         (w, w, w, w))
+                         (w, w, w, w), cards=cards)
 
 
 def split_launch_tiled(h, u, v, statics, t, cfg: Config, mesh: Mesh,
-                       tile, tail_tile):
+                       tile, tail_tile, cards=None):
     """Route 2's two launches over every shard, on the host: the slow
     phase's tendencies on tiles of `tile` (halo 2), then the tail on tiles
     of `tail_tile` (halo tail_halo, in a ring of NaN): split.depth_means and
@@ -411,7 +527,7 @@ def split_launch_tiled(h, u, v, statics, t, cfg: Config, mesh: Mesh,
             State(h=f[0], u=f[1], v=f[2], t=0.0, n=0), *st, c)
 
     du, dv = _launch_tiled(tend, (h, u, v), statics, cfg, mesh, tile,
-                           (2, 2, 2, 2))
+                           (2, 2, 2, 2), cards=cards)
 
     def tail(f, st, c):
         s = State(h=f[0], u=f[1], v=f[2], t=t, n=0)
@@ -421,11 +537,45 @@ def split_launch_tiled(h, u, v, statics, t, cfg: Config, mesh: Mesh,
 
     w = fused_fb.tail_halo(cfg)
     return _launch_tiled(tail, (h, u, v, du, dv), statics, cfg, mesh,
-                         tail_tile, (w, w, w, w), ring=True)
+                         tail_tile, (w, w, w, w), ring=True, cards=cards)
+
+
+def split3_launch_tiled(h, u, v, statics, t, cfg: Config, mesh: Mesh,
+                        tile, sub_tile, cards=None):
+    """Route 3's three launches over every shard, on the host, each haloed
+    point read from the shard it falls into: the slow phase on tiles of
+    `tile` (halo 2; SlowPhase's 13 fields), the subcycle on tiles of
+    `sub_tile` (halo nsub), the recomposition with fb.finalize on tiles of
+    `tile` (halo LO + 1).  Stacked in and out; (h, u, v) at t + dt."""
+    def slow(f, st, c):
+        return fused_fb._slow_fields(split_mod.slow_phase(
+            State(h=f[0], u=f[1], v=f[2], t=0.0, n=0), *st, c), c)
+
+    sl = _launch_tiled(slow, (h, u, v), statics, cfg, mesh, tile,
+                       (2, 2, 2, 2), cards=cards)
+
+    def sub(f, st, c):
+        return split_mod.subcycle_phase(_slow_phase_of(f, c, lambda a: a),
+                                        st[0], c)
+
+    w = cfg.nsub
+    sb = _launch_tiled(sub, sl, statics, cfg, mesh, sub_tile, (w, w, w, w),
+                       cards=cards)
+
+    def rec(f, st, c):
+        sp = _slow_phase_of(f[:13], c, lambda a: a)
+        h1, u1, v1 = split_mod.recompose(sp, *f[13:18], f[18], st[0], c)
+        out = fb_mod.finalize(h1, u1, v1, State(h=f[18], u=None, v=None,
+                                                 t=t, n=0), *st, c)
+        return out.h, out.u, out.v
+
+    w = kernel_halos(cfg)["recompose"]
+    return _launch_tiled(rec, list(sl) + list(sb) + [h], statics, cfg, mesh,
+                         tile, (w, w, w, w), cards=cards)
 
 
 def proj_a_launch_tiled(h, u, v, statics, n: int, cfg: Config, mesh: Mesh,
-                        tile, dmask: bool, staged: bool = True):
+                        tile, dmask: bool, staged: bool = True, cards=None):
     """Phase A over every shard, on the host: proj_a_plain on each tile's
     block; staged, 4 points below and 3 above the tile on both axes, in a
     ring of NaN; single-step, 4 points around it.  Stacked in and out:
@@ -434,11 +584,12 @@ def proj_a_launch_tiled(h, u, v, statics, n: int, cfg: Config, mesh: Mesh,
         lambda f, st, c: fused_projection.proj_a_plain(*f, st, n, c),
         (h, u, v), statics, cfg, mesh, tile,
         (4, 3, 4, 3) if staged else (4, 4, 4, 4), ring=staged,
-        dmask=dmask and staged)
+        dmask=dmask and staged, cards=cards)
 
 
 def proj_b_launch_tiled(h, u_s, v_s, p, statics, t, cfg: Config,
-                        mesh: Mesh, tile, dmask: bool, staged: bool = True):
+                        mesh: Mesh, tile, dmask: bool, staged: bool = True,
+                        cards=None):
     """Phase B over every shard, on the host: proj_b_plain on each tile's
     block, halo_b points around the tile on y and, staged, 4 on x in a ring
     of NaN; single-step, halo_b on x.  Stacked in and out: (h1, u1,
@@ -448,7 +599,7 @@ def proj_b_launch_tiled(h, u_s, v_s, p, statics, t, cfg: Config,
         lambda f, st, c: fused_projection.proj_b_plain(*f, st, t, c),
         (h, u_s, v_s, p), statics, cfg, mesh, tile,
         (w, w, 4, 4) if staged else (w, w, w, w), ring=staged,
-        dmask=dmask and staged)
+        dmask=dmask and staged, cards=cards)
 
 
 # ---------------------------------------------------------------- plan
@@ -541,50 +692,59 @@ def check_mesh(cfg: Config, mesh: Mesh):
 
 # ---------------------------------------------------------------- kernels
 
-def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False):
+def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False,
+               cards: bool = False):
     """(source, defines) of a build that runs cfg on shards: csrc/
     shard_step.cu (the single-step kernel, or at kb > 1 the pass kernel of
     kb steps), shard_split.cu or shard_projection.cu, with the switches,
     tiles and geometries of the single-device kernels' builds (dmask: the
-    staged phases rebuild the staggered masks)."""
+    staged phases rebuild the staggered masks; cards: the build for a mesh
+    over several cards, BEOM_CARDS = 1)."""
     check_config(cfg)
     if cfg.scheme in _PROJECTION:
-        return "shard_projection", fused_projection.build_spec(
+        name, defines = "shard_projection", fused_projection.build_spec(
             cfg, dtype, fused_projection.plan(cfg, dtype), dmask)[1]
-    if cfg.scheme == "split":
-        return "shard_split", fused_fb.build_spec(cfg, dtype)[1]
-    return "shard_step", fused_fb.build_spec(cfg, dtype, kb)[1]
+    elif cfg.scheme == "split":
+        name, defines = "shard_split", fused_fb.build_spec(cfg, dtype)[1]
+    else:
+        name, defines = "shard_step", fused_fb.build_spec(cfg, dtype, kb)[1]
+    return name, tuple(defines) + (("BEOM_CARDS=1",) if cards else ())
 
 
-def build_specs(cfg: Config, dtype, mesh: Mesh, dmask: bool = False) -> set:
+def build_specs(cfg: Config, dtype, mesh: Mesh, dmask: bool = False,
+                cards: bool = False) -> set:
     """Every build a stepper of cfg on `mesh` launches (its passes of
     steps_per_pass steps and, for run()'s remainder, of one)."""
     if cfg.scheme != "fb":
-        return {build_spec(cfg, dtype, dmask=dmask)}
+        return {build_spec(cfg, dtype, dmask=dmask, cards=cards)}
     pl = mesh_plan(cfg, dtype, mesh)
     steps = set(pl.fb_launches(cfg.steps_per_pass)) | {1}
-    return {build_spec(cfg, dtype, m) for m in steps}
+    return {build_spec(cfg, dtype, m, cards=cards) for m in steps}
 
 
 def _want_smem(cfg: Config, name: str, defines, elem: int, kb: int):
     """Shared memory per CTA of each kernel of a build, by the index of its
-    beom_smem_bytes: the single-device kernels' counts."""
+    beom_smem_bytes: the single-device kernels' counts, with offsets of 8
+    bytes in a build across cards."""
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
+    off = 8 if value.get("BEOM_CARDS") else 4
     tile = (value["BEOM_TX"], value["BEOM_TY"])
     if name == "shard_step":
         if kb > 1:
-            return [fused_fb.pass_smem(cfg, kb, tile, elem)]
-        return [fused_fb.smem_bytes(cfg, tile, tile, elem)["fb_step"]]
+            return [fused_fb.pass_smem(cfg, kb, tile, elem, off)]
+        return [fused_fb.smem_bytes(cfg, tile, tile, elem,
+                                    off=off)["fb_step"]]
     if name == "shard_split":
         want = fused_fb.smem_bytes(
             cfg, tile, (value["BEOM_SX"], value["BEOM_SY"]), elem,
-            (value["BEOM_QX"], value["BEOM_QS"], value["BEOM_QP"]))
+            (value["BEOM_QX"], value["BEOM_QS"], value["BEOM_QP"]), off)
         return [want[f"split_{k}"] for k in _SPLIT]
     geo = fused_projection.Geometry
-    want = fused_projection.smem_bytes(cfg, tile, elem)
+    want = fused_projection.smem_bytes(cfg, tile, elem, off)
     want.update(fused_projection.staged_smem(
         cfg, geo(value["BEOM_ATX"], value["BEOM_ATY"], value["BEOM_ANT"]),
-        geo(value["BEOM_BTX"], value["BEOM_BTY"], value["BEOM_BNT"]), elem))
+        geo(value["BEOM_BTX"], value["BEOM_BTY"], value["BEOM_BNT"]), elem,
+        off))
     return [want[k] for k in _PHASES]
 
 
@@ -601,11 +761,13 @@ _ARGTYPES = {
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False):
+def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
+           cards: bool = False):
     """(library, entry points by kernel) of the build that runs cfg (the fb
-    pass kernel of kb steps), built on first use and checked against the
-    single-device kernels' shared memory and the wrapper's halos."""
-    name, defines = build_spec(cfg, dtype, kb, dmask)
+    pass kernel of kb steps; across cards), built on first use and checked
+    against the single-device kernels' shared memory and the wrapper's
+    halos."""
+    name, defines = build_spec(cfg, dtype, kb, dmask, cards)
     lib = build.load((name, defines))
     elem = torch.empty((), dtype=dtype).element_size()
     for i, want in enumerate(_want_smem(cfg, name, defines, elem, kb)):
@@ -648,21 +810,71 @@ def _global_masks(statics) -> bool:
         for f in dataclasses.fields(Grid)}))
 
 
-class MeshKernels:
-    """The shard kernels of cfg on the shards of `mesh`, which lie on one
-    CUDA device: each kernel one launch for every shard, on the device's
-    current stream.  `statics` is (grid, forcing) of the whole grid, or of
-    the shards (unpadded sharded fields); they are stacked once, with the
-    operand table and scalar slots (fused_fb.Operands) and the geometry.
-    Every field a method takes or returns is stacked (`stack`)."""
+def _cards_of(mesh: Mesh, cards) -> list:
+    """The cards a MeshKernels launches on (default the mesh's own),
+    checked: they cover the mesh, each shard once, on its shard's device,
+    rectangles of one shape in their grid's row-major order."""
+    if cards is None:
+        return list(mesh.cards)
+    cards = list(cards)
+    seen = sorted(s for c in cards for s in c.shards)
+    if seen != list(range(mesh.n)):
+        raise ValueError(f"the cards hold the shards {seen}, not each of "
+                         f"the mesh's {mesh.n} once")
+    shapes = {c.shape for c in cards}
+    NX = mesh.shape["x"]
+    for c in cards:
+        (j0, i0), (cmy, cmx) = c.origin, c.shape
+        want = tuple((j0 + q // cmx) * NX + i0 + q % cmx
+                     for q in range(cmy * cmx))
+        if c.shards != want or len(shapes) > 1 \
+                or c.place != (j0 // cmy, i0 // cmx):
+            raise ValueError(f"card {c} is not a rectangle of the mesh's "
+                             "shards of the cards' one shape")
+        if any(mesh.devices[s] != _with_index(torch.device(c.device))
+               for s in c.shards):
+            raise ValueError(f"card {c} names another device than its "
+                             "shards'")
+    if [c.place for c in cards] != sorted(c.place for c in cards):
+        raise ValueError("the cards must come in row-major order of their "
+                         "grid")
+    return cards
 
-    def __init__(self, statics, cfg: Config, mesh: Mesh, dtype=None):
+
+class MeshKernels:
+    """The shard kernels of cfg on the shards of `mesh`, which lie on CUDA
+    devices: each kernel one launch per card over the card's shards (the
+    mesh's cards: the shards of one device, parallel/mesh.py card_groups),
+    on the card's stream.  `statics` is (grid, forcing) of the whole grid,
+    or of the shards (unpadded sharded fields); they are stacked once per
+    card over its shards, with the operand table and scalar slots
+    (fused_fb.Operands) and the geometry.  Every field a method takes or
+    returns is stacked: one tensor (`stack`) on one card, the cards' parts
+    (`stack_part` of each card's shards) on several.
+
+    Several cards launch the build with BEOM_CARDS = 1, whose kernels read a
+    neighbour card's stacks through their pointers (peer access, enabled
+    here); one card launches the build without it.  `cards` is for the
+    tests and the chip check alone: it splits the shards of one device into
+    several cards, each its own stacks, the first launching on the device's
+    current stream and each other on a side stream of its own.
+
+    The order across cards is parallel/mesh.py's CardStreams."""
+
+    def __init__(self, statics, cfg: Config, mesh: Mesh, dtype=None,
+                 cards=None):
         check_config(cfg)
         self.cfg, self.mesh = cfg, mesh
-        self.dev = mesh.single_device("the shard kernels")
-        if self.dev.type != "cuda":
+        kind = device_type(mesh)
+        if kind != "cuda":
             raise NotImplementedError(
-                f"the shard kernels run on cuda or cpu, not {self.dev.type}")
+                f"the shard kernels run on cuda or cpu, not {kind}")
+        self.cards = _cards_of(mesh, cards)
+        self.multi = len(self.cards) > 1
+        self.classes = card_classes(self.cards)
+        self.dev = self.cards[0].device
+        if self.multi:
+            build.enable_peers(check_peers(self.cards))
         self.dtype = dtype or cfg.tdtype
         if self.dtype not in fused_fb._SUFFIX or self.dtype != cfg.tdtype:
             raise ValueError(f"shard kernels: dtype {self.dtype} with "
@@ -670,121 +882,208 @@ class MeshKernels:
         self.plan = mesh_plan(cfg, self.dtype, mesh)
         self.ly, self.lx = self.plan.ly, self.plan.lx
         self.dmask = cfg.scheme in _PROJECTION and _global_masks(statics)
-        with torch.cuda.device(self.dev):
-            self.ops = [stack_global(a, mesh) if isinstance(a, torch.Tensor)
-                        else stack(a) for a in fused_fb._operands(statics)]
-        for a in self.ops:
-            self._check("a static", a, a.shape[:-3])
-        self._ops = fused_fb.Operands(self.ops, cfg)
-        self.geom = (_I * 4)(self.ly, self.lx, mesh.shape["y"],
-                             mesh.shape["x"])
+        cy = 1 + max(c.place[0] for c in self.cards)
+        cx = 1 + max(c.place[1] for c in self.cards)
+        self.ops, self._ops, self.geom = [], [], []
+        self._devs = [torch.device(c.device) for c in self.cards]
+        self._blocks = [(len(c.shards), self.ly, self.lx) for c in self.cards]
+        for c in self.cards:
+            with torch.cuda.device(c.device):
+                ops = [stack_card(a, mesh, c).to(c.device)
+                       if isinstance(a, torch.Tensor)
+                       else stack_part(a, c.shards)
+                       for a in fused_fb._operands(statics)]
+            for a in ops:
+                self._check("a static", a, a.shape[:-3], len(self.ops))
+            self.ops.append(ops)
+            self._ops.append(fused_fb.Operands(ops, cfg))
+            self.geom.append((_I * 8)(self.ly, self.lx, *c.shape, cy, cx,
+                                      *c.place))
+        self.order = CardStreams(self.cards) if self.multi else None
         self._fn = {}
 
-    def _check(self, what, a, lead):
-        shape = tuple(lead) + (self.mesh.n, self.ly, self.lx)
-        if a.device != self.dev or a.dtype != self.dtype \
+    def _check(self, what, a, lead, c: int):
+        """Raise unless a is card c's part of a stacked field."""
+        shape = tuple(lead) + self._blocks[c]
+        if a.device != self._devs[c] or a.dtype != self.dtype \
                 or not a.is_contiguous() or tuple(a.shape) != shape:
             raise ValueError(
                 f"shard kernels: {what} must be a contiguous {self.dtype} "
-                f"tensor of {shape} on {self.dev}, not {a.dtype} "
+                f"tensor of {shape} on {self._devs[c]}, not {a.dtype} "
                 f"{tuple(a.shape)} on {a.device}")
+
+    def stack(self, a: Sharded):
+        """A sharded field in the layout the methods take."""
+        if not self.multi:
+            return stack(a)
+        return [stack_part(a, c.shards) for c in self.cards]
+
+    def unstack(self, a, mesh: Mesh) -> Sharded:
+        """The sharded field of a method's stacked result."""
+        if not self.multi:
+            return unstack(a, mesh)
+        return unstack_parts(a, mesh, self.cards)
+
+    def _parts(self, a) -> list:
+        return list(a) if self.multi else [a]
+
+    def _whole(self, parts):
+        return parts if self.multi else parts[0]
 
     def fns(self, kb: int = 1):
         """(library, entry points) of the build of kb fb steps per launch
         (the scheme's build otherwise)."""
         if kb not in self._fn:
-            self._fn[kb] = _entry(self.cfg, self.dtype, kb, self.dmask)
+            self._fn[kb] = _entry(self.cfg, self.dtype, kb, self.dmask,
+                                  self.multi)
         return self._fn[kb]
 
-    def _args(self, parity: int, fields, t1=0.0, ts=()):
-        """The operand table with h, u, v = fields[:3] (stacked, checked)
-        and the scalar slots: (ptrs, ints, dbls)."""
-        nz = (self.cfg.nz,)
-        for name, a in zip(("h", "u", "v"), fields[:3]):
-            self._check(name, a, nz)
-        return self._ops.set(parity, fields, t1, ts)
+    def _table(self, c: int, fields) -> ctypes.Array:
+        """The stacked fields' pointers as card c's kernels take them: on
+        one card each field's, across cards each field's in the card of
+        each class, class after class."""
+        if not self.multi:
+            return fused_fb._pointers([f[0] for f in fields])
+        return fused_fb._array(_P, [f[k].data_ptr() for k in self.classes[c]
+                                    for f in fields])
 
-    def _call(self, kb: int, key: str, *args):
-        """Launch entry `key` of the build of kb steps (or the scheme's)
-        and count it under its LAUNCHES kind."""
+    def _round(self, kb: int, key: str, parity: int, fields, args,
+               t1=0.0, ts=(), reads=()):
+        """One launch of entry `key` of the build of kb steps (or the
+        scheme's) per card, counted under its LAUNCHES kind.  fields: the
+        stacked fields in the operand table (h, u, v; every one counts for
+        the aligned switch), each as the cards' parts; reads: the other
+        stacked fields the launch reads; args(c): card c's arguments from
+        its geometry up to the stream."""
         lib, fn = self.fns(kb)
-        code = fn[key](*args,
-                       torch.cuda.current_stream(self.dev).cuda_stream)
-        if code:
-            build.check(lib, code, f"shard {key} kernel launch")
-        LAUNCHES[_KIND.get(key, key)] += 1
+        entry = fn[key]
+        nz = (self.cfg.nz,)
+        for f in fields[:3]:
+            for c, a in enumerate(f):
+                self._check("h, u, v", a, nz, c)
+        if not self.multi:
+            ptrs, ints, dbls = self._ops[0].set(
+                parity, [f[0] for f in fields], t1, ts)
+            code = entry(ptrs, ints, dbls, *args(0),
+                         torch.cuda.current_stream(self.dev).cuda_stream)
+            if code:
+                build.check(lib, code, f"shard {key} kernel launch")
+            LAUNCHES[_KIND.get(key, key)] += 1
+            return
+        aligned = all(ops._aligned for ops in self._ops) and all(
+            a.data_ptr() % 16 == 0 for f in fields for a in f)
+        sets = [ops.set(parity, [f[c] for f in fields], t1, ts,
+                        aligned=aligned) for c, ops in enumerate(self._ops)]
+        streams = self.order.before(list(fields) + list(reads), self.ops)
+        for c, card in enumerate(self.cards):
+            ptrs = fused_fb._array(_P, [x for k in self.classes[c]
+                                        for x in sets[k][0]])
+            with build.on_device(torch.device(card.device)):
+                code = entry(ptrs, sets[c][1], sets[c][2], *args(c),
+                             streams[c].cuda_stream)
+            if code:
+                build.check(lib, code, f"shard {key} kernel launch on "
+                            f"{card.device}")
+            LAUNCHES[_KIND.get(key, key)] += 1
+        self.order.after()
 
-    def _planes(self, n: int, lead=()):
-        return [torch.empty(tuple(lead) + (self.mesh.n, self.ly, self.lx),
-                            dtype=self.dtype, device=self.dev)
+    def _planes(self, n: int):
+        """n stacked planes of (S_c, ly, lx) per card: n lists of the
+        cards' parts."""
+        return [[torch.empty(b, dtype=self.dtype, device=d)
+                 for b, d in zip(self._blocks, self._devs)]
                 for _ in range(n)]
+
+    @staticmethod
+    def _like(n: int, parts):
+        """n stacked fields shaped as `parts` (the cards' parts)."""
+        return [[torch.empty_like(a) for a in parts] for _ in range(n)]
 
     def fb(self, h, u, v, n: int, t, k: int, kb: int = None):
         """k fb steps from step n at time t: the plan's launches (kb steps
         per launch where given)."""
         steps = fused_fb.launch_steps(k, kb) if kb else \
             self.plan.fb_launches(k)
+        f = [self._parts(a) for a in (h, u, v)]
         for m in steps:
             ts = fused_fb._times(t, self.cfg, m)
-            outs = [torch.empty_like(a) for a in (h, u, v)]
-            args = self._args(n % 2, (h, u, v), ts[0], ts)
-            self._call(m, "step", *args, self.geom,
-                       *[a.data_ptr() for a in outs])
-            LAUNCHES["fb_pass"] += m > 1
-            h, u, v = outs
+            outs = self._like(3, f[0])
+            self._round(m, "step", n % 2, f,
+                        lambda c: [self.geom[c]] + [o[c].data_ptr()
+                                                    for o in outs],
+                        ts[0], ts)
+            LAUNCHES["fb_pass"] += (m > 1) * len(self.cards)
+            f = outs
             n, t = n + m, ts[-1]
-        return h, u, v
+        return tuple(self._whole(a) for a in f)
 
     def tend(self, h, u, v):
         """The slow phase's layer tendencies (du_s, dv_s)."""
-        outs = [torch.empty_like(h) for _ in range(2)]
-        self._call(1, "split_tend", *self._args(0, (h, u, v)), self.geom,
-                   fused_fb._pointers(outs))
-        return outs
+        f = [self._parts(a) for a in (h, u, v)]
+        outs = self._like(2, f[0])
+        self._round(1, "split_tend", 0, f,
+                    lambda c: [self.geom[c],
+                               fused_fb._pointers([o[c] for o in outs])])
+        return [self._whole(o) for o in outs]
 
     def tail(self, tend, h, u, v, t1):
         """The tail of the two-launch split step: (h, u, v) at t1."""
-        for name, a in zip(("du_s", "dv_s"), tend):
-            self._check(name, a, (self.cfg.nz,))
-        outs = [torch.empty_like(h) for _ in range(3)]
-        self._call(1, "split_tail", *self._args(0, (h, u, v) + tuple(tend),
-                                                t1), self.geom,
-                   fused_fb._pointers(tend), *[a.data_ptr() for a in outs])
-        return outs
+        td = [self._parts(a) for a in tend]
+        for a in td:
+            for c, x in enumerate(a):
+                self._check("du_s, dv_s", x, (self.cfg.nz,), c)
+        f = [self._parts(a) for a in (h, u, v)] + td
+        outs = self._like(3, f[0])
+        self._round(1, "split_tail", 0, f,
+                    lambda c: [self.geom[c], self._table(c, td)]
+                    + [o[c].data_ptr() for o in outs], t1)
+        return [self._whole(o) for o in outs]
 
     def slow(self, h, u, v):
         """The slow phase: SlowPhase's 13 fields, cu and cv as the bottom
         plane."""
-        outs = [torch.empty_like(h) for _ in range(4)] + self._planes(9)
-        self._call(1, "split_slow", *self._args(0, (h, u, v)), self.geom,
-                   fused_fb._pointers(outs))
-        return outs
+        f = [self._parts(a) for a in (h, u, v)]
+        outs = self._like(4, f[0]) + self._planes(9)
+        self._round(1, "split_slow", 0, f,
+                    lambda c: [self.geom[c],
+                               fused_fb._pointers([o[c] for o in outs])])
+        return [self._whole(o) for o in outs]
 
-    def _check_slow(self, slow):
+    def _slow_parts(self, slow):
         nz = (self.cfg.nz,)
-        for i, a in enumerate(slow):
-            self._check(f"slow phase field {i}", a, nz if i < 4 else ())
+        sl = [self._parts(a) for a in slow]
+        for i, a in enumerate(sl):
+            for c, x in enumerate(a):
+                self._check(f"slow phase field {i}", x, nz if i < 4 else (),
+                            c)
+        return sl
 
     def subcycle(self, slow, h, u, v):
         """(eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg) from slow's 13
         fields."""
-        self._check_slow(slow)
+        sl = self._slow_parts(slow)
         outs = self._planes(5)
-        self._call(1, "split_subcycle", *self._args(0, (h, u, v)),
-                   self.geom, fused_fb._pointers(slow),
-                   fused_fb._pointers(outs))
-        return outs
+        self._round(1, "split_subcycle", 0,
+                    [self._parts(a) for a in (h, u, v)],
+                    lambda c: [self.geom[c], self._table(c, sl),
+                               fused_fb._pointers([o[c] for o in outs])],
+                    reads=sl)
+        return [self._whole(o) for o in outs]
 
     def recompose(self, slow, sub, h, u, v, t1):
         """The recomposition and fb.finalize: (h, u, v) at t1."""
-        self._check_slow(slow)
-        for i, a in enumerate(sub):
-            self._check(f"subcycle field {i}", a, ())
-        outs = [torch.empty_like(h) for _ in range(3)]
-        self._call(1, "split_recompose", *self._args(0, (h, u, v), t1),
-                   self.geom, fused_fb._pointers(slow),
-                   fused_fb._pointers(sub), *[a.data_ptr() for a in outs])
-        return outs
+        sl = self._slow_parts(slow)
+        sb = [self._parts(a) for a in sub]
+        for i, a in enumerate(sb):
+            for c, x in enumerate(a):
+                self._check(f"subcycle field {i}", x, (), c)
+        f = [self._parts(a) for a in (h, u, v)]
+        outs = self._like(3, f[0])
+        self._round(1, "split_recompose", 0, f,
+                    lambda c: [self.geom[c], self._table(c, sl),
+                               self._table(c, sb)]
+                    + [o[c].data_ptr() for o in outs], t1, reads=sl + sb)
+        return [self._whole(o) for o in outs]
 
     def split(self, h, u, v, t, k: int):
         """k split steps from time t by the plan's route."""
@@ -808,32 +1107,44 @@ class MeshKernels:
 
     def proj_a(self, h, u, v, n: int):
         """Phase A of step n: (u*, v*, div)."""
-        us, vs = torch.empty_like(u), torch.empty_like(v)
-        div = self._planes(1)[0]
+        f = [self._parts(a) for a in (h, u, v)]
+        outs = self._like(2, f[0]) + self._planes(1)
         key = "proj_a" if self.plan.phases.a is None else "proj_as"
-        self._call(1, key, *self._args(n % 2, (h, u, v)), self.geom,
-                   us.data_ptr(), vs.data_ptr(), div.data_ptr())
-        return us, vs, div
+        self._round(1, key, n % 2, f,
+                    lambda c: [self.geom[c]] + [o[c].data_ptr()
+                                                for o in outs])
+        return tuple(self._whole(o) for o in outs)
 
     def proj_b(self, h, u_s, v_s, p, t):
         """Phase B of the step from time t: (h1, u1, v1)."""
-        self._check("p", p, ())
-        outs = [torch.empty_like(h) for _ in range(3)]
+        ps = self._parts(p)
+        for c, x in enumerate(ps):
+            self._check("p", x, (), c)
+        f = [self._parts(a) for a in (h, u_s, v_s)] + [ps]
+        outs = self._like(3, f[0])
         t1 = advance_time(t, self.cfg.dt, self.cfg.npdtype)
         key = "proj_b" if self.plan.phases.b is None else "proj_bs"
-        self._call(1, key, *self._args(0, (h, u_s, v_s, p), t1),
-                   self.geom, p.data_ptr(), fused_projection._corr(self.cfg),
-                   *[a.data_ptr() for a in outs])
-        return tuple(outs)
+        corr = fused_projection._corr(self.cfg)
+        self._round(1, key, 0, f,
+                    lambda c: [self.geom[c],
+                               self._table(c, [ps]) if self.multi
+                               else ps[0].data_ptr(), corr]
+                    + [o[c].data_ptr() for o in outs], t1)
+        return tuple(self._whole(o) for o in outs)
 
 
-def _run(K: Optional[MeshKernels], method: str, *args):
-    """K.method(*args) with K's device current (the launches take its
-    stream); K is the MeshKernels the caller holds for CUDA blocks."""
+def _k(K: Optional[MeshKernels]) -> MeshKernels:
+    """K, the MeshKernels the caller holds for CUDA blocks."""
     if K is None:
         raise ValueError("CUDA blocks launch through the MeshKernels of "
                          "their mesh: pass kernels=MeshKernels(...)")
-    with build.on_device(K.dev):
+    return K
+
+
+def _run(K: MeshKernels, method: str, *args):
+    """K.method(*args) with K's first device current (a launch on one
+    card takes its stream; several cards switch device per launch)."""
+    with build.on_device(torch.device(K.dev)):
         return getattr(K, method)(*args)
 
 
@@ -852,9 +1163,9 @@ def shard_step(h, u, v, pstatics, n: int, t, cfg: Config, k: int, *,
         raise ValueError("shard_step takes scheme='fb' or 'split'; the "
                          "projection schemes step through "
                          "make_dist_fused_projection_stepper")
-    out = _run(kernels, "step", stack(h), stack(u),
-               stack(v), n, t, k)
-    return tuple(unstack(a, h.mesh) for a in out)
+    out = _run(kernels, "step", _k(kernels).stack(h), _k(kernels).stack(u),
+               _k(kernels).stack(v), n, t, k)
+    return tuple(kernels.unstack(a, h.mesh) for a in out)
 
 
 def shard_split_tend(h, u, v, pstatics, cfg: Config, *, kernels):
@@ -862,9 +1173,9 @@ def shard_split_tend(h, u, v, pstatics, cfg: Config, *, kernels):
     shards: (du_s, dv_s)."""
     if h.device.type == "cpu":
         return split_tend_plain(h, u, v, pstatics, cfg)
-    out = _run(kernels, "tend", stack(h), stack(u),
-               stack(v))
-    return [unstack(a, h.mesh) for a in out]
+    out = _run(kernels, "tend", _k(kernels).stack(h), _k(kernels).stack(u),
+               _k(kernels).stack(v))
+    return [kernels.unstack(a, h.mesh) for a in out]
 
 
 def shard_split_tail(tend, h, u, v, pstatics, t, cfg: Config, *, kernels):
@@ -872,10 +1183,11 @@ def shard_split_tail(tend, h, u, v, pstatics, t, cfg: Config, *, kernels):
     (h1, u1, v1)."""
     if h.device.type == "cpu":
         return split_tail_plain(tend, h, u, v, pstatics, t, cfg)
-    out = _run(kernels, "tail", [stack(a) for a in tend],
-               stack(h), stack(u), stack(v),
+    out = _run(kernels, "tail", [_k(kernels).stack(a) for a in tend],
+               _k(kernels).stack(h), _k(kernels).stack(u),
+               _k(kernels).stack(v),
                advance_time(t, cfg.dt, cfg.npdtype))
-    return tuple(unstack(a, h.mesh) for a in out)
+    return tuple(kernels.unstack(a, h.mesh) for a in out)
 
 
 def shard_split_slow(h, u, v, pstatics, cfg: Config, *, kernels):
@@ -883,9 +1195,9 @@ def shard_split_slow(h, u, v, pstatics, cfg: Config, *, kernels):
     fields as sharded fields (cu, cv as the bottom plane)."""
     if h.device.type == "cpu":
         return split_slow_plain(h, u, v, pstatics, cfg)
-    out = _run(kernels, "slow", stack(h), stack(u),
-               stack(v))
-    return [unstack(a, h.mesh) for a in out]
+    out = _run(kernels, "slow", _k(kernels).stack(h), _k(kernels).stack(u),
+               _k(kernels).stack(v))
+    return [kernels.unstack(a, h.mesh) for a in out]
 
 
 def shard_split_subcycle(slow, pstatics, cfg: Config, *, kernels):
@@ -893,9 +1205,9 @@ def shard_split_subcycle(slow, pstatics, cfg: Config, *, kernels):
     sharded fields: (eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg)."""
     if slow[0].device.type == "cpu":
         return split_subcycle_plain(slow, pstatics, cfg)
-    f = [stack(a) for a in slow]
+    f = [_k(kernels).stack(a) for a in slow]
     out = _run(kernels, "subcycle", f, f[0], f[0], f[0])
-    return [unstack(a, slow[0].mesh) for a in out]
+    return [kernels.unstack(a, slow[0].mesh) for a in out]
 
 
 def shard_split_recompose(slow, sub, h, pstatics, t, cfg: Config, *,
@@ -904,11 +1216,12 @@ def shard_split_recompose(slow, sub, h, pstatics, t, cfg: Config, *,
     (h1, u1, v1)."""
     if h.device.type == "cpu":
         return split_recompose_plain(slow, sub, h, pstatics, t, cfg)
-    hs = stack(h)
+    hs = _k(kernels).stack(h)
     out = _run(kernels, "recompose",
-               [stack(a) for a in slow], [stack(a) for a in sub], hs, hs, hs,
+               [_k(kernels).stack(a) for a in slow],
+               [_k(kernels).stack(a) for a in sub], hs, hs, hs,
                advance_time(t, cfg.dt, cfg.npdtype))
-    return tuple(unstack(a, h.mesh) for a in out)
+    return tuple(kernels.unstack(a, h.mesh) for a in out)
 
 
 def shard_proj_a(h, u, v, pstatics, n: int, cfg: Config, *, kernels):
@@ -916,9 +1229,9 @@ def shard_proj_a(h, u, v, pstatics, n: int, cfg: Config, *, kernels):
     launch for every shard on CUDA blocks."""
     if h.device.type == "cpu":
         return proj_a_plain(h, u, v, pstatics, n, cfg)
-    out = _run(kernels, "proj_a", stack(h), stack(u),
-               stack(v), n)
-    return tuple(unstack(a, h.mesh) for a in out)
+    out = _run(kernels, "proj_a", _k(kernels).stack(h), _k(kernels).stack(u),
+               _k(kernels).stack(v), n)
+    return tuple(kernels.unstack(a, h.mesh) for a in out)
 
 
 def shard_proj_b(h, u_s, v_s, p, pstatics, t, cfg: Config, *, kernels):
@@ -926,9 +1239,9 @@ def shard_proj_b(h, u_s, v_s, p, pstatics, t, cfg: Config, *, kernels):
     v1) after the correction by grad p; one launch for every shard."""
     if h.device.type == "cpu":
         return proj_b_plain(h, u_s, v_s, p, pstatics, t, cfg)
-    out = _run(kernels, "proj_b", stack(h), stack(u_s),
-               stack(v_s), stack(p), t)
-    return tuple(unstack(a, h.mesh) for a in out)
+    out = _run(kernels, "proj_b", _k(kernels).stack(h), _k(kernels).stack(u_s),
+               _k(kernels).stack(v_s), _k(kernels).stack(p), t)
+    return tuple(kernels.unstack(a, h.mesh) for a in out)
 
 
 def _pass_time(t, cfg: Config, k: int):
@@ -937,24 +1250,25 @@ def _pass_time(t, cfg: Config, k: int):
     return t
 
 
-def _held(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh):
+def _held(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh,
+          cards=None):
     """What a stepper's wrappers take: (pstatics, None) on CPU shards,
-    (None, MeshKernels) on CUDA shards."""
-    if mesh.devices[0].type == "cpu":
+    (None, MeshKernels) on CUDA shards (`cards`: MeshKernels')."""
+    if device_type(mesh) == "cpu":
         return pad_statics(grid, forcing, cfg, mesh), None
-    return None, MeshKernels((grid, forcing), cfg, mesh)
+    return None, MeshKernels((grid, forcing), cfg, mesh, cards=cards)
 
 
 def make_dist_fused_stepper(grid: Grid, forcing: Forcing, cfg: Config,
-                            mesh: Mesh):
+                            mesh: Mesh, cards=None):
     """step(state) -> state advancing cfg.steps_per_pass fb or split
     steps of a sharded State through shard_step (on CPU shards the plain
     versions); step.plan is the MeshPlan it launches by, step.kernels its
-    MeshKernels."""
+    MeshKernels (over `cards`, default the mesh's)."""
     check_config(cfg)
     k = cfg.steps_per_pass
     plan = mesh_plan(cfg, None, mesh)
-    pstatics, K = _held(grid, forcing, cfg, mesh)
+    pstatics, K = _held(grid, forcing, cfg, mesh, cards)
 
     def step(state: State) -> State:
         h, u, v = shard_step(state.h, state.u, state.v, pstatics, state.n,
@@ -968,19 +1282,19 @@ def make_dist_fused_stepper(grid: Grid, forcing: Forcing, cfg: Config,
 
 
 def make_dist_fused_projection_stepper(grid: Grid, forcing: Forcing,
-                                       cfg: Config, mesh: Mesh):
+                                       cfg: Config, mesh: Mesh, cards=None):
     """step(state) -> state advancing one rigid-lid / implicit-FS step of a
     sharded State: phase A on the shards, the right-hand side and the
     mesh's elliptic solve (parallel/dist.py, as the eager mesh step has
-    them), phase B on the shards, and the warm-start carry.  As the
-    reference's composed tier, it has no stall guard: the mesh's solve has
-    none either."""
+    them), phase B on the shards, and the warm-start carry (the kernels
+    over `cards`, default the mesh's).  As the reference's composed tier,
+    it has no stall guard: the mesh's solve has none either."""
     from beom_tpu_torch.parallel import dist
     from beom_tpu_torch.stepping import prepare_state
 
     check_config(cfg)
     plan = mesh_plan(cfg, None, mesh)
-    pstatics, K = _held(grid, forcing, cfg, mesh)
+    pstatics, K = _held(grid, forcing, cfg, mesh, cards)
     pgrid1, _ = dist.pad_statics(grid, forcing, cfg, mesh, 1)
     grid_l = dist._crop_tree(pgrid1, 1)
 

@@ -136,26 +136,33 @@ def check_config(cfg: Config) -> None:
             f"constituents (nz = {cfg.nz}, {len(cfg.tides)} constituents)")
 
 
-def smem_bytes(cfg: Config, tile, sub_tile, elem: int, tail=None) -> dict:
+def tables(planes: int, n: int, off: int = 4) -> int:
+    """Bytes of `planes` bytes of planes and a table of n offsets of `off`
+    bytes after them (8 across cards, aligned: fb_terms.cuh table_bytes)."""
+    return -(-planes // off) * off + n * off
+
+
+def smem_bytes(cfg: Config, tile, sub_tile, elem: int, tail=None,
+               off: int = 4) -> dict:
     """Dynamic shared memory of one CTA of each kernel at `tile` = (tx, ty)
     (`sub_tile` for the subcycle, whose halo is nsub; `tail` = (qx, qs, qp)
     for the split tail) and `elem` bytes per value: the planes of
     csrc/fb_step.cu and csrc/split_step.cu times the haloed tile, plus the
-    table of offsets where the kernel has one."""
+    table of offsets of `off` bytes where the kernel has one."""
     nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
     lo = 2 if wd else 1
 
-    def block(t, w, planes, offsets=4):
+    def block(t, w, planes, offsets=True):
         npt = (t[0] + 2 * w) * (t[1] + 2 * w)
-        return npt * (planes * elem + offsets)
+        return tables(npt * planes * elem, npt if offsets else 0, off)
 
     return {
         "fb_step": block(tile, lo + 3, 7 * nz + 4 + 2 * nz * nu4 + obc),
         "split_slow": block(tile, 2, 5 * nz + 4 + 2 * nz * nu4),
         "split_recompose": block(tile, lo + 1,
                                  4 * nz + 3 + 3 * nz * wd + obc),
-        "split_subcycle": block(sub_tile, cfg.nsub, 10, offsets=0),
-        "split_tail": tail_smem(cfg, tail, elem) if tail else 0,
+        "split_subcycle": block(sub_tile, cfg.nsub, 10, offsets=False),
+        "split_tail": tail_smem(cfg, tail, elem, off) if tail else 0,
     }
 
 
@@ -168,14 +175,14 @@ def tail_halo(cfg: Config) -> int:
     return cfg.nsub + (2 if cfg.wetdry else 1) + int(cfg.wetdry or cfg.obc)
 
 
-def tail_smem(cfg: Config, tail, elem: int) -> int:
+def tail_smem(cfg: Config, tail, elem: int, off: int = 4) -> int:
     """Shared memory of one CTA of the split tail of geometry tail = (qx,
     qs, qp): 4 + 4 nz (+ 3 nz wet/dry, + 1 open boundary) planes of its
     block and its row and column offsets (csrc/split_body.cuh, tail)."""
     qx, qs, qp = tail
     rx, ry = qx + 2 * tail_halo(cfg), qs * qp
     planes = 4 + 4 * cfg.nz + 3 * cfg.nz * cfg.wetdry + cfg.obc
-    return planes * rx * ry * elem + (rx + ry + 2) * 4
+    return tables(planes * rx * ry * elem, rx + ry + 2, off)
 
 
 def _pick(tiles, need, what):
@@ -204,13 +211,13 @@ def pass_planes(cfg: Config) -> int:
             + cfg.sponge + nz * (cfg.sponge or obc) + 3 * obc + 2 * ntide)
 
 
-def pass_smem(cfg: Config, kb: int, tile, elem: int) -> int:
+def pass_smem(cfg: Config, kb: int, tile, elem: int, off: int = 4) -> int:
     """Dynamic shared memory of one CTA of the pass kernel of kb steps at
     `tile`: its planes of the block with a halo of kb W, and the block's
     row and column offsets."""
     h = kb * halo_width(cfg)
     rx, ry = tile[0] + 2 * h, tile[1] + 2 * h
-    return pass_planes(cfg) * rx * ry * elem + (rx + ry) * 4
+    return tables(pass_planes(cfg) * rx * ry * elem, rx + ry, off)
 
 
 def stage_points(cfg: Config, kb: int, tile) -> int:
@@ -573,14 +580,15 @@ class Operands:
         self._sc = {(par, al): _scalars(cfg, par, 0.0, aligned=al)
                     for par in (0, 1) for al in (False, True)}
 
-    def set(self, parity: int, fields, t1=None, ts=()):
+    def set(self, parity: int, fields, t1=None, ts=(), aligned=None):
         """(ptrs, ints, dbls) with h, u, v = fields[:3] in the table, the
-        aligned switch over every field, and t1 and the step times in their
+        aligned switch over every field (and `aligned` where given: the
+        other operands a launch reads), and t1 and the step times in their
         slots where given."""
         p = self.ptrs
         p[0], p[1], p[2] = (a.data_ptr() for a in fields[:3])
-        aligned = self._aligned and all(a.data_ptr() % 16 == 0
-                                        for a in fields)
+        aligned = self._aligned and aligned is not False and all(
+            a.data_ptr() % 16 == 0 for a in fields)
         ints, dbls = self._sc[parity, aligned]
         if t1 is not None:
             dbls[D_T1] = float(t1)

@@ -107,15 +107,16 @@ def check_config(cfg: Config) -> None:
             "constituents)")
 
 
-def smem_bytes(cfg: Config, tile, elem: int) -> dict:
+def smem_bytes(cfg: Config, tile, elem: int, off: int = 4) -> dict:
     """Dynamic shared memory of one CTA of each phase kernel at `tile` =
     (tx, ty) and `elem` bytes per value: the planes of csrc/projection.cu
-    times the haloed tile, plus the table of offsets."""
+    times the haloed tile, plus the table of offsets of `off` bytes."""
     nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
     wb = (3 if wd else 2) if (wd or obc) else 1
 
     def block(w, planes):
-        return (tile[0] + 2 * w) * (tile[1] + 2 * w) * (planes * elem + 4)
+        npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
+        return fused_fb.tables(npt * planes * elem, npt, off)
 
     return {"proj_a": block(4, 7 * nz + 4 + 2 * nz * nu4),
             "proj_b": block(wb, 4 * nz + 4 + 3 * nz * wd + obc)}
@@ -174,7 +175,7 @@ def halo_b(cfg: Config) -> int:
 
 
 def staged_smem(cfg: Config, geo_a: Geometry, geo_b: Geometry,
-                elem: int) -> dict:
+                elem: int, off: int = 4) -> dict:
     """Dynamic shared memory of one CTA of each staged kernel (csrc/
     projection_body.cuh: pas::In and pas::Work, pbs::Plane) and its row
     and column offsets."""
@@ -184,8 +185,10 @@ def staged_smem(cfg: Config, geo_a: Geometry, geo_b: Geometry,
     w = halo_b(cfg)
     rxb, ryb = geo_b.tx + 8, geo_b.ty + 2 * w
     planes_b = 4 * nz + 4 + 3 * nz * cfg.wetdry + cfg.obc
-    return {"proj_as": planes_a * rx * ry * elem + (rx + ry) * 4,
-            "proj_bs": planes_b * rxb * ryb * elem + (rxb + ryb) * 4}
+    return {"proj_as": fused_fb.tables(planes_a * rx * ry * elem, rx + ry,
+                                       off),
+            "proj_bs": fused_fb.tables(planes_b * rxb * ryb * elem,
+                                       rxb + ryb, off)}
 
 
 def ctas_per_sm(smem: int, threads: int) -> int:

@@ -184,7 +184,7 @@ Phases, each of which raises on failure (exit code != 0):
      scheme='implicit_fs', 10 steps, one launch per phase and step, within
      1e-5 x max(scale, 1) of the single-device fused run (K3a, K6, K3b)
      and 1e-6 x scale of the eager mesh run (the same solve); the rigid
-     lid's default solve (the distributed CG + multigrid) at 512^2 on (2,
+     lid's default solve (the distributed CG + multigrid) at 256^2 on (2,
      2) from rest, its first step within 1e-6 x scale of the eager mesh
      step (the same solve) and 2 steps within 1e-5 x max(scale, 1) of the
      single-device fused run (K6 with its own hierarchy)
@@ -207,6 +207,21 @@ Phases, each of which raises on failure (exit code != 0):
      their plans (the counts set to 0 just before, read just after);
      multihost: init(num_processes=1) a no-op, is_primary(),
      gather_to_host of a 2 x 4-sharded field equal to mesh.gather
+ 27. the fused mesh over several cards, checked on the one card: the 2 x 4
+     mesh's shards as two cards, each its own stacks (the builds with
+     BEOM_CARDS = 1), the second launching on a side stream, split along
+     x (two 2 x 2) and along y (two 1 x 4), at 2048^2 f32: K7-fb's 4-step
+     pass, K7-split at nsub 8 (route 2) and the shelf's (route 3), K7-proj
+     A and B at both parities, each bit for bit the one-stack route and
+     the single-device kernel (K1, K1s, K3a / K3b), one launch per card
+     and kernel counted; K8 at w = 5 (2-D and layered) bit for bit the
+     one-stack launch and pad2d; run() of the mesh fb path over the two
+     cards, 400 steps with diagnostics every 100, bit for bit the
+     one-stack run; each kernel's time between CUDA events and on the
+     device for both routes.  Where two cards are visible the same legs
+     run over cuda:0 and cuda:1; with one card that leg is skipped and
+     says so.  The times are taken on the split along x.  `python3
+     chip_smoke.py --cards` runs this phase alone, after its builds.
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
@@ -227,7 +242,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 BIG = 2048
 KERNELS = ("fb_step", "projection", "rb_sweep", "cg_jacobi", "cg_fused",
-           "mg_coarse", "halo_pad")
+           "mg_coarse", "halo_pad", "peers")
 FB_CASES = ("double_gyre", "two_layer", "coastal_wetdry", "shelf_forced")
 # the runs of phase 18: (case, scheme, Config overrides, steps, grid of the
 # eager twin, bound of the fused steps against the eager ones).  The rigid
@@ -272,8 +287,9 @@ MESH_SPLIT = tuple((case, nsub) for case in ("double_gyre", "two_layer")
                    for nsub in (4, 8, 12)) + (("shelf_forced", 8),)
 MESH_SHAPES = ((4, 1), (2, 4), (2, 2))
 # the grid of phase 24's rigid lid with the distributed CG + multigrid on
-# (2, 2): its eager mesh solve takes ~45 s per step at 512^2
-MG_MESH_N = 512
+# (2, 2): its eager mesh solve takes ~45 s per step at 512^2, and the
+# script's time limit holds phase 27 too
+MG_MESH_N = 256
 # grid fields a K6-Jacobi iteration streams, on average (csrc/cg_jacobi.cu:
 # reads r, w, s, p, pm, Hu, Hv, writes r, w, s, p, and every other pass
 # reads and writes x)
@@ -1057,6 +1073,7 @@ def main() -> dict:
     specs |= fb_pass_specs()
     specs |= shard_step_specs()
     specs |= module_specs()
+    specs |= card_specs()
     todo = [k for k in KERNELS if k not in ("fb_step", "projection")] \
         + sorted(specs)
     # 16 nvcc processes at a time keep the host's memory in bounds
@@ -1190,6 +1207,7 @@ def main() -> dict:
     kernels += mesh_phases(dev, smi, rel, ulps)
     kernels += scheme_mesh_phases(dev, smi, rel, ulps)
     modules_phase(dev, smi)
+    cards_phase(dev, smi)
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     if idle:
         raise AssertionError(f"kernels not launched on their paths: {idle}")
@@ -3147,7 +3165,7 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
 
     # the distributed multigrid-preconditioned CG is far slower on the eager
     # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100, so
-    # the check runs at 256^2): from rest, the first fused step held against
+    # the check runs at MG_MESH_N = 256): from rest, the first fused step held against
     # the eager mesh step (the same solve, _dist_solve, so equal within
     # 1e-6 x scale), and two fused steps against the single-device fused
     # steps (K6 with multigrid) within the solver tolerance
@@ -3586,6 +3604,278 @@ def modules_phase(dev, smi):
     tmp.cleanup()
 
 
+# phase 27's cases at 2048^2 f32: the fb pass (K1's pass body, kb 2), the
+# split step at nsub 8 by route 2 and the shelf's by route 3, and the
+# implicit free surface's phases
+CARD_CASES = (
+    ("fb pass", "double_gyre", dict(steps_per_pass=4)),
+    ("split route 2", "double_gyre", dict(scheme="split", nsub=8)),
+    ("split route 3", "shelf_forced", dict(scheme="split", nsub=8)),
+    ("phases", "double_gyre", dict(scheme="implicit_fs")),
+)
+# the 2 x 4 mesh's shards as two cards: the shard's device of each
+CARD_SPLITS = {"along x": ["a", "a", "b", "b"] * 2,
+               "along y": ["a"] * 4 + ["b"] * 4}
+
+
+def card_specs():
+    """The builds phase 27 launches beside the one-stack ones: each case's
+    shard build across cards."""
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.parallel.mesh import make_mesh
+    from beom_tpu_torch.stencils import dist_band
+
+    mesh = make_mesh(2, 4, devices=["cpu"])
+    specs = set()
+    for _, case, kw in CARD_CASES:
+        cfg = make_case(case, nx=BIG, ny=BIG, device="cpu", **kw)[0]
+        for cards in (False, True):
+            specs |= dist_band.build_specs(cfg, torch.float32, mesh,
+                                           dmask=True, cards=cards)
+    return specs
+
+
+def two_cards(m, split, devices=None):
+    """The mesh m's shards as two cards (CARD_SPLITS[split]), on devices
+    (default: both on the shards' one device)."""
+    from beom_tpu_torch.parallel.mesh import card_groups
+
+    labels = CARD_SPLITS[split]
+    cards = card_groups(labels, m.shape["y"], m.shape["x"])
+    devices = devices or {x: m.devices[0] for x in labels}
+    return [dataclasses.replace(c, device=devices[c.device]) for c in cards]
+
+
+def card_legs(dev, m, split, cards, timed, smi):
+    """Phase 27 on one split: every kernel of the path over the two cards
+    against the one-stack route and the single-device kernel, bit for bit,
+    their launches counted; K8 at w = 5; run() of the mesh fb path, 400
+    steps; where `timed`, each kernel's time between CUDA events and on
+    the device for both routes.  Returns {kernel: (two-card ms, one-stack
+    ms, two-card device ms, one-stack device ms)}."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import dist_band, fused_fb, halo_pad
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    tag = f"two cards {split}"
+    times = {}
+
+    def counted(fn, want):
+        before = dict(dist_band.LAUNCHES)
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: dist_band.LAUNCHES[k] - before[k] for k in before
+               if dist_band.LAUNCHES[k] != before[k]}
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got}, not {want}")
+        return out
+
+    def timing(name, one, two, keys):
+        if not timed:
+            return
+        t1 = time_ms(one, 20)
+        t2 = time_ms(two, 20)
+        t1b = time_ms(one, 20)
+        t2b = time_ms(two, 20)
+        d1 = device_ms(f"{name} one stack", one, 10, keys)
+        d2 = device_ms(f"{name} {tag}", two, 10,
+                       {k: 2 * v for k, v in keys.items()})
+        # None where the profiler saw no launch of a kernel: not measured
+        dev = [None if None in d.values() else sum(d.values())
+               for d in (d2, d1)]
+        ms = ((t2 + t2b) / 2, (t1 + t1b) / 2, *dev)
+        print(f"   {name}: {tag} {ms[0]!r} ms, one stack {ms[1]!r} ms "
+              f"between events (one stack, two cards, two cards, one "
+              f"stack); on the device {ms[2]!r} ms (both cards' launches "
+              f"summed) and {ms[3]!r} ms ({smi})")
+        times[name] = ms
+
+    for i, (name, case, kw) in enumerate(CARD_CASES):
+        cfg, grid, forcing, st = perturbed_case(dev, 280 + i, case, nx=BIG,
+                                                ny=BIG, **kw)
+        st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+        statics = (grid, forcing)
+        sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+        K1 = dist_band.MeshKernels(statics, cfg, m)
+        K2 = dist_band.MeshKernels(statics, cfg, m, cards=cards)
+        one, two = [K1.stack(a) for a in sh], [K2.stack(a) for a in sh]
+
+        def g1(fields):
+            return [pmesh.gather(K1.unstack(a, m)) for a in fields]
+
+        def g2(fields):
+            return [pmesh.gather(K2.unstack(a, m)) for a in fields]
+
+        plan = K1.plan.launches()
+        want = {k: 2 * v for k, v in plan.items() if v}
+        if name == "fb pass":
+            out2 = counted(lambda: K2.fb(*two, 0, st.t, 4), want)
+            out1 = K1.fb(*one, 0, st.t, 4)
+            ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t,
+                                         cfg, 4)
+            agree(f"{tag} K7-fb 4-step pass ({K1.plan.fb_launches(4)}) vs "
+                  "one stack", g2(out2), g1(out1), None)
+            agree(f"{tag} K7-fb 4-step pass vs K1", g2(out2), ref, None)
+            timing("K7-fb 4-step pass", lambda: K1.fb(*one, 0, st.t, 4),
+                   lambda: K2.fb(*two, 0, st.t, 4),
+                   {"shard_pass_kernel": len(K1.plan.fb_launches(4))})
+        elif name.startswith("split"):
+            out2 = counted(lambda: K2.split(*two, st.t, 1), {
+                k: 2 * v for k, v in K1.plan.launches(1).items()})
+            out1 = K1.split(*one, st.t, 1)
+            ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t,
+                                         cfg, 1)
+            agree(f"{tag} K7-split {case} nsub 8 route "
+                  f"{K1.plan.split.route} vs one stack", g2(out2), g1(out1),
+                  None)
+            agree(f"{tag} K7-split {case} vs K1s", g2(out2), ref, None)
+            keys = ({"shard_tend_kernel": 1, "shard_tail_kernel": 1}
+                    if K1.plan.split.route == 2 else
+                    {"shard_slow_kernel": 1, "shard_sub_kernel": 1,
+                     "shard_rec_kernel": 1})
+            timing(f"K7-split step, {name}", lambda: K1.split(*one, st.t, 1),
+                   lambda: K2.split(*two, st.t, 1), keys)
+        else:
+            rng = np.random.default_rng(290)
+            p = torch.tensor((0.1 * rng.standard_normal((cfg.ny, cfg.nx)))
+                             .astype(cfg.npdtype), device=dev) * grid.mask
+            sp = pmesh.shard(p, m)
+            p1, p2 = K1.stack(sp), K2.stack(sp)
+            for n in (0, 1):
+                a2 = counted(lambda: K2.proj_a(*two, n), {"proj_a": 2})
+                a1 = K1.proj_a(*one, n)
+                one_a = fp.proj_a(st.h, st.u, st.v, statics, n, cfg)
+                agree(f"{tag} K7-proj A n={n} vs one stack", g2(a2), g1(a1),
+                      None)
+                agree(f"{tag} K7-proj A n={n} vs K3a", g2(a2), one_a, None)
+                b2 = counted(lambda: K2.proj_b(two[0], a2[0], a2[1], p2,
+                                               st.t), {"proj_b": 2})
+                b1 = K1.proj_b(one[0], a1[0], a1[1], p1, st.t)
+                one_b = fp.proj_b(st.h, one_a[0], one_a[1], p, statics, st.t,
+                                  cfg)
+                agree(f"{tag} K7-proj B n={n} vs one stack", g2(b2), g1(b1),
+                      None)
+                agree(f"{tag} K7-proj B n={n} vs K3b", g2(b2), one_b, None)
+            # the implicit-FS mesh step over the two cards: the phases
+            # around the eager mesh solve, whose p phase B reads on both
+            # cards' streams; 2 steps, bit for bit the one-stack stepper
+            from beom_tpu_torch.parallel.dist import make_dist_stepper
+            pcfg = dataclasses.replace(cfg, backend="fused", mesh_y=2,
+                                       mesh_x=4)
+            t0 = time.perf_counter()
+            outs = [pmesh.gather_state(make_dist_stepper(
+                grid, forcing, pcfg, m, n_inner=2, cards=c)(
+                    pmesh.shard_state(st, m))) for c in (None, cards)]
+            torch.cuda.synchronize()
+            agree(f"{tag} implicit-FS mesh step x 2 vs one stack",
+                  [getattr(outs[1], f) for f in "huv"],
+                  [getattr(outs[0], f) for f in "huv"], None)
+            print(f"   {tag} implicit FS: 2 mesh steps each way in "
+                  f"{time.perf_counter() - t0:.2f} s (the eager mesh solve)")
+            timing("K7-proj phase A", lambda: K1.proj_a(*one, 0),
+                   lambda: K2.proj_a(*two, 0),
+                   {"shard_pas_kernel" if K1.plan.phases.a else
+                    "shard_pa_kernel": 1})
+            timing("K7-proj phase B",
+                   lambda: K1.proj_b(one[0], a1[0], a1[1], p1, st.t),
+                   lambda: K2.proj_b(two[0], a2[0], a2[1], p2, st.t),
+                   {"shard_pbs_kernel" if K1.plan.phases.b else
+                    "shard_pb_kernel": 1})
+        del K1, K2, one, two, sh, st, grid, forcing
+
+    # K8 at w = 5 on the gyre's shards, 2-D and layered
+    g = torch.Generator(device="cpu").manual_seed(291)
+    for lead in ((), (2,)):
+        a = pmesh.shard(torch.randn(lead + (BIG, BIG), generator=g)
+                        .to(dev), m)
+        before = halo_pad.LAUNCHES
+        out2 = halo_pad.halo_pad(a, 5, cards=cards)
+        torch.cuda.synchronize()
+        if halo_pad.LAUNCHES != before + 2:
+            raise AssertionError(f"{tag} K8: not one launch per card")
+        equal_blocks(f"{tag} K8 w=5 {lead} vs one stack", out2,
+                     halo_pad.halo_pad(a, 5))
+        equal_blocks(f"{tag} K8 w=5 {lead} vs pad2d", out2,
+                     halo_pad.halo_pad_plain(a, 5))
+        print(f"   {tag} K8 w=5 lead {lead}: one launch per card, bit for "
+              "bit the one-stack launch and pad2d")
+        if not lead:
+            flat = a
+    # timed on the 2-D field, as phase 22 times it
+    timing("K8 pad2d w=5", lambda: halo_pad.halo_pad(flat, 5),
+           lambda: halo_pad.halo_pad(flat, 5, cards=cards),
+           {"halo_pad_kernel": 1})
+
+    # run(): the mesh fb path over the two cards, against one stack
+    from beom_tpu_torch.cases import make_case
+    n_steps = 400
+    cfg, grid, forcing, st = make_case(
+        "double_gyre", nx=BIG, ny=BIG, device=dev, backend="fused",
+        steps_per_pass=4, diag_every=100, mesh_y=2, mesh_x=4)
+    log1, log2 = io.StringIO(), io.StringIO()
+    ref = run(cfg, grid, forcing, st, n_steps, log=log1)
+    torch.cuda.synchronize()
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+    t0 = time.perf_counter()
+    out = run(cfg, grid, forcing, st, n_steps, log=log2, devices=m.devices,
+              cards=cards)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: v for k, v in dist_band.LAUNCHES.items() if v}
+    plan = dist_band.mesh_plan(cfg, torch.float32, m)
+    want = {k: 2 * v * n_steps // 4 for k, v in plan.launches(4).items()
+            if v}
+    if counts != want:
+        raise AssertionError(f"{tag} run(): K7 launches {counts}, not "
+                             f"{want}")
+    if log2.getvalue() != log1.getvalue() or len(
+            log2.getvalue().splitlines()) != n_steps // 100:
+        raise AssertionError(f"{tag} run(): diagnostics differ")
+    got, want_st = pmesh.gather_state(out), pmesh.gather_state(ref)
+    for f in "huv":
+        if not torch.equal(getattr(got, f), getattr(want_st, f)):
+            raise AssertionError(f"{tag} run(): {f} is not the one-stack "
+                                 "run's")
+    print(f"   {tag} run(): {n_steps} steps, K7 launches {counts} (one per "
+          "card and kernel), diagnostics every 100 and final state equal to "
+          f"the one-stack run's bit for bit; {wall:.3f} s wall")
+    return times
+
+
+def cards_phase(dev, smi):
+    """Phase 27: the fused mesh over several cards, checked on the one
+    card as two stacks on two streams; returns the times by split."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+
+    phase(f"27 the fused mesh over two cards: two stacks on two streams "
+          f"of the one card ({smi})")
+    m = pmesh.make_mesh(2, 4, devices=[dev])
+    times = {}
+    for i, split in enumerate(CARD_SPLITS):
+        # the times on the first split alone: the script's time limit
+        times[split] = card_legs(dev, m, split, two_cards(m, split), i == 0,
+                                 smi)
+    if torch.cuda.device_count() >= 2:
+        pair = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        for split, labels in CARD_SPLITS.items():
+            devices = dict(zip(("a", "b"), pair))
+            m2 = pmesh.make_mesh(2, 4, devices=[devices[x] for x in labels])
+            card_legs(pair[0], m2, split, m2.cards, False, smi)
+            print(f"   the legs of {split} again over cuda:0 and cuda:1")
+    else:
+        print("   the legs over two real cards: skipped, one card is "
+              "visible (torch.cuda.device_count() == 1)")
+    return times
+
+
 def _recompose_plain(sp, sub, st, grid, forcing, cfg):
     """split.recompose followed by fb.finalize, eager."""
     from beom_tpu_torch.stepping import fb, split
@@ -3594,7 +3884,30 @@ def _recompose_plain(sp, sub, st, grid, forcing, cfg):
     return fb.finalize(h1, u1, v1, st, grid, forcing, cfg)
 
 
+def cards_only():
+    """Phase 27 alone (`python3 chip_smoke.py --cards`), its builds first:
+    the quick check of the route over cards while it changes."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: no CUDA card")
+    from beom_tpu_torch.stencils import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    phase("2 build: the builds of phase 27")
+    build.build_all(["halo_pad", "peers"] + sorted(card_specs()))
+    cards_phase(torch.device("cuda", torch.cuda.current_device()), smi)
+
+
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--cards"]:
+        cards_only()
+        sys.exit(0)
     record = main()
     import torch
 

@@ -199,18 +199,52 @@ def test_mesh_raises():
 
 def test_mesh_kernels_refuse_several_devices():
     """The shard step and the halo pad read the neighbour shards' blocks
-    through raw pointers, so they take a mesh whose shards lie on one
-    device; a mesh over several devices raises and names its queue
-    item."""
-    from beom_tpu_torch.parallel.mesh import Mesh, make_mesh
+    through raw pointers, one launch per card: a mesh over several devices
+    must give each device an equal rectangle of shards, and its shards
+    must all lie on CUDA cards.  A placement of unequal rectangles raises
+    ValueError naming the devices; a mesh that mixes CPU and CUDA shards
+    raises ValueError; a mesh on one device is one card."""
+    from beom_tpu_torch.parallel.mesh import (Mesh, device_type, make_mesh,
+                                              shard)
+    from beom_tpu_torch.stencils import dist_band, halo_pad
 
     one = make_mesh(2, 2, devices=["cpu"])
-    assert one.single_device("halo_pad") == torch.device("cpu")
-    two = Mesh([torch.device("cuda", 0), torch.device("cuda", 1)] * 2, 2, 2)
-    for what in ("halo_pad", "the shard step"):
-        with pytest.raises(NotImplementedError, match="item 6") as err:
-            two.single_device(what)
-        assert what in str(err.value) and "cuda:1" in str(err.value)
+    assert device_type(one) == "cpu" and len(one.cards) == 1
+    cuda = [torch.device("cuda", i) for i in range(3)]
+    two = Mesh([cuda[0], cuda[1]] * 2, 2, 2)
+    assert [c.shape for c in two.cards] == [(2, 1), (2, 1)]
+    uneven = Mesh([cuda[0], cuda[0], cuda[1], cuda[2]], 2, 2)
+    with pytest.raises(ValueError, match="different shapes") as err:
+        uneven.cards
+    assert "cuda:1" in str(err.value)
+    scattered = Mesh([cuda[0], cuda[1], cuda[1], cuda[0]], 2, 2)
+    with pytest.raises(ValueError, match="not a rectangle") as err:
+        scattered.cards
+    assert "cuda:0" in str(err.value)
+    mixed = Mesh([torch.device("cpu"), cuda[0]] * 2, 2, 2)
+    a = shard(torch.zeros(8, 8), one)
+    a.mesh = mixed
+    for call in (lambda: device_type(mixed),
+                 lambda: halo_pad.halo_pad(a, 1),
+                 lambda: dist_band.MeshKernels(None, *make_case(
+                     "double_gyre", nx=16, ny=16, device="cpu",
+                     backend="fused")[:1], mixed)):
+        with pytest.raises(ValueError, match="mixes"):
+            call()
+
+
+def test_fused_mesh_paths_take_meshes_over_several_cards():
+    """No fused mesh path asks for a mesh on one device: Mesh has no
+    single_device, and neither the shard kernels nor the halo pad name
+    it."""
+    import inspect
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band, halo_pad
+
+    assert not hasattr(pmesh.Mesh, "single_device")
+    for module in (dist_band, halo_pad, pmesh):
+        assert "single_device" not in inspect.getsource(module)
 
 
 def test_cli_refuses_missing_card():
