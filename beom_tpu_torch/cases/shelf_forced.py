@@ -82,3 +82,33 @@ def make_case(nx=128, ny=96, L=300e3, Hshelf=50.0, Hdeep=500.0,
                            tide_phase=tide_phase, device=device)
     state = init_state(cfg, grid, h0=h_ext * grid.mask.cpu().numpy())
     return cfg, grid, forcing, state
+
+
+# The constituents of TPXO's tidal forcing: the eight major ones (M2, S2,
+# N2, K2, K1, O1, P1, Q1), the shallow-water M4, MS4, MN4 and the
+# long-period Mf, Mm; speeds in degrees per hour
+TPXO_NAMES = ("M2", "S2", "N2", "K2", "K1", "O1", "P1", "Q1", "M4", "MS4",
+              "MN4", "Mf", "Mm")
+TPXO_SPEEDS = (28.9841042, 30.0, 28.4397295, 30.0821373, 15.0410686,
+               13.9430356, 14.9589314, 13.3986609, 57.9682084, 58.9841042,
+               57.4238337, 1.0980331, 0.5443747)
+
+
+def constituents(n: int, ny: int, nx: int, seed: int, m2_amp: float = 0.5,
+                 dtype=np.float64):
+    """The first n of TPXO's constituents at the open boundary: (omegas in
+    rad/s, amplitudes (n, ny, nx) in m, phases (n, ny, nx) in rad).  M2
+    keeps the case's uniform amplitude and phase 0; each other one takes
+    amplitudes in [0, 0.1) m and phases in [0, 2 pi) from numpy's
+    generator of `seed`, a value per point."""
+    if not 1 <= n <= len(TPXO_SPEEDS):
+        raise ValueError(f"1 to {len(TPXO_SPEEDS)} constituents, not {n}")
+    omegas = tuple(float(np.deg2rad(s) / 3600.0) for s in TPXO_SPEEDS[:n])
+    rng = np.random.default_rng(seed)
+    amp = np.empty((n, ny, nx), dtype)
+    phase = np.empty((n, ny, nx), dtype)
+    amp[0], phase[0] = m2_amp, 0.0
+    if n > 1:
+        amp[1:] = 0.1 * rng.random((n - 1, ny, nx))
+        phase[1:] = 2.0 * np.pi * rng.random((n - 1, ny, nx))
+    return omegas, amp, phase

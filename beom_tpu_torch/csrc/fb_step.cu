@@ -57,36 +57,36 @@ using namespace beom::fbk;
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fb_step_kernel(const Params<T> p, T* out_h, T* out_u, T* out_v) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  int* gidx = reinterpret_cast<int*>(sm + N_PLANES * NPT);
+  T* sm = block_planes<T>(p, N_PLANES * NPT);
+  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
   const int tid = threadIdx.x;
 
-  // S0: the haloed block
-  load_offsets<T, RX, RY, W>(p, gidx);
-  __syncthreads();
-  for (int s = tid; s < NPT; s += THREADS) {
-    const int g = gidx[s];
-    for (int k = 0; k < NZ; ++k) {
-      h[k * NPT + s] = p.in[I_H][k * p.plane + g];
-      u[k * NPT + s] = p.in[I_U][k * p.plane + g];
-      v[k * NPT + s] = p.in[I_V][k * p.plane + g];
+  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
+    // S0: the haloed block
+    load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+    __syncthreads();
+    for (int s = tid; s < NPT; s += THREADS) {
+      const int g = gidx[s];
+      for (int k = 0; k < NZ; ++k) {
+        h[k * NPT + s] = p.in[I_H][k * p.plane + g];
+        u[k * NPT + s] = p.in[I_U][k * p.plane + g];
+        v[k * NPT + s] = p.in[I_V][k * p.plane + g];
+      }
+      sm[P_M * NPT + s] = p.in[I_MASK][g];
+      sm[P_MU * NPT + s] = p.in[I_MASK_U][g];
+      sm[P_MV * NPT + s] = p.in[I_MASK_V][g];
+      sm[P_MQ * NPT + s] = p.in[I_MASK_Q][g];
     }
-    sm[P_M * NPT + s] = p.in[I_MASK][g];
-    sm[P_MU * NPT + s] = p.in[I_MASK_U][g];
-    sm[P_MV * NPT + s] = p.in[I_MASK_V][g];
-    sm[P_MQ * NPT + s] = p.in[I_MASK_Q][g];
-  }
-  if (OBC) load_eta_ext<T, NPT>(p, gidx, sm + P_EE * NPT);
-  __syncthreads();
+    if (OBC) load_eta_ext<T, NPT>(p, gidx, sm + P_EE * NPT);
+    __syncthreads();
 
-  fb_stages<T>(p, sm, gidx,
-               Store3<T>{out_h, out_u, out_v,
-                         Out{int(blockIdx.y) * TY, int(blockIdx.x) * TX,
-                             p.ny, p.nx, p.plane}});
+    fb_stages<T>(p, sm, gidx,
+                 Store3<T>{out_h, out_u, out_v,
+                           Out{by * TY, bx * TX, p.ny, p.nx, p.plane}});
+  });
 }
 
 template <typename T>
@@ -94,10 +94,11 @@ int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
             void* h1, void* u1, void* v1, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
   constexpr int smem = smem_bytes<T>();
+  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       fb_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
   fb_step_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
@@ -105,6 +106,18 @@ int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
 
 constexpr int kernel_smem(bool f64) {
   return f64 ? smem_bytes<double>() : smem_bytes<float>();
+}
+
+// the spill route: bytes of a CTA's slice of the scratch, and the CTAs the
+// current device holds at once
+constexpr long kernel_work(bool f64) {
+  return f64 ? work_bytes<double>() : work_bytes<float>();
+}
+int kernel_ctas(bool f64) {
+  return f64 ? resident_ctas(fb_step_kernel<double>, THREADS,
+                             smem_bytes<double>())
+             : resident_ctas(fb_step_kernel<float>, THREADS,
+                             smem_bytes<float>());
 }
 
 #else
@@ -138,6 +151,8 @@ int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
 constexpr int kernel_smem(bool f64) {
   return f64 ? fbp::smem_bytes<double>() : fbp::smem_bytes<float>();
 }
+constexpr long kernel_work(bool) { return 0; }
+int kernel_ctas(bool) { return 0; }
 
 #endif
 
@@ -162,6 +177,16 @@ extern "C" int beom_fb_step_f64(const void* const* ptrs, const int* ints,
 // step or pass kernel), for the wrapper's plan
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   return kernel_smem(is_f64);
+}
+
+// the spill route (a build with BEOM_SPILL = 1, the single-step kernel):
+// bytes of a CTA's slice of the scratch (0 in any other build), and the
+// CTAs of kernel `which` the current device holds at once
+extern "C" long beom_work_bytes(int which, int is_f64) {
+  return kernel_work(is_f64);
+}
+extern "C" int beom_spill_ctas(int which, int is_f64) {
+  return kernel_ctas(is_f64);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

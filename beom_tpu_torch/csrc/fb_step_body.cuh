@@ -53,7 +53,11 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
+  return block_smem<T>(N_PLANES * NPT, NPT);
+}
+template <typename T>
+constexpr long work_bytes() {
+  return block_work<T>(N_PLANES * NPT);
 }
 
 // the step's h, u, v of a tile's interior points, written through an Out
@@ -139,7 +143,7 @@ __device__ __forceinline__ void fb_stages(const Params<T>& p, T* sm,
     if (!store.valid(jj, ii)) continue;
     const int s = (W + jj) * RX + W + ii;
     T uo[NZ], vo[NZ];
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       if (p.u_first) {
         T b = v[k * NPT + s] +
@@ -156,7 +160,7 @@ __device__ __forceinline__ void fb_stages(const Params<T>& p, T* sm,
       }
     }
     finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k)
       store.put(jj, ii, k, h1[k * NPT + s], uo[k], vo[k]);
   }
@@ -446,7 +450,7 @@ __device__ __forceinline__ void pass_step(const Params<T>& p, T* sm,
 
   // S4: the second sweep, the gates, Flather
   auto second = [&](int s, T* uo, T* vo) {
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       if (u_first) {
         T b = v[k * NPT + s] +
@@ -472,7 +476,7 @@ __device__ __forceinline__ void pass_step(const Params<T>& p, T* sm,
       const int s = (HALO + jj) * RX + HALO + ii;
       T uo[NZ], vo[NZ];
       second(s, uo, vo);
-#pragma unroll
+LAYER_LOOP
       for (int k = 0; k < NZ; ++k)
         store.put(jj, ii, k, h1[k * NPT + s], uo[k], vo[k]);
     }

@@ -65,24 +65,30 @@ namespace {
 using namespace beom;
 using namespace beom::prj;
 
+// the interior points of tile (bx, by) in the whole grid
 template <typename T>
-__device__ __forceinline__ Out grid_out(const Params<T>& p) {
-  return Out{int(blockIdx.y) * TY, int(blockIdx.x) * TX, p.ny, p.nx,
-             p.plane};
+__device__ __forceinline__ Out grid_out(const Params<T>& p, int bx, int by) {
+  return Out{by * TY, bx * TX, p.ny, p.nx, p.plane};
 }
 
+// the single-step kernels loop over tiles in a spill build (fb_terms.cuh:
+// for_tiles)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 proj_a_kernel(const Params<T> p, const GridSrc<T, N_IN_A> src, T* out_us,
               T* out_vs, T* out_div) {
-  pa::run<T>(p, src, grid_out(p), out_us, out_vs, out_div);
+  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
+    pa::run<T>(p, src, grid_out(p, bx, by), out_us, out_vs, out_div);
+  });
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 proj_b_kernel(const Params<T> p, const GridSrc<T, N_IN_B> src, T corr,
               T* out_h, T* out_u, T* out_v) {
-  pb::run<T>(p, src, grid_out(p), corr, out_h, out_u, out_v);
+  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
+    pb::run<T>(p, src, grid_out(p, bx, by), corr, out_h, out_u, out_v);
+  });
 }
 
 template <typename T>
@@ -121,7 +127,8 @@ int proj_a(const void* const* ptrs, const int* ints, const double* dbls,
       proj_a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
   proj_a_kernel<T><<<grid, THREADS, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       p, grid_src<T, N_IN_A>(p, nullptr), static_cast<T*>(us),
@@ -139,7 +146,8 @@ int proj_b(const void* const* ptrs, const int* ints, const double* dbls,
       proj_b_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
   proj_b_kernel<T><<<grid, THREADS, smem,
                      static_cast<cudaStream_t>(stream)>>>(
       p, grid_src<T, N_IN_B>(p, pres), T(corr), static_cast<T*>(h1),
@@ -228,6 +236,28 @@ extern "C" int beom_smem_bytes(int which, int is_f64) {
   if (which == 2)
     return is_f64 ? pas::smem_bytes<double>() : pas::smem_bytes<float>();
   return is_f64 ? pbs::smem_bytes<double>() : pbs::smem_bytes<float>();
+}
+
+// the spill route: bytes of a CTA's slice of the scratch of proj_a (0) and
+// proj_b (1) (0 in any other build), and the CTAs of each the current
+// device holds at once
+extern "C" long beom_work_bytes(int which, int is_f64) {
+  if (which == 0)
+    return is_f64 ? pa::work_bytes<double>() : pa::work_bytes<float>();
+  if (which == 1)
+    return is_f64 ? pb::work_bytes<double>() : pb::work_bytes<float>();
+  return 0;
+}
+template <typename T>
+int spill_ctas(int which) {
+  if (which == 0)
+    return resident_ctas(proj_a_kernel<T>, THREADS, pa::smem_bytes<T>());
+  if (which == 1)
+    return resident_ctas(proj_b_kernel<T>, THREADS, pb::smem_bytes<T>());
+  return 0;
+}
+extern "C" int beom_spill_ctas(int which, int is_f64) {
+  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

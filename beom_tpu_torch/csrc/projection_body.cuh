@@ -72,16 +72,19 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
+  return block_smem<T>(N_PLANES * NPT, NPT);
+}
+template <typename T>
+constexpr long work_bytes() {
+  return block_work<T>(N_PLANES * NPT);
 }
 
 template <typename T, typename Src>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Out& o, T* out_us, T* out_vs,
                                     T* out_div) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* sm = block_planes<T>(p, N_PLANES * NPT);
+  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
@@ -179,7 +182,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
     const int s = (W + jj) * RX + W + ii;
     const long g = o.at(jj, ii);
     T U, Uw, V, Vs;
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       const T* uk = us + k * NPT;
       const T* vk = vs + k * NPT;
@@ -229,16 +232,19 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
+  return block_smem<T>(N_PLANES * NPT, NPT);
+}
+template <typename T>
+constexpr long work_bytes() {
+  return block_work<T>(N_PLANES * NPT);
 }
 
 template <typename T, typename Src>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Out& o, T corr, T* out_h, T* out_u,
                                     T* out_v) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* sm = block_planes<T>(p, N_PLANES * NPT);
+  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* ua = sm + P_UA * NPT;
   T* va = sm + P_VA * NPT;
@@ -298,13 +304,13 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
     const int s = (W + jj) * RX + W + ii;
     const long g = o.at(jj, ii);
     T uo[NZ], vo[NZ];
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       uo[k] = ua[k * NPT + s];
       vo[k] = va[k * NPT + s];
     }
     finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       out_h[k * o.plane + g] = h1[k * NPT + s];
       out_u[k * o.plane + g] = uo[k];
@@ -636,7 +642,7 @@ __device__ __forceinline__ void stages(const Params<T>& p, T* in, T* sm,
     const int s = (W + jj) * RX + W + ii;
     const long g = ob + o.at(jj, ii);
     T U, Uw, V, Vs;
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       const T* uk = us + k * NPT;
       const T* vk = vs + k * NPT;
@@ -846,13 +852,13 @@ __device__ __forceinline__ void run_at(const Params<T>& p,
     const int s = (W + jj) * RX + WX + ii;
     const long g = ob + o.at(jj, ii);
     T uo[NZ], vo[NZ];
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       uo[k] = ua[k * NPT + s];
       vo[k] = va[k * NPT + s];
     }
     finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       out_h[k * p.plane + g] = h1[k * NPT + s];
       out_u[k * p.plane + g] = uo[k];

@@ -159,13 +159,13 @@ struct Stack {
   __host__ __device__ int tiles_y(int ty) const { return (ly + ty - 1) / ty; }
   // the launch grid: the tiles of a shard times the card's shards, on each
   // axis
-  __host__ dim3 grid(int tx, int ty) const {
+  __host__ __device__ dim3 grid(int tx, int ty) const {
     return dim3(mx * tiles_x(tx), my * tiles_y(ty));
   }
 };
 
-// The tile of this CTA in a launch over every shard of a card: block
-// (bx, by) is tile (bx mod nbx, by mod nby) of the card's shard (by / nby,
+// The tile of block (bx, by) of a launch over every shard of a card: it is
+// tile (bx mod nbx, by mod nby) of the card's shard (by / nby,
 // bx / nbx).
 struct ShardTile {
   int j, i;             // the shard's coordinates in the card
@@ -183,17 +183,22 @@ struct ShardTile {
 };
 
 __device__ __forceinline__ ShardTile shard_tile(const Stack& m, int tx,
-                                                int ty) {
+                                                int ty, int bx, int by) {
   const int nbx = m.tiles_x(tx);
   const int nby = m.tiles_y(ty);
   ShardTile t;
-  t.i = int(blockIdx.x) / nbx;
-  t.j = int(blockIdx.y) / nby;
-  t.x0 = (int(blockIdx.x) - t.i * nbx) * tx;
-  t.y0 = (int(blockIdx.y) - t.j * nby) * ty;
+  t.i = bx / nbx;
+  t.j = by / nby;
+  t.x0 = (bx - t.i * nbx) * tx;
+  t.y0 = (by - t.j * nby) * ty;
   t.gy0 = (m.j0() + t.j) * m.ly + t.y0;
   t.gx0 = (m.i0() + t.i) * m.lx + t.x0;
   return t;
+}
+// ... of the CTA's own block (bx, by) of the launch grid
+__device__ __forceinline__ ShardTile shard_tile(const Stack& m, int tx,
+                                                int ty) {
+  return shard_tile(m, tx, ty, int(blockIdx.x), int(blockIdx.y));
 }
 
 // The stacked fields seen from the CTA's shard (j, i): a point at local

@@ -61,11 +61,13 @@ __global__ void __launch_bounds__(THREADS)
 shard_pa_kernel(const BEOM_CLASSED Params<T> p,
                 const BEOM_CLASSED StackSrc<T, N_IN_A> src_, T* out_us,
                 T* out_vs, T* out_div) {
-  const ShardTile t = shard_tile(src_.m, TX, TY);
-  const auto src = src_.from(t);
-  const int b = t.base(src.m);
-  pa::run<T>(p, src, t.out(src.m, p.plane), out_us + b, out_vs + b,
-             out_div + b);
+  for_tiles(src_.m.grid(TX, TY), [&](int bx, int by) {
+    const ShardTile t = shard_tile(src_.m, TX, TY, bx, by);
+    const auto src = src_.from(t);
+    const int b = t.base(src.m);
+    pa::run<T>(p, src, t.out(src.m, p.plane), out_us + b, out_vs + b,
+               out_div + b);
+  });
 }
 
 template <typename T>
@@ -73,11 +75,13 @@ __global__ void __launch_bounds__(THREADS)
 shard_pb_kernel(const BEOM_CLASSED Params<T> p,
                 const BEOM_CLASSED StackSrc<T, N_IN_B> src_, T corr,
                 T* out_h, T* out_u, T* out_v) {
-  const ShardTile t = shard_tile(src_.m, TX, TY);
-  const auto src = src_.from(t);
-  const int b = t.base(src.m);
-  pb::run<T>(p, src, t.out(src.m, p.plane), corr, out_h + b, out_u + b,
-             out_v + b);
+  for_tiles(src_.m.grid(TX, TY), [&](int bx, int by) {
+    const ShardTile t = shard_tile(src_.m, TX, TY, bx, by);
+    const auto src = src_.from(t);
+    const int b = t.base(src.m);
+    pb::run<T>(p, src, t.out(src.m, p.plane), corr, out_h + b, out_u + b,
+               out_v + b);
+  });
 }
 
 template <typename T>
@@ -101,8 +105,8 @@ cudaError_t allow(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// Every entry takes: ptrs, the operand table of fb_terms.cuh, every
-// operand stacked (L, S, ly, lx) (h, u*, v* for phase B); ints[J_NY],
+// Every entry takes: ptrs, the host table of fb_terms.cuh, every operand
+// stacked (L, S, ly, lx) (h, u*, v* for phase B); ints[J_NY],
 // ints[J_NX] the grid; geom = ly, lx, my, mx, cy, cx, a, b (shard_addr.cuh:
 // make_stack); then phase A's outputs u*, v*, div or phase B's p, the
 // correction factor and the outputs h1, u1, v1, all stacked.  Across cards
@@ -120,9 +124,11 @@ int shard_proj_a(const void* const* ptrs, const int* ints, const double* dbls,
   constexpr int smem = pa::smem_bytes<T>();
   const cudaError_t e = allow(shard_pa_kernel<T>, smem);
   if (e != cudaSuccess) return int(e);
-  shard_pa_kernel<T><<<m.grid(TX, TY), THREADS, smem,
+  const dim3 grid = tile_grid(m.grid(TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
+  shard_pa_kernel<T><<<grid, THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane, N_PTR),
+      p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane, N_TABLE),
       static_cast<T*>(us),
       static_cast<T*>(vs), static_cast<T*>(div));
   return int(cudaGetLastError());
@@ -141,11 +147,13 @@ int shard_proj_b(const void* const* ptrs, const int* ints, const double* dbls,
   // h, u*, v* from the operand table, p after them
   const void* f[NCLS * N_IN_B];
   for (int c = 0; c < NCLS; ++c) {
-    for (int k = 0; k < F_P; ++k) f[c * N_IN_B + k] = ptrs[c * N_PTR + k];
+    for (int k = 0; k < F_P; ++k) f[c * N_IN_B + k] = ptrs[c * N_TABLE + k];
     f[c * N_IN_B + F_P] =
         BEOM_CARDS ? static_cast<const void* const*>(pres)[c] : pres;
   }
-  shard_pb_kernel<T><<<m.grid(TX, TY), THREADS, smem,
+  const dim3 grid = tile_grid(m.grid(TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
+  shard_pb_kernel<T><<<grid, THREADS, smem,
                        static_cast<cudaStream_t>(stream)>>>(
       p, make_stack_src<T, N_IN_B>(f, m, p.plane), T(corr),
       static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
@@ -232,6 +240,28 @@ extern "C" int beom_smem_bytes(int which, int is_f64) {
     default:
       return is_f64 ? pbs::smem_bytes<double>() : pbs::smem_bytes<float>();
   }
+}
+
+// the spill route: bytes of a CTA's slice of the scratch of phase A (0) and
+// B (1) (0 in any other build), and the CTAs of each the current device
+// holds at once
+extern "C" long beom_work_bytes(int which, int is_f64) {
+  if (which == 0)
+    return is_f64 ? pa::work_bytes<double>() : pa::work_bytes<float>();
+  if (which == 1)
+    return is_f64 ? pb::work_bytes<double>() : pb::work_bytes<float>();
+  return 0;
+}
+template <typename T>
+int spill_ctas(int which) {
+  if (which == 0)
+    return resident_ctas(shard_pa_kernel<T>, THREADS, pa::smem_bytes<T>());
+  if (which == 1)
+    return resident_ctas(shard_pb_kernel<T>, THREADS, pb::smem_bytes<T>());
+  return 0;
+}
+extern "C" int beom_spill_ctas(int which, int is_f64) {
+  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

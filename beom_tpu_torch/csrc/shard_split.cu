@@ -48,9 +48,11 @@ __global__ void __launch_bounds__(THREADS)
 shard_slow_kernel(const BEOM_CLASSED Params<T> p,
                   const BEOM_CLASSED StackSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_SLOW> out) {
-  const ShardTile t = shard_tile(src.m, TX, TY);
-  slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
-               t.out(src.m, p.plane));
+  for_tiles(src.m.grid(TX, TY), [&](int bx, int by) {
+    const ShardTile t = shard_tile(src.m, TX, TY, bx, by);
+    slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
+                 t.out(src.m, p.plane));
+  });
 }
 
 template <typename T>
@@ -58,9 +60,11 @@ __global__ void __launch_bounds__(THREADS)
 shard_tend_kernel(const BEOM_CLASSED Params<T> p,
                   const BEOM_CLASSED StackSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_TEND> out) {
-  const ShardTile t = shard_tile(src.m, TX, TY);
-  slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
-               t.out(src.m, p.plane));
+  for_tiles(src.m.grid(TX, TY), [&](int bx, int by) {
+    const ShardTile t = shard_tile(src.m, TX, TY, bx, by);
+    slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
+                 t.out(src.m, p.plane));
+  });
 }
 
 template <typename T>
@@ -78,10 +82,12 @@ __global__ void __launch_bounds__(THREADS)
 shard_rec_kernel(const BEOM_CLASSED Params<T> p,
                  const BEOM_CLASSED StackSrc<T, N_REC_IN> src,
                  T* out_h, T* out_u, T* out_v) {
-  const ShardTile t = shard_tile(src.m, TX, TY);
-  const int b = t.base(src.m);
-  rec::run<T>(p, src.from(t), t.out(src.m, p.plane), out_h + b, out_u + b,
-              out_v + b);
+  for_tiles(src.m.grid(TX, TY), [&](int bx, int by) {
+    const ShardTile t = shard_tile(src.m, TX, TY, bx, by);
+    const int b = t.base(src.m);
+    rec::run<T>(p, src.from(t), t.out(src.m, p.plane), out_h + b,
+                out_u + b, out_v + b);
+  });
 }
 
 template <typename T>
@@ -116,8 +122,8 @@ cudaError_t allow(K kernel, int smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
-// Every entry takes: ptrs, the operand table of fb_terms.cuh, every
-// operand stacked (L, S, ly, lx); ints[J_NY], ints[J_NX] the grid; geom =
+// Every entry takes: ptrs, the host table of fb_terms.cuh, every operand
+// stacked (L, S, ly, lx); ints[J_NY], ints[J_NX] the grid; geom =
 // ly, lx, my, mx, cy, cx, a, b (shard_addr.cuh: make_stack); the stacked
 // fields each kernel reads besides (SlowPhase's 13, the subcycle's 5, the
 // tendencies' 2) as pointer tables in the order of split_body.cuh's enums
@@ -134,9 +140,11 @@ int shard_slow(const void* const* ptrs, const int* ints, const double* dbls,
   if (e == cudaSuccess)
     e = allow(shard_slow_kernel<T>, slow::smem_bytes<T>());
   if (e != cudaSuccess) return int(e);
-  shard_slow_kernel<T><<<m.grid(TX, TY), THREADS, slow::smem_bytes<T>(),
+  const dim3 grid = tile_grid(m.grid(TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
+  shard_slow_kernel<T><<<grid, THREADS, slow::smem_bytes<T>(),
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_PTR),
+      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_TABLE),
       pack<T, N_SLOW>(outs));
   return int(cudaGetLastError());
 }
@@ -151,9 +159,11 @@ int shard_tend(const void* const* ptrs, const int* ints, const double* dbls,
   if (e == cudaSuccess)
     e = allow(shard_tend_kernel<T>, slow::smem_bytes<T>());
   if (e != cudaSuccess) return int(e);
-  shard_tend_kernel<T><<<m.grid(TX, TY), THREADS, slow::smem_bytes<T>(),
+  const dim3 grid = tile_grid(m.grid(TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
+  shard_tend_kernel<T><<<grid, THREADS, slow::smem_bytes<T>(),
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_PTR),
+      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_TABLE),
       pack<T, N_TEND>(outs));
   return int(cudaGetLastError());
 }
@@ -196,11 +206,13 @@ int shard_recompose(const void* const* ptrs, const int* ints,
   const void* fields[NCLS * N_REC_IN];
   for (int c = 0; c < NCLS; ++c) {
     const void** f = fields + c * N_REC_IN;
-    f[R_H] = ptrs[c * N_PTR + I_H];
+    f[R_H] = ptrs[c * N_TABLE + I_H];
     for (int i = 0; i < N_SLOW; ++i) f[R_SP + i] = slow_fields[c * N_SLOW + i];
     for (int i = 0; i < N_SUB; ++i) f[R_SB + i] = sub_fields[c * N_SUB + i];
   }
-  shard_rec_kernel<T><<<m.grid(TX, TY), THREADS, rec::smem_bytes<T>(),
+  const dim3 grid = tile_grid(m.grid(TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
+  shard_rec_kernel<T><<<grid, THREADS, rec::smem_bytes<T>(),
                         static_cast<cudaStream_t>(stream)>>>(
       p, make_stack_src<T, N_REC_IN>(fields, m, p.plane),
       static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
@@ -286,6 +298,41 @@ extern "C" int beom_smem_bytes(int which, int is_f64) {
     return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
   return is_f64 ? tail::smem_bytes<double>() : tail::smem_bytes<float>();
 }
+
+// the spill route: bytes of a CTA's slice of the scratch of the slow (0)
+// and recompose (1) kernels (0 in any other build, and for the others),
+// and the CTAs of the slow (0), recompose (1) and tendency (4) kernels the
+// current device holds at once
+extern "C" long beom_work_bytes(int which, int is_f64) {
+  if (which == 0 || which == 4)
+    return is_f64 ? slow::work_bytes<double>() : slow::work_bytes<float>();
+  if (which == 1)
+    return is_f64 ? rec::work_bytes<double>() : rec::work_bytes<float>();
+  return 0;
+}
+template <typename T>
+int spill_ctas(int which) {
+  if (which == 0)
+    return resident_ctas(shard_slow_kernel<T>, THREADS,
+                         slow::smem_bytes<T>());
+  if (which == 1)
+    return resident_ctas(shard_rec_kernel<T>, THREADS, rec::smem_bytes<T>());
+  if (which == 4)
+    return resident_ctas(shard_tend_kernel<T>, THREADS,
+                         slow::smem_bytes<T>());
+  return 0;
+}
+extern "C" int beom_spill_ctas(int which, int is_f64) {
+  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
+}
+
+// The largest kernel parameters of the port: the recomposition's, Params,
+// its source of N_REC_IN stacked operands and three outputs, within the
+// 4096 bytes of fb_terms.cuh's PARAM_LIMIT
+static_assert(sizeof(Params<double>) + sizeof(StackSrc<double, N_REC_IN>) +
+                      3 * sizeof(void*) <=
+                  PARAM_LIMIT,
+              "the recomposition's kernel parameters exceed the limit");
 
 extern "C" const char* beom_cuda_error_string(int e) {
   return cudaGetErrorString(static_cast<cudaError_t>(e));

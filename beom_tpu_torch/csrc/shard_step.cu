@@ -42,41 +42,42 @@ __global__ void __launch_bounds__(THREADS)
 shard_step_kernel(const BEOM_CLASSED Params<T> p,
                   const BEOM_CLASSED StackSrc<T, 3> src_, T* h1, T* u1,
                   T* v1) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* sm = block_planes<T>(p, N_PLANES * NPT);
+  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
   const int tid = threadIdx.x;
-  const ShardTile t = shard_tile(src_.m, TX, TY);
-  const auto src = src_.from(t);
+  for_tiles(src_.m.grid(TX, TY), [&](int bx, int by) {
+    const ShardTile t = shard_tile(src_.m, TX, TY, bx, by);
+    const auto src = src_.from(t);
 
-  // S0: the haloed block, each point from the shard it falls into
-  const int x0 = t.x0 - W;
-  const int y0 = t.y0 - W;
-  for (int s = tid; s < NPT; s += THREADS) {
-    const Loc l = src.at(y0 + s / RX, x0 + s % RX);
-    gidx[s] = l.stat;
-    const T* hn = src.template ptr<0>(l);
-    const T* un = src.template ptr<1>(l);
-    const T* vn = src.template ptr<2>(l);
-    for (int k = 0; k < NZ; ++k) {
-      sm[(P_H + k) * NPT + s] = hn[k * src.plane];
-      sm[(P_U + k) * NPT + s] = un[k * src.plane];
-      sm[(P_V + k) * NPT + s] = vn[k * src.plane];
+    // S0: the haloed block, each point from the shard it falls into
+    const int x0 = t.x0 - W;
+    const int y0 = t.y0 - W;
+    for (int s = tid; s < NPT; s += THREADS) {
+      const Loc l = src.at(y0 + s / RX, x0 + s % RX);
+      gidx[s] = l.stat;
+      const T* hn = src.template ptr<0>(l);
+      const T* un = src.template ptr<1>(l);
+      const T* vn = src.template ptr<2>(l);
+      for (int k = 0; k < NZ; ++k) {
+        sm[(P_H + k) * NPT + s] = hn[k * src.plane];
+        sm[(P_U + k) * NPT + s] = un[k * src.plane];
+        sm[(P_V + k) * NPT + s] = vn[k * src.plane];
+      }
+      sm[P_M * NPT + s] = p.in[I_MASK][l.stat];
+      sm[P_MU * NPT + s] = p.in[I_MASK_U][l.stat];
+      sm[P_MV * NPT + s] = p.in[I_MASK_V][l.stat];
+      sm[P_MQ * NPT + s] = p.in[I_MASK_Q][l.stat];
     }
-    sm[P_M * NPT + s] = p.in[I_MASK][l.stat];
-    sm[P_MU * NPT + s] = p.in[I_MASK_U][l.stat];
-    sm[P_MV * NPT + s] = p.in[I_MASK_V][l.stat];
-    sm[P_MQ * NPT + s] = p.in[I_MASK_Q][l.stat];
-  }
-  __syncthreads();
-  if (OBC) {
-    load_eta_ext<T, NPT>(p, gidx, sm + P_EE * NPT);
     __syncthreads();
-  }
+    if (OBC) {
+      load_eta_ext<T, NPT>(p, gidx, sm + P_EE * NPT);
+      __syncthreads();
+    }
 
-  const int b = t.base(src.m);
-  fb_stages<T>(p, sm, gidx,
-               Store3<T>{h1 + b, u1 + b, v1 + b, t.out(src.m, p.plane)});
+    const int b = t.base(src.m);
+    fb_stages<T>(p, sm, gidx,
+                 Store3<T>{h1 + b, u1 + b, v1 + b, t.out(src.m, p.plane)});
+  });
 }
 
 template <typename T>
@@ -85,20 +86,31 @@ int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
   Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, W, m)) return int(cudaErrorInvalidValue);
+  const dim3 grid = tile_grid(m.grid(TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
   constexpr int smem = smem_bytes<T>();
   cudaError_t e = cudaFuncSetAttribute(
       shard_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  shard_step_kernel<T><<<m.grid(TX, TY), THREADS, smem,
+  shard_step_kernel<T><<<grid, THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, 3>(ptrs, m, p.plane, N_PTR), static_cast<T*>(h1),
+      p, make_stack_src<T, 3>(ptrs, m, p.plane, N_TABLE), static_cast<T*>(h1),
       static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }
 
 constexpr int kernel_smem(bool f64) {
   return f64 ? smem_bytes<double>() : smem_bytes<float>();
+}
+constexpr long kernel_work(bool f64) {
+  return f64 ? work_bytes<double>() : work_bytes<float>();
+}
+int kernel_ctas(bool f64) {
+  return f64 ? resident_ctas(shard_step_kernel<double>, THREADS,
+                             smem_bytes<double>())
+             : resident_ctas(shard_step_kernel<float>, THREADS,
+                             smem_bytes<float>());
 }
 
 #else
@@ -136,13 +148,16 @@ int shard_step(const void* const* ptrs, const int* ints, const double* dbls,
 constexpr int kernel_smem(bool f64) {
   return f64 ? fbp::smem_bytes<double>() : fbp::smem_bytes<float>();
 }
+constexpr long kernel_work(bool) { return 0; }
+int kernel_ctas(bool) { return 0; }
 
 #endif
 
 }  // namespace
 
-// ptrs: the operand table of fb_terms.cuh, every operand stacked (L, S,
-// ly, lx; across cards the nine card classes' tables one after another);
+// ptrs: the host table of fb_terms.cuh (N_TABLE pointers), every operand
+// stacked (L, S, ly, lx; across cards the nine card classes' tables one
+// after another);
 // ints[J_NY], ints[J_NX] the grid; geom: ly, lx, my, mx, cy, cx, a, b
 // (shard_addr.cuh: make_stack).  One launch: one step (BEOM_KB = 1), or a
 // pass of KB steps with step i's time in dbls[D_TS0 + i].  The outputs are
@@ -169,6 +184,15 @@ extern "C" int beom_shard_halo() { return KB * W; }
 // wrapper's plan
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   return kernel_smem(is_f64);
+}
+
+// the spill route: bytes of a CTA's slice of the scratch (0 in any other
+// build), and the CTAs of the kernel the current device holds at once
+extern "C" long beom_work_bytes(int which, int is_f64) {
+  return kernel_work(is_f64);
+}
+extern "C" int beom_spill_ctas(int which, int is_f64) {
+  return kernel_ctas(is_f64);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

@@ -72,7 +72,11 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
+  return block_smem<T>(N_PLANES * NPT, NPT);
+}
+template <typename T>
+constexpr long work_bytes() {
+  return block_work<T>(N_PLANES * NPT);
 }
 
 // Stage regions: phi, q (and lap for nu4) on [1, R-1); the tendencies with
@@ -81,9 +85,8 @@ constexpr int smem_bytes() {
 template <typename T, typename Src, int NO>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Ptrs<T, NO>& out, const Out& o) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* sm = block_planes<T>(p, N_PLANES * NPT);
+  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
@@ -136,7 +139,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
       if (!o.valid(jj, ii)) continue;
       const int s = (W + jj) * RX + W + ii;
       const long g = o.at(jj, ii);
-#pragma unroll
+LAYER_LOOP
       for (int k = 0; k < NZ; ++k) {
         out.p[T_DUS][k * o.plane + g] =
             c.tend_u(k, s) + c.cor_u(k, s, v + k * NPT);
@@ -153,7 +156,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
       const long g = o.at(jj, ii);
       T hu[NZ], hv[NZ], dus[NZ], dvs[NZ];
       T Hu, Hv, nu_, nv_, hs;
-#pragma unroll
+LAYER_LOOP
       for (int k = 0; k < NZ; ++k) {
         hu[k] = c.hx(k, s) * mu[s];
         hv[k] = c.hy(k, s) * mv[s];
@@ -172,7 +175,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
       const T ubar = nu_ / Hu;
       const T vbar = nv_ / Hv;
       T du_bar, dv_bar;
-#pragma unroll
+LAYER_LOOP
       for (int k = 0; k < NZ; ++k) {
         const T a = hu[k] * dus[k];
         const T b = hv[k] * dvs[k];
@@ -181,7 +184,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
       }
       du_bar = du_bar / Hu;
       dv_bar = dv_bar / Hv;
-#pragma unroll
+LAYER_LOOP
       for (int k = 0; k < NZ; ++k) {
         const long gk = k * o.plane + g;
         out.p[S_UP][gk] = u[k * NPT + s] - ubar;
@@ -355,7 +358,11 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return table_bytes(N_PLANES * NPT * sizeof(T), NPT);
+  return block_smem<T>(N_PLANES * NPT, NPT);
+}
+template <typename T>
+constexpr long work_bytes() {
+  return block_work<T>(N_PLANES * NPT);
 }
 
 // Stage regions: the advecting velocities on the whole block; the
@@ -367,9 +374,8 @@ template <typename T, typename Src>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Out& o, T* out_h, T* out_u,
                                     T* out_v) {
-  extern __shared__ unsigned char smem_raw[];
-  T* sm = reinterpret_cast<T*>(smem_raw);
-  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* sm = block_planes<T>(p, N_PLANES * NPT);
+  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* ua = sm + P_UA * NPT;
   T* va = sm + P_VA * NPT;
@@ -442,7 +448,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
     const T ubar_f = sb_ub[g];
     const T vbar_f = sb_vb[g];
     T uo[NZ], vo[NZ];
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       const long gk = k * o.plane + g;
       T a = (sp_up[gk] + p.dt * sp_dup[gk]) + ubar_f;
@@ -455,7 +461,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
       vo[k] = b * mv[s];
     }
     finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       out_h[k * o.plane + g] = h1[k * NPT + s];
       out_u[k * o.plane + g] = uo[k];
@@ -599,7 +605,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p, const Tend& tend,
     const T mu_ = p.in[I_MASK_U][g];
     const T mv_ = p.in[I_MASK_V][g];
     T hU, hV, nu_, nv_, hs, du_, dv_;
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       const long ko = k * p.plane;
       const T h0 = hin[ko + g];
@@ -678,7 +684,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p, const Tend& tend,
     if (!in_block(y0 + r, x, A, A)) continue;
     const Off g = roff[y0 + r] + cx;
     T nu_, nv_;
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       const T* hk = h + k * NPT;
       const T uu = ((T(0.5) * (hk[s] + hk[s + 1])) * mu[s]) *
@@ -692,7 +698,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p, const Tend& tend,
     vbar[r] = nv_ / Hv[r];
     const T ubar_a = su[r] * inv_nsub;
     const T vbar_a = sv[r] * inv_nsub;
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       ua[k * NPT + s] = ((uin[k * p.plane + g] - ubar[r]) + ubar_a) * mu[s];
       va[k * NPT + s] = ((vin[k * p.plane + g] - vbar[r]) + vbar_a) * mv[s];
@@ -764,7 +770,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p, const Tend& tend,
       cv = (p.r_bot + p.cd_bot * tsqrt(vbt[g] * vbt[g] + u4 * u4)) / hv_b;
     }
     T uo[NZ], vo[NZ];
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       const auto gk = k * p.plane + g;
       const T up = uin[gk] - ubar[r];
@@ -782,7 +788,7 @@ __device__ __forceinline__ void run_at(const Params<T>& p, const Tend& tend,
     }
     finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
     const long go = o.at(jj, ii);
-#pragma unroll
+LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       out_h[k * o.plane + go] = h1[k * NPT + s];
       out_u[k * o.plane + go] = uo[k];

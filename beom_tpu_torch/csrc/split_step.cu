@@ -47,18 +47,24 @@ namespace {
 using namespace beom;
 using namespace beom::spk;
 
-// a tile's interior points in the whole grid
+// the interior points of tile (bx, by) in the whole grid (the CTA's own
+// block by default)
 template <typename T, int TX_, int TY_>
-__device__ __forceinline__ Out grid_out(const Params<T>& p) {
-  return Out{int(blockIdx.y) * TY_, int(blockIdx.x) * TX_, p.ny, p.nx,
-             p.plane};
+__device__ __forceinline__ Out grid_out(const Params<T>& p,
+                                        int bx = blockIdx.x,
+                                        int by = blockIdx.y) {
+  return Out{by * TY_, bx * TX_, p.ny, p.nx, p.plane};
 }
 
+// the slow phase's and the recomposition's kernels loop over tiles in a
+// spill build (fb_terms.cuh: for_tiles)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 split_slow_kernel(const Params<T> p, const GridSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_SLOW> out) {
-  slow::run<T>(p, src, out, grid_out<T, TX, TY>(p));
+  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
+    slow::run<T>(p, src, out, grid_out<T, TX, TY>(p, bx, by));
+  });
 }
 
 template <typename T>
@@ -72,7 +78,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 split_tend_kernel(const Params<T> p, const GridSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_TEND> out) {
-  slow::run<T>(p, src, out, grid_out<T, TX, TY>(p));
+  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
+    slow::run<T>(p, src, out, grid_out<T, TX, TY>(p, bx, by));
+  });
 }
 
 template <typename T>
@@ -87,7 +95,10 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 split_rec_kernel(const Params<T> p, const GridSrc<T, N_REC_IN> src,
                  T* out_h, T* out_u, T* out_v) {
-  rec::run<T>(p, src, grid_out<T, TX, TY>(p), out_h, out_u, out_v);
+  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
+    rec::run<T>(p, src, grid_out<T, TX, TY>(p, bx, by), out_h, out_u,
+                out_v);
+  });
 }
 
 template <typename T, int N>
@@ -117,7 +128,8 @@ int split_slow(const void* const* ptrs, const int* ints, const double* dbls,
       split_slow_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
   split_slow_kernel<T><<<grid, THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       p, grid_src<T, N_SLOW_IN>(p, ptrs), pack<T, N_SLOW>(outs));
@@ -160,7 +172,8 @@ int split_recompose(const void* const* ptrs, const int* ints,
   fields[R_H] = ptrs[I_H];
   for (int i = 0; i < N_SLOW; ++i) fields[R_SP + i] = slow_fields[i];
   for (int i = 0; i < N_SUB; ++i) fields[R_SB + i] = sub_fields[i];
-  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
   split_rec_kernel<T><<<grid, THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
       p, grid_src<T, N_REC_IN>(p, fields), static_cast<T*>(h1),
@@ -177,7 +190,8 @@ int split_tend(const void* const* ptrs, const int* ints, const double* dbls,
       split_tend_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid((p.nx + TX - 1) / TX, (p.ny + TY - 1) / TY);
+  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
+  if (grid.x == 0) return int(cudaErrorInvalidValue);
   split_tend_kernel<T><<<grid, THREADS, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       p, grid_src<T, N_SLOW_IN>(p, ptrs), pack<T, N_TEND>(outs));
@@ -250,6 +264,33 @@ extern "C" int beom_smem_bytes(int which, int is_f64) {
   if (which == 2)
     return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
   return is_f64 ? tail::smem_bytes<double>() : tail::smem_bytes<float>();
+}
+
+// the spill route: bytes of a CTA's slice of the scratch of the slow (0)
+// and recompose (1) kernels (0 in any other build, and for the others),
+// and the CTAs of the slow (0), recompose (1) and tendency (4) kernels the
+// current device holds at once
+extern "C" long beom_work_bytes(int which, int is_f64) {
+  if (which == 0 || which == 4)
+    return is_f64 ? slow::work_bytes<double>() : slow::work_bytes<float>();
+  if (which == 1)
+    return is_f64 ? rec::work_bytes<double>() : rec::work_bytes<float>();
+  return 0;
+}
+template <typename T>
+int spill_ctas(int which) {
+  if (which == 0)
+    return resident_ctas(split_slow_kernel<T>, THREADS,
+                         slow::smem_bytes<T>());
+  if (which == 1)
+    return resident_ctas(split_rec_kernel<T>, THREADS, rec::smem_bytes<T>());
+  if (which == 4)
+    return resident_ctas(split_tend_kernel<T>, THREADS,
+                         slow::smem_bytes<T>());
+  return 0;
+}
+extern "C" int beom_spill_ctas(int which, int is_f64) {
+  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

@@ -11,7 +11,9 @@ a non-finite state the run aborts, keeping last_good.npz for restart.
 
 With cfg.mesh_y * cfg.mesh_x > 1 the state is sharded over a mesh
 (parallel/mesh.py) and stepped by parallel/dist.make_dist_stepper; every
-shard lies on the grid's device.  Diagnostics and snapshots are those of
+shard lies on the grid's device unless `--devices` spreads them (`all`:
+the visible cards, entry.card_placement's equal rectangles; or a list of
+devices, one per shard or one for all).  Diagnostics and snapshots are those of
 the gathered state, as the reference takes them of the global array (so
 they equal the single-device run's bit for bit; parallel/diag.py has the
 per-shard reductions for a caller that must not gather), and the sharded
@@ -20,6 +22,9 @@ state is returned.
     python -m beom_tpu_torch.run double_gyre -n 400 --set steps_per_pass=4
     python -m beom_tpu_torch.run double_gyre -n 400 --set backend=fused \
         --set mesh_y=2 --set mesh_x=4 --set nx=2048 --set ny=2048
+    python -m beom_tpu_torch.run double_gyre -n 400 --set backend=fused \
+        --set mesh_y=2 --set mesh_x=4 --set nx=2048 --set ny=2048 \
+        --devices all
 """
 
 from __future__ import annotations
@@ -131,6 +136,36 @@ def device_of(device=None) -> torch.device:
     return dev
 
 
+def mesh_devices(spec: Optional[str], mesh_y: int, mesh_x: int):
+    """The devices of a mesh run's shards from `--devices`: None (every
+    shard on the grid's device), `all` (every visible card, the mesh cut
+    into entry.card_placement's equal rectangles, one per card), or a
+    comma-separated list of devices, one per shard or one for all.  A list
+    whose cards are not equal rectangles of the mesh raises
+    parallel/mesh.py card_groups' ValueError."""
+    from beom_tpu_torch.parallel.mesh import card_groups
+
+    if spec is None:
+        return None
+    n = mesh_y * mesh_x
+    if spec == "all":
+        from beom_tpu_torch.entry import card_placement
+
+        count = torch.cuda.device_count() if torch.cuda.is_available() \
+            else 0
+        if count < 1:
+            raise ValueError("--devices all: no CUDA card is visible")
+        return card_placement(mesh_y, mesh_x, [
+            torch.device("cuda", i) for i in range(count)])
+    devices = [torch.device(d.strip()) for d in spec.split(",")]
+    if len(devices) not in (1, n):
+        raise ValueError(f"--devices names {len(devices)} devices for a "
+                         f"mesh of {n} shards: give one per shard or one")
+    if len(devices) == n:
+        card_groups(devices, mesh_y, mesh_x)
+    return devices
+
+
 def main(argv=None):
     import argparse
 
@@ -144,6 +179,10 @@ def main(argv=None):
                    help="Config override (repeatable)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
+    p.add_argument("--devices", default=None, metavar="all|D[,D...]",
+                   help="a mesh run's shards: 'all' spreads them over the "
+                   "visible cards, a list names one device per shard or "
+                   "one for all (default: every shard on --device)")
     args = p.parse_args(argv)
 
     device = device_of(args.device)
@@ -158,7 +197,10 @@ def main(argv=None):
         # stay consistent with the built arrays
         cfg, grid, forcing, state = make_case(
             args.case, device=device, **ioconfig.parse_overrides(args.set))
-    run(cfg, grid, forcing, state, args.steps, run_dir=args.out)
+    devices = mesh_devices(args.devices, cfg.mesh_y, cfg.mesh_x) \
+        if cfg.mesh_y * cfg.mesh_x > 1 else None
+    run(cfg, grid, forcing, state, args.steps, run_dir=args.out,
+        devices=devices)
 
 
 if __name__ == "__main__":

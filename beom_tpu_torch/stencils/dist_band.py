@@ -86,6 +86,14 @@ from beom_tpu_torch.stepping import split as split_mod
 LAUNCHES = {"fb": 0, "fb_pass": 0, "split_slow": 0, "split_subcycle": 0,
             "split_recompose": 0, "split_tend": 0, "split_tail": 0,
             "proj_a": 0, "proj_b": 0}
+# the launches above that took the spill route (the single-step bodies'
+# planes in device memory: fused_fb.single_tile), by kind
+SPILL_LAUNCHES = {"fb": 0, "split_slow": 0, "split_recompose": 0,
+                  "split_tend": 0, "proj_a": 0, "proj_b": 0}
+# the entries that run a single-step body, and each one's index in its
+# source's beom_work_bytes / beom_spill_ctas
+_SPILLABLE = {"step": 0, "split_slow": 0, "split_tend": 4,
+              "split_recompose": 1, "proj_a": 0, "proj_b": 1}
 
 _PROJECTION = ("rigid_lid", "implicit_fs")
 # the split kernels in the order of csrc/shard_split.cu's beom_smem_bytes
@@ -614,6 +622,7 @@ class MeshPlan:
     dtype: torch.dtype
     ly: int
     lx: int
+    spill: bool = False
 
     @property
     def max_kb(self) -> int:
@@ -621,7 +630,17 @@ class MeshPlan:
 
     def kb(self, k: int) -> int:
         """Steps per launch of a pass of k fb steps."""
-        return min(fused_fb.plan(self.cfg, self.dtype, k).kb, self.max_kb)
+        return min(fused_fb.plan(self.cfg, self.dtype, k, self.spill).kb,
+                   self.max_kb)
+
+    @property
+    def spilled(self) -> bool:
+        """Whether the scheme's single-step bodies take the spill route
+        (fused_fb.single_tile, fused_projection.single_tile): where no
+        tile fits them, or where `spill` forces it."""
+        if self.cfg.scheme in _PROJECTION:
+            return self.phases.spill
+        return fused_fb.single_tile(self.cfg, self.dtype, self.spill)[1]
 
     def fb_launches(self, k: int) -> list:
         """Steps of each launch of a pass of k fb steps."""
@@ -629,11 +648,11 @@ class MeshPlan:
 
     @property
     def split(self) -> fused_fb.SplitPlan:
-        return fused_fb.split_plan(self.cfg, self.dtype)
+        return fused_fb.split_plan(self.cfg, self.dtype, self.spill)
 
     @property
     def phases(self) -> fused_projection.PhasePlan:
-        return fused_projection.plan(self.cfg, self.dtype)
+        return fused_projection.plan(self.cfg, self.dtype, self.spill)
 
     def launches(self, k: int = None) -> dict:
         """Launches of each kind for one call of the stepper (a pass of k
@@ -654,7 +673,8 @@ class MeshPlan:
                "for every shard"
         if self.cfg.scheme == "fb":
             k = self.cfg.steps_per_pass
-            pl = fused_fb.launch_plan(self.cfg, self.dtype, self.kb(k))
+            kb = self.kb(k)
+            pl = fused_fb.launch_plan(self.cfg, self.dtype, kb, self.spill)
             return f"{lead}; fb: {pl.describe()}; launches of a {k}-step " \
                    f"pass: {self.fb_launches(k)}"
         if self.cfg.scheme == "split":
@@ -663,14 +683,19 @@ class MeshPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def _mesh_plan(cfg: Config, dtype, ly: int, lx: int) -> MeshPlan:
-    return MeshPlan(cfg, dtype, ly, lx)
+def _mesh_plan(cfg: Config, dtype, ly: int, lx: int,
+               spill: bool) -> MeshPlan:
+    return MeshPlan(cfg, dtype, ly, lx, spill)
 
 
-def mesh_plan(cfg: Config, dtype, mesh: Mesh) -> MeshPlan:
-    """The MeshPlan of cfg on `mesh` (check_mesh's blocks)."""
+def mesh_plan(cfg: Config, dtype, mesh: Mesh,
+              spill: bool = False) -> MeshPlan:
+    """The MeshPlan of cfg on `mesh` (check_mesh's blocks); spill=True
+    forces the spill route for the single-step bodies where they would
+    fit too."""
     check_config(cfg)
-    return _mesh_plan(cfg, dtype or cfg.tdtype, *check_mesh(cfg, mesh))
+    return _mesh_plan(cfg, dtype or cfg.tdtype, *check_mesh(cfg, mesh),
+                      bool(spill))
 
 
 def check_mesh(cfg: Config, mesh: Mesh):
@@ -693,33 +718,39 @@ def check_mesh(cfg: Config, mesh: Mesh):
 # ---------------------------------------------------------------- kernels
 
 def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False,
-               cards: bool = False):
+               cards: bool = False, spill: bool = False):
     """(source, defines) of a build that runs cfg on shards: csrc/
     shard_step.cu (the single-step kernel, or at kb > 1 the pass kernel of
     kb steps), shard_split.cu or shard_projection.cu, with the switches,
     tiles and geometries of the single-device kernels' builds (dmask: the
     staged phases rebuild the staggered masks; cards: the build for a mesh
-    over several cards, BEOM_CARDS = 1)."""
+    over several cards, BEOM_CARDS = 1; spill: force the single-step
+    bodies onto the spill route, which they take anyway where no tile
+    fits them)."""
     check_config(cfg)
     if cfg.scheme in _PROJECTION:
         name, defines = "shard_projection", fused_projection.build_spec(
-            cfg, dtype, fused_projection.plan(cfg, dtype), dmask)[1]
+            cfg, dtype, fused_projection.plan(cfg, dtype, spill), dmask)[1]
     elif cfg.scheme == "split":
-        name, defines = "shard_split", fused_fb.build_spec(cfg, dtype)[1]
+        name, defines = "shard_split", fused_fb.build_spec(
+            cfg, dtype, spill=spill)[1]
     else:
-        name, defines = "shard_step", fused_fb.build_spec(cfg, dtype, kb)[1]
+        name, defines = "shard_step", fused_fb.build_spec(
+            cfg, dtype, kb, spill=spill)[1]
     return name, tuple(defines) + (("BEOM_CARDS=1",) if cards else ())
 
 
 def build_specs(cfg: Config, dtype, mesh: Mesh, dmask: bool = False,
-                cards: bool = False) -> set:
+                cards: bool = False, spill: bool = False) -> set:
     """Every build a stepper of cfg on `mesh` launches (its passes of
     steps_per_pass steps and, for run()'s remainder, of one)."""
     if cfg.scheme != "fb":
-        return {build_spec(cfg, dtype, dmask=dmask, cards=cards)}
-    pl = mesh_plan(cfg, dtype, mesh)
+        return {build_spec(cfg, dtype, dmask=dmask, cards=cards,
+                           spill=spill)}
+    pl = mesh_plan(cfg, dtype, mesh, spill)
     steps = set(pl.fb_launches(cfg.steps_per_pass)) | {1}
-    return {build_spec(cfg, dtype, m, cards=cards) for m in steps}
+    return {build_spec(cfg, dtype, m, cards=cards, spill=spill)
+            for m in steps}
 
 
 def _want_smem(cfg: Config, name: str, defines, elem: int, kb: int):
@@ -728,19 +759,21 @@ def _want_smem(cfg: Config, name: str, defines, elem: int, kb: int):
     bytes in a build across cards."""
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     off = 8 if value.get("BEOM_CARDS") else 4
+    spill = bool(value.get("BEOM_SPILL"))
     tile = (value["BEOM_TX"], value["BEOM_TY"])
     if name == "shard_step":
         if kb > 1:
             return [fused_fb.pass_smem(cfg, kb, tile, elem, off)]
-        return [fused_fb.smem_bytes(cfg, tile, tile, elem,
-                                    off=off)["fb_step"]]
+        return [fused_fb.smem_bytes(cfg, tile, tile, elem, off=off,
+                                    spill=spill)["fb_step"]]
     if name == "shard_split":
         want = fused_fb.smem_bytes(
             cfg, tile, (value["BEOM_SX"], value["BEOM_SY"]), elem,
-            (value["BEOM_QX"], value["BEOM_QS"], value["BEOM_QP"]), off)
+            (value["BEOM_QX"], value["BEOM_QS"], value["BEOM_QP"]), off,
+            spill)
         return [want[f"split_{k}"] for k in _SPLIT]
     geo = fused_projection.Geometry
-    want = fused_projection.smem_bytes(cfg, tile, elem, off)
+    want = fused_projection.smem_bytes(cfg, tile, elem, off, spill)
     want.update(fused_projection.staged_smem(
         cfg, geo(value["BEOM_ATX"], value["BEOM_ATY"], value["BEOM_ANT"]),
         geo(value["BEOM_BTX"], value["BEOM_BTY"], value["BEOM_BNT"]), elem,
@@ -760,15 +793,32 @@ _ARGTYPES = {
     "proj_bs": [_P] * 5 + [ctypes.c_double] + [_P] * 4}
 
 
+def _want_work(cfg: Config, name: str, defines, elem: int) -> dict:
+    """Bytes of a CTA's slice of the spill route's scratch of each
+    single-step body of a build, by its beom_work_bytes index (0 off the
+    route): the single-device kernels' counts."""
+    value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
+    tile, on = (value["BEOM_TX"], value["BEOM_TY"]), value.get("BEOM_SPILL", 0)
+    if name == "shard_projection":
+        w = fused_projection.work_bytes(cfg, tile, elem)
+        return {0: w["proj_a"] * on, 1: w["proj_b"] * on}
+    w = fused_fb.work_bytes(cfg, tile, elem)
+    if name == "shard_split":
+        return {0: w["split_slow"] * on, 1: w["split_recompose"] * on,
+                4: w["split_slow"] * on}
+    return {0: w["fb_step"] * on}
+
+
 @functools.lru_cache(maxsize=None)
 def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
-           cards: bool = False):
-    """(library, entry points by kernel) of the build that runs cfg (the fb
-    pass kernel of kb steps; across cards), built on first use and checked
-    against the single-device kernels' shared memory and the wrapper's
+           cards: bool = False, spill: bool = False):
+    """(library, entry points by kernel) of build_spec(cfg, dtype, kb,
+    dmask, cards, spill), built on first use and checked against the
+    single-device kernels' shared memory and scratch and the wrapper's
     halos."""
-    name, defines = build_spec(cfg, dtype, kb, dmask, cards)
+    name, defines = build_spec(cfg, dtype, kb, dmask, cards, spill)
     lib = build.load((name, defines))
+    fused_fb.spill_api(lib)
     elem = torch.empty((), dtype=dtype).element_size()
     for i, want in enumerate(_want_smem(cfg, name, defines, elem, kb)):
         have = lib.beom_smem_bytes(i, int(elem == 8))
@@ -776,6 +826,7 @@ def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
             raise RuntimeError(f"{name}: kernel {i}'s shared memory ({have} "
                                f"bytes) is not the single-device kernel's "
                                f"({want})")
+    fused_fb.check_work(lib, name, _want_work(cfg, name, defines, elem), elem)
     halos = kernel_halos(cfg)
     if name == "shard_step":
         keys, ok = ("step",), lib.beom_shard_halo() == kb * halos["fb"]
@@ -859,10 +910,12 @@ class MeshKernels:
     several cards, each its own stacks, the first launching on the device's
     current stream and each other on a side stream of its own.
 
-    The order across cards is parallel/mesh.py's CardStreams."""
+    The order across cards is parallel/mesh.py's CardStreams.  `pl` is the
+    MeshPlan to launch by (default: mesh_plan's), as mesh_plan(...,
+    spill=True) gives it to force the spill route."""
 
     def __init__(self, statics, cfg: Config, mesh: Mesh, dtype=None,
-                 cards=None):
+                 cards=None, pl: Optional[MeshPlan] = None):
         check_config(cfg)
         self.cfg, self.mesh = cfg, mesh
         kind = device_type(mesh)
@@ -879,7 +932,11 @@ class MeshKernels:
         if self.dtype not in fused_fb._SUFFIX or self.dtype != cfg.tdtype:
             raise ValueError(f"shard kernels: dtype {self.dtype} with "
                              f"cfg.dtype {cfg.dtype}")
-        self.plan = mesh_plan(cfg, self.dtype, mesh)
+        self.plan = mesh_plan(cfg, self.dtype, mesh, pl and pl.spill)
+        if pl is not None and pl != self.plan:
+            raise ValueError(f"the plan {pl} is not one of cfg on this mesh")
+        # the spill route of the scheme's single-step bodies, by the plan
+        self.spill = self.plan.spilled
         self.ly, self.lx = self.plan.ly, self.plan.lx
         self.dmask = cfg.scheme in _PROJECTION and _global_masks(statics)
         cy = 1 + max(c.place[0] for c in self.cards)
@@ -935,7 +992,7 @@ class MeshKernels:
         (the scheme's build otherwise)."""
         if kb not in self._fn:
             self._fn[kb] = _entry(self.cfg, self.dtype, kb, self.dmask,
-                                  self.multi)
+                                  self.multi, self.plan.spill and kb == 1)
         return self._fn[kb]
 
     def _table(self, c: int, fields) -> ctypes.Array:
@@ -961,20 +1018,38 @@ class MeshKernels:
         for f in fields[:3]:
             for c, a in enumerate(f):
                 self._check("h, u, v", a, nz, c)
+        kind = _KIND.get(key, key)
+        spill = self.spill and kb == 1 and key in _SPILLABLE
+
+        def scratch(c):
+            # card c's scratch on the spill route, from its launch's stream
+            return fused_fb.scratch(lib, _SPILLABLE[key], self.dtype,
+                                    self._devs[c]) if spill else None
+
         if not self.multi:
+            # the scratch is held until the launch is queued, so that the
+            # caching allocator hands its memory to nothing before it
+            work = scratch(0)
             ptrs, ints, dbls = self._ops[0].set(
-                parity, [f[0] for f in fields], t1, ts)
+                parity, [f[0] for f in fields], t1, ts, work=work)
             code = entry(ptrs, ints, dbls, *args(0),
                          torch.cuda.current_stream(self.dev).cuda_stream)
             if code:
                 build.check(lib, code, f"shard {key} kernel launch")
-            LAUNCHES[_KIND.get(key, key)] += 1
+            LAUNCHES[kind] += 1
+            if spill:
+                SPILL_LAUNCHES[kind] += 1
             return
         aligned = all(ops._aligned for ops in self._ops) and all(
             a.data_ptr() % 16 == 0 for f in fields for a in f)
-        sets = [ops.set(parity, [f[c] for f in fields], t1, ts,
-                        aligned=aligned) for c, ops in enumerate(self._ops)]
         streams = self.order.before(list(fields) + list(reads), self.ops)
+        work = []
+        for c, st in enumerate(streams):
+            with torch.cuda.stream(st):
+                work.append(scratch(c))
+        sets = [ops.set(parity, [f[c] for f in fields], t1, ts,
+                        aligned=aligned, work=work[c])
+                for c, ops in enumerate(self._ops)]
         for c, card in enumerate(self.cards):
             ptrs = fused_fb._array(_P, [x for k in self.classes[c]
                                         for x in sets[k][0]])
@@ -984,7 +1059,9 @@ class MeshKernels:
             if code:
                 build.check(lib, code, f"shard {key} kernel launch on "
                             f"{card.device}")
-            LAUNCHES[_KIND.get(key, key)] += 1
+            LAUNCHES[kind] += 1
+            if spill:
+                SPILL_LAUNCHES[kind] += 1
         self.order.after()
 
     def _planes(self, n: int):

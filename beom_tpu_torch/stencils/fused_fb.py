@@ -31,11 +31,17 @@ The single-step kernels are bounded by device-memory bytes, the fb pass
 kernel by its stages (csrc/fb_step.cu).  The layer count, the term
 switches and the tile are compile-time: a configuration's kernels are
 built at its first step, one library per combination, and a switch that
-is off costs neither shared memory nor an operand.  The tile is the
-largest of `_TILES` whose shared-memory planes fit a CTA (for the
-subcycle, whose halo is nsub, of `_SUB_TILES`; nsub is compile-time too);
-a configuration whose smallest tile does not fit raises with the byte
-count.
+is off costs neither shared memory nor an operand.  The scalar slots of
+the gprime and the tidal frequencies are sized by the build too
+(`slot_layout`), so any number of layers and constituents runs.  The tile
+is the largest of `_TILES` whose shared-memory planes fit a CTA (for the
+subcycle, whose halo is nsub, of `_SUB_TILES`; nsub is compile-time too).
+Where none fits (many layers), the single-step kernels take the spill
+route: a build with BEOM_SPILL = 1 keeps their planes in a scratch in
+device memory, one slice per resident CTA, each CTA looping over tiles,
+with the same arithmetic in the same order (csrc/fb_terms.cuh:
+block_planes).  The plans choose it (`launch_plan`, `split_plan`, their
+`spill`), `describe()` names it, and SPILL_LAUNCHES counts its launches.
 
 `fused_fb_step` runs the kernels on CUDA tensors and the plain version,
 `fused_fb_step_plain`, on CPU tensors.  It never falls back from one to
@@ -66,13 +72,14 @@ LAUNCHES = 0
 PASS_LAUNCHES = 0
 SPLIT_LAUNCHES = {"slow": 0, "subcycle": 0, "recompose": 0, "tend": 0,
                   "tail": 0}
+# the launches above that took the spill route, by kernel
+SPILL_LAUNCHES = {"fb": 0, "slow": 0, "recompose": 0, "tend": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # operand slots, in the order of csrc/fb_terms.cuh's enums Ptr, Int and Dbl
 _GRID_NAMES = ("H", "mask", "mask_u", "mask_v", "mask_q", "f_q")
 _FORCING_NAMES = ("taux", "tauy", "sponge", "h_ext", "obc_u", "obc_v",
                   "obc_h", "tide_amp", "tide_phase")
-_MAX_LAYERS = 8          # slots of gprime and of the tidal frequencies
 _MAX_SMEM = 232448       # bytes of shared memory a CTA can use on sm_90
 _TILES = ((32, 16), (32, 8), (16, 8), (8, 8))
 # the fb pass kernel: the slots of its per-step times
@@ -118,22 +125,24 @@ _TAIL_REGS = 24
 _TAIL_STRIP = 0.5
 _TAIL_THREADS = 0.6
 _TAIL_MAX_FACTOR = 3.0
+# the single-step kernels of each source that take the spill route, and
+# each one's index in its source's beom_work_bytes / beom_spill_ctas
+_SPILLED = {"fb_step": ("fb_step",),
+            "split_step": ("split_slow", "split_recompose")}
+_WHICH = {"fb_step": 0, "split_slow": 0, "split_recompose": 1,
+          "split_tend": 4}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 def check_config(cfg: Config) -> None:
     """Raise on what the kernels cannot run: a scheme other than fb or
-    split, or more layers or tidal constituents than their operand slots.
-    Every term of the eager step is implemented."""
+    split.  Every term of the eager step is implemented, at any number of
+    layers and tidal constituents."""
     if cfg.scheme not in ("fb", "split"):
         raise NotImplementedError(
             f"the fused step implements scheme='fb' and 'split', not "
             f"{cfg.scheme!r}: the projection schemes run through "
             "stencils/fused_projection.py")
-    if cfg.nz > _MAX_LAYERS or len(cfg.tides) > _MAX_LAYERS:
-        raise NotImplementedError(
-            f"the fused step takes at most {_MAX_LAYERS} layers and tidal "
-            f"constituents (nz = {cfg.nz}, {len(cfg.tides)} constituents)")
 
 
 def tables(planes: int, n: int, off: int = 4) -> int:
@@ -142,28 +151,60 @@ def tables(planes: int, n: int, off: int = 4) -> int:
     return -(-planes // off) * off + n * off
 
 
+def single_planes(cfg: Config) -> dict:
+    """(halo, planes) of each single-step body (csrc/fb_step_body.cuh fbk,
+    split_body.cuh slow and rec): the points a tile's block reaches beyond
+    it and the block's planes."""
+    nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
+    lo = 2 if wd else 1
+    return {"fb_step": (lo + 3, 7 * nz + 4 + 2 * nz * nu4 + obc),
+            "split_slow": (2, 5 * nz + 4 + 2 * nz * nu4),
+            "split_recompose": (lo + 1, 4 * nz + 3 + 3 * nz * wd + obc)}
+
+
 def smem_bytes(cfg: Config, tile, sub_tile, elem: int, tail=None,
-               off: int = 4) -> dict:
+               off: int = 4, spill: bool = False) -> dict:
     """Dynamic shared memory of one CTA of each kernel at `tile` = (tx, ty)
     (`sub_tile` for the subcycle, whose halo is nsub; `tail` = (qx, qs, qp)
     for the split tail) and `elem` bytes per value: the planes of
     csrc/fb_step.cu and csrc/split_step.cu times the haloed tile, plus the
-    table of offsets of `off` bytes where the kernel has one."""
-    nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
-    lo = 2 if wd else 1
+    table of offsets of `off` bytes where the kernel has one.  On the
+    spill route (`spill`) the single-step bodies keep only the table in
+    shared memory (`work_bytes` counts their planes)."""
+    out = {}
+    for kernel, (w, planes) in single_planes(cfg).items():
+        npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
+        out[kernel] = tables(0 if spill else npt * planes * elem, npt, off)
+    sub = (sub_tile[0] + 2 * cfg.nsub) * (sub_tile[1] + 2 * cfg.nsub)
+    out["split_subcycle"] = sub * 10 * elem
+    out["split_tail"] = tail_smem(cfg, tail, elem, off) if tail else 0
+    return out
 
-    def block(t, w, planes, offsets=True):
-        npt = (t[0] + 2 * w) * (t[1] + 2 * w)
-        return tables(npt * planes * elem, npt if offsets else 0, off)
 
-    return {
-        "fb_step": block(tile, lo + 3, 7 * nz + 4 + 2 * nz * nu4 + obc),
-        "split_slow": block(tile, 2, 5 * nz + 4 + 2 * nz * nu4),
-        "split_recompose": block(tile, lo + 1,
-                                 4 * nz + 3 + 3 * nz * wd + obc),
-        "split_subcycle": block(sub_tile, cfg.nsub, 10, offsets=False),
-        "split_tail": tail_smem(cfg, tail, elem, off) if tail else 0,
-    }
+def work_bytes(cfg: Config, tile, elem: int) -> dict:
+    """Bytes of one CTA's slice of the spill route's scratch: each
+    single-step body's planes of its block at `tile`."""
+    return {kernel: (tile[0] + 2 * w) * (tile[1] + 2 * w) * planes * elem
+            for kernel, (w, planes) in single_planes(cfg).items()}
+
+
+def tile_or_spill(need, spill: bool = False):
+    """(tile, spill) of single-step kernels whose CTA at a tile needs
+    need(tile) bytes of shared memory: the first of _TILES that fits;
+    where none fits, or where `spill` is true (to force it), the spill
+    route at the largest tile."""
+    fits = [t for t in _TILES if need(t) <= _MAX_SMEM]
+    spill = bool(spill) or not fits
+    return (_TILES[0] if spill else fits[0]), spill
+
+
+def single_tile(cfg: Config, dtype=None, spill: bool = False):
+    """tile_or_spill of the single-step kernels of cfg's scheme (K1's, or
+    the split step's slow phase and recomposition)."""
+    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
+    name = "fb_step" if cfg.scheme == "fb" else "split_step"
+    return tile_or_spill(lambda t: max(
+        smem_bytes(cfg, t, t, elem)[k] for k in _SPILLED[name]), spill)
 
 
 def tail_halo(cfg: Config) -> int:
@@ -262,11 +303,14 @@ def launch_steps(k: int, kb: int) -> list:
 class Plan:
     """How K1 runs the steps of one launch: kb steps in the pass kernel on
     `tile` with `threads` per CTA, or at kb = 1 the single-step kernel at
-    its own tile; `smem` bytes of shared memory per CTA."""
+    its own tile, on the spill route where `spill` (`work` bytes of planes
+    per CTA in device memory); `smem` bytes of shared memory per CTA."""
     kb: int
     tile: tuple
     threads: int
     smem: int
+    spill: bool = False
+    work: int = 0
 
     def launches(self, k: int) -> list:
         return launch_steps(k, self.kb)
@@ -274,24 +318,29 @@ class Plan:
     def describe(self) -> str:
         kernel = "the single-step kernel" if self.kb == 1 else \
             f"the pass kernel (halo {self.kb} W)"
+        if self.spill:
+            kernel += (" on the spill route (its planes in device memory, "
+                       f"{self.work} bytes per CTA)")
         return (f"kb {self.kb}: {kernel}, tile {self.tile[0]} x "
                 f"{self.tile[1]}, {self.threads} threads, {self.smem} bytes "
                 "of shared memory per CTA")
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(cfg: Config, dtype, m: int):
+def launch_plan(cfg: Config, dtype, m: int, spill: bool = False):
     """The build that advances m fb steps in one launch, or None where no
-    block with a halo of m W fits a CTA: at m = 1 the single-step kernel,
-    else the pass kernel at the tile of least plan_cost whose CTA fits one
-    SM's shared memory, with 1024 threads where one CTA fits an SM and 512
-    where two do."""
+    block with a halo of m W fits a CTA: at m = 1 the single-step kernel
+    (single_tile: on the spill route where no tile fits, or where `spill`
+    forces it), else the pass kernel at the tile of least plan_cost whose
+    CTA fits one SM's shared memory, with 1024 threads where one CTA fits
+    an SM and 512 where two do."""
     check_config(cfg)
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     if m == 1:
-        one = _pick(_TILES, lambda t: smem_bytes(cfg, t, t, elem)["fb_step"],
-                    f"the fused fb step of nz = {cfg.nz} layers")
-        return Plan(1, one, 256, smem_bytes(cfg, one, one, elem)["fb_step"])
+        one, spill = single_tile(cfg, dtype, spill)
+        return Plan(1, one, 256,
+                    smem_bytes(cfg, one, one, elem, spill=spill)["fb_step"],
+                    spill, work_bytes(cfg, one, elem)["fb_step"] * spill)
     fits = [t for t in _PASS_TILES if pass_smem(cfg, m, t, elem) <= _MAX_SMEM]
     if not fits:
         return None
@@ -301,11 +350,15 @@ def launch_plan(cfg: Config, dtype, m: int):
 
 
 @functools.lru_cache(maxsize=None)
-def plan(cfg: Config, dtype=None, k: int = None) -> Plan:
+def plan(cfg: Config, dtype=None, k: int = None,
+         spill: bool = False) -> Plan:
     """The launch plan of a pass of k fb steps (default: steps_per_pass):
     the kb <= k whose launches (Plan.launches) cost the least by plan_cost
-    at their builds' tiles."""
+    at their builds' tiles; with spill=True the single-step kernel on the
+    spill route (to hold it against the other route where both build)."""
     k = k or cfg.steps_per_pass
+    if spill:
+        return launch_plan(cfg, dtype, 1, True)
 
     def cost(kb):
         pl = launch_plan(cfg, dtype, kb)
@@ -331,6 +384,7 @@ class SplitPlan:
     qp: int
     halo: int
     smem: int
+    spill: bool = False
 
     @property
     def rx(self) -> int:
@@ -352,13 +406,16 @@ class SplitPlan:
         return 2 if self.route == 2 else 3
 
     def describe(self) -> str:
+        spill = "; the slow phase and the recomposition on the spill route " \
+            "(their planes in device memory)" if self.spill else ""
         if self.route == 3:
-            return "route 3: the slow phase, the subcycle, the recomposition"
+            return ("route 3: the slow phase, the subcycle, the "
+                    f"recomposition{spill}")
         return (f"route 2: the slow phase's tendencies, then the tail on "
                 f"{self.qx} x {self.qy} tiles (blocks of {self.rx} x "
                 f"{self.qs * self.qp}, halo {self.halo}), {self.threads} "
                 f"threads ({self.qs} strips of {self.qp} rows per column), "
-                f"{self.smem} bytes of shared memory per CTA")
+                f"{self.smem} bytes of shared memory per CTA{spill}")
 
 
 def tail_geometries(cfg: Config, dtype=None) -> list:
@@ -401,23 +458,31 @@ def tail_cost(cfg: Config, tail) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(cfg: Config, dtype=None) -> SplitPlan:
+def split_plan(cfg: Config, dtype=None, spill: bool = False) -> SplitPlan:
     """The route of a split step and the tail's geometry: the geometry of
     least tail_cost; route 2 where it fits with at most _TAIL_MAX_FACTOR
     block points per tile point and there is no open boundary, else route
-    3 (with a geometry of 1 x 1 tiles that builds where none fits)."""
+    3 (where no geometry fits, the build's tail is one column wide with
+    as many strips of one row as a CTA holds: it is never launched, and
+    strips of one row keep it quick to compile).  The slow phase and the
+    recomposition take the spill route where no tile fits them
+    (single_tile), or where `spill` forces it."""
     check_config(cfg)
     dtype = dtype or cfg.tdtype
     elem = torch.empty((), dtype=dtype).element_size()
     h = tail_halo(cfg)
+    spill = single_tile(cfg, dtype, spill)[1]
     fits = tail_geometries(cfg, dtype)
     if not fits:
-        return SplitPlan(3, 1, 1, 2 * h + 1, h,
-                         tail_smem(cfg, (1, 1, 2 * h + 1), elem))
+        rows = 2 * h + 1
+        qs = min(rows, 1024 // rows)
+        qp = -(-rows // qs)
+        return SplitPlan(3, 1, qs, qp, h, tail_smem(cfg, (1, qs, qp), elem),
+                         spill)
     tail = min(fits, key=lambda g: (tail_cost(cfg, g), -g[1]))
     route = 2 if tail_factor(cfg, tail) <= _TAIL_MAX_FACTOR \
         and not cfg.obc else 3
-    return SplitPlan(route, *tail, h, tail_smem(cfg, tail, elem))
+    return SplitPlan(route, *tail, h, tail_smem(cfg, tail, elem), spill)
 
 
 def term_defines(cfg: Config, tile):
@@ -432,11 +497,15 @@ def term_defines(cfg: Config, tile):
             f"BEOM_TX={tile[0]}", f"BEOM_TY={tile[1]}")
 
 
-def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None):
+def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None,
+               spill: bool = False):
     """(source, defines) of the build that runs cfg: fb_step.cu or
     split_step.cu with the compile-time switches and the tile (and the
-    split tail's geometry: split_plan's, or `tail`); with kb > 1 the fb pass
-    kernel of kb steps at the plan's tile and threads."""
+    split tail's geometry: split_plan's, or `tail`), BEOM_SPILL=1 where the
+    single-step kernels take the spill route (single_tile; `spill`
+    forces it); with
+    kb > 1 the fb pass kernel of kb steps at the plan's tile and
+    threads."""
     check_config(cfg)
     if kb > 1:
         pl = launch_plan(cfg, dtype, kb)
@@ -448,11 +517,8 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None):
             f"BEOM_WIND={int(cfg.wind)}")
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     name = "fb_step" if cfg.scheme == "fb" else "split_step"
-    tiled = [k for k in _TILED[name] if k != "split_subcycle"]
-    what = f"the fused {cfg.scheme} step of nz = {cfg.nz} layers"
-    tile = _pick(_TILES, lambda t: max(
-        smem_bytes(cfg, t, t, elem)[k] for k in tiled), what)
-    defines = term_defines(cfg, tile)
+    tile, spill = single_tile(cfg, dtype, spill)
+    defines = term_defines(cfg, tile) + (("BEOM_SPILL=1",) if spill else ())
     if name == "split_step":
         sub = _pick(_SUB_TILES, lambda t: smem_bytes(
             cfg, tile, t, elem)["split_subcycle"],
@@ -502,31 +568,80 @@ def _pointers(tensors):
     return _array(_P, [a.data_ptr() for a in tensors])
 
 
+def spill_api(lib) -> None:
+    """The argument types of a library's spill-route entries
+    (beom_work_bytes, beom_spill_ctas)."""
+    lib.beom_work_bytes.argtypes = [_I, _I]
+    lib.beom_work_bytes.restype = ctypes.c_long
+    lib.beom_spill_ctas.argtypes = [_I, _I]
+    lib.beom_spill_ctas.restype = _I
+
+
+def check_work(lib, name: str, want: dict, elem: int) -> None:
+    """Raise unless the slice of the scratch of each kernel index of `want`
+    (beom_work_bytes) is want[index] bytes (0 off the spill route)."""
+    for which, n in want.items():
+        have = lib.beom_work_bytes(which, int(elem == 8))
+        if have != n:
+            raise RuntimeError(f"{name}: kernel {which}'s slice of the "
+                               f"scratch ({have} bytes) is not what "
+                               f"work_bytes counts ({n})")
+
+
+_CTAS: dict = {}
+
+
+def scratch(lib, which: int, dtype, device):
+    """The scratch of one launch on the spill route of kernel `which` of
+    lib: (tensor, slots), one slice of the kernel's planes
+    (beom_work_bytes) for each CTA the device holds at once
+    (beom_spill_ctas), the launch's grid.  Taken from the caching
+    allocator on the device's current stream, so a launch on another
+    stream has its own."""
+    f64 = int(dtype == torch.float64)
+    key = (id(lib), which, f64, str(device))
+    if key not in _CTAS:
+        with torch.cuda.device(device):
+            _CTAS[key] = lib.beom_spill_ctas(which, f64)
+        if _CTAS[key] < 1:
+            raise RuntimeError(f"kernel {which}: no CTA of the spill route "
+                               f"fits an SM of {device}")
+    slots = _CTAS[key]
+    n = slots * lib.beom_work_bytes(which, f64) \
+        // torch.empty((), dtype=dtype).element_size()
+    return torch.empty(n, dtype=dtype, device=device), slots
+
+
 @functools.lru_cache(maxsize=None)
-def _entries(cfg: Config, dtype, kb: int = 1, tail=None):
-    """The library that runs cfg (kb > 1: the fb pass kernel of kb steps;
-    `tail`: the split tail of that geometry) and its entry points by kernel
-    name, built on first use."""
+def _entries(cfg: Config, dtype, kb: int = 1, tail=None,
+             spill: bool = False):
+    """The library of build_spec(cfg, dtype, kb, tail, spill) and its
+    entry points by kernel name, built on first use."""
     from beom_tpu_torch.stencils import build
 
-    name, defines = build_spec(cfg, dtype, kb, tail)
+    name, defines = build_spec(cfg, dtype, kb, tail, spill)
+    spill = "BEOM_SPILL=1" in defines
     lib = build.load((name, defines))
+    spill_api(lib)
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
-    want = smem_bytes(cfg, (value["BEOM_TX"], value["BEOM_TY"]),
+    tile = (value["BEOM_TX"], value["BEOM_TY"])
+    want = smem_bytes(cfg, tile,
                       (value.get("BEOM_SX", 0), value.get("BEOM_SY", 0)),
                       elem, (value.get("BEOM_QX"), value.get("BEOM_QS"),
                              value.get("BEOM_QP"))
-                      if name == "split_step" else None)
+                      if name == "split_step" else None, spill=spill)
     if kb > 1:
-        want["fb_step"] = pass_smem(cfg, kb, (value["BEOM_TX"],
-                                              value["BEOM_TY"]), elem)
+        want["fb_step"] = pass_smem(cfg, kb, tile, elem)
     for i, kernel in enumerate(_TILED[name]):
         have = lib.beom_smem_bytes(i, int(elem == 8))
         if have != want[kernel]:
             raise RuntimeError(
                 f"{kernel}: the kernel's shared memory ({have} bytes) is "
                 f"not what smem_bytes counts ({want[kernel]})")
+    work = work_bytes(cfg, tile, elem)
+    check_work(lib, name, {_WHICH[k]: work[k] * spill
+                           for k in _SPILLED[name]}, elem)
 
     # every argument is a pointer: the operand tables, the outputs, the
     # stream
@@ -542,30 +657,95 @@ def _entries(cfg: Config, dtype, kb: int = 1, tail=None):
     return lib, entries
 
 
+@dataclasses.dataclass(frozen=True)
+class SlotLayout:
+    """The double slots of a build (csrc/fb_terms.cuh: enum Dbl): the
+    first of the nz reduced gravities, of the tidal frequencies (one per
+    constituent of the build, at least one) and of the fb pass's step
+    times, and their count."""
+    gp0: int
+    omega0: int
+    ts0: int
+    n: int
+
+
+# the double slot of t1 (csrc/fb_terms.cuh: Dbl::D_T1), the int slots
+# (enum Int: J_SLOTS the spill route's CTAs), and the host table's
+# pointers (N_TABLE: the operands, then the spill route's scratch)
+D_T1 = 12
+J_SLOTS = 9
+N_INT = 10
+N_TABLE = 3 + len(_GRID_NAMES) + len(_FORCING_NAMES) + 1
+
+
+def build_tides(cfg: Config) -> int:
+    """The tidal constituents a build takes (BEOM_NTIDE): cfg's, where the
+    open boundary that reads them is on."""
+    return len(cfg.tides) if cfg.obc else 0
+
+
+def slot_layout(cfg: Config) -> SlotLayout:
+    """The double slots of cfg's builds, sized as the build sizes them:
+    D_OMEGA0 = D_GP0 + NZ, D_TS0 = D_OMEGA0 + max(NTIDE, 1), N_DBL =
+    D_TS0 + MAX_KB."""
+    gp0 = D_T1 + 1
+    omega0 = gp0 + cfg.nz
+    ts0 = omega0 + max(build_tides(cfg), 1)
+    return SlotLayout(gp0, omega0, ts0, ts0 + _MAX_KB)
+
+
+# a kernel's parameters (csrc/fb_terms.cuh: PARAM_LIMIT) and the share of
+# them Params may take (PARAMS_MAX)
+PARAM_LIMIT = 4096
+PARAMS_MAX = PARAM_LIMIT - 1536
+
+
+def params_bytes(cfg: Config, elem: int, cards: bool = False) -> int:
+    """sizeof(Params<T>) of cfg's build for T of `elem` bytes
+    (csrc/fb_terms.cuh), laid out by the C rules: each member at a multiple
+    of its alignment, the whole a multiple of the largest.  Across cards
+    an operand is the nine pointers of its stacks."""
+    members = [((N_TABLE - 1) * (72 if cards else 8), 8), (10 * 4, 4),
+               (16 * elem, elem), (cfg.nz * elem, elem),
+               (max(build_tides(cfg), 1) * elem, elem), (_MAX_KB * elem, elem),
+               (8, 8), (8, 8)]
+    size = 0
+    for n, align in members:
+        size = -(-size // align) * align + n
+    return -(-size // 8) * 8
+
+
 def _scalars(cfg: Config, parity: int, t1, ny=None, nx=None, ts=(),
-             aligned=False):
-    """The int and double operand slots (csrc/fb_terms.cuh: Int, Dbl);
-    (ny, nx) is the extent of the block stepped when it is not the whole
-    grid; ts the time t1 of each step of an fb pass launch, `aligned`
-    whether its operands all start 16-byte aligned."""
-    pad = [0.0] * _MAX_LAYERS
+             aligned=False, work=None):
+    """The int and double operand slots (csrc/fb_terms.cuh: Int, Dbl, the
+    doubles laid out by slot_layout); (ny, nx) is the extent of the block
+    stepped when it is not the whole grid; ts the time t1 of each step of
+    an fb pass launch, `aligned` whether its operands all start 16-byte
+    aligned, `work` the (scratch, slots) of a launch on the spill route
+    (its CTAs in J_SLOTS; 0 off the route)."""
+    lay = slot_layout(cfg)
     ints = [ny or cfg.ny, nx or cfg.nx, int(parity == 0),
             int(cfg.adv_scheme == "sadourny_energy"),
             int(cfg.slip == "free"), int(cfg.nu2 != 0.0), int(cfg.wind),
-            cfg.nsub, int(aligned)]
+            cfg.nsub, int(aligned), 0 if work is None else work[1]]
     dbls = [cfg.dt, cfg.dx, cfg.dy, cfg.g, cfg.nu2, cfg.nu4, cfg.rho0,
             cfg.h_min, cfg.h_dry, cfg.r_bot, cfg.cd_bot, cfg.r_int,
             float(t1)]
-    dbls += (list(cfg.gprime) + pad)[:_MAX_LAYERS]
-    dbls += (list(cfg.tides) + pad)[:_MAX_LAYERS]
+    dbls += list(cfg.gprime)[:cfg.nz]
+    dbls += (list(cfg.tides)[:build_tides(cfg)] + [0.0])[
+        :lay.ts0 - lay.omega0]
     dbls += ([float(x) for x in ts] + [0.0] * _MAX_KB)[:_MAX_KB]
+    assert len(ints) == N_INT and len(dbls) == lay.n
     return _array(_I, ints), _array(ctypes.c_double, dbls)
 
 
-# the double slots of t1 and of an fb pass's step times (csrc/fb_terms.cuh:
-# Dbl::D_T1, D_TS0)
-D_T1 = 12
-D_TS0 = D_T1 + 1 + 2 * _MAX_LAYERS
+def _table(fields, statics, work=None):
+    """The host table of a launch (csrc/fb_terms.cuh: N_TABLE pointers):
+    the fields h, u, v (or the phase's), the statics' operands, and the
+    spill route's scratch (null off it)."""
+    return _array(_P, [a.data_ptr() for a in list(fields)
+                       + _operands(statics)]
+                  + [0 if work is None else work.data_ptr()])
 
 
 class Operands:
@@ -575,25 +755,31 @@ class Operands:
     and `set` fills in the rest."""
 
     def __init__(self, statics: list, cfg: Config):
-        self.ptrs = _array(_P, [0, 0, 0] + [a.data_ptr() for a in statics])
+        self.ptrs = _array(_P, [0, 0, 0] + [a.data_ptr() for a in statics]
+                           + [0])
         self._aligned = all(a.data_ptr() % 16 == 0 for a in statics)
         self._sc = {(par, al): _scalars(cfg, par, 0.0, aligned=al)
                     for par in (0, 1) for al in (False, True)}
+        self._ts0 = slot_layout(cfg).ts0
 
-    def set(self, parity: int, fields, t1=None, ts=(), aligned=None):
+    def set(self, parity: int, fields, t1=None, ts=(), aligned=None,
+            work=None):
         """(ptrs, ints, dbls) with h, u, v = fields[:3] in the table, the
         aligned switch over every field (and `aligned` where given: the
-        other operands a launch reads), and t1 and the step times in their
-        slots where given."""
+        other operands a launch reads), t1 and the step times in their
+        slots where given, and the spill route's scratch and its CTAs where
+        `work` = (scratch, slots) is given (none elsewhere)."""
         p = self.ptrs
         p[0], p[1], p[2] = (a.data_ptr() for a in fields[:3])
         aligned = self._aligned and aligned is not False and all(
             a.data_ptr() % 16 == 0 for a in fields)
         ints, dbls = self._sc[parity, aligned]
+        p[N_TABLE - 1] = 0 if work is None else work[0].data_ptr()
+        ints[J_SLOTS] = 0 if work is None else work[1]
         if t1 is not None:
             dbls[D_T1] = float(t1)
         for i, x in enumerate(ts):
-            dbls[D_TS0 + i] = float(x)
+            dbls[self._ts0 + i] = float(x)
         return p, ints, dbls
 
 
@@ -624,100 +810,135 @@ def _check_operands(h, u, v, statics, cfg: Config, check=None,
                 f"{tuple(a.shape)} on {a.device}")
 
 
-def _launch_fb(h, u, v, statics, parity: int, ts, cfg: Config):
-    """One launch of K1: len(ts) steps, step i to the time ts[i]."""
+def _spill_args(lib, kernel: str, h, spill: bool):
+    """(scratch, slots) of a launch of `kernel` on the spill route, or
+    None off it.  The caller holds it until the launch is queued: freed
+    earlier, the caching allocator could hand its memory to an output."""
+    return scratch(lib, _WHICH[kernel], h.dtype, h.device) if spill \
+        else None
+
+
+def _launch_fb(h, u, v, statics, parity: int, ts, cfg: Config, pl=None):
+    """One launch of K1 by the launch plan `pl` of len(ts) steps (default:
+    launch_plan's), step i to the time ts[i]."""
     global LAUNCHES, PASS_LAUNCHES
     from beom_tpu_torch.stencils import build
 
-    lib, entry = _entries(cfg, h.dtype, len(ts))
+    pl = pl or launch_plan(cfg, h.dtype, len(ts))
+    if pl.kb != len(ts):
+        raise ValueError(f"a launch of {len(ts)} steps by a plan of kb = "
+                         f"{pl.kb}")
+    spill = pl.spill
+    lib, entry = _entries(cfg, h.dtype, pl.kb, None, spill)
     outs = [torch.empty_like(h) for _ in range(3)]
     operands = [h, u, v] + _operands(statics)
     aligned = all(a.data_ptr() % 16 == 0 for a in operands + outs)
-    ints, dbls = _scalars(cfg, parity, ts[0], ts=ts, aligned=aligned)
+    work = _spill_args(lib, "fb_step", h, spill)
+    ints, dbls = _scalars(cfg, parity, ts[0], ts=ts, aligned=aligned,
+                          work=work)
     code = entry["fb_step"](
-        _pointers(operands), ints, dbls,
+        _table((h, u, v), statics, work and work[0]), ints, dbls,
         *[a.data_ptr() for a in outs], _stream(h.device))
     build.check(lib, code, "fb_step kernel launch")
     LAUNCHES += 1
     PASS_LAUNCHES += len(ts) > 1
+    SPILL_LAUNCHES["fb"] += spill
     return outs
 
 
-def _launch_slow(h, u, v, statics, cfg: Config):
-    """The slow phase: SlowPhase's 13 fields in its order, cu and cv as
-    the bottom layer's (ny, nx) plane."""
+def _split_entries(cfg: Config, dtype, sp):
+    """(split plan, library, entry points) of a split launch by the plan
+    `sp` (default: split_plan's)."""
+    sp = sp or split_plan(cfg, dtype)
+    return (sp,) + _entries(cfg, dtype, 1, sp.tail, sp.spill)
+
+
+def _launch_slow(h, u, v, statics, cfg: Config, sp=None):
+    """The slow phase by the split plan `sp` (default: split_plan's):
+    SlowPhase's 13 fields in its order, cu and cv as the bottom layer's
+    (ny, nx) plane."""
     from beom_tpu_torch.stencils import build
 
-    lib, entry = _entries(cfg, h.dtype)
+    sp, lib, entry = _split_entries(cfg, h.dtype, sp)
+    spill = sp.spill
     plane = h[0]
     outs = [torch.empty_like(h) for _ in range(4)] \
         + [torch.empty_like(plane) for _ in range(9)]
-    ints, dbls = _scalars(cfg, 0, 0.0)
+    work = _spill_args(lib, "split_slow", h, spill)
+    ints, dbls = _scalars(cfg, 0, 0.0, work=work)
     code = entry["split_slow"](
-        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _table((h, u, v), statics, work and work[0]), ints, dbls,
         _pointers(outs), _stream(h.device))
     build.check(lib, code, "split_slow kernel launch")
     SPLIT_LAUNCHES["slow"] += 1
+    SPILL_LAUNCHES["slow"] += spill
     return outs
 
 
-def _launch_subcycle(slow, h, u, v, statics, cfg: Config):
+def _launch_subcycle(slow, h, u, v, statics, cfg: Config, sp=None):
     """(eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg) from _launch_slow's
-    fields."""
+    fields, in the build of the split plan `sp`."""
     from beom_tpu_torch.stencils import build
 
-    lib, entry = _entries(cfg, h.dtype)
+    _, lib, entry = _split_entries(cfg, h.dtype, sp)
     outs = [torch.empty_like(slow[-1]) for _ in range(5)]
     ints, dbls = _scalars(cfg, 0, 0.0)
     code = entry["split_subcycle"](
-        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _table((h, u, v), statics), ints, dbls,
         _pointers(slow), _pointers(outs), _stream(h.device))
     build.check(lib, code, "split_subcycle kernel launch")
     SPLIT_LAUNCHES["subcycle"] += 1
     return outs
 
 
-def _launch_recompose(slow, sub, h, u, v, statics, t1, cfg: Config):
+def _launch_recompose(slow, sub, h, u, v, statics, t1, cfg: Config,
+                      sp=None):
     from beom_tpu_torch.stencils import build
 
-    lib, entry = _entries(cfg, h.dtype)
+    sp, lib, entry = _split_entries(cfg, h.dtype, sp)
+    spill = sp.spill
     outs = [torch.empty_like(h) for _ in range(3)]
-    ints, dbls = _scalars(cfg, 0, t1)
+    work = _spill_args(lib, "split_recompose", h, spill)
+    ints, dbls = _scalars(cfg, 0, t1, work=work)
     code = entry["split_recompose"](
-        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _table((h, u, v), statics, work and work[0]), ints, dbls,
         _pointers(slow), _pointers(sub), *[a.data_ptr() for a in outs],
         _stream(h.device))
     build.check(lib, code, "split_recompose kernel launch")
     SPLIT_LAUNCHES["recompose"] += 1
+    SPILL_LAUNCHES["recompose"] += spill
     return outs
 
 
-def _launch_tend(h, u, v, statics, cfg: Config, tail=None):
+def _launch_tend(h, u, v, statics, cfg: Config, sp=None):
     """The slow phase's layer tendencies (du_s, dv_s) of the two-launch
-    step."""
+    step, in the build of the split plan `sp`."""
     from beom_tpu_torch.stencils import build
 
-    lib, entry = _entries(cfg, h.dtype, 1, tail)
+    sp, lib, entry = _split_entries(cfg, h.dtype, sp)
+    spill = sp.spill
     outs = [torch.empty_like(h) for _ in range(2)]
-    ints, dbls = _scalars(cfg, 0, 0.0)
+    work = _spill_args(lib, "split_tend", h, spill)
+    ints, dbls = _scalars(cfg, 0, 0.0, work=work)
     code = entry["split_tend"](
-        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _table((h, u, v), statics, work and work[0]), ints, dbls,
         _pointers(outs), _stream(h.device))
     build.check(lib, code, "split_tend kernel launch")
     SPLIT_LAUNCHES["tend"] += 1
+    SPILL_LAUNCHES["tend"] += spill
     return outs
 
 
-def _launch_tail(tend, h, u, v, statics, t1, cfg: Config, tail=None):
+def _launch_tail(tend, h, u, v, statics, t1, cfg: Config, sp=None):
     """The tail of the two-launch step: (h, u, v) at t1 from the state and
-    its tendencies."""
+    its tendencies, at the tail geometry of the split plan `sp`."""
     from beom_tpu_torch.stencils import build
 
-    lib, entry = _entries(cfg, h.dtype, 1, tail)
+    _, lib, entry = _split_entries(cfg, h.dtype, sp)
     outs = [torch.empty_like(h) for _ in range(3)]
     ints, dbls = _scalars(cfg, 0, t1)
     code = entry["split_tail"](
-        _pointers([h, u, v] + _operands(statics)), ints, dbls,
+        _table((h, u, v), statics), ints, dbls,
         _pointers(tend), *[a.data_ptr() for a in outs], _stream(h.device))
     build.check(lib, code, "split_tail kernel launch")
     SPLIT_LAUNCHES["tail"] += 1
@@ -730,37 +951,41 @@ def _slow_fields(sp: SlowPhase, cfg: Config):
         sp.cu[cfg.nz - 1].contiguous(), sp.cv[cfg.nz - 1].contiguous()]
 
 
-def split_slow(h, u, v, statics, cfg: Config) -> SlowPhase:
-    """split.slow_phase: the kernel on CUDA tensors, the eager function on
-    CPU tensors."""
+def split_slow(h, u, v, statics, cfg: Config, sp=None) -> SlowPhase:
+    """split.slow_phase: the kernel on CUDA tensors (by the split plan
+    `sp`, default split_plan's), the eager function on CPU tensors."""
     grid, forcing = statics
     if h.device.type == "cpu":
         return split_mod.slow_phase(State(h=h, u=u, v=v, t=0.0, n=0), grid,
                                     forcing, cfg)
     _check_operands(h, u, v, statics, cfg)
     with torch.cuda.device(h.device):
-        f = _launch_slow(h, u, v, statics, cfg)
+        f = _launch_slow(h, u, v, statics, cfg, sp)
     kb = cfg.nz - 1
     return SlowPhase(*f[:11], cu=drag._on_layer(f[11], kb, cfg.nz),
                      cv=drag._on_layer(f[12], kb, cfg.nz))
 
 
-def split_subcycle(sp: SlowPhase, h, u, v, statics, cfg: Config):
-    """split.subcycle_phase: (eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg)."""
+def split_subcycle(slow: SlowPhase, h, u, v, statics, cfg: Config,
+                   sp=None):
+    """split.subcycle_phase: (eta_f, ubar_f, vbar_f, ubar_avg, vbar_avg),
+    in the build of the split plan `sp` (default split_plan's)."""
     grid, _ = statics
     if h.device.type == "cpu":
-        return split_mod.subcycle_phase(sp, grid, cfg)
+        return split_mod.subcycle_phase(slow, grid, cfg)
     _check_operands(h, u, v, statics, cfg)
     with torch.cuda.device(h.device):
-        return tuple(_launch_subcycle(_slow_fields(sp, cfg), h, u, v,
-                                      statics, cfg))
+        return tuple(_launch_subcycle(_slow_fields(slow, cfg), h, u, v,
+                                      statics, cfg, sp))
 
 
-def split_recompose(sp: SlowPhase, sub, h, u, v, statics, t, cfg: Config):
-    """split.recompose followed by fb.finalize: (h1, u1, v1) at t + dt."""
+def split_recompose(slow: SlowPhase, sub, h, u, v, statics, t,
+                    cfg: Config, sp=None):
+    """split.recompose followed by fb.finalize: (h1, u1, v1) at t + dt (by
+    the split plan `sp`, default split_plan's)."""
     grid, forcing = statics
     if h.device.type == "cpu":
-        h1, u1, v1 = split_mod.recompose(sp, *sub, h, grid, cfg)
+        h1, u1, v1 = split_mod.recompose(slow, *sub, h, grid, cfg)
         s = fb_mod.finalize(h1, u1, v1, State(h=h, u=u, v=v, t=t, n=0),
                             grid, forcing, cfg)
         return s.h, s.u, s.v
@@ -768,25 +993,27 @@ def split_recompose(sp: SlowPhase, sub, h, u, v, statics, t, cfg: Config):
     t1 = advance_time(t, cfg.dt, cfg.npdtype)
     with torch.cuda.device(h.device):
         return tuple(_launch_recompose(
-            _slow_fields(sp, cfg), [a.contiguous() for a in sub], h, u, v,
-            statics, t1, cfg))
+            _slow_fields(slow, cfg), [a.contiguous() for a in sub], h, u,
+            v, statics, t1, cfg, sp))
 
 
-def split_tend(h, u, v, statics, cfg: Config):
-    """split.slow_tendencies, (du_s, dv_s): the kernel on CUDA tensors, the
-    eager function on CPU tensors."""
+def split_tend(h, u, v, statics, cfg: Config, sp=None):
+    """split.slow_tendencies, (du_s, dv_s): the kernel on CUDA tensors (by
+    the split plan `sp`, default split_plan's), the eager function on CPU
+    tensors."""
     grid, forcing = statics
     if h.device.type == "cpu":
         return split_mod.slow_tendencies(State(h=h, u=u, v=v, t=0.0, n=0),
                                          grid, forcing, cfg)
     _check_operands(h, u, v, statics, cfg)
     with torch.cuda.device(h.device):
-        return tuple(_launch_tend(h, u, v, statics, cfg))
+        return tuple(_launch_tend(h, u, v, statics, cfg, sp))
 
 
-def split_tail(tend, h, u, v, statics, t, cfg: Config):
+def split_tail(tend, h, u, v, statics, t, cfg: Config, sp=None):
     """split.depth_means from (du_s, dv_s) = tend, then split.fast_phase:
-    (h1, u1, v1) at t + dt."""
+    (h1, u1, v1) at t + dt, at the tail geometry of the split plan `sp`
+    (default split_plan's)."""
     grid, forcing = statics
     if h.device.type == "cpu":
         s = State(h=h, u=u, v=v, t=t, n=0)
@@ -797,39 +1024,43 @@ def split_tail(tend, h, u, v, statics, t, cfg: Config):
     t1 = advance_time(t, cfg.dt, cfg.npdtype)
     with torch.cuda.device(h.device):
         return tuple(_launch_tail([a.contiguous() for a in tend], h, u, v,
-                                  statics, t1, cfg))
+                                  statics, t1, cfg, sp))
 
 
-def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int):
+def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int,
+                  pl=None):
     """Advance (h, u, v) by k steps of cfg.scheme ('fb' or 'split') from
     step n at time t.
 
-    CPU tensors take the plain version.  CUDA tensors take the kernels:
-    ceil(k / kb) launches per pass of fb steps (`plan`), two or three per
-    split step (`split_plan`); a configuration the kernels cannot run
-    raises.
+    CPU tensors take the plain version.  CUDA tensors take the kernels by
+    the plan `pl` (default: `plan` of k steps for fb, `split_plan` for
+    split): ceil(k / kb) launches per pass of fb steps, two or three per
+    split step; the single-step kernels on the spill route where the plan
+    takes it.
     """
     if h.device.type == "cpu":
         return fused_fb_step_plain(h, u, v, statics, n, t, cfg, k)
     _check_operands(h, u, v, statics, cfg)
     with torch.cuda.device(h.device):
         if cfg.scheme == "fb":
-            for m in plan(cfg, h.dtype, k).launches(k):
+            pl = pl or plan(cfg, h.dtype, k)
+            for m in pl.launches(k):
                 ts = _times(t, cfg, m)
-                h, u, v = _launch_fb(h, u, v, statics, n % 2, ts, cfg)
+                h, u, v = _launch_fb(h, u, v, statics, n % 2, ts, cfg,
+                                     pl if m == pl.kb else None)
                 n, t = n + m, ts[-1]
             return h, u, v
-        two = split_plan(cfg, h.dtype).route == 2
+        sp = pl or split_plan(cfg, h.dtype)
         for _ in range(k):
             t1 = advance_time(t, cfg.dt, cfg.npdtype)
-            if two:
-                tend = _launch_tend(h, u, v, statics, cfg)
-                h, u, v = _launch_tail(tend, h, u, v, statics, t1, cfg)
+            if sp.route == 2:
+                tend = _launch_tend(h, u, v, statics, cfg, sp)
+                h, u, v = _launch_tail(tend, h, u, v, statics, t1, cfg, sp)
             else:
-                slow = _launch_slow(h, u, v, statics, cfg)
-                sub = _launch_subcycle(slow, h, u, v, statics, cfg)
+                slow = _launch_slow(h, u, v, statics, cfg, sp)
+                sub = _launch_subcycle(slow, h, u, v, statics, cfg, sp)
                 h, u, v = _launch_recompose(slow, sub, h, u, v, statics, t1,
-                                            cfg)
+                                            cfg, sp)
             t = t1
     return h, u, v
 

@@ -31,7 +31,9 @@ A step decomposes as the reference's does:
 
 Each phase runs as one of two kernels of `csrc/projection.cu`, chosen per
 case and type by `plan`: the single-step kernels `proj_a` / `proj_b` on
-32 x 16 tiles (the stage bodies the shard kernels share), or the staged
+32 x 16 tiles (the stage bodies the shard kernels share; on the spill
+route, their planes in device memory, where no tile fits a CTA's shared
+memory: fused_fb.single_tile, PhasePlan.spill), or the staged
 kernels `proj_as` / `proj_bs` on tiles of their own, every
 operand staged by cp.async, whose K3a also writes the solve's right-hand
 side and warm start in its epilogue (`Phases.a_rhs`: then no elementwise
@@ -69,12 +71,15 @@ from beom_tpu_torch.solvers.elliptic import _local_dot
 # kernel launches of phase A and phase B (either kernel of each); a run
 # reads them to show that its main path went through the kernels
 LAUNCHES = {"proj_a": 0, "proj_b": 0}
+# the launches above that took the spill route
+SPILL_LAUNCHES = {"proj_a": 0, "proj_b": 0}
 
 # solves that the stall guard of the multigrid-preconditioned CG redid
 COUNTS = {"stalled": 0}
 
 K_SWEEPS = 8      # red-black sweeps per pass, as the reference's stepper
 _KERNELS = ("proj_a", "proj_b")     # in the order of beom_smem_bytes
+_WHICH = {"proj_a": 0, "proj_b": 1}  # ... and of beom_work_bytes
 _STAGED = ("proj_as", "proj_bs")    # after them
 # the staged kernels' candidate geometries: (tile width, height, threads);
 # the width a multiple of 4, so that a block's rows start 16-byte aligned
@@ -94,45 +99,61 @@ _SM_SMEM = 233472        # shared memory of an SM, 1 KB reserved per CTA
 
 def check_config(cfg: Config) -> None:
     """Raise on what the phase kernels cannot run: a scheme other than
-    the projection schemes, or more layers or tidal constituents than
-    their operand slots.  Every term of the eager step is implemented."""
+    the projection schemes.  Every term of the eager step is implemented,
+    at any number of layers and tidal constituents."""
     if cfg.scheme not in ("rigid_lid", "implicit_fs"):
         raise ValueError("fused_projection implements the projection "
                          "schemes; fb uses stencils/fused_fb.py")
-    if cfg.nz > fused_fb._MAX_LAYERS \
-            or len(cfg.tides) > fused_fb._MAX_LAYERS:
-        raise NotImplementedError(
-            f"the phase kernels take at most {fused_fb._MAX_LAYERS} layers "
-            f"and tidal constituents (nz = {cfg.nz}, {len(cfg.tides)} "
-            "constituents)")
 
 
-def smem_bytes(cfg: Config, tile, elem: int, off: int = 4) -> dict:
+def single_planes(cfg: Config) -> dict:
+    """(halo, planes) of each single-step phase body (csrc/
+    projection_body.cuh: pa, pb)."""
+    nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
+    return {"proj_a": (4, 7 * nz + 4 + 2 * nz * nu4),
+            "proj_b": (halo_b(cfg), 4 * nz + 4 + 3 * nz * wd + obc)}
+
+
+def smem_bytes(cfg: Config, tile, elem: int, off: int = 4,
+               spill: bool = False) -> dict:
     """Dynamic shared memory of one CTA of each phase kernel at `tile` =
     (tx, ty) and `elem` bytes per value: the planes of csrc/projection.cu
-    times the haloed tile, plus the table of offsets of `off` bytes."""
-    nz, wd, obc, nu4 = cfg.nz, cfg.wetdry, cfg.obc, cfg.nu4 != 0.0
-    wb = (3 if wd else 2) if (wd or obc) else 1
-
-    def block(w, planes):
+    times the haloed tile, plus the table of offsets of `off` bytes; on
+    the spill route (`spill`) the table alone (`work_bytes` counts the
+    planes)."""
+    out = {}
+    for kernel, (w, planes) in single_planes(cfg).items():
         npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
-        return fused_fb.tables(npt * planes * elem, npt, off)
+        out[kernel] = fused_fb.tables(0 if spill else npt * planes * elem,
+                                      npt, off)
+    return out
 
-    return {"proj_a": block(4, 7 * nz + 4 + 2 * nz * nu4),
-            "proj_b": block(wb, 4 * nz + 4 + 3 * nz * wd + obc)}
+
+def work_bytes(cfg: Config, tile, elem: int) -> dict:
+    """Bytes of one CTA's slice of the spill route's scratch: each
+    single-step phase body's planes of its block at `tile`."""
+    return {kernel: (tile[0] + 2 * w) * (tile[1] + 2 * w) * planes * elem
+            for kernel, (w, planes) in single_planes(cfg).items()}
+
+
+def single_tile(cfg: Config, dtype=None, spill: bool = False):
+    """fused_fb.tile_or_spill of the single-step phase kernels."""
+    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
+    return fused_fb.tile_or_spill(
+        lambda t: max(smem_bytes(cfg, t, elem).values()), spill)
 
 
 def build_spec(cfg: Config, dtype=None, phase_plan=None, dmask=False):
     """(source, defines) of the build of csrc/projection.cu that runs
     cfg: the compile-time switches and the single-step kernels' tile (what
-    the shard kernels take too), and with a PhasePlan the staged kernels'
-    geometry and the masks' rebuild (`staged_defines`)."""
+    the shard kernels take too) with BEOM_SPILL=1 on the spill route (the
+    plan's, else where no tile fits), and with a PhasePlan the staged
+    kernels' geometry and the masks' rebuild (`staged_defines`)."""
     check_config(cfg)
-    elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
-    tile = fused_fb._pick(
-        fused_fb._TILES, lambda t: max(smem_bytes(cfg, t, elem).values()),
-        f"the projection phases of nz = {cfg.nz} layers")
-    defines = fused_fb.term_defines(cfg, tile)
+    tile, spill = single_tile(cfg, dtype,
+                              phase_plan is not None and phase_plan.spill)
+    defines = fused_fb.term_defines(cfg, tile) \
+        + (("BEOM_SPILL=1",) if spill else ())
     if phase_plan is not None:
         defines += staged_defines(phase_plan, cfg, dmask)
     return "projection", defines
@@ -153,15 +174,20 @@ class Geometry:
 class PhasePlan:
     """How a step's phases run: `a` and `b` the staged kernels' geometries,
     or None for the single-step kernel; `rhs` whether K3a's epilogue writes
-    the solve's right-hand side and warm start."""
+    the solve's right-hand side and warm start; `spill` whether the
+    single-step kernels take the spill route (their planes in device
+    memory)."""
     a: Optional[Geometry]
     b: Optional[Geometry]
     rhs: bool
+    spill: bool = False
 
     def describe(self) -> str:
-        a = "K3a single-step (32 x 16)" if self.a is None else \
+        one = "single-step (32 x 16, on the spill route: its planes in " \
+            "device memory)" if self.spill else "single-step (32 x 16)"
+        a = f"K3a {one}" if self.a is None else \
             f"K3a staged, {self.a.describe()}"
-        b = "K3b single-step (32 x 16)" if self.b is None else \
+        b = f"K3b {one}" if self.b is None else \
             f"K3b staged, {self.b.describe()}"
         rhs = "the right-hand side in K3a's epilogue" if self.rhs else \
             "the right-hand side in torch"
@@ -226,14 +252,18 @@ def candidates(cfg: Config, dtype=None) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(cfg: Config, dtype=None) -> PhasePlan:
+def plan(cfg: Config, dtype=None, spill: bool = False) -> PhasePlan:
     """The phase kernels of cfg at `dtype`: each phase's staged kernel at
     the geometry of least geometry_cost where one fits, else its
-    single-step kernel; the right-hand side in K3a's epilogue where K3a is
+    single-step kernel (on the spill route where no tile fits it:
+    single_tile); the right-hand side in K3a's epilogue where K3a is
     staged and the layer sum has at most two terms (any order of two
     additions is the same, so the epilogue's sum is torch.sum's bit for
-    bit)."""
+    bit).  With spill=True both phases run the single-step kernels on the
+    spill route (to hold it against the other routes where both build)."""
     check_config(cfg)
+    if spill:
+        return PhasePlan(None, None, False, True)
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     geos = [Geometry(*g) for g in _GEOMETRIES]
 
@@ -243,7 +273,8 @@ def plan(cfg: Config, dtype=None) -> PhasePlan:
         return None if cost[best] == float("inf") else best
 
     a = pick("proj_as")
-    return PhasePlan(a, pick("proj_bs"), a is not None and cfg.nz <= 2)
+    return PhasePlan(a, pick("proj_bs"), a is not None and cfg.nz <= 2,
+                     single_tile(cfg, dtype)[1])
 
 
 def staged_defines(pl: PhasePlan, cfg: Config, dmask: bool) -> tuple:
@@ -301,9 +332,11 @@ def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
 
     name, defines = build_spec(cfg, dtype, pl, dmask)
     lib = build.load((name, defines))
+    fused_fb.spill_api(lib)
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
-    want = smem_bytes(cfg, (value["BEOM_TX"], value["BEOM_TY"]), elem)
+    tile = (value["BEOM_TX"], value["BEOM_TY"])
+    want = smem_bytes(cfg, tile, elem, spill=pl.spill)
     want.update(staged_smem(
         cfg, Geometry(value["BEOM_ATX"], value["BEOM_ATY"],
                       value["BEOM_ANT"]),
@@ -315,6 +348,9 @@ def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
             raise RuntimeError(
                 f"{kernel}: the kernel's shared memory ({have} bytes) is "
                 f"not what smem_bytes counts ({want[kernel]})")
+    work = work_bytes(cfg, tile, elem)
+    fused_fb.check_work(lib, name, {_WHICH[k]: work[k] * pl.spill
+                                    for k in _KERNELS}, elem)
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     suffix = fused_fb._SUFFIX[dtype]
     fns = {}
@@ -405,7 +441,11 @@ class Phases:
             plane = lambda: torch.empty(self._shape2, dtype=self.dtype,
                                         device=self.device)
             us, vs = torch.empty_like(u), torch.empty_like(v)
-            ptrs, ints, dbls = self._ops.set(n % 2, (h, u, v))
+            spill = self.plan.a is None and self.plan.spill
+            # held until the launch is queued, so that no output below is
+            # handed the scratch's memory
+            work = self._work("proj_a", spill)
+            ptrs, ints, dbls = self._ops.set(n % 2, (h, u, v), work=work)
             stream = torch.cuda.current_stream(self.device).cuda_stream
             if self.plan.a is None:
                 outs = (plane(), None, None, None)
@@ -423,7 +463,14 @@ class Phases:
                                           -self.lam, stream)
             self._check(self.lib, code, "phase A kernel launch")
             LAUNCHES["proj_a"] += 1
+            SPILL_LAUNCHES["proj_a"] += spill
         return (us, vs) + outs
+
+    def _work(self, kernel: str, spill: bool):
+        """(scratch, slots) of a launch of `kernel` on the spill route, or
+        None off it; the caller holds it until the launch is queued."""
+        return fused_fb.scratch(self.lib, _WHICH[kernel], self.dtype,
+                                self.device) if spill else None
 
     def a(self, h, u, v, n: int):
         """Phase A of step n: (u*, v*, div(U*)), the sweep order from the
@@ -475,7 +522,9 @@ class Phases:
         t1 = advance_time(t, self.cfg.dt, self.cfg.npdtype)
         with torch.cuda.device(self.device):
             outs = [torch.empty_like(h) for _ in range(3)]
-            args = self._ops.set(0, (h, u_s, v_s, p), t1)
+            spill = self.plan.b is None and self.plan.spill
+            work = self._work("proj_b", spill)  # held past the launch
+            args = self._ops.set(0, (h, u_s, v_s, p), t1, work=work)
             kernel = "proj_b" if self.plan.b is None else "proj_bs"
             code = self.fn[kernel](
                 *args, p.data_ptr(), _corr(self.cfg),
@@ -483,13 +532,15 @@ class Phases:
                 torch.cuda.current_stream(self.device).cuda_stream)
             self._check(self.lib, code, "phase B kernel launch")
             LAUNCHES["proj_b"] += 1
+            SPILL_LAUNCHES["proj_b"] += spill
         return tuple(outs)
 
 
 def proj_a(h, u, v, statics, n: int, cfg: Config):
-    """Phase A of step n: (u*, v*, div(U*)), one launch on CUDA tensors,
-    the sweep order from the host parity n % 2.  It prepares a Phases per
-    call; a caller that launches again holds one."""
+    """Phase A of step n: (u*, v*, div(U*)), one launch on CUDA tensors
+    (`plan`'s kernel), the sweep order from the host
+    parity n % 2.  It prepares a Phases per call; a caller that launches
+    again holds one."""
     if h.device.type == "cpu":
         return proj_a_plain(h, u, v, statics, n, cfg)
     return Phases(*statics, cfg, h.dtype).a(h, u, v, n)

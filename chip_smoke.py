@@ -130,7 +130,7 @@ Phases, each of which raises on failure (exit code != 0):
      (open faces, the tide at t + dt), both parities; run() of 10 steps at
      2048^2 f32, backend='fused', with rigid_lid and implicit_fs on
      two_layer and shelf_forced and implicit_fs on coastal_wetdry (the
-     shelf's rigid lid 4 steps: there the fused tier's cycle stalls CG,
+     shelf's rigid lid 2 steps: there the fused tier's cycle stalls CG,
      each step runs K6 to its 500 iterations and the stall guard redoes
      the solve with the W-cycle through K4a, K4b and K5): the launch
      counts, the solves the guard redid, 2 fused steps against 2 eager ones
@@ -181,13 +181,13 @@ Phases, each of which raises on failure (exit code != 0):
      and diagnostics equal to the single-device K1s run's bit for bit;
      shelf_forced split nsub 8, 10 steps, three launches per step (route
      3), equal to the single-device run; the rigid-lid gyre with
-     scheme='implicit_fs', 10 steps, one launch per phase and step, within
+     scheme='implicit_fs', 5 steps, one launch per phase and step, within
      1e-5 x max(scale, 1) of the single-device fused run (K3a, K6, K3b)
      and 1e-6 x scale of the eager mesh run (the same solve); the rigid
      lid's default solve (the distributed CG + multigrid) at 256^2 on (2,
-     2) from rest, its first step within 1e-6 x scale of the eager mesh
-     step (the same solve) and 2 steps within 1e-5 x max(scale, 1) of the
-     single-device fused run (K6 with its own hierarchy)
+     2) from rest, one step, within 1e-6 x scale of the eager mesh step
+     (the same solve) and 1e-5 x max(scale, 1) of the single-device fused
+     step (K6 with its own hierarchy)
  25. times at 2048^2 f32 on (2, 4): K7-split's five kernels and a whole
      split step beside K1s's, K7-proj's two phases beside K3a / K3b, each
      between CUDA events and on the device under torch.profiler, and the
@@ -222,6 +222,30 @@ Phases, each of which raises on failure (exit code != 0):
      run over cuda:0 and cuda:1; with one card that leg is skipped and
      says so.  The times are taken on the split along x.  `python3
      chip_smoke.py --cards` runs this phase alone, after its builds.
+ 28. many layers and tidal constituents: shelf_forced (wet/dry, Flather,
+     sponge, wind, bottom drag) at 2048^2 f32 with 32 layers and 13 of
+     TPXO's constituents, past the shared-memory walls of K1 (24 layers)
+     and K3a / K3b (31), so their single-step kernels take the spill
+     route (their planes in device memory).  Paths, each with the
+     counts set to 0 just before and read just after: run() with
+     backend='fused', 100 steps, diagnostics every 50 (finite; one K1
+     launch per step on the spill route), run() of the implicit free
+     surface 3 steps (K3a / K3b on the spill route), and both again on
+     2 x 2 shards of the card (K7-fb, K7-proj).  Then K1 (both parities),
+     K1s at nsub 8 on its plan's route (route 3, its three kernels and
+     the step) and K3a / K3b (both parities) bit for bit their plain
+     versions (K3a's div within 4 ulp / 1e-12 of its scale: past two
+     layers the plain version's torch.sum adds in an order of its own),
+     K7-fb, K7-split and K7-proj on 2 x 2 shards bit for bit the
+     single-device kernels, each kernel's time between CUDA events
+     and on the device beside its plain version's; the same checks at
+     512^2 f64 with 16 layers; at nz 8 f32, where every route builds, the
+     spill route forced by the plans' own parameter bit for bit the
+     shared-memory route for K1, K1s and K3a / K3b, both timed, 2
+     split steps on the forced route (its path), and one step of K7-split
+     on the forced route on 2 x 2 shards (its path), bit for bit K1s on
+     that route.  `python3 chip_smoke.py --layers` runs this phase alone,
+     after its builds.
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
@@ -232,6 +256,7 @@ the last is {"ok": true, "device": {...}}.  It imports no jax.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import io
 import json
 import subprocess
@@ -257,7 +282,7 @@ FB_CASES = ("double_gyre", "two_layer", "coastal_wetdry", "shelf_forced")
 PROJECTION_PATHS = (
     ("two_layer", "rigid_lid", {}, 10, BIG, 1e-5),
     ("two_layer", "implicit_fs", {}, 10, BIG, 1e-5),
-    ("shelf_forced", "rigid_lid", dict(solver_maxiter=100), 4, 1024, 1e-5),
+    ("shelf_forced", "rigid_lid", dict(solver_maxiter=100), 2, 1024, 1e-5),
     ("shelf_forced", "implicit_fs", {}, 10, BIG, 1e-5),
     ("coastal_wetdry", "implicit_fs", {}, 10, BIG, 1e-5))
 # the H100 SXM data sheet: device memory, and float32 outside the tensor
@@ -1074,6 +1099,7 @@ def main() -> dict:
     specs |= shard_step_specs()
     specs |= module_specs()
     specs |= card_specs()
+    specs |= layers_specs()
     todo = [k for k in KERNELS if k not in ("fb_step", "projection")] \
         + sorted(specs)
     # 16 nvcc processes at a time keep the host's memory in bounds
@@ -1208,6 +1234,7 @@ def main() -> dict:
     kernels += scheme_mesh_phases(dev, smi, rel, ulps)
     modules_phase(dev, smi)
     cards_phase(dev, smi)
+    kernels += layers_phase(dev, smi)
     idle = [k["name"] for k in kernels if not k["launches"] > 0]
     if idle:
         raise AssertionError(f"kernels not launched on their paths: {idle}")
@@ -3134,7 +3161,7 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
           f"launches {counts_split3} in {n_shelf} steps; final state equal "
           "to the single-device K1s run's bit for bit")
 
-    n_proj = 10
+    n_proj = 5
     cfg, grid, forcing, st = make_case(
         "rigid_lid", nx=BIG, ny=BIG, device=dev, backend="fused",
         scheme="implicit_fs", diag_every=5)
@@ -3164,11 +3191,12 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
           "included)")
 
     # the distributed multigrid-preconditioned CG is far slower on the eager
-    # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100, so
-    # the check runs at MG_MESH_N = 256): from rest, the first fused step held against
-    # the eager mesh step (the same solve, _dist_solve, so equal within
-    # 1e-6 x scale), and two fused steps against the single-device fused
-    # steps (K6 with multigrid) within the solver tolerance
+    # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100, ~20 s
+    # at 256^2, so the check runs at MG_MESH_N = 256 for one step): from
+    # rest, the fused step held against the eager mesh step (the same
+    # solve, _dist_solve, so equal within 1e-6 x scale) and against the
+    # single-device fused step (K6 with multigrid) within the solver
+    # tolerance
     cfg, grid, forcing, st = make_case("rigid_lid", nx=MG_MESH_N,
                                        ny=MG_MESH_N, device=dev,
                                        backend="fused")
@@ -3177,13 +3205,11 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
     t0 = time.perf_counter()
     step = dist.make_dist_stepper(grid, forcing, cfg, m)
-    fused = step(pmesh.shard_state(st, m))
-    first = gather_state(fused)
-    fused = step(fused)
+    first = gather_state(step(pmesh.shard_state(st, m)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if dist_band.LAUNCHES["proj_a"] != 2 \
-            or dist_band.LAUNCHES["proj_b"] != 2:
+    if dist_band.LAUNCHES["proj_a"] != 1 \
+            or dist_band.LAUNCHES["proj_b"] != 1:
         raise AssertionError(f"rigid lid on 2 x 2: launches "
                              f"{dist_band.LAUNCHES}")
     eager = dist.make_dist_stepper(
@@ -3191,14 +3217,11 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
         pmesh.shard_state(st, m))
     state_diff(f"rigid lid CG + multigrid {MG_MESH_N}^2 2 x 2, 1 fused step "
                "vs the eager mesh step", first, gather_state(eager), 1e-6)
-    one, single = st, fp.make_fused_projection_stepper(grid, forcing, cfg)
-    for _ in range(2):
-        one = single(one)
-    state_diff(f"rigid lid CG + multigrid {MG_MESH_N}^2 2 x 2, 2 fused steps "
-               "vs the single-device fused run", gather_state(fused), one,
-               1e-5, 1.0)
+    one = fp.make_fused_projection_stepper(grid, forcing, cfg)(st)
+    state_diff(f"rigid lid CG + multigrid {MG_MESH_N}^2 2 x 2, 1 fused step "
+               "vs the single-device fused step", first, one, 1e-5, 1.0)
     print(f"   rigid lid with the distributed CG + multigrid on 2 x 2: "
-          f"{wall:.3f} s for 2 steps")
+          f"{wall:.3f} s for 1 step")
 
     phase(f"25 times of K7-split and K7-proj at {BIG}^2 f32 on 2 x 4 shards "
           f"({smi})")
@@ -3876,6 +3899,574 @@ def cards_phase(dev, smi):
     return times
 
 
+# phase 28: the shelf at full width with many layers and constituents.
+# 2048^2 f32 at 32 layers is past K1's wall of 24 layers under wet/dry and
+# K3a / K3b's of 32 (the spill route); 512^2 f64 at 16 layers past K1's 13
+# and K3a / K3b's 16 (the time limit cuts the f64 grid); nz 8 f32, where
+# every route builds, holds the spill route forced by the plans' own
+# parameter against the shared-memory route
+LAYERS28 = 32
+TIDES28 = 13
+TIDE_SEED28 = 28
+LAYERS28_F64 = 16
+N28_F64 = 512
+BOTH28 = 8
+MESH28 = (2, 2)
+
+
+@functools.lru_cache(maxsize=4)
+def layers_tides(device, n, dtype):
+    """(omegas, amplitudes, phases) of TIDES28 of TPXO's constituents on an
+    n x n grid (shelf_forced.constituents: M2 at the case's uniform 0.5 m,
+    the others at amplitudes below 0.1 m and phases from numpy's generator
+    of the seed TIDE_SEED28), the maps on `device`; made once per size."""
+    import numpy as np
+    import torch
+
+    from beom_tpu_torch.cases import shelf_forced
+
+    om, amp, ph = shelf_forced.constituents(TIDES28, n, n, TIDE_SEED28,
+                                            dtype=np.dtype(dtype))
+    return om, torch.tensor(amp, device=device), torch.tensor(ph,
+                                                              device=device)
+
+
+def layers_case(device, seed, nz, dtype, n, **kw):
+    """The shelf (wet/dry, the open boundary with Flather, sponge, wind,
+    bottom drag) at n x n, perturbed by `seed`, its bottom layer split up
+    to nz layers, with TIDES28 of TPXO's constituents at the open boundary
+    (layers_tides), at a time where the tides are on."""
+    cfg, grid, forcing, st = perturbed_case(device, seed, "shelf_forced",
+                                            nx=n, ny=n, dtype=dtype, **kw)
+    cfg, forcing, st = layered(cfg, forcing, st, nz)
+    om, amp, ph = layers_tides(str(device), n, cfg.npdtype.name)
+    cfg = dataclasses.replace(cfg, tides=om)
+    forcing = dataclasses.replace(forcing, tide_amp=amp, tide_phase=ph)
+    return cfg, grid, forcing, st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+
+
+def layers_specs():
+    """Every build phase 28 launches but the solve's (cg_jacobi)."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+    from beom_tpu_torch.stencils import fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    specs = set()
+    legs = [(LAYERS28, "float32", True), (LAYERS28_F64, "float64", True),
+            (BOTH28, "float32", False)]
+    for nz, dtype, mesh in legs:
+        for scheme in ("fb", "split", "implicit_fs"):
+            cfg, grid, forcing, st = layers_case("cpu", 0, nz, dtype, 64,
+                                                 scheme=scheme, nsub=8,
+                                                 precond="jacobi")
+            dm = fp.derived_masks(grid)
+            forced = (False,) if mesh else (False, True)
+            for spill in forced:
+                if scheme == "implicit_fs":
+                    specs.add(fp.build_spec(cfg, cfg.tdtype,
+                                            fp.plan(cfg, cfg.tdtype, spill),
+                                            dm))
+                    if spill:
+                        specs.add(fp.build_spec(cfg, cfg.tdtype, fp.PhasePlan(
+                            None, None, False), dm))
+                else:
+                    specs |= {fused_fb.build_spec(cfg, cfg.tdtype, m,
+                                                  spill=spill and m == 1)
+                              for m in fused_fb.plan(cfg, cfg.tdtype, 1,
+                                                     spill).launches(1)}
+            m = pmesh.make_mesh(*MESH28, devices=["cpu"])
+            if mesh:
+                specs |= dist_band.build_specs(cfg, cfg.tdtype, m, dmask=dm)
+            elif scheme == "split":
+                # K7-split on the forced route
+                specs |= dist_band.build_specs(cfg, cfg.tdtype, m,
+                                               spill=True)
+    return specs
+
+
+def layers_leg(dev, smi, nz, dtype, n, timed):
+    """Phase 28's checks of one leg (nz layers at n^2): K1, K1s on its
+    plan's route and K3a / K3b's single-step kernels, each bit for bit its
+    plain version (both sweep parities where the kernel takes one), their
+    plans printed, and K7-fb, K7-split and K7-proj on a 2 x 2 mesh of
+    shards of the card bit for bit the single-device kernels.  With
+    `timed`, each kernel's time between CUDA events and on the device
+    beside its plain version's.  Returns {kernel: (err, (ms, plain_ms),
+    device ms)} of the timed kernels."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import split
+
+    tag = f"{n}^2 {dtype} nz={nz}"
+    out = {}
+    # K1 on its plan's route (the spill route), both parities
+    cfg, grid, forcing, st = layers_case(dev, 28, nz, dtype, n)
+    statics = (grid, forcing)
+    pl = fused_fb.plan(cfg, cfg.tdtype, 1)
+    print(f"   K1 {tag}: {pl.describe()}")
+    if not pl.spill:
+        raise AssertionError(f"K1 {tag} is not on the spill route")
+    with torch.cuda.device(dev):
+        work, slots = fused_fb.scratch(fused_fb._entries(
+            cfg, cfg.tdtype, 1, None, True)[0], 0, cfg.tdtype, dev)
+    print(f"   K1 {tag}: the spill route's scratch, {slots} CTAs x "
+          f"{pl.work} bytes = {work.numel() * work.element_size()} bytes")
+    del work
+    for par in (0, 1):
+        args = (st.h, st.u, st.v, statics, par, st.t, cfg, 1)
+        got = fused_fb.fused_fb_step(*args)
+        torch.cuda.synchronize()
+        err = agree(f"K1 {tag} n={par} vs plain", got,
+                    fused_fb.fused_fb_step_plain(*args), None)
+    if timed:
+        args = (st.h, st.u, st.v, statics, 0, st.t, cfg, 1)
+        ms = time_pair(f"K1 {tag} (spill route)",
+                       lambda: fused_fb.fused_fb_step_plain(*args),
+                       lambda: fused_fb.fused_fb_step(*args), 2, 10)
+        dev_ms = device_ms(f"K1 {tag}", lambda: fused_fb.fused_fb_step(
+            *args), 5, {"fb_step_kernel": 1})["fb_step_kernel"]
+        out["fb_step"] = (err, ms, dev_ms)
+    del cfg, grid, forcing, st, statics
+    torch.cuda.empty_cache()
+
+    # K1s at nsub 8 on its plan's route, one step: each kernel from the
+    # plain phases' inputs, then the step
+    cfg, grid, forcing, st = layers_case(dev, 29, nz, dtype, n,
+                                         scheme="split", nsub=8)
+    statics = (grid, forcing)
+    sp = fused_fb.split_plan(cfg, cfg.tdtype)
+    print(f"   K1s {tag} nsub=8: {sp.describe()}")
+    if sp.route == 3:
+        sp_ref = split.slow_phase(st, grid, forcing, cfg)
+        got = fused_fb.split_slow(st.h, st.u, st.v, statics, cfg)
+        torch.cuda.synchronize()
+        agree(f"K1s slow {tag} vs plain", got, sp_ref, None)
+        sub_ref = split.subcycle_phase(sp_ref, grid, cfg)
+        got = fused_fb.split_subcycle(sp_ref, st.h, st.u, st.v, statics, cfg)
+        torch.cuda.synchronize()
+        agree(f"K1s subcycle {tag} vs plain", got, sub_ref, None)
+        got = fused_fb.split_recompose(sp_ref, sub_ref, st.h, st.u, st.v,
+                                       statics, st.t, cfg)
+        torch.cuda.synchronize()
+        ref = _recompose_plain(sp_ref, sub_ref, st, grid, forcing, cfg)
+        agree(f"K1s recompose {tag} vs plain", got, (ref.h, ref.u, ref.v),
+              None)
+    args = (st.h, st.u, st.v, statics, 0, st.t, cfg, 1)
+    got = fused_fb.fused_fb_step(*args)
+    torch.cuda.synchronize()
+    agree(f"K1s step {tag} vs plain", got,
+          fused_fb.fused_fb_step_plain(*args), None)
+    del statics, grid, forcing, st
+    torch.cuda.empty_cache()
+
+    # K3a / K3b under the implicit free surface, both parities
+    cfg, grid, forcing, st = layers_case(dev, 30, nz, dtype, n,
+                                         scheme="implicit_fs",
+                                         precond="jacobi")
+    statics = (grid, forcing)
+    ph = fp.Phases(grid, forcing, cfg)
+    print(f"   K3a / K3b {tag}: {ph.plan.describe()}")
+    if not (ph.plan.spill and ph.plan.a is None and ph.plan.b is None):
+        raise AssertionError(f"K3a / K3b {tag} are not on the spill route")
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev) * grid.mask
+    # div's layer sum: the kernel adds the layers from the surface, the
+    # plain version's torch.sum in an order of its own past two layers,
+    # so div is held within 4 ulp (f32) / 1e-12 (f64) of its scale
+    near = (4 * 2.0 ** -23 if dtype == "float32" else 1e-12)
+    for par in (0, 1):
+        a = ph.a(st.h, st.u, st.v, par)
+        a_ref = fp.proj_a_plain(st.h, st.u, st.v, statics, par, cfg)
+        b = ph.b(st.h, a_ref[0], a_ref[1], p, st.t)
+        b_ref = fp.proj_b_plain(st.h, a_ref[0], a_ref[1], p, statics, st.t,
+                                cfg)
+        torch.cuda.synchronize()
+        err_a = max(agree(f"K3a u*, v* {tag} n={par} vs plain", a[:2],
+                          a_ref[:2], None),
+                    agree(f"K3a div {tag} n={par} vs plain", a[2:],
+                          a_ref[2:], lambda r: near * float(
+                              r.abs().max())))
+        err_b = agree(f"K3b {tag} n={par} vs plain", b, b_ref, None)
+    if timed:
+        ms_a = time_pair(
+            f"K3a {tag} (spill route)",
+            lambda: fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg),
+            lambda: ph.a(st.h, st.u, st.v, 0), 2, 10)
+        ms_b = time_pair(
+            f"K3b {tag} (spill route)",
+            lambda: fp.proj_b_plain(st.h, a_ref[0], a_ref[1], p, statics,
+                                    st.t, cfg),
+            lambda: ph.b(st.h, a_ref[0], a_ref[1], p, st.t), 2, 10)
+        dev_ms = device_ms(f"K3a / K3b {tag}", lambda: (
+            ph.a(st.h, st.u, st.v, 0), ph.b(st.h, a_ref[0], a_ref[1], p,
+                                            st.t)), 5,
+            {"proj_a_kernel": 1, "proj_b_kernel": 1})
+        out["proj_a"] = (err_a, ms_a, dev_ms["proj_a_kernel"])
+        out["proj_b"] = (err_b, ms_b, dev_ms["proj_b_kernel"])
+    del statics, grid, forcing, st, ph, a, b, a_ref, b_ref
+    torch.cuda.empty_cache()
+
+    # K7 on a 2 x 2 mesh of shards of the card against the single-device
+    # kernels: the fb step, the split step, the projection phases
+    m = pmesh.make_mesh(*MESH28, devices=[dev])
+    for scheme, kw in (("fb", {}), ("split", dict(nsub=8)),
+                       ("implicit_fs", dict(precond="jacobi"))):
+        cfg, grid, forcing, st = layers_case(dev, 31, nz, dtype, n,
+                                             scheme=scheme, **kw)
+        statics = (grid, forcing)
+        K = dist_band.MeshKernels(statics, cfg, m)
+        print(f"   K7 {scheme} {tag} on {MESH28}: {K.plan.describe()}")
+        f = [dist_band.stack_global(a, m) for a in (st.h, st.u, st.v)]
+        gather = lambda outs: [pmesh.gather(dist_band.unstack(a, m))
+                               for a in outs]
+        if scheme != "implicit_fs":
+            one = lambda: fused_fb.fused_fb_step(st.h, st.u, st.v, statics,
+                                                 1, st.t, cfg, 1)
+            seven = lambda: K.step(*f, 1, st.t, 1)
+            got, ref = seven(), one()
+            torch.cuda.synchronize()
+            err7 = agree(f"K7-{scheme} {tag} vs K1{'s' * (scheme != 'fb')}",
+                         gather(got), ref, None)
+            keys = ({"shard_step_kernel": 1, "fb_step_kernel": 1}
+                    if scheme == "fb" else
+                    {"shard_slow_kernel": 1, "shard_sub_kernel": 1,
+                     "shard_rec_kernel": 1, "split_slow_kernel": 1,
+                     "split_sub_kernel": 1, "split_rec_kernel": 1})
+        else:
+            p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype,
+                            device=dev) * grid.mask
+            ps = dist_band.stack_global(p, m)
+            ph1 = fp.Phases(grid, forcing, cfg)
+
+            def seven():
+                a = K.proj_a(*f, 0)
+                return a, K.proj_b(f[0], a[0], a[1], ps, st.t)
+
+            def one():
+                a = ph1.a(st.h, st.u, st.v, 0)
+                return a, ph1.b(st.h, a[0], a[1], p, st.t)
+
+            (a7, b7), (a1, b1) = seven(), one()
+            torch.cuda.synchronize()
+            err7 = agree(f"K7-proj A {tag} vs K3a", gather(a7), a1, None)
+            agree(f"K7-proj B {tag} vs K3b", gather(b7), b1, None)
+            keys = {"shard_pa_kernel": 1, "shard_pb_kernel": 1,
+                    "proj_a_kernel": 1, "proj_b_kernel": 1}
+            # each phase alone, for its row
+            parts = {"A": lambda: K.proj_a(*f, 0),
+                     "B": lambda: K.proj_b(f[0], a7[0], a7[1], ps, st.t)}
+        if timed:
+            ms7 = time_ms(seven, 5)
+            ms1 = time_ms(one, 5)
+            dev_ms = device_ms(f"K7-{scheme} {tag} and the single-device "
+                               "kernels", lambda: (seven(), one()), 5, keys)
+            print(f"   K7-{scheme} {tag}: {ms7!r} ms per call between "
+                  f"events, the single-device kernels {ms1!r} ms ({smi})")
+            if scheme == "implicit_fs":
+                for x, fn in parts.items():
+                    ms = time_ms(fn, 5)
+                    print(f"   K7-proj {x} {tag} alone: {ms!r} ms between "
+                          "events")
+                    out[f"shard_proj_{x.lower()}"] = (err7, ms, dev_ms)
+            else:
+                out[f"shard_{scheme}"] = (err7, ms7, dev_ms)
+        del K, f, statics, grid, forcing, st
+        torch.cuda.empty_cache()
+    return out
+
+
+def both_routes(dev, smi, nz):
+    """Phase 28's last leg: at nz layers (2048^2 f32), where every route
+    builds, the spill route forced by the plans' own parameter (fused_fb.
+    plan, split_plan, fused_projection.plan, dist_band.mesh_plan) bit for
+    bit the shared-memory route, each timed beside it; and two paths
+    through the forced route, their kernels' counts read from 0: 2 steps
+    of the split step, and one of K7-split on 2 x 2 shards of the card,
+    bit for bit the single-device kernels on the same route.  Returns
+    {kernel: (err, ms, device ms, launches)} of the forced split
+    kernels."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import split as split_mod
+
+    tag = f"{BIG}^2 f32 nz={nz}"
+    out = {}
+    for scheme in ("fb", "split"):
+        cfg, grid, forcing, st = layers_case(dev, 32, nz, "float32", BIG,
+                                             scheme=scheme, nsub=8)
+        statics = (grid, forcing)
+        args = (st.h, st.u, st.v, statics, 1, st.t, cfg, 1)
+        forced = fused_fb.plan(cfg, cfg.tdtype, 1, True) if scheme == "fb" \
+            else fused_fb.split_plan(cfg, cfg.tdtype, True)
+        usual = fused_fb.plan(cfg, cfg.tdtype, 1) if scheme == "fb" \
+            else fused_fb.split_plan(cfg, cfg.tdtype)
+        print(f"   {scheme} {tag}, forced: {forced.describe()}; the plan's: "
+              f"{usual.describe()}")
+        got = fused_fb.fused_fb_step(*args, pl=forced)
+        ref = fused_fb.fused_fb_step(*args)
+        torch.cuda.synchronize()
+        agree(f"{scheme} {tag}: the spill route vs the shared-memory route",
+              got, ref, None)
+        ms = time_pair(f"{scheme} {tag} shared-memory route (as 'plain') vs "
+                       "the spill route", lambda: fused_fb.fused_fb_step(
+                           *args), lambda: fused_fb.fused_fb_step(
+                           *args, pl=forced), 10, 10, unit="step")
+        if scheme == "split":
+            # the forced route's path: 2 steps, the counts from 0
+            saved = dict(fused_fb.SPILL_LAUNCHES)
+            fused_fb.SPILL_LAUNCHES.update(dict.fromkeys(saved, 0))
+            fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg,
+                                   2, pl=forced)
+            torch.cuda.synchronize()
+            counts = dict(fused_fb.SPILL_LAUNCHES)
+            fused_fb.SPILL_LAUNCHES.update(saved)
+            print(f"   split {tag}, 2 steps on the forced route: spill "
+                  f"launches {counts}")
+            if counts["slow"] != 2 or counts["recompose"] != 2:
+                raise AssertionError(f"the forced split path: {counts}")
+            sp_ref = split_mod.slow_phase(st, grid, forcing, cfg)
+            sub_ref = split_mod.subcycle_phase(sp_ref, grid, cfg)
+            slow = lambda: fused_fb.split_slow(st.h, st.u, st.v, statics,
+                                               cfg, forced)
+            rec = lambda: fused_fb.split_recompose(
+                sp_ref, sub_ref, st.h, st.u, st.v, statics, st.t, cfg,
+                forced)
+            err_s = agree(f"K1s slow {tag} (spill route) vs plain", slow(),
+                          sp_ref, None)
+            ref = _recompose_plain(sp_ref, sub_ref, st, grid, forcing, cfg)
+            err_r = agree(f"K1s recompose {tag} (spill route) vs plain",
+                          rec(), (ref.h, ref.u, ref.v), None)
+            ms_s = time_pair(f"K1s slow {tag} (spill route)",
+                             lambda: split_mod.slow_phase(st, grid, forcing,
+                                                          cfg), slow, 3, 10)
+            ms_r = time_pair(f"K1s recompose {tag} (spill route)",
+                             lambda: _recompose_plain(sp_ref, sub_ref, st,
+                                                      grid, forcing, cfg),
+                             rec, 3, 10)
+            dev_ms = device_ms(f"K1s slow / recompose {tag} (spill route)",
+                               lambda: (slow(), rec()), 5,
+                               {"split_slow_kernel": 1,
+                                "split_rec_kernel": 1})
+            out["split_slow"] = (err_s, ms_s, dev_ms["split_slow_kernel"],
+                                 counts["slow"])
+            out["split_recompose"] = (err_r, ms_r, dev_ms["split_rec_kernel"],
+                                      counts["recompose"])
+            # K7-split on the forced route: one step on 2 x 2 shards of the
+            # card, its spill launches counted from 0, bit for bit the
+            # single-device kernels on the same route (`got`)
+            m = pmesh.make_mesh(*MESH28, devices=[dev])
+            K = dist_band.MeshKernels(statics, cfg, m, pl=dist_band.mesh_plan(
+                cfg, cfg.tdtype, m, True))
+            print(f"   K7-split {tag} on {MESH28}, forced: "
+                  f"{K.plan.describe()}")
+            f = [dist_band.stack_global(a, m) for a in (st.h, st.u, st.v)]
+            saved = dict(dist_band.SPILL_LAUNCHES)
+            dist_band.SPILL_LAUNCHES.update(dict.fromkeys(saved, 0))
+            seven = K.step(*f, 1, st.t, 1)
+            torch.cuda.synchronize()
+            counts7 = dict(dist_band.SPILL_LAUNCHES)
+            dist_band.SPILL_LAUNCHES.update(saved)
+            print(f"   K7-split {tag}, 1 step on the forced route: spill "
+                  f"launches {counts7}")
+            if counts7["split_slow"] != 1 or counts7["split_recompose"] != 1:
+                raise AssertionError(f"the forced K7-split path: {counts7}")
+            err7 = agree(f"K7-split {tag} (spill route) vs K1s (spill route)",
+                         [pmesh.gather(dist_band.unstack(a, m))
+                          for a in seven], got, None)
+            t1 = st.t + cfg.npdtype.type(cfg.dt)
+            slow7 = K.slow(*f)
+            sub7 = K.subcycle(slow7, *f)
+            slow7_fn = lambda: K.slow(*f)
+            rec7_fn = lambda: K.recompose(slow7, sub7, *f, t1)
+            ms7 = (time_ms(slow7_fn, 10), time_ms(rec7_fn, 10))
+            dev7 = device_ms(f"K7-split slow / recompose {tag} (spill "
+                             "route)", lambda: (slow7_fn(), rec7_fn()), 5,
+                             {"shard_slow_kernel": 1, "shard_rec_kernel": 1})
+            print(f"   K7-split {tag} (spill route): slow {ms7[0]!r} ms, "
+                  f"recompose {ms7[1]!r} ms between events ({smi})")
+            out["shard_split_slow"] = (err7, (ms7[0], ms_s[1]),
+                                       dev7["shard_slow_kernel"],
+                                       counts7["split_slow"])
+            out["shard_split_recompose"] = (err7, (ms7[1], ms_r[1]),
+                                            dev7["shard_rec_kernel"],
+                                            counts7["split_recompose"])
+            del K, f, seven, slow7, sub7
+        del statics, grid, forcing, st
+        torch.cuda.empty_cache()
+    cfg, grid, forcing, st = layers_case(dev, 33, nz, "float32", BIG,
+                                         scheme="implicit_fs",
+                                         precond="jacobi")
+    forced = fp.Phases(grid, forcing, cfg,
+                       phase_plan=fp.plan(cfg, cfg.tdtype, True))
+    usual = fp.Phases(grid, forcing, cfg,
+                      phase_plan=fp.PhasePlan(None, None, False))
+    print(f"   K3a / K3b {tag}, forced: {forced.plan.describe()}; beside "
+          f"the single-step kernels of the shared-memory route")
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev) * grid.mask
+    for par in (0, 1):
+        a, a1 = forced.a(st.h, st.u, st.v, par), usual.a(st.h, st.u, st.v,
+                                                         par)
+        b = forced.b(st.h, a1[0], a1[1], p, st.t)
+        b1 = usual.b(st.h, a1[0], a1[1], p, st.t)
+        torch.cuda.synchronize()
+        agree(f"K3a {tag} n={par}: the spill route vs the shared-memory "
+              "route", a, a1, None)
+        agree(f"K3b {tag} n={par}: the spill route vs the shared-memory "
+              "route", b, b1, None)
+    time_pair(f"K3a {tag} shared-memory route (as 'plain') vs the spill "
+              "route", lambda: usual.a(st.h, st.u, st.v, 0),
+              lambda: forced.a(st.h, st.u, st.v, 0), 10, 10)
+    time_pair(f"K3b {tag} shared-memory route (as 'plain') vs the spill "
+              "route", lambda: usual.b(st.h, a1[0], a1[1], p, st.t),
+              lambda: forced.b(st.h, a1[0], a1[1], p, st.t), 10, 10)
+    del forced, usual, grid, forcing, st
+    torch.cuda.empty_cache()
+    return out
+
+
+def layers_paths(dev, smi):
+    """Phase 28's paths at 2048^2 f32 on the shelf with LAYERS28 layers and
+    TIDES28 constituents, each driven with the kernels' counts set to 0
+    just before and read just after: run() with backend='fused' (fb, 100
+    steps, diagnostics every 50: K1 on the spill route, one launch per
+    step), run() of the implicit free surface (3 steps: K3a / K3b on the
+    spill route around K6), and the same two on a 2 x 2 mesh of shards of
+    the card (10 and 3 steps: K7-fb, K7-proj).  Returns the counts by
+    path."""
+    import torch
+
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import dist_band, fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    counts = {}
+    for label, scheme, kw, n_steps in (
+            ("fb", "fb", {}, 100),
+            ("implicit FS", "implicit_fs", dict(precond="jacobi"), 3),
+            ("fb on 2 x 2 shards", "fb", dict(mesh_y=2, mesh_x=2), 10),
+            ("implicit FS on 2 x 2 shards", "implicit_fs",
+             dict(precond="jacobi", mesh_y=2, mesh_x=2), 3)):
+        cfg, grid, forcing, st = layers_case(dev, 34, LAYERS28, "float32",
+                                             BIG, scheme=scheme,
+                                             backend="fused", diag_every=50,
+                                             **kw)
+        saved = (dict(fused_fb.SPILL_LAUNCHES), fused_fb.LAUNCHES,
+                 dict(fp.SPILL_LAUNCHES), dict(dist_band.SPILL_LAUNCHES))
+        fused_fb.SPILL_LAUNCHES.update(dict.fromkeys(saved[0], 0))
+        fused_fb.LAUNCHES = 0
+        fp.SPILL_LAUNCHES.update(dict.fromkeys(saved[2], 0))
+        dist_band.SPILL_LAUNCHES.update(dict.fromkeys(saved[3], 0))
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(cfg, grid, forcing, st, n_steps, log=log)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"K1": fused_fb.LAUNCHES, "K1 spill": fused_fb.SPILL_LAUNCHES[
+            "fb"], "K3a spill": fp.SPILL_LAUNCHES["proj_a"],
+            "K3b spill": fp.SPILL_LAUNCHES["proj_b"],
+            "K7-fb spill": dist_band.SPILL_LAUNCHES["fb"],
+            "K7-proj A spill": dist_band.SPILL_LAUNCHES["proj_a"],
+            "K7-proj B spill": dist_band.SPILL_LAUNCHES["proj_b"]}
+        fused_fb.SPILL_LAUNCHES.update(saved[0])
+        fused_fb.LAUNCHES = saved[1]
+        fp.SPILL_LAUNCHES.update(saved[2])
+        dist_band.SPILL_LAUNCHES.update(saved[3])
+        diags = [json.loads(x) for x in log.getvalue().splitlines()]
+        mesh = "mesh_y" in kw
+        want = {("fb", False): {"K1": n_steps, "K1 spill": n_steps},
+                ("implicit_fs", False): {"K3a spill": n_steps,
+                                         "K3b spill": n_steps},
+                ("fb", True): {"K7-fb spill": n_steps},
+                ("implicit_fs", True): {"K7-proj A spill": n_steps,
+                                        "K7-proj B spill": n_steps}}[
+            scheme, mesh]
+        if any(got[k] != v for k, v in want.items()) or any(
+                v for k, v in got.items() if k not in want):
+            raise AssertionError(f"{label}: launches {got}, want {want}")
+        if not diags or any(d["finite"] != 1.0 for d in diags):
+            raise AssertionError(f"{label}: diagnostics {diags}")
+        print(f"   run() {label}, {n_steps} steps: launches {got} (the "
+              f"plan's: one per step); diagnostics {diags[-1]}; "
+              f"{wall / n_steps * 1e3!r} ms/step wall with the call's "
+              f"set-up ({smi})")
+        counts[label] = got
+        del out, grid, forcing, st
+        torch.cuda.empty_cache()
+    return counts
+
+
+def layers_phase(dev, smi):
+    """Phase 28: every fused kernel at any number of layers and tidal
+    constituents; returns the JSON entries of the spill route's kernels."""
+    import torch
+
+    phase(f"28 many layers: the shelf at {BIG}^2 f32 with {LAYERS28} layers "
+          f"and {TIDES28} constituents, {N28_F64}^2 f64 with {LAYERS28_F64},"
+          f" and both routes at {BIG}^2 f32 nz={BOTH28} ({smi})")
+    counts = layers_paths(dev, smi)
+    timed = layers_leg(dev, smi, LAYERS28, "float32", BIG, True)
+    layers_leg(dev, smi, LAYERS28_F64, "float64", N28_F64, False)
+    forced = both_routes(dev, smi, BOTH28)
+    cfg = layers_case("cpu", 0, LAYERS28, "float32", 16)[0]
+    pts = BIG * BIG
+    fa, fb_ = phase_fields(cfg)
+    by_path = {"fb_step": counts["fb"]["K1 spill"],
+               "proj_a": counts["implicit FS"]["K3a spill"],
+               "proj_b": counts["implicit FS"]["K3b spill"]}
+    entries = []
+    for name, n_fields, ops in (("fb_step", step_fields(cfg), 150),
+                                ("proj_a", fa, 150), ("proj_b", fb_, 60)):
+        err, ms, dev_ms = timed[name]
+        src = "fb_step.cu" if name == "fb_step" else "projection.cu"
+        entries.append(kernel_entry(
+            f"{name}_spill_nz{LAYERS28}", src, "band.py:200", by_path[name],
+            err, ms, n_fields * pts * 4, ops * cfg.nz * pts, device=dev_ms))
+    # K7's rows: its time between events, the plain version of the same
+    # function on the same data (the single-device row's), its device time
+    mesh_rows = (("shard_fb", "shard_step", "K7-fb spill", "shard_step_kernel",
+                  "fb_step", step_fields(cfg), 150),
+                 ("shard_proj_a", "shard_proj_a", "K7-proj A spill",
+                  "shard_pa_kernel", "proj_a", fa, 150),
+                 ("shard_proj_b", "shard_proj_b", "K7-proj B spill",
+                  "shard_pb_kernel", "proj_b", fb_, 60))
+    for key, name, count, kernel, one, n_fields, ops in mesh_rows:
+        err, ms, dev_ms = timed[key]
+        path = "fb on 2 x 2 shards" if key == "shard_fb" else \
+            "implicit FS on 2 x 2 shards"
+        src = "shard_step.cu" if key == "shard_fb" else "shard_projection.cu"
+        entries.append(kernel_entry(
+            f"{name}_spill_nz{LAYERS28}", src, "dist_band.py:63",
+            counts[path][count], err, (ms, timed[one][1][1]),
+            n_fields * pts * 4, ops * cfg.nz * pts, device=dev_ms[kernel]))
+    # fields moved and operations per point as phase 17 counts them: the
+    # slow phase reads the step's operands and writes SlowPhase (4 nz + 9),
+    # the recomposition reads 4 nz + 2 of SlowPhase, the subcycle's 5, h,
+    # H and 3 masks and writes h, u, v
+    cfg8 = layers_case("cpu", 0, BOTH28, "float32", 16, scheme="split")[0]
+    nz8 = cfg8.nz
+    for name, n_fields, ops in (
+            ("split_slow", step_fields(cfg8) + nz8 + 9, 150 * nz8),
+            ("split_recompose", 8 * nz8 + 11, 40 * nz8)):
+        for key, src, site in ((name, "split_step.cu", "band.py:200"),
+                               (f"shard_{name}", "shard_split.cu",
+                                "dist_band.py:63")):
+            err, ms, dev_ms, launches = forced[key]
+            entries.append(kernel_entry(
+                f"{key}_spill_nz{BOTH28}", src, site, launches, err, ms,
+                n_fields * pts * 4, ops * pts, device=dev_ms))
+    torch.cuda.synchronize()
+    return entries
+
+
 def _recompose_plain(sp, sub, st, grid, forcing, cfg):
     """split.recompose followed by fb.finalize, eager."""
     from beom_tpu_torch.stepping import fb, split
@@ -3904,9 +4495,38 @@ def cards_only():
     cards_phase(torch.device("cuda", torch.cuda.current_device()), smi)
 
 
+def layers_only():
+    """Phase 28 alone (`python3 chip_smoke.py --layers`), its builds first:
+    the quick check of the kernels at many layers while they change.
+    Prints the phase's kernel rows as one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: no CUDA card")
+    from beom_tpu_torch.stencils import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    phase("2 build: the builds of phase 28")
+    specs = ["cg_jacobi"] + sorted(layers_specs())
+    for i in range(0, len(specs), 16):
+        build.build_all(specs[i:i + 16])
+    for item in specs:
+        print(f"   {build.label(item)}: {build.BUILD_LOG.get(build.label(item), ('cached',))[0]!r} s")
+    print(json.dumps({"kernels": layers_phase(
+        torch.device("cuda", torch.cuda.current_device()), smi)}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--cards"]:
         cards_only()
+        sys.exit(0)
+    if sys.argv[1:] == ["--layers"]:
+        layers_only()
         sys.exit(0)
     record = main()
     import torch

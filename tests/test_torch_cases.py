@@ -185,8 +185,10 @@ def test_build_spec_of_case(name, scheme):
 
 def test_shared_memory_picks_the_tile():
     """smem_bytes counts the kernels' planes; a configuration too large
-    for the first tile gets a smaller one, and one too large for the last
-    raises with the byte count."""
+    for the first tile gets a smaller one, one too large for the last
+    takes the spill route (its planes in device memory, the table of
+    offsets alone in shared memory), and a subcycle too large for its
+    last tile raises with the byte count."""
     cfg = make_case("shelf_forced", nx=16, ny=16, device="cpu", nu4=1e6)[0]
     # 7 nz + 4 + 2 nz + 1 = 23 planes of 42 x 26 points, and the offsets
     assert fused_fb.smem_bytes(cfg, (32, 16), (64, 32), 8)["fb_step"] \
@@ -202,8 +204,14 @@ def test_shared_memory_picks_the_tile():
         > 232448
     fused_fb._TILES, saved = ((32, 16),), fused_fb._TILES
     try:
-        with pytest.raises(NotImplementedError, match="bytes of shared"):
-            fused_fb.build_spec(wide)
+        defines = dict(d.split("=") for d in fused_fb.build_spec(wide)[1])
+        assert defines["BEOM_SPILL"] == "1"
+        assert (defines["BEOM_TX"], defines["BEOM_TY"]) == ("32", "16")
+        assert fused_fb.single_tile(wide) == ((32, 16), True)
+        assert fused_fb.smem_bytes(wide, (32, 16), (64, 32), 8,
+                                   spill=True)["fb_step"] == 42 * 26 * 4
+        assert fused_fb.work_bytes(wide, (32, 16), 8)["fb_step"] \
+            == 42 * 26 * (7 * 6 + 4 + 2 * 6 + 1) * 8
     finally:
         fused_fb._TILES = saved
     # nsub = 12 keeps the large tile at f32; nsub = 60 fits no tile

@@ -1381,3 +1381,196 @@ def test_dryrun_multichip_on_card(cuda, capsys):
         for what, got, ref in entry.one_device_twins(rec, seed=150 + i):
             for j, (a, b) in enumerate(zip(got, ref)):
                 assert torch.equal(a, b), f"{what}: field {j}"
+
+
+def _many_layers(device, seed, nz, n_tides, dtype, **kw):
+    """The perturbed shelf (wet/dry, the open boundary, sponge, wind, drag)
+    with its bottom layer split up to nz layers and n_tides of TPXO's
+    constituents at the open boundary, at a time where the tides are on."""
+    from beom_tpu_torch.cases import shelf_forced
+
+    cfg, grid, forcing, st = _perturbed(device, seed, "shelf_forced",
+                                        dtype=dtype, **kw)
+    cfg, forcing, st = _layered(cfg, forcing, st, nz)
+    om, amp, ph = shelf_forced.constituents(n_tides, cfg.ny, cfg.nx, seed,
+                                            dtype=cfg.npdtype)
+    cfg = dataclasses.replace(cfg, tides=om)
+    forcing = dataclasses.replace(
+        forcing, tide_amp=torch.tensor(amp, device=device),
+        tide_phase=torch.tensor(ph, device=device))
+    return cfg, grid, forcing, st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+
+
+# the spill route's cases: past the shared-memory wall of each type (f64
+# with wet/dry from 13 layers, f32 from 25), and nz 8 f32, where the other
+# route builds too and the plan's parameter forces the spill route
+SPILL_CASES = [("float64", 16, False), ("float32", 32, False),
+               ("float32", 8, True)]
+
+
+def _bits(label, out, ref):
+    for f, a, b in zip("huv", out, ref):
+        assert torch.equal(a, b), (label, f, float((a - b).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES)
+@pytest.mark.parametrize("scheme", ["fb", "split"])
+def test_spill_route_matches_plain(cuda, scheme, dtype, nz, spill):
+    """K1's single-step kernel and K1s's slow phase and recomposition on
+    the spill route (their planes in device memory), 13 constituents, 96 x
+    64: one step at each sweep parity against the plain version (f64
+    1e-12, f32 4 ulp of each field's scale), and bit for bit the other
+    route where it builds (nz 8; the split step's f64 wall lies past nz
+    16, so there the plan's parameter forces the route)."""
+    cfg, grid, forcing, st = _many_layers(cuda, 71, nz, 13, dtype, nx=96,
+                                          ny=64, scheme=scheme, nsub=4)
+    statics = (grid, forcing)
+    both = not fused_fb.single_tile(cfg, cfg.tdtype)[1]
+    spill = True if both else spill
+    rel = 1e-12 if dtype == "float64" else 4 * 2.0 ** -23
+    pl = fused_fb.plan(cfg, cfg.tdtype, 1, spill) if scheme == "fb" \
+        else fused_fb.split_plan(cfg, cfg.tdtype, spill)
+    assert pl.spill, pl.describe()
+    for n in (0, 1):
+        args = (st.h, st.u, st.v, statics, n, st.t, cfg, 1)
+        before = dict(fused_fb.SPILL_LAUNCHES)
+        out = fused_fb.fused_fb_step(*args, pl=pl)
+        torch.cuda.synchronize()
+        moved = {k: fused_fb.SPILL_LAUNCHES[k] - before[k] for k in before}
+        assert moved == ({"fb": 1, "slow": 0, "recompose": 0, "tend": 0}
+                         if scheme == "fb" else
+                         {"fb": 0, "slow": 1, "recompose": 1, "tend": 0}), \
+            moved
+        ref = fused_fb.fused_fb_step_plain(*args)
+        for f, a, b in zip("huv", out, ref):
+            err = float((a - b).abs().max())
+            assert err <= rel * float(b.abs().max()), (f, n, err)
+        if both:
+            _bits(f"n={n} vs the shared-memory route", out,
+                  fused_fb.fused_fb_step(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES)
+@pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
+def test_spill_route_phases_match_plain(cuda, scheme, dtype, nz, spill):
+    """K3a and K3b's single-step kernels on the spill route, both
+    parities, against their plain versions (f64 1e-12, f32 4 ulp of each
+    field's scale), and bit for bit the other route where it builds."""
+    cfg, grid, forcing, st = _many_layers(cuda, 73, nz, 13, dtype, nx=96,
+                                          ny=64, scheme=scheme,
+                                          precond="jacobi")
+    statics = (grid, forcing)
+    rel = 1e-12 if dtype == "float64" else 4 * 2.0 ** -23
+    ph = fused_projection.Phases(
+        grid, forcing, cfg,
+        phase_plan=fused_projection.plan(cfg, cfg.tdtype, spill))
+    assert ph.plan.spill and ph.plan.a is None and ph.plan.b is None
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+        * grid.mask
+    for n in (0, 1):
+        before = dict(fused_projection.SPILL_LAUNCHES)
+        a = ph.a(st.h, st.u, st.v, n)
+        a_ref = fused_projection.proj_a_plain(st.h, st.u, st.v, statics, n,
+                                              cfg)
+        b = ph.b(st.h, a_ref[0], a_ref[1], p, st.t)
+        b_ref = fused_projection.proj_b_plain(st.h, a_ref[0], a_ref[1], p,
+                                              statics, st.t, cfg)
+        torch.cuda.synchronize()
+        assert fused_projection.SPILL_LAUNCHES == {
+            k: v + 1 for k, v in before.items()}
+        for x, y in zip(a + b, a_ref + b_ref):
+            err = float((x - y).abs().max())
+            assert err <= rel * max(float(y.abs().max()), 1e-30), (n, err)
+        if spill:
+            other = fused_projection.Phases(
+                grid, forcing, cfg,
+                phase_plan=fused_projection.PhasePlan(None, None, False))
+            _bits("A vs the shared-memory route", a,
+                  other.a(st.h, st.u, st.v, n))
+            _bits("B vs the shared-memory route", b,
+                  other.b(st.h, a_ref[0], a_ref[1], p, st.t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES[:2])
+@pytest.mark.parametrize("scheme", ["fb", "split", "implicit_fs"])
+def test_spill_route_on_a_mesh(cuda, scheme, dtype, nz, spill):
+    """K7's single-step bodies on the spill route (forced where the split
+    step's build would fit), one launch per kernel for every shard of (2,
+    2), bit for bit the single-device kernels on the same route: the fb
+    step, the split step (route 3) and the projection phases."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    cfg, grid, forcing, st = _many_layers(cuda, 79, nz, 13, dtype, nx=96,
+                                          ny=64, scheme=scheme, nsub=4,
+                                          precond="jacobi")
+    statics = (grid, forcing)
+    m = pmesh.make_mesh(2, 2, devices=[cuda])
+    spill = True if scheme == "split" else spill
+    K = dist_band.MeshKernels(statics, cfg, m, pl=dist_band.mesh_plan(
+        cfg, cfg.tdtype, m, spill))
+    assert K.spill, K.plan.describe()
+    pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+    sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
+    before = dict(dist_band.SPILL_LAUNCHES)
+    if scheme in ("fb", "split"):
+        out = dist_band.shard_step(*sh, pstat, 1, st.t, cfg, 1, kernels=K)
+        one = K.plan.split if scheme == "split" else fused_fb.plan(
+            cfg, cfg.tdtype, 1, spill)
+        ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 1, st.t,
+                                     cfg, 1, pl=one)
+        torch.cuda.synchronize()
+        _bits(scheme, [pmesh.gather(a) for a in out], ref)
+        kinds = ["fb"] if scheme == "fb" else ["split_slow",
+                                               "split_recompose"]
+    else:
+        p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+            * grid.mask
+        a = dist_band.shard_proj_a(*sh, pstat, 0, cfg, kernels=K)
+        b = dist_band.shard_proj_b(sh[0], a[0], a[1], pmesh.shard(p, m),
+                                   pstat, st.t, cfg, kernels=K)
+        ph = fused_projection.Phases(grid, forcing, cfg,
+                                     phase_plan=K.plan.phases)
+        one_a = ph.a(st.h, st.u, st.v, 0)
+        one_b = ph.b(st.h, one_a[0], one_a[1], p, st.t)
+        torch.cuda.synchronize()
+        _bits("phase A", [pmesh.gather(x) for x in a], one_a)
+        _bits("phase B", [pmesh.gather(x) for x in b], one_b)
+        kinds = ["proj_a", "proj_b"]
+    assert {k: dist_band.SPILL_LAUNCHES[k] - before[k] for k in kinds} \
+        == {k: 1 for k in kinds}
+
+
+@pytest.mark.cuda
+def test_spill_scratch_outlives_the_launch(cuda):
+    """K3a and K3b on the spill route on an emptied caching allocator, at a
+    size whose planes come from its large pool (1024^2 f32, 32 layers):
+    each launch holds its scratch until it is queued, so no output it
+    allocates after the scratch is carved out of it, and both phases agree
+    with their plain versions (4 ulp of each field's scale)."""
+    cfg, grid, forcing, st = _many_layers(cuda, 83, 32, 13, "float32",
+                                          nx=1024, ny=1024,
+                                          scheme="implicit_fs",
+                                          precond="jacobi")
+    statics = (grid, forcing)
+    ph = fused_projection.Phases(grid, forcing, cfg)
+    assert ph.plan.spill and ph.plan.a is None and ph.plan.b is None
+    p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+        * grid.mask
+    rel = 4 * 2.0 ** -23
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    a = ph.a(st.h, st.u, st.v, 0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    b = ph.b(st.h, a[0], a[1], p, st.t)
+    torch.cuda.synchronize()
+    a_ref = fused_projection.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg)
+    b_ref = fused_projection.proj_b_plain(st.h, a[0], a[1], p, statics,
+                                          st.t, cfg)
+    for x, y in zip(a + b, a_ref + b_ref):
+        err = float((x - y).abs().max())
+        assert err <= rel * float(y.abs().max()), err

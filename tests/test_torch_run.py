@@ -141,3 +141,60 @@ def test_cli_and_toml_case(tmp_path, capfd):
     assert [d["n"] for d in diags] == [4, 6, 2, 4]
     assert all(d["finite"] == 1.0 for d in diags)
     assert fused_fb.LAUNCHES == before     # CPU tensors: plain version
+
+
+def test_cli_devices_reach_the_mesh(monkeypatch, capfd):
+    """`--devices` of a mesh run: the default keeps every shard on the
+    grid's device; a list reaches make_mesh (one device for all, or one per
+    shard), and its run steps; `all` spreads the shards over the visible
+    cards by entry.card_placement."""
+    import torch
+
+    from beom_tpu_torch import run as run_mod
+    from beom_tpu_torch.entry import card_placement
+    from beom_tpu_torch.parallel import mesh as pmesh
+
+    seen = []
+    make_mesh = pmesh.make_mesh
+
+    def spy(my, mx, devices=None):
+        seen.append((my, mx, devices))
+        return make_mesh(my, mx, devices=devices)
+
+    monkeypatch.setattr(pmesh, "make_mesh", spy)
+    args = ["double_gyre", "-n", "2", "--device", "cpu", "--set", "nx=32",
+            "--set", "ny=32", "--set", "mesh_y=2", "--set", "mesh_x=2",
+            "--set", "diag_every=2"]
+    main(args)
+    assert seen[-1] == (2, 2, [torch.device("cpu")])
+    main(args + ["--devices", "cpu"])
+    assert seen[-1] == (2, 2, [torch.device("cpu")])
+    main(args + ["--devices", "cpu,cpu,cpu,cpu"])
+    assert seen[-1] == (2, 2, [torch.device("cpu")] * 4)
+    diags = [json.loads(x) for x in capfd.readouterr().out.splitlines()]
+    assert [d["finite"] for d in diags] == [1.0] * 3
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    placed = run_mod.mesh_devices("all", 2, 4)
+    assert placed == card_placement(2, 4, cards)
+    assert sorted(d.index for d in placed) == [0, 0, 1, 1, 2, 2, 3, 3]
+    assert len(pmesh.card_groups(placed, 2, 4)) == 4
+    assert run_mod.mesh_devices(None, 2, 4) is None
+
+
+@pytest.mark.parametrize("spec,match", [
+    # the shards of cuda:1 are not a rectangle of the (2, 2) mesh
+    ("cuda:0,cuda:1,cuda:1,cuda:0", "not a rectangle"),
+    # cuda:0 holds a row of two, cuda:1 and cuda:2 one shard each
+    ("cuda:0,cuda:0,cuda:1,cuda:2", "different shapes"),
+    ("cuda:0,cuda:1", "one per shard or one"),
+])
+def test_cli_devices_raise_on_unequal_cards(spec, match):
+    """A placement whose cards are not equal rectangles of the mesh raises
+    parallel/mesh.py card_groups' ValueError before anything runs; a list
+    of neither one nor one-per-shard devices raises too."""
+    from beom_tpu_torch.run import mesh_devices
+
+    with pytest.raises(ValueError, match=match):
+        mesh_devices(spec, 2, 2)

@@ -84,7 +84,8 @@ def main(case="double_gyre", dtype="float32", n=2048, extra=()) -> dict:
         fn.restype = ff._I
         ints, dbls = ff._scalars(cfg, parity, times[0], ts=times,
                                  aligned=True)
-        code = fn(ff._pointers([h, u, v] + ff._operands(statics)), ints,
+        code = fn(ff._array(ff._P, [a.data_ptr() for a in [h, u, v]
+                                    + ff._operands(statics)] + [0]), ints,
                   dbls, *[a.data_ptr() for a in outs],
                   torch.cuda.current_stream().cuda_stream)
         build.check(lib, code, "fb launch")

@@ -249,8 +249,8 @@ def main_pass() -> dict:
              str(lib), str(out_dir / "fb_step.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     ts = fused_fb._times(st.t, cfg, pl.kb)
-    ptrs = fused_fb._pointers([st.h, st.u, st.v] + fused_fb._operands(
-        statics))
+    ptrs = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
+        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
     ints, dbls = fused_fb._scalars(cfg, 0, ts[0], ts=ts, aligned=True)
     outs = [torch.empty_like(st.h) for _ in range(3)]
     ref = fused_fb._launch_fb(st.h, st.u, st.v, statics, 0, ts, cfg)
@@ -336,8 +336,8 @@ def main(root: str) -> dict:
             text=True)))
     out = {"root": str(root), "device": torch.cuda.get_device_name(0),
            "defines": list(defines)}
-    ptrs = fused_fb._pointers([st.h, st.u, st.v] + fused_fb._operands(
-        statics))
+    ptrs = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
+        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
     ints, dbls = fused_fb._scalars(cfg, 0, st.t + cfg.npdtype.type(cfg.dt))
     outs = [torch.empty_like(st.h) for _ in range(3)]
     ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg, 1)

@@ -60,6 +60,7 @@ the statics by constants.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import importlib.util
 import json
 import re
@@ -381,8 +382,8 @@ def main(root: str) -> dict:
                                         cfg)
     rec_ref = fused_fb._launch_recompose(slow_ref, sub_ref, st.h, st.u, st.v,
                                          statics, t1, cfg)
-    ops = fused_fb._pointers([st.h, st.u, st.v] + fused_fb._operands(
-        statics))
+    ops = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
+        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
     ints, dbls = fused_fb._scalars(cfg, 0, 0.0)
     ints1, dbls1 = fused_fb._scalars(cfg, 0, t1)
     stream = torch.cuda.current_stream().cuda_stream
@@ -567,8 +568,8 @@ def main_tend_probes(case="double_gyre", dtype="float32", nsub="8") -> dict:
              str(lib), str(out_dir / "split_step.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     ref = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
-    ops = fused_fb._pointers([st.h, st.u, st.v] + fused_fb._operands(
-        statics))
+    ops = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
+        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
     ints, dbls = fused_fb._scalars(cfg, 0, 0.0)
     outs = [torch.empty_like(a) for a in ref]
     suffix = "f32" if dtype == "float32" else "f64"
@@ -635,8 +636,8 @@ def main_tail_probes(case="double_gyre", dtype="float32", nsub="8") -> dict:
     t1 = st.t + cfg.npdtype.type(cfg.dt)
     tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
     ref = fused_fb._launch_tail(tend, st.h, st.u, st.v, statics, t1, cfg)
-    ops = fused_fb._pointers([st.h, st.u, st.v] + fused_fb._operands(
-        statics))
+    ops = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
+        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
     ints, dbls = fused_fb._scalars(cfg, 0, t1)
     outs = [torch.empty_like(a) for a in ref]
     suffix = "f32" if dtype == "float32" else "f64"
@@ -712,13 +713,16 @@ def main_tail(case="double_gyre", dtype="float32", nsubs="4,8,12") -> dict:
                "three kernels": [sm.time_ms(three, 50), sm.device_ms(
                    f"nsub {nsub} three kernels", three, 20,
                    {"split_": 3})["split_"]]}
-        tend = fused_fb._launch_tend(*args, cfg, tail=best[0])
-        tend_fn = lambda: fused_fb._launch_tend(*args, cfg, tail=best[0])
+        # the split plan with the tail geometry g
+        at = lambda g: dataclasses.replace(fused_fb.split_plan(cfg), qx=g[0],
+                                           qs=g[1], qp=g[2])
+        tend = fused_fb._launch_tend(*args, cfg, at(best[0]))
+        tend_fn = lambda: fused_fb._launch_tend(*args, cfg, at(best[0]))
         row["tend"] = [sm.time_ms(tend_fn, 100), sm.device_ms(
             f"nsub {nsub} tend", tend_fn, 20,
             {"split_tend_kernel": 1})["split_tend_kernel"]]
         for g in best:
-            fn = lambda: fused_fb._launch_tail(tend, *args, t1, cfg, tail=g)
+            fn = lambda: fused_fb._launch_tail(tend, *args, t1, cfg, at(g))
             out = fn()
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(out, ref))

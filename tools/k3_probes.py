@@ -407,10 +407,12 @@ def probes(root: Path, sm, dev) -> dict:
             ref_b = pb(st.h, ref_a[0], ref_a[1], p, st.t)
             torch.cuda.synchronize()
             t1 = st.t + cfg.npdtype.type(cfg.dt)
-            ops_a = fused_fb._pointers([st.h, st.u, st.v]
-                                       + fused_fb._operands(statics))
-            ops_b = fused_fb._pointers([st.h, ref_a[0], ref_a[1]]
-                                       + fused_fb._operands(statics))
+            ops_a = fused_fb._array(fused_fb._P, [
+                x.data_ptr() for x in [st.h, st.u, st.v]
+                + fused_fb._operands(statics)] + [0])
+            ops_b = fused_fb._array(fused_fb._P, [
+                x.data_ptr() for x in [st.h, ref_a[0], ref_a[1]]
+                + fused_fb._operands(statics)] + [0])
             by_case[case] = dict(
                 cfg=cfg, st=st, statics=statics, p=p, ref_a=ref_a,
                 ref_b=ref_b, ops_a=ops_a, ops_b=ops_b,
