@@ -44,49 +44,118 @@
 // CTA's threads are the wrapper's plan (stencils/fused_fb.py::plan): the
 // halo costs stage work that grows with KB, and a CTA uses one SM's shared
 // memory.
+//
+// The layer-streamed step (BEOM_KB = 1 with BEOM_STREAM = 1), where no
+// tile's planes of every layer fit a CTA (7 NZ + 5 planes: the shelf past
+// 24 layers at f32, 12 at f64).  It replaces the spill route, which kept
+// those planes in a device-memory scratch far larger than the L2 (29.6 ms
+// a step at 32 layers on 2048^2 f32, 23 x the byte bound).  Nearly all of
+// the step is layer-local; the layers couple only at the point itself
+// (the Montgomery potential's sums, the interfacial drag, Flather's
+// sums), so two launches stream the layers through a few shared-memory
+// planes of one layer: the continuity of each layer into out_h, then the
+// momentum, which reads the column's h1 back (fb_step_body.cuh, fbs).  It
+// moves h1 once more and u, v once more where Flather corrects them, and
+// no scratch: at 32 layers on the shelf 1.6 x the function's bytes, and
+// 6.66 ms a step on the H100 (tools/kernel_times.py --layers).
 
 #include "fb_step_body.cuh"
+
+// K1 has no spill route: where no tile's planes fit shared memory, the
+// layer-streamed build (BEOM_STREAM) takes the step
+static_assert(!beom::SPILL, "fb_step.cu is built without BEOM_SPILL");
 
 namespace {
 
 using namespace beom;
 using namespace beom::fbk;
 
-#if BEOM_KB == 1
+#if BEOM_KB == 1 && BEOM_STREAM
+
+// The layer-streamed step (fb_step_body.cuh, namespace fbs): K1 where no
+// tile's planes of every layer fit a CTA's shared memory (many layers).
+// Two launches on PyTorch's stream, each one CTA per tile: the continuity
+// of every layer into out_h, then the momentum from it.
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fb_cont_kernel(const Params<T> p, T* out_h) {
+  fbs::cont::run<T>(p, out_h);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+fb_mom_kernel(const Params<T> p, const T* h1, T* out_u, T* out_v) {
+  fbs::mom::run<T>(p, h1, out_u, out_v);
+}
+
+template <typename T>
+int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
+            void* h1, void* u1, void* v1, void* stream) {
+  const Params<T> p = make_params<T>(ptrs, ints, dbls);
+  constexpr int smem_c = fbs::cont::smem_bytes<T>();
+  constexpr int smem_m = fbs::mom::smem_bytes<T>();
+  cudaError_t e = cudaFuncSetAttribute(
+      fb_cont_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_c);
+  if (e != cudaSuccess) return int(e);
+  e = cudaFuncSetAttribute(fb_mom_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_m);
+  if (e != cudaSuccess) return int(e);
+  const dim3 grid = tiles_of(p.ny, p.nx, TX, TY);
+  const auto st = static_cast<cudaStream_t>(stream);
+  fb_cont_kernel<T><<<grid, THREADS, smem_c, st>>>(p, static_cast<T*>(h1));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  fb_mom_kernel<T><<<grid, THREADS, smem_m, st>>>(
+      p, static_cast<const T*>(h1), static_cast<T*>(u1),
+      static_cast<T*>(v1));
+  return int(cudaGetLastError());
+}
+
+// 0: the momentum kernel, 1: the continuity kernel
+constexpr int kernel_smem(int which, bool f64) {
+  if (which == 1)
+    return f64 ? fbs::cont::smem_bytes<double>()
+               : fbs::cont::smem_bytes<float>();
+  return f64 ? fbs::mom::smem_bytes<double>() : fbs::mom::smem_bytes<float>();
+}
+
+#elif BEOM_KB == 1
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fb_step_kernel(const Params<T> p, T* out_h, T* out_u, T* out_v) {
-  T* sm = block_planes<T>(p, N_PLANES * NPT);
-  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
   const int tid = threadIdx.x;
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
 
-  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
-    // S0: the haloed block
-    load_offsets<T, RX, RY, W>(p, gidx, bx, by);
-    __syncthreads();
-    for (int s = tid; s < NPT; s += THREADS) {
-      const int g = gidx[s];
-      for (int k = 0; k < NZ; ++k) {
-        h[k * NPT + s] = p.in[I_H][k * p.plane + g];
-        u[k * NPT + s] = p.in[I_U][k * p.plane + g];
-        v[k * NPT + s] = p.in[I_V][k * p.plane + g];
-      }
-      sm[P_M * NPT + s] = p.in[I_MASK][g];
-      sm[P_MU * NPT + s] = p.in[I_MASK_U][g];
-      sm[P_MV * NPT + s] = p.in[I_MASK_V][g];
-      sm[P_MQ * NPT + s] = p.in[I_MASK_Q][g];
+  // S0: the haloed block
+  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  __syncthreads();
+  for (int s = tid; s < NPT; s += THREADS) {
+    const int g = gidx[s];
+    for (int k = 0; k < NZ; ++k) {
+      h[k * NPT + s] = p.in[I_H][k * p.plane + g];
+      u[k * NPT + s] = p.in[I_U][k * p.plane + g];
+      v[k * NPT + s] = p.in[I_V][k * p.plane + g];
     }
-    if (OBC) load_eta_ext<T, NPT>(p, gidx, sm + P_EE * NPT);
-    __syncthreads();
+    sm[P_M * NPT + s] = p.in[I_MASK][g];
+    sm[P_MU * NPT + s] = p.in[I_MASK_U][g];
+    sm[P_MV * NPT + s] = p.in[I_MASK_V][g];
+    sm[P_MQ * NPT + s] = p.in[I_MASK_Q][g];
+  }
+  if (OBC) load_eta_ext<T, NPT>(p, gidx, sm + P_EE * NPT);
+  __syncthreads();
 
-    fb_stages<T>(p, sm, gidx,
-                 Store3<T>{out_h, out_u, out_v,
-                           Out{by * TY, bx * TX, p.ny, p.nx, p.plane}});
-  });
+  fb_stages<T>(p, sm, gidx,
+               Store3<T>{out_h, out_u, out_v,
+                         Out{by * TY, bx * TX, p.ny, p.nx, p.plane}});
 }
 
 template <typename T>
@@ -94,30 +163,17 @@ int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
             void* h1, void* u1, void* v1, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
   constexpr int smem = smem_bytes<T>();
-  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       fb_step_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return int(e);
+  const dim3 grid = tiles_of(p.ny, p.nx, TX, TY);
   fb_step_kernel<T><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       p, static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }
 
-constexpr int kernel_smem(bool f64) {
+constexpr int kernel_smem(int, bool f64) {
   return f64 ? smem_bytes<double>() : smem_bytes<float>();
-}
-
-// the spill route: bytes of a CTA's slice of the scratch, and the CTAs the
-// current device holds at once
-constexpr long kernel_work(bool f64) {
-  return f64 ? work_bytes<double>() : work_bytes<float>();
-}
-int kernel_ctas(bool f64) {
-  return f64 ? resident_ctas(fb_step_kernel<double>, THREADS,
-                             smem_bytes<double>())
-             : resident_ctas(fb_step_kernel<float>, THREADS,
-                             smem_bytes<float>());
 }
 
 #else
@@ -148,11 +204,9 @@ int fb_step(const void* const* ptrs, const int* ints, const double* dbls,
   return int(cudaGetLastError());
 }
 
-constexpr int kernel_smem(bool f64) {
+constexpr int kernel_smem(int, bool f64) {
   return f64 ? fbp::smem_bytes<double>() : fbp::smem_bytes<float>();
 }
-constexpr long kernel_work(bool) { return 0; }
-int kernel_ctas(bool) { return 0; }
 
 #endif
 
@@ -173,20 +227,11 @@ extern "C" int beom_fb_step_f64(const void* const* ptrs, const int* ints,
   return fb_step<double>(ptrs, ints, dbls, h1, u1, v1, stream);
 }
 
-// dynamic shared memory of one CTA of kernel `which` (only 0: the build's
-// step or pass kernel), for the wrapper's plan
+// dynamic shared memory of one CTA of kernel `which` (0: the build's step
+// or pass kernel, in a layer-streamed build its momentum kernel; 1: that
+// build's continuity kernel), for the wrapper's plan
 extern "C" int beom_smem_bytes(int which, int is_f64) {
-  return kernel_smem(is_f64);
-}
-
-// the spill route (a build with BEOM_SPILL = 1, the single-step kernel):
-// bytes of a CTA's slice of the scratch (0 in any other build), and the
-// CTAs of kernel `which` the current device holds at once
-extern "C" long beom_work_bytes(int which, int is_f64) {
-  return kernel_work(is_f64);
-}
-extern "C" int beom_spill_ctas(int which, int is_f64) {
-  return kernel_ctas(is_f64);
+  return kernel_smem(which, is_f64);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

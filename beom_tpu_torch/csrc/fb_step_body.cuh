@@ -119,21 +119,7 @@ __device__ __forceinline__ void fb_stages(const Params<T>& p, T* sm,
 
   // S3: the first FB-Coriolis sweep, u on even steps, v on odd ones
   REGION(LO + 1, LO + 2, {
-    for (int k = 0; k < NZ; ++k) {
-      T a;
-      if (p.u_first) {
-        a = u[k * NPT + s] +
-            p.dt * (c.tend_u(k, s) + c.cor_u(k, s, v + k * NPT));
-        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_u(s));
-        a = a * mu[s];
-      } else {
-        a = v[k * NPT + s] +
-            p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, u + k * NPT)));
-        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_v(s));
-        a = a * mv[s];
-      }
-      a1[k * NPT + s] = a;
-    }
+    for (int k = 0; k < NZ; ++k) a1[k * NPT + s] = c.sweep1(k, s, p.u_first);
   })
 
   // S4: the second sweep on the interior, the gates, Flather, write back
@@ -144,21 +130,7 @@ __device__ __forceinline__ void fb_stages(const Params<T>& p, T* sm,
     const int s = (W + jj) * RX + W + ii;
     T uo[NZ], vo[NZ];
 LAYER_LOOP
-    for (int k = 0; k < NZ; ++k) {
-      if (p.u_first) {
-        T b = v[k * NPT + s] +
-              p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, a1 + k * NPT)));
-        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_v(s));
-        uo[k] = a1[k * NPT + s];
-        vo[k] = b * mv[s];
-      } else {
-        T b = u[k * NPT + s] +
-              p.dt * (c.tend_u(k, s) + c.cor_u(k, s, a1 + k * NPT));
-        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_u(s));
-        uo[k] = b * mu[s];
-        vo[k] = a1[k * NPT + s];
-      }
-    }
+    for (int k = 0; k < NZ; ++k) c.sweep2(k, s, p.u_first, a1, uo[k], vo[k]);
     finalize_point<T, RX, NPT>(c, h1, s, uo, vo);
 LAYER_LOOP
     for (int k = 0; k < NZ; ++k)
@@ -509,4 +481,291 @@ __device__ __forceinline__ void pass_steps(const Params<T>& p, T* sm,
 }
 
 }  // namespace fbp
+
+// The layer-streamed single step (fb_step.cu with BEOM_STREAM = 1): K1
+// where no tile's planes of every layer fit a CTA's shared memory.  Its
+// shared memory holds a few planes of one layer, whatever NZ, and a step
+// is two launches over the tiles, each looping over the layers from the
+// surface (`#pragma unroll 1`, so that a build's code does not grow with
+// NZ) with the arithmetic of fbk in its order:
+//   cont  S1's continuity of layer k on blocks with a halo of LO, its h1
+//         written on the tile: after the launch out_h holds h1 everywhere;
+//   mom   the column's sum of h1 read from out_h; then for each layer its
+//         h1, u and v on blocks with a halo of 3 (h1 is read, not
+//         computed, so S2 to S4 need no more), S1's biharmonic planes, S2
+//         with the Montgomery potential's running sums z and acc in two
+//         planes, S3, and S4 with the gates, writing the layer's u and v;
+//         Flather's column sums are kept in registers (a thread keeps the
+//         same interior points in every layer) and its increment added to
+//         every layer's u and v afterwards, the same one addition
+//         uo[k] + u_inc of finalize_point.  The interfacial drag's old u
+//         and v of layers k +- 1 come from device memory.
+namespace fbs {
+
+// the tile's points each thread keeps: point i is tid + i THREADS
+constexpr int PPT = (TX * TY + THREADS - 1) / THREADS;
+
+// The interior point i of this thread in a block of halo W and width RX:
+// whether it is written (o.valid), and its row, column and block index
+template <int W, int RX>
+__device__ __forceinline__ bool point(const Out& o, int i, int& jj, int& ii,
+                                      int& s) {
+  const int k_ = int(threadIdx.x) + i * THREADS;
+  jj = k_ / TX;
+  ii = k_ % TX;
+  s = (W + jj) * RX + W + ii;
+  return k_ < TX * TY && o.valid(jj, ii);
+}
+
+// Flather over a streamed column at a thread's interior points: the sums
+// of each layer's gated u and v as they are written (add), then the
+// increment added to every layer's u and v written there (fix), the same
+// one addition uo[k] + u_inc of finalize_point, skipped only where it
+// changes no value (a zero increment leaves any value but -0 and a NaN as
+// it is)
+template <typename T, int W, int RX>
+struct Column {
+  Flather<T> fl[PPT];
+  bool redo_u[PPT], redo_v[PPT];
+
+  __device__ __forceinline__ static bool not_fixed(T x) {
+    return x != x || (x == T(0) && T(1) / x < T(0));
+  }
+  __device__ __forceinline__ void add(const Params<T>& p, int i, int k,
+                                      const T* h1, int s, T uo, T vo) {
+    fl[i].add(p, k, h1[s], h1[s + 1], h1[s + RX], uo, vo);
+    redo_u[i] = (k > 0 && redo_u[i]) || not_fixed(uo);
+    redo_v[i] = (k > 0 && redo_v[i]) || not_fixed(vo);
+  }
+  template <typename TileT>
+  __device__ __forceinline__ void fix(const TileT& c, const Out& o, T* out_u,
+                                      T* out_v) const {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      int jj, ii, s;
+      if (!point<W, RX>(o, i, jj, ii, s)) continue;
+      T u_inc, v_inc;
+      fl[i].template incs<RX>(c, s, u_inc, v_inc);
+      const bool du = !(u_inc == T(0)) || redo_u[i];
+      const bool dv = !(v_inc == T(0)) || redo_v[i];
+      if (!du && !dv) continue;
+      const long g = o.at(jj, ii);
+#pragma unroll 1
+      for (int k = 0; k < NZ; ++k) {
+        const long gk = k * o.plane + g;
+        if (du) out_u[gk] = out_u[gk] + u_inc;
+        if (dv) out_v[gk] = out_v[gk] + v_inc;
+      }
+    }
+  }
+};
+
+namespace cont {
+
+constexpr int W = LO;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+enum Plane {
+  P_H = 0,
+  P_U,
+  P_V,
+  P_H1,
+  P_M,
+  P_MU,
+  P_MV,
+  P_FX,
+  P_FY = P_FX + (WETDRY ? 1 : 0),
+  P_SC = P_FY + (WETDRY ? 1 : 0),
+  P_EE = P_SC + (WETDRY ? 1 : 0),
+  N_PLANES = P_EE + (OBC ? 1 : 0)
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
+}
+
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p, T* out_h) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* h = sm + P_H * NPT;
+  T* u = sm + P_U * NPT;
+  T* v = sm + P_V * NPT;
+  T* h1 = sm + P_H1 * NPT;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* ee = sm + P_EE * NPT;
+  const int tid = threadIdx.x;
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  __syncthreads();
+  for (int s = tid; s < NPT; s += THREADS) {
+    const Off g = gidx[s];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+  }
+  if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
+  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
+  using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
+  const TileT c{p, gidx, u, v, mask, mu, mv, nullptr, h1,
+                nullptr, nullptr, nullptr, nullptr, ee};
+#pragma unroll 1
+  for (int k = 0; k < NZ; ++k) {
+    // the loads write no plane the last layer's store reads, and the
+    // barrier below orders that store before this layer's continuity
+    for (int s = tid; s < NPT; s += THREADS) {
+      const long g = k * p.plane + gidx[s];
+      h[s] = p.in[I_H][g];
+      u[s] = p.in[I_U][g];
+      v[s] = p.in[I_V][g];
+    }
+    __syncthreads();
+    continuity_stage<T, RX, RY, TileT, 0, THREADS, 1>(
+        c, h, u, v, h1, sm + P_FX * NPT, sm + P_FY * NPT, sm + P_SC * NPT,
+        true, k);
+    for (int k_ = tid; k_ < TX * TY; k_ += THREADS) {
+      const int jj = k_ / TX;
+      const int ii = k_ % TX;
+      if (o.valid(jj, ii))
+        out_h[k * o.plane + o.at(jj, ii)] = h1[(W + jj) * RX + W + ii];
+    }
+  }
+}
+
+}  // namespace cont
+
+namespace mom {
+
+constexpr int W = 3;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+enum Plane {
+  P_H1 = 0,
+  P_U,
+  P_V,
+  P_PHI,
+  P_Q,
+  P_A1,
+  P_LU,
+  P_LV = P_LU + (NU4 ? 1 : 0),
+  P_Z = P_LV + (NU4 ? 1 : 0),
+  P_ACC,
+  P_M,
+  P_MU,
+  P_MV,
+  P_MQ,
+  P_EE,
+  N_PLANES = P_EE + (OBC ? 1 : 0)
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
+}
+
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p, const T* h1g,
+                                    T* out_u, T* out_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* h1 = sm + P_H1 * NPT;
+  T* u = sm + P_U * NPT;
+  T* v = sm + P_V * NPT;
+  T* phi = sm + P_PHI * NPT;
+  T* q = sm + P_Q * NPT;
+  T* a1 = sm + P_A1 * NPT;
+  T* lu = sm + P_LU * NPT;
+  T* lv = sm + P_LV * NPT;
+  T* zp = sm + P_Z * NPT;
+  T* acc = sm + P_ACC * NPT;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* mq = sm + P_MQ * NPT;
+  T* ee = sm + P_EE * NPT;
+  const int tid = threadIdx.x;
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  __syncthreads();
+  for (int s = tid; s < NPT; s += THREADS) {
+    const Off g = gidx[s];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+    mq[s] = p.in[I_MASK_Q][g];
+  }
+  if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
+  // phi_q's z and acc of layer 0 on S2's region: the column's h1 summed
+  // from the surface
+  REGION_NS(1, 1, {
+    const Off g = gidx[s];
+    T hs = h1g[g];
+    for (int k = 1; k < NZ; ++k) hs = hs + h1g[k * p.plane + g];
+    const T z = hs - p.in[I_HB][g];
+    zp[s] = z;
+    acc[s] = p.gp[0] * z;
+  })
+  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
+  using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
+  const TileT c{p, gidx, u, v, mask, mu, mv, mq, h1,
+                phi, q, lu, lv, ee};
+  Column<T, W, RX> col;
+
+#pragma unroll 1
+  for (int k = 0; k < NZ; ++k) {
+    for (int s = tid; s < NPT; s += THREADS) {
+      const long g = k * p.plane + gidx[s];
+      h1[s] = h1g[g];
+      u[s] = p.in[I_U][g];
+      v[s] = p.in[I_V][g];
+    }
+    __syncthreads();
+
+    // S1's lap planes for the biharmonic; S2, phi = M + K and the PV, and
+    // the running sums of the next layer
+    REGION(1, 1, {
+      if (NU4) {
+        lu[s] = c.lap_u(u, s);
+        lv[s] = c.lap_v(v, s);
+      }
+      c.phi_q_layer(k, s, acc[s], c.glob(I_FQ, s), phi, q);
+      if (k + 1 < NZ) {
+        const T z = zp[s] - h1[s];
+        zp[s] = z;
+        acc[s] = acc[s] + p.gp[k + 1] * z;
+      }
+    })
+
+    // S3: the first FB-Coriolis sweep, u on even steps, v on odd ones
+    REGION(2, 2, { a1[s] = c.sweep1(k, s, p.u_first); })
+
+    // S4: the second sweep on the interior and the gates; the layer's u
+    // and v written, Flather's sums taken
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      int jj, ii, s;
+      if (!point<W, RX>(o, i, jj, ii, s)) continue;
+      T uo, vo;
+      c.sweep2(k, s, p.u_first, a1, uo, vo);
+      if (WETDRY) gate_point<T, RX>(c, h1, s, uo, vo);
+      if (OBC) col.add(p, i, k, h1, s, uo, vo);
+      const long g = k * o.plane + o.at(jj, ii);
+      out_u[g] = uo;
+      out_v[g] = vo;
+    }
+    // before the next layer's loads overwrite the planes
+    __syncthreads();
+  }
+  if (OBC) col.fix(c, o, out_u, out_v);
+}
+
+}  // namespace mom
+}  // namespace fbs
 }  // namespace beom

@@ -95,6 +95,13 @@
 #ifndef BEOM_SPILL
 #define BEOM_SPILL 0
 #endif
+// the layer-streamed route: K1's single step and K3b one layer at a time,
+// their shared memory a few planes of one layer whatever NZ
+// (fb_step_body.cuh: fbs; projection_body.cuh: pbl), where no tile's
+// planes of every layer fit a CTA's shared memory
+#ifndef BEOM_STREAM
+#define BEOM_STREAM 0
+#endif
 
 namespace beom {
 
@@ -119,6 +126,7 @@ constexpr int QP = BEOM_QP;
 constexpr int KB = BEOM_KB;
 constexpr bool WIND = BEOM_WIND;
 constexpr bool SPILL = BEOM_SPILL;
+constexpr bool STREAM = BEOM_STREAM;
 // first block index at which the continuity's h1 is valid: the limiter
 // reaches one cell further than the plain flux divergence
 constexpr int LO = WETDRY ? 2 : 1;
@@ -448,9 +456,11 @@ struct GlobStat {
 };
 
 // A haloed tile: shared-memory planes of NPT = RX * RY points, the layer k
-// of a field at + k * NPT, and where its statics are read (Stat: GlobStat,
-// or planes staged in shared memory).
-template <typename T, int RX_, int NPT_, typename Stat = GlobStat<T>>
+// of a field at + k * LS (LS = NPT: every layer's planes; LS = 0: the
+// planes of the one layer a layer-streamed body holds), and where its
+// statics are read (Stat: GlobStat, or planes staged in shared memory).
+template <typename T, int RX_, int NPT_, typename Stat = GlobStat<T>,
+          int LS = NPT_>
 struct Tile {
   static constexpr int RX = RX_;
   static constexpr int NPT = NPT_;
@@ -495,21 +505,20 @@ struct Tile {
   }
 
   __device__ __forceinline__ T hx(int k, int s) const {   // a_xp(hn)
-    return T(0.5) * (hn[k * NPT + s] + hn[k * NPT + s + 1]);
+    return T(0.5) * (hn[k * LS + s] + hn[k * LS + s + 1]);
   }
   __device__ __forceinline__ T hy(int k, int s) const {   // a_yp(hn)
-    return T(0.5) * (hn[k * NPT + s] + hn[k * NPT + s + RX]);
+    return T(0.5) * (hn[k * LS + s] + hn[k * LS + s + RX]);
   }
 
   // pressure.montgomery (+ momentum.kinetic_energy) and momentum.pv_corner
   // of every layer at s, into the planes phi_out and q_out
   __device__ __forceinline__ void phi_q(int s, bool free_surface, T* phi_out,
                                         T* q_out) const {
-    const T half = T(0.5);
     T z = T(0);
     if (free_surface) {
       T hs = hn[s];
-      for (int k = 1; k < NZ; ++k) hs = hs + hn[k * NPT + s];
+      for (int k = 1; k < NZ; ++k) hs = hs + hn[k * LS + s];
       z = hs - glob(I_HB, s);
     }
     T acc = p.gp[0] * z;
@@ -517,44 +526,67 @@ struct Tile {
 LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       if (k > 0) {
-        z = z - hn[(k - 1) * NPT + s];
+        z = z - hn[(k - 1) * LS + s];
         acc = acc + p.gp[k] * z;
       }
-      const T* uk = u + k * NPT;
-      const T* vk = v + k * NPT;
-      T ph = acc;
-      if (p.sadourny) {
-        const T ke = half * (half * (uk[s] * uk[s] + uk[s - 1] * uk[s - 1]) +
-                             half * (vk[s] * vk[s] + vk[s - RX] * vk[s - RX]));
-        ph = ph + ke;
-        const T zeta = ((vk[s + 1] - vk[s]) * p.inv_dx -
-                        (uk[s + RX] - uk[s]) * p.inv_dy) * mq[s];
-        const T hq = vmax(half * (hy(k, s) + hy(k, s + 1)), p.h_min);
-        q_out[k * NPT + s] = (fq + zeta) / hq;
-      } else {
-        q_out[k * NPT + s] = fq;
-      }
-      phi_out[k * NPT + s] = ph;
+      phi_q_layer(k, s, acc, fq, phi_out, q_out);
     }
+  }
+  // phi and q of layer k at s, from the Montgomery potential's running sum
+  // acc there and f at the corner
+  __device__ __forceinline__ void phi_q_layer(int k, int s, T acc, T fq,
+                                              T* phi_out, T* q_out) const {
+    const T half = T(0.5);
+    const T* uk = u + k * LS;
+    const T* vk = v + k * LS;
+    T ph = acc;
+    if (p.sadourny) {
+      const T ke = half * (half * (uk[s] * uk[s] + uk[s - 1] * uk[s - 1]) +
+                           half * (vk[s] * vk[s] + vk[s - RX] * vk[s - RX]));
+      ph = ph + ke;
+      const T zeta = ((vk[s + 1] - vk[s]) * p.inv_dx -
+                      (uk[s + RX] - uk[s]) * p.inv_dy) * mq[s];
+      const T hq = vmax(half * (hy(k, s) + hy(k, s + 1)), p.h_min);
+      q_out[k * LS + s] = (fq + zeta) / hq;
+    } else {
+      q_out[k * LS + s] = fq;
+    }
+    phi_out[k * LS + s] = ph;
+  }
+
+  // the velocities at time n of layer j at s (the interfacial drag's
+  // neighbours): from the block's planes, or where they hold one layer
+  // (LS = 0) from device memory through the block's offsets
+  __device__ __forceinline__ T u_of(int j, int s) const {
+    if constexpr (LS == 0)
+      return glob(I_U, j, s);
+    else
+      return u[j * LS + s];
+  }
+  __device__ __forceinline__ T v_of(int j, int s) const {
+    if constexpr (LS == 0)
+      return glob(I_V, j, s);
+    else
+      return v[j * LS + s];
   }
 
   // fb._common_tendencies at a u point of layer k
   __device__ __forceinline__ T tend_u(int k, int s) const {
-    const T* uk = u + k * NPT;
-    T du = -((phi[k * NPT + s + 1] - phi[k * NPT + s]) * p.inv_dx);
+    const T* uk = u + k * LS;
+    T du = -((phi[k * LS + s + 1] - phi[k * LS + s]) * p.inv_dx);
     if (p.visc || NU4) {
       T dvis = T(0);
       if (p.visc) dvis = p.nu2 * lap_u(uk, s);
-      if (NU4) dvis = dvis - p.nu4 * lap_u(lu + k * NPT, s);
+      if (NU4) dvis = dvis - p.nu4 * lap_u(lu + k * LS, s);
       du = du + dvis;
     }
     if (k == 0 && p.wind)
       du = du + mu[s] * glob(I_TAUX, s) / (p.rho0 * vmax(hx(0, s), p.h_min));
     if (RINT) {
       T sh = T(0);
-      if (k > 0) sh = u[(k - 1) * NPT + s] - uk[s];
+      if (k > 0) sh = u_of(k - 1, s) - uk[s];
       if (k < NZ - 1) {
-        const T below = u[(k + 1) * NPT + s] - uk[s];
+        const T below = u_of(k + 1, s) - uk[s];
         sh = (k > 0) ? sh + below : below;
       }
       du = du + p.r_int * sh / vmax(hx(k, s), p.h_min);
@@ -565,21 +597,21 @@ LAYER_LOOP
     return du;
   }
   __device__ __forceinline__ T tend_v(int k, int s) const {
-    const T* vk = v + k * NPT;
-    T dv = -((phi[k * NPT + s + RX] - phi[k * NPT + s]) * p.inv_dy);
+    const T* vk = v + k * LS;
+    T dv = -((phi[k * LS + s + RX] - phi[k * LS + s]) * p.inv_dy);
     if (p.visc || NU4) {
       T dvis = T(0);
       if (p.visc) dvis = p.nu2 * lap_v(vk, s);
-      if (NU4) dvis = dvis - p.nu4 * lap_v(lv + k * NPT, s);
+      if (NU4) dvis = dvis - p.nu4 * lap_v(lv + k * LS, s);
       dv = dv + dvis;
     }
     if (k == 0 && p.wind)
       dv = dv + mv[s] * glob(I_TAUY, s) / (p.rho0 * vmax(hy(0, s), p.h_min));
     if (RINT) {
       T sh = T(0);
-      if (k > 0) sh = v[(k - 1) * NPT + s] - vk[s];
+      if (k > 0) sh = v_of(k - 1, s) - vk[s];
       if (k < NZ - 1) {
-        const T below = v[(k + 1) * NPT + s] - vk[s];
+        const T below = v_of(k + 1, s) - vk[s];
         sh = (k > 0) ? sh + below : below;
       }
       dv = dv + p.r_int * sh / vmax(hy(k, s), p.h_min);
@@ -594,7 +626,7 @@ LAYER_LOOP
   // v, and a_xm(q a_yp(U)) at a v point from the plane w of u
   __device__ __forceinline__ T cor_u(int k, int s, const T* w) const {
     const T half = T(0.5);
-    const T* qk = q + k * NPT;
+    const T* qk = q + k * LS;
     const bool sad = p.sadourny;
     const T V0 = sad ? hy(k, s) * w[s] : w[s];
     const T V1 = sad ? hy(k, s + 1) * w[s + 1] : w[s + 1];
@@ -605,7 +637,7 @@ LAYER_LOOP
   }
   __device__ __forceinline__ T cor_v(int k, int s, const T* w) const {
     const T half = T(0.5);
-    const T* qk = q + k * NPT;
+    const T* qk = q + k * LS;
     const bool sad = p.sadourny;
     const T U0 = sad ? hx(k, s) * w[s] : w[s];
     const T U1 = sad ? hx(k, s + RX) * w[s + RX] : w[s + RX];
@@ -615,14 +647,49 @@ LAYER_LOOP
                    qk[s - 1] * (half * (Um0 + Um1)));
   }
 
+  // fb.momentum_update's first FB-Coriolis sweep of layer k at s: u from
+  // v (u_first, even steps), else v from u, with the bottom layer's drag
+  // and the face mask
+  __device__ __forceinline__ T sweep1(int k, int s, bool u_first) const {
+    T a;
+    if (u_first) {
+      a = u[k * LS + s] + p.dt * (tend_u(k, s) + cor_u(k, s, v + k * LS));
+      if (k == NZ - 1) a = a / (T(1) + p.dt * drag_u(s));
+      a = a * mu[s];
+    } else {
+      a = v[k * LS + s] +
+          p.dt * (tend_v(k, s) + (-cor_v(k, s, u + k * LS)));
+      if (k == NZ - 1) a = a / (T(1) + p.dt * drag_v(s));
+      a = a * mv[s];
+    }
+    return a;
+  }
+  // the second sweep of layer k at s from the first's planes a1: the
+  // layer's new (u, v) before finalize
+  __device__ __forceinline__ void sweep2(int k, int s, bool u_first,
+                                         const T* a1, T& uo, T& vo) const {
+    if (u_first) {
+      T b = v[k * LS + s] +
+            p.dt * (tend_v(k, s) + (-cor_v(k, s, a1 + k * LS)));
+      if (k == NZ - 1) b = b / (T(1) + p.dt * drag_v(s));
+      uo = a1[k * LS + s];
+      vo = b * mv[s];
+    } else {
+      T b = u[k * LS + s] + p.dt * (tend_u(k, s) + cor_u(k, s, a1 + k * LS));
+      if (k == NZ - 1) b = b / (T(1) + p.dt * drag_u(s));
+      uo = b * mu[s];
+      vo = a1[k * LS + s];
+    }
+  }
+
   // drag.bottom_drag_coeff of the bottom layer at a u / v point
   __device__ __forceinline__ T drag_u(int s) const {
     constexpr int kb = NZ - 1;
     const T half = T(0.5);
     const T hu = vmax(hx(kb, s), p.h_min);
     if (!CDBOT) return p.r_bot / hu;
-    const T* ub = u + kb * NPT;
-    const T* vb = v + kb * NPT;
+    const T* ub = u + kb * LS;
+    const T* vb = v + kb * LS;
     const T v4 = half * (half * (vb[s] + vb[s - RX]) +
                          half * (vb[s + 1] + vb[s + 1 - RX]));
     return (p.r_bot + p.cd_bot * tsqrt(ub[s] * ub[s] + v4 * v4)) / hu;
@@ -632,8 +699,8 @@ LAYER_LOOP
     const T half = T(0.5);
     const T hv = vmax(hy(kb, s), p.h_min);
     if (!CDBOT) return p.r_bot / hv;
-    const T* ub = u + kb * NPT;
-    const T* vb = v + kb * NPT;
+    const T* ub = u + kb * LS;
+    const T* vb = v + kb * LS;
     const T u4 = half * (half * (ub[s] + ub[s - 1]) +
                          half * (ub[s + RX] + ub[s + RX - 1]));
     return (p.r_bot + p.cd_bot * tsqrt(vb[s] * vb[s] + u4 * u4)) / hv;
@@ -692,62 +759,64 @@ __device__ __forceinline__ void load_eta_ext(const Params<T>& p,
   }
 }
 
-// The layer continuity of every layer: h1 = (h + dt (-div F [+ sponge]))
-// mask [clamped to the exterior] on [A + LO, R - A - LO), from the planes h
-// and the advecting velocities ua, va, valid on [A, R - A).  fx, fy, sc are
-// NZ scratch planes each, used under wet/dry only.  `fb` adds the sponge
-// and the exterior clamp of fb.continuity_update.  NT is the CTA's thread
+// The layer continuity of the NL layers from k0 (every layer by default):
+// h1 = (h + dt (-div F [+ sponge])) mask [clamped to the exterior] on
+// [A + LO, R - A - LO), from the planes h and the advecting velocities ua,
+// va, valid on [A, R - A), layer k0 + j at + j * NPT.  fx, fy, sc are NL
+// scratch planes each, used under wet/dry only.  `fb` adds the sponge and
+// the exterior clamp of fb.continuity_update.  NT is the CTA's thread
 // count.  Ends with a __syncthreads().
 template <typename T, int RX, int RY, typename TileT, int A = 0,
-          int NT = THREADS>
+          int NT = THREADS, int NL = NZ>
 __device__ __forceinline__ void continuity_stage(
     const TileT& c, const T* h, const T* ua, const T* va, T* h1, T* fx, T* fy,
-    T* sc, bool fb) {
+    T* sc, bool fb, int k0 = 0) {
   constexpr int NPT = RX * RY;
   constexpr int THREADS = NT;    // the stride of the REGION loops below
   const Params<T>& p = c.p;
   const int tid = threadIdx.x;
   if (WETDRY) {
     REGION(A, A + 1, {
-      for (int k = 0; k < NZ; ++k) {
-        const T* hk = h + k * NPT;
-        fx[k * NPT + s] =
-            face_flux(p, hk[s], hk[s + 1], ua[k * NPT + s], c.mu[s]);
-        fy[k * NPT + s] =
-            face_flux(p, hk[s], hk[s + RX], va[k * NPT + s], c.mv[s]);
+      for (int j = 0; j < NL; ++j) {
+        const T* hk = h + j * NPT;
+        fx[j * NPT + s] =
+            face_flux(p, hk[s], hk[s + 1], ua[j * NPT + s], c.mu[s]);
+        fy[j * NPT + s] =
+            face_flux(p, hk[s], hk[s + RX], va[j * NPT + s], c.mv[s]);
       }
     })
     REGION(A + 1, A + 1, {
-      for (int k = 0; k < NZ; ++k) {
-        const T* f = fx + k * NPT;
-        const T* g = fy + k * NPT;
+      for (int j = 0; j < NL; ++j) {
+        const T* f = fx + j * NPT;
+        const T* g = fy + j * NPT;
         const T out =
             (vmax(f[s], T(0)) + vmax(-f[s - 1], T(0))) * p.rdx +
             (vmax(g[s], T(0)) + vmax(-g[s - RX], T(0))) * p.rdy;
-        const T avail = vmax(h[k * NPT + s] - p.h_min, T(0));
+        const T avail = vmax(h[j * NPT + s] - p.h_min, T(0));
         const T need = out * p.dt;
-        sc[k * NPT + s] =
+        sc[j * NPT + s] =
             (need > avail) ? avail / vmax(need, T(1e-30)) : T(1);
       }
     })
   }
   REGION(A + LO, A + LO, {
-    for (int k = 0; k < NZ; ++k) {
-      const T* hk = h + k * NPT;
+    for (int j = 0; j < NL; ++j) {
+      const int k = k0 + j;
+      const T* hk = h + j * NPT;
       T f0, fm, g0, gm;
       if (WETDRY) {
-        const T* f = fx + k * NPT;
-        const T* g = fy + k * NPT;
-        const T* w = sc + k * NPT;
+        const T* f = fx + j * NPT;
+        const T* g = fy + j * NPT;
+        const T* w = sc + j * NPT;
         f0 = f[s] * ((f[s] > T(0)) ? w[s] : w[s + 1]);
         fm = f[s - 1] * ((f[s - 1] > T(0)) ? w[s - 1] : w[s]);
         g0 = g[s] * ((g[s] > T(0)) ? w[s] : w[s + RX]);
         gm = g[s - RX] * ((g[s - RX] > T(0)) ? w[s - RX] : w[s]);
       } else {
-        f0 = face_flux(p, hk[s], hk[s + 1], ua[k * NPT + s], c.mu[s]);
-        fm = face_flux(p, hk[s - 1], hk[s], ua[k * NPT + s - 1], c.mu[s - 1]);
-        g0 = face_flux(p, hk[s], hk[s + RX], va[k * NPT + s], c.mv[s]);
-        gm = face_flux(p, hk[s - RX], hk[s], va[k * NPT + s - RX],
+        f0 = face_flux(p, hk[s], hk[s + 1], ua[j * NPT + s], c.mu[s]);
+        fm = face_flux(p, hk[s - 1], hk[s], ua[j * NPT + s - 1], c.mu[s - 1]);
+        g0 = face_flux(p, hk[s], hk[s + RX], va[j * NPT + s], c.mv[s]);
+        gm = face_flux(p, hk[s - RX], hk[s], va[j * NPT + s - RX],
                        c.mv[s - RX]);
       }
       T dh = -((f0 - fm) * p.inv_dx + (g0 - gm) * p.inv_dy) * c.mask[s];
@@ -759,50 +828,59 @@ __device__ __forceinline__ void continuity_stage(
         if (k == 0) tgt = tgt + c.ee[s];
         hv = (c.glob(I_OBC_H, s) > T(0)) ? tgt : hv;
       }
-      h1[k * NPT + s] = hv;
+      h1[j * NPT + s] = hv;
     }
   })
 }
 
-// fb.finalize at one point: the wet/dry gates and the Flather correction
-// of uo[], vo[] (every layer at s), given the new thickness planes h1
-// (valid at s, s + 1 and s + RX)
-template <typename T, int RX, int NPT, typename TileT>
-__device__ __forceinline__ void finalize_point(const TileT& c, const T* h1,
-                                               int s, T* uo, T* vo) {
+// wetdry._gate of one layer's u and v at s, from its new thickness plane
+// hk (valid at s, s + 1 and s + RX)
+template <typename T, int RX, typename TileT>
+__device__ __forceinline__ void gate_point(const TileT& c, const T* hk, int s,
+                                           T& uo, T& vo) {
   const Params<T>& p = c.p;
-  const T half = T(0.5);
-  if (WETDRY) {
-LAYER_LOOP
-    for (int k = 0; k < NZ; ++k) {
-      const T* hk = h1 + k * NPT;
-      const T wl = wet_of(p, hk[s], c.mask[s]);
-      const T wx = wet_of(p, hk[s + 1], c.mask[s + 1]);
-      const T wy = wet_of(p, hk[s + RX], c.mask[s + RX]);
-      uo[k] = gate(uo[k], wl, wx, c.mu[s]);
-      vo[k] = gate(vo[k], wl, wy, c.mv[s]);
+  const T wl = wet_of(p, hk[s], c.mask[s]);
+  const T wx = wet_of(p, hk[s + 1], c.mask[s + 1]);
+  const T wy = wet_of(p, hk[s + RX], c.mask[s + RX]);
+  uo = gate(uo, wl, wx, c.mu[s]);
+  vo = gate(vo, wl, wy, c.mv[s]);
+}
+
+// obc.flather's column sums at one point, the layers added in order from
+// the surface (add, layer k's new thickness at the point and east and
+// north of it and its gated velocities), and the increment it adds to
+// every layer's u and v there (incs)
+template <typename T>
+struct Flather {
+  T hs0, hsx, hsy, nu, du, nv, dv;
+
+  __device__ __forceinline__ void add(const Params<T>& p, int k, T h0, T hx,
+                                      T hy, T uo, T vo) {
+    const T half = T(0.5);
+    if (k > 0) {
+      hs0 = hs0 + h0;
+      hsx = hsx + hx;
+      hsy = hsy + hy;
+    } else {
+      hs0 = h0;
+      hsx = hx;
+      hsy = hy;
     }
+    const T hu = vmax(half * (h0 + hx), p.h_min);
+    const T hv = vmax(half * (h0 + hy), p.h_min);
+    nu = (k > 0) ? nu + hu * uo : hu * uo;
+    du = (k > 0) ? du + hu : hu;
+    nv = (k > 0) ? nv + hv * vo : hv * vo;
+    dv = (k > 0) ? dv + hv : hv;
   }
-  if (OBC) {
-    T hs0 = h1[s], hsx = h1[s + 1], hsy = h1[s + RX];
-    T nu_ = T(0), du_ = T(0), nv_ = T(0), dv_ = T(0);
-LAYER_LOOP
-    for (int k = 0; k < NZ; ++k) {
-      const T* hk = h1 + k * NPT;
-      if (k > 0) {
-        hs0 = hs0 + hk[s];
-        hsx = hsx + hk[s + 1];
-        hsy = hsy + hk[s + RX];
-      }
-      const T hu = vmax(half * (hk[s] + hk[s + 1]), p.h_min);
-      const T hv = vmax(half * (hk[s] + hk[s + RX]), p.h_min);
-      nu_ = (k > 0) ? nu_ + hu * uo[k] : hu * uo[k];
-      du_ = (k > 0) ? du_ + hu : hu;
-      nv_ = (k > 0) ? nv_ + hv * vo[k] : hv * vo[k];
-      dv_ = (k > 0) ? dv_ + hv : hv;
-    }
-    const T ubar = nu_ / du_;
-    const T vbar = nv_ / dv_;
+
+  template <int RX, typename TileT>
+  __device__ __forceinline__ void incs(const TileT& c, int s, T& u_inc,
+                                       T& v_inc) const {
+    const Params<T>& p = c.p;
+    const T half = T(0.5);
+    const T ubar = nu / du;
+    const T vbar = nv / dv;
     const T m0 = c.mask[s], mx = c.mask[s + 1], my = c.mask[s + RX];
     const T e0 = (hs0 - c.glob(I_HB, s)) * m0;
     const T ex = (hsx - c.glob(I_HB, s + 1)) * mx;
@@ -819,8 +897,31 @@ LAYER_LOOP
     const T eext_v = half * (c.ee[s] + c.ee[s + RX]);
     const T ou = c.glob(I_OBC_U, s);
     const T ov = c.glob(I_OBC_V, s);
-    const T u_inc = tabs(ou) * ((ou * cu) * (eta_u - eext_u) - ubar);
-    const T v_inc = tabs(ov) * ((ov * cv) * (eta_v - eext_v) - vbar);
+    u_inc = tabs(ou) * ((ou * cu) * (eta_u - eext_u) - ubar);
+    v_inc = tabs(ov) * ((ov * cv) * (eta_v - eext_v) - vbar);
+  }
+};
+
+// fb.finalize at one point: the wet/dry gates and the Flather correction
+// of uo[], vo[] (every layer at s), given the new thickness planes h1
+// (valid at s, s + 1 and s + RX)
+template <typename T, int RX, int NPT, typename TileT>
+__device__ __forceinline__ void finalize_point(const TileT& c, const T* h1,
+                                               int s, T* uo, T* vo) {
+  if (WETDRY) {
+LAYER_LOOP
+    for (int k = 0; k < NZ; ++k)
+      gate_point<T, RX>(c, h1 + k * NPT, s, uo[k], vo[k]);
+  }
+  if (OBC) {
+    Flather<T> f;
+LAYER_LOOP
+    for (int k = 0; k < NZ; ++k) {
+      const T* hk = h1 + k * NPT;
+      f.add(c.p, k, hk[s], hk[s + 1], hk[s + RX], uo[k], vo[k]);
+    }
+    T u_inc, v_inc;
+    f.template incs<RX>(c, s, u_inc, v_inc);
 LAYER_LOOP
     for (int k = 0; k < NZ; ++k) {
       uo[k] = uo[k] + u_inc;

@@ -45,6 +45,15 @@
 // phases on the shards of a device mesh (shard_projection.cu) run too;
 // here a tile's points come from the whole grid with periodic wrap.
 //
+// Where no tile's planes of every layer fit a CTA (many layers), proj_b
+// streams the layers through a few planes of one layer (BEOM_STREAM,
+// projection_body.cuh: pbl): only Flather couples the column, so it moves
+// the function's bytes and u1, v1 once more where Flather corrects them.
+// It replaces K3b's spill route (its planes in a device-memory scratch
+// beyond the L2: 19.4 ms a step at 32 layers on 2048^2 f32 on the H100,
+// against 3.8 streamed); K3a keeps that route (BEOM_SPILL) in the same
+// build.
+//
 // The phases run by default as the staged kernels proj_as and
 // proj_bs (projection_body.cuh: namespaces pas, pbs), on tiles of their
 // own geometry chosen per case by stencils/fused_projection.py::plan.  On
@@ -59,6 +68,10 @@
 // (Epi), so the step needs no elementwise pass between K3a and the solve.
 
 #include "projection_body.cuh"
+
+static_assert(!beom::SPILL || beom::STREAM,
+              "K3b has no spill route: a build with BEOM_SPILL streams "
+              "K3b's layers (BEOM_STREAM)");
 
 namespace {
 
@@ -86,9 +99,15 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 proj_b_kernel(const Params<T> p, const GridSrc<T, N_IN_B> src, T corr,
               T* out_h, T* out_u, T* out_v) {
-  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
-    pb::run<T>(p, src, grid_out(p, bx, by), corr, out_h, out_u, out_v);
-  });
+  pb::run<T>(p, src, grid_out(p, int(blockIdx.x), int(blockIdx.y)), corr,
+             out_h, out_u, out_v);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+proj_b_layers_kernel(const Params<T> p, const T* pres, T corr, T* out_h,
+                     T* out_u, T* out_v) {
+  pbl::run<T>(p, pres, corr, out_h, out_u, out_v);
 }
 
 template <typename T>
@@ -136,22 +155,38 @@ int proj_a(const void* const* ptrs, const int* ints, const double* dbls,
   return int(cudaGetLastError());
 }
 
+// dynamic shared memory of one CTA of the build's proj_b
+template <typename T>
+constexpr int b_smem() {
+  return STREAM ? pbl::smem_bytes<T>() : pb::smem_bytes<T>();
+}
+
 template <typename T>
 int proj_b(const void* const* ptrs, const int* ints, const double* dbls,
            const void* pres, double corr, void* h1, void* u1, void* v1,
            void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  constexpr int smem = pb::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      proj_b_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  proj_b_kernel<T><<<grid, THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      p, grid_src<T, N_IN_B>(p, pres), T(corr), static_cast<T*>(h1),
-      static_cast<T*>(u1), static_cast<T*>(v1));
+  constexpr int smem = b_smem<T>();
+  const dim3 grid = tiles_of(p.ny, p.nx, TX, TY);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if constexpr (STREAM) {
+    e = cudaFuncSetAttribute(proj_b_layers_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return int(e);
+    proj_b_layers_kernel<T><<<grid, THREADS, smem, st>>>(
+        p, static_cast<const T*>(pres), T(corr), static_cast<T*>(h1),
+        static_cast<T*>(u1), static_cast<T*>(v1));
+  } else {
+    e = cudaFuncSetAttribute(proj_b_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return int(e);
+    proj_b_kernel<T><<<grid, THREADS, smem, st>>>(
+        p, grid_src<T, N_IN_B>(p, pres), T(corr), static_cast<T*>(h1),
+        static_cast<T*>(u1), static_cast<T*>(v1));
+  }
   return int(cudaGetLastError());
 }
 
@@ -226,34 +261,31 @@ int proj_bs(const void* const* ptrs, const int* ints, const double* dbls,
 PROJ_ENTRIES(f32, float)
 PROJ_ENTRIES(f64, double)
 
-// dynamic shared memory of one CTA of proj_a (0), proj_b (1), proj_as (2)
-// and proj_bs (3), for the wrapper's check of its tile
+// dynamic shared memory of one CTA of proj_a (0), proj_b (1; layer-
+// streamed in a build with BEOM_STREAM), proj_as (2) and proj_bs (3), for
+// the wrapper's check of its tile
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   if (which == 0)
     return is_f64 ? pa::smem_bytes<double>() : pa::smem_bytes<float>();
   if (which == 1)
-    return is_f64 ? pb::smem_bytes<double>() : pb::smem_bytes<float>();
+    return is_f64 ? b_smem<double>() : b_smem<float>();
   if (which == 2)
     return is_f64 ? pas::smem_bytes<double>() : pas::smem_bytes<float>();
   return is_f64 ? pbs::smem_bytes<double>() : pbs::smem_bytes<float>();
 }
 
-// the spill route: bytes of a CTA's slice of the scratch of proj_a (0) and
-// proj_b (1) (0 in any other build), and the CTAs of each the current
-// device holds at once
+// the spill route of proj_a (0; the build with BEOM_SPILL): bytes of a
+// CTA's slice of the scratch (0 in any other build or kernel), and the
+// CTAs the current device holds at once
 extern "C" long beom_work_bytes(int which, int is_f64) {
   if (which == 0)
     return is_f64 ? pa::work_bytes<double>() : pa::work_bytes<float>();
-  if (which == 1)
-    return is_f64 ? pb::work_bytes<double>() : pb::work_bytes<float>();
   return 0;
 }
 template <typename T>
 int spill_ctas(int which) {
   if (which == 0)
     return resident_ctas(proj_a_kernel<T>, THREADS, pa::smem_bytes<T>());
-  if (which == 1)
-    return resident_ctas(proj_b_kernel<T>, THREADS, pb::smem_bytes<T>());
   return 0;
 }
 extern "C" int beom_spill_ctas(int which, int is_f64) {

@@ -321,6 +321,124 @@ LAYER_LOOP
 
 }  // namespace pb
 
+// ------------------------------------------------- K3b, layer-streamed
+//
+// pb's stages one layer at a time (projection.cu's proj_b in a build with
+// BEOM_STREAM = 1, where no tile's planes of every layer fit a CTA): per
+// tile, p, the masks and the tide's elevation are loaded once; for each
+// layer from the surface its h, u*, v* on the block, S1's correction, S2's
+// continuity, and S3's gates on the interior, writing the layer's h1, u1,
+// v1.  Only Flather couples the column: its sums are kept in registers
+// (a thread keeps the same interior points in every layer) and its
+// increment added to every layer's u1, v1 afterwards, as fbs::mom does.
+// Shared memory: 8 + 3 (wet/dry) + 1 (the open boundary) planes of one
+// layer, whatever NZ.
+namespace pbl {
+
+constexpr int W = pb::W;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+enum Plane {
+  P_H = 0,
+  P_UA,
+  P_VA,
+  P_P,
+  P_M,
+  P_MU,
+  P_MV,
+  P_H1,
+  P_FX,
+  P_FY = P_FX + (WETDRY ? 1 : 0),
+  P_SC = P_FY + (WETDRY ? 1 : 0),
+  P_EE = P_SC + (WETDRY ? 1 : 0),
+  N_PLANES = P_EE + (OBC ? 1 : 0)
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
+}
+
+template <typename T>
+__device__ __forceinline__ void run(const Params<T>& p, const T* pres,
+                                    T corr, T* out_h, T* out_u, T* out_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* h = sm + P_H * NPT;
+  T* ua = sm + P_UA * NPT;
+  T* va = sm + P_VA * NPT;
+  T* pr = sm + P_P * NPT;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* h1 = sm + P_H1 * NPT;
+  T* ee = sm + P_EE * NPT;
+  const int tid = threadIdx.x;
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  __syncthreads();
+  for (int s = tid; s < NPT; s += THREADS) {
+    const Off g = gidx[s];
+    pr[s] = pres[g];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+  }
+  if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
+  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
+  using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
+  const TileT c{p, gidx, ua, va, mask, mu, mv, nullptr, h1,
+                nullptr, nullptr, nullptr, nullptr, ee};
+  fbs::Column<T, W, RX> col;
+
+#pragma unroll 1
+  for (int k = 0; k < NZ; ++k) {
+    for (int s = tid; s < NPT; s += THREADS) {
+      const long g = k * p.plane + gidx[s];
+      h[s] = p.in[I_H][g];
+      ua[s] = p.in[I_U][g];
+      va[s] = p.in[I_V][g];
+    }
+    __syncthreads();
+
+    // S1: the barotropic correction, in place
+    REGION(0, 1, {
+      const T dpx = mu[s] * ((pr[s + 1] - pr[s]) * p.inv_dx);
+      const T dpy = mv[s] * ((pr[s + RX] - pr[s]) * p.inv_dy);
+      ua[s] = (ua[s] - corr * dpx) * mu[s];
+      va[s] = (va[s] - corr * dpy) * mv[s];
+    })
+
+    // S2: the layer's continuity with the corrected velocities
+    continuity_stage<T, RX, RY, TileT, 0, THREADS, 1>(
+        c, h, ua, va, h1, sm + P_FX * NPT, sm + P_FY * NPT, sm + P_SC * NPT,
+        false, k);
+
+    // S3: the gates on the interior; the layer written, Flather's sums
+    // taken
+#pragma unroll
+    for (int i = 0; i < fbs::PPT; ++i) {
+      int jj, ii, s;
+      if (!fbs::point<W, RX>(o, i, jj, ii, s)) continue;
+      T uo = ua[s], vo = va[s];
+      if (WETDRY) gate_point<T, RX>(c, h1, s, uo, vo);
+      if (OBC) col.add(p, i, k, h1, s, uo, vo);
+      const long g = k * o.plane + o.at(jj, ii);
+      out_h[g] = h1[s];
+      out_u[g] = uo;
+      out_v[g] = vo;
+    }
+    // before the next layer's loads overwrite the planes
+    __syncthreads();
+  }
+
+  if (OBC) col.fix(c, o, out_u, out_v);
+}
+
+}  // namespace pbl
+
 
 // ------------------------------------------- the staged phase kernels
 //

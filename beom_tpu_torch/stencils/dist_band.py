@@ -675,11 +675,17 @@ class MeshPlan:
             k = self.cfg.steps_per_pass
             kb = self.kb(k)
             pl = fused_fb.launch_plan(self.cfg, self.dtype, kb, self.spill)
-            return f"{lead}; fb: {pl.describe()}; launches of a {k}-step " \
+            # where K1 streams its layers, the shard body of its single
+            # step keeps the spill route
+            text = pl.describe() if not pl.stream else (
+                f"kb 1: the single-step kernel on the spill route (its "
+                f"planes in device memory), tile {pl.tile[0]} x "
+                f"{pl.tile[1]}, {pl.threads} threads")
+            return f"{lead}; fb: {text}; launches of a {k}-step " \
                    f"pass: {self.fb_launches(k)}"
         if self.cfg.scheme == "split":
             return f"{lead}; split: {self.split.describe()}"
-        return f"{lead}; projection: {self.phases.describe()}"
+        return f"{lead}; projection: {self.phases.describe(shard=True)}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -730,13 +736,14 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False,
     check_config(cfg)
     if cfg.scheme in _PROJECTION:
         name, defines = "shard_projection", fused_projection.build_spec(
-            cfg, dtype, fused_projection.plan(cfg, dtype, spill), dmask)[1]
+            cfg, dtype, fused_projection.plan(cfg, dtype, spill), dmask,
+            shard=True)[1]
     elif cfg.scheme == "split":
         name, defines = "shard_split", fused_fb.build_spec(
-            cfg, dtype, spill=spill)[1]
+            cfg, dtype, spill=spill, shard=True)[1]
     else:
         name, defines = "shard_step", fused_fb.build_spec(
-            cfg, dtype, kb, spill=spill)[1]
+            cfg, dtype, kb, spill=spill, shard=True)[1]
     return name, tuple(defines) + (("BEOM_CARDS=1",) if cards else ())
 
 

@@ -36,12 +36,19 @@ the gprime and the tidal frequencies are sized by the build too
 (`slot_layout`), so any number of layers and constituents runs.  The tile
 is the largest of `_TILES` whose shared-memory planes fit a CTA (for the
 subcycle, whose halo is nsub, of `_SUB_TILES`; nsub is compile-time too).
-Where none fits (many layers), the single-step kernels take the spill
-route: a build with BEOM_SPILL = 1 keeps their planes in a scratch in
-device memory, one slice per resident CTA, each CTA looping over tiles,
-with the same arithmetic in the same order (csrc/fb_terms.cuh:
-block_planes).  The plans choose it (`launch_plan`, `split_plan`, their
-`spill`), `describe()` names it, and SPILL_LAUNCHES counts its launches.
+Where none fits (many layers), K1's single step streams the layers: a
+build with BEOM_STREAM = 1 holds a few planes of one layer in shared
+memory, whatever nz, and runs a step as two launches, the continuity of
+every layer, then the momentum (csrc/fb_step_body.cuh: fbs); the split
+step's slow phase and recomposition take the spill route: a build with
+BEOM_SPILL = 1 keeps their planes in a scratch in device memory, one
+slice per resident CTA, each CTA looping over tiles, with the same
+arithmetic in the same order (csrc/fb_terms.cuh: block_planes).  The
+plans choose these routes (`launch_plan`, `split_plan`; their `spill`
+forces them where the shared-memory route fits too), `describe()` names
+them, STREAM_LAUNCHES counts the streamed kernels' launches and
+SPILL_LAUNCHES the spill route's.  `fb_step_streamed` runs the streamed
+step's schedule on the host, for the tests.
 
 `fused_fb_step` runs the kernels on CUDA tensors and the plain version,
 `fused_fb_step_plain`, on CPU tensors.  It never falls back from one to
@@ -72,8 +79,11 @@ LAUNCHES = 0
 PASS_LAUNCHES = 0
 SPLIT_LAUNCHES = {"slow": 0, "subcycle": 0, "recompose": 0, "tend": 0,
                   "tail": 0}
-# the launches above that took the spill route, by kernel
-SPILL_LAUNCHES = {"fb": 0, "slow": 0, "recompose": 0, "tend": 0}
+# the split kernels' launches above that took the spill route, and the
+# layer-streamed K1's two kernels' launches (LAUNCHES counts such a step
+# as one)
+SPILL_LAUNCHES = {"slow": 0, "recompose": 0, "tend": 0}
+STREAM_LAUNCHES = {"fb_continuity": 0, "fb_momentum": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # operand slots, in the order of csrc/fb_terms.cuh's enums Ptr, Int and Dbl
@@ -125,12 +135,15 @@ _TAIL_REGS = 24
 _TAIL_STRIP = 0.5
 _TAIL_THREADS = 0.6
 _TAIL_MAX_FACTOR = 3.0
-# the single-step kernels of each source that take the spill route, and
-# each one's index in its source's beom_work_bytes / beom_spill_ctas
+# the single-step kernels of each source whose planes decide whether a
+# tile fits (off shared memory K1 streams its layers, the split step and
+# K7 take the spill route), and the index of each spill-route kernel in
+# its source's beom_work_bytes / beom_spill_ctas
 _SPILLED = {"fb_step": ("fb_step",),
             "split_step": ("split_slow", "split_recompose")}
-_WHICH = {"fb_step": 0, "split_slow": 0, "split_recompose": 1,
-          "split_tend": 4}
+_WHICH = {"split_slow": 0, "split_recompose": 1, "split_tend": 4}
+# the layer-streamed K1's kernels, by their index in beom_smem_bytes
+_STREAMED = ("fb_momentum", "fb_continuity")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -181,6 +194,23 @@ def smem_bytes(cfg: Config, tile, sub_tile, elem: int, tail=None,
     return out
 
 
+def stream_smem(cfg: Config, tile, elem: int, off: int = 4) -> dict:
+    """Dynamic shared memory of one CTA of each layer-streamed K1 kernel at
+    `tile` (csrc/fb_step_body.cuh: fbs::cont, fbs::mom): planes of one
+    layer and the table of offsets.  The continuity's block has the halo
+    LO and h, u, v, h1, three masks (+ the fluxes and scales under wet/dry,
+    + ee under the open boundary); the momentum's the halo 3 and h1, u, v,
+    phi, q, a1, z, acc, four masks (+ lap(u), lap(v) with nu4, + ee)."""
+    lo, nu4 = (2 if cfg.wetdry else 1), cfg.nu4 != 0.0
+    out = {}
+    for kernel, w, planes in (
+            ("fb_continuity", lo, 7 + 3 * cfg.wetdry + cfg.obc),
+            ("fb_momentum", 3, 12 + 2 * nu4 + cfg.obc)):
+        npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
+        out[kernel] = tables(npt * planes * elem, npt, off)
+    return out
+
+
 def work_bytes(cfg: Config, tile, elem: int) -> dict:
     """Bytes of one CTA's slice of the spill route's scratch: each
     single-step body's planes of its block at `tile`."""
@@ -189,10 +219,11 @@ def work_bytes(cfg: Config, tile, elem: int) -> dict:
 
 
 def tile_or_spill(need, spill: bool = False):
-    """(tile, spill) of single-step kernels whose CTA at a tile needs
+    """(tile, off) of single-step kernels whose CTA at a tile needs
     need(tile) bytes of shared memory: the first of _TILES that fits;
-    where none fits, or where `spill` is true (to force it), the spill
-    route at the largest tile."""
+    where none fits, or where `spill` is true (to force it), the route off
+    shared memory (K1 and K3b layer-streamed, the others on the spill
+    route) at the largest tile."""
     fits = [t for t in _TILES if need(t) <= _MAX_SMEM]
     spill = bool(spill) or not fits
     return (_TILES[0] if spill else fits[0]), spill
@@ -303,14 +334,15 @@ def launch_steps(k: int, kb: int) -> list:
 class Plan:
     """How K1 runs the steps of one launch: kb steps in the pass kernel on
     `tile` with `threads` per CTA, or at kb = 1 the single-step kernel at
-    its own tile, on the spill route where `spill` (`work` bytes of planes
-    per CTA in device memory); `smem` bytes of shared memory per CTA."""
+    its own tile, or where no tile's planes of every layer fit a CTA
+    (`stream`) the layer-streamed kernels, two launches per step; `smem`
+    bytes of shared memory per CTA (the larger of the two streamed
+    kernels')."""
     kb: int
     tile: tuple
     threads: int
     smem: int
-    spill: bool = False
-    work: int = 0
+    stream: bool = False
 
     def launches(self, k: int) -> list:
         return launch_steps(k, self.kb)
@@ -318,9 +350,10 @@ class Plan:
     def describe(self) -> str:
         kernel = "the single-step kernel" if self.kb == 1 else \
             f"the pass kernel (halo {self.kb} W)"
-        if self.spill:
-            kernel += (" on the spill route (its planes in device memory, "
-                       f"{self.work} bytes per CTA)")
+        if self.stream:
+            kernel = ("the layer-streamed kernels (two launches per step: "
+                      "the continuity, then the momentum, one layer at a "
+                      "time in shared memory)")
         return (f"kb {self.kb}: {kernel}, tile {self.tile[0]} x "
                 f"{self.tile[1]}, {self.threads} threads, {self.smem} bytes "
                 "of shared memory per CTA")
@@ -330,17 +363,17 @@ class Plan:
 def launch_plan(cfg: Config, dtype, m: int, spill: bool = False):
     """The build that advances m fb steps in one launch, or None where no
     block with a halo of m W fits a CTA: at m = 1 the single-step kernel
-    (single_tile: on the spill route where no tile fits, or where `spill`
+    (single_tile: layer-streamed where no tile fits, or where `spill`
     forces it), else the pass kernel at the tile of least plan_cost whose
     CTA fits one SM's shared memory, with 1024 threads where one CTA fits
     an SM and 512 where two do."""
     check_config(cfg)
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     if m == 1:
-        one, spill = single_tile(cfg, dtype, spill)
-        return Plan(1, one, 256,
-                    smem_bytes(cfg, one, one, elem, spill=spill)["fb_step"],
-                    spill, work_bytes(cfg, one, elem)["fb_step"] * spill)
+        one, stream = single_tile(cfg, dtype, spill)
+        smem = max(stream_smem(cfg, one, elem).values()) if stream else \
+            smem_bytes(cfg, one, one, elem)["fb_step"]
+        return Plan(1, one, 256, smem, stream)
     fits = [t for t in _PASS_TILES if pass_smem(cfg, m, t, elem) <= _MAX_SMEM]
     if not fits:
         return None
@@ -354,8 +387,8 @@ def plan(cfg: Config, dtype=None, k: int = None,
          spill: bool = False) -> Plan:
     """The launch plan of a pass of k fb steps (default: steps_per_pass):
     the kb <= k whose launches (Plan.launches) cost the least by plan_cost
-    at their builds' tiles; with spill=True the single-step kernel on the
-    spill route (to hold it against the other route where both build)."""
+    at their builds' tiles; with spill=True the layer-streamed kernels (to
+    hold them against the shared-memory route where both build)."""
     k = k or cfg.steps_per_pass
     if spill:
         return launch_plan(cfg, dtype, 1, True)
@@ -498,14 +531,14 @@ def term_defines(cfg: Config, tile):
 
 
 def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None,
-               spill: bool = False):
+               spill: bool = False, shard: bool = False):
     """(source, defines) of the build that runs cfg: fb_step.cu or
     split_step.cu with the compile-time switches and the tile (and the
-    split tail's geometry: split_plan's, or `tail`), BEOM_SPILL=1 where the
-    single-step kernels take the spill route (single_tile; `spill`
-    forces it); with
-    kb > 1 the fb pass kernel of kb steps at the plan's tile and
-    threads."""
+    split tail's geometry: split_plan's, or `tail`); where no tile fits the
+    single-step kernels (single_tile; `spill` forces it) BEOM_STREAM=1 for
+    K1 (layer-streamed) and BEOM_SPILL=1 for the split step and for the
+    shard kernels' bodies (`shard`, dist_band.build_spec); with kb > 1 the
+    fb pass kernel of kb steps at the plan's tile and threads."""
     check_config(cfg)
     if kb > 1:
         pl = launch_plan(cfg, dtype, kb)
@@ -517,8 +550,10 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None,
             f"BEOM_WIND={int(cfg.wind)}")
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     name = "fb_step" if cfg.scheme == "fb" else "split_step"
-    tile, spill = single_tile(cfg, dtype, spill)
-    defines = term_defines(cfg, tile) + (("BEOM_SPILL=1",) if spill else ())
+    tile, off = single_tile(cfg, dtype, spill)
+    route = "BEOM_STREAM=1" if name == "fb_step" and not shard else \
+        "BEOM_SPILL=1"
+    defines = term_defines(cfg, tile) + ((route,) if off else ())
     if name == "split_step":
         sub = _pick(_SUB_TILES, lambda t: smem_bytes(
             cfg, tile, t, elem)["split_subcycle"],
@@ -622,7 +657,6 @@ def _entries(cfg: Config, dtype, kb: int = 1, tail=None,
     name, defines = build_spec(cfg, dtype, kb, tail, spill)
     spill = "BEOM_SPILL=1" in defines
     lib = build.load((name, defines))
-    spill_api(lib)
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
     tile = (value["BEOM_TX"], value["BEOM_TY"])
@@ -631,17 +665,22 @@ def _entries(cfg: Config, dtype, kb: int = 1, tail=None,
                       elem, (value.get("BEOM_QX"), value.get("BEOM_QS"),
                              value.get("BEOM_QP"))
                       if name == "split_step" else None, spill=spill)
+    kernels = _TILED[name]
     if kb > 1:
         want["fb_step"] = pass_smem(cfg, kb, tile, elem)
-    for i, kernel in enumerate(_TILED[name]):
+    if "BEOM_STREAM=1" in defines:
+        want, kernels = stream_smem(cfg, tile, elem), _STREAMED
+    for i, kernel in enumerate(kernels):
         have = lib.beom_smem_bytes(i, int(elem == 8))
         if have != want[kernel]:
             raise RuntimeError(
                 f"{kernel}: the kernel's shared memory ({have} bytes) is "
                 f"not what smem_bytes counts ({want[kernel]})")
-    work = work_bytes(cfg, tile, elem)
-    check_work(lib, name, {_WHICH[k]: work[k] * spill
-                           for k in _SPILLED[name]}, elem)
+    if name == "split_step":
+        spill_api(lib)
+        work = work_bytes(cfg, tile, elem)
+        check_work(lib, name, {_WHICH[k]: work[k] * spill
+                               for k in _SPILLED[name]}, elem)
 
     # every argument is a pointer: the operand tables, the outputs, the
     # stream
@@ -820,7 +859,9 @@ def _spill_args(lib, kernel: str, h, spill: bool):
 
 def _launch_fb(h, u, v, statics, parity: int, ts, cfg: Config, pl=None):
     """One launch of K1 by the launch plan `pl` of len(ts) steps (default:
-    launch_plan's), step i to the time ts[i]."""
+    launch_plan's), step i to the time ts[i]; a layer-streamed step is the
+    entry's two launches, the continuity writing h1 into the first output
+    and the momentum reading it there."""
     global LAUNCHES, PASS_LAUNCHES
     from beom_tpu_torch.stencils import build
 
@@ -828,21 +869,20 @@ def _launch_fb(h, u, v, statics, parity: int, ts, cfg: Config, pl=None):
     if pl.kb != len(ts):
         raise ValueError(f"a launch of {len(ts)} steps by a plan of kb = "
                          f"{pl.kb}")
-    spill = pl.spill
-    lib, entry = _entries(cfg, h.dtype, pl.kb, None, spill)
+    lib, entry = _entries(cfg, h.dtype, pl.kb, None, pl.stream)
     outs = [torch.empty_like(h) for _ in range(3)]
     operands = [h, u, v] + _operands(statics)
     aligned = all(a.data_ptr() % 16 == 0 for a in operands + outs)
-    work = _spill_args(lib, "fb_step", h, spill)
-    ints, dbls = _scalars(cfg, parity, ts[0], ts=ts, aligned=aligned,
-                          work=work)
+    ints, dbls = _scalars(cfg, parity, ts[0], ts=ts, aligned=aligned)
     code = entry["fb_step"](
-        _table((h, u, v), statics, work and work[0]), ints, dbls,
+        _table((h, u, v), statics), ints, dbls,
         *[a.data_ptr() for a in outs], _stream(h.device))
     build.check(lib, code, "fb_step kernel launch")
     LAUNCHES += 1
     PASS_LAUNCHES += len(ts) > 1
-    SPILL_LAUNCHES["fb"] += spill
+    if pl.stream:
+        STREAM_LAUNCHES["fb_continuity"] += 1
+        STREAM_LAUNCHES["fb_momentum"] += 1
     return outs
 
 
@@ -1034,9 +1074,9 @@ def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int,
 
     CPU tensors take the plain version.  CUDA tensors take the kernels by
     the plan `pl` (default: `plan` of k steps for fb, `split_plan` for
-    split): ceil(k / kb) launches per pass of fb steps, two or three per
-    split step; the single-step kernels on the spill route where the plan
-    takes it.
+    split): ceil(k / kb) launches per pass of fb steps (the layer-streamed
+    step two), two or three per split step; the split step's single-step
+    kernels on the spill route where the plan takes it.
     """
     if h.device.type == "cpu":
         return fused_fb_step_plain(h, u, v, statics, n, t, cfg, k)
@@ -1125,6 +1165,171 @@ def _cut_nan(a, rows, cols):
     """The (..., rows, cols) block of a, periodic, in a ring of NaN."""
     return torch.nn.functional.pad(_cut(a, rows, cols), (1, 1, 1, 1),
                                    value=float("nan"))
+
+
+def _layer_cfg(cfg: Config, k: int) -> Config:
+    """cfg of the one layer k, for the layer-local eager terms."""
+    return dataclasses.replace(cfg, nz=1, rho=(cfg.rho[k],))
+
+
+def _block(statics, cfg: Config, rows, cols, dmask: bool = False):
+    """(grid, forcing, cfg) of the block rows x cols (periodic) in a ring of
+    NaN that stands for whatever lies past a CTA's block, the staggered
+    masks rebuilt from the block's centre mask where dmask."""
+    grid, forcing = statics
+    cut = lambda a: _cut_nan(a, rows, cols)
+    g = {f.name: cut(getattr(grid, f.name)) for f in dataclasses.fields(Grid)}
+    if dmask:
+        m = g["mask"]
+        sx, sy = torch.roll(m, -1, -1), torch.roll(m, -1, -2)
+        g.update(mask_u=m * sx, mask_v=m * sy,
+                 mask_q=m * sx * sy * torch.roll(sy, -1, -1))
+    fo = Forcing(**{f.name: cut(getattr(forcing, f.name))
+                    for f in dataclasses.fields(Forcing)})
+    return Grid(**g), fo, dataclasses.replace(cfg, ny=len(rows) + 2,
+                                              nx=len(cols) + 2)
+
+
+def _tiled(fn, fields, statics, cfg: Config, tile, halo, dmask=False):
+    """fn(block fields, block statics, block cfg) on every tile of the grid
+    with the halo (lo_y, hi_y, lo_x, hi_x), each block in a ring of NaN
+    (`_block`), the blocks' interiors joined."""
+    ty, tx = tile[1], tile[0]
+    ly, hy, lx, hx = halo
+    ny, nx = cfg.ny, cfg.nx
+    dev = fields[0].device
+    outs = None
+    for y0 in range(0, ny, ty):
+        for x0 in range(0, nx, tx):
+            rows = torch.arange(y0 - ly, y0 + ty + hy, device=dev) % ny
+            cols = torch.arange(x0 - lx, x0 + tx + hx, device=dev) % nx
+            g, fo, sub = _block(statics, cfg, rows, cols, dmask)
+            res = fn([_cut_nan(a, rows, cols) for a in fields], (g, fo), sub)
+            if outs is None:
+                outs = [torch.empty(r.shape[:-2] + (ny, nx), dtype=r.dtype,
+                                    device=dev) for r in res]
+            ye, xe = min(ty, ny - y0), min(tx, nx - x0)
+            for o, r in zip(outs, res):
+                o[..., y0:y0 + ye, x0:x0 + xe] = \
+                    r[..., ly + 1:ly + 1 + ye, lx + 1:lx + 1 + xe]
+    return tuple(outs)
+
+
+def fb_step_streamed(h, u, v, statics, n: int, t, cfg: Config, tile=None,
+                     halos=None):
+    """The layer-streamed K1's schedule on the host, for the tests: one fb
+    step as its two launches (csrc/fb_step_body.cuh: fbs), each block of a
+    tile in a ring of NaN.  Launch 1, on blocks with the continuity's halo
+    LO (halos[0]), computes each layer's h1 from that layer's h, u, v alone
+    into out_h.  Launch 2, on blocks with the halo 3 (halos[1]), sums the
+    column's h1 read back from out_h from the surface, and for each layer
+    from the surface takes M from the running sums z, acc, then K, the PV,
+    the tendencies (the wind on the top layer, the bottom drag on the
+    bottom one, the interfacial drag from the old u, v of the layers
+    beside it), both Coriolis sweeps and the gates from that layer's h1,
+    u, v alone; after the last layer Flather's increments, from its sums
+    over the written layers in order from the surface, are added to every
+    layer.  Equal to fb_step bit for bit at the kernels' halos."""
+    from beom_tpu_torch.core import ops
+    from beom_tpu_torch.physics import (continuity, momentum, obc,
+                                        viscosity, wetdry)
+
+    tile = tile or single_tile(cfg, h.dtype, True)[0]
+    lo, hw = halos or ((2 if cfg.wetdry else 1), 3)
+    t1 = advance_time(t, cfg.dt, cfg.npdtype)
+    dt = cfg.dt
+
+    def continuity_launch(fields, st, c):
+        (h, u, v), (g, fo) = fields, st
+        out = []
+        for k in range(c.nz):
+            hk = h[k:k + 1]
+            dh = continuity.continuity_rhs(hk, u[k:k + 1], v[k:k + 1], g,
+                                           _layer_cfg(c, k))
+            if c.sponge:
+                dh = dh + fo.sponge * (fo.h_ext[k:k + 1] - hk)
+            h1 = (hk + dt * dh) * g.mask
+            if c.obc:
+                tgt = fo.h_ext[k:k + 1]
+                if k == 0:
+                    tgt = tgt + obc.eta_ext(t1, fo, c, h.dtype)
+                h1 = torch.where(fo.obc_h[None] > 0, tgt, h1)
+            out.append(h1)
+        return (torch.cat(out),)
+
+    def momentum_launch(fields, st, c):
+        (h1c, u, v), (g, fo) = fields, st
+        nz, gp = c.nz, c.gprime
+        z = ops.sum_k(h1c) - g.H
+        acc = gp[0] * z
+        out_u, out_v = [], []
+        for k in range(nz):
+            one = _layer_cfg(c, k)
+            h1, uk, vk = h1c[k:k + 1], u[k:k + 1], v[k:k + 1]
+            if k > 0:
+                z = z - h1c[k - 1]
+                acc = acc + gp[k] * z
+            phi = acc[None]
+            if c.adv_scheme != "linear":
+                phi = phi + momentum.kinetic_energy(uk, vk)
+            du = -ops.d_xp(phi, c.dx)
+            dv = -ops.d_yp(phi, c.dy)
+            duv, dvv = viscosity.viscosity(uk, vk, g, one)
+            du, dv = du + duv, dv + dvv
+            duw, dvw = drag.wind(h1, g, fo, one)
+            if k > 0:
+                duw, dvw = torch.zeros_like(duw), torch.zeros_like(dvw)
+            du, dv = du + duw, dv + dvw
+            if c.r_int != 0.0 and nz > 1:
+                hu = torch.clamp_min(ops.a_xp(h1), c.h_min)
+                hv = torch.clamp_min(ops.a_yp(h1), c.h_min)
+
+                def couple(w, hh):
+                    a = w[k:k + 1]
+                    above = w[k - 1:k] - a if k > 0 else torch.zeros_like(a)
+                    below = w[k + 1:k + 2] - a if k < nz - 1 else \
+                        torch.zeros_like(a)
+                    return c.r_int * (above + below) / hh
+
+                du, dv = du + couple(u, hu), dv + couple(v, hv)
+            else:
+                du, dv = du + torch.zeros_like(du), dv + torch.zeros_like(dv)
+            if c.sponge:
+                _, dus, dvs = obc.sponge_rhs(h1, uk, vk, fo, one)
+                du, dv = du + dus, dv + dvs
+            q, U, V = fb_mod._pv_and_fluxes(h1, uk, vk, g, one)
+            cu = cv = torch.zeros_like(uk)
+            if k == nz - 1:
+                cu, cv = drag.bottom_drag_coeff(h1, uk, vk, g, one)
+
+            def upd_u(uu, VV):
+                duq = ops.a_ym(q * ops.a_xp(VV))
+                return (uu + dt * (du + duq)) / (1.0 + dt * cu) * g.mask_u
+
+            def upd_v(vv, UU):
+                dvq = -ops.a_xm(q * ops.a_yp(UU))
+                return (vv + dt * (dv + dvq)) / (1.0 + dt * cv) * g.mask_v
+
+            linear = c.adv_scheme == "linear"
+            if n % 2 == 0:
+                u1 = upd_u(uk, V)
+                v1 = upd_v(vk, u1 if linear else ops.a_xp(h1) * u1)
+            else:
+                v1 = upd_v(vk, U)
+                u1 = upd_u(uk, v1 if linear else ops.a_yp(h1) * v1)
+            if c.wetdry:
+                wet = wetdry.wet_mask(h1, g, one)
+                u1, v1 = wetdry.gate_u(u1, wet, g), wetdry.gate_v(v1, wet, g)
+            out_u.append(u1)
+            out_v.append(v1)
+        # Flather's fix-up of what the layers wrote
+        return obc.apply_flather(h1c, torch.cat(out_u), torch.cat(out_v), g,
+                                 fo, c, t1)
+
+    out_h, = _tiled(continuity_launch, (h, u, v), statics, cfg, tile,
+                    (lo,) * 4)
+    return (out_h,) + _tiled(momentum_launch, (out_h, u, v), statics, cfg,
+                             tile, (hw,) * 4)
 
 
 def split_step_tiled(h, u, v, statics, n: int, t, cfg: Config, k: int,

@@ -31,10 +31,11 @@ A step decomposes as the reference's does:
 
 Each phase runs as one of two kernels of `csrc/projection.cu`, chosen per
 case and type by `plan`: the single-step kernels `proj_a` / `proj_b` on
-32 x 16 tiles (the stage bodies the shard kernels share; on the spill
-route, their planes in device memory, where no tile fits a CTA's shared
-memory: fused_fb.single_tile, PhasePlan.spill), or the staged
-kernels `proj_as` / `proj_bs` on tiles of their own, every
+32 x 16 tiles (the stage bodies the shard kernels share; where no tile
+fits a CTA's shared memory, fused_fb.single_tile and PhasePlan.spill,
+`proj_a` on the spill route, its planes in device memory, and `proj_b`
+layer-streamed, a few planes of one layer in shared memory), or the
+staged kernels `proj_as` / `proj_bs` on tiles of their own, every
 operand staged by cp.async, whose K3a also writes the solve's right-hand
 side and warm start in its epilogue (`Phases.a_rhs`: then no elementwise
 pass runs between phase A and the solve; the rigid lid's de-mean, a sum
@@ -49,7 +50,8 @@ host queues the next launches while the solve runs.
 versions, `proj_a_plain` and `proj_b_plain`, on CPU tensors.  They never
 fall back from one to the other: on a CUDA tensor each launches its
 kernel or raises.  `proj_a_tiled` and `proj_b_tiled` run the staged
-kernels' tile schedules on the host, for the tests.
+kernels' tile schedules on the host, and `proj_b_streamed` the
+layer-streamed K3b's, for the tests.
 """
 
 from __future__ import annotations
@@ -71,16 +73,18 @@ from beom_tpu_torch.solvers.elliptic import _local_dot
 # kernel launches of phase A and phase B (either kernel of each); a run
 # reads them to show that its main path went through the kernels
 LAUNCHES = {"proj_a": 0, "proj_b": 0}
-# the launches above that took the spill route
-SPILL_LAUNCHES = {"proj_a": 0, "proj_b": 0}
+# the launches above that took the spill route (phase A) and the
+# layer-streamed kernel (phase B)
+SPILL_LAUNCHES = {"proj_a": 0}
+STREAM_LAUNCHES = {"proj_b": 0}
 
 # solves that the stall guard of the multigrid-preconditioned CG redid
 COUNTS = {"stalled": 0}
 
 K_SWEEPS = 8      # red-black sweeps per pass, as the reference's stepper
 _KERNELS = ("proj_a", "proj_b")     # in the order of beom_smem_bytes
-_WHICH = {"proj_a": 0, "proj_b": 1}  # ... and of beom_work_bytes
 _STAGED = ("proj_as", "proj_bs")    # after them
+_WHICH = {"proj_a": 0}  # the spill route's kernel in beom_work_bytes
 # the staged kernels' candidate geometries: (tile width, height, threads);
 # the width a multiple of 4, so that a block's rows start 16-byte aligned
 _GEOMETRIES = ((32, 16, 256), (64, 16, 512), (32, 32, 512), (64, 32, 512),
@@ -129,6 +133,18 @@ def smem_bytes(cfg: Config, tile, elem: int, off: int = 4,
     return out
 
 
+def stream_smem(cfg: Config, tile, elem: int, off: int = 4) -> int:
+    """Dynamic shared memory of one CTA of the layer-streamed K3b at
+    `tile` (csrc/projection_body.cuh: pbl): h, u*, v*, p, three masks and
+    h1 of one layer (+ the fluxes and scales under wet/dry, + ee under the
+    open boundary) on the block with pb's halo, and the table of
+    offsets."""
+    w = halo_b(cfg)
+    npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
+    return fused_fb.tables(npt * (8 + 3 * cfg.wetdry + cfg.obc) * elem, npt,
+                           off)
+
+
 def work_bytes(cfg: Config, tile, elem: int) -> dict:
     """Bytes of one CTA's slice of the spill route's scratch: each
     single-step phase body's planes of its block at `tile`."""
@@ -143,17 +159,21 @@ def single_tile(cfg: Config, dtype=None, spill: bool = False):
         lambda t: max(smem_bytes(cfg, t, elem).values()), spill)
 
 
-def build_spec(cfg: Config, dtype=None, phase_plan=None, dmask=False):
+def build_spec(cfg: Config, dtype=None, phase_plan=None, dmask=False,
+               shard: bool = False):
     """(source, defines) of the build of csrc/projection.cu that runs
     cfg: the compile-time switches and the single-step kernels' tile (what
-    the shard kernels take too) with BEOM_SPILL=1 on the spill route (the
-    plan's, else where no tile fits), and with a PhasePlan the staged
-    kernels' geometry and the masks' rebuild (`staged_defines`)."""
+    the shard kernels take too); where no tile fits (the plan's spill,
+    else single_tile) BEOM_SPILL=1, K3a's spill route, and BEOM_STREAM=1,
+    K3b layer-streamed (not for the shard bodies, `shard`, which keep both
+    phases on the spill route); with a PhasePlan the staged kernels'
+    geometry and the masks' rebuild (`staged_defines`)."""
     check_config(cfg)
     tile, spill = single_tile(cfg, dtype,
                               phase_plan is not None and phase_plan.spill)
-    defines = fused_fb.term_defines(cfg, tile) \
-        + (("BEOM_SPILL=1",) if spill else ())
+    defines = fused_fb.term_defines(cfg, tile) + (
+        (("BEOM_SPILL=1",) + (() if shard else ("BEOM_STREAM=1",)))
+        if spill else ())
     if phase_plan is not None:
         defines += staged_defines(phase_plan, cfg, dmask)
     return "projection", defines
@@ -174,21 +194,30 @@ class Geometry:
 class PhasePlan:
     """How a step's phases run: `a` and `b` the staged kernels' geometries,
     or None for the single-step kernel; `rhs` whether K3a's epilogue writes
-    the solve's right-hand side and warm start; `spill` whether the
-    single-step kernels take the spill route (their planes in device
-    memory)."""
+    the solve's right-hand side and warm start; `spill` whether no tile
+    fits the single-step kernels: K3a's then takes the spill route (its
+    planes in device memory), K3b's streams its layers (the shard bodies
+    keep both on the spill route)."""
     a: Optional[Geometry]
     b: Optional[Geometry]
     rhs: bool
     spill: bool = False
 
-    def describe(self) -> str:
+    @property
+    def stream_b(self) -> bool:
+        """Whether phase B runs the layer-streamed kernel."""
+        return self.spill and self.b is None
+
+    def describe(self, shard: bool = False) -> str:
         one = "single-step (32 x 16, on the spill route: its planes in " \
             "device memory)" if self.spill else "single-step (32 x 16)"
         a = f"K3a {one}" if self.a is None else \
             f"K3a staged, {self.a.describe()}"
         b = f"K3b {one}" if self.b is None else \
             f"K3b staged, {self.b.describe()}"
+        if self.stream_b and not shard:
+            b = ("K3b layer-streamed (32 x 16, one layer at a time in "
+                 "shared memory)")
         rhs = "the right-hand side in K3a's epilogue" if self.rhs else \
             "the right-hand side in torch"
         return f"{a}; {b}; {rhs}"
@@ -337,6 +366,8 @@ def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
     elem = torch.empty((), dtype=dtype).element_size()
     tile = (value["BEOM_TX"], value["BEOM_TY"])
     want = smem_bytes(cfg, tile, elem, spill=pl.spill)
+    if "BEOM_STREAM=1" in defines:
+        want["proj_b"] = stream_smem(cfg, tile, elem)
     want.update(staged_smem(
         cfg, Geometry(value["BEOM_ATX"], value["BEOM_ATY"],
                       value["BEOM_ANT"]),
@@ -348,9 +379,8 @@ def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
             raise RuntimeError(
                 f"{kernel}: the kernel's shared memory ({have} bytes) is "
                 f"not what smem_bytes counts ({want[kernel]})")
-    work = work_bytes(cfg, tile, elem)
-    fused_fb.check_work(lib, name, {_WHICH[k]: work[k] * pl.spill
-                                    for k in _KERNELS}, elem)
+    fused_fb.check_work(lib, name, {
+        0: work_bytes(cfg, tile, elem)["proj_a"] * pl.spill, 1: 0}, elem)
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     suffix = fused_fb._SUFFIX[dtype]
     fns = {}
@@ -422,8 +452,10 @@ class Phases:
 
     def kernel_keys(self) -> tuple:
         """The names torch.profiler gives the plan's two kernels."""
+        b = "proj_bs_kernel" if self.plan.b is not None else \
+            "proj_b_layers_kernel" if self.plan.stream_b else "proj_b_kernel"
         return ("proj_a_kernel" if self.plan.a is None else "proj_as_kernel",
-                "proj_b_kernel" if self.plan.b is None else "proj_bs_kernel")
+                b)
 
     def _fields(self, what, tensors, shape):
         for name, a in zip(what, tensors):
@@ -522,9 +554,7 @@ class Phases:
         t1 = advance_time(t, self.cfg.dt, self.cfg.npdtype)
         with torch.cuda.device(self.device):
             outs = [torch.empty_like(h) for _ in range(3)]
-            spill = self.plan.b is None and self.plan.spill
-            work = self._work("proj_b", spill)  # held past the launch
-            args = self._ops.set(0, (h, u_s, v_s, p), t1, work=work)
+            args = self._ops.set(0, (h, u_s, v_s, p), t1)
             kernel = "proj_b" if self.plan.b is None else "proj_bs"
             code = self.fn[kernel](
                 *args, p.data_ptr(), _corr(self.cfg),
@@ -532,7 +562,7 @@ class Phases:
                 torch.cuda.current_stream(self.device).cuda_stream)
             self._check(self.lib, code, "phase B kernel launch")
             LAUNCHES["proj_b"] += 1
-            SPILL_LAUNCHES["proj_b"] += spill
+            STREAM_LAUNCHES["proj_b"] += self.plan.stream_b
         return tuple(outs)
 
 
@@ -555,58 +585,15 @@ def proj_b(h, u_s, v_s, p, statics, t, cfg: Config):
     return Phases(*statics, cfg, h.dtype).b(h, u_s, v_s, p, t)
 
 
-def _block(statics, cfg: Config, rows, cols, dmask: bool):
-    """(grid, forcing, cfg) of the block rows x cols (periodic) in a ring of
-    NaN that stands for whatever lies past a CTA's block, the staggered
-    masks rebuilt from the block's centre mask where dmask."""
-    grid, forcing = statics
-    cut = lambda a: fused_fb._cut_nan(a, rows, cols)
-    g = {f.name: cut(getattr(grid, f.name)) for f in dataclasses.fields(Grid)}
-    if dmask:
-        m = g["mask"]
-        sx, sy = torch.roll(m, -1, -1), torch.roll(m, -1, -2)
-        g.update(mask_u=m * sx, mask_v=m * sy,
-                 mask_q=m * sx * sy * torch.roll(sy, -1, -1))
-    fo = Forcing(**{f.name: cut(getattr(forcing, f.name))
-                    for f in dataclasses.fields(Forcing)})
-    return Grid(**g), fo, dataclasses.replace(cfg, ny=len(rows) + 2,
-                                              nx=len(cols) + 2)
-
-
-def _tiled(fn, fields, statics, cfg: Config, tile, halo, dmask):
-    """fn(block fields, block statics, block cfg) on every tile of the grid
-    with the halo (lo_y, hi_y, lo_x, hi_x), the blocks' interiors joined."""
-    ty, tx = tile[1], tile[0]
-    ly, hy, lx, hx = halo
-    ny, nx = cfg.ny, cfg.nx
-    dev = fields[0].device
-    outs = None
-    for y0 in range(0, ny, ty):
-        for x0 in range(0, nx, tx):
-            rows = torch.arange(y0 - ly, y0 + ty + hy, device=dev) % ny
-            cols = torch.arange(x0 - lx, x0 + tx + hx, device=dev) % nx
-            g, fo, sub = _block(statics, cfg, rows, cols, dmask)
-            res = fn([fused_fb._cut_nan(a, rows, cols) for a in fields],
-                     (g, fo), sub)
-            if outs is None:
-                outs = [torch.empty(r.shape[:-2] + (ny, nx), dtype=r.dtype,
-                                    device=dev) for r in res]
-            ye, xe = min(ty, ny - y0), min(tx, nx - x0)
-            for o, r in zip(outs, res):
-                o[..., y0:y0 + ye, x0:x0 + xe] = \
-                    r[..., ly + 1:ly + 1 + ye, lx + 1:lx + 1 + xe]
-    return tuple(outs)
-
-
 def proj_a_tiled(h, u, v, statics, n: int, cfg: Config, tile=None,
                  halo=(4, 3), dmask=None):
     """The staged K3a's schedule on the host, for the tests: the fields and
     statics cut into blocks of `tile` (default: the plan's) with halo =
     (lo, hi) points below and above the tile on both axes, in a ring of
-    NaN (`_block`; the staggered masks rebuilt from the block's mask where
-    dmask, by default where the grid's are make_grid's), phase A on each
-    as a grid of its own, the interiors joined: (u*, v*, div).  Bit for
-    bit proj_a_plain at the kernel's halo (4, 3): its stages reach 4
+    NaN (fused_fb._block; the staggered masks rebuilt from the block's
+    mask where dmask, by default where the grid's are make_grid's), phase
+    A on each as a grid of its own, the interiors joined: (u*, v*, div).
+    Bit for bit proj_a_plain at the kernel's halo (4, 3): its stages reach 4
     points below a tile's points and 3 above (csrc/projection_body.cuh,
     pas); a narrower one lets the NaN in."""
     if tile is None:
@@ -614,8 +601,9 @@ def proj_a_tiled(h, u, v, statics, n: int, cfg: Config, tile=None,
         tile = (g.tx, g.ty)
     dmask = derived_masks(statics[0]) if dmask is None else dmask
     lo, hi = halo
-    return _tiled(lambda f, st, c: proj_a_plain(*f, st, n, c), (h, u, v),
-                  statics, cfg, tile, (lo, hi, lo, hi), dmask)
+    return fused_fb._tiled(lambda f, st, c: proj_a_plain(*f, st, n, c),
+                           (h, u, v), statics, cfg, tile, (lo, hi, lo, hi),
+                           dmask)
 
 
 def proj_b_tiled(h, u_s, v_s, p, statics, t, cfg: Config, tile=None,
@@ -628,9 +616,51 @@ def proj_b_tiled(h, u_s, v_s, p, statics, t, cfg: Config, tile=None,
         tile = (g.tx, g.ty)
     dmask = derived_masks(statics[0]) if dmask is None else dmask
     hy, hx = halo or (halo_b(cfg), 4)
-    return _tiled(lambda f, st, c: proj_b_plain(*f, st, t, c),
-                  (h, u_s, v_s, p), statics, cfg, tile, (hy, hy, hx, hx),
-                  dmask)
+    return fused_fb._tiled(lambda f, st, c: proj_b_plain(*f, st, t, c),
+                           (h, u_s, v_s, p), statics, cfg, tile,
+                           (hy, hy, hx, hx), dmask)
+
+
+def proj_b_streamed(h, u_s, v_s, p, statics, t, cfg: Config, tile=None,
+                    halo=None):
+    """The layer-streamed K3b's schedule on the host, for the tests (csrc/
+    projection_body.cuh: pbl): each tile's block with the halo halo_b (or
+    `halo`) in a ring of NaN, and for each layer from the surface that
+    layer's correction by grad p, continuity and gates from its own h, u*,
+    v* alone; after the last layer Flather's increments, from its sums
+    over the written layers, added to every layer.  Equal to proj_b_plain
+    bit for bit at the kernel's halo."""
+    from beom_tpu_torch.core import ops
+    from beom_tpu_torch.physics import continuity, obc, wetdry
+
+    tile = tile or single_tile(cfg, h.dtype, True)[0]
+    hw = halo_b(cfg) if halo is None else halo
+    t1 = advance_time(t, cfg.dt, cfg.npdtype)
+    corr = _corr(cfg)
+
+    def phase_b(fields, st, c):
+        (h, u_s, v_s, p), (g, fo) = fields, st
+        dpx = g.mask_u * ops.d_xp(p, c.dx)
+        dpy = g.mask_v * ops.d_yp(p, c.dy)
+        out = ([], [], [])
+        for k in range(c.nz):
+            one = fused_fb._layer_cfg(c, k)
+            hk = h[k:k + 1]
+            u1 = (u_s[k:k + 1] - corr * dpx[None]) * g.mask_u
+            v1 = (v_s[k:k + 1] - corr * dpy[None]) * g.mask_v
+            h1 = (hk + c.dt * continuity.continuity_rhs(hk, u1, v1, g, one)) \
+                * g.mask
+            if c.wetdry:
+                wet = wetdry.wet_mask(h1, g, one)
+                u1, v1 = wetdry.gate_u(u1, wet, g), wetdry.gate_v(v1, wet, g)
+            for o, a in zip(out, (h1, u1, v1)):
+                o.append(a)
+        h1, u1, v1 = (torch.cat(o) for o in out)
+        # Flather's fix-up of what the layers wrote
+        return (h1,) + obc.apply_flather(h1, u1, v1, g, fo, c, t1)
+
+    return fused_fb._tiled(phase_b, (h, u_s, v_s, p), statics, cfg, tile,
+                           (hw,) * 4)
 
 
 def make_solve(grid: Grid, cfg: Config, lam):

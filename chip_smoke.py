@@ -225,26 +225,32 @@ Phases, each of which raises on failure (exit code != 0):
  28. many layers and tidal constituents: shelf_forced (wet/dry, Flather,
      sponge, wind, bottom drag) at 2048^2 f32 with 32 layers and 13 of
      TPXO's constituents, past the shared-memory walls of K1 (24 layers)
-     and K3a / K3b (31), so their single-step kernels take the spill
-     route (their planes in device memory).  Paths, each with the
-     counts set to 0 just before and read just after: run() with
-     backend='fused', 100 steps, diagnostics every 50 (finite; one K1
-     launch per step on the spill route), run() of the implicit free
-     surface 3 steps (K3a / K3b on the spill route), and both again on
-     2 x 2 shards of the card (K7-fb, K7-proj).  Then K1 (both parities),
-     K1s at nsub 8 on its plan's route (route 3, its three kernels and
-     the step) and K3a / K3b (both parities) bit for bit their plain
-     versions (K3a's div within 4 ulp / 1e-12 of its scale: past two
-     layers the plain version's torch.sum adds in an order of its own),
-     K7-fb, K7-split and K7-proj on 2 x 2 shards bit for bit the
-     single-device kernels, each kernel's time between CUDA events
-     and on the device beside its plain version's; the same checks at
-     512^2 f64 with 16 layers; at nz 8 f32, where every route builds, the
-     spill route forced by the plans' own parameter bit for bit the
-     shared-memory route for K1, K1s and K3a / K3b, both timed, 2
-     split steps on the forced route (its path), and one step of K7-split
-     on the forced route on 2 x 2 shards (its path), bit for bit K1s on
-     that route.  `python3 chip_smoke.py --layers` runs this phase alone,
+     and K3a / K3b (31): K1 and K3b stream their layers through a few
+     shared-memory planes of one layer (K1 two launches per step, the
+     continuity and the momentum), K3a and K7's bodies take the spill
+     route (their planes in device memory).  Paths, each with the counts
+     set to 0 just before and read just after: run() with
+     backend='fused', 100 steps, diagnostics every 50 (finite; K1's two
+     streamed kernels once per step), run() of the implicit free surface
+     3 steps (K3a on the spill route, K3b layer-streamed), and both again
+     on 2 x 2 shards of the card (K7-fb, K7-proj).  Then K1 (both
+     parities; its continuity's h1 and its momentum's u, v each held and
+     each kernel timed on the device beside the plain continuity and the
+     plain momentum with finalize), K1s at nsub 8 on its plan's route
+     (route 3, its three kernels and the step) and K3a / K3b (both
+     parities) bit for bit their plain versions (K3a's div within 4 ulp /
+     1e-12 of its scale: past two layers the plain version's torch.sum
+     adds in an order of its own), K7-fb, K7-split and K7-proj on 2 x 2
+     shards bit for bit the single-device kernels, each kernel's time
+     between CUDA events and on the device beside its plain version's;
+     the same checks at 512^2 f64 with 16 layers; at nz 8 f32, where
+     every route builds, the routes forced by the plans' own parameter
+     bit for bit the shared-memory route for K1, K1s and K3a / K3b, both
+     timed, 2 steps each of K1 and of the split step on the forced route
+     (their paths), and one step of K7-split on the forced route on 2 x 2
+     shards (its path), bit for bit K1s on that route; the bounds of
+     K1s's spill kernels at nz 32.  `python3 chip_smoke.py --layers` runs
+     this phase alone,
      after its builds.
 
 The line before the last is the kernels' JSON record, each kernel with its
@@ -333,16 +339,20 @@ def phase(name):
 
 
 def kernel_entry(name, src, site, launches, err, ms, n_bytes, n_ops,
-                 site_dir="stencils", device=None):
+                 site_dir="stencils", device=None, extra=None):
     """One kernel of the JSON record.  ms = (kernel, plain), between CUDA
     events; `device`, where it was measured, is the kernel's own time
     under torch.profiler (`device_ms`).  bound_ms is the larger of n_bytes
     (each input read once, each output written once) over the memory rate
-    and n_ops over the float32 rate.  None of these kernels has a single
-    PyTorch call that computes the same function."""
+    and n_ops over the float32 rate.  `extra` adds keys of the row's own
+    (a function launched as several kernels lists them there).  None of
+    these kernels has a single PyTorch call that computes the same
+    function."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     by_ops = n_ops / F32_OPS_PER_S * 1e3
-    extra = {} if device is None else {"device_ms": device}
+    extra = dict(extra or {})
+    if device is not None:
+        extra["device_ms"] = device
     return {**extra, "name": name, "route": "cuda",
             "source": f"beom_tpu_torch/csrc/{src}",
             "replaces": f"beom_tpu/{site_dir}/{site}", "launches": launches,
@@ -358,6 +368,28 @@ def step_fields(cfg):
     n = 6 * cfg.nz + 6 + 2 * cfg.wind + cfg.sponge
     n += cfg.nz * (cfg.sponge or cfg.obc)
     return n + cfg.obc * (3 + 2 * len(cfg.tides))
+
+
+def stream_fields(cfg):
+    """(continuity, momentum) fields the two parts of an fb step move, each
+    of its operands once: the continuity reads h, u, v, three masks, the
+    sponge and h_ext, the clamp's map and the tides and writes h1; the
+    momentum and finalize read h1, u, v, four masks, H, f, the wind, the
+    sponge, Flather's maps and the tides and write u, v."""
+    nz, nt = cfg.nz, len(cfg.tides)
+    cont = 4 * nz + 3 + cfg.sponge + nz * (cfg.sponge or cfg.obc) \
+        + cfg.obc * (1 + 2 * nt)
+    mom = 5 * nz + 6 + 2 * cfg.wind + cfg.sponge + cfg.obc * (2 + 2 * nt)
+    return cont, mom
+
+
+def split_fields(cfg):
+    """Fields route 3's slow phase and recomposition move, as phase 17
+    counts them: the slow phase reads the step's operands and writes
+    SlowPhase (4 nz + 9), the recomposition reads 4 nz + 2 of SlowPhase,
+    the subcycle's 5, h, H and 3 masks and writes h, u, v."""
+    return {"split_slow": step_fields(cfg) + cfg.nz + 9,
+            "split_recompose": 8 * cfg.nz + 11}
 
 
 def cycle_ops(steps, levels, nu=2):
@@ -1685,9 +1717,11 @@ def multigrid_phases(dev, smi, rel, ulps):
                  f" (the walk before the tier and the tiled passes: "
                  f"{before})"))
     for smoother in ("eager", "fused"):
-        mg_solve = mg.make_mg_solver(grid, cfg, smoother=smoother)
-        # the eager solve takes a minute: one call, timed and counted
+        # the eager solve takes a minute to converge: one call of its first
+        # three cycles, timed and counted
         eager = smoother == "eager"
+        mg_solve = mg.make_mg_solver(grid, cfg, smoother=smoother,
+                                     maxiter=3 if eager else None)
         if not eager:
             mg_solve(rhs)
         c0 = mg.CYCLES
@@ -3901,10 +3935,11 @@ def cards_phase(dev, smi):
 
 # phase 28: the shelf at full width with many layers and constituents.
 # 2048^2 f32 at 32 layers is past K1's wall of 24 layers under wet/dry and
-# K3a / K3b's of 32 (the spill route); 512^2 f64 at 16 layers past K1's 13
-# and K3a / K3b's 16 (the time limit cuts the f64 grid); nz 8 f32, where
-# every route builds, holds the spill route forced by the plans' own
-# parameter against the shared-memory route
+# K3a / K3b's of 32 (K1 and K3b layer-streamed, K3a and K7's bodies on the
+# spill route); 512^2 f64 at 16 layers past K1's 13 and K3a / K3b's 16
+# (the time limit cuts the f64 grid); nz 8 f32, where every route builds,
+# holds the routes forced by the plans' own parameter against the
+# shared-memory route
 LAYERS28 = 32
 TIDES28 = 13
 TIDE_SEED28 = 28
@@ -3988,50 +4023,71 @@ def layers_specs():
 
 
 def layers_leg(dev, smi, nz, dtype, n, timed):
-    """Phase 28's checks of one leg (nz layers at n^2): K1, K1s on its
-    plan's route and K3a / K3b's single-step kernels, each bit for bit its
+    """Phase 28's checks of one leg (nz layers at n^2): K1's layer-streamed
+    kernels, K1s on its plan's route and K3a / K3b's single-step kernels
+    (K3a on the spill route, K3b layer-streamed), each bit for bit its
     plain version (both sweep parities where the kernel takes one), their
     plans printed, and K7-fb, K7-split and K7-proj on a 2 x 2 mesh of
-    shards of the card bit for bit the single-device kernels.  With
-    `timed`, each kernel's time between CUDA events and on the device
-    beside its plain version's.  Returns {kernel: (err, (ms, plain_ms),
-    device ms)} of the timed kernels."""
+    shards of the card (their bodies on the spill route) bit for bit the
+    single-device kernels.  With `timed`, each kernel's time between CUDA
+    events and on the device beside its plain version's (K1's step, both
+    launches, between events; its two kernels each on the device, beside
+    the plain continuity and the plain momentum and finalize).  Returns
+    {kernel: (err, (ms, plain_ms), device ms)} of the timed kernels, and
+    under "fb_parts" {K1's kernel: (err, device ms, plain part's ms)}."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band, fused_fb
     from beom_tpu_torch.stencils import fused_projection as fp
-    from beom_tpu_torch.stepping import split
+    from beom_tpu_torch.stepping import fb, split
 
     tag = f"{n}^2 {dtype} nz={nz}"
     out = {}
-    # K1 on its plan's route (the spill route), both parities
+    # K1 on its plan's route (layer-streamed), both parities
     cfg, grid, forcing, st = layers_case(dev, 28, nz, dtype, n)
     statics = (grid, forcing)
     pl = fused_fb.plan(cfg, cfg.tdtype, 1)
     print(f"   K1 {tag}: {pl.describe()}")
-    if not pl.spill:
-        raise AssertionError(f"K1 {tag} is not on the spill route")
-    with torch.cuda.device(dev):
-        work, slots = fused_fb.scratch(fused_fb._entries(
-            cfg, cfg.tdtype, 1, None, True)[0], 0, cfg.tdtype, dev)
-    print(f"   K1 {tag}: the spill route's scratch, {slots} CTAs x "
-          f"{pl.work} bytes = {work.numel() * work.element_size()} bytes")
-    del work
+    if not pl.stream:
+        raise AssertionError(f"K1 {tag} is not layer-streamed")
     for par in (0, 1):
         args = (st.h, st.u, st.v, statics, par, st.t, cfg, 1)
         got = fused_fb.fused_fb_step(*args)
         torch.cuda.synchronize()
-        err = agree(f"K1 {tag} n={par} vs plain", got,
-                    fused_fb.fused_fb_step_plain(*args), None)
+        ref = fused_fb.fused_fb_step_plain(*args)
+        err = agree(f"K1 {tag} n={par} vs plain", got, ref, None)
     if timed:
+        # the step (both launches) between events; each kernel on the
+        # device, beside the plain version of its part of the step: the
+        # continuity, and the momentum with finalize from its h1
         args = (st.h, st.u, st.v, statics, 0, st.t, cfg, 1)
-        ms = time_pair(f"K1 {tag} (spill route)",
+        ms = time_pair(f"K1 {tag} (layer-streamed, both launches)",
                        lambda: fused_fb.fused_fb_step_plain(*args),
                        lambda: fused_fb.fused_fb_step(*args), 2, 10)
         dev_ms = device_ms(f"K1 {tag}", lambda: fused_fb.fused_fb_step(
-            *args), 5, {"fb_step_kernel": 1})["fb_step_kernel"]
-        out["fb_step"] = (err, ms, dev_ms)
+            *args), 5, {"fb_cont_kernel": 1, "fb_mom_kernel": 1})
+        s0 = st.replace(n=0)
+        h1 = fb.continuity_update(s0, grid, forcing, cfg)
+        plain_c = time_ms(lambda: fb.continuity_update(s0, grid, forcing,
+                                                       cfg), 2)
+        plain_m = time_ms(lambda: fb.finalize(h1, *fb.momentum_update(
+            h1, s0, grid, forcing, cfg), s0, grid, forcing, cfg), 2)
+        got = fused_fb.fused_fb_step(*args)
+        ref = fused_fb.fused_fb_step_plain(*args)
+        torch.cuda.synchronize()
+        err_c = agree(f"K1 {tag}: the continuity's h1 vs plain", got[:1],
+                      ref[:1], None)
+        err_m = agree(f"K1 {tag}: the momentum's u, v vs plain", got[1:],
+                      ref[1:], None)
+        print(f"   K1 {tag}: plain continuity {plain_c!r} ms, plain "
+              f"momentum and finalize {plain_m!r} ms ({smi})")
+        out["fb_step"] = (max(err, err_c, err_m), ms,
+                          None if None in dev_ms.values() else
+                          sum(dev_ms.values()))
+        out["fb_parts"] = {
+            "fb_cont_kernel": (err_c, dev_ms["fb_cont_kernel"], plain_c),
+            "fb_mom_kernel": (err_m, dev_ms["fb_mom_kernel"], plain_m)}
     del cfg, grid, forcing, st, statics
     torch.cuda.empty_cache()
 
@@ -4072,8 +4128,9 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
     statics = (grid, forcing)
     ph = fp.Phases(grid, forcing, cfg)
     print(f"   K3a / K3b {tag}: {ph.plan.describe()}")
-    if not (ph.plan.spill and ph.plan.a is None and ph.plan.b is None):
-        raise AssertionError(f"K3a / K3b {tag} are not on the spill route")
+    if not (ph.plan.spill and ph.plan.a is None and ph.plan.stream_b):
+        raise AssertionError(f"K3a / K3b {tag} are not on the spill route "
+                             "and layer-streamed")
     p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev) * grid.mask
     # div's layer sum: the kernel adds the layers from the surface, the
     # plain version's torch.sum in an order of its own past two layers,
@@ -4098,16 +4155,16 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
             lambda: fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg),
             lambda: ph.a(st.h, st.u, st.v, 0), 2, 10)
         ms_b = time_pair(
-            f"K3b {tag} (spill route)",
+            f"K3b {tag} (layer-streamed)",
             lambda: fp.proj_b_plain(st.h, a_ref[0], a_ref[1], p, statics,
                                     st.t, cfg),
             lambda: ph.b(st.h, a_ref[0], a_ref[1], p, st.t), 2, 10)
         dev_ms = device_ms(f"K3a / K3b {tag}", lambda: (
             ph.a(st.h, st.u, st.v, 0), ph.b(st.h, a_ref[0], a_ref[1], p,
                                             st.t)), 5,
-            {"proj_a_kernel": 1, "proj_b_kernel": 1})
+            {"proj_a_kernel": 1, "proj_b_layers_kernel": 1})
         out["proj_a"] = (err_a, ms_a, dev_ms["proj_a_kernel"])
-        out["proj_b"] = (err_b, ms_b, dev_ms["proj_b_kernel"])
+        out["proj_b"] = (err_b, ms_b, dev_ms["proj_b_layers_kernel"])
     del statics, grid, forcing, st, ph, a, b, a_ref, b_ref
     torch.cuda.empty_cache()
 
@@ -4132,7 +4189,8 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
             torch.cuda.synchronize()
             err7 = agree(f"K7-{scheme} {tag} vs K1{'s' * (scheme != 'fb')}",
                          gather(got), ref, None)
-            keys = ({"shard_step_kernel": 1, "fb_step_kernel": 1}
+            keys = ({"shard_step_kernel": 1, "fb_cont_kernel": 1,
+                     "fb_mom_kernel": 1}
                     if scheme == "fb" else
                     {"shard_slow_kernel": 1, "shard_sub_kernel": 1,
                      "shard_rec_kernel": 1, "split_slow_kernel": 1,
@@ -4156,7 +4214,7 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
             err7 = agree(f"K7-proj A {tag} vs K3a", gather(a7), a1, None)
             agree(f"K7-proj B {tag} vs K3b", gather(b7), b1, None)
             keys = {"shard_pa_kernel": 1, "shard_pb_kernel": 1,
-                    "proj_a_kernel": 1, "proj_b_kernel": 1}
+                    "proj_a_kernel": 1, "proj_b_layers_kernel": 1}
             # each phase alone, for its row
             parts = {"A": lambda: K.proj_a(*f, 0),
                      "B": lambda: K.proj_b(f[0], a7[0], a7[1], ps, st.t)}
@@ -4182,14 +4240,15 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
 
 def both_routes(dev, smi, nz):
     """Phase 28's last leg: at nz layers (2048^2 f32), where every route
-    builds, the spill route forced by the plans' own parameter (fused_fb.
-    plan, split_plan, fused_projection.plan, dist_band.mesh_plan) bit for
-    bit the shared-memory route, each timed beside it; and two paths
-    through the forced route, their kernels' counts read from 0: 2 steps
-    of the split step, and one of K7-split on 2 x 2 shards of the card,
-    bit for bit the single-device kernels on the same route.  Returns
-    {kernel: (err, ms, device ms, launches)} of the forced split
-    kernels."""
+    builds, the routes off shared memory forced by the plans' own
+    parameter (fused_fb.plan, split_plan, fused_projection.plan,
+    dist_band.mesh_plan: K1 and K3b layer-streamed, the split step and K3a
+    on the spill route) bit for bit the shared-memory route, each timed
+    beside it; and three paths through the forced routes, their kernels'
+    counts read from 0: 2 steps of K1 and of the split step, and one of
+    K7-split on 2 x 2 shards of the card, bit for bit the single-device
+    kernels on the same route.  Returns {kernel: (err, ms, device ms,
+    launches)} of the forced split kernels."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
@@ -4213,12 +4272,27 @@ def both_routes(dev, smi, nz):
         got = fused_fb.fused_fb_step(*args, pl=forced)
         ref = fused_fb.fused_fb_step(*args)
         torch.cuda.synchronize()
-        agree(f"{scheme} {tag}: the spill route vs the shared-memory route",
+        route = "the layer-streamed route" if scheme == "fb" else \
+            "the spill route"
+        agree(f"{scheme} {tag}: {route} vs the shared-memory route",
               got, ref, None)
         ms = time_pair(f"{scheme} {tag} shared-memory route (as 'plain') vs "
-                       "the spill route", lambda: fused_fb.fused_fb_step(
+                       f"{route}", lambda: fused_fb.fused_fb_step(
                            *args), lambda: fused_fb.fused_fb_step(
                            *args, pl=forced), 10, 10, unit="step")
+        if scheme == "fb":
+            # the forced route's path: 2 steps, the counts from 0
+            saved = dict(fused_fb.STREAM_LAUNCHES)
+            fused_fb.STREAM_LAUNCHES.update(dict.fromkeys(saved, 0))
+            fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg,
+                                   2, pl=forced)
+            torch.cuda.synchronize()
+            counts = dict(fused_fb.STREAM_LAUNCHES)
+            fused_fb.STREAM_LAUNCHES.update(saved)
+            print(f"   fb {tag}, 2 steps on the forced route: launches "
+                  f"{counts}")
+            if counts != {"fb_continuity": 2, "fb_momentum": 2}:
+                raise AssertionError(f"the forced fb path: {counts}")
         if scheme == "split":
             # the forced route's path: 2 steps, the counts from 0
             saved = dict(fused_fb.SPILL_LAUNCHES)
@@ -4310,6 +4384,8 @@ def both_routes(dev, smi, nz):
                       phase_plan=fp.PhasePlan(None, None, False))
     print(f"   K3a / K3b {tag}, forced: {forced.plan.describe()}; beside "
           f"the single-step kernels of the shared-memory route")
+    if not forced.plan.stream_b:
+        raise AssertionError(f"K3b {tag} forced is not layer-streamed")
     p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev) * grid.mask
     for par in (0, 1):
         a, a1 = forced.a(st.h, st.u, st.v, par), usual.a(st.h, st.u, st.v,
@@ -4319,13 +4395,14 @@ def both_routes(dev, smi, nz):
         torch.cuda.synchronize()
         agree(f"K3a {tag} n={par}: the spill route vs the shared-memory "
               "route", a, a1, None)
-        agree(f"K3b {tag} n={par}: the spill route vs the shared-memory "
-              "route", b, b1, None)
+        agree(f"K3b {tag} n={par}: the layer-streamed route vs the "
+              "shared-memory route", b, b1, None)
     time_pair(f"K3a {tag} shared-memory route (as 'plain') vs the spill "
               "route", lambda: usual.a(st.h, st.u, st.v, 0),
               lambda: forced.a(st.h, st.u, st.v, 0), 10, 10)
-    time_pair(f"K3b {tag} shared-memory route (as 'plain') vs the spill "
-              "route", lambda: usual.b(st.h, a1[0], a1[1], p, st.t),
+    time_pair(f"K3b {tag} shared-memory route (as 'plain') vs the "
+              "layer-streamed route", lambda: usual.b(st.h, a1[0], a1[1], p,
+                                                      st.t),
               lambda: forced.b(st.h, a1[0], a1[1], p, st.t), 10, 10)
     del forced, usual, grid, forcing, st
     torch.cuda.empty_cache()
@@ -4336,11 +4413,11 @@ def layers_paths(dev, smi):
     """Phase 28's paths at 2048^2 f32 on the shelf with LAYERS28 layers and
     TIDES28 constituents, each driven with the kernels' counts set to 0
     just before and read just after: run() with backend='fused' (fb, 100
-    steps, diagnostics every 50: K1 on the spill route, one launch per
-    step), run() of the implicit free surface (3 steps: K3a / K3b on the
-    spill route around K6), and the same two on a 2 x 2 mesh of shards of
-    the card (10 and 3 steps: K7-fb, K7-proj).  Returns the counts by
-    path."""
+    steps, diagnostics every 50: K1 layer-streamed, its two kernels once
+    per step), run() of the implicit free surface (3 steps: K3a on the
+    spill route and K3b layer-streamed around K6), and the same two on a
+    2 x 2 mesh of shards of the card (10 and 3 steps: K7-fb, K7-proj, on
+    the spill route).  Returns the counts by path."""
     import torch
 
     from beom_tpu_torch.run import run
@@ -4358,33 +4435,35 @@ def layers_paths(dev, smi):
                                              BIG, scheme=scheme,
                                              backend="fused", diag_every=50,
                                              **kw)
-        saved = (dict(fused_fb.SPILL_LAUNCHES), fused_fb.LAUNCHES,
-                 dict(fp.SPILL_LAUNCHES), dict(dist_band.SPILL_LAUNCHES))
-        fused_fb.SPILL_LAUNCHES.update(dict.fromkeys(saved[0], 0))
+        counters = (fused_fb.STREAM_LAUNCHES, fp.SPILL_LAUNCHES,
+                    fp.STREAM_LAUNCHES, dist_band.SPILL_LAUNCHES)
+        saved = [dict(c) for c in counters] + [fused_fb.LAUNCHES]
+        for c in counters:
+            c.update(dict.fromkeys(c, 0))
         fused_fb.LAUNCHES = 0
-        fp.SPILL_LAUNCHES.update(dict.fromkeys(saved[2], 0))
-        dist_band.SPILL_LAUNCHES.update(dict.fromkeys(saved[3], 0))
         log = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = run(cfg, grid, forcing, st, n_steps, log=log)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {"K1": fused_fb.LAUNCHES, "K1 spill": fused_fb.SPILL_LAUNCHES[
-            "fb"], "K3a spill": fp.SPILL_LAUNCHES["proj_a"],
-            "K3b spill": fp.SPILL_LAUNCHES["proj_b"],
-            "K7-fb spill": dist_band.SPILL_LAUNCHES["fb"],
-            "K7-proj A spill": dist_band.SPILL_LAUNCHES["proj_a"],
-            "K7-proj B spill": dist_band.SPILL_LAUNCHES["proj_b"]}
-        fused_fb.SPILL_LAUNCHES.update(saved[0])
-        fused_fb.LAUNCHES = saved[1]
-        fp.SPILL_LAUNCHES.update(saved[2])
-        dist_band.SPILL_LAUNCHES.update(saved[3])
+        got = {"K1": fused_fb.LAUNCHES,
+               "K1 continuity": fused_fb.STREAM_LAUNCHES["fb_continuity"],
+               "K1 momentum": fused_fb.STREAM_LAUNCHES["fb_momentum"],
+               "K3a spill": fp.SPILL_LAUNCHES["proj_a"],
+               "K3b stream": fp.STREAM_LAUNCHES["proj_b"],
+               "K7-fb spill": dist_band.SPILL_LAUNCHES["fb"],
+               "K7-proj A spill": dist_band.SPILL_LAUNCHES["proj_a"],
+               "K7-proj B spill": dist_band.SPILL_LAUNCHES["proj_b"]}
+        for c, v in zip(counters, saved):
+            c.update(v)
+        fused_fb.LAUNCHES = saved[-1]
         diags = [json.loads(x) for x in log.getvalue().splitlines()]
         mesh = "mesh_y" in kw
-        want = {("fb", False): {"K1": n_steps, "K1 spill": n_steps},
+        want = {("fb", False): {"K1": n_steps, "K1 continuity": n_steps,
+                                "K1 momentum": n_steps},
                 ("implicit_fs", False): {"K3a spill": n_steps,
-                                         "K3b spill": n_steps},
+                                         "K3b stream": n_steps},
                 ("fb", True): {"K7-fb spill": n_steps},
                 ("implicit_fs", True): {"K7-proj A spill": n_steps,
                                         "K7-proj B spill": n_steps}}[
@@ -4406,7 +4485,8 @@ def layers_paths(dev, smi):
 
 def layers_phase(dev, smi):
     """Phase 28: every fused kernel at any number of layers and tidal
-    constituents; returns the JSON entries of the spill route's kernels."""
+    constituents; returns the JSON entries of the layer-streamed and the
+    spill route's kernels."""
     import torch
 
     phase(f"28 many layers: the shelf at {BIG}^2 f32 with {LAYERS28} layers "
@@ -4419,17 +4499,41 @@ def layers_phase(dev, smi):
     cfg = layers_case("cpu", 0, LAYERS28, "float32", 16)[0]
     pts = BIG * BIG
     fa, fb_ = phase_fields(cfg)
-    by_path = {"fb_step": counts["fb"]["K1 spill"],
-               "proj_a": counts["implicit FS"]["K3a spill"],
-               "proj_b": counts["implicit FS"]["K3b spill"]}
-    entries = []
-    for name, n_fields, ops in (("fb_step", step_fields(cfg), 150),
-                                ("proj_a", fa, 150), ("proj_b", fb_, 60)):
-        err, ms, dev_ms = timed[name]
-        src = "fb_step.cu" if name == "fb_step" else "projection.cu"
+    cont, mom = stream_fields(cfg)
+    # K1's step, one row: the function is the step, whatever launches the
+    # route makes, so its bound is the step's operands once (step_fields);
+    # the two kernels' launches, device times and plain parts beside it,
+    # and the bytes the two-launch design itself moves (each launch's
+    # operands once, h1 read back by the momentum launch)
+    own_ms = (cont + mom + cfg.nz) * pts * 4 / HBM_BYTES_PER_S * 1e3
+    err, ms, dev_ms = timed["fb_step"]
+    labels = {"fb_cont_kernel": "K1 continuity",
+              "fb_mom_kernel": "K1 momentum"}
+    parts = {kernel: {"launches": counts["fb"][labels[kernel]],
+                      "max_abs_err": e, "device_ms": d, "plain_ms": p}
+             for kernel, (e, d, p) in timed["fb_parts"].items()}
+    entries = [kernel_entry(
+        f"fb_step_stream_nz{LAYERS28}", "fb_step.cu", "band.py:200",
+        sum(v["launches"] for v in parts.values()), err, ms,
+        step_fields(cfg) * pts * 4, 150 * cfg.nz * pts, device=dev_ms,
+        extra={"kernels": parts, "design_bytes_ms": own_ms})]
+    print(f"   the fb step's bound at nz={LAYERS28} (its operands once): "
+          f"{entries[0]['bound_ms']!r} ms; the layer-streamed kernels' own "
+          f"bytes, h1 read back by the momentum launch: {own_ms!r} ms")
+    # K3a on the spill route, K3b layer-streamed
+    for key, name, count, n_fields, ops in (
+            ("proj_a", "proj_a_spill", counts["implicit FS"]["K3a spill"],
+             fa, 150),
+            ("proj_b", "proj_b_stream", counts["implicit FS"]["K3b stream"],
+             fb_, 60)):
+        err, ms, dev_ms = timed[key]
         entries.append(kernel_entry(
-            f"{name}_spill_nz{LAYERS28}", src, "band.py:200", by_path[name],
+            f"{name}_nz{LAYERS28}", "projection.cu", "band.py:200", count,
             err, ms, n_fields * pts * 4, ops * cfg.nz * pts, device=dev_ms))
+    cfg32 = layers_case("cpu", 0, LAYERS28, "float32", 16, scheme="split")[0]
+    for name, n_fields in split_fields(cfg32).items():
+        print(f"   K1s / K7-split {name} at nz={LAYERS28}, route 3: bound "
+              f"{n_fields * pts * 4 / HBM_BYTES_PER_S * 1e3!r} ms (bytes)")
     # K7's rows: its time between events, the plain version of the same
     # function on the same data (the single-device row's), its device time
     mesh_rows = (("shard_fb", "shard_step", "K7-fb spill", "shard_step_kernel",
@@ -4453,9 +4557,9 @@ def layers_phase(dev, smi):
     # H and 3 masks and writes h, u, v
     cfg8 = layers_case("cpu", 0, BOTH28, "float32", 16, scheme="split")[0]
     nz8 = cfg8.nz
-    for name, n_fields, ops in (
-            ("split_slow", step_fields(cfg8) + nz8 + 9, 150 * nz8),
-            ("split_recompose", 8 * nz8 + 11, 40 * nz8)):
+    for name, ops in (("split_slow", 150 * nz8),
+                      ("split_recompose", 40 * nz8)):
+        n_fields = split_fields(cfg8)[name]
         for key, src, site in ((name, "split_step.cu", "band.py:200"),
                                (f"shard_{name}", "shard_split.cu",
                                 "dist_band.py:63")):

@@ -186,9 +186,10 @@ def test_build_spec_of_case(name, scheme):
 def test_shared_memory_picks_the_tile():
     """smem_bytes counts the kernels' planes; a configuration too large
     for the first tile gets a smaller one, one too large for the last
-    takes the spill route (its planes in device memory, the table of
-    offsets alone in shared memory), and a subcycle too large for its
-    last tile raises with the byte count."""
+    streams its layers (K1) or, in the shard kernels, takes the spill
+    route (its planes in device memory, the table of offsets alone in
+    shared memory), and a subcycle too large for its last tile raises
+    with the byte count."""
     cfg = make_case("shelf_forced", nx=16, ny=16, device="cpu", nu4=1e6)[0]
     # 7 nz + 4 + 2 nz + 1 = 23 planes of 42 x 26 points, and the offsets
     assert fused_fb.smem_bytes(cfg, (32, 16), (64, 32), 8)["fb_step"] \
@@ -205,7 +206,8 @@ def test_shared_memory_picks_the_tile():
     fused_fb._TILES, saved = ((32, 16),), fused_fb._TILES
     try:
         defines = dict(d.split("=") for d in fused_fb.build_spec(wide)[1])
-        assert defines["BEOM_SPILL"] == "1"
+        assert defines["BEOM_STREAM"] == "1" and "BEOM_SPILL" not in defines
+        assert "BEOM_SPILL=1" in fused_fb.build_spec(wide, shard=True)[1]
         assert (defines["BEOM_TX"], defines["BEOM_TY"]) == ("32", "16")
         assert fused_fb.single_tile(wide) == ((32, 16), True)
         assert fused_fb.smem_bytes(wide, (32, 16), (64, 32), 8,

@@ -1401,9 +1401,9 @@ def _many_layers(device, seed, nz, n_tides, dtype, **kw):
     return cfg, grid, forcing, st.replace(t=cfg.npdtype.type(7 * cfg.dt))
 
 
-# the spill route's cases: past the shared-memory wall of each type (f64
-# with wet/dry from 13 layers, f32 from 25), and nz 8 f32, where the other
-# route builds too and the plan's parameter forces the spill route
+# the cases off shared memory: past the shared-memory wall of each type
+# (f64 with wet/dry from 13 layers, f32 from 25), and nz 8 f32, where the
+# other route builds too and the plan's parameter forces the route
 SPILL_CASES = [("float64", 16, False), ("float32", 32, False),
                ("float32", 8, True)]
 
@@ -1414,23 +1414,83 @@ def _bits(label, out, ref):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nz", [(dtype, nz)
+                                      for dtype in ("float32", "float64")
+                                      for nz in (1, 9, 32)])
+def test_layer_stream_matches_plain(cuda, dtype, nz):
+    """K1's and K3b's layer-streamed kernels (the plans' parameter forces
+    them where the shared-memory route fits too), 13 constituents on the
+    shelf with the biharmonic and the interfacial drag on, 96 x 64 (not a
+    multiple of the 32 x 16 tile): one step and one phase B at each sweep
+    parity bit for bit their plain versions, each launch counted."""
+    from beom_tpu_torch.cases import shelf_forced
+
+    for scheme in ("fb", "implicit_fs"):
+        cfg, grid, forcing, st = _perturbed(
+            cuda, 89, "shelf_forced", dtype=dtype, nx=96, ny=64,
+            scheme=scheme, precond="jacobi", nu4=1e9, r_int=1e-4)
+        if nz != cfg.nz:
+            cfg, forcing, st = _layered(cfg, forcing, st, nz) if nz > 1 \
+                else (dataclasses.replace(cfg, nz=1, rho=cfg.rho[:1]),
+                      dataclasses.replace(forcing, h_ext=forcing.h_ext.sum(
+                          0, keepdim=True)),
+                      st.replace(h=st.h.sum(0, keepdim=True), u=st.u[:1],
+                                 v=st.v[:1]))
+        om, amp, ph = shelf_forced.constituents(13, cfg.ny, cfg.nx, 89,
+                                                dtype=cfg.npdtype)
+        cfg = dataclasses.replace(cfg, tides=om)
+        forcing = dataclasses.replace(
+            forcing, tide_amp=torch.tensor(amp, device=cuda),
+            tide_phase=torch.tensor(ph, device=cuda))
+        st = st.replace(t=cfg.npdtype.type(7 * cfg.dt))
+        statics = (grid, forcing)
+        for n in (0, 1):
+            if scheme == "fb":
+                pl = fused_fb.plan(cfg, cfg.tdtype, 1, True)
+                assert pl.stream, pl.describe()
+                args = (st.h, st.u, st.v, statics, n, st.t, cfg, 1)
+                before = dict(fused_fb.STREAM_LAUNCHES)
+                out = fused_fb.fused_fb_step(*args, pl=pl)
+                torch.cuda.synchronize()
+                assert fused_fb.STREAM_LAUNCHES == {
+                    k: v + 1 for k, v in before.items()}
+                _bits(f"K1 nz={nz} n={n}", out,
+                      fused_fb.fused_fb_step_plain(*args))
+                continue
+            ph = fused_projection.Phases(
+                grid, forcing, cfg,
+                phase_plan=fused_projection.plan(cfg, cfg.tdtype, True))
+            assert ph.plan.stream_b, ph.plan.describe()
+            p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
+                * grid.mask
+            us, vs, _ = fused_projection.proj_a_plain(st.h, st.u, st.v,
+                                                      statics, n, cfg)
+            before = fused_projection.STREAM_LAUNCHES["proj_b"]
+            out = ph.b(st.h, us, vs, p, st.t)
+            torch.cuda.synchronize()
+            assert fused_projection.STREAM_LAUNCHES["proj_b"] == before + 1
+            _bits(f"K3b nz={nz} n={n}", out, fused_projection.proj_b_plain(
+                st.h, us, vs, p, statics, st.t, cfg))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES)
-@pytest.mark.parametrize("scheme", ["fb", "split"])
+@pytest.mark.parametrize("scheme", ["split"])
 def test_spill_route_matches_plain(cuda, scheme, dtype, nz, spill):
-    """K1's single-step kernel and K1s's slow phase and recomposition on
-    the spill route (their planes in device memory), 13 constituents, 96 x
-    64: one step at each sweep parity against the plain version (f64
-    1e-12, f32 4 ulp of each field's scale), and bit for bit the other
-    route where it builds (nz 8; the split step's f64 wall lies past nz
-    16, so there the plan's parameter forces the route)."""
+    """K1s's slow phase and recomposition on the spill route (their planes
+    in device memory), 13 constituents, 96 x 64: one step at each sweep
+    parity against the plain version (f64 1e-12, f32 4 ulp of each field's
+    scale), and bit for bit the other route where it builds (nz 8; the
+    split step's f64 wall lies past nz 16, so there the plan's parameter
+    forces the route).  K1 off shared memory streams its layers:
+    test_layer_stream_matches_plain."""
     cfg, grid, forcing, st = _many_layers(cuda, 71, nz, 13, dtype, nx=96,
                                           ny=64, scheme=scheme, nsub=4)
     statics = (grid, forcing)
     both = not fused_fb.single_tile(cfg, cfg.tdtype)[1]
     spill = True if both else spill
     rel = 1e-12 if dtype == "float64" else 4 * 2.0 ** -23
-    pl = fused_fb.plan(cfg, cfg.tdtype, 1, spill) if scheme == "fb" \
-        else fused_fb.split_plan(cfg, cfg.tdtype, spill)
+    pl = fused_fb.split_plan(cfg, cfg.tdtype, spill)
     assert pl.spill, pl.describe()
     for n in (0, 1):
         args = (st.h, st.u, st.v, statics, n, st.t, cfg, 1)
@@ -1438,10 +1498,7 @@ def test_spill_route_matches_plain(cuda, scheme, dtype, nz, spill):
         out = fused_fb.fused_fb_step(*args, pl=pl)
         torch.cuda.synchronize()
         moved = {k: fused_fb.SPILL_LAUNCHES[k] - before[k] for k in before}
-        assert moved == ({"fb": 1, "slow": 0, "recompose": 0, "tend": 0}
-                         if scheme == "fb" else
-                         {"fb": 0, "slow": 1, "recompose": 1, "tend": 0}), \
-            moved
+        assert moved == {"slow": 1, "recompose": 1, "tend": 0}, moved
         ref = fused_fb.fused_fb_step_plain(*args)
         for f, a, b in zip("huv", out, ref):
             err = float((a - b).abs().max())
@@ -1455,9 +1512,10 @@ def test_spill_route_matches_plain(cuda, scheme, dtype, nz, spill):
 @pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES)
 @pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
 def test_spill_route_phases_match_plain(cuda, scheme, dtype, nz, spill):
-    """K3a and K3b's single-step kernels on the spill route, both
-    parities, against their plain versions (f64 1e-12, f32 4 ulp of each
-    field's scale), and bit for bit the other route where it builds."""
+    """K3a's single-step kernel on the spill route and K3b's layer-streamed
+    one, both parities, against their plain versions (f64 1e-12, f32 4
+    ulp of each field's scale), and bit for bit the other route where it
+    builds."""
     cfg, grid, forcing, st = _many_layers(cuda, 73, nz, 13, dtype, nx=96,
                                           ny=64, scheme=scheme,
                                           precond="jacobi")
@@ -1470,7 +1528,8 @@ def test_spill_route_phases_match_plain(cuda, scheme, dtype, nz, spill):
     p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
         * grid.mask
     for n in (0, 1):
-        before = dict(fused_projection.SPILL_LAUNCHES)
+        before = (dict(fused_projection.SPILL_LAUNCHES),
+                  dict(fused_projection.STREAM_LAUNCHES))
         a = ph.a(st.h, st.u, st.v, n)
         a_ref = fused_projection.proj_a_plain(st.h, st.u, st.v, statics, n,
                                               cfg)
@@ -1478,8 +1537,9 @@ def test_spill_route_phases_match_plain(cuda, scheme, dtype, nz, spill):
         b_ref = fused_projection.proj_b_plain(st.h, a_ref[0], a_ref[1], p,
                                               statics, st.t, cfg)
         torch.cuda.synchronize()
-        assert fused_projection.SPILL_LAUNCHES == {
-            k: v + 1 for k, v in before.items()}
+        assert (fused_projection.SPILL_LAUNCHES,
+                fused_projection.STREAM_LAUNCHES) == tuple(
+            {k: v + 1 for k, v in d.items()} for d in before)
         for x, y in zip(a + b, a_ref + b_ref):
             err = float((x - y).abs().max())
             assert err <= rel * max(float(y.abs().max()), 1e-30), (n, err)
@@ -1499,8 +1559,9 @@ def test_spill_route_phases_match_plain(cuda, scheme, dtype, nz, spill):
 def test_spill_route_on_a_mesh(cuda, scheme, dtype, nz, spill):
     """K7's single-step bodies on the spill route (forced where the split
     step's build would fit), one launch per kernel for every shard of (2,
-    2), bit for bit the single-device kernels on the same route: the fb
-    step, the split step (route 3) and the projection phases."""
+    2), bit for bit the single-device kernels the plan takes there: K1 and
+    K3b layer-streamed, the split step (route 3) and K3a on the spill
+    route."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
@@ -1546,11 +1607,12 @@ def test_spill_route_on_a_mesh(cuda, scheme, dtype, nz, spill):
 
 @pytest.mark.cuda
 def test_spill_scratch_outlives_the_launch(cuda):
-    """K3a and K3b on the spill route on an emptied caching allocator, at a
-    size whose planes come from its large pool (1024^2 f32, 32 layers):
-    each launch holds its scratch until it is queued, so no output it
-    allocates after the scratch is carved out of it, and both phases agree
-    with their plain versions (4 ulp of each field's scale)."""
+    """K3a on the spill route on an emptied caching allocator, at a size
+    whose planes come from its large pool (1024^2 f32, 32 layers): the
+    launch holds its scratch until it is queued, so no output it allocates
+    after the scratch is carved out of it, and both phases (K3b
+    layer-streamed, with no scratch) agree with their plain versions (4
+    ulp of each field's scale)."""
     cfg, grid, forcing, st = _many_layers(cuda, 83, 32, 13, "float32",
                                           nx=1024, ny=1024,
                                           scheme="implicit_fs",

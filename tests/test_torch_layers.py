@@ -121,12 +121,14 @@ def test_fused_steppers_match_xla(name, nz, n_tides, scheme):
 
 
 def _spills_from(case, scheme, dtype):
-    """The first of LAYERS at which the scheme's single-step kernels take
-    the spill route on `case` (None: none of them), by the shared-memory
+    """The first of LAYERS at which the scheme's single-step kernels leave
+    shared memory on `case` (None: none of them), by the shared-memory
     walls of a CTA's 232,448 bytes: K1 at nz 32 (f32) and 16 (f64), 25 and
     13 under wet/dry; the projection phases at 32 and 16; the split step's
     slow phase and recomposition (nsub 8) past 64 (f32) and at 64 (f64),
-    at 64 and 25 under wet/dry."""
+    at 64 and 25 under wet/dry.  There K1 and K3b stream their layers, K3a
+    and the split step take the spill route, and K7's bodies the spill
+    route."""
     wd = case in ("coastal_wetdry", "shelf_forced")
     f64 = dtype == "float64"
     if scheme == "fb":
@@ -142,10 +144,11 @@ def _spills_from(case, scheme, dtype):
 def test_plans_take_every_layer_count(case, scheme, dtype):
     """For every nz of LAYERS (13 constituents on the shelf), the build
     specs and plans of one device and of a 2 x 2 mesh return a kernel
-    route without raising: the single-step kernels on the spill route
-    from the first nz past their shared-memory wall (pinned), the pass
-    kernel and the staged phases only where they fit, every plan's
-    describe() naming its route."""
+    route without raising: from the first nz past the single-step kernels'
+    shared-memory wall (pinned) K1 and K3b layer-streamed (BEOM_STREAM),
+    K3a and the split step on the spill route (BEOM_SPILL), K7's bodies on
+    the spill route; the pass kernel and the staged phases only where
+    they fit, every plan's describe() naming its route."""
     base = make_case(case, nx=64, ny=64, device="cpu", dtype=dtype,
                      scheme=scheme, nsub=8)[0]
     if case == "shelf_forced":
@@ -160,19 +163,22 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
         mp = dist_band.mesh_plan(cfg, cfg.tdtype, mesh)
         assert mp.spilled == spill, (nz, mp.describe())
         assert ("spill route" in mp.describe()) == spill, nz
+        assert "layer-streamed" not in mp.describe(), nz
         if scheme in ("rigid_lid", "implicit_fs"):
             pl = fused_projection.plan(cfg, cfg.tdtype)
             assert pl.spill == spill and (pl.a is None or not spill)
+            assert pl.stream_b == spill
+            assert ("layer-streamed" in pl.describe()) == spill
             if spill:
                 assert pl.a is None and pl.b is None and not pl.rhs
             name, defines = fused_projection.build_spec(cfg, cfg.tdtype,
                                                         pl, True)
         else:
-            assert fused_fb.launch_plan(cfg, cfg.tdtype, 1).spill == spill
+            assert fused_fb.launch_plan(cfg, cfg.tdtype, 1).stream == spill
             if scheme == "fb":
                 pl = fused_fb.plan(cfg, cfg.tdtype, 4)
-                assert pl.spill == spill and (pl.kb == 1 or not spill)
-                assert ("spill route" in pl.describe()) == spill
+                assert pl.stream == spill and (pl.kb == 1 or not spill)
+                assert ("layer-streamed" in pl.describe()) == spill
                 for m in pl.launches(4):
                     fused_fb.build_spec(cfg, cfg.tdtype, m)
             else:
@@ -180,36 +186,46 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
                 assert sp.spill == spill and sp.route in (2, 3)
                 assert ("spill route" in sp.describe()) == spill
             name, defines = fused_fb.build_spec(cfg, cfg.tdtype)
-        assert ("BEOM_SPILL=1" in defines) == spill, (nz, defines)
+        assert ("BEOM_SPILL=1" in defines) == (spill and scheme != "fb"), \
+            (nz, defines)
+        assert ("BEOM_STREAM=1" in defines) == (spill and scheme != "split"), \
+            (nz, defines)
         assert f"BEOM_NZ={nz}" in defines
         for cards in (False, True):
             for m in set(mp.fb_launches(4)) if scheme == "fb" else {1}:
                 _, d = dist_band.build_spec(cfg, cfg.tdtype, m, True, cards)
                 assert ("BEOM_SPILL=1" in d) == (spill and m == 1)
+                assert "BEOM_STREAM=1" not in d
 
 
 def test_forced_spill_route_where_both_build():
-    """The plans' own parameter takes the spill route where the other
-    route builds too (nz 8 f32 on the shelf), and the builds differ only
-    in the switch and the tile."""
+    """The plans' own parameter takes the routes off shared memory where
+    the shared-memory route builds too (nz 8 f32 on the shelf): K1 and
+    K3b layer-streamed, K3a, the split step and K7 on the spill route; the
+    builds differ only in the switch and the tile."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32")[0]
     cfg = dataclasses.replace(cfg, nz=8, rho=tuple(1020.0 + k
                                                    for k in range(8)))
-    assert not fused_fb.plan(cfg, torch.float32, 1).spill
+    assert not fused_fb.plan(cfg, torch.float32, 1).stream
     forced = fused_fb.plan(cfg, torch.float32, 4, True)
-    assert forced.spill and forced.kb == 1 and forced.tile == (32, 16)
-    assert forced.work == fused_fb.work_bytes(cfg, (32, 16), 4)["fb_step"]
+    assert forced.stream and forced.kb == 1 and forced.tile == (32, 16)
+    assert forced.smem == max(fused_fb.stream_smem(cfg, (32, 16),
+                                                   4).values())
     a = dict(d.split("=") for d in fused_fb.build_spec(cfg,
                                                        torch.float32)[1])
     b = dict(d.split("=") for d in fused_fb.build_spec(
         cfg, torch.float32, spill=True)[1])
-    assert b.pop("BEOM_SPILL") == "1"
+    assert b.pop("BEOM_STREAM") == "1"
     assert {k: v for k, v in a.items() if k not in ("BEOM_TX", "BEOM_TY")} \
         == {k: v for k, v in b.items() if k not in ("BEOM_TX", "BEOM_TY")}
+    # K7's body of the step keeps the spill route
+    assert "BEOM_SPILL=1" in fused_fb.build_spec(cfg, torch.float32,
+                                                 spill=True, shard=True)[1]
     ph = fused_projection.plan(dataclasses.replace(cfg, scheme="rigid_lid"),
                                torch.float32, True)
     assert ph == fused_projection.PhasePlan(None, None, False, True)
+    assert ph.stream_b
     split = fused_fb.split_plan(dataclasses.replace(cfg, scheme="split"),
                                 torch.float32, True)
     assert split.spill and "spill route" in split.describe()
@@ -221,9 +237,10 @@ def test_forced_spill_route_where_both_build():
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_spill_false_lets_the_plan_choose(scheme):
     """spill=False means what leaving it out means at every layer: the
-    plans take the spill route where no tile fits (nz 32 f32 on the shelf,
-    past every single-step wall but the split step's), and spill=True
-    forces it; no plan raises for want of a tile."""
+    plans leave shared memory where no tile fits (nz 32 f32 on the shelf,
+    past every single-step wall but the split step's; K1 layer-streamed,
+    the split step on the spill route), and spill=True forces it; no plan
+    raises for want of a tile."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32", scheme=scheme, nsub=8)[0]
     cfg = dataclasses.replace(cfg, nz=32, rho=tuple(1020.0 + 0.5 * k
@@ -239,11 +256,12 @@ def test_spill_false_lets_the_plan_choose(scheme):
             assert fused_projection.single_tile(cfg, f32, spill)[1] == want
             continue
         assert fused_fb.single_tile(cfg, f32, spill)[1] == want
-        assert ("BEOM_SPILL=1" in fused_fb.build_spec(
-            cfg, f32, spill=spill)[1]) == want
+        route = "BEOM_STREAM=1" if scheme == "fb" else "BEOM_SPILL=1"
+        assert (route in fused_fb.build_spec(cfg, f32, spill=spill)[1]) \
+            == want
         if scheme == "fb":
-            assert fused_fb.plan(cfg, f32, 4, spill).spill == want
-            assert fused_fb.launch_plan(cfg, f32, 1, spill).spill == want
+            assert fused_fb.plan(cfg, f32, 4, spill).stream == want
+            assert fused_fb.launch_plan(cfg, f32, 1, spill).stream == want
         else:
             assert fused_fb.split_plan(cfg, f32, spill).spill == want
 

@@ -80,6 +80,21 @@ beside them the single-device kernels whose stage bodies they share (K1's
 and run() of the mesh's fb and split paths and of the eager fb tier
 through K8, in ms per step with the device's busy share; and the code
 report.
+
+    python3 tools/kernel_times.py ROOT --layers
+
+times only what phase 28 of chip_smoke.py runs at many layers, as the
+checkout runs it (layers_report): K1's step and K3b's phase on the shelf
+at 2048^2 f32 with 32 layers and 13 constituents (the route the
+checkout's plans take there: the spill route before the layer-streamed
+one), and at nz 2, 4 and 8 on the shared-memory route and on the route
+the plans' `spill` forces, and K3a at nz 32, each between CUDA events and
+on the device (the sum over the route's kernels, each named by its key,
+with how many of its launches torch.profiler saw; a kernel it saw none
+of is null, not measured), with digests of the outputs (equal digests:
+bitwise equal results across the trees); run() at nz 32, fb (20 steps)
+and implicit FS (3 steps), in ms per step after a run not timed; and the
+code report.
 """
 
 from __future__ import annotations
@@ -264,6 +279,120 @@ def projection_report(sm, dev, out, digest, record) -> None:
             k: v for k, v in parts.items() if k != "idle share"}
 
 
+def seen_ms(sm, label, fn, n_calls, keys) -> dict:
+    """{key: [ms per call, launches seen, launches made]} of the kernels
+    whose names hold each key, launched once per call of fn(), under
+    torch.profiler (up to three windows, until each key is seen; ms None
+    where none was: not measured)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = sm.device_rows(prof)
+        if all(any(k in r[2] and r[1] for r in rows) for k in keys):
+            break
+    out = {}
+    for k in keys:
+        us = sum(r[0] for r in rows if k in r[2])
+        n = sum(r[1] for r in rows if k in r[2])
+        out[k] = [us / n / 1e3 if n else None, n, n_calls]
+        print(f"   {label}: {k} {out[k][0]!r} ms on the device, "
+              f"torch.profiler saw {n} of {n_calls} launches")
+    return out
+
+
+def layers_report(sm, dev, out, digest) -> None:
+    """The --layers report of the checkout imported: K1, K3b and K3a on
+    phase 28's shelf at 2048^2 f32, as each checkout runs them."""
+    import torch
+
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import build, fused_fb
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    legs = [(sm.LAYERS28, False)] + [(nz, forced) for nz in (2, 4, 8)
+                                     for forced in (False, True)]
+    specs = []
+    for nz, forced in legs:
+        cfg = sm.layers_case("cpu", 0, nz, "float32", 64)[0]
+        specs.append(fused_fb.build_spec(cfg, cfg.tdtype, spill=forced))
+        cfg = sm.layers_case("cpu", 0, nz, "float32", 64,
+                             scheme="implicit_fs", precond="jacobi")[0]
+        specs.append(fp.build_spec(cfg, cfg.tdtype,
+                                   fp.plan(cfg, cfg.tdtype, forced), True))
+    build.build_all(specs + ["cg_jacobi"])
+
+    def kernels(keys, fn, label, n):
+        # events around the call, and the device time summed over keys
+        ms = sm.time_ms(fn, n)
+        seen = seen_ms(sm, label, fn, 5, keys)
+        times = [v[0] for v in seen.values()]
+        total = None if None in times else sum(times)
+        out[label] = {"events ms": ms, "device ms": total,
+                      "by kernel": seen}
+
+    for nz, forced in legs:
+        tag = f"nz {nz}" + (", forced" if forced else "")
+        cfg, grid, forcing, st = sm.layers_case(dev, 28, nz, "float32", N)
+        statics = (grid, forcing)
+        pl = fused_fb.plan(cfg, cfg.tdtype, 1, forced)
+        out[f"K1 {tag} plan"] = pl.describe()
+        args = (st.h, st.u, st.v, statics, 0, st.t, cfg, 1)
+        step = lambda: fused_fb.fused_fb_step(*args, pl=pl)
+        out[f"K1 {tag} digest"] = digest(*step())
+        keys = ("fb_cont_kernel", "fb_mom_kernel") \
+            if getattr(pl, "stream", False) else ("fb_step_kernel",)
+        kernels(keys, step, f"K1 {tag}", 10 if nz > 8 else 20)
+        del cfg, grid, forcing, st, statics, args
+        torch.cuda.empty_cache()
+
+        cfg, grid, forcing, st = sm.layers_case(
+            dev, 30, nz, "float32", N, scheme="implicit_fs",
+            precond="jacobi")
+        statics = (grid, forcing)
+        ph = fp.Phases(grid, forcing, cfg,
+                       phase_plan=fp.plan(cfg, cfg.tdtype, forced))
+        out[f"K3 {tag} plan"] = ph.plan.describe()
+        gen = torch.Generator(device=dev).manual_seed(30)
+        p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev,
+                        generator=gen) * grid.mask
+        us, vs, _ = fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg)
+        phase_b = lambda: ph.b(st.h, us, vs, p, st.t)
+        out[f"K3b {tag} digest"] = digest(*phase_b())
+        key_a, key_b = ph.kernel_keys()
+        kernels((key_b,), phase_b, f"K3b {tag}", 10 if nz > 8 else 20)
+        if nz == sm.LAYERS28:
+            phase_a = lambda: ph.a(st.h, st.u, st.v, 0)
+            out[f"K3a {tag} digest"] = digest(*phase_a())
+            kernels((key_a,), phase_a, f"K3a {tag}", 10)
+        del cfg, grid, forcing, st, statics, ph, us, vs, p
+        torch.cuda.empty_cache()
+
+    for scheme, kw, n_steps in (("fb", {}, 20),
+                                ("implicit_fs", dict(precond="jacobi"), 3)):
+        cfg, grid, forcing, st = sm.layers_case(
+            dev, 34, sm.LAYERS28, "float32", N, scheme=scheme,
+            backend="fused", diag_every=n_steps, **kw)
+        st = run(cfg, grid, forcing, st, 1, log=io.StringIO())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[f"run() {scheme} nz {sm.LAYERS28} ms/step"] = \
+            (time.perf_counter() - t0) / n_steps * 1e3
+        out[f"run() {scheme} nz {sm.LAYERS28} digest"] = digest(
+            last.h, last.u, last.v)
+        del cfg, grid, forcing, st, last
+        torch.cuda.empty_cache()
+
+
 def mesh_report(sm, dev, out, digest, record) -> None:
     """The --mesh report of the checkout imported: the shard kernels on a
     2 x 4 mesh of the 2048^2 f32 grid on the one card, as each checkout
@@ -430,7 +559,8 @@ def setup_ms(grid, forcing, cfg, before=None) -> float:
 
 
 def main(root: str, only_split: bool = False,
-         only_projection: bool = False, only_mesh: bool = False) -> dict:
+         only_projection: bool = False, only_mesh: bool = False,
+         only_layers: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -496,6 +626,15 @@ def main(root: str, only_split: bool = False,
         record(name, lambda: jacobi(b, eta_n), n, "cg_")
         stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
         return jacobi, b, eta_n
+
+    if only_layers:
+        layers_report(sm, dev, out, digest)
+        out["code"] = code_report(build)
+        out["power"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        return out
 
     if only_mesh:
         mesh_report(sm, dev, out, digest, record)
@@ -681,8 +820,9 @@ def main(root: str, only_split: bool = False,
 
 if __name__ == "__main__":
     if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
-            [], ["--split"], ["--projection"], ["--mesh"]):
+            [], ["--split"], ["--projection"], ["--mesh"], ["--layers"]):
         raise SystemExit(__doc__)
     print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"],
                           sys.argv[2:] == ["--projection"],
-                          sys.argv[2:] == ["--mesh"])))
+                          sys.argv[2:] == ["--mesh"],
+                          sys.argv[2:] == ["--layers"])))
