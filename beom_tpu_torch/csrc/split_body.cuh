@@ -4,7 +4,9 @@
 // shards of a device mesh (shard_split.cu, K7 around the split body); and
 // the tail of K1s's route 2 (namespace tail: the subcycle, the
 // recomposition and finalize in one launch, after the slow phase writes
-// only its tendencies; on the shards too).  Each of the three takes a
+// only its tendencies; on the shards too); and the layer-streamed slow
+// phase and recomposition of the single-device step (namespace sps, where
+// the planes of every layer make the tiles small or do not fit).  Each of the three takes a
 // source (shard_addr.cuh: where the tile's haloed points come from) and an
 // Out (which interior points are written, and where), the tail reads
 // through a block's row and column offsets of either layout; the
@@ -14,6 +16,7 @@
 
 #pragma once
 
+#include "fb_step_body.cuh"   // fbs: Column, point
 #include "shard_addr.cuh"
 
 namespace beom {
@@ -808,6 +811,456 @@ __device__ __forceinline__ void run(const Params<T>& p,
 }
 
 }  // namespace tail
+
+// ------------------------------------------------------- layer-streamed
+// The slow phase and the recomposition of route 3 (and the slow phase's
+// tendencies of route 2) one layer at a time (split_step.cu built with
+// BEOM_STREAM = 1): where the planes of every layer leave only small tiles
+// or none (split_plan).  Shared memory holds a few planes of one layer,
+// whatever NZ; each kernel loops over the layers from the surface
+// (`#pragma unroll 1`, so that a build's code does not grow with NZ) with
+// the arithmetic of slow::run and rec::run in their order, so each output
+// equals theirs bit for bit.  A thread keeps the same interior points of
+// its tile in every layer (fbs::point), and their column sums in
+// registers.
+//   slow   per layer: h, u, v on blocks with a halo of 2 (copied by
+//          cp.async into one of two buffers while the layer before is
+//          computed), S1's biharmonic
+//          planes, Montgomery's running sums z and acc in two planes (no
+//          free surface: z is 0 at the top), the layer's phi and q, then
+//          its tendencies du_s, dv_s at the interior, written where
+//          SlowPhase's du', dv' go; the column's Hu, Hv, u and v
+//          transports, h and tendency transports summed as they come; the
+//          bottom drag written from the last layer.  Then a second loop over the
+//          thread's points writes u' = u - ubar, v' from u, v read again,
+//          and du' = du_s - du_bar, dv' from what the first loop wrote,
+//          the same one subtraction on the same value.  With NO = N_TEND
+//          (route 2) it writes du_s, dv_s alone.
+//   rch    the recomposition's continuity: per layer h, u' and v' on
+//          blocks with a halo of LO (copied by cp.async into one of two
+//          buffers while the layer before is computed), the advecting
+//          velocities in place and the
+//          layer's h1 on the tile, written into out_h, the column's sum
+//          kept; then each point's h1 times the column's rescale factor,
+//          read back and written again (the same one multiplication).
+//   ruv    the layer velocities and fb.finalize: per layer the rescaled h1
+//          read back on blocks with a halo of 1 (only where the gates or
+//          Flather read it), u1, v1 at the interior, the gates, Flather's
+//          sums in registers and its increment added afterwards
+//          (fbs::Column).
+namespace sps {
+
+using fbs::point;
+using fbs::PPT;
+
+namespace slow {
+
+constexpr int W = spk::slow::W;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+// h, u, v of two layers (layer k at + (k % 2) NPT), the layer's
+// intermediates, the masks
+enum Plane {
+  P_H = 0,
+  P_U = 2,
+  P_V = 4,
+  P_PHI = 6,
+  P_Q,
+  P_LU,
+  P_LV = P_LU + (NU4 ? 1 : 0),
+  P_Z = P_LV + (NU4 ? 1 : 0),
+  P_ACC,
+  P_M,
+  P_MU,
+  P_MV,
+  P_MQ,
+  N_PLANES
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
+}
+
+// layer k's h, u, v of the block into their planes of buffer k % 2, by
+// cp.async, one group
+template <typename T>
+__device__ __forceinline__ void fetch(const Params<T>& p, const Off* gidx,
+                                      T* sm, int k) {
+  T* h = sm + (P_H + k % 2) * NPT;
+  T* u = sm + (P_U + k % 2) * NPT;
+  T* v = sm + (P_V + k % 2) * NPT;
+  for (int s = threadIdx.x; s < NPT; s += THREADS) {
+    const long g = k * p.plane + gidx[s];
+    fbp::cp_async<int(sizeof(T))>(h + s, p.in[I_H] + g);
+    fbp::cp_async<int(sizeof(T))>(u + s, p.in[I_U] + g);
+    fbp::cp_async<int(sizeof(T))>(v + s, p.in[I_V] + g);
+  }
+  fbp::cp_async_commit();
+}
+
+template <typename T, int NO>
+__device__ __forceinline__ void run(const Params<T>& p,
+                                    const Ptrs<T, NO>& out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* phi = sm + P_PHI * NPT;
+  T* q = sm + P_Q * NPT;
+  T* lu = sm + P_LU * NPT;
+  T* lv = sm + P_LV * NPT;
+  T* zp = sm + P_Z * NPT;
+  T* acc = sm + P_ACC * NPT;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* mq = sm + P_MQ * NPT;
+  const int tid = threadIdx.x;
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  __syncthreads();
+  fetch<T>(p, gidx, sm, 0);
+  for (int s = tid; s < NPT; s += THREADS) {
+    const Off g = gidx[s];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+    mq[s] = p.in[I_MASK_Q][g];
+  }
+  // phi_q without the free surface: z = 0 at the top
+  REGION_NS(1, 1, {
+    const T z = T(0);
+    zp[s] = z;
+    acc[s] = p.gp[0] * z;
+  })
+  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
+  using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
+  // the column's sums at the thread's points
+  T Hu[PPT], Hv[PPT], nu_[PPT], nv_[PPT], hs[PPT], dub[PPT], dvb[PPT];
+
+#pragma unroll 1
+  for (int k = 0; k < NZ; ++k) {
+    // the next layer's copies go out while this one is computed: into
+    // the buffer the last layer used, which the barrier ending it freed
+    if (k + 1 < NZ) {
+      fetch<T>(p, gidx, sm, k + 1);
+      fbp::cp_async_wait<1>();
+    } else {
+      fbp::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* h = sm + (P_H + k % 2) * NPT;
+    const T* u = sm + (P_U + k % 2) * NPT;
+    const T* v = sm + (P_V + k % 2) * NPT;
+    const TileT c{p, gidx, u, v, mask, mu, mv, mq, h,
+                  phi, q, lu, lv, nullptr};
+
+    // S1's lap planes for the biharmonic; phi and q, and the running sums
+    // of the next layer
+    REGION(1, 1, {
+      if (NU4) {
+        lu[s] = c.lap_u(u, s);
+        lv[s] = c.lap_v(v, s);
+      }
+      c.phi_q_layer(k, s, acc[s], c.glob(I_FQ, s), phi, q);
+      if (k + 1 < NZ) {
+        const T z = zp[s] - h[s];
+        zp[s] = z;
+        acc[s] = acc[s] + p.gp[k + 1] * z;
+      }
+    })
+
+    // the layer's tendencies with the PV cross terms at the interior
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      int jj, ii, s;
+      if (!point<W, RX>(o, i, jj, ii, s)) continue;
+      const T dus = c.tend_u(k, s) + c.cor_u(k, s, v);
+      const T dvs = c.tend_v(k, s) - c.cor_v(k, s, u);
+      const long g = k * o.plane + o.at(jj, ii);
+      if constexpr (NO == N_TEND) {
+        out.p[T_DUS][g] = dus;
+        out.p[T_DVS][g] = dvs;
+      } else {
+        const T hu = c.hx(k, s) * mu[s];
+        const T hv = c.hy(k, s) * mv[s];
+        const T uu = hu * u[s];
+        const T vv = hv * v[s];
+        const T a = hu * dus;
+        const T b = hv * dvs;
+        Hu[i] = (k > 0) ? Hu[i] + hu : hu;
+        Hv[i] = (k > 0) ? Hv[i] + hv : hv;
+        nu_[i] = (k > 0) ? nu_[i] + uu : uu;
+        nv_[i] = (k > 0) ? nv_[i] + vv : vv;
+        hs[i] = (k > 0) ? hs[i] + h[s] : h[s];
+        dub[i] = (k > 0) ? dub[i] + a : a;
+        dvb[i] = (k > 0) ? dvb[i] + b : b;
+        if (k == NZ - 1) {
+          out.p[S_CU][o.at(jj, ii)] = c.drag_u(s);
+          out.p[S_CV][o.at(jj, ii)] = c.drag_v(s);
+        }
+        out.p[S_DUP][g] = dus;
+        out.p[S_DVP][g] = dvs;
+      }
+    }
+    // before the next layer's loads overwrite the planes
+    __syncthreads();
+  }
+
+  if constexpr (NO == N_SLOW) {
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      int jj, ii, s;
+      if (!point<W, RX>(o, i, jj, ii, s)) continue;
+      const long g = o.at(jj, ii);
+      const T Hu_ = vmax(Hu[i], p.h_min);
+      const T Hv_ = vmax(Hv[i], p.h_min);
+      const T ubar = nu_[i] / Hu_;
+      const T vbar = nv_[i] / Hv_;
+      const T du_bar = dub[i] / Hu_;
+      const T dv_bar = dvb[i] / Hv_;
+#pragma unroll 1
+      for (int k = 0; k < NZ; ++k) {
+        const long gk = k * o.plane + g;
+        out.p[S_UP][gk] = p.in[I_U][gk] - ubar;
+        out.p[S_VP][gk] = p.in[I_V][gk] - vbar;
+        out.p[S_DUP][gk] = out.p[S_DUP][gk] - du_bar;
+        out.p[S_DVP][gk] = out.p[S_DVP][gk] - dv_bar;
+      }
+      out.p[S_DUBAR][g] = du_bar;
+      out.p[S_DVBAR][g] = dv_bar;
+      out.p[S_UBAR][g] = ubar;
+      out.p[S_VBAR][g] = vbar;
+      out.p[S_HU][g] = Hu_;
+      out.p[S_HV][g] = Hv_;
+      out.p[S_ETA0][g] = (hs[i] - p.in[I_HB][gidx[s]]) * mask[s];
+    }
+  }
+}
+
+}  // namespace slow
+
+// the recomposition's continuity and column rescale into out_h
+namespace rch {
+
+constexpr int W = LO;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+enum Plane {
+  P_H = 0,
+  P_UA = 2,
+  P_VA = 4,
+  P_H1 = 6,
+  P_M,
+  P_MU,
+  P_MV,
+  P_UBA,
+  P_VBA,
+  P_FX,
+  P_FY = P_FX + (WETDRY ? 1 : 0),
+  P_SC = P_FY + (WETDRY ? 1 : 0),
+  N_PLANES = P_SC + (WETDRY ? 1 : 0)
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
+}
+
+// src: RecIn's fields (h, SlowPhase's, the subcycle's) of the whole grid
+template <typename T, typename Src>
+__device__ __forceinline__ void run(const Params<T>& p, const Src& src,
+                                    T* out_h) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* h1 = sm + P_H1 * NPT;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* uba = sm + P_UBA * NPT;
+  T* vba = sm + P_VBA * NPT;
+  const T* hin = src.template own<R_H>();
+  const T* up = src.template own<R_SP + S_UP>();
+  const T* vp = src.template own<R_SP + S_VP>();
+  const int tid = threadIdx.x;
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  __syncthreads();
+  // layer k's h, u', v' into buffer k % 2 by cp.async, one group
+  auto fetch = [&](int k) {
+    for (int s = tid; s < NPT; s += THREADS) {
+      const long g = k * p.plane + gidx[s];
+      fbp::cp_async<int(sizeof(T))>(sm + (P_H + k % 2) * NPT + s, hin + g);
+      fbp::cp_async<int(sizeof(T))>(sm + (P_UA + k % 2) * NPT + s, up + g);
+      fbp::cp_async<int(sizeof(T))>(sm + (P_VA + k % 2) * NPT + s, vp + g);
+    }
+    fbp::cp_async_commit();
+  };
+  fetch(0);
+  for (int s = tid; s < NPT; s += THREADS) {
+    const Off g = gidx[s];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+    uba[s] = src.template own<R_SB + B_UAVG>()[g];
+    vba[s] = src.template own<R_SB + B_VAVG>()[g];
+  }
+  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
+  using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
+  T col[PPT];
+
+#pragma unroll 1
+  for (int k = 0; k < NZ; ++k) {
+    // the next layer's copies go out while this one is computed: into
+    // the buffers the last layer used, which the barriers after its
+    // continuity freed
+    if (k + 1 < NZ) {
+      fetch(k + 1);
+      fbp::cp_async_wait<1>();
+    } else {
+      fbp::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* h = sm + (P_H + k % 2) * NPT;
+    T* ua = sm + (P_UA + k % 2) * NPT;
+    T* va = sm + (P_VA + k % 2) * NPT;
+    // the advecting velocities, in place
+    for (int s = tid; s < NPT; s += THREADS) {
+      ua[s] = (ua[s] + uba[s]) * mu[s];
+      va[s] = (va[s] + vba[s]) * mv[s];
+    }
+    __syncthreads();
+    const TileT c{p, gidx, ua, va, mask, mu, mv, nullptr, h1,
+                  nullptr, nullptr, nullptr, nullptr, nullptr};
+    continuity_stage<T, RX, RY, TileT, 0, THREADS, 1>(
+        c, h, ua, va, h1, sm + P_FX * NPT, sm + P_FY * NPT, sm + P_SC * NPT,
+        false, k);
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      int jj, ii, s;
+      if (!point<W, RX>(o, i, jj, ii, s)) continue;
+      col[i] = (k > 0) ? col[i] + h1[s] : h1[s];
+      out_h[k * o.plane + o.at(jj, ii)] = h1[s];
+    }
+  }
+
+  // pin the column to the subcycled free surface
+  const T* eta_f = src.template own<R_SB + B_ETA>();
+#pragma unroll
+  for (int i = 0; i < PPT; ++i) {
+    int jj, ii, s;
+    if (!point<W, RX>(o, i, jj, ii, s)) continue;
+    const long g = o.at(jj, ii);
+    const T cl = vmax(col[i], p.h_min);
+    const T target = vmax(p.in[I_HB][gidx[s]] + eta_f[g], T(0)) * mask[s];
+    const T fac = (cl > p.h_min) ? target / cl : T(1);
+#pragma unroll 1
+    for (int k = 0; k < NZ; ++k) {
+      const long gk = k * o.plane + g;
+      out_h[gk] = out_h[gk] * fac;
+    }
+  }
+}
+
+}  // namespace rch
+
+// the layer velocities and fb.finalize, from rch's h1
+namespace ruv {
+
+// the gates and Flather read h1 at the point and east and north of it
+constexpr bool H1 = WETDRY || OBC;
+constexpr int W = 1;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+enum Plane {
+  P_H1 = 0,
+  P_M = P_H1 + (H1 ? 1 : 0),
+  P_MU,
+  P_MV,
+  P_EE,
+  N_PLANES = P_EE + (OBC ? 1 : 0)
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
+}
+
+template <typename T, typename Src>
+__device__ __forceinline__ void run(const Params<T>& p, const Src& src,
+                                    const T* h1g, T* out_u, T* out_v) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* h1 = sm + P_H1 * NPT;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* ee = sm + P_EE * NPT;
+  const T* sp_up = src.template own<R_SP + S_UP>();
+  const T* sp_vp = src.template own<R_SP + S_VP>();
+  const T* sp_dup = src.template own<R_SP + S_DUP>();
+  const T* sp_dvp = src.template own<R_SP + S_DVP>();
+  const T* sp_cu = src.template own<R_SP + S_CU>();
+  const T* sp_cv = src.template own<R_SP + S_CV>();
+  const T* sb_ub = src.template own<R_SB + B_UB>();
+  const T* sb_vb = src.template own<R_SB + B_VB>();
+  const int tid = threadIdx.x;
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  __syncthreads();
+  for (int s = tid; s < NPT; s += THREADS) {
+    const Off g = gidx[s];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+  }
+  if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
+  __syncthreads();
+  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
+  using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
+  const TileT c{p, gidx, nullptr, nullptr, mask, mu, mv, nullptr, h1,
+                nullptr, nullptr, nullptr, nullptr, ee};
+  fbs::Column<T, W, RX> col;
+
+#pragma unroll 1
+  for (int k = 0; k < NZ; ++k) {
+    if (H1) {
+      for (int s = tid; s < NPT; s += THREADS)
+        h1[s] = h1g[k * p.plane + gidx[s]];
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < PPT; ++i) {
+      int jj, ii, s;
+      if (!point<W, RX>(o, i, jj, ii, s)) continue;
+      const long g = o.at(jj, ii);
+      const long gk = k * o.plane + g;
+      T a = (sp_up[gk] + p.dt * sp_dup[gk]) + sb_ub[g];
+      T b = (sp_vp[gk] + p.dt * sp_dvp[gk]) + sb_vb[g];
+      if (k == NZ - 1) {
+        a = a / (T(1) + p.dt * sp_cu[g]);
+        b = b / (T(1) + p.dt * sp_cv[g]);
+      }
+      T uo = a * mu[s];
+      T vo = b * mv[s];
+      if (WETDRY) gate_point<T, RX>(c, h1, s, uo, vo);
+      if (OBC) col.add(p, i, k, h1, s, uo, vo);
+      out_u[gk] = uo;
+      out_v[gk] = vo;
+    }
+    // before the next layer's loads overwrite the plane
+    if (H1) __syncthreads();
+  }
+  if (OBC) col.fix(c, o, out_u, out_v);
+}
+
+}  // namespace ruv
+}  // namespace sps
 
 }  // namespace spk
 }  // namespace beom

@@ -32,40 +32,103 @@
 // a dozen planes from device memory (2048^2 f32: 200 MB, four times the
 // L2).
 //
+// The layer-streamed route (a build with BEOM_STREAM = 1, where
+// fused_fb.split_plan takes it: many layers).  Route 3's slow phase and
+// recomposition hold every layer's planes of their block in shared memory,
+// so past a few layers their tiles shrink (the shelf at 32 layers f32: 8 x
+// 8, a block of 14 x 14 points and 228 planes per CTA for 64 interior
+// points; slow 8.78 ms, recompose 26.57 on the H100 at 2048^2, 6 and 20 x
+// their byte bounds) and past 41 none fits.  The layers couple only at the
+// point itself (Montgomery's running sums, the depth means and the column
+// sums of the rescale and of Flather), so the streamed kernels hold a few
+// planes of one layer on 32 x 16 tiles, whatever NZ, and keep the column
+// sums of the points a thread owns in registers (split_body.cuh, sps): the
+// slow phase in one launch, its depth means subtracted in a second loop
+// over each thread's points; the recomposition in two, the continuity and
+// the column rescale into out_h, then the velocities and finalize from the
+// rescaled h1 read back.  The subcycle and route 2's tail are the same
+// kernels in either build; K7 (shard_split.cu) keeps the slow and rec
+// bodies, on its spill route where no tile fits.
+//
 // Bound: device-memory bytes, for each kernel.  Arithmetic mirrors the
 // eager split_step op for op (fb_terms.cuh), so each kernel equals its
 // plain version (slow_tendencies, slow_phase, subcycle_phase, recompose +
 // finalize, depth_means + fast_phase) bit for bit on the card.  The stage
 // bodies are csrc/split_body.cuh's, whose three route-3 bodies the same
 // kernels on the shards of a device mesh (shard_split.cu) run too; here a
-// tile's points come from the whole grid with periodic wrap.
+// tile's points come from the whole grid with periodic wrap.  One device
+// has no spill route: where no tile fits, the layers stream.
 
 #include "split_body.cuh"
+
+static_assert(!beom::SPILL, "split_step.cu is built without BEOM_SPILL");
 
 namespace {
 
 using namespace beom;
 using namespace beom::spk;
 
-// the interior points of tile (bx, by) in the whole grid (the CTA's own
-// block by default)
+// the interior points of the CTA's tile of TX_ x TY_ in the whole grid
 template <typename T, int TX_, int TY_>
-__device__ __forceinline__ Out grid_out(const Params<T>& p,
-                                        int bx = blockIdx.x,
-                                        int by = blockIdx.y) {
-  return Out{by * TY_, bx * TX_, p.ny, p.nx, p.plane};
+__device__ __forceinline__ Out grid_out(const Params<T>& p) {
+  return Out{int(blockIdx.y) * TY_, int(blockIdx.x) * TX_, p.ny, p.nx,
+             p.plane};
 }
 
-// the slow phase's and the recomposition's kernels loop over tiles in a
-// spill build (fb_terms.cuh: for_tiles)
+#if BEOM_STREAM
+
+// the slow phase (NO = N_SLOW) or its tendencies (NO = N_TEND), streamed;
+// at f32 held to 64 registers, four CTAs per SM: on the H100 that beat
+// the 69 registers and three CTAs per SM the compiler takes on its own
+// (the shelf at 2048^2, 32 layers; PERF.md)
+template <typename T>
+constexpr int SLOW_CTAS = sizeof(T) == 4 ? 4 : 1;
+
+template <typename T, int NO>
+__global__ void __launch_bounds__(THREADS, SLOW_CTAS<T>)
+split_slow_layers_kernel(const Params<T> p, const Ptrs<T, NO> out) {
+  sps::slow::run<T, NO>(p, out);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+split_rec_h_layers_kernel(const Params<T> p, const GridSrc<T, N_REC_IN> src,
+                          T* out_h) {
+  sps::rch::run<T>(p, src, out_h);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+split_rec_uv_layers_kernel(const Params<T> p,
+                           const GridSrc<T, N_REC_IN> src, const T* h1,
+                           T* out_u, T* out_v) {
+  sps::ruv::run<T>(p, src, h1, out_u, out_v);
+}
+
+#else
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 split_slow_kernel(const Params<T> p, const GridSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_SLOW> out) {
-  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
-    slow::run<T>(p, src, out, grid_out<T, TX, TY>(p, bx, by));
-  });
+  slow::run<T>(p, src, out, grid_out<T, TX, TY>(p));
 }
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+split_tend_kernel(const Params<T> p, const GridSrc<T, N_SLOW_IN> src,
+                  const Ptrs<T, N_TEND> out) {
+  slow::run<T>(p, src, out, grid_out<T, TX, TY>(p));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+split_rec_kernel(const Params<T> p, const GridSrc<T, N_REC_IN> src,
+                 T* out_h, T* out_u, T* out_v) {
+  rec::run<T>(p, src, grid_out<T, TX, TY>(p), out_h, out_u, out_v);
+}
+
+#endif
 
 template <typename T>
 __global__ void __launch_bounds__(sub::THREADS_SUB)
@@ -75,30 +138,11 @@ split_sub_kernel(const Params<T> p, const GridSrc<T, N_SLOW> src,
 }
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-split_tend_kernel(const Params<T> p, const GridSrc<T, N_SLOW_IN> src,
-                  const Ptrs<T, N_TEND> out) {
-  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
-    slow::run<T>(p, src, out, grid_out<T, TX, TY>(p, bx, by));
-  });
-}
-
-template <typename T>
 __global__ void __launch_bounds__(tail::QT)
 split_tail_kernel(const Params<T> p, const Ptrs<T, N_TEND> tend, T* out_h,
                   T* out_u, T* out_v, T dte, T inv_nsub) {
   tail::run<T>(p, tend, grid_out<T, QX, tail::QY>(p), out_h, out_u, out_v,
                dte, inv_nsub);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-split_rec_kernel(const Params<T> p, const GridSrc<T, N_REC_IN> src,
-                 T* out_h, T* out_u, T* out_v) {
-  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
-    rec::run<T>(p, src, grid_out<T, TX, TY>(p, bx, by), out_h, out_u,
-                out_v);
-  });
 }
 
 template <typename T, int N>
@@ -119,20 +163,41 @@ GridSrc<T, NF> grid_src(const Params<T>& p, const void* const* f) {
   return s;
 }
 
-template <typename T>
+// allow a kernel its dynamic shared memory
+template <typename K>
+cudaError_t allow(K kernel, int smem) {
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// The slow phase's kernels: SlowPhase's fields (NO = N_SLOW) or the layer
+// tendencies (NO = N_TEND) into outs
+template <typename T, int NO>
 int split_slow(const void* const* ptrs, const int* ints, const double* dbls,
                void* const* outs, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  constexpr int smem = slow::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      split_slow_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const dim3 grid = tiles_of(p.ny, p.nx, TX, TY);
+  const auto st = static_cast<cudaStream_t>(stream);
+#if BEOM_STREAM
+  constexpr int smem = sps::slow::smem_bytes<T>();
+  cudaError_t e = allow(split_slow_layers_kernel<T, NO>, smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  split_slow_kernel<T><<<grid, THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      p, grid_src<T, N_SLOW_IN>(p, ptrs), pack<T, N_SLOW>(outs));
+  split_slow_layers_kernel<T, NO><<<grid, THREADS, smem, st>>>(
+      p, pack<T, NO>(outs));
+#else
+  constexpr int smem = slow::smem_bytes<T>();
+  if constexpr (NO == N_SLOW) {
+    cudaError_t e = allow(split_slow_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    split_slow_kernel<T><<<grid, THREADS, smem, st>>>(
+        p, grid_src<T, N_SLOW_IN>(p, ptrs), pack<T, N_SLOW>(outs));
+  } else {
+    cudaError_t e = allow(split_tend_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    split_tend_kernel<T><<<grid, THREADS, smem, st>>>(
+        p, grid_src<T, N_SLOW_IN>(p, ptrs), pack<T, N_TEND>(outs));
+  }
+#endif
   return int(cudaGetLastError());
 }
 
@@ -143,9 +208,7 @@ int split_subcycle(const void* const* ptrs, const int* ints,
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
   if (p.nsub != NSUB) return int(cudaErrorInvalidValue);
   constexpr int smem = sub::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      split_sub_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t e = allow(split_sub_kernel<T>, smem);
   if (e != cudaSuccess) return int(e);
   const dim3 grid((p.nx + SX - 1) / SX, (p.ny + SY - 1) / SY);
   const T dte = T(dbls[D_DT] / NSUB);
@@ -157,44 +220,43 @@ int split_subcycle(const void* const* ptrs, const int* ints,
   return int(cudaGetLastError());
 }
 
+// The recomposition with fb.finalize: one launch, or in the streamed build
+// two (the continuity and the rescale into h1, then the velocities and
+// finalize reading h1 back)
 template <typename T>
 int split_recompose(const void* const* ptrs, const int* ints,
                     const double* dbls, void* const* slow_fields,
                     void* const* sub_fields, void* h1, void* u1, void* v1,
                     void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  constexpr int smem = rec::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      split_rec_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return int(e);
   const void* fields[N_REC_IN];
   fields[R_H] = ptrs[I_H];
   for (int i = 0; i < N_SLOW; ++i) fields[R_SP + i] = slow_fields[i];
   for (int i = 0; i < N_SUB; ++i) fields[R_SB + i] = sub_fields[i];
-  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  split_rec_kernel<T><<<grid, THREADS, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      p, grid_src<T, N_REC_IN>(p, fields), static_cast<T*>(h1),
-      static_cast<T*>(u1), static_cast<T*>(v1));
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int split_tend(const void* const* ptrs, const int* ints, const double* dbls,
-               void* const* outs, void* stream) {
-  const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  constexpr int smem = slow::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      split_tend_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  const GridSrc<T, N_REC_IN> src = grid_src<T, N_REC_IN>(p, fields);
+  const dim3 grid = tiles_of(p.ny, p.nx, TX, TY);
+  const auto st = static_cast<cudaStream_t>(stream);
+#if BEOM_STREAM
+  constexpr int smem_h = sps::rch::smem_bytes<T>();
+  constexpr int smem_uv = sps::ruv::smem_bytes<T>();
+  cudaError_t e = allow(split_rec_h_layers_kernel<T>, smem_h);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  split_tend_kernel<T><<<grid, THREADS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      p, grid_src<T, N_SLOW_IN>(p, ptrs), pack<T, N_TEND>(outs));
+  e = allow(split_rec_uv_layers_kernel<T>, smem_uv);
+  if (e != cudaSuccess) return int(e);
+  split_rec_h_layers_kernel<T><<<grid, THREADS, smem_h, st>>>(
+      p, src, static_cast<T*>(h1));
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return int(e);
+  split_rec_uv_layers_kernel<T><<<grid, THREADS, smem_uv, st>>>(
+      p, src, static_cast<const T*>(h1), static_cast<T*>(u1),
+      static_cast<T*>(v1));
+#else
+  constexpr int smem = rec::smem_bytes<T>();
+  cudaError_t e = allow(split_rec_kernel<T>, smem);
+  if (e != cudaSuccess) return int(e);
+  split_rec_kernel<T><<<grid, THREADS, smem, st>>>(
+      p, src, static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
+#endif
   return int(cudaGetLastError());
 }
 
@@ -205,9 +267,7 @@ int split_tail(const void* const* ptrs, const int* ints, const double* dbls,
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
   if (p.nsub != NSUB) return int(cudaErrorInvalidValue);
   constexpr int smem = tail::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      split_tail_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t e = allow(split_tail_kernel<T>, smem);
   if (e != cudaSuccess) return int(e);
   const dim3 grid((p.nx + QX - 1) / QX, (p.ny + tail::QY - 1) / tail::QY);
   const T dte = T(dbls[D_DT] / NSUB);
@@ -219,13 +279,33 @@ int split_tail(const void* const* ptrs, const int* ints, const double* dbls,
   return int(cudaGetLastError());
 }
 
+// dynamic shared memory of one CTA of the slow (0), recompose (1),
+// subcycle (2) and tail (3) kernels, for the wrapper's plan (the slow
+// phase's tendencies, split_tend, run in the slow kernel's body); in the
+// streamed build 1 is the recomposition's continuity kernel and 4 its
+// velocity kernel (0 elsewhere)
+template <typename T>
+constexpr int kernel_smem(int which) {
+#if BEOM_STREAM
+  if (which == 0) return sps::slow::smem_bytes<T>();
+  if (which == 1) return sps::rch::smem_bytes<T>();
+  if (which == 4) return sps::ruv::smem_bytes<T>();
+#else
+  if (which == 0) return slow::smem_bytes<T>();
+  if (which == 1) return rec::smem_bytes<T>();
+  if (which == 4) return 0;
+#endif
+  if (which == 2) return sub::smem_bytes<T>();
+  return tail::smem_bytes<T>();
+}
+
 }  // namespace
 
 #define SPLIT_ENTRIES(SUFFIX, T)                                             \
   extern "C" int beom_split_slow_##SUFFIX(                                   \
       const void* const* ptrs, const int* ints, const double* dbls,          \
       void* const* outs, void* stream) {                                     \
-    return split_slow<T>(ptrs, ints, dbls, outs, stream);                    \
+    return split_slow<T, N_SLOW>(ptrs, ints, dbls, outs, stream);            \
   }                                                                          \
   extern "C" int beom_split_subcycle_##SUFFIX(                               \
       const void* const* ptrs, const int* ints, const double* dbls,          \
@@ -242,7 +322,7 @@ int split_tail(const void* const* ptrs, const int* ints, const double* dbls,
   extern "C" int beom_split_tend_##SUFFIX(                                   \
       const void* const* ptrs, const int* ints, const double* dbls,          \
       void* const* outs, void* stream) {                                     \
-    return split_tend<T>(ptrs, ints, dbls, outs, stream);                    \
+    return split_slow<T, N_TEND>(ptrs, ints, dbls, outs, stream);            \
   }                                                                          \
   extern "C" int beom_split_tail_##SUFFIX(                                   \
       const void* const* ptrs, const int* ints, const double* dbls,          \
@@ -253,44 +333,8 @@ int split_tail(const void* const* ptrs, const int* ints, const double* dbls,
 SPLIT_ENTRIES(f32, float)
 SPLIT_ENTRIES(f64, double)
 
-// dynamic shared memory of one CTA of the slow (0), recompose (1),
-// subcycle (2) and tail (3) kernels, for the wrapper's choice of tiles (the
-// slow phase of the two-launch step, split_tend, is the slow kernel's)
 extern "C" int beom_smem_bytes(int which, int is_f64) {
-  if (which == 0)
-    return is_f64 ? slow::smem_bytes<double>() : slow::smem_bytes<float>();
-  if (which == 1)
-    return is_f64 ? rec::smem_bytes<double>() : rec::smem_bytes<float>();
-  if (which == 2)
-    return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
-  return is_f64 ? tail::smem_bytes<double>() : tail::smem_bytes<float>();
-}
-
-// the spill route: bytes of a CTA's slice of the scratch of the slow (0)
-// and recompose (1) kernels (0 in any other build, and for the others),
-// and the CTAs of the slow (0), recompose (1) and tendency (4) kernels the
-// current device holds at once
-extern "C" long beom_work_bytes(int which, int is_f64) {
-  if (which == 0 || which == 4)
-    return is_f64 ? slow::work_bytes<double>() : slow::work_bytes<float>();
-  if (which == 1)
-    return is_f64 ? rec::work_bytes<double>() : rec::work_bytes<float>();
-  return 0;
-}
-template <typename T>
-int spill_ctas(int which) {
-  if (which == 0)
-    return resident_ctas(split_slow_kernel<T>, THREADS,
-                         slow::smem_bytes<T>());
-  if (which == 1)
-    return resident_ctas(split_rec_kernel<T>, THREADS, rec::smem_bytes<T>());
-  if (which == 4)
-    return resident_ctas(split_tend_kernel<T>, THREADS,
-                         slow::smem_bytes<T>());
-  return 0;
-}
-extern "C" int beom_spill_ctas(int which, int is_f64) {
-  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
+  return is_f64 ? kernel_smem<double>(which) : kernel_smem<float>(which);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

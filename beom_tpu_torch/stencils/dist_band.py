@@ -617,12 +617,14 @@ class MeshPlan:
     """How the shard kernels run cfg at `dtype` on a mesh of (ly, lx)
     blocks: the single-device kernels' plans (fused_fb.plan, split_plan,
     fused_projection.plan), with the fb pass kernel's steps per launch at
-    most max_kb, the most whose halo kb W a neighbour's block holds."""
+    most max_kb, the most whose halo kb W a neighbour's block holds;
+    `off_smem` forces the single-step bodies off shared memory (the spill
+    route) where a tile fits them too."""
     cfg: Config
     dtype: torch.dtype
     ly: int
     lx: int
-    spill: bool = False
+    off_smem: bool = False
 
     @property
     def max_kb(self) -> int:
@@ -630,17 +632,18 @@ class MeshPlan:
 
     def kb(self, k: int) -> int:
         """Steps per launch of a pass of k fb steps."""
-        return min(fused_fb.plan(self.cfg, self.dtype, k, self.spill).kb,
+        return min(fused_fb.plan(self.cfg, self.dtype, k,
+                                 self.off_smem).kb,
                    self.max_kb)
 
     @property
     def spilled(self) -> bool:
         """Whether the scheme's single-step bodies take the spill route
         (fused_fb.single_tile, fused_projection.single_tile): where no
-        tile fits them, or where `spill` forces it."""
+        tile fits them, or where `off_smem` forces it."""
         if self.cfg.scheme in _PROJECTION:
             return self.phases.spill
-        return fused_fb.single_tile(self.cfg, self.dtype, self.spill)[1]
+        return fused_fb.single_tile(self.cfg, self.dtype, self.off_smem)[1]
 
     def fb_launches(self, k: int) -> list:
         """Steps of each launch of a pass of k fb steps."""
@@ -648,11 +651,14 @@ class MeshPlan:
 
     @property
     def split(self) -> fused_fb.SplitPlan:
-        return fused_fb.split_plan(self.cfg, self.dtype, self.spill)
+        """The single-device split plan whose route and tail the shard
+        kernels take (where it streams the layers, the shard bodies keep
+        the shared memory of `spilled`'s tile, or the spill route)."""
+        return fused_fb.split_plan(self.cfg, self.dtype, self.off_smem)
 
     @property
     def phases(self) -> fused_projection.PhasePlan:
-        return fused_projection.plan(self.cfg, self.dtype, self.spill)
+        return fused_projection.plan(self.cfg, self.dtype, self.off_smem)
 
     def launches(self, k: int = None) -> dict:
         """Launches of each kind for one call of the stepper (a pass of k
@@ -674,7 +680,8 @@ class MeshPlan:
         if self.cfg.scheme == "fb":
             k = self.cfg.steps_per_pass
             kb = self.kb(k)
-            pl = fused_fb.launch_plan(self.cfg, self.dtype, kb, self.spill)
+            pl = fused_fb.launch_plan(self.cfg, self.dtype, kb,
+                                      self.off_smem)
             # where K1 streams its layers, the shard body of its single
             # step keeps the spill route
             text = pl.describe() if not pl.stream else (
@@ -684,24 +691,28 @@ class MeshPlan:
             return f"{lead}; fb: {text}; launches of a {k}-step " \
                    f"pass: {self.fb_launches(k)}"
         if self.cfg.scheme == "split":
-            return f"{lead}; split: {self.split.describe()}"
+            text = dataclasses.replace(self.split, stream=False).describe()
+            if self.spilled:
+                text += ("; the slow phase and the recomposition on the "
+                         "spill route (their planes in device memory)")
+            return f"{lead}; split: {text}"
         return f"{lead}; projection: {self.phases.describe(shard=True)}"
 
 
 @functools.lru_cache(maxsize=None)
 def _mesh_plan(cfg: Config, dtype, ly: int, lx: int,
-               spill: bool) -> MeshPlan:
-    return MeshPlan(cfg, dtype, ly, lx, spill)
+               off_smem: bool) -> MeshPlan:
+    return MeshPlan(cfg, dtype, ly, lx, off_smem)
 
 
 def mesh_plan(cfg: Config, dtype, mesh: Mesh,
-              spill: bool = False) -> MeshPlan:
-    """The MeshPlan of cfg on `mesh` (check_mesh's blocks); spill=True
+              off_smem: bool = False) -> MeshPlan:
+    """The MeshPlan of cfg on `mesh` (check_mesh's blocks); off_smem=True
     forces the spill route for the single-step bodies where they would
     fit too."""
     check_config(cfg)
     return _mesh_plan(cfg, dtype or cfg.tdtype, *check_mesh(cfg, mesh),
-                      bool(spill))
+                      bool(off_smem))
 
 
 def check_mesh(cfg: Config, mesh: Mesh):
@@ -724,39 +735,39 @@ def check_mesh(cfg: Config, mesh: Mesh):
 # ---------------------------------------------------------------- kernels
 
 def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False,
-               cards: bool = False, spill: bool = False):
+               cards: bool = False, off_smem: bool = False):
     """(source, defines) of a build that runs cfg on shards: csrc/
     shard_step.cu (the single-step kernel, or at kb > 1 the pass kernel of
     kb steps), shard_split.cu or shard_projection.cu, with the switches,
     tiles and geometries of the single-device kernels' builds (dmask: the
     staged phases rebuild the staggered masks; cards: the build for a mesh
-    over several cards, BEOM_CARDS = 1; spill: force the single-step
+    over several cards, BEOM_CARDS = 1; off_smem: force the single-step
     bodies onto the spill route, which they take anyway where no tile
     fits them)."""
     check_config(cfg)
     if cfg.scheme in _PROJECTION:
         name, defines = "shard_projection", fused_projection.build_spec(
-            cfg, dtype, fused_projection.plan(cfg, dtype, spill), dmask,
+            cfg, dtype, fused_projection.plan(cfg, dtype, off_smem), dmask,
             shard=True)[1]
     elif cfg.scheme == "split":
         name, defines = "shard_split", fused_fb.build_spec(
-            cfg, dtype, spill=spill, shard=True)[1]
+            cfg, dtype, off_smem=off_smem, shard=True)[1]
     else:
         name, defines = "shard_step", fused_fb.build_spec(
-            cfg, dtype, kb, spill=spill, shard=True)[1]
+            cfg, dtype, kb, off_smem=off_smem, shard=True)[1]
     return name, tuple(defines) + (("BEOM_CARDS=1",) if cards else ())
 
 
 def build_specs(cfg: Config, dtype, mesh: Mesh, dmask: bool = False,
-                cards: bool = False, spill: bool = False) -> set:
+                cards: bool = False, off_smem: bool = False) -> set:
     """Every build a stepper of cfg on `mesh` launches (its passes of
     steps_per_pass steps and, for run()'s remainder, of one)."""
     if cfg.scheme != "fb":
         return {build_spec(cfg, dtype, dmask=dmask, cards=cards,
-                           spill=spill)}
-    pl = mesh_plan(cfg, dtype, mesh, spill)
+                           off_smem=off_smem)}
+    pl = mesh_plan(cfg, dtype, mesh, off_smem)
     steps = set(pl.fb_launches(cfg.steps_per_pass)) | {1}
-    return {build_spec(cfg, dtype, m, cards=cards, spill=spill)
+    return {build_spec(cfg, dtype, m, cards=cards, off_smem=off_smem)
             for m in steps}
 
 
@@ -818,12 +829,12 @@ def _want_work(cfg: Config, name: str, defines, elem: int) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
-           cards: bool = False, spill: bool = False):
+           cards: bool = False, off_smem: bool = False):
     """(library, entry points by kernel) of build_spec(cfg, dtype, kb,
-    dmask, cards, spill), built on first use and checked against the
+    dmask, cards, off_smem), built on first use and checked against the
     single-device kernels' shared memory and scratch and the wrapper's
     halos."""
-    name, defines = build_spec(cfg, dtype, kb, dmask, cards, spill)
+    name, defines = build_spec(cfg, dtype, kb, dmask, cards, off_smem)
     lib = build.load((name, defines))
     fused_fb.spill_api(lib)
     elem = torch.empty((), dtype=dtype).element_size()
@@ -919,7 +930,7 @@ class MeshKernels:
 
     The order across cards is parallel/mesh.py's CardStreams.  `pl` is the
     MeshPlan to launch by (default: mesh_plan's), as mesh_plan(...,
-    spill=True) gives it to force the spill route."""
+    off_smem=True) gives it to force the spill route."""
 
     def __init__(self, statics, cfg: Config, mesh: Mesh, dtype=None,
                  cards=None, pl: Optional[MeshPlan] = None):
@@ -939,7 +950,7 @@ class MeshKernels:
         if self.dtype not in fused_fb._SUFFIX or self.dtype != cfg.tdtype:
             raise ValueError(f"shard kernels: dtype {self.dtype} with "
                              f"cfg.dtype {cfg.dtype}")
-        self.plan = mesh_plan(cfg, self.dtype, mesh, pl and pl.spill)
+        self.plan = mesh_plan(cfg, self.dtype, mesh, pl and pl.off_smem)
         if pl is not None and pl != self.plan:
             raise ValueError(f"the plan {pl} is not one of cfg on this mesh")
         # the spill route of the scheme's single-step bodies, by the plan
@@ -999,7 +1010,8 @@ class MeshKernels:
         (the scheme's build otherwise)."""
         if kb not in self._fn:
             self._fn[kb] = _entry(self.cfg, self.dtype, kb, self.dmask,
-                                  self.multi, self.plan.spill and kb == 1)
+                                  self.multi,
+                                  self.plan.off_smem and kb == 1)
         return self._fn[kb]
 
     def _table(self, c: int, fields) -> ctypes.Array:

@@ -39,16 +39,17 @@ subcycle, whose halo is nsub, of `_SUB_TILES`; nsub is compile-time too).
 Where none fits (many layers), K1's single step streams the layers: a
 build with BEOM_STREAM = 1 holds a few planes of one layer in shared
 memory, whatever nz, and runs a step as two launches, the continuity of
-every layer, then the momentum (csrc/fb_step_body.cuh: fbs); the split
-step's slow phase and recomposition take the spill route: a build with
-BEOM_SPILL = 1 keeps their planes in a scratch in device memory, one
-slice per resident CTA, each CTA looping over tiles, with the same
-arithmetic in the same order (csrc/fb_terms.cuh: block_planes).  The
-plans choose these routes (`launch_plan`, `split_plan`; their `spill`
-forces them where the shared-memory route fits too), `describe()` names
-them, STREAM_LAUNCHES counts the streamed kernels' launches and
-SPILL_LAUNCHES the spill route's.  `fb_step_streamed` runs the streamed
-step's schedule on the host, for the tests.
+every layer, then the momentum (csrc/fb_step_body.cuh: fbs).  The split
+step's slow phase and recomposition stream their layers too, on route 3
+from _STREAM_FROM layers and wherever no tile fits them (split_plan):
+the slow phase in one launch, the recomposition in two
+(csrc/split_body.cuh: sps).  The plans choose these routes
+(`launch_plan`, `split_plan`; their `off_smem` forces the route off
+shared memory where the shared-memory route fits too), `describe()`
+names them, and STREAM_LAUNCHES counts the streamed kernels' launches.
+The shard kernels (K7, stencils/dist_band.py) take the spill route
+there instead.  `fb_step_streamed` and `split_step_streamed` run the
+streamed schedules on the host, for the tests.
 
 `fused_fb_step` runs the kernels on CUDA tensors and the plain version,
 `fused_fb_step_plain`, on CPU tensors.  It never falls back from one to
@@ -79,11 +80,13 @@ LAUNCHES = 0
 PASS_LAUNCHES = 0
 SPLIT_LAUNCHES = {"slow": 0, "subcycle": 0, "recompose": 0, "tend": 0,
                   "tail": 0}
-# the split kernels' launches above that took the spill route, and the
-# layer-streamed K1's two kernels' launches (LAUNCHES counts such a step
-# as one)
-SPILL_LAUNCHES = {"slow": 0, "recompose": 0, "tend": 0}
-STREAM_LAUNCHES = {"fb_continuity": 0, "fb_momentum": 0}
+# the layer-streamed kernels' launches: K1's two (LAUNCHES counts such a
+# step as one), and the split step's among SPLIT_LAUNCHES (the slow phase,
+# its tendencies, and the recomposition: one entry call that launches its
+# two kernels, split_rec_h_layers_kernel and split_rec_uv_layers_kernel,
+# counted once)
+STREAM_LAUNCHES = {"fb_continuity": 0, "fb_momentum": 0, "split_slow": 0,
+                   "split_tend": 0, "split_recompose": 0}
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
 # operand slots, in the order of csrc/fb_terms.cuh's enums Ptr, Int and Dbl
@@ -136,14 +139,32 @@ _TAIL_STRIP = 0.5
 _TAIL_THREADS = 0.6
 _TAIL_MAX_FACTOR = 3.0
 # the single-step kernels of each source whose planes decide whether a
-# tile fits (off shared memory K1 streams its layers, the split step and
-# K7 take the spill route), and the index of each spill-route kernel in
-# its source's beom_work_bytes / beom_spill_ctas
+# tile fits (off shared memory K1 and the split step stream their layers,
+# K7 takes the spill route)
 _SPILLED = {"fb_step": ("fb_step",),
             "split_step": ("split_slow", "split_recompose")}
-_WHICH = {"split_slow": 0, "split_recompose": 1, "split_tend": 4}
-# the layer-streamed K1's kernels, by their index in beom_smem_bytes
-_STREAMED = ("fb_momentum", "fb_continuity")
+# the layer-streamed builds' kernels, by their index in beom_smem_bytes
+_STREAMED = {"fb_step": ("fb_momentum", "fb_continuity"),
+             "split_step": ("split_slow", "split_rec_h", "split_subcycle",
+                            "split_tail", "split_rec_uv")}
+# Route 3 streams the split step's layers from _STREAM_FROM layers (and
+# wherever no tile fits its slow phase and recomposition).  On the H100 at
+# 2048^2 f32 on the shelf with 13 constituents, nsub 8, the slow phase and
+# the recomposition on the device (tools/kernel_times.py --layers split,
+# parent / change / change / parent), streamed against shared memory: nz
+# 2 1.07 ms against 1.05 (32 x 16 tiles), nz 4 1.45 against 1.70, nz 8
+# 2.46 against 3.63, nz 16 4.49 against 10.85 (16 x 8), nz 32 8.53
+# against 35.0 (8 x 8).  The streamed recomposition wins at every nz, the
+# streamed slow phase loses to the shared-memory one up to nz 8 (0.35
+# against 0.28 ms at nz 2, 1.17 against 1.09 at nz 8): one build takes
+# both, so the rule is their sum's.  At 2048^2 f64 on the same shelf (the
+# same tool, the two routes of one checkout, slow + recompose between
+# CUDA events) the streamed route wins from nz 2: nz 2 2.40 against 3.04
+# ms (32 x 16 tiles), nz 4 3.38 against 4.18, nz 8 5.68 against 8.42
+# (16 x 8), nz 16 10.36 against 25.7 (8 x 8).  The rule streams from 4
+# layers at both types; below 4 at f64 it is not yet measured on the
+# cases at their own sizes (ROADMAP L2).
+_STREAM_FROM = 4
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -211,6 +232,27 @@ def stream_smem(cfg: Config, tile, elem: int, off: int = 4) -> dict:
     return out
 
 
+def split_stream_smem(cfg: Config, tile, elem: int, off: int = 4) -> dict:
+    """Dynamic shared memory of one CTA of each layer-streamed split kernel
+    at `tile` (csrc/split_body.cuh: sps): planes of one or two layers and
+    the table of offsets.  The slow phase's block has the halo 2 and h,
+    u, v of two layers, phi, q, z, acc, four masks (+ lap(u), lap(v) with
+    nu4); the recomposition's continuity the halo LO and h, u', v' of two
+    layers, h1, three masks, the mean advecting velocities (+ the fluxes
+    and scales under wet/dry); its velocities the halo 1 and three masks
+    (+ h1 where the gates or Flather read it, + ee under the open
+    boundary)."""
+    lo, nu4 = (2 if cfg.wetdry else 1), cfg.nu4 != 0.0
+    out = {}
+    for kernel, w, planes in (
+            ("split_slow", 2, 14 + 2 * nu4),
+            ("split_rec_h", lo, 12 + 3 * cfg.wetdry),
+            ("split_rec_uv", 1, 3 + (cfg.wetdry or cfg.obc) + cfg.obc)):
+        npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
+        out[kernel] = tables(npt * planes * elem, npt, off)
+    return out
+
+
 def work_bytes(cfg: Config, tile, elem: int) -> dict:
     """Bytes of one CTA's slice of the spill route's scratch: each
     single-step body's planes of its block at `tile`."""
@@ -218,24 +260,24 @@ def work_bytes(cfg: Config, tile, elem: int) -> dict:
             for kernel, (w, planes) in single_planes(cfg).items()}
 
 
-def tile_or_spill(need, spill: bool = False):
+def tile_or_spill(need, off_smem: bool = False):
     """(tile, off) of single-step kernels whose CTA at a tile needs
     need(tile) bytes of shared memory: the first of _TILES that fits;
-    where none fits, or where `spill` is true (to force it), the route off
-    shared memory (K1 and K3b layer-streamed, the others on the spill
-    route) at the largest tile."""
+    where none fits, or where `off_smem` is true (to force it), the route
+    off shared memory (layer-streamed on one device but for K3a, the spill
+    route for K3a and the shard kernels) at the largest tile."""
     fits = [t for t in _TILES if need(t) <= _MAX_SMEM]
-    spill = bool(spill) or not fits
-    return (_TILES[0] if spill else fits[0]), spill
+    off = bool(off_smem) or not fits
+    return (_TILES[0] if off else fits[0]), off
 
 
-def single_tile(cfg: Config, dtype=None, spill: bool = False):
+def single_tile(cfg: Config, dtype=None, off_smem: bool = False):
     """tile_or_spill of the single-step kernels of cfg's scheme (K1's, or
     the split step's slow phase and recomposition)."""
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     name = "fb_step" if cfg.scheme == "fb" else "split_step"
     return tile_or_spill(lambda t: max(
-        smem_bytes(cfg, t, t, elem)[k] for k in _SPILLED[name]), spill)
+        smem_bytes(cfg, t, t, elem)[k] for k in _SPILLED[name]), off_smem)
 
 
 def tail_halo(cfg: Config) -> int:
@@ -360,17 +402,17 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def launch_plan(cfg: Config, dtype, m: int, spill: bool = False):
+def launch_plan(cfg: Config, dtype, m: int, off_smem: bool = False):
     """The build that advances m fb steps in one launch, or None where no
     block with a halo of m W fits a CTA: at m = 1 the single-step kernel
-    (single_tile: layer-streamed where no tile fits, or where `spill`
+    (single_tile: layer-streamed where no tile fits, or where `off_smem`
     forces it), else the pass kernel at the tile of least plan_cost whose
     CTA fits one SM's shared memory, with 1024 threads where one CTA fits
     an SM and 512 where two do."""
     check_config(cfg)
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     if m == 1:
-        one, stream = single_tile(cfg, dtype, spill)
+        one, stream = single_tile(cfg, dtype, off_smem)
         smem = max(stream_smem(cfg, one, elem).values()) if stream else \
             smem_bytes(cfg, one, one, elem)["fb_step"]
         return Plan(1, one, 256, smem, stream)
@@ -384,13 +426,13 @@ def launch_plan(cfg: Config, dtype, m: int, spill: bool = False):
 
 @functools.lru_cache(maxsize=None)
 def plan(cfg: Config, dtype=None, k: int = None,
-         spill: bool = False) -> Plan:
+         off_smem: bool = False) -> Plan:
     """The launch plan of a pass of k fb steps (default: steps_per_pass):
     the kb <= k whose launches (Plan.launches) cost the least by plan_cost
-    at their builds' tiles; with spill=True the layer-streamed kernels (to
-    hold them against the shared-memory route where both build)."""
+    at their builds' tiles; with off_smem=True the layer-streamed kernels
+    (to hold them against the shared-memory route where both build)."""
     k = k or cfg.steps_per_pass
-    if spill:
+    if off_smem:
         return launch_plan(cfg, dtype, 1, True)
 
     def cost(kb):
@@ -410,14 +452,16 @@ class SplitPlan:
     tendencies, then the tail on blocks of rx x ry points around tiles of
     qx x qy, qs strips of qp rows per column, rx qs threads), or route 3,
     the three kernels; `smem` the tail's bytes per CTA.  The tail's
-    geometry is built into the library either way."""
+    geometry is built into the library either way.  With `stream` the slow
+    phase (its tendencies) and the recomposition stream their layers (the
+    recomposition in two launches)."""
     route: int
     qx: int
     qs: int
     qp: int
     halo: int
     smem: int
-    spill: bool = False
+    stream: bool = False
 
     @property
     def rx(self) -> int:
@@ -436,19 +480,22 @@ class SplitPlan:
         return (self.qx, self.qs, self.qp)
 
     def launches(self) -> int:
-        return 2 if self.route == 2 else 3
+        return 2 if self.route == 2 else 3 + self.stream
 
     def describe(self) -> str:
-        spill = "; the slow phase and the recomposition on the spill route " \
-            "(their planes in device memory)" if self.spill else ""
         if self.route == 3:
+            stream = "; the slow phase and the recomposition " \
+                "layer-streamed (one layer at a time in shared memory, the " \
+                "recomposition in two launches)" if self.stream else ""
             return ("route 3: the slow phase, the subcycle, the "
-                    f"recomposition{spill}")
+                    f"recomposition{stream}")
+        stream = "; the tendencies layer-streamed (one layer at a time in " \
+            "shared memory)" if self.stream else ""
         return (f"route 2: the slow phase's tendencies, then the tail on "
                 f"{self.qx} x {self.qy} tiles (blocks of {self.rx} x "
                 f"{self.qs * self.qp}, halo {self.halo}), {self.threads} "
                 f"threads ({self.qs} strips of {self.qp} rows per column), "
-                f"{self.smem} bytes of shared memory per CTA{spill}")
+                f"{self.smem} bytes of shared memory per CTA{stream}")
 
 
 def tail_geometries(cfg: Config, dtype=None) -> list:
@@ -491,31 +538,34 @@ def tail_cost(cfg: Config, tail) -> float:
 
 
 @functools.lru_cache(maxsize=None)
-def split_plan(cfg: Config, dtype=None, spill: bool = False) -> SplitPlan:
+def split_plan(cfg: Config, dtype=None, off_smem: bool = False) -> SplitPlan:
     """The route of a split step and the tail's geometry: the geometry of
     least tail_cost; route 2 where it fits with at most _TAIL_MAX_FACTOR
     block points per tile point and there is no open boundary, else route
     3 (where no geometry fits, the build's tail is one column wide with
     as many strips of one row as a CTA holds: it is never launched, and
-    strips of one row keep it quick to compile).  The slow phase and the
-    recomposition take the spill route where no tile fits them
-    (single_tile), or where `spill` forces it."""
+    strips of one row keep it quick to compile).  Route 3's slow phase and
+    recomposition stream their layers from _STREAM_FROM layers and where
+    no tile fits them (single_tile); route 2's tendencies keep shared
+    memory.  `off_smem` forces the streamed kernels on either route."""
     check_config(cfg)
     dtype = dtype or cfg.tdtype
     elem = torch.empty((), dtype=dtype).element_size()
     h = tail_halo(cfg)
-    spill = single_tile(cfg, dtype, spill)[1]
+    off = single_tile(cfg, dtype, off_smem)[1]
+    stream = off or cfg.nz >= _STREAM_FROM
     fits = tail_geometries(cfg, dtype)
     if not fits:
         rows = 2 * h + 1
         qs = min(rows, 1024 // rows)
         qp = -(-rows // qs)
         return SplitPlan(3, 1, qs, qp, h, tail_smem(cfg, (1, qs, qp), elem),
-                         spill)
+                         stream)
     tail = min(fits, key=lambda g: (tail_cost(cfg, g), -g[1]))
     route = 2 if tail_factor(cfg, tail) <= _TAIL_MAX_FACTOR \
         and not cfg.obc else 3
-    return SplitPlan(route, *tail, h, tail_smem(cfg, tail, elem), spill)
+    return SplitPlan(route, *tail, h, tail_smem(cfg, tail, elem),
+                     off or (route == 3 and stream))
 
 
 def term_defines(cfg: Config, tile):
@@ -530,15 +580,17 @@ def term_defines(cfg: Config, tile):
             f"BEOM_TX={tile[0]}", f"BEOM_TY={tile[1]}")
 
 
-def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None,
-               spill: bool = False, shard: bool = False):
+def build_spec(cfg: Config, dtype=None, kb: int = 1, sp=None,
+               off_smem: bool = False, shard: bool = False):
     """(source, defines) of the build that runs cfg: fb_step.cu or
-    split_step.cu with the compile-time switches and the tile (and the
-    split tail's geometry: split_plan's, or `tail`); where no tile fits the
-    single-step kernels (single_tile; `spill` forces it) BEOM_STREAM=1 for
-    K1 (layer-streamed) and BEOM_SPILL=1 for the split step and for the
-    shard kernels' bodies (`shard`, dist_band.build_spec); with kb > 1 the
-    fb pass kernel of kb steps at the plan's tile and threads."""
+    split_step.cu with the compile-time switches and the tile; off shared
+    memory BEOM_STREAM=1, layer-streamed: K1 where no tile fits
+    (single_tile, `off_smem` forces it), the split step where the split
+    plan `sp` streams (default split_plan(cfg, dtype, off_smem)), which
+    also gives the tail's geometry; for the shard kernels' bodies
+    (`shard`, dist_band.build_spec) BEOM_SPILL=1 where no tile fits
+    (`off_smem` forces it); with kb > 1 the fb pass kernel of kb steps at
+    the plan's tile and threads."""
     check_config(cfg)
     if kb > 1:
         pl = launch_plan(cfg, dtype, kb)
@@ -550,15 +602,22 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1, tail=None,
             f"BEOM_WIND={int(cfg.wind)}")
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     name = "fb_step" if cfg.scheme == "fb" else "split_step"
-    tile, off = single_tile(cfg, dtype, spill)
-    route = "BEOM_STREAM=1" if name == "fb_step" and not shard else \
-        "BEOM_SPILL=1"
+    if sp is not None and off_smem:
+        raise ValueError("a split plan and off_smem both given: the plan "
+                         "names the route")
+    tile, off = single_tile(cfg, dtype, off_smem)
+    if name == "split_step":
+        sp = sp or split_plan(cfg, dtype, off_smem)
+        if not shard:
+            off = sp.stream
+            tile = _TILES[0] if off else single_tile(cfg, dtype)[0]
+    route = "BEOM_SPILL=1" if shard else "BEOM_STREAM=1"
     defines = term_defines(cfg, tile) + ((route,) if off else ())
     if name == "split_step":
         sub = _pick(_SUB_TILES, lambda t: smem_bytes(
             cfg, tile, t, elem)["split_subcycle"],
             f"the subcycle of nsub = {cfg.nsub} substeps")
-        qx, qs, qp = tail or split_plan(cfg, dtype).tail
+        qx, qs, qp = sp.tail
         defines += (f"BEOM_NSUB={cfg.nsub}", f"BEOM_SX={sub[0]}",
                     f"BEOM_SY={sub[1]}", f"BEOM_QX={qx}", f"BEOM_QS={qs}",
                     f"BEOM_QP={qp}")
@@ -648,14 +707,13 @@ def scratch(lib, which: int, dtype, device):
 
 
 @functools.lru_cache(maxsize=None)
-def _entries(cfg: Config, dtype, kb: int = 1, tail=None,
-             spill: bool = False):
-    """The library of build_spec(cfg, dtype, kb, tail, spill) and its
+def _entries(cfg: Config, dtype, kb: int = 1, sp=None,
+             off_smem: bool = False):
+    """The library of build_spec(cfg, dtype, kb, sp, off_smem) and its
     entry points by kernel name, built on first use."""
     from beom_tpu_torch.stencils import build
 
-    name, defines = build_spec(cfg, dtype, kb, tail, spill)
-    spill = "BEOM_SPILL=1" in defines
+    name, defines = build_spec(cfg, dtype, kb, sp, off_smem)
     lib = build.load((name, defines))
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
@@ -664,23 +722,20 @@ def _entries(cfg: Config, dtype, kb: int = 1, tail=None,
                       (value.get("BEOM_SX", 0), value.get("BEOM_SY", 0)),
                       elem, (value.get("BEOM_QX"), value.get("BEOM_QS"),
                              value.get("BEOM_QP"))
-                      if name == "split_step" else None, spill=spill)
+                      if name == "split_step" else None)
     kernels = _TILED[name]
     if kb > 1:
         want["fb_step"] = pass_smem(cfg, kb, tile, elem)
     if "BEOM_STREAM=1" in defines:
-        want, kernels = stream_smem(cfg, tile, elem), _STREAMED
+        want.update(stream_smem(cfg, tile, elem) if name == "fb_step" else
+                    split_stream_smem(cfg, tile, elem))
+        kernels = _STREAMED[name]
     for i, kernel in enumerate(kernels):
         have = lib.beom_smem_bytes(i, int(elem == 8))
         if have != want[kernel]:
             raise RuntimeError(
                 f"{kernel}: the kernel's shared memory ({have} bytes) is "
                 f"not what smem_bytes counts ({want[kernel]})")
-    if name == "split_step":
-        spill_api(lib)
-        work = work_bytes(cfg, tile, elem)
-        check_work(lib, name, {_WHICH[k]: work[k] * spill
-                               for k in _SPILLED[name]}, elem)
 
     # every argument is a pointer: the operand tables, the outputs, the
     # stream
@@ -849,14 +904,6 @@ def _check_operands(h, u, v, statics, cfg: Config, check=None,
                 f"{tuple(a.shape)} on {a.device}")
 
 
-def _spill_args(lib, kernel: str, h, spill: bool):
-    """(scratch, slots) of a launch of `kernel` on the spill route, or
-    None off it.  The caller holds it until the launch is queued: freed
-    earlier, the caching allocator could hand its memory to an output."""
-    return scratch(lib, _WHICH[kernel], h.dtype, h.device) if spill \
-        else None
-
-
 def _launch_fb(h, u, v, statics, parity: int, ts, cfg: Config, pl=None):
     """One launch of K1 by the launch plan `pl` of len(ts) steps (default:
     launch_plan's), step i to the time ts[i]; a layer-streamed step is the
@@ -869,7 +916,7 @@ def _launch_fb(h, u, v, statics, parity: int, ts, cfg: Config, pl=None):
     if pl.kb != len(ts):
         raise ValueError(f"a launch of {len(ts)} steps by a plan of kb = "
                          f"{pl.kb}")
-    lib, entry = _entries(cfg, h.dtype, pl.kb, None, pl.stream)
+    lib, entry = _entries(cfg, h.dtype, pl.kb, off_smem=pl.stream)
     outs = [torch.empty_like(h) for _ in range(3)]
     operands = [h, u, v] + _operands(statics)
     aligned = all(a.data_ptr() % 16 == 0 for a in operands + outs)
@@ -890,7 +937,7 @@ def _split_entries(cfg: Config, dtype, sp):
     """(split plan, library, entry points) of a split launch by the plan
     `sp` (default: split_plan's)."""
     sp = sp or split_plan(cfg, dtype)
-    return (sp,) + _entries(cfg, dtype, 1, sp.tail, sp.spill)
+    return (sp,) + _entries(cfg, dtype, 1, sp)
 
 
 def _launch_slow(h, u, v, statics, cfg: Config, sp=None):
@@ -900,18 +947,16 @@ def _launch_slow(h, u, v, statics, cfg: Config, sp=None):
     from beom_tpu_torch.stencils import build
 
     sp, lib, entry = _split_entries(cfg, h.dtype, sp)
-    spill = sp.spill
     plane = h[0]
     outs = [torch.empty_like(h) for _ in range(4)] \
         + [torch.empty_like(plane) for _ in range(9)]
-    work = _spill_args(lib, "split_slow", h, spill)
-    ints, dbls = _scalars(cfg, 0, 0.0, work=work)
+    ints, dbls = _scalars(cfg, 0, 0.0)
     code = entry["split_slow"](
-        _table((h, u, v), statics, work and work[0]), ints, dbls,
-        _pointers(outs), _stream(h.device))
+        _table((h, u, v), statics), ints, dbls, _pointers(outs),
+        _stream(h.device))
     build.check(lib, code, "split_slow kernel launch")
     SPLIT_LAUNCHES["slow"] += 1
-    SPILL_LAUNCHES["slow"] += spill
+    STREAM_LAUNCHES["split_slow"] += sp.stream
     return outs
 
 
@@ -936,17 +981,14 @@ def _launch_recompose(slow, sub, h, u, v, statics, t1, cfg: Config,
     from beom_tpu_torch.stencils import build
 
     sp, lib, entry = _split_entries(cfg, h.dtype, sp)
-    spill = sp.spill
     outs = [torch.empty_like(h) for _ in range(3)]
-    work = _spill_args(lib, "split_recompose", h, spill)
-    ints, dbls = _scalars(cfg, 0, t1, work=work)
+    ints, dbls = _scalars(cfg, 0, t1)
     code = entry["split_recompose"](
-        _table((h, u, v), statics, work and work[0]), ints, dbls,
-        _pointers(slow), _pointers(sub), *[a.data_ptr() for a in outs],
-        _stream(h.device))
+        _table((h, u, v), statics), ints, dbls, _pointers(slow),
+        _pointers(sub), *[a.data_ptr() for a in outs], _stream(h.device))
     build.check(lib, code, "split_recompose kernel launch")
     SPLIT_LAUNCHES["recompose"] += 1
-    SPILL_LAUNCHES["recompose"] += spill
+    STREAM_LAUNCHES["split_recompose"] += sp.stream
     return outs
 
 
@@ -956,16 +998,14 @@ def _launch_tend(h, u, v, statics, cfg: Config, sp=None):
     from beom_tpu_torch.stencils import build
 
     sp, lib, entry = _split_entries(cfg, h.dtype, sp)
-    spill = sp.spill
     outs = [torch.empty_like(h) for _ in range(2)]
-    work = _spill_args(lib, "split_tend", h, spill)
-    ints, dbls = _scalars(cfg, 0, 0.0, work=work)
+    ints, dbls = _scalars(cfg, 0, 0.0)
     code = entry["split_tend"](
-        _table((h, u, v), statics, work and work[0]), ints, dbls,
-        _pointers(outs), _stream(h.device))
+        _table((h, u, v), statics), ints, dbls, _pointers(outs),
+        _stream(h.device))
     build.check(lib, code, "split_tend kernel launch")
     SPLIT_LAUNCHES["tend"] += 1
-    SPILL_LAUNCHES["tend"] += spill
+    STREAM_LAUNCHES["split_tend"] += sp.stream
     return outs
 
 
@@ -1075,8 +1115,8 @@ def fused_fb_step(h, u, v, statics, n: int, t, cfg: Config, k: int,
     CPU tensors take the plain version.  CUDA tensors take the kernels by
     the plan `pl` (default: `plan` of k steps for fb, `split_plan` for
     split): ceil(k / kb) launches per pass of fb steps (the layer-streamed
-    step two), two or three per split step; the split step's single-step
-    kernels on the spill route where the plan takes it.
+    step two), two or three per split step (four where the slow phase and
+    the recomposition stream their layers).
     """
     if h.device.type == "cpu":
         return fused_fb_step_plain(h, u, v, statics, n, t, cfg, k)
@@ -1330,6 +1370,157 @@ def fb_step_streamed(h, u, v, statics, n: int, t, cfg: Config, tile=None,
                     (lo,) * 4)
     return (out_h,) + _tiled(momentum_launch, (out_h, u, v), statics, cfg,
                              tile, (hw,) * 4)
+
+
+def _layer_tendencies(h, u, v, g, fo, c, k: int, acc):
+    """The slow phase's tendencies (du_s, dv_s) of layer k alone, as one
+    (1, ny, nx) pair, from that layer's h, u, v, the Montgomery potential's
+    running sum acc and the old u, v of the layers beside it (the
+    interfacial drag): fb._common_tendencies without the free surface
+    and the PV cross terms, in their order."""
+    from beom_tpu_torch.core import ops
+    from beom_tpu_torch.physics import momentum, obc, viscosity
+
+    nz, one = c.nz, _layer_cfg(c, k)
+    hk, uk, vk = h[k:k + 1], u[k:k + 1], v[k:k + 1]
+    phi = acc[None]
+    if c.adv_scheme != "linear":
+        phi = phi + momentum.kinetic_energy(uk, vk)
+    du = -ops.d_xp(phi, c.dx)
+    dv = -ops.d_yp(phi, c.dy)
+    duv, dvv = viscosity.viscosity(uk, vk, g, one)
+    du, dv = du + duv, dv + dvv
+    duw, dvw = drag.wind(hk, g, fo, one)
+    if k > 0:
+        duw, dvw = torch.zeros_like(duw), torch.zeros_like(dvw)
+    du, dv = du + duw, dv + dvw
+    if c.r_int != 0.0 and nz > 1:
+        hu = torch.clamp_min(ops.a_xp(hk), c.h_min)
+        hv = torch.clamp_min(ops.a_yp(hk), c.h_min)
+
+        def couple(w, hh):
+            a = w[k:k + 1]
+            above = w[k - 1:k] - a if k > 0 else torch.zeros_like(a)
+            below = w[k + 1:k + 2] - a if k < nz - 1 else \
+                torch.zeros_like(a)
+            return c.r_int * (above + below) / hh
+
+        du, dv = du + couple(u, hu), dv + couple(v, hv)
+    else:
+        du, dv = du + torch.zeros_like(du), dv + torch.zeros_like(dv)
+    if c.sponge:
+        _, dus, dvs = obc.sponge_rhs(hk, uk, vk, fo, one)
+        du, dv = du + dus, dv + dvs
+    q, U, V = fb_mod._pv_and_fluxes(hk, uk, vk, g, one)
+    return (du + ops.a_ym(q * ops.a_xp(V)),
+            dv - ops.a_xm(q * ops.a_yp(U)))
+
+
+def split_step_streamed(h, u, v, statics, n: int, t, cfg: Config,
+                        tile=None, halos=None):
+    """The layer-streamed K1s's schedule on the host (route 3), for the
+    tests: one split step as its four launches (csrc/split_body.cuh: sps),
+    each block of a tile in a ring of NaN.  The slow phase, on blocks with
+    the halo 2 (halos[0]), takes each layer from the surface: Montgomery's
+    running sums without the free surface, the layer's tendencies from its
+    h, u, v alone (the interfacial drag from the old u, v of the layers
+    beside it), the column's face thicknesses, transports, h and tendency
+    transports summed as they come, the bottom drag from the last layer;
+    then the depth means, and u', v', du', dv' subtracted layer by layer.
+    The subcycle runs on the whole grid (its kernel is route 3's own).  The
+    recomposition's continuity, on blocks with the halo LO (halos[1]),
+    takes each layer's h1 from that layer's h, u', v' and the mean
+    advecting velocities, sums the column and rescales it; its velocities,
+    on blocks with the halo 1 (halos[2]), recompose each layer's u, v and
+    gate it with the rescaled h1, and Flather's increments, from its sums
+    over the layers, are added afterwards.  Returns (h1, u1, v1) and the
+    slow phase; equal to the plain split step and slow phase bit for bit
+    at the kernels' halos."""
+    from beom_tpu_torch.core import ops
+    from beom_tpu_torch.physics import continuity, obc, wetdry
+
+    tile = tile or _TILES[0]
+    hw, lo, hv = halos or (2, (2 if cfg.wetdry else 1), 1)
+    t1 = advance_time(t, cfg.dt, cfg.npdtype)
+    dt = cfg.dt
+
+    def slow_launch(fields, st, c):
+        (h, u, v), (g, fo) = fields, st
+        z = torch.zeros(h.shape[1:], dtype=h.dtype, device=h.device)
+        acc = c.gprime[0] * z
+        dup, dvp = [], []
+        for k in range(c.nz):
+            if k > 0:
+                z = z - h[k - 1]
+                acc = acc + c.gprime[k] * z
+            dus, dvs = _layer_tendencies(h, u, v, g, fo, c, k, acc)
+            hu = ops.a_xp(h[k]) * g.mask_u
+            hv = ops.a_yp(h[k]) * g.mask_v
+            sums = (hu, hv, hu * u[k], hv * v[k], h[k], hu * dus[0],
+                    hv * dvs[0])
+            col = sums if k == 0 else tuple(a + b for a, b in zip(col, sums))
+            dup.append(dus)
+            dvp.append(dvs)
+        Hu, Hv, nu_, nv_, hs, dub, dvb = col
+        Hu = torch.clamp_min(Hu, c.h_min)
+        Hv = torch.clamp_min(Hv, c.h_min)
+        ubar, vbar = nu_ / Hu, nv_ / Hv
+        du_bar, dv_bar = dub / Hu, dvb / Hv
+        kb = c.nz - 1
+        cu, cv = drag.bottom_drag_coeff(h[kb:], u[kb:], v[kb:], g,
+                                        _layer_cfg(c, kb))
+        return (u - ubar[None], v - vbar[None],
+                torch.cat([d - du_bar[None] for d in dup]),
+                torch.cat([d - dv_bar[None] for d in dvp]), du_bar, dv_bar,
+                ubar, vbar, Hu, Hv, (hs - g.H) * g.mask, cu[0], cv[0])
+
+    def rec_h_launch(fields, st, c):
+        (h, up, vp, ub_a, vb_a, eta_f), (g, _) = fields, st
+        out = []
+        for k in range(c.nz):
+            ua = (up[k:k + 1] + ub_a[None]) * g.mask_u
+            va = (vp[k:k + 1] + vb_a[None]) * g.mask_v
+            dh = continuity.continuity_rhs(h[k:k + 1], ua, va, g,
+                                           _layer_cfg(c, k))
+            out.append((h[k:k + 1] + dt * dh) * g.mask)
+            col = out[0][0] if k == 0 else col + out[k][0]
+        col = torch.clamp_min(col, c.h_min)
+        target = torch.clamp_min(g.H + eta_f, 0.0) * g.mask
+        fac = torch.where(col > c.h_min, target / col, 1.0)
+        return (torch.cat([a * fac[None] for a in out]),)
+
+    def rec_uv_launch(fields, st, c):
+        (h1, up, vp, dup, dvp, cu, cv, ub_f, vb_f), (g, fo) = fields, st
+        out_u, out_v = [], []
+        for k in range(c.nz):
+            a = (up[k:k + 1] + dt * dup[k:k + 1]) + ub_f[None]
+            b = (vp[k:k + 1] + dt * dvp[k:k + 1]) + vb_f[None]
+            if k == c.nz - 1:
+                a = a / (1.0 + dt * cu[None])
+                b = b / (1.0 + dt * cv[None])
+            u1, v1 = a * g.mask_u, b * g.mask_v
+            if c.wetdry:
+                wet = wetdry.wet_mask(h1[k:k + 1], g, _layer_cfg(c, k))
+                u1, v1 = wetdry.gate_u(u1, wet, g), wetdry.gate_v(v1, wet, g)
+            out_u.append(u1)
+            out_v.append(v1)
+        # Flather's fix-up of what the layers wrote
+        return obc.apply_flather(h1, torch.cat(out_u), torch.cat(out_v), g,
+                                 fo, c, t1)
+
+    slow = _tiled(slow_launch, (h, u, v), statics, cfg, tile, (hw,) * 4)
+    kb = cfg.nz - 1
+    slow = SlowPhase(*slow[:11], cu=drag._on_layer(slow[11], kb, cfg.nz),
+                     cv=drag._on_layer(slow[12], kb, cfg.nz))
+    grid = statics[0]
+    eta_f, ub_f, vb_f, ub_a, vb_a = split_mod.subcycle_phase(slow, grid, cfg)
+    h1, = _tiled(rec_h_launch, (h, slow.up, slow.vp, ub_a, vb_a, eta_f),
+                 statics, cfg, tile, (lo,) * 4)
+    u1, v1 = _tiled(rec_uv_launch, (h1, slow.up, slow.vp, slow.du_p,
+                                    slow.dv_p, slow.cu[kb], slow.cv[kb],
+                                    ub_f, vb_f), statics, cfg, tile,
+                    (hv,) * 4)
+    return h1, u1, v1, slow
 
 
 def split_step_tiled(h, u, v, statics, n: int, t, cfg: Config, k: int,

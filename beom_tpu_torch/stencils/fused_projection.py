@@ -152,11 +152,11 @@ def work_bytes(cfg: Config, tile, elem: int) -> dict:
             for kernel, (w, planes) in single_planes(cfg).items()}
 
 
-def single_tile(cfg: Config, dtype=None, spill: bool = False):
+def single_tile(cfg: Config, dtype=None, off_smem: bool = False):
     """fused_fb.tile_or_spill of the single-step phase kernels."""
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     return fused_fb.tile_or_spill(
-        lambda t: max(smem_bytes(cfg, t, elem).values()), spill)
+        lambda t: max(smem_bytes(cfg, t, elem).values()), off_smem)
 
 
 def build_spec(cfg: Config, dtype=None, phase_plan=None, dmask=False,
@@ -281,17 +281,18 @@ def candidates(cfg: Config, dtype=None) -> list:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(cfg: Config, dtype=None, spill: bool = False) -> PhasePlan:
+def plan(cfg: Config, dtype=None, off_smem: bool = False) -> PhasePlan:
     """The phase kernels of cfg at `dtype`: each phase's staged kernel at
     the geometry of least geometry_cost where one fits, else its
     single-step kernel (on the spill route where no tile fits it:
     single_tile); the right-hand side in K3a's epilogue where K3a is
     staged and the layer sum has at most two terms (any order of two
     additions is the same, so the epilogue's sum is torch.sum's bit for
-    bit).  With spill=True both phases run the single-step kernels on the
-    spill route (to hold it against the other routes where both build)."""
+    bit).  With off_smem=True both phases run the single-step kernels off
+    shared memory, K3a on the spill route and K3b layer-streamed (to hold
+    them against the other routes where both build)."""
     check_config(cfg)
-    if spill:
+    if off_smem:
         return PhasePlan(None, None, False, True)
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     geos = [Geometry(*g) for g in _GEOMETRIES]

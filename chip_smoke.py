@@ -384,12 +384,15 @@ def stream_fields(cfg):
 
 
 def split_fields(cfg):
-    """Fields route 3's slow phase and recomposition move, as phase 17
-    counts them: the slow phase reads the step's operands and writes
-    SlowPhase (4 nz + 9), the recomposition reads 4 nz + 2 of SlowPhase,
-    the subcycle's 5, h, H and 3 masks and writes h, u, v."""
-    return {"split_slow": step_fields(cfg) + cfg.nz + 9,
-            "split_recompose": 8 * cfg.nz + 11}
+    """Fields route 3's slow phase and recomposition move, each of its own
+    operands once: the slow phase reads h, u, v, the four masks, H, f, the
+    wind and the sponge and writes SlowPhase (4 nz + 9); the recomposition
+    reads 4 nz + 2 of SlowPhase, the subcycle's 5, h, H, 3 masks and
+    Flather's two maps and the tides and writes h, u, v.  Neither reads
+    h_ext or the clamp's map: their continuity has no sponge or clamp."""
+    return {"split_slow": 7 * cfg.nz + 15 + 2 * cfg.wind + cfg.sponge,
+            "split_recompose": 8 * cfg.nz + 11
+            + cfg.obc * (2 + 2 * len(cfg.tides))}
 
 
 def cycle_ops(steps, levels, nu=2):
@@ -2272,15 +2275,13 @@ def case_phases(dev, smi, rel, ulps, gyre_err):
                                           cfg)
         nz = cfg.nz
         # fields moved and operations per point of each kernel: the slow
-        # phase reads the step's operands and writes SlowPhase (4 nz + 9);
-        # the subcycle reads 7 of them and 3 masks and writes 5; the
-        # recomposition reads 4 nz + 2 of SlowPhase, the 5, h, H and 3
-        # masks and writes h, u, v
+        # phase's and the recomposition's by split_fields; the subcycle
+        # reads 7 of SlowPhase's and 3 masks and writes 5
         timed = {
             "slow": (lambda: split.slow_phase(st, grid, forcing, cfg),
                      lambda: fused_fb._launch_slow(st.h, st.u, st.v,
                                                    statics, cfg),
-                     step_fields(cfg) - 3 * nz + 4 * nz + 9, 150 * nz),
+                     split_fields(cfg)["split_slow"], 150 * nz),
             "subcycle": (lambda: split.subcycle_phase(sp, grid, cfg),
                          lambda: fused_fb._launch_subcycle(
                              slow_f, st.h, st.u, st.v, statics, cfg),
@@ -2290,7 +2291,7 @@ def case_phases(dev, smi, rel, ulps, gyre_err):
                           lambda: fused_fb._launch_recompose(
                               slow_f, sub_f, st.h, st.u, st.v, statics,
                               st.t, cfg),
-                          8 * nz + 11, 40 * nz)}
+                          split_fields(cfg)["split_recompose"], 40 * nz)}
         # the two-launch step: the slow phase's tendencies read h, u, v, the
         # four masks, f, the wind and the sponge and write du_s, dv_s; the
         # tail reads h, u, v, the tendencies, H, three masks and the open
@@ -3310,7 +3311,7 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
                  lambda: fused_fb._launch_slow(st.h, st.u, st.v, statics,
                                                cfg),
                  "shard_slow_kernel", "split_slow_kernel",
-                 step_fields(cfg) - 3 * nz + 4 * nz + 9, 150 * nz,
+                 split_fields(cfg)["split_slow"], 150 * nz,
                  counts_split3),
         "subcycle": (lambda: K.subcycle(slow, *f),
                      lambda: dist_band.split_subcycle_plain(sl, pstat, cfg),
@@ -3324,8 +3325,9 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
                       lambda: fused_fb._launch_recompose(
                           one_slow, one_sub, st.h, st.u, st.v, statics, t1,
                           cfg),
-                      "shard_rec_kernel", "split_rec_kernel", 8 * nz + 11,
-                      40 * nz, counts_split3)}
+                      "shard_rec_kernel", "split_rec_kernel",
+                      split_fields(cfg)["split_recompose"], 40 * nz,
+                      counts_split3)}
     for k, (kernel, plain, single, name7, name1, fields, ops, counts) in \
             timed.items():
         with torch.cuda.device(dev):
@@ -3999,42 +4001,52 @@ def layers_specs():
                                                  precond="jacobi")
             dm = fp.derived_masks(grid)
             forced = (False,) if mesh else (False, True)
-            for spill in forced:
+            for off in forced:
                 if scheme == "implicit_fs":
                     specs.add(fp.build_spec(cfg, cfg.tdtype,
-                                            fp.plan(cfg, cfg.tdtype, spill),
+                                            fp.plan(cfg, cfg.tdtype, off),
                                             dm))
-                    if spill:
+                    if off:
                         specs.add(fp.build_spec(cfg, cfg.tdtype, fp.PhasePlan(
                             None, None, False), dm))
                 else:
                     specs |= {fused_fb.build_spec(cfg, cfg.tdtype, m,
-                                                  spill=spill and m == 1)
+                                                  off_smem=off and m == 1)
                               for m in fused_fb.plan(cfg, cfg.tdtype, 1,
-                                                     spill).launches(1)}
+                                                     off).launches(1)}
+                    if scheme == "split" and off:
+                        # the shared-memory route the plan leaves at nz 8
+                        specs.add(fused_fb.build_spec(
+                            cfg, cfg.tdtype, sp=dataclasses.replace(
+                                fused_fb.split_plan(cfg, cfg.tdtype),
+                                stream=False)))
             m = pmesh.make_mesh(*MESH28, devices=["cpu"])
             if mesh:
                 specs |= dist_band.build_specs(cfg, cfg.tdtype, m, dmask=dm)
             elif scheme == "split":
                 # K7-split on the forced route
                 specs |= dist_band.build_specs(cfg, cfg.tdtype, m,
-                                               spill=True)
+                                               off_smem=True)
     return specs
 
 
 def layers_leg(dev, smi, nz, dtype, n, timed):
     """Phase 28's checks of one leg (nz layers at n^2): K1's layer-streamed
-    kernels, K1s on its plan's route and K3a / K3b's single-step kernels
-    (K3a on the spill route, K3b layer-streamed), each bit for bit its
-    plain version (both sweep parities where the kernel takes one), their
-    plans printed, and K7-fb, K7-split and K7-proj on a 2 x 2 mesh of
-    shards of the card (their bodies on the spill route) bit for bit the
-    single-device kernels.  With `timed`, each kernel's time between CUDA
-    events and on the device beside its plain version's (K1's step, both
-    launches, between events; its two kernels each on the device, beside
-    the plain continuity and the plain momentum and finalize).  Returns
-    {kernel: (err, (ms, plain_ms), device ms)} of the timed kernels, and
-    under "fb_parts" {K1's kernel: (err, device ms, plain part's ms)}."""
+    kernels, K1s's layer-streamed slow phase and recomposition (route 3),
+    and K3a / K3b's single-step kernels (K3a on the spill route, K3b
+    layer-streamed), each bit for bit its plain version (both sweep
+    parities where the kernel takes one), their plans printed, and K7-fb,
+    K7-split and K7-proj on a 2 x 2 mesh of shards of the card (K7-split's
+    bodies in shared memory on the tile that fits, the others on the spill
+    route) bit for bit the single-device kernels.  With `timed`, each
+    kernel's time between CUDA events and on the device beside its plain
+    version's (K1's step, both launches, between events; its two kernels
+    each on the device, beside the plain continuity and the plain momentum
+    and finalize; K1s's recomposition, both launches, between events and
+    each on the device).  Returns {kernel: (err, (ms, plain_ms), device
+    ms)} of the timed kernels (K1s's recomposition: its kernels' device
+    times by name), and under "fb_parts" {K1's kernel: (err, device ms,
+    plain part's ms)}."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
@@ -4098,21 +4110,41 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
     statics = (grid, forcing)
     sp = fused_fb.split_plan(cfg, cfg.tdtype)
     print(f"   K1s {tag} nsub=8: {sp.describe()}")
-    if sp.route == 3:
-        sp_ref = split.slow_phase(st, grid, forcing, cfg)
-        got = fused_fb.split_slow(st.h, st.u, st.v, statics, cfg)
-        torch.cuda.synchronize()
-        agree(f"K1s slow {tag} vs plain", got, sp_ref, None)
-        sub_ref = split.subcycle_phase(sp_ref, grid, cfg)
-        got = fused_fb.split_subcycle(sp_ref, st.h, st.u, st.v, statics, cfg)
-        torch.cuda.synchronize()
-        agree(f"K1s subcycle {tag} vs plain", got, sub_ref, None)
-        got = fused_fb.split_recompose(sp_ref, sub_ref, st.h, st.u, st.v,
-                                       statics, st.t, cfg)
-        torch.cuda.synchronize()
-        ref = _recompose_plain(sp_ref, sub_ref, st, grid, forcing, cfg)
-        agree(f"K1s recompose {tag} vs plain", got, (ref.h, ref.u, ref.v),
-              None)
+    if not (sp.route == 3 and sp.stream):
+        raise AssertionError(f"K1s {tag} is not layer-streamed on route 3")
+    sp_ref = split.slow_phase(st, grid, forcing, cfg)
+    got = fused_fb.split_slow(st.h, st.u, st.v, statics, cfg)
+    torch.cuda.synchronize()
+    err_s = agree(f"K1s slow {tag} (layer-streamed) vs plain", got, sp_ref,
+                  None)
+    sub_ref = split.subcycle_phase(sp_ref, grid, cfg)
+    got = fused_fb.split_subcycle(sp_ref, st.h, st.u, st.v, statics, cfg)
+    torch.cuda.synchronize()
+    agree(f"K1s subcycle {tag} vs plain", got, sub_ref, None)
+    got = fused_fb.split_recompose(sp_ref, sub_ref, st.h, st.u, st.v,
+                                   statics, st.t, cfg)
+    torch.cuda.synchronize()
+    ref = _recompose_plain(sp_ref, sub_ref, st, grid, forcing, cfg)
+    err_r = agree(f"K1s recompose {tag} (layer-streamed) vs plain", got,
+                  (ref.h, ref.u, ref.v), None)
+    if timed:
+        slow = lambda: fused_fb.split_slow(st.h, st.u, st.v, statics, cfg)
+        rec = lambda: fused_fb.split_recompose(sp_ref, sub_ref, st.h, st.u,
+                                               st.v, statics, st.t, cfg)
+        ms_s = time_pair(f"K1s slow {tag} (layer-streamed)",
+                         lambda: split.slow_phase(st, grid, forcing, cfg),
+                         slow, 2, 10)
+        ms_r = time_pair(f"K1s recompose {tag} (layer-streamed, both "
+                         "launches)", lambda: _recompose_plain(
+                             sp_ref, sub_ref, st, grid, forcing, cfg), rec,
+                         2, 10)
+        dev_ms = device_ms(f"K1s {tag}", lambda: (slow(), rec()), 5,
+                           {"split_slow_layers_kernel": 1,
+                            "split_rec_h_layers_kernel": 1,
+                            "split_rec_uv_layers_kernel": 1})
+        out["split_slow"] = (err_s, ms_s, dev_ms["split_slow_layers_kernel"])
+        out["split_recompose"] = (err_r, ms_r, dev_ms)
+    del sp_ref, sub_ref, got, ref
     args = (st.h, st.u, st.v, statics, 0, st.t, cfg, 1)
     got = fused_fb.fused_fb_step(*args)
     torch.cuda.synchronize()
@@ -4193,8 +4225,9 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
                      "fb_mom_kernel": 1}
                     if scheme == "fb" else
                     {"shard_slow_kernel": 1, "shard_sub_kernel": 1,
-                     "shard_rec_kernel": 1, "split_slow_kernel": 1,
-                     "split_sub_kernel": 1, "split_rec_kernel": 1})
+                     "shard_rec_kernel": 1, "split_slow_layers_kernel": 1,
+                     "split_sub_kernel": 1, "split_rec_h_layers_kernel": 1,
+                     "split_rec_uv_layers_kernel": 1})
         else:
             p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype,
                             device=dev) * grid.mask
@@ -4242,13 +4275,14 @@ def both_routes(dev, smi, nz):
     """Phase 28's last leg: at nz layers (2048^2 f32), where every route
     builds, the routes off shared memory forced by the plans' own
     parameter (fused_fb.plan, split_plan, fused_projection.plan,
-    dist_band.mesh_plan: K1 and K3b layer-streamed, the split step and K3a
-    on the spill route) bit for bit the shared-memory route, each timed
-    beside it; and three paths through the forced routes, their kernels'
-    counts read from 0: 2 steps of K1 and of the split step, and one of
-    K7-split on 2 x 2 shards of the card, bit for bit the single-device
-    kernels on the same route.  Returns {kernel: (err, ms, device ms,
-    launches)} of the forced split kernels."""
+    dist_band.mesh_plan: K1, K3b and the split step layer-streamed, K3a
+    and K7 on the spill route) bit for bit the shared-memory route, each
+    timed beside it; and three paths through the forced routes, their
+    kernels' counts read from 0: 2 steps of K1 and of the split step, and
+    one of K7-split on 2 x 2 shards of the card, bit for bit the
+    single-device kernels on the forced route.  Returns {kernel: (err, ms,
+    device ms, launches)} of the forced split kernels (the streamed
+    recomposition's device ms by kernel)."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
@@ -4263,22 +4297,24 @@ def both_routes(dev, smi, nz):
                                              scheme=scheme, nsub=8)
         statics = (grid, forcing)
         args = (st.h, st.u, st.v, statics, 1, st.t, cfg, 1)
+        # the split step's plan streams at nz 8 too: the same plan with
+        # stream off is its shared-memory route, which fits there
         forced = fused_fb.plan(cfg, cfg.tdtype, 1, True) if scheme == "fb" \
             else fused_fb.split_plan(cfg, cfg.tdtype, True)
         usual = fused_fb.plan(cfg, cfg.tdtype, 1) if scheme == "fb" \
-            else fused_fb.split_plan(cfg, cfg.tdtype)
+            else dataclasses.replace(fused_fb.split_plan(cfg, cfg.tdtype),
+                                     stream=False)
         print(f"   {scheme} {tag}, forced: {forced.describe()}; the plan's: "
               f"{usual.describe()}")
         got = fused_fb.fused_fb_step(*args, pl=forced)
-        ref = fused_fb.fused_fb_step(*args)
+        ref = fused_fb.fused_fb_step(*args, pl=usual)
         torch.cuda.synchronize()
-        route = "the layer-streamed route" if scheme == "fb" else \
-            "the spill route"
+        route = "the layer-streamed route"
         agree(f"{scheme} {tag}: {route} vs the shared-memory route",
               got, ref, None)
         ms = time_pair(f"{scheme} {tag} shared-memory route (as 'plain') vs "
                        f"{route}", lambda: fused_fb.fused_fb_step(
-                           *args), lambda: fused_fb.fused_fb_step(
+                           *args, pl=usual), lambda: fused_fb.fused_fb_step(
                            *args, pl=forced), 10, 10, unit="step")
         if scheme == "fb":
             # the forced route's path: 2 steps, the counts from 0
@@ -4291,20 +4327,23 @@ def both_routes(dev, smi, nz):
             fused_fb.STREAM_LAUNCHES.update(saved)
             print(f"   fb {tag}, 2 steps on the forced route: launches "
                   f"{counts}")
-            if counts != {"fb_continuity": 2, "fb_momentum": 2}:
+            if counts != {**dict.fromkeys(counts, 0), "fb_continuity": 2,
+                          "fb_momentum": 2}:
                 raise AssertionError(f"the forced fb path: {counts}")
         if scheme == "split":
             # the forced route's path: 2 steps, the counts from 0
-            saved = dict(fused_fb.SPILL_LAUNCHES)
-            fused_fb.SPILL_LAUNCHES.update(dict.fromkeys(saved, 0))
+            saved = dict(fused_fb.STREAM_LAUNCHES)
+            fused_fb.STREAM_LAUNCHES.update(dict.fromkeys(saved, 0))
             fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg,
                                    2, pl=forced)
             torch.cuda.synchronize()
-            counts = dict(fused_fb.SPILL_LAUNCHES)
-            fused_fb.SPILL_LAUNCHES.update(saved)
-            print(f"   split {tag}, 2 steps on the forced route: spill "
+            counts = dict(fused_fb.STREAM_LAUNCHES)
+            fused_fb.STREAM_LAUNCHES.update(saved)
+            print(f"   split {tag}, 2 steps on the forced route: streamed "
                   f"launches {counts}")
-            if counts["slow"] != 2 or counts["recompose"] != 2:
+            if counts != {"fb_continuity": 0, "fb_momentum": 0,
+                          "split_slow": 2, "split_tend": 0,
+                          "split_recompose": 2}:
                 raise AssertionError(f"the forced split path: {counts}")
             sp_ref = split_mod.slow_phase(st, grid, forcing, cfg)
             sub_ref = split_mod.subcycle_phase(sp_ref, grid, cfg)
@@ -4313,26 +4352,40 @@ def both_routes(dev, smi, nz):
             rec = lambda: fused_fb.split_recompose(
                 sp_ref, sub_ref, st.h, st.u, st.v, statics, st.t, cfg,
                 forced)
-            err_s = agree(f"K1s slow {tag} (spill route) vs plain", slow(),
-                          sp_ref, None)
+            err_s = agree(f"K1s slow {tag} (layer-streamed) vs plain",
+                          slow(), sp_ref, None)
             ref = _recompose_plain(sp_ref, sub_ref, st, grid, forcing, cfg)
-            err_r = agree(f"K1s recompose {tag} (spill route) vs plain",
+            err_r = agree(f"K1s recompose {tag} (layer-streamed) vs plain",
                           rec(), (ref.h, ref.u, ref.v), None)
-            ms_s = time_pair(f"K1s slow {tag} (spill route)",
+            # each forced kernel bit for bit the shared-memory route's
+            shared = usual
+            agree(f"K1s slow {tag}: the layer-streamed route vs the "
+                  "shared-memory route", slow(), fused_fb.split_slow(
+                      st.h, st.u, st.v, statics, cfg, shared), None)
+            agree(f"K1s recompose {tag}: the layer-streamed route vs the "
+                  "shared-memory route", rec(), fused_fb.split_recompose(
+                      sp_ref, sub_ref, st.h, st.u, st.v, statics, st.t, cfg,
+                      shared), None)
+            ms_s = time_pair(f"K1s slow {tag} (layer-streamed)",
                              lambda: split_mod.slow_phase(st, grid, forcing,
                                                           cfg), slow, 3, 10)
-            ms_r = time_pair(f"K1s recompose {tag} (spill route)",
+            ms_r = time_pair(f"K1s recompose {tag} (layer-streamed, both "
+                             "launches)",
                              lambda: _recompose_plain(sp_ref, sub_ref, st,
                                                       grid, forcing, cfg),
                              rec, 3, 10)
-            dev_ms = device_ms(f"K1s slow / recompose {tag} (spill route)",
+            dev_ms = device_ms(f"K1s slow / recompose {tag} (layer-streamed)",
                                lambda: (slow(), rec()), 5,
-                               {"split_slow_kernel": 1,
-                                "split_rec_kernel": 1})
-            out["split_slow"] = (err_s, ms_s, dev_ms["split_slow_kernel"],
-                                 counts["slow"])
-            out["split_recompose"] = (err_r, ms_r, dev_ms["split_rec_kernel"],
-                                      counts["recompose"])
+                               {"split_slow_layers_kernel": 1,
+                                "split_rec_h_layers_kernel": 1,
+                                "split_rec_uv_layers_kernel": 1})
+            out["split_slow"] = (err_s, ms_s,
+                                 dev_ms["split_slow_layers_kernel"],
+                                 counts["split_slow"])
+            out["split_recompose"] = (
+                err_r, ms_r, {k: v for k, v in dev_ms.items()
+                              if "rec" in k},
+                counts["split_recompose"])
             # K7-split on the forced route: one step on 2 x 2 shards of the
             # card, its spill launches counted from 0, bit for bit the
             # single-device kernels on the same route (`got`)
@@ -4352,7 +4405,8 @@ def both_routes(dev, smi, nz):
                   f"launches {counts7}")
             if counts7["split_slow"] != 1 or counts7["split_recompose"] != 1:
                 raise AssertionError(f"the forced K7-split path: {counts7}")
-            err7 = agree(f"K7-split {tag} (spill route) vs K1s (spill route)",
+            err7 = agree(f"K7-split {tag} (spill route) vs K1s "
+                         "(layer-streamed)",
                          [pmesh.gather(dist_band.unstack(a, m))
                           for a in seven], got, None)
             t1 = st.t + cfg.npdtype.type(cfg.dt)
@@ -4414,10 +4468,13 @@ def layers_paths(dev, smi):
     TIDES28 constituents, each driven with the kernels' counts set to 0
     just before and read just after: run() with backend='fused' (fb, 100
     steps, diagnostics every 50: K1 layer-streamed, its two kernels once
-    per step), run() of the implicit free surface (3 steps: K3a on the
-    spill route and K3b layer-streamed around K6), and the same two on a
-    2 x 2 mesh of shards of the card (10 and 3 steps: K7-fb, K7-proj, on
-    the spill route).  Returns the counts by path."""
+    per step), run() of the split scheme (nsub 8, 10 steps, diagnostics
+    every 5: K1s's layer-streamed slow phase and recomposition, four
+    launches per step), run() of the implicit free surface (3 steps: K3a
+    on the spill route and K3b layer-streamed around K6), and the fb and
+    implicit-FS paths on a 2 x 2 mesh of shards of the card (10 and 3
+    steps: K7-fb, K7-proj, on the spill route).  Returns the counts by
+    path."""
     import torch
 
     from beom_tpu_torch.run import run
@@ -4427,16 +4484,17 @@ def layers_paths(dev, smi):
     counts = {}
     for label, scheme, kw, n_steps in (
             ("fb", "fb", {}, 100),
+            ("split", "split", dict(nsub=8), 10),
             ("implicit FS", "implicit_fs", dict(precond="jacobi"), 3),
             ("fb on 2 x 2 shards", "fb", dict(mesh_y=2, mesh_x=2), 10),
             ("implicit FS on 2 x 2 shards", "implicit_fs",
              dict(precond="jacobi", mesh_y=2, mesh_x=2), 3)):
-        cfg, grid, forcing, st = layers_case(dev, 34, LAYERS28, "float32",
-                                             BIG, scheme=scheme,
-                                             backend="fused", diag_every=50,
-                                             **kw)
-        counters = (fused_fb.STREAM_LAUNCHES, fp.SPILL_LAUNCHES,
-                    fp.STREAM_LAUNCHES, dist_band.SPILL_LAUNCHES)
+        cfg, grid, forcing, st = layers_case(
+            dev, 34, LAYERS28, "float32", BIG, scheme=scheme,
+            backend="fused", diag_every=min(50, n_steps // 2), **kw)
+        counters = (fused_fb.STREAM_LAUNCHES, fused_fb.SPLIT_LAUNCHES,
+                    fp.SPILL_LAUNCHES, fp.STREAM_LAUNCHES,
+                    dist_band.SPILL_LAUNCHES)
         saved = [dict(c) for c in counters] + [fused_fb.LAUNCHES]
         for c in counters:
             c.update(dict.fromkeys(c, 0))
@@ -4450,6 +4508,11 @@ def layers_paths(dev, smi):
         got = {"K1": fused_fb.LAUNCHES,
                "K1 continuity": fused_fb.STREAM_LAUNCHES["fb_continuity"],
                "K1 momentum": fused_fb.STREAM_LAUNCHES["fb_momentum"],
+               "K1s slow": fused_fb.SPLIT_LAUNCHES["slow"],
+               "K1s subcycle": fused_fb.SPLIT_LAUNCHES["subcycle"],
+               "K1s recompose": fused_fb.SPLIT_LAUNCHES["recompose"],
+               "K1s slow stream": fused_fb.STREAM_LAUNCHES["split_slow"],
+               "K1s rec stream": fused_fb.STREAM_LAUNCHES["split_recompose"],
                "K3a spill": fp.SPILL_LAUNCHES["proj_a"],
                "K3b stream": fp.STREAM_LAUNCHES["proj_b"],
                "K7-fb spill": dist_band.SPILL_LAUNCHES["fb"],
@@ -4462,6 +4525,9 @@ def layers_paths(dev, smi):
         mesh = "mesh_y" in kw
         want = {("fb", False): {"K1": n_steps, "K1 continuity": n_steps,
                                 "K1 momentum": n_steps},
+                ("split", False): dict.fromkeys(
+                    ("K1s slow", "K1s subcycle", "K1s recompose",
+                     "K1s slow stream", "K1s rec stream"), n_steps),
                 ("implicit_fs", False): {"K3a spill": n_steps,
                                          "K3b stream": n_steps},
                 ("fb", True): {"K7-fb spill": n_steps},
@@ -4474,7 +4540,7 @@ def layers_paths(dev, smi):
         if not diags or any(d["finite"] != 1.0 for d in diags):
             raise AssertionError(f"{label}: diagnostics {diags}")
         print(f"   run() {label}, {n_steps} steps: launches {got} (the "
-              f"plan's: one per step); diagnostics {diags[-1]}; "
+              f"plan's: each once per step); diagnostics {diags[-1]}; "
               f"{wall / n_steps * 1e3!r} ms/step wall with the call's "
               f"set-up ({smi})")
         counts[label] = got
@@ -4534,6 +4600,11 @@ def layers_phase(dev, smi):
     for name, n_fields in split_fields(cfg32).items():
         print(f"   K1s / K7-split {name} at nz={LAYERS28}, route 3: bound "
               f"{n_fields * pts * 4 / HBM_BYTES_PER_S * 1e3!r} ms (bytes)")
+    # K1s's layer-streamed slow phase and recomposition (both launches, one
+    # row: held to the function's operands once), with the bytes the
+    # streamed design itself moves (split_stream_fields)
+    entries += split_stream_rows(cfg32, timed, counts["split"], LAYERS28,
+                                 pts, "split_step.cu", "band.py:200")
     # K7's rows: its time between events, the plain version of the same
     # function on the same data (the single-device row's), its device time
     mesh_rows = (("shard_fb", "shard_step", "K7-fb spill", "shard_step_kernel",
@@ -4551,24 +4622,71 @@ def layers_phase(dev, smi):
             f"{name}_spill_nz{LAYERS28}", src, "dist_band.py:63",
             counts[path][count], err, (ms, timed[one][1][1]),
             n_fields * pts * 4, ops * cfg.nz * pts, device=dev_ms[kernel]))
-    # fields moved and operations per point as phase 17 counts them: the
-    # slow phase reads the step's operands and writes SlowPhase (4 nz + 9),
-    # the recomposition reads 4 nz + 2 of SlowPhase, the subcycle's 5, h,
-    # H and 3 masks and writes h, u, v
+    # fields moved (split_fields) and operations per point
     cfg8 = layers_case("cpu", 0, BOTH28, "float32", 16, scheme="split")[0]
     nz8 = cfg8.nz
+    entries += split_stream_rows(
+        cfg8, {k: v[:3] for k, v in forced.items()},
+        {"K1s slow stream": forced["split_slow"][3],
+         "K1s rec stream": forced["split_recompose"][3]}, BOTH28,
+        pts, "split_step.cu", "band.py:200")
     for name, ops in (("split_slow", 150 * nz8),
                       ("split_recompose", 40 * nz8)):
         n_fields = split_fields(cfg8)[name]
-        for key, src, site in ((name, "split_step.cu", "band.py:200"),
-                               (f"shard_{name}", "shard_split.cu",
-                                "dist_band.py:63")):
-            err, ms, dev_ms, launches = forced[key]
-            entries.append(kernel_entry(
-                f"{key}_spill_nz{BOTH28}", src, site, launches, err, ms,
-                n_fields * pts * 4, ops * pts, device=dev_ms))
+        key = f"shard_{name}"
+        err, ms, dev_ms, launches = forced[key]
+        entries.append(kernel_entry(
+            f"{key}_spill_nz{BOTH28}", "shard_split.cu", "dist_band.py:63",
+            launches, err, ms, n_fields * pts * 4, ops * pts,
+            device=dev_ms))
     torch.cuda.synchronize()
     return entries
+
+
+def split_stream_fields(cfg):
+    """Fields K1s's layer-streamed slow phase and recomposition move by
+    their design, beyond split_fields' operands once: the slow phase reads
+    u and v again and du', dv' back and writes du', dv' twice (6 nz); the
+    recomposition writes h1, reads it back and writes it rescaled, reads
+    it again for the gates and Flather, and reads u', v' and the three
+    masks in both launches (5 nz + 3)."""
+    base = split_fields(cfg)
+    return {"split_slow": base["split_slow"] + 6 * cfg.nz,
+            "split_recompose": base["split_recompose"] + 5 * cfg.nz + 3}
+
+
+def split_stream_rows(cfg, timed, counts, nz, pts, src, site):
+    """The JSON rows of K1s's layer-streamed slow phase and recomposition
+    at nz layers from layers_leg's (or both_routes') `timed` results and
+    the path's launch counts: each row held to its function's bound
+    (split_fields), the recomposition's two kernels under its `kernels`
+    key, the design's own bytes as `design_bytes_ms`."""
+    own = split_stream_fields(cfg)
+    rows = []
+    err, ms, dev = timed["split_slow"]
+    rows.append(kernel_entry(
+        f"split_slow_stream_nz{nz}", src, site, counts["K1s slow stream"],
+        err, ms, split_fields(cfg)["split_slow"] * pts * 4,
+        150 * cfg.nz * pts, device=dev, extra={
+            "design_bytes_ms": own["split_slow"] * pts * 4
+            / HBM_BYTES_PER_S * 1e3}))
+    err, ms, dev = timed["split_recompose"]
+    # each entry call launches both kernels, and counts once
+    labels = ("split_rec_h_layers_kernel", "split_rec_uv_layers_kernel")
+    parts = {k: {"launches": counts["K1s rec stream"], "device_ms": dev[k]}
+             for k in labels}
+    rows.append(kernel_entry(
+        f"split_recompose_stream_nz{nz}", src, site,
+        sum(v["launches"] for v in parts.values()), err, ms,
+        split_fields(cfg)["split_recompose"] * pts * 4, 40 * cfg.nz * pts,
+        device=None if any(dev[k] is None for k in labels) else sum(
+            dev[k] for k in labels),
+        extra={"kernels": parts, "design_bytes_ms":
+               own["split_recompose"] * pts * 4 / HBM_BYTES_PER_S * 1e3}))
+    for row in rows:
+        print(f"   {row['name']}: bound {row['bound_ms']!r} ms, the "
+              f"design's own bytes {row['design_bytes_ms']!r} ms")
+    return rows
 
 
 def _recompose_plain(sp, sub, st, grid, forcing, cfg):

@@ -1453,7 +1453,7 @@ def test_layer_stream_matches_plain(cuda, dtype, nz):
                 out = fused_fb.fused_fb_step(*args, pl=pl)
                 torch.cuda.synchronize()
                 assert fused_fb.STREAM_LAUNCHES == {
-                    k: v + 1 for k, v in before.items()}
+                    k: v + k.startswith("fb_") for k, v in before.items()}
                 _bits(f"K1 nz={nz} n={n}", out,
                       fused_fb.fused_fb_step_plain(*args))
                 continue
@@ -1477,35 +1477,78 @@ def test_layer_stream_matches_plain(cuda, dtype, nz):
 @pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES)
 @pytest.mark.parametrize("scheme", ["split"])
 def test_spill_route_matches_plain(cuda, scheme, dtype, nz, spill):
-    """K1s's slow phase and recomposition on the spill route (their planes
-    in device memory), 13 constituents, 96 x 64: one step at each sweep
-    parity against the plain version (f64 1e-12, f32 4 ulp of each field's
-    scale), and bit for bit the other route where it builds (nz 8; the
-    split step's f64 wall lies past nz 16, so there the plan's parameter
-    forces the route).  K1 off shared memory streams its layers:
+    """K1s off shared memory: its slow phase and recomposition stream the
+    layers on one device (the split step has no spill route there since
+    they do), 13 constituents, 96 x 64: one step at each sweep parity bit
+    for bit the plain version, each streamed launch counted, and bit for
+    bit the shared-memory route where a tile fits (nz 8: the same plan
+    with `stream` off).  K1 off shared memory:
     test_layer_stream_matches_plain."""
     cfg, grid, forcing, st = _many_layers(cuda, 71, nz, 13, dtype, nx=96,
                                           ny=64, scheme=scheme, nsub=4)
     statics = (grid, forcing)
     both = not fused_fb.single_tile(cfg, cfg.tdtype)[1]
-    spill = True if both else spill
-    rel = 1e-12 if dtype == "float64" else 4 * 2.0 ** -23
     pl = fused_fb.split_plan(cfg, cfg.tdtype, spill)
-    assert pl.spill, pl.describe()
+    assert pl.stream and pl.route == 3, pl.describe()
     for n in (0, 1):
         args = (st.h, st.u, st.v, statics, n, st.t, cfg, 1)
-        before = dict(fused_fb.SPILL_LAUNCHES)
+        before = dict(fused_fb.STREAM_LAUNCHES)
         out = fused_fb.fused_fb_step(*args, pl=pl)
         torch.cuda.synchronize()
-        moved = {k: fused_fb.SPILL_LAUNCHES[k] - before[k] for k in before}
-        assert moved == {"slow": 1, "recompose": 1, "tend": 0}, moved
-        ref = fused_fb.fused_fb_step_plain(*args)
-        for f, a, b in zip("huv", out, ref):
-            err = float((a - b).abs().max())
-            assert err <= rel * float(b.abs().max()), (f, n, err)
+        moved = {k: fused_fb.STREAM_LAUNCHES[k] - before[k] for k in before}
+        assert moved == {"fb_continuity": 0, "fb_momentum": 0,
+                         "split_slow": 1, "split_tend": 0,
+                         "split_recompose": 1}, moved
+        _bits(f"n={n} vs plain", out, fused_fb.fused_fb_step_plain(*args))
         if both:
             _bits(f"n={n} vs the shared-memory route", out,
-                  fused_fb.fused_fb_step(*args))
+                  fused_fb.fused_fb_step(*args, pl=dataclasses.replace(
+                      pl, stream=False)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,nz", [(dtype, nz)
+                                      for dtype in ("float32", "float64")
+                                      for nz in (1, 9, 32)])
+def test_split_stream_kernels_match_plain(cuda, dtype, nz):
+    """The layer-streamed split kernels, forced by the plan's parameter
+    where the shared-memory route fits too, on the shelf with the
+    biharmonic and the interfacial drag on, 13 constituents, 96 x 64:
+    the slow phase bit for bit split.slow_phase, its tendencies (route 2's
+    split_tend in the streamed build) split.slow_tendencies, and the
+    recomposition's two launches split.recompose with fb.finalize, each
+    from the plain phases' inputs."""
+    from beom_tpu_torch.core.state import State
+    from beom_tpu_torch.stepping import fb, split
+
+    cfg, grid, forcing, st = _many_layers(cuda, 97, max(nz, 2), 13, dtype,
+                                          nx=96, ny=64, scheme="split",
+                                          nsub=4, nu4=1e9, r_int=1e-4)
+    if nz == 1:
+        cfg = dataclasses.replace(cfg, nz=1, rho=cfg.rho[:1])
+        forcing = dataclasses.replace(
+            forcing, h_ext=forcing.h_ext.sum(0, keepdim=True))
+        st = st.replace(h=st.h.sum(0, keepdim=True), u=st.u[:1],
+                        v=st.v[:1])
+    statics = (grid, forcing)
+    pl = fused_fb.split_plan(cfg, cfg.tdtype, True)
+    assert pl.stream, pl.describe()
+    s0 = State(h=st.h, u=st.u, v=st.v, t=st.t, n=0)
+    sp = split.slow_phase(s0, grid, forcing, cfg)
+    sub = split.subcycle_phase(sp, grid, cfg)
+    got = fused_fb.split_slow(st.h, st.u, st.v, statics, cfg, pl)
+    tend = fused_fb.split_tend(st.h, st.u, st.v, statics, cfg, pl)
+    rec = fused_fb.split_recompose(sp, sub, st.h, st.u, st.v, statics, st.t,
+                                   cfg, pl)
+    torch.cuda.synchronize()
+    for f, a, b in zip(sp._fields, got, sp):
+        assert torch.equal(a, b), (f, float((a - b).abs().max()))
+    for f, a, b in zip(("du_s", "dv_s"), tend,
+                       split.slow_tendencies(s0, grid, forcing, cfg)):
+        assert torch.equal(a, b), (f, float((a - b).abs().max()))
+    ref = fb.finalize(*split.recompose(sp, *sub, st.h, grid, cfg), s0, grid,
+                      forcing, cfg)
+    _bits("recompose", rec, (ref.h, ref.u, ref.v))
 
 
 @pytest.mark.cuda

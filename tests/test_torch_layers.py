@@ -126,8 +126,8 @@ def _spills_from(case, scheme, dtype):
     walls of a CTA's 232,448 bytes: K1 at nz 32 (f32) and 16 (f64), 25 and
     13 under wet/dry; the projection phases at 32 and 16; the split step's
     slow phase and recomposition (nsub 8) past 64 (f32) and at 64 (f64),
-    at 64 and 25 under wet/dry.  There K1 and K3b stream their layers, K3a
-    and the split step take the spill route, and K7's bodies the spill
+    at 64 and 25 under wet/dry.  There K1, K3b and the split step stream
+    their layers, K3a takes the spill route, and K7's bodies the spill
     route."""
     wd = case in ("coastal_wetdry", "shelf_forced")
     f64 = dtype == "float64"
@@ -138,6 +138,13 @@ def _spills_from(case, scheme, dtype):
     return 16 if f64 else 32
 
 
+# the first of LAYERS at which the split step's slow phase and
+# recomposition (nsub 8) stream their layers on one device, on every case
+# and type: route 3 from 4 layers (fused_fb._STREAM_FROM; route 2, which
+# keeps shared memory, ends below 8 layers)
+STREAMS_FROM = 8
+
+
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("scheme", SCHEMES)
 @pytest.mark.parametrize("case", CASES)
@@ -146,9 +153,11 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
     specs and plans of one device and of a 2 x 2 mesh return a kernel
     route without raising: from the first nz past the single-step kernels'
     shared-memory wall (pinned) K1 and K3b layer-streamed (BEOM_STREAM),
-    K3a and the split step on the spill route (BEOM_SPILL), K7's bodies on
-    the spill route; the pass kernel and the staged phases only where
-    they fit, every plan's describe() naming its route."""
+    K3a on the spill route (BEOM_SPILL), K7's bodies on the spill route;
+    the split step layer-streamed on one device from nz 8 (pinned, route
+    3); the pass kernel and the staged
+    phases only where they fit, every plan's describe() naming its
+    route."""
     base = make_case(case, nx=64, ny=64, device="cpu", dtype=dtype,
                      scheme=scheme, nsub=8)[0]
     if case == "shelf_forced":
@@ -160,6 +169,7 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
         rho = tuple(1020.0 + 0.5 * k for k in range(nz))
         cfg = dataclasses.replace(base, nz=nz, rho=rho)
         spill = first is not None and nz >= first
+        stream = scheme == "split" and nz >= STREAMS_FROM
         mp = dist_band.mesh_plan(cfg, cfg.tdtype, mesh)
         assert mp.spilled == spill, (nz, mp.describe())
         assert ("spill route" in mp.describe()) == spill, nz
@@ -183,13 +193,16 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
                     fused_fb.build_spec(cfg, cfg.tdtype, m)
             else:
                 sp = fused_fb.split_plan(cfg, cfg.tdtype)
-                assert sp.spill == spill and sp.route in (2, 3)
-                assert ("spill route" in sp.describe()) == spill
+                assert sp.stream == stream and sp.route in (2, 3)
+                assert sp.route == 3 or not stream
+                assert ("layer-streamed" in sp.describe()) == stream
+                assert "spill route" not in sp.describe()
             name, defines = fused_fb.build_spec(cfg, cfg.tdtype)
-        assert ("BEOM_SPILL=1" in defines) == (spill and scheme != "fb"), \
+        projection = scheme in ("rigid_lid", "implicit_fs")
+        assert ("BEOM_SPILL=1" in defines) == (spill and projection), \
             (nz, defines)
-        assert ("BEOM_STREAM=1" in defines) == (spill and scheme != "split"), \
-            (nz, defines)
+        assert ("BEOM_STREAM=1" in defines) == (
+            stream if scheme == "split" else spill), (nz, defines)
         assert f"BEOM_NZ={nz}" in defines
         for cards in (False, True):
             for m in set(mp.fb_launches(4)) if scheme == "fb" else {1}:
@@ -200,8 +213,8 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
 
 def test_forced_spill_route_where_both_build():
     """The plans' own parameter takes the routes off shared memory where
-    the shared-memory route builds too (nz 8 f32 on the shelf): K1 and
-    K3b layer-streamed, K3a, the split step and K7 on the spill route; the
+    the shared-memory route builds too (nz 8 f32 on the shelf): K1, K3b
+    and the split step layer-streamed, K3a and K7 on the spill route; the
     builds differ only in the switch and the tile."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32")[0]
@@ -215,20 +228,35 @@ def test_forced_spill_route_where_both_build():
     a = dict(d.split("=") for d in fused_fb.build_spec(cfg,
                                                        torch.float32)[1])
     b = dict(d.split("=") for d in fused_fb.build_spec(
-        cfg, torch.float32, spill=True)[1])
+        cfg, torch.float32, off_smem=True)[1])
     assert b.pop("BEOM_STREAM") == "1"
     assert {k: v for k, v in a.items() if k not in ("BEOM_TX", "BEOM_TY")} \
         == {k: v for k, v in b.items() if k not in ("BEOM_TX", "BEOM_TY")}
     # K7's body of the step keeps the spill route
     assert "BEOM_SPILL=1" in fused_fb.build_spec(cfg, torch.float32,
-                                                 spill=True, shard=True)[1]
+                                                 off_smem=True,
+                                                 shard=True)[1]
     ph = fused_projection.plan(dataclasses.replace(cfg, scheme="rigid_lid"),
                                torch.float32, True)
     assert ph == fused_projection.PhasePlan(None, None, False, True)
     assert ph.stream_b
-    split = fused_fb.split_plan(dataclasses.replace(cfg, scheme="split"),
-                                torch.float32, True)
-    assert split.spill and "spill route" in split.describe()
+    split_cfg = dataclasses.replace(cfg, scheme="split", nsub=8)
+    split = fused_fb.split_plan(split_cfg, torch.float32, True)
+    assert split.stream and "layer-streamed" in split.describe()
+    # the split step streams at nz 8 by its plan; a plan that says not
+    # builds the shared-memory route, which fits there
+    assert fused_fb.split_plan(split_cfg, torch.float32) == split
+    a = fused_fb.build_spec(split_cfg, torch.float32, sp=dataclasses.replace(
+        split, stream=False))[1]
+    b = fused_fb.build_spec(split_cfg, torch.float32, off_smem=True)[1]
+    assert "BEOM_STREAM=1" in b and "BEOM_STREAM=1" not in a
+    assert b == fused_fb.build_spec(split_cfg, torch.float32)[1] \
+        == fused_fb.build_spec(split_cfg, torch.float32, sp=split)[1]
+    # the plan names the route: a forcing flag beside it is refused
+    with pytest.raises(ValueError, match="the plan names the route"):
+        fused_fb.build_spec(split_cfg, torch.float32, sp=split, off_smem=True)
+    assert "BEOM_SPILL=1" in fused_fb.build_spec(
+        split_cfg, torch.float32, off_smem=True, shard=True)[1]
     # the spill route's shared memory is the table of offsets alone
     smem = fused_fb.smem_bytes(cfg, (32, 16), (32, 16), 4, spill=True)
     assert smem["fb_step"] == (32 + 10) * (16 + 10) * 4
@@ -236,11 +264,12 @@ def test_forced_spill_route_where_both_build():
 
 @pytest.mark.parametrize("scheme", SCHEMES)
 def test_spill_false_lets_the_plan_choose(scheme):
-    """spill=False means what leaving it out means at every layer: the
+    """off_smem=False means what leaving it out means at every layer: the
     plans leave shared memory where no tile fits (nz 32 f32 on the shelf,
     past every single-step wall but the split step's; K1 layer-streamed,
-    the split step on the spill route), and spill=True forces it; no plan
-    raises for want of a tile."""
+    the split step layer-streamed on its 8 x 8 tile, K7's split bodies in
+    shared memory), and off_smem=True forces it; no plan raises for want
+    of a tile."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32", scheme=scheme, nsub=8)[0]
     cfg = dataclasses.replace(cfg, nz=32, rho=tuple(1020.0 + 0.5 * k
@@ -248,22 +277,24 @@ def test_spill_false_lets_the_plan_choose(scheme):
     mesh = make_mesh(2, 2, devices=["cpu"])
     f32 = torch.float32
     chosen = scheme != "split"
-    for spill in (False, True):
-        want = chosen or spill
-        assert dist_band.mesh_plan(cfg, f32, mesh, spill).spilled == want
+    for off in (False, True):
+        want = chosen or off
+        assert dist_band.mesh_plan(cfg, f32, mesh, off).spilled == want
         if scheme in ("rigid_lid", "implicit_fs"):
-            assert fused_projection.plan(cfg, f32, spill).spill == want
-            assert fused_projection.single_tile(cfg, f32, spill)[1] == want
+            assert fused_projection.plan(cfg, f32, off).spill == want
+            assert fused_projection.single_tile(cfg, f32, off)[1] == want
             continue
-        assert fused_fb.single_tile(cfg, f32, spill)[1] == want
-        route = "BEOM_STREAM=1" if scheme == "fb" else "BEOM_SPILL=1"
-        assert (route in fused_fb.build_spec(cfg, f32, spill=spill)[1]) \
-            == want
+        assert fused_fb.single_tile(cfg, f32, off)[1] == want
+        assert ("BEOM_SPILL=1" in fused_fb.build_spec(
+            cfg, f32, off_smem=off, shard=True)[1]) == want
+        streams = "BEOM_STREAM=1" in fused_fb.build_spec(cfg, f32,
+                                                         off_smem=off)[1]
         if scheme == "fb":
-            assert fused_fb.plan(cfg, f32, 4, spill).stream == want
-            assert fused_fb.launch_plan(cfg, f32, 1, spill).stream == want
+            assert streams == want
+            assert fused_fb.plan(cfg, f32, 4, off).stream == want
+            assert fused_fb.launch_plan(cfg, f32, 1, off).stream == want
         else:
-            assert fused_fb.split_plan(cfg, f32, spill).spill == want
+            assert streams and fused_fb.split_plan(cfg, f32, off).stream
 
 
 def _enum_dbl(nz: int, ntide: int) -> dict:

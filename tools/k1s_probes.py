@@ -698,7 +698,10 @@ def main_tail(case="double_gyre", dtype="float32", nsubs="4,8,12") -> dict:
             same = [g for g in fits if (g[0] + 2 * fused_fb.tail_halo(cfg))
                     * g[1] == threads]
             best += sorted(same, key=lambda g: fused_fb.tail_cost(cfg, g))[:3]
-        build.build_all([fused_fb.build_spec(cfg, cfg.tdtype, 1, g)
+        # the split plan with the tail geometry g
+        at = lambda g: dataclasses.replace(fused_fb.split_plan(cfg), qx=g[0],
+                                           qs=g[1], qp=g[2])
+        build.build_all([fused_fb.build_spec(cfg, cfg.tdtype, 1, at(g))
                          for g in best])
         t1 = st.t + cfg.npdtype.type(cfg.dt)
         args = (st.h, st.u, st.v, statics)
@@ -713,9 +716,6 @@ def main_tail(case="double_gyre", dtype="float32", nsubs="4,8,12") -> dict:
                "three kernels": [sm.time_ms(three, 50), sm.device_ms(
                    f"nsub {nsub} three kernels", three, 20,
                    {"split_": 3})["split_"]]}
-        # the split plan with the tail geometry g
-        at = lambda g: dataclasses.replace(fused_fb.split_plan(cfg), qx=g[0],
-                                           qs=g[1], qp=g[2])
         tend = fused_fb._launch_tend(*args, cfg, at(best[0]))
         tend_fn = lambda: fused_fb._launch_tend(*args, cfg, at(best[0]))
         row["tend"] = [sm.time_ms(tend_fn, 100), sm.device_ms(

@@ -93,8 +93,21 @@ on the device (the sum over the route's kernels, each named by its key,
 with how many of its launches torch.profiler saw; a kernel it saw none
 of is null, not measured), with digests of the outputs (equal digests:
 bitwise equal results across the trees); run() at nz 32, fb (20 steps)
-and implicit FS (3 steps), in ms per step after a run not timed; and the
-code report.
+and implicit FS (3 steps), in ms per step after a run not timed; the
+split leg (split_report); and the code report.
+
+    python3 tools/kernel_times.py ROOT --layers split
+
+times only the split leg of --layers (split_report): K1s on the shelf at
+2048^2 with 13 constituents and nsub 8, f32 at nz 2, 4, 8, 16 and 32 and
+f64 at nz 2, 4, 8 and 16, on the route its plan takes and on the other
+route of the checkout (the layer-streamed and the shared-memory routes
+where both exist; before them the spill route the plan's own parameter
+forces): the slow phase, the subcycle and the recomposition each between
+CUDA events and on the device (summed over the route's kernels), with
+digests of their outputs (equal digests: the routes agree bit for bit),
+and run()'s split ms per step at each f32 nz (10 steps after a run not
+timed); and the code report.
 """
 
 from __future__ import annotations
@@ -308,7 +321,98 @@ def seen_ms(sm, label, fn, n_calls, keys) -> dict:
     return out
 
 
-def layers_report(sm, dev, out, digest) -> None:
+def split_report(sm, dev, out, digest, kernels) -> None:
+    """The split leg of --layers: K1s's three phases on the shelf at
+    2048^2 (13 constituents, nsub 8), f32 at nz 2, 4, 8, 16 and 32 and f64
+    at nz 2, 4, 8 and 16, on the plan's route and on the other route the
+    checkout has: where its SplitPlan has `stream`, the same plan with
+    `stream` flipped (where the shared-memory route fits), else the spill
+    route its plan's parameter forces; run()'s split ms/step at each f32
+    nz.  `kernels(keys, fn, label, n)` times a call (layers_report's)."""
+    import torch
+
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import build, fused_fb
+    from beom_tpu_torch.stepping import split as split_mod
+
+    def plans(cfg):
+        sp = fused_fb.split_plan(cfg, cfg.tdtype)
+        if not hasattr(sp, "stream"):
+            return sp, fused_fb.split_plan(cfg, cfg.tdtype, True)
+        if sp.stream and fused_fb.single_tile(cfg, cfg.tdtype)[1]:
+            return sp, None
+        return sp, dataclasses.replace(sp, stream=not sp.stream)
+
+    def spec(cfg, sp, other):
+        # positional: the parameters differ between checkouts
+        if other and not hasattr(sp, "stream"):
+            return fused_fb.build_spec(cfg, cfg.tdtype, 1, None, True)
+        return fused_fb.build_spec(cfg, cfg.tdtype, 1, sp if other else None)
+
+    def streams(sp):
+        return getattr(sp, "stream", False)
+
+    legs = [(nz, "float32") for nz in (2, 4, 8, 16, 32)] \
+        + [(nz, "float64") for nz in (2, 4, 8, 16)]
+    specs = []
+    for nz, dtype in legs:
+        cfg = sm.layers_case("cpu", 0, nz, dtype, 64, scheme="split",
+                             nsub=8)[0]
+        sp, alt = plans(cfg)
+        specs.append(spec(cfg, sp, False))
+        if alt is not None:
+            specs.append(spec(cfg, alt, True))
+    build.build_all(sorted(set(specs)))
+    for nz, dtype in legs:
+        cfg, grid, forcing, st = sm.layers_case(dev, 29, nz, dtype, N,
+                                                scheme="split", nsub=8)
+        statics = (grid, forcing)
+        slow_ref = split_mod.slow_phase(st, grid, forcing, cfg)
+        sub_ref = split_mod.subcycle_phase(slow_ref, grid, cfg)
+        sp, alt = plans(cfg)
+        for other, pl in ((False, sp), (True, alt)):
+            if pl is None:
+                continue
+            tag = ("" if dtype == "float32" else "f64 ") + f"nz {nz}" \
+                + (", other route" if other else "")
+            out[f"K1s {tag} plan"] = pl.describe()
+            slow = lambda: fused_fb.split_slow(st.h, st.u, st.v, statics,
+                                               cfg, pl)
+            sub = lambda: fused_fb.split_subcycle(slow_ref, st.h, st.u,
+                                                  st.v, statics, cfg, pl)
+            rec = lambda: fused_fb.split_recompose(slow_ref, sub_ref, st.h,
+                                                   st.u, st.v, statics,
+                                                   st.t, cfg, pl)
+            out[f"K1s slow {tag} digest"] = digest(*slow())
+            out[f"K1s recompose {tag} digest"] = digest(*rec())
+            n = 10 if nz > 8 else 20
+            kernels(("split_slow_layers_kernel",) if streams(pl)
+                    else ("split_slow_kernel",), slow, f"K1s slow {tag}", n)
+            kernels(("split_sub_kernel",), sub, f"K1s subcycle {tag}", n)
+            kernels(("split_rec_h_layers_kernel",
+                     "split_rec_uv_layers_kernel") if streams(pl)
+                    else ("split_rec_kernel",), rec, f"K1s recompose {tag}",
+                    n)
+        del cfg, grid, forcing, st, statics, slow_ref, sub_ref
+        torch.cuda.empty_cache()
+        if dtype != "float32":
+            continue
+        cfg, grid, forcing, st = sm.layers_case(
+            dev, 34, nz, "float32", N, scheme="split", nsub=8,
+            backend="fused", diag_every=10)
+        st = run(cfg, grid, forcing, st, 1, log=io.StringIO())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run(cfg, grid, forcing, st, 10, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[f"run() split nz {nz} ms/step"] = \
+            (time.perf_counter() - t0) / 10 * 1e3
+        out[f"run() split nz {nz} digest"] = digest(last.h, last.u, last.v)
+        del cfg, grid, forcing, st, last
+        torch.cuda.empty_cache()
+
+
+def layers_report(sm, dev, out, digest, only_split: bool = False) -> None:
     """The --layers report of the checkout imported: K1, K3b and K3a on
     phase 28's shelf at 2048^2 f32, as each checkout runs them."""
     import torch
@@ -319,15 +423,6 @@ def layers_report(sm, dev, out, digest) -> None:
 
     legs = [(sm.LAYERS28, False)] + [(nz, forced) for nz in (2, 4, 8)
                                      for forced in (False, True)]
-    specs = []
-    for nz, forced in legs:
-        cfg = sm.layers_case("cpu", 0, nz, "float32", 64)[0]
-        specs.append(fused_fb.build_spec(cfg, cfg.tdtype, spill=forced))
-        cfg = sm.layers_case("cpu", 0, nz, "float32", 64,
-                             scheme="implicit_fs", precond="jacobi")[0]
-        specs.append(fp.build_spec(cfg, cfg.tdtype,
-                                   fp.plan(cfg, cfg.tdtype, forced), True))
-    build.build_all(specs + ["cg_jacobi"])
 
     def kernels(keys, fn, label, n):
         # events around the call, and the device time summed over keys
@@ -337,6 +432,20 @@ def layers_report(sm, dev, out, digest) -> None:
         total = None if None in times else sum(times)
         out[label] = {"events ms": ms, "device ms": total,
                       "by kernel": seen}
+
+    if only_split:
+        split_report(sm, dev, out, digest, kernels)
+        return
+    specs = []
+    for nz, forced in legs:
+        cfg = sm.layers_case("cpu", 0, nz, "float32", 64)[0]
+        # positional: the flag's name differs between checkouts
+        specs.append(fused_fb.build_spec(cfg, cfg.tdtype, 1, None, forced))
+        cfg = sm.layers_case("cpu", 0, nz, "float32", 64,
+                             scheme="implicit_fs", precond="jacobi")[0]
+        specs.append(fp.build_spec(cfg, cfg.tdtype,
+                                   fp.plan(cfg, cfg.tdtype, forced), True))
+    build.build_all(specs + ["cg_jacobi"])
 
     for nz, forced in legs:
         tag = f"nz {nz}" + (", forced" if forced else "")
@@ -391,6 +500,7 @@ def layers_report(sm, dev, out, digest) -> None:
             last.h, last.u, last.v)
         del cfg, grid, forcing, st, last
         torch.cuda.empty_cache()
+    split_report(sm, dev, out, digest, kernels)
 
 
 def mesh_report(sm, dev, out, digest, record) -> None:
@@ -560,7 +670,7 @@ def setup_ms(grid, forcing, cfg, before=None) -> float:
 
 def main(root: str, only_split: bool = False,
          only_projection: bool = False, only_mesh: bool = False,
-         only_layers: bool = False) -> dict:
+         only_layers: bool = False, layers_split: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -627,8 +737,8 @@ def main(root: str, only_split: bool = False,
         stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
         return jacobi, b, eta_n
 
-    if only_layers:
-        layers_report(sm, dev, out, digest)
+    if only_layers or layers_split:
+        layers_report(sm, dev, out, digest, layers_split)
         out["code"] = code_report(build)
         out["power"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -819,10 +929,12 @@ def main(root: str, only_split: bool = False,
 
 
 if __name__ == "__main__":
-    if len(sys.argv) not in (2, 3) or sys.argv[2:] not in (
-            [], ["--split"], ["--projection"], ["--mesh"], ["--layers"]):
+    if len(sys.argv) not in (2, 3, 4) or sys.argv[2:] not in (
+            [], ["--split"], ["--projection"], ["--mesh"], ["--layers"],
+            ["--layers", "split"]):
         raise SystemExit(__doc__)
     print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"],
                           sys.argv[2:] == ["--projection"],
                           sys.argv[2:] == ["--mesh"],
-                          sys.argv[2:] == ["--layers"])))
+                          sys.argv[2:] == ["--layers"],
+                          sys.argv[2:] == ["--layers", "split"])))
