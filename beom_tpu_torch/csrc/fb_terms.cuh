@@ -91,14 +91,16 @@
 #endif
 // the spill route: the single-step bodies' planes in device memory
 // (block_planes below), for blocks whose planes no tile fits into a CTA's
-// shared memory
+// shared memory (K7's fb and split bodies)
 #ifndef BEOM_SPILL
 #define BEOM_SPILL 0
 #endif
-// the layer-streamed route: K1's single step and K3b one layer at a time,
-// their shared memory a few planes of one layer whatever NZ
-// (fb_step_body.cuh: fbs; projection_body.cuh: pbl), where no tile's
-// planes of every layer fit a CTA's shared memory
+// the layer-streamed route: K1's single step, K1s's slow phase and
+// recomposition and both projection phases one layer at a time, their
+// shared memory a few planes of one layer whatever NZ (fb_step_body.cuh:
+// fbs; split_body.cuh: sps; projection_body.cuh: pal, pbl, which the
+// projection's shard kernels run too), where no tile's planes of every
+// layer fit a CTA's shared memory or the plans take it
 #ifndef BEOM_STREAM
 #define BEOM_STREAM 0
 #endif
@@ -731,17 +733,6 @@ __device__ __forceinline__ T gate(T w, T wl, T wr, T fm) {
   const T only_l = wl * (T(1) - wr);
   const T only_r = wr * (T(1) - wl);
   return fm * ((both * w + only_l * vmax(w, T(0))) + only_r * vmin(w, T(0)));
-}
-
-// S0: the block's global offsets (periodic on both axes) and its planes
-// of h, u, v and the masks; returns after a __syncthreads()
-template <typename T, int RX, int RY, int W>
-__device__ __forceinline__ void load_offsets(const Params<T>& p, int* gidx,
-                                             int bx, int by) {
-  const int x0 = bx * TX - W;
-  const int y0 = by * TY - W;
-  for (int s = threadIdx.x; s < RX * RY; s += THREADS)
-    gidx[s] = wrap(y0 + s / RX, p.ny) * p.nx + wrap(x0 + s % RX, p.nx);
 }
 
 // obc.eta_ext at t1 on the whole block (zeros without tides)

@@ -45,14 +45,18 @@
 // phases on the shards of a device mesh (shard_projection.cu) run too;
 // here a tile's points come from the whole grid with periodic wrap.
 //
-// Where no tile's planes of every layer fit a CTA (many layers), proj_b
-// streams the layers through a few planes of one layer (BEOM_STREAM,
-// projection_body.cuh: pbl): only Flather couples the column, so it moves
-// the function's bytes and u1, v1 once more where Flather corrects them.
-// It replaces K3b's spill route (its planes in a device-memory scratch
-// beyond the L2: 19.4 ms a step at 32 layers on 2048^2 f32 on the H100,
-// against 3.8 streamed); K3a keeps that route (BEOM_SPILL) in the same
-// build.
+// Where no tile's planes of every layer fit a CTA (many layers), and from
+// the layer count fused_projection.plan streams at, both phases stream the
+// layers through a few planes of one layer (a build with BEOM_STREAM,
+// projection_body.cuh: pal, pbl).  K3a's stages couple the layers only by
+// Montgomery's running sums, the interfacial drag and the column's
+// transports: the sums are carried in two planes, the drag's neighbours
+// read from device memory, the transports summed in registers at each
+// thread's own points.  K3b's only by Flather, whose sums are kept in
+// registers and whose increment is added to u1, v1 afterwards.  They
+// replace the spill route (the planes in a device-memory scratch beyond
+// the L2: 15.0 ms for K3a and 19.4 for K3b a step at 32 layers on 2048^2
+// f32 on the H100; K3b 3.8 streamed), which the projection no longer has.
 //
 // The phases run by default as the staged kernels proj_as and
 // proj_bs (projection_body.cuh: namespaces pas, pbs), on tiles of their
@@ -69,9 +73,9 @@
 
 #include "projection_body.cuh"
 
-static_assert(!beom::SPILL || beom::STREAM,
-              "K3b has no spill route: a build with BEOM_SPILL streams "
-              "K3b's layers (BEOM_STREAM)");
+static_assert(!beom::SPILL,
+              "the projection has no spill route: off shared memory its "
+              "phases stream their layers (BEOM_STREAM)");
 
 namespace {
 
@@ -84,15 +88,20 @@ __device__ __forceinline__ Out grid_out(const Params<T>& p, int bx, int by) {
   return Out{by * TY, bx * TX, p.ny, p.nx, p.plane};
 }
 
-// the single-step kernels loop over tiles in a spill build (fb_terms.cuh:
-// for_tiles)
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 proj_a_kernel(const Params<T> p, const GridSrc<T, N_IN_A> src, T* out_us,
               T* out_vs, T* out_div) {
-  for_tiles(tiles_of(p.ny, p.nx, TX, TY), [&](int bx, int by) {
-    pa::run<T>(p, src, grid_out(p, bx, by), out_us, out_vs, out_div);
-  });
+  pa::run<T>(p, src, grid_out(p, int(blockIdx.x), int(blockIdx.y)), out_us,
+             out_vs, out_div);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+proj_a_layers_kernel(const Params<T> p, T* out_us, T* out_vs, T* out_div) {
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  pal::run_at<T, false>(p, Stack{}, by * TY, bx * TX, grid_out(p, bx, by),
+                        out_us, out_vs, out_div);
 }
 
 template <typename T>
@@ -107,7 +116,9 @@ template <typename T>
 __global__ void __launch_bounds__(THREADS)
 proj_b_layers_kernel(const Params<T> p, const T* pres, T corr, T* out_h,
                      T* out_u, T* out_v) {
-  pbl::run<T>(p, pres, corr, out_h, out_u, out_v);
+  const int bx = int(blockIdx.x), by = int(blockIdx.y);
+  pbl::run_at<T, false>(p, Stack{}, by * TY, bx * TX, grid_out(p, bx, by),
+                        pres, corr, out_h, out_u, out_v);
 }
 
 template <typename T>
@@ -137,28 +148,41 @@ GridSrc<T, NF> grid_src(const Params<T>& p, const void* pres) {
   return s;
 }
 
+// dynamic shared memory of one CTA of the build's proj_a and proj_b
+template <typename T>
+constexpr int a_smem() {
+  return STREAM ? pal::smem_bytes<T>() : pa::smem_bytes<T>();
+}
+template <typename T>
+constexpr int b_smem() {
+  return STREAM ? pbl::smem_bytes<T>() : pb::smem_bytes<T>();
+}
+
 template <typename T>
 int proj_a(const void* const* ptrs, const int* ints, const double* dbls,
            void* us, void* vs, void* div, void* stream) {
   const Params<T> p = make_params<T>(ptrs, ints, dbls);
-  constexpr int smem = pa::smem_bytes<T>();
-  cudaError_t e = cudaFuncSetAttribute(
-      proj_a_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid = tile_grid(tiles_of(p.ny, p.nx, TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  proj_a_kernel<T><<<grid, THREADS, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      p, grid_src<T, N_IN_A>(p, nullptr), static_cast<T*>(us),
-      static_cast<T*>(vs), static_cast<T*>(div));
+  constexpr int smem = a_smem<T>();
+  const dim3 grid = tiles_of(p.ny, p.nx, TX, TY);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if constexpr (STREAM) {
+    e = cudaFuncSetAttribute(proj_a_layers_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return int(e);
+    proj_a_layers_kernel<T><<<grid, THREADS, smem, st>>>(
+        p, static_cast<T*>(us), static_cast<T*>(vs), static_cast<T*>(div));
+  } else {
+    e = cudaFuncSetAttribute(proj_a_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return int(e);
+    proj_a_kernel<T><<<grid, THREADS, smem, st>>>(
+        p, grid_src<T, N_IN_A>(p, nullptr), static_cast<T*>(us),
+        static_cast<T*>(vs), static_cast<T*>(div));
+  }
   return int(cudaGetLastError());
-}
-
-// dynamic shared memory of one CTA of the build's proj_b
-template <typename T>
-constexpr int b_smem() {
-  return STREAM ? pbl::smem_bytes<T>() : pb::smem_bytes<T>();
 }
 
 template <typename T>
@@ -261,35 +285,17 @@ int proj_bs(const void* const* ptrs, const int* ints, const double* dbls,
 PROJ_ENTRIES(f32, float)
 PROJ_ENTRIES(f64, double)
 
-// dynamic shared memory of one CTA of proj_a (0), proj_b (1; layer-
-// streamed in a build with BEOM_STREAM), proj_as (2) and proj_bs (3), for
-// the wrapper's check of its tile
+// dynamic shared memory of one CTA of proj_a (0), proj_b (1; both
+// layer-streamed in a build with BEOM_STREAM), proj_as (2) and proj_bs
+// (3), for the wrapper's check of its tile
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   if (which == 0)
-    return is_f64 ? pa::smem_bytes<double>() : pa::smem_bytes<float>();
+    return is_f64 ? a_smem<double>() : a_smem<float>();
   if (which == 1)
     return is_f64 ? b_smem<double>() : b_smem<float>();
   if (which == 2)
     return is_f64 ? pas::smem_bytes<double>() : pas::smem_bytes<float>();
   return is_f64 ? pbs::smem_bytes<double>() : pbs::smem_bytes<float>();
-}
-
-// the spill route of proj_a (0; the build with BEOM_SPILL): bytes of a
-// CTA's slice of the scratch (0 in any other build or kernel), and the
-// CTAs the current device holds at once
-extern "C" long beom_work_bytes(int which, int is_f64) {
-  if (which == 0)
-    return is_f64 ? pa::work_bytes<double>() : pa::work_bytes<float>();
-  return 0;
-}
-template <typename T>
-int spill_ctas(int which) {
-  if (which == 0)
-    return resident_ctas(proj_a_kernel<T>, THREADS, pa::smem_bytes<T>());
-  return 0;
-}
-extern "C" int beom_spill_ctas(int which, int is_f64) {
-  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

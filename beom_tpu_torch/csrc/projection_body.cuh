@@ -1,14 +1,14 @@
 // The stage bodies of the two phases of a rigid-lid / implicit-free-surface
 // step: the single-step bodies pa, pb (projection.cu's proj_a, proj_b),
 // each taking a source (shard_addr.cuh: where the tile's haloed points come
-// from) and an Out (which interior points are written, and where), and
-// the staged bodies pas, pbs, shared by the single-device kernels
-// (projection.cu, K3a and K3b) and the phases on the shards of a device
-// mesh (shard_projection.cu, K7 around the projection bodies), which read
-// through a block's row and column offsets of either layout.  The
-// arithmetic is the same for every layout, so a shard's result equals the
-// single-device kernel's on the same points bit for bit.  projection.cu
-// describes the stages.
+// from) and an Out (which interior points are written, and where), their
+// layer-streamed twins pal, pbl and the staged bodies pas, pbs, shared by
+// the single-device kernels (projection.cu, K3a and K3b) and the phases on
+// the shards of a device mesh (shard_projection.cu, K7 around the
+// projection bodies), which read through a block's offsets of either
+// layout.  The arithmetic is the same for every layout, so a shard's
+// result equals the single-device kernel's on the same points bit for bit.
+// projection.cu describes the stages.
 
 #pragma once
 
@@ -72,19 +72,16 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return block_smem<T>(N_PLANES * NPT, NPT);
-}
-template <typename T>
-constexpr long work_bytes() {
-  return block_work<T>(N_PLANES * NPT);
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
 template <typename T, typename Src>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Out& o, T* out_us, T* out_vs,
                                     T* out_div) {
-  T* sm = block_planes<T>(p, N_PLANES * NPT);
-  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
@@ -232,19 +229,16 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return block_smem<T>(N_PLANES * NPT, NPT);
-}
-template <typename T>
-constexpr long work_bytes() {
-  return block_work<T>(N_PLANES * NPT);
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
 template <typename T, typename Src>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Out& o, T corr, T* out_h, T* out_u,
                                     T* out_v) {
-  T* sm = block_planes<T>(p, N_PLANES * NPT);
-  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* ua = sm + P_UA * NPT;
   T* va = sm + P_VA * NPT;
@@ -323,8 +317,8 @@ LAYER_LOOP
 
 // ------------------------------------------------- K3b, layer-streamed
 //
-// pb's stages one layer at a time (projection.cu's proj_b in a build with
-// BEOM_STREAM = 1, where no tile's planes of every layer fit a CTA): per
+// pb's stages one layer at a time (projection.cu's proj_b and
+// shard_projection.cu's phase B in a build with BEOM_STREAM = 1): per
 // tile, p, the masks and the tide's elevation are loaded once; for each
 // layer from the surface its h, u*, v* on the block, S1's correction, S2's
 // continuity, and S3's gates on the interior, writing the layer's h1, u1,
@@ -360,9 +354,14 @@ constexpr int smem_bytes() {
   return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
-template <typename T>
-__device__ __forceinline__ void run(const Params<T>& p, const T* pres,
-                                    T corr, T* out_h, T* out_u, T* out_v) {
+// The tile whose first point is the grid's (gy0, gx0), its interior
+// points written through o (the outputs at the tile's shard's block, or
+// the grid's); with SH every operand is stacked over the shards of m
+template <typename T, bool SH>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Stack& m,
+                                       int gy0, int gx0, const Out& o,
+                                       BasesArg<T> pres, T corr, T* out_h,
+                                       T* out_u, T* out_v) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   Off* gidx = off_table(sm, N_PLANES * NPT);
@@ -376,8 +375,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
   T* h1 = sm + P_H1 * NPT;
   T* ee = sm + P_EE * NPT;
   const int tid = threadIdx.x;
-  const int bx = int(blockIdx.x), by = int(blockIdx.y);
-  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  block_offsets<T, RX, RY, SH>(p, m, gidx, gy0 - W, gx0 - W);
   __syncthreads();
   for (int s = tid; s < NPT; s += THREADS) {
     const Off g = gidx[s];
@@ -387,7 +385,6 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
     mv[s] = p.in[I_MASK_V][g];
   }
   if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
-  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
   using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
   const TileT c{p, gidx, ua, va, mask, mu, mv, nullptr, h1,
                 nullptr, nullptr, nullptr, nullptr, ee};
@@ -396,7 +393,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
 #pragma unroll 1
   for (int k = 0; k < NZ; ++k) {
     for (int s = tid; s < NPT; s += THREADS) {
-      const long g = k * p.plane + gidx[s];
+      const auto g = k * p.plane + gidx[s];
       h[s] = p.in[I_H][g];
       ua[s] = p.in[I_U][g];
       va[s] = p.in[I_V][g];
@@ -438,6 +435,221 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* pres,
 }
 
 }  // namespace pbl
+
+// ------------------------------------------------- K3a, layer-streamed
+//
+// pa's stages one layer at a time (projection.cu's proj_a and
+// shard_projection.cu's phase A in a build with BEOM_STREAM = 1), after
+// split_body.cuh's sps::slow, the slow phase that also builds phi and q
+// from running sums without a surface term: per tile, the offsets and the
+// four masks are loaded once; h, u, v of each layer from the surface are
+// copied by cp.async into one of two buffers while the layer before is
+// computed; Montgomery's running sums z, acc (z is 0 at the top) are
+// carried from layer to layer in two planes.  Per layer, in pa's order,
+// so that u*, v* and div are pa's bit for bit:
+//   S1 the biharmonic's lap planes, phi and q, the next layer's sums
+//                                                     [1, R-1)
+//   S2 the first sweep (the bottom drag on the last layer) [2, R-2)
+//   S3 the second sweep, from S2's plane              [3, R-3)
+//   S4 at the thread's own interior points (fbs::point): u*_k, v*_k
+//      written, and hx u*, hx u* one cell west, hy v*, hy v* one cell
+//      south added into the column's sums in registers.
+// The interfacial drag reads u, v of the layers beside from device memory
+// through the offsets (Tile's LS = 0), as sps::slow does.  After the last
+// layer div, with pa's masks and order.  Shared memory: 16 planes of one
+// layer (+ lap(u), lap(v) with nu4) and the offsets, whatever NZ.
+namespace pal {
+
+constexpr int W = pa::W;
+constexpr int RX = TX + 2 * W;
+constexpr int RY = TY + 2 * W;
+constexpr int NPT = RX * RY;
+// h, u, v of two layers (layer k at + (k % 2) NPT), the layer's
+// intermediates, the running sums, the masks
+enum Plane {
+  P_H = 0,
+  P_U = 2,
+  P_V = 4,
+  P_PHI = 6,
+  P_Q,
+  P_A1,
+  P_A2,
+  P_LU,
+  P_LV = P_LU + (NU4 ? 1 : 0),
+  P_Z = P_LV + (NU4 ? 1 : 0),
+  P_ACC,
+  P_M,
+  P_MU,
+  P_MV,
+  P_MQ,
+  N_PLANES
+};
+
+template <typename T>
+constexpr int smem_bytes() {
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
+}
+
+// layer k's h, u, v of the block into their planes of buffer k % 2, by
+// cp.async, one group
+template <typename T>
+__device__ __forceinline__ void fetch(const Params<T>& p, const Off* gidx,
+                                      T* sm, int k) {
+  T* h = sm + (P_H + k % 2) * NPT;
+  T* u = sm + (P_U + k % 2) * NPT;
+  T* v = sm + (P_V + k % 2) * NPT;
+  for (int s = threadIdx.x; s < NPT; s += THREADS) {
+    const auto g = k * p.plane + gidx[s];
+    fbp::cp_async<int(sizeof(T))>(h + s, p.in[I_H] + g);
+    fbp::cp_async<int(sizeof(T))>(u + s, p.in[I_U] + g);
+    fbp::cp_async<int(sizeof(T))>(v + s, p.in[I_V] + g);
+  }
+  fbp::cp_async_commit();
+}
+
+// The tile whose first point is the grid's (gy0, gx0), as pbl::run_at
+template <typename T, bool SH>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Stack& m,
+                                       int gy0, int gx0, const Out& o,
+                                       T* out_us, T* out_vs, T* out_div) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
+  T* phi = sm + P_PHI * NPT;
+  T* q = sm + P_Q * NPT;
+  T* a1 = sm + P_A1 * NPT;
+  T* a2 = sm + P_A2 * NPT;
+  T* lu = sm + P_LU * NPT;
+  T* lv = sm + P_LV * NPT;
+  T* zp = sm + P_Z * NPT;
+  T* acc = sm + P_ACC * NPT;
+  T* mask = sm + P_M * NPT;
+  T* mu = sm + P_MU * NPT;
+  T* mv = sm + P_MV * NPT;
+  T* mq = sm + P_MQ * NPT;
+  const int tid = threadIdx.x;
+  block_offsets<T, RX, RY, SH>(p, m, gidx, gy0 - W, gx0 - W);
+  __syncthreads();
+  fetch<T>(p, gidx, sm, 0);
+  for (int s = tid; s < NPT; s += THREADS) {
+    const Off g = gidx[s];
+    mask[s] = p.in[I_MASK][g];
+    mu[s] = p.in[I_MASK_U][g];
+    mv[s] = p.in[I_MASK_V][g];
+    mq[s] = p.in[I_MASK_Q][g];
+  }
+  // phi_q without the free surface: z = 0 at the top
+  REGION_NS(1, 1, {
+    const T z = T(0);
+    zp[s] = z;
+    acc[s] = p.gp[0] * z;
+  })
+  using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
+  const bool uf = p.u_first;
+  // the column's transports at the thread's points: U, U one cell west, V,
+  // V one cell south
+  T U[fbs::PPT], Uw[fbs::PPT], V[fbs::PPT], Vs[fbs::PPT];
+
+#pragma unroll 1
+  for (int k = 0; k < NZ; ++k) {
+    // the next layer's copies go out while this one is computed: into
+    // the buffer the last layer used, which the barrier ending it freed
+    if (k + 1 < NZ) {
+      fetch<T>(p, gidx, sm, k + 1);
+      fbp::cp_async_wait<1>();
+    } else {
+      fbp::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const T* h = sm + (P_H + k % 2) * NPT;
+    const T* u = sm + (P_U + k % 2) * NPT;
+    const T* v = sm + (P_V + k % 2) * NPT;
+    const TileT c{p, gidx, u, v, mask, mu, mv, mq, h,
+                  phi, q, lu, lv, nullptr};
+
+    // S1: the lap planes for the biharmonic; phi = M (no surface term) +
+    // K and the PV, and the running sums of the next layer
+    REGION(1, 1, {
+      if (NU4) {
+        lu[s] = c.lap_u(u, s);
+        lv[s] = c.lap_v(v, s);
+      }
+      c.phi_q_layer(k, s, acc[s], c.glob(I_FQ, s), phi, q);
+      if (k + 1 < NZ) {
+        const T z = zp[s] - h[s];
+        zp[s] = z;
+        acc[s] = acc[s] + p.gp[k + 1] * z;
+      }
+    })
+
+    // S2: the first FB-Coriolis sweep, u on even steps, v on odd ones
+    REGION(2, 2, {
+      T a;
+      if (uf) {
+        a = u[s] + p.dt * (c.tend_u(k, s) + c.cor_u(k, s, v));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_u(s));
+        a = a * mu[s];
+      } else {
+        a = v[s] + p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, u)));
+        if (k == NZ - 1) a = a / (T(1) + p.dt * c.drag_v(s));
+        a = a * mv[s];
+      }
+      a1[s] = a;
+    })
+
+    // S3: the second sweep, from the first one's result
+    REGION(3, 3, {
+      T b;
+      if (uf) {
+        b = v[s] + p.dt * (c.tend_v(k, s) + (-c.cor_v(k, s, a1)));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_v(s));
+        b = b * mv[s];
+      } else {
+        b = u[s] + p.dt * (c.tend_u(k, s) + c.cor_u(k, s, a1));
+        if (k == NZ - 1) b = b / (T(1) + p.dt * c.drag_u(s));
+        b = b * mu[s];
+      }
+      a2[s] = b;
+    })
+
+    // S4: the layer's u*, v* written, its transports added
+    const T* us = uf ? a1 : a2;
+    const T* vs = uf ? a2 : a1;
+#pragma unroll
+    for (int i = 0; i < fbs::PPT; ++i) {
+      int jj, ii, s;
+      if (!fbs::point<W, RX>(o, i, jj, ii, s)) continue;
+      const T a = c.hx(k, s) * us[s];
+      const T aw = c.hx(k, s - 1) * us[s - 1];
+      const T b = c.hy(k, s) * vs[s];
+      const T bs = c.hy(k, s - RX) * vs[s - RX];
+      U[i] = (k > 0) ? U[i] + a : a;
+      Uw[i] = (k > 0) ? Uw[i] + aw : aw;
+      V[i] = (k > 0) ? V[i] + b : b;
+      Vs[i] = (k > 0) ? Vs[i] + bs : bs;
+      const long g = k * o.plane + o.at(jj, ii);
+      out_us[g] = us[s];
+      out_vs[g] = vs[s];
+    }
+    // before the next layer's copies overwrite the planes
+    __syncthreads();
+  }
+
+  // div of the column's transports, pa's masks and order
+#pragma unroll
+  for (int i = 0; i < fbs::PPT; ++i) {
+    int jj, ii, s;
+    if (!fbs::point<W, RX>(o, i, jj, ii, s)) continue;
+    const T Uc = U[i] * mu[s];
+    const T Uwc = Uw[i] * mu[s - 1];
+    const T Vc = V[i] * mv[s];
+    const T Vsc = Vs[i] * mv[s - RX];
+    out_div[o.at(jj, ii)] =
+        ((Uc - Uwc) * p.inv_dx + (Vc - Vsc) * p.inv_dy) * mask[s];
+  }
+}
+
+}  // namespace pal
 
 
 // ------------------------------------------- the staged phase kernels

@@ -164,6 +164,32 @@ struct Stack {
   }
 };
 
+// The offsets of the RX x RY block whose first point is the grid's (y0,
+// x0), one per point, periodic on both axes: of the whole grid, or with
+// SH of the stacked layout (Stack::row + Stack::col, the staged bodies'
+// row and column terms summed).  The layer-streamed bodies fill it once
+// per tile; the projection's on one device and on the shards.
+template <typename T, int RX, int RY, bool SH>
+__device__ __forceinline__ void block_offsets(const Params<T>& p,
+                                              const Stack& m, Off* gidx,
+                                              int y0, int x0) {
+  for (int s = threadIdx.x; s < RX * RY; s += THREADS) {
+    const int y = wrap(y0 + s / RX, p.ny);
+    const int x = wrap(x0 + s % RX, p.nx);
+    if constexpr (SH)
+      gidx[s] = m.row(y) + m.col(x);
+    else
+      gidx[s] = Off(y * p.nx + x);
+  }
+}
+// ... of tile (bx, by) of the whole grid, with a halo of W
+template <typename T, int RX, int RY, int W>
+__device__ __forceinline__ void load_offsets(const Params<T>& p, Off* gidx,
+                                             int bx, int by) {
+  block_offsets<T, RX, RY, false>(p, Stack{}, gidx, by * TY - W,
+                                  bx * TX - W);
+}
+
 // The tile of block (bx, by) of a launch over every shard of a card: it is
 // tile (bx mod nbx, by mod nby) of the card's shard (by / nby,
 // bx / nbx).

@@ -15,10 +15,12 @@
 // Each phase runs the kernel the single-device plan takes for it
 // (fused_projection.plan): K3a's / K3b's staged kernel (projection_body.cuh:
 // pas, pbs; every operand copied into shared memory by cp.async) at the
-// plan's geometry, or, where no staged geometry fits a CTA (many layers in
-// f64), the single-step body (pa, pb) on the build's tile, every haloed
-// point read through StackSrc from the shard it falls into.  Either runs
-// over the tiles of every shard (shard_addr.cuh: ShardTile).  Every
+// plan's geometry; where no staged geometry fits a CTA, the single-step
+// body (pa, pb) on the build's tile, every haloed point read through
+// StackSrc from the shard it falls into; or, in a build with BEOM_STREAM
+// (many layers), the layer-streamed bodies (pal, pbl), whose offset table
+// is filled from the stacked layout (shard_addr.cuh: block_offsets).  Each
+// runs over the tiles of every shard (ShardTile), one CTA per tile.  Every
 // operand, the statics too, is one allocation of (L, S, ly, lx) in mesh
 // order (Stack), so a block reads a neighbour shard's rows through its row
 // and column offsets as on one device.  The elliptic solve between the
@@ -32,6 +34,10 @@
 // bit.
 
 #include "projection_body.cuh"
+
+static_assert(!beom::SPILL,
+              "the projection has no spill route: off shared memory its "
+              "phases stream their layers (BEOM_STREAM)");
 
 namespace {
 
@@ -61,13 +67,11 @@ __global__ void __launch_bounds__(THREADS)
 shard_pa_kernel(const BEOM_CLASSED Params<T> p,
                 const BEOM_CLASSED StackSrc<T, N_IN_A> src_, T* out_us,
                 T* out_vs, T* out_div) {
-  for_tiles(src_.m.grid(TX, TY), [&](int bx, int by) {
-    const ShardTile t = shard_tile(src_.m, TX, TY, bx, by);
-    const auto src = src_.from(t);
-    const int b = t.base(src.m);
-    pa::run<T>(p, src, t.out(src.m, p.plane), out_us + b, out_vs + b,
-               out_div + b);
-  });
+  const ShardTile t = shard_tile(src_.m, TX, TY);
+  const auto src = src_.from(t);
+  const int b = t.base(src.m);
+  pa::run<T>(p, src, t.out(src.m, p.plane), out_us + b, out_vs + b,
+             out_div + b);
 }
 
 template <typename T>
@@ -75,13 +79,32 @@ __global__ void __launch_bounds__(THREADS)
 shard_pb_kernel(const BEOM_CLASSED Params<T> p,
                 const BEOM_CLASSED StackSrc<T, N_IN_B> src_, T corr,
                 T* out_h, T* out_u, T* out_v) {
-  for_tiles(src_.m.grid(TX, TY), [&](int bx, int by) {
-    const ShardTile t = shard_tile(src_.m, TX, TY, bx, by);
-    const auto src = src_.from(t);
-    const int b = t.base(src.m);
-    pb::run<T>(p, src, t.out(src.m, p.plane), corr, out_h + b, out_u + b,
-               out_v + b);
-  });
+  const ShardTile t = shard_tile(src_.m, TX, TY);
+  const auto src = src_.from(t);
+  const int b = t.base(src.m);
+  pb::run<T>(p, src, t.out(src.m, p.plane), corr, out_h + b, out_u + b,
+             out_v + b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+shard_pal_kernel(const BEOM_CLASSED Params<T> p, const Stack m, T* out_us,
+                 T* out_vs, T* out_div) {
+  const ShardTile t = shard_tile(m, TX, TY);
+  const int b = t.base(m);
+  pal::run_at<T, true>(p, m, t.gy0, t.gx0, t.out(m, p.plane), out_us + b,
+                       out_vs + b, out_div + b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+shard_pbl_kernel(const BEOM_CLASSED Params<T> p, const Stack m,
+                 const BEOM_CLASSED Pres<T> pres, T corr, T* out_h,
+                 T* out_u, T* out_v) {
+  const ShardTile t = shard_tile(m, TX, TY);
+  const int b = t.base(m);
+  pbl::run_at<T, true>(p, m, t.gy0, t.gx0, t.out(m, p.plane), pres.p, corr,
+                       out_h + b, out_u + b, out_v + b);
 }
 
 template <typename T>
@@ -112,7 +135,18 @@ cudaError_t allow(K kernel, int smem) {
 // correction factor and the outputs h1, u1, v1, all stacked.  Across cards
 // ptrs holds the operand tables of the nine card classes one after another
 // and p is a host table of its nine stacks.  shard_proj_a / _b launch the
-// single-step bodies, shard_proj_as / _bs the staged ones.
+// single-step bodies (layer-streamed in a build with BEOM_STREAM),
+// shard_proj_as / _bs the staged ones.
+
+// dynamic shared memory of one CTA of the build's single-step phases
+template <typename T>
+constexpr int a_smem() {
+  return STREAM ? pal::smem_bytes<T>() : pa::smem_bytes<T>();
+}
+template <typename T>
+constexpr int b_smem() {
+  return STREAM ? pbl::smem_bytes<T>() : pb::smem_bytes<T>();
+}
 
 template <typename T>
 int shard_proj_a(const void* const* ptrs, const int* ints, const double* dbls,
@@ -121,16 +155,21 @@ int shard_proj_a(const void* const* ptrs, const int* ints, const double* dbls,
   Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, pa::W, m)) return int(cudaErrorInvalidValue);
-  constexpr int smem = pa::smem_bytes<T>();
-  const cudaError_t e = allow(shard_pa_kernel<T>, smem);
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid = tile_grid(m.grid(TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  shard_pa_kernel<T><<<grid, THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane, N_TABLE),
-      static_cast<T*>(us),
-      static_cast<T*>(vs), static_cast<T*>(div));
+  constexpr int smem = a_smem<T>();
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (STREAM) {
+    const cudaError_t e = allow(shard_pal_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    shard_pal_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
+        p, m, static_cast<T*>(us), static_cast<T*>(vs),
+        static_cast<T*>(div));
+  } else {
+    const cudaError_t e = allow(shard_pa_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    shard_pa_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
+        p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane, N_TABLE),
+        static_cast<T*>(us), static_cast<T*>(vs), static_cast<T*>(div));
+  }
   return int(cudaGetLastError());
 }
 
@@ -141,22 +180,29 @@ int shard_proj_b(const void* const* ptrs, const int* ints, const double* dbls,
   Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
   if (!make_stack(p, geom, pb::W, m)) return int(cudaErrorInvalidValue);
-  constexpr int smem = pb::smem_bytes<T>();
-  const cudaError_t e = allow(shard_pb_kernel<T>, smem);
-  if (e != cudaSuccess) return int(e);
-  // h, u*, v* from the operand table, p after them
-  const void* f[NCLS * N_IN_B];
-  for (int c = 0; c < NCLS; ++c) {
-    for (int k = 0; k < F_P; ++k) f[c * N_IN_B + k] = ptrs[c * N_TABLE + k];
-    f[c * N_IN_B + F_P] =
-        BEOM_CARDS ? static_cast<const void* const*>(pres)[c] : pres;
+  constexpr int smem = b_smem<T>();
+  const auto st = static_cast<cudaStream_t>(stream);
+  if constexpr (STREAM) {
+    const cudaError_t e = allow(shard_pbl_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    shard_pbl_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
+        p, m, pres_of<T>(pres), T(corr), static_cast<T*>(h1),
+        static_cast<T*>(u1), static_cast<T*>(v1));
+  } else {
+    const cudaError_t e = allow(shard_pb_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    // h, u*, v* from the operand table, p after them
+    const void* f[NCLS * N_IN_B];
+    for (int c = 0; c < NCLS; ++c) {
+      for (int k = 0; k < F_P; ++k)
+        f[c * N_IN_B + k] = ptrs[c * N_TABLE + k];
+      f[c * N_IN_B + F_P] =
+          BEOM_CARDS ? static_cast<const void* const*>(pres)[c] : pres;
+    }
+    shard_pb_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
+        p, make_stack_src<T, N_IN_B>(f, m, p.plane), T(corr),
+        static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
   }
-  const dim3 grid = tile_grid(m.grid(TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  shard_pb_kernel<T><<<grid, THREADS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_IN_B>(f, m, p.plane), T(corr),
-      static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }
 
@@ -227,41 +273,20 @@ extern "C" int beom_kernel_halo(int which) {
 }
 
 // dynamic shared memory of one CTA of the single-step phase A (0) and B
-// (1) and of the staged ones (2, 3): the single-device kernels'
-// (fused_projection.smem_bytes, staged_smem)
+// (1; layer-streamed in a build with BEOM_STREAM) and of the staged ones
+// (2, 3): the single-device kernels' (fused_projection.smem_bytes,
+// stream_smem, staged_smem)
 extern "C" int beom_smem_bytes(int which, int is_f64) {
   switch (which) {
     case 0:
-      return is_f64 ? pa::smem_bytes<double>() : pa::smem_bytes<float>();
+      return is_f64 ? a_smem<double>() : a_smem<float>();
     case 1:
-      return is_f64 ? pb::smem_bytes<double>() : pb::smem_bytes<float>();
+      return is_f64 ? b_smem<double>() : b_smem<float>();
     case 2:
       return is_f64 ? pas::smem_bytes<double>() : pas::smem_bytes<float>();
     default:
       return is_f64 ? pbs::smem_bytes<double>() : pbs::smem_bytes<float>();
   }
-}
-
-// the spill route: bytes of a CTA's slice of the scratch of phase A (0) and
-// B (1) (0 in any other build), and the CTAs of each the current device
-// holds at once
-extern "C" long beom_work_bytes(int which, int is_f64) {
-  if (which == 0)
-    return is_f64 ? pa::work_bytes<double>() : pa::work_bytes<float>();
-  if (which == 1)
-    return is_f64 ? pb::work_bytes<double>() : pb::work_bytes<float>();
-  return 0;
-}
-template <typename T>
-int spill_ctas(int which) {
-  if (which == 0)
-    return resident_ctas(shard_pa_kernel<T>, THREADS, pa::smem_bytes<T>());
-  if (which == 1)
-    return resident_ctas(shard_pb_kernel<T>, THREADS, pb::smem_bytes<T>());
-  return 0;
-}
-extern "C" int beom_spill_ctas(int which, int is_f64) {
-  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
 }
 
 extern "C" const char* beom_cuda_error_string(int e) {

@@ -89,11 +89,15 @@ LAUNCHES = {"fb": 0, "fb_pass": 0, "split_slow": 0, "split_subcycle": 0,
 # the launches above that took the spill route (the single-step bodies'
 # planes in device memory: fused_fb.single_tile), by kind
 SPILL_LAUNCHES = {"fb": 0, "split_slow": 0, "split_recompose": 0,
-                  "split_tend": 0, "proj_a": 0, "proj_b": 0}
+                  "split_tend": 0}
+# the launches above of the layer-streamed projection phases
+# (fused_projection.PhasePlan.stream)
+STREAM_LAUNCHES = {"proj_a": 0, "proj_b": 0}
 # the entries that run a single-step body, and each one's index in its
-# source's beom_work_bytes / beom_spill_ctas
+# source's beom_work_bytes / beom_spill_ctas (the projection has no spill
+# route: its phases stream their layers)
 _SPILLABLE = {"step": 0, "split_slow": 0, "split_tend": 4,
-              "split_recompose": 1, "proj_a": 0, "proj_b": 1}
+              "split_recompose": 1}
 
 _PROJECTION = ("rigid_lid", "implicit_fs")
 # the split kernels in the order of csrc/shard_split.cu's beom_smem_bytes
@@ -619,7 +623,8 @@ class MeshPlan:
     fused_projection.plan), with the fb pass kernel's steps per launch at
     most max_kb, the most whose halo kb W a neighbour's block holds;
     `off_smem` forces the single-step bodies off shared memory (the spill
-    route) where a tile fits them too."""
+    route; the projection phases layer-streamed) where a tile fits them
+    too."""
     cfg: Config
     dtype: torch.dtype
     ly: int
@@ -639,11 +644,17 @@ class MeshPlan:
     @property
     def spilled(self) -> bool:
         """Whether the scheme's single-step bodies take the spill route
-        (fused_fb.single_tile, fused_projection.single_tile): where no
-        tile fits them, or where `off_smem` forces it."""
+        (fused_fb.single_tile): where no tile fits them, or where
+        `off_smem` forces it; never for the projection (streamed)."""
         if self.cfg.scheme in _PROJECTION:
-            return self.phases.spill
+            return False
         return fused_fb.single_tile(self.cfg, self.dtype, self.off_smem)[1]
+
+    @property
+    def streamed(self) -> bool:
+        """Whether the projection phases stream their layers, as the
+        single-device plan has them (fused_projection.plan)."""
+        return self.cfg.scheme in _PROJECTION and self.phases.stream
 
     def fb_launches(self, k: int) -> list:
         """Steps of each launch of a pass of k fb steps."""
@@ -696,7 +707,7 @@ class MeshPlan:
                 text += ("; the slow phase and the recomposition on the "
                          "spill route (their planes in device memory)")
             return f"{lead}; split: {text}"
-        return f"{lead}; projection: {self.phases.describe(shard=True)}"
+        return f"{lead}; projection: {self.phases.describe()}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -743,12 +754,12 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False,
     staged phases rebuild the staggered masks; cards: the build for a mesh
     over several cards, BEOM_CARDS = 1; off_smem: force the single-step
     bodies onto the spill route, which they take anyway where no tile
-    fits them)."""
+    fits them, and the projection phases layer-streamed)."""
     check_config(cfg)
     if cfg.scheme in _PROJECTION:
         name, defines = "shard_projection", fused_projection.build_spec(
-            cfg, dtype, fused_projection.plan(cfg, dtype, off_smem), dmask,
-            shard=True)[1]
+            cfg, dtype, fused_projection.plan(cfg, dtype, off_smem),
+            dmask)[1]
     elif cfg.scheme == "split":
         name, defines = "shard_split", fused_fb.build_spec(
             cfg, dtype, off_smem=off_smem, shard=True)[1]
@@ -791,7 +802,8 @@ def _want_smem(cfg: Config, name: str, defines, elem: int, kb: int):
             spill)
         return [want[f"split_{k}"] for k in _SPLIT]
     geo = fused_projection.Geometry
-    want = fused_projection.smem_bytes(cfg, tile, elem, off, spill)
+    want = (fused_projection.stream_smems if value.get("BEOM_STREAM")
+            else fused_projection.smem_bytes)(cfg, tile, elem, off)
     want.update(fused_projection.staged_smem(
         cfg, geo(value["BEOM_ATX"], value["BEOM_ATY"], value["BEOM_ANT"]),
         geo(value["BEOM_BTX"], value["BEOM_BTY"], value["BEOM_BNT"]), elem,
@@ -817,9 +829,6 @@ def _want_work(cfg: Config, name: str, defines, elem: int) -> dict:
     route): the single-device kernels' counts."""
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     tile, on = (value["BEOM_TX"], value["BEOM_TY"]), value.get("BEOM_SPILL", 0)
-    if name == "shard_projection":
-        w = fused_projection.work_bytes(cfg, tile, elem)
-        return {0: w["proj_a"] * on, 1: w["proj_b"] * on}
     w = fused_fb.work_bytes(cfg, tile, elem)
     if name == "shard_split":
         return {0: w["split_slow"] * on, 1: w["split_recompose"] * on,
@@ -836,7 +845,6 @@ def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
     halos."""
     name, defines = build_spec(cfg, dtype, kb, dmask, cards, off_smem)
     lib = build.load((name, defines))
-    fused_fb.spill_api(lib)
     elem = torch.empty((), dtype=dtype).element_size()
     for i, want in enumerate(_want_smem(cfg, name, defines, elem, kb)):
         have = lib.beom_smem_bytes(i, int(elem == 8))
@@ -844,7 +852,10 @@ def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
             raise RuntimeError(f"{name}: kernel {i}'s shared memory ({have} "
                                f"bytes) is not the single-device kernel's "
                                f"({want})")
-    fused_fb.check_work(lib, name, _want_work(cfg, name, defines, elem), elem)
+    if name != "shard_projection":
+        fused_fb.spill_api(lib)
+        fused_fb.check_work(lib, name, _want_work(cfg, name, defines, elem),
+                            elem)
     halos = kernel_halos(cfg)
     if name == "shard_step":
         keys, ok = ("step",), lib.beom_shard_halo() == kb * halos["fb"]
@@ -1039,6 +1050,7 @@ class MeshKernels:
                 self._check("h, u, v", a, nz, c)
         kind = _KIND.get(key, key)
         spill = self.spill and kb == 1 and key in _SPILLABLE
+        streamed = self.plan.streamed and key in STREAM_LAUNCHES
 
         def scratch(c):
             # card c's scratch on the spill route, from its launch's stream
@@ -1058,6 +1070,8 @@ class MeshKernels:
             LAUNCHES[kind] += 1
             if spill:
                 SPILL_LAUNCHES[kind] += 1
+            if streamed:
+                STREAM_LAUNCHES[kind] += 1
             return
         aligned = all(ops._aligned for ops in self._ops) and all(
             a.data_ptr() % 16 == 0 for f in fields for a in f)
@@ -1081,6 +1095,8 @@ class MeshKernels:
             LAUNCHES[kind] += 1
             if spill:
                 SPILL_LAUNCHES[kind] += 1
+            if streamed:
+                STREAM_LAUNCHES[kind] += 1
         self.order.after()
 
     def _planes(self, n: int):

@@ -264,8 +264,9 @@ def tile_or_spill(need, off_smem: bool = False):
     """(tile, off) of single-step kernels whose CTA at a tile needs
     need(tile) bytes of shared memory: the first of _TILES that fits;
     where none fits, or where `off_smem` is true (to force it), the route
-    off shared memory (layer-streamed on one device but for K3a, the spill
-    route for K3a and the shard kernels) at the largest tile."""
+    off shared memory (layer-streamed on one device and for the projection
+    phases on the shards too, the spill route for the other shard kernels)
+    at the largest tile."""
     fits = [t for t in _TILES if need(t) <= _MAX_SMEM]
     off = bool(off_smem) or not fits
     return (_TILES[0] if off else fits[0]), off
@@ -1271,8 +1272,7 @@ def fb_step_streamed(h, u, v, statics, n: int, t, cfg: Config, tile=None,
     over the written layers in order from the surface, are added to every
     layer.  Equal to fb_step bit for bit at the kernels' halos."""
     from beom_tpu_torch.core import ops
-    from beom_tpu_torch.physics import (continuity, momentum, obc,
-                                        viscosity, wetdry)
+    from beom_tpu_torch.physics import continuity, obc, wetdry
 
     tile = tile or single_tile(cfg, h.dtype, True)[0]
     lo, hw = halos or ((2 if cfg.wetdry else 1), 3)
@@ -1304,61 +1304,12 @@ def fb_step_streamed(h, u, v, statics, n: int, t, cfg: Config, tile=None,
         acc = gp[0] * z
         out_u, out_v = [], []
         for k in range(nz):
-            one = _layer_cfg(c, k)
-            h1, uk, vk = h1c[k:k + 1], u[k:k + 1], v[k:k + 1]
             if k > 0:
                 z = z - h1c[k - 1]
                 acc = acc + gp[k] * z
-            phi = acc[None]
-            if c.adv_scheme != "linear":
-                phi = phi + momentum.kinetic_energy(uk, vk)
-            du = -ops.d_xp(phi, c.dx)
-            dv = -ops.d_yp(phi, c.dy)
-            duv, dvv = viscosity.viscosity(uk, vk, g, one)
-            du, dv = du + duv, dv + dvv
-            duw, dvw = drag.wind(h1, g, fo, one)
-            if k > 0:
-                duw, dvw = torch.zeros_like(duw), torch.zeros_like(dvw)
-            du, dv = du + duw, dv + dvw
-            if c.r_int != 0.0 and nz > 1:
-                hu = torch.clamp_min(ops.a_xp(h1), c.h_min)
-                hv = torch.clamp_min(ops.a_yp(h1), c.h_min)
-
-                def couple(w, hh):
-                    a = w[k:k + 1]
-                    above = w[k - 1:k] - a if k > 0 else torch.zeros_like(a)
-                    below = w[k + 1:k + 2] - a if k < nz - 1 else \
-                        torch.zeros_like(a)
-                    return c.r_int * (above + below) / hh
-
-                du, dv = du + couple(u, hu), dv + couple(v, hv)
-            else:
-                du, dv = du + torch.zeros_like(du), dv + torch.zeros_like(dv)
-            if c.sponge:
-                _, dus, dvs = obc.sponge_rhs(h1, uk, vk, fo, one)
-                du, dv = du + dus, dv + dvs
-            q, U, V = fb_mod._pv_and_fluxes(h1, uk, vk, g, one)
-            cu = cv = torch.zeros_like(uk)
-            if k == nz - 1:
-                cu, cv = drag.bottom_drag_coeff(h1, uk, vk, g, one)
-
-            def upd_u(uu, VV):
-                duq = ops.a_ym(q * ops.a_xp(VV))
-                return (uu + dt * (du + duq)) / (1.0 + dt * cu) * g.mask_u
-
-            def upd_v(vv, UU):
-                dvq = -ops.a_xm(q * ops.a_yp(UU))
-                return (vv + dt * (dv + dvq)) / (1.0 + dt * cv) * g.mask_v
-
-            linear = c.adv_scheme == "linear"
-            if n % 2 == 0:
-                u1 = upd_u(uk, V)
-                v1 = upd_v(vk, u1 if linear else ops.a_xp(h1) * u1)
-            else:
-                v1 = upd_v(vk, U)
-                u1 = upd_u(uk, v1 if linear else ops.a_yp(h1) * v1)
+            u1, v1 = _layer_sweeps(h1c, u, v, g, fo, c, k, acc, n)
             if c.wetdry:
-                wet = wetdry.wet_mask(h1, g, one)
+                wet = wetdry.wet_mask(h1c[k:k + 1], g, _layer_cfg(c, k))
                 u1, v1 = wetdry.gate_u(u1, wet, g), wetdry.gate_v(v1, wet, g)
             out_u.append(u1)
             out_v.append(v1)
@@ -1372,12 +1323,12 @@ def fb_step_streamed(h, u, v, statics, n: int, t, cfg: Config, tile=None,
                              tile, (hw,) * 4)
 
 
-def _layer_tendencies(h, u, v, g, fo, c, k: int, acc):
-    """The slow phase's tendencies (du_s, dv_s) of layer k alone, as one
-    (1, ny, nx) pair, from that layer's h, u, v, the Montgomery potential's
-    running sum acc and the old u, v of the layers beside it (the
-    interfacial drag): fb._common_tendencies without the free surface
-    and the PV cross terms, in their order."""
+def _layer_terms(h, u, v, g, fo, c, k: int, acc):
+    """The momentum terms of layer k alone, each (1, ny, nx), from that
+    layer's h, u, v, the Montgomery potential's running sum acc and the
+    old u, v of the layers beside it (the interfacial drag):
+    (du, dv, q, U, V), fb._common_tendencies without the free surface and
+    fb._pv_and_fluxes, in their order."""
     from beom_tpu_torch.core import ops
     from beom_tpu_torch.physics import momentum, obc, viscosity
 
@@ -1411,9 +1362,48 @@ def _layer_tendencies(h, u, v, g, fo, c, k: int, acc):
     if c.sponge:
         _, dus, dvs = obc.sponge_rhs(hk, uk, vk, fo, one)
         du, dv = du + dus, dv + dvs
-    q, U, V = fb_mod._pv_and_fluxes(hk, uk, vk, g, one)
+    return (du, dv) + fb_mod._pv_and_fluxes(hk, uk, vk, g, one)
+
+
+def _layer_tendencies(h, u, v, g, fo, c, k: int, acc):
+    """The slow phase's tendencies (du_s, dv_s) of layer k alone
+    (_layer_terms with the PV cross terms)."""
+    from beom_tpu_torch.core import ops
+
+    du, dv, q, U, V = _layer_terms(h, u, v, g, fo, c, k, acc)
     return (du + ops.a_ym(q * ops.a_xp(V)),
             dv - ops.a_xm(q * ops.a_yp(U)))
+
+
+def _layer_sweeps(h, u, v, g, fo, c, k: int, acc, n: int):
+    """fb.momentum_update of layer k alone from _layer_terms: both
+    FB-Coriolis sweeps in the order of the parity n % 2, the bottom drag
+    on the last layer; (u1, v1) before finalize."""
+    from beom_tpu_torch.core import ops
+
+    dt = c.dt
+    du, dv, q, U, V = _layer_terms(h, u, v, g, fo, c, k, acc)
+    hk, uk, vk = h[k:k + 1], u[k:k + 1], v[k:k + 1]
+    cu = cv = torch.zeros_like(uk)
+    if k == c.nz - 1:
+        cu, cv = drag.bottom_drag_coeff(hk, uk, vk, g, _layer_cfg(c, k))
+
+    def upd_u(uu, VV):
+        duq = ops.a_ym(q * ops.a_xp(VV))
+        return (uu + dt * (du + duq)) / (1.0 + dt * cu) * g.mask_u
+
+    def upd_v(vv, UU):
+        dvq = -ops.a_xm(q * ops.a_yp(UU))
+        return (vv + dt * (dv + dvq)) / (1.0 + dt * cv) * g.mask_v
+
+    linear = c.adv_scheme == "linear"
+    if n % 2 == 0:
+        u1 = upd_u(uk, V)
+        v1 = upd_v(vk, u1 if linear else ops.a_xp(hk) * u1)
+    else:
+        v1 = upd_v(vk, U)
+        u1 = upd_u(uk, v1 if linear else ops.a_yp(hk) * v1)
+    return u1, v1
 
 
 def split_step_streamed(h, u, v, statics, n: int, t, cfg: Config,

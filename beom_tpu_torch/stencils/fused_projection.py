@@ -31,10 +31,10 @@ A step decomposes as the reference's does:
 
 Each phase runs as one of two kernels of `csrc/projection.cu`, chosen per
 case and type by `plan`: the single-step kernels `proj_a` / `proj_b` on
-32 x 16 tiles (the stage bodies the shard kernels share; where no tile
-fits a CTA's shared memory, fused_fb.single_tile and PhasePlan.spill,
-`proj_a` on the spill route, its planes in device memory, and `proj_b`
-layer-streamed, a few planes of one layer in shared memory), or the
+32 x 16 tiles (the stage bodies the shard kernels share; from _STREAM_FROM
+layers, and wherever no tile fits a CTA's shared memory, both
+layer-streamed, a few planes of one layer in shared memory: PhasePlan.
+stream), or the
 staged kernels `proj_as` / `proj_bs` on tiles of their own, every
 operand staged by cp.async, whose K3a also writes the solve's right-hand
 side and warm start in its epilogue (`Phases.a_rhs`: then no elementwise
@@ -50,8 +50,8 @@ host queues the next launches while the solve runs.
 versions, `proj_a_plain` and `proj_b_plain`, on CPU tensors.  They never
 fall back from one to the other: on a CUDA tensor each launches its
 kernel or raises.  `proj_a_tiled` and `proj_b_tiled` run the staged
-kernels' tile schedules on the host, and `proj_b_streamed` the
-layer-streamed K3b's, for the tests.
+kernels' tile schedules on the host, and `proj_a_streamed` /
+`proj_b_streamed` the layer-streamed kernels', for the tests.
 """
 
 from __future__ import annotations
@@ -73,10 +73,8 @@ from beom_tpu_torch.solvers.elliptic import _local_dot
 # kernel launches of phase A and phase B (either kernel of each); a run
 # reads them to show that its main path went through the kernels
 LAUNCHES = {"proj_a": 0, "proj_b": 0}
-# the launches above that took the spill route (phase A) and the
-# layer-streamed kernel (phase B)
-SPILL_LAUNCHES = {"proj_a": 0}
-STREAM_LAUNCHES = {"proj_b": 0}
+# the launches above that took the layer-streamed kernels
+STREAM_LAUNCHES = {"proj_a": 0, "proj_b": 0}
 
 # solves that the stall guard of the multigrid-preconditioned CG redid
 COUNTS = {"stalled": 0}
@@ -84,7 +82,16 @@ COUNTS = {"stalled": 0}
 K_SWEEPS = 8      # red-black sweeps per pass, as the reference's stepper
 _KERNELS = ("proj_a", "proj_b")     # in the order of beom_smem_bytes
 _STAGED = ("proj_as", "proj_bs")    # after them
-_WHICH = {"proj_a": 0}  # the spill route's kernel in beom_work_bytes
+# Both phases stream their layers from _STREAM_FROM layers (and wherever no
+# tile fits the single-step kernels).  On the H100 at 2048^2 on the shelf
+# with 13 constituents, implicit FS (tools/kernel_times.py --layers
+# projection, K3a + K3b on the device, streamed against the plan's
+# shared-memory kernels): f32 nz 2 1.17 ms against 0.90 (staged), nz 4
+# 1.65 against 1.74 (staged), nz 8 2.63 against 4.44 (K3a single-step on
+# 32 x 8, K3b staged), nz 16 4.59 against 11.34 (single-step); f64 nz 2
+# 2.66 against 1.93, nz 4 3.78 against 5.35, nz 8 5.87 against 9.15 (both
+# single-step).  One rule for both phases and types: from 4 layers.
+_STREAM_FROM = 4
 # the staged kernels' candidate geometries: (tile width, height, threads);
 # the width a multiple of 4, so that a block's rows start 16-byte aligned
 _GEOMETRIES = ((32, 16, 256), (64, 16, 512), (32, 32, 512), (64, 32, 512),
@@ -118,62 +125,61 @@ def single_planes(cfg: Config) -> dict:
             "proj_b": (halo_b(cfg), 4 * nz + 4 + 3 * nz * wd + obc)}
 
 
-def smem_bytes(cfg: Config, tile, elem: int, off: int = 4,
-               spill: bool = False) -> dict:
-    """Dynamic shared memory of one CTA of each phase kernel at `tile` =
-    (tx, ty) and `elem` bytes per value: the planes of csrc/projection.cu
-    times the haloed tile, plus the table of offsets of `off` bytes; on
-    the spill route (`spill`) the table alone (`work_bytes` counts the
-    planes)."""
+def smem_bytes(cfg: Config, tile, elem: int, off: int = 4) -> dict:
+    """Dynamic shared memory of one CTA of each single-step phase kernel at
+    `tile` = (tx, ty) and `elem` bytes per value: the planes of
+    csrc/projection.cu times the haloed tile, plus the table of offsets of
+    `off` bytes."""
     out = {}
     for kernel, (w, planes) in single_planes(cfg).items():
         npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
-        out[kernel] = fused_fb.tables(0 if spill else npt * planes * elem,
-                                      npt, off)
+        out[kernel] = fused_fb.tables(npt * planes * elem, npt, off)
     return out
 
 
-def stream_smem(cfg: Config, tile, elem: int, off: int = 4) -> int:
-    """Dynamic shared memory of one CTA of the layer-streamed K3b at
-    `tile` (csrc/projection_body.cuh: pbl): h, u*, v*, p, three masks and
-    h1 of one layer (+ the fluxes and scales under wet/dry, + ee under the
-    open boundary) on the block with pb's halo, and the table of
-    offsets."""
-    w = halo_b(cfg)
+def stream_smem(cfg: Config, tile, elem: int, off: int = 4,
+                kernel: str = "proj_b") -> int:
+    """Dynamic shared memory of one CTA of a layer-streamed phase kernel at
+    `tile` (csrc/projection_body.cuh), planes of one layer on the block with
+    the phase's halo and the table of offsets: K3b's (pbl) h, u*, v*, p,
+    three masks and h1 (+ the fluxes and scales under wet/dry, + ee under
+    the open boundary) at halo_b; K3a's ("proj_a", pal) h, u, v of two
+    layers, phi, q, both sweeps, z, acc and four masks (+ lap(u), lap(v)
+    with nu4) at the halo 4."""
+    if kernel == "proj_a":
+        w, planes = 4, 16 + 2 * (cfg.nu4 != 0.0)
+    else:
+        w, planes = halo_b(cfg), 8 + 3 * cfg.wetdry + cfg.obc
     npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
-    return fused_fb.tables(npt * (8 + 3 * cfg.wetdry + cfg.obc) * elem, npt,
-                           off)
+    return fused_fb.tables(npt * planes * elem, npt, off)
 
 
-def work_bytes(cfg: Config, tile, elem: int) -> dict:
-    """Bytes of one CTA's slice of the spill route's scratch: each
-    single-step phase body's planes of its block at `tile`."""
-    return {kernel: (tile[0] + 2 * w) * (tile[1] + 2 * w) * planes * elem
-            for kernel, (w, planes) in single_planes(cfg).items()}
+def stream_smems(cfg: Config, tile, elem: int, off: int = 4) -> dict:
+    """stream_smem of both phases' kernels, by kernel."""
+    return {k: stream_smem(cfg, tile, elem, off, k) for k in _KERNELS}
 
 
 def single_tile(cfg: Config, dtype=None, off_smem: bool = False):
-    """fused_fb.tile_or_spill of the single-step phase kernels."""
+    """fused_fb.tile_or_spill of the single-step phase kernels: (tile,
+    off), off where no tile fits them (the phases then stream their
+    layers) or where `off_smem` forces it."""
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     return fused_fb.tile_or_spill(
         lambda t: max(smem_bytes(cfg, t, elem).values()), off_smem)
 
 
-def build_spec(cfg: Config, dtype=None, phase_plan=None, dmask=False,
-               shard: bool = False):
-    """(source, defines) of the build of csrc/projection.cu that runs
-    cfg: the compile-time switches and the single-step kernels' tile (what
-    the shard kernels take too); where no tile fits (the plan's spill,
-    else single_tile) BEOM_SPILL=1, K3a's spill route, and BEOM_STREAM=1,
-    K3b layer-streamed (not for the shard bodies, `shard`, which keep both
-    phases on the spill route); with a PhasePlan the staged kernels'
-    geometry and the masks' rebuild (`staged_defines`)."""
+def build_spec(cfg: Config, dtype=None, phase_plan=None, dmask=False):
+    """(source, defines) of the build of csrc/projection.cu (and of the
+    shard kernels' csrc/shard_projection.cu) that runs cfg: the
+    compile-time switches and the single-step kernels' tile; where the
+    plan streams (`phase_plan`, default `plan`) BEOM_STREAM=1, both phases
+    layer-streamed on the largest tile; with a PhasePlan the staged
+    kernels' geometry and the masks' rebuild (`staged_defines`)."""
     check_config(cfg)
-    tile, spill = single_tile(cfg, dtype,
-                              phase_plan is not None and phase_plan.spill)
+    stream = (phase_plan or plan(cfg, dtype)).stream
+    tile = single_tile(cfg, dtype, stream)[0]
     defines = fused_fb.term_defines(cfg, tile) + (
-        (("BEOM_SPILL=1",) + (() if shard else ("BEOM_STREAM=1",)))
-        if spill else ())
+        ("BEOM_STREAM=1",) if stream else ())
     if phase_plan is not None:
         defines += staged_defines(phase_plan, cfg, dmask)
     return "projection", defines
@@ -194,30 +200,33 @@ class Geometry:
 class PhasePlan:
     """How a step's phases run: `a` and `b` the staged kernels' geometries,
     or None for the single-step kernel; `rhs` whether K3a's epilogue writes
-    the solve's right-hand side and warm start; `spill` whether no tile
-    fits the single-step kernels: K3a's then takes the spill route (its
-    planes in device memory), K3b's streams its layers (the shard bodies
-    keep both on the spill route)."""
+    the solve's right-hand side and warm start; `stream` whether the
+    single-step kernels stream their layers (a build with BEOM_STREAM: from
+    _STREAM_FROM layers, and where no tile fits them), on one device and
+    on the shards alike."""
     a: Optional[Geometry]
     b: Optional[Geometry]
     rhs: bool
-    spill: bool = False
+    stream: bool = False
+
+    @property
+    def stream_a(self) -> bool:
+        """Whether phase A runs the layer-streamed kernel."""
+        return self.stream and self.a is None
 
     @property
     def stream_b(self) -> bool:
         """Whether phase B runs the layer-streamed kernel."""
-        return self.spill and self.b is None
+        return self.stream and self.b is None
 
-    def describe(self, shard: bool = False) -> str:
-        one = "single-step (32 x 16, on the spill route: its planes in " \
-            "device memory)" if self.spill else "single-step (32 x 16)"
-        a = f"K3a {one}" if self.a is None else \
-            f"K3a staged, {self.a.describe()}"
-        b = f"K3b {one}" if self.b is None else \
-            f"K3b staged, {self.b.describe()}"
-        if self.stream_b and not shard:
-            b = ("K3b layer-streamed (32 x 16, one layer at a time in "
-                 "shared memory)")
+    def describe(self) -> str:
+        one = "single-step (32 x 16)"
+        streamed = "layer-streamed (32 x 16, one layer at a time in " \
+            "shared memory)"
+        a = f"K3a {streamed}" if self.stream_a else f"K3a {one}" \
+            if self.a is None else f"K3a staged, {self.a.describe()}"
+        b = f"K3b {streamed}" if self.stream_b else f"K3b {one}" \
+            if self.b is None else f"K3b staged, {self.b.describe()}"
         rhs = "the right-hand side in K3a's epilogue" if self.rhs else \
             "the right-hand side in torch"
         return f"{a}; {b}; {rhs}"
@@ -282,17 +291,17 @@ def candidates(cfg: Config, dtype=None) -> list:
 
 @functools.lru_cache(maxsize=None)
 def plan(cfg: Config, dtype=None, off_smem: bool = False) -> PhasePlan:
-    """The phase kernels of cfg at `dtype`: each phase's staged kernel at
-    the geometry of least geometry_cost where one fits, else its
-    single-step kernel (on the spill route where no tile fits it:
-    single_tile); the right-hand side in K3a's epilogue where K3a is
-    staged and the layer sum has at most two terms (any order of two
-    additions is the same, so the epilogue's sum is torch.sum's bit for
-    bit).  With off_smem=True both phases run the single-step kernels off
-    shared memory, K3a on the spill route and K3b layer-streamed (to hold
-    them against the other routes where both build)."""
+    """The phase kernels of cfg at `dtype`: from _STREAM_FROM layers, and
+    wherever no tile fits the single-step kernels (single_tile), both
+    phases layer-streamed; else each phase's staged kernel at the geometry
+    of least geometry_cost where one fits, else its single-step kernel;
+    the right-hand side in K3a's epilogue where K3a is staged and the
+    layer sum has at most two terms (any order of two additions is the
+    same, so the epilogue's sum is torch.sum's bit for bit).  With
+    off_smem=True both phases stream (to hold them against the other
+    routes where both build)."""
     check_config(cfg)
-    if off_smem:
+    if off_smem or cfg.nz >= _STREAM_FROM or single_tile(cfg, dtype)[1]:
         return PhasePlan(None, None, False, True)
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     geos = [Geometry(*g) for g in _GEOMETRIES]
@@ -303,8 +312,7 @@ def plan(cfg: Config, dtype=None, off_smem: bool = False) -> PhasePlan:
         return None if cost[best] == float("inf") else best
 
     a = pick("proj_as")
-    return PhasePlan(a, pick("proj_bs"), a is not None and cfg.nz <= 2,
-                     single_tile(cfg, dtype)[1])
+    return PhasePlan(a, pick("proj_bs"), a is not None and cfg.nz <= 2)
 
 
 def staged_defines(pl: PhasePlan, cfg: Config, dmask: bool) -> tuple:
@@ -362,13 +370,11 @@ def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
 
     name, defines = build_spec(cfg, dtype, pl, dmask)
     lib = build.load((name, defines))
-    fused_fb.spill_api(lib)
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     elem = torch.empty((), dtype=dtype).element_size()
     tile = (value["BEOM_TX"], value["BEOM_TY"])
-    want = smem_bytes(cfg, tile, elem, spill=pl.spill)
-    if "BEOM_STREAM=1" in defines:
-        want["proj_b"] = stream_smem(cfg, tile, elem)
+    want = stream_smems(cfg, tile, elem) if pl.stream else \
+        smem_bytes(cfg, tile, elem)
     want.update(staged_smem(
         cfg, Geometry(value["BEOM_ATX"], value["BEOM_ATY"],
                       value["BEOM_ANT"]),
@@ -380,8 +386,6 @@ def _entries(cfg: Config, dtype, pl: PhasePlan, dmask: bool):
             raise RuntimeError(
                 f"{kernel}: the kernel's shared memory ({have} bytes) is "
                 f"not what smem_bytes counts ({want[kernel]})")
-    fused_fb.check_work(lib, name, {
-        0: work_bytes(cfg, tile, elem)["proj_a"] * pl.spill, 1: 0}, elem)
     P, I, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     suffix = fused_fb._SUFFIX[dtype]
     fns = {}
@@ -453,10 +457,11 @@ class Phases:
 
     def kernel_keys(self) -> tuple:
         """The names torch.profiler gives the plan's two kernels."""
+        a = "proj_as_kernel" if self.plan.a is not None else \
+            "proj_a_layers_kernel" if self.plan.stream_a else "proj_a_kernel"
         b = "proj_bs_kernel" if self.plan.b is not None else \
             "proj_b_layers_kernel" if self.plan.stream_b else "proj_b_kernel"
-        return ("proj_a_kernel" if self.plan.a is None else "proj_as_kernel",
-                b)
+        return a, b
 
     def _fields(self, what, tensors, shape):
         for name, a in zip(what, tensors):
@@ -474,11 +479,7 @@ class Phases:
             plane = lambda: torch.empty(self._shape2, dtype=self.dtype,
                                         device=self.device)
             us, vs = torch.empty_like(u), torch.empty_like(v)
-            spill = self.plan.a is None and self.plan.spill
-            # held until the launch is queued, so that no output below is
-            # handed the scratch's memory
-            work = self._work("proj_a", spill)
-            ptrs, ints, dbls = self._ops.set(n % 2, (h, u, v), work=work)
+            ptrs, ints, dbls = self._ops.set(n % 2, (h, u, v))
             stream = torch.cuda.current_stream(self.device).cuda_stream
             if self.plan.a is None:
                 outs = (plane(), None, None, None)
@@ -496,14 +497,8 @@ class Phases:
                                           -self.lam, stream)
             self._check(self.lib, code, "phase A kernel launch")
             LAUNCHES["proj_a"] += 1
-            SPILL_LAUNCHES["proj_a"] += spill
+            STREAM_LAUNCHES["proj_a"] += self.plan.stream_a
         return (us, vs) + outs
-
-    def _work(self, kernel: str, spill: bool):
-        """(scratch, slots) of a launch of `kernel` on the spill route, or
-        None off it; the caller holds it until the launch is queued."""
-        return fused_fb.scratch(self.lib, _WHICH[kernel], self.dtype,
-                                self.device) if spill else None
 
     def a(self, h, u, v, n: int):
         """Phase A of step n: (u*, v*, div(U*)), the sweep order from the
@@ -620,6 +615,45 @@ def proj_b_tiled(h, u_s, v_s, p, statics, t, cfg: Config, tile=None,
     return fused_fb._tiled(lambda f, st, c: proj_b_plain(*f, st, t, c),
                            (h, u_s, v_s, p), statics, cfg, tile,
                            (hy, hy, hx, hx), dmask)
+
+
+def proj_a_streamed(h, u, v, statics, n: int, cfg: Config, tile=None,
+                    halo=4):
+    """The layer-streamed K3a's schedule on the host, for the tests (csrc/
+    projection_body.cuh: pal): each tile's block with the halo 4 (or
+    `halo`) in a ring of NaN, and for each layer from the surface
+    Montgomery's running sums without the surface term, that layer's
+    tendencies and both sweeps from its own h, u, v (the interfacial drag
+    from the old u, v of the layers beside it), its u*, v*, and the
+    column's transports added as they come; after the last layer div from
+    them.  (u*, v*, div): u*, v* bit for bit proj_a_plain at the kernel's
+    halo; div adds the layers in order from the surface where the plain
+    version's torch.sum takes an order of its own past two layers."""
+    from beom_tpu_torch.core import ops
+
+    tile = tile or single_tile(cfg, h.dtype, True)[0]
+
+    def phase_a(fields, st, c):
+        (h, u, v), (g, fo) = fields, st
+        z = torch.zeros(h.shape[1:], dtype=h.dtype, device=h.device)
+        acc = c.gprime[0] * z
+        us, vs = [], []
+        for k in range(c.nz):
+            if k > 0:
+                z = z - h[k - 1]
+                acc = acc + c.gprime[k] * z
+            u1, v1 = fused_fb._layer_sweeps(h, u, v, g, fo, c, k, acc, n)
+            U_k, V_k = ops.a_xp(h[k]) * u1[0], ops.a_yp(h[k]) * v1[0]
+            U = U_k if k == 0 else U + U_k
+            V = V_k if k == 0 else V + V_k
+            us.append(u1)
+            vs.append(v1)
+        U, V = U * g.mask_u, V * g.mask_v
+        div = (ops.d_xm(U, c.dx) + ops.d_ym(V, c.dy)) * g.mask
+        return torch.cat(us), torch.cat(vs), div
+
+    return fused_fb._tiled(phase_a, (h, u, v), statics, cfg, tile,
+                           (halo,) * 4)
 
 
 def proj_b_streamed(h, u_s, v_s, p, statics, t, cfg: Config, tile=None,

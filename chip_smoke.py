@@ -225,33 +225,36 @@ Phases, each of which raises on failure (exit code != 0):
  28. many layers and tidal constituents: shelf_forced (wet/dry, Flather,
      sponge, wind, bottom drag) at 2048^2 f32 with 32 layers and 13 of
      TPXO's constituents, past the shared-memory walls of K1 (24 layers)
-     and K3a / K3b (31): K1 and K3b stream their layers through a few
-     shared-memory planes of one layer (K1 two launches per step, the
-     continuity and the momentum), K3a and K7's bodies take the spill
-     route (their planes in device memory).  Paths, each with the counts
-     set to 0 just before and read just after: run() with
-     backend='fused', 100 steps, diagnostics every 50 (finite; K1's two
-     streamed kernels once per step), run() of the implicit free surface
-     3 steps (K3a on the spill route, K3b layer-streamed), and both again
-     on 2 x 2 shards of the card (K7-fb, K7-proj).  Then K1 (both
-     parities; its continuity's h1 and its momentum's u, v each held and
-     each kernel timed on the device beside the plain continuity and the
-     plain momentum with finalize), K1s at nsub 8 on its plan's route
-     (route 3, its three kernels and the step) and K3a / K3b (both
-     parities) bit for bit their plain versions (K3a's div within 4 ulp /
-     1e-12 of its scale: past two layers the plain version's torch.sum
-     adds in an order of its own), K7-fb, K7-split and K7-proj on 2 x 2
-     shards bit for bit the single-device kernels, each kernel's time
-     between CUDA events and on the device beside its plain version's;
-     the same checks at 512^2 f64 with 16 layers; at nz 8 f32, where
-     every route builds, the routes forced by the plans' own parameter
-     bit for bit the shared-memory route for K1, K1s and K3a / K3b, both
-     timed, 2 steps each of K1 and of the split step on the forced route
-     (their paths), and one step of K7-split on the forced route on 2 x 2
-     shards (its path), bit for bit K1s on that route; the bounds of
-     K1s's spill kernels at nz 32.  `python3 chip_smoke.py --layers` runs
-     this phase alone,
-     after its builds.
+     and K3a / K3b (31): K1 and both projection phases stream their layers
+     through a few shared-memory planes of one layer (K1 two launches per
+     step, the continuity and the momentum), on one device and, for the
+     projection, on the shards too (K7-proj); K7-fb's body takes the spill
+     route (its planes in device memory).  Paths, each with the counts set
+     to 0 just before and read just after: run() with backend='fused', 100
+     steps, diagnostics every 50 (finite; K1's two streamed kernels once
+     per step), run() of the implicit free surface 3 steps (K3a and K3b
+     layer-streamed), and both again on 2 x 2 shards of the card (K7-fb,
+     K7-proj streamed); the implicit free surface at 512^2 f64 with 16
+     layers, on one device and on 2 x 2 shards.  Then K1 (both parities;
+     its continuity's h1 and its momentum's u, v each held and each kernel
+     timed on the device beside the plain continuity and the plain
+     momentum with finalize), K1s at nsub 8 on its plan's route (route 3,
+     its three kernels and the step) and K3a / K3b (both parities) bit for
+     bit their plain versions (K3a's div within 4 ulp / 1e-12 of its
+     scale: past two layers the plain version's torch.sum adds in an order
+     of its own), K7-fb, K7-split and K7-proj on 2 x 2 shards bit for bit
+     the single-device kernels, and K7-proj as two cards' stacks of the
+     card (the BEOM_CARDS build) bit for bit the one-stack route, each
+     kernel's time between CUDA events and on the device beside its plain
+     version's; the same checks at 512^2 f64 with 16 layers, K3a / K3b and
+     K7-proj timed there too; at nz 8 f32, where every route builds, the
+     routes forced by the plans' own parameter bit for bit the
+     shared-memory route for K1, K1s and K3a / K3b, both timed, 2 steps
+     each of K1 and of the split step on the forced route (their paths),
+     and one step of K7-split on the forced route on 2 x 2 shards (its
+     path), bit for bit K1s on that route; the bounds of K1s's spill
+     kernels at nz 32.  `python3 chip_smoke.py --layers` runs this phase
+     alone, after its builds.
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
@@ -3937,10 +3940,10 @@ def cards_phase(dev, smi):
 
 # phase 28: the shelf at full width with many layers and constituents.
 # 2048^2 f32 at 32 layers is past K1's wall of 24 layers under wet/dry and
-# K3a / K3b's of 32 (K1 and K3b layer-streamed, K3a and K7's bodies on the
-# spill route); 512^2 f64 at 16 layers past K1's 13 and K3a / K3b's 16
-# (the time limit cuts the f64 grid); nz 8 f32, where every route builds,
-# holds the routes forced by the plans' own parameter against the
+# K3a / K3b's of 32 (K1, K3a and K3b layer-streamed, K7-proj too, K7-fb's
+# body on the spill route); 512^2 f64 at 16 layers past K1's 13 and K3a /
+# K3b's 16 (the time limit cuts the f64 grid); nz 8 f32, where every route
+# builds, holds the routes forced by the plans' own parameter against the
 # shared-memory route
 LAYERS28 = 32
 TIDES28 = 13
@@ -4023,6 +4026,10 @@ def layers_specs():
             m = pmesh.make_mesh(*MESH28, devices=["cpu"])
             if mesh:
                 specs |= dist_band.build_specs(cfg, cfg.tdtype, m, dmask=dm)
+                if scheme == "implicit_fs":
+                    # K7-proj as two cards' stacks
+                    specs |= dist_band.build_specs(cfg, cfg.tdtype, m,
+                                                   dmask=dm, cards=True)
             elif scheme == "split":
                 # K7-split on the forced route
                 specs |= dist_band.build_specs(cfg, cfg.tdtype, m,
@@ -4030,23 +4037,26 @@ def layers_specs():
     return specs
 
 
-def layers_leg(dev, smi, nz, dtype, n, timed):
+def layers_leg(dev, smi, nz, dtype, n, timed, timed_proj=False,
+               cards=False):
     """Phase 28's checks of one leg (nz layers at n^2): K1's layer-streamed
     kernels, K1s's layer-streamed slow phase and recomposition (route 3),
-    and K3a / K3b's single-step kernels (K3a on the spill route, K3b
-    layer-streamed), each bit for bit its plain version (both sweep
-    parities where the kernel takes one), their plans printed, and K7-fb,
-    K7-split and K7-proj on a 2 x 2 mesh of shards of the card (K7-split's
-    bodies in shared memory on the tile that fits, the others on the spill
-    route) bit for bit the single-device kernels.  With `timed`, each
-    kernel's time between CUDA events and on the device beside its plain
-    version's (K1's step, both launches, between events; its two kernels
-    each on the device, beside the plain continuity and the plain momentum
-    and finalize; K1s's recomposition, both launches, between events and
-    each on the device).  Returns {kernel: (err, (ms, plain_ms), device
-    ms)} of the timed kernels (K1s's recomposition: its kernels' device
-    times by name), and under "fb_parts" {K1's kernel: (err, device ms,
-    plain part's ms)}."""
+    and K3a / K3b layer-streamed, each bit for bit its plain version (K3a's
+    div within 4 ulp / 1e-12 of its scale; both sweep parities where the
+    kernel takes one), their plans printed, and K7-fb, K7-split and
+    K7-proj on a 2 x 2 mesh of shards of the card (K7-split's bodies in
+    shared memory on the tile that fits, K7-fb's on the spill route,
+    K7-proj's layer-streamed) bit for bit the single-device kernels; with
+    `cards`, K7-proj also as two cards' stacks (the BEOM_CARDS build) bit
+    for bit the one-stack route.  With `timed` (`timed_proj`: the
+    projection's kernels alone), each kernel's time between CUDA events
+    and on the device beside its plain version's (K1's step, both
+    launches, between events; its two kernels each on the device, beside
+    the plain continuity and the plain momentum and finalize; K1s's
+    recomposition, both launches, between events and each on the device).
+    Returns {kernel: (err, (ms, plain_ms), device ms)} of the timed kernels
+    (K1s's recomposition: its kernels' device times by name), and under
+    "fb_parts" {K1's kernel: (err, device ms, plain part's ms)}."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
@@ -4160,9 +4170,8 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
     statics = (grid, forcing)
     ph = fp.Phases(grid, forcing, cfg)
     print(f"   K3a / K3b {tag}: {ph.plan.describe()}")
-    if not (ph.plan.spill and ph.plan.a is None and ph.plan.stream_b):
-        raise AssertionError(f"K3a / K3b {tag} are not on the spill route "
-                             "and layer-streamed")
+    if not (ph.plan.stream_a and ph.plan.stream_b):
+        raise AssertionError(f"K3a / K3b {tag} are not layer-streamed")
     p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev) * grid.mask
     # div's layer sum: the kernel adds the layers from the surface, the
     # plain version's torch.sum in an order of its own past two layers,
@@ -4181,9 +4190,9 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
                           a_ref[2:], lambda r: near * float(
                               r.abs().max())))
         err_b = agree(f"K3b {tag} n={par} vs plain", b, b_ref, None)
-    if timed:
+    if timed or timed_proj:
         ms_a = time_pair(
-            f"K3a {tag} (spill route)",
+            f"K3a {tag} (layer-streamed)",
             lambda: fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg),
             lambda: ph.a(st.h, st.u, st.v, 0), 2, 10)
         ms_b = time_pair(
@@ -4194,8 +4203,8 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
         dev_ms = device_ms(f"K3a / K3b {tag}", lambda: (
             ph.a(st.h, st.u, st.v, 0), ph.b(st.h, a_ref[0], a_ref[1], p,
                                             st.t)), 5,
-            {"proj_a_kernel": 1, "proj_b_layers_kernel": 1})
-        out["proj_a"] = (err_a, ms_a, dev_ms["proj_a_kernel"])
+            {"proj_a_layers_kernel": 1, "proj_b_layers_kernel": 1})
+        out["proj_a"] = (err_a, ms_a, dev_ms["proj_a_layers_kernel"])
         out["proj_b"] = (err_b, ms_b, dev_ms["proj_b_layers_kernel"])
     del statics, grid, forcing, st, ph, a, b, a_ref, b_ref
     torch.cuda.empty_cache()
@@ -4244,14 +4253,19 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
 
             (a7, b7), (a1, b1) = seven(), one()
             torch.cuda.synchronize()
-            err7 = agree(f"K7-proj A {tag} vs K3a", gather(a7), a1, None)
-            agree(f"K7-proj B {tag} vs K3b", gather(b7), b1, None)
-            keys = {"shard_pa_kernel": 1, "shard_pb_kernel": 1,
-                    "proj_a_kernel": 1, "proj_b_layers_kernel": 1}
+            err7 = agree(f"K7-proj A {tag} (layer-streamed) vs K3a", gather(
+                a7), a1, None)
+            agree(f"K7-proj B {tag} (layer-streamed) vs K3b", gather(b7), b1,
+                  None)
+            if cards:
+                proj_two_cards(K, statics, cfg, m, f, ps, st.t, a7, b7, tag)
+            keys = {"shard_pal_kernel": 1, "shard_pbl_kernel": 1,
+                    "proj_a_layers_kernel": 1, "proj_b_layers_kernel": 1}
             # each phase alone, for its row
             parts = {"A": lambda: K.proj_a(*f, 0),
                      "B": lambda: K.proj_b(f[0], a7[0], a7[1], ps, st.t)}
-        if timed:
+        timing7 = timed or (timed_proj and scheme == "implicit_fs")
+        if timing7:
             ms7 = time_ms(seven, 5)
             ms1 = time_ms(one, 5)
             dev_ms = device_ms(f"K7-{scheme} {tag} and the single-device "
@@ -4271,12 +4285,53 @@ def layers_leg(dev, smi, nz, dtype, n, timed):
     return out
 
 
+def proj_two_cards(K1, statics, cfg, m, one, p1, t, a1, b1, tag):
+    """K7-proj over two cards' stacks of the one card (the build with
+    BEOM_CARDS = 1, the second card on a side stream), the 2 x 2 mesh m
+    split along x: phase A from the one-stack route's fields `one` and
+    phase B from its u*, v* and p1, bit for bit the one-stack route's a1,
+    b1 (K1's), one launch per card and phase, each counted as
+    streamed."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel.mesh import card_groups
+    from beom_tpu_torch.stencils import dist_band
+
+    cards = [dataclasses.replace(c, device=m.devices[0])
+             for c in card_groups(["a", "b"] * 2, 2, 2)]
+    K2 = dist_band.MeshKernels(statics, cfg, m, cards=cards)
+    if not K2.plan.streamed:
+        raise AssertionError(f"K7-proj {tag} over two cards is not "
+                             "layer-streamed")
+    two = [K2.stack(K1.unstack(a, m)) for a in one]
+    p2 = K2.stack(K1.unstack(p1, m))
+    us, vs = (K2.stack(K1.unstack(a, m)) for a in a1[:2])
+    saved = dict(dist_band.STREAM_LAUNCHES)
+    dist_band.STREAM_LAUNCHES.update(dict.fromkeys(saved, 0))
+    a2 = K2.proj_a(*two, 0)
+    b2 = K2.proj_b(two[0], us, vs, p2, t)
+    torch.cuda.synchronize()
+    counts = dict(dist_band.STREAM_LAUNCHES)
+    dist_band.STREAM_LAUNCHES.update(saved)
+    if counts != {"proj_a": 2, "proj_b": 2}:
+        raise AssertionError(f"K7-proj {tag} over two cards: streamed "
+                             f"launches {counts}")
+    g1 = lambda fields: [pmesh.gather(K1.unstack(a, m)) for a in fields]
+    g2 = lambda fields: [pmesh.gather(K2.unstack(a, m)) for a in fields]
+    agree(f"K7-proj A {tag}, two cards (BEOM_CARDS) vs one stack", g2(a2),
+          g1(a1), None)
+    agree(f"K7-proj B {tag}, two cards (BEOM_CARDS) vs one stack", g2(b2),
+          g1(b1), None)
+    print(f"   K7-proj {tag} over two cards: streamed launches {counts}")
+
+
 def both_routes(dev, smi, nz):
     """Phase 28's last leg: at nz layers (2048^2 f32), where every route
     builds, the routes off shared memory forced by the plans' own
     parameter (fused_fb.plan, split_plan, fused_projection.plan,
-    dist_band.mesh_plan: K1, K3b and the split step layer-streamed, K3a
-    and K7 on the spill route) bit for bit the shared-memory route, each
+    dist_band.mesh_plan: K1, K3a, K3b and the split step layer-streamed,
+    K7-split on the spill route) bit for bit the shared-memory route, each
     timed beside it; and three paths through the forced routes, their
     kernels' counts read from 0: 2 steps of K1 and of the split step, and
     one of K7-split on 2 x 2 shards of the card, bit for bit the
@@ -4438,8 +4493,9 @@ def both_routes(dev, smi, nz):
                       phase_plan=fp.PhasePlan(None, None, False))
     print(f"   K3a / K3b {tag}, forced: {forced.plan.describe()}; beside "
           f"the single-step kernels of the shared-memory route")
-    if not forced.plan.stream_b:
-        raise AssertionError(f"K3b {tag} forced is not layer-streamed")
+    if not (forced.plan.stream_a and forced.plan.stream_b):
+        raise AssertionError(f"K3a / K3b {tag} forced are not "
+                             "layer-streamed")
     p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev) * grid.mask
     for par in (0, 1):
         a, a1 = forced.a(st.h, st.u, st.v, par), usual.a(st.h, st.u, st.v,
@@ -4447,12 +4503,12 @@ def both_routes(dev, smi, nz):
         b = forced.b(st.h, a1[0], a1[1], p, st.t)
         b1 = usual.b(st.h, a1[0], a1[1], p, st.t)
         torch.cuda.synchronize()
-        agree(f"K3a {tag} n={par}: the spill route vs the shared-memory "
-              "route", a, a1, None)
+        agree(f"K3a {tag} n={par}: the layer-streamed route vs the "
+              "shared-memory route", a, a1, None)
         agree(f"K3b {tag} n={par}: the layer-streamed route vs the "
               "shared-memory route", b, b1, None)
-    time_pair(f"K3a {tag} shared-memory route (as 'plain') vs the spill "
-              "route", lambda: usual.a(st.h, st.u, st.v, 0),
+    time_pair(f"K3a {tag} shared-memory route (as 'plain') vs the "
+              "layer-streamed route", lambda: usual.a(st.h, st.u, st.v, 0),
               lambda: forced.a(st.h, st.u, st.v, 0), 10, 10)
     time_pair(f"K3b {tag} shared-memory route (as 'plain') vs the "
               "layer-streamed route", lambda: usual.b(st.h, a1[0], a1[1], p,
@@ -4471,10 +4527,11 @@ def layers_paths(dev, smi):
     per step), run() of the split scheme (nsub 8, 10 steps, diagnostics
     every 5: K1s's layer-streamed slow phase and recomposition, four
     launches per step), run() of the implicit free surface (3 steps: K3a
-    on the spill route and K3b layer-streamed around K6), and the fb and
-    implicit-FS paths on a 2 x 2 mesh of shards of the card (10 and 3
-    steps: K7-fb, K7-proj, on the spill route).  Returns the counts by
-    path."""
+    and K3b layer-streamed around K6), and the fb and implicit-FS paths on
+    a 2 x 2 mesh of shards of the card (10 and 3 steps: K7-fb on the spill
+    route, K7-proj layer-streamed); and the implicit free surface at
+    N28_F64^2 f64 with LAYERS28_F64 layers, on one device and on 2 x 2
+    shards (3 steps each).  Returns the counts by path."""
     import torch
 
     from beom_tpu_torch.run import run
@@ -4482,19 +4539,25 @@ def layers_paths(dev, smi):
     from beom_tpu_torch.stencils import fused_projection as fp
 
     counts = {}
-    for label, scheme, kw, n_steps in (
-            ("fb", "fb", {}, 100),
-            ("split", "split", dict(nsub=8), 10),
-            ("implicit FS", "implicit_fs", dict(precond="jacobi"), 3),
-            ("fb on 2 x 2 shards", "fb", dict(mesh_y=2, mesh_x=2), 10),
+    f32 = (LAYERS28, "float32", BIG)
+    f64 = (LAYERS28_F64, "float64", N28_F64)
+    for label, scheme, kw, n_steps, (nz, dtype, n) in (
+            ("fb", "fb", {}, 100, f32),
+            ("split", "split", dict(nsub=8), 10, f32),
+            ("implicit FS", "implicit_fs", dict(precond="jacobi"), 3, f32),
+            ("fb on 2 x 2 shards", "fb", dict(mesh_y=2, mesh_x=2), 10, f32),
             ("implicit FS on 2 x 2 shards", "implicit_fs",
-             dict(precond="jacobi", mesh_y=2, mesh_x=2), 3)):
+             dict(precond="jacobi", mesh_y=2, mesh_x=2), 3, f32),
+            ("implicit FS f64", "implicit_fs", dict(precond="jacobi"), 3,
+             f64),
+            ("implicit FS f64 on 2 x 2 shards", "implicit_fs",
+             dict(precond="jacobi", mesh_y=2, mesh_x=2), 3, f64)):
         cfg, grid, forcing, st = layers_case(
-            dev, 34, LAYERS28, "float32", BIG, scheme=scheme,
+            dev, 34, nz, dtype, n, scheme=scheme,
             backend="fused", diag_every=min(50, n_steps // 2), **kw)
         counters = (fused_fb.STREAM_LAUNCHES, fused_fb.SPLIT_LAUNCHES,
-                    fp.SPILL_LAUNCHES, fp.STREAM_LAUNCHES,
-                    dist_band.SPILL_LAUNCHES)
+                    fp.STREAM_LAUNCHES, dist_band.SPILL_LAUNCHES,
+                    dist_band.STREAM_LAUNCHES)
         saved = [dict(c) for c in counters] + [fused_fb.LAUNCHES]
         for c in counters:
             c.update(dict.fromkeys(c, 0))
@@ -4513,11 +4576,11 @@ def layers_paths(dev, smi):
                "K1s recompose": fused_fb.SPLIT_LAUNCHES["recompose"],
                "K1s slow stream": fused_fb.STREAM_LAUNCHES["split_slow"],
                "K1s rec stream": fused_fb.STREAM_LAUNCHES["split_recompose"],
-               "K3a spill": fp.SPILL_LAUNCHES["proj_a"],
+               "K3a stream": fp.STREAM_LAUNCHES["proj_a"],
                "K3b stream": fp.STREAM_LAUNCHES["proj_b"],
                "K7-fb spill": dist_band.SPILL_LAUNCHES["fb"],
-               "K7-proj A spill": dist_band.SPILL_LAUNCHES["proj_a"],
-               "K7-proj B spill": dist_band.SPILL_LAUNCHES["proj_b"]}
+               "K7-proj A stream": dist_band.STREAM_LAUNCHES["proj_a"],
+               "K7-proj B stream": dist_band.STREAM_LAUNCHES["proj_b"]}
         for c, v in zip(counters, saved):
             c.update(v)
         fused_fb.LAUNCHES = saved[-1]
@@ -4528,11 +4591,11 @@ def layers_paths(dev, smi):
                 ("split", False): dict.fromkeys(
                     ("K1s slow", "K1s subcycle", "K1s recompose",
                      "K1s slow stream", "K1s rec stream"), n_steps),
-                ("implicit_fs", False): {"K3a spill": n_steps,
+                ("implicit_fs", False): {"K3a stream": n_steps,
                                          "K3b stream": n_steps},
                 ("fb", True): {"K7-fb spill": n_steps},
-                ("implicit_fs", True): {"K7-proj A spill": n_steps,
-                                        "K7-proj B spill": n_steps}}[
+                ("implicit_fs", True): {"K7-proj A stream": n_steps,
+                                        "K7-proj B stream": n_steps}}[
             scheme, mesh]
         if any(got[k] != v for k, v in want.items()) or any(
                 v for k, v in got.items() if k not in want):
@@ -4551,20 +4614,20 @@ def layers_paths(dev, smi):
 
 def layers_phase(dev, smi):
     """Phase 28: every fused kernel at any number of layers and tidal
-    constituents; returns the JSON entries of the layer-streamed and the
-    spill route's kernels."""
+    constituents; returns the JSON entries of the layer-streamed kernels
+    and of K7's on the spill route."""
     import torch
 
     phase(f"28 many layers: the shelf at {BIG}^2 f32 with {LAYERS28} layers "
           f"and {TIDES28} constituents, {N28_F64}^2 f64 with {LAYERS28_F64},"
           f" and both routes at {BIG}^2 f32 nz={BOTH28} ({smi})")
     counts = layers_paths(dev, smi)
-    timed = layers_leg(dev, smi, LAYERS28, "float32", BIG, True)
-    layers_leg(dev, smi, LAYERS28_F64, "float64", N28_F64, False)
+    timed = layers_leg(dev, smi, LAYERS28, "float32", BIG, True, cards=True)
+    timed64 = layers_leg(dev, smi, LAYERS28_F64, "float64", N28_F64, False,
+                         timed_proj=True, cards=True)
     forced = both_routes(dev, smi, BOTH28)
     cfg = layers_case("cpu", 0, LAYERS28, "float32", 16)[0]
     pts = BIG * BIG
-    fa, fb_ = phase_fields(cfg)
     cont, mom = stream_fields(cfg)
     # K1's step, one row: the function is the step, whatever launches the
     # route makes, so its bound is the step's operands once (step_fields);
@@ -4586,16 +4649,15 @@ def layers_phase(dev, smi):
     print(f"   the fb step's bound at nz={LAYERS28} (its operands once): "
           f"{entries[0]['bound_ms']!r} ms; the layer-streamed kernels' own "
           f"bytes, h1 read back by the momentum launch: {own_ms!r} ms")
-    # K3a on the spill route, K3b layer-streamed
-    for key, name, count, n_fields, ops in (
-            ("proj_a", "proj_a_spill", counts["implicit FS"]["K3a spill"],
-             fa, 150),
-            ("proj_b", "proj_b_stream", counts["implicit FS"]["K3b stream"],
-             fb_, 60)):
-        err, ms, dev_ms = timed[key]
-        entries.append(kernel_entry(
-            f"{name}_nz{LAYERS28}", "projection.cu", "band.py:200", count,
-            err, ms, n_fields * pts * 4, ops * cfg.nz * pts, device=dev_ms))
+    # K3a and K3b layer-streamed, and K7-proj's streamed phases on 2 x 2
+    # shards, at 2048^2 f32 and 512^2 f64
+    entries += proj_stream_rows(cfg, timed, counts["implicit FS"],
+                                counts["implicit FS on 2 x 2 shards"], pts,
+                                4, "")
+    cfg64 = layers_case("cpu", 0, LAYERS28_F64, "float64", 16)[0]
+    entries += proj_stream_rows(cfg64, timed64, counts["implicit FS f64"],
+                                counts["implicit FS f64 on 2 x 2 shards"],
+                                N28_F64 * N28_F64, 8, "_f64")
     cfg32 = layers_case("cpu", 0, LAYERS28, "float32", 16, scheme="split")[0]
     for name, n_fields in split_fields(cfg32).items():
         print(f"   K1s / K7-split {name} at nz={LAYERS28}, route 3: bound "
@@ -4607,21 +4669,12 @@ def layers_phase(dev, smi):
                                  pts, "split_step.cu", "band.py:200")
     # K7's rows: its time between events, the plain version of the same
     # function on the same data (the single-device row's), its device time
-    mesh_rows = (("shard_fb", "shard_step", "K7-fb spill", "shard_step_kernel",
-                  "fb_step", step_fields(cfg), 150),
-                 ("shard_proj_a", "shard_proj_a", "K7-proj A spill",
-                  "shard_pa_kernel", "proj_a", fa, 150),
-                 ("shard_proj_b", "shard_proj_b", "K7-proj B spill",
-                  "shard_pb_kernel", "proj_b", fb_, 60))
-    for key, name, count, kernel, one, n_fields, ops in mesh_rows:
-        err, ms, dev_ms = timed[key]
-        path = "fb on 2 x 2 shards" if key == "shard_fb" else \
-            "implicit FS on 2 x 2 shards"
-        src = "shard_step.cu" if key == "shard_fb" else "shard_projection.cu"
-        entries.append(kernel_entry(
-            f"{name}_spill_nz{LAYERS28}", src, "dist_band.py:63",
-            counts[path][count], err, (ms, timed[one][1][1]),
-            n_fields * pts * 4, ops * cfg.nz * pts, device=dev_ms[kernel]))
+    err, ms, dev_ms = timed["shard_fb"]
+    entries.append(kernel_entry(
+        f"shard_step_spill_nz{LAYERS28}", "shard_step.cu", "dist_band.py:63",
+        counts["fb on 2 x 2 shards"]["K7-fb spill"], err,
+        (ms, timed["fb_step"][1][1]), step_fields(cfg) * pts * 4,
+        150 * cfg.nz * pts, device=dev_ms["shard_step_kernel"]))
     # fields moved (split_fields) and operations per point
     cfg8 = layers_case("cpu", 0, BOTH28, "float32", 16, scheme="split")[0]
     nz8 = cfg8.nz
@@ -4641,6 +4694,53 @@ def layers_phase(dev, smi):
             device=dev_ms))
     torch.cuda.synchronize()
     return entries
+
+
+def pal_fields(cfg):
+    """Fields the layer-streamed K3a moves by its design, beyond
+    phase_fields' operands once: the three staggered masks and f, which
+    the reference's band rebuilds, and under the interfacial drag u and v
+    of the layers beside each layer, read again from device memory (4 nz;
+    the halo's points come from the L2)."""
+    rint = cfg.r_int != 0.0 and cfg.nz > 1
+    return phase_fields(cfg)[0] + 4 + 4 * cfg.nz * rint
+
+
+def proj_stream_rows(cfg, timed, one, mesh, pts, elem, suffix):
+    """The JSON rows of the layer-streamed K3a and K3b at cfg.nz layers on
+    pts points of `elem` bytes, and of K7-proj's streamed phases on 2 x 2
+    shards, from layers_leg's `timed` and the launches of the paths `one`
+    (one device) and `mesh` (the shards); each held to its function's
+    operands once (phase_fields), K3a with its design's own bytes
+    (pal_fields) as `design_bytes_ms`; a K7 row's plain time is the
+    single-device row's plain version of the same function."""
+    fa, fb_ = phase_fields(cfg)
+    nz = cfg.nz
+    rows = []
+    for key, src, site, count, kernel, n_fields, ops in (
+            ("proj_a", "projection.cu", "band.py:200", one["K3a stream"],
+             None, fa, 150),
+            ("proj_b", "projection.cu", "band.py:200", one["K3b stream"],
+             None, fb_, 60),
+            ("shard_proj_a", "shard_projection.cu", "dist_band.py:63",
+             mesh["K7-proj A stream"], "shard_pal_kernel", fa, 150),
+            ("shard_proj_b", "shard_projection.cu", "dist_band.py:63",
+             mesh["K7-proj B stream"], "shard_pbl_kernel", fb_, 60)):
+        err, ms, dev_ms = timed[key]
+        if kernel is not None:
+            ms, dev_ms = (ms, timed[key[6:]][1][1]), dev_ms[kernel]
+        extra = None
+        if key.endswith("proj_a"):
+            extra = {"design_bytes_ms": pal_fields(cfg) * pts * elem
+                     / HBM_BYTES_PER_S * 1e3}
+        rows.append(kernel_entry(
+            f"{key}_stream_nz{nz}{suffix}", src, site, count, err, ms,
+            n_fields * pts * elem, ops * nz * pts, device=dev_ms,
+            extra=extra))
+        print(f"   {rows[-1]['name']}: bound {rows[-1]['bound_ms']!r} ms"
+              + (f", the design's own bytes {extra['design_bytes_ms']!r} ms"
+                 if extra else ""))
+    return rows
 
 
 def split_stream_fields(cfg):
@@ -4738,7 +4838,11 @@ def layers_only():
     for i in range(0, len(specs), 16):
         build.build_all(specs[i:i + 16])
     for item in specs:
-        print(f"   {build.label(item)}: {build.BUILD_LOG.get(build.label(item), ('cached',))[0]!r} s")
+        if item[0] in ("projection", "shard_projection"):
+            # the streamed phases' registers and spills
+            print_build(build, build.label(item))
+        else:
+            print(f"   {build.label(item)}: {build.BUILD_LOG.get(build.label(item), ('cached',))[0]!r} s")
     print(json.dumps({"kernels": layers_phase(
         torch.device("cuda", torch.cuda.current_device()), smi)}))
 

@@ -126,9 +126,9 @@ def _spills_from(case, scheme, dtype):
     walls of a CTA's 232,448 bytes: K1 at nz 32 (f32) and 16 (f64), 25 and
     13 under wet/dry; the projection phases at 32 and 16; the split step's
     slow phase and recomposition (nsub 8) past 64 (f32) and at 64 (f64),
-    at 64 and 25 under wet/dry.  There K1, K3b and the split step stream
-    their layers, K3a takes the spill route, and K7's bodies the spill
-    route."""
+    at 64 and 25 under wet/dry.  There K1, K3a, K3b and the split step
+    stream their layers, and K7's bodies take the spill route but for the
+    projection's, which stream too."""
     wd = case in ("coastal_wetdry", "shelf_forced")
     f64 = dtype == "float64"
     if scheme == "fb":
@@ -143,6 +143,10 @@ def _spills_from(case, scheme, dtype):
 # and type: route 3 from 4 layers (fused_fb._STREAM_FROM; route 2, which
 # keeps shared memory, ends below 8 layers)
 STREAMS_FROM = 8
+# the first of LAYERS at which both projection phases stream their layers,
+# on one device and on the shards (from 4 layers: fused_projection.
+# _STREAM_FROM)
+PROJECTION_STREAMS_FROM = 8
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -152,11 +156,12 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
     """For every nz of LAYERS (13 constituents on the shelf), the build
     specs and plans of one device and of a 2 x 2 mesh return a kernel
     route without raising: from the first nz past the single-step kernels'
-    shared-memory wall (pinned) K1 and K3b layer-streamed (BEOM_STREAM),
-    K3a on the spill route (BEOM_SPILL), K7's bodies on the spill route;
-    the split step layer-streamed on one device from nz 8 (pinned, route
-    3); the pass kernel and the staged
-    phases only where they fit, every plan's describe() naming its
+    shared-memory wall (pinned) K1 layer-streamed (BEOM_STREAM), K7's fb
+    and split bodies on the spill route (BEOM_SPILL); the split step
+    layer-streamed on one device from nz 8 (pinned, route 3); both
+    projection phases layer-streamed from nz 8 (pinned) on one device and
+    on the shards, never on the spill route; the pass kernel and the
+    staged phases only where they fit, every plan's describe() naming its
     route."""
     base = make_case(case, nx=64, ny=64, device="cpu", dtype=dtype,
                      scheme=scheme, nsub=8)[0]
@@ -168,18 +173,23 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
     for nz in LAYERS:
         rho = tuple(1020.0 + 0.5 * k for k in range(nz))
         cfg = dataclasses.replace(base, nz=nz, rho=rho)
+        projection = scheme in ("rigid_lid", "implicit_fs")
         spill = first is not None and nz >= first
         stream = scheme == "split" and nz >= STREAMS_FROM
+        pstream = projection and nz >= PROJECTION_STREAMS_FROM
         mp = dist_band.mesh_plan(cfg, cfg.tdtype, mesh)
-        assert mp.spilled == spill, (nz, mp.describe())
-        assert ("spill route" in mp.describe()) == spill, nz
-        assert "layer-streamed" not in mp.describe(), nz
-        if scheme in ("rigid_lid", "implicit_fs"):
+        assert mp.spilled == (spill and not projection), (nz, mp.describe())
+        assert mp.streamed == pstream, (nz, mp.describe())
+        assert ("spill route" in mp.describe()) == (spill and not
+                                                    projection), nz
+        assert ("layer-streamed" in mp.describe()) == pstream, nz
+        if projection:
             pl = fused_projection.plan(cfg, cfg.tdtype)
-            assert pl.spill == spill and (pl.a is None or not spill)
-            assert pl.stream_b == spill
-            assert ("layer-streamed" in pl.describe()) == spill
-            if spill:
+            assert pl.stream == pstream and (pl.a is None or not pstream)
+            assert pl.stream_a == pl.stream_b == pstream
+            assert ("layer-streamed" in pl.describe()) == pstream
+            assert not spill or pstream
+            if pstream:
                 assert pl.a is None and pl.b is None and not pl.rhs
             name, defines = fused_projection.build_spec(cfg, cfg.tdtype,
                                                         pl, True)
@@ -198,24 +208,25 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
                 assert ("layer-streamed" in sp.describe()) == stream
                 assert "spill route" not in sp.describe()
             name, defines = fused_fb.build_spec(cfg, cfg.tdtype)
-        projection = scheme in ("rigid_lid", "implicit_fs")
-        assert ("BEOM_SPILL=1" in defines) == (spill and projection), \
-            (nz, defines)
+        assert "BEOM_SPILL=1" not in defines, (nz, defines)
         assert ("BEOM_STREAM=1" in defines) == (
-            stream if scheme == "split" else spill), (nz, defines)
+            stream if scheme == "split" else pstream if projection
+            else spill), (nz, defines)
         assert f"BEOM_NZ={nz}" in defines
         for cards in (False, True):
             for m in set(mp.fb_launches(4)) if scheme == "fb" else {1}:
                 _, d = dist_band.build_spec(cfg, cfg.tdtype, m, True, cards)
-                assert ("BEOM_SPILL=1" in d) == (spill and m == 1)
-                assert "BEOM_STREAM=1" not in d
+                assert ("BEOM_SPILL=1" in d) == (spill and m == 1
+                                                 and not projection)
+                assert ("BEOM_STREAM=1" in d) == pstream
 
 
 def test_forced_spill_route_where_both_build():
     """The plans' own parameter takes the routes off shared memory where
-    the shared-memory route builds too (nz 8 f32 on the shelf): K1, K3b
-    and the split step layer-streamed, K3a and K7 on the spill route; the
-    builds differ only in the switch and the tile."""
+    the shared-memory route builds too (nz 8 f32 on the shelf): K1, K3a,
+    K3b and the split step layer-streamed, K7's fb and split bodies on the
+    spill route, K7-proj streamed; the builds differ only in the switch
+    and the tile."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32")[0]
     cfg = dataclasses.replace(cfg, nz=8, rho=tuple(1020.0 + k
@@ -236,10 +247,26 @@ def test_forced_spill_route_where_both_build():
     assert "BEOM_SPILL=1" in fused_fb.build_spec(cfg, torch.float32,
                                                  off_smem=True,
                                                  shard=True)[1]
-    ph = fused_projection.plan(dataclasses.replace(cfg, scheme="rigid_lid"),
-                               torch.float32, True)
+    rigid = dataclasses.replace(cfg, scheme="rigid_lid")
+    ph = fused_projection.plan(rigid, torch.float32, True)
     assert ph == fused_projection.PhasePlan(None, None, False, True)
-    assert ph.stream_b
+    assert ph.stream_a and ph.stream_b
+    # the phases stream at nz 8 by their plan; a plan that says not builds
+    # the single-step kernels in shared memory, which fit there
+    assert fused_projection.plan(rigid, torch.float32) == ph
+    single = fused_projection.PhasePlan(None, None, False)
+    a = dict(d.split("=") for d in fused_projection.build_spec(
+        rigid, torch.float32, single)[1])
+    b = dict(d.split("=") for d in fused_projection.build_spec(
+        rigid, torch.float32, ph)[1])
+    assert b.pop("BEOM_STREAM") == "1" and "BEOM_SPILL" not in a
+    assert (int(a["BEOM_TX"]), int(a["BEOM_TY"])) \
+        == fused_projection.single_tile(rigid, torch.float32)[0]
+    assert {k: v for k, v in a.items() if k not in ("BEOM_TX", "BEOM_TY")} \
+        == {k: v for k, v in b.items() if k not in ("BEOM_TX", "BEOM_TY")}
+    # K7-proj streams too, never spills
+    d = dist_band.build_spec(rigid, torch.float32, off_smem=True)[1]
+    assert "BEOM_STREAM=1" in d and "BEOM_SPILL=1" not in d
     split_cfg = dataclasses.replace(cfg, scheme="split", nsub=8)
     split = fused_fb.split_plan(split_cfg, torch.float32, True)
     assert split.stream and "layer-streamed" in split.describe()
@@ -268,8 +295,9 @@ def test_spill_false_lets_the_plan_choose(scheme):
     plans leave shared memory where no tile fits (nz 32 f32 on the shelf,
     past every single-step wall but the split step's; K1 layer-streamed,
     the split step layer-streamed on its 8 x 8 tile, K7's split bodies in
-    shared memory), and off_smem=True forces it; no plan raises for want
-    of a tile."""
+    shared memory, both projection phases streamed on one device and on
+    the shards), and off_smem=True forces it; no plan raises for want of
+    a tile."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32", scheme=scheme, nsub=8)[0]
     cfg = dataclasses.replace(cfg, nz=32, rho=tuple(1020.0 + 0.5 * k
@@ -279,11 +307,15 @@ def test_spill_false_lets_the_plan_choose(scheme):
     chosen = scheme != "split"
     for off in (False, True):
         want = chosen or off
-        assert dist_band.mesh_plan(cfg, f32, mesh, off).spilled == want
+        mp = dist_band.mesh_plan(cfg, f32, mesh, off)
         if scheme in ("rigid_lid", "implicit_fs"):
-            assert fused_projection.plan(cfg, f32, off).spill == want
+            assert mp.streamed == want and not mp.spilled
+            assert fused_projection.plan(cfg, f32, off).stream == want
             assert fused_projection.single_tile(cfg, f32, off)[1] == want
+            assert ("BEOM_STREAM=1" in dist_band.build_spec(
+                cfg, f32, off_smem=off)[1]) == want
             continue
+        assert mp.spilled == want
         assert fused_fb.single_tile(cfg, f32, off)[1] == want
         assert ("BEOM_SPILL=1" in fused_fb.build_spec(
             cfg, f32, off_smem=off, shard=True)[1]) == want

@@ -94,7 +94,8 @@ with how many of its launches torch.profiler saw; a kernel it saw none
 of is null, not measured), with digests of the outputs (equal digests:
 bitwise equal results across the trees); run() at nz 32, fb (20 steps)
 and implicit FS (3 steps), in ms per step after a run not timed; the
-split leg (split_report); and the code report.
+split leg (split_report); the projection leg (projection_report); and the
+code report.
 
     python3 tools/kernel_times.py ROOT --layers split
 
@@ -108,6 +109,30 @@ CUDA events and on the device (summed over the route's kernels), with
 digests of their outputs (equal digests: the routes agree bit for bit),
 and run()'s split ms per step at each f32 nz (10 steps after a run not
 timed); and the code report.
+
+    python3 tools/kernel_times.py ROOT --layers projection
+
+times only the projection leg of --layers (projection_report): K3a and
+K3b on the shelf at 2048^2 under the implicit free surface with 13
+constituents, f32 at nz 2, 4, 8, 16 and 32 and f64 at nz 2, 4, 8 and
+16, on the route the plan takes and on the checkout's other route (the
+layer-streamed and the shared-memory routes where both build; before
+the streamed K3a, the route the plan's own parameter forces), each
+between CUDA events and on the device, with digests of their outputs;
+K7-proj's phases on 2 x 2 shards at f32 nz 8 on both routes (all of
+each call's launches on the device, key "shard_p"); and run()'s
+implicit-FS ms per step at f32 nz 32 on one device and on 2 x 2 shards
+(10 steps after a run not timed); and the code report.  Its times set
+fused_projection._STREAM_FROM.
+
+    python3 tools/kernel_times.py ROOT --layers tiles
+
+times the layer-streamed K3a and K3b (one build, one tile) of a checkout
+that streams them, on the shelf at 2048^2 under the implicit free
+surface, f32 nz 32 and f64 nz 16, at each tile of TILES with 256 threads
+per CTA (tiles_report), each phase between CUDA events and on the device,
+with digests (equal digests: the tiles agree bit for bit); and the code
+report.
 """
 
 from __future__ import annotations
@@ -412,7 +437,211 @@ def split_report(sm, dev, out, digest, kernels) -> None:
         torch.cuda.empty_cache()
 
 
-def layers_report(sm, dev, out, digest, only_split: bool = False) -> None:
+def projection_report(sm, dev, out, digest, kernels) -> None:
+    """The projection leg of --layers: K3a and K3b on phase 28's shelf at
+    2048^2 under the implicit free surface (13 constituents), f32 at nz 2,
+    4, 8, 16 and 32 and f64 at nz 2, 4, 8 and 16, on the route the plan
+    takes and on the checkout's other route (streamed against shared
+    memory where both build; before the streamed K3a, the route the
+    plan's own parameter forces, K3a on the spill route), each phase
+    between CUDA events and on the device, with digests (equal digests:
+    the routes agree bit for bit); K7-proj's phases on 2 x 2 shards at f32
+    nz 8 on both routes; run()'s implicit-FS ms/step at f32 nz 32 on one
+    device and on 2 x 2 shards (10 steps after one not timed).
+    `kernels(keys, fn, label, n)` times a call (layers_report's)."""
+    import contextlib
+
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import build, dist_band
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    # the change's plan streams from a layer count: with it lifted the
+    # plans take shared memory wherever a tile fits
+    streams = hasattr(fp, "_STREAM_FROM")
+
+    def clear():
+        fp.plan.cache_clear()
+        dist_band._mesh_plan.cache_clear()
+        dist_band._entry.cache_clear()
+
+    @contextlib.contextmanager
+    def in_smem():
+        saved = fp._STREAM_FROM
+        fp._STREAM_FROM = 1 << 30
+        clear()
+        try:
+            yield
+        finally:
+            fp._STREAM_FROM = saved
+            clear()
+
+    def routes(cfg):
+        # [(route, PhasePlan)]: the plan's, then the other where it builds
+        pl = fp.plan(cfg, cfg.tdtype)
+        if not streams:
+            return [("plan", pl)] + ([] if pl.spill else [
+                ("forced", fp.plan(cfg, cfg.tdtype, True))])
+        streamed = ("streamed", fp.plan(cfg, cfg.tdtype, True))
+        if fp.single_tile(cfg, cfg.tdtype)[1]:
+            return [streamed]
+        with in_smem():
+            shared = ("shared memory", fp.plan(cfg, cfg.tdtype))
+        return [shared, streamed]
+
+    m = pmesh.make_mesh(2, 2, devices=["cpu"])
+    legs = [(nz, "float32") for nz in (2, 4, 8, 16, 32)] \
+        + [(nz, "float64") for nz in (2, 4, 8, 16)]
+    specs = []
+    for nz, dtype in legs:
+        cfg, grid = sm.layers_case("cpu", 0, nz, dtype, 64,
+                                   scheme="implicit_fs",
+                                   precond="jacobi")[:2]
+        dm = fp.derived_masks(grid)
+        specs += [fp.build_spec(cfg, cfg.tdtype, pl, dm)
+                  for _, pl in routes(cfg)]
+        if (nz, dtype) in ((8, "float32"), (32, "float32")):
+            specs += sorted(dist_band.build_specs(cfg, cfg.tdtype, m, dm))
+            if streams and nz == 8:
+                with in_smem():
+                    specs += sorted(dist_band.build_specs(cfg, cfg.tdtype,
+                                                          m, dm))
+    build.build_all(["cg_jacobi"] + sorted(set(specs)))
+
+    for nz, dtype in legs:
+        cfg, grid, forcing, st = sm.layers_case(
+            dev, 30, nz, dtype, N, scheme="implicit_fs", precond="jacobi")
+        statics = (grid, forcing)
+        gen = torch.Generator(device=dev).manual_seed(30)
+        p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev,
+                        generator=gen) * grid.mask
+        us, vs, _ = fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg)
+        n = 10 if nz > 8 else 20
+        for route, pl in routes(cfg):
+            tag = ("" if dtype == "float32" else "f64 ") + f"nz {nz}, {route}"
+            ph = fp.Phases(grid, forcing, cfg, phase_plan=pl)
+            out[f"K3 {tag} plan"] = pl.describe()
+            key_a, key_b = ph.kernel_keys()
+            phase_a = lambda: ph.a(st.h, st.u, st.v, 0)
+            phase_b = lambda: ph.b(st.h, us, vs, p, st.t)
+            out[f"K3a {tag} digest"] = digest(*phase_a())
+            out[f"K3b {tag} digest"] = digest(*phase_b())
+            kernels((key_a,), phase_a, f"K3a {tag}", n)
+            kernels((key_b,), phase_b, f"K3b {tag}", n)
+            del ph
+        if (nz, dtype) == (8, "float32"):
+            mesh = pmesh.make_mesh(2, 2, devices=[dev])
+            f = [dist_band.stack_global(a, mesh) for a in (st.h, st.u, st.v)]
+            ps = dist_band.stack_global(p, mesh)
+            for route in ("shared memory", "streamed") if streams \
+                    else ("plan",):
+                ctx = in_smem() if route == "shared memory" \
+                    else contextlib.nullcontext()
+                with ctx:
+                    K = dist_band.MeshKernels(statics, cfg, mesh)
+                    tag = f"nz {nz}, {route}"
+                    out[f"K7-proj {tag} plan"] = K.plan.describe()
+                    a7 = K.proj_a(*f, 0)
+                    phase_a = lambda: K.proj_a(*f, 0)
+                    phase_b = lambda: K.proj_b(f[0], a7[0], a7[1], ps, st.t)
+                    out[f"K7-proj A {tag} digest"] = digest(*[
+                        pmesh.gather(dist_band.unstack(a, mesh))
+                        for a in phase_a()])
+                    out[f"K7-proj B {tag} digest"] = digest(*[
+                        pmesh.gather(dist_band.unstack(a, mesh))
+                        for a in phase_b()])
+                    kernels(("shard_p",), phase_a, f"K7-proj A {tag}", n)
+                    kernels(("shard_p",), phase_b, f"K7-proj B {tag}", n)
+                    del K, a7
+            del f, ps
+        del cfg, grid, forcing, st, statics, us, vs, p
+        torch.cuda.empty_cache()
+
+    for label, kw in (("one device", {}),
+                      ("2 x 2 shards", dict(mesh_y=2, mesh_x=2))):
+        cfg, grid, forcing, st = sm.layers_case(
+            dev, 34, sm.LAYERS28, "float32", N, scheme="implicit_fs",
+            precond="jacobi", backend="fused", diag_every=10, **kw)
+        st = run(cfg, grid, forcing, st, 1, log=io.StringIO())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run(cfg, grid, forcing, st, 10, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[f"run() implicit_fs nz {sm.LAYERS28} {label} ms/step"] = \
+            (time.perf_counter() - t0) / 10 * 1e3
+        out[f"run() implicit_fs nz {sm.LAYERS28} {label} digest"] = digest(
+            last.h, last.u, last.v)
+        del cfg, grid, forcing, st, last
+        torch.cuda.empty_cache()
+
+
+def tiles_report(sm, dev, out, digest, kernels) -> None:
+    """The tiles leg of --layers: the layer-streamed K3a and K3b (one
+    build, one tile) on phase 28's shelf at 2048^2 under the implicit free
+    surface, f32 nz 32 and f64 nz 16, at each tile of TILES (256 threads
+    per CTA), each phase between CUDA events and on the device, with
+    digests (equal digests: the tiles agree bit for bit)."""
+    import torch
+
+    from beom_tpu_torch.stencils import build
+    from beom_tpu_torch.stencils import fused_projection as fp
+
+    plan_tile = fp.single_tile
+
+    def at(tile):
+        # the streamed build's tile taken as `tile`
+        fp.single_tile = lambda cfg, dtype=None, off_smem=False: \
+            (tile, True) if off_smem else plan_tile(cfg, dtype, off_smem)
+        fp._entries.cache_clear()
+
+    legs = ((32, "float32"), (16, "float64"))
+    specs = []
+    for tile in TILES:
+        at(tile)
+        for nz, dtype in legs:
+            cfg, grid = sm.layers_case("cpu", 0, nz, dtype, 64,
+                                       scheme="implicit_fs",
+                                       precond="jacobi")[:2]
+            specs.append(fp.build_spec(cfg, cfg.tdtype,
+                                       fp.plan(cfg, cfg.tdtype, True),
+                                       fp.derived_masks(grid)))
+    build.build_all(sorted(set(specs)))
+    for nz, dtype in legs:
+        cfg, grid, forcing, st = sm.layers_case(
+            dev, 30, nz, dtype, N, scheme="implicit_fs", precond="jacobi")
+        statics = (grid, forcing)
+        gen = torch.Generator(device=dev).manual_seed(30)
+        p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=dev,
+                        generator=gen) * grid.mask
+        us, vs, _ = fp.proj_a_plain(st.h, st.u, st.v, statics, 0, cfg)
+        for tile in TILES:
+            at(tile)
+            tag = f"{dtype} nz {nz}, tile {tile[0]} x {tile[1]}"
+            ph = fp.Phases(grid, forcing, cfg,
+                           phase_plan=fp.plan(cfg, cfg.tdtype, True))
+            phase_a = lambda: ph.a(st.h, st.u, st.v, 0)
+            phase_b = lambda: ph.b(st.h, us, vs, p, st.t)
+            out[f"K3a {tag} digest"] = digest(*phase_a())
+            out[f"K3b {tag} digest"] = digest(*phase_b())
+            kernels(("proj_a_layers_kernel",), phase_a, f"K3a {tag}", 10)
+            kernels(("proj_b_layers_kernel",), phase_b, f"K3b {tag}", 10)
+            del ph
+        del cfg, grid, forcing, st, statics, us, vs, p
+        torch.cuda.empty_cache()
+    fp.single_tile = plan_tile
+    fp._entries.cache_clear()
+
+
+# the streamed projection build's tiles the tiles leg times (the plan's
+# first)
+TILES = ((32, 16), (32, 8), (64, 8), (48, 16), (32, 32))
+
+
+def layers_report(sm, dev, out, digest, only_split: bool = False,
+                  only_projection: bool = False,
+                  only_tiles: bool = False) -> None:
     """The --layers report of the checkout imported: K1, K3b and K3a on
     phase 28's shelf at 2048^2 f32, as each checkout runs them."""
     import torch
@@ -435,6 +664,12 @@ def layers_report(sm, dev, out, digest, only_split: bool = False) -> None:
 
     if only_split:
         split_report(sm, dev, out, digest, kernels)
+        return
+    if only_projection:
+        projection_report(sm, dev, out, digest, kernels)
+        return
+    if only_tiles:
+        tiles_report(sm, dev, out, digest, kernels)
         return
     specs = []
     for nz, forced in legs:
@@ -501,6 +736,7 @@ def layers_report(sm, dev, out, digest, only_split: bool = False) -> None:
         del cfg, grid, forcing, st, last
         torch.cuda.empty_cache()
     split_report(sm, dev, out, digest, kernels)
+    projection_report(sm, dev, out, digest, kernels)
 
 
 def mesh_report(sm, dev, out, digest, record) -> None:
@@ -670,7 +906,8 @@ def setup_ms(grid, forcing, cfg, before=None) -> float:
 
 def main(root: str, only_split: bool = False,
          only_projection: bool = False, only_mesh: bool = False,
-         only_layers: bool = False, layers_split: bool = False) -> dict:
+         only_layers: bool = False, layers_split: bool = False,
+         layers_projection: bool = False, layers_tiles: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -737,8 +974,9 @@ def main(root: str, only_split: bool = False,
         stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
         return jacobi, b, eta_n
 
-    if only_layers or layers_split:
-        layers_report(sm, dev, out, digest, layers_split)
+    if only_layers or layers_split or layers_projection or layers_tiles:
+        layers_report(sm, dev, out, digest, layers_split, layers_projection,
+                      layers_tiles)
         out["code"] = code_report(build)
         out["power"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -931,10 +1169,13 @@ def main(root: str, only_split: bool = False,
 if __name__ == "__main__":
     if len(sys.argv) not in (2, 3, 4) or sys.argv[2:] not in (
             [], ["--split"], ["--projection"], ["--mesh"], ["--layers"],
-            ["--layers", "split"]):
+            ["--layers", "split"], ["--layers", "projection"],
+            ["--layers", "tiles"]):
         raise SystemExit(__doc__)
     print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"],
                           sys.argv[2:] == ["--projection"],
                           sys.argv[2:] == ["--mesh"],
                           sys.argv[2:] == ["--layers"],
-                          sys.argv[2:] == ["--layers", "split"])))
+                          sys.argv[2:] == ["--layers", "split"],
+                          sys.argv[2:] == ["--layers", "projection"],
+                          sys.argv[2:] == ["--layers", "tiles"])))
