@@ -61,10 +61,6 @@
 
 #include "fb_step_body.cuh"
 
-// K1 has no spill route: where no tile's planes fit shared memory, the
-// layer-streamed build (BEOM_STREAM) takes the step
-static_assert(!beom::SPILL, "fb_step.cu is built without BEOM_SPILL");
-
 namespace {
 
 using namespace beom;
@@ -76,16 +72,25 @@ using namespace beom::fbk;
 // tile's planes of every layer fit a CTA's shared memory (many layers).
 // Two launches on PyTorch's stream, each one CTA per tile: the continuity
 // of every layer into out_h, then the momentum from it.
+// the interior points of the CTA's tile in the whole grid
+template <typename T>
+__device__ __forceinline__ Out grid_out(const Params<T>& p) {
+  return Out{int(blockIdx.y) * TY, int(blockIdx.x) * TX, p.ny, p.nx,
+             p.plane};
+}
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fb_cont_kernel(const Params<T> p, T* out_h) {
-  fbs::cont::run<T>(p, out_h);
+  const Out o = grid_out(p);
+  fbs::cont::run_at<T, false>(p, Stack{}, o.y0, o.x0, o, out_h);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 fb_mom_kernel(const Params<T> p, const T* h1, T* out_u, T* out_v) {
-  fbs::mom::run<T>(p, h1, out_u, out_v);
+  const Out o = grid_out(p);
+  fbs::mom::run_at<T, false>(p, Stack{}, o.y0, o.x0, o, h1, out_u, out_v);
 }
 
 template <typename T>

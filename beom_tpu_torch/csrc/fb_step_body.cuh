@@ -1,8 +1,9 @@
 // The stages of one fused forward-backward step on a haloed tile in shared
 // memory, shared by the single-device step (fb_step.cu, K1) and the shard
-// step under a mesh (shard_step.cu, K7); and the pass of KB steps on one
-// tile (namespace fbp, fb_step.cu's pass kernel), which runs the same
-// stages on the shrinking regions of a block with a halo of KB W.  The two kernels differ in where a
+// step under a mesh (shard_step.cu, K7); the pass of KB steps on one tile
+// (namespace fbp), which runs the same stages on the shrinking regions of
+// a block with a halo of KB W; and the layer-streamed step (namespace
+// fbs).  The two kernels differ in where a
 // tile's points come from and where its results go (shard_addr.cuh): each
 // loads the planes of h, u, v, the masks and the block's table of offsets
 // into the statics (stage S0) and hands `fb_stages` a Store3 whose Out says
@@ -53,11 +54,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return block_smem<T>(N_PLANES * NPT, NPT);
-}
-template <typename T>
-constexpr long work_bytes() {
-  return block_work<T>(N_PLANES * NPT);
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
 // the step's h, u, v of a tile's interior points, written through an Out
@@ -482,8 +479,9 @@ __device__ __forceinline__ void pass_steps(const Params<T>& p, T* sm,
 
 }  // namespace fbp
 
-// The layer-streamed single step (fb_step.cu with BEOM_STREAM = 1): K1
-// where no tile's planes of every layer fit a CTA's shared memory.  Its
+// The layer-streamed single step (fb_step.cu with BEOM_STREAM = 1, and
+// K7's on the shards, shard_step.cu): K1 where no tile's planes of every
+// layer fit a CTA's shared memory.  Its
 // shared memory holds a few planes of one layer, whatever NZ, and a step
 // is two launches over the tiles, each looping over the layers from the
 // surface (`#pragma unroll 1`, so that a build's code does not grow with
@@ -586,8 +584,14 @@ constexpr int smem_bytes() {
   return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
-template <typename T>
-__device__ __forceinline__ void run(const Params<T>& p, T* out_h) {
+// The tile whose first point is the grid's (gy0, gx0), its interior
+// points written through o into out_h (the output at the tile's shard's
+// block, or the grid's); with SH every operand is stacked over the shards
+// of m (shard_addr.cuh: block_offsets)
+template <typename T, bool SH>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Stack& m,
+                                       int gy0, int gx0, const Out& o,
+                                       T* out_h) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   Off* gidx = off_table(sm, N_PLANES * NPT);
@@ -600,8 +604,7 @@ __device__ __forceinline__ void run(const Params<T>& p, T* out_h) {
   T* mv = sm + P_MV * NPT;
   T* ee = sm + P_EE * NPT;
   const int tid = threadIdx.x;
-  const int bx = int(blockIdx.x), by = int(blockIdx.y);
-  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  block_offsets<T, RX, RY, SH>(p, m, gidx, gy0 - W, gx0 - W);
   __syncthreads();
   for (int s = tid; s < NPT; s += THREADS) {
     const Off g = gidx[s];
@@ -610,7 +613,6 @@ __device__ __forceinline__ void run(const Params<T>& p, T* out_h) {
     mv[s] = p.in[I_MASK_V][g];
   }
   if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
-  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
   using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
   const TileT c{p, gidx, u, v, mask, mu, mv, nullptr, h1,
                 nullptr, nullptr, nullptr, nullptr, ee};
@@ -619,7 +621,7 @@ __device__ __forceinline__ void run(const Params<T>& p, T* out_h) {
     // the loads write no plane the last layer's store reads, and the
     // barrier below orders that store before this layer's continuity
     for (int s = tid; s < NPT; s += THREADS) {
-      const long g = k * p.plane + gidx[s];
+      const auto g = k * p.plane + gidx[s];
       h[s] = p.in[I_H][g];
       u[s] = p.in[I_U][g];
       v[s] = p.in[I_V][g];
@@ -669,9 +671,13 @@ constexpr int smem_bytes() {
   return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
-template <typename T>
-__device__ __forceinline__ void run(const Params<T>& p, const T* h1g,
-                                    T* out_u, T* out_v) {
+// The tile whose first point is the grid's (gy0, gx0), as cont::run_at;
+// h1g is cont's output, read at the block's points (across cards its nine
+// stacks: the halo may lie on a neighbour card)
+template <typename T, bool SH>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Stack& m,
+                                       int gy0, int gx0, const Out& o,
+                                       BasesArg<T> h1g, T* out_u, T* out_v) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   Off* gidx = off_table(sm, N_PLANES * NPT);
@@ -691,8 +697,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* h1g,
   T* mq = sm + P_MQ * NPT;
   T* ee = sm + P_EE * NPT;
   const int tid = threadIdx.x;
-  const int bx = int(blockIdx.x), by = int(blockIdx.y);
-  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  block_offsets<T, RX, RY, SH>(p, m, gidx, gy0 - W, gx0 - W);
   __syncthreads();
   for (int s = tid; s < NPT; s += THREADS) {
     const Off g = gidx[s];
@@ -712,7 +717,6 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* h1g,
     zp[s] = z;
     acc[s] = p.gp[0] * z;
   })
-  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
   using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
   const TileT c{p, gidx, u, v, mask, mu, mv, mq, h1,
                 phi, q, lu, lv, ee};
@@ -721,7 +725,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const T* h1g,
 #pragma unroll 1
   for (int k = 0; k < NZ; ++k) {
     for (int s = tid; s < NPT; s += THREADS) {
-      const long g = k * p.plane + gidx[s];
+      const auto g = k * p.plane + gidx[s];
       h1[s] = h1g[g];
       u[s] = p.in[I_U][g];
       v[s] = p.in[I_V][g];

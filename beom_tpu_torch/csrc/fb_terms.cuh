@@ -89,18 +89,12 @@
 #ifndef BEOM_CARDS
 #define BEOM_CARDS 0
 #endif
-// the spill route: the single-step bodies' planes in device memory
-// (block_planes below), for blocks whose planes no tile fits into a CTA's
-// shared memory (K7's fb and split bodies)
-#ifndef BEOM_SPILL
-#define BEOM_SPILL 0
-#endif
 // the layer-streamed route: K1's single step, K1s's slow phase and
 // recomposition and both projection phases one layer at a time, their
 // shared memory a few planes of one layer whatever NZ (fb_step_body.cuh:
-// fbs; split_body.cuh: sps; projection_body.cuh: pal, pbl, which the
-// projection's shard kernels run too), where no tile's planes of every
-// layer fit a CTA's shared memory or the plans take it
+// fbs; split_body.cuh: sps; projection_body.cuh: pal, pbl; the shard
+// kernels of K7 run them too), where no tile's planes of every layer fit a
+// CTA's shared memory or the plans take it
 #ifndef BEOM_STREAM
 #define BEOM_STREAM 0
 #endif
@@ -127,7 +121,6 @@ constexpr int QS = BEOM_QS;
 constexpr int QP = BEOM_QP;
 constexpr int KB = BEOM_KB;
 constexpr bool WIND = BEOM_WIND;
-constexpr bool SPILL = BEOM_SPILL;
 constexpr bool STREAM = BEOM_STREAM;
 // first block index at which the continuity's h1 is valid: the limiter
 // reaches one cell further than the plain flux divergence
@@ -145,17 +138,14 @@ constexpr int LO = WETDRY ? 2 : 1;
 #endif
 
 // Operand slots of the C entry points; stencils/fused_fb.py fills them by
-// these names, in this order.  A host table holds N_TABLE pointers: the
-// N_PTR operands, then the spill route's scratch (I_WORK; null elsewhere).
+// these names, in this order.  A host table holds the N_PTR operands.
 enum Ptr {
   I_H, I_U, I_V, I_HB, I_MASK, I_MASK_U, I_MASK_V, I_MASK_Q, I_FQ, I_TAUX,
   I_TAUY, I_SPONGE, I_HEXT, I_OBC_U, I_OBC_V, I_OBC_H, I_TIDE_AMP,
   I_TIDE_PHASE, N_PTR
 };
-constexpr int I_WORK = N_PTR;
-constexpr int N_TABLE = N_PTR + 1;
 enum Int { J_NY, J_NX, J_U_FIRST, J_SADOURNY, J_FREE_SLIP, J_VISC, J_WIND,
-           J_NSUB, J_ALIGNED, J_SLOTS, N_INT };
+           J_NSUB, J_ALIGNED, N_INT };
 // steps a launch of the fb pass kernel may advance: the slots of Params::ts
 constexpr int MAX_KB = 8;
 // the slots of the tidal frequencies: one per constituent, at least one
@@ -250,23 +240,21 @@ struct Params {
   Bases<T> in[N_PTR];
   int ny, nx, u_first, sadourny, free_slip, visc, wind, nsub;
   int aligned;    // every operand starts 16-byte aligned
-  int slots;      // the spill route's CTAs: slices of work
   T dt, inv_dx, inv_dy, rdx, rdy, g, nu2, nu4, rho0, h_min, h_dry, thin,
       r_bot, cd_bot, r_int, t1;
   T gp[NZ];
   T omega[NTIDE_SLOTS];
   T ts[MAX_KB];   // the fb pass kernel's t1 of each of its steps
   long plane;     // ny * nx
-  T* work;        // the spill route's scratch (block_planes)
 };
 
 // Params is passed by value and grows with NZ and NTIDE.  A kernel's
 // parameters may take 4096 bytes on every CUDA version and driver; Params
 // leaves 1536 of them to a launch's other arguments, the largest of which
-// is the shard recomposition's source of 19 stacked operands across cards
-// and its three outputs, 1448 bytes (shard_split.cu checks its sum).  A
-// build too large fails here, at compile time.  fused_fb.params_bytes
-// mirrors the size.
+// are the shard recomposition's streamed velocity kernel's: its source of
+// 19 stacked operands across cards, h1's nine stacks and two outputs,
+// 1512 bytes (shard_split.cu checks the sum).  A build too large fails
+// here, at compile time.  fused_fb.params_bytes mirrors the size.
 constexpr int PARAM_LIMIT = 4096;
 constexpr int PARAMS_MAX = PARAM_LIMIT - 1536;
 static_assert(sizeof(Params<double>) <= PARAMS_MAX,
@@ -281,13 +269,10 @@ __host__ Params<T> make_params(const void* const* ptrs, const int* ints,
   // ptrs: the host tables of the nine classes, one after another
   for (int c = 0; c < 9; ++c)
     for (int i = 0; i < N_PTR; ++i)
-      p.in[i].b[c] = static_cast<const T*>(ptrs[c * N_TABLE + i]);
+      p.in[i].b[c] = static_cast<const T*>(ptrs[c * N_PTR + i]);
 #else
   for (int i = 0; i < N_PTR; ++i) p.in[i] = static_cast<const T*>(ptrs[i]);
 #endif
-  // the scratch of this card's table
-  p.work = static_cast<T*>(const_cast<void*>(ptrs[I_WORK]));
-  p.slots = ints[J_SLOTS];
   p.ny = ints[J_NY];
   p.nx = ints[J_NX];
   p.u_first = ints[J_U_FIRST];
@@ -320,86 +305,9 @@ __host__ Params<T> make_params(const void* const* ptrs, const int* ints,
   return p;
 }
 
-// Where a CTA's planes of its block lie, n values in all, and the table of
-// offsets that follows them: in shared memory; or in a spill build the
-// planes in the CTA's slice of the scratch p.work in device memory, which
-// the L2 serves, and the table alone in shared memory.  The stages address
-// every plane through the pointer, so a spill build runs the same
-// arithmetic in the same order.  Its grid is one-dimensional, a CTA per
-// slice, each looping over tiles (for_tiles).
-template <typename T>
-__device__ __forceinline__ T* block_planes(const Params<T>& p, long n) {
-  extern __shared__ unsigned char smem_raw[];
-  if constexpr (SPILL)
-    return p.work + long(blockIdx.x) * n;
-  else
-    return reinterpret_cast<T*>(smem_raw);
-}
-template <typename T>
-__device__ __forceinline__ Off* block_table(T* sm, long n) {
-  extern __shared__ unsigned char smem_raw[];
-  if constexpr (SPILL)
-    return reinterpret_cast<Off*>(smem_raw);
-  else
-    return off_table(sm, n);
-}
-// Bytes of a CTA's shared memory and of its slice of the scratch, for n
-// values of planes and a table of nt offsets
-template <typename T>
-__host__ __device__ constexpr int block_smem(long n, int nt) {
-  return table_bytes(SPILL ? 0 : n * long(sizeof(T)), nt);
-}
-template <typename T>
-__host__ __device__ constexpr long block_work(long n) {
-  return SPILL ? n * long(sizeof(T)) : 0;
-}
-
-// f(bx, by) for the tiles of a launch over n.x x n.y tiles: the CTA's own
-// block; in a spill build every gridDim.x-th tile from blockIdx.x, with a
-// barrier before the next tile's loads overwrite the planes
-template <typename F>
-__device__ __forceinline__ void for_tiles(dim3 n, const F& f) {
-  if constexpr (SPILL) {
-    const int total = int(n.x * n.y);
-    for (int t = int(blockIdx.x); t < total; t += int(gridDim.x)) {
-      f(t % int(n.x), t / int(n.x));
-      __syncthreads();
-    }
-  } else {
-    f(int(blockIdx.x), int(blockIdx.y));
-  }
-}
-
-// The grid of a launch over n.x x n.y tiles: n, or in a spill build one CTA
-// per slice of the scratch, at most p.slots; an empty grid where a spill
-// build has no scratch (the launcher returns cudaErrorInvalidValue)
-template <typename T>
-__host__ inline dim3 tile_grid(dim3 n, const Params<T>& p) {
-  if (!SPILL) return n;
-  if (p.work == nullptr || p.slots < 1) return dim3(0);
-  const long t = long(n.x) * n.y;
-  return dim3(unsigned(t < p.slots ? t : p.slots));
-}
 // tiles of tx x ty on a grid of ny x nx points
 __host__ __device__ inline dim3 tiles_of(int ny, int nx, int tx, int ty) {
   return dim3((nx + tx - 1) / tx, (ny + ty - 1) / ty);
-}
-
-// CTAs of `kernel` (threads per CTA, smem bytes of dynamic shared memory)
-// that the current device holds at once: the slots of its scratch
-template <typename K>
-__host__ inline int resident_ctas(K kernel, int threads, int smem) {
-  int dev = 0, sms = 0, per = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, threads,
-                                                    smem) != cudaSuccess)
-    return 0;
-  return sms * per;
 }
 
 __device__ __forceinline__ int wrap(int a, int n) {

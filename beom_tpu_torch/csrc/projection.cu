@@ -73,10 +73,6 @@
 
 #include "projection_body.cuh"
 
-static_assert(!beom::SPILL,
-              "the projection has no spill route: off shared memory its "
-              "phases stream their layers (BEOM_STREAM)");
-
 namespace {
 
 using namespace beom;

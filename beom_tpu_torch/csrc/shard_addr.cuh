@@ -12,7 +12,9 @@
 // `src.ptr<I>(loc)`, the point's layer 0, chosen once per point.  Interior
 // points are written through an `Out` at their offset in the output's
 // layout, and fields that are read only at the point itself come from
-// `src.own<I>()` at that offset.
+// `src.own<I>()` at that offset.  The layer-streamed bodies read a field at
+// their block's offsets (block_offsets) from `src.base<I>()`, its whole
+// stack (across cards its nine).
 //
 //   GridSrc   one device: the whole grid, periodic on both axes; statics
 //             and fields share one layout.
@@ -93,6 +95,10 @@ struct GridSrc {
   __device__ __forceinline__ const T* own() const {
     return f[I];
   }
+  template <int I>
+  __device__ __forceinline__ const T* base() const {
+    return f[I];
+  }
 };
 #endif
 
@@ -167,8 +173,8 @@ struct Stack {
 // The offsets of the RX x RY block whose first point is the grid's (y0,
 // x0), one per point, periodic on both axes: of the whole grid, or with
 // SH of the stacked layout (Stack::row + Stack::col, the staged bodies'
-// row and column terms summed).  The layer-streamed bodies fill it once
-// per tile; the projection's on one device and on the shards.
+// row and column terms summed).  Every layer-streamed body fills it once
+// per tile, on one device and on the shards.
 template <typename T, int RX, int RY, bool SH>
 __device__ __forceinline__ void block_offsets(const Params<T>& p,
                                               const Stack& m, Off* gidx,
@@ -288,6 +294,10 @@ struct StackSrc {
     __device__ __forceinline__ const T* own() const {
       return own_base(s->f[I]) + (j * m.mx + i) * m.plane;
     }
+    template <int I>
+    __device__ __forceinline__ BasesArg<T> base() const {
+      return s->f[I];
+    }
   };
   // this source seen from the CTA's shard; `this` must stay in the
   // kernel's parameters (__grid_constant__)
@@ -331,6 +341,12 @@ struct StackSrc {
   template <int I>
   __device__ __forceinline__ const T* own() const {
     return f[I] + (j * m.mx + i) * m.plane;
+  }
+  // the field's stack, read at offsets of the stacked layout (Stack::row
+  // + Stack::col)
+  template <int I>
+  __device__ __forceinline__ BasesArg<T> base() const {
+    return f[I];
   }
   // this source seen from the CTA's shard
   __device__ __forceinline__ StackSrc from(const ShardTile& t) const {
@@ -380,6 +396,29 @@ __host__ inline StackSrc<T, NF> make_stack_src(const void* const* f,
   s.plane = plane;
   s.j = s.i = 0;
   return s;
+}
+
+// One stacked field a kernel reads at its block's offsets besides the
+// operand table (a launch's output that the next launch reads back: K7's
+// h1 between its streamed launches, phase B's p): its stack, across cards
+// the nine stacks of its card classes
+template <typename T>
+struct Field {
+  Bases<T> f;
+};
+// ... from the host's argument: the field's stack, or across cards a host
+// table of the nine classes' stacks (set_bases' layout)
+template <typename T>
+__host__ inline Field<T> field_of(const void* a) {
+  Field<T> r;
+#if BEOM_CARDS
+  Bases<T> one[1];
+  set_bases<T, 1>(one, static_cast<const void* const*>(a));
+  r.f = one[0];
+#else
+  r.f = static_cast<const T*>(a);
+#endif
+  return r;
 }
 
 // The Stack of geom = ly, lx, my, mx, cy, cx, a, b (the card's shards, the

@@ -35,32 +35,10 @@
 
 #include "projection_body.cuh"
 
-static_assert(!beom::SPILL,
-              "the projection has no spill route: off shared memory its "
-              "phases stream their layers (BEOM_STREAM)");
-
 namespace {
 
 using namespace beom;
 using namespace beom::prj;
-
-// phase B's p: its stack (across cards, a host table of the nine classes')
-template <typename T>
-struct Pres {
-  Bases<T> p;
-};
-template <typename T>
-Pres<T> pres_of(const void* pres) {
-  Pres<T> r;
-#if BEOM_CARDS
-  Bases<T> one[1];
-  set_bases<T, 1>(one, static_cast<const void* const*>(pres));
-  r.p = one[0];
-#else
-  r.p = static_cast<const T*>(pres);
-#endif
-  return r;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -99,11 +77,11 @@ shard_pal_kernel(const BEOM_CLASSED Params<T> p, const Stack m, T* out_us,
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 shard_pbl_kernel(const BEOM_CLASSED Params<T> p, const Stack m,
-                 const BEOM_CLASSED Pres<T> pres, T corr, T* out_h,
+                 const BEOM_CLASSED Field<T> pres, T corr, T* out_h,
                  T* out_u, T* out_v) {
   const ShardTile t = shard_tile(m, TX, TY);
   const int b = t.base(m);
-  pbl::run_at<T, true>(p, m, t.gy0, t.gx0, t.out(m, p.plane), pres.p, corr,
+  pbl::run_at<T, true>(p, m, t.gy0, t.gx0, t.out(m, p.plane), pres.f, corr,
                        out_h + b, out_u + b, out_v + b);
 }
 
@@ -117,9 +95,9 @@ shard_pas_kernel(const BEOM_CLASSED Params<T> p, const Stack m, T* out_us,
 template <typename T>
 __global__ void __launch_bounds__(pbs::THREADS, pbs::MINB)
 shard_pbs_kernel(const BEOM_CLASSED Params<T> p, const Stack m,
-                 const BEOM_CLASSED Pres<T> pres, T corr, T* out_h, T* out_u,
+                 const BEOM_CLASSED Field<T> pres, T corr, T* out_h, T* out_u,
                  T* out_v) {
-  pbs::run_shards<T>(p, m, pres.p, corr, out_h, out_u, out_v);
+  pbs::run_shards<T>(p, m, pres.f, corr, out_h, out_u, out_v);
 }
 
 template <typename K>
@@ -167,7 +145,7 @@ int shard_proj_a(const void* const* ptrs, const int* ints, const double* dbls,
     const cudaError_t e = allow(shard_pa_kernel<T>, smem);
     if (e != cudaSuccess) return int(e);
     shard_pa_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
-        p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane, N_TABLE),
+        p, make_stack_src<T, N_IN_A>(ptrs, m, p.plane, N_PTR),
         static_cast<T*>(us), static_cast<T*>(vs), static_cast<T*>(div));
   }
   return int(cudaGetLastError());
@@ -186,7 +164,7 @@ int shard_proj_b(const void* const* ptrs, const int* ints, const double* dbls,
     const cudaError_t e = allow(shard_pbl_kernel<T>, smem);
     if (e != cudaSuccess) return int(e);
     shard_pbl_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
-        p, m, pres_of<T>(pres), T(corr), static_cast<T*>(h1),
+        p, m, field_of<T>(pres), T(corr), static_cast<T*>(h1),
         static_cast<T*>(u1), static_cast<T*>(v1));
   } else {
     const cudaError_t e = allow(shard_pb_kernel<T>, smem);
@@ -195,7 +173,7 @@ int shard_proj_b(const void* const* ptrs, const int* ints, const double* dbls,
     const void* f[NCLS * N_IN_B];
     for (int c = 0; c < NCLS; ++c) {
       for (int k = 0; k < F_P; ++k)
-        f[c * N_IN_B + k] = ptrs[c * N_TABLE + k];
+        f[c * N_IN_B + k] = ptrs[c * N_PTR + k];
       f[c * N_IN_B + F_P] =
           BEOM_CARDS ? static_cast<const void* const*>(pres)[c] : pres;
     }
@@ -236,7 +214,7 @@ int shard_proj_bs(const void* const* ptrs, const int* ints,
   if (e != cudaSuccess) return int(e);
   shard_pbs_kernel<T><<<m.grid(pbs::TX, pbs::TY), pbs::THREADS, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      p, m, pres_of<T>(pres), T(corr), static_cast<T*>(h1),
+      p, m, field_of<T>(pres), T(corr), static_cast<T*>(h1),
       static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }

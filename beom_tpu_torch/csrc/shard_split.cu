@@ -24,6 +24,17 @@
 // reads a neighbour card's points through the nine stacks of each operand
 // (shard_addr.cuh), SlowPhase's, the subcycle's and the tendencies' too.
 //
+// Where K1s streams its layers (a build with BEOM_STREAM = 1: route 3 from
+// fused_fb._STREAM_FROM layers, and wherever no tile fits), the slow phase
+// (route 2's tendencies) and the recomposition run K1s's streamed bodies
+// (split_body.cuh, namespace sps) over one CTA per tile of every shard,
+// each block's offsets from the stacked layout: the slow phase in one
+// launch, the recomposition in two (the continuity and the rescale into
+// h1, then the velocities and finalize reading h1 back at their block's
+// points, across cards through its nine stacks, ordered after the
+// neighbour card's first launch by the wrapper).  No build keeps a
+// block's planes in device memory.
+//
 // Bound: device-memory bytes for the slow phase, its stages for the tail,
 // as K1s.  The stage bodies are K1s's (csrc/split_body.cuh), so each kernel
 // equals the single-device kernel on the same points bit for bit.
@@ -43,16 +54,53 @@ __device__ __forceinline__ Ptrs<T, N> at(Ptrs<T, N> o, int base) {
   return o;
 }
 
+#if BEOM_STREAM
+
+// The layer-streamed slow phase (NO = N_SLOW) or its tendencies (NO =
+// N_TEND) and recomposition (split_body.cuh, namespace sps), as K1s's:
+// one CTA per tile of every shard, the block's offsets from the stacked
+// layout
+template <typename T, int NO>
+__global__ void __launch_bounds__(THREADS, sps::SLOW_CTAS<T>)
+shard_slow_layers_kernel(const BEOM_CLASSED Params<T> p, const Stack m,
+                         const Ptrs<T, NO> out) {
+  const ShardTile t = shard_tile(m, TX, TY);
+  const int b = t.base(m);
+  sps::slow::run_at<T, NO, true>(p, m, t.gy0, t.gx0, t.out(m, p.plane),
+                                 at(out, b), b);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+shard_rec_h_layers_kernel(const BEOM_CLASSED Params<T> p,
+                          const BEOM_CLASSED StackSrc<T, N_REC_IN> src_,
+                          T* out_h) {
+  const ShardTile t = shard_tile(src_.m, TX, TY);
+  sps::rch::run_at<T, true>(p, src_.m, t.gy0, t.gx0, t.out(src_.m, p.plane),
+                            src_.from(t), out_h + t.base(src_.m));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+shard_rec_uv_layers_kernel(const BEOM_CLASSED Params<T> p,
+                           const BEOM_CLASSED StackSrc<T, N_REC_IN> src_,
+                           const BEOM_CLASSED Field<T> h1, T* out_u,
+                           T* out_v) {
+  const ShardTile t = shard_tile(src_.m, TX, TY);
+  const int b = t.base(src_.m);
+  sps::ruv::run_at<T, true>(p, src_.m, t.gy0, t.gx0, t.out(src_.m, p.plane),
+                            src_.from(t), h1.f, out_u + b, out_v + b);
+}
+
+#else
+
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 shard_slow_kernel(const BEOM_CLASSED Params<T> p,
                   const BEOM_CLASSED StackSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_SLOW> out) {
-  for_tiles(src.m.grid(TX, TY), [&](int bx, int by) {
-    const ShardTile t = shard_tile(src.m, TX, TY, bx, by);
-    slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
-                 t.out(src.m, p.plane));
-  });
+  const ShardTile t = shard_tile(src.m, TX, TY);
+  slow::run<T>(p, src.from(t), at(out, t.base(src.m)), t.out(src.m, p.plane));
 }
 
 template <typename T>
@@ -60,12 +108,22 @@ __global__ void __launch_bounds__(THREADS)
 shard_tend_kernel(const BEOM_CLASSED Params<T> p,
                   const BEOM_CLASSED StackSrc<T, N_SLOW_IN> src,
                   const Ptrs<T, N_TEND> out) {
-  for_tiles(src.m.grid(TX, TY), [&](int bx, int by) {
-    const ShardTile t = shard_tile(src.m, TX, TY, bx, by);
-    slow::run<T>(p, src.from(t), at(out, t.base(src.m)),
-                 t.out(src.m, p.plane));
-  });
+  const ShardTile t = shard_tile(src.m, TX, TY);
+  slow::run<T>(p, src.from(t), at(out, t.base(src.m)), t.out(src.m, p.plane));
 }
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+shard_rec_kernel(const BEOM_CLASSED Params<T> p,
+                 const BEOM_CLASSED StackSrc<T, N_REC_IN> src,
+                 T* out_h, T* out_u, T* out_v) {
+  const ShardTile t = shard_tile(src.m, TX, TY);
+  const int b = t.base(src.m);
+  rec::run<T>(p, src.from(t), t.out(src.m, p.plane), out_h + b, out_u + b,
+              out_v + b);
+}
+
+#endif
 
 template <typename T>
 __global__ void __launch_bounds__(sub::THREADS_SUB)
@@ -75,19 +133,6 @@ shard_sub_kernel(const BEOM_CLASSED Params<T> p,
   const ShardTile t = shard_tile(src.m, SX, SY);
   sub::run<T>(p, src.from(t), at(out, t.base(src.m)), t.out(src.m, p.plane),
               dte, inv_nsub);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-shard_rec_kernel(const BEOM_CLASSED Params<T> p,
-                 const BEOM_CLASSED StackSrc<T, N_REC_IN> src,
-                 T* out_h, T* out_u, T* out_v) {
-  for_tiles(src.m.grid(TX, TY), [&](int bx, int by) {
-    const ShardTile t = shard_tile(src.m, TX, TY, bx, by);
-    const int b = t.base(src.m);
-    rec::run<T>(p, src.from(t), t.out(src.m, p.plane), out_h + b,
-                out_u + b, out_v + b);
-  });
 }
 
 template <typename T>
@@ -130,41 +175,36 @@ cudaError_t allow(K kernel, int smem) {
 // (across cards, these tables and ptrs hold the nine card classes' one
 // after another); then its outputs, stacked.
 
-template <typename T>
+// The slow phase's kernels: SlowPhase's fields (NO = N_SLOW) or the layer
+// tendencies (NO = N_TEND) into outs
+template <typename T, int NO>
 int shard_slow(const void* const* ptrs, const int* ints, const double* dbls,
                const int* geom, void* const* outs, void* stream) {
   Params<T> p = make_params<T>(ptrs, ints, dbls);
   Stack m;
-  cudaError_t e =
-      make_stack(p, geom, slow::W, m) ? cudaSuccess : cudaErrorInvalidValue;
-  if (e == cudaSuccess)
-    e = allow(shard_slow_kernel<T>, slow::smem_bytes<T>());
+  if (!make_stack(p, geom, slow::W, m)) return int(cudaErrorInvalidValue);
+  const auto st = static_cast<cudaStream_t>(stream);
+#if BEOM_STREAM
+  constexpr int smem = sps::slow::smem_bytes<T>();
+  const cudaError_t e = allow(shard_slow_layers_kernel<T, NO>, smem);
   if (e != cudaSuccess) return int(e);
-  const dim3 grid = tile_grid(m.grid(TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  shard_slow_kernel<T><<<grid, THREADS, slow::smem_bytes<T>(),
-                         static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_TABLE),
-      pack<T, N_SLOW>(outs));
-  return int(cudaGetLastError());
-}
-
-template <typename T>
-int shard_tend(const void* const* ptrs, const int* ints, const double* dbls,
-               const int* geom, void* const* outs, void* stream) {
-  Params<T> p = make_params<T>(ptrs, ints, dbls);
-  Stack m;
-  cudaError_t e =
-      make_stack(p, geom, slow::W, m) ? cudaSuccess : cudaErrorInvalidValue;
-  if (e == cudaSuccess)
-    e = allow(shard_tend_kernel<T>, slow::smem_bytes<T>());
-  if (e != cudaSuccess) return int(e);
-  const dim3 grid = tile_grid(m.grid(TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  shard_tend_kernel<T><<<grid, THREADS, slow::smem_bytes<T>(),
-                         static_cast<cudaStream_t>(stream)>>>(
-      p, make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_TABLE),
-      pack<T, N_TEND>(outs));
+  shard_slow_layers_kernel<T, NO><<<m.grid(TX, TY), THREADS, smem, st>>>(
+      p, m, pack<T, NO>(outs));
+#else
+  constexpr int smem = slow::smem_bytes<T>();
+  const auto src = make_stack_src<T, N_SLOW_IN>(ptrs, m, p.plane, N_PTR);
+  if constexpr (NO == N_SLOW) {
+    const cudaError_t e = allow(shard_slow_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    shard_slow_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
+        p, src, pack<T, N_SLOW>(outs));
+  } else {
+    const cudaError_t e = allow(shard_tend_kernel<T>, smem);
+    if (e != cudaSuccess) return int(e);
+    shard_tend_kernel<T><<<m.grid(TX, TY), THREADS, smem, st>>>(
+        p, src, pack<T, N_TEND>(outs));
+  }
+#endif
   return int(cudaGetLastError());
 }
 
@@ -191,6 +231,68 @@ int shard_subcycle(const void* const* ptrs, const int* ints,
   return int(cudaGetLastError());
 }
 
+// RecIn's fields of card c's table: h from the operand table, then the
+// slow phase's and the subcycle's (across cards the nine classes', one
+// table after another)
+inline void rec_fields(const void** fields, const void* const* ptrs,
+                       void* const* slow_fields, void* const* sub_fields) {
+  for (int c = 0; c < NCLS; ++c) {
+    const void** f = fields + c * N_REC_IN;
+    f[R_H] = ptrs[c * N_PTR + I_H];
+    for (int i = 0; i < N_SLOW; ++i) f[R_SP + i] = slow_fields[c * N_SLOW + i];
+    for (int i = 0; i < N_SUB; ++i) f[R_SB + i] = sub_fields[c * N_SUB + i];
+  }
+}
+
+#if BEOM_STREAM
+
+// The streamed recomposition's two launches, one entry each: the
+// continuity and the column rescale into h1, then the velocities and
+// finalize, which take h1 back (across cards a host table of its nine
+// stacks)
+template <typename T>
+int shard_rec_h(const void* const* ptrs, const int* ints, const double* dbls,
+                const int* geom, void* const* slow_fields,
+                void* const* sub_fields, void* h1, void* stream) {
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Stack m;
+  if (!make_stack(p, geom, sps::rch::W, m))
+    return int(cudaErrorInvalidValue);
+  constexpr int smem = sps::rch::smem_bytes<T>();
+  const cudaError_t e = allow(shard_rec_h_layers_kernel<T>, smem);
+  if (e != cudaSuccess) return int(e);
+  const void* fields[NCLS * N_REC_IN];
+  rec_fields(fields, ptrs, slow_fields, sub_fields);
+  shard_rec_h_layers_kernel<T><<<m.grid(TX, TY), THREADS, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      p, make_stack_src<T, N_REC_IN>(fields, m, p.plane),
+      static_cast<T*>(h1));
+  return int(cudaGetLastError());
+}
+
+template <typename T>
+int shard_rec_uv(const void* const* ptrs, const int* ints,
+                 const double* dbls, const int* geom,
+                 void* const* slow_fields, void* const* sub_fields,
+                 const void* h1, void* u1, void* v1, void* stream) {
+  Params<T> p = make_params<T>(ptrs, ints, dbls);
+  Stack m;
+  if (!make_stack(p, geom, sps::ruv::W, m))
+    return int(cudaErrorInvalidValue);
+  constexpr int smem = sps::ruv::smem_bytes<T>();
+  const cudaError_t e = allow(shard_rec_uv_layers_kernel<T>, smem);
+  if (e != cudaSuccess) return int(e);
+  const void* fields[NCLS * N_REC_IN];
+  rec_fields(fields, ptrs, slow_fields, sub_fields);
+  shard_rec_uv_layers_kernel<T><<<m.grid(TX, TY), THREADS, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      p, make_stack_src<T, N_REC_IN>(fields, m, p.plane), field_of<T>(h1),
+      static_cast<T*>(u1), static_cast<T*>(v1));
+  return int(cudaGetLastError());
+}
+
+#else
+
 template <typename T>
 int shard_recompose(const void* const* ptrs, const int* ints,
                     const double* dbls, const int* geom,
@@ -204,20 +306,15 @@ int shard_recompose(const void* const* ptrs, const int* ints,
     e = allow(shard_rec_kernel<T>, rec::smem_bytes<T>());
   if (e != cudaSuccess) return int(e);
   const void* fields[NCLS * N_REC_IN];
-  for (int c = 0; c < NCLS; ++c) {
-    const void** f = fields + c * N_REC_IN;
-    f[R_H] = ptrs[c * N_TABLE + I_H];
-    for (int i = 0; i < N_SLOW; ++i) f[R_SP + i] = slow_fields[c * N_SLOW + i];
-    for (int i = 0; i < N_SUB; ++i) f[R_SB + i] = sub_fields[c * N_SUB + i];
-  }
-  const dim3 grid = tile_grid(m.grid(TX, TY), p);
-  if (grid.x == 0) return int(cudaErrorInvalidValue);
-  shard_rec_kernel<T><<<grid, THREADS, rec::smem_bytes<T>(),
+  rec_fields(fields, ptrs, slow_fields, sub_fields);
+  shard_rec_kernel<T><<<m.grid(TX, TY), THREADS, rec::smem_bytes<T>(),
                         static_cast<cudaStream_t>(stream)>>>(
       p, make_stack_src<T, N_REC_IN>(fields, m, p.plane),
       static_cast<T*>(h1), static_cast<T*>(u1), static_cast<T*>(v1));
   return int(cudaGetLastError());
 }
+
+#endif
 
 template <typename T>
 int shard_tail(const void* const* ptrs, const int* ints, const double* dbls,
@@ -242,16 +339,44 @@ int shard_tail(const void* const* ptrs, const int* ints, const double* dbls,
 
 }  // namespace
 
+#if BEOM_STREAM
+// the streamed recomposition's two entries
+#define SHARD_REC_ENTRIES(SUFFIX, T)                                          \
+  extern "C" int beom_shard_split_rec_h_##SUFFIX(                             \
+      const void* const* ptrs, const int* ints, const double* dbls,           \
+      const int* geom, void* const* slow_fields, void* const* sub_fields,     \
+      void* h1, void* stream) {                                               \
+    return shard_rec_h<T>(ptrs, ints, dbls, geom, slow_fields, sub_fields,    \
+                          h1, stream);                                        \
+  }                                                                           \
+  extern "C" int beom_shard_split_rec_uv_##SUFFIX(                            \
+      const void* const* ptrs, const int* ints, const double* dbls,           \
+      const int* geom, void* const* slow_fields, void* const* sub_fields,     \
+      const void* h1, void* u1, void* v1, void* stream) {                     \
+    return shard_rec_uv<T>(ptrs, ints, dbls, geom, slow_fields, sub_fields,   \
+                           h1, u1, v1, stream);                               \
+  }
+#else
+#define SHARD_REC_ENTRIES(SUFFIX, T)                                          \
+  extern "C" int beom_shard_split_recompose_##SUFFIX(                         \
+      const void* const* ptrs, const int* ints, const double* dbls,           \
+      const int* geom, void* const* slow_fields, void* const* sub_fields,     \
+      void* h1, void* u1, void* v1, void* stream) {                           \
+    return shard_recompose<T>(ptrs, ints, dbls, geom, slow_fields,            \
+                              sub_fields, h1, u1, v1, stream);                \
+  }
+#endif
+
 #define SHARD_SPLIT_ENTRIES(SUFFIX, T)                                        \
   extern "C" int beom_shard_split_slow_##SUFFIX(                              \
       const void* const* ptrs, const int* ints, const double* dbls,           \
       const int* geom, void* const* outs, void* stream) {                     \
-    return shard_slow<T>(ptrs, ints, dbls, geom, outs, stream);               \
+    return shard_slow<T, N_SLOW>(ptrs, ints, dbls, geom, outs, stream);       \
   }                                                                           \
   extern "C" int beom_shard_split_tend_##SUFFIX(                              \
       const void* const* ptrs, const int* ints, const double* dbls,           \
       const int* geom, void* const* outs, void* stream) {                     \
-    return shard_tend<T>(ptrs, ints, dbls, geom, outs, stream);               \
+    return shard_slow<T, N_TEND>(ptrs, ints, dbls, geom, outs, stream);       \
   }                                                                           \
   extern "C" int beom_shard_split_subcycle_##SUFFIX(                          \
       const void* const* ptrs, const int* ints, const double* dbls,           \
@@ -260,25 +385,21 @@ int shard_tail(const void* const* ptrs, const int* ints, const double* dbls,
     return shard_subcycle<T>(ptrs, ints, dbls, geom, slow_fields, outs,       \
                              stream);                                         \
   }                                                                           \
-  extern "C" int beom_shard_split_recompose_##SUFFIX(                         \
-      const void* const* ptrs, const int* ints, const double* dbls,           \
-      const int* geom, void* const* slow_fields, void* const* sub_fields,     \
-      void* h1, void* u1, void* v1, void* stream) {                           \
-    return shard_recompose<T>(ptrs, ints, dbls, geom, slow_fields,            \
-                              sub_fields, h1, u1, v1, stream);                \
-  }                                                                           \
   extern "C" int beom_shard_split_tail_##SUFFIX(                              \
       const void* const* ptrs, const int* ints, const double* dbls,           \
       const int* geom, void* const* tend, void* h1, void* u1, void* v1,       \
       void* stream) {                                                         \
     return shard_tail<T>(ptrs, ints, dbls, geom, tend, h1, u1, v1, stream);   \
-  }
+  }                                                                           \
+  SHARD_REC_ENTRIES(SUFFIX, T)
 
 SHARD_SPLIT_ENTRIES(f32, float)
 SHARD_SPLIT_ENTRIES(f64, double)
 
 // per kernel (slow 0, recompose 1, subcycle 2, tail 3) the halo it reads
-// around a tile, for the wrapper
+// around a tile, for the wrapper (the streamed recomposition's two
+// launches together: the continuity's LO, then the velocities' 1 around
+// that)
 extern "C" int beom_kernel_halo(int which) {
   return which == 0   ? slow::W
          : which == 1 ? rec::W
@@ -288,49 +409,32 @@ extern "C" int beom_kernel_halo(int which) {
 
 // dynamic shared memory of one CTA of the slow (0), recompose (1),
 // subcycle (2) and tail (3) kernels: the single-device kernels'
-// (fused_fb.smem_bytes)
-extern "C" int beom_smem_bytes(int which, int is_f64) {
-  if (which == 0)
-    return is_f64 ? slow::smem_bytes<double>() : slow::smem_bytes<float>();
-  if (which == 1)
-    return is_f64 ? rec::smem_bytes<double>() : rec::smem_bytes<float>();
-  if (which == 2)
-    return is_f64 ? sub::smem_bytes<double>() : sub::smem_bytes<float>();
-  return is_f64 ? tail::smem_bytes<double>() : tail::smem_bytes<float>();
-}
-
-// the spill route: bytes of a CTA's slice of the scratch of the slow (0)
-// and recompose (1) kernels (0 in any other build, and for the others),
-// and the CTAs of the slow (0), recompose (1) and tendency (4) kernels the
-// current device holds at once
-extern "C" long beom_work_bytes(int which, int is_f64) {
-  if (which == 0 || which == 4)
-    return is_f64 ? slow::work_bytes<double>() : slow::work_bytes<float>();
-  if (which == 1)
-    return is_f64 ? rec::work_bytes<double>() : rec::work_bytes<float>();
-  return 0;
-}
+// (fused_fb.smem_bytes); in the streamed build 1 is the recomposition's
+// continuity kernel and 4 its velocity kernel (fused_fb.split_stream_smem)
 template <typename T>
-int spill_ctas(int which) {
-  if (which == 0)
-    return resident_ctas(shard_slow_kernel<T>, THREADS,
-                         slow::smem_bytes<T>());
-  if (which == 1)
-    return resident_ctas(shard_rec_kernel<T>, THREADS, rec::smem_bytes<T>());
-  if (which == 4)
-    return resident_ctas(shard_tend_kernel<T>, THREADS,
-                         slow::smem_bytes<T>());
-  return 0;
+constexpr int kernel_smem(int which) {
+#if BEOM_STREAM
+  if (which == 0) return sps::slow::smem_bytes<T>();
+  if (which == 1) return sps::rch::smem_bytes<T>();
+  if (which == 4) return sps::ruv::smem_bytes<T>();
+#else
+  if (which == 0) return slow::smem_bytes<T>();
+  if (which == 1) return rec::smem_bytes<T>();
+  if (which == 4) return 0;
+#endif
+  if (which == 2) return sub::smem_bytes<T>();
+  return tail::smem_bytes<T>();
 }
-extern "C" int beom_spill_ctas(int which, int is_f64) {
-  return is_f64 ? spill_ctas<double>(which) : spill_ctas<float>(which);
+extern "C" int beom_smem_bytes(int which, int is_f64) {
+  return is_f64 ? kernel_smem<double>(which) : kernel_smem<float>(which);
 }
 
-// The largest kernel parameters of the port: the recomposition's, Params,
-// its source of N_REC_IN stacked operands and three outputs, within the
-// 4096 bytes of fb_terms.cuh's PARAM_LIMIT
+// The largest kernel parameters of the port: the recomposition's, Params
+// and its source of N_REC_IN stacked operands with three outputs (the
+// streamed velocity kernel's: with h1's stacks and two outputs), within
+// the 4096 bytes of fb_terms.cuh's PARAM_LIMIT
 static_assert(sizeof(Params<double>) + sizeof(StackSrc<double, N_REC_IN>) +
-                      3 * sizeof(void*) <=
+                      sizeof(Field<double>) + 2 * sizeof(void*) <=
                   PARAM_LIMIT,
               "the recomposition's kernel parameters exceed the limit");
 

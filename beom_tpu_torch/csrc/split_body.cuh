@@ -5,8 +5,9 @@
 // the tail of K1s's route 2 (namespace tail: the subcycle, the
 // recomposition and finalize in one launch, after the slow phase writes
 // only its tendencies; on the shards too); and the layer-streamed slow
-// phase and recomposition of the single-device step (namespace sps, where
-// the planes of every layer make the tiles small or do not fit).  Each of the three takes a
+// phase and recomposition (namespace sps, where the planes of every layer
+// make the tiles small or do not fit; on the shards too, their tile's
+// origin and the stacked layout given).  Each of the three takes a
 // source (shard_addr.cuh: where the tile's haloed points come from) and an
 // Out (which interior points are written, and where), the tail reads
 // through a block's row and column offsets of either layout; the
@@ -75,11 +76,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return block_smem<T>(N_PLANES * NPT, NPT);
-}
-template <typename T>
-constexpr long work_bytes() {
-  return block_work<T>(N_PLANES * NPT);
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
 // Stage regions: phi, q (and lap for nu4) on [1, R-1); the tendencies with
@@ -88,8 +85,9 @@ constexpr long work_bytes() {
 template <typename T, typename Src, int NO>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Ptrs<T, NO>& out, const Out& o) {
-  T* sm = block_planes<T>(p, N_PLANES * NPT);
-  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* u = sm + P_U * NPT;
   T* v = sm + P_V * NPT;
@@ -361,11 +359,7 @@ enum Plane {
 
 template <typename T>
 constexpr int smem_bytes() {
-  return block_smem<T>(N_PLANES * NPT, NPT);
-}
-template <typename T>
-constexpr long work_bytes() {
-  return block_work<T>(N_PLANES * NPT);
+  return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
 // Stage regions: the advecting velocities on the whole block; the
@@ -377,8 +371,9 @@ template <typename T, typename Src>
 __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
                                     const Out& o, T* out_h, T* out_u,
                                     T* out_v) {
-  T* sm = block_planes<T>(p, N_PLANES * NPT);
-  Off* gidx = block_table<T>(sm, N_PLANES * NPT);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sm = reinterpret_cast<T*>(smem_raw);
+  Off* gidx = off_table(sm, N_PLANES * NPT);
   T* h = sm + P_H * NPT;
   T* ua = sm + P_UA * NPT;
   T* va = sm + P_VA * NPT;
@@ -853,6 +848,13 @@ namespace sps {
 using fbs::point;
 using fbs::PPT;
 
+// CTAs per SM the slow phase's kernels are held to (one device and the
+// shards alike): at f32 64 registers, four CTAs per SM; on the H100 that
+// beat the 69 registers and three CTAs per SM the compiler takes on its
+// own (the shelf at 2048^2, 32 layers; PERF.md)
+template <typename T>
+constexpr int SLOW_CTAS = sizeof(T) == 4 ? 4 : 1;
+
 namespace slow {
 
 constexpr int W = spk::slow::W;
@@ -892,7 +894,7 @@ __device__ __forceinline__ void fetch(const Params<T>& p, const Off* gidx,
   T* u = sm + (P_U + k % 2) * NPT;
   T* v = sm + (P_V + k % 2) * NPT;
   for (int s = threadIdx.x; s < NPT; s += THREADS) {
-    const long g = k * p.plane + gidx[s];
+    const auto g = k * p.plane + gidx[s];
     fbp::cp_async<int(sizeof(T))>(h + s, p.in[I_H] + g);
     fbp::cp_async<int(sizeof(T))>(u + s, p.in[I_U] + g);
     fbp::cp_async<int(sizeof(T))>(v + s, p.in[I_V] + g);
@@ -900,9 +902,15 @@ __device__ __forceinline__ void fetch(const Params<T>& p, const Off* gidx,
   fbp::cp_async_commit();
 }
 
-template <typename T, int NO>
-__device__ __forceinline__ void run(const Params<T>& p,
-                                    const Ptrs<T, NO>& out) {
+// The tile whose first point is the grid's (gy0, gx0), its interior
+// points written through o into `out` (the outputs at the tile's shard's
+// block, or the grid's); with SH every operand is stacked over the shards
+// of m, and base is the offset of the tile's shard's block in a plane of
+// the stack (0 on one device), where u and v are read at the tile's points
+template <typename T, int NO, bool SH>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Stack& m,
+                                       int gy0, int gx0, const Out& o,
+                                       const Ptrs<T, NO>& out, int base) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   Off* gidx = off_table(sm, N_PLANES * NPT);
@@ -917,8 +925,7 @@ __device__ __forceinline__ void run(const Params<T>& p,
   T* mv = sm + P_MV * NPT;
   T* mq = sm + P_MQ * NPT;
   const int tid = threadIdx.x;
-  const int bx = int(blockIdx.x), by = int(blockIdx.y);
-  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  block_offsets<T, RX, RY, SH>(p, m, gidx, gy0 - W, gx0 - W);
   __syncthreads();
   fetch<T>(p, gidx, sm, 0);
   for (int s = tid; s < NPT; s += THREADS) {
@@ -934,7 +941,6 @@ __device__ __forceinline__ void run(const Params<T>& p,
     zp[s] = z;
     acc[s] = p.gp[0] * z;
   })
-  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
   using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
   // the column's sums at the thread's points
   T Hu[PPT], Hv[PPT], nu_[PPT], nv_[PPT], hs[PPT], dub[PPT], dvb[PPT];
@@ -1009,6 +1015,8 @@ __device__ __forceinline__ void run(const Params<T>& p,
   }
 
   if constexpr (NO == N_SLOW) {
+    const T* u_own = own_base(p.in[I_U]) + base;
+    const T* v_own = own_base(p.in[I_V]) + base;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       int jj, ii, s;
@@ -1023,8 +1031,8 @@ __device__ __forceinline__ void run(const Params<T>& p,
 #pragma unroll 1
       for (int k = 0; k < NZ; ++k) {
         const long gk = k * o.plane + g;
-        out.p[S_UP][gk] = p.in[I_U][gk] - ubar;
-        out.p[S_VP][gk] = p.in[I_V][gk] - vbar;
+        out.p[S_UP][gk] = u_own[gk] - ubar;
+        out.p[S_VP][gk] = v_own[gk] - vbar;
         out.p[S_DUP][gk] = out.p[S_DUP][gk] - du_bar;
         out.p[S_DVP][gk] = out.p[S_DVP][gk] - dv_bar;
       }
@@ -1069,10 +1077,16 @@ constexpr int smem_bytes() {
   return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
-// src: RecIn's fields (h, SlowPhase's, the subcycle's) of the whole grid
-template <typename T, typename Src>
-__device__ __forceinline__ void run(const Params<T>& p, const Src& src,
-                                    T* out_h) {
+// The tile whose first point is the grid's (gy0, gx0), its interior
+// points written through o into out_h (the output at the tile's shard's
+// block, or the grid's); with SH every operand is stacked over the shards
+// of m.  src: RecIn's fields (h, SlowPhase's, the subcycle's), read at
+// the block's points through their stacks (Src::base) and at the tile's
+// through its shard's block (Src::own)
+template <typename T, bool SH, typename Src>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Stack& m,
+                                       int gy0, int gx0, const Out& o,
+                                       const Src& src, T* out_h) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   Off* gidx = off_table(sm, N_PLANES * NPT);
@@ -1082,17 +1096,16 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
   T* mv = sm + P_MV * NPT;
   T* uba = sm + P_UBA * NPT;
   T* vba = sm + P_VBA * NPT;
-  const T* hin = src.template own<R_H>();
-  const T* up = src.template own<R_SP + S_UP>();
-  const T* vp = src.template own<R_SP + S_VP>();
+  BasesArg<T> hin = src.template base<R_H>();
+  BasesArg<T> up = src.template base<R_SP + S_UP>();
+  BasesArg<T> vp = src.template base<R_SP + S_VP>();
   const int tid = threadIdx.x;
-  const int bx = int(blockIdx.x), by = int(blockIdx.y);
-  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  block_offsets<T, RX, RY, SH>(p, m, gidx, gy0 - W, gx0 - W);
   __syncthreads();
   // layer k's h, u', v' into buffer k % 2 by cp.async, one group
   auto fetch = [&](int k) {
     for (int s = tid; s < NPT; s += THREADS) {
-      const long g = k * p.plane + gidx[s];
+      const auto g = k * p.plane + gidx[s];
       fbp::cp_async<int(sizeof(T))>(sm + (P_H + k % 2) * NPT + s, hin + g);
       fbp::cp_async<int(sizeof(T))>(sm + (P_UA + k % 2) * NPT + s, up + g);
       fbp::cp_async<int(sizeof(T))>(sm + (P_VA + k % 2) * NPT + s, vp + g);
@@ -1105,10 +1118,9 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
     mask[s] = p.in[I_MASK][g];
     mu[s] = p.in[I_MASK_U][g];
     mv[s] = p.in[I_MASK_V][g];
-    uba[s] = src.template own<R_SB + B_UAVG>()[g];
-    vba[s] = src.template own<R_SB + B_VAVG>()[g];
+    uba[s] = src.template base<R_SB + B_UAVG>()[g];
+    vba[s] = src.template base<R_SB + B_VAVG>()[g];
   }
-  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
   using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
   T col[PPT];
 
@@ -1190,9 +1202,14 @@ constexpr int smem_bytes() {
   return table_bytes(N_PLANES * NPT * long(sizeof(T)), NPT);
 }
 
-template <typename T, typename Src>
-__device__ __forceinline__ void run(const Params<T>& p, const Src& src,
-                                    const T* h1g, T* out_u, T* out_v) {
+// The tile whose first point is the grid's (gy0, gx0), as rch::run_at;
+// h1g is rch's output, read at the block's points (across cards its nine
+// stacks: the halo may lie on a neighbour card)
+template <typename T, bool SH, typename Src>
+__device__ __forceinline__ void run_at(const Params<T>& p, const Stack& m,
+                                       int gy0, int gx0, const Out& o,
+                                       const Src& src, BasesArg<T> h1g,
+                                       T* out_u, T* out_v) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* sm = reinterpret_cast<T*>(smem_raw);
   Off* gidx = off_table(sm, N_PLANES * NPT);
@@ -1210,8 +1227,7 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
   const T* sb_ub = src.template own<R_SB + B_UB>();
   const T* sb_vb = src.template own<R_SB + B_VB>();
   const int tid = threadIdx.x;
-  const int bx = int(blockIdx.x), by = int(blockIdx.y);
-  load_offsets<T, RX, RY, W>(p, gidx, bx, by);
+  block_offsets<T, RX, RY, SH>(p, m, gidx, gy0 - W, gx0 - W);
   __syncthreads();
   for (int s = tid; s < NPT; s += THREADS) {
     const Off g = gidx[s];
@@ -1221,7 +1237,6 @@ __device__ __forceinline__ void run(const Params<T>& p, const Src& src,
   }
   if (OBC) load_eta_ext<T, NPT>(p, gidx, ee);
   __syncthreads();
-  const Out o{by * TY, bx * TX, p.ny, p.nx, p.plane};
   using TileT = Tile<T, RX, NPT, GlobStat<T>, 0>;
   const TileT c{p, gidx, nullptr, nullptr, mask, mu, mv, nullptr, h1,
                 nullptr, nullptr, nullptr, nullptr, ee};

@@ -47,8 +47,8 @@
 // over each thread's points; the recomposition in two, the continuity and
 // the column rescale into out_h, then the velocities and finalize from the
 // rescaled h1 read back.  The subcycle and route 2's tail are the same
-// kernels in either build; K7 (shard_split.cu) keeps the slow and rec
-// bodies, on its spill route where no tile fits.
+// kernels in either build; K7 (shard_split.cu) runs the same streamed
+// bodies on the shards.
 //
 // Bound: device-memory bytes, for each kernel.  Arithmetic mirrors the
 // eager split_step op for op (fb_terms.cuh), so each kernel equals its
@@ -56,12 +56,10 @@
 // finalize, depth_means + fast_phase) bit for bit on the card.  The stage
 // bodies are csrc/split_body.cuh's, whose three route-3 bodies the same
 // kernels on the shards of a device mesh (shard_split.cu) run too; here a
-// tile's points come from the whole grid with periodic wrap.  One device
-// has no spill route: where no tile fits, the layers stream.
+// tile's points come from the whole grid with periodic wrap.  Where no
+// tile fits, the layers stream.
 
 #include "split_body.cuh"
-
-static_assert(!beom::SPILL, "split_step.cu is built without BEOM_SPILL");
 
 namespace {
 
@@ -77,24 +75,20 @@ __device__ __forceinline__ Out grid_out(const Params<T>& p) {
 
 #if BEOM_STREAM
 
-// the slow phase (NO = N_SLOW) or its tendencies (NO = N_TEND), streamed;
-// at f32 held to 64 registers, four CTAs per SM: on the H100 that beat
-// the 69 registers and three CTAs per SM the compiler takes on its own
-// (the shelf at 2048^2, 32 layers; PERF.md)
-template <typename T>
-constexpr int SLOW_CTAS = sizeof(T) == 4 ? 4 : 1;
-
+// the slow phase (NO = N_SLOW) or its tendencies (NO = N_TEND), streamed
 template <typename T, int NO>
-__global__ void __launch_bounds__(THREADS, SLOW_CTAS<T>)
+__global__ void __launch_bounds__(THREADS, sps::SLOW_CTAS<T>)
 split_slow_layers_kernel(const Params<T> p, const Ptrs<T, NO> out) {
-  sps::slow::run<T, NO>(p, out);
+  const Out o = grid_out<T, TX, TY>(p);
+  sps::slow::run_at<T, NO, false>(p, Stack{}, o.y0, o.x0, o, out, 0);
 }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 split_rec_h_layers_kernel(const Params<T> p, const GridSrc<T, N_REC_IN> src,
                           T* out_h) {
-  sps::rch::run<T>(p, src, out_h);
+  const Out o = grid_out<T, TX, TY>(p);
+  sps::rch::run_at<T, false>(p, Stack{}, o.y0, o.x0, o, src, out_h);
 }
 
 template <typename T>
@@ -102,7 +96,9 @@ __global__ void __launch_bounds__(THREADS)
 split_rec_uv_layers_kernel(const Params<T> p,
                            const GridSrc<T, N_REC_IN> src, const T* h1,
                            T* out_u, T* out_v) {
-  sps::ruv::run<T>(p, src, h1, out_u, out_v);
+  const Out o = grid_out<T, TX, TY>(p);
+  sps::ruv::run_at<T, false>(p, Stack{}, o.y0, o.x0, o, src, h1, out_u,
+                             out_v);
 }
 
 #else

@@ -35,10 +35,15 @@ the scalar slots and the geometry of each card.
 
   fb     a pass of k steps is `mesh_plan`'s launches: kb steps per launch
          (the pass kernel, fused_fb.plan's kb, at most what a block's
-         neighbours hold: kb W <= ly, lx), the single-step kernel at kb = 1;
+         neighbours hold: kb W <= ly, lx), the single-step kernel at kb = 1,
+         or where fused_fb.launch_plan streams the layers its two launches
+         per step (the continuity, then the momentum reading h1 back);
   split  a step is fused_fb.split_plan's route: route 2, the slow phase's
          tendencies then the tail (halo nsub + LO + E); route 3, the slow
-         phase, the subcycle and the recomposition;
+         phase, the subcycle and the recomposition; where the plan streams
+         the layers, the slow phase (its tendencies) in one launch and the
+         recomposition in two (the continuity and the rescale, then the
+         velocities reading h1 back);
   rigid_lid / implicit_fs  phase A and phase B, each the kernel
          fused_projection.plan takes on one device: the staged kernel at
          its geometry, or the single-step one where no staged geometry
@@ -86,27 +91,33 @@ from beom_tpu_torch.stepping import split as split_mod
 LAUNCHES = {"fb": 0, "fb_pass": 0, "split_slow": 0, "split_subcycle": 0,
             "split_recompose": 0, "split_tend": 0, "split_tail": 0,
             "proj_a": 0, "proj_b": 0}
-# the launches above that took the spill route (the single-step bodies'
-# planes in device memory: fused_fb.single_tile), by kind
-SPILL_LAUNCHES = {"fb": 0, "split_slow": 0, "split_recompose": 0,
-                  "split_tend": 0}
-# the launches above of the layer-streamed projection phases
-# (fused_projection.PhasePlan.stream)
-STREAM_LAUNCHES = {"proj_a": 0, "proj_b": 0}
-# the entries that run a single-step body, and each one's index in its
-# source's beom_work_bytes / beom_spill_ctas (the projection has no spill
-# route: its phases stream their layers)
-_SPILLABLE = {"step": 0, "split_slow": 0, "split_tend": 4,
-              "split_recompose": 1}
+# the layer-streamed kernels' launches, one per kernel and card (MeshPlan.
+# streamed): K7-fb's two per step (LAUNCHES counts the step once), K7-split's
+# slow phase or its tendencies and the recomposition's two per step
+# (LAUNCHES counts them once), and the projection phases
+STREAM_LAUNCHES = {"fb_continuity": 0, "fb_momentum": 0, "split_slow": 0,
+                   "split_tend": 0, "split_recompose": 0, "proj_a": 0,
+                   "proj_b": 0}
+# the STREAM_LAUNCHES kind of each entry of a streamed build
+_STREAMED = {"fb_cont": "fb_continuity", "fb_mom": "fb_momentum",
+             "split_slow": "split_slow", "split_tend": "split_tend",
+             "split_rec_h": "split_recompose",
+             "split_rec_uv": "split_recompose", "proj_a": "proj_a",
+             "proj_b": "proj_b"}
 
 _PROJECTION = ("rigid_lid", "implicit_fs")
 # the split kernels in the order of csrc/shard_split.cu's beom_smem_bytes
+# (and beom_kernel_halo: its first four), and of its streamed build
 _SPLIT = ("slow", "recompose", "subcycle", "tail")
+_SPLIT_STREAMED = ("split_slow", "split_rec_h", "split_subcycle",
+                   "split_tail", "split_rec_uv")
 # the phase kernels in the order of csrc/shard_projection.cu's: the
 # single-step ones, then the staged ones
 _PHASES = fused_projection._KERNELS + fused_projection._STAGED
 # the LAUNCHES kind of an entry point whose name is not its kind
-_KIND = {"step": "fb", "proj_as": "proj_a", "proj_bs": "proj_b"}
+_KIND = {"step": "fb", "fb_cont": "fb", "fb_mom": "fb",
+         "split_rec_h": "split_recompose", "split_rec_uv": "split_recompose",
+         "proj_as": "proj_a", "proj_bs": "proj_b"}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -586,6 +597,53 @@ def split3_launch_tiled(h, u, v, statics, t, cfg: Config, mesh: Mesh,
                          tile, (w, w, w, w), cards=cards)
 
 
+def fb_stream_launch_tiled(h, u, v, statics, n: int, t, cfg: Config,
+                           mesh: Mesh, tile, cards=None, halos=None):
+    """The layer-streamed fb step n's two launches over every shard, on the
+    host (_launch_tiled, each block in a ring of NaN): the continuity on
+    blocks with the halo LO, then the momentum on blocks with the halo 3
+    from h1 read back, a neighbour shard's or card's too
+    (fused_fb.fb_stream_launches); `halos` overrides (LO, 3).  Stacked in
+    and out (the cards' parts with `cards`): (h1, u1, v1)."""
+    cont, mom = fused_fb.fb_stream_launches(n, t, cfg)
+    lo, hw = halos or fused_fb.stream_halos(cfg)[:2]
+    h1, = _launch_tiled(cont, (h, u, v), statics, cfg, mesh, tile,
+                        (lo,) * 4, ring=True, cards=cards)
+    return (h1,) + tuple(_launch_tiled(mom, (h1, u, v), statics, cfg, mesh,
+                                       tile, (hw,) * 4, ring=True,
+                                       cards=cards))
+
+
+def split_stream_launch_tiled(h, u, v, statics, t, cfg: Config, mesh: Mesh,
+                              tile, sub_tile, cards=None, halos=None):
+    """The layer-streamed split step's launches over every shard, on the
+    host (fused_fb.split_stream_launches, each block in a ring of NaN): the
+    slow phase on blocks with the halo 2, route 3's subcycle on tiles of
+    `sub_tile` (halo nsub), the recomposition's continuity on blocks with
+    the halo LO and its velocities on blocks with the halo 1, each reading
+    what the launch before wrote at its neighbour shards' and cards'
+    points; `halos` overrides (2, LO, 1).  Stacked in and out: ((h1, u1,
+    v1), SlowPhase's 13 fields)."""
+    slow_l, rec_h, rec_uv = fused_fb.split_stream_launches(t, cfg)
+    hw, lo, hv = halos or fused_fb.stream_halos(cfg)[2:]
+    sl = _launch_tiled(slow_l, (h, u, v), statics, cfg, mesh, tile,
+                       (hw,) * 4, ring=True, cards=cards)
+
+    def sub(f, st, c):
+        return split_mod.subcycle_phase(_slow_phase_of(f, c, lambda a: a),
+                                        st[0], c)
+
+    w = cfg.nsub
+    eta_f, ub_f, vb_f, ub_a, vb_a = _launch_tiled(
+        sub, sl, statics, cfg, mesh, sub_tile, (w, w, w, w), cards=cards)
+    h1, = _launch_tiled(rec_h, (h, sl[0], sl[1], ub_a, vb_a, eta_f), statics,
+                        cfg, mesh, tile, (lo,) * 4, ring=True, cards=cards)
+    u1, v1 = _launch_tiled(rec_uv, (h1, sl[0], sl[1], sl[2], sl[3], sl[11],
+                                    sl[12], ub_f, vb_f), statics, cfg, mesh,
+                           tile, (hv,) * 4, ring=True, cards=cards)
+    return (h1, u1, v1), sl
+
+
 def proj_a_launch_tiled(h, u, v, statics, n: int, cfg: Config, mesh: Mesh,
                         tile, dmask: bool, staged: bool = True, cards=None):
     """Phase A over every shard, on the host: proj_a_plain on each tile's
@@ -622,9 +680,8 @@ class MeshPlan:
     blocks: the single-device kernels' plans (fused_fb.plan, split_plan,
     fused_projection.plan), with the fb pass kernel's steps per launch at
     most max_kb, the most whose halo kb W a neighbour's block holds;
-    `off_smem` forces the single-step bodies off shared memory (the spill
-    route; the projection phases layer-streamed) where a tile fits them
-    too."""
+    `off_smem` forces the single-step bodies off shared memory (their
+    layers streamed) where a tile fits them too."""
     cfg: Config
     dtype: torch.dtype
     ly: int
@@ -642,19 +699,18 @@ class MeshPlan:
                    self.max_kb)
 
     @property
-    def spilled(self) -> bool:
-        """Whether the scheme's single-step bodies take the spill route
-        (fused_fb.single_tile): where no tile fits them, or where
-        `off_smem` forces it; never for the projection (streamed)."""
-        if self.cfg.scheme in _PROJECTION:
-            return False
-        return fused_fb.single_tile(self.cfg, self.dtype, self.off_smem)[1]
-
-    @property
     def streamed(self) -> bool:
-        """Whether the projection phases stream their layers, as the
-        single-device plan has them (fused_projection.plan)."""
-        return self.cfg.scheme in _PROJECTION and self.phases.stream
+        """Whether the scheme's single-step kernels stream their layers, as
+        the single-device plans have them: K1's single step
+        (fused_fb.launch_plan), the split step's slow phase and
+        recomposition (fused_fb.split_plan), the projection phases
+        (fused_projection.plan)."""
+        if self.cfg.scheme in _PROJECTION:
+            return self.phases.stream
+        if self.cfg.scheme == "split":
+            return self.split.stream
+        return fused_fb.launch_plan(self.cfg, self.dtype, 1,
+                                    self.off_smem).stream
 
     def fb_launches(self, k: int) -> list:
         """Steps of each launch of a pass of k fb steps."""
@@ -662,9 +718,8 @@ class MeshPlan:
 
     @property
     def split(self) -> fused_fb.SplitPlan:
-        """The single-device split plan whose route and tail the shard
-        kernels take (where it streams the layers, the shard bodies keep
-        the shared memory of `spilled`'s tile, or the spill route)."""
+        """The single-device split plan whose route, tail and streamed
+        kernels the shard kernels take."""
         return fused_fb.split_plan(self.cfg, self.dtype, self.off_smem)
 
     @property
@@ -693,20 +748,10 @@ class MeshPlan:
             kb = self.kb(k)
             pl = fused_fb.launch_plan(self.cfg, self.dtype, kb,
                                       self.off_smem)
-            # where K1 streams its layers, the shard body of its single
-            # step keeps the spill route
-            text = pl.describe() if not pl.stream else (
-                f"kb 1: the single-step kernel on the spill route (its "
-                f"planes in device memory), tile {pl.tile[0]} x "
-                f"{pl.tile[1]}, {pl.threads} threads")
-            return f"{lead}; fb: {text}; launches of a {k}-step " \
+            return f"{lead}; fb: {pl.describe()}; launches of a {k}-step " \
                    f"pass: {self.fb_launches(k)}"
         if self.cfg.scheme == "split":
-            text = dataclasses.replace(self.split, stream=False).describe()
-            if self.spilled:
-                text += ("; the slow phase and the recomposition on the "
-                         "spill route (their planes in device memory)")
-            return f"{lead}; split: {text}"
+            return f"{lead}; split: {self.split.describe()}"
         return f"{lead}; projection: {self.phases.describe()}"
 
 
@@ -719,8 +764,8 @@ def _mesh_plan(cfg: Config, dtype, ly: int, lx: int,
 def mesh_plan(cfg: Config, dtype, mesh: Mesh,
               off_smem: bool = False) -> MeshPlan:
     """The MeshPlan of cfg on `mesh` (check_mesh's blocks); off_smem=True
-    forces the spill route for the single-step bodies where they would
-    fit too."""
+    forces the layer-streamed kernels where the single-step bodies would
+    fit shared memory too."""
     check_config(cfg)
     return _mesh_plan(cfg, dtype or cfg.tdtype, *check_mesh(cfg, mesh),
                       bool(off_smem))
@@ -748,13 +793,13 @@ def check_mesh(cfg: Config, mesh: Mesh):
 def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False,
                cards: bool = False, off_smem: bool = False):
     """(source, defines) of a build that runs cfg on shards: csrc/
-    shard_step.cu (the single-step kernel, or at kb > 1 the pass kernel of
-    kb steps), shard_split.cu or shard_projection.cu, with the switches,
-    tiles and geometries of the single-device kernels' builds (dmask: the
-    staged phases rebuild the staggered masks; cards: the build for a mesh
-    over several cards, BEOM_CARDS = 1; off_smem: force the single-step
-    bodies onto the spill route, which they take anyway where no tile
-    fits them, and the projection phases layer-streamed)."""
+    shard_step.cu (the single-step kernel or its layer-streamed pair, or
+    at kb > 1 the pass kernel of kb steps), shard_split.cu or
+    shard_projection.cu, with the switches, tiles, geometries and routes
+    of the single-device kernels' builds (dmask: the staged phases rebuild
+    the staggered masks; cards: the build for a mesh over several cards,
+    BEOM_CARDS = 1; off_smem: force the layer-streamed kernels, which the
+    plans take anyway where no tile fits the single-step bodies)."""
     check_config(cfg)
     if cfg.scheme in _PROJECTION:
         name, defines = "shard_projection", fused_projection.build_spec(
@@ -762,10 +807,10 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1, dmask: bool = False,
             dmask)[1]
     elif cfg.scheme == "split":
         name, defines = "shard_split", fused_fb.build_spec(
-            cfg, dtype, off_smem=off_smem, shard=True)[1]
+            cfg, dtype, off_smem=off_smem)[1]
     else:
         name, defines = "shard_step", fused_fb.build_spec(
-            cfg, dtype, kb, off_smem=off_smem, shard=True)[1]
+            cfg, dtype, kb, off_smem=off_smem)[1]
     return name, tuple(defines) + (("BEOM_CARDS=1",) if cards else ())
 
 
@@ -788,18 +833,23 @@ def _want_smem(cfg: Config, name: str, defines, elem: int, kb: int):
     bytes in a build across cards."""
     value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
     off = 8 if value.get("BEOM_CARDS") else 4
-    spill = bool(value.get("BEOM_SPILL"))
+    stream = bool(value.get("BEOM_STREAM"))
     tile = (value["BEOM_TX"], value["BEOM_TY"])
     if name == "shard_step":
         if kb > 1:
             return [fused_fb.pass_smem(cfg, kb, tile, elem, off)]
-        return [fused_fb.smem_bytes(cfg, tile, tile, elem, off=off,
-                                    spill=spill)["fb_step"]]
+        if stream:
+            want = fused_fb.stream_smem(cfg, tile, elem, off)
+            return [want["fb_momentum"], want["fb_continuity"]]
+        return [fused_fb.smem_bytes(cfg, tile, tile, elem,
+                                    off=off)["fb_step"]]
     if name == "shard_split":
         want = fused_fb.smem_bytes(
             cfg, tile, (value["BEOM_SX"], value["BEOM_SY"]), elem,
-            (value["BEOM_QX"], value["BEOM_QS"], value["BEOM_QP"]), off,
-            spill)
+            (value["BEOM_QX"], value["BEOM_QS"], value["BEOM_QP"]), off)
+        if stream:
+            want.update(fused_fb.split_stream_smem(cfg, tile, elem, off))
+            return [want[k] for k in _SPLIT_STREAMED]
         return [want[f"split_{k}"] for k in _SPLIT]
     geo = fused_projection.Geometry
     want = (fused_projection.stream_smems if value.get("BEOM_STREAM")
@@ -814,26 +864,14 @@ def _want_smem(cfg: Config, name: str, defines, elem: int, kb: int):
 # each entry's argument types: the operand table, ints, dbls, geom, then
 # its own (csrc/shard_*.cu)
 _ARGTYPES = {
-    "step": [_P] * 8,
+    "step": [_P] * 8, "fb_cont": [_P] * 6, "fb_mom": [_P] * 8,
     "split_slow": [_P] * 6, "split_tend": [_P] * 6,
     "split_subcycle": [_P] * 7, "split_recompose": [_P] * 10,
+    "split_rec_h": [_P] * 8, "split_rec_uv": [_P] * 10,
     "split_tail": [_P] * 9,
     "proj_a": [_P] * 8, "proj_as": [_P] * 8,
     "proj_b": [_P] * 5 + [ctypes.c_double] + [_P] * 4,
     "proj_bs": [_P] * 5 + [ctypes.c_double] + [_P] * 4}
-
-
-def _want_work(cfg: Config, name: str, defines, elem: int) -> dict:
-    """Bytes of a CTA's slice of the spill route's scratch of each
-    single-step body of a build, by its beom_work_bytes index (0 off the
-    route): the single-device kernels' counts."""
-    value = {d.split("=")[0]: int(d.split("=")[1]) for d in defines}
-    tile, on = (value["BEOM_TX"], value["BEOM_TY"]), value.get("BEOM_SPILL", 0)
-    w = fused_fb.work_bytes(cfg, tile, elem)
-    if name == "shard_split":
-        return {0: w["split_slow"] * on, 1: w["split_recompose"] * on,
-                4: w["split_slow"] * on}
-    return {0: w["fb_step"] * on}
 
 
 @functools.lru_cache(maxsize=None)
@@ -841,8 +879,7 @@ def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
            cards: bool = False, off_smem: bool = False):
     """(library, entry points by kernel) of build_spec(cfg, dtype, kb,
     dmask, cards, off_smem), built on first use and checked against the
-    single-device kernels' shared memory and scratch and the wrapper's
-    halos."""
+    single-device kernels' shared memory and the wrapper's halos."""
     name, defines = build_spec(cfg, dtype, kb, dmask, cards, off_smem)
     lib = build.load((name, defines))
     elem = torch.empty((), dtype=dtype).element_size()
@@ -852,16 +889,15 @@ def _entry(cfg: Config, dtype, kb: int = 1, dmask: bool = False,
             raise RuntimeError(f"{name}: kernel {i}'s shared memory ({have} "
                                f"bytes) is not the single-device kernel's "
                                f"({want})")
-    if name != "shard_projection":
-        fused_fb.spill_api(lib)
-        fused_fb.check_work(lib, name, _want_work(cfg, name, defines, elem),
-                            elem)
     halos = kernel_halos(cfg)
+    stream = "BEOM_STREAM=1" in defines
     if name == "shard_step":
-        keys, ok = ("step",), lib.beom_shard_halo() == kb * halos["fb"]
+        keys = ("fb_cont", "fb_mom") if stream and kb == 1 else ("step",)
+        ok = lib.beom_shard_halo() == kb * halos["fb"]
     elif name == "shard_split":
-        keys = tuple(f"split_{k}" for k in ("slow", "tend", "subcycle",
-                                             "recompose", "tail"))
+        keys = tuple(f"split_{k}" for k in (
+            ("slow", "tend", "subcycle", "rec_h", "rec_uv", "tail") if stream
+            else ("slow", "tend", "subcycle", "recompose", "tail")))
         ok = all(lib.beom_kernel_halo(i) == halos[k]
                  for i, k in enumerate(_SPLIT))
     else:
@@ -941,7 +977,7 @@ class MeshKernels:
 
     The order across cards is parallel/mesh.py's CardStreams.  `pl` is the
     MeshPlan to launch by (default: mesh_plan's), as mesh_plan(...,
-    off_smem=True) gives it to force the spill route."""
+    off_smem=True) gives it to force the layer-streamed kernels."""
 
     def __init__(self, statics, cfg: Config, mesh: Mesh, dtype=None,
                  cards=None, pl: Optional[MeshPlan] = None):
@@ -964,8 +1000,6 @@ class MeshKernels:
         self.plan = mesh_plan(cfg, self.dtype, mesh, pl and pl.off_smem)
         if pl is not None and pl != self.plan:
             raise ValueError(f"the plan {pl} is not one of cfg on this mesh")
-        # the spill route of the scheme's single-step bodies, by the plan
-        self.spill = self.plan.spilled
         self.ly, self.lx = self.plan.ly, self.plan.lx
         self.dmask = cfg.scheme in _PROJECTION and _global_masks(statics)
         cy = 1 + max(c.place[0] for c in self.cards)
@@ -1034,14 +1068,23 @@ class MeshKernels:
         return fused_fb._array(_P, [f[k].data_ptr() for k in self.classes[c]
                                     for f in fields])
 
+    def _field(self, c: int, f):
+        """One stacked field (the cards' parts) as card c's kernels take a
+        field they read back at their blocks' points (csrc/shard_addr.cuh:
+        field_of): its stack on one card, a table of its nine across
+        cards."""
+        return self._table(c, [f]) if self.multi else f[0].data_ptr()
+
     def _round(self, kb: int, key: str, parity: int, fields, args,
-               t1=0.0, ts=(), reads=()):
+               t1=0.0, ts=(), reads=(), count: bool = True):
         """One launch of entry `key` of the build of kb steps (or the
-        scheme's) per card, counted under its LAUNCHES kind.  fields: the
-        stacked fields in the operand table (h, u, v; every one counts for
-        the aligned switch), each as the cards' parts; reads: the other
-        stacked fields the launch reads; args(c): card c's arguments from
-        its geometry up to the stream."""
+        scheme's) per card, counted under its LAUNCHES kind (unless
+        `count` is false: the second launch of a streamed step or
+        recomposition) and, in a streamed build, its STREAM_LAUNCHES kind.
+        fields: the stacked fields in the operand table (h, u, v; every one
+        counts for the aligned switch), each as the cards' parts; reads:
+        the other stacked fields the launch reads; args(c): card c's
+        arguments from its geometry up to the stream."""
         lib, fn = self.fns(kb)
         entry = fn[key]
         nz = (self.cfg.nz,)
@@ -1049,39 +1092,27 @@ class MeshKernels:
             for c, a in enumerate(f):
                 self._check("h, u, v", a, nz, c)
         kind = _KIND.get(key, key)
-        spill = self.spill and kb == 1 and key in _SPILLABLE
-        streamed = self.plan.streamed and key in STREAM_LAUNCHES
+        streamed = self.plan.streamed and key in _STREAMED
 
-        def scratch(c):
-            # card c's scratch on the spill route, from its launch's stream
-            return fused_fb.scratch(lib, _SPILLABLE[key], self.dtype,
-                                    self._devs[c]) if spill else None
+        def counted():
+            LAUNCHES[kind] += count
+            if streamed:
+                STREAM_LAUNCHES[_STREAMED[key]] += 1
 
         if not self.multi:
-            # the scratch is held until the launch is queued, so that the
-            # caching allocator hands its memory to nothing before it
-            work = scratch(0)
             ptrs, ints, dbls = self._ops[0].set(
-                parity, [f[0] for f in fields], t1, ts, work=work)
+                parity, [f[0] for f in fields], t1, ts)
             code = entry(ptrs, ints, dbls, *args(0),
                          torch.cuda.current_stream(self.dev).cuda_stream)
             if code:
                 build.check(lib, code, f"shard {key} kernel launch")
-            LAUNCHES[kind] += 1
-            if spill:
-                SPILL_LAUNCHES[kind] += 1
-            if streamed:
-                STREAM_LAUNCHES[kind] += 1
+            counted()
             return
         aligned = all(ops._aligned for ops in self._ops) and all(
             a.data_ptr() % 16 == 0 for f in fields for a in f)
         streams = self.order.before(list(fields) + list(reads), self.ops)
-        work = []
-        for c, st in enumerate(streams):
-            with torch.cuda.stream(st):
-                work.append(scratch(c))
         sets = [ops.set(parity, [f[c] for f in fields], t1, ts,
-                        aligned=aligned, work=work[c])
+                        aligned=aligned)
                 for c, ops in enumerate(self._ops)]
         for c, card in enumerate(self.cards):
             ptrs = fused_fb._array(_P, [x for k in self.classes[c]
@@ -1092,11 +1123,7 @@ class MeshKernels:
             if code:
                 build.check(lib, code, f"shard {key} kernel launch on "
                             f"{card.device}")
-            LAUNCHES[kind] += 1
-            if spill:
-                SPILL_LAUNCHES[kind] += 1
-            if streamed:
-                STREAM_LAUNCHES[kind] += 1
+            counted()
         self.order.after()
 
     def _planes(self, n: int):
@@ -1120,10 +1147,22 @@ class MeshKernels:
         for m in steps:
             ts = fused_fb._times(t, self.cfg, m)
             outs = self._like(3, f[0])
-            self._round(m, "step", n % 2, f,
-                        lambda c: [self.geom[c]] + [o[c].data_ptr()
-                                                    for o in outs],
-                        ts[0], ts)
+            if m == 1 and self.plan.streamed:
+                # the continuity into h1, then the momentum reading it back
+                # at its blocks' points, a neighbour card's too
+                h1, u1, v1 = outs
+                self._round(1, "fb_cont", n % 2, f,
+                            lambda c: [self.geom[c], h1[c].data_ptr()],
+                            ts[0], ts)
+                self._round(1, "fb_mom", n % 2, f,
+                            lambda c: [self.geom[c], self._field(c, h1),
+                                       u1[c].data_ptr(), v1[c].data_ptr()],
+                            ts[0], ts, reads=[h1], count=False)
+            else:
+                self._round(m, "step", n % 2, f,
+                            lambda c: [self.geom[c]] + [o[c].data_ptr()
+                                                        for o in outs],
+                            ts[0], ts)
             LAUNCHES["fb_pass"] += (m > 1) * len(self.cards)
             f = outs
             n, t = n + m, ts[-1]
@@ -1191,10 +1230,24 @@ class MeshKernels:
                 self._check(f"subcycle field {i}", x, (), c)
         f = [self._parts(a) for a in (h, u, v)]
         outs = self._like(3, f[0])
-        self._round(1, "split_recompose", 0, f,
+        if not self.plan.streamed:
+            self._round(1, "split_recompose", 0, f,
+                        lambda c: [self.geom[c], self._table(c, sl),
+                                   self._table(c, sb)]
+                        + [o[c].data_ptr() for o in outs], t1, reads=sl + sb)
+            return [self._whole(o) for o in outs]
+        # the continuity and the rescale into h1, then the velocities
+        # reading it back at their blocks' points, a neighbour card's too
+        h1, u1, v1 = outs
+        self._round(1, "split_rec_h", 0, f,
                     lambda c: [self.geom[c], self._table(c, sl),
-                               self._table(c, sb)]
-                    + [o[c].data_ptr() for o in outs], t1, reads=sl + sb)
+                               self._table(c, sb), h1[c].data_ptr()], t1,
+                    reads=sl + sb)
+        self._round(1, "split_rec_uv", 0, f,
+                    lambda c: [self.geom[c], self._table(c, sl),
+                               self._table(c, sb), self._field(c, h1),
+                               u1[c].data_ptr(), v1[c].data_ptr()], t1,
+                    reads=sl + sb + [h1], count=False)
         return [self._whole(o) for o in outs]
 
     def split(self, h, u, v, t, k: int):
@@ -1238,9 +1291,7 @@ class MeshKernels:
         key = "proj_b" if self.plan.phases.b is None else "proj_bs"
         corr = fused_projection._corr(self.cfg)
         self._round(1, key, 0, f,
-                    lambda c: [self.geom[c],
-                               self._table(c, [ps]) if self.multi
-                               else ps[0].data_ptr(), corr]
+                    lambda c: [self.geom[c], self._field(c, ps), corr]
                     + [o[c].data_ptr() for o in outs], t1)
         return tuple(self._whole(o) for o in outs)
 

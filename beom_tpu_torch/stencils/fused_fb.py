@@ -47,8 +47,8 @@ the slow phase in one launch, the recomposition in two
 (`launch_plan`, `split_plan`; their `off_smem` forces the route off
 shared memory where the shared-memory route fits too), `describe()`
 names them, and STREAM_LAUNCHES counts the streamed kernels' launches.
-The shard kernels (K7, stencils/dist_band.py) take the spill route
-there instead.  `fb_step_streamed` and `split_step_streamed` run the
+The shard kernels (K7, stencils/dist_band.py) take the same routes through
+the same bodies.  `fb_step_streamed` and `split_step_streamed` run the
 streamed schedules on the host, for the tests.
 
 `fused_fb_step` runs the kernels on CUDA tensors and the plain version,
@@ -140,8 +140,8 @@ _TAIL_THREADS = 0.6
 _TAIL_MAX_FACTOR = 3.0
 # the single-step kernels of each source whose planes decide whether a
 # tile fits (off shared memory K1 and the split step stream their layers,
-# K7 takes the spill route)
-_SPILLED = {"fb_step": ("fb_step",),
+# on one device and on the shards)
+_SINGLE = {"fb_step": ("fb_step",),
             "split_step": ("split_slow", "split_recompose")}
 # the layer-streamed builds' kernels, by their index in beom_smem_bytes
 _STREAMED = {"fb_step": ("fb_momentum", "fb_continuity"),
@@ -197,18 +197,16 @@ def single_planes(cfg: Config) -> dict:
 
 
 def smem_bytes(cfg: Config, tile, sub_tile, elem: int, tail=None,
-               off: int = 4, spill: bool = False) -> dict:
+               off: int = 4) -> dict:
     """Dynamic shared memory of one CTA of each kernel at `tile` = (tx, ty)
     (`sub_tile` for the subcycle, whose halo is nsub; `tail` = (qx, qs, qp)
     for the split tail) and `elem` bytes per value: the planes of
     csrc/fb_step.cu and csrc/split_step.cu times the haloed tile, plus the
-    table of offsets of `off` bytes where the kernel has one.  On the
-    spill route (`spill`) the single-step bodies keep only the table in
-    shared memory (`work_bytes` counts their planes)."""
+    table of offsets of `off` bytes where the kernel has one."""
     out = {}
     for kernel, (w, planes) in single_planes(cfg).items():
         npt = (tile[0] + 2 * w) * (tile[1] + 2 * w)
-        out[kernel] = tables(0 if spill else npt * planes * elem, npt, off)
+        out[kernel] = tables(npt * planes * elem, npt, off)
     sub = (sub_tile[0] + 2 * cfg.nsub) * (sub_tile[1] + 2 * cfg.nsub)
     out["split_subcycle"] = sub * 10 * elem
     out["split_tail"] = tail_smem(cfg, tail, elem, off) if tail else 0
@@ -253,19 +251,11 @@ def split_stream_smem(cfg: Config, tile, elem: int, off: int = 4) -> dict:
     return out
 
 
-def work_bytes(cfg: Config, tile, elem: int) -> dict:
-    """Bytes of one CTA's slice of the spill route's scratch: each
-    single-step body's planes of its block at `tile`."""
-    return {kernel: (tile[0] + 2 * w) * (tile[1] + 2 * w) * planes * elem
-            for kernel, (w, planes) in single_planes(cfg).items()}
-
-
-def tile_or_spill(need, off_smem: bool = False):
-    """(tile, off) of single-step kernels whose CTA at a tile needs
+def tile_or_stream(need, off_smem: bool = False):
+    """(tile, stream) of single-step kernels whose CTA at a tile needs
     need(tile) bytes of shared memory: the first of _TILES that fits;
     where none fits, or where `off_smem` is true (to force it), the route
-    off shared memory (layer-streamed on one device and for the projection
-    phases on the shards too, the spill route for the other shard kernels)
+    off shared memory, layer-streamed on one device and on the shards alike,
     at the largest tile."""
     fits = [t for t in _TILES if need(t) <= _MAX_SMEM]
     off = bool(off_smem) or not fits
@@ -273,12 +263,12 @@ def tile_or_spill(need, off_smem: bool = False):
 
 
 def single_tile(cfg: Config, dtype=None, off_smem: bool = False):
-    """tile_or_spill of the single-step kernels of cfg's scheme (K1's, or
+    """tile_or_stream of the single-step kernels of cfg's scheme (K1's, or
     the split step's slow phase and recomposition)."""
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
     name = "fb_step" if cfg.scheme == "fb" else "split_step"
-    return tile_or_spill(lambda t: max(
-        smem_bytes(cfg, t, t, elem)[k] for k in _SPILLED[name]), off_smem)
+    return tile_or_stream(lambda t: max(
+        smem_bytes(cfg, t, t, elem)[k] for k in _SINGLE[name]), off_smem)
 
 
 def tail_halo(cfg: Config) -> int:
@@ -582,16 +572,15 @@ def term_defines(cfg: Config, tile):
 
 
 def build_spec(cfg: Config, dtype=None, kb: int = 1, sp=None,
-               off_smem: bool = False, shard: bool = False):
+               off_smem: bool = False):
     """(source, defines) of the build that runs cfg: fb_step.cu or
     split_step.cu with the compile-time switches and the tile; off shared
     memory BEOM_STREAM=1, layer-streamed: K1 where no tile fits
     (single_tile, `off_smem` forces it), the split step where the split
     plan `sp` streams (default split_plan(cfg, dtype, off_smem)), which
-    also gives the tail's geometry; for the shard kernels' bodies
-    (`shard`, dist_band.build_spec) BEOM_SPILL=1 where no tile fits
-    (`off_smem` forces it); with kb > 1 the fb pass kernel of kb steps at
-    the plan's tile and threads."""
+    also gives the tail's geometry; with kb > 1 the fb pass kernel of kb
+    steps at the plan's tile and threads.  The shard kernels' builds
+    (dist_band.build_spec) take these defines."""
     check_config(cfg)
     if kb > 1:
         pl = launch_plan(cfg, dtype, kb)
@@ -609,11 +598,9 @@ def build_spec(cfg: Config, dtype=None, kb: int = 1, sp=None,
     tile, off = single_tile(cfg, dtype, off_smem)
     if name == "split_step":
         sp = sp or split_plan(cfg, dtype, off_smem)
-        if not shard:
-            off = sp.stream
-            tile = _TILES[0] if off else single_tile(cfg, dtype)[0]
-    route = "BEOM_SPILL=1" if shard else "BEOM_STREAM=1"
-    defines = term_defines(cfg, tile) + ((route,) if off else ())
+        off = sp.stream
+        tile = _TILES[0] if off else single_tile(cfg, dtype)[0]
+    defines = term_defines(cfg, tile) + (("BEOM_STREAM=1",) if off else ())
     if name == "split_step":
         sub = _pick(_SUB_TILES, lambda t: smem_bytes(
             cfg, tile, t, elem)["split_subcycle"],
@@ -661,50 +648,6 @@ def _array(ctype, values):
 
 def _pointers(tensors):
     return _array(_P, [a.data_ptr() for a in tensors])
-
-
-def spill_api(lib) -> None:
-    """The argument types of a library's spill-route entries
-    (beom_work_bytes, beom_spill_ctas)."""
-    lib.beom_work_bytes.argtypes = [_I, _I]
-    lib.beom_work_bytes.restype = ctypes.c_long
-    lib.beom_spill_ctas.argtypes = [_I, _I]
-    lib.beom_spill_ctas.restype = _I
-
-
-def check_work(lib, name: str, want: dict, elem: int) -> None:
-    """Raise unless the slice of the scratch of each kernel index of `want`
-    (beom_work_bytes) is want[index] bytes (0 off the spill route)."""
-    for which, n in want.items():
-        have = lib.beom_work_bytes(which, int(elem == 8))
-        if have != n:
-            raise RuntimeError(f"{name}: kernel {which}'s slice of the "
-                               f"scratch ({have} bytes) is not what "
-                               f"work_bytes counts ({n})")
-
-
-_CTAS: dict = {}
-
-
-def scratch(lib, which: int, dtype, device):
-    """The scratch of one launch on the spill route of kernel `which` of
-    lib: (tensor, slots), one slice of the kernel's planes
-    (beom_work_bytes) for each CTA the device holds at once
-    (beom_spill_ctas), the launch's grid.  Taken from the caching
-    allocator on the device's current stream, so a launch on another
-    stream has its own."""
-    f64 = int(dtype == torch.float64)
-    key = (id(lib), which, f64, str(device))
-    if key not in _CTAS:
-        with torch.cuda.device(device):
-            _CTAS[key] = lib.beom_spill_ctas(which, f64)
-        if _CTAS[key] < 1:
-            raise RuntimeError(f"kernel {which}: no CTA of the spill route "
-                               f"fits an SM of {device}")
-    slots = _CTAS[key]
-    n = slots * lib.beom_work_bytes(which, f64) \
-        // torch.empty((), dtype=dtype).element_size()
-    return torch.empty(n, dtype=dtype, device=device), slots
 
 
 @functools.lru_cache(maxsize=None)
@@ -765,12 +708,10 @@ class SlotLayout:
 
 
 # the double slot of t1 (csrc/fb_terms.cuh: Dbl::D_T1), the int slots
-# (enum Int: J_SLOTS the spill route's CTAs), and the host table's
-# pointers (N_TABLE: the operands, then the spill route's scratch)
+# (enum Int) and the host table's pointers (N_PTR: the operands)
 D_T1 = 12
-J_SLOTS = 9
-N_INT = 10
-N_TABLE = 3 + len(_GRID_NAMES) + len(_FORCING_NAMES) + 1
+N_INT = 9
+N_PTR = 3 + len(_GRID_NAMES) + len(_FORCING_NAMES)
 
 
 def build_tides(cfg: Config) -> int:
@@ -800,10 +741,10 @@ def params_bytes(cfg: Config, elem: int, cards: bool = False) -> int:
     (csrc/fb_terms.cuh), laid out by the C rules: each member at a multiple
     of its alignment, the whole a multiple of the largest.  Across cards
     an operand is the nine pointers of its stacks."""
-    members = [((N_TABLE - 1) * (72 if cards else 8), 8), (10 * 4, 4),
+    members = [(N_PTR * (72 if cards else 8), 8), (N_INT * 4, 4),
                (16 * elem, elem), (cfg.nz * elem, elem),
                (max(build_tides(cfg), 1) * elem, elem), (_MAX_KB * elem, elem),
-               (8, 8), (8, 8)]
+               (8, 8)]
     size = 0
     for n, align in members:
         size = -(-size // align) * align + n
@@ -811,18 +752,17 @@ def params_bytes(cfg: Config, elem: int, cards: bool = False) -> int:
 
 
 def _scalars(cfg: Config, parity: int, t1, ny=None, nx=None, ts=(),
-             aligned=False, work=None):
+             aligned=False):
     """The int and double operand slots (csrc/fb_terms.cuh: Int, Dbl, the
     doubles laid out by slot_layout); (ny, nx) is the extent of the block
     stepped when it is not the whole grid; ts the time t1 of each step of
     an fb pass launch, `aligned` whether its operands all start 16-byte
-    aligned, `work` the (scratch, slots) of a launch on the spill route
-    (its CTAs in J_SLOTS; 0 off the route)."""
+    aligned."""
     lay = slot_layout(cfg)
     ints = [ny or cfg.ny, nx or cfg.nx, int(parity == 0),
             int(cfg.adv_scheme == "sadourny_energy"),
             int(cfg.slip == "free"), int(cfg.nu2 != 0.0), int(cfg.wind),
-            cfg.nsub, int(aligned), 0 if work is None else work[1]]
+            cfg.nsub, int(aligned)]
     dbls = [cfg.dt, cfg.dx, cfg.dy, cfg.g, cfg.nu2, cfg.nu4, cfg.rho0,
             cfg.h_min, cfg.h_dry, cfg.r_bot, cfg.cd_bot, cfg.r_int,
             float(t1)]
@@ -834,13 +774,11 @@ def _scalars(cfg: Config, parity: int, t1, ny=None, nx=None, ts=(),
     return _array(_I, ints), _array(ctypes.c_double, dbls)
 
 
-def _table(fields, statics, work=None):
-    """The host table of a launch (csrc/fb_terms.cuh: N_TABLE pointers):
-    the fields h, u, v (or the phase's), the statics' operands, and the
-    spill route's scratch (null off it)."""
+def _table(fields, statics):
+    """The host table of a launch (csrc/fb_terms.cuh: N_PTR pointers): the
+    fields h, u, v (or the phase's) and the statics' operands."""
     return _array(_P, [a.data_ptr() for a in list(fields)
-                       + _operands(statics)]
-                  + [0 if work is None else work.data_ptr()])
+                       + _operands(statics)])
 
 
 class Operands:
@@ -850,27 +788,22 @@ class Operands:
     and `set` fills in the rest."""
 
     def __init__(self, statics: list, cfg: Config):
-        self.ptrs = _array(_P, [0, 0, 0] + [a.data_ptr() for a in statics]
-                           + [0])
+        self.ptrs = _array(_P, [0, 0, 0] + [a.data_ptr() for a in statics])
         self._aligned = all(a.data_ptr() % 16 == 0 for a in statics)
         self._sc = {(par, al): _scalars(cfg, par, 0.0, aligned=al)
                     for par in (0, 1) for al in (False, True)}
         self._ts0 = slot_layout(cfg).ts0
 
-    def set(self, parity: int, fields, t1=None, ts=(), aligned=None,
-            work=None):
+    def set(self, parity: int, fields, t1=None, ts=(), aligned=None):
         """(ptrs, ints, dbls) with h, u, v = fields[:3] in the table, the
         aligned switch over every field (and `aligned` where given: the
-        other operands a launch reads), t1 and the step times in their
-        slots where given, and the spill route's scratch and its CTAs where
-        `work` = (scratch, slots) is given (none elsewhere)."""
+        other operands a launch reads), and t1 and the step times in their
+        slots where given."""
         p = self.ptrs
         p[0], p[1], p[2] = (a.data_ptr() for a in fields[:3])
         aligned = self._aligned and aligned is not False and all(
             a.data_ptr() % 16 == 0 for a in fields)
         ints, dbls = self._sc[parity, aligned]
-        p[N_TABLE - 1] = 0 if work is None else work[0].data_ptr()
-        ints[J_SLOTS] = 0 if work is None else work[1]
         if t1 is not None:
             dbls[D_T1] = float(t1)
         for i, x in enumerate(ts):
@@ -1271,11 +1204,30 @@ def fb_step_streamed(h, u, v, statics, n: int, t, cfg: Config, tile=None,
     u, v alone; after the last layer Flather's increments, from its sums
     over the written layers in order from the surface, are added to every
     layer.  Equal to fb_step bit for bit at the kernels' halos."""
+    tile = tile or single_tile(cfg, h.dtype, True)[0]
+    lo, hw = halos or stream_halos(cfg)[:2]
+    cont, mom = fb_stream_launches(n, t, cfg)
+    out_h, = _tiled(cont, (h, u, v), statics, cfg, tile, (lo,) * 4)
+    return (out_h,) + _tiled(mom, (out_h, u, v), statics, cfg, tile,
+                             (hw,) * 4)
+
+
+def stream_halos(cfg: Config) -> tuple:
+    """The halos of the layer-streamed kernels' blocks: K1's continuity
+    (LO) and momentum (3); K1s's slow phase (2), recomposition continuity
+    (LO) and velocities (1)."""
+    lo = 2 if cfg.wetdry else 1
+    return lo, 3, 2, lo, 1
+
+
+def fb_stream_launches(n: int, t, cfg: Config):
+    """The two launches of the layer-streamed fb step n from time t, as
+    fn(block fields, block statics, block cfg) on one haloed block (what a
+    CTA computes, fb_step_streamed): the continuity from (h, u, v) to
+    (h1,), the momentum from (h1, u, v) to (u1, v1)."""
     from beom_tpu_torch.core import ops
     from beom_tpu_torch.physics import continuity, obc, wetdry
 
-    tile = tile or single_tile(cfg, h.dtype, True)[0]
-    lo, hw = halos or ((2 if cfg.wetdry else 1), 3)
     t1 = advance_time(t, cfg.dt, cfg.npdtype)
     dt = cfg.dt
 
@@ -1317,10 +1269,7 @@ def fb_step_streamed(h, u, v, statics, n: int, t, cfg: Config, tile=None,
         return obc.apply_flather(h1c, torch.cat(out_u), torch.cat(out_v), g,
                                  fo, c, t1)
 
-    out_h, = _tiled(continuity_launch, (h, u, v), statics, cfg, tile,
-                    (lo,) * 4)
-    return (out_h,) + _tiled(momentum_launch, (out_h, u, v), statics, cfg,
-                             tile, (hw,) * 4)
+    return continuity_launch, momentum_launch
 
 
 def _layer_terms(h, u, v, g, fo, c, k: int, acc):
@@ -1426,11 +1375,34 @@ def split_step_streamed(h, u, v, statics, n: int, t, cfg: Config,
     over the layers, are added afterwards.  Returns (h1, u1, v1) and the
     slow phase; equal to the plain split step and slow phase bit for bit
     at the kernels' halos."""
+    tile = tile or _TILES[0]
+    hw, lo, hv = halos or stream_halos(cfg)[2:]
+    slow_l, rec_h, rec_uv = split_stream_launches(t, cfg)
+    slow = _tiled(slow_l, (h, u, v), statics, cfg, tile, (hw,) * 4)
+    kb = cfg.nz - 1
+    slow = SlowPhase(*slow[:11], cu=drag._on_layer(slow[11], kb, cfg.nz),
+                     cv=drag._on_layer(slow[12], kb, cfg.nz))
+    grid = statics[0]
+    eta_f, ub_f, vb_f, ub_a, vb_a = split_mod.subcycle_phase(slow, grid, cfg)
+    h1, = _tiled(rec_h, (h, slow.up, slow.vp, ub_a, vb_a, eta_f),
+                 statics, cfg, tile, (lo,) * 4)
+    u1, v1 = _tiled(rec_uv, (h1, slow.up, slow.vp, slow.du_p, slow.dv_p,
+                             slow.cu[kb], slow.cv[kb], ub_f, vb_f), statics,
+                    cfg, tile, (hv,) * 4)
+    return h1, u1, v1, slow
+
+
+def split_stream_launches(t, cfg: Config):
+    """The launches of the layer-streamed split step from time t, as
+    fn(block fields, block statics, block cfg) on one haloed block (what a
+    CTA computes, split_step_streamed): the slow phase from (h, u, v) to
+    SlowPhase's 13 fields (cu, cv as the bottom plane); the
+    recomposition's continuity from (h, u', v', ubar_avg, vbar_avg,
+    eta_f) to (h1,); its velocities from (h1, u', v', du', dv', cu, cv,
+    ubar_f, vbar_f) to (u1, v1)."""
     from beom_tpu_torch.core import ops
     from beom_tpu_torch.physics import continuity, obc, wetdry
 
-    tile = tile or _TILES[0]
-    hw, lo, hv = halos or (2, (2 if cfg.wetdry else 1), 1)
     t1 = advance_time(t, cfg.dt, cfg.npdtype)
     dt = cfg.dt
 
@@ -1498,19 +1470,7 @@ def split_step_streamed(h, u, v, statics, n: int, t, cfg: Config,
         return obc.apply_flather(h1, torch.cat(out_u), torch.cat(out_v), g,
                                  fo, c, t1)
 
-    slow = _tiled(slow_launch, (h, u, v), statics, cfg, tile, (hw,) * 4)
-    kb = cfg.nz - 1
-    slow = SlowPhase(*slow[:11], cu=drag._on_layer(slow[11], kb, cfg.nz),
-                     cv=drag._on_layer(slow[12], kb, cfg.nz))
-    grid = statics[0]
-    eta_f, ub_f, vb_f, ub_a, vb_a = split_mod.subcycle_phase(slow, grid, cfg)
-    h1, = _tiled(rec_h_launch, (h, slow.up, slow.vp, ub_a, vb_a, eta_f),
-                 statics, cfg, tile, (lo,) * 4)
-    u1, v1 = _tiled(rec_uv_launch, (h1, slow.up, slow.vp, slow.du_p,
-                                    slow.dv_p, slow.cu[kb], slow.cv[kb],
-                                    ub_f, vb_f), statics, cfg, tile,
-                    (hv,) * 4)
-    return h1, u1, v1, slow
+    return slow_launch, rec_h_launch, rec_uv_launch
 
 
 def split_step_tiled(h, u, v, statics, n: int, t, cfg: Config, k: int,

@@ -160,11 +160,11 @@ def stream_smems(cfg: Config, tile, elem: int, off: int = 4) -> dict:
 
 
 def single_tile(cfg: Config, dtype=None, off_smem: bool = False):
-    """fused_fb.tile_or_spill of the single-step phase kernels: (tile,
+    """fused_fb.tile_or_stream of the single-step phase kernels: (tile,
     off), off where no tile fits them (the phases then stream their
     layers) or where `off_smem` forces it."""
     elem = torch.empty((), dtype=dtype or cfg.tdtype).element_size()
-    return fused_fb.tile_or_spill(
+    return fused_fb.tile_or_stream(
         lambda t: max(smem_bytes(cfg, t, elem).values()), off_smem)
 
 

@@ -227,14 +227,17 @@ Phases, each of which raises on failure (exit code != 0):
      TPXO's constituents, past the shared-memory walls of K1 (24 layers)
      and K3a / K3b (31): K1 and both projection phases stream their layers
      through a few shared-memory planes of one layer (K1 two launches per
-     step, the continuity and the momentum), on one device and, for the
-     projection, on the shards too (K7-proj); K7-fb's body takes the spill
-     route (its planes in device memory).  Paths, each with the counts set
-     to 0 just before and read just after: run() with backend='fused', 100
-     steps, diagnostics every 50 (finite; K1's two streamed kernels once
-     per step), run() of the implicit free surface 3 steps (K3a and K3b
-     layer-streamed), and both again on 2 x 2 shards of the card (K7-fb,
-     K7-proj streamed); the implicit free surface at 512^2 f64 with 16
+     step, the continuity and the momentum), and K1s's slow phase and
+     recomposition (route 3) too, on one device and on the shards alike
+     (K7-fb, K7-split, K7-proj).  Paths, each with the counts set to 0 just
+     before and read just after: run() with backend='fused', 100 steps,
+     diagnostics every 50 (finite; K1's two streamed kernels once per
+     step), run() of the split scheme 10 steps, of the implicit free
+     surface 3 steps (K3a and K3b layer-streamed), and the three again on 2
+     x 2 shards of the card (K7-fb's two streamed kernels once per step,
+     K7-split's slow phase once and its recomposition's two, K7-proj
+     streamed; the fb and split runs' diagnostics lines those of the
+     single-device runs); the implicit free surface at 512^2 f64 with 16
      layers, on one device and on 2 x 2 shards.  Then K1 (both parities;
      its continuity's h1 and its momentum's u, v each held and each kernel
      timed on the device beside the plain continuity and the plain
@@ -243,18 +246,18 @@ Phases, each of which raises on failure (exit code != 0):
      bit their plain versions (K3a's div within 4 ulp / 1e-12 of its
      scale: past two layers the plain version's torch.sum adds in an order
      of its own), K7-fb, K7-split and K7-proj on 2 x 2 shards bit for bit
-     the single-device kernels, and K7-proj as two cards' stacks of the
-     card (the BEOM_CARDS build) bit for bit the one-stack route, each
-     kernel's time between CUDA events and on the device beside its plain
-     version's; the same checks at 512^2 f64 with 16 layers, K3a / K3b and
-     K7-proj timed there too; at nz 8 f32, where every route builds, the
-     routes forced by the plans' own parameter bit for bit the
-     shared-memory route for K1, K1s and K3a / K3b, both timed, 2 steps
-     each of K1 and of the split step on the forced route (their paths),
-     and one step of K7-split on the forced route on 2 x 2 shards (its
-     path), bit for bit K1s on that route; the bounds of K1s's spill
-     kernels at nz 32.  `python3 chip_smoke.py --layers` runs this phase
-     alone, after its builds.
+     the single-device kernels, and as two cards' stacks of the card (the
+     BEOM_CARDS build) bit for bit the one-stack route, each kernel's time
+     between CUDA events and on the device beside its plain version's
+     (K7-split's slow phase and recomposition each alone); the same checks
+     at 512^2 f64 with 16 layers, K3a / K3b and K7-proj timed there too; at
+     nz 8 f32, where every route builds, the routes forced by the plans'
+     own parameter bit for bit the shared-memory route for K1, K1s and K3a
+     / K3b, both timed, 2 steps each of K1 and of the split step on the
+     forced route (their paths), and one step each of K7-fb and K7-split
+     layer-streamed on 2 x 2 shards (their paths), bit for bit K1 and K1s
+     on the shared-memory route.  `python3 chip_smoke.py --layers` runs
+     this phase alone, after its builds.
 
 The line before the last is the kernels' JSON record, each kernel with its
 time, its plain version's, and the least time the card could take for the
@@ -268,6 +271,7 @@ import dataclasses
 import functools
 import io
 import json
+import re
 import subprocess
 import sys
 import time
@@ -618,7 +622,11 @@ def print_build(build, name):
     secs, log = build.BUILD_LOG[name]
     print(f"   {name}: nvcc {secs:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        entry = re.search(r"Compiling entry function '.*?\d([a-z_]+_kernel)I"
+                          r"([fd])", line)
+        if entry:
+            print(f"   {entry[1]}<{'float' if entry[2] == 'f' else 'double'}>")
+        elif "registers" in line or "spill" in line:
             print("   " + line.strip())
 
 
@@ -3940,11 +3948,11 @@ def cards_phase(dev, smi):
 
 # phase 28: the shelf at full width with many layers and constituents.
 # 2048^2 f32 at 32 layers is past K1's wall of 24 layers under wet/dry and
-# K3a / K3b's of 32 (K1, K3a and K3b layer-streamed, K7-proj too, K7-fb's
-# body on the spill route); 512^2 f64 at 16 layers past K1's 13 and K3a /
-# K3b's 16 (the time limit cuts the f64 grid); nz 8 f32, where every route
-# builds, holds the routes forced by the plans' own parameter against the
-# shared-memory route
+# K3a / K3b's of 32 (K1, K3a and K3b layer-streamed, and K1s's route 3
+# from 4 layers; K7-fb, K7-split and K7-proj streamed with them); 512^2
+# f64 at 16 layers past K1's 13 and K3a / K3b's 16 (the time limit cuts
+# the f64 grid); nz 8 f32, where every route builds, holds the routes
+# forced by the plans' own parameter against the shared-memory route
 LAYERS28 = 32
 TIDES28 = 13
 TIDE_SEED28 = 28
@@ -4025,13 +4033,12 @@ def layers_specs():
                                 stream=False)))
             m = pmesh.make_mesh(*MESH28, devices=["cpu"])
             if mesh:
-                specs |= dist_band.build_specs(cfg, cfg.tdtype, m, dmask=dm)
-                if scheme == "implicit_fs":
-                    # K7-proj as two cards' stacks
+                # K7 on one stack and as two cards' stacks
+                for cards in (False, True):
                     specs |= dist_band.build_specs(cfg, cfg.tdtype, m,
-                                                   dmask=dm, cards=True)
-            elif scheme == "split":
-                # K7-split on the forced route
+                                                   dmask=dm, cards=cards)
+            elif scheme != "implicit_fs":
+                # K7-fb and K7-split on the forced route
                 specs |= dist_band.build_specs(cfg, cfg.tdtype, m,
                                                off_smem=True)
     return specs
@@ -4044,25 +4051,27 @@ def layers_leg(dev, smi, nz, dtype, n, timed, timed_proj=False,
     and K3a / K3b layer-streamed, each bit for bit its plain version (K3a's
     div within 4 ulp / 1e-12 of its scale; both sweep parities where the
     kernel takes one), their plans printed, and K7-fb, K7-split and
-    K7-proj on a 2 x 2 mesh of shards of the card (K7-split's bodies in
-    shared memory on the tile that fits, K7-fb's on the spill route,
-    K7-proj's layer-streamed) bit for bit the single-device kernels; with
-    `cards`, K7-proj also as two cards' stacks (the BEOM_CARDS build) bit
-    for bit the one-stack route.  With `timed` (`timed_proj`: the
-    projection's kernels alone), each kernel's time between CUDA events
-    and on the device beside its plain version's (K1's step, both
-    launches, between events; its two kernels each on the device, beside
-    the plain continuity and the plain momentum and finalize; K1s's
-    recomposition, both launches, between events and each on the device).
-    Returns {kernel: (err, (ms, plain_ms), device ms)} of the timed kernels
-    (K1s's recomposition: its kernels' device times by name), and under
-    "fb_parts" {K1's kernel: (err, device ms, plain part's ms)}."""
+    K7-proj on a 2 x 2 mesh of shards of the card (layer-streamed, as the
+    single-device kernels) bit for bit the single-device kernels; with
+    `cards`, each also as two cards' stacks (the BEOM_CARDS build) bit for
+    bit the one-stack route.  With `timed` (`timed_proj`: the projection's
+    kernels alone), each kernel's time between CUDA events and on the
+    device beside its plain version's (K1's step, both launches, between
+    events; its two kernels each on the device, beside the plain
+    continuity and the plain momentum and finalize; K1s's recomposition,
+    both launches, between events and each on the device; K7-split's slow
+    phase and recomposition each alone).  Returns {kernel: (err, (ms,
+    plain_ms), device ms)} of the timed kernels (K1s's recomposition and
+    the K7 rows: the device times by kernel name), and under "fb_parts"
+    {K1's kernel: (err, device ms, plain part's ms)}."""
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band, fused_fb
     from beom_tpu_torch.stencils import fused_projection as fp
     from beom_tpu_torch.stepping import fb, split
+
+    from beom_tpu_torch.core.state import advance_time
 
     tag = f"{n}^2 {dtype} nz={nz}"
     out = {}
@@ -4219,6 +4228,8 @@ def layers_leg(dev, smi, nz, dtype, n, timed, timed_proj=False,
         statics = (grid, forcing)
         K = dist_band.MeshKernels(statics, cfg, m)
         print(f"   K7 {scheme} {tag} on {MESH28}: {K.plan.describe()}")
+        if not K.plan.streamed:
+            raise AssertionError(f"K7-{scheme} {tag} is not layer-streamed")
         f = [dist_band.stack_global(a, m) for a in (st.h, st.u, st.v)]
         gather = lambda outs: [pmesh.gather(dist_band.unstack(a, m))
                                for a in outs]
@@ -4228,15 +4239,29 @@ def layers_leg(dev, smi, nz, dtype, n, timed, timed_proj=False,
             seven = lambda: K.step(*f, 1, st.t, 1)
             got, ref = seven(), one()
             torch.cuda.synchronize()
-            err7 = agree(f"K7-{scheme} {tag} vs K1{'s' * (scheme != 'fb')}",
-                         gather(got), ref, None)
-            keys = ({"shard_step_kernel": 1, "fb_cont_kernel": 1,
+            err7 = agree(f"K7-{scheme} {tag} (layer-streamed) vs "
+                         f"K1{'s' * (scheme != 'fb')}", gather(got), ref,
+                         None)
+            if cards:
+                step_two_cards(K, statics, cfg, m, f, st.t, got, tag)
+            keys = ({"shard_cont_layers_kernel": 1,
+                     "shard_mom_layers_kernel": 1, "fb_cont_kernel": 1,
                      "fb_mom_kernel": 1}
                     if scheme == "fb" else
-                    {"shard_slow_kernel": 1, "shard_sub_kernel": 1,
-                     "shard_rec_kernel": 1, "split_slow_layers_kernel": 1,
-                     "split_sub_kernel": 1, "split_rec_h_layers_kernel": 1,
+                    {"shard_slow_layers_kernel": 1, "shard_sub_kernel": 1,
+                     "shard_rec_h_layers_kernel": 1,
+                     "shard_rec_uv_layers_kernel": 1,
+                     "split_slow_layers_kernel": 1, "split_sub_kernel": 1,
+                     "split_rec_h_layers_kernel": 1,
                      "split_rec_uv_layers_kernel": 1})
+            if scheme == "split":
+                # each kernel alone, for its row
+                t1 = advance_time(st.t, cfg.dt, cfg.npdtype)
+                slow7 = K.slow(*f)
+                sub7 = K.subcycle(slow7, *f)
+                parts = {"slow": lambda: K.slow(*f),
+                         "recompose": lambda: K.recompose(slow7, sub7, *f,
+                                                          t1)}
         else:
             p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype,
                             device=dev) * grid.mask
@@ -4272,17 +4297,63 @@ def layers_leg(dev, smi, nz, dtype, n, timed, timed_proj=False,
                                "kernels", lambda: (seven(), one()), 5, keys)
             print(f"   K7-{scheme} {tag}: {ms7!r} ms per call between "
                   f"events, the single-device kernels {ms1!r} ms ({smi})")
-            if scheme == "implicit_fs":
+            if scheme == "fb":
+                out["shard_fb"] = (err7, ms7, dev_ms)
+            else:
+                name = "proj" if scheme == "implicit_fs" else "split"
                 for x, fn in parts.items():
                     ms = time_ms(fn, 5)
-                    print(f"   K7-proj {x} {tag} alone: {ms!r} ms between "
-                          "events")
-                    out[f"shard_proj_{x.lower()}"] = (err7, ms, dev_ms)
-            else:
-                out[f"shard_{scheme}"] = (err7, ms7, dev_ms)
+                    print(f"   K7-{name} {x} {tag} alone: {ms!r} ms between "
+                          f"events ({smi})")
+                    out[f"shard_{name}_{x.lower()}"] = (err7, ms, dev_ms)
         del K, f, statics, grid, forcing, st
         torch.cuda.empty_cache()
     return out
+
+
+def two_cards_of(m):
+    """The 2 x 2 mesh m of shards of the one card as two cards' stacks
+    split along x (the second on a side stream)."""
+    from beom_tpu_torch.parallel.mesh import card_groups
+
+    return [dataclasses.replace(c, device=m.devices[0])
+            for c in card_groups(["a", "b"] * 2, 2, 2)]
+
+
+def step_two_cards(K1, statics, cfg, m, one, t, got1, tag):
+    """One step of K7-fb or K7-split over two cards' stacks of the one card
+    (the build with BEOM_CARDS = 1, two_cards_of), from the one-stack
+    route's fields `one`, bit for bit the one-stack route's got1 (K1's
+    step); each card's launches of the streamed kernels counted: K7-fb's
+    continuity and momentum once per card, K7-split's slow phase once and
+    its recomposition's two.  The second card's momentum (velocities)
+    launch reads h1 that the first card's continuity launch wrote."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band
+
+    K2 = dist_band.MeshKernels(statics, cfg, m, cards=two_cards_of(m))
+    if not K2.plan.streamed:
+        raise AssertionError(f"K7-{cfg.scheme} {tag} over two cards is not "
+                             "layer-streamed")
+    two = [K2.stack(K1.unstack(a, m)) for a in one]
+    saved = dict(dist_band.STREAM_LAUNCHES)
+    dist_band.STREAM_LAUNCHES.update(dict.fromkeys(saved, 0))
+    got2 = K2.step(*two, 1, t, 1)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in dist_band.STREAM_LAUNCHES.items() if v}
+    dist_band.STREAM_LAUNCHES.update(saved)
+    want = {"fb_continuity": 2, "fb_momentum": 2} if cfg.scheme == "fb" \
+        else {"split_slow": 2, "split_recompose": 4}
+    if counts != want:
+        raise AssertionError(f"K7-{cfg.scheme} {tag} over two cards: "
+                             f"streamed launches {counts}, want {want}")
+    agree(f"K7-{cfg.scheme} {tag}, two cards (BEOM_CARDS) vs one stack",
+          [pmesh.gather(K2.unstack(a, m)) for a in got2],
+          [pmesh.gather(K1.unstack(a, m)) for a in got1], None)
+    print(f"   K7-{cfg.scheme} {tag} over two cards: streamed launches "
+          f"{counts}")
 
 
 def proj_two_cards(K1, statics, cfg, m, one, p1, t, a1, b1, tag):
@@ -4295,12 +4366,9 @@ def proj_two_cards(K1, statics, cfg, m, one, p1, t, a1, b1, tag):
     import torch
 
     from beom_tpu_torch.parallel import mesh as pmesh
-    from beom_tpu_torch.parallel.mesh import card_groups
     from beom_tpu_torch.stencils import dist_band
 
-    cards = [dataclasses.replace(c, device=m.devices[0])
-             for c in card_groups(["a", "b"] * 2, 2, 2)]
-    K2 = dist_band.MeshKernels(statics, cfg, m, cards=cards)
+    K2 = dist_band.MeshKernels(statics, cfg, m, cards=two_cards_of(m))
     if not K2.plan.streamed:
         raise AssertionError(f"K7-proj {tag} over two cards is not "
                              "layer-streamed")
@@ -4312,7 +4380,7 @@ def proj_two_cards(K1, statics, cfg, m, one, p1, t, a1, b1, tag):
     a2 = K2.proj_a(*two, 0)
     b2 = K2.proj_b(two[0], us, vs, p2, t)
     torch.cuda.synchronize()
-    counts = dict(dist_band.STREAM_LAUNCHES)
+    counts = {k: v for k, v in dist_band.STREAM_LAUNCHES.items() if v}
     dist_band.STREAM_LAUNCHES.update(saved)
     if counts != {"proj_a": 2, "proj_b": 2}:
         raise AssertionError(f"K7-proj {tag} over two cards: streamed "
@@ -4330,13 +4398,13 @@ def both_routes(dev, smi, nz):
     """Phase 28's last leg: at nz layers (2048^2 f32), where every route
     builds, the routes off shared memory forced by the plans' own
     parameter (fused_fb.plan, split_plan, fused_projection.plan,
-    dist_band.mesh_plan: K1, K3a, K3b and the split step layer-streamed,
-    K7-split on the spill route) bit for bit the shared-memory route, each
-    timed beside it; and three paths through the forced routes, their
-    kernels' counts read from 0: 2 steps of K1 and of the split step, and
-    one of K7-split on 2 x 2 shards of the card, bit for bit the
-    single-device kernels on the forced route.  Returns {kernel: (err, ms,
-    device ms, launches)} of the forced split kernels (the streamed
+    dist_band.mesh_plan: K1, K3a, K3b, the split step, K7-fb and K7-split
+    layer-streamed) bit for bit the shared-memory route, each timed beside
+    it; and four paths through the forced routes, their kernels' counts
+    read from 0: 2 steps of K1 and of the split step, and one each of K7-fb
+    and K7-split on 2 x 2 shards of the card, bit for bit the single-device
+    kernels on the shared-memory route.  Returns {kernel: (err, ms, device
+    ms, launches)} of the forced split kernels (the streamed
     recomposition's device ms by kernel)."""
     import torch
 
@@ -4362,11 +4430,11 @@ def both_routes(dev, smi, nz):
         print(f"   {scheme} {tag}, forced: {forced.describe()}; the plan's: "
               f"{usual.describe()}")
         got = fused_fb.fused_fb_step(*args, pl=forced)
-        ref = fused_fb.fused_fb_step(*args, pl=usual)
+        smem_out = fused_fb.fused_fb_step(*args, pl=usual)
         torch.cuda.synchronize()
         route = "the layer-streamed route"
         agree(f"{scheme} {tag}: {route} vs the shared-memory route",
-              got, ref, None)
+              got, smem_out, None)
         ms = time_pair(f"{scheme} {tag} shared-memory route (as 'plain') vs "
                        f"{route}", lambda: fused_fb.fused_fb_step(
                            *args, pl=usual), lambda: fused_fb.fused_fb_step(
@@ -4385,6 +4453,29 @@ def both_routes(dev, smi, nz):
             if counts != {**dict.fromkeys(counts, 0), "fb_continuity": 2,
                           "fb_momentum": 2}:
                 raise AssertionError(f"the forced fb path: {counts}")
+            # K7-fb on the forced route: one step on 2 x 2 shards of the
+            # card, its streamed launches counted from 0, bit for bit the
+            # single-device K1 on the shared-memory route (`smem_out`)
+            m = pmesh.make_mesh(*MESH28, devices=[dev])
+            K = dist_band.MeshKernels(statics, cfg, m, pl=dist_band.mesh_plan(
+                cfg, cfg.tdtype, m, True))
+            print(f"   K7-fb {tag} on {MESH28}, forced: {K.plan.describe()}")
+            f = [dist_band.stack_global(a, m) for a in (st.h, st.u, st.v)]
+            saved = dict(dist_band.STREAM_LAUNCHES)
+            dist_band.STREAM_LAUNCHES.update(dict.fromkeys(saved, 0))
+            seven = K.step(*f, 1, st.t, 1)
+            torch.cuda.synchronize()
+            counts7 = {k: v for k, v in dist_band.STREAM_LAUNCHES.items()
+                       if v}
+            dist_band.STREAM_LAUNCHES.update(saved)
+            print(f"   K7-fb {tag}, 1 step on the forced route: streamed "
+                  f"launches {counts7}")
+            if counts7 != {"fb_continuity": 1, "fb_momentum": 1}:
+                raise AssertionError(f"the forced K7-fb path: {counts7}")
+            agree(f"K7-fb {tag} (layer-streamed) vs K1 (shared-memory "
+                  "route)", [pmesh.gather(dist_band.unstack(a, m))
+                             for a in seven], smem_out, None)
+            del K, f, seven
         if scheme == "split":
             # the forced route's path: 2 steps, the counts from 0
             saved = dict(fused_fb.STREAM_LAUNCHES)
@@ -4441,46 +4532,51 @@ def both_routes(dev, smi, nz):
                 err_r, ms_r, {k: v for k, v in dev_ms.items()
                               if "rec" in k},
                 counts["split_recompose"])
-            # K7-split on the forced route: one step on 2 x 2 shards of the
-            # card, its spill launches counted from 0, bit for bit the
-            # single-device kernels on the same route (`got`)
+            # K7-split on the forced route (the plan's here): one step on
+            # 2 x 2 shards of the card, its streamed launches counted from
+            # 0, bit for bit the single-device K1s on the shared-memory
+            # route (`smem_out`)
             m = pmesh.make_mesh(*MESH28, devices=[dev])
             K = dist_band.MeshKernels(statics, cfg, m, pl=dist_band.mesh_plan(
                 cfg, cfg.tdtype, m, True))
             print(f"   K7-split {tag} on {MESH28}, forced: "
                   f"{K.plan.describe()}")
             f = [dist_band.stack_global(a, m) for a in (st.h, st.u, st.v)]
-            saved = dict(dist_band.SPILL_LAUNCHES)
-            dist_band.SPILL_LAUNCHES.update(dict.fromkeys(saved, 0))
+            saved = dict(dist_band.STREAM_LAUNCHES)
+            dist_band.STREAM_LAUNCHES.update(dict.fromkeys(saved, 0))
             seven = K.step(*f, 1, st.t, 1)
             torch.cuda.synchronize()
-            counts7 = dict(dist_band.SPILL_LAUNCHES)
-            dist_band.SPILL_LAUNCHES.update(saved)
-            print(f"   K7-split {tag}, 1 step on the forced route: spill "
+            counts7 = {k: v for k, v in dist_band.STREAM_LAUNCHES.items()
+                       if v}
+            dist_band.STREAM_LAUNCHES.update(saved)
+            print(f"   K7-split {tag}, 1 step on the forced route: streamed "
                   f"launches {counts7}")
-            if counts7["split_slow"] != 1 or counts7["split_recompose"] != 1:
+            if counts7 != {"split_slow": 1, "split_recompose": 2}:
                 raise AssertionError(f"the forced K7-split path: {counts7}")
-            err7 = agree(f"K7-split {tag} (spill route) vs K1s "
-                         "(layer-streamed)",
+            err7 = agree(f"K7-split {tag} (layer-streamed) vs K1s "
+                         "(shared-memory route)",
                          [pmesh.gather(dist_band.unstack(a, m))
-                          for a in seven], got, None)
+                          for a in seven], smem_out, None)
             t1 = st.t + cfg.npdtype.type(cfg.dt)
             slow7 = K.slow(*f)
             sub7 = K.subcycle(slow7, *f)
             slow7_fn = lambda: K.slow(*f)
             rec7_fn = lambda: K.recompose(slow7, sub7, *f, t1)
             ms7 = (time_ms(slow7_fn, 10), time_ms(rec7_fn, 10))
-            dev7 = device_ms(f"K7-split slow / recompose {tag} (spill "
-                             "route)", lambda: (slow7_fn(), rec7_fn()), 5,
-                             {"shard_slow_kernel": 1, "shard_rec_kernel": 1})
-            print(f"   K7-split {tag} (spill route): slow {ms7[0]!r} ms, "
+            dev7 = device_ms(f"K7-split slow / recompose {tag} "
+                             "(layer-streamed)",
+                             lambda: (slow7_fn(), rec7_fn()), 5,
+                             {"shard_slow_layers_kernel": 1,
+                              "shard_rec_h_layers_kernel": 1,
+                              "shard_rec_uv_layers_kernel": 1})
+            print(f"   K7-split {tag} (layer-streamed): slow {ms7[0]!r} ms, "
                   f"recompose {ms7[1]!r} ms between events ({smi})")
-            out["shard_split_slow"] = (err7, (ms7[0], ms_s[1]),
-                                       dev7["shard_slow_kernel"],
+            out["shard_split_slow"] = (err7, (ms7[0], ms_s[1]), dev7,
                                        counts7["split_slow"])
-            out["shard_split_recompose"] = (err7, (ms7[1], ms_r[1]),
-                                            dev7["shard_rec_kernel"],
-                                            counts7["split_recompose"])
+            out["shard_split_recompose"] = (
+                err7, (ms7[1], ms_r[1]),
+                {k: v for k, v in dev7.items() if "rec" in k},
+                counts7["split_recompose"])
             del K, f, seven, slow7, sub7
         del statics, grid, forcing, st
         torch.cuda.empty_cache()
@@ -4527,10 +4623,12 @@ def layers_paths(dev, smi):
     per step), run() of the split scheme (nsub 8, 10 steps, diagnostics
     every 5: K1s's layer-streamed slow phase and recomposition, four
     launches per step), run() of the implicit free surface (3 steps: K3a
-    and K3b layer-streamed around K6), and the fb and implicit-FS paths on
-    a 2 x 2 mesh of shards of the card (10 and 3 steps: K7-fb on the spill
-    route, K7-proj layer-streamed); and the implicit free surface at
-    N28_F64^2 f64 with LAYERS28_F64 layers, on one device and on 2 x 2
+    and K3b layer-streamed around K6), and the three paths again on a 2 x
+    2 mesh of shards of the card (K7-fb's two streamed kernels once per
+    step, K7-split's slow phase once and its recomposition's two,
+    K7-proj's phases layer-streamed; the fb and split runs' diagnostics
+    lines those of the single-device runs); and the implicit free surface
+    at N28_F64^2 f64 with LAYERS28_F64 layers, on one device and on 2 x 2
     shards (3 steps each).  Returns the counts by path."""
     import torch
 
@@ -4538,14 +4636,16 @@ def layers_paths(dev, smi):
     from beom_tpu_torch.stencils import dist_band, fused_fb
     from beom_tpu_torch.stencils import fused_projection as fp
 
-    counts = {}
+    counts, logs = {}, {}
     f32 = (LAYERS28, "float32", BIG)
     f64 = (LAYERS28_F64, "float64", N28_F64)
     for label, scheme, kw, n_steps, (nz, dtype, n) in (
             ("fb", "fb", {}, 100, f32),
             ("split", "split", dict(nsub=8), 10, f32),
             ("implicit FS", "implicit_fs", dict(precond="jacobi"), 3, f32),
-            ("fb on 2 x 2 shards", "fb", dict(mesh_y=2, mesh_x=2), 10, f32),
+            ("fb on 2 x 2 shards", "fb", dict(mesh_y=2, mesh_x=2), 100, f32),
+            ("split on 2 x 2 shards", "split",
+             dict(nsub=8, mesh_y=2, mesh_x=2), 10, f32),
             ("implicit FS on 2 x 2 shards", "implicit_fs",
              dict(precond="jacobi", mesh_y=2, mesh_x=2), 3, f32),
             ("implicit FS f64", "implicit_fs", dict(precond="jacobi"), 3,
@@ -4556,7 +4656,7 @@ def layers_paths(dev, smi):
             dev, 34, nz, dtype, n, scheme=scheme,
             backend="fused", diag_every=min(50, n_steps // 2), **kw)
         counters = (fused_fb.STREAM_LAUNCHES, fused_fb.SPLIT_LAUNCHES,
-                    fp.STREAM_LAUNCHES, dist_band.SPILL_LAUNCHES,
+                    fp.STREAM_LAUNCHES, dist_band.LAUNCHES,
                     dist_band.STREAM_LAUNCHES)
         saved = [dict(c) for c in counters] + [fused_fb.LAUNCHES]
         for c in counters:
@@ -4578,7 +4678,13 @@ def layers_paths(dev, smi):
                "K1s rec stream": fused_fb.STREAM_LAUNCHES["split_recompose"],
                "K3a stream": fp.STREAM_LAUNCHES["proj_a"],
                "K3b stream": fp.STREAM_LAUNCHES["proj_b"],
-               "K7-fb spill": dist_band.SPILL_LAUNCHES["fb"],
+               "K7-fb continuity":
+                   dist_band.STREAM_LAUNCHES["fb_continuity"],
+               "K7-fb momentum": dist_band.STREAM_LAUNCHES["fb_momentum"],
+               "K7-split subcycle": dist_band.LAUNCHES["split_subcycle"],
+               "K7-split slow stream": dist_band.STREAM_LAUNCHES["split_slow"],
+               "K7-split rec stream":
+                   dist_band.STREAM_LAUNCHES["split_recompose"],
                "K7-proj A stream": dist_band.STREAM_LAUNCHES["proj_a"],
                "K7-proj B stream": dist_band.STREAM_LAUNCHES["proj_b"]}
         for c, v in zip(counters, saved):
@@ -4593,7 +4699,11 @@ def layers_paths(dev, smi):
                      "K1s slow stream", "K1s rec stream"), n_steps),
                 ("implicit_fs", False): {"K3a stream": n_steps,
                                          "K3b stream": n_steps},
-                ("fb", True): {"K7-fb spill": n_steps},
+                ("fb", True): {"K7-fb continuity": n_steps,
+                               "K7-fb momentum": n_steps},
+                ("split", True): {"K7-split subcycle": n_steps,
+                                  "K7-split slow stream": n_steps,
+                                  "K7-split rec stream": 2 * n_steps},
                 ("implicit_fs", True): {"K7-proj A stream": n_steps,
                                         "K7-proj B stream": n_steps}}[
             scheme, mesh]
@@ -4602,6 +4712,14 @@ def layers_paths(dev, smi):
             raise AssertionError(f"{label}: launches {got}, want {want}")
         if not diags or any(d["finite"] != 1.0 for d in diags):
             raise AssertionError(f"{label}: diagnostics {diags}")
+        if mesh and scheme != "implicit_fs" and dtype == "float32":
+            # the shards' run is the single-device run's, line for line
+            if log.getvalue() != logs[scheme]:
+                raise AssertionError(f"{label}: diagnostics {diags}, not "
+                                     "the single-device run's")
+            print(f"   run() {label}: diagnostics equal to the "
+                  "single-device run's")
+        logs.setdefault(scheme, log.getvalue())
         print(f"   run() {label}, {n_steps} steps: launches {got} (the "
               f"plan's: each once per step); diagnostics {diags[-1]}; "
               f"{wall / n_steps * 1e3!r} ms/step wall with the call's "
@@ -4614,8 +4732,8 @@ def layers_paths(dev, smi):
 
 def layers_phase(dev, smi):
     """Phase 28: every fused kernel at any number of layers and tidal
-    constituents; returns the JSON entries of the layer-streamed kernels
-    and of K7's on the spill route."""
+    constituents; returns the JSON entries of the layer-streamed kernels,
+    K7's among them."""
     import torch
 
     phase(f"28 many layers: the shelf at {BIG}^2 f32 with {LAYERS28} layers "
@@ -4667,33 +4785,79 @@ def layers_phase(dev, smi):
     # streamed design itself moves (split_stream_fields)
     entries += split_stream_rows(cfg32, timed, counts["split"], LAYERS28,
                                  pts, "split_step.cu", "band.py:200")
-    # K7's rows: its time between events, the plain version of the same
-    # function on the same data (the single-device row's), its device time
+    # K7's rows on 2 x 2 shards: its time between events, the plain
+    # version of the same function on the same data (the single-device
+    # row's), its kernels' device times and launches, held to the
+    # function's bound, the streamed design's own bytes beside it
     err, ms, dev_ms = timed["shard_fb"]
+    labels = {"shard_cont_layers_kernel": "K7-fb continuity",
+              "shard_mom_layers_kernel": "K7-fb momentum"}
+    parts = {k: {"launches": counts["fb on 2 x 2 shards"][lab],
+                 "device_ms": dev_ms[k]} for k, lab in labels.items()}
     entries.append(kernel_entry(
-        f"shard_step_spill_nz{LAYERS28}", "shard_step.cu", "dist_band.py:63",
-        counts["fb on 2 x 2 shards"]["K7-fb spill"], err,
+        f"shard_step_stream_nz{LAYERS28}", "shard_step.cu", "dist_band.py:63",
+        sum(v["launches"] for v in parts.values()), err,
         (ms, timed["fb_step"][1][1]), step_fields(cfg) * pts * 4,
-        150 * cfg.nz * pts, device=dev_ms["shard_step_kernel"]))
+        150 * cfg.nz * pts,
+        device=None if any(v["device_ms"] is None for v in parts.values())
+        else sum(v["device_ms"] for v in parts.values()),
+        extra={"kernels": parts, "design_bytes_ms": own_ms}))
+    entries += shard_split_rows(
+        cfg32, {k[6:]: (timed[k][0], (timed[k][1], timed[k[6:]][1][1]),
+                        timed[k][2]) for k in ("shard_split_slow",
+                                               "shard_split_recompose")},
+        counts["split on 2 x 2 shards"], LAYERS28, pts)
     # fields moved (split_fields) and operations per point
     cfg8 = layers_case("cpu", 0, BOTH28, "float32", 16, scheme="split")[0]
-    nz8 = cfg8.nz
     entries += split_stream_rows(
         cfg8, {k: v[:3] for k, v in forced.items()},
         {"K1s slow stream": forced["split_slow"][3],
          "K1s rec stream": forced["split_recompose"][3]}, BOTH28,
         pts, "split_step.cu", "band.py:200")
-    for name, ops in (("split_slow", 150 * nz8),
-                      ("split_recompose", 40 * nz8)):
-        n_fields = split_fields(cfg8)[name]
-        key = f"shard_{name}"
-        err, ms, dev_ms, launches = forced[key]
-        entries.append(kernel_entry(
-            f"{key}_spill_nz{BOTH28}", "shard_split.cu", "dist_band.py:63",
-            launches, err, ms, n_fields * pts * 4, ops * pts,
-            device=dev_ms))
+    entries += shard_split_rows(
+        cfg8, {k[6:]: forced[k][:3] for k in ("shard_split_slow",
+                                              "shard_split_recompose")},
+        {"K7-split slow stream": forced["shard_split_slow"][3],
+         "K7-split rec stream": forced["shard_split_recompose"][3]}, BOTH28,
+        pts)
     torch.cuda.synchronize()
     return entries
+
+
+def shard_split_rows(cfg, timed, counts, nz, pts):
+    """The JSON rows of K7-split's layer-streamed slow phase and
+    recomposition on 2 x 2 shards at nz layers: `timed` {"split_slow",
+    "split_recompose"}: (err, (ms, plain ms), device ms by kernel name),
+    the plain time the single-device row's plain version of the same
+    function; each held to its function's bound (split_fields), the
+    recomposition's two kernels under its `kernels` key, the design's own
+    bytes (split_stream_fields) as `design_bytes_ms`."""
+    own = split_stream_fields(cfg)
+    rows = []
+    err, ms, dev = timed["split_slow"]
+    rows.append(kernel_entry(
+        f"shard_split_slow_stream_nz{nz}", "shard_split.cu",
+        "dist_band.py:63", counts["K7-split slow stream"], err, ms,
+        split_fields(cfg)["split_slow"] * pts * 4, 150 * cfg.nz * pts,
+        device=dev["shard_slow_layers_kernel"], extra={
+            "design_bytes_ms": own["split_slow"] * pts * 4
+            / HBM_BYTES_PER_S * 1e3}))
+    err, ms, dev = timed["split_recompose"]
+    labels = ("shard_rec_h_layers_kernel", "shard_rec_uv_layers_kernel")
+    parts = {k: {"launches": counts["K7-split rec stream"] // 2,
+                 "device_ms": dev[k]} for k in labels}
+    rows.append(kernel_entry(
+        f"shard_split_recompose_stream_nz{nz}", "shard_split.cu",
+        "dist_band.py:63", counts["K7-split rec stream"], err, ms,
+        split_fields(cfg)["split_recompose"] * pts * 4, 40 * cfg.nz * pts,
+        device=None if any(dev[k] is None for k in labels) else sum(
+            dev[k] for k in labels),
+        extra={"kernels": parts, "design_bytes_ms":
+               own["split_recompose"] * pts * 4 / HBM_BYTES_PER_S * 1e3}))
+    for row in rows:
+        print(f"   {row['name']}: bound {row['bound_ms']!r} ms, the "
+              f"design's own bytes {row['design_bytes_ms']!r} ms")
+    return rows
 
 
 def pal_fields(cfg):
@@ -4838,8 +5002,8 @@ def layers_only():
     for i in range(0, len(specs), 16):
         build.build_all(specs[i:i + 16])
     for item in specs:
-        if item[0] in ("projection", "shard_projection"):
-            # the streamed phases' registers and spills
+        if item[0].startswith("shard_") or "BEOM_STREAM=1" in item[1]:
+            # the streamed kernels' registers and spills
             print_build(build, build.label(item))
         else:
             print(f"   {build.label(item)}: {build.BUILD_LOG.get(build.label(item), ('cached',))[0]!r} s")

@@ -21,7 +21,7 @@ from beom_tpu_torch import convert
 from beom_tpu_torch.cases import make_case
 from beom_tpu_torch.io import snapshots
 from beom_tpu_torch.run import main
-from beom_tpu_torch.stencils import fused_fb
+from beom_tpu_torch.stencils import dist_band, fused_fb
 from beom_tpu_torch.stepping import make_stepper, run_steps
 
 from tests.torch_parity import assert_close, perturbed_case, to_port
@@ -186,10 +186,10 @@ def test_build_spec_of_case(name, scheme):
 def test_shared_memory_picks_the_tile():
     """smem_bytes counts the kernels' planes; a configuration too large
     for the first tile gets a smaller one, one too large for the last
-    streams its layers (K1) or, in the shard kernels, takes the spill
-    route (its planes in device memory, the table of offsets alone in
-    shared memory), and a subcycle too large for its last tile raises
-    with the byte count."""
+    streams its layers (K1, and the shard kernels by the same build
+    switches: planes of one layer in shared memory, none in device
+    memory), and a subcycle too large for its last tile raises with the
+    byte count."""
     cfg = make_case("shelf_forced", nx=16, ny=16, device="cpu", nu4=1e6)[0]
     # 7 nz + 4 + 2 nz + 1 = 23 planes of 42 x 26 points, and the offsets
     assert fused_fb.smem_bytes(cfg, (32, 16), (64, 32), 8)["fb_step"] \
@@ -207,13 +207,15 @@ def test_shared_memory_picks_the_tile():
     try:
         defines = dict(d.split("=") for d in fused_fb.build_spec(wide)[1])
         assert defines["BEOM_STREAM"] == "1" and "BEOM_SPILL" not in defines
-        assert "BEOM_SPILL=1" in fused_fb.build_spec(wide, shard=True)[1]
+        name, shard = dist_band.build_spec(wide)
+        assert name == "shard_step" and shard == fused_fb.build_spec(wide)[1]
         assert (defines["BEOM_TX"], defines["BEOM_TY"]) == ("32", "16")
         assert fused_fb.single_tile(wide) == ((32, 16), True)
-        assert fused_fb.smem_bytes(wide, (32, 16), (64, 32), 8,
-                                   spill=True)["fb_step"] == 42 * 26 * 4
-        assert fused_fb.work_bytes(wide, (32, 16), 8)["fb_step"] \
-            == 42 * 26 * (7 * 6 + 4 + 2 * 6 + 1) * 8
+        # one layer's planes: the momentum's 15 of 38 x 22 points (halo 3),
+        # the continuity's 11 of 36 x 20 (halo LO = 2), and the offsets
+        smem = fused_fb.stream_smem(wide, (32, 16), 8)
+        assert smem == {"fb_momentum": 38 * 22 * (15 * 8 + 4),
+                        "fb_continuity": 36 * 20 * (11 * 8 + 4)}
     finally:
         fused_fb._TILES = saved
     # nsub = 12 keeps the large tile at f32; nsub = 60 fits no tile

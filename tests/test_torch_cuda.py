@@ -1404,7 +1404,7 @@ def _many_layers(device, seed, nz, n_tides, dtype, **kw):
 # the cases off shared memory: past the shared-memory wall of each type
 # (f64 with wet/dry from 13 layers, f32 from 25), and nz 8 f32, where the
 # other route builds too and the plan's parameter forces the route
-SPILL_CASES = [("float64", 16, False), ("float32", 32, False),
+OFF_SMEM_CASES = [("float64", 16, False), ("float32", 32, False),
                ("float32", 8, True)]
 
 
@@ -1474,12 +1474,12 @@ def test_layer_stream_matches_plain(cuda, dtype, nz):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES)
+@pytest.mark.parametrize("dtype,nz,forced", OFF_SMEM_CASES)
 @pytest.mark.parametrize("scheme", ["split"])
-def test_spill_route_matches_plain(cuda, scheme, dtype, nz, spill):
+def test_spill_route_matches_plain(cuda, scheme, dtype, nz, forced):
     """K1s off shared memory: its slow phase and recomposition stream the
-    layers on one device (the split step has no spill route there since
-    they do), 13 constituents, 96 x 64: one step at each sweep parity bit
+    layers on one device (as on the shards: the spill route is gone), 13
+    constituents, 96 x 64: one step at each sweep parity bit
     for bit the plain version, each streamed launch counted, and bit for
     bit the shared-memory route where a tile fits (nz 8: the same plan
     with `stream` off).  K1 off shared memory:
@@ -1488,7 +1488,7 @@ def test_spill_route_matches_plain(cuda, scheme, dtype, nz, spill):
                                           ny=64, scheme=scheme, nsub=4)
     statics = (grid, forcing)
     both = not fused_fb.single_tile(cfg, cfg.tdtype)[1]
-    pl = fused_fb.split_plan(cfg, cfg.tdtype, spill)
+    pl = fused_fb.split_plan(cfg, cfg.tdtype, forced)
     assert pl.stream and pl.route == 3, pl.describe()
     for n in (0, 1):
         args = (st.h, st.u, st.v, statics, n, st.t, cfg, 1)
@@ -1561,9 +1561,9 @@ STREAM_PHASE_CASES = [(dtype, nz) for dtype in ("float32", "float64")
 @pytest.mark.parametrize("dtype,nz", STREAM_PHASE_CASES)
 @pytest.mark.parametrize("scheme", ["rigid_lid", "implicit_fs"])
 def test_spill_route_phases_match_plain(cuda, scheme, dtype, nz):
-    """Both phases off shared memory, layer-streamed (the projection has no
-    spill route): K3a's streamed kernel and K3b's, forced by the plan's
-    parameter where the other routes fit too, on the shelf with the
+    """Both phases off shared memory, layer-streamed (no route keeps the
+    planes in device memory): K3a's streamed kernel and K3b's, forced by
+    the plan's parameter where the other routes fit too, on the shelf with the
     biharmonic and the interfacial drag on, 13 constituents, 96 x 64, both
     parities: u*, v* and h1, u1, v1 bit for bit their plain versions, div
     within 4 ulp (f32) / 1e-12 (f64) of its scale (past two layers the
@@ -1617,45 +1617,54 @@ def test_spill_route_phases_match_plain(cuda, scheme, dtype, nz):
                   other.b(st.h, a_ref[0], a_ref[1], p, st.t))
 
 
+def _two_cards(m):
+    """The 2 x 2 mesh m of shards of the one card as two cards' stacks
+    split along x (the second on a side stream)."""
+    from beom_tpu_torch.parallel.mesh import card_groups
+
+    return [dataclasses.replace(c, device=m.devices[0])
+            for c in card_groups(["a", "b"] * 2, 2, 2)]
+
+
+# the streamed launches of one fb or split step per card
+STEP_STREAMS = {"fb": {"fb_continuity": 1, "fb_momentum": 1},
+                "split": {"split_slow": 1, "split_recompose": 2}}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,nz,spill", SPILL_CASES[:2])
+@pytest.mark.parametrize("dtype,nz", STREAM_PHASE_CASES)
 @pytest.mark.parametrize("scheme", ["fb", "split", "implicit_fs"])
-def test_spill_route_on_a_mesh(cuda, scheme, dtype, nz, spill):
-    """K7's single-step bodies off shared memory (forced where the split
-    step's build would fit), one launch per kernel for every shard of (2,
-    2), bit for bit the single-device kernels the plan takes there: the fb
-    and split bodies on the spill route against K1 layer-streamed and the
-    split step (route 3); K7-proj's phases A and B layer-streamed against
-    the streamed K3a and K3b, each launch counted as streamed."""
+def test_spill_route_on_a_mesh(cuda, scheme, dtype, nz):
+    """K7's bodies layer-streamed (forced by the plans' parameter where
+    the shared-memory route fits too; the spill route is gone), one launch
+    per kernel for every shard of (2, 2), on the shelf with 13
+    constituents, 96 x 64: K7-fb's two launches and K7-split's slow phase
+    and recomposition bit for bit K1 / K1s layer-streamed, on one stack and
+    as two cards' stacks (the BEOM_CARDS build, the neighbour card's h1
+    read back), each launch counted by dist_band.STREAM_LAUNCHES; K7-proj's
+    phases A and B layer-streamed against the streamed K3a and K3b."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
-    cfg, grid, forcing, st = _many_layers(cuda, 79, nz, 13, dtype, nx=96,
-                                          ny=64, scheme=scheme, nsub=4,
-                                          precond="jacobi")
+    cfg, grid, forcing, st = _many_layers(cuda, 79, max(nz, 2), 13, dtype,
+                                          nx=96, ny=64, scheme=scheme,
+                                          nsub=4, precond="jacobi")
+    if nz == 1:
+        cfg = dataclasses.replace(cfg, nz=1, rho=cfg.rho[:1])
+        forcing = dataclasses.replace(
+            forcing, h_ext=forcing.h_ext.sum(0, keepdim=True))
+        st = st.replace(h=st.h.sum(0, keepdim=True), u=st.u[:1],
+                        v=st.v[:1])
     statics = (grid, forcing)
     m = pmesh.make_mesh(2, 2, devices=[cuda])
-    spill = True if scheme == "split" else spill
-    K = dist_band.MeshKernels(statics, cfg, m, pl=dist_band.mesh_plan(
-        cfg, cfg.tdtype, m, spill))
-    projection = scheme == "implicit_fs"
-    assert (K.plan.streamed if projection else K.spill), K.plan.describe()
+    pl = dist_band.mesh_plan(cfg, cfg.tdtype, m, True)
+    assert pl.streamed and "spill" not in pl.describe(), pl.describe()
+    K = dist_band.MeshKernels(statics, cfg, m, pl=pl)
     pstat = dist_band.pad_statics(grid, forcing, cfg, m)
     sh = [pmesh.shard(a, m) for a in (st.h, st.u, st.v)]
-    counts = dist_band.STREAM_LAUNCHES if projection \
-        else dist_band.SPILL_LAUNCHES
+    counts = dist_band.STREAM_LAUNCHES
     before = dict(counts)
-    if not projection:
-        out = dist_band.shard_step(*sh, pstat, 1, st.t, cfg, 1, kernels=K)
-        one = K.plan.split if scheme == "split" else fused_fb.plan(
-            cfg, cfg.tdtype, 1, spill)
-        ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 1, st.t,
-                                     cfg, 1, pl=one)
-        torch.cuda.synchronize()
-        _bits(scheme, [pmesh.gather(a) for a in out], ref)
-        kinds = ["fb"] if scheme == "fb" else ["split_slow",
-                                               "split_recompose"]
-    else:
+    if scheme == "implicit_fs":
         p = torch.randn(cfg.ny, cfg.nx, dtype=st.h.dtype, device=cuda) \
             * grid.mask
         a = dist_band.shard_proj_a(*sh, pstat, 0, cfg, kernels=K)
@@ -1669,34 +1678,106 @@ def test_spill_route_on_a_mesh(cuda, scheme, dtype, nz, spill):
         torch.cuda.synchronize()
         _bits("phase A", [pmesh.gather(x) for x in a], one_a)
         _bits("phase B", [pmesh.gather(x) for x in b], one_b)
-        kinds = ["proj_a", "proj_b"]
-    assert {k: counts[k] - before[k] for k in kinds} \
-        == {k: 1 for k in kinds}
+        assert {k: counts[k] - before[k] for k in ("proj_a", "proj_b")} \
+            == {"proj_a": 1, "proj_b": 1}
+        return
+    out = dist_band.shard_step(*sh, pstat, 1, st.t, cfg, 1, kernels=K)
+    torch.cuda.synchronize()
+    moved = {k: counts[k] - before[k] for k in counts
+             if counts[k] != before[k]}
+    assert moved == STEP_STREAMS[scheme], moved
+    one = K.plan.split if scheme == "split" else fused_fb.plan(
+        cfg, cfg.tdtype, 1, True)
+    assert one.stream, one.describe()
+    ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 1, st.t, cfg, 1,
+                                 pl=one)
+    torch.cuda.synchronize()
+    _bits(f"K7-{scheme} vs K1", [pmesh.gather(a) for a in out], ref)
+    # as two cards' stacks
+    K2 = dist_band.MeshKernels(statics, cfg, m, cards=_two_cards(m), pl=pl)
+    before = dict(counts)
+    out2 = dist_band.shard_step(*sh, pstat, 1, st.t, cfg, 1, kernels=K2)
+    torch.cuda.synchronize()
+    moved = {k: counts[k] - before[k] for k in counts
+             if counts[k] != before[k]}
+    assert moved == {k: 2 * v for k, v in STEP_STREAMS[scheme].items()}, moved
+    _bits(f"K7-{scheme} over two cards vs K1",
+          [pmesh.gather(a) for a in out2], ref)
 
 
 @pytest.mark.cuda
-def test_spill_scratch_outlives_the_launch(cuda):
-    """K7-fb on the spill route (the projection has none since its phases
-    stream; K7's fb body keeps it) on an emptied caching allocator, at a
-    size whose planes come from its large pool (1024^2 f32, 32 layers, 2 x
-    2 shards): the launch holds its scratch until it is queued, so no
-    output it allocates after the scratch is carved out of it, and the
-    step is bit for bit the single-device K1 (layer-streamed)."""
+@pytest.mark.parametrize("slow_card", [0, 1])
+@pytest.mark.parametrize("scheme", ["fb", "split"])
+def test_second_launch_waits_for_the_neighbour_card(cuda, scheme,
+                                                     slow_card):
+    """Over two cards' stacks (the second on a side stream), the launch
+    that reads h1 back (K7-fb's momentum, K7-split's recomposition
+    velocities) on each card starts only after the neighbour card's launch
+    that writes it (the continuity, rch) has ended.  On the slow card's
+    stream, just before its writing launch, its part of h1 is filled with
+    NaN and the stream is held back by a sleep of ~25 ms: a reading launch
+    on the other card that started before that writer ended would read NaN
+    at its halo from the slow card's shards, so the step comes out bit for
+    bit the one stack's only if the order holds (the shelf at nz 9 f32, 13
+    constituents, 96 x 64, 2 x 2 shards split along x).  CUDA events
+    recorded after each writing launch and before each reading launch on
+    the launch's own stream put every reader after both writers."""
     from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.stencils import dist_band
 
-    cfg, grid, forcing, st = _many_layers(cuda, 83, 32, 13, "float32",
-                                          nx=1024, ny=1024, scheme="fb")
+    cfg, grid, forcing, st = _many_layers(cuda, 81, 9, 13, "float32", nx=96,
+                                          ny=64, scheme=scheme, nsub=4)
     statics = (grid, forcing)
     m = pmesh.make_mesh(2, 2, devices=[cuda])
-    K = dist_band.MeshKernels(statics, cfg, m)
-    assert K.spill, K.plan.describe()
+    pl = dist_band.mesh_plan(cfg, cfg.tdtype, m, True)
+    K1 = dist_band.MeshKernels(statics, cfg, m, pl=pl)
+    K2 = dist_band.MeshKernels(statics, cfg, m, cards=_two_cards(m), pl=pl)
     f = [dist_band.stack_global(a, m) for a in (st.h, st.u, st.v)]
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    out = K.step(*f, 1, st.t, 1)
-    torch.cuda.synchronize()
-    ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 1, st.t, cfg, 1)
-    torch.cuda.synchronize()
-    _bits("K7-fb vs K1", [pmesh.gather(dist_band.unstack(a, m))
-                          for a in out], ref)
+    ref = K1.step(*f, 1, st.t, 1)
+    two = [K2.stack(K1.unstack(a, m)) for a in f]
+    writer, reader = ("fb_cont", "fb_mom") if scheme == "fb" else \
+        ("split_rec_h", "split_rec_uv")
+    # h1, the writer's output: the first of the step's fields K2 allocates
+    # (MeshKernels.fb, .recompose)
+    made = []
+    like = K2._like
+    K2._like = lambda n, parts: made.append(like(n, parts)) or made[-1]
+    streams = {s.cuda_stream: s for s in K2.order.streams()}
+    lib, fns = K2.fns(1)
+    saved = dict(fns)
+    ends, starts = [], []
+
+    def wrap(key, writes):
+        fn = saved[key]
+
+        def launch(*args):
+            card = len(ends) if writes else len(starts)
+            stream = streams[args[-1]]
+            ev = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                if writes and card == slow_card:
+                    made[-1][0][card].fill_(float("nan"))
+                    torch.cuda._sleep(50_000_000)
+                if not writes:
+                    ev.record(stream)
+                    starts.append(ev)
+                code = fn(*args)
+                if writes:
+                    ev.record(stream)
+                    ends.append(ev)
+            return code
+        return launch
+
+    fns[writer] = wrap(writer, True)
+    fns[reader] = wrap(reader, False)
+    try:
+        out = K2.step(*two, 1, st.t, 1)
+        torch.cuda.synchronize()
+    finally:
+        fns.update(saved)
+    assert len(ends) == len(starts) == 2
+    _bits(f"K7-{scheme} two cards vs one stack",
+          [pmesh.gather(K2.unstack(a, m)) for a in out],
+          [pmesh.gather(K1.unstack(a, m)) for a in ref])
+    late = [[e.elapsed_time(s_) for e in ends] for s_ in starts]
+    assert all(x >= 0.0 for row in late for x in row), late

@@ -110,8 +110,8 @@ def test_kernel_config_check_raises(kw, match):
     """What the fused step cannot run: the projection schemes.  Nine
     layers and nine constituents (match None) it accepts: its scalar
     slots are sized by the build, and the plans leave shared memory (K1
-    layer-streamed, the split step on the spill route) where no tile
-    fits."""
+    and the split step layer-streamed, on one device and on the shards)
+    where no tile fits."""
     cfg = dataclasses.replace(BASE, **kw)
     if match is None:
         check_config(cfg)

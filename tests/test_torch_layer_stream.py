@@ -49,12 +49,12 @@ LAYERS = (1, 3, 9)
 NX, NY, TILE = 37, 29, (16, 8)
 
 
-def _case(name, nz, seed, **kw):
-    """The port's case at f64 on NX x NY, perturbed from a numpy generator
+def _case(name, nz, seed, nx=NX, ny=NY, **kw):
+    """The port's case at f64 on nx x ny, perturbed from a numpy generator
     of `seed`, its layers merged into one (nz 1) or its bottom layer split
     up to nz layers, the shelf with 13 of TPXO's constituents, at a time
     where the tides are on."""
-    cfg, grid, forcing, st = make_case(name, nx=NX, ny=NY, device="cpu",
+    cfg, grid, forcing, st = make_case(name, nx=nx, ny=ny, device="cpu",
                                        dtype="float64", **kw)
     rng = np.random.default_rng(seed)
 

@@ -127,8 +127,7 @@ def _spills_from(case, scheme, dtype):
     13 under wet/dry; the projection phases at 32 and 16; the split step's
     slow phase and recomposition (nsub 8) past 64 (f32) and at 64 (f64),
     at 64 and 25 under wet/dry.  There K1, K3a, K3b and the split step
-    stream their layers, and K7's bodies take the spill route but for the
-    projection's, which stream too."""
+    stream their layers, on one device and in K7's shard kernels alike."""
     wd = case in ("coastal_wetdry", "shelf_forced")
     f64 = dtype == "float64"
     if scheme == "fb":
@@ -156,13 +155,13 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
     """For every nz of LAYERS (13 constituents on the shelf), the build
     specs and plans of one device and of a 2 x 2 mesh return a kernel
     route without raising: from the first nz past the single-step kernels'
-    shared-memory wall (pinned) K1 layer-streamed (BEOM_STREAM), K7's fb
-    and split bodies on the spill route (BEOM_SPILL); the split step
-    layer-streamed on one device from nz 8 (pinned, route 3); both
-    projection phases layer-streamed from nz 8 (pinned) on one device and
-    on the shards, never on the spill route; the pass kernel and the
-    staged phases only where they fit, every plan's describe() naming its
-    route."""
+    shared-memory wall (pinned) K1 layer-streamed (BEOM_STREAM); the split
+    step layer-streamed from nz 8 (pinned, route 3); both projection
+    phases layer-streamed from nz 8 (pinned); K7's fb, split and
+    projection bodies streamed where the single-device kernels are, with
+    and without BEOM_CARDS, never on a spill route (BEOM_SPILL is gone);
+    the pass kernel and the staged phases only where they fit, every
+    plan's describe() naming its route."""
     base = make_case(case, nx=64, ny=64, device="cpu", dtype=dtype,
                      scheme=scheme, nsub=8)[0]
     if case == "shelf_forced":
@@ -178,11 +177,11 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
         stream = scheme == "split" and nz >= STREAMS_FROM
         pstream = projection and nz >= PROJECTION_STREAMS_FROM
         mp = dist_band.mesh_plan(cfg, cfg.tdtype, mesh)
-        assert mp.spilled == (spill and not projection), (nz, mp.describe())
-        assert mp.streamed == pstream, (nz, mp.describe())
-        assert ("spill route" in mp.describe()) == (spill and not
-                                                    projection), nz
-        assert ("layer-streamed" in mp.describe()) == pstream, nz
+        streamed = stream if scheme == "split" else pstream if projection \
+            else spill
+        assert mp.streamed == streamed, (nz, mp.describe())
+        assert "spill" not in mp.describe(), nz
+        assert ("layer-streamed" in mp.describe()) == streamed, nz
         if projection:
             pl = fused_projection.plan(cfg, cfg.tdtype)
             assert pl.stream == pstream and (pl.a is None or not pstream)
@@ -216,17 +215,17 @@ def test_plans_take_every_layer_count(case, scheme, dtype):
         for cards in (False, True):
             for m in set(mp.fb_launches(4)) if scheme == "fb" else {1}:
                 _, d = dist_band.build_spec(cfg, cfg.tdtype, m, True, cards)
-                assert ("BEOM_SPILL=1" in d) == (spill and m == 1
-                                                 and not projection)
-                assert ("BEOM_STREAM=1" in d) == pstream
+                assert not any(x.startswith("BEOM_SPILL") for x in d)
+                assert ("BEOM_STREAM=1" in d) == (streamed and m == 1)
 
 
 def test_forced_spill_route_where_both_build():
     """The plans' own parameter takes the routes off shared memory where
     the shared-memory route builds too (nz 8 f32 on the shelf): K1, K3a,
-    K3b and the split step layer-streamed, K7's fb and split bodies on the
-    spill route, K7-proj streamed; the builds differ only in the switch
-    and the tile."""
+    K3b and the split step layer-streamed, and K7's fb, split and
+    projection bodies with them; the builds differ only in the switch and
+    the tile, the shard builds' switches are the single-device builds',
+    and their shared memory the single-device streamed kernels'."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32")[0]
     cfg = dataclasses.replace(cfg, nz=8, rho=tuple(1020.0 + k
@@ -243,10 +242,14 @@ def test_forced_spill_route_where_both_build():
     assert b.pop("BEOM_STREAM") == "1"
     assert {k: v for k, v in a.items() if k not in ("BEOM_TX", "BEOM_TY")} \
         == {k: v for k, v in b.items() if k not in ("BEOM_TX", "BEOM_TY")}
-    # K7's body of the step keeps the spill route
-    assert "BEOM_SPILL=1" in fused_fb.build_spec(cfg, torch.float32,
-                                                 off_smem=True,
-                                                 shard=True)[1]
+    # K7's body of the step streams with K1
+    mesh = make_mesh(2, 2, devices=["cpu"])
+    assert dist_band.mesh_plan(cfg, torch.float32, mesh, True).streamed
+    assert not dist_band.mesh_plan(cfg, torch.float32, mesh).streamed
+    name, d = dist_band.build_spec(cfg, torch.float32, off_smem=True)
+    assert d == fused_fb.build_spec(cfg, torch.float32, off_smem=True)[1]
+    assert dist_band._want_smem(cfg, name, d, 4, 1) == [
+        forced.smem, fused_fb.stream_smem(cfg, (32, 16), 4)["fb_continuity"]]
     rigid = dataclasses.replace(cfg, scheme="rigid_lid")
     ph = fused_projection.plan(rigid, torch.float32, True)
     assert ph == fused_projection.PhasePlan(None, None, False, True)
@@ -282,11 +285,15 @@ def test_forced_spill_route_where_both_build():
     # the plan names the route: a forcing flag beside it is refused
     with pytest.raises(ValueError, match="the plan names the route"):
         fused_fb.build_spec(split_cfg, torch.float32, sp=split, off_smem=True)
-    assert "BEOM_SPILL=1" in fused_fb.build_spec(
-        split_cfg, torch.float32, off_smem=True, shard=True)[1]
-    # the spill route's shared memory is the table of offsets alone
-    smem = fused_fb.smem_bytes(cfg, (32, 16), (32, 16), 4, spill=True)
-    assert smem["fb_step"] == (32 + 10) * (16 + 10) * 4
+    # K7-split streams with the split step, its shared memory the
+    # single-device streamed kernels' (8-byte offsets across cards)
+    name, d = dist_band.build_spec(split_cfg, torch.float32, off_smem=True,
+                                   cards=True)
+    assert d == b + ("BEOM_CARDS=1",)
+    smem = fused_fb.split_stream_smem(split_cfg, (32, 16), 4, 8)
+    want = dist_band._want_smem(split_cfg, name, d, 4, 1)
+    assert [want[0], want[1], want[4]] == [
+        smem["split_slow"], smem["split_rec_h"], smem["split_rec_uv"]]
 
 
 @pytest.mark.parametrize("scheme", SCHEMES)
@@ -294,10 +301,9 @@ def test_spill_false_lets_the_plan_choose(scheme):
     """off_smem=False means what leaving it out means at every layer: the
     plans leave shared memory where no tile fits (nz 32 f32 on the shelf,
     past every single-step wall but the split step's; K1 layer-streamed,
-    the split step layer-streamed on its 8 x 8 tile, K7's split bodies in
-    shared memory, both projection phases streamed on one device and on
-    the shards), and off_smem=True forces it; no plan raises for want of
-    a tile."""
+    the split step layer-streamed by its plan from 4 layers, both
+    projection phases streamed), on one device and on the shards alike,
+    and off_smem=True forces it; no plan raises for want of a tile."""
     cfg = make_case("shelf_forced", nx=64, ny=64, device="cpu",
                     dtype="float32", scheme=scheme, nsub=8)[0]
     cfg = dataclasses.replace(cfg, nz=32, rho=tuple(1020.0 + 0.5 * k
@@ -309,16 +315,16 @@ def test_spill_false_lets_the_plan_choose(scheme):
         want = chosen or off
         mp = dist_band.mesh_plan(cfg, f32, mesh, off)
         if scheme in ("rigid_lid", "implicit_fs"):
-            assert mp.streamed == want and not mp.spilled
+            assert mp.streamed == want
             assert fused_projection.plan(cfg, f32, off).stream == want
             assert fused_projection.single_tile(cfg, f32, off)[1] == want
             assert ("BEOM_STREAM=1" in dist_band.build_spec(
                 cfg, f32, off_smem=off)[1]) == want
             continue
-        assert mp.spilled == want
+        assert mp.streamed == (want or scheme == "split")
         assert fused_fb.single_tile(cfg, f32, off)[1] == want
-        assert ("BEOM_SPILL=1" in fused_fb.build_spec(
-            cfg, f32, off_smem=off, shard=True)[1]) == want
+        assert ("BEOM_STREAM=1" in dist_band.build_spec(
+            cfg, f32, off_smem=off)[1]) == mp.streamed
         streams = "BEOM_STREAM=1" in fused_fb.build_spec(cfg, f32,
                                                          off_smem=off)[1]
         if scheme == "fb":
@@ -372,16 +378,16 @@ def test_slot_layout_matches_the_enum(nz, n_tides, obc):
     assert list(dbls[lay.omega0:lay.omega0 + ntide]) == list(cfg.tides)[
         :ntide]
     assert list(dbls[lay.ts0:lay.ts0 + 4]) == ts
-    assert dbls[fused_fb.D_T1] == 2.5 and ints[fused_fb.J_SLOTS] == 0
+    assert dbls[fused_fb.D_T1] == 2.5 and list(ints)[:2] == [16, 16]
 
 
 def test_params_fit_the_kernel_parameter_limit():
     """Params<double> of nz 64 and 13 constituents across cards (every
     operand nine pointers) stays within PARAMS_MAX, the budget of
     fb_terms.cuh's static_assert (mirrored here), and the largest kernel's
-    parameters (the shard recomposition's: Params, its source of 19
-    stacked operands, three outputs) within the 4096 bytes of the
-    limit."""
+    parameters (the shard recomposition's streamed velocity kernel:
+    Params, its source of 19 stacked operands, h1's nine stacks, two
+    outputs) within the 4096 bytes of the limit."""
     text = (CSRC / "fb_terms.cuh").read_text()
     assert int(re.search(r"PARAM_LIMIT = (\d+);", text)[1]) \
         == fused_fb.PARAM_LIMIT == 4096
@@ -396,9 +402,10 @@ def test_params_fit_the_kernel_parameter_limit():
     # StackSrc<double, 19> across cards: 19 x 9 pointers, the Stack's nine
     # ints (padded to 40), the plane and the shard's (j, i)
     stack_src = 19 * 72 + 40 + 8 + 8
-    assert size + stack_src + 3 * 8 <= fused_fb.PARAM_LIMIT
-    # the layout by hand on one card, f32, nz 2 and one constituent
+    assert size + stack_src + 72 + 2 * 8 <= fused_fb.PARAM_LIMIT
+    # the layout by hand on one card, f32, nz 2 and one constituent: 18
+    # operands, 9 ints, the scalars, then the plane at a multiple of 8
     small = dataclasses.replace(cfg, nz=2, rho=(1026.0, 1027.5),
                                 tides=(1e-4,))
     assert fused_fb.params_bytes(small, 4) == \
-        18 * 8 + 10 * 4 + (16 + 2 + 1 + 8) * 4 + 4 + 8 + 8
+        18 * 8 + 9 * 4 + (16 + 2 + 1 + 8) * 4 + 8

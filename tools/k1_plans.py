@@ -85,7 +85,7 @@ def main(case="double_gyre", dtype="float32", n=2048, extra=()) -> dict:
         ints, dbls = ff._scalars(cfg, parity, times[0], ts=times,
                                  aligned=True)
         code = fn(ff._array(ff._P, [a.data_ptr() for a in [h, u, v]
-                                    + ff._operands(statics)] + [0]), ints,
+                                    + ff._operands(statics)]), ints,
                   dbls, *[a.data_ptr() for a in outs],
                   torch.cuda.current_stream().cuda_stream)
         build.check(lib, code, "fb launch")

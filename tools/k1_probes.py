@@ -250,7 +250,7 @@ def main_pass() -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     ts = fused_fb._times(st.t, cfg, pl.kb)
     ptrs = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
-        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
+        st.h, st.u, st.v] + fused_fb._operands(statics)])
     ints, dbls = fused_fb._scalars(cfg, 0, ts[0], ts=ts, aligned=True)
     outs = [torch.empty_like(st.h) for _ in range(3)]
     ref = fused_fb._launch_fb(st.h, st.u, st.v, statics, 0, ts, cfg)
@@ -337,7 +337,7 @@ def main(root: str) -> dict:
     out = {"root": str(root), "device": torch.cuda.get_device_name(0),
            "defines": list(defines)}
     ptrs = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
-        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
+        st.h, st.u, st.v] + fused_fb._operands(statics)])
     ints, dbls = fused_fb._scalars(cfg, 0, st.t + cfg.npdtype.type(cfg.dt))
     outs = [torch.empty_like(st.h) for _ in range(3)]
     ref = fused_fb.fused_fb_step(st.h, st.u, st.v, statics, 0, st.t, cfg, 1)

@@ -383,7 +383,7 @@ def main(root: str) -> dict:
     rec_ref = fused_fb._launch_recompose(slow_ref, sub_ref, st.h, st.u, st.v,
                                          statics, t1, cfg)
     ops = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
-        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
+        st.h, st.u, st.v] + fused_fb._operands(statics)])
     ints, dbls = fused_fb._scalars(cfg, 0, 0.0)
     ints1, dbls1 = fused_fb._scalars(cfg, 0, t1)
     stream = torch.cuda.current_stream().cuda_stream
@@ -569,7 +569,7 @@ def main_tend_probes(case="double_gyre", dtype="float32", nsub="8") -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     ref = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
     ops = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
-        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
+        st.h, st.u, st.v] + fused_fb._operands(statics)])
     ints, dbls = fused_fb._scalars(cfg, 0, 0.0)
     outs = [torch.empty_like(a) for a in ref]
     suffix = "f32" if dtype == "float32" else "f64"
@@ -637,7 +637,7 @@ def main_tail_probes(case="double_gyre", dtype="float32", nsub="8") -> dict:
     tend = fused_fb._launch_tend(st.h, st.u, st.v, statics, cfg)
     ref = fused_fb._launch_tail(tend, st.h, st.u, st.v, statics, t1, cfg)
     ops = fused_fb._array(fused_fb._P, [a.data_ptr() for a in [
-        st.h, st.u, st.v] + fused_fb._operands(statics)] + [0])
+        st.h, st.u, st.v] + fused_fb._operands(statics)])
     ints, dbls = fused_fb._scalars(cfg, 0, t1)
     outs = [torch.empty_like(a) for a in ref]
     suffix = "f32" if dtype == "float32" else "f64"

@@ -409,10 +409,10 @@ def probes(root: Path, sm, dev) -> dict:
             t1 = st.t + cfg.npdtype.type(cfg.dt)
             ops_a = fused_fb._array(fused_fb._P, [
                 x.data_ptr() for x in [st.h, st.u, st.v]
-                + fused_fb._operands(statics)] + [0])
+                + fused_fb._operands(statics)])
             ops_b = fused_fb._array(fused_fb._P, [
                 x.data_ptr() for x in [st.h, ref_a[0], ref_a[1]]
-                + fused_fb._operands(statics)] + [0])
+                + fused_fb._operands(statics)])
             by_case[case] = dict(
                 cfg=cfg, st=st, statics=statics, p=p, ref_a=ref_a,
                 ref_b=ref_b, ops_a=ops_a, ops_b=ops_b,

@@ -125,6 +125,22 @@ implicit-FS ms per step at f32 nz 32 on one device and on 2 x 2 shards
 (10 steps after a run not timed); and the code report.  Its times set
 fused_projection._STREAM_FROM.
 
+    python3 tools/kernel_times.py ROOT --layers mesh
+
+times K7's fb and split bodies on 2 x 2 shards of the card
+(mesh_layers_report): on the shelf at 2048^2 with 13 constituents (split
+at nsub 8), f32 at nz 8, 16 and 32 and f64 at nz 8 and 16, on each route
+the checkout has there: the plan's, the one its plans' own parameter
+forces (the layer-streamed kernels, or in a checkout whose shard bodies
+do not stream, the spill route), and shared memory where a tile fits
+but the plan streams (the split step's `_STREAM_FROM` lifted): K7-fb's
+step and K7-split's slow phase,
+subcycle and recomposition, each between CUDA events and on the device
+(each kernel of the call by its key, summed), with digests of the
+gathered outputs (equal digests: the routes and the trees agree bit for
+bit); and run()'s fb and split ms per step at f32 nz 32 on 2 x 2 shards
+(10 steps after one not timed); and the code report.
+
     python3 tools/kernel_times.py ROOT --layers tiles
 
 times the layer-streamed K3a and K3b (one build, one tile) of a checkout
@@ -634,14 +650,136 @@ def tiles_report(sm, dev, out, digest, kernels) -> None:
     fp._entries.cache_clear()
 
 
+def mesh_layers_report(sm, dev, out, digest, kernels) -> None:
+    """The mesh leg of --layers: K7-fb and K7-split on 2 x 2 shards of the
+    card on phase 28's shelf at 2048^2 (13 constituents, split at nsub 8),
+    f32 at nz 8, 16 and 32 and f64 at nz 8 and 16, on every route the
+    checkout has there (the plan's; the one the plans' own parameter
+    forces; shared memory where a tile fits but the plan streams), each
+    call between CUDA events and on the device (the sum over the call's
+    kernels, one key each), with digests of the gathered outputs; and
+    run()'s fb and split ms/step at f32 nz 32 on 2 x 2 shards.
+    `kernels(keys, fn, label, n)` times a call (layers_report's)."""
+    import contextlib
+
+    import torch
+
+    from beom_tpu_torch.core.state import advance_time
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.stencils import build, dist_band, fused_fb
+
+    def clear():
+        for fn in (fused_fb.split_plan, fused_fb.launch_plan, fused_fb.plan,
+                   fused_fb._entries, dist_band._mesh_plan,
+                   dist_band._entry):
+            fn.cache_clear()
+
+    @contextlib.contextmanager
+    def in_smem():
+        # the split step's plan with its layer count to stream from lifted
+        saved = fused_fb._STREAM_FROM
+        fused_fb._STREAM_FROM = 1 << 30
+        clear()
+        try:
+            yield
+        finally:
+            fused_fb._STREAM_FROM = saved
+            clear()
+
+    routes = (("plan", False, contextlib.nullcontext),
+              ("forced", True, contextlib.nullcontext),
+              ("shared memory", False, in_smem))
+    m = pmesh.make_mesh(2, 2, devices=["cpu"])
+    legs = [(nz, "float32") for nz in (8, 16, 32)] \
+        + [(nz, "float64") for nz in (8, 16)]
+    specs = set()
+    for nz, dtype in legs:
+        for scheme in ("fb", "split"):
+            cfg = sm.layers_case("cpu", 0, nz, dtype, 64, scheme=scheme,
+                                 nsub=8)[0]
+            for _, off, ctx in routes:
+                with ctx():
+                    specs |= dist_band.build_specs(cfg, cfg.tdtype, m,
+                                                   off_smem=off)
+    build.build_all(sorted(specs))
+
+    mesh = pmesh.make_mesh(2, 2, devices=[dev])
+    gather = lambda outs: [pmesh.gather(dist_band.unstack(a, mesh))
+                           for a in outs]
+    for nz, dtype in legs:
+        n = 10 if nz > 8 else 20
+        for scheme in ("fb", "split"):
+            cfg, grid, forcing, st = sm.layers_case(dev, 31, nz, dtype, N,
+                                                    scheme=scheme, nsub=8)
+            statics = (grid, forcing)
+            f = [dist_band.stack_global(a, mesh) for a in (st.h, st.u, st.v)]
+            t1 = advance_time(st.t, cfg.dt, cfg.npdtype)
+            seen = set()
+            for route, off, ctx in routes:
+                with ctx():
+                    pl = dist_band.mesh_plan(cfg, cfg.tdtype, mesh, off)
+                    if pl.describe() in seen:
+                        continue
+                    seen.add(pl.describe())
+                    K = dist_band.MeshKernels(statics, cfg, mesh, pl=pl)
+                    tag = ("" if dtype == "float32" else "f64 ") \
+                        + f"nz {nz}, {route}"
+                    out[f"K7-{scheme} {tag} plan"] = pl.describe()
+                    # the layer-streamed kernels: two launches per call
+                    # where the route has them
+                    streamed = getattr(pl, "streamed", False)
+                    if scheme == "fb":
+                        step = lambda: K.step(*f, 1, st.t, 1)
+                        out[f"K7-fb {tag} digest"] = digest(*gather(step()))
+                        kernels(("shard_cont", "shard_mom") if streamed
+                                else ("shard_step",), step, f"K7-fb {tag}",
+                                n)
+                    else:
+                        slow7 = K.slow(*f)
+                        sub7 = K.subcycle(slow7, *f)
+                        slow = lambda: K.slow(*f)
+                        sub = lambda: K.subcycle(slow7, *f)
+                        rec = lambda: K.recompose(slow7, sub7, *f, t1)
+                        out[f"K7-split {tag} digest"] = digest(
+                            *gather(K.step(*f, 1, st.t, 1)))
+                        kernels(("shard_slow",), slow,
+                                f"K7-split slow {tag}", n)
+                        kernels(("shard_sub",), sub,
+                                f"K7-split subcycle {tag}", n)
+                        kernels(("shard_rec_h", "shard_rec_uv") if streamed
+                                else ("shard_rec_kernel",), rec,
+                                f"K7-split recompose {tag}", n)
+                        del slow7, sub7
+                    del K
+            del cfg, grid, forcing, st, statics, f
+            torch.cuda.empty_cache()
+
+    for scheme in ("fb", "split"):
+        cfg, grid, forcing, st = sm.layers_case(
+            dev, 34, sm.LAYERS28, "float32", N, scheme=scheme, nsub=8,
+            backend="fused", diag_every=10, mesh_y=2, mesh_x=2)
+        st = run(cfg, grid, forcing, st, 1, log=io.StringIO())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run(cfg, grid, forcing, st, 10, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[f"run() {scheme} nz {sm.LAYERS28} 2 x 2 shards ms/step"] = \
+            (time.perf_counter() - t0) / 10 * 1e3
+        out[f"run() {scheme} nz {sm.LAYERS28} 2 x 2 shards digest"] = \
+            digest(*[pmesh.gather(a) for a in (last.h, last.u, last.v)])
+        del cfg, grid, forcing, st, last
+        torch.cuda.empty_cache()
+
+
 # the streamed projection build's tiles the tiles leg times (the plan's
 # first)
 TILES = ((32, 16), (32, 8), (64, 8), (48, 16), (32, 32))
 
 
 def layers_report(sm, dev, out, digest, only_split: bool = False,
-                  only_projection: bool = False,
-                  only_tiles: bool = False) -> None:
+                  only_projection: bool = False, only_tiles: bool = False,
+                  only_mesh: bool = False) -> None:
     """The --layers report of the checkout imported: K1, K3b and K3a on
     phase 28's shelf at 2048^2 f32, as each checkout runs them."""
     import torch
@@ -670,6 +808,9 @@ def layers_report(sm, dev, out, digest, only_split: bool = False,
         return
     if only_tiles:
         tiles_report(sm, dev, out, digest, kernels)
+        return
+    if only_mesh:
+        mesh_layers_report(sm, dev, out, digest, kernels)
         return
     specs = []
     for nz, forced in legs:
@@ -907,7 +1048,8 @@ def setup_ms(grid, forcing, cfg, before=None) -> float:
 def main(root: str, only_split: bool = False,
          only_projection: bool = False, only_mesh: bool = False,
          only_layers: bool = False, layers_split: bool = False,
-         layers_projection: bool = False, layers_tiles: bool = False) -> dict:
+         layers_projection: bool = False, layers_tiles: bool = False,
+         layers_mesh: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -974,9 +1116,10 @@ def main(root: str, only_split: bool = False,
         stamped(name, lambda s: (jacobi(b, eta_n, stamps=s), s)[1])
         return jacobi, b, eta_n
 
-    if only_layers or layers_split or layers_projection or layers_tiles:
+    if only_layers or layers_split or layers_projection or layers_tiles \
+            or layers_mesh:
         layers_report(sm, dev, out, digest, layers_split, layers_projection,
-                      layers_tiles)
+                      layers_tiles, layers_mesh)
         out["code"] = code_report(build)
         out["power"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1170,7 +1313,7 @@ if __name__ == "__main__":
     if len(sys.argv) not in (2, 3, 4) or sys.argv[2:] not in (
             [], ["--split"], ["--projection"], ["--mesh"], ["--layers"],
             ["--layers", "split"], ["--layers", "projection"],
-            ["--layers", "tiles"]):
+            ["--layers", "tiles"], ["--layers", "mesh"]):
         raise SystemExit(__doc__)
     print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"],
                           sys.argv[2:] == ["--projection"],
@@ -1178,4 +1321,5 @@ if __name__ == "__main__":
                           sys.argv[2:] == ["--layers"],
                           sys.argv[2:] == ["--layers", "split"],
                           sys.argv[2:] == ["--layers", "projection"],
-                          sys.argv[2:] == ["--layers", "tiles"])))
+                          sys.argv[2:] == ["--layers", "tiles"],
+                          sys.argv[2:] == ["--layers", "mesh"])))
