@@ -22,9 +22,10 @@ once per shard; only the collectives cross shards.  `make_dist_stepper`
 returns step_fn(state) -> state on a sharded State.  backend='fused' runs
 all four schemes through the shard kernels (stencils/dist_band.py, K7): fb
 and split wholly on the shards, rigid_lid and implicit_fs with the phase
-kernels around this module's solve_pressure; halo_impl='rdma' runs every
-pad2d of the eager tier through the halo-pad kernel (stencils/halo_pad.py,
-K8).
+kernels around this module's pressure_rhs and the mesh's solve on the card
+on the gathered grid of the shards (stencils/mesh_solve.py: K6, or K4a's
+sweeps); halo_impl='rdma' runs every pad2d of the eager tier through the
+halo-pad kernel (stencils/halo_pad.py, K8).
 """
 
 from __future__ import annotations
@@ -237,6 +238,12 @@ def _dist_solve(b, grid_l: Grid, grid_p1: Grid, cfg: Config, lam=0.0,
             "under a mesh use solver='cg' with precond='mg' (the "
             "distributed multigrid-preconditioned CG, one reduction per "
             "iteration)")
+    return _dist_cg(b, grid_l, grid_p1, cfg, lam=lam, x0=x0).x
+
+
+def _dist_cg(b, grid_l: Grid, grid_p1: Grid, cfg: Config, lam=0.0,
+             x0=None) -> elliptic.CGResult:
+    """_dist_solve's CG with cfg.precond: the whole CGResult."""
     kw = {}
     pre = cfg.precond
     if pre == "auto":
@@ -257,22 +264,29 @@ def _dist_solve(b, grid_l: Grid, grid_p1: Grid, cfg: Config, lam=0.0,
             pad1=lambda a: halo.pad2d(a, 1),
             crop1=lambda a: halo.crop2d(a, 1), red=red)
     _, inv_diag_p1 = elliptic.jacobi_diag(grid_p1, cfg, lam)
-    res = elliptic.cg_solve(
+    return elliptic.cg_solve(
         b, grid_l, cfg, x0=x0, lam=lam, dot=halo.dist_dot,
         dots=halo.dist_dots,
         matvec=functools.partial(_cg_matvec, grid_p1=grid_p1, cfg=cfg,
                                  lam=lam),
         inv_diag=halo.crop2d(inv_diag_p1, 1), **kw)
-    return res.x
 
 
-def solve_pressure(state: State, divU, grid_l: Grid, grid_p1: Grid,
-                   cfg: Config):
-    """The projection step's elliptic solve on the mesh from div(U*): the
-    rigid lid's right-hand side with its anomaly de-meaned over the wet
-    cells (two mesh reductions), or the implicit free surface's Helmholtz
-    problem, solved by _dist_solve warm-started from the carry.  grid_l is
-    the local statics, grid_p1 the statics padded by 1."""
+def pressure_lam(cfg: Config) -> float:
+    """lam of the projection step's elliptic operator div(H grad) - lam:
+    0 for the rigid lid, 1 / (g dt^2) for the implicit free surface."""
+    if cfg.scheme == "rigid_lid":
+        return 0.0
+    return 1.0 / (cfg.g * cfg.dt * cfg.dt)
+
+
+def pressure_rhs(state: State, divU, grid_l: Grid, cfg: Config):
+    """(rhs, x0) of the projection step's elliptic solve on the mesh from
+    div(U*): the rigid lid's right-hand side with its anomaly de-meaned
+    over the wet cells (two mesh reductions), or the implicit free
+    surface's Helmholtz problem; x0 the warm start from the carry (for
+    the implicit free surface eta^n where there is none).  grid_l is the
+    local statics."""
     dt = cfg.dt
     warm = warm_x0(state, cfg)
     if cfg.scheme == "rigid_lid":
@@ -280,13 +294,21 @@ def solve_pressure(state: State, divU, grid_l: Grid, grid_p1: Grid,
         anom = anom - grid_l.mask * (halo.dist_dot(anom, grid_l.mask)
                                      / halo.dist_dot(grid_l.mask,
                                                      grid_l.mask))
-        rhs = (divU - anom / dt) / dt
-        return _dist_solve(rhs, grid_l, grid_p1, cfg, x0=warm)
+        return (divU - anom / dt) / dt, warm
     eta_n = (torch.sum(state.h, dim=0) - grid_l.H) * grid_l.mask
-    lam = 1.0 / (cfg.g * dt * dt)
-    rhs = -lam * (eta_n - dt * divU)
-    return _dist_solve(rhs, grid_l, grid_p1, cfg, lam=lam,
-                       x0=eta_n if warm is None else warm)
+    rhs = -pressure_lam(cfg) * (eta_n - dt * divU)
+    return rhs, eta_n if warm is None else warm
+
+
+def solve_pressure(state: State, divU, grid_l: Grid, grid_p1: Grid,
+                   cfg: Config):
+    """The eager mesh step's elliptic solve: pressure_rhs's problem solved
+    by _dist_solve, eager over the shards (the fused mesh stepper solves
+    the same problem on the card, stencils/mesh_solve.py).  grid_l is the
+    local statics, grid_p1 the statics padded by 1."""
+    rhs, x0 = pressure_rhs(state, divU, grid_l, cfg)
+    return _dist_solve(rhs, grid_l, grid_p1, cfg, lam=pressure_lam(cfg),
+                       x0=x0)
 
 
 def _dist_projection_step(state: State, pgrid: Grid, pforcing: Forcing,
@@ -406,8 +428,9 @@ def make_dist_stepper(grid: Grid, forcing: Forcing, cfg: Config, mesh: Mesh,
     launch per card of the mesh (`cards`: dist_band.MeshKernels'): fb and
     split through make_dist_fused_stepper, rigid_lid and implicit_fs
     through make_dist_fused_projection_stepper (the phase kernels around
-    solve_pressure).  backend='eager' runs the halo-exchanging steps above,
-    every pad2d through cfg.halo_impl.
+    pressure_rhs and the mesh's solve on the card,
+    stencils/mesh_solve.py).  backend='eager' runs the halo-exchanging
+    steps above, every pad2d through cfg.halo_impl.
     """
     if cfg.backend == "fused":
         from beom_tpu_torch.stencils import dist_band

@@ -34,7 +34,9 @@ the same mesh) and the cycle takes the exchange hooks `pad` / `crop`
 (the halo exchange), `gsum` (the mesh sum) and `nbr` (the halo-pipelined
 neighbour sum); their defaults are the single-device operations.
 `make_dist_mg_precond` runs the cycle without the de-mean, so a CG
-iteration stays at one mesh reduction.
+iteration stays at one mesh reduction.  `mesh_levels` is the same
+hierarchy in the global layout, which the mesh's solve on the card
+(stencils/mesh_solve.py) hands K6.
 """
 
 from __future__ import annotations
@@ -149,8 +151,12 @@ def _coarsen_faces(Hu, Hv):
     return Hu_c, Hv_c
 
 
-def build_levels(grid: Grid, cfg: Config, lam=0.0, min_size: int = 16):
-    """Level 0 = the model grid; each next level halves (ny, nx)."""
+def build_levels(grid: Grid, cfg: Config, lam=0.0, min_size: int = 16,
+                 blocks=(1, 1)):
+    """Level 0 = the model grid; each next level halves (ny, nx) while the
+    extents of the blocks = (by, bx) blocks the grid is cut into stay even
+    and their halves at least min_size (the whole grid by default; a
+    mesh's shape in mesh_levels)."""
     mask_u = grid.mask * ops.sxp(grid.mask)
     mask_v = grid.mask * ops.syp(grid.mask)
     Hu = mask_u * ops.a_xp(grid.H)
@@ -158,15 +164,40 @@ def build_levels(grid: Grid, cfg: Config, lam=0.0, min_size: int = 16):
     mask = grid.mask
     dx, dy = cfg.dx, cfg.dy
     levels = [_make_level(Hu, Hv, mask, dx, dy, lam)]
-    ny, nx = mask.shape
-    while (ny % 2 == 0 and nx % 2 == 0
-           and ny // 2 >= min_size and nx // 2 >= min_size):
+    for _ in level_shapes(mask.shape, min_size, blocks)[1:]:
         Hu, Hv = _coarsen_faces(Hu, Hv)
         mask = (_coarsen2(mask) > 0).to(mask.dtype)
         dx, dy = 2.0 * dx, 2.0 * dy
-        ny, nx = ny // 2, nx // 2
         levels.append(_make_level(Hu, Hv, mask, dx, dy, lam))
     return levels
+
+
+def level_shapes(shape, min_size: int = 16, blocks=(1, 1)) -> list:
+    """The (ny, nx) of build_levels' levels of a grid of `shape`: halved
+    while the extents of its blocks stay even and their halves at least
+    min_size."""
+    (ny, nx), (by, bx) = shape, blocks
+    out = [(ny, nx)]
+    ly, lx = ny // by, nx // bx
+    while (ly % 2 == 0 and lx % 2 == 0
+           and ly // 2 >= min_size and lx // 2 >= min_size):
+        ny, nx, ly, lx = ny // 2, nx // 2, ly // 2, lx // 2
+        out.append((ny, nx))
+    return out
+
+
+def mesh_levels(grid: Grid, cfg: Config, lam, mesh_shape,
+                min_local: int = 8):
+    """build_dist_levels' hierarchy on a mesh of mesh_shape = (NY, NX)
+    shards, in the global layout.  Each of its levels is the gathered
+    level of the mesh: a shard's block of even extent starts on an even
+    row and column, so its face coarsening (the fine pairs (2j, 2j + 1))
+    and mask coarsening are the whole grid's; its exchanged west and south
+    faces, its global checkerboard and its mesh sum of the mask are the
+    whole grid's periodic shifts, checkerboard and sum; and it stops where
+    build_dist_levels does, at min_local cells per block side."""
+    return build_levels(grid, cfg, lam, min_size=min_local,
+                        blocks=tuple(mesh_shape))
 
 
 def operator(p, Hu, Hu_w, Hv, Hv_s, mask, rdx2: float, rdy2: float, lam):

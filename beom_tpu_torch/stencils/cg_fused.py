@@ -9,8 +9,10 @@ grid-wide syncs.  `csrc/cg_jacobi.cu` takes the Jacobi preconditioner: one
 pass over tiles of the grid and one grid sync per iteration, the pointwise
 updates of the next iteration fused into the matvec (its pass schedule is
 emulated on the host by `cg_solve_tiled`).  `csrc/cg_fused.cu` takes one
-multigrid cycle per iteration (the fused gamma schedule, nu = 2,
-nu_coarse = 24, min_size 16, no de-mean, walked in the kernel as
+multigrid cycle per iteration (by default the fused gamma schedule on
+the levels of min_size 16; the caller's levels and gamma where given, as
+the mesh's solve gives its hierarchy; nu = 2, nu_coarse = 24, no
+de-mean; walked in the kernel as
 stencils/mg_coarse.py flattens it: two tiled passes per visit of a level
 above the shared-memory tier, the tier's levels on one CTA).  The
 reference keeps the solver state in VMEM and so runs the kernel only up
@@ -67,14 +69,13 @@ def mg_levels(grid: Grid, cfg: Config, lam):
 def cg_solve_plain(b, grid: Grid, cfg: Config, x0=None, lam=0.0,
                    tol: Optional[float] = None,
                    maxiter: Optional[int] = None,
-                   precond: str = "jacobi", levels=None) -> CGResult:
+                   precond: str = "jacobi", hierarchy=None) -> CGResult:
     """The plain version of the kernels: elliptic.cg_solve with Jacobi, or
-    with one eager cycle on `levels` (default mg_levels) as the
-    preconditioner."""
+    with one eager cycle on hierarchy = (levels, gamma) (default
+    mg_levels) as the preconditioner."""
     pre = None
     if precond == "mg":
-        levels, gamma = mg_levels(grid, cfg, lam) if levels is None \
-            else (levels, mg.fused_gamma_schedule(levels, 2))
+        levels, gamma = hierarchy or mg_levels(grid, cfg, lam)
         pre = mg.cycle_precond(levels, lam, MG_NU, MG_NU_COARSE, gamma)
     return elliptic.cg_solve(b, grid, cfg, x0=x0, lam=lam, tol=tol,
                              maxiter=maxiter, precond=pre)
@@ -321,11 +322,13 @@ _MG_ARGS = [_P] * 12 + [_I] + [_P] * 2 + [_I] * 4 + [_D] * 5 + [_P] * 4 \
 def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
                   precond: Optional[str] = None,
                   tol: Optional[float] = None,
-                  maxiter: Optional[int] = None):
+                  maxiter: Optional[int] = None, hierarchy=None):
     """solve(b, x0=None) -> CGResult, the whole preconditioned CG in one
     kernel launch.  precond: the cfg.precond='auto' rule by default (mg
     for the lam = 0 solve, jacobi otherwise); 'ssor' is not offered in the
-    kernel and becomes 'jacobi', as in the reference.  solve.steps is the
+    kernel and becomes 'jacobi', as in the reference.  hierarchy: the
+    multigrid cycle's (levels, gamma), default mg_levels (the mesh's solve
+    gives multigrid.mesh_levels with gamma 2).  solve.steps is the
     multigrid cycle's flattened step list (empty with Jacobi), on the CPU
     the H100's.  solve(..., stamps=stamps.Stamps()) is the launch's
     opt-in timing mode (stencils/stamps.py); solve(..., count=False) does
@@ -356,7 +359,7 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
             raise ValueError(f"fused CG: dtype {dtype}")
     steps, levels = [], None
     if use_mg:
-        levels, gamma = mg_levels(grid, cfg, lam)
+        levels, gamma = hierarchy or mg_levels(grid, cfg, lam)
         if on_cpu:
             smem = H100_SMEM
         else:
@@ -395,7 +398,8 @@ def make_cg_solve(grid: Grid, cfg: Config, lam: float = 0.0,
                 raise ValueError("fused CG: b is not on the grid's device")
             return cg_solve_plain(b, grid, cfg, x0=x0, lam=lam, tol=tol,
                                   maxiter=maxiter, precond=precond,
-                                  levels=levels)
+                                  hierarchy=(levels, gamma) if use_mg
+                                  else None)
         from beom_tpu_torch.stencils import build
 
         x0 = torch.zeros_like(b) if x0 is None else x0

@@ -47,8 +47,10 @@ the scalar slots and the geometry of each card.
   rigid_lid / implicit_fs  phase A and phase B, each the kernel
          fused_projection.plan takes on one device: the staged kernel at
          its geometry, or the single-step one where no staged geometry
-         fits a CTA; around the mesh's elliptic solve (parallel/dist.py's
-         solve_pressure, eager over the shards).
+         fits a CTA; around the mesh's elliptic solve (its right-hand side
+         on the shards, parallel/dist.py's pressure_rhs; the solve on the
+         gathered grid of the shards through K6 or K4a's sweeps,
+         stencils/mesh_solve.py).
 
 A mesh over several devices takes equal rectangles of shards per device;
 another placement, and a mesh that mixes CPU and CUDA shards, raises
@@ -752,7 +754,16 @@ class MeshPlan:
                    f"pass: {self.fb_launches(k)}"
         if self.cfg.scheme == "split":
             return f"{lead}; split: {self.split.describe()}"
-        return f"{lead}; projection: {self.phases.describe()}"
+        from beom_tpu_torch.parallel.dist import pressure_lam
+        from beom_tpu_torch.stencils import mesh_solve
+
+        solve = mesh_solve.describe(
+            self.cfg, (self.cfg.ny // self.ly, self.cfg.nx // self.lx),
+            pressure_lam(self.cfg))
+        # the mesh forms the solve's right-hand side in torch on the
+        # shards (phase A has no epilogue there)
+        phases = dataclasses.replace(self.phases, rhs=False).describe()
+        return f"{lead}; projection: {phases}; solve: {solve}"
 
 
 @functools.lru_cache(maxsize=None)
@@ -1447,12 +1458,15 @@ def make_dist_fused_stepper(grid: Grid, forcing: Forcing, cfg: Config,
 def make_dist_fused_projection_stepper(grid: Grid, forcing: Forcing,
                                        cfg: Config, mesh: Mesh, cards=None):
     """step(state) -> state advancing one rigid-lid / implicit-FS step of a
-    sharded State: phase A on the shards, the right-hand side and the
-    mesh's elliptic solve (parallel/dist.py, as the eager mesh step has
-    them), phase B on the shards, and the warm-start carry (the kernels
+    sharded State: phase A on the shards, the right-hand side on the
+    shards (parallel/dist.py, as the eager mesh step forms it), the mesh's
+    elliptic solve (stencils/mesh_solve.py: on CUDA shards one K6 launch,
+    or K4a's sweeps, on the gathered grid; on CPU shards the eager mesh
+    solve), phase B on the shards, and the warm-start carry (the kernels
     over `cards`, default the mesh's).  As the reference's composed tier,
     it has no stall guard: the mesh's solve has none either."""
     from beom_tpu_torch.parallel import dist
+    from beom_tpu_torch.stencils import mesh_solve
     from beom_tpu_torch.stepping import prepare_state
 
     check_config(cfg)
@@ -1460,13 +1474,15 @@ def make_dist_fused_projection_stepper(grid: Grid, forcing: Forcing,
     pstatics, K = _held(grid, forcing, cfg, mesh, cards)
     pgrid1, _ = dist.pad_statics(grid, forcing, cfg, mesh, 1)
     grid_l = dist._crop_tree(pgrid1, 1)
+    solve = mesh_solve.make_mesh_solve(grid_l, pgrid1, cfg, mesh,
+                                       dist.pressure_lam(cfg), cards)
 
     def step(state: State) -> State:
         state = prepare_state(state, cfg)
         u_s, v_s, div = shard_proj_a(state.h, state.u, state.v, pstatics,
                                      state.n, cfg, kernels=K)
         with halo.impl(cfg.halo_impl):
-            p = dist.solve_pressure(state, div, grid_l, pgrid1, cfg)
+            p = solve(*dist.pressure_rhs(state, div, grid_l, cfg))
         h1, u1, v1 = shard_proj_b(state.h, u_s, v_s, p, pstatics, state.t,
                                   cfg, kernels=K)
         out = State(h=h1, u=u1, v=v1, t=_pass_time(state.t, cfg, 1),

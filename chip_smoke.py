@@ -181,18 +181,36 @@ Phases, each of which raises on failure (exit code != 0):
      and diagnostics equal to the single-device K1s run's bit for bit;
      shelf_forced split nsub 8, 10 steps, three launches per step (route
      3), equal to the single-device run; the rigid-lid gyre with
-     scheme='implicit_fs', 5 steps, one launch per phase and step, within
-     1e-5 x max(scale, 1) of the single-device fused run (K3a, K6, K3b)
-     and 1e-6 x scale of the eager mesh run (the same solve); the rigid
-     lid's default solve (the distributed CG + multigrid) at 256^2 on (2,
-     2) from rest, one step, within 1e-6 x scale of the eager mesh step
-     (the same solve) and 1e-5 x max(scale, 1) of the single-device fused
-     step (K6 with its own hierarchy)
+     scheme='implicit_fs', 5 steps, one launch per phase and step and one
+     K6-Jacobi launch per step (the mesh's solve on the gathered grid of
+     the shards, stencils/mesh_solve.py), bit for bit the single-device
+     fused run (K3a, K6, K3b) and against the eager mesh run (its own
+     sums) h within 1e-6 x its scale and u, v within 1e-3 x the
+     velocity's, a bound the same run with the solve stopped after 10
+     iterations must exceed, and at 512^2 f64 one step within 1e-6 x
+     scale of the eager mesh step; the rigid lid's default solve (CG +
+     multigrid: K6-mg on the mesh's hierarchy, gamma 2 at every
+     transition) on (2, 2), phase A, one K6 launch and phase B per step,
+     the first step within 1e-5 x max(scale, 1) of the single-device fused
+     step (K6-mg on its own hierarchy) from rest at 256^2 f64 and f32 and
+     from a perturbed state (u, v of order 0.1) at 512^2 f32, and at 256^2
+     against the eager mesh step (the plain version): f64 within 1e-6 x
+     scale, f32 within the 2 x 4 run's bound; 5 more steps timed at 512^2,
+     the cycle's steps and grid syncs beside the single-device cycle's;
+     solver='redblack' at 512^2 f64 on (2, 2), 3 steps, K4a's sweep passes
+     counted (480 sweeps in 60 passes per step, no K6), the first within
+     1e-6 x scale of the eager mesh step
  25. times at 2048^2 f32 on (2, 4): K7-split's five kernels and a whole
      split step beside K1s's, K7-proj's two phases beside K3a / K3b, each
-     between CUDA events and on the device under torch.profiler, and the
-     implicit-FS mesh step's time split into phase A, glue + solve and
-     phase B
+     between CUDA events and on the device under torch.profiler; the
+     implicit-FS mesh step's time split into phase A, the right-hand side,
+     the solve and phase B, through the mesh's solve on the card and
+     through the eager mesh solve; the mesh's solve by route (K6-Jacobi
+     there, K6-mg and K4a's sweeps at 512^2 on (2, 2)): x against the
+     eager mesh solve on the same right-hand side, its time per solve
+     beside the eager one's, its kernel's device time, the iterations.
+     `python3 chip_smoke.py --mesh` runs phases 23 to 25 alone, after
+     their builds
  26. the I/O and entry modules on the card, at 2048^2 f32 unless said: raw
      snapshots of the fused double gyre after 20 steps, written
      synchronously and through the async writer (io/native.py) in one
@@ -214,7 +232,10 @@ Phases, each of which raises on failure (exit code != 0):
      pass, K7-split at nsub 8 (route 2) and the shelf's (route 3), K7-proj
      A and B at both parities, each bit for bit the one-stack route and
      the single-device kernel (K1, K1s, K3a / K3b), one launch per card
-     and kernel counted; K8 at w = 5 (2-D and layered) bit for bit the
+     and kernel counted; 2 implicit-FS mesh steps over the two cards (the
+     solve's right-hand side gathered from both cards' stacks, one K6
+     launch per step, x copied back into each card's stack) bit for bit
+     the one-stack stepper; K8 at w = 5 (2-D and layered) bit for bit the
      one-stack launch and pad2d; run() of the mesh fb path over the two
      cards, 400 steps with diagnostics every 100, bit for bit the
      one-stack run; each kernel's time between CUDA events and on the
@@ -233,12 +254,14 @@ Phases, each of which raises on failure (exit code != 0):
      before and read just after: run() with backend='fused', 100 steps,
      diagnostics every 50 (finite; K1's two streamed kernels once per
      step), run() of the split scheme 10 steps, of the implicit free
-     surface 3 steps (K3a and K3b layer-streamed), and the three again on 2
-     x 2 shards of the card (K7-fb's two streamed kernels once per step,
-     K7-split's slow phase once and its recomposition's two, K7-proj
-     streamed; the fb and split runs' diagnostics lines those of the
-     single-device runs); the implicit free surface at 512^2 f64 with 16
-     layers, on one device and on 2 x 2 shards.  Then K1 (both parities;
+     surface 3 steps (K3a and K3b layer-streamed, one K6 launch per
+     step), and the three again on 2 x 2 shards of the card (K7-fb's two
+     streamed kernels once per step, K7-split's slow phase once and its
+     recomposition's two, K7-proj streamed around one K6 launch per step
+     on the gathered grid; the fb and split runs' diagnostics lines those
+     of the single-device runs; the implicit-FS mesh step's ms between
+     events and K6's device time in it); the implicit free surface at
+     512^2 f64 with 16 layers, on one device and on 2 x 2 shards.  Then K1 (both parities;
      its continuity's h1 and its momentum's u, v each held and each kernel
      timed on the device beside the plain continuity and the plain
      momentum with finalize), K1s at nsub 8 on its plan's route (route 3,
@@ -324,10 +347,19 @@ AGREE_SPLIT = (("double_gyre", 4), ("double_gyre", 8), ("two_layer", 4),
 MESH_SPLIT = tuple((case, nsub) for case in ("double_gyre", "two_layer")
                    for nsub in (4, 8, 12)) + (("shelf_forced", 8),)
 MESH_SHAPES = ((4, 1), (2, 4), (2, 2))
-# the grid of phase 24's rigid lid with the distributed CG + multigrid on
-# (2, 2): its eager mesh solve takes ~45 s per step at 512^2, and the
-# script's time limit holds phase 27 too
-MG_MESH_N = 256
+# the grids of phase 24's rigid lid with CG + multigrid on (2, 2): the
+# mesh's solve runs K6-mg on the gathered grid at MG_MESH_N; the eager mesh
+# solve, the plain version it is held against, takes ~20 s per step at
+# MG_EAGER_N (~45 s at 512^2, more than the script's time limit allows)
+MG_MESH_N = 512
+MG_EAGER_N = 256
+# phase 24's bound on a fused mesh step at f32 against the eager mesh
+# step, whose solve sums in another order: h within 1e-6 x its scale, u
+# and v within MESH_F32_REL x the velocity's scale (state_errs); and the
+# iterations after which a stopped solve must read over it
+MESH_F32_REL = 1e-3
+MESH_F32_BOUND = {"h": 1e-6, "u": MESH_F32_REL, "v": MESH_F32_REL}
+WRONG_ITERS = 10
 # grid fields a K6-Jacobi iteration streams, on average (csrc/cg_jacobi.cu:
 # reads r, w, s, p, pm, Hu, Hv, writes r, w, s, p, and every other pass
 # reads and writes x)
@@ -343,6 +375,19 @@ _T0 = time.perf_counter()
 
 def phase(name):
     print(f"== {name} [{time.perf_counter() - _T0:.0f} s in]", flush=True)
+
+
+def rel(r):
+    """The bound r x max|ref|, as a function of the reference."""
+    return lambda ref: r * float(ref.abs().max())
+
+
+def ulps(k):
+    """The bound of k float32 ulps at max|ref|."""
+    import numpy as np
+
+    return lambda ref: k * float(np.spacing(
+        np.float32(ref.abs().max().item())))
 
 
 def kernel_entry(name, src, site, launches, err, ms, n_bytes, n_ops,
@@ -1163,14 +1208,6 @@ def main() -> dict:
             gyre, torch.float32, kb)))
 
     phase("3 K1 against its plain version")
-
-    def rel(r):
-        return lambda ref: r * float(ref.abs().max())
-
-    def ulps(k):
-        return lambda ref: k * float(np.spacing(
-            np.float32(ref.abs().max().item())))
-
     compare("256^2 f64 x20", dev, 20, rel(1e-12), nx=256, ny=256,
             dtype="float64")
     compare("256^2 f32 x1", dev, 1, ulps(4), nx=256, ny=256)
@@ -3046,17 +3083,29 @@ def check_shard_projection(label, dev, tol, seed, case, scheme, mesh_shape,
     return worst
 
 
-def state_diff(label, out, ref, bound_rel, floor=0.0):
-    """max|out - ref| of h, u, v against bound_rel x max(scale, floor);
-    raises if over."""
+def state_errs(out, ref, speed=False):
+    """{field: (max|out - ref|, max|ref|)} of h, u and v; with speed=True u
+    and v take the larger of their two scales, the velocity's (a pressure
+    solve's error reaches both components alike through its gradient)."""
+    errs = {f: (float((getattr(out, f) - getattr(ref, f)).abs().max()),
+                float(getattr(ref, f).abs().max())) for f in "huv"}
+    if speed:
+        s = max(errs["u"][1], errs["v"][1])
+        errs.update({f: (errs[f][0], s) for f in "uv"})
+    return errs
+
+
+def state_diff(label, out, ref, bound_rel, floor=0.0, speed=False):
+    """max|out - ref| of h, u, v against bound_rel x max(scale, floor),
+    bound_rel a number or one by field, the scales state_errs'; raises if
+    over."""
     worst = 0.0
-    for f in "huv":
-        a, b = getattr(out, f), getattr(ref, f)
-        err = float((a - b).abs().max())
-        scale = float(b.abs().max())
-        bound = bound_rel * max(scale, floor)
-        print(f"   {label} {f}: max|diff| {err!r} (scale {scale!r}, bound "
-              f"{bound!r})")
+    for f, (err, scale) in state_errs(out, ref, speed).items():
+        r = bound_rel[f] if isinstance(bound_rel, dict) else bound_rel
+        bound = r * max(scale, floor)
+        print(f"   {label} {f}: max|diff| {err!r} = "
+              f"{err / max(scale, 1e-300)!r} x scale (scale {scale!r}, "
+              f"bound {bound!r})")
         if not err <= bound:
             raise AssertionError(f"{label} {f}: {err!r} > {bound!r}")
         worst = max(worst, err)
@@ -3090,23 +3139,13 @@ def scheme_mesh_specs():
     return specs
 
 
-def scheme_mesh_phases(dev, smi, rel, ulps):
-    """Phases 23 to 25: the split and projection schemes on a mesh of
-    shards; returns the JSON entries of K7-split and K7-proj."""
-    import torch
-
-    from beom_tpu_torch.cases import make_case
-    from beom_tpu_torch.parallel import dist
-    from beom_tpu_torch.parallel import mesh as pmesh
-    from beom_tpu_torch.parallel.mesh import gather_state
-    from beom_tpu_torch.run import run
-    from beom_tpu_torch.stencils import dist_band, fused_fb
-    from beom_tpu_torch.stencils import fused_projection as fp
-    from beom_tpu_torch.stepping import prepare_state
-
+def mesh_agreement(dev, rel, ulps, err_split):
+    """Phase 23: K7-split and K7-proj against their plain versions and the
+    single-device kernels; fills err_split by kernel and returns K7-proj's
+    worst errors (phase A, phase B)."""
     phase("23 K7-split and K7-proj against their plain versions and the "
           "single-device kernels")
-    err_split, err_proj = {}, [0.0, 0.0]
+    err_proj = [0.0, 0.0]
     for case, nsub in MESH_SPLIT:
         for mesh_shape in MESH_SHAPES:
             check_shard_split("192x128 f64", dev, rel(1e-12), 80, case,
@@ -3131,6 +3170,30 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
         check_shard_projection("192x128 f64", dev, rel(1e-12), 84, case,
                                "rigid_lid", (2, 2), layers=nz, nx=192,
                                ny=128, dtype="float64", precond="jacobi")
+    return err_proj
+
+
+def scheme_mesh_phases(dev, smi, rel, ulps):
+    """Phases 23 to 25: the split and projection schemes on a mesh of
+    shards; returns the JSON entries of K7-split, K7-proj and the mesh's
+    solve."""
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.parallel import dist
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.parallel.mesh import gather_state
+    from beom_tpu_torch.run import run
+    from beom_tpu_torch.solvers import multigrid as mg
+    from beom_tpu_torch.stencils import (cg_fused, dist_band, fused_fb,
+                                         mesh_solve, mg_coarse, redblack)
+    from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import prepare_state
+
+    err_split = {}
+    # the mesh solve's launches on phase 24's paths, by route
+    solves = {}
+    err_proj = mesh_agreement(dev, rel, ulps, err_split)
 
     phase(f"24 the split and projection schemes on a 2 x 4 mesh of shards "
           f"through run() at {BIG}^2 f32")
@@ -3216,58 +3279,187 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
     torch.cuda.synchronize()
     dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
     single_before = dict(fp.LAUNCHES)
+    k6_before = cg_fused.LAUNCHES
     t0 = time.perf_counter()
     out = gather_state(run(mcfg, grid, forcing, st, n_proj,
                            log=io.StringIO()))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts_proj = dict(dist_band.LAUNCHES)
+    solves["jacobi"] = cg_fused.LAUNCHES - k6_before
     want = {k: n_proj if k in ("proj_a", "proj_b") else 0
             for k in counts_proj}
-    if counts_proj != want or fp.LAUNCHES != single_before:
+    # the mesh's solve: one K6-Jacobi launch per step on the gathered grid
+    if counts_proj != want or fp.LAUNCHES != single_before \
+            or solves["jacobi"] != n_proj:
         raise AssertionError(f"implicit FS mesh path: launches "
-                             f"{counts_proj}, not {want}")
+                             f"{counts_proj} and {solves['jacobi']} of K6, "
+                             f"not {want} and {n_proj}")
     eager = gather_state(run(dataclasses.replace(mcfg, backend="eager"),
                              grid, forcing, st, n_proj, log=io.StringIO()))
+    # the mesh's solve is K6-Jacobi on the gathered grid, the single
+    # device's solve on the same right-hand side: the run is the
+    # single-device fused run's bit for bit.  The eager mesh run solves
+    # with its own sums (per shard, then the mesh's), so at f32 x differs
+    # by the solver's tolerance: h within 1e-6 x its scale, u and v within
+    # MESH_F32_REL x the velocity's (v's own scale is ~20 times below
+    # u's from rest); at f64 every field within 1e-6 x its own (below)
     state_diff("implicit FS 2 x 4 fused vs single-device fused", out, ref,
-               1e-5, 1.0)
-    state_diff("implicit FS 2 x 4 fused vs eager 2 x 4", out, eager, 1e-6)
-    print(f"   implicit FS on 2 x 4 shards: launches {counts_proj} in "
-          f"{n_proj} steps; {wall:.3f} s wall (first run, diagnostics "
-          "included)")
-
-    # the distributed multigrid-preconditioned CG is far slower on the eager
-    # mesh tier than Jacobi (about 45 s per step at 512^2 on an H100, ~20 s
-    # at 256^2, so the check runs at MG_MESH_N = 256 for one step): from
-    # rest, the fused step held against the eager mesh step (the same
-    # solve, _dist_solve, so equal within 1e-6 x scale) and against the
-    # single-device fused step (K6 with multigrid) within the solver
-    # tolerance
-    cfg, grid, forcing, st = make_case("rigid_lid", nx=MG_MESH_N,
-                                       ny=MG_MESH_N, device=dev,
-                                       backend="fused")
+               0.0)
+    state_diff("implicit FS 2 x 4 fused vs eager 2 x 4", out, eager,
+               MESH_F32_BOUND, speed=True)
+    # the bound's power: the same run with the solve stopped after
+    # WRONG_ITERS iterations reads over it
+    wrong = gather_state(run(dataclasses.replace(
+        mcfg, solver_maxiter=WRONG_ITERS), grid, forcing, st, n_proj,
+        log=io.StringIO()))
+    errs = state_errs(wrong, eager, speed=True)
+    wrong_rel = max(errs[f][0] / errs[f][1] for f in "uv")
+    print(f"   implicit FS 2 x 4 with the solve stopped after {WRONG_ITERS} "
+          f"iterations vs eager 2 x 4: u, v max|diff| "
+          f"{errs['u'][0]!r}, {errs['v'][0]!r} = {wrong_rel!r} x the "
+          f"velocity's scale (bound {MESH_F32_REL!r})")
+    if not wrong_rel > MESH_F32_REL:
+        raise AssertionError("implicit FS 2 x 4: a stopped solve passes the "
+                             "bound against the eager mesh run")
+    plan = dist_band.mesh_plan(mcfg, torch.float32,
+                               pmesh.make_mesh(2, 4, devices=[dev]))
+    print(f"   implicit FS on 2 x 4 shards: launches {counts_proj} and "
+          f"{solves['jacobi']} of K6-Jacobi in {n_proj} steps, bit for bit "
+          f"the single-device fused run; {wall:.3f} s wall (first run, "
+          f"diagnostics included); the mesh plan: {plan.describe()}")
+    cfg, grid, forcing, st = perturbed_case(
+        dev, 24, "rigid_lid", nx=MG_MESH_N, ny=MG_MESH_N, dtype="float64",
+        backend="fused", scheme="implicit_fs", mesh_y=2, mesh_x=4)
     st = prepare_state(st, cfg)
+    m = pmesh.make_mesh(2, 4, devices=[dev])
+    k6_before = cg_fused.LAUNCHES
+    first = gather_state(dist.make_dist_stepper(grid, forcing, cfg, m)(
+        pmesh.shard_state(st, m)))
+    if cg_fused.LAUNCHES - k6_before != 1:
+        raise AssertionError("implicit FS f64 on 2 x 4: not one K6 launch")
+    eager = gather_state(dist.make_dist_stepper(
+        grid, forcing, dataclasses.replace(cfg, backend="eager"), m)(
+        pmesh.shard_state(st, m)))
+    state_diff(f"implicit FS {MG_MESH_N}^2 f64 2 x 4, 1 fused step vs the "
+               "eager mesh step", first, eager, 1e-6)
+
+    # the rigid lid's default solve on the mesh, CG + multigrid: K6-mg on
+    # the mesh's hierarchy (multigrid.mesh_levels, gamma 2 at every
+    # transition) on the gathered grid of the 2 x 2 shards, one launch per
+    # step.  At MG_EAGER_N from rest, the first fused step against the
+    # eager mesh step (the plain version on the card, ~20 s): at f64
+    # within 1e-6 x scale, at f32 within MESH_F32_BOUND; at MG_MESH_N from
+    # a perturbed state (u and v of order 0.1, so that the bound 1e-5 x
+    # max(scale, 1) below is under 1e-4 of theirs), then 5 more steps
+    # timed.  Every first step against the single-device fused step (K6-mg
+    # on its own hierarchy) within the solver tolerance
     m = pmesh.make_mesh(2, 2, devices=[dev])
-    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
-    t0 = time.perf_counter()
+    for n, dtype in ((MG_EAGER_N, "float64"), (MG_EAGER_N, "float32"),
+                     (MG_MESH_N, "float32")):
+        if n == MG_MESH_N:
+            cfg, grid, forcing, st = perturbed_case(
+                dev, 24, "rigid_lid", nx=n, ny=n, backend="fused")
+        else:
+            cfg, grid, forcing, st = make_case(
+                "rigid_lid", nx=n, ny=n, device=dev, backend="fused",
+                dtype=dtype)
+        st = prepare_state(st, cfg)
+        n_more = 5 if n == MG_MESH_N else 0
+        dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+        k6_before = cg_fused.LAUNCHES
+        t0 = time.perf_counter()
+        step = dist.make_dist_stepper(grid, forcing, cfg, m)
+        first = step(pmesh.shard_state(st, m))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        later = first
+        for _ in range(n_more):
+            later = step(later)
+        torch.cuda.synchronize()
+        per_step = (time.perf_counter() - t0) / max(n_more, 1) * 1e3
+        got = {"proj_a": dist_band.LAUNCHES["proj_a"],
+               "K6": cg_fused.LAUNCHES - k6_before,
+               "proj_b": dist_band.LAUNCHES["proj_b"]}
+        if got != dict.fromkeys(got, 1 + n_more):
+            raise AssertionError(f"rigid lid on 2 x 2 at {n}^2: launches "
+                                 f"{got} in {1 + n_more} steps")
+        solves["mg"] = got["K6"]
+        first = gather_state(first)
+        if not bool(torch.isfinite(gather_state(later).h).all()):
+            raise AssertionError(f"rigid lid on 2 x 2 at {n}^2: not finite")
+        if n == MG_EAGER_N:
+            eager = dist.make_dist_stepper(
+                grid, forcing, dataclasses.replace(cfg, backend="eager"), m)(
+                pmesh.shard_state(st, m))
+            state_diff(f"rigid lid CG + multigrid {n}^2 {dtype} 2 x 2, 1 "
+                       "fused step vs the eager mesh step", first,
+                       gather_state(eager), 1e-6 if dtype == "float64"
+                       else MESH_F32_BOUND, speed=dtype == "float32")
+        single = cg_fused.make_cg_solve(grid, cfg, lam=0.0)
+        pgrid1, _ = dist.pad_statics(grid, forcing, cfg, m, 1)
+        cycle = mesh_solve.make_gathered_solve(dist._crop_tree(pgrid1, 1),
+                                               cfg, m, 0.0).steps
+        one = fp.make_fused_projection_stepper(grid, forcing, cfg)(st)
+        state_diff(f"rigid lid CG + multigrid {n}^2 {dtype} 2 x 2, 1 fused "
+                   "step vs the single-device fused step", first, one, 1e-5,
+                   1.0)
+        shapes = mg.level_shapes((n, n), mesh_solve.MIN_LOCAL, (2, 2))
+        print(f"   rigid lid CG + multigrid on 2 x 2 at {n}^2 {dtype}: "
+              f"launches "
+              f"{got} in {1 + n_more} steps; {wall:.3f} s for the stepper's "
+              f"set-up and its first step"
+              + (f", {per_step!r} ms/step over {n_more} more" if n_more
+                 else "")
+              + f"; the mesh's cycle on {len(shapes)} levels {shapes[0]} to "
+              f"{shapes[-1]}: {len(cycle)} steps, "
+              f"{mg_coarse.grid_syncs(cycle)} grid syncs (the "
+              f"single-device cycle: {len(single.steps)} steps, "
+              f"{mg_coarse.grid_syncs(single.steps)})")
+        del step, first, later, one, single, cycle
+
+    # solver='redblack' on the mesh: K4a's sweep mode on the gathered grid,
+    # RB_MAXITER sweeps in passes of mesh_solve.RB_SWEEPS per step (no
+    # residual test, as the mesh's _dist_redblack), 3 steps at MG_MESH_N
+    # f64 on (2, 2), the first against the eager mesh step within 1e-6 x
+    # scale
+    n_rb = 3
+    cfg, grid, forcing, st = make_case(
+        "rigid_lid", nx=MG_MESH_N, ny=MG_MESH_N, device=dev,
+        dtype="float64", backend="fused", solver="redblack",
+        solver_maxiter=RB_MAXITER)
+    st = prepare_state(st, cfg)
     step = dist.make_dist_stepper(grid, forcing, cfg, m)
-    first = gather_state(step(pmesh.shard_state(st, m)))
+    dist_band.LAUNCHES.update(dict.fromkeys(dist_band.LAUNCHES, 0))
+    rb_before = (redblack.LAUNCHES, cg_fused.LAUNCHES)
+    outs = [pmesh.shard_state(st, m)]
+    for _ in range(n_rb):
+        outs.append(step(outs[-1]))
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if dist_band.LAUNCHES["proj_a"] != 1 \
-            or dist_band.LAUNCHES["proj_b"] != 1:
-        raise AssertionError(f"rigid lid on 2 x 2: launches "
-                             f"{dist_band.LAUNCHES}")
+    per = len(mesh_solve.rb_passes(RB_MAXITER))
+    got = {"proj_a": dist_band.LAUNCHES["proj_a"],
+           "K4a": redblack.LAUNCHES - rb_before[0],
+           "K6": cg_fused.LAUNCHES - rb_before[1],
+           "proj_b": dist_band.LAUNCHES["proj_b"]}
+    want = {"proj_a": n_rb, "K4a": per * n_rb, "K6": 0, "proj_b": n_rb}
+    if got != want:
+        raise AssertionError(f"red-black on 2 x 2: launches {got}, not "
+                             f"{want}")
+    solves["redblack"] = got["K4a"]
     eager = dist.make_dist_stepper(
         grid, forcing, dataclasses.replace(cfg, backend="eager"), m)(
-        pmesh.shard_state(st, m))
-    state_diff(f"rigid lid CG + multigrid {MG_MESH_N}^2 2 x 2, 1 fused step "
-               "vs the eager mesh step", first, gather_state(eager), 1e-6)
-    one = fp.make_fused_projection_stepper(grid, forcing, cfg)(st)
-    state_diff(f"rigid lid CG + multigrid {MG_MESH_N}^2 2 x 2, 1 fused step "
-               "vs the single-device fused step", first, one, 1e-5, 1.0)
-    print(f"   rigid lid with the distributed CG + multigrid on 2 x 2: "
-          f"{wall:.3f} s for 1 step")
+        outs[0])
+    state_diff(f"rigid lid red-black {MG_MESH_N}^2 f64 2 x 2, 1 fused step "
+               "vs the eager mesh step", gather_state(outs[1]),
+               gather_state(eager), 1e-6)
+    if not bool(torch.isfinite(gather_state(outs[-1]).h).all()):
+        raise AssertionError("red-black on 2 x 2: not finite")
+    print(f"   rigid lid red-black on 2 x 2 at {MG_MESH_N}^2 f64: launches "
+          f"{got} "
+          f"in {n_rb} steps ({per} K4a passes of at most "
+          f"{mesh_solve.RB_SWEEPS} sweeps per step)")
+    del step, outs, eager
 
     phase(f"25 times of K7-split and K7-proj at {BIG}^2 f32 on 2 x 4 shards "
           f"({smi})")
@@ -3353,7 +3545,7 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
               f"{dev_ms[name1]!r}")
         entries.append(kernel_entry(
             f"shard_split_{k}", "shard_split.cu", "dist_band.py:63",
-            counts[f"split_{k}"], err_split[k], ms, 4 * fields * pts,
+            counts[f"split_{k}"], err_split.get(k), ms, 4 * fields * pts,
             ops * pts, device=dev_ms[name7]))
     with torch.cuda.device(dev):
         step_ms = time_pair(
@@ -3424,36 +3616,152 @@ def scheme_mesh_phases(dev, smi, rel, ulps):
             ops * pts, device=dev_ms[name7]))
 
     # the implicit-FS mesh step's time by part, between CUDA events on the
-    # current stream, which every part joins
+    # current stream, which every part joins: the mesh's solve on the card
+    # (the fused stepper's) and the eager mesh solve (its plain version)
     pgrid1, _ = dist.pad_statics(grid, forcing, cfg, m, 1)
     grid_l = dist._crop_tree(pgrid1, 1)
     state = pmesh.shard_state(prepare_state(st, cfg), m)
-    parts = {"phase A": 0.0, "glue + solve": 0.0, "phase B": 0.0}
-    n_steps = 5
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_steps):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        a = dist_band.shard_proj_a(state.h, state.u, state.v, pstat, state.n,
-                                   cfg, kernels=K)
-        ev[1].record()
-        phi = dist.solve_pressure(state, a[2], grid_l, pgrid1, cfg)
-        ev[2].record()
-        dist_band.shard_proj_b(state.h, a[0], a[1], phi, pstat, state.t, cfg,
-                               kernels=K)
-        ev[3].record()
+    lam = dist.pressure_lam(cfg)
+    solve = mesh_solve.make_mesh_solve(grid_l, pgrid1, cfg, m, lam)
+    eager = lambda b, x0: dist._dist_solve(b, grid_l, pgrid1, cfg, lam=lam,
+                                           x0=x0)
+    for label, fn, n_steps in (("the mesh's solve on the card", solve, 5),
+                               ("the eager mesh solve", eager, 3)):
+        parts = dict.fromkeys(("phase A", "right-hand side", "solve",
+                               "phase B"), 0.0)
         torch.cuda.synchronize()
-        for i, name in enumerate(parts):
-            parts[name] += ev[i].elapsed_time(ev[i + 1]) / n_steps
-    wall = (time.perf_counter() - t0) / n_steps * 1e3
-    print(f"   implicit FS step on (2, 4), from the same state: "
-          + ", ".join(f"{k} {v!r} ms" for k, v in parts.items())
-          + f"; {wall!r} ms/step wall")
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+            ev[0].record()
+            a = dist_band.shard_proj_a(state.h, state.u, state.v, pstat,
+                                       state.n, cfg, kernels=K)
+            ev[1].record()
+            rhs, x0 = dist.pressure_rhs(state, a[2], grid_l, cfg)
+            ev[2].record()
+            phi = fn(rhs, x0)
+            ev[3].record()
+            dist_band.shard_proj_b(state.h, a[0], a[1], phi, pstat, state.t,
+                                   cfg, kernels=K)
+            ev[4].record()
+            torch.cuda.synchronize()
+            for k, name in enumerate(parts):
+                parts[name] += ev[k].elapsed_time(ev[k + 1]) / n_steps
+        wall = (time.perf_counter() - t0) / n_steps * 1e3
+        print(f"   implicit FS step on (2, 4), from the same state, through "
+              f"{label}: " + ", ".join(f"{k} {v!r} ms"
+                                       for k, v in parts.items())
+              + f"; {wall!r} ms/step wall ({smi})")
+    entries.append(mesh_solve_row(
+        "jacobi", f"implicit FS {BIG}^2 f32 (2, 4)", solve, eager, rhs, x0,
+        solves["jacobi"], None, smi))
+    del solve, state, rhs, x0, a, phi, K, pstat
+    torch.cuda.empty_cache()
+
+    # the rigid lid's two mesh routes at MG_MESH_N on (2, 2): K6-mg on the
+    # mesh's hierarchy and K4a's sweeps, from a perturbed state's phase A
+    m = pmesh.make_mesh(2, 2, devices=[dev])
+    for route, kw in (("mg", {}), ("redblack", dict(
+            solver="redblack", solver_maxiter=RB_MAXITER))):
+        cfg, grid, forcing, st = perturbed_case(
+            dev, 3, "rigid_lid", nx=MG_MESH_N, ny=MG_MESH_N, **kw)
+        K = dist_band.MeshKernels((grid, forcing), cfg, m)
+        pstat = dist_band.pad_statics(grid, forcing, cfg, m)
+        pgrid1, _ = dist.pad_statics(grid, forcing, cfg, m, 1)
+        grid_l = dist._crop_tree(pgrid1, 1)
+        state = pmesh.shard_state(prepare_state(st, cfg), m)
+        div = dist_band.shard_proj_a(state.h, state.u, state.v, pstat,
+                                     state.n, cfg, kernels=K)[2]
+        rhs, x0 = dist.pressure_rhs(state, div, grid_l, cfg)
+        solve = mesh_solve.make_mesh_solve(grid_l, pgrid1, cfg, m, 0.0)
+        eager = lambda b, x0, cfg=cfg, grid_l=grid_l, pgrid1=pgrid1: \
+            dist._dist_solve(b, grid_l, pgrid1, cfg, x0=x0)
+        entries.append(mesh_solve_row(
+            route, f"rigid lid {MG_MESH_N}^2 f32 (2, 2)", solve, eager, rhs,
+            x0, solves[route], cfg.solver_maxiter, smi))
+        del K, pstat, state, solve
+    torch.cuda.empty_cache()
     dist_band.LAUNCHES.update(saved[0])
     fused_fb.SPLIT_LAUNCHES.update(saved[1])
     fp.LAUNCHES.update(saved[2])
     return entries
+
+
+# the mesh's solve by route: its kernel's source, the reference's TPU
+# kernel of the same computation on one device, and the profiler's name of
+# the kernel
+MESH_SOLVE_KERNELS = {
+    "jacobi": ("cg_jacobi.cu", "cg_vmem.py:61", "cg_jacobi_kernel"),
+    "mg": ("cg_fused.cu", "cg_vmem.py:61", "cg_kernel"),
+    "redblack": ("rb_sweep.cu", "redblack_pallas.py:39", "rb_pass_kernel")}
+
+
+def mesh_solve_row(route, label, solve, eager, rhs, x0, launches, sweeps,
+                   smi):
+    """The JSON row of the mesh's solve on the card by `route`, on one
+    projection step's right-hand side and warm start (sharded): x against
+    the eager mesh solve (its plain version on the card), the time per
+    solve between CUDA events (the mean of 10) beside it (one call), the
+    kernel's device time under
+    torch.profiler, and the bound: the kernel's as PERF.md counts it (K6:
+    b, x0, its statics and x once, ~30 operations per point and iteration
+    and the cycle's on the mesh's hierarchy; K4a: x0, b, Hu, Hv, mask and
+    x once, ~12 operations per point and sweep) plus the gather's and the
+    scatter's bytes (b and x0 read and written, x read and written).
+    `launches`: the kernel's launches on phase 24's path; `sweeps`: the
+    red-black route's sweeps per solve."""
+    import torch
+
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import mesh_solve
+
+    src, site, key = MESH_SOLVE_KERNELS[route]
+    got = pmesh.gather(solve(rhs, x0))
+    # the eager mesh solve once (~40 s for the rigid lid's multigrid at
+    # 512^2), between CUDA events: its x and its time
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    ref = pmesh.gather(eager(rhs, x0))
+    ev[1].record()
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    ms = (time_ms(lambda: solve(rhs, x0), 10), ev[0].elapsed_time(ev[1]))
+    pts, elem = got.numel(), got.element_size()
+    if route == "redblack":
+        per = len(mesh_solve.rb_passes(sweeps))
+        n_bytes, n_ops = 6 * pts * elem, 12 * sweeps * pts
+        iters = None
+    else:
+        per = 1
+        res = solve.kernel(solve.gathered(rhs), solve.gathered(x0))
+        iters = res.iters
+        if route == "jacobi":
+            n_bytes, n_ops = 6 * pts * elem, 30 * iters * pts
+        else:
+            levels = solve.levels
+            n_bytes = (6 * sum(lv.mask.numel() for lv in levels)
+                       + 3 * pts) * elem
+            n_ops = iters * (cycle_ops(solve.steps, levels) + 30 * pts)
+    copies = 6 * pts * elem
+    dev_ms = device_ms(f"mesh solve, {route}, {label}",
+                       lambda: solve(rhs, x0), 5, {key: per})[key]
+    print(f"   mesh solve, {route}, {label}: {ms[0]!r} ms per solve between "
+          f"events (eager mesh solve {ms[1]!r}), kernel {dev_ms!r} ms on the "
+          f"device; max|x - eager| {err!r} (scale {scale!r})"
+          + ("" if iters is None else f"; {iters} iterations")
+          + f"; the gather and scatter's bytes "
+          f"{copies / HBM_BYTES_PER_S * 1e3!r} ms at the memory rate ({smi})")
+    bound = 1e-3 if route != "redblack" else 1e-5
+    if not err <= bound * scale:
+        raise AssertionError(f"mesh solve, {route}, {label}: {err!r} > "
+                             f"{bound} x {scale!r}")
+    return kernel_entry(
+        f"mesh_solve_{route}", src, site, launches, err, ms,
+        n_bytes + copies, n_ops, device=dev_ms,
+        extra={"iterations": iters, "copies_bytes": copies,
+               "mesh_solve_of": "beom_tpu/parallel/dist.py:273"})
 
 
 def module_specs():
@@ -3833,21 +4141,33 @@ def card_legs(dev, m, split, cards, timed, smi):
                       None)
                 agree(f"{tag} K7-proj B n={n} vs K3b", g2(b2), one_b, None)
             # the implicit-FS mesh step over the two cards: the phases
-            # around the eager mesh solve, whose p phase B reads on both
-            # cards' streams; 2 steps, bit for bit the one-stack stepper
+            # around the mesh's solve on the card (each card's blocks of
+            # the right-hand side and warm start gathered on the first
+            # card after its phase A, one K6 launch there, x copied back
+            # into each card's stack before its phase B); 2 steps, bit for
+            # bit the one-stack stepper, one K6 launch per step
             from beom_tpu_torch.parallel.dist import make_dist_stepper
+            from beom_tpu_torch.stencils import cg_fused
             pcfg = dataclasses.replace(cfg, backend="fused", mesh_y=2,
                                        mesh_x=4)
             t0 = time.perf_counter()
-            outs = [pmesh.gather_state(make_dist_stepper(
-                grid, forcing, pcfg, m, n_inner=2, cards=c)(
-                    pmesh.shard_state(st, m))) for c in (None, cards)]
+            outs, k6 = [], []
+            for c in (None, cards):
+                before = cg_fused.LAUNCHES
+                outs.append(pmesh.gather_state(make_dist_stepper(
+                    grid, forcing, pcfg, m, n_inner=2, cards=c)(
+                        pmesh.shard_state(st, m))))
+                k6.append(cg_fused.LAUNCHES - before)
             torch.cuda.synchronize()
+            if k6 != [2, 2]:
+                raise AssertionError(f"{tag} implicit-FS mesh step: K6 "
+                                     f"launches {k6}, not one per step")
             agree(f"{tag} implicit-FS mesh step x 2 vs one stack",
                   [getattr(outs[1], f) for f in "huv"],
                   [getattr(outs[0], f) for f in "huv"], None)
             print(f"   {tag} implicit FS: 2 mesh steps each way in "
-                  f"{time.perf_counter() - t0:.2f} s (the eager mesh solve)")
+                  f"{time.perf_counter() - t0:.2f} s, one K6 launch per "
+                  "step on the gathered grid")
             timing("K7-proj phase A", lambda: K1.proj_a(*one, 0),
                    lambda: K2.proj_a(*two, 0),
                    {"shard_pas_kernel" if K1.plan.phases.a else
@@ -4632,9 +4952,13 @@ def layers_paths(dev, smi):
     shards (3 steps each).  Returns the counts by path."""
     import torch
 
+    from beom_tpu_torch.parallel import dist
+    from beom_tpu_torch.parallel import mesh as pmesh
     from beom_tpu_torch.run import run
-    from beom_tpu_torch.stencils import dist_band, fused_fb
+    from beom_tpu_torch.stencils import (cg_fused, dist_band, fused_fb,
+                                         mesh_solve)
     from beom_tpu_torch.stencils import fused_projection as fp
+    from beom_tpu_torch.stepping import prepare_state
 
     counts, logs = {}, {}
     f32 = (LAYERS28, "float32", BIG)
@@ -4658,10 +4982,11 @@ def layers_paths(dev, smi):
         counters = (fused_fb.STREAM_LAUNCHES, fused_fb.SPLIT_LAUNCHES,
                     fp.STREAM_LAUNCHES, dist_band.LAUNCHES,
                     dist_band.STREAM_LAUNCHES)
-        saved = [dict(c) for c in counters] + [fused_fb.LAUNCHES]
+        saved = [dict(c) for c in counters] + [fused_fb.LAUNCHES,
+                                                cg_fused.LAUNCHES]
         for c in counters:
             c.update(dict.fromkeys(c, 0))
-        fused_fb.LAUNCHES = 0
+        fused_fb.LAUNCHES = cg_fused.LAUNCHES = 0
         log = io.StringIO()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4686,10 +5011,11 @@ def layers_paths(dev, smi):
                "K7-split rec stream":
                    dist_band.STREAM_LAUNCHES["split_recompose"],
                "K7-proj A stream": dist_band.STREAM_LAUNCHES["proj_a"],
-               "K7-proj B stream": dist_band.STREAM_LAUNCHES["proj_b"]}
+               "K7-proj B stream": dist_band.STREAM_LAUNCHES["proj_b"],
+               "K6": cg_fused.LAUNCHES}
         for c, v in zip(counters, saved):
             c.update(v)
-        fused_fb.LAUNCHES = saved[-1]
+        fused_fb.LAUNCHES, cg_fused.LAUNCHES = saved[-2:]
         diags = [json.loads(x) for x in log.getvalue().splitlines()]
         mesh = "mesh_y" in kw
         want = {("fb", False): {"K1": n_steps, "K1 continuity": n_steps,
@@ -4698,14 +5024,16 @@ def layers_paths(dev, smi):
                     ("K1s slow", "K1s subcycle", "K1s recompose",
                      "K1s slow stream", "K1s rec stream"), n_steps),
                 ("implicit_fs", False): {"K3a stream": n_steps,
-                                         "K3b stream": n_steps},
+                                         "K3b stream": n_steps,
+                                         "K6": n_steps},
                 ("fb", True): {"K7-fb continuity": n_steps,
                                "K7-fb momentum": n_steps},
                 ("split", True): {"K7-split subcycle": n_steps,
                                   "K7-split slow stream": n_steps,
                                   "K7-split rec stream": 2 * n_steps},
                 ("implicit_fs", True): {"K7-proj A stream": n_steps,
-                                        "K7-proj B stream": n_steps}}[
+                                        "K7-proj B stream": n_steps,
+                                        "K6": n_steps}}[
             scheme, mesh]
         if any(got[k] != v for k, v in want.items()) or any(
                 v for k, v in got.items() if k not in want):
@@ -4725,6 +5053,20 @@ def layers_paths(dev, smi):
               f"{wall / n_steps * 1e3!r} ms/step wall with the call's "
               f"set-up ({smi})")
         counts[label] = got
+        if mesh and scheme == "implicit_fs" and dtype == "float32":
+            # the mesh step by its stepper, from the same state: ms per
+            # step between events and K6's device time in it
+            m = pmesh.make_mesh(2, 2, devices=[dev])
+            step = dist.make_dist_stepper(grid, forcing, cfg, m)
+            s0 = pmesh.shard_state(prepare_state(st, cfg), m)
+            step_ms = time_ms(lambda: step(s0), 5)
+            k6_ms = device_ms(f"{label}, a step", lambda: step(s0), 3,
+                              {"cg_jacobi_kernel": 1})["cg_jacobi_kernel"]
+            route = mesh_solve.describe(cfg, (2, 2), dist.pressure_lam(cfg))
+            print(f"   {label}: {step_ms!r} ms/step between events, K6's "
+                  f"device time {k6_ms!r} ms of it; the solve: {route} "
+                  f"({smi})")
+            del step, s0
         del out, grid, forcing, st
         torch.cuda.empty_cache()
     return counts
@@ -5011,9 +5353,39 @@ def layers_only():
         torch.device("cuda", torch.cuda.current_device()), smi)}))
 
 
+def mesh_only():
+    """Phases 23 to 25 alone (`python3 chip_smoke.py --mesh`), their shard
+    and solver builds first: the quick check of the mesh's paths while
+    they change.  Prints the mesh solve's kernel rows as one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    if not torch.cuda.is_available():
+        raise SystemExit("torch.cuda.is_available() is false: no CUDA card")
+    from beom_tpu_torch.stencils import build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi)
+    phase("2 build: the builds of phases 23 to 25")
+    specs = ["cg_jacobi", "cg_fused", "rb_sweep"] + sorted(
+        scheme_mesh_specs())
+    for i in range(0, len(specs), 16):
+        build.build_all(specs[i:i + 16])
+    entries = scheme_mesh_phases(
+        torch.device("cuda", torch.cuda.current_device()), smi, rel, ulps)
+    print(json.dumps({"kernels": [e for e in entries
+                                  if e["name"].startswith("mesh_solve")]}))
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--cards"]:
         cards_only()
+        sys.exit(0)
+    if sys.argv[1:] == ["--mesh"]:
+        mesh_only()
         sys.exit(0)
     if sys.argv[1:] == ["--layers"]:
         layers_only()

@@ -1781,3 +1781,148 @@ def test_second_launch_waits_for_the_neighbour_card(cuda, scheme,
           [pmesh.gather(K1.unstack(a, m)) for a in ref])
     late = [[e.elapsed_time(s_) for e in ends] for s_ in starts]
     assert all(x >= 0.0 for row in late for x in row), late
+
+
+# the mesh's solve on the card (stencils/mesh_solve.py): the Config
+# overrides of each route on the rigid-lid case
+MESH_SOLVES = {"jacobi": dict(scheme="implicit_fs"),
+               "mg": dict(),
+               "redblack": dict(solver="redblack", solver_maxiter=40)}
+
+
+def _mesh_solve_inputs(device, route, mesh_shape, dtype, seed, n=128):
+    """(cfg, grid, forcing, state, mesh, local and 1-halo statics, lam,
+    b, x0) of one mesh solve of `route` on n^2 shards of the card, b and
+    x0 seeded."""
+    from beom_tpu_torch.parallel import dist
+    from beom_tpu_torch.parallel import mesh as pmesh
+
+    cfg, grid, forcing, st = make_case("rigid_lid", nx=n, ny=n,
+                                       device=device, dtype=dtype,
+                                       backend="fused", **MESH_SOLVES[route])
+    m = pmesh.make_mesh(*mesh_shape, devices=[device])
+    pgrid, _ = dist.pad_statics(grid, forcing, cfg, m, 1)
+    grid_l = dist._crop_tree(pgrid, 1)
+    rng = np.random.default_rng(seed)
+
+    def field(amp):
+        a = amp * rng.standard_normal((n, n)).astype(cfg.npdtype)
+        return torch.tensor(a, device=device) * grid.mask
+
+    return (cfg, grid, forcing, st, m, grid_l, pgrid, dist.pressure_lam(cfg),
+            field(1.0), field(0.1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("route", list(MESH_SOLVES))
+def test_mesh_solve_matches_eager_mesh_solve(cuda, route, mesh_shape,
+                                             dtype):
+    """The mesh's solve on the gathered grid of 128^2 shards of the card,
+    warm-started: K6-Jacobi (implicit FS), K6-mg on the mesh's hierarchy
+    (rigid lid) in one launch, K4a's sweeps (40, in passes of 8) for
+    solver='redblack', with no mesh reduction or exchange; x against the
+    eager mesh solve on the same shards within 1e-6 x scale at f64 and
+    1e-3 x scale at f32 (K6's bounds against its plain version), the
+    red-black sweeps within 1e-12 / 1e-5 x scale."""
+    from beom_tpu_torch.parallel import dist, halo
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import mesh_solve
+
+    cfg, _, _, _, m, grid_l, pgrid, lam, b, x0 = _mesh_solve_inputs(
+        cuda, route, mesh_shape, dtype, 91)
+    solve = mesh_solve.make_mesh_solve(grid_l, pgrid, cfg, m, lam)
+    assert solve.route == route
+    bs, xs = pmesh.shard(b, m), pmesh.shard(x0, m)
+    halo.reset_counts()
+    before = (cg_fused.LAUNCHES, redblack.LAUNCHES)
+    got = solve(bs, xs)
+    torch.cuda.synchronize()
+    launched = (cg_fused.LAUNCHES - before[0],
+                redblack.LAUNCHES - before[1])
+    want = (0, len(mesh_solve.rb_passes(cfg.solver_maxiter))) \
+        if route == "redblack" else (1, 0)
+    assert launched == want
+    assert halo.COUNTS == {"reductions": 0, "moved": 0}
+    assert got.mesh is m and got.blocks[0].device == b.device
+    if route == "redblack":
+        ref = dist._dist_redblack(bs, grid_l, pgrid, cfg, lam=lam, x0=xs)
+        rel = 1e-12 if dtype == "float64" else 1e-5
+    else:
+        ref = dist._dist_solve(bs, grid_l, pgrid, cfg, lam=lam, x0=xs)
+        rel = 1e-6 if dtype == "float64" else 1e-3
+    ref = pmesh.gather(ref)
+    scale = float(ref.abs().max())
+    err = float((pmesh.gather(got) - ref).abs().max())
+    assert scale > 0 and err <= rel * scale, (err, scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["jacobi", "mg", "redblack"])
+def test_mesh_solve_over_two_cards(cuda, route):
+    """The mesh's solve over two cards' stacks of the 2 x 2 mesh (the
+    second on a side stream of the one card): bit for bit the one stack's,
+    the same launches, and x handed back as each card's stacked part."""
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band, mesh_solve
+
+    cfg, _, _, _, m, grid_l, pgrid, lam, b, x0 = _mesh_solve_inputs(
+        cuda, route, (2, 2), "float32", 92)
+    bs, xs = pmesh.shard(b, m), pmesh.shard(x0, m)
+    one = mesh_solve.make_mesh_solve(grid_l, pgrid, cfg, m, lam)(bs, xs)
+    cards = _two_cards(m)
+    solve = mesh_solve.make_mesh_solve(grid_l, pgrid, cfg, m, lam, cards)
+    before = (cg_fused.LAUNCHES, redblack.LAUNCHES)
+    two = solve(bs, xs)
+    torch.cuda.synchronize()
+    assert (cg_fused.LAUNCHES - before[0], redblack.LAUNCHES - before[1]) \
+        == ((0, len(mesh_solve.rb_passes(cfg.solver_maxiter)))
+            if route == "redblack" else (1, 0))
+    assert torch.equal(pmesh.gather(two), pmesh.gather(one))
+    for c in cards:
+        assert dist_band.stack_part(two, c.shards) is two.stacked[c.shards]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_shape", [(2, 2), (2, 4)])
+@pytest.mark.parametrize("route", list(MESH_SOLVES))
+def test_fused_mesh_step_solves_on_the_card(cuda, route, mesh_shape):
+    """One fused mesh step at 128^2 f64 (phase A, the mesh's solve, phase
+    B): one K6 launch for the CG routes, K4a's passes for red-black, no
+    mesh reduction but the rigid lid's two de-mean sums and no exchange;
+    the plan names the route; the state within 1e-6 x scale of the eager
+    mesh step's."""
+    from beom_tpu_torch.parallel import dist, halo
+    from beom_tpu_torch.parallel import mesh as pmesh
+    from beom_tpu_torch.stencils import dist_band, mesh_solve
+    from beom_tpu_torch.stepping import prepare_state
+
+    cfg, grid, forcing, st, m, *_ = _mesh_solve_inputs(
+        cuda, route, mesh_shape, "float64", 93)
+    st = prepare_state(_perturbed(cuda, 93, "rigid_lid", nx=cfg.nx,
+                                  ny=cfg.ny, dtype="float64")[3], cfg)
+    text = dist_band.mesh_plan(cfg, cfg.tdtype, m).describe()
+    assert {"jacobi": "K6-Jacobi", "mg": "K6-mg",
+            "redblack": "K4a's sweep mode"}[route] in text, text
+    step = dist.make_dist_stepper(grid, forcing, cfg, m)
+    sharded = pmesh.shard_state(st, m)
+    halo.reset_counts()
+    before = (cg_fused.LAUNCHES, redblack.LAUNCHES,
+              dict(dist_band.LAUNCHES))
+    out = pmesh.gather_state(step(sharded))
+    torch.cuda.synchronize()
+    assert (cg_fused.LAUNCHES - before[0], redblack.LAUNCHES - before[1]) \
+        == ((0, len(mesh_solve.rb_passes(cfg.solver_maxiter)))
+            if route == "redblack" else (1, 0))
+    assert {k: dist_band.LAUNCHES[k] - before[2][k]
+            for k in ("proj_a", "proj_b")} == {"proj_a": 1, "proj_b": 1}
+    assert halo.COUNTS == {
+        "reductions": 0 if cfg.scheme == "implicit_fs" else 2, "moved": 0}
+    eager = pmesh.gather_state(dist.make_dist_stepper(
+        grid, forcing, dataclasses.replace(cfg, backend="eager"), m)(
+            sharded))
+    for f in ("h", "u", "v", "phi"):
+        a, r = getattr(out, f), getattr(eager, f)
+        scale = float(r.abs().max())
+        assert float((a - r).abs().max()) <= 1e-6 * max(scale, 1.0), f

@@ -81,6 +81,19 @@ and run() of the mesh's fb and split paths and of the eager fb tier
 through K8, in ms per step with the device's busy share; and the code
 report.
 
+    python3 tools/kernel_times.py ROOT --mesh solve
+
+times only the projection schemes on a mesh of shards of the card
+through run(), as the checkout solves their pressure equation there
+(mesh_solve_report): the implicit free surface on the shelf at 2048^2
+f32 with 32 layers and 13 constituents on 2 x 2 shards (CG + Jacobi, 10
+steps) and on the 2048^2 f32 rigid-lid gyre on 2 x 4 shards (10 steps),
+and the rigid lid's default solve (CG + multigrid) at 512^2 f32 on 2 x 2
+shards (2 steps), each in ms per step after one step not timed, with
+digests of the final h, u, v; where the checkout has the mesh's solve on
+the card (stencils/mesh_solve.py), also K6's device time per step under
+torch.profiler (every kernel whose name holds "cg_", over 3 steps).
+
     python3 tools/kernel_times.py ROOT --layers
 
 times only what phase 28 of chip_smoke.py runs at many layers, as the
@@ -1026,6 +1039,49 @@ def mesh_report(sm, dev, out, digest, record) -> None:
         out[name.replace("ms/step", "busy share")] = busy(go)
 
 
+def mesh_solve_report(sm, dev, out, digest) -> None:
+    """The --mesh solve report of the checkout imported."""
+    import importlib.util
+
+    import torch
+
+    from beom_tpu_torch.cases import make_case
+    from beom_tpu_torch.run import run
+
+    on_card = importlib.util.find_spec(
+        "beom_tpu_torch.stencils.mesh_solve") is not None
+    legs = (
+        (f"implicit_fs nz {sm.LAYERS28} 2 x 2 shards", 10,
+         lambda n: sm.layers_case(
+             dev, 34, sm.LAYERS28, "float32", N, scheme="implicit_fs",
+             precond="jacobi", backend="fused", diag_every=n, mesh_y=2,
+             mesh_x=2)),
+        ("implicit_fs rigid-lid gyre 2 x 4 shards", 10,
+         lambda n: make_case("rigid_lid", nx=N, ny=N, device=dev,
+                             scheme="implicit_fs", backend="fused",
+                             diag_every=n, mesh_y=2, mesh_x=4)),
+        (f"rigid_lid CG + multigrid {sm.MG_MESH_N}^2 2 x 2 shards", 2,
+         lambda n: make_case("rigid_lid", nx=sm.MG_MESH_N, ny=sm.MG_MESH_N,
+                             device=dev, backend="fused", diag_every=n,
+                             mesh_y=2, mesh_x=2)))
+    for label, n_steps, make in legs:
+        cfg, grid, forcing, st = make(n_steps)
+        st = run(cfg, grid, forcing, st, 1, log=io.StringIO())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last = run(cfg, grid, forcing, st, n_steps, log=io.StringIO())
+        torch.cuda.synchronize()
+        out[f"run() {label} ms/step"] = \
+            (time.perf_counter() - t0) / n_steps * 1e3
+        out[f"run() {label} digest"] = digest(last.h, last.u, last.v)
+        if on_card:
+            one = lambda: run(cfg, grid, forcing, st, 1, log=io.StringIO())
+            out[f"run() {label} K6 device ms/step"] = sm.device_ms(
+                label, one, 3, {"cg_": 1})["cg_"]
+        del cfg, grid, forcing, st, last
+        torch.cuda.empty_cache()
+
+
 def setup_ms(grid, forcing, cfg, before=None) -> float:
     """The host's ms for what run() makes once per call, its stepper
     (make_stepper), the median of three; before() runs ahead of each."""
@@ -1049,7 +1105,7 @@ def main(root: str, only_split: bool = False,
          only_projection: bool = False, only_mesh: bool = False,
          only_layers: bool = False, layers_split: bool = False,
          layers_projection: bool = False, layers_tiles: bool = False,
-         layers_mesh: bool = False) -> dict:
+         layers_mesh: bool = False, mesh_solve: bool = False) -> dict:
     root = str(Path(root).resolve())
     sys.path.insert(0, root)
     import torch
@@ -1121,6 +1177,14 @@ def main(root: str, only_split: bool = False,
         layers_report(sm, dev, out, digest, layers_split, layers_projection,
                       layers_tiles, layers_mesh)
         out["code"] = code_report(build)
+        out["power"] = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+        return out
+
+    if mesh_solve:
+        mesh_solve_report(sm, dev, out, digest)
         out["power"] = subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1313,7 +1377,8 @@ if __name__ == "__main__":
     if len(sys.argv) not in (2, 3, 4) or sys.argv[2:] not in (
             [], ["--split"], ["--projection"], ["--mesh"], ["--layers"],
             ["--layers", "split"], ["--layers", "projection"],
-            ["--layers", "tiles"], ["--layers", "mesh"]):
+            ["--layers", "tiles"], ["--layers", "mesh"],
+            ["--mesh", "solve"]):
         raise SystemExit(__doc__)
     print(json.dumps(main(sys.argv[1], sys.argv[2:] == ["--split"],
                           sys.argv[2:] == ["--projection"],
@@ -1322,4 +1387,5 @@ if __name__ == "__main__":
                           sys.argv[2:] == ["--layers", "split"],
                           sys.argv[2:] == ["--layers", "projection"],
                           sys.argv[2:] == ["--layers", "tiles"],
-                          sys.argv[2:] == ["--layers", "mesh"])))
+                          sys.argv[2:] == ["--layers", "mesh"],
+                          sys.argv[2:] == ["--mesh", "solve"])))
